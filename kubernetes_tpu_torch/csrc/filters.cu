@@ -10,7 +10,10 @@
 // Design: one thread per (spec row u, node n); blockIdx.y = u, so a block's
 // threads share one pod row (read through L1) and walk adjacent nodes. Each
 // predicate short-circuits to the next row on the first failure. The mask is
-// written as one byte per pair (viewed as torch.bool).
+// written as one byte per pair (viewed as torch.bool). With `sel_out` set,
+// the same launch also writes the RAW PodMatchNodeSelector predicate
+// (ops/filters.py:pod_match_node_selector, unmasked by node or pod
+// validity) for every pair: the topology spread score's candidate set.
 //
 // Bound: memory. It must write U*N bytes and read the node bank once per
 // spec row; the per-pair work is a few hundred integer compares at most
@@ -65,12 +68,46 @@ struct FilterArgs {
   const int32_t* p_port_ip;
   const int32_t* p_port_num;
   uint8_t* out;                    // [U, N]
+  uint8_t* sel_out;                // [U, N] raw selector predicate, or null
   int32_t N, U, K, R, T, P, TL, NSP, TERMS, REQS, VALS, PP;
   int32_t wildcard_ip, unschedulable_key, empty_val;
   int32_t predicates;
 };
 
-__device__ bool fits(const FilterArgs& a, int u, int n) {
+// PodMatchNodeSelector: nodeSelector pairs AND required node-affinity terms
+// (terms ORed, requirements ANDed).
+__device__ bool selector_ok(const FilterArgs& a, int u, int n) {
+  const int32_t* lv = a.n_label_vals + (int64_t)n * a.K;
+  const int64_t* ln = a.n_label_num + (int64_t)n * a.K;
+  const uint8_t* lok = a.n_label_num_ok + (int64_t)n * a.K;
+  for (int j = 0; j < a.NSP; ++j) {
+    const int32_t slot = a.p_sel_pair_slot[(int64_t)u * a.NSP + j];
+    if (slot < 0) continue;
+    const int sc = slot > a.K - 1 ? a.K - 1 : slot;
+    if (lv[sc] != a.p_sel_pair_val[(int64_t)u * a.NSP + j]) return false;
+  }
+  if (a.p_has_required[u]) {
+    bool any_term = false;
+    for (int t = 0; t < a.TERMS && !any_term; ++t) {
+      if (!a.p_term_valid[(int64_t)u * a.TERMS + t]) continue;
+      bool all_req = true;
+      const int64_t base = ((int64_t)u * a.TERMS + t) * a.REQS;
+      for (int q = 0; q < a.REQS && all_req; ++q) {
+        all_req = eval_requirement(
+            a.p_term_req_op[base + q], a.p_term_req_slot[base + q],
+            a.p_term_req_vals + (base + q) * a.VALS, a.VALS, a.p_term_req_num[base + q],
+            lv, ln, lok, a.K, a.n_name_id[n]);
+      }
+      any_term = all_req;
+    }
+    if (!any_term) return false;
+  }
+  return true;
+}
+
+// The enabled predicates for one pair; `sel` is the selector predicate when
+// the caller already computed it.
+__device__ bool fits(const FilterArgs& a, int u, int n, const bool* sel) {
   const int pr = a.predicates;
   const int32_t* tk = a.p_tol_key + (int64_t)u * a.TL;
   const int32_t* to = a.p_tol_op + (int64_t)u * a.TL;
@@ -114,33 +151,7 @@ __device__ bool fits(const FilterArgs& a, int u, int n) {
       }
     }
   }
-  if (pr & PRED_SELECTOR) {
-    const int32_t* lv = a.n_label_vals + (int64_t)n * a.K;
-    const int64_t* ln = a.n_label_num + (int64_t)n * a.K;
-    const uint8_t* lok = a.n_label_num_ok + (int64_t)n * a.K;
-    for (int j = 0; j < a.NSP; ++j) {
-      const int32_t slot = a.p_sel_pair_slot[(int64_t)u * a.NSP + j];
-      if (slot < 0) continue;
-      const int sc = slot > a.K - 1 ? a.K - 1 : slot;
-      if (lv[sc] != a.p_sel_pair_val[(int64_t)u * a.NSP + j]) return false;
-    }
-    if (a.p_has_required[u]) {
-      bool any_term = false;
-      for (int t = 0; t < a.TERMS && !any_term; ++t) {
-        if (!a.p_term_valid[(int64_t)u * a.TERMS + t]) continue;
-        bool all_req = true;
-        const int64_t base = ((int64_t)u * a.TERMS + t) * a.REQS;
-        for (int q = 0; q < a.REQS && all_req; ++q) {
-          all_req = eval_requirement(
-              a.p_term_req_op[base + q], a.p_term_req_slot[base + q],
-              a.p_term_req_vals + (base + q) * a.VALS, a.VALS, a.p_term_req_num[base + q],
-              lv, ln, lok, a.K, a.n_name_id[n]);
-        }
-        any_term = all_req;
-      }
-      if (!any_term) return false;
-    }
-  }
+  if ((pr & PRED_SELECTOR) && !(sel != nullptr ? *sel : selector_ok(a, u, n))) return false;
   if (pr & PRED_PORTS) {
     const int32_t* pn = a.p_port_num + (int64_t)u * a.PP;
     const int32_t* pp = a.p_port_proto + (int64_t)u * a.PP;
@@ -166,8 +177,14 @@ __global__ void filter_mask_kernel(const FilterArgs a) {
   const int n = blockIdx.x * blockDim.x + threadIdx.x;
   const int u = blockIdx.y;
   if (n >= a.N) return;
+  bool sel = true;
+  const bool with_sel = a.sel_out != nullptr;
+  if (with_sel) {
+    sel = selector_ok(a, u, n);
+    a.sel_out[(int64_t)u * a.N + n] = sel ? 1 : 0;
+  }
   bool ok = a.p_valid[u] && a.n_valid[n] && !a.n_fallback[n];
-  if (ok) ok = fits(a, u, n);
+  if (ok) ok = fits(a, u, n, with_sel ? &sel : nullptr);
   a.out[(int64_t)u * a.N + n] = ok ? 1 : 0;
 }
 

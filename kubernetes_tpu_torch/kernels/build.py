@@ -44,7 +44,10 @@ NVCC_FLAGS = (
 
 # entry points of the C interface: each takes (const <Args>*, cudaStream_t)
 # and returns the cudaError_t of its launch
-ENTRY_POINTS = ("ktpu_filter_mask", "ktpu_score_matrix", "ktpu_solve_greedy")
+ENTRY_POINTS = (
+    "ktpu_filter_mask", "ktpu_score_matrix", "ktpu_solve_greedy",
+    "ktpu_match_terms", "ktpu_spread_score", "ktpu_selector_spread_score",
+)
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None

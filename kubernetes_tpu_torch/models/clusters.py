@@ -8,11 +8,17 @@ constructors), and the two can be held pod for pod against each other.
 * `bench_config2` — the scheduler_perf-style config 2 of the repository's
   bench.py (5,000 nodes / 50,000 pods at scale 1): NodeResourcesFit +
   TaintToleration + NodeAffinity.
+* `bench_config3` — bench.py config 3 (10,000 nodes in 8 zones / 100,000
+  pods in 100 apps, one ScheduleAnyway zone spread constraint per pod),
+  optionally with one Service per app (`services_selectors`, the
+  SelectorSpread input).
 * `random_cluster` — a seeded cluster meant to reach every branch of the
   filter and score programs: all node-selector operators, taints of every
   effect, unschedulable nodes, host pins, used host ports, images,
   preferAvoidPods, extended resources, limits, priorities and (optionally)
-  encoding-overflow nodes and ported pending pods.
+  encoding-overflow nodes, ported pending pods and, with `topology`, the
+  branches of the topology programs (see `random_selectors` for the
+  matching SelectorSpread input).
 """
 
 from __future__ import annotations
@@ -30,6 +36,9 @@ EFFECTS = ("NoSchedule", "PreferNoSchedule", "NoExecute")
 IMAGES = tuple(f"registry.local/app-{i}:v1" for i in range(6))
 ZONES = ("zone-a", "zone-b", "zone-c")
 GPU = "example.com/gpu"
+ZONE_KEY = "failure-domain.beta.kubernetes.io/zone"
+HOST_KEY = "kubernetes.io/hostname"
+BENCH_ZONES = tuple(f"zone-{i}" for i in range(8))  # bench.py ZONES
 
 
 # --- bench.py config 2 ------------------------------------------------------
@@ -71,6 +80,45 @@ def bench_config2(n_nodes: int, n_pods: int, t: ModuleType = port_types) -> Tupl
             ])])))
         pods.append(p)
     return nodes, pods
+
+
+# --- bench.py config 3 ------------------------------------------------------
+
+def services_selectors(pod, t: ModuleType = port_types) -> list:
+    """getSelectors for a cluster with one Service per app: the Service
+    selects `app=<the pod's app>` (selector_spreading.go)."""
+    return [t.LabelSelector(match_labels={"app": pod.labels["app"]})]
+
+
+def bench_config3(n_nodes: int, n_pods: int, t: ModuleType = port_types, services: bool = False):
+    """bench.py cfg3_spread: nodes spread round-robin over 8 zones; pods of
+    100m/256Mi in 100 apps, each with one ScheduleAnyway zone constraint
+    (maxSkew 1) selecting its own app. Returns (nodes, pods, selectors_fn):
+    with `services`, selectors_fn is services_selectors bound to `t` (pass
+    it to Scheduler.set_spread_selectors_fn), else None."""
+    nodes = []
+    for i in range(n_nodes):
+        node = _bench_node(t, i, taint=False)
+        node.labels[ZONE_KEY] = BENCH_ZONES[i % len(BENCH_ZONES)]
+        nodes.append(node)
+    pods = []
+    for i in range(n_pods):
+        app = f"svc-{i % 100}"
+        pods.append(t.Pod(
+            name=f"pod-{i}",
+            namespace="bench",
+            labels={"app": app},
+            containers=[t.Container(name="c", requests={
+                t.RESOURCE_CPU: t.Quantity.parse("100m"),
+                t.RESOURCE_MEMORY: t.Quantity.parse("256Mi"),
+            })],
+            topology_spread_constraints=[t.TopologySpreadConstraint(
+                max_skew=1, topology_key=ZONE_KEY, when_unsatisfiable="ScheduleAnyway",
+                label_selector=t.LabelSelector(match_labels={"app": app}),
+            )],
+        ))
+    fn = (lambda p: services_selectors(p, t)) if services else None
+    return nodes, pods, fn
 
 
 # --- the all-branches random cluster ----------------------------------------
@@ -205,6 +253,80 @@ def _pod(t, rng, name, node_names, ports: bool, pin: bool):
     )
 
 
+def _label_selector(t, rng, app: str):
+    """A spread selector over the pods' labels: every branch of the
+    compiled selector (nil, empty, matchLabels, each expression operator,
+    an In without values)."""
+    kind = int(rng.integers(8))
+    if kind == 0:
+        return None  # nil: matches nothing
+    if kind == 1:
+        return t.LabelSelector()  # empty: matches everything
+    if kind in (2, 3):
+        return t.LabelSelector(match_labels={"app": app})
+    op = _pick(rng, ("In", "NotIn", "Exists", "DoesNotExist", "In"))
+    key = _pick(rng, ("app", "tier", "absent-key"))
+    vals = [] if op in ("Exists", "DoesNotExist") or rng.random() < 0.1 else \
+        [_pick(rng, ("web", "db", "a", "b")) for _ in range(int(rng.integers(1, 3)))]
+    ml = {"app": app} if rng.random() < 0.4 else {}
+    return t.LabelSelector(match_labels=ml, match_expressions=[
+        t.LabelSelectorRequirement(key=key, operator=op, values=vals)])
+
+
+def _add_topology(t, rng, nodes, existing, pending, hard_spread: bool) -> None:
+    """The topology branches: nodes without the zone key and with a `rack`
+    key on some; existing pods with a second label, some deleting; pending
+    pods with ScheduleAnyway constraints on the zone, hostname or rack key
+    (sometimes two on one key) and, with `hard_spread`, DoNotSchedule
+    ones."""
+    for n in nodes:
+        if rng.random() < 0.1:
+            del n.labels[ZONE_KEY]
+        if rng.random() < 0.7:
+            n.labels["rack"] = f"r{int(rng.integers(4))}"
+    for p in existing:
+        if rng.random() < 0.5:
+            p.labels["tier"] = _pick(rng, ("a", "b"))
+        if rng.random() < 0.1:
+            p.deletion_timestamp = 1.0
+    for p in pending:
+        if rng.random() < 0.5:
+            p.labels["tier"] = _pick(rng, ("a", "b"))
+        cons = []
+        if rng.random() < 0.7:
+            key = _pick(rng, (ZONE_KEY, HOST_KEY, "rack"))
+            cons.append(t.TopologySpreadConstraint(
+                max_skew=int(rng.integers(1, 3)), topology_key=key, when_unsatisfiable="ScheduleAnyway",
+                label_selector=_label_selector(t, rng, p.labels["app"])))
+            if rng.random() < 0.3:
+                key2 = key if rng.random() < 0.6 else _pick(rng, (ZONE_KEY, HOST_KEY, "rack"))
+                cons.append(t.TopologySpreadConstraint(
+                    max_skew=1, topology_key=key2, when_unsatisfiable="ScheduleAnyway",
+                    label_selector=_label_selector(t, rng, p.labels["app"])))
+        if hard_spread and rng.random() < 0.3:
+            cons.append(t.TopologySpreadConstraint(
+                max_skew=1, topology_key=_pick(rng, (ZONE_KEY, HOST_KEY)),
+                when_unsatisfiable="DoNotSchedule",
+                label_selector=_label_selector(t, rng, p.labels["app"])))
+        p.topology_spread_constraints = cons
+
+
+def random_selectors(t: ModuleType = port_types):
+    """A getSelectors for random_cluster pods: web pods sit behind one
+    Service, db pods behind a Service and a ReplicaSet selector on the
+    tier, cache pods behind none (0, 1 and 2 selectors per pod)."""
+    def fn(pod):
+        app = pod.labels.get("app")
+        if app == "web":
+            return [t.LabelSelector(match_labels={"app": "web"})]
+        if app == "db":
+            return [t.LabelSelector(match_labels={"app": "db"}),
+                    t.LabelSelector(match_expressions=[
+                        t.LabelSelectorRequirement(key="tier", operator="In", values=["a"])])]
+        return []
+    return fn
+
+
 def random_cluster(
     seed: int,
     n_nodes: int,
@@ -214,11 +336,15 @@ def random_cluster(
     overflow_nodes: int = 0,
     pending_ports: bool = False,
     pins: bool = True,
+    topology: bool = False,
+    hard_spread: bool = False,
 ) -> Tuple[list, list, list]:
     """(nodes, existing bound pods, pending pods). Existing pods may hold
     host ports (they fill the nodes' port tables); pending pods hold ports
     only with `pending_ports`, and `overflow_nodes` nodes carry more taints
-    than the encoding holds (fallback rows)."""
+    than the encoding holds (fallback rows). `topology` adds the spread
+    branches (`_add_topology`, drawn after everything else so the default
+    cluster is unchanged); `hard_spread` adds DoNotSchedule constraints."""
     rng = np.random.default_rng(seed)
     nodes = [_node(t, rng, i, overflow=i < overflow_nodes) for i in range(n_nodes)]
     names = [n.name for n in nodes]
@@ -228,6 +354,8 @@ def random_cluster(
         p.node_name = _pick(rng, names)
         existing.append(p)
     pending = [_pod(t, rng, f"p{i}", names, ports=pending_ports, pin=pins) for i in range(n_pending)]
+    if topology:
+        _add_topology(t, rng, nodes, existing, pending, hard_spread)
     return nodes, existing, pending
 
 

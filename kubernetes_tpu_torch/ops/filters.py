@@ -263,16 +263,18 @@ class FilterArgs(ctypes.Structure):
     _fields_ = (
         [("n_" + k, ctypes.c_void_p) for k, _ in _NODE_PTRS]
         + [("p_" + k, ctypes.c_void_p) for k, _ in _POD_PTRS]
-        + [("out", ctypes.c_void_p)]
+        + [("out", ctypes.c_void_p), ("sel_out", ctypes.c_void_p)]
         + [(d, ctypes.c_int32) for d in _DIMS]
         + [("wildcard_ip", ctypes.c_int32), ("unschedulable_key", ctypes.c_int32),
            ("empty_val", ctypes.c_int32), ("predicates", ctypes.c_int32)]
     )
 
 
-def filter_args(nodes: Arrays, pods: Arrays, ids, predicates=None):
-    """The kernel's argument struct for these CUDA tensors, and the [U, N]
-    output it writes. Validates device, dtype and contiguity (raises)."""
+def filter_args(nodes: Arrays, pods: Arrays, ids, predicates=None, with_selector: bool = False):
+    """The kernel's argument struct for these CUDA tensors, the [U, N] mask
+    it writes and, with `with_selector`, the [U, N] raw selector predicate
+    it writes in the same launch (else None). Validates device, dtype and
+    contiguity (raises)."""
     nodes = dict(nodes)
     # a carried batch state holds pod counts as int64 (ops/pipeline.apply_carry)
     nodes["pod_count"] = nodes["pod_count"].to(torch.int32)
@@ -289,12 +291,14 @@ def filter_args(nodes: Arrays, pods: Arrays, ids, predicates=None):
     if pods["req"].shape[1] != r:
         raise ValueError("pod and node resource widths differ")
     out = torch.empty((u, n), dtype=torch.bool, device=nodes["valid"].device)
+    sel = torch.empty_like(out) if with_selector else None
     args = FilterArgs()
     for k, dt in _NODE_PTRS:
         setattr(args, "n_" + k, build.ptr(nodes[k], dt))
     for k, dt in _POD_PTRS:
         setattr(args, "p_" + k, build.ptr(pods[k], dt))
     args.out = build.ptr(out, torch.bool, (u, n))
+    args.sel_out = None if sel is None else build.ptr(sel, torch.bool, (u, n))
     for d, v in dims.items():
         setattr(args, d, int(v))
     args.wildcard_ip = int(ids["wildcard_ip"])
@@ -303,23 +307,27 @@ def filter_args(nodes: Arrays, pods: Arrays, ids, predicates=None):
     args.predicates = sum(PRED_BITS[k] for k in enabled_masks(predicates))
     # the struct holds raw pointers: keep the converted tensors alive with it
     args.keepalive = (nodes["pod_count"], nodes["allowed_pods"])
-    return args, out
+    return args, out, sel
 
 
 def combined_mask(
-    nodes: Arrays, pods: Arrays, ids, predicates: Optional[frozenset] = None
-) -> torch.Tensor:
+    nodes: Arrays, pods: Arrays, ids, predicates: Optional[frozenset] = None,
+    with_selector: bool = False,
+):
     """The [U, N] bool feasibility mask of the enabled predicates
-    (None = all). CPU tensors run the plain version; CUDA tensors launch
-    csrc/filters.cu (counted in `combined_mask.launches`)."""
+    (None = all); with `with_selector`, the pair (mask, raw
+    pod_match_node_selector [U, N]). CPU tensors run the plain versions;
+    CUDA tensors launch csrc/filters.cu once for both (counted in
+    `combined_mask.launches`)."""
     dev = nodes["valid"].device
     if dev.type == "cpu":
-        return combined_mask_plain(nodes, pods, ids, predicates)
+        mask = combined_mask_plain(nodes, pods, ids, predicates)
+        return (mask, pod_match_node_selector(nodes, pods)) if with_selector else mask
     if dev.type == "cuda":
-        args, out = filter_args(nodes, pods, ids, predicates)
+        args, out, sel = filter_args(nodes, pods, ids, predicates, with_selector)
         build.launch(FILTER_ENTRY, args, dev)
         combined_mask.launches += 1
-        return out
+        return (out, sel) if with_selector else out
     raise ValueError(f"no filter kernel for device {dev}")
 
 

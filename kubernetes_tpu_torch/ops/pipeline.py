@@ -1,10 +1,12 @@
 """The solve pipeline: mask → score → greedy batch solve.
 
-Port of `kubernetes_tpu/ops/pipeline.py` for batches without topology
-terms (`term_kinds` empty) and without in-batch anti-affinity/port tracking
-— the slice this port runs. The three stages are the hand-written kernels
-of filters.py, scores.py and solver.py on CUDA tensors (their plain
-versions on CPU tensors); the glue between them is plain PyTorch.
+Port of `kubernetes_tpu/ops/pipeline.py` for batches whose topology terms
+are score-only — ScheduleAnyway spread ("spread_soft") and SelectorSpread
+("sel_spread") — and without in-batch anti-affinity/port tracking: the
+slices this port runs. The stages are the hand-written kernels of
+filters.py, scores.py, topology.py and solver.py on CUDA tensors (their
+plain versions on CPU tensors); the glue between them is plain PyTorch.
+Any other term kind raises NotImplementedError naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -16,6 +18,7 @@ import torch
 
 from . import filters as F
 from . import scores as S
+from . import topology as T
 from .solver import pop_order, solve_greedy
 
 Arrays = Dict[str, torch.Tensor]
@@ -46,27 +49,66 @@ class SolveConfig:
 DEFAULT_SOLVE_CONFIG = SolveConfig()
 
 
-def _require_no_terms(term_kinds) -> None:
-    if term_kinds is None or term_kinds:
+# term kinds this port computes (score-only: no host re-check needed)
+PORTED_TERM_KINDS = frozenset({"spread_soft", "sel_spread"})
+_UNPORTED_KIND_ITEMS = {
+    "spread_hard": "ops/topology spread_filter with the commit arbiter (ROADMAP.md queue 1, arbiter slice)",
+    "aff_req": "ops/topology interpod_filter (ROADMAP.md queue 1, slice 3)",
+    "anti_req": "ops/topology interpod_filter (ROADMAP.md queue 1, slice 3)",
+    "pref": "ops/topology interpod_score (ROADMAP.md queue 1, slice 3)",
+    "et_anti": "the PatternBank and interpod_filter (ROADMAP.md queue 1, slice 3)",
+    "et_score": "the PatternBank and interpod_score (ROADMAP.md queue 1, slice 3)",
+}
+
+
+def _check_term_kinds(term_kinds) -> frozenset:
+    """The term kinds of a batch, refused unless every one is ported. None
+    (the reference's "assume everything") is refused too."""
+    if term_kinds is None:
         raise NotImplementedError(
-            f"topology term kinds {sorted(term_kinds) if term_kinds else 'all'} need the "
-            "ops/topology programs (ROADMAP.md queue 1, slice 2)"
+            "term_kinds=None assumes every topology kind; the inter-pod programs need "
+            "ROADMAP.md queue 1, slice 3"
         )
+    unported = sorted(set(term_kinds) - PORTED_TERM_KINDS)
+    if unported:
+        raise NotImplementedError(
+            f"topology term kinds {unported} need "
+            + "; ".join(_UNPORTED_KIND_ITEMS.get(k, "ROADMAP.md queue 1, slice 3") for k in unported)
+        )
+    return frozenset(term_kinds)
 
 
 def mask_and_score(
     na: Arrays, pa: Arrays, ids, config: Optional[SolveConfig] = None,
-    term_kinds: Optional[frozenset] = frozenset(),
+    term_kinds: Optional[frozenset] = frozenset(), *,
+    ea: Optional[Arrays] = None, ta: Optional[Arrays] = None, au: Optional[Arrays] = None,
+    n_buckets: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """The Filter+Score stage for a batch with no topology terms. The
-    SelectorSpread priority still adds its term-absent constant: a pod
+    """The Filter+Score stage. `ea` (SigBank tensors), `ta` (batch TermBank
+    tensors), `au` (compile_batch_terms aux) and `n_buckets` (the segment
+    axis bound, None = N) feed the topology scores of the kinds named in
+    `term_kinds`, gated as the reference gates them. Without "sel_spread"
+    the SelectorSpread priority still adds its term-absent constant: a pod
     with no controller selectors scores MaxNodeScore on every node
-    (selector_spreading.go), so the score carries `w * 10`."""
-    _require_no_terms(term_kinds)
+    (selector_spreading.go), so the score kernel carries `w * 10`."""
+    kinds = _check_term_kinds(term_kinds)
     cfg = config or DEFAULT_SOLVE_CONFIG
-    mask = F.combined_mask(na, pa, ids, predicates=cfg.predicates)
-    bias = cfg.priority_weight("SelectorSpreadPriority", 1) * S.MAX_NODE_SCORE
+    w_spread = cfg.priority_weight("EvenPodsSpreadPriority", 1)
+    w_sel = cfg.priority_weight("SelectorSpreadPriority", 1)
+    spread = bool(w_spread) and "spread_soft" in kinds
+    sel_spread = bool(w_sel) and "sel_spread" in kinds
+    # the spread score's candidate nodes pass the RAW node-selector
+    # predicate (no node/pod validity mask): one filter launch gives both
+    if spread:
+        mask, sel = F.combined_mask(na, pa, ids, predicates=cfg.predicates, with_selector=True)
+    else:
+        mask = F.combined_mask(na, pa, ids, predicates=cfg.predicates)
+    bias = 0 if sel_spread else w_sel * S.MAX_NODE_SCORE
     score = S.score_matrix(na, pa, priorities=cfg.priorities, rtcr=cfg.rtcr, bias=bias)
+    if spread:
+        score = score + w_spread * T.spread_score(na, ea, ta, au, sel, n_buckets=n_buckets)
+    if sel_spread:
+        score = score + w_sel * T.selector_spread_score(na, ea, ta, au, n_buckets=n_buckets)
     return mask, score
 
 
@@ -96,17 +138,24 @@ def solve_pipeline(
     term_kinds: Optional[frozenset] = frozenset(),
     return_carry: bool = False,
     track_inbatch: bool = False,
+    *,
+    ea: Optional[Arrays] = None,  # SigBank tensors
+    ta: Optional[Arrays] = None,  # batch TermBank tensors
+    au: Optional[Arrays] = None,  # compile_batch_terms aux
+    n_buckets: Optional[int] = None,  # topology segment-axis bound
 ):
     """mask → score → greedy solve. Returns (assign [B], score [U, N]),
     plus the post-batch (free, count, nz) carry with return_carry."""
-    _require_no_terms(term_kinds)
+    _check_term_kinds(term_kinds)
     if track_inbatch:
         raise NotImplementedError(
             "in-batch anti-affinity/host-port tracking needs the solver's inb "
-            "tables (ROADMAP.md queue 1, slice 2)"
+            "tables (ROADMAP.md queue 1, slice 3)"
         )
     na = apply_carry(na, carry)
-    mask, score = mask_and_score(na, pa, ids, config, term_kinds)
+    mask, score = mask_and_score(
+        na, pa, ids, config, term_kinds, ea=ea, ta=ta, au=au, n_buckets=n_buckets
+    )
     free0 = na["alloc"] - na["requested"]
     if pb is None:
         sig, pvalid, prio = None, pa["valid"], pa["priority"]

@@ -1,7 +1,7 @@
 """Batch assignment solver: greedy by queue priority, one batch at a time.
 
 Port of `kubernetes_tpu/ops/solver.py` without the in-batch
-anti-affinity/port tracking (`inb`, ROADMAP slice 2). A whole batch of
+anti-affinity/port tracking (`inb`, ROADMAP slice 3). A whole batch of
 pending pods is assigned bit-identically to scheduling them one at a time
 in the order the reference queue pops them (priority desc, then enqueue
 sequence asc): each pod takes the max-(score, tie-noise) node that is

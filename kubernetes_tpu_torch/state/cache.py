@@ -7,13 +7,14 @@ The port's own lean copies of `kubernetes_tpu.state.cache`:
   interface.go:33-47): Initial → Assume → [bind] → Added, or Assume →
   Forget (bind failed) → Initial. Every mutation records what changed
   (dirty nodes, single-pod deltas) for the mirror.
-* `TensorMirror` — keeps the host `NodeBank` in sync with the cache,
-  patching only DIRTY rows per cycle the way UpdateNodeInfoSnapshot walks
-  its generation-ordered dirty list (cache.go:206-242), and keeps a
-  device-resident torch copy of it. The copy is patched by dirty rows with
-  one `index_copy_` per changed array — the counterpart of the reference's
-  jitted `_row_scatter_fn`, a data move with no arithmetic — and uploaded
-  in full only after a rebuild.
+* `TensorMirror` — keeps the host `NodeBank` and the existing pods'
+  `SigBank` in sync with the cache, patching only DIRTY rows per cycle the
+  way UpdateNodeInfoSnapshot walks its generation-ordered dirty list
+  (cache.go:206-242), and keeps device-resident torch copies of both. The
+  copies are patched by dirty rows with one `index_copy_` per changed
+  array — the counterpart of the reference's jitted `_row_scatter_fn`, a
+  data move with no arithmetic — and uploaded in full only after a
+  rebuild.
 
 Both run on one driver thread at a time; the cache's lock covers the bind
 workers' finish_binding / forget calls.
@@ -35,9 +36,11 @@ from .tensors import (
     ImageTable,
     KeySlotOverflow,
     NodeBank,
+    SigBank,
+    SigOverflow,
     Vocab,
+    _bucket,
     _node_bucket,
-    intern_pod_labels,
 )
 
 # node-bank columns a pod commit changes: rows whose only change is a pod
@@ -66,7 +69,7 @@ class SchedulerCache:
         # common event; consumed by TensorMirror.sync
         self.pod_deltas: List[Tuple[str, Pod, int]] = []
         # keys of cached pods that carry pod (anti-)affinity: their terms
-        # feed topology programs this port does not run yet
+        # feed the inter-pod programs this port does not run yet
         self.affinity_pod_keys: Set[str] = set()
 
     # -- helpers -------------------------------------------------------------
@@ -230,23 +233,31 @@ class SchedulerCache:
 
 
 class TensorMirror:
-    """Keeps the `NodeBank` patched from a SchedulerCache, plus its copy on
-    `device`. Node rows come from a free list in snapshot order (the
-    reference's allocation, so row indices — and with them every tie-break
-    — match it). Capacity overflow (more nodes than rows, label-key growth)
-    rebuilds the bank at the next bucket size."""
+    """Keeps the `NodeBank` and the existing pods' `SigBank` patched from a
+    SchedulerCache, plus their copies on `device`. Node rows come from a
+    free list in snapshot order (the reference's allocation, so row
+    indices — and with them every tie-break — match it); each node's pods
+    are counted into label signatures, and `_node_sigs` holds each node's
+    {signature: count} map so a re-encode or removal can release exactly
+    what it added. Capacity overflow (more nodes than rows, more
+    signatures than slots, label-key growth) rebuilds the banks at the
+    next bucket size."""
 
     def __init__(self, cache: SchedulerCache, device: torch.device):
         self.cache = cache
         self.device = torch.device(device)
         self.vocab = Vocab()
         self.rebuild_count = -1  # the constructor's build doesn't count
+        # distinct (ns, labels) signatures are workload-bounded (hundreds in
+        # 100k-pod clusters): starting at 256 avoids a mid-drain rebuild
+        self._min_sigs = 256
         self._dev: Optional[Dict[str, torch.Tensor]] = None
+        self._dev_eps: Optional[Dict[str, torch.Tensor]] = None
         self._device_stale = True
         self._image_stale = False
         self._pending_node_rows: Set[int] = set()  # whole rows to ship
-        self._pending_usage_rows: Set[int] = set()  # USAGE_KEYS only
-        self.rows_shipped = 0  # rows patched into the device copy
+        self._pending_usage_rows: Set[int] = set()  # USAGE_KEYS + sig counts
+        self.rows_shipped = 0  # node rows patched into the device copy
         self._rebuild()
 
     def _rebuild(self) -> None:
@@ -263,14 +274,18 @@ class TensorMirror:
                     self.row_of[ni.node.name] = row
                     self.name_of_row[row] = ni.node.name
                     self.nodes.set_node(row, ni)
-                for ni in snap.node_infos.values():
-                    for pod in ni.pods:
-                        intern_pod_labels(self.vocab, pod, self.nodes.key_capacity)
+                self.eps = SigBank(self.vocab, _bucket(self._min_sigs), self.nodes.capacity)
+                self._node_sigs: Dict[str, Dict[int, int]] = {}
+                for name, ni in snap.node_infos.items():
+                    self._encode_node_pods(name, ni)
                 ImageTable(self.vocab).apply(self.nodes, snap, self.row_of)
                 self._image_sig = {
                     name: self._image_signature(ni) for name, ni in snap.node_infos.items()
                 }
                 break
+            except SigOverflow:
+                # 4x per growth: buy headroom, not tight fits
+                self._min_sigs *= 4
             except KeySlotOverflow:
                 continue  # vocab.config.key_slots already grew
         self.cache.dirty_nodes.clear()
@@ -279,14 +294,32 @@ class TensorMirror:
         self._device_stale = True  # shapes may have changed: full re-upload
         self._pending_node_rows.clear()
         self._pending_usage_rows.clear()
+        self.eps.dirty_sig_rows.clear()
 
     @staticmethod
     def _image_signature(ni: NodeInfo):
         return frozenset(ni.image_sizes().items())
 
+    def _release_node_pods(self, name: str) -> None:
+        """Subtract a node's held signature counts (zeroing its counts row)
+        — before its row is freed or re-counted."""
+        row = self.row_of.get(name)
+        held = self._node_sigs.pop(name, None)
+        if row is not None and held:
+            self.eps.release_node(row, held)
+            self._pending_node_rows.add(row)
+
+    def _encode_node_pods(self, name: str, ni: NodeInfo) -> None:
+        """Count one node's pods into label signatures. Raises SigOverflow /
+        KeySlotOverflow when a bank is full (the caller rebuilds bigger)."""
+        row = self.row_of[name]
+        self._node_sigs[name] = self.eps.encode_node(row, ni.pods)
+        self._pending_node_rows.add(row)
+
     def sync(self) -> bool:
-        """Apply dirty nodes plus single-pod deltas (O(1) each). Returns
-        True if a full rebuild happened (the arrays may change shape)."""
+        """Apply dirty nodes (re-counting only their pods) plus single-pod
+        deltas (O(1) each). Returns True if a full rebuild happened (the
+        arrays may change shape)."""
         cache = self.cache
         with cache._lock:
             dirty = set(cache.dirty_nodes)
@@ -303,6 +336,9 @@ class TensorMirror:
                 return False
             try:
                 for name in removed:
+                    # release pods FIRST (zeroes the node's signature-count
+                    # row) so a later node reusing this row starts clean
+                    self._release_node_pods(name)
                     row = self.row_of.pop(name, None)
                     if row is not None:
                         self.nodes.clear_node(row)
@@ -325,39 +361,46 @@ class TensorMirror:
                         continue
                     self.nodes.set_node(self.row_of[name], ni)
                     self._pending_node_rows.add(self.row_of[name])
-                    for pod in ni.pods:
-                        intern_pod_labels(self.vocab, pod, self.nodes.key_capacity)
+                    self._release_node_pods(name)
+                    self._encode_node_pods(name, ni)
                     sig = self._image_signature(ni)
                     if self._image_sig.get(name) != sig:
                         self._image_sig[name] = sig
                         images_changed = True
                 # single-pod deltas last, skipping nodes re-encoded above
                 # (their rows already include the deltas). Plain adds batch
-                # into np.add.at scatters; removes and ported pods take the
-                # scalar path, flushing the batch first so per-node order
-                # is kept (a remove must see the adds before it).
+                # into np.add.at scatters (usage columns and signature
+                # counts); removes and ported pods take the scalar path,
+                # flushing the batch first so per-node order is kept (a
+                # remove must see the adds before it).
                 reencoded = removed | dirty | set(new_nodes)
                 ports_dirty: Set[str] = set()
                 bulk_rows: List[int] = []
                 bulk_pods: List[Pod] = []
+                bulk_held: List[Dict[int, int]] = []
 
                 def flush_bulk() -> None:
                     if bulk_pods:
-                        self.nodes.apply_pod_deltas_bulk(np.asarray(bulk_rows, np.int64), bulk_pods)
+                        rows_arr = np.asarray(bulk_rows, np.int64)
+                        self.eps.apply_adds_bulk(rows_arr, bulk_pods, bulk_held)
+                        self.nodes.apply_pod_deltas_bulk(rows_arr, bulk_pods)
                         self._pending_usage_rows.update(bulk_rows)
                         bulk_rows.clear()
                         bulk_pods.clear()
+                        bulk_held.clear()
 
                 for name, pod, sign in deltas:
                     if name in reencoded or name not in self.row_of:
                         continue
                     row = self.row_of[name]
-                    intern_pod_labels(self.vocab, pod, self.nodes.key_capacity)
+                    held = self._node_sigs.setdefault(name, {})
                     if sign > 0 and not pod.host_ports():
                         bulk_rows.append(row)
                         bulk_pods.append(pod)
+                        bulk_held.append(held)
                         continue
                     flush_bulk()
+                    self.eps.apply_delta(row, pod, sign, held)
                     self.nodes.apply_pod_delta(row, pod, sign)
                     self._pending_usage_rows.add(row)
                     if pod.host_ports():
@@ -378,37 +421,50 @@ class TensorMirror:
                     # and node count → recompute the whole table (rare)
                     ImageTable(self.vocab).apply(self.nodes, cache.snapshot, self.row_of)
                     self._image_stale = True
-            except KeySlotOverflow:
+            except KeySlotOverflow:  # SigOverflow included
                 self._rebuild()
                 return True
             return False
 
-    def device_arrays(self) -> Dict[str, torch.Tensor]:
-        """The node bank as device-resident tensors, patched with only the
-        rows sync() touched since the last call. Full upload only after a
-        rebuild (shape change)."""
+    def device_arrays(self) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        """(nodes, eps): the node bank and the signature bank as
+        device-resident tensors, patched with only the rows sync() touched
+        since the last call. The signature bank has two row spaces: its
+        metadata (valid, ns_id, label_vals, deleting) is patched by dirty
+        SIGNATURE rows, its node-major `counts` by dirty NODE rows (usage
+        rows included: commits count pods into signatures). Full upload
+        only after a rebuild (shape change)."""
         host = self.nodes.arrays()
+        host_e = self.eps.arrays()
         if self._dev is None or self._device_stale:
             self._dev = arrays_to_torch(host, self.device, copy=True)
+            self._dev_eps = arrays_to_torch(host_e, self.device, copy=True)
             self._device_stale = False
             self._image_stale = False
             self._pending_node_rows.clear()
             self._pending_usage_rows.clear()
-            return self._dev
+            self.eps.dirty_sig_rows.clear()
+            return self._dev, self._dev_eps
         if self._image_stale:
             # the table's width may have changed: ship it whole
             self._dev.update(arrays_to_torch({"image_scaled": host["image_scaled"]}, self.device, copy=True))
             self._image_stale = False
         node_rows = sorted(self._pending_node_rows)
         usage_rows = sorted(self._pending_usage_rows - self._pending_node_rows)
-        self._patch_rows(host, node_rows, tuple(k for k in host if k != "image_scaled"))
-        self._patch_rows(host, usage_rows, USAGE_KEYS)
+        count_rows = sorted(self._pending_usage_rows | self._pending_node_rows)
+        self._patch_rows(self._dev, host, node_rows, tuple(k for k in host if k != "image_scaled"))
+        self._patch_rows(self._dev, host, usage_rows, USAGE_KEYS)
+        self._patch_rows(self._dev_eps, host_e, count_rows, ("counts",))
+        self._patch_rows(self._dev_eps, host_e, sorted(self.eps.dirty_sig_rows),
+                         tuple(k for k in host_e if k != "counts"))
+        self.rows_shipped += len(node_rows) + len(usage_rows)
         self._pending_node_rows.clear()
         self._pending_usage_rows.clear()
-        return self._dev
+        self.eps.dirty_sig_rows.clear()
+        return self._dev, self._dev_eps
 
-    def _patch_rows(self, host: Dict[str, np.ndarray], rows: List[int], keys) -> None:
-        """Overwrite `rows` of the device copy with host truth: one
+    def _patch_rows(self, dev: Dict[str, torch.Tensor], host: Dict[str, np.ndarray], rows: List[int], keys) -> None:
+        """Overwrite `rows` of the device copy `dev` with host truth: one
         host→device slice and one index_copy_ per array (the counterpart
         of the reference's `_row_scatter_fn`)."""
         if not rows:
@@ -417,5 +473,4 @@ class TensorMirror:
         idx = torch.from_numpy(idx_np).to(self.device)
         sliced = arrays_to_torch({k: host[k][idx_np] for k in keys}, self.device)
         for k, v in sliced.items():
-            self._dev[k].index_copy_(0, idx, v)
-        self.rows_shipped += len(rows)
+            dev[k].index_copy_(0, idx, v)

@@ -15,6 +15,7 @@ import torch
 
 _DTYPES = {
     np.dtype(bool): torch.bool,
+    np.dtype(np.int16): torch.int16,
     np.dtype(np.int32): torch.int32,
     np.dtype(np.int64): torch.int64,
     np.dtype(np.float32): torch.float32,
@@ -26,7 +27,7 @@ def arrays_to_torch(
 ) -> Dict[str, torch.Tensor]:
     """Convert a dict of numpy arrays (NodeBank.arrays(), PodBatch.arrays(),
     make_ids output) to contiguous tensors on `device`. Raises TypeError on
-    a dtype outside the map (bool, int32, int64, float32). With copy=False a
+    a dtype outside the map (bool, int16, int32, int64, float32). With copy=False a
     CPU result may share memory with the numpy input; copy=True always
     allocates (the mirror's resident copy)."""
     device = torch.device(device)

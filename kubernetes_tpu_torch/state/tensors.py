@@ -42,7 +42,7 @@ from __future__ import annotations
 import json
 import threading
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Set, Tuple
 
 import numpy as np
 
@@ -199,6 +199,17 @@ class Vocab:
                 table[val_id] = idx
             return idx
 
+    def dense_size(self, slot: int) -> int:
+        """Distinct dense values assigned for a key slot (upper bound on its
+        dense indices). The topology kernels' segment axis only needs this
+        many buckets FOR TERMS ON THIS SLOT — zone-keyed terms need ~#zones
+        buckets, not one per node row (ops/pipeline n_buckets)."""
+        with self._slot_lock:
+            return len(self._dense.get(slot, ()))
+
+    def zone_count(self) -> int:
+        with self._slot_lock:
+            return len(self._zone_dense)
 
 
 def _parse_int_label(v: str) -> Tuple[int, bool]:
@@ -209,18 +220,20 @@ def _parse_int_label(v: str) -> Tuple[int, bool]:
         return 0, False
 
 
-def spec_key(pod):
-    """Canonical key of everything that shapes a pod's mask/score row
-    (every input PodBatch.set_pod reads). Pods sharing a key — every
-    replica of a controller — share ONE row of the [U, N] mask/score
-    matrices; per-pod state (priority, queue order) stays on the batch
-    axis. Containers enter only through their derived features (requests,
-    scoring/limit requests, host ports, image names); the result is
-    memoized on the pod (specs are immutable; updates arrive as new
-    objects)."""
-    memo = pod.__dict__.get("_spec_key_memo")
-    if memo is not None:
-        return memo
+def spec_key(pod, selectors=None):
+    """Canonical key of everything that shapes a pod's mask/score row and
+    its compiled terms (every input PodBatch.set_pod and
+    terms.compile_batch_terms read, the pod's spreading selectors
+    included). Pods sharing a key — every replica of a controller — share
+    ONE row of the [U, N] mask/score matrices; per-pod state (priority,
+    queue order) stays on the batch axis. Containers enter only through
+    their derived features (requests, scoring/limit requests, host ports,
+    image names); without selectors the result is memoized on the pod
+    (specs are immutable; updates arrive as new objects)."""
+    if selectors is None:
+        memo = pod.__dict__.get("_spec_key_memo")
+        if memo is not None:
+            return memo
     key = (
         pod.namespace,
         tuple(sorted(pod.labels.items())),
@@ -235,19 +248,24 @@ def spec_key(pod):
         repr(pod.affinity),
         repr(pod.topology_spread_constraints),
         repr([r for r in pod.owner_references if r.get("controller")]),
+        repr(selectors) if selectors is not None else None,
     )
-    pod.__dict__["_spec_key_memo"] = key
+    if selectors is None:
+        pod.__dict__["_spec_key_memo"] = key
     return key
 
 
-def dedup_specs(pods) -> Tuple[list, List[int]]:
+def dedup_specs(pods, selectors: Optional[Dict[int, list]] = None) -> Tuple[list, List[int]]:
     """Collapse pods to unique specs: (reps, sig), where reps[u] is the
-    first pod of spec u (in order) and sig[i] is pod i's spec row."""
+    first pod of spec u (in order) and sig[i] is pod i's spec row.
+    `selectors` maps id(pod) to its spreading selectors (the driver's
+    set_spread_selectors_fn): pods whose selectors differ never share a
+    row."""
     index: Dict[tuple, int] = {}
     reps: list = []
     sig: List[int] = []
     for p in pods:
-        k = spec_key(p)
+        k = spec_key(p, selectors.get(id(p)) if selectors else None)
         u = index.get(k)
         if u is None:
             u = index[k] = len(reps)
@@ -940,27 +958,194 @@ _bucket = pow2_bucket
 _node_bucket = node_axis_bucket
 
 
-def intern_pod_labels(vocab: Vocab, pod, key_capacity: int) -> None:
-    """Intern an existing pod's label keys, values and namespace in the
-    order the reference's signature bank (SigBank._encode_key) does while
-    it counts a node's pods, raising KeySlotOverflow where it would. The
-    port keeps no signature bank in this slice, but replaying its interning
-    keeps every id — and so the image table's column layout — identical
-    to the reference encoding."""
-    for k, val in pod.labels.items():
-        if vocab.slot_of_key(k) >= key_capacity:
-            raise KeySlotOverflow()
-        vocab.id(val)
-    vocab.id(pod.namespace)
+class SigOverflow(KeySlotOverflow):
+    """Signature bank out of slots — rebuild at the next bucket size."""
+
+
+@dataclass
+class SigBank:
+    """Existing pods collapsed to LABEL SIGNATURES with per-node counts.
+
+    Every device consumer of existing pods (the topology kernels) matches
+    terms against a pod's (namespace, labels, deleting) and then counts
+    matches per node — the pod's identity never matters. Distinct (ns,
+    labels, deleting) combinations number in the hundreds even in
+    100k-pod clusters, so matching runs against S signature rows instead
+    of M pod rows, and the per-node counts become one [TT, S] x [S, N]
+    product.
+
+    Arrays:
+      valid [S], ns_id [S], label_vals [S, K], deleting [S] — signature
+      metadata, patched by dirty SIGNATURE rows;
+      counts [N_cap, S] int16 — pods per (node, signature), node-major so
+      the mirror patches it with dirty NODE rows.
+
+    The slab bookkeeping is confined to the driver thread (the mirror's
+    contract: sync and rebuild run there).
+    """
+
+    vocab: Vocab
+    capacity: int  # S
+    node_capacity: int  # N rows of the counts matrix
+
+    valid: np.ndarray = None  # [S]
+    ns_id: np.ndarray = None  # [S] int32
+    label_vals: np.ndarray = None  # [S, K] int32
+    deleting: np.ndarray = None  # [S] bool
+    counts: np.ndarray = None  # [N, S] int16
+
+    def __post_init__(self):
+        c = self.vocab.config
+        self.key_capacity = c.key_slots
+        s = self.capacity
+        self.valid = np.zeros(s, bool)
+        self.ns_id = np.zeros(s, np.int32)
+        self.label_vals = np.zeros((s, c.key_slots), np.int32)
+        self.deleting = np.zeros(s, bool)
+        self.counts = np.zeros((self.node_capacity, s), np.int16)
+        self._sig_of: Dict[bytes, int] = {}
+        self._key_of_row: Dict[int, bytes] = {}
+        self._encode_cache: Dict[tuple, Tuple[bytes, np.ndarray, int, bool]] = {}
+        self._refs = np.zeros(s, np.int64)
+        self._free = list(range(s - 1, -1, -1))
+        self.dirty_sig_rows: Set[int] = set()
+
+    def _encode_key(self, pod) -> Tuple[bytes, np.ndarray, int, bool]:
+        """(key bytes, label row, namespace id, deleting) of a pod. Memoized
+        on the pod object (tagged by vocab and slot width, so a rebuild
+        reuses it but a grown key space does not) and by label content:
+        replicas share label sets, so a 4,096-pod batch needs ~#specs real
+        encodes. Safe because Vocab ids and slots are grow-only."""
+        obj_memo = pod.__dict__.get("_sig_enc_memo")
+        if obj_memo is not None and obj_memo[0] is self.vocab and obj_memo[1] == self.key_capacity:
+            return obj_memo[2]
+        lk = (tuple(sorted(pod.labels.items())), pod.namespace, pod.deletion_timestamp is not None)
+        hit = self._encode_cache.get(lk)
+        if hit is not None:
+            pod.__dict__["_sig_enc_memo"] = (self.vocab, self.key_capacity, hit)
+            return hit
+        v = self.vocab
+        row = np.zeros(self.key_capacity, np.int32)
+        row[:] = ABSENT
+        for k, val in pod.labels.items():
+            s = v.slot_of_key(k)
+            if s >= self.key_capacity:
+                raise KeySlotOverflow()
+            row[s] = v.id(val)
+        ns = v.id(pod.namespace)
+        deleting = pod.deletion_timestamp is not None
+        key = row.tobytes() + ns.to_bytes(4, "little") + bytes([deleting])
+        if len(self._encode_cache) > 8192:
+            self._encode_cache.clear()
+        out = (key, row, ns, deleting)
+        self._encode_cache[lk] = out
+        pod.__dict__["_sig_enc_memo"] = (self.vocab, self.key_capacity, out)
+        return out
+
+    def _intern(self, pod) -> int:
+        key, row, ns, deleting = self._encode_key(pod)
+        sig = self._sig_of.get(key)
+        if sig is None:
+            if not self._free:
+                raise SigOverflow()
+            sig = self._free.pop()
+            self._sig_of[key] = sig
+            self.valid[sig] = True
+            self.ns_id[sig] = ns
+            self.label_vals[sig] = row
+            self.deleting[sig] = deleting
+            self._key_of_row[sig] = key
+            self.dirty_sig_rows.add(sig)
+        return sig
+
+    def _unref(self, sig: int, n: int) -> None:
+        self._refs[sig] -= n
+        if self._refs[sig] <= 0:
+            self._refs[sig] = 0
+            self.valid[sig] = False
+            key = self._key_of_row.pop(sig, None)
+            if key is not None:
+                self._sig_of.pop(key, None)
+            self._free.append(sig)
+            self.dirty_sig_rows.add(sig)
+
+    def release_node(self, node_row: int, held: Dict[int, int]) -> None:
+        """Undo a node's contribution: `held` is its {sig: count} map."""
+        for sig, n in held.items():
+            self.counts[node_row, sig] -= n
+            self._unref(sig, n)
+
+    def apply_delta(self, node_row: int, pod, sign: int, held: Dict[int, int]) -> None:
+        """O(1) single-pod count change (the mirror's pod-delta path).
+        `held` is the node's {sig: count} map. Raises KeySlotOverflow /
+        SigOverflow like encode_node (the caller rebuilds); a remove of an
+        unknown signature means the books are inconsistent — also a
+        rebuild."""
+        if sign > 0:
+            sig = self._intern(pod)
+            held[sig] = held.get(sig, 0) + 1
+            self._refs[sig] += 1
+            self.counts[node_row, sig] += 1
+            return
+        key, _, _, _ = self._encode_key(pod)
+        sig = self._sig_of.get(key)
+        if sig is None or held.get(sig, 0) <= 0:
+            raise SigOverflow()  # inconsistent books: a full rebuild heals
+        held[sig] -= 1
+        if held[sig] == 0:
+            del held[sig]
+        self.counts[node_row, sig] -= 1
+        self._unref(sig, 1)
+
+    def apply_adds_bulk(self, rows: np.ndarray, pods: Sequence, held_maps: Sequence[Dict[int, int]]) -> None:
+        """apply_delta(sign=+1) over a whole commit batch: interning stays
+        per pod (memoized), the count and reference scatters are two
+        np.add.at calls. A raise mid-loop leaves the books inconsistent;
+        the caller rebuilds."""
+        sigs = np.empty(len(pods), np.int64)
+        for i, pod in enumerate(pods):
+            sig = self._intern(pod)
+            sigs[i] = sig
+            h = held_maps[i]
+            h[sig] = h.get(sig, 0) + 1
+        np.add.at(self._refs, sigs, 1)
+        np.add.at(self.counts, (rows, sigs), 1)
+
+    def encode_node(self, node_row: int, pods) -> Dict[int, int]:
+        """Count a node's pods into signatures → the {sig: count} map the
+        caller keeps for the matching release_node. Raises KeySlotOverflow
+        / SigOverflow for the mirror's rebuild-bigger loop (partial
+        references are rolled back first)."""
+        held: Dict[int, int] = {}
+        try:
+            for pod in pods:
+                sig = self._intern(pod)
+                held[sig] = held.get(sig, 0) + 1
+                self._refs[sig] += 1
+                self.counts[node_row, sig] += 1
+        except KeySlotOverflow:
+            self.release_node(node_row, held)
+            raise
+        return held
+
+    def arrays(self) -> Dict[str, np.ndarray]:
+        return {
+            "valid": self.valid,
+            "ns_id": self.ns_id,
+            "label_vals": self.label_vals,
+            "deleting": self.deleting,
+            "counts": self.counts,
+        }
 
 
 def encode_snapshot(
     snapshot: Snapshot, vocab: Optional[Vocab] = None, with_images: bool = True
-) -> Tuple[NodeBank, Dict[str, int]]:
-    """Full (re-)encode of a Snapshot → (NodeBank, node_row_index). The
-    reference returns its signature bank between the two; this slice runs
-    no topology program, so the port builds none."""
+) -> Tuple[NodeBank, SigBank, Dict[str, int]]:
+    """Full (re-)encode of a Snapshot → (NodeBank, SigBank,
+    node_row_index). The mirror's incremental path reuses the banks and
+    calls set_node / encode_node for dirty rows only."""
     vocab = vocab or Vocab()
+    min_sigs = 16
     while True:
         try:
             infos = list(snapshot.node_infos.values())
@@ -969,11 +1154,13 @@ def encode_snapshot(
             for i, ni in enumerate(infos):
                 bank.set_node(i, ni)
                 row_of[ni.node.name] = i
-            for ni in infos:
-                for pod in ni.pods:
-                    intern_pod_labels(vocab, pod, bank.key_capacity)
+            sigs = SigBank(vocab, _bucket(min_sigs), bank.capacity)
+            for i, ni in enumerate(infos):
+                sigs.encode_node(i, ni.pods)
             if with_images:
                 ImageTable(vocab).apply(bank, snapshot)
-            return bank, row_of
+            return bank, sigs, row_of
+        except SigOverflow:
+            min_sigs *= 2
         except KeySlotOverflow:
             continue  # vocab.config.key_slots already grown; rebuild

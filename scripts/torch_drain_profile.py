@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Where the port's config-2 drain spends its time, on one NVIDIA card.
+"""Where the port's drain spends its time, on one NVIDIA card.
 
-    python3 scripts/torch_drain_profile.py [--nodes 5000] [--pods 50000]
-        [--batch 4096] [--out chiprun_out/drain_profile]
+    python3 scripts/torch_drain_profile.py [--config 2|3] [--services]
+        [--nodes N] [--pods P] [--batch 4096] [--out chiprun_out/drain_profile]
 
-Drives the drain of chip_smoke.py phase 5 (kubernetes_tpu_torch's
-Scheduler on bench.py config 2, tie-noise on) after a 1/10-scale warm-up
-drain that builds and loads the kernels, three times:
+Drives a drain of chip_smoke.py phase 5 (kubernetes_tpu_torch's Scheduler,
+tie-noise on) on bench.py config 2 (default 5,000 nodes / 50,000 pods) or
+config 3 (default 10,000 nodes / 100,000 pods; with --services, one
+Service per app feeds SelectorSpread) after a 1/10-scale warm-up drain
+that builds and loads the kernels, three times:
 
   1. plain      wall time and the driver's per-stage seconds, the
                 reference for the overheads of the two runs below;
@@ -52,10 +54,12 @@ STAGES = (
     ("scheduler/driver.py", "schedule_batch"),
     ("state/queue.py", "pop_batch"),
     ("state/cache.py", "sync"),
-    ("state/tensors.py", "intern_pod_labels"),
+    ("state/tensors.py", "apply_adds_bulk"),
     ("state/tensors.py", "apply_pod_deltas_bulk"),
     ("scheduler/driver.py", "_encode"),
+    ("state/tensors.py", "dedup_specs"),
     ("state/tensors.py", "set_pod"),
+    ("state/terms.py", "compile_batch_terms"),
     ("state/convert.py", "arrays_to_torch"),
     ("state/cache.py", "device_arrays"),
     ("state/cache.py", "_patch_rows"),
@@ -68,18 +72,24 @@ STAGES = (
 )
 
 
-def drain(n_nodes: int, n_pods: int, batch: int, around=contextlib.nullcontext):
-    from kubernetes_tpu_torch.models.clusters import bench_config2, fill_cache
+def drain(config: int, services: bool, n_nodes: int, n_pods: int, batch: int, around=contextlib.nullcontext):
+    from kubernetes_tpu_torch.models.clusters import bench_config2, bench_config3, fill_cache
     from kubernetes_tpu_torch.scheduler.driver import Scheduler
     from kubernetes_tpu_torch.state.cache import SchedulerCache
     from kubernetes_tpu_torch.state.queue import PriorityQueue
 
-    nodes, pods = bench_config2(n_nodes, n_pods)
+    fn = None
+    if config == 2:
+        nodes, pods = bench_config2(n_nodes, n_pods)
+    else:
+        nodes, pods, fn = bench_config3(n_nodes, n_pods, services=services)
     cache, queue = SchedulerCache(), PriorityQueue()
     fill_cache(cache, nodes)
     for p in pods:
         queue.add(p)
     sched = Scheduler(cache, queue, batch_size=batch, deterministic=False, seed=0, device="cuda")
+    if fn is not None:
+        sched.set_spread_selectors_fn(fn)
     torch.cuda.synchronize()
     with around():
         t0 = time.perf_counter()
@@ -184,11 +194,15 @@ def device_split(trace_path: str, window: str = "drain") -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--nodes", type=int, default=5000)
-    ap.add_argument("--pods", type=int, default=50000)
+    ap.add_argument("--config", type=int, choices=(2, 3), default=2)
+    ap.add_argument("--services", action="store_true", help="config 3: one Service per app")
+    ap.add_argument("--nodes", type=int, default=None, help="default 5,000 (config 2) / 10,000 (config 3)")
+    ap.add_argument("--pods", type=int, default=None, help="default 50,000 (config 2) / 100,000 (config 3)")
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out", "drain_profile"))
     args = ap.parse_args()
+    args.nodes = args.nodes or (5000 if args.config == 2 else 10000)
+    args.pods = args.pods or (50000 if args.config == 2 else 100000)
     if not torch.cuda.is_available():
         print("torch_drain_profile: no CUDA device available", file=sys.stderr)
         return 1
@@ -196,14 +210,16 @@ def main() -> int:
     os.makedirs(args.out, exist_ok=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          stdout=subprocess.PIPE, text=True).stdout.strip()
-    print(f"[profile] card: {smi}", flush=True)
+    print(f"[profile] card: {smi}; config {args.config}{' + Services' if args.services else ''}, "
+          f"{args.nodes} nodes, {args.pods} pods, batch {args.batch}", flush=True)
 
-    drain(args.nodes // 10, args.pods // 10, args.batch // 4)  # builds + loads the kernels
-    plain = drain(args.nodes, args.pods, args.batch)
+    work = (args.config, args.services)
+    drain(*work, args.nodes // 10, args.pods // 10, args.batch // 4)  # builds + loads the kernels
+    plain = drain(*work, args.nodes, args.pods, args.batch)
     print(f"[profile] plain: {json.dumps(plain)}", flush=True)
 
     sampler = StackSampler(threading.get_ident())
-    sampled = drain(args.nodes, args.pods, args.batch, lambda: sampler)
+    sampled = drain(*work, args.nodes, args.pods, args.batch, lambda: sampler)
     host = sampler.report()
     print(f"[profile] sampled: {json.dumps(sampled)}; {host['samples']} samples over "
           f"{host['sampled_s']:.3f}s", flush=True)
@@ -222,7 +238,7 @@ def main() -> int:
             with record_function("drain"):
                 yield
 
-    traced_run = drain(args.nodes, args.pods, args.batch, traced)
+    traced_run = drain(*work, args.nodes, args.pods, args.batch, traced)
     scratch = os.path.join(REPO, "build")
     os.makedirs(scratch, exist_ok=True)
     with tempfile.TemporaryDirectory(dir=scratch) as d:
@@ -236,13 +252,15 @@ def main() -> int:
         print(f"[profile]   {v['busy_ms']:.3f} ms in {v['count']} x {name[:90]}", flush=True)
 
     summary = {
-        "card": smi, "nodes": args.nodes, "pods": args.pods, "batch": args.batch,
+        "card": smi, "config": args.config, "services": args.services,
+        "nodes": args.nodes, "pods": args.pods, "batch": args.batch,
         "plain": plain, "sampled": {"run": sampled, **host},
         "traced": {"run": traced_run, "device": device},
     }
     with open(os.path.join(args.out, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
-    print(json.dumps({"plain_pods_per_s": plain["pods_per_s"], "idle_share": device["idle_share"],
+    print(json.dumps({"config": args.config, "services": args.services,
+                      "plain_pods_per_s": plain["pods_per_s"], "idle_share": device["idle_share"],
                       "busy_ms": device["busy_ms"], "window_ms": device["window_ms"]}), flush=True)
     return 0 if device["device_events"] else 1
 

@@ -1,7 +1,9 @@
 """The port's encoder is the state carried across: for the same seeded
-cluster, its NodeBank / PodBatch arrays and interned constants equal the
-reference's key for key, dtype included (exact equality), and its mirror
-keeps the device copy equal to the host bank through cache events."""
+cluster, its NodeBank / SigBank / PodBatch arrays and interned constants
+equal the reference's key for key, dtype included (exact equality), and
+its mirror keeps both banks, and their device copies, equal to the
+reference's through cache events: node adds and removals, bulk pod adds,
+removes, a node update and a SigOverflow rebuild."""
 
 import numpy as np
 import pytest
@@ -16,7 +18,7 @@ from kubernetes_tpu.state.tensors import encode_snapshot as r_encode
 from kubernetes_tpu.state.tensors import spec_key as r_spec_key
 
 from kubernetes_tpu_torch.api import types as PT
-from kubernetes_tpu_torch.models.clusters import fill_cache, random_cluster
+from kubernetes_tpu_torch.models.clusters import fill_cache, random_cluster, random_selectors
 from kubernetes_tpu_torch.ops import filters as PF
 from kubernetes_tpu_torch.oracle.nodeinfo import Snapshot as PSnapshot
 from kubernetes_tpu_torch.state.cache import SchedulerCache as PCache
@@ -40,10 +42,11 @@ def test_snapshot_and_batch_encode_key_for_key(seed):
               pending_ports=True)
     rn, re, rp = random_cluster(seed, t=RT, **kw)
     pn, pe, pp = random_cluster(seed, t=PT, **kw)
-    rbank, _, rrows = r_encode(RSnapshot(rn, re))
-    pbank, prows = p_encode(PSnapshot(pn, pe))
+    rbank, rsigs, rrows = r_encode(RSnapshot(rn, re))
+    pbank, psigs, prows = p_encode(PSnapshot(pn, pe))
     assert rrows == prows
     assert_same_arrays(rbank.arrays(), pbank.arrays())
+    assert_same_arrays(rsigs.arrays(), psigs.arrays())
     rb, pb = RPodBatch(rbank.vocab, 64), PPodBatch(pbank.vocab, 64)
     for i, (a, b) in enumerate(zip(rp, pp)):
         rb.set_pod(i, a)
@@ -53,17 +56,28 @@ def test_snapshot_and_batch_encode_key_for_key(seed):
 
 
 @pytest.mark.parametrize("seed", [0, 4])
-def test_spec_dedup_groups_pods_like_the_reference_key(seed):
+@pytest.mark.parametrize("with_selectors", [False, True], ids=["plain", "selectors"])
+def test_spec_dedup_groups_pods_like_the_reference_key(seed, with_selectors):
     """dedup_specs gives the spec rows the reference driver's spec_key
-    dedup gives: first-seen order, one row per distinct key."""
-    rn, re, rp = random_cluster(seed, 12, 10, 80, t=RT)
-    _, _, pp = random_cluster(seed, 12, 10, 80, t=PT)
+    dedup gives: first-seen order, one row per distinct key — with
+    spreading selectors in the key, so replicas behind different selectors
+    never share a row."""
+    rn, re, rp = random_cluster(seed, 12, 10, 80, t=RT, topology=True)
+    _, _, pp = random_cluster(seed, 12, 10, 80, t=PT, topology=True)
     pp = pp + pp[:20]  # replicas of earlier specs
     rp = rp + rp[:20]
+    r_sel = p_sel = None
+    if with_selectors:
+        # the same spec behind different selectors: every 3rd pod's list
+        # gains a selector
+        rfn, pfn = random_selectors(RT), random_selectors(PT)
+        r_sel = {id(p): rfn(p) + ([RT.LabelSelector()] if i % 3 == 0 else []) for i, p in enumerate(rp)}
+        p_sel = {id(p): pfn(p) + ([PT.LabelSelector()] if i % 3 == 0 else []) for i, p in enumerate(pp)}
     index, r_sig = {}, []
     for p in rp:
-        r_sig.append(index.setdefault(r_spec_key(p), len(index)))
-    reps, sig = dedup_specs(pp)
+        key = r_spec_key(p, r_sel[id(p)] if r_sel else None)
+        r_sig.append(index.setdefault(key, len(index)))
+    reps, sig = dedup_specs(pp, p_sel)
     assert sig == r_sig
     assert len(reps) == len(index) < len(pp)
     assert [p.name for p in reps] == [rp[r_sig.index(u)].name for u in range(len(reps))]
@@ -76,16 +90,19 @@ def test_key_slot_growth_reencodes_like_the_reference():
                         allocatable={t.RESOURCE_PODS: t.Quantity.parse(5)}) for i in range(7)]
         return nodes
     rbank, _, _ = r_encode(RSnapshot(build(RT)))
-    pbank, _ = p_encode(PSnapshot(build(PT)))
+    pbank, _, _ = p_encode(PSnapshot(build(PT)))
     assert pbank.key_capacity == rbank.key_capacity == 128
     assert_same_arrays(rbank.arrays(), pbank.arrays())
 
 
 def _mirror_events(cache_cls, mirror_cls, t, seed, **mirror_kw):
-    nodes, existing, pending = random_cluster(seed, 20, 30, 25, t=t)
+    nodes, existing, pending = random_cluster(seed, 20, 40, 25, t=t, topology=True)
     cache = cache_cls()
     fill_cache(cache, nodes[:18], existing[:10])  # 18 nodes: a 32-row bank
     mirror = mirror_cls(cache, **mirror_kw)
+    mirror._min_sigs = 16  # small signature bank: the adds below overflow it
+    mirror._rebuild()
+    mirror.rebuild_count = 0
     yield mirror
     # node adds, pod assumes/forgets, a removal and a node update
     for n in nodes[18:]:
@@ -99,6 +116,28 @@ def _mirror_events(cache_cls, mirror_cls, t, seed, **mirror_kw):
     cache.update_node(changed)
     mirror.sync()
     yield mirror
+    # bulk adds only (the common commit), then removes of some of them
+    for p in pending[12:24]:
+        cache.assume_pod(p.with_node(nodes[(int(p.name[1:]) * 7) % 20].name))
+    mirror.sync()
+    yield mirror
+    for p in pending[12:16]:
+        cache.forget_pod(p.with_node(nodes[(int(p.name[1:]) * 7) % 20].name))
+    mirror.sync()
+    yield mirror
+    # more distinct signatures than the 16 slots hold: SigOverflow rebuild
+    for i, p in enumerate(pending[24:40]):
+        q = p.with_node(nodes[i % 20].name)
+        q.labels = {**q.labels, "uniq": f"u{i}"}
+        cache.assume_pod(q)
+    mirror.sync()
+    yield mirror
+
+
+def _device_eps(mirror):
+    """The port mirror's device copies as numpy dicts."""
+    na, ea = mirror.device_arrays()
+    return {k: v.numpy() for k, v in na.items()}, {k: v.numpy() for k, v in ea.items()}
 
 
 @pytest.mark.parametrize("seed", [5, 6])
@@ -109,8 +148,41 @@ def test_mirror_tracks_cache_events_like_the_reference(seed):
         assert rm.row_of == pm.row_of
         host = pm.nodes.arrays()
         assert_same_arrays(rm.nodes.arrays(), host)
-        # the resident copy, patched by dirty rows, equals host truth
-        dev = pm.device_arrays()
-        assert_same_arrays(host, {k: v.numpy() for k, v in dev.items()})
-    # the second step patched rows into the resident copy, no re-upload
-    assert pm.rows_shipped > 0 and pm.rebuild_count == 0
+        assert_same_arrays(rm.eps.arrays(), pm.eps.arrays())
+        assert rm.rebuild_count == pm.rebuild_count
+        # the resident copies, patched by dirty rows, equal host truth
+        dev_n, dev_e = _device_eps(pm)
+        assert_same_arrays(host, dev_n)
+        assert_same_arrays(pm.eps.arrays(), dev_e)
+    # the run patched rows into the resident copy; only the signature
+    # overflow rebuilt the banks (at 4x the slots)
+    assert pm.rows_shipped > 0 and pm.rebuild_count == 1
+    assert pm.eps.capacity == 64
+
+
+def test_sig_bank_after_drain_equals_a_fresh_encode():
+    """The incremental signature path (bulk adds through apply_adds_bulk)
+    ends where a fresh encode of the final cache starts: the same counts,
+    valid rows and label rows at each signature's row."""
+    nodes, existing, pending = random_cluster(8, 16, 60, 20, t=PT, topology=True)
+    cache = PCache()
+    fill_cache(cache, nodes, existing)
+    mirror = PMirror(cache, device="cpu")
+    mirror.device_arrays()
+    for i, p in enumerate(pending):
+        cache.assume_pod(p.with_node(nodes[i % 16].name))
+    mirror.sync()
+    _, dev_e = _device_eps(mirror)
+    _, fresh, rows = p_encode(cache.snapshot, vocab=mirror.vocab)
+    assert rows == mirror.row_of
+    # signature rows are allocated in another order: compare by content
+    def by_key(e):
+        out = {}
+        for s in np.flatnonzero(e["valid"]):
+            key = (e["label_vals"][s].tobytes(), int(e["ns_id"][s]), bool(e["deleting"][s]))
+            out[key] = e["counts"][:, s].copy()
+        return out
+    got, want = by_key(dev_e), by_key(fresh.arrays())
+    assert got.keys() == want.keys()
+    for k in want:
+        assert np.array_equal(got[k], want[k])
