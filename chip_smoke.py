@@ -8,11 +8,13 @@ with nvcc for sm_90a, holds each kernel against its plain PyTorch version
 on the card (exact equality: every value is an integer, and the two
 float64 paths truncate identically), then drives the port's main paths —
 the batch Scheduler on the bench.py config-2 workload (5,000 nodes, 50,000
-pods, NoSchedule taints with tolerations, required node affinity) and on
+pods, NoSchedule taints with tolerations, required node affinity), on
 the config-3 workload (10,000 nodes in 8 zones, 100,000 pods in 100 apps,
 one ScheduleAnyway zone spread constraint each; then the same behind one
-Service per app, the SelectorSpread input), batches of 4,096 — and checks
-what they placed. Phases:
+Service per app, the SelectorSpread input) and on the config-4 workload
+(2,000 nodes in 8 zones, 20,000 pods in 20 apps: every 10th pod with a
+required hostname anti-affinity, the rest with a preferred zone affinity),
+batches of 4,096 — and checks what they placed. Phases:
 
   1. device     card name, count, power limit
   2. build      nvcc seconds and the -Xptxas -v register/shared lines
@@ -22,17 +24,26 @@ what they placed. Phases:
                 shapes (U=128, N=6144, B=4096); match_terms, spread_score and
                 selector_spread_score on a seeded cluster reaching every
                 topology branch and at the config-3 shapes (U=128, N=10240,
-                TT=128 or 256, S=256, V=16); CUDA-event times of kernel and
-                plain version, and each kernel's bound
-  4. parity     config 2 and config 3 at 1/10 scale through Scheduler on
-                cuda and on cpu (config 3 without Services deterministic,
-                with Services under tie-noise): identical placements
+                TT=128 or 256, S=256, V=16); interpod_filter (every subset
+                of its parts), interpod_score (each part and both),
+                inbatch_port_conflict and the tracked solve on a seeded
+                cluster reaching every inter-pod branch and at the config-4
+                shapes (U=32, N=2048, TT=32, S=256, PT=32, V=2048);
+                CUDA-event times of kernel and plain version, and each
+                kernel's bound
+  4. parity     config 2, config 3 and config 4 at 1/10 scale through
+                Scheduler on cuda and on cpu (config 3 without Services
+                deterministic, with Services under tie-noise; config 4
+                both): identical placements
   5. drain      config 2 at full size; then config 3 at full size, without
-                and with Services: every pod placed, no node over its
-                allocatable or pod limit, config 2's placements pass the
-                taint/affinity checks, config 3's device signature bank
-                equals a fresh host encode of the final cache; pods/s,
-                stages, peak memory, per-app zone skew
+                and with Services; then config 4 at full size: every pod
+                placed, no node over its allocatable or pod limit, config
+                2's placements pass the taint/affinity checks, config 3's
+                device signature bank equals a fresh host encode of the
+                final cache, config 4 puts no two pods of one `exclusive`
+                value on a node and its device pattern and signature banks
+                equal a fresh host encode; pods/s, stages, peak memory,
+                per-app zone skew or share
   6. kernels    one JSON line: per kernel its launches in the drains (the
                 counts are set to 0 before each drain and read after it),
                 error, times and bound
@@ -66,6 +77,8 @@ CONFIG2_NODES = 5000
 CONFIG2_PODS = 50000
 CONFIG3_NODES = 10000
 CONFIG3_PODS = 100000
+CONFIG4_NODES = 2000
+CONFIG4_PODS = 20000
 BATCH = 4096
 
 
@@ -327,6 +340,91 @@ def topology_work(kernel, na, ea, ta, au, m_sig_soft=None, m_sig_ns=None):
     return nbytes_, ops, 6 * nn * len(rows)
 
 
+def interpod_work(kernel, na, ea, xa, ta, au, pa, parts, m_pt=None, m_sig=None):
+    """(bytes, integer operations) of one inter-pod kernel's function on
+    these inputs, over live lanes: valid nodes, valid spec rows, valid
+    terms and patterns of the kinds the parts read, valid signatures.
+      interpod_filter  per live pattern ("existing") and per live term
+                       ("aff", "anti"), per valid node: 2 (bucket, add) +
+                       1 per signature the term counts; per (valid row,
+                       valid node) 3 per matching pattern or owned term
+                       (bucket, gather, test) + 1; reads the counts columns
+                       and dense label columns those name and the live
+                       table rows, writes [U, N] bytes
+      interpod_score   the same tables for the score kinds; per (valid
+                       row, valid node) 4 per preferred term or matching
+                       pattern (bucket, gather, multiply, add) + 8 (min,
+                       max, normalize); writes [U, N] int64
+      inbatch_port_conflict  per (row, row) pair 1, and 6 per (live port,
+                       live port) pair; reads the port lists, writes [U, U]
+      solve_greedy_inb per valid pod: TT + U (its lists) and, per node its
+                       spec's mask admits, 4 per own or matching anti term
+                       and 1 per clashing spec (on top of solve_work's);
+                       reads the term rows, m_bb, pconf and the anti
+                       slots' dense label columns, writes the commit tables"""
+    from kubernetes_tpu_torch.state.terms import AFF_PREF, AFF_REQ, ANTI_PREF, ANTI_REQ
+
+    nv = na["valid"]
+    n, nn = nv.shape[0], int(nv.sum())
+    u_live = pa["valid"]
+    u, nu = u_live.shape[0], int(u_live.sum())
+    v = 0
+    if kernel == "inbatch_port_conflict":
+        live = (pa["port_num"] > 0).sum(dim=1)
+        ops = u * u + 6 * int(live.sum()) ** 2
+        return u * pa["port_num"].shape[1] * 12 + u * u, ops
+    tk, tv, town = ta["kind"], ta["valid"], ta["owner"]
+    xk, xv = xa["kind"], xa["valid"]
+    if kernel == "interpod_filter":
+        x_kinds = [ANTI_REQ] if "existing" in parts else []
+        t_kinds = ([AFF_REQ] if "aff" in parts else []) + ([ANTI_REQ] if "anti" in parts else [])
+        per_ref, per_pair, out_bytes = 3, 1, u * n
+    else:
+        x_kinds = [AFF_REQ, AFF_PREF, ANTI_PREF] if "existing" in parts else []
+        t_kinds = [AFF_PREF, ANTI_PREF] if "pref" in parts else []
+        per_ref, per_pair, out_bytes = 4, 8, u * n * 8
+    xs = xv & torch.isin(xk, torch.tensor(x_kinds, dtype=xk.dtype, device=xk.device))
+    ts = tv & torch.isin(tk, torch.tensor(t_kinds, dtype=tk.dtype, device=tk.device))
+    sig_live = ea["valid"]
+    sigs, matched = set(), 0
+    for t in torch.nonzero(ts).flatten().tolist():
+        if int(tk[t]) == AFF_REQ:
+            group = tv & (tk == AFF_REQ) & (town == town[t])
+            m = m_sig[group].all(dim=0) & sig_live
+        else:
+            m = m_sig[t] & sig_live
+        matched += int(m.sum())
+        sigs |= set(torch.nonzero(m).flatten().tolist())
+    slots = set(xa["topo_slot"][xs].tolist()) | set(ta["topo_slot"][ts].tolist())
+    # references per (row, node): matching patterns and owned terms of live rows
+    refs = int((m_pt[xs][:, u_live]).sum()) if int(xs.sum()) else 0
+    refs += sum(int(((town == r) & ts).sum()) for r in torch.nonzero(u_live).flatten().tolist())
+    ops = nn * (2 * int(xs.sum()) + 2 * int(ts.sum()) + matched) + nn * (per_ref * refs + per_pair * nu)
+    nbytes_ = (nn * 2 * (int(xs.sum()) + len(sigs)) + nn * 4 * len(slots)
+               + (int(xs.sum()) + int(ts.sum())) * max(int(na["label_dense"].max()) + 1, 1) * 4
+               + out_bytes)
+    return nbytes_, ops
+
+
+def tracked_solve_work(mask, sig, pod_valid, pa, free0, count0, allowed, nz0, order, inb):
+    """solve_work plus the in-batch tracking (see interpod_work)."""
+    nbytes_, ops = solve_work(mask, sig, pod_valid, pa, free0, count0, allowed, nz0, order)
+    anti, owner, m_bb, pconf = inb["anti"], inb["owner"], inb["m_bb"], inb["port_conflict"]
+    tt, u = anti.shape[0], pconf.shape[0]
+    sigs = sig.long()[pod_valid]
+    admitted = mask.sum(dim=1).double()
+    per_spec = torch.zeros(u, dtype=torch.float64, device=mask.device)
+    for s_ in range(u):
+        own = int((anti & (owner == s_)).sum())
+        match = int((anti & m_bb[:, s_]).sum())
+        per_spec[s_] = 4 * (own + match) + int(pconf[s_].sum())
+    ops += float(pod_valid.sum()) * (tt + u) + float((admitted * per_spec)[sigs].sum())
+    n = mask.shape[1]
+    slots = len(set(inb["topo_slot"][anti].tolist()))
+    nbytes_ += tt * (1 + 4 + 4) + m_bb.numel() + pconf.numel() + n * 4 * slots
+    return nbytes_, ops
+
+
 def bound(work):
     nbytes_, ops = work[:2]
     f64 = work[2] if len(work) > 2 else 0
@@ -454,10 +552,10 @@ def compare_kernels(na, pa, ids, sig, label, time_it: bool):
 
 def encode(nodes, existing, pods, device, selectors_fn=None):
     """Port encoding of (cluster, pending pods) as the driver builds a
-    batch: node and signature banks, spec rows (deduped with the pods'
-    selectors) and each pod's row (`sig`), the batch term bank and its
-    aux, the interned constants and n_buckets (the dense sizes of the term
-    slots and the zone count, bucketed)."""
+    batch: node, signature and pattern banks, spec rows (deduped with the
+    pods' selectors) and each pod's row (`sig`), the batch term bank and
+    its aux, the interned constants and n_buckets (the dense sizes of the
+    batch terms' and patterns' slots and the zone count, bucketed)."""
     from kubernetes_tpu_torch.models.clusters import fill_cache
     from kubernetes_tpu_torch.ops.filters import make_ids
     from kubernetes_tpu_torch.state.cache import SchedulerCache, TensorMirror
@@ -477,11 +575,11 @@ def encode(nodes, existing, pods, device, selectors_fn=None):
     for i, p in enumerate(reps):
         batch.set_pod(i, p)
     tb, aux = compile_batch_terms(vocab, reps, spread_selectors=sel, b_capacity=u)
-    slots = set(tb.topo_slot[tb.valid].tolist())
+    slots = set(tb.topo_slot[tb.valid].tolist()) | set(mirror.pats.bank.topo_slot[mirror.pats.valid].tolist())
     v = pow2_bucket(max([vocab.dense_size(int(x)) for x in slots if x >= 0] + [vocab.zone_count(), 1]))
-    na, ea = mirror.device_arrays()
+    na, ea, xa = mirror.device_arrays()
     t = lambda d: arrays_to_torch(d, device)  # noqa: E731
-    return {"na": na, "ea": ea, "ta": t(tb.arrays()), "au": t(aux), "pa": t(batch.arrays()),
+    return {"na": na, "ea": ea, "xa": xa, "ta": t(tb.arrays()), "au": t(aux), "pa": t(batch.arrays()),
             "ids": make_ids(vocab), "v": v, "sig": torch.tensor(sig, dtype=torch.int32, device=device)}
 
 
@@ -551,6 +649,119 @@ def compare_topology(enc, label, time_it: bool):
     return out
 
 
+FILTER_SUBSETS = [("existing",), ("aff",), ("anti",), ("existing", "aff"), ("existing", "anti"),
+                  ("aff", "anti"), ("existing", "aff", "anti")]
+SCORE_PARTS = [("pref",), ("existing",), ("pref", "existing")]
+
+
+def compare_interpod(enc, label, time_it: bool):
+    """Hold interpod_filter (every non-empty subset of its parts),
+    interpod_score (each part and both), inbatch_port_conflict and the
+    tracked solve (deterministic and under tie-noise) against their plain
+    versions on the same CUDA tensors, at the driver's V and at V = 16
+    (dropped buckets) and 40,000 (device-memory tables); with time_it,
+    time each (kernel alone: one prebuilt struct relaunched) and bound it.
+    Returns {kernel: stats}."""
+    from kubernetes_tpu_torch.kernels import build
+    from kubernetes_tpu_torch.ops import filters as F
+    from kubernetes_tpu_torch.ops import pipeline as PP
+    from kubernetes_tpu_torch.ops import scores as S
+    from kubernetes_tpu_torch.ops import solver as SO
+    from kubernetes_tpu_torch.ops import topology as TO
+
+    na, ea, xa, ta, au, pa, ids, v, sig = (enc[k] for k in ("na", "ea", "xa", "ta", "au", "pa", "ids", "v", "sig"))
+    dev = na["valid"].device
+    out = {}
+    bad_f = bad_s = 0
+    for nb in sorted({v, 16, 40000}):
+        for parts in FILTER_SUBSETS:
+            k = TO.interpod_filter(na, ea, ta, au, xa, pa, parts=parts, n_buckets=nb)
+            p = TO.interpod_filter_plain(na, ea, ta, au, xa, pa, parts, nb)
+            bad_f += int((k != p).sum()) + int(k.dtype != p.dtype)
+        for parts in SCORE_PARTS:
+            k = TO.interpod_score(na, ea, ta, xa, pa, parts=parts, n_buckets=nb)
+            p = TO.interpod_score_plain(na, ea, ta, xa, pa, parts, nb)
+            bad_s = max(bad_s, int((k - p).abs().max()) + int(k.dtype != p.dtype))
+    check(bad_f == 0, f"[{label}] interpod_filter kernel differs from its plain version in {bad_f} pairs")
+    check(bad_s == 0, f"[{label}] interpod_score kernel differs from its plain version by {bad_s}")
+    pconf = F.inbatch_port_conflict(pa, ids)
+    bad_p = int((pconf != F.inbatch_port_conflict_plain(pa, ids)).sum())
+    check(bad_p == 0, f"[{label}] inbatch_port_conflict kernel differs from its plain version in {bad_p} pairs")
+    out["interpod_filter"] = {"max_abs_err": min(bad_f, 1)}
+    out["interpod_score"] = {"max_abs_err": bad_s}
+    out["inbatch_port_conflict"] = {"max_abs_err": min(bad_p, 1)}
+
+    # the tracked solve on the pipeline's own mask and score
+    kinds = frozenset({"aff_req", "anti_req", "pref", "et_anti", "et_score"})
+    mask, score = PP.mask_and_score(na, pa, ids, None, kinds, ea=ea, ta=ta, au=au, xa=xa, n_buckets=v)
+    b = sig.shape[0]
+    pod_valid = torch.ones(b, dtype=torch.bool, device=dev)
+    order = SO.pop_order(torch.zeros(b, dtype=torch.int32, device=dev),
+                         torch.arange(b, dtype=torch.int32, device=dev), pod_valid)
+    free0 = na["alloc"] - na["requested"]
+    args = (mask, score, pa["req"], free0, na["pod_count"].long(), na["allowed_pods"].long(), order)
+    inb = PP._inbatch_tensors(na, pa, ta, ids, v)
+    err = placed = 0
+    for det in (True, False):
+        kw = dict(deterministic=det, req_any=pa["req_any"], sig=sig, pod_valid=pod_valid, return_carry=True,
+                  nz0=na["nonzero_req"], scoring_req=pa["scoring_req"], inb=inb)
+        ka, kc = SO.solve_greedy(*args, SO.prng_key_data(11), **kw)
+        pa_, pc = SO.solve_greedy_plain(*args, SO.prng_key_data(11), **kw)
+        err = max(err, int((ka - pa_).abs().max()), *(int((x - y).abs().max()) for x, y in zip(kc, pc)))
+        placed = int((ka >= 0).sum())
+    check(err == 0, f"[{label}] tracked solve kernel differs from its plain version by {err}")
+    out["solve_greedy_inb"] = {"max_abs_err": err, "placed": placed}
+    log(f"[kernels] {label}: U={pa['valid'].shape[0]} N={na['valid'].shape[0]} TT={ta['valid'].shape[0]} "
+        f"S={ea['valid'].shape[0]} PT={xa['valid'].shape[0]} V={v} B={b}: interpod_filter (7 part subsets), "
+        f"interpod_score (3), inbatch_port_conflict, tracked solve exact ({int(mask.sum())} feasible pairs, "
+        f"{int(pconf.sum())} clashing spec pairs, {placed} placed)")
+    if time_it:
+        parts_f, parts_s = FILTER_SUBSETS[-1], SCORE_PARTS[-1]
+        m_pt = TO.match_terms(xa, pa["label_vals"], pa["ns_id"])
+        m_sig = TO.match_terms(ta, ea["label_vals"], ea["ns_id"])
+        fargs, _ = TO.interpod_args("filter", na, ea, ta, xa, pa, m_pt, m_sig, parts_f, au, v)
+        out["interpod_filter"]["ms"] = cuda_ms(lambda: build.launch(TO.INTERPOD_FILTER_ENTRY, fargs, dev), 200)
+        out["interpod_filter"]["plain_ms"] = cuda_ms(
+            lambda: TO.interpod_filter_plain(na, ea, ta, au, xa, pa, parts_f, v), 5)
+        out["interpod_filter"]["bound"] = bound(interpod_work("interpod_filter", na, ea, xa, ta, au, pa, parts_f,
+                                                              m_pt, m_sig))
+        sargs, _ = TO.interpod_args("score", na, ea, ta, xa, pa, m_pt, m_sig, parts_s, None, v)
+        out["interpod_score"]["ms"] = cuda_ms(lambda: build.launch(TO.INTERPOD_SCORE_ENTRY, sargs, dev), 200)
+        out["interpod_score"]["plain_ms"] = cuda_ms(
+            lambda: TO.interpod_score_plain(na, ea, ta, xa, pa, parts_s, v), 5)
+        out["interpod_score"]["bound"] = bound(interpod_work("interpod_score", na, ea, xa, ta, au, pa, parts_s,
+                                                             m_pt, m_sig))
+        pargs, _ = F.port_conflict_args(pa, ids)
+        out["inbatch_port_conflict"]["ms"] = cuda_ms(lambda: build.launch(F.PORT_CONFLICT_ENTRY, pargs, dev), 200)
+        out["inbatch_port_conflict"]["plain_ms"] = cuda_ms(lambda: F.inbatch_port_conflict_plain(pa, ids), 5)
+        out["inbatch_port_conflict"]["bound"] = bound(interpod_work("inbatch_port_conflict", na, ea, xa, ta, au,
+                                                                    pa, ()))
+        kw = dict(deterministic=False, req_any=pa["req_any"], sig=sig, pod_valid=pod_valid, return_carry=True,
+                  nz0=na["nonzero_req"], scoring_req=pa["scoring_req"], inb=inb)
+        key = SO.prng_key_data(11)
+        out["solve_greedy_inb"]["ms"] = cuda_ms(lambda: SO.solve_greedy(*args, key, **kw), 5)
+        out["solve_greedy_inb"]["plain_ms"] = cuda_ms(lambda: SO.solve_greedy_plain(*args, key, **kw), 1)
+        out["solve_greedy_inb"]["bound"] = bound(tracked_solve_work(
+            mask, sig, pod_valid, pa, free0, na["pod_count"].long(), na["allowed_pods"].long(),
+            na["nonzero_req"], order, inb))
+        for name in ("interpod_filter", "interpod_score", "inbatch_port_conflict", "solve_greedy_inb"):
+            st = out[name]
+            log(f"[kernels] {label} {name}: kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, "
+                f"bound {st['bound'][0]:.6f} ms ({st['bound'][1]})")
+    return out
+
+
+def config4_batch(n_existing: int):
+    """The config-4 shapes mid-drain: the full cluster holding `n_existing`
+    bound pods (pod i on node (7 i) mod N, so no node holds two pods of one
+    `exclusive` value) and the next 4,096-pod batch."""
+    from kubernetes_tpu_torch.models.clusters import bench_config4
+
+    nodes, pods = bench_config4(CONFIG4_NODES, n_existing + BATCH)
+    existing = [p.with_node(nodes[(7 * i) % len(nodes)].name) for i, p in enumerate(pods[:n_existing])]
+    return nodes, existing, pods[n_existing:]
+
+
 def config3_batch(services: bool, n_existing: int):
     """The config-3 shapes mid-drain: the full cluster holding `n_existing`
     bound pods (round-robin over the nodes) and the next 4,096-pod batch."""
@@ -592,25 +803,39 @@ def phase_kernels():
         label = "config-3" + (" + Services" if services else "")
         topo = compare_topology(enc, label, time_it=services)
     stats.update(topo)
+    # the all-branches inter-pod cluster: every term kind in the batch and
+    # among the bound pods (negative weights), every selector kind,
+    # namespaces, zone / hostname / rack keys, nodes without a key,
+    # fallback nodes, the first-pod escape, host ports
+    nodes, existing, pods = random_cluster(13, 700, 600, 2500, overflow_nodes=8, topology=True, interpod=True)
+    compare_interpod(encode(nodes, existing, pods, dev), "inter-pod all-branches", time_it=False)
+    # the config-4 shapes mid-drain (10,000 pods bound)
+    nodes, existing, pods = config4_batch(CONFIG4_PODS // 2)
+    stats.update(compare_interpod(encode(nodes, existing, pods, dev), "config-4", time_it=True))
     return stats
 
 
-def kernel_fns():
-    """Kernel name -> its wrapper (each counts its launches)."""
+def kernel_counters():
+    """Kernel name -> (its wrapper, the attribute counting its launches).
+    The solve's launches with in-batch tracking are also counted apart."""
     from kubernetes_tpu_torch.ops import filters as F
     from kubernetes_tpu_torch.ops import scores as S
     from kubernetes_tpu_torch.ops import solver as SO
     from kubernetes_tpu_torch.ops import topology as TO
 
     return {
-        "filter_mask": F.combined_mask, "score_matrix": S.score_matrix, "solve_greedy": SO.solve_greedy,
-        "match_terms": TO.match_terms, "spread_score": TO.spread_score,
-        "selector_spread_score": TO.selector_spread_score,
+        "filter_mask": (F.combined_mask, "launches"), "score_matrix": (S.score_matrix, "launches"),
+        "solve_greedy": (SO.solve_greedy, "launches"), "match_terms": (TO.match_terms, "launches"),
+        "spread_score": (TO.spread_score, "launches"),
+        "selector_spread_score": (TO.selector_spread_score, "launches"),
+        "interpod_filter": (TO.interpod_filter, "launches"), "interpod_score": (TO.interpod_score, "launches"),
+        "inbatch_port_conflict": (F.inbatch_port_conflict, "launches"),
+        "solve_greedy_inb": (SO.solve_greedy, "tracked_launches"),
     }
 
 
 def drain(device, workload, n_nodes, n_pods, batch, deterministic, seed=0, services=False):
-    from kubernetes_tpu_torch.models.clusters import bench_config2, bench_config3, fill_cache
+    from kubernetes_tpu_torch.models.clusters import bench_config2, bench_config3, bench_config4, fill_cache
     from kubernetes_tpu_torch.scheduler.driver import Scheduler
     from kubernetes_tpu_torch.state.cache import SchedulerCache
     from kubernetes_tpu_torch.state.queue import PriorityQueue
@@ -618,6 +843,8 @@ def drain(device, workload, n_nodes, n_pods, batch, deterministic, seed=0, servi
     fn = None
     if workload == "config2":
         nodes, pods = bench_config2(n_nodes, n_pods)
+    elif workload == "config4":
+        nodes, pods = bench_config4(n_nodes, n_pods)
     else:
         nodes, pods, fn = bench_config3(n_nodes, n_pods, services=services)
     cache, queue = SchedulerCache(), PriorityQueue()
@@ -642,10 +869,17 @@ def phase_parity():
     # config 3: without Services deterministic, with Services under tie-noise
     runs += [("config3", CONFIG3_NODES // 10, CONFIG3_PODS // 10, True, False),
              ("config3", CONFIG3_NODES // 10, CONFIG3_PODS // 10, False, True)]
-    batch = 1024
+    runs += [("config4", CONFIG4_NODES // 10, CONFIG4_PODS // 10, det, False) for det in (True, False)]
     for workload, n_nodes, n_pods, det, services in runs:
-        _, _, _, gpu, tg = drain("cuda", workload, n_nodes, n_pods, batch, det, seed=3, services=services)
+        # config 4 at 1/10 in batches of 512, as at full size in 5 batches
+        batch = 512 if workload == "config4" else 1024
+        gsched, _, _, gpu, tg = drain("cuda", workload, n_nodes, n_pods, batch, det, seed=3, services=services)
         _, _, _, cpu, tc = drain("cpu", workload, n_nodes, n_pods, batch, det, seed=3, services=services)
+        if workload == "config4":
+            # later batches read the committed pods' terms from the PatternBank
+            check({"et_anti", "et_score"} <= gsched._term_kinds and gsched.stats["tracked_batches"] > 0,
+                  f"config-4 parity drain ran without the existing-pod kinds or tracking: "
+                  f"{sorted(gsched._term_kinds)}, {gsched.stats['tracked_batches']} tracked batches")
         check(gpu.scheduled == cpu.scheduled == n_pods, f"parity drain placed {gpu.scheduled}/{cpu.scheduled}")
         diff = sum(1 for k, v in cpu.assignments.items() if gpu.assignments.get(k) != v)
         check(diff == 0 and len(gpu.assignments) == len(cpu.assignments),
@@ -709,7 +943,7 @@ def verify_sig_bank(sched):
     from kubernetes_tpu_torch.state.tensors import encode_snapshot
 
     mirror = sched.mirror
-    _, dev = mirror.device_arrays()
+    _, dev, _ = mirror.device_arrays()
     dev = {k: v.cpu().numpy() for k, v in dev.items()}
     _, fresh, rows = encode_snapshot(sched.cache.snapshot, vocab=mirror.vocab)
     check(rows == mirror.row_of, "the fresh encode numbers the node rows differently")
@@ -729,6 +963,60 @@ def verify_sig_bank(sched):
     return len(want)
 
 
+def verify_pattern_bank(sched):
+    """The device pattern bank, patched incrementally through the drain,
+    equals a fresh host encode of the final cache's affinity pods: per
+    pattern content (kind, key slot, weight, namespaces, compiled
+    selector) the same per-node instance counts, and no other valid
+    pattern."""
+    from kubernetes_tpu_torch.state.terms import PatternBank
+
+    mirror = sched.mirror
+    _, _, dev = mirror.device_arrays()
+    dev = {k: v.cpu().numpy() for k, v in dev.items()}
+    fresh = PatternBank(mirror.vocab, mirror.pats.capacity, mirror.nodes.capacity)
+    for name, ni in sched.cache.snapshot.node_infos.items():
+        fresh.encode_node(mirror.row_of[name], ni.pods_with_affinity())
+    fresh = fresh.arrays()
+    meta = ("kind", "topo_slot", "weight", "ns_any", "ns_ids", "has_selector", "ml_slot", "ml_val",
+            "ex_op", "ex_slot", "ex_vals")
+
+    def by_content(x):
+        return {b"".join(x[k][r].tobytes() for k in meta): x["counts"][:, r] for r in x["valid"].nonzero()[0]}
+
+    got, want = by_content(dev), by_content(fresh)
+    check(got.keys() == want.keys(), f"device pattern bank holds {len(got)} patterns, a fresh encode {len(want)}")
+    bad = sum(int((got[k] != want[k]).sum()) for k in want)
+    check(bad == 0, f"device pattern counts differ from a fresh encode in {bad} (node, pattern) cells")
+    return len(want)
+
+
+def verify_exclusive(pods, res):
+    """No node hosts two pods of one `exclusive` value (config 4's required
+    hostname anti-affinity)."""
+    from collections import Counter
+
+    per = Counter((p.labels["exclusive"], res.assignments[p.key()]) for p in pods if "exclusive" in p.labels)
+    worst = max(per.values())
+    check(worst == 1, f"a node hosts {worst} pods of one exclusive value")
+    return sum(per.values())
+
+
+def zone_share(nodes, pods, res):
+    """The share of pods in their app's most common zone (information only:
+    the preferred zone affinity gates nothing)."""
+    from collections import Counter
+
+    from kubernetes_tpu_torch.models.clusters import ZONE_KEY
+
+    zone_of = {n.name: n.labels[ZONE_KEY] for n in nodes}
+    per = Counter((p.labels["app"], zone_of[res.assignments[p.key()]]) for p in pods)
+    top = Counter()
+    for (app, _), c in per.items():
+        top[app] = max(top[app], c)
+    return sum(top.values()) / len(pods)
+
+
 def zone_skew(nodes, pods, res):
     """Max over apps of (most - fewest) pods per zone (information only:
     ScheduleAnyway spreads by score, it gates nothing)."""
@@ -746,11 +1034,11 @@ def zone_skew(nodes, pods, res):
 def run_main_path(label, names, run):
     """Drive one main path with every kernel count set to 0 just before it;
     read the counts of `names` just after and require each > 0."""
-    fns = kernel_fns()
-    for fn in fns.values():
-        fn.launches = 0
+    counters = kernel_counters()
+    for fn, attr in counters.values():
+        setattr(fn, attr, 0)
     out = run()
-    launches = {name: fns[name].launches for name in fns}
+    launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
     for name in names:
         check(launches[name] > 0, f"kernel {name} was not launched by the {label} drain")
     return out, launches
@@ -795,6 +1083,23 @@ def phase_drain(smi):
         log(f"[drain] {label}: device signature bank == fresh host encode ({n_sigs} signatures); "
             f"term kinds {sorted(sched._term_kinds)}, V={sched._v_bucket}, TT={sched._t_bucket}; "
             f"per-app max zone skew {zone_skew(nodes, pods, res)} (information only); launches {launches}")
+    torch.cuda.reset_peak_memory_stats()
+    need = ["filter_mask", "score_matrix", "solve_greedy", "match_terms", "interpod_filter", "interpod_score",
+            "inbatch_port_conflict", "solve_greedy_inb"]
+    (sched, nodes, pods, res, wall), launches = run_main_path("config-4", need, lambda: drain(
+        "cuda", "config4", CONFIG4_NODES, CONFIG4_PODS, BATCH, deterministic=False))
+    add(launches)
+    verify_capacity(sched, pods, res)
+    n_excl = verify_exclusive(pods, res)
+    n_pats = verify_pattern_bank(sched)
+    n_sigs = verify_sig_bank(sched)
+    label = f"config-4 full ({CONFIG4_NODES} nodes, {CONFIG4_PODS} pods, batch {BATCH})"
+    log_drain(label, sched, res, wall, smi)
+    log(f"[drain] config-4: {n_excl} exclusive pods on distinct nodes per value; device pattern bank == fresh "
+        f"host encode ({n_pats} patterns), signature bank too ({n_sigs} signatures); "
+        f"{sched.stats['tracked_batches']} of {sched.stats['batches']} batches tracked; term kinds "
+        f"{sorted(sched._term_kinds)}, V={sched._v_bucket}, TT={sched._t_bucket}; share of pods in their "
+        f"app's most common zone {zone_share(nodes, pods, res):.4f} (information only); launches {launches}")
     return total
 
 
@@ -822,6 +1127,10 @@ def main() -> int:
         "match_terms": ("kubernetes_tpu_torch/csrc/topology.cu", "kubernetes_tpu/ops/topology.py:49"),
         "spread_score": ("kubernetes_tpu_torch/csrc/topology.cu", "kubernetes_tpu/ops/topology.py:227"),
         "selector_spread_score": ("kubernetes_tpu_torch/csrc/topology.cu", "kubernetes_tpu/ops/topology.py:433"),
+        "interpod_filter": ("kubernetes_tpu_torch/csrc/interpod.cu", "kubernetes_tpu/ops/topology.py:281"),
+        "interpod_score": ("kubernetes_tpu_torch/csrc/interpod.cu", "kubernetes_tpu/ops/topology.py:363"),
+        "inbatch_port_conflict": ("kubernetes_tpu_torch/csrc/interpod.cu", "kubernetes_tpu/ops/pipeline.py:178"),
+        "solve_greedy_inb": ("kubernetes_tpu_torch/csrc/solver.cu", "kubernetes_tpu/ops/solver.py:175"),
     }
     kernels = []
     for kname, (src, ref) in sources.items():

@@ -72,6 +72,25 @@ __device__ __forceinline__ bool tolerated(
   return false;
 }
 
+// HostPortInfo.CheckConflict (filters.port_clash) between two host-port
+// lists: the same (protocol, port) conflicts when either IP is the wildcard
+// or the two are equal; port 0 lanes are padding. The one definition the
+// pod-vs-node filter and the pod-vs-pod in-batch conflict table share.
+__device__ __forceinline__ bool ports_clash(
+    const int32_t* num_a, const int32_t* proto_a, const int32_t* ip_a, int PA,
+    const int32_t* num_b, const int32_t* proto_b, const int32_t* ip_b, int PB, int32_t wildcard_ip) {
+  for (int i = 0; i < PA; ++i) {
+    if (num_a[i] <= 0) continue;
+    for (int j = 0; j < PB; ++j) {
+      if (num_b[j] > 0 && num_b[j] == num_a[i] && proto_b[j] == proto_a[i] &&
+          (ip_a[i] == wildcard_ip || ip_b[j] == wildcard_ip || ip_a[i] == ip_b[j])) {
+        return true;
+      }
+    }
+  }
+  return false;
+}
+
 // Python's floor division (jnp `//`) on int64.
 __device__ __forceinline__ int64_t floordiv(int64_t a, int64_t b) {
   int64_t q = a / b;

@@ -159,16 +159,7 @@ __device__ bool fits(const FilterArgs& a, int u, int n, const bool* sel) {
     const int32_t* nn = a.n_port_num + (int64_t)n * a.P;
     const int32_t* np = a.n_port_proto + (int64_t)n * a.P;
     const int32_t* ni = a.n_port_ip + (int64_t)n * a.P;
-    for (int i = 0; i < a.PP; ++i) {
-      if (pn[i] <= 0) continue;
-      for (int j = 0; j < a.P; ++j) {
-        // HostPortInfo.CheckConflict (filters.port_clash)
-        if (nn[j] > 0 && nn[j] == pn[i] && np[j] == pp[i] &&
-            (pi[i] == a.wildcard_ip || ni[j] == a.wildcard_ip || pi[i] == ni[j])) {
-          return false;
-        }
-      }
-    }
+    if (ports_clash(pn, pp, pi, a.PP, nn, np, ni, a.P, a.wildcard_ip)) return false;
   }
   return true;
 }

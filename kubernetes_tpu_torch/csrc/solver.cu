@@ -1,12 +1,13 @@
 // Greedy batch solve: the sequential walk the reference's chunked solver
 // is bit-identical to.
 //
-// Replaces kubernetes_tpu/ops/solver.py:solve_greedy (without in-batch
-// anti-affinity/port tracking) and its tie_noise. Pods are taken in pop
-// order; each picks the max-(score, noise) feasible node against the
-// residuals every earlier pod left, then commits into (free, count, nz).
-// solve_greedy's docstring (solver.py:110-126) proves its chunked
-// prefix-acceptance scan equals exactly this walk.
+// Replaces kubernetes_tpu/ops/solver.py:solve_greedy (with its `inb`
+// in-batch anti-affinity / host-port tracking, :175-336) and its
+// tie_noise. Pods are taken in pop order; each picks the max-(score, noise)
+// feasible node against the residuals every earlier pod left, then commits
+// into (free, count, nz). solve_greedy's docstring (solver.py:110-126,
+// :144-149) proves its chunked prefix-acceptance scan, with or without the
+// pairwise commit barrier of the tracking, equals exactly this walk.
 //
 // Design: ONE persistent block of 1024 threads. Per pod, every thread
 // tests its strided share of nodes — mask[sig] & (!req_any | req <= free
@@ -18,6 +19,18 @@
 // (murmur3 fmix32 over (pop rank, node, key)), computed inline, so no
 // [B, N] noise tensor exists; its top 24 bits compare as integers exactly
 // as the reference's float32 values do.
+//
+// Tracking (track != 0): per pod of spec s, thread-strided lists in shared
+// memory of the anti terms s owns, the anti terms whose selector matches
+// s, and the specs whose host ports clash with s's. A node is then also
+// infeasible when (A) a term s owns has, in the node's bucket, a commit the
+// term matches (ca), (B) a term matching s has, in the node's bucket, a
+// commit owning it (cb), or (P) a clashing spec committed on the node
+// (cs). Thread 0 counts the commit into ca / cb / cs (buckets >= V
+// dropped; a read there sees "not blocked", as the reference's do) before
+// the step's barrier. ca and cb are [TT, V] int32 in device memory, cs
+// [U, N]; the node's bucket is read from the node bank's dense labels at
+// the term's key slot, so no [TT, N] bucket table exists.
 //
 // Bound: the walk is serial over B pods (one barrier-separated step each);
 // the bytes it must move (mask and score once, the residuals) are far
@@ -41,10 +54,30 @@ struct SolveArgs {
   int64_t* count;              // [N] in/out pod counts
   int64_t* nz;                 // [N, 2] in/out non-zero scoring accumulators
   int32_t* assign;             // [B] out: node row or -1
+  // in-batch tracking (read only when track != 0)
+  const uint8_t* t_anti;       // [TT] valid ANTI_REQ term rows
+  const int32_t* t_owner;      // [TT] spec row owning the term
+  const int32_t* t_topo_slot;  // [TT]
+  const uint8_t* m_bb;         // [TT, U] term matches spec row
+  const int32_t* label_dense;  // [N, K]
+  const uint8_t* pconf;        // [U, U] spec-pair host-port clash
+  int32_t* ca;                 // [TT, V] commits the term matches, per bucket (zeroed)
+  int32_t* cb;                 // [TT, V] commits owning the term, per bucket (zeroed)
+  int32_t* cs;                 // [U, N] commits per (spec, node) (zeroed)
   int32_t U, N, R, B;
   uint32_t seed;
   int32_t deterministic;
+  int32_t track, TT, K, V;
 };
+
+// the dense bucket of node n at a term's key slot (topology._bucket_of),
+// or -1 when the node lacks the key or the bucket is at or above V
+__device__ __forceinline__ int32_t track_bucket(const SolveArgs& a, int n, int t) {
+  const int32_t slot = a.t_topo_slot[t];
+  const int sc = slot < 0 ? 0 : (slot > a.K - 1 ? a.K - 1 : slot);
+  const int32_t d = a.label_dense[(int64_t)n * a.K + sc];
+  return (d >= 0 && slot >= 0 && d < a.V) ? d : -1;
+}
 
 // solver.py:tie_noise for (pod rank i, node j): the top 24 bits
 __device__ __forceinline__ uint32_t noise24(uint32_t i, uint32_t j, uint32_t seed) {
@@ -72,8 +105,19 @@ __global__ void __launch_bounds__(SOLVE_THREADS) solve_greedy_kernel(const Solve
   __shared__ uint32_t w_key[NUM_WARPS];
   __shared__ int32_t w_node[NUM_WARPS];
   __shared__ int64_t s_req[32];
+  __shared__ int n_own, n_match, n_conf;
+  extern __shared__ int32_t lists[];  // tracking: [TT] own anti terms, [TT] matching anti terms, [U] clashing specs
+  int32_t* own = lists;
+  int32_t* match = lists + a.TT;
+  int32_t* conf = lists + 2 * a.TT;
   const int tid = threadIdx.x, lane = tid % 32, warp = tid / 32;
   const int R = a.R;
+  if (tid == 0) {
+    n_own = 0;
+    n_match = 0;
+    n_conf = 0;
+  }
+  __syncthreads();
 
   for (int rank = 0; rank < a.B; ++rank) {
     const int64_t p = a.order[rank];
@@ -84,7 +128,18 @@ __global__ void __launch_bounds__(SOLVE_THREADS) solve_greedy_kernel(const Solve
     const int s = a.sig[p];
     const bool any_req = a.req_any[s];
     if (tid < R) s_req[tid] = a.req[(int64_t)s * R + tid];
+    if (a.track) {  // the counters were reset by thread 0 before the last step's barrier
+      for (int t = tid; t < a.TT; t += SOLVE_THREADS) {
+        if (!a.t_anti[t]) continue;
+        if (a.t_owner[t] == s) own[atomicAdd(&n_own, 1)] = t;
+        if (a.m_bb[(int64_t)t * a.U + s]) match[atomicAdd(&n_match, 1)] = t;
+      }
+      for (int w = tid; w < a.U; w += SOLVE_THREADS) {
+        if (a.pconf[(int64_t)s * a.U + w]) conf[atomicAdd(&n_conf, 1)] = w;
+      }
+    }
     __syncthreads();
+    const int no = n_own, nm = n_match, nc = n_conf;
 
     int64_t best_s = 0;
     uint32_t best_k = 0;
@@ -99,6 +154,21 @@ __global__ void __launch_bounds__(SOLVE_THREADS) solve_greedy_kernel(const Solve
         bool fits = true;
         for (int r = 0; r < R; ++r) fits &= s_req[r] <= fr[r];
         if (!fits) continue;
+      }
+      if (a.track) {
+        bool blocked = false;
+        for (int i = 0; i < no && !blocked; ++i) {  // (A) my term vs committed matchers
+          const int b = track_bucket(a, n, own[i]);
+          blocked = b >= 0 && a.ca[(int64_t)own[i] * a.V + b] > 0;
+        }
+        for (int i = 0; i < nm && !blocked; ++i) {  // (B) committed owners vs my labels
+          const int b = track_bucket(a, n, match[i]);
+          blocked = b >= 0 && a.cb[(int64_t)match[i] * a.V + b] > 0;
+        }
+        for (int i = 0; i < nc && !blocked; ++i) {  // (P) a clashing host port on the node
+          blocked = a.cs[(int64_t)conf[i] * a.N + n] > 0;
+        }
+        if (blocked) continue;
       }
       const int64_t sc = srow[n];
       const uint32_t k = a.deterministic ? 0u : noise24((uint32_t)rank, (uint32_t)n, a.seed);
@@ -146,7 +216,22 @@ __global__ void __launch_bounds__(SOLVE_THREADS) solve_greedy_kernel(const Solve
           a.count[best_n] += 1;
           a.nz[(int64_t)best_n * 2 + 0] += a.scoring_req[(int64_t)s * 2 + 0];
           a.nz[(int64_t)best_n * 2 + 1] += a.scoring_req[(int64_t)s * 2 + 1];
+          if (a.track) {
+            for (int i = 0; i < nm; ++i) {
+              const int b = track_bucket(a, best_n, match[i]);
+              if (b >= 0) a.ca[(int64_t)match[i] * a.V + b] += 1;
+            }
+            for (int i = 0; i < no; ++i) {
+              const int b = track_bucket(a, best_n, own[i]);
+              if (b >= 0) a.cb[(int64_t)own[i] * a.V + b] += 1;
+            }
+            a.cs[(int64_t)s * a.N + best_n] += 1;
+          }
         }
+        // every thread is past its node scan: the lists are free for the next pod
+        n_own = 0;
+        n_match = 0;
+        n_conf = 0;
       }
     }
     // publishes the commit (and frees s_req / the warp slots) for the next pod
@@ -156,7 +241,13 @@ __global__ void __launch_bounds__(SOLVE_THREADS) solve_greedy_kernel(const Solve
 
 extern "C" int ktpu_solve_greedy(const SolveArgs* args, cudaStream_t stream) {
   if (args->B > 0) {
-    solve_greedy_kernel<<<1, SOLVE_THREADS, 0, stream>>>(*args);
+    const size_t bytes = args->track ? (2 * (size_t)args->TT + (size_t)args->U) * sizeof(int32_t) : 0;
+    if (bytes > 48 * 1024) {
+      const int rc = (int)cudaFuncSetAttribute((const void*)solve_greedy_kernel,
+                                               cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+      if (rc) return rc;
+    }
+    solve_greedy_kernel<<<1, SOLVE_THREADS, bytes, stream>>>(*args);
   }
   return (int)cudaGetLastError();
 }

@@ -24,75 +24,7 @@
 // node bank's dense label column once per term, and write [U, N] int64:
 // bytes. Their real cost here is launch count and the serial loops over a
 // few nodes per thread (U or TT blocks of 256 threads each walk N nodes).
-#include "common.cuh"
-
-#define SPREAD_SOFT 6
-#define SEL_SPREAD 7
-#define THREADS 256
-#define BIG_COUNT (1 << 30)
-
-// ---------------------------------------------------------------------------
-// block reductions
-// ---------------------------------------------------------------------------
-
-template <typename T>
-__device__ __forceinline__ T block_sum(T v, T* red) {
-  for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < THREADS / 32 ? red[lane] : T(0);
-    for (int off = 16; off > 0; off >>= 1) v += __shfl_down_sync(0xffffffffu, v, off);
-    if (lane == 0) red[0] = v;
-  }
-  __syncthreads();
-  const T out = red[0];
-  __syncthreads();
-  return out;
-}
-
-template <typename T>
-__device__ __forceinline__ T block_max(T v, T* red, T ident) {
-  for (int off = 16; off > 0; off >>= 1) {
-    const T o = __shfl_down_sync(0xffffffffu, v, off);
-    v = o > v ? o : v;
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) red[warp] = v;
-  __syncthreads();
-  if (warp == 0) {
-    v = lane < THREADS / 32 ? red[lane] : ident;
-    for (int off = 16; off > 0; off >>= 1) {
-      const T o = __shfl_down_sync(0xffffffffu, v, off);
-      v = o > v ? o : v;
-    }
-    if (lane == 0) red[0] = v;
-  }
-  __syncthreads();
-  const T out = red[0];
-  __syncthreads();
-  return out;
-}
-
-template <typename T>
-__device__ __forceinline__ T block_min(T v, T* red, T ident) {
-  return -block_max<T>(-v, red, -ident);
-}
-
-// Append the terms of `kind` owned by spec row u to `list` (shared memory);
-// returns their count. The order is arbitrary: every use is an AND or an
-// integer sum.
-__device__ int owner_terms(const uint8_t* valid, const int32_t* kind, const int32_t* owner, int TT,
-                           int32_t want_kind, int u, int32_t* list, int* n_list) {
-  if (threadIdx.x == 0) *n_list = 0;
-  __syncthreads();
-  for (int t = threadIdx.x; t < TT; t += blockDim.x) {
-    if (valid[t] && kind[t] == want_kind && owner[t] == u) list[atomicAdd(n_list, 1)] = t;
-  }
-  __syncthreads();
-  return *n_list;
-}
+#include "topology.cuh"
 
 // ---------------------------------------------------------------------------
 // match_terms
@@ -340,13 +272,6 @@ __global__ void spread_score_kernel(const SpreadArgs a) {
     const int64_t f = diff > 0 ? floordiv(MAX_NODE_SCORE * (total - c), diff) : MAX_NODE_SCORE;
     out[n] = (has_soft && a.member[(int64_t)u * a.N + n]) ? f : 0;
   }
-}
-
-static int set_smem(const void* kernel, size_t bytes) {
-  if (bytes > 48 * 1024) {
-    return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  }
-  return 0;
 }
 
 extern "C" int ktpu_spread_score(const SpreadArgs* args, cudaStream_t stream) {

@@ -47,6 +47,7 @@ NVCC_FLAGS = (
 ENTRY_POINTS = (
     "ktpu_filter_mask", "ktpu_score_matrix", "ktpu_solve_greedy",
     "ktpu_match_terms", "ktpu_spread_score", "ktpu_selector_spread_score",
+    "ktpu_interpod_filter", "ktpu_interpod_score", "ktpu_inbatch_port_conflict",
 )
 
 _lock = threading.Lock()

@@ -12,13 +12,18 @@ constructors), and the two can be held pod for pod against each other.
   pods in 100 apps, one ScheduleAnyway zone spread constraint per pod),
   optionally with one Service per app (`services_selectors`, the
   SelectorSpread input).
+* `bench_config4` — bench.py config 4 (2,000 nodes in 8 zones / 20,000
+  pods in 20 apps: every 10th pod with a required hostname anti-affinity
+  against its own `exclusive` label, the rest with a preferred zone
+  affinity to their own app).
 * `random_cluster` — a seeded cluster meant to reach every branch of the
   filter and score programs: all node-selector operators, taints of every
   effect, unschedulable nodes, host pins, used host ports, images,
   preferAvoidPods, extended resources, limits, priorities and (optionally)
   encoding-overflow nodes, ported pending pods and, with `topology`, the
   branches of the topology programs (see `random_selectors` for the
-  matching SelectorSpread input).
+  matching SelectorSpread input) and, with `interpod`, those of the
+  inter-pod programs and the solver's in-batch tracking.
 """
 
 from __future__ import annotations
@@ -119,6 +124,43 @@ def bench_config3(n_nodes: int, n_pods: int, t: ModuleType = port_types, service
         ))
     fn = (lambda p: services_selectors(p, t)) if services else None
     return nodes, pods, fn
+
+
+# --- bench.py config 4 ------------------------------------------------------
+
+def bench_config4(n_nodes: int, n_pods: int, t: ModuleType = port_types) -> Tuple[list, list]:
+    """bench.py cfg4_interpod: nodes spread round-robin over 8 zones; pods
+    of 100m/256Mi in 20 apps. Every 10th pod (all of svc-0 and svc-10)
+    carries `exclusive=<app>` and a REQUIRED anti-affinity on the hostname
+    key against that label; every other pod a PREFERRED (weight 10) zone
+    affinity to its own app."""
+    nodes = []
+    for i in range(n_nodes):
+        node = _bench_node(t, i, taint=False)
+        node.labels[ZONE_KEY] = BENCH_ZONES[i % len(BENCH_ZONES)]
+        nodes.append(node)
+    pods = []
+    for i in range(n_pods):
+        app = f"svc-{i % 20}"
+        p = t.Pod(
+            name=f"pod-{i}",
+            namespace="bench",
+            labels={"app": app},
+            containers=[t.Container(name="c", requests={
+                t.RESOURCE_CPU: t.Quantity.parse("100m"),
+                t.RESOURCE_MEMORY: t.Quantity.parse("256Mi"),
+            })],
+        )
+        if i % 10 == 0:
+            p.labels["exclusive"] = app
+            p.affinity = t.Affinity(pod_anti_affinity=t.PodAntiAffinity(required=[t.PodAffinityTerm(
+                label_selector=t.LabelSelector(match_labels={"exclusive": app}), topology_key=HOST_KEY)]))
+        else:
+            p.affinity = t.Affinity(pod_affinity=t.PodAffinity(preferred=[t.WeightedPodAffinityTerm(
+                weight=10, pod_affinity_term=t.PodAffinityTerm(
+                    label_selector=t.LabelSelector(match_labels={"app": app}), topology_key=ZONE_KEY))]))
+        pods.append(p)
+    return nodes, pods
 
 
 # --- the all-branches random cluster ----------------------------------------
@@ -311,6 +353,93 @@ def _add_topology(t, rng, nodes, existing, pending, hard_spread: bool) -> None:
         p.topology_spread_constraints = cons
 
 
+def _affinity_selector(t, rng):
+    """A pod (anti-)affinity selector: nil, empty, matchLabels, each
+    expression operator, an In without values."""
+    kind = int(rng.integers(9))
+    if kind == 0:
+        return None  # nil: matches nothing
+    if kind == 1:
+        return t.LabelSelector()  # empty: matches everything
+    if kind in (2, 3, 4):
+        return t.LabelSelector(match_labels={"app": _pick(rng, ("web", "db", "cache"))})
+    op = _pick(rng, ("In", "NotIn", "Exists", "DoesNotExist"))
+    key = _pick(rng, ("app", "tier", "role", "absent-key"))
+    vals = [] if op in ("Exists", "DoesNotExist") or rng.random() < 0.1 else \
+        [_pick(rng, ("web", "db", "a", "lead")) for _ in range(int(rng.integers(1, 3)))]
+    ml = {"app": _pick(rng, ("web", "db"))} if rng.random() < 0.3 else {}
+    return t.LabelSelector(match_labels=ml, match_expressions=[
+        t.LabelSelectorRequirement(key=key, operator=op, values=vals)])
+
+
+def _affinity_term(t, rng, keys=(ZONE_KEY, HOST_KEY, "rack")):
+    nss = _pick(rng, ([], [], ["default"], ["team-a", "default"], ["other"]))
+    return t.PodAffinityTerm(label_selector=_affinity_selector(t, rng), namespaces=list(nss),
+                             topology_key=_pick(rng, keys))
+
+
+def _weighted(t, rng):
+    return [t.WeightedPodAffinityTerm(weight=int(rng.integers(1, 101)), pod_affinity_term=_affinity_term(t, rng))
+            for _ in range(int(rng.integers(1, 3)))]
+
+
+def _add_interpod(t, rng, existing, pending, pending_affinity: bool) -> None:
+    """The inter-pod branches: existing pods with required anti-affinity,
+    required affinity and preferred (anti-)affinity terms (the PatternBank's
+    ANTI_REQ, hard-weight AFF_REQ, AFF_PREF and negative ANTI_PREF rows);
+    pending pods with 0-2 required anti terms (zone, hostname and rack
+    keys), preferred affinity and anti-affinity, host ports (wildcard and
+    specific IPs) and, with `pending_affinity`, required affinity terms —
+    some matching only pods that exist nowhere yet (the first-pod escape
+    when the pod matches itself). A `role` label on some pods gives the
+    selectors something to find or miss."""
+    for p in existing + pending:
+        if rng.random() < 0.2:
+            p.labels["role"] = _pick(rng, ("lead", "follow"))
+    for p in existing:
+        if rng.random() < 0.35:
+            a = p.affinity or t.Affinity()
+            r = rng.random()
+            if r < 0.3:
+                a.pod_anti_affinity = t.PodAntiAffinity(required=[_affinity_term(t, rng)])
+            elif r < 0.5:
+                a.pod_affinity = t.PodAffinity(required=[_affinity_term(t, rng)], preferred=_weighted(t, rng))
+            elif r < 0.8:
+                a.pod_affinity = t.PodAffinity(preferred=_weighted(t, rng))
+            else:
+                a.pod_anti_affinity = t.PodAntiAffinity(preferred=_weighted(t, rng))
+            p.affinity = a
+    for p in pending:
+        a = p.affinity or t.Affinity()
+        if rng.random() < 0.3:
+            a.pod_anti_affinity = t.PodAntiAffinity(
+                required=[_affinity_term(t, rng) for _ in range(int(rng.integers(1, 3)))])
+        if rng.random() < 0.3:
+            a.pod_affinity = t.PodAffinity(preferred=_weighted(t, rng))
+        if rng.random() < 0.2:
+            anti = a.pod_anti_affinity or t.PodAntiAffinity()
+            anti.preferred = _weighted(t, rng)
+            a.pod_anti_affinity = anti
+        if pending_affinity and rng.random() < 0.25:
+            if rng.random() < 0.3:
+                # only pending pods carry tier=lead: no existing pod matches
+                p.labels["tier"] = "lead"
+                terms = [t.PodAffinityTerm(label_selector=t.LabelSelector(match_labels={"tier": "lead"}),
+                                           topology_key=_pick(rng, (ZONE_KEY, HOST_KEY)))]
+            else:
+                terms = [_affinity_term(t, rng) for _ in range(int(rng.integers(1, 3)))]
+            aff = a.pod_affinity or t.PodAffinity()
+            aff.required = terms
+            a.pod_affinity = aff
+        if a.pod_affinity is not None or a.pod_anti_affinity is not None or a.node_affinity is not None:
+            p.affinity = a
+        if rng.random() < 0.15:
+            p.containers[0].ports = [t.ContainerPort(
+                host_port=int(_pick(rng, (80, 443))), container_port=80,
+                protocol=_pick(rng, ("TCP", "UDP")), host_ip=_pick(rng, ("", "10.0.0.1", "0.0.0.0")),
+            )]
+
+
 def random_selectors(t: ModuleType = port_types):
     """A getSelectors for random_cluster pods: web pods sit behind one
     Service, db pods behind a Service and a ReplicaSet selector on the
@@ -338,13 +467,17 @@ def random_cluster(
     pins: bool = True,
     topology: bool = False,
     hard_spread: bool = False,
+    interpod: bool = False,
+    pending_affinity: bool = True,
 ) -> Tuple[list, list, list]:
     """(nodes, existing bound pods, pending pods). Existing pods may hold
     host ports (they fill the nodes' port tables); pending pods hold ports
     only with `pending_ports`, and `overflow_nodes` nodes carry more taints
     than the encoding holds (fallback rows). `topology` adds the spread
     branches (`_add_topology`, drawn after everything else so the default
-    cluster is unchanged); `hard_spread` adds DoNotSchedule constraints."""
+    cluster is unchanged); `hard_spread` adds DoNotSchedule constraints.
+    `interpod` adds the inter-pod branches after those (`_add_interpod`;
+    pending required affinity only with `pending_affinity`)."""
     rng = np.random.default_rng(seed)
     nodes = [_node(t, rng, i, overflow=i < overflow_nodes) for i in range(n_nodes)]
     names = [n.name for n in nodes]
@@ -356,6 +489,8 @@ def random_cluster(
     pending = [_pod(t, rng, f"p{i}", names, ports=pending_ports, pin=pins) for i in range(n_pending)]
     if topology:
         _add_topology(t, rng, nodes, existing, pending, hard_spread)
+    if interpod:
+        _add_interpod(t, rng, existing, pending, pending_affinity)
     return nodes, existing, pending
 
 

@@ -9,7 +9,10 @@ node `valid & ~fallback`.
 
 On CUDA tensors it launches the hand-written kernel `csrc/filters.cu`; on
 CPU tensors it runs the plain PyTorch version below, a straight port of the
-JAX arithmetic. Any other device raises.
+JAX arithmetic. Any other device raises. `inbatch_port_conflict` — the
+spec-pair host-port table of the solver's in-batch tracking
+(ops/pipeline._inbatch_tensors) — shares `port_clash` with the
+PodFitsHostPorts mask; its kernel is in `csrc/interpod.cu`.
 """
 
 from __future__ import annotations
@@ -332,3 +335,59 @@ def combined_mask(
 
 
 combined_mask.launches = 0
+
+
+def inbatch_port_conflict_plain(pods: Arrays, ids) -> torch.Tensor:
+    """[U, U] bool: some host port of spec row u clashes with one of spec
+    row w (the reference's pairwise port_clash, reduced over both lists)."""
+    return port_clash(
+        pods["port_num"][:, None, :, None],
+        pods["port_proto"][:, None, :, None],
+        pods["port_ip"][:, None, :, None],
+        pods["port_num"][None, :, None, :],
+        pods["port_proto"][None, :, None, :],
+        pods["port_ip"][None, :, None, :],
+        ids["wildcard_ip"],
+    ).any(dim=3).any(dim=2)
+
+
+PORT_CONFLICT_ENTRY = "ktpu_inbatch_port_conflict"
+
+
+class PortConflictArgs(ctypes.Structure):
+    """Mirror of `struct PortConflictArgs` in csrc/interpod.cu."""
+
+    _fields_ = (
+        [(k, ctypes.c_void_p) for k in ("port_num", "port_proto", "port_ip", "out")]
+        + [(d, ctypes.c_int32) for d in ("U", "PP", "wildcard_ip")]
+    )
+
+
+def port_conflict_args(pods: Arrays, ids):
+    """The port-conflict kernel's argument struct and the [U, U] output."""
+    u, pp = pods["port_num"].shape
+    out = torch.empty((u, u), dtype=torch.bool, device=pods["port_num"].device)
+    a = PortConflictArgs()
+    for k in ("port_num", "port_proto", "port_ip"):
+        setattr(a, k, build.ptr(pods[k], torch.int32, (u, pp)))
+    a.out = build.ptr(out, torch.bool)
+    a.U, a.PP, a.wildcard_ip = u, pp, int(ids["wildcard_ip"])
+    return a, out
+
+
+def inbatch_port_conflict(pods: Arrays, ids) -> torch.Tensor:
+    """The [U, U] spec-pair host-port conflict table. CPU tensors run the
+    plain version; CUDA tensors launch csrc/interpod.cu (counted in
+    `inbatch_port_conflict.launches`)."""
+    dev = pods["port_num"].device
+    if dev.type == "cpu":
+        return inbatch_port_conflict_plain(pods, ids)
+    if dev.type == "cuda":
+        args, out = port_conflict_args(pods, ids)
+        build.launch(PORT_CONFLICT_ENTRY, args, dev)
+        inbatch_port_conflict.launches += 1
+        return out
+    raise ValueError(f"no filter kernel for device {dev}")
+
+
+inbatch_port_conflict.launches = 0

@@ -1,12 +1,14 @@
 """The solve pipeline: mask → score → greedy batch solve.
 
 Port of `kubernetes_tpu/ops/pipeline.py` for batches whose topology terms
-are score-only — ScheduleAnyway spread ("spread_soft") and SelectorSpread
-("sel_spread") — and without in-batch anti-affinity/port tracking: the
-slices this port runs. The stages are the hand-written kernels of
-filters.py, scores.py, topology.py and solver.py on CUDA tensors (their
-plain versions on CPU tensors); the glue between them is plain PyTorch.
-Any other term kind raises NotImplementedError naming its ROADMAP item.
+are ScheduleAnyway spread ("spread_soft"), SelectorSpread ("sel_spread")
+and pod (anti-)affinity ("aff_req", "anti_req", "pref" and the existing
+pods' "et_anti" / "et_score"), with or without the solver's in-batch
+anti-affinity / host-port tracking: the slices this port runs. The stages
+are the hand-written kernels of filters.py, scores.py, topology.py and
+solver.py on CUDA tensors (their plain versions on CPU tensors); the glue
+between them is plain PyTorch. DoNotSchedule spread ("spread_hard"), and
+term_kinds=None, raise NotImplementedError naming the ROADMAP item.
 """
 
 from __future__ import annotations
@@ -19,6 +21,7 @@ import torch
 from . import filters as F
 from . import scores as S
 from . import topology as T
+from ..state.terms import ANTI_REQ
 from .solver import pop_order, solve_greedy
 
 Arrays = Dict[str, torch.Tensor]
@@ -49,32 +52,24 @@ class SolveConfig:
 DEFAULT_SOLVE_CONFIG = SolveConfig()
 
 
-# term kinds this port computes (score-only: no host re-check needed)
-PORTED_TERM_KINDS = frozenset({"spread_soft", "sel_spread"})
-_UNPORTED_KIND_ITEMS = {
-    "spread_hard": "ops/topology spread_filter with the commit arbiter (ROADMAP.md queue 1, arbiter slice)",
-    "aff_req": "ops/topology interpod_filter (ROADMAP.md queue 1, slice 3)",
-    "anti_req": "ops/topology interpod_filter (ROADMAP.md queue 1, slice 3)",
-    "pref": "ops/topology interpod_score (ROADMAP.md queue 1, slice 3)",
-    "et_anti": "the PatternBank and interpod_filter (ROADMAP.md queue 1, slice 3)",
-    "et_score": "the PatternBank and interpod_score (ROADMAP.md queue 1, slice 3)",
-}
+# term kinds this port computes
+PORTED_TERM_KINDS = frozenset({
+    "spread_soft", "sel_spread", "aff_req", "anti_req", "pref", "et_anti", "et_score",
+})
+_SPREAD_HARD_ITEM = "ops/topology spread_filter with the commit arbiter (ROADMAP.md queue 1, arbiter slice)"
 
 
 def _check_term_kinds(term_kinds) -> frozenset:
     """The term kinds of a batch, refused unless every one is ported. None
-    (the reference's "assume everything") is refused too."""
+    (the reference's "assume everything") is refused too: it includes
+    DoNotSchedule spread."""
     if term_kinds is None:
         raise NotImplementedError(
-            "term_kinds=None assumes every topology kind; the inter-pod programs need "
-            "ROADMAP.md queue 1, slice 3"
+            f"term_kinds=None assumes every topology kind; DoNotSchedule spread needs {_SPREAD_HARD_ITEM}"
         )
     unported = sorted(set(term_kinds) - PORTED_TERM_KINDS)
     if unported:
-        raise NotImplementedError(
-            f"topology term kinds {unported} need "
-            + "; ".join(_UNPORTED_KIND_ITEMS.get(k, "ROADMAP.md queue 1, slice 3") for k in unported)
-        )
+        raise NotImplementedError(f"topology term kinds {unported} need {_SPREAD_HARD_ITEM}")
     return frozenset(term_kinds)
 
 
@@ -82,17 +77,21 @@ def mask_and_score(
     na: Arrays, pa: Arrays, ids, config: Optional[SolveConfig] = None,
     term_kinds: Optional[frozenset] = frozenset(), *,
     ea: Optional[Arrays] = None, ta: Optional[Arrays] = None, au: Optional[Arrays] = None,
-    n_buckets: Optional[int] = None,
+    xa: Optional[Arrays] = None, n_buckets: Optional[int] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Filter+Score stage. `ea` (SigBank tensors), `ta` (batch TermBank
-    tensors), `au` (compile_batch_terms aux) and `n_buckets` (the segment
-    axis bound, None = N) feed the topology scores of the kinds named in
-    `term_kinds`, gated as the reference gates them. Without "sel_spread"
-    the SelectorSpread priority still adds its term-absent constant: a pod
-    with no controller selectors scores MaxNodeScore on every node
-    (selector_spreading.go), so the score kernel carries `w * 10`."""
+    tensors), `au` (compile_batch_terms aux), `xa` (PatternBank tensors)
+    and `n_buckets` (the segment axis bound, None = N) feed the topology
+    programs of the kinds named in `term_kinds`, gated as the reference
+    gates them: the inter-pod filter's parts under the MatchInterPodAffinity
+    predicate, its score's under a non-zero InterPodAffinityPriority weight.
+    Without "sel_spread" the SelectorSpread priority still adds its
+    term-absent constant: a pod with no controller selectors scores
+    MaxNodeScore on every node (selector_spreading.go), so the score kernel
+    carries `w * 10`."""
     kinds = _check_term_kinds(term_kinds)
     cfg = config or DEFAULT_SOLVE_CONFIG
+    preds = cfg.predicates
     w_spread = cfg.priority_weight("EvenPodsSpreadPriority", 1)
     w_sel = cfg.priority_weight("SelectorSpreadPriority", 1)
     spread = bool(w_spread) and "spread_soft" in kinds
@@ -103,8 +102,18 @@ def mask_and_score(
         mask, sel = F.combined_mask(na, pa, ids, predicates=cfg.predicates, with_selector=True)
     else:
         mask = F.combined_mask(na, pa, ids, predicates=cfg.predicates)
+    if preds is None or "MatchInterPodAffinity" in preds:
+        parts = tuple(p for p, k in (("existing", "et_anti"), ("aff", "aff_req"), ("anti", "anti_req"))
+                      if k in kinds)
+        if parts:
+            mask = mask & T.interpod_filter(na, ea, ta, au, xa, pa, parts=parts, n_buckets=n_buckets)
     bias = 0 if sel_spread else w_sel * S.MAX_NODE_SCORE
     score = S.score_matrix(na, pa, priorities=cfg.priorities, rtcr=cfg.rtcr, bias=bias)
+    w_ipa = cfg.priority_weight("InterPodAffinityPriority", 1)
+    if w_ipa:
+        parts = tuple(p for p, k in (("pref", "pref"), ("existing", "et_score")) if k in kinds)
+        if parts:
+            score = score + w_ipa * T.interpod_score(na, ea, ta, xa, pa, parts=parts, n_buckets=n_buckets)
     if spread:
         score = score + w_spread * T.spread_score(na, ea, ta, au, sel, n_buckets=n_buckets)
     if sel_spread:
@@ -126,6 +135,25 @@ def apply_carry(na: Arrays, carry: Optional[Tuple]) -> Arrays:
     }
 
 
+def _inbatch_tensors(na: Arrays, pa: Arrays, ta: Arrays, ids, n_buckets: Optional[int]) -> Dict:
+    """solve_greedy's `inb` dict: what lets the solver serialize required
+    anti-affinity and host-port conflicts WITHIN the batch. m_bb [TT, U]
+    (each term against the spec rows' labels and namespaces) comes from the
+    match_terms kernel and the pairwise port-conflict table [U, U] from the
+    inbatch_port_conflict kernel; the solver reads each node's bucket at a
+    term's key from the node bank's dense labels (`label_dense`,
+    `topo_slot`), so no [TT, N] bucket table is built."""
+    return {
+        "anti": ta["valid"] & (ta["kind"] == ANTI_REQ),
+        "owner": ta["owner"],
+        "m_bb": T.match_terms(ta, pa["label_vals"], pa["ns_id"]),
+        "topo_slot": ta["topo_slot"],
+        "label_dense": na["label_dense"],
+        "port_conflict": F.inbatch_port_conflict(pa, ids),
+        "n_buckets": int(n_buckets or na["valid"].shape[0]),
+    }
+
+
 def solve_pipeline(
     na: Arrays,  # NodeBank tensors
     pa: Arrays,  # PodBatch tensors (one row per unique pod spec)
@@ -142,19 +170,17 @@ def solve_pipeline(
     ea: Optional[Arrays] = None,  # SigBank tensors
     ta: Optional[Arrays] = None,  # batch TermBank tensors
     au: Optional[Arrays] = None,  # compile_batch_terms aux
+    xa: Optional[Arrays] = None,  # PatternBank tensors
     n_buckets: Optional[int] = None,  # topology segment-axis bound
 ):
     """mask → score → greedy solve. Returns (assign [B], score [U, N]),
-    plus the post-batch (free, count, nz) carry with return_carry."""
+    plus the post-batch (free, count, nz) carry with return_carry.
+    `track_inbatch` turns on the solver's in-batch anti-affinity /
+    host-port tracking (needs `ta`)."""
     _check_term_kinds(term_kinds)
-    if track_inbatch:
-        raise NotImplementedError(
-            "in-batch anti-affinity/host-port tracking needs the solver's inb "
-            "tables (ROADMAP.md queue 1, slice 3)"
-        )
     na = apply_carry(na, carry)
     mask, score = mask_and_score(
-        na, pa, ids, config, term_kinds, ea=ea, ta=ta, au=au, n_buckets=n_buckets
+        na, pa, ids, config, term_kinds, ea=ea, ta=ta, au=au, xa=xa, n_buckets=n_buckets
     )
     free0 = na["alloc"] - na["requested"]
     if pb is None:
@@ -170,6 +196,7 @@ def solve_pipeline(
         sig=sig, pod_valid=pvalid, return_carry=return_carry,
         nz0=na["nonzero_req"].to(free0.dtype) if return_carry else None,
         scoring_req=pa["scoring_req"] if return_carry else None,
+        inb=_inbatch_tensors(na, pa, ta, ids, n_buckets) if track_inbatch else None,
     )
     if return_carry:
         assign, carry_out = result

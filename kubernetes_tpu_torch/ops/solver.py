@@ -1,18 +1,22 @@
 """Batch assignment solver: greedy by queue priority, one batch at a time.
 
-Port of `kubernetes_tpu/ops/solver.py` without the in-batch
-anti-affinity/port tracking (`inb`, ROADMAP slice 3). A whole batch of
-pending pods is assigned bit-identically to scheduling them one at a time
-in the order the reference queue pops them (priority desc, then enqueue
-sequence asc): each pod takes the max-(score, tie-noise) node that is
-feasible against the residuals every earlier pod left.
+Port of `kubernetes_tpu/ops/solver.py`. A whole batch of pending pods is
+assigned bit-identically to scheduling them one at a time in the order the
+reference queue pops them (priority desc, then enqueue sequence asc): each
+pod takes the max-(score, tie-noise) node that is feasible against the
+residuals every earlier pod left — and, with `inb`, against the required
+anti-affinity and host-port conflicts of the pods committed before it in
+the same batch (predicates.go:1284 satisfiesExistingPodsAntiAffinity
+applied within the batch).
 
 * `solve_greedy_plain` is the reference's arithmetic as written: chunks of
   K pods choose nodes in one vectorized [K, N] pass, per-node in-order
   prefix sums accept every pod up to the first misfit, and the rest retry
-  against the updated residuals.
+  against the updated residuals; with `inb`, a pairwise commit barrier
+  stops a round at the first pod whose anti/port mask an earlier
+  candidate commit of the round could change.
 * On CUDA tensors `solve_greedy` launches `csrc/solver.cu`, the sequential
-  walk that the chunked scan provably equals (solver.py:110-126).
+  walk that the chunked scan provably equals (solver.py:110-126, :144-149).
 """
 
 from __future__ import annotations
@@ -23,6 +27,7 @@ from typing import Optional, Sequence
 import torch
 
 from ..kernels import build
+from .topology import _bucket_of
 
 # chunk width of the prefix-acceptance loop (the reference's DEFAULT_CHUNK)
 DEFAULT_CHUNK = 128
@@ -99,14 +104,101 @@ def _defaults(mask, req, order, req_any, sig, pod_valid, nz0, scoring_req, free0
     return req_any, sig, pod_valid, nz0, scoring_req
 
 
+def _inb_state(inb, U: int, N: int, dev):
+    """The plain version's view of an `inb` dict: the anti-term mask,
+    owners, matches (masked to anti terms), per-node buckets / has-key,
+    the port-conflict table and zeroed commit tables."""
+    t_anti = inb["anti"]
+    bucket_n, haskey_n = _bucket_of({"label_dense": inb["label_dense"]}, inb["topo_slot"])
+    v = int(inb["n_buckets"])
+    tt = t_anti.shape[0]
+    return dict(
+        t_anti=t_anti, t_owner=inb["owner"], m_bb=inb["m_bb"] & t_anti[:, None],
+        bucket_n=bucket_n.long(), haskey_n=haskey_n, pconf=inb["port_conflict"], V=v, TT=tt,
+        ca=torch.zeros((tt, v), dtype=torch.int32, device=dev),
+        cb=torch.zeros((tt, v), dtype=torch.int32, device=dev),
+        cs=torch.zeros((U, N), dtype=torch.int32, device=dev),
+    )
+
+
+def _gather_counts(table: torch.Tensor, bucket_n: torch.Tensor) -> torch.Tensor:
+    """table [TT, V] read at bucket_n [TT, N]: > 0, a bucket >= V reading
+    as empty (the reference's fill-mode take_along_axis)."""
+    v = table.shape[1]
+    got = torch.gather(table, 1, bucket_n.clamp(max=v - 1))
+    return (got > 0) & (bucket_n < v)
+
+
+def _scatter_min_rows(rows: int, width: int, idx: torch.Tensor, vals: torch.Tensor, fill: int) -> torch.Tensor:
+    """[rows, width] table of the min of `vals` [rows, K] at column `idx`
+    per row; a column >= width is dropped (mode="drop")."""
+    out = torch.full((rows, width + 1), fill, dtype=torch.int64, device=vals.device)
+    out.scatter_reduce_(1, idx.clamp(max=width), vals, reduce="amin")
+    return out[:, :width]
+
+
+def _inb_block(st, sg, own_t, cand_ok, cand, jrange, K):
+    """The reference's pairwise commit barrier: [K] bool, pod j must not
+    commit this round because an earlier candidate commit i of the round
+    contributes to a ca/cb row j reads at the same topology bucket, or
+    port-conflicts j's spec on j's chosen node. A bucket >= V reads as no
+    contributor (the reference's int32 fill value would block the round's
+    first pod forever: the driver sizes V so that no bucket reaches it)."""
+    tt, v = st["TT"], st["V"]
+    cidx3 = torch.where(cand_ok, cand, 0).long()
+    bK = st["bucket_n"][:, cidx3]  # [TT, K] bucket of each choice
+    hkK = st["haskey_n"][:, cidx3] & cand_ok[None, :]
+    own_kt = own_t & hkK  # j reads ca[t, bK]
+    contrib = st["m_bb"][:, sg] & hkK  # i bumps ca[t, bK]
+    idxK = jrange[None, :].expand(tt, K)
+    mi_contrib = _scatter_min_rows(tt, v, torch.where(contrib, bK, v), idxK, K)
+    mi_own = _scatter_min_rows(tt, v, torch.where(own_kt, bK, v), idxK, K)
+    at = torch.where(hkK, bK, 0)
+    g_contrib = torch.where(at < v, torch.gather(mi_contrib, 1, at.clamp(max=v - 1)), K)
+    g_own = torch.where(at < v, torch.gather(mi_own, 1, at.clamp(max=v - 1)), K)
+    block_a = (own_kt & (g_contrib < jrange[None, :])).any(dim=0)
+    block_b = (contrib & (g_own < jrange[None, :])).any(dim=0)
+    # ports: the earliest candidate per (spec, node); j is blocked when a
+    # port-conflicting spec has an earlier candidate on j's chosen node
+    u, n = st["cs"].shape
+    flat = torch.where(cand_ok, sg * n + cidx3, u * n)
+    mi_sn = torch.full((u * n + 1,), K, dtype=torch.int64, device=sg.device)
+    mi_sn.scatter_reduce_(0, flat, torch.where(cand_ok, jrange, K), reduce="amin")
+    g_sn = mi_sn[: u * n].view(u, n)[:, cidx3]  # [U, K]
+    block_p = (st["pconf"][sg].T & (g_sn < jrange[None, :])).any(dim=0)
+    return cand_ok & (block_a | block_b | block_p)
+
+
+def _inb_record(st, sg, own_t, commit, cand):
+    """Count this round's commits into the in-batch tables: ca per term a
+    committed pod matches, cb per term it owns (per topology bucket of its
+    node), cs per (spec, node); a bucket >= V is dropped."""
+    tt, v = st["TT"], st["V"]
+    cidx2 = torch.where(commit, cand, 0).long()
+    bcand = st["bucket_n"][:, cidx2]  # [TT, K]
+    hk = st["haskey_n"][:, cidx2] & commit[None, :] & (bcand < v)
+    rows = torch.arange(tt, device=sg.device)[:, None] * (v + 1)
+    for table, sel in ((st["ca"], st["m_bb"][:, sg] & hk), (st["cb"], own_t & hk)):
+        flat = (rows + torch.where(sel, bcand, v)).flatten()
+        acc = torch.zeros(tt * (v + 1), dtype=torch.int32, device=sg.device)
+        acc.index_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+        table += acc.view(tt, v + 1)[:, :v]
+    u, n = st["cs"].shape
+    flat = torch.where(commit, sg * n + cidx2, u * n)
+    acc = torch.zeros(u * n + 1, dtype=torch.int32, device=sg.device)
+    acc.index_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
+    st["cs"] += acc[: u * n].view(u, n)
+
+
 def solve_greedy_plain(
     mask, score, req, free0, count0, allowed, order, key, deterministic=False,
     req_any=None, sig=None, pod_valid=None, chunk: int = DEFAULT_CHUNK,
-    return_carry=False, nz0=None, scoring_req=None,
+    return_carry=False, nz0=None, scoring_req=None, inb=None,
 ):
     """The reference's chunked prefix-acceptance solve, in plain PyTorch
-    (solver.py:solve_greedy without `inb`). Returns the node row per batch
-    position (-1 = no fit), plus the (free, count, nz) carry when asked."""
+    (solver.py:solve_greedy). Returns the node row per batch position (-1 =
+    no fit), plus the (free, count, nz) carry when asked. `inb` turns on the
+    in-batch anti-affinity / host-port tracking (see `solve_greedy`)."""
     U, N = mask.shape
     dev = mask.device
     req_any, sig, pod_valid, nz0, scoring_req = _defaults(
@@ -120,6 +212,7 @@ def solve_greedy_plain(
     neg = torch.iinfo(score.dtype).min
     jrange = torch.arange(K, device=dev)
     free, count, nzacc = free0.clone(), count0.clone(), nz0.clone()
+    st = _inb_state(inb, U, N, dev) if inb is not None else None
     choices = torch.full((B,), -1, dtype=torch.int32, device=dev)
     for c0 in range(0, B, K):
         idx = order[c0 : c0 + K].long()
@@ -131,11 +224,24 @@ def solve_greedy_plain(
         r_any = req_any[sg]
         s_q = scoring_req[sg]
         nz_rows = noise[c0 : c0 + K] if noise is not None else None
+        if st is not None:
+            own_t = (st["t_owner"][:, None] == sg[None, :]) & st["t_anti"][:, None]  # [TT, K] terms each pod owns
+            own_k = own_t.T.to(torch.float64)
+            mbb_k = st["m_bb"][:, sg].T.to(torch.float64)  # [K, TT]
+            pconf_k = st["pconf"][sg].to(torch.float64)  # [K, U]
         decided = ~pv
         choice = torch.full((K,), -1, dtype=torch.int32, device=dev)
         while not bool(decided.all()):
             res_ok = (~r_any[:, None]) | (r_q[:, None, :] <= free[None, :, :]).all(dim=-1)
             feas = m_r & res_ok & (count[None, :] + 1 <= allowed[None, :])
+            if st is not None:
+                # in-batch anti/port exclusion by the commits so far
+                ca_pos = _gather_counts(st["ca"], st["bucket_n"]) & st["haskey_n"]
+                cb_pos = _gather_counts(st["cb"], st["bucket_n"]) & st["haskey_n"]
+                block_a = (own_k @ ca_pos.to(torch.float64)) > 0.5
+                block_b = (mbb_k @ cb_pos.to(torch.float64)) > 0.5
+                block_p = (pconf_k @ (st["cs"] > 0).to(torch.float64)) > 0.5
+                feas = feas & ~(block_a | block_b | block_p)
             feas = feas & ~decided[:, None]
             anyf = feas.any(dim=1)
             masked = torch.where(feas, s_r, torch.full_like(s_r, neg))
@@ -164,10 +270,16 @@ def solve_greedy_plain(
             rejected = active & ~fits
             first_rej = torch.where(rejected, jrange, torch.full_like(jrange, K)).min()
             commit = active & (jrange < first_rej)
+            if st is not None:
+                blocked = _inb_block(st, sg, own_t, commit, cand, jrange, K)
+                first_block = torch.where(blocked, jrange, torch.full_like(jrange, K)).min()
+                commit = commit & (jrange < first_block)
             rows = cidx[commit]
             free.index_add_(0, rows, -r_q[commit])
             count.index_add_(0, rows, torch.ones_like(rows, dtype=count.dtype))
             nzacc.index_add_(0, rows, s_q[commit])
+            if st is not None:
+                _inb_record(st, sg, own_t, commit, cand)
             choice = torch.where(commit, cand, choice)
             decided = decided | commit | newly_none
         choices[c0 : c0 + K] = choice
@@ -187,17 +299,51 @@ class SolveArgs(ctypes.Structure):
         ("allowed", ctypes.c_void_p), ("order", ctypes.c_void_p), ("sig", ctypes.c_void_p),
         ("pod_valid", ctypes.c_void_p), ("free", ctypes.c_void_p), ("count", ctypes.c_void_p),
         ("nz", ctypes.c_void_p), ("assign", ctypes.c_void_p),
+        ("t_anti", ctypes.c_void_p), ("t_owner", ctypes.c_void_p), ("t_topo_slot", ctypes.c_void_p),
+        ("m_bb", ctypes.c_void_p), ("label_dense", ctypes.c_void_p), ("pconf", ctypes.c_void_p),
+        ("ca", ctypes.c_void_p), ("cb", ctypes.c_void_p), ("cs", ctypes.c_void_p),
         ("U", ctypes.c_int32), ("N", ctypes.c_int32), ("R", ctypes.c_int32), ("B", ctypes.c_int32),
         ("seed", ctypes.c_uint32), ("deterministic", ctypes.c_int32),
+        ("track", ctypes.c_int32), ("TT", ctypes.c_int32), ("K", ctypes.c_int32), ("V", ctypes.c_int32),
     ]
 
 
 MAX_KERNEL_RESOURCES = 32  # csrc/solver.cu stages one request row in shared memory
+# with tracking, csrc/solver.cu stages each pod's anti-term and conflicting
+# spec lists in shared memory: (2 * TT + U) int32
+MAX_TRACK_LIST_BYTES = 200 * 1024
+
+
+def _track_args(args: SolveArgs, inb, U: int, N: int, dev) -> dict:
+    """Point the solve struct at the in-batch tables; returns the tensors
+    it must keep alive (the zeroed commit tables included)."""
+    tt = inb["anti"].shape[0]
+    n, k = inb["label_dense"].shape
+    v = int(inb["n_buckets"])
+    if (2 * tt + U) * 4 > MAX_TRACK_LIST_BYTES:
+        raise ValueError(f"{tt} term rows and {U} spec rows exceed the solve kernel's shared lists")
+    keep = dict(
+        owner=inb["owner"].to(torch.int32).contiguous(),
+        ca=torch.zeros((tt, v), dtype=torch.int32, device=dev),
+        cb=torch.zeros((tt, v), dtype=torch.int32, device=dev),
+        cs=torch.zeros((U, N), dtype=torch.int32, device=dev),
+    )
+    args.t_anti = build.ptr(inb["anti"], torch.bool, (tt,))
+    args.t_owner = build.ptr(keep["owner"], torch.int32, (tt,))
+    args.t_topo_slot = build.ptr(inb["topo_slot"], torch.int32, (tt,))
+    args.m_bb = build.ptr(inb["m_bb"], torch.bool, (tt, U))
+    args.label_dense = build.ptr(inb["label_dense"], torch.int32, (N, k))
+    args.pconf = build.ptr(inb["port_conflict"], torch.bool, (U, U))
+    args.ca = build.ptr(keep["ca"], torch.int32)
+    args.cb = build.ptr(keep["cb"], torch.int32)
+    args.cs = build.ptr(keep["cs"], torch.int32)
+    args.track, args.TT, args.K, args.V = 1, tt, k, v
+    return keep
 
 
 def _solve_greedy_cuda(
     mask, score, req, free0, count0, allowed, order, key, deterministic,
-    req_any, sig, pod_valid, return_carry, nz0, scoring_req,
+    req_any, sig, pod_valid, return_carry, nz0, scoring_req, inb=None,
 ):
     U, N = mask.shape
     R = req.shape[1]
@@ -233,8 +379,12 @@ def _solve_greedy_cuda(
         seed=noise_seed(key),
         deterministic=1 if deterministic else 0,
     )
+    if inb is not None:
+        args.keepalive = _track_args(args, inb, U, N, mask.device)
     build.launch("ktpu_solve_greedy", args, mask.device)
     solve_greedy.launches += 1
+    if inb is not None:
+        solve_greedy.tracked_launches += 1
     if return_carry:
         return out, (free, count, nz)
     return out
@@ -256,23 +406,36 @@ def solve_greedy(
     return_carry: bool = False,
     nz0: Optional[torch.Tensor] = None,  # [N, 2]
     scoring_req: Optional[torch.Tensor] = None,  # [U, 2]
+    inb: Optional[dict] = None,  # in-batch anti-affinity / host-port tracking
 ):
     """Greedy-by-priority batch assignment → node row per pod (-1 = no
     fit), plus the post-batch (free, count, nz) carry with return_carry.
     CPU tensors run the plain chunked version; CUDA tensors launch
-    csrc/solver.cu (counted in `solve_greedy.launches`)."""
+    csrc/solver.cu (counted in `solve_greedy.launches`, and those with
+    tracking also in `solve_greedy.tracked_launches`).
+
+    `inb` (ops/pipeline._inbatch_tensors) turns on the in-batch tracking:
+    a pod may not take a node sharing a topology bucket with an earlier
+    in-batch commit its own required anti-affinity term matches, nor one
+    where an earlier commit's anti term matches it, nor a node an earlier
+    commit with a clashing host port took. Keys: anti [TT] bool (valid
+    ANTI_REQ rows), owner [TT] (spec row), m_bb [TT, U] bool (term matches
+    spec labels and namespace), topo_slot [TT], label_dense [N, K] (the
+    node bank's dense topology buckets), port_conflict [U, U] bool,
+    n_buckets (V)."""
     dev = mask.device
     if dev.type == "cpu":
         return solve_greedy_plain(
             mask, score, req, free0, count0, allowed, order, key, deterministic,
-            req_any, sig, pod_valid, DEFAULT_CHUNK, return_carry, nz0, scoring_req,
+            req_any, sig, pod_valid, DEFAULT_CHUNK, return_carry, nz0, scoring_req, inb,
         )
     if dev.type == "cuda":
         return _solve_greedy_cuda(
             mask, score, req, free0, count0, allowed, order, key, deterministic,
-            req_any, sig, pod_valid, return_carry, nz0, scoring_req,
+            req_any, sig, pod_valid, return_carry, nz0, scoring_req, inb,
         )
     raise ValueError(f"no solve kernel for device {dev}")
 
 
 solve_greedy.launches = 0
+solve_greedy.tracked_launches = 0

@@ -1,13 +1,18 @@
-"""Topology scores: EvenPodsSpread (ScheduleAnyway) and SelectorSpread.
+"""Topology programs: EvenPodsSpread (ScheduleAnyway), InterPodAffinity and
+SelectorSpread.
 
-Port of the score-only half of `kubernetes_tpu/ops/topology.py`:
+Port of `kubernetes_tpu/ops/topology.py` without `spread_filter`:
 `match_terms` (term x signature selector and namespace match),
-`spread_score` (CalculateEvenPodsSpreadPriority, even_pods_spread.go:85)
+`spread_score` (CalculateEvenPodsSpreadPriority, even_pods_spread.go:85),
+`interpod_filter` (InterPodAffinityMatches, predicates.go:1269),
+`interpod_score` (CalculateInterPodAffinityPriority, interpod_affinity.go:99)
 and `selector_spread_score` (CalculateSpreadPriorityMap/Reduce,
 selector_spreading.go). Terms are the sparse rows of state/terms.TermBank;
 existing pods are the label signatures of state/tensors.SigBank with
 per-node counts, so matching runs against S signature rows and the
-per-node counts are one [TT, S] x [S, N] product. Aggregation per topology
+per-node counts are one [TT, S] x [S, N] product; existing pods' own terms
+are the patterns of state/terms.PatternBank with per-node instance
+counts. Aggregation per topology
 value is a segment sum keyed by the dense value index
 (NodeBank.label_dense) into `n_buckets` (V) buckets; an index at or above
 V is dropped from a sum and clamped in a gather, as the reference's
@@ -20,8 +25,10 @@ arithmetic. Any other device raises. The plain versions compute the
 signature products in float64 (exact below 2^53: CUDA has no integer
 matmul), so the same code runs on the card as the kernels' yardstick.
 
-The filter half (spread_filter, interpod_filter) and interpod_score are
-not ported yet (ROADMAP.md queue 1, slice 3 and the arbiter slice).
+The reference's f32 products are exact only while every partial sum stays
+below 2^24; the plain versions and the kernels sum in integers (float64
+below 2^53 in the plain products), which give the same numbers there.
+`spread_filter` is not ported yet (ROADMAP.md queue 1, arbiter slice).
 """
 
 from __future__ import annotations
@@ -32,7 +39,7 @@ from typing import Dict, Optional
 import torch
 
 from ..kernels import build
-from ..state.terms import SEL_SPREAD, SPREAD_SOFT
+from ..state.terms import AFF_PREF, AFF_REQ, ANTI_PREF, ANTI_REQ, SEL_SPREAD, SPREAD_SOFT
 from ..state.tensors import OP_DOES_NOT_EXIST, OP_EXISTS, OP_IN, OP_NEVER, OP_NOT_IN
 
 Arrays = Dict[str, torch.Tensor]
@@ -132,6 +139,23 @@ def _scatter_and(ok_t: torch.Tensor, owner: torch.Tensor, mask_t: torch.Tensor, 
     return out.scatter_reduce_(0, idx, contrib, reduce="amin")[:b].to(torch.bool)
 
 
+def _scatter_or(bad_t: torch.Tensor, owner: torch.Tensor, mask_t: torch.Tensor, b: int) -> torch.Tensor:
+    """OR of bad_t rows per owner → [b, N] (rows with no masked term: 0)."""
+    contrib = torch.where(mask_t[:, None], bad_t, False).to(torch.int32)
+    out = torch.zeros(b + 1, bad_t.shape[1], dtype=torch.int32, device=bad_t.device)
+    idx = _owner_index(owner, mask_t, b)[:, None].expand_as(contrib)
+    return out.scatter_reduce_(0, idx, contrib, reduce="amax")[:b].to(torch.bool)
+
+
+def _matchall_rows(m_sig: torch.Tensor, owner: torch.Tensor, mask_t: torch.Tensor, b: int) -> torch.Tensor:
+    """[b, S]: the signatures matching EVERY masked term of the row (rows
+    without such a term: all ones)."""
+    contrib = torch.where(mask_t[:, None], m_sig, True).to(torch.int32)
+    out = torch.ones(b + 1, m_sig.shape[1], dtype=torch.int32, device=m_sig.device)
+    idx = _owner_index(owner, mask_t, b)[:, None].expand_as(contrib)
+    return out.scatter_reduce_(0, idx, contrib, reduce="amin")[:b].to(torch.bool)
+
+
 def _scatter_add(val_t: torch.Tensor, owner: torch.Tensor, mask_t: torch.Tensor, b: int) -> torch.Tensor:
     contrib = torch.where(mask_t[:, None], val_t, 0)
     out = torch.zeros(b + 1, val_t.shape[1], dtype=val_t.dtype, device=val_t.device)
@@ -207,10 +231,7 @@ def selector_spread_score_plain(
     owner = terms["owner"]
     m_sig = match_terms_plain(terms, eps["label_vals"], eps["ns_id"])  # ns compiled = pod ns
     # AND across the pod's selectors, at the signature level
-    contrib = torch.where(ss[:, None], m_sig, True).to(torch.int32)
-    matchall = torch.ones(b + 1, m_sig.shape[1], dtype=torch.int32, device=m_sig.device)
-    idx = _owner_index(owner, ss, b)[:, None].expand_as(contrib)
-    matchall = matchall.scatter_reduce_(0, idx, contrib, reduce="amin")[:b].to(torch.bool)
+    matchall = _matchall_rows(m_sig, owner, ss, b)
     matchall = matchall & eps["valid"][None, :] & ~eps["deleting"][None, :]
     matchall = matchall & (aux["n_sel_spread"] > 0)[:, None]
     counts = _sig_cnt_node(matchall, eps["counts"]).to(torch.int64)  # [U, N]
@@ -246,6 +267,115 @@ def selector_spread_score_plain(
     return blended.to(torch.int64)
 
 
+FILTER_PARTS = ("existing", "aff", "anti")
+SCORE_PARTS = ("pref", "existing")
+
+
+def interpod_filter_plain(
+    nodes: Arrays, eps: Arrays, terms: Arrays, aux: Arrays, ex_terms: Arrays, pods: Arrays,
+    parts: tuple = FILTER_PARTS, n_buckets: Optional[int] = None,
+) -> torch.Tensor:
+    """InterPodAffinityMatches (predicates.go:1269), metadata path, [U, N]:
+      "existing"  existing pods' required anti-affinity (PatternBank)
+                  blocks the same-topology nodes of the pods it matches;
+      "aff"       the pod's required affinity: a node must share a
+                  topology value with an existing pod matching ALL its
+                  terms (first-pod-in-series escape when none exists);
+      "anti"      the pod's required anti-affinity: a node sharing a
+                  topology value with a matching existing pod fails.
+    A part left out contributes its term-absent identity (pass)."""
+    b = pods["valid"].shape[0]
+    n = nodes["valid"].shape[0]
+    v = n_buckets or n
+    result = torch.ones(b, n, dtype=torch.bool, device=nodes["valid"].device)
+
+    if "existing" in parts:
+        ex_anti = ex_terms["valid"] & (ex_terms["kind"] == ANTI_REQ)
+        m_pt = match_terms_plain(ex_terms, pods["label_vals"], pods["ns_id"]) & ex_anti[:, None]  # [PT, U]
+        bucket_n, haskey_n = _bucket_of(nodes, ex_terms["topo_slot"])  # [PT, N]
+        hosted = torch.where(haskey_n, ex_terms["counts"].T.to(torch.int32), 0)
+        present = _seg_sum(hosted, bucket_n, v) > 0  # [PT, V]
+        block_t = haskey_n & _gather_rows(present, bucket_n)  # [PT, N]
+        # boolean OR-product: some matching pattern blocks the node
+        fail = (m_pt.T.to(torch.float64) @ block_t.to(torch.float64)) > 0.5
+        result = result & ~fail
+
+    if "aff" in parts or "anti" in parts:
+        aff = terms["valid"] & (terms["kind"] == AFF_REQ)
+        anti = terms["valid"] & (terms["kind"] == ANTI_REQ)
+        owner = terms["owner"]
+        m_sig = match_terms_plain(terms, eps["label_vals"], eps["ns_id"]) & eps["valid"][None, :]  # [TT, S]
+        bucket_n2, haskey_n2 = _bucket_of(nodes, terms["topo_slot"])  # [TT, N]
+
+    if "aff" in parts:
+        matchall = _matchall_rows(m_sig, owner, aff, b)  # [U, S]
+        cnt_aff_node = _sig_cnt_node(matchall, eps["counts"])  # [U, N]
+        contrib = torch.where(haskey_n2 & aff[:, None], cnt_aff_node[owner.long()], 0)  # [TT, N]
+        agg_aff = _seg_sum(contrib, bucket_n2, v) > 0  # [TT, V]
+        ok_aff_t = haskey_n2 & _gather_rows(agg_aff, bucket_n2)
+        aff_ok = _scatter_and(ok_aff_t, owner, aff, b)
+        any_pair = _owner_any(agg_aff.any(dim=1), owner, aff, b)
+        escape = ~any_pair & aux["self_aff_match"]
+        result = result & (aff_ok | escape[:, None] | ~aux["has_aff"][:, None])
+
+    if "anti" in parts:
+        cnt_anti_node = _sig_cnt_node(m_sig & anti[:, None], eps["counts"])  # [TT, N]
+        agg_anti = _seg_sum(torch.where(haskey_n2, cnt_anti_node, 0), bucket_n2, v) > 0
+        bad_anti_t = haskey_n2 & _gather_rows(agg_anti, bucket_n2)
+        result = result & ~_scatter_or(bad_anti_t, owner, anti, b)
+
+    return result
+
+
+def interpod_score_plain(
+    nodes: Arrays, eps: Arrays, terms: Arrays, ex_terms: Arrays, pods: Arrays,
+    parts: tuple = SCORE_PARTS, n_buckets: Optional[int] = None,
+) -> torch.Tensor:
+    """CalculateInterPodAffinityPriority (interpod_affinity.go:99), [U, N]
+    int64: weighted same-topology counts from "pref" (the pod's preferred
+    terms against existing pods; ANTI_PREF weights are stored negative)
+    and "existing" (existing pods' required-affinity (hard weight) and
+    preferred terms against the pod), min-max normalized to [0, 10] over
+    the valid nodes with 0 clamped in."""
+    b = pods["valid"].shape[0]
+    n = nodes["valid"].shape[0]
+    v = n_buckets or n
+    counts = torch.zeros(b, n, dtype=torch.int64, device=nodes["valid"].device)
+
+    if "pref" in parts:
+        pref = terms["valid"] & ((terms["kind"] == AFF_PREF) | (terms["kind"] == ANTI_PREF))
+        owner = terms["owner"]
+        m_sig = match_terms_plain(terms, eps["label_vals"], eps["ns_id"]) & eps["valid"][None, :] & pref[:, None]
+        bucket_n, haskey_n = _bucket_of(nodes, terms["topo_slot"])
+        cnt_node = _sig_cnt_node(m_sig, eps["counts"])  # [TT, N]
+        cnt = _seg_sum(torch.where(haskey_n, cnt_node, 0), bucket_n, v)  # [TT, V]
+        contrib_t = torch.where(haskey_n, _gather_rows(cnt, bucket_n), 0) * terms["weight"][:, None]
+        counts = counts + _scatter_add(contrib_t.to(torch.int64), owner, pref, b)
+
+    if "existing" in parts:
+        kind = ex_terms["kind"]
+        ex_score = ex_terms["valid"] & ((kind == AFF_REQ) | (kind == AFF_PREF) | (kind == ANTI_PREF))
+        m_pt = match_terms_plain(ex_terms, pods["label_vals"], pods["ns_id"]) & ex_score[:, None]  # [PT, U]
+        bucket_ne, haskey_ne = _bucket_of(nodes, ex_terms["topo_slot"])  # [PT, N]
+        hosted = torch.where(haskey_ne, ex_terms["counts"].T.to(torch.int32), 0)
+        cnt_v = _seg_sum(hosted, bucket_ne, v)  # [PT, V]
+        at_node = torch.where(haskey_ne, _gather_rows(cnt_v, bucket_ne), 0)  # [PT, N]
+        weighted = m_pt.to(torch.float64) * ex_terms["weight"][:, None].to(torch.float64)  # [PT, U]
+        counts = counts + (weighted.T @ at_node.to(torch.float64)).to(torch.int64)
+
+    valid = nodes["valid"][None, :] & pods["valid"][:, None]
+    masked = torch.where(valid, counts, 0)
+    max_c = masked.amax(dim=1).clamp(min=0)
+    min_c = masked.amin(dim=1).clamp(max=0)
+    diff = max_c - min_c
+    f = torch.where(
+        diff[:, None] > 0,
+        torch.div(MAX_NODE_SCORE * (counts - min_c[:, None]), diff.clamp(min=1)[:, None], rounding_mode="floor"),
+        0,
+    )
+    return torch.where(valid, f, 0)
+
+
 # ---------------------------------------------------------------------------
 # CUDA kernel wrappers
 # ---------------------------------------------------------------------------
@@ -253,11 +383,19 @@ def selector_spread_score_plain(
 MATCH_ENTRY = "ktpu_match_terms"
 SPREAD_ENTRY = "ktpu_spread_score"
 SEL_SPREAD_ENTRY = "ktpu_selector_spread_score"
+INTERPOD_FILTER_ENTRY = "ktpu_interpod_filter"
+INTERPOD_SCORE_ENTRY = "ktpu_interpod_score"
 
 # a kernel block keeps its owner's term list in shared memory, and its
 # V-wide bucket table there too while it fits (else in device memory)
 MAX_TERMS = 16384
 SHARED_TABLE_BYTES = 160 * 1024
+# the inter-pod kernels stage a row's term and pattern lists in shared memory
+MAX_LIST_BYTES = 200 * 1024
+
+# csrc/interpod.cu's part bits
+_PART_BITS = {("filter", "existing"): 1, ("filter", "aff"): 2, ("filter", "anti"): 4,
+              ("score", "pref"): 8, ("score", "existing"): 16}
 
 
 class MatchArgs(ctypes.Structure):
@@ -468,3 +606,137 @@ def selector_spread_score(
 
 
 selector_spread_score.launches = 0
+
+
+class InterpodArgs(ctypes.Structure):
+    """Mirror of `struct InterpodArgs` in csrc/interpod.cu."""
+
+    _fields_ = (
+        [(k, ctypes.c_void_p) for k in (
+            "n_valid", "label_dense", "x_valid", "x_kind", "x_topo_slot", "x_weight", "x_counts", "m_pt",
+            "t_valid", "t_kind", "t_owner", "t_topo_slot", "t_weight", "m_sig", "e_valid", "counts",
+            "p_valid", "self_aff_match", "has_aff", "sig_list", "x_table", "t_table", "any_pair",
+            "mask", "score")]
+        + [(d, ctypes.c_int32) for d in ("N", "K", "PT", "TT", "S", "U", "V", "parts", "table_in_shared")]
+    )
+
+
+def interpod_args(which: str, nodes: Arrays, eps: Arrays, terms: Arrays, ex_terms: Arrays, pods: Arrays,
+                  m_pt: torch.Tensor, m_sig: torch.Tensor, parts: tuple, aux: Optional[Arrays] = None,
+                  n_buckets: Optional[int] = None):
+    """The argument struct (with its scratch) of csrc/interpod.cu's
+    `which` ("filter" or "score") entry for these CUDA tensors, and the
+    [U, N] output it writes (bool mask or int64 score). `m_pt` is
+    match_terms(ex_terms, pod labels, pod namespaces) [PT, U], `m_sig`
+    match_terms(terms, signature labels, signature namespaces) [TT, S]."""
+    tt = _check_terms(terms)
+    u = pods["valid"].shape[0]
+    n, k = nodes["label_dense"].shape
+    s = eps["valid"].shape[0]
+    pt = ex_terms["valid"].shape[0]
+    v = int(n_buckets or n)
+    dev = nodes["valid"].device
+    in_shared = (v + tt) * 4 <= SHARED_TABLE_BYTES
+    list_bytes = (pt + 2 * tt) * 4
+    if list_bytes > MAX_LIST_BYTES:
+        raise ValueError(f"{tt} term rows and {pt} patterns exceed the inter-pod kernels' shared lists")
+    scratch = dict(
+        sig_list=torch.empty((tt, s), dtype=torch.int32, device=dev),
+        x_table=torch.empty((pt, v), dtype=torch.int32, device=dev),
+        t_table=torch.empty((tt, v), dtype=torch.int32, device=dev),
+        any_pair=torch.empty((tt,), dtype=torch.bool, device=dev),
+    )
+    out = torch.empty((u, n), dtype=torch.bool if which == "filter" else torch.int64, device=dev)
+    a = InterpodArgs()
+    a.n_valid = build.ptr(nodes["valid"], torch.bool, (n,))
+    a.label_dense = build.ptr(nodes["label_dense"], torch.int32, (n, k))
+    for key, dt in (("valid", torch.bool), ("kind", torch.int32), ("topo_slot", torch.int32),
+                    ("weight", torch.int32)):
+        setattr(a, "x_" + key, build.ptr(ex_terms[key], dt, (pt,)))
+        setattr(a, "t_" + key, build.ptr(terms[key], dt, (tt,)))
+    a.t_owner = build.ptr(terms["owner"], torch.int32, (tt,))
+    a.x_counts = build.ptr(ex_terms["counts"], torch.int16, (n, pt))
+    a.m_pt = build.ptr(m_pt, torch.bool, (pt, u))
+    a.m_sig = build.ptr(m_sig, torch.bool, (tt, s))
+    a.e_valid = build.ptr(eps["valid"], torch.bool, (s,))
+    a.counts = build.ptr(eps["counts"], torch.int16, (n, s))
+    a.p_valid = build.ptr(pods["valid"], torch.bool, (u,))
+    if aux is not None:
+        a.self_aff_match = build.ptr(aux["self_aff_match"], torch.bool, (u,))
+        a.has_aff = build.ptr(aux["has_aff"], torch.bool, (u,))
+    for name, t in scratch.items():
+        setattr(a, name, build.ptr(t, t.dtype))
+    if which == "filter":
+        a.mask = build.ptr(out, torch.bool)
+    else:
+        a.score = build.ptr(out, torch.int64)
+    a.N, a.K, a.PT, a.TT, a.S, a.U, a.V = n, k, pt, tt, s, u, v
+    a.parts = sum(_PART_BITS[(which, p)] for p in set(parts))
+    a.table_in_shared = int(in_shared)
+    a.keepalive = scratch
+    return a, out
+
+
+def interpod_filter(
+    nodes: Arrays, eps: Arrays, terms: Arrays, aux: Arrays, ex_terms: Arrays, pods: Arrays,
+    parts: tuple = FILTER_PARTS, n_buckets: Optional[int] = None,
+) -> torch.Tensor:
+    """The [U, N] bool InterPodAffinityMatches mask over `parts`. CPU
+    tensors run the plain version; CUDA tensors launch the match kernel
+    (patterns x spec rows for "existing", terms x signatures for "aff" /
+    "anti") and then csrc/interpod.cu's filter entry (counted in
+    `interpod_filter.launches`)."""
+    dev = nodes["valid"].device
+    if dev.type == "cpu":
+        return interpod_filter_plain(nodes, eps, terms, aux, ex_terms, pods, parts, n_buckets)
+    if dev.type == "cuda":
+        m_pt, m_sig = _interpod_matches(eps, terms, ex_terms, pods, "existing" in parts,
+                                        "aff" in parts or "anti" in parts)
+        args, out = interpod_args("filter", nodes, eps, terms, ex_terms, pods, m_pt, m_sig, parts, aux, n_buckets)
+        build.launch(INTERPOD_FILTER_ENTRY, args, dev)
+        interpod_filter.launches += 1
+        return out
+    raise ValueError(f"no topology kernel for device {dev}")
+
+
+interpod_filter.launches = 0
+
+
+def interpod_score(
+    nodes: Arrays, eps: Arrays, terms: Arrays, ex_terms: Arrays, pods: Arrays,
+    parts: tuple = SCORE_PARTS, n_buckets: Optional[int] = None,
+) -> torch.Tensor:
+    """The [U, N] int64 inter-pod affinity priority over `parts`. CPU
+    tensors run the plain version; CUDA tensors launch the match kernel
+    (terms x signatures for "pref", patterns x spec rows for "existing")
+    and then csrc/interpod.cu's score entry (counted in
+    `interpod_score.launches`)."""
+    dev = nodes["valid"].device
+    if dev.type == "cpu":
+        return interpod_score_plain(nodes, eps, terms, ex_terms, pods, parts, n_buckets)
+    if dev.type == "cuda":
+        m_pt, m_sig = _interpod_matches(eps, terms, ex_terms, pods, "existing" in parts, "pref" in parts)
+        args, out = interpod_args("score", nodes, eps, terms, ex_terms, pods, m_pt, m_sig, parts, None, n_buckets)
+        build.launch(INTERPOD_SCORE_ENTRY, args, dev)
+        interpod_score.launches += 1
+        return out
+    raise ValueError(f"no topology kernel for device {dev}")
+
+
+interpod_score.launches = 0
+
+
+def _interpod_matches(eps: Arrays, terms: Arrays, ex_terms: Arrays, pods: Arrays, patterns: bool,
+                      batch_terms: bool):
+    """The match_terms launches the inter-pod kernels read: patterns x spec
+    rows [PT, U] and batch terms x signatures [TT, S], both with the
+    namespace test; a side the parts do not read is an unread
+    placeholder of its shape."""
+    dev = pods["valid"].device
+    pt, u = ex_terms["valid"].shape[0], pods["valid"].shape[0]
+    tt, s = terms["valid"].shape[0], eps["valid"].shape[0]
+    m_pt = match_terms(ex_terms, pods["label_vals"], pods["ns_id"]) if patterns else \
+        torch.zeros((pt, u), dtype=torch.bool, device=dev)
+    m_sig = match_terms(terms, eps["label_vals"], eps["ns_id"]) if batch_terms else \
+        torch.zeros((tt, s), dtype=torch.bool, device=dev)
+    return m_pt, m_sig

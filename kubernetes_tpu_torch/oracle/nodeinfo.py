@@ -3,8 +3,8 @@ port's own copy of `kubernetes_tpu.oracle.nodeinfo`.
 
 Mirrors the role of pkg/scheduler/nodeinfo/node_info.go: a per-node aggregate
 of the scheduling-relevant state (requested resources, pod list, used host
-ports), plus a Snapshot keyed by node name like nodeinfo.Snapshot
-(pkg/scheduler/nodeinfo/snapshot.go:22).
+ports, pods with affinity), plus a Snapshot keyed by node name like
+nodeinfo.Snapshot (pkg/scheduler/nodeinfo/snapshot.go:22).
 """
 
 from __future__ import annotations
@@ -48,6 +48,7 @@ class NodeInfo:
     # are mutated only under SchedulerCache._lock (the cache is the sole
     # mutator).
     def _recount(self) -> None:
+        self._aff_pods: List[Pod] = []
         self._req: Dict[str, int] = {}
         self._nz_cpu = 0
         self._nz_mem = 0
@@ -56,6 +57,13 @@ class NodeInfo:
             self._account(p, 1)
 
     def _account(self, pod: Pod, sign: int) -> None:
+        # podsWithAffinity, kept incrementally as node_info.go AddPod /
+        # RemovePod keep it (every removal passes the stored object)
+        if pod_has_affinity_constraints(pod):
+            if sign > 0:
+                self._aff_pods.append(pod)
+            else:
+                self._aff_pods.remove(pod)
         req = self._req
         for name, v in accumulated_request(pod).items():
             nv = req.get(name, 0) + sign * v
@@ -89,6 +97,12 @@ class NodeInfo:
         return None
 
     # -- aggregates ----------------------------------------------------------
+
+    def pods_with_affinity(self) -> List[Pod]:
+        """The node's pods with pod (anti-)affinity, in insertion order —
+        a READ-ONLY view of the incrementally kept list (the mirror's
+        pattern encoding reads it)."""
+        return self._aff_pods
 
     def requested(self) -> Dict[str, int]:
         """RequestedResource per calculateResource (node_info.go): sum of

@@ -6,19 +6,22 @@ plane, no speculation, no preemption). Per batch:
 
     pop_batch → TensorMirror.sync → spec dedup (with the pods' spreading
     selectors) → PodBatch encode + compile_batch_terms → device_arrays
-    (node bank + signature bank) → one solve_pipeline (filter, score,
-    topology-score and greedy-solve kernels) → commit in pop order:
-    assume + async bind for a node, add_unschedulable for -1
+    (node, signature and pattern banks) → one solve_pipeline (filter,
+    score, topology and greedy-solve kernels, with the solver's in-batch
+    anti-affinity / host-port tracking once a batch needs it) → commit in
+    pop order: assume + async bind for a node, add_unschedulable for -1
 
-The topology terms this port runs are the score-only ones: ScheduleAnyway
-spread constraints and SelectorSpread (`set_spread_selectors_fn`), which
-need no host re-check. Anything outside that raises NotImplementedError
-naming its ROADMAP.md item instead of taking another route: DoNotSchedule
-spread, pod (anti-)affinity terms, host ports, a cluster whose existing
-pods carry pod (anti-)affinity, encoding-overflow pods (term-table
-overflow included), -1 pods while some node rows fell back to the host
-oracle, preemption nominees and gang groups. The batch is returned to the
-queue first.
+The topology terms this port runs: ScheduleAnyway spread constraints,
+SelectorSpread (`set_spread_selectors_fn`), required pod anti-affinity,
+preferred pod (anti-)affinity, host ports, and existing pods carrying any
+pod (anti-)affinity. None of them needs a host re-check here (see
+`_commit`). Anything else raises NotImplementedError naming its ROADMAP.md
+item instead of taking another route: pods the reference re-checks in
+full (required pod affinity, DoNotSchedule spread), encoding-overflow pods
+(term-table overflow included), existing pods whose terms overflow a
+pattern row, -1 pods while some node rows fell back to the host oracle,
+preemption nominees and gang groups. The batch is returned to the queue
+first.
 """
 
 from __future__ import annotations
@@ -78,29 +81,50 @@ class Binder:
             self._fn(pod, node_name)
 
 
+RECHECK_NONE = 0
+RECHECK_LIGHT = 1  # validate against THIS BATCH's commits only
+RECHECK_FULL = 2  # full scalar oracle pass
+
+
+def _recheck_level(pod: Pod) -> int:
+    """How much validation the reference gives a pod's device placement
+    against earlier commits of the same batch (its driver's
+    `_recheck_level`). FULL: DoNotSchedule spread (commits shift domain
+    counts) or required pod affinity (the anchor may be an in-batch
+    commit). LIGHT: required anti-affinity or host ports — only the
+    batch's commits can break them. ScheduleAnyway spread and preferred
+    affinity shift only scores (batch-stale scores are the batching
+    contract)."""
+    a = pod.affinity
+    if any(c.when_unsatisfiable == DO_NOT_SCHEDULE for c in pod.topology_spread_constraints):
+        return RECHECK_FULL
+    if a is not None and a.pod_affinity is not None and a.pod_affinity.required:
+        return RECHECK_FULL
+    if a is not None and a.pod_anti_affinity is not None and a.pod_anti_affinity.required:
+        return RECHECK_LIGHT
+    if pod.host_ports():
+        return RECHECK_LIGHT
+    return RECHECK_NONE
+
+
 def _unported_reason(pod: Pod) -> Optional[str]:
     """Why this pod needs a program the port does not have yet, or None."""
-    if any(c.when_unsatisfiable == DO_NOT_SCHEDULE for c in pod.topology_spread_constraints):
-        return ("DoNotSchedule spread constraints need ops/topology spread_filter with the "
-                "commit arbiter (ROADMAP.md queue 1, arbiter slice)")
-    a = pod.affinity
-    if a is not None:
-        for terms in (a.pod_affinity, a.pod_anti_affinity):
-            if terms is not None and (terms.required or terms.preferred):
-                return ("pod (anti-)affinity terms need ops/topology interpod_filter/"
-                        "interpod_score (ROADMAP.md queue 1, slice 3)")
-    if pod.host_ports():
-        return "host ports need the solver's in-batch tracking (ROADMAP.md queue 1, slice 3)"
+    if _recheck_level(pod) == RECHECK_FULL:
+        if any(c.when_unsatisfiable == DO_NOT_SCHEDULE for c in pod.topology_spread_constraints):
+            return ("DoNotSchedule spread constraints need ops/topology spread_filter with the "
+                    "commit arbiter (ROADMAP.md queue 1, arbiter slice)")
+        return ("required pod affinity needs the host oracle's full re-check of in-batch anchors "
+                "(ROADMAP.md queue 1, oracle fallback)")
     if POD_GROUP_LABEL in pod.labels or POD_GROUP_LABEL in pod.annotations:
         return "gang groups need solve_gang (ROADMAP.md queue 1, gang)"
     return None
 
 
-def _term_kind_names(present, any_sel_spread: bool) -> frozenset:
-    """(batch term-kind ints, sel-spread flag) → the kind names
-    mask_and_score gates its topology programs on (the reference's
-    `_term_kind_names`; its existing-term half, "et_anti"/"et_score", is
-    empty while the port refuses clusters whose pods carry affinity)."""
+def _term_kind_names(present, any_sel_spread: bool, etb) -> frozenset:
+    """(batch term-kind ints, sel-spread flag, existing-pods PatternBank) →
+    the kind names mask_and_score gates its topology programs on (the
+    reference's `_term_kind_names`). Exact: a kind absent here means its
+    program would compute its identity."""
     kinds = set()
     if SPREAD_HARD in present:
         kinds.add("spread_hard")
@@ -114,6 +138,11 @@ def _term_kind_names(present, any_sel_spread: bool) -> frozenset:
         kinds.add("pref")
     if SEL_SPREAD in present or any_sel_spread:
         kinds.add("sel_spread")
+    et_present = set(np.unique(etb.kind[etb.valid]).tolist())
+    if ANTI_REQ in et_present:
+        kinds.add("et_anti")
+    if et_present & {AFF_REQ, AFF_PREF, ANTI_PREF}:
+        kinds.add("et_score")
     return frozenset(kinds)
 
 
@@ -152,6 +181,10 @@ class Scheduler:
         # monotone union of the term kinds seen (a superset is exact: an
         # absent kind's program computes its identity)
         self._term_kinds: frozenset = frozenset()
+        # monotone: once a batch carries required anti-affinity or host
+        # ports, every later solve tracks in-batch conflicts (exact without
+        # them too)
+        self._track_inbatch = False
         self._spread_selectors_fn: Optional[Callable[[Pod], list]] = None
         self._ids: Optional[Dict[str, int]] = None
         self._bind_pool = ThreadPoolExecutor(max_workers=BIND_WORKERS, thread_name_prefix="bind")
@@ -160,6 +193,7 @@ class Scheduler:
         # assignment's device→host copy, so it includes the device work)
         self.stats: Dict[str, float] = {
             "sync_s": 0.0, "encode_s": 0.0, "solve_s": 0.0, "commit_s": 0.0, "batches": 0,
+            "tracked_batches": 0,
         }
 
     def set_spread_selectors_fn(self, fn: Callable[[Pod], list]) -> None:
@@ -177,18 +211,12 @@ class Scheduler:
     def _check_slice(self, infos: List[PodInfo]) -> None:
         if self.queue.has_nominations():
             self._refuse(infos, "preemption nominees need ops/preempt (ROADMAP.md queue 1, preemption)")
-        if self.cache.affinity_pod_keys:
-            self._refuse(
-                infos,
-                "existing pods with pod (anti)-affinity terms need the PatternBank and "
-                "ops/topology interpod programs (ROADMAP.md queue 1, slice 3)",
-            )
         for info in infos:
             reason = _unported_reason(info.pod)
             if reason is not None:
                 self._refuse(infos, f"pod {info.pod.key()}: {reason}")
 
-    def _encode(self, infos: List[PodInfo]) -> Tuple[PodBatch, np.ndarray, TermBank, Dict[str, np.ndarray]]:
+    def _encode(self, infos: List[PodInfo]) -> Tuple[PodBatch, List[Pod], np.ndarray, TermBank, Dict[str, np.ndarray]]:
         """Collapse the batch to unique pod specs (replicas share one
         mask/score row; pods behind different selectors never do), encode
         one PodBatch row per spec, and compile the specs' topology terms
@@ -228,20 +256,26 @@ class Scheduler:
                 "a pod's topology terms overflow the term table: the host oracle path is "
                 "not ported (ROADMAP.md queue 1, oracle fallback)",
             )
-        return batch, np.asarray(sig_list, np.int32), tb, aux
+        return batch, reps, np.asarray(sig_list, np.int32), tb, aux
 
-    def _topology_shape(self, tb: TermBank, aux: Dict[str, np.ndarray]) -> None:
-        """Grow the monotone term-kind union and segment-axis bucket for
-        this batch's terms. The axis covers the dense values of every slot
-        a term names plus the zones (the SelectorSpread blend); it is not
+    def _topology_shape(self, tb: TermBank, aux: Dict[str, np.ndarray], reps: List[Pod]) -> None:
+        """Grow the monotone term-kind union, the segment-axis bucket and
+        the in-batch tracking switch for this batch's terms. The axis
+        covers the dense values of every slot a batch term or an existing
+        pattern names plus the zones (the SelectorSpread blend); it is not
         clamped to the node count, since dense ids are grow-only and live
         ones can exceed it under node churn."""
+        pats = self.mirror.pats
         present = set(np.unique(tb.kind[tb.valid]).tolist())
         self._term_kinds = self._term_kinds | _term_kind_names(
-            present, bool(np.any(aux["n_sel_spread"] > 0))
+            present, bool(np.any(aux["n_sel_spread"] > 0)), pats
+        )
+        self._track_inbatch = self._track_inbatch or (
+            "anti_req" in self._term_kinds or any(p.host_ports() for p in reps)
         )
         vocab = self.mirror.vocab
         slots = set(np.asarray(tb.topo_slot[tb.valid], np.int64).tolist())
+        slots |= set(np.asarray(pats.bank.topo_slot[pats.valid], np.int64).tolist())
         needed = [vocab.dense_size(int(sl)) for sl in slots if sl >= 0]
         needed.append(vocab.zone_count())
         self._v_bucket = max(self._v_bucket, _bucket(max(needed + [1])))
@@ -260,10 +294,16 @@ class Scheduler:
         self.mirror.sync()
         t1 = time.perf_counter()
         self.stats["sync_s"] += t1 - t0
+        if self.mirror.pats.overflow_rows:
+            self._refuse(
+                infos,
+                "an existing pod's affinity term overflows its pattern row: the host oracle "
+                "re-check is not ported (ROADMAP.md queue 1, oracle fallback)",
+            )
 
         self._b_bucket = max(self._b_bucket, _bucket(len(pods)))
-        batch, sig, tb, aux = self._encode(infos)
-        self._topology_shape(tb, aux)
+        batch, reps, sig, tb, aux = self._encode(infos)
+        self._topology_shape(tb, aux, reps)
         pb = {
             "sig": np.zeros(self._b_bucket, np.int32),
             "valid": np.zeros(self._b_bucket, bool),
@@ -283,12 +323,15 @@ class Scheduler:
 
         self._cycle += 1
         key = prng_key_data(self._rng_seed + self._cycle)
-        na, ea = self.mirror.device_arrays()
+        na, ea, xa = self.mirror.device_arrays()
         assign, _ = solve_pipeline(
             na, pa, self._ids, key, pb=pbt, deterministic=self.deterministic,
             config=self.solve_config, term_kinds=self._term_kinds,
-            ea=ea, ta=ta, au=au, n_buckets=self._v_bucket,
+            track_inbatch=self._track_inbatch,
+            ea=ea, ta=ta, au=au, xa=xa, n_buckets=self._v_bucket,
         )
+        if self._track_inbatch:
+            self.stats["tracked_batches"] += 1
         assign_l = assign.cpu().numpy()[: len(pods)].tolist()
         t3 = time.perf_counter()
         self.stats["solve_s"] += t3 - t2
@@ -306,7 +349,17 @@ class Scheduler:
     def _commit(self, infos: List[PodInfo], assign_l: List[int], cycle: int, res: ScheduleResult) -> None:
         """The reference's bulk commit, in pop order: -1 pods go back as
         unschedulable, the rest are assumed in one cache call and bound on
-        the bind pool in chunks."""
+        the bind pool in chunks.
+
+        The reference gives pods with required anti-affinity or host ports
+        (RECHECK_LIGHT) a re-check against the batch's earlier commits
+        only while the solve did not track them, or after a commit left
+        the device's pick (`tracked_ok`). Here every batch with such pods
+        is solved with the in-batch tracking on, and no pod is ever
+        re-placed (the pods that would need the oracle are refused before
+        the solve), so that re-check is vacuous and the bulk commit
+        places exactly what its per-pod loop would. For the same reason
+        a -1 stands: feasibility only shrinks within the batch."""
         name_of = self.mirror.name_of_row
         assumed_meta: List[Tuple[PodInfo, Pod, str]] = []
         for info, row in zip(infos, assign_l):

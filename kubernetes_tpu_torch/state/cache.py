@@ -7,14 +7,14 @@ The port's own lean copies of `kubernetes_tpu.state.cache`:
   interface.go:33-47): Initial → Assume → [bind] → Added, or Assume →
   Forget (bind failed) → Initial. Every mutation records what changed
   (dirty nodes, single-pod deltas) for the mirror.
-* `TensorMirror` — keeps the host `NodeBank` and the existing pods'
-  `SigBank` in sync with the cache, patching only DIRTY rows per cycle the
-  way UpdateNodeInfoSnapshot walks its generation-ordered dirty list
-  (cache.go:206-242), and keeps device-resident torch copies of both. The
-  copies are patched by dirty rows with one `index_copy_` per changed
-  array — the counterpart of the reference's jitted `_row_scatter_fn`, a
-  data move with no arithmetic — and uploaded in full only after a
-  rebuild.
+* `TensorMirror` — keeps the host `NodeBank`, the existing pods'
+  `SigBank` and their terms' `PatternBank` in sync with the cache,
+  patching only DIRTY rows per cycle the way UpdateNodeInfoSnapshot walks
+  its generation-ordered dirty list (cache.go:206-242), and keeps
+  device-resident torch copies of all three. The copies are patched by
+  dirty rows with one `index_copy_` per changed array — the counterpart of
+  the reference's jitted `_row_scatter_fn`, a data move with no arithmetic
+  — and uploaded in full only after a rebuild.
 
 Both run on one driver thread at a time; the cache's lock covers the bind
 workers' finish_binding / forget calls.
@@ -32,6 +32,7 @@ import torch
 from ..api.types import Node, Pod
 from ..oracle.nodeinfo import NodeInfo, Snapshot, pod_has_affinity_constraints
 from .convert import arrays_to_torch
+from .terms import PatternBank, PatternOverflow
 from .tensors import (
     ImageTable,
     KeySlotOverflow,
@@ -68,18 +69,8 @@ class SchedulerCache:
         # (node, pod, ±1) single-pod changes (assume/confirm/remove) — the
         # common event; consumed by TensorMirror.sync
         self.pod_deltas: List[Tuple[str, Pod, int]] = []
-        # keys of cached pods that carry pod (anti-)affinity: their terms
-        # feed the inter-pod programs this port does not run yet
-        self.affinity_pod_keys: Set[str] = set()
 
     # -- helpers -------------------------------------------------------------
-
-    def _track_affinity(self, pod: Pod, sign: int) -> None:
-        if pod_has_affinity_constraints(pod):
-            if sign > 0:
-                self.affinity_pod_keys.add(pod.key())
-            else:
-                self.affinity_pod_keys.discard(pod.key())
 
     def _collapse_deltas_locked(self) -> None:
         """Bound the delta log: past the bound it collapses into the
@@ -90,7 +81,6 @@ class SchedulerCache:
             self.pod_deltas.clear()
 
     def _add_pod_to_node(self, pod: Pod) -> None:
-        self._track_affinity(pod, 1)
         ni = self.snapshot.get(pod.node_name)
         if ni is None:
             # pod on an unknown node: track headlessly (the reference keeps
@@ -111,7 +101,6 @@ class SchedulerCache:
             return
         removed = ni.remove_pod_key(pod.key())
         if removed is not None:
-            self._track_affinity(removed, -1)
             self.pod_deltas.append((pod.node_name, removed, -1))
             self._collapse_deltas_locked()
 
@@ -221,7 +210,6 @@ class SchedulerCache:
                 for p in ni.pods:
                     self._pod_states.pop(p.key(), None)
                     self._assumed.discard(p.key())
-                    self._track_affinity(p, -1)
             self.dirty_nodes.discard(name)
             self.removed_nodes.add(name)
 
@@ -233,15 +221,16 @@ class SchedulerCache:
 
 
 class TensorMirror:
-    """Keeps the `NodeBank` and the existing pods' `SigBank` patched from a
-    SchedulerCache, plus their copies on `device`. Node rows come from a
-    free list in snapshot order (the reference's allocation, so row
-    indices — and with them every tie-break — match it); each node's pods
-    are counted into label signatures, and `_node_sigs` holds each node's
-    {signature: count} map so a re-encode or removal can release exactly
-    what it added. Capacity overflow (more nodes than rows, more
-    signatures than slots, label-key growth) rebuilds the banks at the
-    next bucket size."""
+    """Keeps the `NodeBank`, the existing pods' `SigBank` and their terms'
+    `PatternBank` patched from a SchedulerCache, plus their copies on
+    `device`. Node rows come from a free list in snapshot order (the
+    reference's allocation, so row indices — and with them every tie-break
+    — match it); each node's pods are counted into label signatures and
+    their (anti-)affinity terms into patterns, and `_node_sigs` /
+    `_node_pats` hold each node's {row: count} maps so a re-encode or
+    removal can release exactly what it added. Capacity overflow (more
+    nodes than rows, more signatures or patterns than slots, label-key
+    growth) rebuilds the banks at the next bucket size."""
 
     def __init__(self, cache: SchedulerCache, device: torch.device):
         self.cache = cache
@@ -251,12 +240,19 @@ class TensorMirror:
         # distinct (ns, labels) signatures are workload-bounded (hundreds in
         # 100k-pod clusters): starting at 256 avoids a mid-drain rebuild
         self._min_sigs = 256
+        # distinct term patterns are fewer still (one per controller spec
+        # carrying affinity, not per replica)
+        self._min_pats = 32
         self._dev: Optional[Dict[str, torch.Tensor]] = None
         self._dev_eps: Optional[Dict[str, torch.Tensor]] = None
+        self._dev_pats: Optional[Dict[str, torch.Tensor]] = None
         self._device_stale = True
         self._image_stale = False
         self._pending_node_rows: Set[int] = set()  # whole rows to ship
         self._pending_usage_rows: Set[int] = set()  # USAGE_KEYS + sig counts
+        # usage rows whose delta pod carried (anti-)affinity terms: only
+        # those change the pattern counts
+        self._pending_pat_rows: Set[int] = set()
         self.rows_shipped = 0  # node rows patched into the device copy
         self._rebuild()
 
@@ -275,7 +271,9 @@ class TensorMirror:
                     self.name_of_row[row] = ni.node.name
                     self.nodes.set_node(row, ni)
                 self.eps = SigBank(self.vocab, _bucket(self._min_sigs), self.nodes.capacity)
+                self.pats = PatternBank(self.vocab, _bucket(self._min_pats), self.nodes.capacity)
                 self._node_sigs: Dict[str, Dict[int, int]] = {}
+                self._node_pats: Dict[str, Dict[int, int]] = {}
                 for name, ni in snap.node_infos.items():
                     self._encode_node_pods(name, ni)
                 ImageTable(self.vocab).apply(self.nodes, snap, self.row_of)
@@ -286,6 +284,8 @@ class TensorMirror:
             except SigOverflow:
                 # 4x per growth: buy headroom, not tight fits
                 self._min_sigs *= 4
+            except PatternOverflow:
+                self._min_pats *= 4
             except KeySlotOverflow:
                 continue  # vocab.config.key_slots already grew
         self.cache.dirty_nodes.clear()
@@ -294,26 +294,36 @@ class TensorMirror:
         self._device_stale = True  # shapes may have changed: full re-upload
         self._pending_node_rows.clear()
         self._pending_usage_rows.clear()
+        self._pending_pat_rows.clear()
         self.eps.dirty_sig_rows.clear()
+        self.pats.dirty_pattern_rows.clear()
 
     @staticmethod
     def _image_signature(ni: NodeInfo):
         return frozenset(ni.image_sizes().items())
 
     def _release_node_pods(self, name: str) -> None:
-        """Subtract a node's held signature counts (zeroing its counts row)
-        — before its row is freed or re-counted."""
+        """Subtract a node's held signature and pattern counts (zeroing its
+        counts rows) — before its row is freed or re-counted."""
         row = self.row_of.get(name)
         held = self._node_sigs.pop(name, None)
-        if row is not None and held:
+        held_p = self._node_pats.pop(name, None)
+        if row is None:
+            return
+        if held:
             self.eps.release_node(row, held)
+            self._pending_node_rows.add(row)
+        if held_p:
+            self.pats.release_node(row, held_p)
             self._pending_node_rows.add(row)
 
     def _encode_node_pods(self, name: str, ni: NodeInfo) -> None:
-        """Count one node's pods into label signatures. Raises SigOverflow /
-        KeySlotOverflow when a bank is full (the caller rebuilds bigger)."""
+        """Count one node's pods into label signatures and their terms into
+        patterns. Raises SigOverflow / PatternOverflow / KeySlotOverflow
+        when a bank is full (the caller rebuilds bigger)."""
         row = self.row_of[name]
         self._node_sigs[name] = self.eps.encode_node(row, ni.pods)
+        self._node_pats[name] = self.pats.encode_node(row, ni.pods_with_affinity())
         self._pending_node_rows.add(row)
 
     def sync(self) -> bool:
@@ -370,9 +380,9 @@ class TensorMirror:
                 # single-pod deltas last, skipping nodes re-encoded above
                 # (their rows already include the deltas). Plain adds batch
                 # into np.add.at scatters (usage columns and signature
-                # counts); removes and ported pods take the scalar path,
-                # flushing the batch first so per-node order is kept (a
-                # remove must see the adds before it).
+                # counts); removes, ported pods and pods with affinity take
+                # the scalar path, flushing the batch first so per-node
+                # order is kept (a remove must see the adds before it).
                 reencoded = removed | dirty | set(new_nodes)
                 ports_dirty: Set[str] = set()
                 bulk_rows: List[int] = []
@@ -394,13 +404,16 @@ class TensorMirror:
                         continue
                     row = self.row_of[name]
                     held = self._node_sigs.setdefault(name, {})
-                    if sign > 0 and not pod.host_ports():
+                    if sign > 0 and not pod.host_ports() and not pod_has_affinity_constraints(pod):
                         bulk_rows.append(row)
                         bulk_pods.append(pod)
                         bulk_held.append(held)
                         continue
                     flush_bulk()
                     self.eps.apply_delta(row, pod, sign, held)
+                    if pod_has_affinity_constraints(pod):
+                        self.pats.apply_delta(row, pod, sign, self._node_pats.setdefault(name, {}))
+                        self._pending_pat_rows.add(row)
                     self.nodes.apply_pod_delta(row, pod, sign)
                     self._pending_usage_rows.add(row)
                     if pod.host_ports():
@@ -421,30 +434,35 @@ class TensorMirror:
                     # and node count → recompute the whole table (rare)
                     ImageTable(self.vocab).apply(self.nodes, cache.snapshot, self.row_of)
                     self._image_stale = True
-            except KeySlotOverflow:  # SigOverflow included
+            except KeySlotOverflow:  # SigOverflow and PatternOverflow included
                 self._rebuild()
                 return True
             return False
 
-    def device_arrays(self) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
-        """(nodes, eps): the node bank and the signature bank as
+    def device_arrays(self) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
+        """(nodes, eps, pats): the node, signature and pattern banks as
         device-resident tensors, patched with only the rows sync() touched
-        since the last call. The signature bank has two row spaces: its
-        metadata (valid, ns_id, label_vals, deleting) is patched by dirty
-        SIGNATURE rows, its node-major `counts` by dirty NODE rows (usage
-        rows included: commits count pods into signatures). Full upload
-        only after a rebuild (shape change)."""
+        since the last call. The signature and pattern banks have two row
+        spaces each: their metadata is patched by dirty SIGNATURE /
+        PATTERN rows, their node-major `counts` by dirty NODE rows (usage
+        rows included for signatures: commits count pods into them; for
+        patterns only the rows whose delta pods carried affinity). Full
+        upload only after a rebuild (shape change)."""
         host = self.nodes.arrays()
         host_e = self.eps.arrays()
+        host_p = self.pats.arrays()
         if self._dev is None or self._device_stale:
             self._dev = arrays_to_torch(host, self.device, copy=True)
             self._dev_eps = arrays_to_torch(host_e, self.device, copy=True)
+            self._dev_pats = arrays_to_torch(host_p, self.device, copy=True)
             self._device_stale = False
             self._image_stale = False
             self._pending_node_rows.clear()
             self._pending_usage_rows.clear()
+            self._pending_pat_rows.clear()
             self.eps.dirty_sig_rows.clear()
-            return self._dev, self._dev_eps
+            self.pats.dirty_pattern_rows.clear()
+            return self._dev, self._dev_eps, self._dev_pats
         if self._image_stale:
             # the table's width may have changed: ship it whole
             self._dev.update(arrays_to_torch({"image_scaled": host["image_scaled"]}, self.device, copy=True))
@@ -454,14 +472,20 @@ class TensorMirror:
         count_rows = sorted(self._pending_usage_rows | self._pending_node_rows)
         self._patch_rows(self._dev, host, node_rows, tuple(k for k in host if k != "image_scaled"))
         self._patch_rows(self._dev, host, usage_rows, USAGE_KEYS)
-        self._patch_rows(self._dev_eps, host_e, count_rows, ("counts",))
-        self._patch_rows(self._dev_eps, host_e, sorted(self.eps.dirty_sig_rows),
-                         tuple(k for k in host_e if k != "counts"))
+        for dev, host_b, meta_rows, cnt_rows in (
+            (self._dev_eps, host_e, self.eps.dirty_sig_rows, count_rows),
+            (self._dev_pats, host_p, self.pats.dirty_pattern_rows,
+             self._pending_pat_rows | self._pending_node_rows),
+        ):
+            self._patch_rows(dev, host_b, sorted(cnt_rows), ("counts",))
+            self._patch_rows(dev, host_b, sorted(meta_rows), tuple(k for k in host_b if k != "counts"))
         self.rows_shipped += len(node_rows) + len(usage_rows)
         self._pending_node_rows.clear()
         self._pending_usage_rows.clear()
+        self._pending_pat_rows.clear()
         self.eps.dirty_sig_rows.clear()
-        return self._dev, self._dev_eps
+        self.pats.dirty_pattern_rows.clear()
+        return self._dev, self._dev_eps, self._dev_pats
 
     def _patch_rows(self, dev: Dict[str, torch.Tensor], host: Dict[str, np.ndarray], rows: List[int], keys) -> None:
         """Overwrite `rows` of the device copy `dev` with host truth: one

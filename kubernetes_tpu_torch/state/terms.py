@@ -1,7 +1,6 @@
 """Flat term tables: the sparse encoding of topology spread constraints,
 pod (anti-)affinity terms and spreading selectors — the port's copy of
-`kubernetes_tpu.state.terms` (without the existing-pods PatternBank,
-ROADMAP.md queue 1, slice 3).
+`kubernetes_tpu.state.terms`, with the existing pods' PatternBank.
 
 The reference precomputes per-pod topology-pair maps (predicates/metadata.go
 topologyPairsMaps, evenPodsSpreadMetadata) with nested hash maps. Here every
@@ -13,7 +12,9 @@ index (NodeBank.label_dense).
 
 Term kinds of the incoming batch: AFF_REQ, ANTI_REQ (Filter), AFF_PREF,
 ANTI_PREF (Score), SPREAD_HARD (Filter), SPREAD_SOFT (Score), SEL_SPREAD
-(Score). The owner of a term is its pod's spec row.
+(Score). The owner of a term is its pod's spec row. Existing pods' AFF_*/
+ANTI_* terms are collapsed to distinct patterns with per-node instance
+counts (PatternBank), the symmetric side matched against incoming pods.
 """
 
 from __future__ import annotations
@@ -170,6 +171,24 @@ class TermBank:
             for j, ns in enumerate(nss[: self.ns_cap]):
                 self.ns_ids[row, j] = v.id(ns)
         self._compile_selector(row, selector)
+
+    def clear_row(self, row: int) -> None:
+        """Reset a row to padding (every kernel gates on `valid`; the other
+        fields are reset so re-use starts from a clean slate)."""
+        self.valid[row] = False
+        self.kind[row] = 0
+        self.owner[row] = 0
+        self.weight[row] = 0
+        self.self_match[row] = False
+        self.topo_slot[row] = -1
+        self.ns_any[row] = False
+        self.ns_ids[row] = 0
+        self.has_selector[row] = False
+        self.ml_slot[row] = -1
+        self.ml_val[row] = 0
+        self.ex_op[row] = 0
+        self.ex_slot[row] = -1
+        self.ex_vals[row] = -1
 
     def arrays(self) -> Dict[str, np.ndarray]:
         return {
@@ -343,3 +362,159 @@ def compile_batch_terms(
         "n_sel_spread": n_sel_spread,
     }
     return bank, aux
+
+
+class PatternOverflow(KeySlotOverflow):
+    """Pattern bank out of rows — rebuild at the next bucket size."""
+
+
+@dataclass
+class PatternBank:
+    """Existing pods' (anti-)affinity terms collapsed to distinct PATTERNS
+    with per-node instance counts — the term-side analogue of
+    tensors.SigBank. The inter-pod programs need only whether a term
+    matches the incoming pod and how many instances of it live in each
+    topology bucket, both functions of the term's content, so rows are
+    patterns interned by (kind, topology key, namespaces, weight, selector)
+    and ownership is `counts[node, pattern]`, patched by dirty node rows
+    like SigBank.counts. Free rows are taken from row 0 upward, as the
+    reference takes them, so the bank's contents match it row for row.
+
+    Wire format (`arrays()`): the TermBank fields (`owner` is the row's own
+    index, unused by the kernels) + `counts` [N, PT] int16.
+    """
+
+    vocab: Vocab
+    capacity: int  # PT
+    node_capacity: int  # N rows of the counts matrix
+    hard_pod_affinity_weight: int = 1  # interpod_affinity.go:131
+
+    def __post_init__(self):
+        self.bank = TermBank(self.vocab, self.capacity)
+        self.counts = np.zeros((self.node_capacity, self.capacity), np.int16)
+        self._row_of: Dict[tuple, int] = {}
+        self._key_of_row: Dict[int, tuple] = {}
+        self._refs = np.zeros(self.capacity, np.int64)
+        self._free = list(range(self.capacity - 1, -1, -1))
+        self.dirty_pattern_rows: set = set()
+        self.overflow_rows: set = set()
+
+    # numpy views used by the driver's term-kind gating
+    @property
+    def valid(self) -> np.ndarray:
+        return self.bank.valid
+
+    @property
+    def kind(self) -> np.ndarray:
+        return self.bank.kind
+
+    def _pod_patterns(self, pod: Pod) -> List[tuple]:
+        """One pod's term contents as intern keys' raw args: required anti
+        terms, required affinity terms (at the hard weight), preferred
+        affinity and preferred anti-affinity terms (negative weight)."""
+        aff = pod.affinity
+        if aff is None:
+            return []
+        out = []
+        for t in get_pod_anti_affinity_terms(aff):
+            out.append((ANTI_REQ, t.topology_key, t.label_selector, _term_namespaces(pod, t), 0))
+        hw = self.hard_pod_affinity_weight
+        for t in get_pod_affinity_terms(aff):
+            if hw > 0 and t.topology_key:
+                out.append((AFF_REQ, t.topology_key, t.label_selector, _term_namespaces(pod, t), hw))
+        if aff.pod_affinity is not None:
+            for w in aff.pod_affinity.preferred:
+                if w.weight and w.pod_affinity_term.topology_key:
+                    t = w.pod_affinity_term
+                    out.append((AFF_PREF, t.topology_key, t.label_selector, _term_namespaces(pod, t), w.weight))
+        if aff.pod_anti_affinity is not None:
+            for w in aff.pod_anti_affinity.preferred:
+                if w.weight and w.pod_affinity_term.topology_key:
+                    t = w.pod_affinity_term
+                    out.append((ANTI_PREF, t.topology_key, t.label_selector, _term_namespaces(pod, t), -w.weight))
+        return out
+
+    @staticmethod
+    def _key(kind: int, topo_key: str, selector, namespaces, weight: int) -> tuple:
+        return (kind, topo_key, tuple(sorted(namespaces)), weight, repr(selector))
+
+    def _intern(self, kind: int, topo_key: str, selector, namespaces, weight: int) -> int:
+        key = self._key(kind, topo_key, selector, namespaces, weight)
+        row = self._row_of.get(key)
+        if row is None:
+            if not self._free:
+                raise PatternOverflow()
+            row = self._free.pop()
+            self.bank.clear_row(row)
+            self.bank.overflow_owners.discard(row)
+            self.bank.set_row(row, kind, row, topo_key, selector, namespaces, weight=weight)
+            if row in self.bank.overflow_owners:
+                # a truncated selector under/over-matches on the device
+                self.overflow_rows.add(row)
+            self._row_of[key] = row
+            self._key_of_row[row] = key
+            self.dirty_pattern_rows.add(row)
+        return row
+
+    def _unref(self, row: int, n: int) -> None:
+        self._refs[row] -= n
+        if self._refs[row] <= 0:
+            self._refs[row] = 0
+            self.bank.clear_row(row)
+            self.bank.overflow_owners.discard(row)
+            self.overflow_rows.discard(row)
+            key = self._key_of_row.pop(row, None)
+            if key is not None:
+                self._row_of.pop(key, None)
+            self._free.append(row)
+            self.dirty_pattern_rows.add(row)
+
+    def release_node(self, node_row: int, held: Dict[int, int]) -> None:
+        """Undo a node's contribution: `held` is its {pattern: count} map."""
+        for row, n in held.items():
+            self.counts[node_row, row] -= n
+            self._unref(row, n)
+
+    def apply_delta(self, node_row: int, pod: Pod, sign: int, held: Dict[int, int]) -> None:
+        """One pod's term instances added (sign > 0) or removed on a node
+        (the mirror's single-pod delta path). Raises KeySlotOverflow /
+        PatternOverflow like encode_node; a remove of an unknown pattern
+        escalates to a rebuild."""
+        for kind, topo, sel, nss, w in self._pod_patterns(pod):
+            if sign > 0:
+                row = self._intern(kind, topo, sel, nss, w)
+                held[row] = held.get(row, 0) + 1
+                self._refs[row] += 1
+                self.counts[node_row, row] += 1
+            else:
+                row = self._row_of.get(self._key(kind, topo, sel, nss, w))
+                if row is None or held.get(row, 0) <= 0:
+                    raise PatternOverflow()  # inconsistent books: rebuild
+                held[row] -= 1
+                if held[row] == 0:
+                    del held[row]
+                self.counts[node_row, row] -= 1
+                self._unref(row, 1)
+
+    def encode_node(self, node_row: int, pods) -> Dict[int, int]:
+        """Count a node's pods' term instances into patterns → the
+        {pattern: count} map the caller keeps for release_node. Raises
+        KeySlotOverflow / PatternOverflow for the mirror's rebuild-bigger
+        loop (partial references rolled back first)."""
+        held: Dict[int, int] = {}
+        try:
+            for pod in pods:
+                for kind, topo, sel, nss, w in self._pod_patterns(pod):
+                    row = self._intern(kind, topo, sel, nss, w)
+                    held[row] = held.get(row, 0) + 1
+                    self._refs[row] += 1
+                    self.counts[node_row, row] += 1
+        except KeySlotOverflow:
+            self.release_node(node_row, held)
+            raise
+        return held
+
+    def arrays(self) -> Dict[str, np.ndarray]:
+        out = self.bank.arrays()
+        out["counts"] = self.counts
+        return out

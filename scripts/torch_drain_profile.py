@@ -1,14 +1,16 @@
 #!/usr/bin/env python3
 """Where the port's drain spends its time, on one NVIDIA card.
 
-    python3 scripts/torch_drain_profile.py [--config 2|3] [--services]
+    python3 scripts/torch_drain_profile.py [--config 2|3|4] [--services]
         [--nodes N] [--pods P] [--batch 4096] [--out chiprun_out/drain_profile]
 
 Drives a drain of chip_smoke.py phase 5 (kubernetes_tpu_torch's Scheduler,
-tie-noise on) on bench.py config 2 (default 5,000 nodes / 50,000 pods) or
+tie-noise on) on bench.py config 2 (default 5,000 nodes / 50,000 pods),
 config 3 (default 10,000 nodes / 100,000 pods; with --services, one
-Service per app feeds SelectorSpread) after a 1/10-scale warm-up drain
-that builds and loads the kernels, three times:
+Service per app feeds SelectorSpread) or config 4 (default 2,000 nodes /
+20,000 pods: required hostname anti-affinity on every 10th pod, preferred
+zone affinity on the rest) after a 1/10-scale warm-up drain that builds
+and loads the kernels, three times:
 
   1. plain      wall time and the driver's per-stage seconds, the
                 reference for the overheads of the two runs below;
@@ -56,6 +58,8 @@ STAGES = (
     ("state/cache.py", "sync"),
     ("state/tensors.py", "apply_adds_bulk"),
     ("state/tensors.py", "apply_pod_deltas_bulk"),
+    ("state/tensors.py", "apply_delta"),
+    ("state/terms.py", "apply_delta"),
     ("scheduler/driver.py", "_encode"),
     ("state/tensors.py", "dedup_specs"),
     ("state/tensors.py", "set_pod"),
@@ -73,7 +77,7 @@ STAGES = (
 
 
 def drain(config: int, services: bool, n_nodes: int, n_pods: int, batch: int, around=contextlib.nullcontext):
-    from kubernetes_tpu_torch.models.clusters import bench_config2, bench_config3, fill_cache
+    from kubernetes_tpu_torch.models.clusters import bench_config2, bench_config3, bench_config4, fill_cache
     from kubernetes_tpu_torch.scheduler.driver import Scheduler
     from kubernetes_tpu_torch.state.cache import SchedulerCache
     from kubernetes_tpu_torch.state.queue import PriorityQueue
@@ -81,6 +85,8 @@ def drain(config: int, services: bool, n_nodes: int, n_pods: int, batch: int, ar
     fn = None
     if config == 2:
         nodes, pods = bench_config2(n_nodes, n_pods)
+    elif config == 4:
+        nodes, pods = bench_config4(n_nodes, n_pods)
     else:
         nodes, pods, fn = bench_config3(n_nodes, n_pods, services=services)
     cache, queue = SchedulerCache(), PriorityQueue()
@@ -194,15 +200,17 @@ def device_split(trace_path: str, window: str = "drain") -> dict:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", type=int, choices=(2, 3), default=2)
+    ap.add_argument("--config", type=int, choices=(2, 3, 4), default=2)
     ap.add_argument("--services", action="store_true", help="config 3: one Service per app")
-    ap.add_argument("--nodes", type=int, default=None, help="default 5,000 (config 2) / 10,000 (config 3)")
-    ap.add_argument("--pods", type=int, default=None, help="default 50,000 (config 2) / 100,000 (config 3)")
+    ap.add_argument("--nodes", type=int, default=None,
+                    help="default 5,000 (config 2) / 10,000 (config 3) / 2,000 (config 4)")
+    ap.add_argument("--pods", type=int, default=None,
+                    help="default 50,000 (config 2) / 100,000 (config 3) / 20,000 (config 4)")
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out", "drain_profile"))
     args = ap.parse_args()
-    args.nodes = args.nodes or (5000 if args.config == 2 else 10000)
-    args.pods = args.pods or (50000 if args.config == 2 else 100000)
+    args.nodes = args.nodes or {2: 5000, 3: 10000, 4: 2000}[args.config]
+    args.pods = args.pods or {2: 50000, 3: 100000, 4: 20000}[args.config]
     if not torch.cuda.is_available():
         print("torch_drain_profile: no CUDA device available", file=sys.stderr)
         return 1

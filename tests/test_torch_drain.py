@@ -1,12 +1,15 @@
 """The slices end to end on the CPU: the port's solve_pipeline against the
-reference's with no term kinds and with the score-only topology kinds
-(ScheduleAnyway spread, SelectorSpread, both), and the port's
-Scheduler(device="cpu") against the reference Scheduler with every plane
-off, on seeded taint + node-affinity + resources drains and on
-config-3-shaped topology-spread drains with and without spreading
-selectors — pod-for-pod identical placements, deterministic and with
-tie-noise. Tolerance: exact equality. Also: what the slices do not cover
-raises NotImplementedError and leaves the batch in the queue."""
+reference's with no term kinds, with the score-only topology kinds
+(ScheduleAnyway spread, SelectorSpread, both) and with the inter-pod kinds
+under in-batch tracking, and the port's Scheduler(device="cpu") against the
+reference Scheduler with every plane off, on seeded taint + node-affinity
++ resources drains, on config-3-shaped topology-spread drains with and
+without spreading selectors, and on config-4-shaped and random inter-pod
+drains (required anti-affinity, preferred (anti-)affinity, host ports,
+existing pods with affinity) — pod-for-pod identical placements,
+deterministic and with tie-noise. Tolerance: exact equality. Also: what the
+slices do not cover raises NotImplementedError and leaves the batch in the
+queue."""
 
 import jax
 import jax.numpy as jnp
@@ -26,13 +29,17 @@ from kubernetes_tpu.state.tensors import PodBatch as RPodBatch
 from kubernetes_tpu.state.tensors import encode_snapshot as r_encode
 from kubernetes_tpu.state.terms import compile_batch_terms as r_compile
 
+from kubernetes_tpu.state.cache import TensorMirror as RMirror
 from kubernetes_tpu_torch.models.clusters import (
+    HOST_KEY,
     bench_config2,
     bench_config3,
+    bench_config4,
     fill_cache,
     random_cluster,
     random_selectors,
 )
+from kubernetes_tpu_torch.state.cache import TensorMirror as PMirror
 from kubernetes_tpu_torch.ops import pipeline as PP
 from kubernetes_tpu_torch.ops.solver import prng_key_data
 from kubernetes_tpu_torch.scheduler.driver import Binder, Scheduler
@@ -86,14 +93,13 @@ def test_solve_pipeline_matches_reference(cfg, det, dedup):
 
 
 def test_solve_pipeline_refuses_terms_and_tracking():
-    with pytest.raises(NotImplementedError, match="slice 3"):
-        PP.mask_and_score({}, {}, {}, term_kinds=frozenset({"anti_req"}))
+    """DoNotSchedule spread, and term_kinds=None (which assumes it), are
+    refused; the inter-pod kinds and the in-batch tracking are ported
+    (test_solve_pipeline_interpod_tracking_matches_reference)."""
     with pytest.raises(NotImplementedError, match="arbiter"):
         PP.mask_and_score({}, {}, {}, term_kinds=frozenset({"spread_soft", "spread_hard"}))
-    with pytest.raises(NotImplementedError, match="slice 3"):
+    with pytest.raises(NotImplementedError, match="arbiter"):
         PP.solve_pipeline({}, {}, {}, (0, 0), term_kinds=None)
-    with pytest.raises(NotImplementedError, match="in-batch"):
-        PP.solve_pipeline({}, {}, {}, (0, 0), track_inbatch=True)
 
 
 TOPOLOGY_KINDS = {
@@ -140,6 +146,49 @@ def test_solve_pipeline_topology_kinds_match_reference(kinds, det):
     assert np.array_equal(np.asarray(ref[1]), port[1].numpy())  # score
     assert np.array_equal(np.asarray(ref[0]), port[0].numpy())  # assignment
     assert (np.asarray(ref[0]) >= 0).sum() > 10
+
+
+INTERPOD_KINDS = frozenset({"aff_req", "anti_req", "pref", "et_anti", "et_score"})
+
+
+@pytest.mark.parametrize("track", [True, False], ids=["tracked", "untracked"])
+@pytest.mark.parametrize("det", [True, False], ids=["deterministic", "noise"])
+def test_solve_pipeline_interpod_tracking_matches_reference(track, det):
+    """Every inter-pod kind (batch and existing-pod terms) through the
+    whole pipeline, with and without the solver's in-batch tracking, at the
+    n_buckets the driver would pick, deduped spec rows (3 pods each)."""
+    n_buckets = 128
+    out = {}
+    for pkg, t in (("ref", RT), ("port", PT)):
+        nodes, existing, pending = random_cluster(41, 90, 40, 200, t=t, topology=True, interpod=True)
+        cache = (RCache if pkg == "ref" else SchedulerCache)()
+        fill_cache(cache, nodes, existing)
+        mirror = RMirror(cache) if pkg == "ref" else PMirror(cache, device="cpu")
+        batch = (RPodBatch if pkg == "ref" else PPodBatch)(mirror.vocab, 64)
+        for i, p in enumerate(pending):
+            batch.set_pod(i, p)
+        tb, aux = (r_compile if pkg == "ref" else p_compile)(mirror.vocab, pending, b_capacity=64)
+        out[pkg] = [mirror.nodes.arrays(), mirror.eps.arrays(), mirror.pats.arrays(), tb.arrays(), aux,
+                    batch.arrays(), (RF if pkg == "ref" else PF).make_ids(mirror.vocab)]
+    b = 3 * 40
+    pb = {"sig": np.arange(b, dtype=np.int32) % 40, "valid": np.arange(b) < b - 4,
+          "priority": (np.arange(b) % 3).astype(np.int32)}
+    kinds = INTERPOD_KINDS | {"spread_soft"}
+    na, ea, xa, ta, au, pa, ids = out["ref"]
+    jx = lambda d: {k: jnp.asarray(v) for k, v in d.items()}  # noqa: E731
+    ref = RP.solve_pipeline(
+        jx(na), jx(pa), jx(ea), jx(ta), jx(xa), jx(au), ids, jax.random.PRNGKey(4), pb=jx(pb),
+        deterministic=det, term_kinds=kinds, n_buckets=n_buckets, track_inbatch=track,
+    )
+    na, ea, xa, ta, au, pa, ids = out["port"]
+    tc = lambda d: arrays_to_torch(d, "cpu")  # noqa: E731
+    port = PP.solve_pipeline(
+        tc(na), tc(pa), ids, prng_key_data(4), pb=tc(pb), deterministic=det, term_kinds=kinds,
+        track_inbatch=track, ea=tc(ea), ta=tc(ta), au=tc(au), xa=tc(xa), n_buckets=n_buckets,
+    )
+    assert np.array_equal(np.asarray(ref[1]), port[1].numpy())  # score
+    assert np.array_equal(np.asarray(ref[0]), port[0].numpy())  # assignment
+    assert (np.asarray(ref[0]) >= 0).sum() > 30
 
 
 def _drain(pkg, workload, det, seed):
@@ -223,55 +272,92 @@ def test_topology_drain_matches_reference_pod_for_pod(workload, services, det):
     assert ("sel_spread" in sched._term_kinds) == services
 
 
-def _cluster_with(pending_fn, existing_fn=None):
-    nodes, pending = bench_config2(8, 6)
-    cache, queue = SchedulerCache(), PriorityQueue()
-    fill_cache(cache, nodes, [existing_fn(nodes)] if existing_fn else [])
-    pending_fn(pending)
+def _cluster_with(pending_fn, existing_fn=None, t=PT, pkg="port"):
+    nodes, pending = bench_config2(8, 6, t=t)
+    cache, queue = (SchedulerCache(), PriorityQueue()) if pkg == "port" else (RCache(), RQueue())
+    fill_cache(cache, nodes, [existing_fn(nodes, t)] if existing_fn else [])
+    pending_fn(pending, t)
     for p in pending:
         queue.add(p)
-    return Scheduler(cache, queue, device="cpu"), queue
+    if pkg == "port":
+        return Scheduler(cache, queue, device="cpu"), queue
+    return RScheduler(cache, queue, commit_plane=False, fold_plane=False, ingest_plane=False,
+                      term_plane=False, speculate=False, enable_preemption=False), queue
 
 
-def _anti(p):
-    sel = PT.LabelSelector(match_labels={"app": "x"})
-    p.affinity.pod_anti_affinity = PT.PodAntiAffinity(
-        required=[PT.PodAffinityTerm(label_selector=sel, topology_key="kubernetes.io/hostname")])
+def _anti(p, t=PT, labels=None):
+    sel = t.LabelSelector(match_labels=labels or {"app": "x"})
+    p.affinity.pod_anti_affinity = t.PodAntiAffinity(
+        required=[t.PodAffinityTerm(label_selector=sel, topology_key="kubernetes.io/hostname")])
 
 
-@pytest.mark.parametrize("case", ["anti", "spread", "ports", "existing-affinity", "overflow",
-                                  "preferred-affinity", "term-overflow"])
-def test_unported_paths_raise_and_keep_the_batch(case):
-    def pending_fn(pods):
-        if case == "anti":
-            _anti(pods[2])
-        elif case == "spread":
-            pods[1].topology_spread_constraints = [PT.TopologySpreadConstraint(
-                max_skew=1, topology_key="zone", when_unsatisfiable="DoNotSchedule")]
-        elif case == "preferred-affinity":
-            pods[4].affinity.pod_affinity = PT.PodAffinity(preferred=[PT.WeightedPodAffinityTerm(
-                weight=5, pod_affinity_term=PT.PodAffinityTerm(
-                    label_selector=PT.LabelSelector(match_labels={"app": "x"}), topology_key="zone"))])
-        elif case == "term-overflow":
-            # five matchLabels pairs: one more than a term row holds
-            pods[5].topology_spread_constraints = [PT.TopologySpreadConstraint(
-                max_skew=1, topology_key="zone", when_unsatisfiable="ScheduleAnyway",
-                label_selector=PT.LabelSelector(match_labels={f"k{i}": "v" for i in range(5)}))]
-        elif case == "ports":
-            pods[0].containers[0].ports = [PT.ContainerPort(host_port=80)]
-        elif case == "overflow":
-            pods[3].tolerations = [PT.Toleration(key=f"k{i}", operator="Exists") for i in range(9)]
+def _edit_pending(case, pods, t):
+    if case == "anti":
+        # against its own app: the batch's other svc-2 pods (none here) and any later ones
+        _anti(pods[2], t, {"app": pods[2].labels["app"]})
+    elif case == "spread":
+        pods[1].topology_spread_constraints = [t.TopologySpreadConstraint(
+            max_skew=1, topology_key="zone", when_unsatisfiable="DoNotSchedule")]
+    elif case == "preferred-affinity":
+        pods[4].affinity.pod_affinity = t.PodAffinity(preferred=[t.WeightedPodAffinityTerm(
+            weight=5, pod_affinity_term=t.PodAffinityTerm(
+                label_selector=t.LabelSelector(match_labels={"app": "x"}), topology_key="zone"))])
+    elif case == "term-overflow":
+        # five matchLabels pairs: one more than a term row holds
+        pods[5].topology_spread_constraints = [t.TopologySpreadConstraint(
+            max_skew=1, topology_key="zone", when_unsatisfiable="ScheduleAnyway",
+            label_selector=t.LabelSelector(match_labels={f"k{i}": "v" for i in range(5)}))]
+    elif case == "ports":
+        pods[0].containers[0].ports = [t.ContainerPort(host_port=80)]
+        pods[3].containers[0].ports = [t.ContainerPort(host_port=80)]
+    elif case == "overflow":
+        pods[3].tolerations = [t.Toleration(key=f"k{i}", operator="Exists") for i in range(9)]
+    elif case == "required-affinity":
+        pods[2].affinity.pod_affinity = t.PodAffinity(required=[t.PodAffinityTerm(
+            label_selector=t.LabelSelector(match_labels={"app": "svc-1"}), topology_key=HOST_KEY)])
 
-    def existing_fn(nodes):
-        p = PT.Pod(name="bound", namespace="bench", node_name=nodes[0].name, affinity=PT.Affinity())
-        _anti(p)
+
+def _existing_with(case):
+    def existing_fn(nodes, t):
+        p = t.Pod(name="bound", namespace="bench", node_name=nodes[0].name, labels={"app": "svc-0"},
+                  affinity=t.Affinity())
+        if case == "pattern-overflow":
+            # five matchLabels pairs: the pattern row truncates the selector
+            _anti(p, t, {f"k{i}": "v" for i in range(5)})
+        else:
+            _anti(p, t, {"app": "svc-1"})
         return p
+    return existing_fn if case in ("existing-affinity", "pattern-overflow") else None
 
-    sched, queue = _cluster_with(pending_fn, existing_fn if case == "existing-affinity" else None)
+
+@pytest.mark.parametrize("case", ["spread", "overflow", "term-overflow", "required-affinity",
+                                  "pattern-overflow"])
+def test_unported_paths_raise_and_keep_the_batch(case):
+    sched, queue = _cluster_with(lambda pods, t: _edit_pending(case, pods, t), _existing_with(case))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         sched.schedule_batch()
     assert queue.counts() == (6, 0, 0)
     sched.close()
+
+
+@pytest.mark.parametrize("case", ["anti", "ports", "existing-affinity", "preferred-affinity"])
+def test_formerly_unported_paths_schedule_like_the_reference(case):
+    """The clusters the port refused before it ran inter-pod affinity and
+    host ports now schedule, placement for placement as the reference."""
+    results = []
+    for pkg, t in (("ref", RT), ("port", PT)):
+        sched, queue = _cluster_with(lambda pods, t: _edit_pending(case, pods, t), _existing_with(case),
+                                     t=t, pkg=pkg)
+        res = sched.run_until_empty()
+        sched.wait_for_binds()
+        sched.close()
+        results.append(res)
+    ref, port = results
+    assert port.scheduled == ref.scheduled == 6 and port.assignments == ref.assignments
+    if case == "existing-affinity":  # svc-1 pods stay off the bound pod's node
+        assert all(port.assignments[f"bench/pod-{i}"] != "node-0" for i in (1,))
+    if case == "ports":  # the two port-80 pods never share a node
+        assert port.assignments["bench/pod-0"] != port.assignments["bench/pod-3"]
 
 
 def test_failed_bind_forgets_and_backs_off():
@@ -291,3 +377,56 @@ def test_failed_bind_forgets_and_backs_off():
     assert cache.pod_count() == 5 and not cache.is_assumed("bench/pod-1")
     assert queue.counts() == (0, 1, 0)
     sched.close()
+
+
+def _interpod_drain(pkg, workload, det, seed):
+    t = RT if pkg == "ref" else PT
+    if workload == "config4":
+        # config 4's shape: 64 nodes in 8 zones, 20 apps; every 10th pod with
+        # a required hostname anti-affinity on its `exclusive` label, the
+        # rest with a preferred zone affinity to their app
+        (nodes, pending), existing = bench_config4(64, 640, t=t), []
+    else:
+        nodes, existing, pending = random_cluster(seed, 90, 400, 90, t=t, pins=True, topology=True,
+                                                  interpod=True, pending_affinity=False)
+    cache = (RCache if pkg == "ref" else SchedulerCache)()
+    fill_cache(cache, nodes, existing)
+    queue = (RQueue if pkg == "ref" else PriorityQueue)()
+    for p in pending:
+        queue.add(p)
+    if pkg == "ref":
+        sched = RScheduler(
+            cache, queue, batch_size=128, deterministic=det, seed=seed, commit_plane=False,
+            fold_plane=False, ingest_plane=False, term_plane=False, speculate=False,
+            enable_preemption=False,
+        )
+    else:
+        sched = Scheduler(cache, queue, batch_size=128, deterministic=det, seed=seed, device="cpu")
+    res = sched.run_until_empty()
+    sched.wait_for_binds()
+    sched.close()
+    return res, sched
+
+
+@pytest.mark.parametrize("workload", ["config4", "random"])
+@pytest.mark.parametrize("det", [True, False], ids=["deterministic", "noise"])
+def test_interpod_drain_matches_reference_pod_for_pod(workload, det):
+    ref, _ = _interpod_drain("ref", workload, det, seed=6)
+    port, sched = _interpod_drain("port", workload, det, seed=6)
+    assert port.scheduled == ref.scheduled and port.unschedulable == ref.unschedulable
+    assert port.assignments == ref.assignments
+    assert sched.stats["tracked_batches"] > 0
+    if workload == "config4":
+        assert sched.stats["tracked_batches"] == sched.stats["batches"]
+        assert ref.scheduled == 640
+        # later batches see the committed pods' terms through the PatternBank
+        assert {"anti_req", "pref", "et_anti", "et_score"} <= sched._term_kinds
+        exclusive = {}
+        for key, node in port.assignments.items():
+            i = int(key.split("-")[-1])
+            if i % 10 == 0:
+                exclusive.setdefault((f"svc-{i % 20}", node), []).append(key)
+        assert all(len(v) == 1 for v in exclusive.values())
+    else:
+        assert ref.scheduled > 150 and ref.unschedulable > 0
+        assert {"anti_req", "pref", "et_anti", "et_score"} <= sched._term_kinds

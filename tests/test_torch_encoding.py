@@ -1,9 +1,11 @@
 """The port's encoder is the state carried across: for the same seeded
 cluster, its NodeBank / SigBank / PodBatch arrays and interned constants
 equal the reference's key for key, dtype included (exact equality), and
-its mirror keeps both banks, and their device copies, equal to the
-reference's through cache events: node adds and removals, bulk pod adds,
-removes, a node update and a SigOverflow rebuild."""
+its mirror keeps the node, signature and pattern banks, and their device
+copies, equal to the reference's through cache events: node adds and
+removals, bulk pod adds, removes, a node update, a SigOverflow rebuild
+and (on a cluster whose pods carry pod (anti-)affinity) a PatternOverflow
+rebuild."""
 
 import numpy as np
 import pytest
@@ -95,12 +97,14 @@ def test_key_slot_growth_reencodes_like_the_reference():
     assert_same_arrays(rbank.arrays(), pbank.arrays())
 
 
-def _mirror_events(cache_cls, mirror_cls, t, seed, **mirror_kw):
-    nodes, existing, pending = random_cluster(seed, 20, 40, 25, t=t, topology=True)
+def _mirror_events(cache_cls, mirror_cls, t, seed, interpod=False, **mirror_kw):
+    nodes, existing, pending = random_cluster(seed, 20, 40, 25, t=t, topology=True, interpod=interpod)
     cache = cache_cls()
     fill_cache(cache, nodes[:18], existing[:10])  # 18 nodes: a 32-row bank
     mirror = mirror_cls(cache, **mirror_kw)
     mirror._min_sigs = 16  # small signature bank: the adds below overflow it
+    if interpod:
+        mirror._min_pats = 4  # 16 pattern rows: the pending pods' terms overflow them
     mirror._rebuild()
     mirror.rebuild_count = 0
     yield mirror
@@ -135,8 +139,9 @@ def _mirror_events(cache_cls, mirror_cls, t, seed, **mirror_kw):
 
 
 def _device_eps(mirror):
-    """The port mirror's device copies as numpy dicts."""
-    na, ea = mirror.device_arrays()
+    """The port mirror's device copies of the node and signature banks as
+    numpy dicts."""
+    na, ea, _ = mirror.device_arrays()
     return {k: v.numpy() for k, v in na.items()}, {k: v.numpy() for k, v in ea.items()}
 
 
@@ -158,6 +163,29 @@ def test_mirror_tracks_cache_events_like_the_reference(seed):
     # overflow rebuilt the banks (at 4x the slots)
     assert pm.rows_shipped > 0 and pm.rebuild_count == 1
     assert pm.eps.capacity == 64
+
+
+@pytest.mark.parametrize("seed", [5, 7])
+def test_mirror_pattern_bank_tracks_cache_events_like_the_reference(seed):
+    """The PatternBank row for row (free rows taken from 0 upward), through
+    a fresh build, single-pod adds and removes of pods with affinity, bulk
+    adds, a node removal and a PatternOverflow rebuild; its device copy
+    (counts patched by node rows, metadata by pattern rows) equals host
+    truth after each step."""
+    ref = _mirror_events(RCache, RMirror, RT, seed, interpod=True)
+    port = _mirror_events(PCache, PMirror, PT, seed, interpod=True, device="cpu")
+    for rm, pm in zip(ref, port):
+        assert rm.row_of == pm.row_of
+        assert_same_arrays(rm.nodes.arrays(), pm.nodes.arrays())
+        assert_same_arrays(rm.eps.arrays(), pm.eps.arrays())
+        assert_same_arrays(rm.pats.arrays(), pm.pats.arrays())
+        assert rm.pats.overflow_rows == pm.pats.overflow_rows
+        assert rm.rebuild_count == pm.rebuild_count
+        _, _, dev_x = pm.device_arrays()
+        assert_same_arrays(pm.pats.arrays(), {k: v.numpy() for k, v in dev_x.items()})
+    # the 16-row bank overflowed and was rebuilt bigger, as the reference's
+    assert pm.pats.capacity == rm.pats.capacity > 16
+    assert int(pm.pats.valid.sum()) > 16
 
 
 def test_sig_bank_after_drain_equals_a_fresh_encode():

@@ -1,6 +1,8 @@
 """Each hand-written CUDA kernel against its plain PyTorch version on the
 card, on seeded all-branches clusters: filter (and its raw node-selector
-output), score, solve, match_terms, spread_score and selector_spread_score.
+output), score, solve (with and without in-batch tracking), match_terms,
+spread_score, selector_spread_score, interpod_filter (every subset of its
+parts), interpod_score (each part and both) and inbatch_port_conflict.
 Needs an NVIDIA card and nvcc:
 
     python -m pytest -m cuda tests/test_torch_kernels_cuda.py
@@ -14,12 +16,14 @@ carries integers."""
 import pytest
 import torch
 
-from kubernetes_tpu_torch.models.clusters import random_cluster, random_selectors
+from kubernetes_tpu_torch.models.clusters import fill_cache, random_cluster, random_selectors
 from kubernetes_tpu_torch.ops import filters as F
 from kubernetes_tpu_torch.ops import scores as S
 from kubernetes_tpu_torch.ops import solver as SO
 from kubernetes_tpu_torch.ops import topology as TO
+from kubernetes_tpu_torch.ops import pipeline as PP
 from kubernetes_tpu_torch.oracle.nodeinfo import Snapshot
+from kubernetes_tpu_torch.state.cache import SchedulerCache, TensorMirror
 from kubernetes_tpu_torch.state.convert import arrays_to_torch
 from kubernetes_tpu_torch.state.tensors import PodBatch, encode_snapshot
 from kubernetes_tpu_torch.state.terms import compile_batch_terms
@@ -153,3 +157,94 @@ def test_selector_spread_kernel_equals_plain(cuda, seed, n_buckets):
     got = TO.selector_spread_score(na, ea, ta, au, n_buckets=n_buckets)
     assert TO.selector_spread_score.launches == before + 1
     assert torch.equal(got, TO.selector_spread_score_plain(na, ea, ta, au, n_buckets=n_buckets))
+
+
+def interpod_cluster(seed, device, n_nodes=200):
+    """(na, ea, xa, ta, au, pa, ids) of a seeded cluster reaching every
+    inter-pod branch: zone / hostname / rack keys, every selector kind,
+    namespaces, existing pods with every term kind (negative weights),
+    pending pods with required (anti-)affinity, the first-pod escape,
+    preferred terms and host ports."""
+    nodes, existing, pending = random_cluster(seed, n_nodes, 150, 600, overflow_nodes=3, topology=True,
+                                              interpod=True)
+    cache = SchedulerCache()
+    fill_cache(cache, nodes, existing)
+    mirror = TensorMirror(cache, device)
+    batch = PodBatch(mirror.vocab, 256)
+    for i, p in enumerate(pending):
+        batch.set_pod(i, p)
+    tb, aux = compile_batch_terms(mirror.vocab, pending, b_capacity=256)
+    na, ea, xa = mirror.device_arrays()
+    return [na, ea, xa] + [arrays_to_torch(d, device) for d in (tb.arrays(), aux, batch.arrays())] + \
+        [F.make_ids(mirror.vocab)]
+
+
+FILTER_SUBSETS = [("existing",), ("aff",), ("anti",), ("existing", "aff"), ("existing", "anti"),
+                  ("aff", "anti"), ("existing", "aff", "anti")]
+
+
+@pytest.mark.parametrize("n_buckets", [16, 256, 40000])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_interpod_filter_kernel_equals_plain(cuda, seed, n_buckets):
+    """V = 16 drops the hostname buckets, 256 holds the tables in shared
+    memory, 40,000 takes the device-memory tables."""
+    na, ea, xa, ta, au, pa, _ = interpod_cluster(seed, cuda)
+    for parts in FILTER_SUBSETS:
+        before = TO.interpod_filter.launches
+        got = TO.interpod_filter(na, ea, ta, au, xa, pa, parts=parts, n_buckets=n_buckets)
+        assert TO.interpod_filter.launches == before + 1
+        assert torch.equal(got, TO.interpod_filter_plain(na, ea, ta, au, xa, pa, parts, n_buckets)), parts
+
+
+@pytest.mark.parametrize("n_buckets", [16, 256, 40000])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_interpod_score_kernel_equals_plain(cuda, seed, n_buckets):
+    na, ea, xa, ta, _, pa, _ = interpod_cluster(seed, cuda)
+    for parts in (("pref",), ("existing",), ("pref", "existing")):
+        before = TO.interpod_score.launches
+        got = TO.interpod_score(na, ea, ta, xa, pa, parts=parts, n_buckets=n_buckets)
+        assert TO.interpod_score.launches == before + 1
+        want = TO.interpod_score_plain(na, ea, ta, xa, pa, parts, n_buckets)
+        assert got.dtype == want.dtype == torch.int64
+        assert torch.equal(got, want), parts
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_inbatch_port_conflict_kernel_equals_plain(cuda, seed):
+    _, _, _, _, _, pa, ids = interpod_cluster(seed, cuda)
+    before = F.inbatch_port_conflict.launches
+    got = F.inbatch_port_conflict(pa, ids)
+    assert F.inbatch_port_conflict.launches == before + 1
+    want = F.inbatch_port_conflict_plain(pa, ids)
+    assert torch.equal(got, want)
+    assert bool(want.any())
+
+
+@pytest.mark.parametrize("det", [True, False], ids=["deterministic", "noise"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_tracked_solve_kernel_equals_plain(cuda, seed, det):
+    """The solve with in-batch anti-affinity / host-port tracking: the
+    sequential kernel against the chunked, barrier-serialized plain
+    version on the inter-pod cluster's mask and score."""
+    na, ea, xa, ta, au, pa, ids = interpod_cluster(seed, cuda)
+    kinds = ("existing", "aff", "anti")
+    mask = F.combined_mask(na, pa, ids) & TO.interpod_filter(na, ea, ta, au, xa, pa, kinds, n_buckets=256)
+    score = S.score_matrix(na, pa) + TO.interpod_score(na, ea, ta, xa, pa, n_buckets=256)
+    b = 640
+    sig = (torch.arange(b, device=cuda) % 150).to(torch.int32)
+    pod_valid = torch.arange(b, device=cuda) < b - 40
+    order = SO.pop_order((torch.arange(b, device=cuda) % 3).to(torch.int32),
+                         torch.arange(b, dtype=torch.int32, device=cuda), pod_valid)
+    args = (mask, score, pa["req"], na["alloc"] - na["requested"], na["pod_count"].long(),
+            na["allowed_pods"].long(), order, SO.prng_key_data(seed))
+    inb = PP._inbatch_tensors(na, pa, ta, ids, 256)
+    kw = dict(deterministic=det, req_any=pa["req_any"], sig=sig, pod_valid=pod_valid,
+              return_carry=True, nz0=na["nonzero_req"], scoring_req=pa["scoring_req"], inb=inb)
+    before = SO.solve_greedy.tracked_launches
+    got, carry = SO.solve_greedy(*args, **kw)
+    assert SO.solve_greedy.tracked_launches == before + 1
+    want, want_carry = SO.solve_greedy_plain(*args, **kw)
+    assert torch.equal(got, want)
+    for a, c in zip(carry, want_carry):
+        assert torch.equal(a, c)
+    assert int((got >= 0).sum()) > 50

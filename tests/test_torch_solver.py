@@ -151,3 +151,176 @@ def test_sequential_walk_equals_chunked_reference(det, seed):
     assert np.array_equal(ref, walk)
     for a, b in zip(ref_carry, carry):
         assert np.array_equal(a, b)
+
+
+# ---------------------------------------------------------------------------
+# in-batch anti-affinity / host-port tracking (`inb`)
+# ---------------------------------------------------------------------------
+
+
+def inb_problem(seed, case="random", U=8, N=24, TT=10, K=3, B=64):
+    """A solve problem plus the raw in-batch inputs: required anti terms
+    (owner, key slot, which spec rows each matches), the node bank's dense
+    topology buckets, and the spec-pair port clashes. "all-anti": every
+    spec owns a hostname-keyed anti term (one bucket per node) matching
+    every spec, so a chunk's pods land in distinct buckets and the pairwise
+    barrier must let them commit together; "ports": every spec clashes with
+    every spec and nothing else constrains."""
+    p = problem(seed, U=U, N=N, B=B, ties=True)
+    p["free0"] = np.abs(p["free0"]) + 6  # room for many pods: the in-batch masks decide
+    p["allowed"] = p["allowed"] + 4
+    rng = np.random.default_rng(seed + 100)
+    ld = rng.integers(-1, 4, (N, K)).astype(np.int32)
+    ld[:, 0] = np.arange(N)  # slot 0: a hostname-like key, one bucket per node
+    inb = dict(
+        anti=rng.random(TT) < 0.7,
+        owner=rng.integers(0, U, TT).astype(np.int32),
+        m_bb=rng.random((TT, U)) < 0.3,
+        topo_slot=rng.integers(-1, K, TT).astype(np.int32),
+        label_dense=ld,
+        port_conflict=rng.random((U, U)) < 0.15,
+    )
+    if case == "all-anti":
+        inb["anti"] = np.ones(U, bool)
+        inb["owner"] = np.arange(U, dtype=np.int32)
+        inb["m_bb"] = np.ones((U, U), bool)
+        inb["topo_slot"] = np.zeros(U, np.int32)
+        inb["port_conflict"] = np.zeros((U, U), bool)
+        p["mask"] = np.ones_like(p["mask"])
+    elif case == "ports":
+        inb["anti"] = np.zeros(TT, bool)
+        inb["port_conflict"] = np.ones((U, U), bool)
+    v = int(ld.max()) + 1
+    return p, inb, max(v, 16)
+
+
+def ref_inb(inb, v, N, U):
+    import kubernetes_tpu.ops.topology as RTopo
+
+    bucket, haskey = RTopo._bucket_of({"label_dense": jnp.asarray(inb["label_dense"])}, jnp.asarray(inb["topo_slot"]))
+    tt = inb["anti"].shape[0]
+    return dict(
+        anti=jnp.asarray(inb["anti"]), owner=jnp.asarray(inb["owner"]), m_bb=jnp.asarray(inb["m_bb"]),
+        bucket_n=bucket, haskey_n=haskey, port_conflict=jnp.asarray(inb["port_conflict"]),
+        ca0=jnp.zeros((tt, v), jnp.float32), cb0=jnp.zeros((tt, v), jnp.float32),
+        cs0=jnp.zeros((U, N), jnp.float32),
+    )
+
+
+def port_inb(inb, v):
+    out = {k: torch.from_numpy(x) for k, x in inb.items()}
+    out["n_buckets"] = v
+    return out
+
+
+@pytest.mark.parametrize("case", ["random", "all-anti", "ports"])
+@pytest.mark.parametrize("det", [True, False], ids=["deterministic", "noise"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_solve_greedy_inb_matches_reference(case, det, seed):
+    p, inb, v = inb_problem(seed, case)
+    U, N = p["mask"].shape
+    B = p["sig"].shape[0]
+    order = RSO.pop_order(jnp.asarray(p["priority"]), jnp.arange(B, dtype=jnp.int32), jnp.asarray(p["pod_valid"]))
+    ref, ref_carry = RSO.solve_greedy(
+        jnp.asarray(p["mask"]), jnp.asarray(p["score"]), jnp.asarray(p["req"]), jnp.asarray(p["free0"]),
+        jnp.asarray(p["count0"]), jnp.asarray(p["allowed"]), order, jax.random.PRNGKey(seed),
+        deterministic=det, req_any=jnp.asarray((p["req"] > 0).any(-1)), sig=jnp.asarray(p["sig"]),
+        pod_valid=jnp.asarray(p["pod_valid"]), chunk=16, return_carry=True,
+        nz0=jnp.asarray(p["nz0"]), scoring_req=jnp.asarray(p["scoring_req"]), inb=ref_inb(inb, v, N, U),
+    )
+    ref = np.asarray(ref)
+    t, porder = port_args(p)
+    out, carry = PSO.solve_greedy_plain(
+        t["mask"], t["score"], t["req"], t["free0"], t["count0"], t["allowed"], porder,
+        PSO.prng_key_data(seed), deterministic=det, req_any=(t["req"] > 0).any(-1), sig=t["sig"],
+        pod_valid=t["pod_valid"], chunk=16, return_carry=True, nz0=t["nz0"],
+        scoring_req=t["scoring_req"], inb=port_inb(inb, v),
+    )
+    assert np.array_equal(ref, out.numpy())
+    for a, b in zip(ref_carry, carry):
+        assert np.array_equal(np.asarray(a), b.numpy())
+    # the tracking binds: without it some pods land elsewhere
+    free = PSO.solve_greedy_plain(
+        t["mask"], t["score"], t["req"], t["free0"], t["count0"], t["allowed"], porder,
+        PSO.prng_key_data(seed), deterministic=det, req_any=(t["req"] > 0).any(-1), sig=t["sig"],
+        pod_valid=t["pod_valid"], chunk=16,
+    )
+    assert not np.array_equal(free.numpy(), ref)
+    assert (ref >= 0).sum() > 5
+    if case == "all-anti":  # one pod per node at most: every spec's term matches every spec
+        placed = ref[ref >= 0]
+        assert len(placed) == len(set(placed.tolist())) == N
+
+
+def sequential_walk_inb(p, order, det, key, inb, v):
+    """The tracked kernel's algorithm (csrc/solver.cu), one pod at a time:
+    (A) my anti term vs earlier commits it matches, (B) earlier commits'
+    anti terms vs me, (P) a clashing host port on the node."""
+    free, count, nz = p["free0"].copy(), p["count0"].copy(), p["nz0"].copy()
+    req_any = (p["req"] > 0).any(-1)
+    noise = PSO.tie_noise_bits(key, len(order), p["mask"].shape[1]).numpy()
+    ld, slot = inb["label_dense"], inb["topo_slot"]
+    tt = len(inb["anti"])
+    ca, cb = np.zeros((tt, v), np.int64), np.zeros((tt, v), np.int64)
+    cs = np.zeros(p["mask"].shape, np.int64)
+
+    def bucket(n, t):
+        d = ld[n, 0 if slot[t] < 0 else min(slot[t], ld.shape[1] - 1)]
+        return d if (d >= 0 and slot[t] >= 0 and d < v) else -1
+
+    out = np.full(len(order), -1, np.int32)
+    for rank, pos in enumerate(order):
+        if not p["pod_valid"][pos]:
+            continue
+        s = p["sig"][pos]
+        own = [t for t in range(tt) if inb["anti"][t] and inb["owner"][t] == s]
+        match = [t for t in range(tt) if inb["anti"][t] and inb["m_bb"][t, s]]
+        conf = np.flatnonzero(inb["port_conflict"][s])
+        best = None
+        for n in range(p["mask"].shape[1]):
+            if not p["mask"][s, n] or count[n] + 1 > p["allowed"][n]:
+                continue
+            if req_any[s] and not (p["req"][s] <= free[n]).all():
+                continue
+            if any(bucket(n, t) >= 0 and ca[t, bucket(n, t)] > 0 for t in own):
+                continue
+            if any(bucket(n, t) >= 0 and cb[t, bucket(n, t)] > 0 for t in match):
+                continue
+            if (cs[conf, n] > 0).any():
+                continue
+            cand = (p["score"][s, n], 0 if det else noise[rank, n], -n)
+            if best is None or cand > best:
+                best = cand
+        if best is not None:
+            n = -best[2]
+            out[pos] = n
+            free[n] -= p["req"][s]
+            count[n] += 1
+            nz[n] += p["scoring_req"][s]
+            for t in match:
+                if bucket(n, t) >= 0:
+                    ca[t, bucket(n, t)] += 1
+            for t in own:
+                if bucket(n, t) >= 0:
+                    cb[t, bucket(n, t)] += 1
+            cs[s, n] += 1
+    return out, [free, count, nz]
+
+
+@pytest.mark.parametrize("case", ["random", "all-anti", "ports"])
+@pytest.mark.parametrize("det", [True, False], ids=["deterministic", "noise"])
+def test_sequential_walk_inb_equals_chunked_plain(case, det):
+    """The tracked kernel's one-pod-at-a-time walk equals the chunked,
+    barrier-serialized plain version (itself held to the reference above)."""
+    p, inb, v = inb_problem(7, case)
+    t, porder = port_args(p)
+    want, want_carry = PSO.solve_greedy_plain(
+        t["mask"], t["score"], t["req"], t["free0"], t["count0"], t["allowed"], porder,
+        PSO.prng_key_data(7), deterministic=det, req_any=(t["req"] > 0).any(-1), sig=t["sig"],
+        pod_valid=t["pod_valid"], chunk=16, return_carry=True, nz0=t["nz0"],
+        scoring_req=t["scoring_req"], inb=port_inb(inb, v),
+    )
+    walk, carry = sequential_walk_inb(p, porder.numpy(), det, PSO.prng_key_data(7), inb, v)
+    assert np.array_equal(want.numpy(), walk)
+    for a, b in zip(want_carry, carry):
+        assert np.array_equal(a.numpy(), b)
