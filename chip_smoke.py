@@ -31,22 +31,40 @@ batches of 4,096 — and checks what they placed. Phases:
                 shapes (U=32, N=2048, TT=32, S=256, PT=32, V=2048);
                 CUDA-event times of kernel and plain version, and each
                 kernel's bound
+                the commit plane's spread_filter, arbitrate and
+                fold_commit_banks on a seeded cluster reaching every branch
+                (DoNotSchedule spread, inter-pod terms, host ports) and at
+                the config-3-hard shapes (config 3 with DoNotSchedule
+                constraints: U=TT=128, N=10240, S=256, V=16, one 4,096-pod
+                batch solved on the card), arbitrate also at the config-4
+                shapes (U=32, N=2048, TT=32, V=2048, B=4096); the fold's
+                library yardstick is one index_put_(accumulate=True) per bank
   4. parity     config 2, config 3 and config 4 at 1/10 scale through
-                Scheduler on cuda and on cpu (config 3 without Services
-                deterministic, with Services under tie-noise; config 4
-                both): identical placements
+                Scheduler with the commit plane on (the arbiter and the
+                fold), on cuda and on cpu, and with it off on cuda (config 3 without
+                Services deterministic, with Services under tie-noise;
+                config 4 both): identical placements; then config 3-hard at
+                1/10 (1,000 nodes, 10,000 pods, batch 128, deterministic) on
+                cuda (a main path: the arbiter's defers and spread_filter)
+                and cpu: identical placements and defers, every batch
+                arbitrated, no escalation, no zone skew above max_skew
   5. drain      config 2 at full size; then config 3 at full size, without
-                and with Services; then config 4 at full size: every pod
-                placed, no node over its allocatable or pod limit, config
-                2's placements pass the taint/affinity checks, config 3's
-                device signature bank equals a fresh host encode of the
-                final cache, config 4 puts no two pods of one `exclusive`
-                value on a node and its device pattern and signature banks
-                equal a fresh host encode; pods/s, stages, peak memory,
-                per-app zone skew or share
-  6. kernels    one JSON line: per kernel its launches in the drains (the
-                counts are set to 0 before each drain and read after it),
-                error, times and bound
+                and with Services; then config 4 at full size, all with the
+                commit plane on (the default): every pod placed, no node
+                over its allocatable or pod limit, config 2's placements
+                pass the taint/affinity checks, config 4 puts no two pods
+                of one `exclusive` value on a node, and after each drain the
+                device node bank's usage columns, signature bank and
+                pattern bank — produced by the folds — equal a fresh host
+                encode of the final cache; every batch folded and none
+                arbitrated (no DoNotSchedule pod: the bulk path); pods/s,
+                stages, fold and arbiter counters, peak memory, per-app
+                zone skew or share
+  6. kernels    one JSON line: per kernel (the twelve and the tracked
+                solve) its launches in the main-path drains (the counts are
+                set to 0 before each drain and read after it: config 3-hard
+                at 1/10 and the four full drains), error, times, bound and,
+                for the fold, the library yardstick
   7. result     the last line: {"ok": true, "device": {...}}
 
 Any failed phase exits non-zero before the result line. Without a CUDA
@@ -80,6 +98,7 @@ CONFIG3_PODS = 100000
 CONFIG4_NODES = 2000
 CONFIG4_PODS = 20000
 BATCH = 4096
+HARD_BATCH = 128  # config 3-hard at 1/10: the size that escalates no defer
 
 
 def log(msg: str) -> None:
@@ -425,6 +444,73 @@ def tracked_solve_work(mask, sig, pod_valid, pa, free0, count0, allowed, nz0, or
     return nbytes_, ops
 
 
+def spread_filter_work(na, ea, ta, m_sig_ns, u):
+    """(bytes, integer operations) of spread_filter on these inputs, over
+    live lanes: per hard term, per valid node 1 add per matched signature
+    and 6 for the bucket (candidate counts, presence); per spec row with
+    hard terms, per valid node 6 per term (bucket, gather, skew test);
+    reads the matched signatures' counts columns, the dense label column of
+    each hard slot, the owners' selector rows, writes [U, N] bytes."""
+    from kubernetes_tpu_torch.state.terms import SPREAD_HARD
+
+    n = na["valid"].shape[0]
+    nn = int(na["valid"].sum())
+    hard = ta["valid"] & (ta["kind"] == SPREAD_HARD)
+    m = m_sig_ns[hard] & ea["valid"][None, :]
+    matched, sigs = int(m.sum()), int(m.any(dim=0).sum())
+    slots = len(set(ta["topo_slot"][hard].tolist()))
+    owners = len(set(ta["owner"][hard].tolist()))
+    n_hard = int(hard.sum())
+    ops = nn * (matched + 6 * n_hard) + nn * 6 * n_hard
+    nbytes_ = nn * 2 * sigs + nn * 4 * slots + owners * n + n_hard * ea["valid"].shape[0] + u * n
+    return nbytes_, ops
+
+
+def arbiter_work(na, pa, ta, pb, verdict, have_spread, v):
+    """(bytes, integer operations) of arbitrate on these inputs: per valid
+    pod, R resource compares, 8 per term (bucket, two table tests, the
+    skew test) and 1 per spec row (the port-clash column), plus a V-wide
+    minimum per own hard term; reads the per-pod arrays, the residual and
+    limit rows, the spec rows' requests, the term x spec match and
+    port-clash tables, the term slots' dense label columns and, with
+    hard spread, the merged tables and candidate rows once; writes the
+    [B] verdict."""
+    from kubernetes_tpu_torch.state.terms import SPREAD_HARD
+
+    b = pb["sig"].shape[0]
+    n, r = na["alloc"].shape
+    u = pa["valid"].shape[0]
+    tt = ta["valid"].shape[0]
+    pods = int(pb["valid"].sum())
+    hard = ta["valid"] & (ta["kind"] == SPREAD_HARD)
+    own_hard = 0
+    if have_spread:
+        per_spec = torch.zeros(u, dtype=torch.int64, device=hard.device)
+        per_spec.index_add_(0, ta["owner"][hard].long(), torch.ones(int(hard.sum()), dtype=torch.int64,
+                                                                    device=hard.device))
+        own_hard = int(per_spec[pb["sig"][pb["valid"]].long()].sum())
+    ops = pods * (r + 8 * tt + u) + own_hard * v
+    slots = len(set(ta["topo_slot"][ta["valid"]].tolist()))
+    nbytes_ = (b * (8 + 4 + 1 + 4 + 4) + n * (r * 8 + 16) + u * (r * 8 + 1) + tt * u + u * u
+               + n * 4 * slots + (tt * v * 5 + u * n if have_spread else 0))
+    return nbytes_, ops
+
+
+def fold_work(prog, r):
+    """(bytes, integer operations) of fold_commit_banks on this program:
+    the live lanes' control rows read once, each bank cell they touch read
+    and written once; one add per resource slot, non-zero request, pod
+    count and count cell."""
+    live = prog.pods
+    plive = int((prog.pat_cnt > 0).sum())
+    cells_n = len(set(prog.rows[:live].tolist()))
+    cells_s = len(set(zip(prog.rows[:live].tolist(), prog.sig[:live].tolist())))
+    cells_p = len(set(zip(prog.pat_row[:plive].tolist(), prog.pat_col[:plive].tolist())))
+    nbytes_ = (live * (4 + r * 8 + 16 + 4 + 4) + plive * 10
+               + 2 * (cells_n * (r * 8 + 16 + 4) + 2 * cells_s + 2 * cells_p))
+    return nbytes_, live * (r + 4) + plive
+
+
 def bound(work):
     nbytes_, ops = work[:2]
     f64 = work[2] if len(work) > 2 else 0
@@ -558,6 +644,7 @@ def encode(nodes, existing, pods, device, selectors_fn=None):
     batch terms' and patterns' slots and the zone count, bucketed)."""
     from kubernetes_tpu_torch.models.clusters import fill_cache
     from kubernetes_tpu_torch.ops.filters import make_ids
+    from kubernetes_tpu_torch.scheduler.driver import _term_kind_names
     from kubernetes_tpu_torch.state.cache import SchedulerCache, TensorMirror
     from kubernetes_tpu_torch.state.convert import arrays_to_torch
     from kubernetes_tpu_torch.state.tensors import PodBatch, dedup_specs, pow2_bucket
@@ -579,8 +666,11 @@ def encode(nodes, existing, pods, device, selectors_fn=None):
     v = pow2_bucket(max([vocab.dense_size(int(x)) for x in slots if x >= 0] + [vocab.zone_count(), 1]))
     na, ea, xa = mirror.device_arrays()
     t = lambda d: arrays_to_torch(d, device)  # noqa: E731
+    kinds = _term_kind_names(set(tb.kind[tb.valid].tolist()), bool((aux["n_sel_spread"] > 0).any()), mirror.pats)
     return {"na": na, "ea": ea, "xa": xa, "ta": t(tb.arrays()), "au": t(aux), "pa": t(batch.arrays()),
-            "ids": make_ids(vocab), "v": v, "sig": torch.tensor(sig, dtype=torch.int32, device=device)}
+            "ids": make_ids(vocab), "v": v, "sig": torch.tensor(sig, dtype=torch.int32, device=device),
+            "mirror": mirror, "pods": pods, "kinds": kinds,
+            "ports": any(p.host_ports() for p in reps)}
 
 
 def compare_topology(enc, label, time_it: bool):
@@ -751,6 +841,131 @@ def compare_interpod(enc, label, time_it: bool):
     return out
 
 
+def compare_commit(enc, label, time_it: bool, parts=("spread_filter", "arbitrate", "fold_commit_banks")):
+    """Hold spread_filter (at the driver's V, at 16 and at 40,000), the
+    commit arbiter (with and without the spread kinds) and the commit fold
+    against their plain versions on the same CUDA tensors: the arbiter on
+    the batch's own solve (one 4,096-pod batch of the encoded pods, the
+    tracking on as the driver would have it), the fold with the arbiter's
+    placed pods into copies of the device banks. With time_it, time each
+    (the entry alone: one prebuilt struct relaunched), its plain version
+    and, for the fold, the library's index_put_(accumulate=True) per bank,
+    and bound it. Returns {kernel: stats}."""
+    from kubernetes_tpu_torch.commit import arbiter as A
+    from kubernetes_tpu_torch.commit.fold import plan_fold
+    from kubernetes_tpu_torch.kernels import build
+    from kubernetes_tpu_torch.ops import filters as F
+    from kubernetes_tpu_torch.ops import fold as FO
+    from kubernetes_tpu_torch.ops import pipeline as PP
+    from kubernetes_tpu_torch.ops import solver as SO
+    from kubernetes_tpu_torch.ops import topology as TO
+    from kubernetes_tpu_torch.state.convert import arrays_to_torch
+    from kubernetes_tpu_torch.state.tensors import pow2_bucket
+    from kubernetes_tpu_torch.state.terms import SPREAD_HARD
+
+    na, ea, xa, ta, au, pa, ids, v, sig = (enc[k] for k in ("na", "ea", "xa", "ta", "au", "pa", "ids", "v", "sig"))
+    kinds = enc["kinds"]
+    dev = na["valid"].device
+    out = {}
+    _, sel = F.combined_mask(na, pa, ids, with_selector=True)
+    if "spread_filter" in parts:
+        bad = 0
+        for nb in sorted({v, 16, 40000}):
+            bad += int((TO.spread_filter(na, ea, ta, sel, n_buckets=nb)
+                        != TO.spread_filter_plain(na, ea, ta, sel, nb)).sum())
+        check(bad == 0, f"[{label}] spread_filter kernel differs from its plain version in {bad} pairs")
+        out["spread_filter"] = {"max_abs_err": min(bad, 1)}
+    b = sig.shape[0]
+    pb = {"sig": sig, "valid": torch.ones(b, dtype=torch.bool, device=dev),
+          "priority": torch.zeros(b, dtype=torch.int32, device=dev)}
+    track = "anti_req" in kinds or enc["ports"]
+    assign, _ = PP.solve_pipeline(na, pa, ids, SO.prng_key_data(5), pb=pb, term_kinds=kinds, track_inbatch=track,
+                                  ea=ea, ta=ta, au=au, xa=xa, n_buckets=v)
+    err = 0
+    plain = {}
+    for tk in (kinds, kinds - {"spread_hard"}):
+        k = A.arbitrate(na, pa, ea, ta, ids, assign, pb, term_kinds=tk, n_buckets=v)
+        plain[tk] = A.arbitrate_plain(na, pa, ea, ta, ids, assign, pb, term_kinds=tk, n_buckets=v)
+        err += int((k != plain[tk]).sum())
+    # as the driver runs it: on the intermediates its batch's solve left
+    solved = {}
+    PP.solve_pipeline(na, pa, ids, SO.prng_key_data(5), pb=pb, term_kinds=kinds, track_inbatch=track,
+                      ea=ea, ta=ta, au=au, xa=xa, n_buckets=v, arbiter_inputs=solved)
+    err += int((A.arbitrate(na, pa, ea, ta, ids, assign, pb, term_kinds=kinds, n_buckets=v, inputs=solved)
+                != plain[kinds]).sum())
+    check(err == 0, f"[{label}] arbitrate kernel differs from its plain version in {err} verdicts")
+    verdict = A.arbitrate(na, pa, ea, ta, ids, assign, pb, term_kinds=kinds, n_buckets=v)
+    counts = [int((verdict == x).sum()) for x in (A.V_PLACE, A.V_DEFER, A.V_NOFIT)]
+    out["arbitrate"] = {"max_abs_err": min(err, 1)}
+    placed = torch.nonzero(verdict == A.V_PLACE).flatten().tolist()
+    assign_l = assign.tolist()
+    prog = plan_fold(enc["mirror"], [(enc["pods"][i], assign_l[i]) for i in placed], pow2_bucket(b), 16)
+    check(prog is not None, f"[{label}] the fold plan overflowed a bank")
+    banks = (na["requested"], na["nonzero_req"], na["pod_count"], ea["counts"], xa["counts"])
+    ctl = arrays_to_torch({k: getattr(prog, k) for k in ("rows", "req", "nz", "cnt", "sig", "pat_row", "pat_col",
+                                                         "pat_cnt")}, dev)
+    kb = [x.clone() for x in banks]
+    pbk = [x.clone() for x in banks]
+    FO.fold_commit_banks(*kb, **ctl)
+    FO.fold_commit_banks_plain(*pbk, **ctl)
+    err_f = max(int((x.long() - y.long()).abs().max()) for x, y in zip(kb, pbk))
+    check(err_f == 0, f"[{label}] fold_commit_banks kernel differs from its plain version by {err_f}")
+    out["fold_commit_banks"] = {"max_abs_err": err_f}
+    log(f"[kernels] {label}: U={pa['valid'].shape[0]} N={na['valid'].shape[0]} TT={ta['valid'].shape[0]} "
+        f"S={ea['valid'].shape[0]} PT={xa['valid'].shape[0]} V={v} B={b}, kinds {sorted(kinds)}: "
+        f"{'spread_filter, ' if 'spread_filter' in parts else ''}arbitrate, fold_commit_banks exact "
+        f"(verdicts place/defer/nofit {counts}; {prog.pods} pods and "
+        f"{int((prog.pat_cnt > 0).sum())} pattern instances folded)")
+    if time_it:
+        if "spread_filter" in parts:
+            m_ns = TO.match_terms(ta, ea["label_vals"], ea["ns_id"])
+            fargs, _ = TO.spread_args(na, ea, ta, m_ns, sel, v, SPREAD_HARD)
+            out["spread_filter"]["ms"] = cuda_ms(lambda: build.launch(TO.SPREAD_FILTER_ENTRY, fargs, dev), 200)
+            out["spread_filter"]["plain_ms"] = cuda_ms(lambda: TO.spread_filter_plain(na, ea, ta, sel, v), 5)
+            out["spread_filter"]["bound"] = bound(spread_filter_work(na, ea, ta, m_ns, pa["valid"].shape[0]))
+        if "arbitrate" in parts:
+            aargs, _ = A.arbiter_args(na, pa, ea, ta, ids, assign, pb, term_kinds=kinds, n_buckets=v)
+            out["arbitrate"]["ms"] = cuda_ms(lambda: build.launch(A.ARBITER_ENTRY, aargs, dev), 5)
+            out["arbitrate"]["plain_ms"] = cuda_ms(
+                lambda: A.arbitrate_plain(na, pa, ea, ta, ids, assign, pb, term_kinds=kinds, n_buckets=v), 1)
+            out["arbitrate"]["bound"] = bound(arbiter_work(na, pa, ta, pb, verdict, "spread_hard" in kinds, v))
+        if "fold_commit_banks" in parts:
+            oargs = FO.fold_args(*kb, **ctl)
+            out["fold_commit_banks"]["ms"] = cuda_ms(lambda: build.launch(FO.FOLD_ENTRY, oargs, dev), 200)
+            out["fold_commit_banks"]["plain_ms"] = cuda_ms(lambda: FO.fold_commit_banks_plain(*pbk, **ctl), 5)
+            out["fold_commit_banks"]["bound"] = bound(fold_work(prog, na["requested"].shape[1]))
+            out["fold_commit_banks"]["library_ms"] = library_fold_ms(kb, ctl, prog.pods)
+        for name in parts:
+            st = out[name]
+            lib = st.get("library_ms")
+            log(f"[kernels] {label} {name}: kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, "
+                f"bound {st['bound'][0]:.6f} ms ({st['bound'][1]})"
+                + (f", library {lib:.4f} ms" if lib is not None else ""))
+    return {k: out[k] for k in parts}
+
+
+def library_fold_ms(banks, ctl, pods):
+    """The fold's library yardstick: per bank one index_put_(accumulate=
+    True) of the live lanes into a copy, timed apart; their sum."""
+    requested, nonzero_req, pod_count, sig_counts, pat_counts = (x.clone() for x in banks)
+    rows = ctl["rows"][:pods].long()
+    plive = ctl["pat_cnt"] > 0
+    pr, pc = ctl["pat_row"][plive].long(), ctl["pat_col"][plive].long()
+    calls = (
+        lambda: requested.index_put_((rows,), ctl["req"][:pods], accumulate=True),
+        lambda: nonzero_req.index_put_((rows,), ctl["nz"][:pods], accumulate=True),
+        lambda: pod_count.index_put_((rows,), ctl["cnt"][:pods], accumulate=True),
+        lambda: sig_counts.index_put_((rows, ctl["sig"][:pods].long()), ctl["cnt"][:pods].to(torch.int16),
+                                      accumulate=True),
+        lambda: pat_counts.index_put_((pr, pc), ctl["pat_cnt"][plive], accumulate=True),
+    )
+    try:
+        return sum(cuda_ms(c, 50) for c in calls)
+    except RuntimeError as e:  # a dtype the library's scatter does not take
+        log(f"[kernels] fold library yardstick not measured: {e}")
+        return None
+
+
 def config4_batch(n_existing: int):
     """The config-4 shapes mid-drain: the full cluster holding `n_existing`
     bound pods (pod i on node (7 i) mod N, so no node holds two pods of one
@@ -762,12 +977,13 @@ def config4_batch(n_existing: int):
     return nodes, existing, pods[n_existing:]
 
 
-def config3_batch(services: bool, n_existing: int):
+def config3_batch(services: bool, n_existing: int, hard: bool = False):
     """The config-3 shapes mid-drain: the full cluster holding `n_existing`
-    bound pods (round-robin over the nodes) and the next 4,096-pod batch."""
+    bound pods (round-robin over the nodes) and the next 4,096-pod batch;
+    with `hard`, config 3-hard (DoNotSchedule constraints)."""
     from kubernetes_tpu_torch.models.clusters import bench_config3
 
-    nodes, pods, fn = bench_config3(CONFIG3_NODES, n_existing + BATCH, services=services)
+    nodes, pods, fn = bench_config3(CONFIG3_NODES, n_existing + BATCH, services=services, hard=hard)
     existing = [p.with_node(nodes[i % len(nodes)].name) for i, p in enumerate(pods[:n_existing])]
     return nodes, existing, pods[n_existing:], fn
 
@@ -811,7 +1027,21 @@ def phase_kernels():
     compare_interpod(encode(nodes, existing, pods, dev), "inter-pod all-branches", time_it=False)
     # the config-4 shapes mid-drain (10,000 pods bound)
     nodes, existing, pods = config4_batch(CONFIG4_PODS // 2)
-    stats.update(compare_interpod(encode(nodes, existing, pods, dev), "config-4", time_it=True))
+    enc4 = encode(nodes, existing, pods, dev)
+    stats.update(compare_interpod(enc4, "config-4", time_it=True))
+    # the commit plane on the all-branches cluster: DoNotSchedule spread on
+    # zone and hostname keys beside every inter-pod kind and host ports
+    nodes, existing, pods = random_cluster(14, 500, 600, 1500, overflow_nodes=6, topology=True, hard_spread=True,
+                                           interpod=True, pending_affinity=False, pending_ports=True)
+    compare_commit(encode(nodes, existing, pods, dev), "commit all-branches", time_it=False)
+    # the config-3-hard shapes mid-drain (50,000 pods bound); then the
+    # arbiter at the config-4 shapes (the path where it runs every batch)
+    nodes, existing, pods, _ = config3_batch(False, CONFIG3_PODS // 2, hard=True)
+    hard = compare_commit(encode(nodes, existing, pods, dev), "config-3-hard", time_it=True)
+    log(f"[kernels] config-3-hard arbitrate (information): kernel {hard['arbitrate']['ms']:.4f} ms, "
+        f"plain {hard['arbitrate']['plain_ms']:.4f} ms")
+    stats.update(hard)
+    stats.update(compare_commit(enc4, "config-4", time_it=True, parts=("arbitrate",)))
     return stats
 
 
@@ -823,6 +1053,9 @@ def kernel_counters():
     from kubernetes_tpu_torch.ops import solver as SO
     from kubernetes_tpu_torch.ops import topology as TO
 
+    from kubernetes_tpu_torch.commit import arbiter as A
+    from kubernetes_tpu_torch.ops import fold as FO
+
     return {
         "filter_mask": (F.combined_mask, "launches"), "score_matrix": (S.score_matrix, "launches"),
         "solve_greedy": (SO.solve_greedy, "launches"), "match_terms": (TO.match_terms, "launches"),
@@ -831,10 +1064,13 @@ def kernel_counters():
         "interpod_filter": (TO.interpod_filter, "launches"), "interpod_score": (TO.interpod_score, "launches"),
         "inbatch_port_conflict": (F.inbatch_port_conflict, "launches"),
         "solve_greedy_inb": (SO.solve_greedy, "tracked_launches"),
+        "spread_filter": (TO.spread_filter, "launches"), "arbitrate": (A.arbitrate, "launches"),
+        "fold_commit_banks": (FO.fold_commit_banks, "launches"),
     }
 
 
-def drain(device, workload, n_nodes, n_pods, batch, deterministic, seed=0, services=False):
+def drain(device, workload, n_nodes, n_pods, batch, deterministic, seed=0, services=False, planes=True,
+          hard=False):
     from kubernetes_tpu_torch.models.clusters import bench_config2, bench_config3, bench_config4, fill_cache
     from kubernetes_tpu_torch.scheduler.driver import Scheduler
     from kubernetes_tpu_torch.state.cache import SchedulerCache
@@ -846,12 +1082,13 @@ def drain(device, workload, n_nodes, n_pods, batch, deterministic, seed=0, servi
     elif workload == "config4":
         nodes, pods = bench_config4(n_nodes, n_pods)
     else:
-        nodes, pods, fn = bench_config3(n_nodes, n_pods, services=services)
+        nodes, pods, fn = bench_config3(n_nodes, n_pods, services=services, hard=hard)
     cache, queue = SchedulerCache(), PriorityQueue()
     fill_cache(cache, nodes)
     for p in pods:
         queue.add(p)
-    sched = Scheduler(cache, queue, batch_size=batch, deterministic=deterministic, seed=seed, device=device)
+    sched = Scheduler(cache, queue, batch_size=batch, deterministic=deterministic, seed=seed, device=device,
+                      commit_plane=planes)
     if fn is not None:
         sched.set_spread_selectors_fn(fn)
     if device == "cuda":
@@ -874,20 +1111,52 @@ def phase_parity():
         # config 4 at 1/10 in batches of 512, as at full size in 5 batches
         batch = 512 if workload == "config4" else 1024
         gsched, _, _, gpu, tg = drain("cuda", workload, n_nodes, n_pods, batch, det, seed=3, services=services)
+        _, _, _, off, to = drain("cuda", workload, n_nodes, n_pods, batch, det, seed=3, services=services,
+                                 planes=False)
         _, _, _, cpu, tc = drain("cpu", workload, n_nodes, n_pods, batch, det, seed=3, services=services)
+        st = gsched.stats
         if workload == "config4":
             # later batches read the committed pods' terms from the PatternBank
-            check({"et_anti", "et_score"} <= gsched._term_kinds and gsched.stats["tracked_batches"] > 0,
+            check({"et_anti", "et_score"} <= gsched._term_kinds and st["tracked_batches"] > 0,
                   f"config-4 parity drain ran without the existing-pod kinds or tracking: "
-                  f"{sorted(gsched._term_kinds)}, {gsched.stats['tracked_batches']} tracked batches")
-        check(gpu.scheduled == cpu.scheduled == n_pods, f"parity drain placed {gpu.scheduled}/{cpu.scheduled}")
+                  f"{sorted(gsched._term_kinds)}, {st['tracked_batches']} tracked batches")
+        check(st["fold_batches"] == st["batches"] and st["fold_overflow_batches"] == 0,
+              f"parity drain ({workload}) folded {st['fold_batches']} of {st['batches']} batches")
+        check(gpu.scheduled == cpu.scheduled == off.scheduled == n_pods,
+              f"parity drain placed {gpu.scheduled}/{off.scheduled}/{cpu.scheduled}")
         diff = sum(1 for k, v in cpu.assignments.items() if gpu.assignments.get(k) != v)
-        check(diff == 0 and len(gpu.assignments) == len(cpu.assignments),
-              f"parity drain ({workload}, deterministic={det}, services={services}): "
-              f"{diff} pods placed differently on cuda and cpu")
+        diff_off = sum(1 for k, v in off.assignments.items() if gpu.assignments.get(k) != v)
+        check(diff == 0 and diff_off == 0 and len(gpu.assignments) == len(cpu.assignments),
+              f"parity drain ({workload}, deterministic={det}, services={services}): {diff} pods placed "
+              f"differently on cuda and cpu, {diff_off} with the planes on and off")
         log(f"[parity] {workload} /10 ({n_nodes} nodes, {n_pods} pods, batch {batch}), deterministic={det}"
-            f"{', Services' if services else ''}: identical placements ({gpu.scheduled} pods; "
-            f"cuda {tg:.2f}s, cpu {tc:.2f}s)")
+            f"{', Services' if services else ''}: identical placements, planes on (cuda, cpu) and off (cuda) "
+            f"({gpu.scheduled} pods; {st['arbiter_batches']} arbitrated batches; cuda {tg:.2f}s, planes off "
+            f"{to:.2f}s, cpu {tc:.2f}s)")
+    # config 3-hard at 1/10: a main path of its own (spread_filter and the
+    # arbiter's defers run only on DoNotSchedule batches)
+    n_nodes, n_pods = CONFIG3_NODES // 10, CONFIG3_PODS // 10
+    need = ["filter_mask", "score_matrix", "solve_greedy", "match_terms", "spread_filter", "arbitrate",
+            "fold_commit_banks"]
+    (gsched, nodes, pods, gpu, tg), launches = run_main_path("config-3-hard /10", need, lambda: drain(
+        "cuda", "config3", n_nodes, n_pods, HARD_BATCH, True, hard=True))
+    csched, _, _, cpu, tc = drain("cpu", "config3", n_nodes, n_pods, HARD_BATCH, True, hard=True)
+    g, c = gsched.stats, csched.stats
+    check(gpu.scheduled == cpu.scheduled == n_pods, f"config-3-hard placed {gpu.scheduled}/{cpu.scheduled}")
+    diff = sum(1 for k, v in cpu.assignments.items() if gpu.assignments.get(k) != v)
+    check(diff == 0, f"config-3-hard: {diff} pods placed differently on cuda and cpu")
+    check(g["arbiter_batches"] == g["batches"] == c["arbiter_batches"],
+          f"config-3-hard arbitrated {g['arbiter_batches']} of {g['batches']} batches ({c['arbiter_batches']} on cpu)")
+    check(g["arbiter_defer"] == c["arbiter_defer"] > 0 and g["arbiter_escalated"] == c["arbiter_escalated"] == 0,
+          f"config-3-hard defers {g['arbiter_defer']}/{c['arbiter_defer']}, escalations "
+          f"{g['arbiter_escalated']}/{c['arbiter_escalated']}")
+    skew = zone_skew(nodes, pods, gpu)
+    check(skew <= 1, f"config-3-hard: an app's zone counts differ by {skew} > max_skew 1")
+    log(f"[parity] config-3-hard /10 ({n_nodes} nodes, {n_pods} pods, batch {HARD_BATCH}), deterministic: "
+        f"identical placements and defers on cuda and cpu ({gpu.scheduled} pods, {g['batches']} batches, "
+        f"{g['arbiter_defer']} defers, 0 escalations; max per-app zone skew {skew}; cuda {tg:.2f}s, "
+        f"cpu {tc:.2f}s); launches {launches}")
+    return launches
 
 
 def verify_capacity(sched, pods, res):
@@ -933,6 +1202,27 @@ def verify_drain(sched, nodes, pods, res, device):
         ok &= node_matches_node_selector(p.affinity.node_affinity.required, node.labels, node.name)
         bad += not ok
     check(bad == 0, f"{bad} placements violate a taint or the required node affinity")
+
+
+def verify_node_bank(sched):
+    """The device node bank's usage columns (requested, nonzero_req,
+    pod_count), advanced by the commit folds through the drain, equal a
+    fresh host encode of the final cache; the other columns equal the
+    host mirror."""
+    from kubernetes_tpu_torch.state.tensors import encode_snapshot
+
+    mirror = sched.mirror
+    mirror.sync()
+    dev, _, _ = mirror.device_arrays()
+    fresh, _, rows = encode_snapshot(sched.cache.snapshot, vocab=mirror.vocab, with_images=False)
+    check(rows == mirror.row_of, "the fresh encode numbers the node rows differently")
+    fresh = fresh.arrays()
+    for k in ("requested", "nonzero_req", "pod_count"):
+        bad = int((dev[k].cpu() != torch.from_numpy(fresh[k])).sum())
+        check(bad == 0, f"device node bank column {k} differs from a fresh encode in {bad} cells")
+    host = mirror.nodes.arrays()
+    bad = [k for k, h in host.items() if not torch.equal(dev[k].cpu(), torch.from_numpy(h))]
+    check(not bad, f"device node bank columns {bad} differ from the host mirror")
 
 
 def verify_sig_bank(sched):
@@ -1050,10 +1340,24 @@ def log_drain(label, sched, res, wall, smi):
         f"({wall:.3f}s wall, {st['batches']} batches); sync {st['sync_s']:.3f}s encode {st['encode_s']:.3f}s "
         f"solve {st['solve_s']:.3f}s commit {st['commit_s']:.3f}s; max_memory_allocated "
         f"{torch.cuda.max_memory_allocated()} B; card {smi}")
+    log(f"[drain] {label} planes: fold_batches {st['fold_batches']} (fold_pods {st['fold_pods']}, fold_s "
+        f"{st['fold_s']:.3f}, overflow {st['fold_overflow_batches']}), arbiter_batches {st['arbiter_batches']} "
+        f"(place {st['arbiter_place']}, defer {st['arbiter_defer']}), apply_s {st['apply_s']:.3f}, "
+        f"rows_shipped {sched.mirror.rows_shipped}")
 
 
-def phase_drain(smi):
-    total = {}
+def verify_planes(label, sched):
+    """Every batch placed pods, so every batch folded (none overflowed);
+    no batch holds a DoNotSchedule pod, so none was arbitrated (the bulk
+    path; config 4's required anti-affinity is settled by its tracked
+    solve)."""
+    st = sched.stats
+    check(st["fold_batches"] == st["batches"] and st["fold_overflow_batches"] == 0,
+          f"{label}: {st['fold_batches']} of {st['batches']} batches folded, {st['fold_overflow_batches']} overflowed")
+    check(st["arbiter_batches"] == 0, f"{label}: {st['arbiter_batches']} arbitrated batches, expected 0")
+
+
+def phase_drain(smi, total):
 
     def add(launches):
         for k, v in launches.items():
@@ -1061,15 +1365,19 @@ def phase_drain(smi):
 
     torch.cuda.reset_peak_memory_stats()
     (sched, nodes, pods, res, wall), launches = run_main_path(
-        "config-2", ("filter_mask", "score_matrix", "solve_greedy"),
+        "config-2", ("filter_mask", "score_matrix", "solve_greedy", "fold_commit_banks"),
         lambda: drain("cuda", "config2", CONFIG2_NODES, CONFIG2_PODS, BATCH, deterministic=False))
     add(launches)
     verify_drain(sched, nodes, pods, res, "cuda")
+    verify_planes("config-2", sched)
+    verify_node_bank(sched)
+    n_sigs = verify_sig_bank(sched)
     log_drain(f"config-2 full ({CONFIG2_NODES} nodes, {CONFIG2_PODS} pods, batch {BATCH})", sched, res, wall, smi)
-    log(f"[drain] config-2 launches {launches}")
+    log(f"[drain] config-2: device node bank usage columns and signature bank ({n_sigs} signatures) == fresh "
+        f"host encode; launches {launches}")
     for services in (False, True):
         label = "config-3" + (" + Services" if services else "")
-        need = ["filter_mask", "score_matrix", "solve_greedy", "match_terms", "spread_score"]
+        need = ["filter_mask", "score_matrix", "solve_greedy", "match_terms", "spread_score", "fold_commit_banks"]
         if services:
             need.append("selector_spread_score")
         torch.cuda.reset_peak_memory_stats()
@@ -1077,26 +1385,32 @@ def phase_drain(smi):
             "cuda", "config3", CONFIG3_NODES, CONFIG3_PODS, BATCH, deterministic=False, services=services))
         add(launches)
         verify_capacity(sched, pods, res)
+        verify_planes(label, sched)
+        verify_node_bank(sched)
         n_sigs = verify_sig_bank(sched)
         log_drain(f"{label} full ({CONFIG3_NODES} nodes, {CONFIG3_PODS} pods, batch {BATCH})",
                   sched, res, wall, smi)
-        log(f"[drain] {label}: device signature bank == fresh host encode ({n_sigs} signatures); "
+        log(f"[drain] {label}: device node bank usage columns and signature bank == fresh host encode "
+            f"({n_sigs} signatures); "
             f"term kinds {sorted(sched._term_kinds)}, V={sched._v_bucket}, TT={sched._t_bucket}; "
             f"per-app max zone skew {zone_skew(nodes, pods, res)} (information only); launches {launches}")
     torch.cuda.reset_peak_memory_stats()
     need = ["filter_mask", "score_matrix", "solve_greedy", "match_terms", "interpod_filter", "interpod_score",
-            "inbatch_port_conflict", "solve_greedy_inb"]
+            "inbatch_port_conflict", "solve_greedy_inb", "fold_commit_banks"]
     (sched, nodes, pods, res, wall), launches = run_main_path("config-4", need, lambda: drain(
         "cuda", "config4", CONFIG4_NODES, CONFIG4_PODS, BATCH, deterministic=False))
     add(launches)
     verify_capacity(sched, pods, res)
+    verify_planes("config-4", sched)
+    verify_node_bank(sched)
     n_excl = verify_exclusive(pods, res)
     n_pats = verify_pattern_bank(sched)
     n_sigs = verify_sig_bank(sched)
     label = f"config-4 full ({CONFIG4_NODES} nodes, {CONFIG4_PODS} pods, batch {BATCH})"
     log_drain(label, sched, res, wall, smi)
     log(f"[drain] config-4: {n_excl} exclusive pods on distinct nodes per value; device pattern bank == fresh "
-        f"host encode ({n_pats} patterns), signature bank too ({n_sigs} signatures); "
+        f"host encode ({n_pats} patterns), signature bank and node bank usage columns too ({n_sigs} "
+        f"signatures); "
         f"{sched.stats['tracked_batches']} of {sched.stats['batches']} batches tracked; term kinds "
         f"{sorted(sched._term_kinds)}, V={sched._v_bucket}, TT={sched._t_bucket}; share of pods in their "
         f"app's most common zone {zone_share(nodes, pods, res):.4f} (information only); launches {launches}")
@@ -1118,8 +1432,8 @@ def main() -> int:
     name, count, smi = phase_device()
     phase_build()
     stats = phase_kernels()
-    phase_parity()
-    launches = phase_drain(smi)
+    launches = dict(phase_parity())
+    phase_drain(smi, launches)
     sources = {
         "filter_mask": ("kubernetes_tpu_torch/csrc/filters.cu", "kubernetes_tpu/ops/filters.py:216"),
         "score_matrix": ("kubernetes_tpu_torch/csrc/scores.cu", "kubernetes_tpu/ops/scores.py:262"),
@@ -1131,6 +1445,9 @@ def main() -> int:
         "interpod_score": ("kubernetes_tpu_torch/csrc/interpod.cu", "kubernetes_tpu/ops/topology.py:363"),
         "inbatch_port_conflict": ("kubernetes_tpu_torch/csrc/interpod.cu", "kubernetes_tpu/ops/pipeline.py:178"),
         "solve_greedy_inb": ("kubernetes_tpu_torch/csrc/solver.cu", "kubernetes_tpu/ops/solver.py:175"),
+        "spread_filter": ("kubernetes_tpu_torch/csrc/topology.cu", "kubernetes_tpu/ops/topology.py:182"),
+        "arbitrate": ("kubernetes_tpu_torch/csrc/arbiter.cu", "kubernetes_tpu/commit/arbiter.py:157"),
+        "fold_commit_banks": ("kubernetes_tpu_torch/csrc/fold.cu", "kubernetes_tpu/ops/fold.py:44"),
     }
     kernels = []
     for kname, (src, ref) in sources.items():
@@ -1140,7 +1457,7 @@ def main() -> int:
             "name": kname, "route": "cuda", "source": src, "replaces": ref,
             "launches": launches[kname], "max_abs_err": s["max_abs_err"],
             "ms": s["ms"], "plain_ms": s["plain_ms"],
-            "bound_ms": s["bound"][0], "bound_by": s["bound"][1], "library_ms": None,
+            "bound_ms": s["bound"][0], "bound_by": s["bound"][1], "library_ms": s.get("library_ms"),
         })
     log(f"[done] {time.perf_counter() - t0:.1f}s; card: {smi}")
     print(json.dumps({"kernels": kernels}), flush=True)

@@ -1,11 +1,16 @@
-// Topology kernels: term matching, EvenPodsSpread (ScheduleAnyway) score and
-// SelectorSpread score.
+// Topology kernels: term matching, EvenPodsSpread (DoNotSchedule filter and
+// ScheduleAnyway score) and SelectorSpread score.
 //
 // Replace, in kubernetes_tpu/ops/topology.py:
 //   ktpu_match_terms            match_terms (:49)
-//   ktpu_spread_score           spread_score (:227) with _bucket_of, _seg_sum,
-//                               _sig_cnt_node, _merge_same_key, _gather_rows,
-//                               _scatter_and and _scatter_add inside
+//   ktpu_spread_filter          spread_filter (:182) with _bucket_of, _seg_sum,
+//                               _sig_cnt_node, _merge_same_key, _gather_rows
+//                               and _scatter_and inside
+//                               (its first three launches leave the metadata
+//                               that kubernetes_tpu/commit/arbiter.py
+//                               _spread_tables (:76) reads in the scratch)
+//   ktpu_spread_score           spread_score (:227) with the same helpers and
+//                               _scatter_add
 //   ktpu_selector_spread_score  selector_spread_score (:433)
 //
 // Existing pods are label SIGNATURES (state/tensors.SigBank): counts[N, S]
@@ -18,11 +23,11 @@
 // float64 path (the SelectorSpread blend) is evaluated in the reference's
 // operation order, and the library is built with -fmad=false.
 //
-// Bound: none of the three has enough arithmetic to matter. match_terms is
-// bound by its [TT, X] byte output and label reads; the two scores read the
+// Bound: none of them has enough arithmetic to matter. match_terms is
+// bound by its [TT, X] byte output and label reads; the spread programs read the
 // counts columns of the matched signatures once per term or spec row, the
-// node bank's dense label column once per term, and write [U, N] int64:
-// bytes. Their real cost here is launch count and the serial loops over a
+// node bank's dense label column once per term, and write [U, N] int64
+// (the filter [U, N] bytes): bytes. Their real cost here is launch count and the serial loops over a
 // few nodes per thread (U or TT blocks of 256 threads each walk N nodes).
 #include "topology.cuh"
 
@@ -107,15 +112,22 @@ extern "C" int ktpu_match_terms(const MatchArgs* args, cudaStream_t stream) {
 }
 
 // ---------------------------------------------------------------------------
-// spread_score: four launches from one entry
-//   1. member   [U, N]: valid node carrying every soft topology key of row u
-//   2. pairs    per soft term: counts of matching pods on counting nodes
-//               (member & raw node selector) and member presence, per
-//               topology value bucket
-//   3. merge    per soft term: sum the pair tables of the row's terms on the
-//               same key
+// spread_score and spread_filter: four launches from one entry each, the
+// first three shared (`kind` picks the soft or the hard terms)
+//   1. member   [U, N]: valid node carrying every topology key of row u's
+//               terms of the kind (hard: and passing the raw node selector —
+//               the candidate nodes)
+//   2. pairs    per term: counts of matching pods on counting nodes (member
+//               & raw node selector) and member presence, per topology value
+//               bucket
+//   3. merge    per term: sum the pair tables of the row's terms on the same
+//               key; hard: also the minimum count over present values and
+//               whether any value is present
 //   4. score    per spec row: gather back per node, sum over the row's
 //               terms, total and min over member nodes, 10*(total-cnt)/diff
+//      filter   per spec row: every hard term's key present and its value's
+//               count + self-match - minimum <= max_skew, or no value present
+//               for any of the row's hard terms
 // ---------------------------------------------------------------------------
 
 struct SpreadArgs {
@@ -135,12 +147,17 @@ struct SpreadArgs {
   int32_t* pair_present;        // [TT, V] scratch
   int32_t* merged_cnt;          // [TT, V] scratch
   uint8_t* merged_present;      // [TT, V] scratch
-  int64_t* out;                 // [U, N]
-  int32_t TT, S, N, K, U, V, table_in_shared;
+  int64_t* out;                 // [U, N] score (soft)
+  const uint8_t* t_self_match;  // [TT] (hard)
+  const int32_t* t_weight;      // [TT] max_skew (hard)
+  int32_t* min_t;               // [TT] scratch (hard)
+  uint8_t* any_pair_t;          // [TT] scratch (hard)
+  uint8_t* mask;                // [U, N] filter (hard)
+  int32_t TT, S, N, K, U, V, table_in_shared, kind;
 };
 
-__device__ __forceinline__ bool is_soft(const SpreadArgs& a, int t) {
-  return a.t_valid[t] && a.t_kind[t] == SPREAD_SOFT;
+__device__ __forceinline__ bool is_kind(const SpreadArgs& a, int t) {
+  return a.t_valid[t] && a.t_kind[t] == a.kind;
 }
 
 // _bucket_of for one node: the dense value at the clipped slot, clipped to
@@ -156,9 +173,10 @@ __global__ void spread_member_kernel(const SpreadArgs a) {
   extern __shared__ int32_t terms[];  // [TT]
   __shared__ int n_terms;
   const int u = blockIdx.x;
-  const int nt = owner_terms(a.t_valid, a.t_kind, a.t_owner, a.TT, SPREAD_SOFT, u, terms, &n_terms);
+  const int nt = owner_terms(a.t_valid, a.t_kind, a.t_owner, a.TT, a.kind, u, terms, &n_terms);
+  const bool hard = a.kind == SPREAD_HARD;
   for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
-    bool m = a.n_valid[n];
+    bool m = a.n_valid[n] && (!hard || a.sel[(int64_t)u * a.N + n]);
     for (int i = 0; i < nt && m; ++i) {
       int32_t b;
       m = bucket_of(a, n, a.t_topo_slot[terms[i]], &b);
@@ -171,7 +189,7 @@ __global__ void spread_pairs_kernel(const SpreadArgs a) {
   extern __shared__ int32_t table[];  // [2V] when table_in_shared
   __shared__ int n_sigs;
   const int t = blockIdx.x;
-  if (!is_soft(a, t)) return;
+  if (!is_kind(a, t)) return;
   const int u = a.t_owner[t];
   const int32_t slot = a.t_topo_slot[t];
   int32_t* sigs = a.sig_list + (int64_t)t * a.S;
@@ -214,17 +232,19 @@ __global__ void spread_pairs_kernel(const SpreadArgs a) {
 __global__ void spread_merge_kernel(const SpreadArgs a) {
   extern __shared__ int32_t group[];  // [TT]
   __shared__ int n_group;
+  __shared__ int64_t red[THREADS / 32];
   const int t = blockIdx.x;
-  if (!is_soft(a, t)) return;
+  if (!is_kind(a, t)) return;
   if (threadIdx.x == 0) n_group = 0;
   __syncthreads();
   for (int q = threadIdx.x; q < a.TT; q += blockDim.x) {
-    if (is_soft(a, q) && a.t_owner[q] == a.t_owner[t] && a.t_topo_slot[q] == a.t_topo_slot[t]) {
+    if (is_kind(a, q) && a.t_owner[q] == a.t_owner[t] && a.t_topo_slot[q] == a.t_topo_slot[t]) {
       group[atomicAdd(&n_group, 1)] = q;
     }
   }
   __syncthreads();
   const int ng = n_group;
+  int64_t mn = BIG_COUNT, any = 0;
   for (int v = threadIdx.x; v < a.V; v += blockDim.x) {
     int32_t c = 0, p = 0;
     for (int i = 0; i < ng; ++i) {
@@ -233,6 +253,41 @@ __global__ void spread_merge_kernel(const SpreadArgs a) {
     }
     a.merged_cnt[(int64_t)t * a.V + v] = c;
     a.merged_present[(int64_t)t * a.V + v] = p > 0 ? 1 : 0;
+    if (p > 0) {
+      mn = c < mn ? c : mn;
+      any = 1;
+    }
+  }
+  if (a.kind == SPREAD_HARD) {  // block-uniform
+    mn = block_min<int64_t>(mn, red, BIG_COUNT);
+    any = block_max<int64_t>(any, red, 0);
+    if (threadIdx.x == 0) {
+      a.min_t[t] = (int32_t)mn;
+      a.any_pair_t[t] = any ? 1 : 0;
+    }
+  }
+}
+
+// the DoNotSchedule predicate of spec row u on every node
+__global__ void spread_filter_kernel(const SpreadArgs a) {
+  extern __shared__ int32_t terms[];  // [TT]
+  __shared__ int n_terms;
+  const int u = blockIdx.x;
+  const int nt = owner_terms(a.t_valid, a.t_kind, a.t_owner, a.TT, SPREAD_HARD, u, terms, &n_terms);
+  bool any_pair = false;
+  for (int i = 0; i < nt; ++i) any_pair |= a.any_pair_t[terms[i]] != 0;
+  uint8_t* mask = a.mask + (int64_t)u * a.N;
+  for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
+    bool ok = true;
+    for (int i = 0; i < nt && ok; ++i) {
+      const int t = terms[i];
+      int32_t b;
+      const bool has = bucket_of(a, n, a.t_topo_slot[t], &b);
+      const int64_t tv = (int64_t)t * a.V + (b > a.V - 1 ? a.V - 1 : b);  // gathers clamp
+      const int32_t match_num = a.merged_present[tv] ? a.merged_cnt[tv] : 0;
+      ok = has && match_num + (a.t_self_match[t] ? 1 : 0) - a.min_t[t] <= a.t_weight[t];
+    }
+    mask[n] = (ok || !any_pair) ? 1 : 0;
   }
 }
 
@@ -274,23 +329,44 @@ __global__ void spread_score_kernel(const SpreadArgs a) {
   }
 }
 
-extern "C" int ktpu_spread_score(const SpreadArgs* args, cudaStream_t stream) {
-  const SpreadArgs& a = *args;
-  if (a.U <= 0 || a.N <= 0 || a.TT <= 0) return (int)cudaGetLastError();
+// launches 1-3: the member (candidate) rows and the merged tables
+static int launch_spread_tables(const SpreadArgs& a, cudaStream_t stream) {
   const size_t term_bytes = (size_t)a.TT * sizeof(int32_t);
   const size_t table_bytes = a.table_in_shared ? (size_t)2 * a.V * sizeof(int32_t) : 0;
   int rc;
   if ((rc = set_smem((const void*)spread_member_kernel, term_bytes))) return rc;
   if ((rc = set_smem((const void*)spread_pairs_kernel, table_bytes))) return rc;
   if ((rc = set_smem((const void*)spread_merge_kernel, term_bytes))) return rc;
-  if ((rc = set_smem((const void*)spread_score_kernel, term_bytes))) return rc;
   spread_member_kernel<<<a.U, THREADS, term_bytes, stream>>>(a);
   if ((rc = (int)cudaGetLastError())) return rc;
   spread_pairs_kernel<<<a.TT, THREADS, table_bytes, stream>>>(a);
   if ((rc = (int)cudaGetLastError())) return rc;
   spread_merge_kernel<<<a.TT, THREADS, term_bytes, stream>>>(a);
-  if ((rc = (int)cudaGetLastError())) return rc;
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ktpu_spread_score(const SpreadArgs* args, cudaStream_t stream) {
+  const SpreadArgs& a = *args;
+  if (a.U <= 0 || a.N <= 0 || a.TT <= 0) return (int)cudaGetLastError();
+  const size_t term_bytes = (size_t)a.TT * sizeof(int32_t);
+  int rc;
+  if ((rc = launch_spread_tables(a, stream))) return rc;
+  if ((rc = set_smem((const void*)spread_score_kernel, term_bytes))) return rc;
   spread_score_kernel<<<a.U, THREADS, term_bytes, stream>>>(a);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ktpu_spread_filter(const SpreadArgs* args, cudaStream_t stream) {
+  const SpreadArgs& a = *args;
+  if (a.U <= 0 || a.N <= 0) return (int)cudaGetLastError();
+  int rc;
+  if (a.TT <= 0) {  // no terms: every pair passes
+    return (int)cudaMemsetAsync(a.mask, 1, (size_t)a.U * a.N, stream);
+  }
+  const size_t term_bytes = (size_t)a.TT * sizeof(int32_t);
+  if ((rc = launch_spread_tables(a, stream))) return rc;
+  if ((rc = set_smem((const void*)spread_filter_kernel, term_bytes))) return rc;
+  spread_filter_kernel<<<a.U, THREADS, term_bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

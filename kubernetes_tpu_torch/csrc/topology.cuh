@@ -10,6 +10,7 @@
 #define ANTI_REQ 2
 #define AFF_PREF 3
 #define ANTI_PREF 4
+#define SPREAD_HARD 5
 #define SPREAD_SOFT 6
 #define SEL_SPREAD 7
 

@@ -48,6 +48,7 @@ ENTRY_POINTS = (
     "ktpu_filter_mask", "ktpu_score_matrix", "ktpu_solve_greedy",
     "ktpu_match_terms", "ktpu_spread_score", "ktpu_selector_spread_score",
     "ktpu_interpod_filter", "ktpu_interpod_score", "ktpu_inbatch_port_conflict",
+    "ktpu_spread_filter", "ktpu_arbitrate", "ktpu_fold_commit_banks",
 )
 
 _lock = threading.Lock()

@@ -11,11 +11,16 @@ constructors), and the two can be held pod for pod against each other.
 * `bench_config3` — bench.py config 3 (10,000 nodes in 8 zones / 100,000
   pods in 100 apps, one ScheduleAnyway zone spread constraint per pod),
   optionally with one Service per app (`services_selectors`, the
-  SelectorSpread input).
+  SelectorSpread input), or with DoNotSchedule constraints ("config
+  3-hard": the commit arbiter's workload).
 * `bench_config4` — bench.py config 4 (2,000 nodes in 8 zones / 20,000
   pods in 20 apps: every 10th pod with a required hostname anti-affinity
   against its own `exclusive` label, the rest with a preferred zone
   affinity to their own app).
+* `commit_plane_mix` — scripts/perf_smoke.py's tiny commit-plane
+  workload: zoned nodes, 1/8 of the pods with a required hostname
+  anti-affinity, 1/8 with a DoNotSchedule zone spread in their own label
+  space, the rest plain.
 * `random_cluster` — a seeded cluster meant to reach every branch of the
   filter and score programs: all node-selector operators, taints of every
   effect, unschedulable nodes, host pins, used host ports, images,
@@ -95,12 +100,14 @@ def services_selectors(pod, t: ModuleType = port_types) -> list:
     return [t.LabelSelector(match_labels={"app": pod.labels["app"]})]
 
 
-def bench_config3(n_nodes: int, n_pods: int, t: ModuleType = port_types, services: bool = False):
+def bench_config3(n_nodes: int, n_pods: int, t: ModuleType = port_types, services: bool = False,
+                  hard: bool = False):
     """bench.py cfg3_spread: nodes spread round-robin over 8 zones; pods of
     100m/256Mi in 100 apps, each with one ScheduleAnyway zone constraint
-    (maxSkew 1) selecting its own app. Returns (nodes, pods, selectors_fn):
-    with `services`, selectors_fn is services_selectors bound to `t` (pass
-    it to Scheduler.set_spread_selectors_fn), else None."""
+    (maxSkew 1) selecting its own app — DoNotSchedule with `hard`.
+    Returns (nodes, pods, selectors_fn): with `services`, selectors_fn is
+    services_selectors bound to `t` (pass it to
+    Scheduler.set_spread_selectors_fn), else None."""
     nodes = []
     for i in range(n_nodes):
         node = _bench_node(t, i, taint=False)
@@ -118,12 +125,53 @@ def bench_config3(n_nodes: int, n_pods: int, t: ModuleType = port_types, service
                 t.RESOURCE_MEMORY: t.Quantity.parse("256Mi"),
             })],
             topology_spread_constraints=[t.TopologySpreadConstraint(
-                max_skew=1, topology_key=ZONE_KEY, when_unsatisfiable="ScheduleAnyway",
+                max_skew=1, topology_key=ZONE_KEY,
+                when_unsatisfiable="DoNotSchedule" if hard else "ScheduleAnyway",
                 label_selector=t.LabelSelector(match_labels={"app": app}),
             )],
         ))
     fn = (lambda p: services_selectors(p, t)) if services else None
     return nodes, pods, fn
+
+
+def commit_plane_mix(n_nodes: int = 8, n_pods: int = 96, t: ModuleType = port_types) -> Tuple[list, list]:
+    """scripts/perf_smoke.py tiny_commit_plane_config: nodes over 4 of
+    bench.py's zones; pods of 100m/64Mi: every 8th (i % 8 == 0) with
+    `exclusive=x<i % 16>` and a required hostname anti-affinity against
+    it, every 8th (i % 8 == 1) with `spread=grp<i % 2>` and a
+    DoNotSchedule zone constraint (maxSkew 1) on its own label (so every
+    pod its selector matches carries the constraint), the rest plain."""
+    nodes = []
+    for i in range(n_nodes):
+        node = _bench_node(t, i, taint=False)
+        node.labels[ZONE_KEY] = BENCH_ZONES[i % 4]
+        nodes.append(node)
+    pods = []
+    for i in range(n_pods):
+        labels = {"app": f"svc-{i % 50}"}
+        if i % 8 == 0:
+            labels = {"exclusive": f"x{i % 16}"}
+        elif i % 8 == 1:
+            labels = {"spread": f"grp{i % 2}"}
+        p = t.Pod(
+            name=f"pod-{i}",
+            namespace="bench",
+            labels=labels,
+            containers=[t.Container(name="c", requests={
+                t.RESOURCE_CPU: t.Quantity.parse("100m"),
+                t.RESOURCE_MEMORY: t.Quantity.parse("64Mi"),
+            })],
+        )
+        if i % 8 == 0:
+            p.affinity = t.Affinity(pod_anti_affinity=t.PodAntiAffinity(required=[t.PodAffinityTerm(
+                label_selector=t.LabelSelector(match_labels={"exclusive": labels["exclusive"]}),
+                topology_key=HOST_KEY)]))
+        elif i % 8 == 1:
+            p.topology_spread_constraints = [t.TopologySpreadConstraint(
+                max_skew=1, topology_key=ZONE_KEY, when_unsatisfiable="DoNotSchedule",
+                label_selector=t.LabelSelector(match_labels={"spread": labels["spread"]}))]
+        pods.append(p)
+    return nodes, pods
 
 
 # --- bench.py config 4 ------------------------------------------------------

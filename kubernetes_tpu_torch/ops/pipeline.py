@@ -1,14 +1,19 @@
 """The solve pipeline: mask → score → greedy batch solve.
 
 Port of `kubernetes_tpu/ops/pipeline.py` for batches whose topology terms
-are ScheduleAnyway spread ("spread_soft"), SelectorSpread ("sel_spread")
-and pod (anti-)affinity ("aff_req", "anti_req", "pref" and the existing
-pods' "et_anti" / "et_score"), with or without the solver's in-batch
-anti-affinity / host-port tracking: the slices this port runs. The stages
-are the hand-written kernels of filters.py, scores.py, topology.py and
-solver.py on CUDA tensors (their plain versions on CPU tensors); the glue
-between them is plain PyTorch. DoNotSchedule spread ("spread_hard"), and
-term_kinds=None, raise NotImplementedError naming the ROADMAP item.
+are DoNotSchedule spread ("spread_hard"), ScheduleAnyway spread
+("spread_soft"), SelectorSpread ("sel_spread") and pod (anti-)affinity
+("aff_req", "anti_req", "pref" and the existing pods' "et_anti" /
+"et_score"), with or without the solver's in-batch anti-affinity /
+host-port tracking. The stages are the hand-written kernels of
+filters.py, scores.py, topology.py and solver.py on CUDA tensors (their
+plain versions on CPU tensors); the glue between them is plain PyTorch.
+A DoNotSchedule pod's placement is then re-checked against its batch's
+earlier commits by the commit arbiter (commit/arbiter.py), which reads the
+solve's intermediates (`arbiter_inputs`) instead of launching them again.
+term_kinds=None
+(the reference's "assume every kind") raises NotImplementedError: it
+implies required pod affinity, whose re-check needs the host oracle.
 """
 
 from __future__ import annotations
@@ -54,22 +59,22 @@ DEFAULT_SOLVE_CONFIG = SolveConfig()
 
 # term kinds this port computes
 PORTED_TERM_KINDS = frozenset({
-    "spread_soft", "sel_spread", "aff_req", "anti_req", "pref", "et_anti", "et_score",
+    "spread_hard", "spread_soft", "sel_spread", "aff_req", "anti_req", "pref", "et_anti", "et_score",
 })
-_SPREAD_HARD_ITEM = "ops/topology spread_filter with the commit arbiter (ROADMAP.md queue 1, arbiter slice)"
 
 
 def _check_term_kinds(term_kinds) -> frozenset:
     """The term kinds of a batch, refused unless every one is ported. None
-    (the reference's "assume everything") is refused too: it includes
-    DoNotSchedule spread."""
+    (the reference's "assume everything") is refused: it includes required
+    pod affinity, whose pods the host oracle re-checks."""
     if term_kinds is None:
         raise NotImplementedError(
-            f"term_kinds=None assumes every topology kind; DoNotSchedule spread needs {_SPREAD_HARD_ITEM}"
+            "term_kinds=None assumes every topology kind, required pod affinity included, whose "
+            "re-check needs the host oracle (ROADMAP.md queue 1, oracle fallback)"
         )
-    unported = sorted(set(term_kinds) - PORTED_TERM_KINDS)
-    if unported:
-        raise NotImplementedError(f"topology term kinds {unported} need {_SPREAD_HARD_ITEM}")
+    unknown = sorted(set(term_kinds) - PORTED_TERM_KINDS)
+    if unknown:
+        raise ValueError(f"unknown topology term kinds {unknown}")
     return frozenset(term_kinds)
 
 
@@ -77,18 +82,21 @@ def mask_and_score(
     na: Arrays, pa: Arrays, ids, config: Optional[SolveConfig] = None,
     term_kinds: Optional[frozenset] = frozenset(), *,
     ea: Optional[Arrays] = None, ta: Optional[Arrays] = None, au: Optional[Arrays] = None,
-    xa: Optional[Arrays] = None, n_buckets: Optional[int] = None,
+    xa: Optional[Arrays] = None, n_buckets: Optional[int] = None, arbiter_inputs: Optional[Dict] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Filter+Score stage. `ea` (SigBank tensors), `ta` (batch TermBank
     tensors), `au` (compile_batch_terms aux), `xa` (PatternBank tensors)
     and `n_buckets` (the segment axis bound, None = N) feed the topology
     programs of the kinds named in `term_kinds`, gated as the reference
-    gates them: the inter-pod filter's parts under the MatchInterPodAffinity
-    predicate, its score's under a non-zero InterPodAffinityPriority weight.
+    gates them: the DoNotSchedule spread filter under the EvenPodsSpread
+    predicate, the inter-pod filter's parts under MatchInterPodAffinity,
+    its score's under a non-zero InterPodAffinityPriority weight.
     Without "sel_spread" the SelectorSpread priority still adds its
     term-absent constant: a pod with no controller selectors scores
     MaxNodeScore on every node (selector_spreading.go), so the score kernel
-    carries `w * 10`."""
+    carries `w * 10`. A dict passed as `arbiter_inputs` receives the raw
+    selector ("sel") and the DoNotSchedule tables ("spread_tables") where
+    this stage computed them."""
     kinds = _check_term_kinds(term_kinds)
     cfg = config or DEFAULT_SOLVE_CONFIG
     preds = cfg.predicates
@@ -96,12 +104,20 @@ def mask_and_score(
     w_sel = cfg.priority_weight("SelectorSpreadPriority", 1)
     spread = bool(w_spread) and "spread_soft" in kinds
     sel_spread = bool(w_sel) and "sel_spread" in kinds
-    # the spread score's candidate nodes pass the RAW node-selector
+    hard = (preds is None or "EvenPodsSpread" in preds) and "spread_hard" in kinds
+    # the spread programs' candidate nodes pass the RAW node-selector
     # predicate (no node/pod validity mask): one filter launch gives both
-    if spread:
+    if spread or hard:
         mask, sel = F.combined_mask(na, pa, ids, predicates=cfg.predicates, with_selector=True)
     else:
         mask = F.combined_mask(na, pa, ids, predicates=cfg.predicates)
+    if hard:
+        ok, tables = T.spread_filter(na, ea, ta, sel, n_buckets=n_buckets, with_tables=True)
+        mask = mask & ok
+        if arbiter_inputs is not None:
+            arbiter_inputs["spread_tables"] = tables
+    if (spread or hard) and arbiter_inputs is not None:
+        arbiter_inputs["sel"] = sel
     if preds is None or "MatchInterPodAffinity" in preds:
         parts = tuple(p for p, k in (("existing", "et_anti"), ("aff", "aff_req"), ("anti", "anti_req"))
                       if k in kinds)
@@ -172,15 +188,20 @@ def solve_pipeline(
     au: Optional[Arrays] = None,  # compile_batch_terms aux
     xa: Optional[Arrays] = None,  # PatternBank tensors
     n_buckets: Optional[int] = None,  # topology segment-axis bound
+    arbiter_inputs: Optional[Dict] = None,  # filled for commit/arbiter.arbitrate
 ):
     """mask → score → greedy solve. Returns (assign [B], score [U, N]),
     plus the post-batch (free, count, nz) carry with return_carry.
     `track_inbatch` turns on the solver's in-batch anti-affinity /
-    host-port tracking (needs `ta`)."""
+    host-port tracking (needs `ta`). A dict passed as `arbiter_inputs`
+    receives what the arbiter would otherwise launch again: mask_and_score's
+    entries and, with the tracking, the term matches against the spec rows
+    ("m_raw") and the port-conflict table ("pconf")."""
     _check_term_kinds(term_kinds)
     na = apply_carry(na, carry)
     mask, score = mask_and_score(
-        na, pa, ids, config, term_kinds, ea=ea, ta=ta, au=au, xa=xa, n_buckets=n_buckets
+        na, pa, ids, config, term_kinds, ea=ea, ta=ta, au=au, xa=xa, n_buckets=n_buckets,
+        arbiter_inputs=arbiter_inputs,
     )
     free0 = na["alloc"] - na["requested"]
     if pb is None:
@@ -189,6 +210,9 @@ def solve_pipeline(
         sig, pvalid, prio = pb["sig"], pb["valid"], pb["priority"]
     b = pvalid.shape[0]
     order = pop_order(prio, torch.arange(b, dtype=torch.int32, device=pvalid.device), pvalid)
+    inb = _inbatch_tensors(na, pa, ta, ids, n_buckets) if track_inbatch else None
+    if inb is not None and arbiter_inputs is not None:
+        arbiter_inputs.update(m_raw=inb["m_bb"], pconf=inb["port_conflict"])
     result = solve_greedy(
         mask, score, pa["req"], free0,
         na["pod_count"].to(free0.dtype), na["allowed_pods"].to(free0.dtype),
@@ -196,7 +220,7 @@ def solve_pipeline(
         sig=sig, pod_valid=pvalid, return_carry=return_carry,
         nz0=na["nonzero_req"].to(free0.dtype) if return_carry else None,
         scoring_req=pa["scoring_req"] if return_carry else None,
-        inb=_inbatch_tensors(na, pa, ta, ids, n_buckets) if track_inbatch else None,
+        inb=inb,
     )
     if return_carry:
         assign, carry_out = result

@@ -1,8 +1,9 @@
-"""Topology programs: EvenPodsSpread (ScheduleAnyway), InterPodAffinity and
-SelectorSpread.
+"""Topology programs: EvenPodsSpread, InterPodAffinity and SelectorSpread.
 
-Port of `kubernetes_tpu/ops/topology.py` without `spread_filter`:
+Port of `kubernetes_tpu/ops/topology.py`:
 `match_terms` (term x signature selector and namespace match),
+`spread_filter` (EvenPodsSpreadPredicate, predicates.go:1778: the
+DoNotSchedule constraints),
 `spread_score` (CalculateEvenPodsSpreadPriority, even_pods_spread.go:85),
 `interpod_filter` (InterPodAffinityMatches, predicates.go:1269),
 `interpod_score` (CalculateInterPodAffinityPriority, interpod_affinity.go:99)
@@ -28,7 +29,9 @@ matmul), so the same code runs on the card as the kernels' yardstick.
 The reference's f32 products are exact only while every partial sum stays
 below 2^24; the plain versions and the kernels sum in integers (float64
 below 2^53 in the plain products), which give the same numbers there.
-`spread_filter` is not ported yet (ROADMAP.md queue 1, arbiter slice).
+spread_filter can also return its metadata (candidate nodes, merged
+per-(term, topology value) counts; `spread_hard_tables_plain`): the commit
+arbiter replays the skew predicate on it with the batch's commits added.
 """
 
 from __future__ import annotations
@@ -39,7 +42,7 @@ from typing import Dict, Optional
 import torch
 
 from ..kernels import build
-from ..state.terms import AFF_PREF, AFF_REQ, ANTI_PREF, ANTI_REQ, SEL_SPREAD, SPREAD_SOFT
+from ..state.terms import AFF_PREF, AFF_REQ, ANTI_PREF, ANTI_REQ, SEL_SPREAD, SPREAD_HARD, SPREAD_SOFT
 from ..state.tensors import OP_DOES_NOT_EXIST, OP_EXISTS, OP_IN, OP_NEVER, OP_NOT_IN
 
 Arrays = Dict[str, torch.Tensor]
@@ -167,6 +170,64 @@ def _owner_any(flag_t: torch.Tensor, owner: torch.Tensor, mask_t: torch.Tensor, 
     out = torch.zeros(b + 1, dtype=torch.int32, device=flag_t.device)
     out.index_add_(0, _owner_index(owner, mask_t, b), (flag_t & mask_t).to(torch.int32))
     return out[:b] > 0
+
+
+def spread_hard_tables_plain(
+    nodes: Arrays, eps: Arrays, terms: Arrays, selector_mask: torch.Tensor, n_buckets: Optional[int] = None,
+) -> Arrays:
+    """EvenPodsSpread metadata on the device (metadata.go:399
+    getEvenPodsSpreadMetadata) for the DoNotSchedule terms: candidate
+    nodes per spec row [U, N] (the raw node selector, every hard topology
+    key of the row present, a valid node), and per hard term the
+    same-namespace matching pods on candidate nodes per topology value,
+    summed over the row's terms on the same key [TT, V] (int32), with the
+    values some candidate node carries [TT, V] (bool), their minimum count
+    [TT] and whether any exists [TT]."""
+    b, n = selector_mask.shape
+    v = n_buckets or n
+    hard = terms["valid"] & (terms["kind"] == SPREAD_HARD)
+    owner = terms["owner"]
+    bucket_n, haskey_n = _bucket_of(nodes, terms["topo_slot"])
+    cand = selector_mask & _scatter_and(haskey_n, owner, hard, b) & nodes["valid"][None, :]
+    # namespaces were compiled to [pod namespace] for hard constraints
+    m_sig = match_terms_plain(terms, eps["label_vals"], eps["ns_id"]) & eps["valid"][None, :] & hard[:, None]
+    cnt_node = _sig_cnt_node(m_sig, eps["counts"])  # [TT, N]
+    cand_t = cand[owner.long()]
+    pair_cnt = _seg_sum(torch.where(cand_t, cnt_node, 0), bucket_n, v)
+    pair_present = _seg_sum(cand_t & haskey_n, bucket_n, v) > 0
+    merged_cnt = _merge_same_key(terms, hard, pair_cnt)
+    merged_present = _merge_same_key(terms, hard, pair_present.to(torch.int32)) > 0
+    return {
+        "cand": cand, "merged_cnt": merged_cnt, "merged_present": merged_present,
+        "min_t": torch.where(merged_present, merged_cnt, _BIG).amin(dim=1),
+        "any_pair_t": merged_present.any(dim=1),
+    }
+
+
+def spread_filter_plain(
+    nodes: Arrays, eps: Arrays, terms: Arrays, selector_mask: torch.Tensor, n_buckets: Optional[int] = None,
+    with_tables: bool = False,
+):
+    """EvenPodsSpreadPredicate (predicates.go:1778), [U, N] bool: for each
+    DoNotSchedule constraint of the pod, the node carries the key and its
+    value's matching count + self-match - the minimum over values is at
+    most max_skew (the term's weight); a pod whose constraints see no
+    value at all passes (an empty pair map, predicates.go:1800).
+    `selector_mask` is the RAW PodMatchNodeSelector matrix. With
+    `with_tables`, the pair (mask, spread_hard_tables_plain's tables)."""
+    b = selector_mask.shape[0]
+    hard = terms["valid"] & (terms["kind"] == SPREAD_HARD)
+    owner = terms["owner"]
+    bucket_n, haskey_n = _bucket_of(nodes, terms["topo_slot"])
+    tb = spread_hard_tables_plain(nodes, eps, terms, selector_mask, n_buckets)
+    match_num = torch.where(_gather_rows(tb["merged_present"], bucket_n),
+                            _gather_rows(tb["merged_cnt"], bucket_n), 0)  # [TT, N]
+    self_m = terms["self_match"].to(torch.int32)[:, None]
+    skew_ok = match_num + self_m - tb["min_t"][:, None] <= terms["weight"][:, None]
+    ok = _scatter_and(haskey_n & skew_ok, owner, hard, b)
+    any_pair = _owner_any(tb["any_pair_t"], owner, hard, b)
+    mask = ok | ~any_pair[:, None]
+    return (mask, tb) if with_tables else mask
 
 
 def spread_score_plain(
@@ -382,6 +443,7 @@ def interpod_score_plain(
 
 MATCH_ENTRY = "ktpu_match_terms"
 SPREAD_ENTRY = "ktpu_spread_score"
+SPREAD_FILTER_ENTRY = "ktpu_spread_filter"
 SEL_SPREAD_ENTRY = "ktpu_selector_spread_score"
 INTERPOD_FILTER_ENTRY = "ktpu_interpod_filter"
 INTERPOD_SCORE_ENTRY = "ktpu_interpod_score"
@@ -416,8 +478,9 @@ class SpreadArgs(ctypes.Structure):
         [(k, ctypes.c_void_p) for k in (
             "t_valid", "t_kind", "t_owner", "t_topo_slot", "m_sig", "e_valid", "counts",
             "n_valid", "label_dense", "sel", "member", "sig_list", "pair_cnt", "pair_present",
-            "merged_cnt", "merged_present", "out")]
-        + [(d, ctypes.c_int32) for d in ("TT", "S", "N", "K", "U", "V", "table_in_shared")]
+            "merged_cnt", "merged_present", "out", "t_self_match", "t_weight", "min_t", "any_pair_t",
+            "mask")]
+        + [(d, ctypes.c_int32) for d in ("TT", "S", "N", "K", "U", "V", "table_in_shared", "kind")]
     )
 
 
@@ -490,10 +553,13 @@ def _term_ptrs(a, terms: Arrays, tt: int, keys) -> None:
 
 
 def spread_args(nodes: Arrays, eps: Arrays, terms: Arrays, m_sig: torch.Tensor,
-                selector_mask: torch.Tensor, n_buckets: Optional[int] = None):
-    """The spread kernel's argument struct (with its scratch buffers) and
-    the [U, N] int64 output it writes. `m_sig` is match_terms's raw
-    output without the namespace test."""
+                selector_mask: torch.Tensor, n_buckets: Optional[int] = None, kind: int = SPREAD_SOFT):
+    """The spread kernels' argument struct (with its scratch buffers) and
+    the output they write: for SPREAD_SOFT the [U, N] int64 score
+    (`m_sig` is match_terms's raw output without the namespace test), for
+    SPREAD_HARD the [U, N] bool mask (`m_sig` with the namespace test);
+    the hard tables are the scratch `member` (the candidate nodes),
+    `merged_cnt`, `merged_present`, `min_t` and `any_pair_t`."""
     tt = _check_terms(terms)
     u, n = selector_mask.shape
     s = eps["valid"].shape[0]
@@ -509,9 +575,16 @@ def spread_args(nodes: Arrays, eps: Arrays, terms: Arrays, m_sig: torch.Tensor,
         merged_cnt=torch.empty((tt, v), dtype=torch.int32, device=dev),
         merged_present=torch.empty((tt, v), dtype=torch.bool, device=dev),
     )
-    out = torch.empty((u, n), dtype=torch.int64, device=dev)
+    hard = kind == SPREAD_HARD
+    if hard:
+        scratch.update(min_t=torch.empty((tt,), dtype=torch.int32, device=dev),
+                       any_pair_t=torch.empty((tt,), dtype=torch.bool, device=dev))
+    out = torch.empty((u, n), dtype=torch.bool if hard else torch.int64, device=dev)
     a = SpreadArgs()
     _term_ptrs(a, terms, tt, ("valid", "kind", "owner", "topo_slot"))
+    if hard:
+        a.t_self_match = build.ptr(terms["self_match"], torch.bool, (tt,))
+        a.t_weight = build.ptr(terms["weight"], torch.int32, (tt,))
     a.m_sig = build.ptr(m_sig, torch.bool, (tt, s))
     a.e_valid = build.ptr(eps["valid"], torch.bool, (s,))
     a.counts = build.ptr(eps["counts"], torch.int16, (n, s))
@@ -520,11 +593,45 @@ def spread_args(nodes: Arrays, eps: Arrays, terms: Arrays, m_sig: torch.Tensor,
     a.sel = build.ptr(selector_mask, torch.bool, (u, n))
     for name, t in scratch.items():
         setattr(a, name, build.ptr(t, t.dtype))
-    a.out = build.ptr(out, torch.int64)
+    if hard:
+        a.mask = build.ptr(out, torch.bool)
+    else:
+        a.out = build.ptr(out, torch.int64)
     a.TT, a.S, a.N, a.K, a.U, a.V = tt, s, n, k, u, v
     a.table_in_shared = int(in_shared)
+    a.kind = kind
     a.keepalive = scratch
     return a, out
+
+
+def spread_filter(
+    nodes: Arrays, eps: Arrays, terms: Arrays, selector_mask: torch.Tensor, n_buckets: Optional[int] = None,
+    with_tables: bool = False,
+):
+    """The [U, N] bool EvenPodsSpread (DoNotSchedule) predicate. CPU
+    tensors run the plain version; CUDA tensors launch the match kernel
+    (with the namespace test) and then csrc/topology.cu's spread-filter
+    entry (counted in `spread_filter.launches`). `selector_mask` is the
+    RAW PodMatchNodeSelector matrix. With `with_tables`, the pair (mask,
+    the metadata of spread_hard_tables_plain: on the card the launch's own
+    scratch)."""
+    dev = selector_mask.device
+    if dev.type == "cpu":
+        return spread_filter_plain(nodes, eps, terms, selector_mask, n_buckets, with_tables)
+    if dev.type == "cuda":
+        m_sig = match_terms(terms, eps["label_vals"], eps["ns_id"])
+        args, out = spread_args(nodes, eps, terms, m_sig, selector_mask, n_buckets, SPREAD_HARD)
+        build.launch(SPREAD_FILTER_ENTRY, args, dev)
+        spread_filter.launches += 1
+        if not with_tables:
+            return out
+        sc = args.keepalive
+        return out, {"cand": sc["member"], "merged_cnt": sc["merged_cnt"], "merged_present": sc["merged_present"],
+                     "min_t": sc["min_t"], "any_pair_t": sc["any_pair_t"]}
+    raise ValueError(f"no topology kernel for device {dev}")
+
+
+spread_filter.launches = 0
 
 
 def spread_score(

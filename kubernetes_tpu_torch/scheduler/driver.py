@@ -1,27 +1,43 @@
 """Scheduler driver: the batch scheduling loop.
 
 The port's lean copy of `kubernetes_tpu/scheduler/driver.py`, reproducing
-the reference's plain path with every plane off (no commit/fold/ingest/term
-plane, no speculation, no preemption). Per batch:
+the reference's default commit path — the commit and fold planes on, no
+ingest or term plane, no speculation, no preemption. Per batch:
 
     pop_batch → TensorMirror.sync → spec dedup (with the pods' spreading
     selectors) → PodBatch encode + compile_batch_terms → device_arrays
     (node, signature and pattern banks) → one solve_pipeline (filter,
     score, topology and greedy-solve kernels, with the solver's in-batch
-    anti-affinity / host-port tracking once a batch needs it) → commit in
-    pop order: assume + async bind for a node, add_unschedulable for -1
+    anti-affinity / host-port tracking once a batch needs it) → the
+    commit arbiter when a pod needs a full re-check → commit in pop order
 
-The topology terms this port runs: ScheduleAnyway spread constraints,
-SelectorSpread (`set_spread_selectors_fn`), required pod anti-affinity,
-preferred pod (anti-)affinity, host ports, and existing pods carrying any
-pod (anti-)affinity. None of them needs a host re-check here (see
-`_commit`). Anything else raises NotImplementedError naming its ROADMAP.md
-item instead of taking another route: pods the reference re-checks in
-full (required pod affinity, DoNotSchedule spread), encoding-overflow pods
-(term-table overflow included), existing pods whose terms overflow a
-pattern row, -1 pods while some node rows fell back to the host oracle,
-preemption nominees and gang groups. The batch is returned to the queue
-first.
+and the commit takes one of two routes, picked per batch from its pods:
+
+* the bulk path (no DoNotSchedule pod): -1 pods go back as
+  unschedulable, the rest are assumed in one cache call and bound on the
+  bind pool in chunks. Required anti-affinity and host ports take it too:
+  their batches are solved with the in-batch tracking, which leaves the
+  arbiter nothing to defer (see `_commit_bulk`);
+* the arbitrated path (a DoNotSchedule pod in the batch): the arbiter's
+  verdicts (commit/arbiter.py) place, defer to the next batch (re-queued
+  without backoff) or fail each pod; the placed ones are assumed and
+  bound as on the bulk path.
+
+On both, the fold plane scatters the placed pods' deltas into the
+device-resident banks (ops/fold, commit/fold) and tags the assumes as
+folded, so the mirror does not re-ship those rows. `commit_plane=False`
+turns the arbiter and the fold off (the reference's per-pod commit
+places the same pods: every batch then takes the bulk path, re-shipping
+its rows).
+
+Anything else raises NotImplementedError naming its ROADMAP.md item
+instead of taking another route: pods the reference re-checks with its
+full host oracle (required pod affinity; DoNotSchedule spread with the
+commit plane off; a pod the arbiter defers three times in a row),
+encoding-overflow pods (term-table overflow included), existing pods
+whose terms overflow a pattern row, -1 pods while some node rows fell back
+to the host oracle, preemption nominees and gang groups. The batch is
+returned to the queue first.
 """
 
 from __future__ import annotations
@@ -34,6 +50,8 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from ..api.types import DO_NOT_SCHEDULE, Pod
+from ..commit.arbiter import V_DEFER, V_PLACE, arbitrate, kinds_covered
+from ..commit.fold import plan_fold
 from ..device import resolve_device
 from ..ops import filters as F
 from ..ops.pipeline import SolveConfig, solve_pipeline
@@ -66,6 +84,7 @@ BIND_WORKERS = 8
 class ScheduleResult:
     scheduled: int = 0
     unschedulable: int = 0
+    deferred: int = 0  # arbiter V_DEFER: re-queued for the next batch
     assignments: Dict[str, str] = field(default_factory=dict)
 
 
@@ -107,14 +126,19 @@ def _recheck_level(pod: Pod) -> int:
     return RECHECK_NONE
 
 
-def _unported_reason(pod: Pod) -> Optional[str]:
+ORACLE_FALLBACK = "ROADMAP.md queue 1, oracle fallback"
+
+
+def _unported_reason(pod: Pod, commit_plane: bool) -> Optional[str]:
     """Why this pod needs a program the port does not have yet, or None."""
     if _recheck_level(pod) == RECHECK_FULL:
-        if any(c.when_unsatisfiable == DO_NOT_SCHEDULE for c in pod.topology_spread_constraints):
-            return ("DoNotSchedule spread constraints need ops/topology spread_filter with the "
-                    "commit arbiter (ROADMAP.md queue 1, arbiter slice)")
-        return ("required pod affinity needs the host oracle's full re-check of in-batch anchors "
-                "(ROADMAP.md queue 1, oracle fallback)")
+        a = pod.affinity
+        if a is not None and a.pod_affinity is not None and a.pod_affinity.required:
+            return ("required pod affinity needs the host oracle's full re-check of in-batch anchors "
+                    f"({ORACLE_FALLBACK})")
+        if not commit_plane:
+            return ("DoNotSchedule spread constraints with the commit plane off need the host oracle's "
+                    f"full re-check ({ORACLE_FALLBACK})")
     if POD_GROUP_LABEL in pod.labels or POD_GROUP_LABEL in pod.annotations:
         return "gang groups need solve_gang (ROADMAP.md queue 1, gang)"
     return None
@@ -159,8 +183,13 @@ class Scheduler:
         seed: int = 0,
         solve_config: Optional[SolveConfig] = None,
         device=None,
+        commit_plane: bool = True,
     ):
         self.device = resolve_device(device)
+        # the arbiter's verdicts for DoNotSchedule batches and the commits
+        # folded into the device banks (the reference's commit and fold
+        # planes, which it turns on together by default)
+        self.commit_plane = commit_plane
         self.cache = cache or SchedulerCache()
         self.queue = queue or PriorityQueue()
         self.binder = binder or Binder()
@@ -185,15 +214,27 @@ class Scheduler:
         # ports, every later solve tracks in-batch conflicts (exact without
         # them too)
         self._track_inbatch = False
+        # monotone pattern-triple bucket of the commit fold's [T] axis
+        self._fp_bucket = 16
         self._spread_selectors_fn: Optional[Callable[[Pod], list]] = None
         self._ids: Optional[Dict[str, int]] = None
         self._bind_pool = ThreadPoolExecutor(max_workers=BIND_WORKERS, thread_name_prefix="bind")
+        # a pod deferred this many times in a row escalates to the host
+        # oracle's re-placement in the reference (refused here)
+        self._defer_counts: Dict[str, int] = {}
+        self._defer_escalate = 3
         self._closed = False
         # per-stage wall-clock seconds (host clock; solve_s ends at the
-        # assignment's device→host copy, so it includes the device work)
+        # device→host copy of the assignment and the verdicts, so it
+        # includes the device work) and the planes' counters, under the
+        # reference's names; fold_overflow_batches counts the folds a bank
+        # overflow sent back to the host re-ship (plan_fold → None); apply_s
+        # is the arbitrated batches' fold, assume and bind submission
         self.stats: Dict[str, float] = {
             "sync_s": 0.0, "encode_s": 0.0, "solve_s": 0.0, "commit_s": 0.0, "batches": 0,
-            "tracked_batches": 0,
+            "tracked_batches": 0, "fold_batches": 0, "fold_pods": 0, "fold_s": 0.0,
+            "fold_overflow_batches": 0, "arbiter_batches": 0, "arbiter_place": 0, "arbiter_defer": 0,
+            "arbiter_escalated": 0, "apply_s": 0.0,
         }
 
     def set_spread_selectors_fn(self, fn: Callable[[Pod], list]) -> None:
@@ -212,7 +253,7 @@ class Scheduler:
         if self.queue.has_nominations():
             self._refuse(infos, "preemption nominees need ops/preempt (ROADMAP.md queue 1, preemption)")
         for info in infos:
-            reason = _unported_reason(info.pod)
+            reason = _unported_reason(info.pod, self.commit_plane)
             if reason is not None:
                 self._refuse(infos, f"pod {info.pod.key()}: {reason}")
 
@@ -258,18 +299,18 @@ class Scheduler:
             )
         return batch, reps, np.asarray(sig_list, np.int32), tb, aux
 
-    def _topology_shape(self, tb: TermBank, aux: Dict[str, np.ndarray], reps: List[Pod]) -> None:
+    def _topology_shape(self, tb: TermBank, aux: Dict[str, np.ndarray], reps: List[Pod]) -> frozenset:
         """Grow the monotone term-kind union, the segment-axis bucket and
-        the in-batch tracking switch for this batch's terms. The axis
-        covers the dense values of every slot a batch term or an existing
-        pattern names plus the zones (the SelectorSpread blend); it is not
-        clamped to the node count, since dense ids are grow-only and live
-        ones can exceed it under node churn."""
+        the in-batch tracking switch for this batch's terms; returns the
+        batch's own term kinds. The axis covers the dense values of every
+        slot a batch term or an existing pattern names plus the zones (the
+        SelectorSpread blend); it is not clamped to the node count, since
+        dense ids are grow-only and live ones can exceed it under node
+        churn."""
         pats = self.mirror.pats
         present = set(np.unique(tb.kind[tb.valid]).tolist())
-        self._term_kinds = self._term_kinds | _term_kind_names(
-            present, bool(np.any(aux["n_sel_spread"] > 0)), pats
-        )
+        kinds = _term_kind_names(present, bool(np.any(aux["n_sel_spread"] > 0)), pats)
+        self._term_kinds = self._term_kinds | kinds
         self._track_inbatch = self._track_inbatch or (
             "anti_req" in self._term_kinds or any(p.host_ports() for p in reps)
         )
@@ -279,6 +320,7 @@ class Scheduler:
         needed = [vocab.dense_size(int(sl)) for sl in slots if sl >= 0]
         needed.append(vocab.zone_count())
         self._v_bucket = max(self._v_bucket, _bucket(max(needed + [1])))
+        return kinds
 
     def schedule_batch(self, max_pods: Optional[int] = None) -> ScheduleResult:
         res = ScheduleResult()
@@ -298,12 +340,12 @@ class Scheduler:
             self._refuse(
                 infos,
                 "an existing pod's affinity term overflows its pattern row: the host oracle "
-                "re-check is not ported (ROADMAP.md queue 1, oracle fallback)",
+                f"re-check is not ported ({ORACLE_FALLBACK})",
             )
 
         self._b_bucket = max(self._b_bucket, _bucket(len(pods)))
         batch, reps, sig, tb, aux = self._encode(infos)
-        self._topology_shape(tb, aux, reps)
+        batch_kinds = self._topology_shape(tb, aux, reps)
         pb = {
             "sig": np.zeros(self._b_bucket, np.int32),
             "valid": np.zeros(self._b_bucket, bool),
@@ -324,15 +366,25 @@ class Scheduler:
         self._cycle += 1
         key = prng_key_data(self._rng_seed + self._cycle)
         na, ea, xa = self.mirror.device_arrays()
+        solved: Dict = {}
         assign, _ = solve_pipeline(
             na, pa, self._ids, key, pb=pbt, deterministic=self.deterministic,
             config=self.solve_config, term_kinds=self._term_kinds,
             track_inbatch=self._track_inbatch,
-            ea=ea, ta=ta, au=au, xa=xa, n_buckets=self._v_bucket,
+            ea=ea, ta=ta, au=au, xa=xa, n_buckets=self._v_bucket, arbiter_inputs=solved,
         )
         if self._track_inbatch:
             self.stats["tracked_batches"] += 1
+        # the commit arbiter, chained on the assignment on the device, for
+        # the batches it can change: those holding a RECHECK_FULL pod (the
+        # others are the bulk path's), when it covers their term kinds
+        full = any(_recheck_level(r) == RECHECK_FULL for r in reps)
+        verdict = None
+        if self.commit_plane and full and kinds_covered(batch_kinds):
+            verdict = arbitrate(na, pa, ea, ta, self._ids, assign, pbt,
+                                term_kinds=self._term_kinds, n_buckets=self._v_bucket, inputs=solved)
         assign_l = assign.cpu().numpy()[: len(pods)].tolist()
+        verdicts = None if verdict is None else verdict.cpu().numpy()[: len(pods)].tolist()
         t3 = time.perf_counter()
         self.stats["solve_s"] += t3 - t2
 
@@ -340,39 +392,68 @@ class Scheduler:
             self._refuse(
                 infos,
                 "unplaced pods while node rows fall back to the host oracle: the oracle "
-                "path is not ported (ROADMAP.md queue 1, oracle fallback)",
+                f"path is not ported ({ORACLE_FALLBACK})",
             )
-        self._commit(infos, assign_l, cycle, res)
+        # the reference's routes: the arbiter's verdicts where
+        # `_arbiter_covers` holds — here that is "the arbiter ran": its
+        # other conditions (encoding overflow, -1 pods beside fallback
+        # rows, nominations) are refused above and speculation is absent —
+        # else the bulk path, which a DoNotSchedule pod cannot take
+        if verdicts is not None:
+            self._commit_arbitrated(infos, assign_l, verdicts, cycle, res)
+        elif full:
+            self._refuse(infos, f"the batch's DoNotSchedule pods need the host oracle's re-check ({ORACLE_FALLBACK})")
+        else:
+            self._commit_bulk(infos, assign_l, cycle, res)
         self.stats["commit_s"] += time.perf_counter() - t3
         return res
 
-    def _commit(self, infos: List[PodInfo], assign_l: List[int], cycle: int, res: ScheduleResult) -> None:
+    def _commit_bulk(self, infos: List[PodInfo], assign_l: List[int], cycle: int, res: ScheduleResult) -> None:
         """The reference's bulk commit, in pop order: -1 pods go back as
-        unschedulable, the rest are assumed in one cache call and bound on
-        the bind pool in chunks.
+        unschedulable, the rest are applied (`_apply`).
 
-        The reference gives pods with required anti-affinity or host ports
-        (RECHECK_LIGHT) a re-check against the batch's earlier commits
-        only while the solve did not track them, or after a commit left
+        This path also takes batches with required anti-affinity or host
+        ports (RECHECK_LIGHT), where the reference arbitrates (commit plane
+        on) or re-checks each pod against the batch's earlier commits
+        (off) while the solve did not track them, or after a commit left
         the device's pick (`tracked_ok`). Here every batch with such pods
-        is solved with the in-batch tracking on, and no pod is ever
-        re-placed (the pods that would need the oracle are refused before
-        the solve), so that re-check is vacuous and the bulk commit
-        places exactly what its per-pod loop would. For the same reason
-        a -1 stands: feasibility only shrinks within the batch."""
+        is solved with the in-batch tracking on, which serializes exactly
+        the capacity, anti-affinity and host-port conflicts the arbiter
+        checks, and no pod is ever re-placed (the pods that would need the
+        oracle are refused before the solve): the arbiter would place every
+        pod, the re-check is vacuous, and the bulk commit places exactly
+        what those routes would. For the same reason a -1 stands:
+        feasibility only shrinks within the batch."""
         name_of = self.mirror.name_of_row
-        assumed_meta: List[Tuple[PodInfo, Pod, str]] = []
+        placed: List[Tuple[PodInfo, int, str]] = []
         for info, row in zip(infos, assign_l):
             node_name = name_of[row] if row >= 0 else None
             if node_name is None:
                 res.unschedulable += 1
                 self._fail(info, cycle)
                 continue
-            assumed_meta.append((info, info.pod.with_node(node_name), node_name))
-        rejected = set(self.cache.assume_pods([m[1] for m in assumed_meta]))
+            placed.append((info, row, node_name))
+        self._apply(placed, cycle, res)
+
+    def _apply(self, placed: List[Tuple[PodInfo, int, str]], cycle: int, res: ScheduleResult) -> None:
+        """Commit (pod, node row, node name) triples in pop order: fold
+        them into the device banks (the commit plane), assume them in one
+        cache call and bind them on the bind pool in chunks. A key the
+        cache already tracks is rejected by the assume: its pod fails and,
+        when folded, its row goes back to a host-wins re-ship."""
+        if not placed:
+            return
+        # folded BEFORE the assume, so a reject is corrected by a host-wins
+        # re-ship of its row; and before the clones, which then carry the
+        # request and signature memos the plan computed into the sync
+        folded = self._dispatch_fold([(info.pod, row) for info, row, _ in placed])
+        assumed_meta = [(info, info.pod.with_node(node_name), node_name) for info, _, node_name in placed]
+        rejected = set(self.cache.assume_pods([m[1] for m in assumed_meta], folded=folded))
         jobs = []
         for j, (info, assumed, node_name) in enumerate(assumed_meta):
             if j in rejected:  # the key is already in the cache
+                if folded:
+                    self.mirror.note_failed_fold(node_name)
                 res.unschedulable += 1
                 self._fail(info, cycle)
                 continue
@@ -382,6 +463,93 @@ class Scheduler:
         step = max(1, -(-len(jobs) // BIND_WORKERS))
         for i in range(0, len(jobs), step):
             self._bind_pool.submit(self._bind_chunk, jobs[i : i + step])
+
+    def _dispatch_fold(self, pairs: List[Tuple[Pod, int]]) -> bool:
+        """Fold a committed batch's deltas (`pairs` = the final placed set
+        as (pod, node row)) into the resident device banks. True when the
+        fold landed: the caller then tags the matching assumes folded. A
+        bank overflow in the plan (plan_fold → None) is the reference's
+        host route: the assumes ship as pending rows and the next sync
+        rebuilds bigger; it is counted in `fold_overflow_batches`. A fold
+        kernel that fails raises."""
+        if not self.commit_plane or not self.mirror.can_fold():
+            return False
+        t0 = time.perf_counter()
+        prog = plan_fold(self.mirror, pairs, self._b_bucket, self._fp_bucket)
+        if prog is None:
+            self.stats["fold_overflow_batches"] += 1
+            return False
+        self._fp_bucket = max(self._fp_bucket, prog.pat_bucket)
+        if not self.mirror.fold_commit(prog):
+            return False
+        self.stats["fold_batches"] += 1
+        self.stats["fold_pods"] += len(pairs)
+        self.stats["fold_s"] += time.perf_counter() - t0
+        return True
+
+    def _commit_arbitrated(self, infos: List[PodInfo], assign_l: List[int], verdicts: List[int], cycle: int,
+                           res: ScheduleResult) -> None:
+        """Commit a batch from the arbiter's verdicts (the reference's
+        `_commit_arbitrated` without speculation or preemption): V_PLACE
+        pods are applied (`_apply`), V_DEFER pods go back to the queue with
+        no backoff (they conflicted with their own batch; they are not
+        unschedulable), V_NOFIT pods are unschedulable. A pod deferred
+        `_defer_escalate` times in a row escalates to the reference's host
+        oracle re-placement, which is not ported: the batch's placed pods
+        are applied and its defers re-queued first, then the escalated
+        pods are re-queued and the batch raises."""
+        name_of = self.mirror.name_of_row
+        nodes = self.cache.snapshot.node_infos
+        place: List[Tuple[PodInfo, int, str]] = []
+        defers: List[PodInfo] = []
+        for info, row, v in zip(infos, assign_l, verdicts):
+            if v == V_PLACE and row >= 0:
+                node_name = name_of[row] if row < len(name_of) else None
+                if node_name is None or node_name not in nodes:
+                    defers.append(info)  # the node vanished under the solve
+                    continue
+                place.append((info, row, node_name))
+            elif v == V_DEFER:
+                defers.append(info)
+            else:
+                res.unschedulable += 1
+                self._fail(info, cycle)
+        kept_defers: List[PodInfo] = []
+        escalate: List[PodInfo] = []
+        for info in defers:
+            k = info.pod.key()
+            c = self._defer_counts.get(k, 0) + 1
+            self._defer_counts[k] = c
+            if c >= self._defer_escalate:
+                self._defer_counts.pop(k, None)  # escalation consumes the budget
+                escalate.append(info)
+            else:
+                kept_defers.append(info)
+        if self._defer_counts and place:
+            for info, _, _ in place:
+                self._defer_counts.pop(info.pod.key(), None)
+        # bounded: pods placed by other routes never clear their entry
+        if len(self._defer_counts) > max(1024, 4 * self.batch_size):
+            self._defer_counts.clear()
+        # re-queued before the apply: the pods must be in the queue
+        # whatever happens to this batch downstream
+        if kept_defers:
+            self.queue.requeue(kept_defers)
+            res.deferred += len(kept_defers)
+        t0 = time.perf_counter()
+        placed_before = res.scheduled
+        self._apply(place, cycle, res)
+        self.stats["apply_s"] += time.perf_counter() - t0
+        self.stats["arbiter_batches"] += 1
+        self.stats["arbiter_place"] += res.scheduled - placed_before
+        self.stats["arbiter_defer"] += len(defers)
+        if escalate:
+            self.stats["arbiter_escalated"] += len(escalate)
+            self.queue.requeue(escalate)
+            raise NotImplementedError(
+                f"{len(escalate)} pods deferred {self._defer_escalate} times in a row need the host "
+                f"oracle's re-placement (_oracle_place) ({ORACLE_FALLBACK})"
+            )
 
     def _fail(self, info: PodInfo, cycle: int) -> None:
         self.queue.add_unschedulable(info, cycle)
@@ -408,8 +576,9 @@ class Scheduler:
             r = self.schedule_batch()
             total.scheduled += r.scheduled
             total.unschedulable += r.unschedulable
+            total.deferred += r.deferred
             total.assignments.update(r.assignments)
-            if r.scheduled == 0 and r.unschedulable == 0:
+            if r.scheduled == 0 and r.unschedulable == 0 and r.deferred == 0:
                 break
         return total
 

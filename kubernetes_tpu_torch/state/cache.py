@@ -14,7 +14,10 @@ The port's own lean copies of `kubernetes_tpu.state.cache`:
   device-resident torch copies of all three. The copies are patched by
   dirty rows with one `index_copy_` per changed array — the counterpart of
   the reference's jitted `_row_scatter_fn`, a data move with no arithmetic
-  — and uploaded in full only after a rebuild.
+  — and uploaded in full only after a rebuild. With the fold plane a
+  committed batch's deltas are scattered into the resident copies in place
+  (`fold_commit`, ops/fold.fold_commit_banks), and sync does not make
+  those rows pending, so they are not re-shipped.
 
 Both run on one driver thread at a time; the cache's lock covers the bind
 workers' finish_binding / forget calls.
@@ -66,9 +69,12 @@ class SchedulerCache:
         self._assumed: Set[str] = set()  # guarded by self._lock
         self.dirty_nodes: Set[str] = set()
         self.removed_nodes: Set[str] = set()
-        # (node, pod, ±1) single-pod changes (assume/confirm/remove) — the
-        # common event; consumed by TensorMirror.sync
-        self.pod_deltas: List[Tuple[str, Pod, int]] = []
+        # (node, pod, ±1, folded) single-pod changes (assume/confirm/
+        # remove) — the common event; consumed by TensorMirror.sync.
+        # `folded` marks adds whose deltas a commit fold already applied
+        # to the mirror's device banks: sync applies them to the host
+        # banks the same way, but does not re-ship their rows
+        self.pod_deltas: List[Tuple[str, Pod, int, bool]] = []
 
     # -- helpers -------------------------------------------------------------
 
@@ -76,11 +82,11 @@ class SchedulerCache:
         """Bound the delta log: past the bound it collapses into the
         node-count-bounded dirty set (a re-encoded row ships in full)."""
         if len(self.pod_deltas) >= max(1024, 4 * len(self.snapshot.node_infos)):
-            for n, _, _ in self.pod_deltas:
+            for n, _, _, _ in self.pod_deltas:
                 self.dirty_nodes.add(n)
             self.pod_deltas.clear()
 
-    def _add_pod_to_node(self, pod: Pod) -> None:
+    def _add_pod_to_node(self, pod: Pod, folded: bool = False) -> None:
         ni = self.snapshot.get(pod.node_name)
         if ni is None:
             # pod on an unknown node: track headlessly (the reference keeps
@@ -92,7 +98,7 @@ class SchedulerCache:
         ni.add_pod(pod)
         # single-pod change: a DELTA, not node dirt — the mirror patches the
         # node row's usage columns in O(1) instead of re-counting the node
-        self.pod_deltas.append((pod.node_name, pod, 1))
+        self.pod_deltas.append((pod.node_name, pod, 1, folded))
         self._collapse_deltas_locked()
 
     def _remove_pod_from_node(self, pod: Pod) -> None:
@@ -101,7 +107,7 @@ class SchedulerCache:
             return
         removed = ni.remove_pod_key(pod.key())
         if removed is not None:
-            self.pod_deltas.append((pod.node_name, removed, -1))
+            self.pod_deltas.append((pod.node_name, removed, -1, False))
             self._collapse_deltas_locked()
 
     # -- assumed pod state machine (cache.go:270-388) ------------------------
@@ -111,10 +117,13 @@ class SchedulerCache:
         if self.assume_pods([pod]):
             raise ValueError(f"pod {pod.key()} already in cache")
 
-    def assume_pods(self, pods: List[Pod]) -> List[int]:
+    def assume_pods(self, pods: List[Pod], folded: bool = False) -> List[int]:
         """Bulk AssumePod under ONE lock. Returns the indices of pods
         REJECTED because their key is already in the cache — the caller
-        fails those individually."""
+        fails those individually. `folded` tags the deltas as already
+        applied to the device banks by a commit fold; the caller reports
+        each rejected pod's node through TensorMirror.note_failed_fold
+        (its fold lane landed with no host delta to match)."""
         rejected: List[int] = []
         with self._lock:
             for i, pod in enumerate(pods):
@@ -124,7 +133,7 @@ class SchedulerCache:
                     continue
                 self._pod_states[key] = _PodState(pod=pod, assumed=True)
                 self._assumed.add(key)
-                self._add_pod_to_node(pod)
+                self._add_pod_to_node(pod, folded)
         return rejected
 
     def finish_bindings(self, pods: List[Pod]) -> None:
@@ -253,6 +262,10 @@ class TensorMirror:
         # usage rows whose delta pod carried (anti-)affinity terms: only
         # those change the pattern counts
         self._pending_pat_rows: Set[int] = set()
+        # the fold plane: nodes whose fold lane lost its assume (their rows
+        # re-ship at the next sync). Rows a fold advanced are simply not
+        # made pending.
+        self._failed_fold_names: List[str] = []
         self.rows_shipped = 0  # node rows patched into the device copy
         self._rebuild()
 
@@ -292,6 +305,11 @@ class TensorMirror:
         self.cache.removed_nodes.clear()
         self.cache.pod_deltas.clear()  # the rebuild re-counted everything
         self._device_stale = True  # shapes may have changed: full re-upload
+        self._clear_pending()
+        self._failed_fold_names.clear()
+
+    def _clear_pending(self) -> None:
+        """Forget the rows waiting to ship (after a full upload or a patch)."""
         self._pending_node_rows.clear()
         self._pending_usage_rows.clear()
         self._pending_pat_rows.clear()
@@ -332,6 +350,15 @@ class TensorMirror:
         arrays may change shape)."""
         cache = self.cache
         with cache._lock:
+            # fold lanes whose assume was rejected after the fold: their
+            # device rows carry deltas the host never applied — host wins
+            if self._failed_fold_names:
+                names, self._failed_fold_names = self._failed_fold_names, []
+                for nm in names:
+                    row = self.row_of.get(nm)
+                    if row is not None:
+                        self._pending_usage_rows.add(row)
+                        self._pending_pat_rows.add(row)
             dirty = set(cache.dirty_nodes)
             removed = set(cache.removed_nodes)
             deltas = list(cache.pod_deltas)
@@ -383,23 +410,27 @@ class TensorMirror:
                 # counts); removes, ported pods and pods with affinity take
                 # the scalar path, flushing the batch first so per-node
                 # order is kept (a remove must see the adds before it).
+                # Folded adds update the host banks the same way, but do
+                # not make their rows pending: the device already has them.
                 reencoded = removed | dirty | set(new_nodes)
                 ports_dirty: Set[str] = set()
                 bulk_rows: List[int] = []
                 bulk_pods: List[Pod] = []
                 bulk_held: List[Dict[int, int]] = []
+                bulk_folded: List[bool] = []
 
                 def flush_bulk() -> None:
                     if bulk_pods:
                         rows_arr = np.asarray(bulk_rows, np.int64)
                         self.eps.apply_adds_bulk(rows_arr, bulk_pods, bulk_held)
                         self.nodes.apply_pod_deltas_bulk(rows_arr, bulk_pods)
-                        self._pending_usage_rows.update(bulk_rows)
+                        self._pending_usage_rows.update(r for r, f in zip(bulk_rows, bulk_folded) if not f)
                         bulk_rows.clear()
                         bulk_pods.clear()
                         bulk_held.clear()
+                        bulk_folded.clear()
 
-                for name, pod, sign in deltas:
+                for name, pod, sign, folded in deltas:
                     if name in reencoded or name not in self.row_of:
                         continue
                     row = self.row_of[name]
@@ -408,16 +439,24 @@ class TensorMirror:
                         bulk_rows.append(row)
                         bulk_pods.append(pod)
                         bulk_held.append(held)
+                        bulk_folded.append(folded)
                         continue
                     flush_bulk()
                     self.eps.apply_delta(row, pod, sign, held)
+                    # only adds fold (commits); any other delta ships
+                    f = folded and sign > 0
                     if pod_has_affinity_constraints(pod):
                         self.pats.apply_delta(row, pod, sign, self._node_pats.setdefault(name, {}))
-                        self._pending_pat_rows.add(row)
+                        if not f:
+                            self._pending_pat_rows.add(row)
                     self.nodes.apply_pod_delta(row, pod, sign)
-                    self._pending_usage_rows.add(row)
                     if pod.host_ports():
+                        # the port table changed too (list-shaped, not
+                        # foldable): the full-row refresh below ships it
                         ports_dirty.add(name)
+                        f = False
+                    if not f:
+                        self._pending_usage_rows.add(row)
                 flush_bulk()
                 # the port table is a sorted list snapshot: refresh those
                 # nodes' rows fully (rare)
@@ -442,7 +481,8 @@ class TensorMirror:
     def device_arrays(self) -> Tuple[Dict[str, torch.Tensor], Dict[str, torch.Tensor], Dict[str, torch.Tensor]]:
         """(nodes, eps, pats): the node, signature and pattern banks as
         device-resident tensors, patched with only the rows sync() touched
-        since the last call. The signature and pattern banks have two row
+        since the last call, minus the rows a commit fold already applied
+        on the device. The signature and pattern banks have two row
         spaces each: their metadata is patched by dirty SIGNATURE /
         PATTERN rows, their node-major `counts` by dirty NODE rows (usage
         rows included for signatures: commits count pods into them; for
@@ -457,11 +497,7 @@ class TensorMirror:
             self._dev_pats = arrays_to_torch(host_p, self.device, copy=True)
             self._device_stale = False
             self._image_stale = False
-            self._pending_node_rows.clear()
-            self._pending_usage_rows.clear()
-            self._pending_pat_rows.clear()
-            self.eps.dirty_sig_rows.clear()
-            self.pats.dirty_pattern_rows.clear()
+            self._clear_pending()
             return self._dev, self._dev_eps, self._dev_pats
         if self._image_stale:
             # the table's width may have changed: ship it whole
@@ -480,11 +516,7 @@ class TensorMirror:
             self._patch_rows(dev, host_b, sorted(cnt_rows), ("counts",))
             self._patch_rows(dev, host_b, sorted(meta_rows), tuple(k for k in host_b if k != "counts"))
         self.rows_shipped += len(node_rows) + len(usage_rows)
-        self._pending_node_rows.clear()
-        self._pending_usage_rows.clear()
-        self._pending_pat_rows.clear()
-        self.eps.dirty_sig_rows.clear()
-        self.pats.dirty_pattern_rows.clear()
+        self._clear_pending()
         return self._dev, self._dev_eps, self._dev_pats
 
     def _patch_rows(self, dev: Dict[str, torch.Tensor], host: Dict[str, np.ndarray], rows: List[int], keys) -> None:
@@ -498,3 +530,43 @@ class TensorMirror:
         sliced = arrays_to_torch({k: host[k][idx_np] for k in keys}, self.device)
         for k, v in sliced.items():
             dev[k].index_copy_(0, idx, v)
+
+    # -- the fold plane (ops/fold, commit/fold) ------------------------------
+
+    def can_fold(self) -> bool:
+        """The device banks are resident and current-shaped: a commit fold
+        may scatter into them."""
+        return self._dev is not None and not self._device_stale
+
+    def mark_device_stale(self) -> None:
+        """Re-upload the full banks from host truth at the next
+        device_arrays() (host wins)."""
+        self._device_stale = True
+
+    def fold_commit(self, prog) -> bool:
+        """Apply a planned commit fold (commit/fold.FoldProgram) to the
+        resident banks in place: fold_commit_banks writes into the same
+        storages device_arrays() returns. Returns False when the banks are
+        not resident (the caller's assumes then ship as pending rows). A
+        kernel that fails to launch raises; the banks are then marked
+        stale (a partial fold never survives an upload)."""
+        from ..ops.fold import fold_commit_banks
+
+        if not self.can_fold():
+            return False
+        n, e, p = self._dev, self._dev_eps, self._dev_pats
+        ctl = arrays_to_torch({
+            "rows": prog.rows, "req": prog.req, "nz": prog.nz, "cnt": prog.cnt, "sig": prog.sig,
+            "pat_row": prog.pat_row, "pat_col": prog.pat_col, "pat_cnt": prog.pat_cnt,
+        }, self.device)
+        try:
+            fold_commit_banks(n["requested"], n["nonzero_req"], n["pod_count"], e["counts"], p["counts"], **ctl)
+        except Exception:
+            self.mark_device_stale()
+            raise
+        return True
+
+    def note_failed_fold(self, node_name: str) -> None:
+        """A fold lane's assume was rejected after the fold landed: queue
+        the node's row for a host-wins re-ship at the next sync."""
+        self._failed_fold_names.append(node_name)

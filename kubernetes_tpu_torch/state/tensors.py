@@ -1058,6 +1058,16 @@ class SigBank:
             self.dirty_sig_rows.add(sig)
         return sig
 
+    def prepare_row(self, pod) -> int:
+        """Intern a pod's signature WITHOUT taking a reference: the commit
+        fold (commit/fold.plan_fold) needs the row before the commit's
+        delta reaches sync(). The later apply_delta / apply_adds_bulk of
+        the same pod hits this row (content-keyed, grow-only vocab), and a
+        row with no references is never freed by _unref. A new row's
+        metadata ships as a dirty signature row; its counts arrive by the
+        fold. Raises SigOverflow / KeySlotOverflow like _intern."""
+        return self._intern(pod)
+
     def _unref(self, sig: int, n: int) -> None:
         self._refs[sig] -= n
         if self._refs[sig] <= 0:

@@ -456,6 +456,13 @@ class PatternBank:
             self.dirty_pattern_rows.add(row)
         return row
 
+    def prepare_pod_rows(self, pod: Pod) -> List[int]:
+        """Intern one pod's term patterns WITHOUT taking references — the
+        commit fold's counterpart of SigBank.prepare_row: the rows where
+        the later apply_delta will count this pod. Raises PatternOverflow
+        / KeySlotOverflow like _intern."""
+        return [self._intern(kind, topo, sel, nss, w) for kind, topo, sel, nss, w in self._pod_patterns(pod)]
+
     def _unref(self, row: int, n: int) -> None:
         self._refs[row] -= n
         if self._refs[row] <= 0:

@@ -3,6 +3,7 @@
 
     python3 scripts/torch_drain_profile.py [--config 2|3|4] [--services]
         [--nodes N] [--pods P] [--batch 4096] [--out chiprun_out/drain_profile]
+        [--ab PAIRS]
 
 Drives a drain of chip_smoke.py phase 5 (kubernetes_tpu_torch's Scheduler,
 tie-noise on) on bench.py config 2 (default 5,000 nodes / 50,000 pods),
@@ -28,9 +29,15 @@ and loads the kernels, three times:
                 window (the union of kernel, memcpy and memset intervals),
                 the idle share, and the busy time and count per name.
 
+With `--ab PAIRS` it runs, after the warm-up, PAIRS pairs of plain drains
+with the commit plane (the arbiter and the fold) on and off (the
+Scheduler's default and `commit_plane=False`), alternating which runs
+first, and reports each run's pods/s and stages, the medians and each
+side's lowest and highest pods/s, instead of the three runs above.
+
 Prints one JSON object as the last line of its output and writes the full
-summary to --out/summary.json. Exits non-zero when the trace holds no
-device event.
+summary to --out/summary.json (--out/ab.json with --ab). Exits non-zero
+when the trace holds no device event.
 """
 
 from __future__ import annotations
@@ -39,6 +46,7 @@ import argparse
 import contextlib
 import json
 import os
+import statistics
 import subprocess
 import sys
 import tempfile
@@ -68,7 +76,12 @@ STAGES = (
     ("state/cache.py", "device_arrays"),
     ("state/cache.py", "_patch_rows"),
     ("ops/pipeline.py", "solve_pipeline"),
-    ("scheduler/driver.py", "_commit"),
+    ("commit/arbiter.py", "arbitrate"),
+    ("scheduler/driver.py", "_commit_bulk"),
+    ("scheduler/driver.py", "_commit_arbitrated"),
+    ("scheduler/driver.py", "_apply"),
+    ("scheduler/driver.py", "_dispatch_fold"),
+    ("commit/fold.py", "plan_fold"),
     ("api/types.py", "with_node"),
     ("state/cache.py", "assume_pods"),
     ("state/queue.py", "add_unschedulable"),
@@ -76,7 +89,8 @@ STAGES = (
 )
 
 
-def drain(config: int, services: bool, n_nodes: int, n_pods: int, batch: int, around=contextlib.nullcontext):
+def drain(config: int, services: bool, n_nodes: int, n_pods: int, batch: int, around=contextlib.nullcontext,
+          planes: bool = True):
     from kubernetes_tpu_torch.models.clusters import bench_config2, bench_config3, bench_config4, fill_cache
     from kubernetes_tpu_torch.scheduler.driver import Scheduler
     from kubernetes_tpu_torch.state.cache import SchedulerCache
@@ -93,7 +107,8 @@ def drain(config: int, services: bool, n_nodes: int, n_pods: int, batch: int, ar
     fill_cache(cache, nodes)
     for p in pods:
         queue.add(p)
-    sched = Scheduler(cache, queue, batch_size=batch, deterministic=False, seed=0, device="cuda")
+    sched = Scheduler(cache, queue, batch_size=batch, deterministic=False, seed=0, device="cuda",
+                      commit_plane=planes)
     if fn is not None:
         sched.set_spread_selectors_fn(fn)
     torch.cuda.synchronize()
@@ -198,6 +213,31 @@ def device_split(trace_path: str, window: str = "drain") -> dict:
     }
 
 
+def ab(work, args, smi) -> int:
+    """PAIRS pairs of plain drains, planes on and off, alternating which
+    runs first; each run's pods/s and stages, the medians and each side's
+    pods/s range."""
+    keys = ("pods_per_s", "wall_s", "sync_s", "encode_s", "solve_s", "commit_s", "apply_s", "fold_s")
+    runs = {"on": [], "off": []}
+    for i in range(args.ab):
+        for side in (("on", "off") if i % 2 == 0 else ("off", "on")):
+            r = drain(*work, args.nodes, args.pods, args.batch, planes=side == "on")
+            runs[side].append({k: r[k] for k in keys})
+            print(f"[ab] pair {i} planes {side}: " + ", ".join(f"{k} {r[k]:.4f}" for k in keys), flush=True)
+    med = {side: {k: statistics.median(r[k] for r in rs) for k in keys} for side, rs in runs.items()}
+    span = {side: [min(r["pods_per_s"] for r in rs), max(r["pods_per_s"] for r in rs)] for side, rs in runs.items()}
+    for side in ("on", "off"):
+        print(f"[ab] median planes {side}: " + ", ".join(f"{k} {v:.4f}" for k, v in med[side].items())
+              + f"; pods_per_s range {span[side][0]:.4f}-{span[side][1]:.4f}", flush=True)
+    with open(os.path.join(args.out, "ab.json"), "w") as f:
+        json.dump({"card": smi, "config": args.config, "services": args.services, "runs": runs, "median": med,
+                   "pods_per_s_range": span}, f, indent=1)
+    print(json.dumps({"config": args.config, "services": args.services,
+                      "median_pods_per_s": {s_: med[s_]["pods_per_s"] for s_ in med},
+                      "pods_per_s_range": span}), flush=True)
+    return 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", type=int, choices=(2, 3, 4), default=2)
@@ -208,6 +248,8 @@ def main() -> int:
                     help="default 50,000 (config 2) / 100,000 (config 3) / 20,000 (config 4)")
     ap.add_argument("--batch", type=int, default=4096)
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out", "drain_profile"))
+    ap.add_argument("--ab", type=int, default=0, metavar="PAIRS",
+                    help="run PAIRS alternating planes-on / planes-off drain pairs instead of the profile")
     args = ap.parse_args()
     args.nodes = args.nodes or {2: 5000, 3: 10000, 4: 2000}[args.config]
     args.pods = args.pods or {2: 50000, 3: 100000, 4: 20000}[args.config]
@@ -223,6 +265,8 @@ def main() -> int:
 
     work = (args.config, args.services)
     drain(*work, args.nodes // 10, args.pods // 10, args.batch // 4)  # builds + loads the kernels
+    if args.ab:
+        return ab(work, args, smi)
     plain = drain(*work, args.nodes, args.pods, args.batch)
     print(f"[profile] plain: {json.dumps(plain)}", flush=True)
 

@@ -7,9 +7,13 @@ reference Scheduler with every plane off, on seeded taint + node-affinity
 without spreading selectors, and on config-4-shaped and random inter-pod
 drains (required anti-affinity, preferred (anti-)affinity, host ports,
 existing pods with affinity) — pod-for-pod identical placements,
-deterministic and with tie-noise. Tolerance: exact equality. Also: what the
-slices do not cover raises NotImplementedError and leaves the batch in the
-queue."""
+deterministic and with tie-noise. The port runs its default commit and
+fold planes there; it is also held, with the planes on and off, to the
+reference's planes-on Scheduler on configs 2, 3 and 4 and on config 3 with
+DoNotSchedule constraints ("config 3-hard", whose defers go through the
+commit arbiter). Tolerance: exact equality. Also: what the slices do not
+cover raises NotImplementedError and leaves the batch in the queue (a pod
+the arbiter defers three times in a row: every pod placed or queued)."""
 
 import jax
 import jax.numpy as jnp
@@ -32,9 +36,11 @@ from kubernetes_tpu.state.terms import compile_batch_terms as r_compile
 from kubernetes_tpu.state.cache import TensorMirror as RMirror
 from kubernetes_tpu_torch.models.clusters import (
     HOST_KEY,
+    ZONE_KEY,
     bench_config2,
     bench_config3,
     bench_config4,
+    commit_plane_mix,
     fill_cache,
     random_cluster,
     random_selectors,
@@ -93,13 +99,17 @@ def test_solve_pipeline_matches_reference(cfg, det, dedup):
 
 
 def test_solve_pipeline_refuses_terms_and_tracking():
-    """DoNotSchedule spread, and term_kinds=None (which assumes it), are
-    refused; the inter-pod kinds and the in-batch tracking are ported
-    (test_solve_pipeline_interpod_tracking_matches_reference)."""
-    with pytest.raises(NotImplementedError, match="arbiter"):
-        PP.mask_and_score({}, {}, {}, term_kinds=frozenset({"spread_soft", "spread_hard"}))
-    with pytest.raises(NotImplementedError, match="arbiter"):
+    """term_kinds=None (which assumes every kind, required pod affinity
+    included) is refused, naming the oracle fallback; an unknown kind is
+    an error. DoNotSchedule spread, the inter-pod kinds and the in-batch
+    tracking are ported (test_solve_pipeline_interpod_tracking_matches_reference,
+    test_torch_commit.py)."""
+    with pytest.raises(NotImplementedError, match="oracle fallback"):
+        PP.mask_and_score({}, {}, {}, term_kinds=None)
+    with pytest.raises(NotImplementedError, match="oracle fallback"):
         PP.solve_pipeline({}, {}, {}, (0, 0), term_kinds=None)
+    with pytest.raises(ValueError, match="unknown"):
+        PP.mask_and_score({}, {}, {}, term_kinds=frozenset({"spread_soft", "gang"}))
 
 
 TOPOLOGY_KINDS = {
@@ -272,15 +282,17 @@ def test_topology_drain_matches_reference_pod_for_pod(workload, services, det):
     assert ("sel_spread" in sched._term_kinds) == services
 
 
-def _cluster_with(pending_fn, existing_fn=None, t=PT, pkg="port"):
+def _cluster_with(pending_fn, existing_fn=None, t=PT, pkg="port", **port_kw):
     nodes, pending = bench_config2(8, 6, t=t)
+    for i, n in enumerate(nodes):
+        n.labels["zone"] = f"z{i % 2}"
     cache, queue = (SchedulerCache(), PriorityQueue()) if pkg == "port" else (RCache(), RQueue())
     fill_cache(cache, nodes, [existing_fn(nodes, t)] if existing_fn else [])
     pending_fn(pending, t)
     for p in pending:
         queue.add(p)
     if pkg == "port":
-        return Scheduler(cache, queue, device="cpu"), queue
+        return Scheduler(cache, queue, device="cpu", **port_kw), queue
     return RScheduler(cache, queue, commit_plane=False, fold_plane=False, ingest_plane=False,
                       term_plane=False, speculate=False, enable_preemption=False), queue
 
@@ -297,7 +309,8 @@ def _edit_pending(case, pods, t):
         _anti(pods[2], t, {"app": pods[2].labels["app"]})
     elif case == "spread":
         pods[1].topology_spread_constraints = [t.TopologySpreadConstraint(
-            max_skew=1, topology_key="zone", when_unsatisfiable="DoNotSchedule")]
+            max_skew=1, topology_key="zone", when_unsatisfiable="DoNotSchedule",
+            label_selector=t.LabelSelector(match_labels={"app": pods[1].labels["app"]}))]
     elif case == "preferred-affinity":
         pods[4].affinity.pod_affinity = t.PodAffinity(preferred=[t.WeightedPodAffinityTerm(
             weight=5, pod_affinity_term=t.PodAffinityTerm(
@@ -333,14 +346,17 @@ def _existing_with(case):
 @pytest.mark.parametrize("case", ["spread", "overflow", "term-overflow", "required-affinity",
                                   "pattern-overflow"])
 def test_unported_paths_raise_and_keep_the_batch(case):
-    sched, queue = _cluster_with(lambda pods, t: _edit_pending(case, pods, t), _existing_with(case))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """DoNotSchedule spread is refused with the commit plane off: the
+    reference's planes-off path re-checks it with its full host oracle."""
+    kw = {"commit_plane": False} if case == "spread" else {}
+    sched, queue = _cluster_with(lambda pods, t: _edit_pending(case, pods, t), _existing_with(case), **kw)
+    with pytest.raises(NotImplementedError, match="oracle fallback" if case == "spread" else "ROADMAP"):
         sched.schedule_batch()
     assert queue.counts() == (6, 0, 0)
     sched.close()
 
 
-@pytest.mark.parametrize("case", ["anti", "ports", "existing-affinity", "preferred-affinity"])
+@pytest.mark.parametrize("case", ["anti", "ports", "existing-affinity", "preferred-affinity", "spread"])
 def test_formerly_unported_paths_schedule_like_the_reference(case):
     """The clusters the port refused before it ran inter-pod affinity and
     host ports now schedule, placement for placement as the reference."""
@@ -430,3 +446,137 @@ def test_interpod_drain_matches_reference_pod_for_pod(workload, det):
     else:
         assert ref.scheduled > 150 and ref.unschedulable > 0
         assert {"anti_req", "pref", "et_anti", "et_score"} <= sched._term_kinds
+
+
+# --- the commit and fold planes against the reference's planes-on driver ---
+
+PLANES_ON_WORKLOADS = {
+    "config2": (64, 700, 128), "config3": (64, 600, 128), "config4": (64, 640, 128),
+    "config3-hard": (100, 1000, 128),
+}
+
+
+def _planes_drain(pkg, workload, planes=True):
+    t = RT if pkg == "ref" else PT
+    n_nodes, n_pods, batch = PLANES_ON_WORKLOADS[workload]
+    if workload == "config2":
+        nodes, pending = bench_config2(n_nodes, n_pods, t=t)
+    elif workload == "config4":
+        nodes, pending = bench_config4(n_nodes, n_pods, t=t)
+    else:
+        nodes, pending, _ = bench_config3(n_nodes, n_pods, t=t, hard=workload == "config3-hard")
+    cache = (RCache if pkg == "ref" else SchedulerCache)()
+    fill_cache(cache, nodes)
+    queue = (RQueue if pkg == "ref" else PriorityQueue)()
+    for p in pending:
+        queue.add(p)
+    if pkg == "ref":
+        sched = RScheduler(
+            cache, queue, batch_size=batch, deterministic=True, commit_plane=True, fold_plane=True,
+            ingest_plane=False, term_plane=False, columnar_cache=False, speculate=False, enable_preemption=False,
+        )
+    else:
+        sched = Scheduler(cache, queue, batch_size=batch, deterministic=True, device="cpu", commit_plane=planes)
+    res = sched.run_until_empty()
+    sched.wait_for_binds()
+    sched.close()
+    return res, sched, nodes, pending
+
+
+@pytest.mark.parametrize("workload", ["config2", "config3", "config4"])
+def test_planes_on_drain_matches_planes_off_and_reference(workload):
+    ref, rsched, _, _ = _planes_drain("ref", workload)
+    on, sched, _, pending = _planes_drain("port", workload)
+    off, osched, _, _ = _planes_drain("port", workload, planes=False)
+    assert on.assignments == off.assignments == ref.assignments
+    assert on.scheduled == off.scheduled == ref.scheduled == len(pending)
+    st = sched.stats
+    assert st["fold_batches"] == st["batches"] and st["fold_pods"] == len(pending)
+    assert osched.stats["fold_batches"] == 0 and osched.stats["arbiter_batches"] == 0
+    # no batch holds a DoNotSchedule pod: all take the bulk path. Config
+    # 4's batches carry required anti-affinity, which the reference
+    # arbitrates; here their tracked solve leaves the arbiter nothing to
+    # defer, and the placements above are the reference's
+    assert st["arbiter_batches"] == st["arbiter_place"] == 0
+    assert rsched.stats.get("arbiter_defer", 0) == 0
+    if workload == "config4":
+        assert rsched.stats["arbiter_batches"] == st["batches"] == st["tracked_batches"]
+    assert sched.mirror.rows_shipped == 0
+
+
+def test_config3_hard_drain_matches_reference():
+    """Config 3 with every constraint DoNotSchedule at 100 nodes / 1,000
+    pods / batch 128: the arbiter defers the pods an earlier commit of the
+    batch pushed over max_skew; they retry next batch. Same placements and
+    the same defers as the reference, no escalation, and no app's zone
+    counts differ by more than max_skew."""
+    ref, rsched, _, _ = _planes_drain("ref", "config3-hard")
+    port, sched, nodes, pending = _planes_drain("port", "config3-hard")
+    assert port.assignments == ref.assignments and port.scheduled == ref.scheduled == len(pending)
+    st = sched.stats
+    assert st["arbiter_defer"] == rsched.stats["arbiter_defer"] and st["arbiter_defer"] > 0
+    assert st["arbiter_escalated"] == 0 and "arbiter_escalated" not in rsched.stats
+    assert st["arbiter_batches"] == st["batches"] == rsched.stats["batches"]
+    assert port.deferred == st["arbiter_defer"]
+    zone_of = {n.name: n.labels[ZONE_KEY] for n in nodes}
+    per = {}
+    for p in pending:
+        z = per.setdefault(p.labels["app"], {zone: 0 for zone in set(zone_of.values())})
+        z[zone_of[port.assignments[p.key()]]] += 1
+    assert max(max(z.values()) - min(z.values()) for z in per.values()) <= 1
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_mixed_hard_spread_drain_matches_reference(seed):
+    """Random clusters whose batches mix DoNotSchedule spread, required
+    anti-affinity, host ports, preferred affinity and plain pods, drained
+    in batches of 32: every batch is arbitrated, and the placements and
+    defers equal the reference's planes-on driver."""
+    drained = {}
+    for pkg in ("ref", "port"):
+        t = RT if pkg == "ref" else PT
+        nodes, existing, pending = random_cluster(seed, 40, 120, 60, t=t, pins=False, topology=True,
+                                                  hard_spread=True, interpod=True, pending_affinity=False,
+                                                  pending_ports=True)
+        cache = (RCache if pkg == "ref" else SchedulerCache)()
+        fill_cache(cache, nodes, existing)
+        queue = (RQueue if pkg == "ref" else PriorityQueue)()
+        for p in pending:
+            queue.add(p)
+        if pkg == "ref":
+            sched = RScheduler(cache, queue, batch_size=32, deterministic=True, commit_plane=True, fold_plane=True,
+                               ingest_plane=False, term_plane=False, columnar_cache=False, speculate=False,
+                               enable_preemption=False)
+        else:
+            sched = Scheduler(cache, queue, batch_size=32, deterministic=True, device="cpu")
+        res = sched.run_until_empty()
+        sched.wait_for_binds()
+        sched.close()
+        drained[pkg] = (res, sched.stats)
+    (ref, rst), (port, st) = drained["ref"], drained["port"]
+    assert port.assignments == ref.assignments and port.scheduled == ref.scheduled > 0
+    assert st["arbiter_defer"] == rst["arbiter_defer"] > 0 and st["arbiter_escalated"] == 0
+    assert st["arbiter_batches"] == st["batches"] == rst["arbiter_batches"]
+    assert st["tracked_batches"] == st["batches"]
+
+
+def test_defer_escalation_refuses_and_keeps_every_pod():
+    """A pod the arbiter defers three batches in a row escalates, in the
+    reference, to its host oracle's re-placement — not ported: the batch
+    applies its placed pods, re-queues its defers and the escalated pod,
+    and raises. No pod is lost."""
+    nodes, pending = commit_plane_mix(8, 96)
+    cache, queue = SchedulerCache(), PriorityQueue()
+    fill_cache(cache, nodes)
+    for p in pending:
+        queue.add(p)
+    sched = Scheduler(cache, queue, batch_size=16, deterministic=True, device="cpu")
+    with pytest.raises(NotImplementedError, match="oracle fallback"):
+        sched.run_until_empty()
+    sched.wait_for_binds()
+    sched.close()
+    assert sched.stats["arbiter_escalated"] > 0 and sched.stats["arbiter_defer"] > 0
+    placed = cache.pod_count()
+    active, backoff, unschedulable = queue.counts()
+    assert placed > 0 and active > 0
+    assert placed + active + backoff + unschedulable == len(pending)

@@ -86,3 +86,19 @@ def test_kernel_wrapper_refuses_other_devices():
     meta = {k: torch.empty(3, device="meta") for k in ("valid", "fallback")}
     with pytest.raises(ValueError, match="no filter kernel"):
         F.combined_mask(meta, meta, {})
+
+
+def test_entry_points_match_the_kernel_sources():
+    """The library resolves exactly the C entry points the CUDA sources
+    define (a name left behind fails only when the card loads it)."""
+    import glob
+    import re
+
+    from kubernetes_tpu_torch.kernels import build
+
+    defined = set()
+    for src in glob.glob(os.path.join(PKG, "csrc", "*.cu")):
+        with open(src) as f:
+            defined |= set(re.findall(r'extern "C" int (ktpu_\w+)\(', f.read()))
+    assert len(build.ENTRY_POINTS) == len(set(build.ENTRY_POINTS))
+    assert set(build.ENTRY_POINTS) == defined

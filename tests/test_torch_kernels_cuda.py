@@ -2,7 +2,8 @@
 card, on seeded all-branches clusters: filter (and its raw node-selector
 output), score, solve (with and without in-batch tracking), match_terms,
 spread_score, selector_spread_score, interpod_filter (every subset of its
-parts), interpod_score (each part and both) and inbatch_port_conflict.
+parts), interpod_score (each part and both), inbatch_port_conflict,
+spread_filter, the commit arbiter and the commit fold.
 Needs an NVIDIA card and nvcc:
 
     python -m pytest -m cuda tests/test_torch_kernels_cuda.py
@@ -26,7 +27,7 @@ from kubernetes_tpu_torch.oracle.nodeinfo import Snapshot
 from kubernetes_tpu_torch.state.cache import SchedulerCache, TensorMirror
 from kubernetes_tpu_torch.state.convert import arrays_to_torch
 from kubernetes_tpu_torch.state.tensors import PodBatch, encode_snapshot
-from kubernetes_tpu_torch.state.terms import compile_batch_terms
+from kubernetes_tpu_torch.state.terms import SPREAD_HARD, compile_batch_terms
 
 pytestmark = pytest.mark.cuda
 
@@ -248,3 +249,135 @@ def test_tracked_solve_kernel_equals_plain(cuda, seed, det):
     for a, c in zip(carry, want_carry):
         assert torch.equal(a, c)
     assert int((got >= 0).sum()) > 50
+
+
+def hard_spread_cluster(seed, device):
+    """(na, ea, xa, ta, au, pa, ids, v) of a seeded cluster with
+    DoNotSchedule constraints (zone / hostname keys, nodes without a key)
+    beside every inter-pod kind and host ports."""
+    nodes, existing, pending = random_cluster(seed, 150, 120, 300, overflow_nodes=2, topology=True,
+                                              hard_spread=True, interpod=True, pending_affinity=False,
+                                              pending_ports=True)
+    cache = SchedulerCache()
+    fill_cache(cache, nodes, existing)
+    mirror = TensorMirror(cache, device)
+    batch = PodBatch(mirror.vocab, 128)
+    for i, p in enumerate(pending):
+        batch.set_pod(i, p)
+    tb, aux = compile_batch_terms(mirror.vocab, pending, b_capacity=128)
+    na, ea, xa = mirror.device_arrays()
+    return [na, ea, xa] + [arrays_to_torch(d, device) for d in (tb.arrays(), aux, batch.arrays())] + \
+        [F.make_ids(mirror.vocab), 256]
+
+
+@pytest.mark.parametrize("n_buckets", [16, 256, 40000])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_spread_filter_kernel_equals_plain(cuda, seed, n_buckets):
+    na, ea, _, ta, _, pa, ids, _ = hard_spread_cluster(seed, cuda)
+    _, sel = F.combined_mask(na, pa, ids, with_selector=True)
+    before = TO.spread_filter.launches
+    got = TO.spread_filter(na, ea, ta, sel, n_buckets=n_buckets)
+    assert TO.spread_filter.launches == before + 1
+    want = TO.spread_filter_plain(na, ea, ta, sel, n_buckets)
+    assert torch.equal(got, want)
+    assert bool(want.any()) and not bool(want.all())
+
+
+@pytest.mark.parametrize("track", [True, False], ids=["tracked", "untracked"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_arbiter_kernel_equals_plain(cuda, seed, track):
+    """The arbiter on a solved batch (3 pods per spec row, so in-batch
+    conflicts defer), with and without the solve's tracking, with and
+    without the spread kinds."""
+    from kubernetes_tpu_torch.commit import arbiter as A
+
+    na, ea, xa, ta, au, pa, ids, v = hard_spread_cluster(seed, cuda)
+    b = 360
+    pb = {"sig": (torch.arange(b, device=cuda) % 120).to(torch.int32),
+          "valid": torch.arange(b, device=cuda) < b - 8,
+          "priority": (torch.arange(b, device=cuda) % 3).to(torch.int32)}
+    kinds = frozenset({"spread_hard", "spread_soft", "anti_req", "pref", "et_anti", "et_score"})
+    assign, _ = PP.solve_pipeline(na, pa, ids, SO.prng_key_data(seed), pb=pb, term_kinds=kinds,
+                                  track_inbatch=track, ea=ea, ta=ta, au=au, xa=xa, n_buckets=v)
+    for tk in (kinds, kinds - {"spread_hard"}):
+        before = A.arbitrate.launches
+        got = A.arbitrate(na, pa, ea, ta, ids, assign, pb, term_kinds=tk, n_buckets=v)
+        assert A.arbitrate.launches == before + 1
+        want = A.arbitrate_plain(na, pa, ea, ta, ids, assign, pb, term_kinds=tk, n_buckets=v)
+        assert torch.equal(got, want)
+    assert bool((want == A.V_PLACE).any())
+    if not track:  # the untracked solve leaves in-batch conflicts for the arbiter to defer
+        assert bool((want == A.V_DEFER).any())
+
+
+@pytest.mark.parametrize("n_buckets", [16, 40000])
+def test_spread_filter_kernel_tables_equal_plain(cuda, n_buckets):
+    """spread_filter's tables (its launch's scratch) equal the plain
+    metadata, from one counted launch: the candidate rows, and the
+    per-term tables on the DoNotSchedule terms (the only rows the
+    kernels write, and the only ones the arbiter reads)."""
+    na, ea, _, ta, _, pa, ids, _ = hard_spread_cluster(0, cuda)
+    _, sel = F.combined_mask(na, pa, ids, with_selector=True)
+    before = TO.spread_filter.launches
+    got, tables = TO.spread_filter(na, ea, ta, sel, n_buckets=n_buckets, with_tables=True)
+    assert TO.spread_filter.launches == before + 1
+    want, want_tables = TO.spread_filter_plain(na, ea, ta, sel, n_buckets, with_tables=True)
+    assert torch.equal(got, want)
+    assert tables.keys() == want_tables.keys()
+    hard = ta["valid"] & (ta["kind"] == SPREAD_HARD)
+    assert bool(hard.any())
+    assert torch.equal(tables["cand"], want_tables["cand"])
+    for k in ("merged_cnt", "merged_present", "min_t", "any_pair_t"):
+        assert torch.equal(tables[k][hard], want_tables[k][hard].to(tables[k].dtype)), k
+
+
+@pytest.mark.parametrize("track", [True, False], ids=["tracked", "untracked"])
+def test_arbiter_reads_solve_inputs_without_relaunching(cuda, track):
+    """Given the dict its batch's solve filled, the arbiter launches only
+    its own kernel where the solve computed the inputs (match_terms and
+    the port table with the tracking; spread_filter's tables always), and
+    its verdicts equal the plain version's."""
+    from kubernetes_tpu_torch.commit import arbiter as A
+
+    na, ea, xa, ta, au, pa, ids, v = hard_spread_cluster(1, cuda)
+    b = 360
+    pb = {"sig": (torch.arange(b, device=cuda) % 120).to(torch.int32),
+          "valid": torch.arange(b, device=cuda) < b - 8,
+          "priority": (torch.arange(b, device=cuda) % 3).to(torch.int32)}
+    kinds = frozenset({"spread_hard", "spread_soft", "anti_req", "pref", "et_anti", "et_score"})
+    solved = {}
+    assign, _ = PP.solve_pipeline(na, pa, ids, SO.prng_key_data(1), pb=pb, term_kinds=kinds, track_inbatch=track,
+                                  ea=ea, ta=ta, au=au, xa=xa, n_buckets=v, arbiter_inputs=solved)
+    counters = (TO.match_terms, F.inbatch_port_conflict, F.combined_mask, TO.spread_filter, A.arbitrate)
+    before = [c.launches for c in counters]
+    got = A.arbitrate(na, pa, ea, ta, ids, assign, pb, term_kinds=kinds, n_buckets=v, inputs=solved)
+    added = [c.launches - n for c, n in zip(counters, before)]
+    assert added == ([0, 0, 0, 0, 1] if track else [1, 1, 0, 0, 1])
+    want = A.arbitrate_plain(na, pa, ea, ta, ids, assign, pb, term_kinds=kinds, n_buckets=v)
+    assert torch.equal(got, want)
+
+
+def test_fold_kernel_equals_plain(cuda):
+    from kubernetes_tpu_torch.ops.fold import fold_commit_banks, fold_commit_banks_plain
+
+    g = torch.Generator().manual_seed(0)
+    n, r, s, pt, b, t = 64, 6, 40, 12, 4096, 900
+    banks = [torch.randint(0, 10**9, (n, r), generator=g), torch.randint(0, 10**9, (n, 2), generator=g),
+             torch.randint(0, 100, (n,), generator=g).int(),
+             torch.randint(-32768, 32767, (n, s), generator=g).to(torch.int16),
+             torch.randint(-32768, 32767, (n, pt), generator=g).to(torch.int16)]
+    # duplicate-heavy: every lane lands on one of a few rows and cells
+    ctl = [torch.randint(0, 5, (b,), generator=g).int(), torch.randint(0, 9000, (b, r), generator=g),
+           torch.randint(0, 9000, (b, 2), generator=g), torch.ones(b, dtype=torch.int32),
+           torch.randint(0, 3, (b,), generator=g).int(), torch.randint(0, 4, (t,), generator=g).int(),
+           torch.randint(0, 3, (t,), generator=g).int(), torch.ones(t, dtype=torch.int16)]
+    ctl[0][::7] = n  # sentinel lanes
+    ctl[4][::5] = s
+    ctl[6][::9] = pt
+    dev_banks = [x.to(cuda) for x in banks]
+    before = fold_commit_banks.launches
+    fold_commit_banks(*dev_banks, *(x.to(cuda) for x in ctl))
+    assert fold_commit_banks.launches == before + 1
+    want = fold_commit_banks_plain(*(x.clone() for x in banks), *ctl)
+    for got, w in zip(dev_banks, want):
+        assert torch.equal(got.cpu(), w)
