@@ -14,7 +14,9 @@ one ScheduleAnyway zone spread constraint each; then the same behind one
 Service per app, the SelectorSpread input) and on the config-4 workload
 (2,000 nodes in 8 zones, 20,000 pods in 20 apps: every 10th pod with a
 required hostname anti-affinity, the rest with a preferred zone affinity),
-batches of 4,096 — and checks what they placed. Phases:
+batches of 4,096, and on the config-6 workload (500 nodes each holding 7
+bound priority-0 pods of 4 cores, 2,000 pending priority-1000 pods of 6
+cores that land only by preemption) — and checks what they placed. Phases:
 
   1. device     card name, count, power limit
   2. build      nvcc seconds and the -Xptxas -v register/shared lines
@@ -38,7 +40,18 @@ batches of 4,096 — and checks what they placed. Phases:
                 constraints: U=TT=128, N=10240, S=256, V=16, one 4,096-pod
                 batch solved on the card), arbitrate also at the config-4
                 shapes (U=32, N=2048, TT=32, V=2048, B=4096); the fold's
-                library yardstick is one index_put_(accumulate=True) per bank
+                library yardstick is one index_put_(accumulate=True) per bank;
+                preempt_batch on seeded arrays reaching every branch (PDB
+                violators, fits_free, preemptors requesting nothing,
+                extended-resource slots, nominee charges, ties at each pick
+                key, padded rows, V up to 64, R = 16, N above a block) and
+                on a random preemption cluster's, then at the config-6
+                shapes (P=2048, N=512, V=8, R=8); fold_usage with duplicate
+                rows and sentinel pads, its inverse restoring the bank bit
+                for bit, and timed at the config-6 nominee shapes (976
+                nominees on 512 rows, B=976), with one
+                index_put_(accumulate=True) per column as its library
+                yardstick
   4. parity     config 2, config 3 and config 4 at 1/10 scale through
                 Scheduler with the commit plane on (the arbiter and the
                 fold), on cuda and on cpu, and with it off on cuda (config 3 without
@@ -47,7 +60,13 @@ batches of 4,096 — and checks what they placed. Phases:
                 1/10 (1,000 nodes, 10,000 pods, batch 128, deterministic) on
                 cuda (a main path: the arbiter's defers and spread_filter)
                 and cpu: identical placements and defers, every batch
-                arbitrated, no escalation, no zone skew above max_skew
+                arbitrated, no escalation, no zone skew above max_skew;
+                then config 6 at 1/10 (50 nodes, 350 bound, 200
+                preemptors, batch 64, one stepped clock) with the commit
+                plane on on cuda (a main path: preempt_batch, fold_usage)
+                and on cpu, and off on cuda (the copy overlay): the same
+                placements, victims in order, nominations after every
+                batch and preempted count
   5. drain      config 2 at full size; then config 3 at full size, without
                 and with Services; then config 4 at full size, all with the
                 commit plane on (the default): every pod placed, no node
@@ -59,12 +78,24 @@ batches of 4,096 — and checks what they placed. Phases:
                 encode of the final cache; every batch folded and none
                 arbitrated (no DoNotSchedule pod: the bulk path); pods/s,
                 stages, fold and arbiter counters, peak memory, per-app
-                zone skew or share
-  6. kernels    one JSON line: per kernel (the twelve and the tracked
+                zone skew or share; then config 6 at full size with the
+                commit plane on, at bench.py's batch of 4,096 and at 1,024
+                (where the second batch of the first round already
+                dispatches beside the first one's nominations: the nominee
+                overlay; at 4,096 it runs only where the backoff expiries
+                split the second round into batches): every preemptor placed,
+                every victim below its preemptor's priority and never an
+                assumed pod, no node over its allocatable or pod limit, no
+                plan rejected by the host re-verification, the device node
+                bank equal to a fresh encode with no overlay left on it;
+                wall time (it waits out the queue's 1 s backoff) and the
+                summed schedule_batch seconds apart, preemption rounds and
+                their seconds
+  6. kernels    one JSON line: per kernel (the fourteen and the tracked
                 solve) its launches in the main-path drains (the counts are
                 set to 0 before each drain and read after it: config 3-hard
-                at 1/10 and the four full drains), error, times, bound and,
-                for the fold, the library yardstick
+                and config 6 at 1/10 and the six full drains), error,
+                times, bound and, for the two folds, the library yardstick
   7. result     the last line: {"ok": true, "device": {...}}
 
 Any failed phase exits non-zero before the result line. Without a CUDA
@@ -99,6 +130,13 @@ CONFIG4_NODES = 2000
 CONFIG4_PODS = 20000
 BATCH = 4096
 HARD_BATCH = 128  # config 3-hard at 1/10: the size that escalates no defer
+CONFIG6_NODES = 500
+CONFIG6_PREEMPTORS = 2000
+# config 6 in batches of 1,024: the second batch of the first round
+# dispatches while the first one's nominations are outstanding (the nominee
+# overlay); at 1/10 the same in batches of 64
+CONFIG6_BATCH = 1024
+CONFIG6_SMALL_BATCH = 64
 
 
 def log(msg: str) -> None:
@@ -509,6 +547,33 @@ def fold_work(prog, r):
     nbytes_ = (live * (4 + r * 8 + 16 + 4 + 4) + plive * 10
                + 2 * (cells_n * (r * 8 + 16 + 4) + 2 * cells_s + 2 * cells_p))
     return nbytes_, live * (r + 4) + plive
+
+
+def preempt_work(a):
+    """(bytes, integer operations) of preempt_batch on these inputs: every
+    input read once, the outputs written once; per valid preemptor and
+    live candidate node the free check (2R), the victim scan (V) and, for
+    each lower-priority valid victim alive at the start, its request added
+    and its reprieve tested and applied (3R) — the scan removes at most
+    one node's victims a step, so this counts what the run needs to within
+    those few."""
+    nbytes_ = sum(int(t.numel() * t.element_size()) for t in a.values())
+    p, n = a["cand"].shape
+    v, r = a["vict_req"].shape[1:]
+    nbytes_ += p * (4 + v + 1)
+    live = (a["cand"] & a["node_valid"][None, :] & a["p_valid"][:, None]).long()  # [P, N]
+    lower = (a["vict_valid"][None] & (a["vict_prio"][None] < a["p_prio"][:, None, None])).sum(dim=2)  # [P, N]
+    ops = int((live * (2 * r + v + 3 * r * lower)).sum())
+    return nbytes_, ops
+
+
+def fold_usage_work(rows, n, r):
+    """(bytes, integer operations) of fold_usage: the live entries' row,
+    vector and count read once, each touched bank row read and written
+    once; R + 1 adds an entry."""
+    live = rows[(rows >= 0) & (rows < n)]
+    cells = int(torch.unique(live).numel())
+    return int(live.numel()) * (4 + 8 * r + 4) + 2 * cells * (8 * r + 4), int(live.numel()) * (r + 1)
 
 
 def bound(work):
@@ -966,6 +1031,109 @@ def library_fold_ms(banks, ctl, pods):
         return None
 
 
+def compare_preempt(arrays, label, time_it: bool):
+    """Hold preempt_batch against its plain version on the same CUDA
+    tensors; with time_it, time the kernel (one prebuilt struct
+    relaunched) and the plain version, and bound it. Returns its stats."""
+    from kubernetes_tpu_torch.kernels import build
+    from kubernetes_tpu_torch.ops import preempt as PR
+    from kubernetes_tpu_torch.state.convert import arrays_to_torch
+
+    a = arrays_to_torch(arrays, "cuda")
+    got = PR.preempt_batch(**a)
+    want = PR.preempt_batch_plain(**a)
+    bad = sum(int((g != w).sum()) for g, w in zip(got, want))
+    check(bad == 0, f"[{label}] preempt_batch kernel differs from its plain version in {bad} values")
+    found = int((got[0] >= 0).sum())
+    p, n = a["cand"].shape
+    v, r = a["vict_req"].shape[1:]
+    st = {"max_abs_err": int(max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want)))}
+    log(f"[kernels] {label}: P={p} N={n} V={v} R={r}: preempt_batch exact ({found} preemptors placed, "
+        f"{int(got[2][a['p_valid']].sum())} fit as things stand)")
+    if time_it:
+        pargs, _ = PR.preempt_args(**a)
+        st["ms"] = cuda_ms(lambda: build.launch(PR.PREEMPT_ENTRY, pargs, a["cand"].device), 5)
+        st["plain_ms"] = cuda_ms(lambda: PR.preempt_batch_plain(**a), 1)
+        st["bound"] = bound(preempt_work(a))
+        log(f"[kernels] {label} preempt_batch: kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, "
+            f"bound {st['bound'][0]:.6f} ms ({st['bound'][1]})")
+    return st
+
+
+def compare_fold_usage(label, n, r, nominees, time_it: bool):
+    """Hold fold_usage against its plain version with `nominees` entries
+    (about two a node: duplicate rows) padded by sentinel rows to the next
+    power of two, and its inverse against the bank it started from; with
+    time_it, time the kernel, the plain version and the library's
+    index_put_(accumulate=True) per column on the `nominees` entries alone
+    (the driver's overlay has no padding), and bound it."""
+    from kubernetes_tpu_torch.kernels import build
+    from kubernetes_tpu_torch.ops import fold as FO
+    from kubernetes_tpu_torch.state.tensors import pow2_bucket
+
+    g = torch.Generator().manual_seed(6)
+    b = pow2_bucket(nominees)
+    requested = torch.randint(0, 10**12, (n, r), generator=g).cuda()
+    pod_count = torch.randint(0, 110, (n,), generator=g).int().cuda()
+    rows = torch.full((b,), n, dtype=torch.int32)
+    rows[:nominees] = torch.randperm(nominees, generator=g).int() % max(n - 12, 1)
+    vecs = torch.zeros((b, r), dtype=torch.int64)
+    vecs[:nominees, 0] = 6000
+    vecs[:nominees, 1] = 2 << 30
+    cnt = (rows < n).int()
+    rows, vecs, cnt = rows.cuda(), vecs.cuda(), cnt.cuda()
+    kreq, kpc = requested.clone(), pod_count.clone()
+    FO.fold_usage(kreq, kpc, rows, vecs, cnt)
+    preq, ppc = FO.fold_usage_plain(requested.clone(), pod_count.clone(), rows, vecs, cnt)
+    err = max(int((kreq - preq).abs().max()), int((kpc - ppc).abs().max()))
+    check(err == 0, f"[{label}] fold_usage kernel differs from its plain version by {err}")
+    FO.fold_usage(kreq, kpc, rows, -vecs, -cnt)
+    check(torch.equal(kreq, requested) and torch.equal(kpc, pod_count),
+          f"[{label}] fold_usage's inverse did not restore the bank")
+    st = {"max_abs_err": err}
+    log(f"[kernels] {label}: N={n} R={r} B={b} ({nominees} nominees): fold_usage exact, its inverse restores "
+        f"the bank bit for bit")
+    if time_it:
+        rows, vecs, cnt = rows[:nominees].contiguous(), vecs[:nominees].contiguous(), cnt[:nominees].contiguous()
+        uargs = FO.fold_usage_args(kreq, kpc, rows, vecs, cnt)
+        st["ms"] = cuda_ms(lambda: build.launch(FO.FOLD_USAGE_ENTRY, uargs, kreq.device), 200)
+        st["plain_ms"] = cuda_ms(lambda: FO.fold_usage_plain(preq, ppc, rows, vecs, cnt), 20)
+        st["bound"] = bound(fold_usage_work(rows, n, r))
+        lr = rows.long()
+        st["library_ms"] = (cuda_ms(lambda: kreq.index_put_((lr,), vecs, accumulate=True), 200)
+                            + cuda_ms(lambda: kpc.index_put_((lr,), cnt, accumulate=True), 200))
+        log(f"[kernels] {label} fold_usage: kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, bound "
+            f"{st['bound'][0]:.6f} ms ({st['bound'][1]}), library {st['library_ms']:.4f} ms")
+    return st
+
+
+def phase_preempt_kernels():
+    """preempt_batch on every branch and at the config-6 shapes; fold_usage
+    likewise. Returns {kernel: stats}."""
+    from kubernetes_tpu_torch.models.clusters import (
+        bench_config6,
+        random_preempt_arrays,
+        random_preemption_cluster,
+    )
+    from kubernetes_tpu_torch.oracle.nodeinfo import Snapshot
+    from kubernetes_tpu_torch.scheduler.preemption import preempt_arrays
+
+    for seed, (p, n, v, r) in enumerate([(48, 40, 8, 8), (24, 20, 64, 8), (20, 16, 8, 16), (40, 1100, 8, 8)]):
+        compare_preempt(random_preempt_arrays(seed, p, n, v, r), f"preempt all-branches {seed}", time_it=False)
+    nodes, existing, pending, pdbs = random_preemption_cluster(3, n_nodes=60, n_pending=120)
+    snap = Snapshot(nodes, existing)
+    names = list(snap.node_infos)
+    arrays, _, _ = preempt_arrays(pending[:-20], snap, pdbs=pdbs,
+                                  nominated=[(names[i % len(names)], p) for i, p in enumerate(pending[-20:])])
+    compare_preempt(arrays, "preempt random cluster", time_it=False)
+    nodes, existing, pending = bench_config6(CONFIG6_NODES, CONFIG6_PREEMPTORS)
+    arrays, _, _ = preempt_arrays(pending, Snapshot(nodes, existing))
+    stats = {"preempt_batch": compare_preempt(arrays, "config-6", time_it=True)}
+    compare_fold_usage("fold_usage all-branches", 40, 16, 70, time_it=False)
+    stats["fold_usage"] = compare_fold_usage("config-6", 512, 8, CONFIG6_PREEMPTORS - CONFIG6_BATCH, time_it=True)
+    return stats
+
+
 def config4_batch(n_existing: int):
     """The config-4 shapes mid-drain: the full cluster holding `n_existing`
     bound pods (pod i on node (7 i) mod N, so no node holds two pods of one
@@ -1042,6 +1210,7 @@ def phase_kernels():
         f"plain {hard['arbitrate']['plain_ms']:.4f} ms")
     stats.update(hard)
     stats.update(compare_commit(enc4, "config-4", time_it=True, parts=("arbitrate",)))
+    stats.update(phase_preempt_kernels())
     return stats
 
 
@@ -1055,6 +1224,7 @@ def kernel_counters():
 
     from kubernetes_tpu_torch.commit import arbiter as A
     from kubernetes_tpu_torch.ops import fold as FO
+    from kubernetes_tpu_torch.ops import preempt as PR
 
     return {
         "filter_mask": (F.combined_mask, "launches"), "score_matrix": (S.score_matrix, "launches"),
@@ -1066,6 +1236,7 @@ def kernel_counters():
         "solve_greedy_inb": (SO.solve_greedy, "tracked_launches"),
         "spread_filter": (TO.spread_filter, "launches"), "arbitrate": (A.arbitrate, "launches"),
         "fold_commit_banks": (FO.fold_commit_banks, "launches"),
+        "preempt_batch": (PR.preempt_batch, "launches"), "fold_usage": (FO.fold_usage, "launches"),
     }
 
 
@@ -1099,6 +1270,82 @@ def drain(device, workload, n_nodes, n_pods, batch, deterministic, seed=0, servi
     wall = time.perf_counter() - t0
     sched.close()
     return sched, nodes, pods, res, wall
+
+
+class StepClock:
+    """A queue clock that the drain loop steps: the backoff then waits on
+    the loop, not on wall time, so two drains see the same queue."""
+
+    def __init__(self):
+        self.t = 1000.0
+
+    def __call__(self):
+        return self.t
+
+
+def drain6(device, n_nodes, n_preemptors, batch, planes=True, stepped=False):
+    """Drain config 6 to the end with preemption on. After every batch
+    the binds are awaited; when a batch does nothing while pods wait out
+    their backoff, the loop waits (a stepped clock steps 1 s; the real
+    clock sleeps 50 ms) and moves the unschedulable pods back, as
+    bench.py's drain does. Returns a dict of what it saw."""
+    from kubernetes_tpu_torch.models.clusters import bench_config6, fill_cache
+    from kubernetes_tpu_torch.scheduler.driver import Scheduler
+    from kubernetes_tpu_torch.state.cache import SchedulerCache
+    from kubernetes_tpu_torch.state.queue import PriorityQueue
+
+    nodes, existing, pending = bench_config6(n_nodes, n_preemptors)
+    clock = StepClock() if stepped else time.monotonic
+    cache, queue = SchedulerCache(), PriorityQueue(now=clock)
+    fill_cache(cache, nodes, existing)
+    for p in pending:
+        queue.add(p)
+    victims, unnominated, bad_victims = [], [], []
+
+    def delete(v):
+        if cache.is_assumed(v.key()):
+            bad_victims.append(f"{v.key()} was assumed")
+        victims.append(v.key())
+        unnominated.append(v)
+        cache.remove_pod(v)
+
+    def nominate(pod, node):
+        for v in unnominated:
+            if v.get_priority() >= pod.get_priority() or v.node_name != node:
+                bad_victims.append(f"{v.key()} (priority {v.get_priority()} on {v.node_name}) for {pod.key()} on {node}")
+        unnominated.clear()
+
+    sched = Scheduler(cache, queue, batch_size=batch, deterministic=True, device=device, commit_plane=planes,
+                      delete_fn=delete, nominate_fn=nominate)
+    out = {"assignments": {}, "nominations": [], "preempted": 0, "batch_s": 0.0}
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    idle = 0
+    for _ in range(10000):
+        tb = time.perf_counter()
+        r = sched.schedule_batch()
+        sched.wait_for_binds()
+        out["batch_s"] += time.perf_counter() - tb
+        out["assignments"].update(r.assignments)
+        out["preempted"] += r.preempted
+        out["nominations"].append(dict(queue.nominated))
+        if r.scheduled or r.unschedulable or r.deferred:
+            idle = 0
+            continue
+        if sum(queue.counts()) == 0 or idle >= 400:
+            break
+        idle += 1
+        if stepped:
+            clock.t += 1.0
+        else:
+            time.sleep(0.05)
+        queue.move_all_to_active()
+    out["wall"] = time.perf_counter() - t0
+    sched.close()
+    check(not bad_victims, f"config-6 drain: bad victims {bad_victims[:5]}")
+    out.update(sched=sched, nodes=nodes, existing=existing, pending=pending, victims=victims)
+    return out
 
 
 def phase_parity():
@@ -1156,6 +1403,29 @@ def phase_parity():
         f"identical placements and defers on cuda and cpu ({gpu.scheduled} pods, {g['batches']} batches, "
         f"{g['arbiter_defer']} defers, 0 escalations; max per-app zone skew {skew}; cuda {tg:.2f}s, "
         f"cpu {tc:.2f}s); launches {launches}")
+    # config 6 at 1/10: preemption, the nominee overlay and fold_usage
+    n6, p6 = CONFIG6_NODES // 10, CONFIG6_PREEMPTORS // 10
+    need = ["filter_mask", "score_matrix", "solve_greedy", "fold_commit_banks", "preempt_batch", "fold_usage"]
+    gpu, launches6 = run_main_path("config-6 /10", need, lambda: drain6("cuda", n6, p6, CONFIG6_SMALL_BATCH,
+                                                                        stepped=True))
+    off = drain6("cuda", n6, p6, CONFIG6_SMALL_BATCH, planes=False, stepped=True)
+    cpu = drain6("cpu", n6, p6, CONFIG6_SMALL_BATCH, stepped=True)
+    for name, other in (("cpu", cpu), ("planes off", off)):
+        for key in ("assignments", "victims", "nominations", "preempted"):
+            check(gpu[key] == other[key], f"config-6 /10: {key} differ on cuda and {name}")
+    g = gpu["sched"].stats
+    check(len(gpu["assignments"]) == p6 and gpu["preempted"] == p6 and g["preempt_reverify_miss"] == 0,
+          f"config-6 /10 placed {len(gpu['assignments'])}, preempted {gpu['preempted']} of {p6}, "
+          f"{g['preempt_reverify_miss']} plans rejected by the host re-verification")
+    check(off["sched"].stats["nominee_folds"] == g["nominee_folds"] > 0 and launches6["fold_usage"] > 0,
+          f"config-6 /10: nominee folds {g['nominee_folds']} (planes off {off['sched'].stats['nominee_folds']})")
+    log(f"[parity] config-6 /10 ({n6} nodes, {n6 * 7} bound, {p6} preemptors, batch {CONFIG6_SMALL_BATCH}, stepped "
+        f"clock): identical placements, victims in order, nominations after every batch and preempted count on "
+        f"cuda, cpu and planes-off cuda ({len(gpu['assignments'])} placed, {len(gpu['victims'])} victims, "
+        f"{g['batches']} batches, {g['preempt_batches']} preemption rounds, {g['nominee_folds']} nominee folds; "
+        f"cuda {gpu['wall']:.2f}s, planes off {off['wall']:.2f}s, cpu {cpu['wall']:.2f}s); launches {launches6}")
+    for k, v in launches6.items():
+        launches[k] = launches.get(k, 0) + v
     return launches
 
 
@@ -1414,7 +1684,53 @@ def phase_drain(smi, total):
         f"{sched.stats['tracked_batches']} of {sched.stats['batches']} batches tracked; term kinds "
         f"{sorted(sched._term_kinds)}, V={sched._v_bucket}, TT={sched._t_bucket}; share of pods in their "
         f"app's most common zone {zone_share(nodes, pods, res):.4f} (information only); launches {launches}")
+    for batch in (BATCH, CONFIG6_BATCH):
+        need = ["filter_mask", "score_matrix", "solve_greedy", "fold_commit_banks", "preempt_batch"]
+        if batch < CONFIG6_PREEMPTORS:
+            need.append("fold_usage")
+        torch.cuda.reset_peak_memory_stats()
+        out, launches = run_main_path(f"config-6 batch {batch}", need, lambda: drain6(
+            "cuda", CONFIG6_NODES, CONFIG6_PREEMPTORS, batch))
+        add(launches)
+        verify_config6(out, f"config-6 batch {batch}")
+        sched = out["sched"]
+        st = sched.stats
+        log(f"[drain] config-6 full ({CONFIG6_NODES} nodes, {CONFIG6_NODES * 7} bound, {CONFIG6_PREEMPTORS} "
+            f"preemptors, batch {batch}): {len(out['assignments'])} placed, {len(out['victims'])} victims, every "
+            f"victim below its preemptor's priority and never assumed, no node over its limits, device node bank "
+            f"== fresh host encode with no nominee overlay; wall {out['wall']:.3f}s (it waits out the queue's "
+            f"backoff), schedule_batch {out['batch_s']:.3f}s summed ({st['batches']} batches: sync "
+            f"{st['sync_s']:.3f}s encode {st['encode_s']:.3f}s solve {st['solve_s']:.3f}s commit "
+            f"{st['commit_s']:.3f}s); {st['preempt_batches']} preemption rounds, preempt_s {st['preempt_s']:.3f}, "
+            f"preempted {st['preempted']}, reverify misses {st['preempt_reverify_miss']}, nominee folds "
+            f"{st['nominee_folds']}; max_memory_allocated {torch.cuda.max_memory_allocated()} B; card {smi}; "
+            f"launches {launches}")
     return total
+
+
+def verify_config6(out, label):
+    """Every preemptor placed; no plan rejected by the host
+    re-verification; no node over its allocatable or pod limit; the device
+    node bank equal to a fresh host encode, with no nominee overlay on it
+    (the victims' priorities and assumed state are checked as they go, in
+    drain6's hooks)."""
+    sched = out["sched"]
+    n_pre = len(out["pending"])
+    check(len(out["assignments"]) == n_pre, f"{label}: {len(out['assignments'])} of {n_pre} preemptors placed")
+    check(sched.stats["preempt_reverify_miss"] == 0,
+          f"{label}: {sched.stats['preempt_reverify_miss']} plans rejected by the host re-verification")
+    check(sched.mirror._nominee_overlay is None and not sched.queue.has_nominations(),
+          f"{label}: a nominee overlay or a nomination is left")
+    mirror = sched.mirror
+    mirror.sync()
+    bank = mirror.nodes
+    valid = bank.valid
+    check(bool((bank.requested[valid] <= bank.alloc[valid]).all()), f"{label}: a node's requests exceed its allocatable")
+    check(bool((bank.pod_count[valid] <= bank.allowed_pods[valid]).all()), f"{label}: a node holds too many pods")
+    want = len(out["existing"]) - len(out["victims"]) + n_pre
+    check(int(bank.pod_count[valid].sum()) == want, f"{label}: the node bank counts {int(bank.pod_count[valid].sum())} "
+          f"pods, expected {want}")
+    verify_node_bank(sched)
 
 
 def main() -> int:
@@ -1448,6 +1764,8 @@ def main() -> int:
         "spread_filter": ("kubernetes_tpu_torch/csrc/topology.cu", "kubernetes_tpu/ops/topology.py:182"),
         "arbitrate": ("kubernetes_tpu_torch/csrc/arbiter.cu", "kubernetes_tpu/commit/arbiter.py:157"),
         "fold_commit_banks": ("kubernetes_tpu_torch/csrc/fold.cu", "kubernetes_tpu/ops/fold.py:44"),
+        "preempt_batch": ("kubernetes_tpu_torch/csrc/preempt.cu", "kubernetes_tpu/ops/preempt.py:63"),
+        "fold_usage": ("kubernetes_tpu_torch/csrc/fold.cu", "kubernetes_tpu/ops/fold.py:74"),
     }
     kernels = []
     for kname, (src, ref) in sources.items():

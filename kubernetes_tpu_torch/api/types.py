@@ -357,3 +357,42 @@ def _request_value(resource_name: str, q: Quantity) -> int:
     if resource_name == RESOURCE_CPU:
         return q.milli_value()
     return q.value()
+
+
+@dataclass
+class PodDisruptionBudget:
+    """policy/v1beta1 PodDisruptionBudget. Preemption's PDB filter
+    (filterPodsWithPDBViolation, core/generic_scheduler.go:1055) reads its
+    namespace, selector and status.disruptionsAllowed."""
+
+    name: str = ""
+    namespace: str = "default"
+    selector: Optional[LabelSelector] = None
+    resource_version: str = ""
+    # spec — int, or a "N%" string resolved against the expected pod count
+    min_available: Optional[Any] = None
+    max_unavailable: Optional[Any] = None
+    # status (disruption.go updatePdbStatus)
+    disruptions_allowed: int = 0
+    current_healthy: int = 0
+    desired_healthy: int = 0
+    expected_pods: int = 0
+
+    def key(self) -> str:
+        return f"{self.namespace}/{self.name}"
+
+
+@dataclass
+class PriorityClass:
+    """scheduling.k8s.io/v1 PriorityClass (pkg/apis/scheduling/types.go):
+    name → integer priority, which the Priority admission plugin writes into
+    pod.spec.priority at create time. Cluster-scoped."""
+
+    name: str = ""
+    value: int = 0
+    global_default: bool = False
+    description: str = ""
+    resource_version: str = ""
+
+    def key(self) -> str:
+        return self.name

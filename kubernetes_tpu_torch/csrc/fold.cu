@@ -20,6 +20,13 @@
 // Bound: bytes. The lanes read their control rows once and touch
 // R + 2 + 1 + 1 (or 1) bank cells each; a few thousand lanes are a few
 // hundred KB, so a launch costs its latency, not its bandwidth.
+//
+// fold_usage_kernel replaces kubernetes_tpu/ops/fold.py:fold_usage (:74),
+// the preemption nominees' overlay on the usage columns: thread i adds
+// entry i's request vector and pod count into its node row with the same
+// 64- and 32-bit atomics (several nominees on one node are duplicate rows);
+// the driver removes the overlay with negated vectors and counts, an exact
+// integer inverse. Bound: bytes, a few KB a launch.
 #include "common.cuh"
 
 #define FOLD_THREADS 256
@@ -80,6 +87,32 @@ __global__ void fold_commit_kernel(const FoldArgs a) {
     if (row < 0 || row >= a.N || col < 0 || col >= a.PT) return;
     add_i16(a.pat_counts + (int64_t)row * a.PT + col, (int32_t)a.pat_cnt[j]);
   }
+}
+
+struct FoldUsageArgs {
+  int64_t* requested;   // [N, R]
+  int32_t* pod_count;   // [N]
+  const int32_t* rows;  // [B] node row per entry (N = pad)
+  const int64_t* vecs;  // [B, R]
+  const int32_t* cnt;   // [B]
+  int32_t N, R, B;
+};
+
+__global__ void fold_usage_kernel(const FoldUsageArgs a) {
+  const int i = blockIdx.x * blockDim.x + threadIdx.x;
+  if (i >= a.B) return;
+  const int32_t row = a.rows[i];
+  if (row < 0 || row >= a.N) return;
+  for (int r = 0; r < a.R; ++r) add_i64(a.requested + (int64_t)row * a.R + r, a.vecs[(int64_t)i * a.R + r]);
+  const int32_t c = a.cnt[i];
+  if (c != 0) atomicAdd(a.pod_count + row, c);
+}
+
+extern "C" int ktpu_fold_usage(const FoldUsageArgs* args, cudaStream_t stream) {
+  if (args->B > 0) {
+    fold_usage_kernel<<<(args->B + FOLD_THREADS - 1) / FOLD_THREADS, FOLD_THREADS, 0, stream>>>(*args);
+  }
+  return (int)cudaGetLastError();
 }
 
 extern "C" int ktpu_fold_commit_banks(const FoldArgs* args, cudaStream_t stream) {

@@ -17,6 +17,14 @@ constructors), and the two can be held pod for pod against each other.
   pods in 20 apps: every 10th pod with a required hostname anti-affinity
   against its own `exclusive` label, the rest with a preferred zone
   affinity to their own app).
+* `bench_config6` — bench.py config 6 (500 nodes of 32 cores, each
+  holding 7 bound priority-0 pods of 4 cores; 2,000 pending priority-1000
+  pods of 6 cores / 2Gi that land only by preemption).
+* `random_preemption_cluster` — a seeded cluster meant to reach every
+  branch of preemption: mixed priorities, PodDisruptionBudgets with and
+  without disruptions left, an extended resource, taints, unschedulable
+  and full nodes, pods that fit as things stand, pods that request
+  nothing, and (optionally) host ports.
 * `commit_plane_mix` — scripts/perf_smoke.py's tiny commit-plane
   workload: zoned nodes, 1/8 of the pods with a required hostname
   anti-affinity, 1/8 with a DoNotSchedule zone spread in their own label
@@ -209,6 +217,146 @@ def bench_config4(n_nodes: int, n_pods: int, t: ModuleType = port_types) -> Tupl
                     label_selector=t.LabelSelector(match_labels={"app": app}), topology_key=ZONE_KEY))]))
         pods.append(p)
     return nodes, pods
+
+
+# --- bench.py config 6 ------------------------------------------------------
+
+#: a fixed epoch for the seeded creation timestamps (seconds)
+T0 = 1_700_000_000.0
+
+
+def bench_config6(n_nodes: int, n_preemptors: int, t: ModuleType = port_types, seed: int = 0):
+    """bench.py cfg6_preemption: `n_nodes` nodes of 32 cores / 256Gi /
+    110 pods, each holding 7 bound priority-0 pods of 4000m / 1Gi (28 of
+    its 32 cores), and `n_preemptors` pending pods of 6000m / 2Gi, priority
+    class `bench-critical`, so that they land only by preemption. The
+    pending pods carry priority 1000 directly (the value the reference's
+    Priority admission plugin writes for that class) and every pod a
+    seeded creation timestamp (the bound ones within the hour before the
+    pending ones, which arrive 1 ms apart). Returns (nodes, existing,
+    pending)."""
+    rng = np.random.default_rng(seed)
+    nodes = [_bench_node(t, i, taint=False) for i in range(n_nodes)]
+    existing = []
+    for i in range(n_nodes * 7):
+        p = t.Pod(
+            name=f"pod-{1_000_000 + i}",
+            namespace="bench",
+            labels={"app": f"lowprio-{i % 20}"},
+            containers=[t.Container(name="c", requests={
+                t.RESOURCE_CPU: t.Quantity.parse("4000m"),
+                t.RESOURCE_MEMORY: t.Quantity.parse("1Gi"),
+            })],
+            priority=0,
+            node_name=f"node-{i % n_nodes}",
+            creation_timestamp=T0 + float(rng.uniform(0.0, 3600.0)),
+        )
+        existing.append(p)
+    pending = []
+    for i in range(n_preemptors):
+        pending.append(t.Pod(
+            name=f"pod-{i}",
+            namespace="bench",
+            labels={"app": f"hiprio-{i % 20}"},
+            containers=[t.Container(name="c", requests={
+                t.RESOURCE_CPU: t.Quantity.parse("6000m"),
+                t.RESOURCE_MEMORY: t.Quantity.parse("2Gi"),
+            })],
+            priority=1000,
+            priority_class_name="bench-critical",
+            creation_timestamp=T0 + 3600.0 + i * 1e-3,
+        ))
+    return nodes, existing, pending
+
+
+def random_preemption_cluster(seed: int, n_nodes: int = 24, n_pending: int = 40, t: ModuleType = port_types,
+                              pdbs: bool = True, ports: bool = False):
+    """(nodes, existing bound pods, pending pods, PodDisruptionBudgets).
+
+    Nodes of 4-8 cores, 8-16Gi and 4-10 pods, some with an extended
+    resource (`GPU`), a NoSchedule taint, a `tier` label or marked
+    unschedulable, most of them filled close to their cpu or pod limit by
+    bound pods of priority 0, 10, 50 or 100 in apps a0-a3 (some holding
+    the extended resource); pending pods of priority 0, 50, 100 or 1000
+    (a few requesting nothing, some the extended resource, some with a
+    node selector or the taint's toleration). With `pdbs`, budgets on apps
+    a0-a2 with 0 or 1 disruptions left (and one with an empty selector);
+    with `ports`, host ports on some bound and pending pods."""
+    rng = np.random.default_rng(seed)
+    nodes = []
+    for i in range(n_nodes):
+        alloc = {
+            t.RESOURCE_CPU: t.Quantity.parse(f"{int(rng.integers(4, 9)) * 1000}m"),
+            t.RESOURCE_MEMORY: t.Quantity.parse(f"{int(rng.integers(8, 17))}Gi"),
+            t.RESOURCE_PODS: t.Quantity.parse(int(rng.integers(4, 11))),
+        }
+        if rng.random() < 0.3:
+            alloc[GPU] = t.Quantity.parse(int(rng.integers(1, 4)))
+        labels = {HOST_KEY: f"n{i}"}
+        if rng.random() < 0.5:
+            labels["tier"] = _pick(rng, ("a", "b"))
+        taints = [t.Taint(key="dedicated", value="x", effect="NoSchedule")] if rng.random() < 0.15 else []
+        nodes.append(t.Node(name=f"n{i}", labels=labels, taints=taints, unschedulable=bool(rng.random() < 0.08),
+                            allocatable=alloc, capacity=dict(alloc)))
+    existing = []
+    k = 0
+    for node in nodes:
+        cpu_cap = node.allocatable[t.RESOURCE_CPU].milli_value()
+        pods_cap = node.allocatable[t.RESOURCE_PODS].value()
+        used = 0
+        for _ in range(pods_cap - int(rng.integers(0, 2))):
+            cpu = int(_pick(rng, (500, 1000, 1500, 2000)))
+            if used + cpu > cpu_cap - int(_pick(rng, (0, 0, 500, 1000))):
+                break
+            requests = {t.RESOURCE_CPU: t.Quantity.parse(f"{cpu}m"),
+                        t.RESOURCE_MEMORY: t.Quantity.parse(f"{int(rng.integers(1, 5)) * 256}Mi")}
+            if GPU in node.allocatable and rng.random() < 0.3:
+                requests[GPU] = t.Quantity.parse(1)
+            cports = []
+            if ports and rng.random() < 0.2:
+                cports = [t.ContainerPort(host_port=int(_pick(rng, (80, 8080))), container_port=80)]
+            existing.append(t.Pod(
+                name=f"e{k}", namespace=_pick(rng, ("default", "default", "team-a")),
+                labels={"app": f"a{int(rng.integers(0, 4))}"},
+                containers=[t.Container(name="c", requests=requests, ports=cports)],
+                priority=int(_pick(rng, (0, 0, 10, 50, 100))), node_name=node.name,
+                creation_timestamp=T0 + float(rng.uniform(0.0, 1000.0)),
+            ))
+            used += cpu
+            k += 1
+    pending = []
+    for i in range(n_pending):
+        requests = {}
+        if rng.random() > 0.08:
+            requests[t.RESOURCE_CPU] = t.Quantity.parse(f"{int(_pick(rng, (500, 1500, 2500, 4000)))}m")
+            requests[t.RESOURCE_MEMORY] = t.Quantity.parse(f"{int(rng.integers(1, 9)) * 256}Mi")
+            if rng.random() < 0.15:
+                requests[GPU] = t.Quantity.parse(1)
+        cports = []
+        if ports and rng.random() < 0.2:
+            cports = [t.ContainerPort(host_port=int(_pick(rng, (80, 8080))), container_port=80)]
+        p = t.Pod(
+            name=f"p{i}", namespace="default", labels={"app": f"a{int(rng.integers(0, 4))}"},
+            containers=[t.Container(name="c", requests=requests, ports=cports)],
+            priority=int(_pick(rng, (0, 50, 100, 1000, 1000))),
+            creation_timestamp=T0 + 2000.0 + i,
+        )
+        if rng.random() < 0.15:
+            p.node_selector = {"tier": _pick(rng, ("a", "b"))}
+        if rng.random() < 0.3:
+            p.tolerations = [t.Toleration(key="dedicated", operator="Exists", effect="NoSchedule")]
+        pending.append(p)
+    budgets = []
+    if pdbs:
+        for j in range(3):
+            budgets.append(t.PodDisruptionBudget(
+                name=f"pdb{j}", namespace="default",
+                selector=t.LabelSelector(match_labels={"app": f"a{j}"}),
+                disruptions_allowed=int(_pick(rng, (0, 0, 1))),
+            ))
+        budgets.append(t.PodDisruptionBudget(name="empty", namespace="default", selector=t.LabelSelector(),
+                                             disruptions_allowed=0))
+    return nodes, existing, pending, budgets
 
 
 # --- the all-branches random cluster ----------------------------------------
@@ -548,3 +696,62 @@ def fill_cache(cache, nodes: list, existing: Optional[List] = None) -> None:
         cache.add_node(n)
     for p in existing or []:
         cache.add_pod(p)
+
+
+def random_preempt_arrays(seed: int, p: int = 48, n: int = 40, v: int = 8, r: int = 8) -> dict:
+    """Seeded padded inputs of ops/preempt.preempt_batch (numpy, the
+    driver's dtypes) meant to reach every branch of the scan: candidate
+    masks with holes, preemptors that request nothing (p_req_any False) or
+    an extended-resource slot (>= 3), nodes over- and under-committed and
+    without pod slack, PDB-violating slots, negative and duplicate start
+    times, outstanding nominee charges, the last 5 preemptor and 4 node
+    rows padding. Two thirds of the nodes copy one of a few
+    template nodes, changing at most one of start times, a victim's
+    priority, a victim's request or a PDB flag, so the six-key pick is
+    decided at every key, the row included."""
+    rng = np.random.default_rng(seed)
+    a = {}
+    a["cand"] = rng.random((p, n)) < 0.85
+    req = rng.integers(0, 4, (p, r)).astype(np.int64) * 1000
+    req[:, 3:] = np.where(rng.random((p, r - 3)) < 0.15, rng.integers(1, 3, (p, r - 3)), 0)
+    req[rng.random(p) < 0.08] = 0
+    a["p_req"] = req
+    a["p_req_any"] = req.any(axis=1)
+    a["p_prio"] = rng.choice([0, 5, 10, 100], p).astype(np.int32)
+    a["p_valid"] = np.arange(p) < p - 5
+    n_tmpl = 4
+    vreq = rng.integers(0, 3, (n, v, r)).astype(np.int64) * 1000
+    vreq[:, :, 3:] = np.where(rng.random((n, v, r - 3)) < 0.1, 1, 0)
+    vprio = rng.choice([-3, 0, 0, 5, 50], (n, v)).astype(np.int32)
+    vts = rng.choice([-7_000_000, -3, 0, 4_000_000, 4_000_000, 9_000_000], (n, v)).astype(np.int64)
+    vpdb = rng.random((n, v)) < 0.2
+    vvalid = rng.random((n, v)) < 0.85
+    free0 = rng.integers(-1, 3, (n, r)).astype(np.int64) * 1000
+    free0[:, 3:] = rng.integers(0, 2, (n, r - 3))
+    count_free0 = rng.integers(0, 4, n).astype(np.int32)
+    for i in range(n // 3, n):
+        j = int(rng.integers(0, n_tmpl))
+        vreq[i], vprio[i], vts[i], vpdb[i], vvalid[i] = vreq[j], vprio[j], vts[j], vpdb[j], vvalid[j]
+        free0[i], count_free0[i] = free0[j], count_free0[j]
+        change = int(rng.integers(0, 5))
+        slot = int(rng.integers(0, v))
+        if change == 1:
+            vts[i] = vts[i] + int(rng.integers(-2, 3)) * 1_000_000
+        elif change == 2:
+            vprio[i, slot] = int(rng.choice([-3, 0, 5]))
+        elif change == 3:
+            vreq[i, slot, 0] += 1000
+        elif change == 4:
+            vpdb[i, slot] = not vpdb[i, slot]
+    a["vict_req"] = vreq
+    a["vict_prio"] = vprio
+    a["vict_ts"] = vts
+    a["vict_pdb"] = vpdb
+    a["vict_valid"] = vvalid
+    a["free0"] = free0
+    a["count_free0"] = count_free0
+    a["node_valid"] = np.arange(n) < n - 4
+    nom = rng.random(n) < 0.2
+    a["nom_extra0"] = np.where(nom[:, None], rng.integers(0, 2, (n, r)) * 1000, 0).astype(np.int64)
+    a["nom_cnt0"] = nom.astype(np.int32)
+    return a

@@ -22,6 +22,16 @@ add.
 On CUDA tensors `fold_commit_banks` launches `csrc/fold.cu` (counted in
 `fold_commit_banks.launches`); on CPU tensors it runs the plain version.
 Any other device raises.
+
+`fold_usage` is the port of `kubernetes_tpu/ops/fold.py:74`: the usage
+columns alone (`requested[rows] += vecs; pod_count[rows] += cnt`, mode
+"drop"), which the driver uses to overlay the out-of-batch preemption
+nominees onto the node bank at dispatch and to take the overlay off again
+with negated vecs and counts (integer adds invert exactly). Several
+nominees on one node give duplicate rows, so its kernel (`csrc/fold.cu`,
+counted apart in `fold_usage.launches`) adds with integer atomics. The
+same call on a clone of the columns is the reference's copy overlay
+(`scheduler/driver.py:404 _nominee_fold_fn`).
 """
 
 from __future__ import annotations
@@ -33,6 +43,7 @@ import torch
 from ..kernels import build
 
 FOLD_ENTRY = "ktpu_fold_commit_banks"
+FOLD_USAGE_ENTRY = "ktpu_fold_usage"
 
 
 def fold_commit_banks_plain(
@@ -138,3 +149,62 @@ def fold_commit_banks(requested, nonzero_req, pod_count, sig_counts, pat_counts,
 
 
 fold_commit_banks.launches = 0
+
+
+def fold_usage_plain(
+    requested: torch.Tensor,  # [N, R] int64, updated in place
+    pod_count: torch.Tensor,  # [N] int32, updated in place
+    rows: torch.Tensor,       # [B] int32 node row per entry (N = pad)
+    vecs: torch.Tensor,       # [B, R] int64 request vector per entry
+    cnt: torch.Tensor,        # [B] int32 pod-count delta per entry
+):
+    """The reference's two scatter-adds with mode="drop". Returns
+    (requested, pod_count), the same tensors, updated."""
+    n = requested.shape[0]
+    live = (rows >= 0) & (rows < n)
+    r = rows[live].long()
+    requested.index_put_((r,), vecs[live].to(requested.dtype), accumulate=True)
+    pod_count.index_put_((r,), cnt[live].to(pod_count.dtype), accumulate=True)
+    return requested, pod_count
+
+
+class FoldUsageArgs(ctypes.Structure):
+    """Mirror of `struct FoldUsageArgs` in csrc/fold.cu."""
+
+    _fields_ = (
+        [(k, ctypes.c_void_p) for k in ("requested", "pod_count", "rows", "vecs", "cnt")]
+        + [(d, ctypes.c_int32) for d in ("N", "R", "B")]
+    )
+
+
+def fold_usage_args(requested, pod_count, rows, vecs, cnt) -> FoldUsageArgs:
+    """The usage fold's argument struct for these CUDA tensors (raises on
+    a device, dtype, shape or layout the kernel does not take)."""
+    n, r = requested.shape
+    b = rows.shape[0]
+    a = FoldUsageArgs()
+    a.requested = build.ptr(requested, torch.int64, (n, r))
+    a.pod_count = build.ptr(pod_count, torch.int32, (n,))
+    a.rows = build.ptr(rows, torch.int32, (b,))
+    a.vecs = build.ptr(vecs, torch.int64, (b, r))
+    a.cnt = build.ptr(cnt, torch.int32, (b,))
+    a.N, a.R, a.B = n, r, b
+    return a
+
+
+def fold_usage(requested, pod_count, rows, vecs, cnt):
+    """Add the entries' request vectors and pod counts into the usage
+    columns, in place. CPU tensors run the plain version; CUDA tensors
+    launch csrc/fold.cu (counted in `fold_usage.launches`). Returns
+    (requested, pod_count)."""
+    dev = requested.device
+    if dev.type == "cpu":
+        return fold_usage_plain(requested, pod_count, rows, vecs, cnt)
+    if dev.type == "cuda":
+        build.launch(FOLD_USAGE_ENTRY, fold_usage_args(requested, pod_count, rows, vecs, cnt), dev)
+        fold_usage.launches += 1
+        return requested, pod_count
+    raise ValueError(f"no fold kernel for device {dev}")
+
+
+fold_usage.launches = 0

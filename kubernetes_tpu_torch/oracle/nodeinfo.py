@@ -12,7 +12,7 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import Dict, List, Optional, Set, Tuple
 
-from ..api.types import Node, Pod, RESOURCE_CPU, RESOURCE_MEMORY
+from ..api.types import Node, Pod, RESOURCE_CPU, RESOURCE_MEMORY, RESOURCE_PODS
 
 DEFAULT_BIND_ALL_HOST_IP = "0.0.0.0"
 
@@ -115,6 +115,11 @@ class NodeInfo:
         max(request, default 100m / 200Mi) — priorityutil.GetNonzeroRequests;
         plus overhead when present (calculateResource, node_info.go)."""
         return self._nz_cpu, self._nz_mem
+
+    def allowed_pod_number(self) -> int:
+        """allocatable.pods (the pod-count limit preemption checks)."""
+        q = self.node.allocatable.get(RESOURCE_PODS)
+        return q.value() if q is not None else 0
 
     def used_host_ports(self) -> Set[Tuple[str, str, int]]:
         """(protocol, hostIP, hostPort) triples across pods (HostPortInfo)."""

@@ -1,26 +1,77 @@
 """Term helpers of the host predicates: the port's trimmed copy of
 `kubernetes_tpu.oracle.predicates`.
 
-Only what the term compiler (state/terms.py) reads: the split of a pod's
+What the term compiler (state/terms.py) reads: the split of a pod's
 topology spread constraints into hard (DoNotSchedule) and soft ones, the
 required pod (anti-)affinity terms, and the property match of a pod
 against all of a term list (predicates.go podMatchesAllAffinityTermProperties).
-The host oracle predicates themselves are not ported (ROADMAP.md queue 1,
-oracle fallback).
+And the four per-node predicates that evicting pods cannot resolve, which
+preemption's candidate pruning reads (nodesWherePreemptionMightHelp,
+generic_scheduler.go:1218). The rest of the host oracle chain is not
+ported (ROADMAP.md queue 1, oracle fallback).
 """
 
 from __future__ import annotations
 
 from typing import List, Optional, Set
 
-from ..api.selectors import match_label_selector
+from ..api.selectors import match_label_selector, node_matches_node_selector
 from ..api.types import (
     DO_NOT_SCHEDULE,
+    TAINT_NO_EXECUTE,
+    TAINT_NO_SCHEDULE,
+    TAINT_NODE_UNSCHEDULABLE,
     Affinity,
     Pod,
     PodAffinityTerm,
+    Taint,
     TopologySpreadConstraint,
+    tolerations_tolerate_taint,
 )
+from .nodeinfo import NodeInfo
+
+
+def check_node_unschedulable(pod: Pod, node_info: NodeInfo) -> bool:
+    """CheckNodeUnschedulablePredicate (predicates.go:1584): unschedulable
+    nodes pass only if the pod tolerates the unschedulable taint."""
+    if not node_info.node.unschedulable:
+        return True
+    return tolerations_tolerate_taint(
+        pod.tolerations,
+        Taint(key=TAINT_NODE_UNSCHEDULABLE, effect=TAINT_NO_SCHEDULE),
+    )
+
+
+def pod_fits_host(pod: Pod, node_info: NodeInfo) -> bool:
+    """PodFitsHost (predicates.go:991): spec.nodeName pinning."""
+    if not pod.node_name:
+        return True
+    return pod.node_name == node_info.node.name
+
+
+def pod_match_node_selector(pod: Pod, node_info: NodeInfo) -> bool:
+    """PodMatchNodeSelector (predicates.go:979) =
+    PodMatchesNodeSelectorAndAffinityTerms: spec.nodeSelector (all labels
+    must match) AND nodeAffinity.required terms (ORed)."""
+    node = node_info.node
+    for k, v in pod.node_selector.items():
+        if node.labels.get(k) != v:
+            return False
+    aff = pod.affinity
+    if aff is not None and aff.node_affinity is not None and aff.node_affinity.required is not None:
+        return node_matches_node_selector(aff.node_affinity.required, node.labels, node.name)
+    return True
+
+
+def pod_tolerates_node_taints(pod: Pod, node_info: NodeInfo) -> bool:
+    """PodToleratesNodeTaints (predicates.go:1604): only NoSchedule/NoExecute
+    taints matter; every such taint must be tolerated."""
+    for taint in node_info.node.taints:
+        if taint.effect not in (TAINT_NO_SCHEDULE, TAINT_NO_EXECUTE):
+            continue
+        if not tolerations_tolerate_taint(pod.tolerations, taint):
+            return False
+    return True
 
 
 def get_hard_spread_constraints(pod: Pod) -> List[TopologySpreadConstraint]:

@@ -1,15 +1,18 @@
 """Scheduler driver: the batch scheduling loop.
 
 The port's lean copy of `kubernetes_tpu/scheduler/driver.py`, reproducing
-the reference's default commit path — the commit and fold planes on, no
-ingest or term plane, no speculation, no preemption. Per batch:
+the reference's default commit path — the commit and fold planes on and
+preemption on, no ingest or term plane, no speculation. Per batch:
 
     pop_batch → TensorMirror.sync → spec dedup (with the pods' spreading
     selectors) → PodBatch encode + compile_batch_terms → device_arrays
-    (node, signature and pattern banks) → one solve_pipeline (filter,
-    score, topology and greedy-solve kernels, with the solver's in-batch
-    anti-affinity / host-port tracking once a batch needs it) → the
-    commit arbiter when a pod needs a full re-check → commit in pop order
+    (node, signature and pattern banks) → the outstanding preemption
+    nominees folded onto the node bank's usage columns → one
+    solve_pipeline (filter, score, topology and greedy-solve kernels, with
+    the solver's in-batch anti-affinity / host-port tracking once a batch
+    needs it) → the commit arbiter when a pod needs a full re-check → the
+    nominee overlay taken off → commit in pop order → one batched
+    preemption round for the pods that fit nowhere
 
 and the commit takes one of two routes, picked per batch from its pods:
 
@@ -30,18 +33,31 @@ turns the arbiter and the fold off (the reference's per-pod commit
 places the same pods: every batch then takes the bulk path, re-shipping
 its rows).
 
+Preemption (`enable_preemption`, on by default as in the reference): the
+pods a batch could not place go through one device victim search
+(scheduler/preemption.batch_preempt_device → ops/preempt.preempt_batch),
+each plan is re-verified on the host against the live node, and the
+victims are deleted and the pod nominated to the node; the next batches
+see the outstanding nominations folded onto the node bank's usage columns
+(ops/fold.fold_usage: in place with the commit plane on, on a copy with
+it off), as podFitsOnNode's pass 1 counts them.
+
 Anything else raises NotImplementedError naming its ROADMAP.md item
 instead of taking another route: pods the reference re-checks with its
 full host oracle (required pod affinity; DoNotSchedule spread with the
 commit plane off; a pod the arbiter defers three times in a row),
 encoding-overflow pods (term-table overflow included), existing pods
 whose terms overflow a pattern row, -1 pods while some node rows fell back
-to the host oracle, preemption nominees and gang groups. The batch is
-returned to the queue first.
+to the host oracle, batches the reference re-checks per pod against the
+outstanding nominations (a pod that is not resource-only while a
+nomination is outstanding), preemption for a pod with (anti-)affinity or
+spread terms when a candidate node holds a victim, and gang groups. The
+batch is returned to the queue first.
 """
 
 from __future__ import annotations
 
+import logging
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
@@ -54,8 +70,10 @@ from ..commit.arbiter import V_DEFER, V_PLACE, arbitrate, kinds_covered
 from ..commit.fold import plan_fold
 from ..device import resolve_device
 from ..ops import filters as F
+from ..ops.fold import fold_usage
 from ..ops.pipeline import SolveConfig, solve_pipeline
 from ..ops.solver import prng_key_data
+from ..oracle.nodeinfo import accumulated_request
 from ..state.cache import SchedulerCache, TensorMirror
 from ..state.convert import arrays_to_torch
 from ..state.queue import PodInfo, PriorityQueue
@@ -71,7 +89,10 @@ from ..state.terms import (
     compile_batch_terms,
     count_batch_terms,
 )
-from ..state.tensors import KeySlotOverflow, PodBatch, _bucket, dedup_specs
+from ..state.tensors import KeySlotOverflow, PodBatch, _bucket, _req_slot_pairs, dedup_specs
+from . import preemption as preemption_mod
+
+_log = logging.getLogger(__name__)
 
 # the coscheduling PodGroup marker the reference's gang path reads
 POD_GROUP_LABEL = "pod-group.scheduling.sigs.k8s.io/name"
@@ -84,6 +105,7 @@ BIND_WORKERS = 8
 class ScheduleResult:
     scheduled: int = 0
     unschedulable: int = 0
+    preempted: int = 0  # failed pods whose preemption deleted victims and nominated a node
     deferred: int = 0  # arbiter V_DEFER: re-queued for the next batch
     assignments: Dict[str, str] = field(default_factory=dict)
 
@@ -184,6 +206,10 @@ class Scheduler:
         solve_config: Optional[SolveConfig] = None,
         device=None,
         commit_plane: bool = True,
+        enable_preemption: bool = True,
+        pdb_lister: Optional[Callable[[], list]] = None,
+        delete_fn: Optional[Callable[[Pod], None]] = None,
+        nominate_fn: Optional[Callable[[Pod, str], None]] = None,
     ):
         self.device = resolve_device(device)
         # the arbiter's verdicts for DoNotSchedule batches and the commits
@@ -196,6 +222,16 @@ class Scheduler:
         self.batch_size = batch_size
         self.deterministic = deterministic
         self.solve_config = solve_config
+        # a Policy-restricted predicate set sends preemption to the
+        # reference's full predicate chain (refused here)
+        self._enabled_preds = solve_config.predicates if solve_config is not None else None
+        self.enable_preemption = enable_preemption
+        # PodDisruptionBudgets for the victim search; the victim delete (an
+        # API delete whose informer echo removes the pod; without one the
+        # cache removes it) and the nominatedNodeName status write
+        self.pdb_lister = pdb_lister or (lambda: [])
+        self.delete_fn = delete_fn
+        self.nominate_fn = nominate_fn
         self.mirror = TensorMirror(self.cache, self.device)
         self._rng_seed = seed
         # one tie-break key per dispatch: the reference's
@@ -229,12 +265,18 @@ class Scheduler:
         # includes the device work) and the planes' counters, under the
         # reference's names; fold_overflow_batches counts the folds a bank
         # overflow sent back to the host re-ship (plan_fold → None); apply_s
-        # is the arbitrated batches' fold, assume and bind submission
+        # is the arbitrated batches' fold, assume and bind submission;
+        # preempt_batches counts the batched preemption rounds, preempted
+        # the pods whose preemption was applied, victims the pods deleted,
+        # preempt_s the rounds' seconds, preempt_reverify_miss the device
+        # plans the host re-verification rejected, nominee_folds the
+        # dispatches that overlaid outstanding nominations
         self.stats: Dict[str, float] = {
             "sync_s": 0.0, "encode_s": 0.0, "solve_s": 0.0, "commit_s": 0.0, "batches": 0,
             "tracked_batches": 0, "fold_batches": 0, "fold_pods": 0, "fold_s": 0.0,
             "fold_overflow_batches": 0, "arbiter_batches": 0, "arbiter_place": 0, "arbiter_defer": 0,
-            "arbiter_escalated": 0, "apply_s": 0.0,
+            "arbiter_escalated": 0, "apply_s": 0.0, "preempt_batches": 0, "preempted": 0, "victims": 0,
+            "preempt_s": 0.0, "preempt_reverify_miss": 0, "nominee_folds": 0,
         }
 
     def set_spread_selectors_fn(self, fn: Callable[[Pod], list]) -> None:
@@ -250,12 +292,19 @@ class Scheduler:
         raise NotImplementedError(reason)
 
     def _check_slice(self, infos: List[PodInfo]) -> None:
-        if self.queue.has_nominations():
-            self._refuse(infos, "preemption nominees need ops/preempt (ROADMAP.md queue 1, preemption)")
         for info in infos:
             reason = _unported_reason(info.pod, self.commit_plane)
             if reason is not None:
                 self._refuse(infos, f"pod {info.pod.key()}: {reason}")
+        # with a nomination outstanding the reference commits a batch in
+        # bulk only when every pod is resource-only; any other batch takes
+        # its per-pod loop, which re-checks picks on nominated nodes with
+        # the host oracle (fits_considering_nominated)
+        if self.queue.has_nominations():
+            for info in infos:
+                if _recheck_level(info.pod) != RECHECK_NONE:
+                    self._refuse(infos, f"pod {info.pod.key()} while a preemption nomination is outstanding needs "
+                                        f"the host oracle's nominee re-check ({ORACLE_FALLBACK})")
 
     def _encode(self, infos: List[PodInfo]) -> Tuple[PodBatch, List[Pod], np.ndarray, TermBank, Dict[str, np.ndarray]]:
         """Collapse the batch to unique pod specs (replicas share one
@@ -366,6 +415,12 @@ class Scheduler:
         self._cycle += 1
         key = prng_key_data(self._rng_seed + self._cycle)
         na, ea, xa = self.mirror.device_arrays()
+        # outstanding nominations of pods outside the batch reserve their
+        # nodes in this solve; nomination_adds tells the commit whether one
+        # appeared since
+        nom_adds = self.queue.nomination_adds
+        if self.queue.has_nominations():
+            na = self._nominee_overlay(na, pods)
         solved: Dict = {}
         assign, _ = solve_pipeline(
             na, pa, self._ids, key, pb=pbt, deterministic=self.deterministic,
@@ -385,6 +440,9 @@ class Scheduler:
                                 term_kinds=self._term_kinds, n_buckets=self._v_bucket, inputs=solved)
         assign_l = assign.cpu().numpy()[: len(pods)].tolist()
         verdicts = None if verdict is None else verdict.cpu().numpy()[: len(pods)].tolist()
+        # the overlay's job ends with the solve: the resident banks mirror
+        # the host again before any commit fold or row patch lands on them
+        self.mirror.unfold_nominees()
         t3 = time.perf_counter()
         self.stats["solve_s"] += t3 - t2
 
@@ -403,6 +461,10 @@ class Scheduler:
             self._commit_arbitrated(infos, assign_l, verdicts, cycle, res)
         elif full:
             self._refuse(infos, f"the batch's DoNotSchedule pods need the host oracle's re-check ({ORACLE_FALLBACK})")
+        elif self.queue.has_nominations() and nom_adds != self.queue.nomination_adds:
+            # a nomination appeared after the dispatch folded them: the
+            # reference re-checks per pod (never without speculation)
+            self._refuse(infos, f"a nomination appeared after the solve ({ORACLE_FALLBACK})")
         else:
             self._commit_bulk(infos, assign_l, cycle, res)
         self.stats["commit_s"] += time.perf_counter() - t3
@@ -426,14 +488,21 @@ class Scheduler:
         feasibility only shrinks within the batch."""
         name_of = self.mirror.name_of_row
         placed: List[Tuple[PodInfo, int, str]] = []
+        preempt_fails: List[PodInfo] = []
         for info, row in zip(infos, assign_l):
             node_name = name_of[row] if row >= 0 else None
             if node_name is None:
+                if row < 0 and self.enable_preemption:
+                    # one batched preemption round after the commits
+                    preempt_fails.append(info)
+                    continue
                 res.unschedulable += 1
                 self._fail(info, cycle)
                 continue
             placed.append((info, row, node_name))
         self._apply(placed, cycle, res)
+        if preempt_fails:
+            self._preempt_deferred(preempt_fails, cycle, res)
 
     def _apply(self, placed: List[Tuple[PodInfo, int, str]], cycle: int, res: ScheduleResult) -> None:
         """Commit (pod, node row, node name) triples in pop order: fold
@@ -449,6 +518,11 @@ class Scheduler:
         folded = self._dispatch_fold([(info.pod, row) for info, row, _ in placed])
         assumed_meta = [(info, info.pod.with_node(node_name), node_name) for info, _, node_name in placed]
         rejected = set(self.cache.assume_pods([m[1] for m in assumed_meta], folded=folded))
+        if self.queue.has_nominations():
+            # DeleteNominatedPodIfExists at assume (scheduler.go:529): a
+            # committed pod stops reserving its nominated node
+            self.queue.clear_nominations(
+                [m[0].pod.key() for j, m in enumerate(assumed_meta) if j not in rejected])
         jobs = []
         for j, (info, assumed, node_name) in enumerate(assumed_meta):
             if j in rejected:  # the key is already in the cache
@@ -490,18 +564,20 @@ class Scheduler:
     def _commit_arbitrated(self, infos: List[PodInfo], assign_l: List[int], verdicts: List[int], cycle: int,
                            res: ScheduleResult) -> None:
         """Commit a batch from the arbiter's verdicts (the reference's
-        `_commit_arbitrated` without speculation or preemption): V_PLACE
-        pods are applied (`_apply`), V_DEFER pods go back to the queue with
-        no backoff (they conflicted with their own batch; they are not
-        unschedulable), V_NOFIT pods are unschedulable. A pod deferred
-        `_defer_escalate` times in a row escalates to the reference's host
-        oracle re-placement, which is not ported: the batch's placed pods
-        are applied and its defers re-queued first, then the escalated
-        pods are re-queued and the batch raises."""
+        `_commit_arbitrated` without speculation): V_PLACE pods are applied
+        (`_apply`), V_DEFER pods go back to the queue with no backoff (they
+        conflicted with their own batch; they are not unschedulable),
+        V_NOFIT pods take the batched preemption round (or are
+        unschedulable). A pod deferred `_defer_escalate` times in a row
+        escalates to the reference's host oracle re-placement, which is
+        not ported: the batch's placed pods are applied and its defers
+        re-queued first, then the escalated pods and the batch's
+        preemptors are re-queued and the batch raises."""
         name_of = self.mirror.name_of_row
         nodes = self.cache.snapshot.node_infos
         place: List[Tuple[PodInfo, int, str]] = []
         defers: List[PodInfo] = []
+        preempt_fails: List[PodInfo] = []
         for info, row, v in zip(infos, assign_l, verdicts):
             if v == V_PLACE and row >= 0:
                 node_name = name_of[row] if row < len(name_of) else None
@@ -511,6 +587,8 @@ class Scheduler:
                 place.append((info, row, node_name))
             elif v == V_DEFER:
                 defers.append(info)
+            elif row < 0 and self.enable_preemption:
+                preempt_fails.append(info)
             else:
                 res.unschedulable += 1
                 self._fail(info, cycle)
@@ -545,14 +623,179 @@ class Scheduler:
         self.stats["arbiter_defer"] += len(defers)
         if escalate:
             self.stats["arbiter_escalated"] += len(escalate)
-            self.queue.requeue(escalate)
+            self.queue.requeue(escalate + preempt_fails)
             raise NotImplementedError(
                 f"{len(escalate)} pods deferred {self._defer_escalate} times in a row need the host "
                 f"oracle's re-placement (_oracle_place) ({ORACLE_FALLBACK})"
             )
+        if preempt_fails:
+            self._preempt_deferred(preempt_fails, cycle, res)
 
     def _fail(self, info: PodInfo, cycle: int) -> None:
         self.queue.add_unschedulable(info, cycle)
+
+    # -- preemption ------------------------------------------------------------
+
+    def _nominee_overlay(self, na: Dict, pods: List[Pod]) -> Dict:
+        """Fold the outstanding nominations of pods outside the batch onto
+        the node bank's usage columns (podFitsOnNode's pass-1 nominee
+        accounting, once per dispatch; the batch's own nominees are
+        sequenced by the solve's carry). All nominees count, not only those
+        of priority >= the incoming pod's: the reference's conservative
+        overlay, since a per-pod filter would need a [B, N, R] one. With
+        the commit plane on the overlay goes onto the resident tensors in
+        place (`TensorMirror.fold_nominees`, taken off after the solve);
+        off, onto clones of the two columns. Returns the node bank to
+        solve on."""
+        extras = self.queue.nomination_extras({p.key() for p in pods})
+        width = int(na["requested"].shape[1])
+        vocab = self.mirror.vocab
+        rows: List[int] = []
+        vecs: List[np.ndarray] = []
+        for node, npod in extras:
+            row = self.mirror.row_of.get(node)
+            if row is None:
+                continue
+            vec = np.zeros(width, np.int64)
+            pairs = _req_slot_pairs(vocab, npod)
+            if any(s >= width for s, _ in pairs):
+                continue  # an exotic resource slot beyond the bank: skipped, as the reference
+            for s, v in pairs:
+                vec[s] = v
+            rows.append(row)
+            vecs.append(vec)
+        if not rows:
+            return na
+        self.stats["nominee_folds"] += 1
+        rows_a = np.asarray(rows, np.int32)
+        vecs_a = np.asarray(vecs, np.int64)
+        cnt_a = np.ones(len(rows), np.int32)
+        if self.commit_plane and self.mirror.can_fold():
+            return self.mirror.fold_nominees(rows_a, vecs_a, cnt_a)
+        ov = arrays_to_torch({"rows": rows_a, "vecs": vecs_a, "cnt": cnt_a}, self.device)
+        na = dict(na)
+        na["requested"] = na["requested"].clone()
+        na["pod_count"] = na["pod_count"].clone()
+        fold_usage(na["requested"], na["pod_count"], ov["rows"], ov["vecs"], ov["cnt"])
+        return na
+
+    def _can_disrupt(self, p: Pod) -> bool:
+        # never a pod whose bind is in flight: removing it locally while the
+        # bind completes would desync the cache from the node
+        return not self.cache.is_assumed(p.key())
+
+    def _try_preempt(self, info: PodInfo) -> bool:
+        """scheduler.go:612 preempt on the host for one pod: nominate a
+        node, delete the victims, clear obsolete lower-priority
+        nominations. Runs before the pod is re-queued, so the queue's
+        nominated index sees the nomination."""
+        pod = info.pod
+        node, victims, clear = preemption_mod.preempt(
+            pod, self.cache.snapshot, pdbs=self.pdb_lister(),
+            nominated_fn=self.queue.nominated_pods_for_node, can_disrupt=self._can_disrupt,
+            enabled=self._enabled_preds,
+        )
+        if node is None:
+            return False
+        self._apply_preemption(pod, node, victims, clear)
+        return True
+
+    def _apply_preemption(self, pod: Pod, node: str, victims: List[Pod], clear) -> None:
+        """The victim deletes and the nomination (the API-write tail of
+        Preempt, scheduler.go:436-470)."""
+        for v in victims:
+            if self.delete_fn is not None:
+                self.delete_fn(v)  # the informer's delete event removes it from the cache
+            else:
+                self.cache.remove_pod(v)
+        for key in clear:
+            self.queue.clear_nomination(key)
+        pod.nominated_node_name = node
+        if self.nominate_fn is not None:
+            # a failed status write leaves the nomination local, as the
+            # reference's SetNominatedNodeName error path does
+            try:
+                self.nominate_fn(pod, node)
+            except Exception:
+                _log.warning("nominatedNodeName write for %s failed; the nomination stays local", pod.key(),
+                             exc_info=True)
+        self.stats["victims"] += len(victims)
+
+    def _preempt_deferred(self, fails: List[PodInfo], cycle: int, res: ScheduleResult) -> None:
+        """One batched preemption round for a batch's unplaced pods, at the
+        end-of-batch state (its commits assumed): one device victim search
+        over every preemptor and node in pop order
+        (preemption.batch_preempt_device), then each plan re-verified on
+        the host against the live node (the exact victim list, or that pod
+        goes to `_try_preempt`) and applied. Batches outside the kernel's
+        domain (terms, ports, a restricted predicate set) take
+        `_try_preempt` pod by pod. Every pod then fails into the queue with
+        its nomination; after any preemption or a pod that fits as things
+        stand, the unschedulable pods move back (MoveAllToActiveQueue)."""
+        t0 = time.perf_counter()
+        self.stats["preempt_batches"] += 1
+        pdbs = self.pdb_lister()
+        snapshot = self.cache.snapshot
+        plans = None
+        if self._enabled_preds is None:
+            plans = preemption_mod.batch_preempt_device(
+                [i.pod for i in fails], snapshot, pdbs=pdbs, can_disrupt=self._can_disrupt,
+                nominated=self.queue.nomination_extras({i.pod.key() for i in fails}), device=self.device,
+            )
+        any_preempted = False
+        any_fits_free = False
+        for k, info in enumerate(fails):
+            pod = info.pod
+            try:
+                if plans is None:
+                    applied = self._try_preempt(info)
+                else:
+                    applied = False
+                    node_name, victims, fits_free = plans[k]
+                    any_fits_free |= fits_free
+                    if node_name is not None:
+                        if self._reverify(pod, node_name, victims, pdbs):
+                            clear = [p.key() for p in self.queue.nominated_pods_for_node(node_name)
+                                     if p.get_priority() < pod.get_priority()]
+                            self._apply_preemption(pod, node_name, victims, clear)
+                            applied = True
+                        else:
+                            self.stats["preempt_reverify_miss"] += 1
+                            applied = self._try_preempt(info)
+            except NotImplementedError:
+                # the host path refused: the pods not yet handled go back
+                self.queue.requeue(fails[k:])
+                if any_preempted or any_fits_free:
+                    self.queue.move_all_to_active()
+                self.stats["preempt_s"] += time.perf_counter() - t0
+                raise
+            if applied:
+                res.preempted += 1
+                self.stats["preempted"] += 1
+                any_preempted = True
+            res.unschedulable += 1
+            self._fail(info, cycle)
+        if any_preempted or any_fits_free:
+            # victim deletions are cluster events, and a pod that fits as
+            # things stand must retry promptly (eventhandlers.go:127)
+            self.queue.move_all_to_active()
+        self.stats["preempt_s"] += time.perf_counter() - t0
+
+    def _reverify(self, pod: Pod, node_name: str, victims: List[Pod], pdbs) -> bool:
+        """The device plan against the live node: the host victim search
+        (nominees on the node charged, the pod itself excepted) must name
+        exactly the plan's victims, in order."""
+        total: Dict[str, int] = {}
+        noms = [p for p in self.queue.nominated_pods_for_node(node_name) if p.key() != pod.key()]
+        for npod in noms:
+            for rn, v in accumulated_request(npod).items():
+                if rn != "pods":
+                    total[rn] = total.get(rn, 0) + v
+        live = preemption_mod._select_victims_fast(
+            pod, self.cache.snapshot.get(node_name), pdbs, self._can_disrupt,
+            nominee_charge=(total, len(noms)) if noms else None,
+        )
+        return live is not None and [p.key() for p in live.pods] == [p.key() for p in victims]
 
     def _bind_chunk(self, items: List[Tuple[PodInfo, Pod, str]]) -> None:
         """Bind a chunk; a failed bind forgets the assume and retries the
@@ -576,6 +819,7 @@ class Scheduler:
             r = self.schedule_batch()
             total.scheduled += r.scheduled
             total.unschedulable += r.unschedulable
+            total.preempted += r.preempted
             total.deferred += r.deferred
             total.assignments.update(r.assignments)
             if r.scheduled == 0 and r.unschedulable == 0 and r.deferred == 0:

@@ -17,7 +17,11 @@ The port's own lean copies of `kubernetes_tpu.state.cache`:
   — and uploaded in full only after a rebuild. With the fold plane a
   committed batch's deltas are scattered into the resident copies in place
   (`fold_commit`, ops/fold.fold_commit_banks), and sync does not make
-  those rows pending, so they are not re-shipped.
+  those rows pending, so they are not re-shipped. The preemption nominees'
+  overlay is added onto the resident usage columns in place for one
+  dispatch (`fold_nominees`, ops/fold.fold_usage) and taken off again by
+  its exact integer inverse (`unfold_nominees`), which every other
+  consumer of the resident banks calls first.
 
 Both run on one driver thread at a time; the cache's lock covers the bind
 workers' finish_binding / forget calls.
@@ -266,6 +270,9 @@ class TensorMirror:
         # re-ship at the next sync). Rows a fold advanced are simply not
         # made pending.
         self._failed_fold_names: List[str] = []
+        # (rows, vecs, cnt) tensors of the nominee overlay now added onto
+        # the resident usage columns, or None
+        self._nominee_overlay: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
         self.rows_shipped = 0  # node rows patched into the device copy
         self._rebuild()
 
@@ -348,6 +355,7 @@ class TensorMirror:
         """Apply dirty nodes (re-counting only their pods) plus single-pod
         deltas (O(1) each). Returns True if a full rebuild happened (the
         arrays may change shape)."""
+        self.unfold_nominees()
         cache = self.cache
         with cache._lock:
             # fold lanes whose assume was rejected after the fold: their
@@ -488,6 +496,7 @@ class TensorMirror:
         rows included for signatures: commits count pods into them; for
         patterns only the rows whose delta pods carried affinity). Full
         upload only after a rebuild (shape change)."""
+        self.unfold_nominees()
         host = self.nodes.arrays()
         host_e = self.eps.arrays()
         host_p = self.pats.arrays()
@@ -540,8 +549,10 @@ class TensorMirror:
 
     def mark_device_stale(self) -> None:
         """Re-upload the full banks from host truth at the next
-        device_arrays() (host wins)."""
+        device_arrays() (host wins); an overlay on the old copy goes with
+        it."""
         self._device_stale = True
+        self._nominee_overlay = None
 
     def fold_commit(self, prog) -> bool:
         """Apply a planned commit fold (commit/fold.FoldProgram) to the
@@ -554,6 +565,7 @@ class TensorMirror:
 
         if not self.can_fold():
             return False
+        self.unfold_nominees()
         n, e, p = self._dev, self._dev_eps, self._dev_pats
         ctl = arrays_to_torch({
             "rows": prog.rows, "req": prog.req, "nz": prog.nz, "cnt": prog.cnt, "sig": prog.sig,
@@ -570,3 +582,45 @@ class TensorMirror:
         """A fold lane's assume was rejected after the fold landed: queue
         the node's row for a host-wins re-ship at the next sync."""
         self._failed_fold_names.append(node_name)
+
+    # -- the preemption nominees' overlay (ops/fold.fold_usage) ---------------
+
+    def fold_nominees(self, rows: np.ndarray, vecs: np.ndarray, cnt: np.ndarray) -> Dict[str, torch.Tensor]:
+        """Add the out-of-batch nominees' requests and pod counts onto the
+        resident usage columns IN PLACE (podFitsOnNode's pass-1 nominee
+        accounting for one dispatch) and record the overlay, which
+        `unfold_nominees` takes off by the exact integer inverse. Rows out
+        of range add nothing. Returns the node
+        bank (the same tensors device_arrays() returned). A kernel that
+        fails marks the banks stale (host wins) and raises."""
+        from ..ops.fold import fold_usage
+
+        self.unfold_nominees()
+        n = self._dev
+        ov = tuple(arrays_to_torch({"rows": rows, "vecs": vecs, "cnt": cnt}, self.device).values())
+        try:
+            fold_usage(n["requested"], n["pod_count"], *ov)
+        except Exception:
+            self.mark_device_stale()
+            raise
+        self._nominee_overlay = ov
+        return n
+
+    def unfold_nominees(self) -> None:
+        """Take the nominee overlay, if any, off the resident usage columns
+        (negated vectors and counts: integer adds invert exactly). Every
+        other consumer of the resident banks calls this first (the
+        reference's `_restore_nominees`)."""
+        from ..ops.fold import fold_usage
+
+        ov = self._nominee_overlay
+        if ov is None:
+            return
+        self._nominee_overlay = None
+        rows, vecs, cnt = ov
+        n = self._dev
+        try:
+            fold_usage(n["requested"], n["pod_count"], rows, -vecs, -cnt)
+        except Exception:
+            self.mark_device_stale()
+            raise

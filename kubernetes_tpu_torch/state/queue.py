@@ -11,8 +11,9 @@ pkg/scheduler/internal/queue/scheduling_queue.go PriorityQueue (:120-152):
                     unschedulable timeout (:423, 60s)
 plus the move-request cycle counter that closes the race between "pod
 determined unschedulable" and "cluster changed meanwhile" (:353-386), and
-the nominated-node index, kept only so the driver can refuse nominees
-(preemption is not ported yet).
+the nominated-node index of preemption's nominees (nominatedPodMap,
+scheduling_queue.go:722): the driver folds the outstanding nominations
+into the device bank at dispatch and counts them in the victim search.
 
 Backoff: PodBackoffMap (pod_backoff.go): initial 1s, doubled per attempt,
 capped at 10s.
@@ -25,7 +26,7 @@ import itertools
 import threading
 import time
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Set, Tuple
+from typing import Callable, Dict, List, Optional, Set, Tuple
 
 from ..api.types import Pod
 from ..oracle.nodeinfo import accumulated_request, pod_non_zero_request
@@ -48,9 +49,9 @@ class PodInfo:
 
 
 class PriorityQueue:
-    def __init__(self):
+    def __init__(self, now: Callable[[], float] = time.monotonic):
         self._lock = threading.Lock()
-        self._now = time.monotonic
+        self._now = now
         self._seq = itertools.count()
         # activeQ entries are (neg_priority, seq, key) tuples: C-level tuple
         # comparison is the (priority desc, seq asc) comparator
@@ -63,7 +64,12 @@ class PriorityQueue:
         self._last_failure: Dict[str, float] = {}  # guarded by self._lock
         self._last_move_request_cycle = -1  # guarded by self._lock
         self._scheduling_cycle = 0  # guarded by self._lock
-        self._nominated: Dict[str, str] = {}  # guarded by self._lock
+        self.nominated: Dict[str, str] = {}  # guarded by self._lock
+        self._nominated_by_node: Dict[str, Set[str]] = {}  # guarded by self._lock
+        # bumped whenever a nomination is ADDED (never on clears): a solve
+        # whose dispatch folded the nominations is current only while no
+        # nomination appeared since (clears only make it conservative)
+        self.nomination_adds = 0  # guarded by self._lock
 
     # -- internals -----------------------------------------------------------
 
@@ -82,10 +88,17 @@ class PriorityQueue:
 
     def _update_nominated(self, pod: Pod) -> None:
         key = pod.key()
-        if pod.nominated_node_name:
-            self._nominated[key] = pod.nominated_node_name
-        else:
-            self._nominated.pop(key, None)
+        self._remove_nominated(key)
+        node = pod.nominated_node_name
+        if node:
+            self.nominated[key] = node
+            self._nominated_by_node.setdefault(node, set()).add(key)
+            self.nomination_adds += 1
+
+    def _remove_nominated(self, key: str) -> None:
+        node = self.nominated.pop(key, None)
+        if node:
+            self._nominated_by_node.get(node, set()).discard(key)
 
     @staticmethod
     def _warm_memos(pod: Pod) -> None:
@@ -196,10 +209,54 @@ class PriorityQueue:
             self._unschedulable.clear()
             self._last_move_request_cycle = self._scheduling_cycle
 
-    def has_nominations(self) -> bool:
-        """True if any pending pod nominates a node (a preemption result)."""
+    # -- nominated pods (preemption nominees) --------------------------------
+
+    def clear_nomination(self, key: str) -> None:
+        """Drop a pending pod's nomination (the preempt 'clear' list,
+        generic_scheduler.go:346-360: lower-priority nominees of a node just
+        claimed by a higher-priority preemptor)."""
         with self._lock:
-            return bool(self._nominated)
+            self._remove_nominated(key)
+            info = self._infos.get(key)
+            if info is not None:
+                info.pod.nominated_node_name = ""
+
+    def clear_nominations(self, keys) -> None:
+        """clear_nomination for many keys under one lock (the bulk commit's
+        DeleteNominatedPodIfExists at assume, scheduler.go:529)."""
+        with self._lock:
+            for key in keys:
+                self._remove_nominated(key)
+                info = self._infos.get(key)
+                if info is not None:
+                    info.pod.nominated_node_name = ""
+
+    def nomination_extras(self, exclude_keys) -> List[Tuple[str, Pod]]:
+        """Outstanding (node, pod) nominations except the given keys: the
+        driver folds these into the device bank at dispatch (podFitsOnNode's
+        pass-1 nominee accounting, generic_scheduler.go:620-630; a batch's
+        own nominees are sequenced by the solve's carry, so only the others
+        are listed)."""
+        with self._lock:
+            return [
+                (node, self._infos[k].pod)
+                for k, node in self.nominated.items()
+                if k not in exclude_keys and k in self._infos
+            ]
+
+    def has_nominations(self) -> bool:
+        """True if any pod nominates a node (empty sets left by clears do
+        not count)."""
+        with self._lock:
+            return any(self._nominated_by_node.values())
+
+    def nominated_pods_for_node(self, node: str) -> List[Pod]:
+        with self._lock:
+            return [
+                self._infos[k].pod
+                for k in self._nominated_by_node.get(node, set())
+                if k in self._infos
+            ]
 
     def counts(self) -> Tuple[int, int, int]:
         """(active, backoff, unschedulable) depths."""

@@ -1,17 +1,22 @@
 #!/usr/bin/env python3
 """Where the port's drain spends its time, on one NVIDIA card.
 
-    python3 scripts/torch_drain_profile.py [--config 2|3|4] [--services]
+    python3 scripts/torch_drain_profile.py [--config 2|3|4|6] [--services]
         [--nodes N] [--pods P] [--batch 4096] [--out chiprun_out/drain_profile]
         [--ab PAIRS]
 
 Drives a drain of chip_smoke.py phase 5 (kubernetes_tpu_torch's Scheduler,
 tie-noise on) on bench.py config 2 (default 5,000 nodes / 50,000 pods),
 config 3 (default 10,000 nodes / 100,000 pods; with --services, one
-Service per app feeds SelectorSpread) or config 4 (default 2,000 nodes /
+Service per app feeds SelectorSpread), config 4 (default 2,000 nodes /
 20,000 pods: required hostname anti-affinity on every 10th pod, preferred
-zone affinity on the rest) after a 1/10-scale warm-up drain that builds
-and loads the kernels, three times:
+zone affinity on the rest) or config 6 (default 500 full nodes with 7
+bound priority-0 pods each, --pods 2,000 pending priority-1000 pods that
+land only by preemption, batch 1,024 by default so that batches
+dispatch with another batch's nominations outstanding; the drain waits
+out the queue's backoff in 50 ms sleeps, as bench.py's does, counted as
+`wait_s`; pods/s counts the preemptors) after a 1/10-scale warm-up drain
+that builds and loads the kernels, three times:
 
   1. plain      wall time and the driver's per-stage seconds, the
                 reference for the overheads of the two runs below;
@@ -86,27 +91,54 @@ STAGES = (
     ("state/cache.py", "assume_pods"),
     ("state/queue.py", "add_unschedulable"),
     ("scheduler/driver.py", "wait_for_binds"),
+    ("scheduler/driver.py", "_nominee_overlay"),
+    ("scheduler/driver.py", "_preempt_deferred"),
+    ("scheduler/preemption.py", "preempt_arrays"),
+    ("ops/preempt.py", "preempt_batch"),
+    ("scheduler/driver.py", "_reverify"),
+    ("scheduler/driver.py", "_try_preempt"),
+    ("scheduler/driver.py", "_apply_preemption"),
+    ("state/queue.py", "move_all_to_active"),
+    ("scripts/torch_drain_profile.py", "wait_backoff"),
 )
+
+
+def wait_backoff(queue) -> None:
+    """The idle round of a preemption drain: sleep 50 ms, then move the
+    unschedulable pods back (bench.py's drain loop)."""
+    time.sleep(0.05)
+    queue.move_all_to_active()
 
 
 def drain(config: int, services: bool, n_nodes: int, n_pods: int, batch: int, around=contextlib.nullcontext,
           planes: bool = True):
-    from kubernetes_tpu_torch.models.clusters import bench_config2, bench_config3, bench_config4, fill_cache
+    from kubernetes_tpu_torch.models.clusters import (
+        bench_config2,
+        bench_config3,
+        bench_config4,
+        bench_config6,
+        fill_cache,
+    )
     from kubernetes_tpu_torch.scheduler.driver import Scheduler
     from kubernetes_tpu_torch.state.cache import SchedulerCache
     from kubernetes_tpu_torch.state.queue import PriorityQueue
 
     fn = None
+    existing = []
     if config == 2:
         nodes, pods = bench_config2(n_nodes, n_pods)
     elif config == 4:
         nodes, pods = bench_config4(n_nodes, n_pods)
+    elif config == 6:
+        nodes, existing, pods = bench_config6(n_nodes, n_pods)
     else:
         nodes, pods, fn = bench_config3(n_nodes, n_pods, services=services)
     cache, queue = SchedulerCache(), PriorityQueue()
-    fill_cache(cache, nodes)
+    fill_cache(cache, nodes, existing)
     for p in pods:
         queue.add(p)
+    if config == 6:
+        return drain_preemption(cache, queue, n_pods, batch, around, planes)
     sched = Scheduler(cache, queue, batch_size=batch, deterministic=False, seed=0, device="cuda",
                       commit_plane=planes)
     if fn is not None:
@@ -122,6 +154,42 @@ def drain(config: int, services: bool, n_nodes: int, n_pods: int, batch: int, ar
     if res.scheduled != n_pods:
         raise SystemExit(f"drain placed {res.scheduled} of {n_pods} pods")
     return {"wall_s": wall, "pods_per_s": n_pods / wall, **sched.stats}
+
+
+def drain_preemption(cache, queue, n_pods: int, batch: int, around, planes: bool):
+    """Config 6's drain: batches until the queue is empty, waiting out the
+    backoff between preemption rounds (`wait_backoff`)."""
+    from kubernetes_tpu_torch.scheduler.driver import Scheduler
+
+    sched = Scheduler(cache, queue, batch_size=batch, deterministic=False, seed=0, device="cuda",
+                      commit_plane=planes)
+    placed = 0
+    wait_s = batch_s = 0.0
+    torch.cuda.synchronize()
+    with around():
+        t0 = time.perf_counter()
+        idle = 0
+        while True:
+            tb = time.perf_counter()
+            r = sched.schedule_batch()
+            sched.wait_for_binds()
+            batch_s += time.perf_counter() - tb
+            placed += r.scheduled
+            if r.scheduled or r.unschedulable or r.deferred:
+                idle = 0
+                continue
+            if sum(queue.counts()) == 0 or idle >= 400:
+                break
+            idle += 1
+            tw = time.perf_counter()
+            wait_backoff(queue)
+            wait_s += time.perf_counter() - tw
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    sched.close()
+    if placed != n_pods:
+        raise SystemExit(f"drain placed {placed} of {n_pods} pods")
+    return {"wall_s": wall, "pods_per_s": n_pods / wall, "wait_s": wait_s, "batch_s": batch_s, **sched.stats}
 
 
 class StackSampler:
@@ -218,6 +286,8 @@ def ab(work, args, smi) -> int:
     runs first; each run's pods/s and stages, the medians and each side's
     pods/s range."""
     keys = ("pods_per_s", "wall_s", "sync_s", "encode_s", "solve_s", "commit_s", "apply_s", "fold_s")
+    if args.config == 6:
+        keys += ("wait_s", "batch_s", "preempt_s")
     runs = {"on": [], "off": []}
     for i in range(args.ab):
         for side in (("on", "off") if i % 2 == 0 else ("off", "on")):
@@ -240,19 +310,21 @@ def ab(work, args, smi) -> int:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", type=int, choices=(2, 3, 4), default=2)
+    ap.add_argument("--config", type=int, choices=(2, 3, 4, 6), default=2)
     ap.add_argument("--services", action="store_true", help="config 3: one Service per app")
     ap.add_argument("--nodes", type=int, default=None,
-                    help="default 5,000 (config 2) / 10,000 (config 3) / 2,000 (config 4)")
+                    help="default 5,000 (config 2) / 10,000 (config 3) / 2,000 (config 4) / 500 (config 6)")
     ap.add_argument("--pods", type=int, default=None,
-                    help="default 50,000 (config 2) / 100,000 (config 3) / 20,000 (config 4)")
-    ap.add_argument("--batch", type=int, default=4096)
+                    help="default 50,000 (config 2) / 100,000 (config 3) / 20,000 (config 4) / 2,000 "
+                         "preemptors (config 6)")
+    ap.add_argument("--batch", type=int, default=None, help="default 4,096 (1,024 for config 6)")
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out", "drain_profile"))
     ap.add_argument("--ab", type=int, default=0, metavar="PAIRS",
                     help="run PAIRS alternating planes-on / planes-off drain pairs instead of the profile")
     args = ap.parse_args()
-    args.nodes = args.nodes or {2: 5000, 3: 10000, 4: 2000}[args.config]
-    args.pods = args.pods or {2: 50000, 3: 100000, 4: 20000}[args.config]
+    args.nodes = args.nodes or {2: 5000, 3: 10000, 4: 2000, 6: 500}[args.config]
+    args.pods = args.pods or {2: 50000, 3: 100000, 4: 20000, 6: 2000}[args.config]
+    args.batch = args.batch or (1024 if args.config == 6 else 4096)
     if not torch.cuda.is_available():
         print("torch_drain_profile: no CUDA device available", file=sys.stderr)
         return 1

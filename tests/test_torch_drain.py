@@ -40,9 +40,11 @@ from kubernetes_tpu_torch.models.clusters import (
     bench_config2,
     bench_config3,
     bench_config4,
+    bench_config6,
     commit_plane_mix,
     fill_cache,
     random_cluster,
+    random_preemption_cluster,
     random_selectors,
 )
 from kubernetes_tpu_torch.state.cache import TensorMirror as PMirror
@@ -219,7 +221,8 @@ def _drain(pkg, workload, det, seed):
             enable_preemption=False,
         )
     else:
-        sched = Scheduler(cache, queue, batch_size=128, deterministic=det, seed=seed, device="cpu")
+        sched = Scheduler(cache, queue, batch_size=128, deterministic=det, seed=seed, device="cpu",
+                          enable_preemption=False)
     res = sched.run_until_empty()
     sched.wait_for_binds()
     sched.close()
@@ -260,7 +263,8 @@ def _topology_drain(pkg, workload, services, det, seed):
             enable_preemption=False,
         )
     else:
-        sched = Scheduler(cache, queue, batch_size=128, deterministic=det, seed=seed, device="cpu")
+        sched = Scheduler(cache, queue, batch_size=128, deterministic=det, seed=seed, device="cpu",
+                          enable_preemption=False)
     if fn is not None:
         sched.set_spread_selectors_fn(fn)
     res = sched.run_until_empty()
@@ -292,7 +296,7 @@ def _cluster_with(pending_fn, existing_fn=None, t=PT, pkg="port", **port_kw):
     for p in pending:
         queue.add(p)
     if pkg == "port":
-        return Scheduler(cache, queue, device="cpu", **port_kw), queue
+        return Scheduler(cache, queue, device="cpu", enable_preemption=False, **port_kw), queue
     return RScheduler(cache, queue, commit_plane=False, fold_plane=False, ingest_plane=False,
                       term_plane=False, speculate=False, enable_preemption=False), queue
 
@@ -417,7 +421,8 @@ def _interpod_drain(pkg, workload, det, seed):
             enable_preemption=False,
         )
     else:
-        sched = Scheduler(cache, queue, batch_size=128, deterministic=det, seed=seed, device="cpu")
+        sched = Scheduler(cache, queue, batch_size=128, deterministic=det, seed=seed, device="cpu",
+                          enable_preemption=False)
     res = sched.run_until_empty()
     sched.wait_for_binds()
     sched.close()
@@ -476,7 +481,8 @@ def _planes_drain(pkg, workload, planes=True):
             ingest_plane=False, term_plane=False, columnar_cache=False, speculate=False, enable_preemption=False,
         )
     else:
-        sched = Scheduler(cache, queue, batch_size=batch, deterministic=True, device="cpu", commit_plane=planes)
+        sched = Scheduler(cache, queue, batch_size=batch, deterministic=True, device="cpu", commit_plane=planes,
+                          enable_preemption=False)
     res = sched.run_until_empty()
     sched.wait_for_binds()
     sched.close()
@@ -548,7 +554,7 @@ def test_mixed_hard_spread_drain_matches_reference(seed):
                                ingest_plane=False, term_plane=False, columnar_cache=False, speculate=False,
                                enable_preemption=False)
         else:
-            sched = Scheduler(cache, queue, batch_size=32, deterministic=True, device="cpu")
+            sched = Scheduler(cache, queue, batch_size=32, deterministic=True, device="cpu", enable_preemption=False)
         res = sched.run_until_empty()
         sched.wait_for_binds()
         sched.close()
@@ -580,3 +586,127 @@ def test_defer_escalation_refuses_and_keeps_every_pod():
     active, backoff, unschedulable = queue.counts()
     assert placed > 0 and active > 0
     assert placed + active + backoff + unschedulable == len(pending)
+
+
+# --- preemption against the reference's default (preemption-on) driver ---
+
+class _Clock:
+    """One stepped fake clock for a queue: the backoff then waits on the
+    drain loop, not on wall time, so both packages see the same queue."""
+
+    def __init__(self):
+        self.t = 1000.0
+
+    def __call__(self):
+        return self.t
+
+
+def _preemption_drain(pkg, workload, planes=True, batch=64):
+    """Drain a preemption workload to the end: after every batch the binds
+    are awaited (so both caches agree on which pods are assumed); when a
+    batch does nothing while pods wait out their backoff, the clock steps
+    1 s and the unschedulable pods move back, as bench.py's drain does.
+    Returns (assignments, victim keys in delete order, the nominated index
+    after each batch, preempted count, stats, scheduler)."""
+    t = RT if pkg == "ref" else PT
+    if workload == "config6":
+        nodes, existing, pending = bench_config6(50, 200, t=t)
+        pdbs = []
+    else:
+        nodes, existing, pending, pdbs = random_preemption_cluster(int(workload[-1]), t=t)
+    clock = _Clock()
+    cache = (RCache if pkg == "ref" else SchedulerCache)()
+    fill_cache(cache, nodes, existing)
+    queue = (RQueue if pkg == "ref" else PriorityQueue)(now=clock)
+    for p in pending:
+        queue.add(p)
+    deleted = []
+
+    def delete(v):
+        deleted.append(v.key())
+        cache.remove_pod(v)
+
+    kw = dict(batch_size=batch, deterministic=True, pdb_lister=lambda: pdbs, delete_fn=delete)
+    if pkg == "ref":
+        sched = RScheduler(cache, queue, enable_preemption=True, commit_plane=planes, fold_plane=planes,
+                           speculate=False, ingest_plane=False, term_plane=False, columnar_cache=False, **kw)
+    else:
+        sched = Scheduler(cache, queue, device="cpu", commit_plane=planes, **kw)
+    assignments, nominations = {}, []
+    preempted = idle = 0
+    for _ in range(120):
+        r = sched.schedule_batch()
+        sched.wait_for_binds()
+        assignments.update(r.assignments)
+        preempted += r.preempted
+        nominations.append(dict(queue.nominated))
+        if r.scheduled or r.unschedulable or r.deferred:
+            idle = 0
+            continue
+        if sum(queue.counts()) == 0 or idle >= 12:
+            break
+        idle += 1
+        clock.t += 1.0
+        queue.move_all_to_active()
+    sched.close()
+    return assignments, deleted, nominations, preempted, sched.stats, sched
+
+
+@pytest.mark.parametrize("planes", [True, False], ids=["planes-on", "planes-off"])
+@pytest.mark.parametrize("workload", ["config6", "random0", "random1", "random2"])
+def test_preemption_drain_matches_reference(workload, planes):
+    """Config 6 at 1/10 (50 full nodes, 350 bound pods, 200 preemptors,
+    batches of 64) and random preemption clusters (mixed priorities, PDBs,
+    an extended resource; batches of 16), against the reference Scheduler
+    with preemption on: the same placements, the same victims in the same
+    order, the same nominations after every batch and the same preempted
+    count, with the commit plane on and off. Every device plan passes the
+    host re-verification; later batches fold the outstanding nominations
+    onto the bank; the folded bank ends equal to a fresh encode with no
+    overlay left on it."""
+    batch = 64 if workload == "config6" else 16
+    ra, rv, rn, rp, _, _ = _preemption_drain("ref", workload, planes, batch)
+    pa, pv, pn, pp, st, sched = _preemption_drain("port", workload, planes, batch)
+    assert pa == ra and pv == rv and pp == rp
+    assert pn == rn
+    assert st["preempt_reverify_miss"] == 0 and st["preempted"] == pp > 0
+    assert st["victims"] == len(pv) and st["nominee_folds"] > 0
+    if workload == "config6":
+        assert len(pa) == 200 and pp == 200 and not sched.queue.has_nominations()
+    m = sched.mirror
+    assert m._nominee_overlay is None
+    m.sync()
+    dev, _, _ = m.device_arrays()
+    fresh, _, rows = p_encode(sched.cache.snapshot, vocab=m.vocab, with_images=False)
+    assert rows == m.row_of
+    for k in ("requested", "nonzero_req", "pod_count"):
+        assert np.array_equal(dev[k].numpy(), fresh.arrays()[k]), k
+
+
+@pytest.mark.parametrize("case", ["victim-search", "nominee-recheck"])
+def test_preemption_oracle_fallback_refuses_and_keeps_the_batch(case):
+    """victim-search: a preemptor with a required anti-affinity term that
+    fits nowhere, on nodes holding lower-priority pods, needs the
+    reference's full predicate chain per candidate node: refused, and the
+    pod is back in the queue. nominee-recheck: while a nomination is
+    outstanding, a batch holding a pod that is not resource-only takes the
+    reference's per-pod nominee re-check: refused before the solve."""
+    nodes, existing, pending = bench_config6(4, 6)
+    cache, queue = SchedulerCache(), PriorityQueue()
+    fill_cache(cache, nodes, existing)
+    sched = Scheduler(cache, queue, batch_size=8, device="cpu")
+    pending[0].affinity = PT.Affinity()
+    if case == "victim-search":
+        _anti(pending[0], PT, {"app": "zz"})
+        queue.add(pending[0])
+    else:
+        pending[1].nominated_node_name = nodes[0].name
+        queue.add(pending[1])
+        _anti(pending[0], PT, {"app": "zz"})
+        queue.add(pending[0])
+    with pytest.raises(NotImplementedError, match="oracle fallback"):
+        sched.schedule_batch()
+    active, backoff, unschedulable = queue.counts()
+    assert active == (1 if case == "victim-search" else 2) and backoff == unschedulable == 0
+    assert cache.pod_count() == len(existing) and sched.stats["victims"] == 0
+    sched.close()

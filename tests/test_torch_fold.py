@@ -132,7 +132,10 @@ def _drain(workload):
     fill_cache(cache, nodes, existing)
     for p in pending:
         queue.add(p)
-    sched = Scheduler(cache, queue, batch_size=96, deterministic=True, seed=1, device="cpu")
+    # pods that fit nowhere stay unschedulable: the random cluster's
+    # term-carrying preemptors would need the host oracle's victim search
+    sched = Scheduler(cache, queue, batch_size=96, deterministic=True, seed=1, device="cpu",
+                      enable_preemption=False)
     if fn is not None:
         sched.set_spread_selectors_fn(fn)
     res = sched.run_until_empty()

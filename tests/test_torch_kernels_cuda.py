@@ -3,7 +3,8 @@ card, on seeded all-branches clusters: filter (and its raw node-selector
 output), score, solve (with and without in-batch tracking), match_terms,
 spread_score, selector_spread_score, interpod_filter (every subset of its
 parts), interpod_score (each part and both), inbatch_port_conflict,
-spread_filter, the commit arbiter and the commit fold.
+spread_filter, the commit arbiter, the commit fold, the preemption victim
+search and the nominee overlay's usage fold.
 Needs an NVIDIA card and nvcc:
 
     python -m pytest -m cuda tests/test_torch_kernels_cuda.py
@@ -381,3 +382,62 @@ def test_fold_kernel_equals_plain(cuda):
     want = fold_commit_banks_plain(*(x.clone() for x in banks), *ctl)
     for got, w in zip(dev_banks, want):
         assert torch.equal(got.cpu(), w)
+
+
+@pytest.mark.parametrize("shape", [(48, 40, 8, 8), (24, 20, 64, 8), (20, 16, 8, 16), (40, 1100, 8, 8)])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_preempt_kernel_equals_plain(cuda, seed, shape):
+    """Random padded arrays reaching every branch (tests/test_torch_preempt.py
+    checks the plain version against the JAX scan), at 64 victim slots, 16
+    resource slots and more nodes than a block has threads."""
+    from kubernetes_tpu_torch.models.clusters import random_preempt_arrays
+    from kubernetes_tpu_torch.ops.preempt import preempt_batch, preempt_batch_plain
+
+    p, n, v, r = shape
+    a = arrays_to_torch(random_preempt_arrays(seed, p, n, v, r), cuda)
+    before = preempt_batch.launches
+    got = preempt_batch(**a)
+    assert preempt_batch.launches == before + 1
+    want = preempt_batch_plain(**a)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int((got[0] >= 0).sum()) >= 3
+
+
+def test_preempt_kernel_equals_plain_at_config6(cuda):
+    """The first preemption round of bench.py config 6 at full size (500
+    full nodes, 2,000 preemptors: P = 2,048, N = 512, V = 8, R = 8)."""
+    from kubernetes_tpu_torch.models.clusters import bench_config6
+    from kubernetes_tpu_torch.ops.preempt import preempt_batch, preempt_batch_plain
+    from kubernetes_tpu_torch.scheduler.preemption import preempt_arrays
+
+    nodes, existing, pending = bench_config6(500, 2000)
+    arrays, _, _ = preempt_arrays(pending, Snapshot(nodes, existing))
+    a = arrays_to_torch(arrays, cuda)
+    assert tuple(a["vict_req"].shape) == (512, 8, 8) and a["cand"].shape[0] == 2048
+    got = preempt_batch(**a)
+    want = preempt_batch_plain(**a)
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int((got[0] >= 0).sum()) == 2000
+
+
+def test_fold_usage_kernel_equals_plain_and_inverts(cuda):
+    from kubernetes_tpu_torch.ops.fold import fold_usage, fold_usage_plain
+
+    g = torch.Generator().manual_seed(3)
+    n, r, b = 512, 8, 2048
+    requested = torch.randint(0, 10**12, (n, r), generator=g)
+    pod_count = torch.randint(0, 110, (n,), generator=g).int()
+    rows = torch.randint(0, 6, (b,), generator=g).int()  # duplicate-heavy
+    rows[::9] = n  # sentinel pads
+    vecs = torch.randint(0, 10**9, (b, r), generator=g)
+    cnt = (rows < n).int()
+    dreq, dpc = requested.to(cuda), pod_count.to(cuda)
+    before = fold_usage.launches
+    fold_usage(dreq, dpc, rows.to(cuda), vecs.to(cuda), cnt.to(cuda))
+    assert fold_usage.launches == before + 1
+    want = fold_usage_plain(requested.clone(), pod_count.clone(), rows, vecs, cnt)
+    assert torch.equal(dreq.cpu(), want[0]) and torch.equal(dpc.cpu(), want[1])
+    fold_usage(dreq, dpc, rows.to(cuda), -vecs.to(cuda), -cnt.to(cuda))
+    assert torch.equal(dreq.cpu(), requested) and torch.equal(dpc.cpu(), pod_count)
