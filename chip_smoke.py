@@ -16,7 +16,10 @@ Service per app, the SelectorSpread input) and on the config-4 workload
 required hostname anti-affinity, the rest with a preferred zone affinity),
 batches of 4,096, and on the config-6 workload (500 nodes each holding 7
 bound priority-0 pods of 4 cores, 2,000 pending priority-1000 pods of 6
-cores that land only by preemption) — and checks what they placed. Phases:
+cores that land only by preemption) and on config 3-hard (config 3 with
+every constraint DoNotSchedule) on the full 10,000-node cluster, where
+the commit arbiter's defers escalate to the host oracle — and checks what
+they placed. Phases:
 
   1. device     card name, count, power limit
   2. build      nvcc seconds and the -Xptxas -v register/shared lines
@@ -51,7 +54,11 @@ cores that land only by preemption) — and checks what they placed. Phases:
                 for bit, and timed at the config-6 nominee shapes (976
                 nominees on 512 rows, B=976), with one
                 index_put_(accumulate=True) per column as its library
-                yardstick
+                yardstick; gather_score_rows on its edges (K = 1,
+                repeated rows, N not a multiple of the block, int64
+                extremes) and at the config-3-hard shapes (U = 128,
+                N = 10,240, K = 128), one torch.index_select as its
+                library yardstick
   4. parity     config 2, config 3 and config 4 at 1/10 scale through
                 Scheduler with the commit plane on (the arbiter and the
                 fold), on cuda and on cpu, and with it off on cuda (config 3 without
@@ -66,7 +73,19 @@ cores that land only by preemption) — and checks what they placed. Phases:
                 plane on on cuda (a main path: preempt_batch, fold_usage)
                 and on cpu, and off on cuda (the copy overlay): the same
                 placements, victims in order, nominations after every
-                batch and preempted count
+                batch and preempted count; then the host oracle's drains
+                on cuda and on cpu (preemption on, one stepped clock):
+                config 3-hard at 1,000 nodes / 10,000 pods / batch 512
+                (the reference's 667 escalations to _oracle_place; every
+                pod placed, no zone skew above max_skew), the commit-plane
+                mix (8 nodes, 96 pods, batch 16), a random preemption
+                cluster with host ports (the per-pod nominee re-check), a
+                random cluster mixing DoNotSchedule spread, required pod
+                (anti-)affinity and host ports (the slow victim search),
+                and config 3-hard at 100 / 1,000 / 128 with the commit
+                plane off (the per-pod loop): identical placements,
+                victims in order, nominations after every batch and the
+                oracle and arbiter counters
   5. drain      config 2 at full size; then config 3 at full size, without
                 and with Services; then config 4 at full size, all with the
                 commit plane on (the default): every pod placed, no node
@@ -75,8 +94,9 @@ cores that land only by preemption) — and checks what they placed. Phases:
                 of one `exclusive` value on a node, and after each drain the
                 device node bank's usage columns, signature bank and
                 pattern bank — produced by the folds — equal a fresh host
-                encode of the final cache; every batch folded and none
-                arbitrated (no DoNotSchedule pod: the bulk path); pods/s,
+                encode of the final cache; every batch folded, none
+                arbitrated on configs 2 and 3 (the bulk path), every one
+                on config 4 (required anti-affinity), none deferred; pods/s,
                 stages, fold and arbiter counters, peak memory, per-app
                 zone skew or share; then config 6 at full size with the
                 commit plane on, at bench.py's batch of 4,096 and at 1,024
@@ -90,12 +110,18 @@ cores that land only by preemption) — and checks what they placed. Phases:
                 bank equal to a fresh encode with no overlay left on it;
                 wall time (it waits out the queue's 1 s backoff) and the
                 summed schedule_batch seconds apart, preemption rounds and
-                their seconds
-  6. kernels    one JSON line: per kernel (the fourteen and the tracked
+                their seconds; then config 3-hard on the full cluster
+                (10,000 nodes in 8 zones, HARD_FULL_PODS pods, batch
+                4,096): every pod placed, no node over its limits, no zone
+                skew above max_skew, the device node and signature banks
+                equal to a fresh encode; the defers, escalations and
+                oracle counters
+  6. kernels    one JSON line: per kernel (the fifteen and the tracked
                 solve) its launches in the main-path drains (the counts are
                 set to 0 before each drain and read after it: config 3-hard
-                and config 6 at 1/10 and the six full drains), error,
-                times, bound and, for the two folds, the library yardstick
+                and config 6 at 1/10, the oracle drains on cuda and the
+                eight full drains), error, times, bound and the library
+                yardstick where one PyTorch call computes the function
   7. result     the last line: {"ok": true, "device": {...}}
 
 Any failed phase exits non-zero before the result line. Without a CUDA
@@ -110,6 +136,7 @@ import os
 import subprocess
 import sys
 import time
+from types import SimpleNamespace
 
 import torch
 
@@ -130,6 +157,10 @@ CONFIG4_NODES = 2000
 CONFIG4_PODS = 20000
 BATCH = 4096
 HARD_BATCH = 128  # config 3-hard at 1/10: the size that escalates no defer
+# config 3-hard on the full 10,000-node cluster: the pods are cut from
+# 100,000 to what the host oracle's escalations let the script finish in
+# (the full drain: scripts/torch_drain_profile.py --config 3-hard)
+HARD_FULL_PODS = 32768
 CONFIG6_NODES = 500
 CONFIG6_PREEMPTORS = 2000
 # config 6 in batches of 1,024: the second batch of the first round
@@ -574,6 +605,12 @@ def fold_usage_work(rows, n, r):
     live = rows[(rows >= 0) & (rows < n)]
     cells = int(torch.unique(live).numel())
     return int(live.numel()) * (4 + 8 * r + 4) + 2 * cells * (8 * r + 4), int(live.numel()) * (r + 1)
+
+
+def gather_work(k, n):
+    """(bytes, integer operations) of gather_score_rows: the K wanted rows
+    of N int64 scores read once and written once, the K indices read."""
+    return 2 * k * n * 8 + 4 * k, 0
 
 
 def bound(work):
@@ -1107,6 +1144,50 @@ def compare_fold_usage(label, n, r, nominees, time_it: bool):
     return st
 
 
+def compare_gather(label, u, n, rows, time_it: bool, seed=0):
+    """Hold gather_score_rows against its plain version, bit for bit, on a
+    seeded [U, N] int64 score matrix holding both int64 extremes, for the
+    row list `rows`; with time_it, time the kernel (one prebuilt argument
+    struct relaunched), the plain version and the library's
+    torch.index_select, and bound it."""
+    from kubernetes_tpu_torch.kernels import build
+    from kubernetes_tpu_torch.ops import pipeline as PP
+
+    g = torch.Generator().manual_seed(seed)
+    score = torch.randint(-(2**62), 2**62, (u, n), generator=g, dtype=torch.int64)
+    score[0, 0] = torch.iinfo(torch.int64).min
+    score[-1, -1] = torch.iinfo(torch.int64).max
+    score = score.cuda()
+    idx = torch.tensor(rows, dtype=torch.int32, device=score.device)
+    got = PP.gather_score_rows(score, rows)
+    want = PP.gather_score_rows_plain(score, idx)
+    err = 0 if torch.equal(got, want) else int((got != want).sum())
+    check(err == 0, f"[{label}] gather_score_rows differs from its plain version in {err} cells")
+    st = {"max_abs_err": err}
+    log(f"[kernels] {label}: U={u} N={n} K={len(rows)}: gather_score_rows exact")
+    if time_it:
+        out = torch.empty_like(got)
+        gargs = PP.gather_args(score, idx, out)
+        st["ms"] = cuda_ms(lambda: build.launch(PP.GATHER_ENTRY, gargs, score.device), 200)
+        st["plain_ms"] = cuda_ms(lambda: PP.gather_score_rows_plain(score, idx), 200)
+        st["library_ms"] = cuda_ms(lambda: torch.index_select(score, 0, idx), 200)
+        st["bound"] = bound(gather_work(len(rows), n))
+        log(f"[kernels] {label} gather_score_rows: kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, bound "
+            f"{st['bound'][0]:.6f} ms ({st['bound'][1]}), library index_select {st['library_ms']:.4f} ms")
+    return st
+
+
+def phase_gather_kernels():
+    """gather_score_rows on its edges (K = 1, repeated rows, N not a
+    multiple of the block) and at the config-3-hard shapes (U = 128,
+    N = 10,240, K = 128)."""
+    compare_gather("gather edges", 1, 7, [0], time_it=False, seed=1)
+    compare_gather("gather edges", 8, 1031, [5, 5, 0, 7, 5], time_it=False, seed=2)
+    compare_gather("gather edges", 40, 300, [39], time_it=False, seed=3)
+    return {"gather_score_rows": compare_gather("config-3-hard", 128, 10240, list(range(128))[::-1],
+                                                time_it=True, seed=4)}
+
+
 def phase_preempt_kernels():
     """preempt_batch on every branch and at the config-6 shapes; fold_usage
     likewise. Returns {kernel: stats}."""
@@ -1211,6 +1292,7 @@ def phase_kernels():
     stats.update(hard)
     stats.update(compare_commit(enc4, "config-4", time_it=True, parts=("arbitrate",)))
     stats.update(phase_preempt_kernels())
+    stats.update(phase_gather_kernels())
     return stats
 
 
@@ -1224,6 +1306,7 @@ def kernel_counters():
 
     from kubernetes_tpu_torch.commit import arbiter as A
     from kubernetes_tpu_torch.ops import fold as FO
+    from kubernetes_tpu_torch.ops import pipeline as PP
     from kubernetes_tpu_torch.ops import preempt as PR
 
     return {
@@ -1237,6 +1320,7 @@ def kernel_counters():
         "spread_filter": (TO.spread_filter, "launches"), "arbitrate": (A.arbitrate, "launches"),
         "fold_commit_banks": (FO.fold_commit_banks, "launches"),
         "preempt_batch": (PR.preempt_batch, "launches"), "fold_usage": (FO.fold_usage, "launches"),
+        "gather_score_rows": (PP.gather_score_rows, "launches"),
     }
 
 
@@ -1265,7 +1349,7 @@ def drain(device, workload, n_nodes, n_pods, batch, deterministic, seed=0, servi
     if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
-    res = sched.run_until_empty()
+    res = sched.run_until_empty(max_cycles=100000)
     sched.wait_for_binds()
     wall = time.perf_counter() - t0
     sched.close()
@@ -1346,6 +1430,129 @@ def drain6(device, n_nodes, n_preemptors, batch, planes=True, stepped=False):
     check(not bad_victims, f"config-6 drain: bad victims {bad_victims[:5]}")
     out.update(sched=sched, nodes=nodes, existing=existing, pending=pending, victims=victims)
     return out
+
+
+ORACLE_COUNTERS = ("oracle_rechecks", "light_rechecks", "oracle_places", "arbiter_batches", "arbiter_defer",
+                   "arbiter_escalated")
+
+
+def oracle_workload(workload):
+    """(nodes, bound pods, pending pods, PDBs) of phase 4's oracle drains."""
+    from kubernetes_tpu_torch.models.clusters import (
+        bench_config3,
+        commit_plane_mix,
+        random_cluster,
+        random_preemption_cluster,
+    )
+
+    if workload == "config-3-hard 1,000/10,000":
+        nodes, pods, _ = bench_config3(CONFIG3_NODES // 10, CONFIG3_PODS // 10, hard=True)
+        return nodes, [], pods, []
+    if workload == "config-3-hard 100/1,000":
+        nodes, pods, _ = bench_config3(CONFIG3_NODES // 100, CONFIG3_PODS // 100, hard=True)
+        return nodes, [], pods, []
+    if workload == "commit-plane mix":
+        nodes, pods = commit_plane_mix(8, 96)
+        return nodes, [], pods, []
+    if workload == "preemption + host ports":
+        return random_preemption_cluster(20, ports=True)
+    # DoNotSchedule spread, required pod (anti-)affinity, host ports
+    nodes, existing, pods = random_cluster(24, 40, 100, 60, pins=False, topology=True, hard_spread=True,
+                                           interpod=True, pending_ports=True, pending_affinity=True)
+    return nodes, existing, pods, []
+
+
+def oracle_drain(device, workload, batch, planes=True):
+    """Drain an oracle workload to the end with preemption on, on one
+    stepped clock (the drain6 loop). Returns the placements, the victims in
+    delete order, the nominated index after every batch, the preempted
+    count, the oracle and arbiter counters, the scheduler, the cluster and
+    the wall seconds."""
+    from kubernetes_tpu_torch.models.clusters import fill_cache
+    from kubernetes_tpu_torch.scheduler.driver import Scheduler
+    from kubernetes_tpu_torch.state.cache import SchedulerCache
+    from kubernetes_tpu_torch.state.queue import PriorityQueue
+
+    nodes, existing, pending, pdbs = oracle_workload(workload)
+    clock = StepClock()
+    cache, queue = SchedulerCache(), PriorityQueue(now=clock)
+    fill_cache(cache, nodes, existing)
+    for p in pending:
+        queue.add(p)
+    victims = []
+
+    def delete(v):
+        victims.append(v.key())
+        cache.remove_pod(v)
+
+    sched = Scheduler(cache, queue, batch_size=batch, deterministic=True, device=device, commit_plane=planes,
+                      pdb_lister=lambda: pdbs, delete_fn=delete)
+    out = {"assignments": {}, "victims": victims, "nominations": [], "preempted": 0}
+    t0 = time.perf_counter()
+    idle = stale = 0
+    for _ in range(10000):
+        r = sched.schedule_batch()
+        sched.wait_for_binds()
+        out["assignments"].update(r.assignments)
+        out["preempted"] += r.preempted
+        out["nominations"].append(dict(queue.nominated))
+        # pods that fit nowhere retry after their backoff for ever: the
+        # drain ends after 30 batches that place, defer and preempt nothing
+        stale = 0 if (r.scheduled or r.deferred or r.preempted) else stale + 1
+        if stale >= 30:
+            break
+        if r.scheduled or r.unschedulable or r.deferred:
+            idle = 0
+            continue
+        if sum(queue.counts()) == 0 or idle >= 12:
+            break
+        idle += 1
+        clock.t += 1.0
+        queue.move_all_to_active()
+    out["wall"] = time.perf_counter() - t0
+    sched.close()
+    out["counters"] = {k: sched.stats[k] for k in ORACLE_COUNTERS}
+    out.update(sched=sched, nodes=nodes, pending=pending)
+    return out
+
+
+def phase_oracle_parity():
+    """The host oracle's drains on cuda and on cpu: identical placements,
+    victims in delete order, nominations after every batch, preempted
+    count and oracle / arbiter counters. The cuda runs are main paths."""
+    launches = {}
+    runs = [
+        # the reference's 667-escalation row: deferred pods escalate to _oracle_place
+        ("config-3-hard 1,000/10,000", 512, True,
+         ["filter_mask", "score_matrix", "solve_greedy", "spread_filter", "arbitrate", "fold_commit_banks",
+          "gather_score_rows"]),
+        ("commit-plane mix", 16, True, ["arbitrate", "fold_commit_banks", "gather_score_rows"]),
+        ("preemption + host ports", 16, True, ["filter_mask", "score_matrix", "solve_greedy"]),
+        ("random terms + preemption", 32, True, ["solve_greedy", "interpod_filter", "spread_filter"]),
+        # DoNotSchedule spread with the commit plane off: the per-pod loop
+        ("config-3-hard 100/1,000", 128, False, ["solve_greedy", "spread_filter"]),
+    ]
+    for workload, batch, planes, need in runs:
+        gpu, got = run_main_path(f"oracle {workload}", need, lambda: oracle_drain("cuda", workload, batch, planes))
+        cpu = oracle_drain("cpu", workload, batch, planes)
+        for key in ("assignments", "victims", "nominations", "preempted", "counters"):
+            check(gpu[key] == cpu[key], f"oracle drain {workload}: {key} differ on cuda and cpu")
+        c = gpu["counters"]
+        check(c["oracle_places"] + c["oracle_rechecks"] > 0, f"oracle drain {workload}: the host oracle never ran")
+        if workload.startswith("config-3-hard"):
+            check(len(gpu["assignments"]) == len(gpu["pending"]),
+                  f"oracle drain {workload}: {len(gpu['assignments'])} of {len(gpu['pending'])} placed")
+            skew = zone_skew(gpu["nodes"], gpu["pending"], SimpleNamespace(assignments=gpu["assignments"]))
+            check(skew <= 1, f"oracle drain {workload}: an app's zone counts differ by {skew} > max_skew 1")
+        if workload == "config-3-hard 1,000/10,000":
+            check(c["arbiter_escalated"] > 0, f"oracle drain {workload}: no escalation")
+        log(f"[parity] oracle {workload} (batch {batch}, commit plane {'on' if planes else 'off'}, stepped clock): "
+            f"identical placements, victims, nominations and counters on cuda and cpu ({len(gpu['assignments'])} "
+            f"placed, {len(gpu['victims'])} victims, {gpu['sched'].stats['batches']} batches; {c}; cuda "
+            f"{gpu['wall']:.2f}s, cpu {cpu['wall']:.2f}s); launches {got}")
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+    return launches
 
 
 def phase_parity():
@@ -1616,15 +1823,19 @@ def log_drain(label, sched, res, wall, smi):
         f"rows_shipped {sched.mirror.rows_shipped}")
 
 
-def verify_planes(label, sched):
-    """Every batch placed pods, so every batch folded (none overflowed);
-    no batch holds a DoNotSchedule pod, so none was arbitrated (the bulk
-    path; config 4's required anti-affinity is settled by its tracked
-    solve)."""
+def verify_planes(label, sched, arbitrated=False):
+    """Every batch placed pods, so every batch folded (none overflowed).
+    Configs 2 and 3 hold no pod that needs a re-check, so no batch was
+    arbitrated (the bulk path); config 4's required anti-affinity is
+    (`arbitrated`): every batch arbitrated, as the reference does, and
+    nothing deferred (its tracked solve leaves the arbiter nothing to
+    defer)."""
     st = sched.stats
     check(st["fold_batches"] == st["batches"] and st["fold_overflow_batches"] == 0,
           f"{label}: {st['fold_batches']} of {st['batches']} batches folded, {st['fold_overflow_batches']} overflowed")
-    check(st["arbiter_batches"] == 0, f"{label}: {st['arbiter_batches']} arbitrated batches, expected 0")
+    want = st["batches"] if arbitrated else 0
+    check(st["arbiter_batches"] == want and st["arbiter_defer"] == 0,
+          f"{label}: {st['arbiter_batches']} arbitrated batches (expected {want}), {st['arbiter_defer']} defers")
 
 
 def phase_drain(smi, total):
@@ -1671,7 +1882,7 @@ def phase_drain(smi, total):
         "cuda", "config4", CONFIG4_NODES, CONFIG4_PODS, BATCH, deterministic=False))
     add(launches)
     verify_capacity(sched, pods, res)
-    verify_planes("config-4", sched)
+    verify_planes("config-4", sched, arbitrated=True)
     verify_node_bank(sched)
     n_excl = verify_exclusive(pods, res)
     n_pats = verify_pattern_bank(sched)
@@ -1684,6 +1895,28 @@ def phase_drain(smi, total):
         f"{sched.stats['tracked_batches']} of {sched.stats['batches']} batches tracked; term kinds "
         f"{sorted(sched._term_kinds)}, V={sched._v_bucket}, TT={sched._t_bucket}; share of pods in their "
         f"app's most common zone {zone_share(nodes, pods, res):.4f} (information only); launches {launches}")
+    # config 3-hard on the full cluster: the arbiter's defers escalate to
+    # the host oracle; the pod count is cut (HARD_FULL_PODS), never the nodes
+    torch.cuda.reset_peak_memory_stats()
+    need = ["filter_mask", "score_matrix", "solve_greedy", "match_terms", "spread_filter", "arbitrate",
+            "fold_commit_banks", "gather_score_rows"]
+    (sched, nodes, pods, res, wall), launches = run_main_path("config-3-hard full cluster", need, lambda: drain(
+        "cuda", "config3", CONFIG3_NODES, HARD_FULL_PODS, BATCH, deterministic=False, hard=True))
+    add(launches)
+    verify_capacity(sched, pods, res)
+    skew = zone_skew(nodes, pods, res)
+    check(skew <= 1, f"config-3-hard full cluster: an app's zone counts differ by {skew} > max_skew 1")
+    verify_node_bank(sched)
+    n_sigs = verify_sig_bank(sched)
+    st = sched.stats
+    check(st["arbiter_batches"] == st["batches"], f"config-3-hard full cluster: {st['arbiter_batches']} of "
+          f"{st['batches']} batches arbitrated")
+    log_drain(f"config-3-hard full cluster ({CONFIG3_NODES} nodes, {HARD_FULL_PODS} pods, batch {BATCH})",
+              sched, res, wall, smi)
+    log(f"[drain] config-3-hard full cluster: every pod placed, no node over its limits, max per-app zone skew "
+        f"{skew} (max_skew 1), device node bank and signature bank ({n_sigs} signatures) == fresh host encode; "
+        f"arbiter_defer {st['arbiter_defer']}, arbiter_escalated {st['arbiter_escalated']}, oracle_places "
+        f"{st['oracle_places']}, oracle_rechecks {st['oracle_rechecks']}; launches {launches}")
     for batch in (BATCH, CONFIG6_BATCH):
         need = ["filter_mask", "score_matrix", "solve_greedy", "fold_commit_banks", "preempt_batch"]
         if batch < CONFIG6_PREEMPTORS:
@@ -1749,6 +1982,8 @@ def main() -> int:
     phase_build()
     stats = phase_kernels()
     launches = dict(phase_parity())
+    for k, v in phase_oracle_parity().items():
+        launches[k] = launches.get(k, 0) + v
     phase_drain(smi, launches)
     sources = {
         "filter_mask": ("kubernetes_tpu_torch/csrc/filters.cu", "kubernetes_tpu/ops/filters.py:216"),
@@ -1766,6 +2001,7 @@ def main() -> int:
         "fold_commit_banks": ("kubernetes_tpu_torch/csrc/fold.cu", "kubernetes_tpu/ops/fold.py:44"),
         "preempt_batch": ("kubernetes_tpu_torch/csrc/preempt.cu", "kubernetes_tpu/ops/preempt.py:63"),
         "fold_usage": ("kubernetes_tpu_torch/csrc/fold.cu", "kubernetes_tpu/ops/fold.py:74"),
+        "gather_score_rows": ("kubernetes_tpu_torch/csrc/gather.cu", "kubernetes_tpu/ops/pipeline.py:374"),
     }
     kernels = []
     for kname, (src, ref) in sources.items():

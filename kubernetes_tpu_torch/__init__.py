@@ -13,13 +13,16 @@ which runs each kernel's plain PyTorch version instead.
 
 Layout mirrors the reference package:
   api/        typed Pod/Node objects, resource.Quantity, label selectors
-  oracle/     NodeInfo/Snapshot, the request helpers the encoding reads and
-              the term helpers the term compiler reads
+  oracle/     NodeInfo/Snapshot and the host oracle's predicate chain
+              (predicates.go semantics), read by the driver's per-pod
+              re-checks, the victim search and the term compiler
   state/      interner, tensor encoding (node, signature, pod banks), term
-              tables, queue, cache + device mirror
-  ops/        filters, scores, topology, solver, pipeline (kernel wrappers
-              + plain versions)
-  scheduler/  the batch driver
+              tables, queue, cache + device mirror, the zone-interleaved
+              node order
+  ops/        filters, scores, topology, solver, pipeline, fold, preempt
+              (kernel wrappers + plain versions)
+  commit/     the commit arbiter and the fold planner
+  scheduler/  the batch driver and preemption
   kernels/    nvcc build + ctypes loading of csrc/*.cu
 """
 

@@ -28,24 +28,27 @@ tables — from the dict the driver passed solve_pipeline as
 `arbitrate_plain` is the reference's scan as a Python loop of PyTorch ops;
 the reference's float32 ca / cb / cs tables are only compared > 0, so they
 are int32 here. On CUDA tensors `arbitrate` launches csrc/arbiter.cu, one
-block walking the same B steps (counted in `arbitrate.launches`). The
-reference's `host_arbitrate` is its full-oracle walk, which needs the
-oracle predicate chain (ROADMAP.md queue 1, oracle fallback); the tests
-hold the port to the JAX `arbitrate` itself.
+block walking the same B steps (counted in `arbitrate.launches`).
+`host_arbitrate` (ref :583) is the arbiter's executable spec: the same
+walk on the host by the full oracle predicate chain; only the tests call
+it.
 """
 
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from ..api.selectors import match_label_selector
 from ..kernels import build
 from ..ops import filters as F
 from ..ops import topology as T
 from ..ops.pipeline import apply_carry
 from ..ops.solver import pop_order
+from ..oracle.nodeinfo import Snapshot
+from ..oracle.predicates import compute_predicate_metadata, get_hard_spread_constraints, pod_fits_on_node
 from ..state.terms import ANTI_REQ, SPREAD_HARD
 
 Arrays = Dict[str, torch.Tensor]
@@ -333,3 +336,48 @@ def arbitrate(
 
 
 arbitrate.launches = 0
+
+
+def host_arbitrate(pods, assign_rows, node_name_of_row, snapshot: Snapshot,
+                   order: Optional[List[int]] = None) -> List[int]:
+    """The sequential host walk `arbitrate` reproduces: pods in pop order
+    (priority desc, batch position asc), each placed pick re-validated by
+    the full oracle predicate chain against a scratch snapshot that assumes
+    every earlier V_PLACE pod; a failure defers, and a -1 defers only when
+    an earlier commit matched one of the pod's DoNotSchedule constraints
+    (the could-fit rule). Returns the verdicts by batch position. The
+    obviously-correct formulation: it re-derives the predicate metadata per
+    pod against the scratch state."""
+    if order is None:
+        order = sorted(range(len(pods)), key=lambda i: (-pods[i].get_priority(), i))
+    snap = Snapshot(
+        [ni.node for ni in snapshot.node_infos.values()],
+        [p for ni in snapshot.node_infos.values() for p in ni.pods],
+    )
+    verdicts = [V_NOFIT] * len(pods)
+    commits: List = []
+    for i in order:
+        pod = pods[i]
+        row = int(assign_rows[i])
+        if row < 0:
+            couldfit = any(
+                c.namespace == pod.namespace and match_label_selector(con.label_selector, c.labels)
+                for con in get_hard_spread_constraints(pod)
+                for c in commits
+            )
+            verdicts[i] = V_DEFER if couldfit else V_NOFIT
+            continue
+        node_name = node_name_of_row(row)
+        ni = snap.get(node_name) if node_name is not None else None
+        if ni is None:
+            verdicts[i] = V_DEFER
+            continue
+        meta = compute_predicate_metadata(pod, snap)
+        if pod_fits_on_node(pod, ni, meta=meta)[0]:
+            verdicts[i] = V_PLACE
+            bound = pod.with_node(node_name)
+            ni.add_pod(bound)
+            commits.append(bound)
+        else:
+            verdicts[i] = V_DEFER
+    return verdicts

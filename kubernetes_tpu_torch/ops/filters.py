@@ -24,6 +24,7 @@ import torch
 
 from ..api.types import TAINT_NODE_UNSCHEDULABLE
 from ..kernels import build
+from ..oracle.predicates import GENERAL_PREDICATES_EXPANSION
 from ..state.tensors import (
     EFFECT_NO_EXECUTE,
     EFFECT_NO_SCHEDULE,
@@ -52,10 +53,6 @@ MASK_PRED_NAMES = {
     "taints": "PodToleratesNodeTaints",
 }
 PRED_BITS = {k: 1 << i for i, k in enumerate(MASK_PRED_NAMES)}
-# GeneralPredicates expands per predicates.go:1204
-GENERAL_PREDICATES_EXPANSION = frozenset(
-    {"HostName", "PodFitsHostPorts", "MatchNodeSelector", "PodFitsResources"}
-)
 
 
 def make_ids(vocab) -> Dict[str, int]:

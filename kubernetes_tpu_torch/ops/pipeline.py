@@ -11,9 +11,12 @@ plain versions on CPU tensors); the glue between them is plain PyTorch.
 A DoNotSchedule pod's placement is then re-checked against its batch's
 earlier commits by the commit arbiter (commit/arbiter.py), which reads the
 solve's intermediates (`arbiter_inputs`) instead of launching them again.
-term_kinds=None
-(the reference's "assume every kind") raises NotImplementedError: it
-implies required pod affinity, whose re-check needs the host oracle.
+term_kinds=None is the reference's "assume every kind".
+
+`gather_score_rows` (ref :374) gathers the rows of the [U, N] score
+matrix that the driver's host oracle ranks nodes by, so that only those
+rows cross to the host: csrc/gather.cu on CUDA tensors (counted in
+`gather_score_rows.launches`), `index_select` on CPU tensors.
 """
 
 from __future__ import annotations
@@ -21,11 +24,14 @@ from __future__ import annotations
 from dataclasses import dataclass
 from typing import Dict, Optional, Sequence, Tuple
 
+import ctypes
+
 import torch
 
 from . import filters as F
 from . import scores as S
 from . import topology as T
+from ..kernels import build
 from ..state.terms import ANTI_REQ
 from .solver import pop_order, solve_greedy
 
@@ -64,14 +70,10 @@ PORTED_TERM_KINDS = frozenset({
 
 
 def _check_term_kinds(term_kinds) -> frozenset:
-    """The term kinds of a batch, refused unless every one is ported. None
-    (the reference's "assume everything") is refused: it includes required
-    pod affinity, whose pods the host oracle re-checks."""
+    """The term kinds of a batch; None (the reference's "assume everything")
+    is every kind. An unknown kind is an error."""
     if term_kinds is None:
-        raise NotImplementedError(
-            "term_kinds=None assumes every topology kind, required pod affinity included, whose "
-            "re-check needs the host oracle (ROADMAP.md queue 1, oracle fallback)"
-        )
+        return PORTED_TERM_KINDS
     unknown = sorted(set(term_kinds) - PORTED_TERM_KINDS)
     if unknown:
         raise ValueError(f"unknown topology term kinds {unknown}")
@@ -226,3 +228,61 @@ def solve_pipeline(
         assign, carry_out = result
         return assign, score, carry_out
     return result, score
+
+
+GATHER_ENTRY = "ktpu_gather_score_rows"
+
+
+def gather_score_rows_plain(score: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """out[k] = score[idx[k]] for an int32 index vector on score's device."""
+    return score.index_select(0, idx.long())
+
+
+class GatherArgs(ctypes.Structure):
+    """Mirror of `struct GatherArgs` in csrc/gather.cu."""
+
+    _fields_ = [("score", ctypes.c_void_p), ("idx", ctypes.c_void_p), ("out", ctypes.c_void_p),
+                ("U", ctypes.c_int32), ("N", ctypes.c_int32), ("K", ctypes.c_int32)]
+
+
+def gather_args(score: torch.Tensor, idx: torch.Tensor, out: torch.Tensor) -> GatherArgs:
+    """The gather kernel's argument struct for these CUDA tensors (raises
+    on a device, dtype, shape or layout the kernel does not take)."""
+    u, n = score.shape
+    k = idx.shape[0]
+    a = GatherArgs()
+    a.score = build.ptr(score, torch.int64, (u, n))
+    a.idx = build.ptr(idx, torch.int32, (k,))
+    a.out = build.ptr(out, torch.int64, (k, n))
+    a.U, a.N, a.K = u, n, k
+    return a
+
+
+def gather_score_rows(score: torch.Tensor, rows) -> torch.Tensor:
+    """The rows `rows` (host indices: a sequence of ints or a CPU tensor)
+    of the [U, N] score matrix, as a [K, N] tensor on score's device.
+    Every index is checked against U on the host (the reference's jitted
+    gather would clamp one out of range; the driver never passes one).
+    CPU tensors run the plain version; CUDA tensors launch csrc/gather.cu
+    (counted in `gather_score_rows.launches`)."""
+    idx = torch.as_tensor(rows, dtype=torch.int32, device="cpu")
+    if idx.ndim != 1:
+        raise ValueError(f"expected a 1-D index vector, got shape {tuple(idx.shape)}")
+    u = score.shape[0]
+    if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= u):
+        raise IndexError(f"score row index out of range [0, {u}): {idx.tolist()}")
+    dev = score.device
+    if dev.type == "cpu":
+        return gather_score_rows_plain(score, idx)
+    if dev.type == "cuda":
+        out = torch.empty((idx.shape[0], score.shape[1]), dtype=score.dtype, device=dev)
+        if idx.numel() == 0:
+            return out
+        idx_d = idx.to(dev)
+        build.launch(GATHER_ENTRY, gather_args(score, idx_d, out), dev)
+        gather_score_rows.launches += 1
+        return out
+    raise ValueError(f"no gather kernel for device {dev}")
+
+
+gather_score_rows.launches = 0

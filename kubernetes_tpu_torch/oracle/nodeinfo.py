@@ -1,5 +1,5 @@
-"""Host-side cluster snapshot views used by the tensorization layer: the
-port's own copy of `kubernetes_tpu.oracle.nodeinfo`.
+"""Host-side cluster snapshot views used by the host oracle and the
+tensorization layer: the port's own copy of `kubernetes_tpu.oracle.nodeinfo`.
 
 Mirrors the role of pkg/scheduler/nodeinfo/node_info.go: a per-node aggregate
 of the scheduling-relevant state (requested resources, pod list, used host
@@ -21,6 +21,16 @@ LABEL_ZONE_FAILURE_DOMAIN = "failure-domain.beta.kubernetes.io/zone"
 LABEL_ZONE_REGION = "failure-domain.beta.kubernetes.io/region"
 
 
+def get_zone_key(node: Node) -> str:
+    """utilnode.GetZoneKey (pkg/util/node/node.go): region + zone combined;
+    empty string when neither label is present."""
+    region = node.labels.get(LABEL_ZONE_REGION, "")
+    zone = node.labels.get(LABEL_ZONE_FAILURE_DOMAIN, "")
+    if not region and not zone:
+        return ""
+    return region + ":\x00:" + zone
+
+
 def pod_has_affinity_constraints(pod: Pod) -> bool:
     """nodeinfo tracks podsWithAffinity = pods with affinity OR anti-affinity
     (node_info.go AddPod -> hasPodAffinityConstraints)."""
@@ -35,8 +45,9 @@ class NodeInfo:
     Resource/port aggregates are maintained INCREMENTALLY like the
     reference's calculateResource add/remove path — O(1) per pod change
     instead of O(pods-on-node) per query (the query sits on the mirror
-    sync hot path). Mutate `pods` ONLY through add_pod/remove_pod_key;
-    writing the list directly desyncs the running sums."""
+    sync and oracle hot paths). Mutate `pods` ONLY through
+    add_pod/remove_pod/remove_pod_key/set_pods; writing the list directly
+    desyncs the running sums."""
 
     node: Node
     pods: List[Pod] = field(default_factory=list)
@@ -53,10 +64,12 @@ class NodeInfo:
         self._nz_cpu = 0
         self._nz_mem = 0
         self._ports: Dict[Tuple[str, str, int], int] = {}
+        self._sigs: Optional[Dict[Tuple[str, frozenset], List]] = None
         for p in self.pods:
             self._account(p, 1)
 
     def _account(self, pod: Pod, sign: int) -> None:
+        self._sigs = None
         # podsWithAffinity, kept incrementally as node_info.go AddPod /
         # RemovePod keep it (every removal passes the stored object)
         if pod_has_affinity_constraints(pod):
@@ -88,6 +101,11 @@ class NodeInfo:
         self.pods.append(pod)
         self._account(pod, 1)
 
+    def remove_pod(self, pod: Pod) -> None:
+        """Remove by object identity (the victim search's simulation)."""
+        self.pods.remove(pod)
+        self._account(pod, -1)
+
     def remove_pod_key(self, key: str) -> Optional[Pod]:
         for p in self.pods:
             if p.key() == key:
@@ -96,6 +114,10 @@ class NodeInfo:
                 return p
         return None
 
+    def set_pods(self, pods: List[Pod]) -> None:
+        self.pods = list(pods)
+        self._recount()
+
     # -- aggregates ----------------------------------------------------------
 
     def pods_with_affinity(self) -> List[Pod]:
@@ -103,6 +125,26 @@ class NodeInfo:
         a READ-ONLY view of the incrementally kept list (the mirror's
         pattern encoding reads it)."""
         return self._aff_pods
+
+    def pod_signatures(self) -> Dict[Tuple[str, frozenset], List]:
+        """The node's pods grouped by (namespace, labels) as
+        {(namespace, frozenset of label items): [count, labels]}, built on
+        first use after a change. Everything a spread selector reads of a
+        pod is its namespace and labels, so the DoNotSchedule metadata
+        counts a group with one selector match (the frozenset keys keep
+        their hash). A READ-ONLY view."""
+        sigs = self._sigs
+        if sigs is None:
+            sigs = {}
+            for p in self.pods:
+                k = (p.namespace, frozenset(p.labels.items()))
+                e = sigs.get(k)
+                if e is None:
+                    sigs[k] = [1, p.labels]
+                else:
+                    e[0] += 1
+            self._sigs = sigs
+        return sigs
 
     def requested(self) -> Dict[str, int]:
         """RequestedResource per calculateResource (node_info.go): sum of
@@ -124,6 +166,22 @@ class NodeInfo:
     def used_host_ports(self) -> Set[Tuple[str, str, int]]:
         """(protocol, hostIP, hostPort) triples across pods (HostPortInfo)."""
         return set(self._ports)
+
+    def host_port_conflict(self, pod: Pod) -> bool:
+        """HostPortInfo.CheckConflict semantics (nodeinfo/host_ports.go):
+        0.0.0.0 conflicts with every IP for the same (protocol, port)."""
+        used = self.used_host_ports()
+        for proto, ip, port in pod.host_ports():
+            if port <= 0:
+                continue
+            if ip == DEFAULT_BIND_ALL_HOST_IP:
+                if any(u_port == port and u_proto == proto for u_proto, _, u_port in used):
+                    return True
+            else:
+                for u_proto, u_ip, u_port in used:
+                    if u_port == port and u_proto == proto and u_ip in (DEFAULT_BIND_ALL_HOST_IP, ip):
+                        return True
+        return False
 
     def image_sizes(self) -> Dict[str, int]:
         """image name -> size (nodeinfo imageStates, keyed by normalized name)."""

@@ -2,7 +2,8 @@
 
 The port's lean copy of `kubernetes_tpu/scheduler/driver.py`, reproducing
 the reference's default commit path — the commit and fold planes on and
-preemption on, no ingest or term plane, no speculation. Per batch:
+preemption on, no ingest or term plane, no speculation, no framework
+plugins, extenders or volumes. Per batch:
 
     pop_batch → TensorMirror.sync → spec dedup (with the pods' spreading
     selectors) → PodBatch encode + compile_batch_terms → device_arrays
@@ -10,49 +11,56 @@ preemption on, no ingest or term plane, no speculation. Per batch:
     nominees folded onto the node bank's usage columns → one
     solve_pipeline (filter, score, topology and greedy-solve kernels, with
     the solver's in-batch anti-affinity / host-port tracking once a batch
-    needs it) → the commit arbiter when a pod needs a full re-check → the
-    nominee overlay taken off → commit in pop order → one batched
-    preemption round for the pods that fit nowhere
+    needs it) → the commit arbiter when a pod needs a re-check → the
+    nominee overlay taken off → commit in pop order
 
-and the commit takes one of two routes, picked per batch from its pods:
+and the commit takes one of the reference's three routes, picked per
+batch (`_schedule_batch`'s routing, ref :3578-:3760):
 
-* the bulk path (no DoNotSchedule pod): -1 pods go back as
-  unschedulable, the rest are assumed in one cache call and bound on the
-  bind pool in chunks. Required anti-affinity and host ports take it too:
-  their batches are solved with the in-batch tracking, which leaves the
-  arbiter nothing to defer (see `_commit_bulk`);
-* the arbitrated path (a DoNotSchedule pod in the batch): the arbiter's
-  verdicts (commit/arbiter.py) place, defer to the next batch (re-queued
-  without backoff) or fail each pod; the placed ones are assumed and
-  bound as on the bulk path.
+* the bulk path (`_commit_bulk`: every pod RECHECK_NONE, no encoding
+  overflow, no nomination that appeared after the solve, no -1 beside
+  node rows that fell back): -1 pods take one batched preemption round
+  (or go back as unschedulable), the rest are assumed in one cache call
+  and bound on the bind pool in chunks;
+* the arbitrated path (`_commit_arbitrated`, where `_arbiter_covers`
+  holds): the arbiter's verdicts (commit/arbiter.py) place, defer to the
+  next batch (re-queued without backoff) or fail each pod; a pod deferred
+  three times in a row escalates to the host oracle's re-placement
+  (`_oracle_place`);
+* the per-pod loop (`_commit_loop`, everything else: required pod
+  affinity, the commit plane off, encoding or pattern overflow, -1 pods
+  beside fallback node rows, outstanding nominations): each pod's pick is
+  re-checked in pop order against the batch's earlier commits — by the
+  full host oracle chain (oracle/predicates.pod_fits_on_node with the
+  two-pass nominee rule) for RECHECK_FULL, fallback and nominated picks, by
+  the light batch-conflict index for RECHECK_LIGHT — and re-placed by
+  `_oracle_place` when it fails; a pod placed nowhere preempts on the
+  host (`_try_preempt`).
 
-On both, the fold plane scatters the placed pods' deltas into the
-device-resident banks (ops/fold, commit/fold) and tags the assumes as
-folded, so the mirror does not re-ship those rows. `commit_plane=False`
-turns the arbiter and the fold off (the reference's per-pod commit
-places the same pods: every batch then takes the bulk path, re-shipping
-its rows).
+`_oracle_place` walks the nodes in the zone-interleaved order of
+state/node_tree.py and keeps the feasible node with the best device score,
+first wins; the score rows it ranks by stay on the card until the batch's
+commit ends, and only the gathered rows cross (`ScoreRows`,
+ops/pipeline.gather_score_rows). On the bulk and arbitrated routes the
+fold plane scatters the placed pods' deltas into the device-resident banks
+(ops/fold, commit/fold) and tags the assumes as folded, so the mirror does
+not re-ship those rows; the per-pod commits are re-shipped host-wins at
+the next sync. `commit_plane=False` turns the arbiter and the fold off.
 
 Preemption (`enable_preemption`, on by default as in the reference): the
-pods a batch could not place go through one device victim search
-(scheduler/preemption.batch_preempt_device → ops/preempt.preempt_batch),
-each plan is re-verified on the host against the live node, and the
-victims are deleted and the pod nominated to the node; the next batches
-see the outstanding nominations folded onto the node bank's usage columns
-(ops/fold.fold_usage: in place with the commit plane on, on a copy with
-it off), as podFitsOnNode's pass 1 counts them.
+pods the bulk and arbitrated routes could not place go through one device
+victim search (scheduler/preemption.batch_preempt_device →
+ops/preempt.preempt_batch), each plan is re-verified on the host against
+the live node, and the victims are deleted and the pod nominated to the
+node; batches outside the kernel's domain take the host search per pod.
+The next batches see the outstanding nominations folded onto the node
+bank's usage columns (ops/fold.fold_usage: in place with the commit plane
+on, on a copy with it off), as podFitsOnNode's pass 1 counts them.
 
-Anything else raises NotImplementedError naming its ROADMAP.md item
-instead of taking another route: pods the reference re-checks with its
-full host oracle (required pod affinity; DoNotSchedule spread with the
-commit plane off; a pod the arbiter defers three times in a row),
-encoding-overflow pods (term-table overflow included), existing pods
-whose terms overflow a pattern row, -1 pods while some node rows fell back
-to the host oracle, batches the reference re-checks per pod against the
-outstanding nominations (a pod that is not resource-only while a
-nomination is outstanding), preemption for a pod with (anti-)affinity or
-spread terms when a candidate node holds a victim, and gang groups. The
-batch is returned to the queue first.
+Gang groups raise NotImplementedError (ROADMAP.md queue 1, gang), after
+the batch is returned to the queue. Nothing here turns an exception into
+another route: a kernel failure raises, after the batch's pods not yet
+handled are returned to the queue.
 """
 
 from __future__ import annotations
@@ -61,19 +69,33 @@ import logging
 import time
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
+import torch
 
+from ..api.selectors import match_label_selector
 from ..api.types import DO_NOT_SCHEDULE, Pod
 from ..commit.arbiter import V_DEFER, V_PLACE, arbitrate, kinds_covered
 from ..commit.fold import plan_fold
 from ..device import resolve_device
 from ..ops import filters as F
 from ..ops.fold import fold_usage
-from ..ops.pipeline import SolveConfig, solve_pipeline
+from ..ops.pipeline import SolveConfig, gather_score_rows, solve_pipeline
 from ..ops.solver import prng_key_data
 from ..oracle.nodeinfo import accumulated_request
+from ..oracle.predicates import (
+    SnapshotAffinityIndex,
+    compute_predicate_metadata,
+    get_hard_spread_constraints,
+    get_pod_affinity_terms,
+    get_pod_anti_affinity_terms,
+    pod_fits_on_node,
+    pod_fits_resources,
+    pod_match_node_selector,
+    pod_matches_all_term_properties,
+    pod_matches_term,
+)
 from ..state.cache import SchedulerCache, TensorMirror
 from ..state.convert import arrays_to_torch
 from ..state.queue import PodInfo, PriorityQueue
@@ -89,8 +111,9 @@ from ..state.terms import (
     compile_batch_terms,
     count_batch_terms,
 )
-from ..state.tensors import KeySlotOverflow, PodBatch, _bucket, _req_slot_pairs, dedup_specs
+from ..state.tensors import KeySlotOverflow, PodBatch, _bucket, _req_slot_pairs, dedup_specs, spec_key
 from . import preemption as preemption_mod
+from .preemption import eligible_nominees, fits_considering_nominated, fits_with_nominees
 
 _log = logging.getLogger(__name__)
 
@@ -122,6 +145,130 @@ class Binder:
             self._fn(pod, node_name)
 
 
+class ScoreRows:
+    """Lazy per-row view of the batch's [U, N] device score matrix (ref
+    driver.py:88-132): the host oracle ranks feasible nodes by a pod's row,
+    and only the rows it asks for cross to the host, gathered on the card
+    (ops/pipeline.gather_score_rows). `sig` maps batch positions onto spec
+    rows; replicas share one fetched row. Exactly the wanted rows are
+    gathered (the reference pads the count to a power of two for its jit
+    cache)."""
+
+    def __init__(self, score: torch.Tensor, sig: Sequence[int]):
+        self._dev = score
+        self._sig = sig
+        self._cache: Dict[int, np.ndarray] = {}
+
+    def __getitem__(self, i: int) -> np.ndarray:
+        u = int(self._sig[i])
+        row = self._cache.get(u)
+        if row is None:
+            self.prefetch([i])
+            row = self._cache[u]
+        return row
+
+    def prefetch(self, indices) -> None:
+        """Fetch the rows of these batch positions in one gather."""
+        want = sorted({int(self._sig[i]) for i in indices} - self._cache.keys())
+        if not want:
+            return
+        rows = gather_score_rows(self._dev, want).cpu().numpy()
+        for j, u in enumerate(want):
+            self._cache[u] = rows[j]
+
+
+@dataclass
+class SolveOutput:
+    """A solved batch as the commit routes read it, per batch position."""
+
+    assign: List[int]  # node row or -1
+    fallback: List[bool]  # encoding or term-table overflow: the host oracle re-checks
+    score: ScoreRows
+    has_anti: List[bool]  # the pod carries required anti-affinity
+    levels: List[int]  # RECHECK_* per pod
+    existing_overflow: bool  # an existing pod's terms overflow a pattern row: re-check all
+    node_fallback_any: bool  # some node rows fell back out of the device path
+    inbatch_tracked: bool  # the solve tracked anti-affinity and host ports in the batch
+    nom_adds: int  # queue.nomination_adds when the nominees were folded for the solve
+    verdicts: Optional[List[int]]  # the arbiter's, when it ran (every term kind of the batch covered)
+
+
+class _BatchConflictIndex:
+    """Commits of the current batch indexed by (topology key, value) for the
+    LIGHT intra-batch anti-affinity re-check (ref driver.py:265-362). Two
+    directions (predicates.go:1284 satisfiesExistingPodsAntiAffinity +
+    satisfiesPodsAffinityAntiAffinity, anti half):
+
+      * a committed pod's required anti term blocks later pods on nodes
+        sharing the term's topology value with the commit node;
+      * a later pod's own anti terms block it on nodes sharing a topology
+        value with any commit whose pod the term selects.
+
+    Buckets group their entries by spec (controller replicas share labels
+    and terms), and selector matches are memoized per (direction, commit
+    spec, term index, candidate spec). Without gang rollbacks no entry is
+    ever withdrawn (the reference's tombstones)."""
+
+    def __init__(self):
+        # (key, value of commit node) → {spec: {term index: (committed pod, term)}}
+        self._anti_by_kv: Dict[Tuple[str, str], Dict] = {}
+        # (key, value of commit node) → {spec: first committed pod}
+        self._commits_by_kv: Dict[Tuple[str, str], Dict] = {}
+        self._match_memo: Dict[Tuple, bool] = {}
+        self.any_anti = False
+        self.commits: List[Pod] = []  # flat, in commit order
+
+    def add_commit(self, pod: Pod, node) -> None:
+        self.commits.append(pod)
+        spec = spec_key(pod)
+        for kv in node.labels.items():
+            self._commits_by_kv.setdefault(kv, {}).setdefault(spec, pod)
+
+    def add_anti(self, pod: Pod, node) -> None:
+        self.any_anti = True
+        spec = spec_key(pod)
+        for t_i, term in enumerate(get_pod_anti_affinity_terms(pod.affinity)):
+            k = term.topology_key
+            v = node.labels.get(k) if k else None
+            if v is not None:
+                self._anti_by_kv.setdefault((k, v), {}).setdefault(spec, {}).setdefault(t_i, (pod, term))
+
+    def anti_conflict(self, pod: Pod, node) -> bool:
+        p_spec = spec_key(pod)
+        memo = self._match_memo
+        for kv in node.labels.items():
+            for c_spec, by_term in self._anti_by_kv.get(kv, {}).items():
+                # one representative match per (commit spec, term, pod spec)
+                for t_i, (c, term) in by_term.items():
+                    mk = ("A", c_spec, t_i, p_spec)
+                    hit = memo.get(mk)
+                    if hit is None:
+                        hit = memo[mk] = pod_matches_term(pod, c, term)
+                    if hit:
+                        return True
+        a = pod.affinity
+        if a is not None and a.pod_anti_affinity is not None:
+            for t_i, term in enumerate(a.pod_anti_affinity.required):
+                k = term.topology_key
+                v = node.labels.get(k) if k else None
+                if v is None:
+                    continue
+                for c_spec, c in self._commits_by_kv.get((k, v), {}).items():
+                    mk = ("B", p_spec, t_i, c_spec)
+                    hit = memo.get(mk)
+                    if hit is None:
+                        hit = memo[mk] = pod_matches_term(c, pod, term)
+                    if hit:
+                        return True
+        return False
+
+
+def _no_nominations(node: str):
+    """Batch-constant stand-in for queue.nominated_pods_for_node while the
+    nominated index is empty."""
+    return ()
+
+
 RECHECK_NONE = 0
 RECHECK_LIGHT = 1  # validate against THIS BATCH's commits only
 RECHECK_FULL = 2  # full scalar oracle pass
@@ -148,19 +295,33 @@ def _recheck_level(pod: Pod) -> int:
     return RECHECK_NONE
 
 
-ORACLE_FALLBACK = "ROADMAP.md queue 1, oracle fallback"
+def _minus_one_could_fit(pod: Pod, index: _BatchConflictIndex, preempted: bool, level: int) -> bool:
+    """The device said no node fits (against the batch-start state). Within
+    the batch feasibility only improves through the events checked here —
+    anti-affinity, ports and resource use only shrink it — so otherwise the
+    -1 stands without the O(nodes) oracle walk (ref driver.py:472-505):
+      * a preemption freed capacity;
+      * a commit matches the pod's required affinity terms (the in-batch
+        anchor, predicates.go:1269);
+      * a same-namespace commit matches a DoNotSchedule constraint's
+        selector (it raises the domain minimum, loosening the skew bound)."""
+    if level != RECHECK_FULL:
+        return False
+    if preempted:
+        return True
+    aff_terms = get_pod_affinity_terms(pod.affinity)
+    hard = [c for c in pod.topology_spread_constraints if c.when_unsatisfiable == DO_NOT_SCHEDULE]
+    for c in index.commits:
+        if aff_terms and pod_matches_all_term_properties(c, pod, aff_terms):
+            return True
+        for con in hard:
+            if c.namespace == pod.namespace and match_label_selector(con.label_selector, c.labels):
+                return True
+    return False
 
 
-def _unported_reason(pod: Pod, commit_plane: bool) -> Optional[str]:
+def _unported_reason(pod: Pod) -> Optional[str]:
     """Why this pod needs a program the port does not have yet, or None."""
-    if _recheck_level(pod) == RECHECK_FULL:
-        a = pod.affinity
-        if a is not None and a.pod_affinity is not None and a.pod_affinity.required:
-            return ("required pod affinity needs the host oracle's full re-check of in-batch anchors "
-                    f"({ORACLE_FALLBACK})")
-        if not commit_plane:
-            return ("DoNotSchedule spread constraints with the commit plane off need the host oracle's "
-                    f"full re-check ({ORACLE_FALLBACK})")
     if POD_GROUP_LABEL in pod.labels or POD_GROUP_LABEL in pod.annotations:
         return "gang groups need solve_gang (ROADMAP.md queue 1, gang)"
     return None
@@ -256,9 +417,14 @@ class Scheduler:
         self._ids: Optional[Dict[str, int]] = None
         self._bind_pool = ThreadPoolExecutor(max_workers=BIND_WORKERS, thread_name_prefix="bind")
         # a pod deferred this many times in a row escalates to the host
-        # oracle's re-placement in the reference (refused here)
+        # oracle's re-placement
         self._defer_counts: Dict[str, int] = {}
         self._defer_escalate = 3
+        # the host oracle's per-batch affinity index and the batch's commits
+        # replayed on top of it (`_pod_meta`); None after anything the
+        # commits list does not capture (a sync, victim deletes)
+        self._aff_index: Optional[SnapshotAffinityIndex] = None
+        self._aff_extra: List = []
         self._closed = False
         # per-stage wall-clock seconds (host clock; solve_s ends at the
         # device→host copy of the assignment and the verdicts, so it
@@ -270,9 +436,13 @@ class Scheduler:
         # the pods whose preemption was applied, victims the pods deleted,
         # preempt_s the rounds' seconds, preempt_reverify_miss the device
         # plans the host re-verification rejected, nominee_folds the
-        # dispatches that overlaid outstanding nominations
+        # dispatches that overlaid outstanding nominations; oracle_rechecks
+        # counts the per-pod loop's full host re-checks of a pick,
+        # light_rechecks its batch-conflict re-checks, oracle_places the
+        # host oracle's re-placements the reference counts
         self.stats: Dict[str, float] = {
             "sync_s": 0.0, "encode_s": 0.0, "solve_s": 0.0, "commit_s": 0.0, "batches": 0,
+            "oracle_rechecks": 0, "light_rechecks": 0, "oracle_places": 0,
             "tracked_batches": 0, "fold_batches": 0, "fold_pods": 0, "fold_s": 0.0,
             "fold_overflow_batches": 0, "arbiter_batches": 0, "arbiter_place": 0, "arbiter_defer": 0,
             "arbiter_escalated": 0, "apply_s": 0.0, "preempt_batches": 0, "preempted": 0, "victims": 0,
@@ -293,24 +463,18 @@ class Scheduler:
 
     def _check_slice(self, infos: List[PodInfo]) -> None:
         for info in infos:
-            reason = _unported_reason(info.pod, self.commit_plane)
+            reason = _unported_reason(info.pod)
             if reason is not None:
                 self._refuse(infos, f"pod {info.pod.key()}: {reason}")
-        # with a nomination outstanding the reference commits a batch in
-        # bulk only when every pod is resource-only; any other batch takes
-        # its per-pod loop, which re-checks picks on nominated nodes with
-        # the host oracle (fits_considering_nominated)
-        if self.queue.has_nominations():
-            for info in infos:
-                if _recheck_level(info.pod) != RECHECK_NONE:
-                    self._refuse(infos, f"pod {info.pod.key()} while a preemption nomination is outstanding needs "
-                                        f"the host oracle's nominee re-check ({ORACLE_FALLBACK})")
 
-    def _encode(self, infos: List[PodInfo]) -> Tuple[PodBatch, List[Pod], np.ndarray, TermBank, Dict[str, np.ndarray]]:
+    def _encode(self, infos: List[PodInfo]) -> Tuple[PodBatch, List[Pod], np.ndarray, TermBank, Dict[str, np.ndarray],
+                                                     np.ndarray]:
         """Collapse the batch to unique pod specs (replicas share one
         mask/score row; pods behind different selectors never do), encode
         one PodBatch row per spec, and compile the specs' topology terms
-        into a TermBank sized by the monotone term bucket."""
+        into a TermBank sized by the monotone term bucket. The last element
+        flags the spec rows whose structures or topology terms overflow the
+        encoding: the host oracle re-checks those pods."""
         pods = [info.pod for info in infos]
         selectors = None
         if self._spread_selectors_fn is not None:
@@ -334,19 +498,11 @@ class Scheduler:
                 break
             except KeySlotOverflow:
                 self.mirror._rebuild()
-        if batch.fallback[: len(reps)].any():
-            self._refuse(
-                infos,
-                "a pod's structures overflow the encoding: the host oracle path is "
-                "not ported (ROADMAP.md queue 1, oracle fallback)",
-            )
-        if tb.overflow_owners:
-            self._refuse(
-                infos,
-                "a pod's topology terms overflow the term table: the host oracle path is "
-                "not ported (ROADMAP.md queue 1, oracle fallback)",
-            )
-        return batch, reps, np.asarray(sig_list, np.int32), tb, aux
+        fallback = batch.fallback[: len(reps)].copy()
+        for owner in tb.overflow_owners:
+            if 0 <= owner < len(reps):
+                fallback[owner] = True
+        return batch, reps, np.asarray(sig_list, np.int32), tb, aux, fallback
 
     def _topology_shape(self, tb: TermBank, aux: Dict[str, np.ndarray], reps: List[Pod]) -> frozenset:
         """Grow the monotone term-kind union, the segment-axis bucket and
@@ -385,16 +541,14 @@ class Scheduler:
         self.mirror.sync()
         t1 = time.perf_counter()
         self.stats["sync_s"] += t1 - t0
-        if self.mirror.pats.overflow_rows:
-            self._refuse(
-                infos,
-                "an existing pod's affinity term overflows its pattern row: the host oracle "
-                f"re-check is not ported ({ORACLE_FALLBACK})",
-            )
+        # the snapshot moved: the oracle's affinity index rebuilds lazily
+        self._aff_index = None
+        self._aff_extra = []
 
         self._b_bucket = max(self._b_bucket, _bucket(len(pods)))
-        batch, reps, sig, tb, aux = self._encode(infos)
+        batch, reps, sig, tb, aux, fallback = self._encode(infos)
         batch_kinds = self._topology_shape(tb, aux, reps)
+        levels = [_recheck_level(r) for r in reps]
         pb = {
             "sig": np.zeros(self._b_bucket, np.int32),
             "valid": np.zeros(self._b_bucket, bool),
@@ -422,7 +576,7 @@ class Scheduler:
         if self.queue.has_nominations():
             na = self._nominee_overlay(na, pods)
         solved: Dict = {}
-        assign, _ = solve_pipeline(
+        assign, score = solve_pipeline(
             na, pa, self._ids, key, pb=pbt, deterministic=self.deterministic,
             config=self.solve_config, term_kinds=self._term_kinds,
             track_inbatch=self._track_inbatch,
@@ -431,11 +585,10 @@ class Scheduler:
         if self._track_inbatch:
             self.stats["tracked_batches"] += 1
         # the commit arbiter, chained on the assignment on the device, for
-        # the batches it can change: those holding a RECHECK_FULL pod (the
-        # others are the bulk path's), when it covers their term kinds
-        full = any(_recheck_level(r) == RECHECK_FULL for r in reps)
+        # the batches whose verdicts the commit can use: a pod that needs a
+        # re-check, every present term kind covered
         verdict = None
-        if self.commit_plane and full and kinds_covered(batch_kinds):
+        if self.commit_plane and kinds_covered(batch_kinds) and any(lv != RECHECK_NONE for lv in levels):
             verdict = arbitrate(na, pa, ea, ta, self._ids, assign, pbt,
                                 term_kinds=self._term_kinds, n_buckets=self._v_bucket, inputs=solved)
         assign_l = assign.cpu().numpy()[: len(pods)].tolist()
@@ -446,46 +599,58 @@ class Scheduler:
         t3 = time.perf_counter()
         self.stats["solve_s"] += t3 - t2
 
-        if any(r < 0 for r in assign_l) and bool((self.mirror.nodes.fallback & self.mirror.nodes.valid).any()):
-            self._refuse(
-                infos,
-                "unplaced pods while node rows fall back to the host oracle: the oracle "
-                f"path is not ported ({ORACLE_FALLBACK})",
-            )
-        # the reference's routes: the arbiter's verdicts where
-        # `_arbiter_covers` holds — here that is "the arbiter ran": its
-        # other conditions (encoding overflow, -1 pods beside fallback
-        # rows, nominations) are refused above and speculation is absent —
-        # else the bulk path, which a DoNotSchedule pod cannot take
-        if verdicts is not None:
-            self._commit_arbitrated(infos, assign_l, verdicts, cycle, res)
-        elif full:
-            self._refuse(infos, f"the batch's DoNotSchedule pods need the host oracle's re-check ({ORACLE_FALLBACK})")
-        elif self.queue.has_nominations() and nom_adds != self.queue.nomination_adds:
-            # a nomination appeared after the dispatch folded them: the
-            # reference re-checks per pod (never without speculation)
-            self._refuse(infos, f"a nomination appeared after the solve ({ORACLE_FALLBACK})")
-        else:
+        has_anti = aux["has_anti"]
+        out = SolveOutput(
+            assign=assign_l,
+            fallback=[bool(fallback[u]) for u in sig],
+            score=ScoreRows(score, sig),
+            has_anti=[bool(has_anti[u]) for u in sig],
+            levels=[levels[u] for u in sig],
+            existing_overflow=bool(self.mirror.pats.overflow_rows),
+            node_fallback_any=bool((self.mirror.nodes.fallback & self.mirror.nodes.valid).any()),
+            inbatch_tracked=self._track_inbatch,
+            nom_adds=nom_adds,
+            verdicts=verdicts,
+        )
+        # the reference's routes: the bulk path when nothing can change or
+        # veto a device pick, else the arbiter's verdicts where they cover
+        # the batch, else the per-pod loop
+        nominated_fn = self.queue.nominated_pods_for_node if self.queue.has_nominations() else _no_nominations
+        fast_bulk = (
+            all(lv == RECHECK_NONE for lv in out.levels)
+            and (nominated_fn is _no_nominations or nom_adds == self.queue.nomination_adds)
+            and not out.existing_overflow
+            and not any(out.fallback)
+            and not (out.node_fallback_any and any(r < 0 for r in assign_l))
+        )
+        if fast_bulk:
             self._commit_bulk(infos, assign_l, cycle, res)
+        elif self._arbiter_covers(out):
+            self._commit_arbitrated(infos, out, cycle, res)
+        else:
+            self._commit_loop(infos, out, cycle, res, nominated_fn)
         self.stats["commit_s"] += time.perf_counter() - t3
         return res
 
-    def _commit_bulk(self, infos: List[PodInfo], assign_l: List[int], cycle: int, res: ScheduleResult) -> None:
-        """The reference's bulk commit, in pop order: -1 pods go back as
-        unschedulable, the rest are applied (`_apply`).
+    def _arbiter_covers(self, out: SolveOutput) -> bool:
+        """Can this batch commit straight from the arbiter's verdicts (ref
+        driver.py:2969-2997)? The arbiter ran only where it covers every
+        term kind of the batch; not with encoding or pattern overflow,
+        outstanding nominations (their two-pass host re-check covers more
+        than the solve's usage fold) or -1 pods beside fallback node
+        rows."""
+        if out.verdicts is None or out.existing_overflow or any(out.fallback):
+            return False
+        if self.queue.has_nominations() or out.nom_adds != self.queue.nomination_adds:
+            return False
+        return not (out.node_fallback_any and any(r < 0 for r in out.assign))
 
-        This path also takes batches with required anti-affinity or host
-        ports (RECHECK_LIGHT), where the reference arbitrates (commit plane
-        on) or re-checks each pod against the batch's earlier commits
-        (off) while the solve did not track them, or after a commit left
-        the device's pick (`tracked_ok`). Here every batch with such pods
-        is solved with the in-batch tracking on, which serializes exactly
-        the capacity, anti-affinity and host-port conflicts the arbiter
-        checks, and no pod is ever re-placed (the pods that would need the
-        oracle are refused before the solve): the arbiter would place every
-        pod, the re-check is vacuous, and the bulk commit places exactly
-        what those routes would. For the same reason a -1 stands:
-        feasibility only shrinks within the batch."""
+    def _commit_bulk(self, infos: List[PodInfo], assign_l: List[int], cycle: int, res: ScheduleResult) -> None:
+        """The reference's bulk commit, in pop order: -1 pods take one
+        batched preemption round (or go back as unschedulable), the rest are
+        applied (`_apply`). Every pod is RECHECK_NONE and resources are
+        sequenced by the solve's carry, so no commit can invalidate a later
+        one."""
         name_of = self.mirror.name_of_row
         placed: List[Tuple[PodInfo, int, str]] = []
         preempt_fails: List[PodInfo] = []
@@ -534,6 +699,9 @@ class Scheduler:
             jobs.append((info, assumed, node_name))
             res.assignments[info.pod.key()] = node_name
         res.scheduled += len(jobs)
+        self._submit_binds(jobs)
+
+    def _submit_binds(self, jobs: List[Tuple[PodInfo, Pod, str]]) -> None:
         step = max(1, -(-len(jobs) // BIND_WORKERS))
         for i in range(0, len(jobs), step):
             self._bind_pool.submit(self._bind_chunk, jobs[i : i + step])
@@ -561,46 +729,43 @@ class Scheduler:
         self.stats["fold_s"] += time.perf_counter() - t0
         return True
 
-    def _commit_arbitrated(self, infos: List[PodInfo], assign_l: List[int], verdicts: List[int], cycle: int,
-                           res: ScheduleResult) -> None:
+    def _commit_arbitrated(self, infos: List[PodInfo], out: SolveOutput, cycle: int, res: ScheduleResult) -> None:
         """Commit a batch from the arbiter's verdicts (the reference's
         `_commit_arbitrated` without speculation): V_PLACE pods are applied
         (`_apply`), V_DEFER pods go back to the queue with no backoff (they
         conflicted with their own batch; they are not unschedulable),
         V_NOFIT pods take the batched preemption round (or are
         unschedulable). A pod deferred `_defer_escalate` times in a row
-        escalates to the reference's host oracle re-placement, which is
-        not ported: the batch's placed pods are applied and its defers
-        re-queued first, then the escalated pods and the batch's
-        preemptors are re-queued and the batch raises."""
+        escalates to the host oracle's re-placement (`_oracle_place`) after
+        the apply, and preempts on the host when it fits nowhere."""
         name_of = self.mirror.name_of_row
         nodes = self.cache.snapshot.node_infos
         place: List[Tuple[PodInfo, int, str]] = []
-        defers: List[PodInfo] = []
+        defers: List[Tuple[int, PodInfo]] = []
         preempt_fails: List[PodInfo] = []
-        for info, row, v in zip(infos, assign_l, verdicts):
+        for i, (info, row, v) in enumerate(zip(infos, out.assign, out.verdicts)):
             if v == V_PLACE and row >= 0:
                 node_name = name_of[row] if row < len(name_of) else None
                 if node_name is None or node_name not in nodes:
-                    defers.append(info)  # the node vanished under the solve
+                    defers.append((i, info))  # the node vanished under the solve
                     continue
                 place.append((info, row, node_name))
             elif v == V_DEFER:
-                defers.append(info)
+                defers.append((i, info))
             elif row < 0 and self.enable_preemption:
                 preempt_fails.append(info)
             else:
                 res.unschedulable += 1
                 self._fail(info, cycle)
         kept_defers: List[PodInfo] = []
-        escalate: List[PodInfo] = []
-        for info in defers:
+        escalate: List[Tuple[int, PodInfo]] = []
+        for i, info in defers:
             k = info.pod.key()
             c = self._defer_counts.get(k, 0) + 1
             self._defer_counts[k] = c
             if c >= self._defer_escalate:
                 self._defer_counts.pop(k, None)  # escalation consumes the budget
-                escalate.append(info)
+                escalate.append((i, info))
             else:
                 kept_defers.append(info)
         if self._defer_counts and place:
@@ -616,20 +781,296 @@ class Scheduler:
             res.deferred += len(kept_defers)
         t0 = time.perf_counter()
         placed_before = res.scheduled
-        self._apply(place, cycle, res)
+        try:
+            self._apply(place, cycle, res)
+        except BaseException:
+            self.queue.requeue([info for _, info in escalate] + preempt_fails)
+            raise
         self.stats["apply_s"] += time.perf_counter() - t0
         self.stats["arbiter_batches"] += 1
         self.stats["arbiter_place"] += res.scheduled - placed_before
         self.stats["arbiter_defer"] += len(defers)
-        if escalate:
-            self.stats["arbiter_escalated"] += len(escalate)
-            self.queue.requeue(escalate + preempt_fails)
-            raise NotImplementedError(
-                f"{len(escalate)} pods deferred {self._defer_escalate} times in a row need the host "
-                f"oracle's re-placement (_oracle_place) ({ORACLE_FALLBACK})"
-            )
+        metas: Dict = {}
+        commits: List[Tuple[Pod, str]] = []
+        for n, (i, info) in enumerate(escalate):
+            self.stats["arbiter_escalated"] += 1
+            pod = info.pod
+            try:
+                self.stats["oracle_places"] += 1
+                node_name = self._oracle_place(pod, out.score[i], self._escalation_meta(pod, metas, commits))
+                if node_name is not None and self._commit(info, node_name, cycle):
+                    res.scheduled += 1
+                    res.assignments[pod.key()] = node_name
+                    commits.append((pod, node_name))
+                    continue
+                if node_name is None:
+                    if self.enable_preemption and self._try_preempt(info):
+                        res.preempted += 1
+                        self._aff_index = None
+                        self.queue.move_all_to_active()
+                    self._fail(info, cycle)
+                res.unschedulable += 1
+            except BaseException:
+                # the pods not yet handled go back before the error surfaces
+                self.queue.requeue([e for _, e in escalate[n:]] + preempt_fails)
+                raise
         if preempt_fails:
             self._preempt_deferred(preempt_fails, cycle, res)
+
+    def _commit_loop(self, infos: List[PodInfo], out: SolveOutput, cycle: int, res: ScheduleResult,
+                     nominated_fn) -> None:
+        """The reference's per-pod commit loop (driver.py:3758-3990 without
+        gang groups, plugins, extenders, volumes and speculation): in pop
+        order, so every re-check sees the batch's earlier assumes. A pick
+        is re-checked by the full host oracle when the pod is RECHECK_FULL,
+        its encoding overflowed, an existing pod's terms overflowed or its
+        node holds nominations; by the batch-conflict index when it is
+        RECHECK_LIGHT (or follows a required anti-affinity commit) and the
+        solve's in-batch tracking no longer vouches for it; by a resource
+        check once an earlier pod left the device's pick. A failed re-check,
+        and a -1 that the batch's events may have made feasible, re-place
+        through `_oracle_place`; a pod placed nowhere preempts on the host.
+        Nothing is folded: the next sync re-ships the rows host-wins."""
+        snap = self.cache.snapshot
+        conflict_index = _BatchConflictIndex()
+        # a batch of RECHECK_NONE pods never reads the index
+        index_needed = any(lv != RECHECK_NONE for lv in out.levels)
+        # once a pod commits elsewhere than the solve chose, the solve's
+        # carried residuals are stale for the rest of the batch
+        residuals_diverged = False
+        name_of = self.mirror.name_of_row
+        jobs: List[Tuple[PodInfo, Pod, str]] = []
+        i = 0
+        disposed = False
+        try:
+            for i, info in enumerate(infos):
+                disposed = False
+                pod = info.pod
+                row = out.assign[i]
+                node_name = name_of[row] if 0 <= row < len(name_of) else None
+                device_choice = node_name
+                level = out.levels[i]
+                needs_full = out.fallback[i] or out.existing_overflow or level == RECHECK_FULL
+                # the solve sequenced anti-affinity and ports within the
+                # batch: LIGHT re-checks are redundant while commits follow
+                # its picks
+                tracked_ok = out.inbatch_tracked and not residuals_diverged
+                needs_light = (level == RECHECK_LIGHT or conflict_index.any_anti) and not tracked_ok
+                placed_attempted = False
+                if node_name is not None and (needs_full or nominated_fn(node_name)):
+                    self.stats["oracle_rechecks"] += 1
+                    meta = self._pod_meta(pod)
+                    ok = snap.get(node_name) is not None and fits_considering_nominated(
+                        pod, node_name, snap, nominated_fn, meta=meta)
+                    if not ok:
+                        # invalidated by an earlier commit of the batch: re-place
+                        # against the live snapshot, ranked by the device score
+                        node_name = self._oracle_place(pod, out.score[i], meta)
+                        placed_attempted = True
+                elif node_name is not None and needs_light:
+                    self.stats["light_rechecks"] += 1
+                    ok = not self._intra_batch_conflict(pod, node_name, conflict_index)
+                    if ok and residuals_diverged:
+                        ni = snap.get(node_name)
+                        ok = ni is not None and pod_fits_resources(pod, ni)
+                    if not ok:
+                        self.stats["oracle_places"] += 1
+                        node_name = self._oracle_place(pod, out.score[i], self._pod_meta(pod))
+                        placed_attempted = True
+                elif node_name is not None and residuals_diverged:
+                    # an earlier re-placement moved capacity the solve did not
+                    # account for: a resource check on the live node first
+                    ni = snap.get(node_name)
+                    if ni is None or not pod_fits_resources(pod, ni):
+                        node_name = self._oracle_place(pod, out.score[i], self._pod_meta(pod))
+                        placed_attempted = True
+                if node_name is None and not placed_attempted and (
+                    out.fallback[i] or out.existing_overflow or out.node_fallback_any or residuals_diverged
+                    or _minus_one_could_fit(pod, conflict_index, res.preempted > 0, level)
+                ):
+                    # the device mask may be conservatively wrong (overflowed
+                    # encodings, excluded node rows, capacity charged to a node
+                    # an earlier pod left, a constraint an earlier commit
+                    # satisfied): the host oracle before declaring a no-fit
+                    self.stats["oracle_places"] += 1
+                    node_name = self._oracle_place(pod, out.score[i], self._pod_meta(pod))
+                if node_name is None:
+                    if device_choice is not None:
+                        # the solve charged this pod to a node it never took
+                        residuals_diverged = True
+                    preempted_now = self.enable_preemption and self._try_preempt(info)
+                    if preempted_now:
+                        res.preempted += 1
+                        # victim deletes moved the snapshot under the index
+                        self._aff_index = None
+                        nominated_fn = self.queue.nominated_pods_for_node
+                    res.unschedulable += 1
+                    disposed = True
+                    self._fail(info, cycle)
+                    if preempted_now:
+                        # victim deletions are cluster events (eventhandlers.go:127)
+                        self.queue.move_all_to_active()
+                    continue
+                disposed = True
+                if self._commit(info, node_name, cycle, jobs):
+                    res.scheduled += 1
+                    res.assignments[pod.key()] = node_name
+                    c_node = snap.get(node_name) if index_needed else None
+                    if c_node is not None:
+                        conflict_index.add_commit(pod, c_node.node)
+                        self._aff_extra.append((pod.with_node(node_name), c_node.node.labels))
+                        if out.has_anti[i]:
+                            conflict_index.add_anti(pod, c_node.node)
+                    if node_name != device_choice:
+                        residuals_diverged = True
+                else:
+                    res.unschedulable += 1
+                    if device_choice is not None:
+                        residuals_diverged = True
+        except BaseException:
+            # the pods not yet handled go back before the error surfaces
+            self.queue.requeue(infos[i + 1 if disposed else i:])
+            raise
+        finally:
+            self._submit_binds(jobs)
+
+    def _commit(self, info: PodInfo, node_name: str, cycle: int,
+                jobs: Optional[List[Tuple[PodInfo, Pod, str]]] = None) -> bool:
+        """The per-pod commit (the reference's `_prepare_commit` +
+        `_finalize_commit`): assume the pod in the cache, clear its
+        nomination (DeleteNominatedPodIfExists, scheduler.go:529), bind it
+        on the bind pool — appended to `jobs` for a chunked submission, or
+        submitted at once. A key the cache already tracks fails the pod."""
+        assumed = info.pod.with_node(node_name)
+        try:
+            self.cache.assume_pod(assumed)
+        except ValueError:
+            self._fail(info, cycle)
+            return False
+        self.queue.clear_nomination(info.pod.key())
+        if jobs is None:
+            self._submit_binds([(info, assumed, node_name)])
+        else:
+            jobs.append((info, assumed, node_name))
+        return True
+
+    # -- the host oracle ---------------------------------------------------------
+
+    def _pod_meta(self, pod: Pod):
+        """Predicate metadata for the host oracle, backed by a per-batch
+        SnapshotAffinityIndex (the pod-independent halves built once, not
+        per pod) plus the batch's loop commits replayed exactly. The index
+        is rebuilt after anything the commits list does not capture: a
+        sync, victim deletes."""
+        if self._aff_index is None:
+            self._aff_index = SnapshotAffinityIndex(self.cache.snapshot)
+            self._aff_extra = []
+        return compute_predicate_metadata(
+            pod, self.cache.snapshot, enabled=self._enabled_preds,
+            affinity_index=self._aff_index, affinity_extra=self._aff_extra,
+        )
+
+    def _escalation_meta(self, pod: Pod, memo: Dict, commits: List[Tuple[Pod, str]]):
+        """`_pod_meta` for the arbiter's escalated pods, memoized per spec
+        through one batch's escalation loop. The loop does not replay its
+        commits into the affinity index (nor does the reference's), so a
+        spec's inter-pod half stands as computed while the index does;
+        its DoNotSchedule counts advance by the loop's commits made since
+        (`_advance_spread`). Any other change to the snapshot — victim
+        deletes, a bind failure's forget, an informer event — moves the
+        cache's mutation count past those commits, and the metadata is
+        computed afresh."""
+        key = spec_key(pod)
+        hit = memo.get(key)
+        count = self.cache.mutation_count
+        if hit is not None:
+            meta, index, at_count, at_commit = hit
+            new = commits[at_commit:]
+            if index is self._aff_index and count - at_count == len(new) and self._advance_spread(pod, meta, new):
+                memo[key] = (meta, index, count, len(commits))
+                return meta
+        meta = self._pod_meta(pod)
+        memo[key] = (meta, self._aff_index, count, len(commits))
+        return meta
+
+    def _advance_spread(self, pod: Pod, meta, commits: List[Tuple[Pod, str]]) -> bool:
+        """Add commits to `pod`'s DoNotSchedule metadata as
+        compute_even_pods_spread_metadata would count them: a committed pod
+        on a candidate node (the pod's node selector, every constraint
+        key) of the pod's namespace matching a constraint's selector adds
+        one to its node's pair; then the per-key minima. False when a
+        commit's node is gone (the caller recomputes)."""
+        m = meta.even_pods_spread
+        if m is None or not commits:
+            return True
+        snap = self.cache.snapshot
+        constraints = get_hard_spread_constraints(pod)
+        pair_num = m.tp_pair_to_match_num
+        for p, node_name in commits:
+            ni = snap.get(node_name)
+            if ni is None:
+                return False
+            labels = ni.node.labels
+            if p.namespace != pod.namespace or not all(c.topology_key in labels for c in constraints):
+                continue
+            if not pod_match_node_selector(pod, ni):
+                continue
+            for c in constraints:
+                if match_label_selector(c.label_selector, p.labels):
+                    pair = (c.topology_key, labels[c.topology_key])
+                    pair_num[pair] = pair_num.get(pair, 0) + 1
+        mins: Dict[str, int] = {}
+        for (k, _), num in pair_num.items():
+            if k not in mins or num < mins[k]:
+                mins[k] = num
+        m.tp_key_min_match = mins
+        return True
+
+    def _intra_batch_conflict(self, pod: Pod, node_name: str, index: _BatchConflictIndex) -> bool:
+        """Can an earlier commit of this batch invalidate pod → node_name?
+        The LIGHT re-check: the device mask validated everything against
+        the batch-start state, so only the batch's commits can break a
+        LIGHT pod — a host-port collision on the node (commits are assumed
+        into the live NodeInfo) or required anti-affinity in either
+        direction (predicates.go:1284)."""
+        ni = self.cache.snapshot.get(node_name)
+        if ni is None:
+            return True
+        if pod.host_ports() and ni.host_port_conflict(pod):
+            return True
+        return index.anti_conflict(pod, ni.node)
+
+    def _oracle_place(self, pod: Pod, score_row: np.ndarray, meta) -> Optional[str]:
+        """The host oracle's re-placement (ref driver.py:2388-2466): of the
+        nodes feasible for `pod` on the live snapshot (this batch's assumes
+        included) by the full predicate chain — nodes holding nominations
+        also by the with-nominees pass (generic_scheduler.go:612-697) — the
+        one with the best device score, the first in the zone-interleaved
+        node order among equals.
+
+        The reference checks every node, then ranks the feasible ones; the
+        checks have no side effects, so walking the nodes best score first
+        (node order among equals) and stopping at the first feasible one
+        returns the same node after checking only the nodes ranked above
+        it."""
+        snap = self.cache.snapshot
+        nominated = self.queue.nominated_pods_for_node if self.queue.has_nominations() else _no_nominations
+        order = self.cache.node_order()
+        row_of = self.mirror.row_of
+        rows = np.fromiter((row_of.get(c, -1) for c in order), dtype=np.int64, count=len(order))
+        has = (rows >= 0) & (rows < len(score_row))
+        scores = np.where(has, score_row[np.where(has, rows, 0)], 0)
+        # stable: equal scores keep the node order
+        for k in np.argsort(-scores, kind="stable"):
+            cand = order[k]
+            ni = snap.get(cand)
+            if ni is None or not pod_fits_on_node(pod, ni, meta=meta)[0]:
+                continue
+            nominees = eligible_nominees(pod, cand, nominated)
+            if nominees and not fits_with_nominees(pod, cand, snap, nominees, enabled=self._enabled_preds):
+                continue
+            return cand
+        return None
 
     def _fail(self, info: PodInfo, cycle: int) -> None:
         self.queue.add_unschedulable(info, cycle)
@@ -719,6 +1160,7 @@ class Scheduler:
             except Exception:
                 _log.warning("nominatedNodeName write for %s failed; the nomination stays local", pod.key(),
                              exc_info=True)
+        self.stats["preempted"] += 1
         self.stats["victims"] += len(victims)
 
     def _preempt_deferred(self, fails: List[PodInfo], cycle: int, res: ScheduleResult) -> None:
@@ -731,22 +1173,24 @@ class Scheduler:
         domain (terms, ports, a restricted predicate set) take
         `_try_preempt` pod by pod. Every pod then fails into the queue with
         its nomination; after any preemption or a pod that fits as things
-        stand, the unschedulable pods move back (MoveAllToActiveQueue)."""
+        stand, the unschedulable pods move back (MoveAllToActiveQueue). A
+        failed victim search raises once the pods not yet handled are back
+        in the queue."""
         t0 = time.perf_counter()
         self.stats["preempt_batches"] += 1
         pdbs = self.pdb_lister()
-        snapshot = self.cache.snapshot
-        plans = None
-        if self._enabled_preds is None:
-            plans = preemption_mod.batch_preempt_device(
-                [i.pod for i in fails], snapshot, pdbs=pdbs, can_disrupt=self._can_disrupt,
-                nominated=self.queue.nomination_extras({i.pod.key() for i in fails}), device=self.device,
-            )
         any_preempted = False
         any_fits_free = False
-        for k, info in enumerate(fails):
-            pod = info.pod
-            try:
+        k = 0
+        try:
+            plans = None
+            if self._enabled_preds is None:
+                plans = preemption_mod.batch_preempt_device(
+                    [i.pod for i in fails], self.cache.snapshot, pdbs=pdbs, can_disrupt=self._can_disrupt,
+                    nominated=self.queue.nomination_extras({i.pod.key() for i in fails}), device=self.device,
+                )
+            for k, info in enumerate(fails):
+                pod = info.pod
                 if plans is None:
                     applied = self._try_preempt(info)
                 else:
@@ -762,24 +1206,23 @@ class Scheduler:
                         else:
                             self.stats["preempt_reverify_miss"] += 1
                             applied = self._try_preempt(info)
-            except NotImplementedError:
-                # the host path refused: the pods not yet handled go back
-                self.queue.requeue(fails[k:])
-                if any_preempted or any_fits_free:
-                    self.queue.move_all_to_active()
-                self.stats["preempt_s"] += time.perf_counter() - t0
-                raise
-            if applied:
-                res.preempted += 1
-                self.stats["preempted"] += 1
-                any_preempted = True
-            res.unschedulable += 1
-            self._fail(info, cycle)
-        if any_preempted or any_fits_free:
-            # victim deletions are cluster events, and a pod that fits as
-            # things stand must retry promptly (eventhandlers.go:127)
-            self.queue.move_all_to_active()
-        self.stats["preempt_s"] += time.perf_counter() - t0
+                if applied:
+                    res.preempted += 1
+                    any_preempted = True
+                    # victim deletes moved the snapshot under the oracle's index
+                    self._aff_index = None
+                res.unschedulable += 1
+                self._fail(info, cycle)
+        except BaseException:
+            # the pods not yet handled go back before the error surfaces
+            self.queue.requeue(fails[k:])
+            raise
+        finally:
+            if any_preempted or any_fits_free:
+                # victim deletions are cluster events, and a pod that fits as
+                # things stand must retry promptly (eventhandlers.go:127)
+                self.queue.move_all_to_active()
+            self.stats["preempt_s"] += time.perf_counter() - t0
 
     def _reverify(self, pod: Pod, node_name: str, victims: List[Pod], pdbs) -> bool:
         """The device plan against the live node: the host victim search

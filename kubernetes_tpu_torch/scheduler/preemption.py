@@ -1,24 +1,22 @@
 """Preemption: victim selection when no node fits.
 
-The port's copy of `kubernetes_tpu/scheduler/preemption.py`, on the fast
-path only. Reference: core/generic_scheduler.go Preempt (:313),
-selectVictimsOnNode (:1104), filterPodsWithPDBViolation (:1055),
-pickOneNodeForPreemption (:878), nodesWherePreemptionMightHelp (:1218).
+The port's copy of `kubernetes_tpu/scheduler/preemption.py`. Reference:
+core/generic_scheduler.go Preempt (:313), selectNodesForPreemption
+(:1007), selectVictimsOnNode (:1104), filterPodsWithPDBViolation (:1055),
+pickOneNodeForPreemption (:878), nodesWherePreemptionMightHelp (:1218),
+podFitsOnNode's nominated-pods two-pass rule (:612-697).
 
 * `batch_preempt_device` — one device victim search for a whole batch of
   failed pods (ops/preempt.preempt_batch: the kernel on the card, its
-  plain version on the CPU), sequentially consistent across preemptors.
-* `preempt` — the host answer for one pod: the affinity-free fast path,
-  `_select_victims_fast` on every candidate node (exact arithmetic over
-  the node's aggregates), then the six-key pick.
-
-When the preemptor carries (anti-)affinity or spread terms, or an existing
-pod carries required anti-affinity, the reference evaluates each candidate
-node with its full predicate chain (`select_victims_on_node` →
-`pod_fits_on_node`), which the port does not have: `preempt` raises
-NotImplementedError ("oracle fallback") as soon as such a pod has a
-candidate node holding a victim. With no lower-priority victim anywhere it
-returns no candidate, as the reference does, without that chain.
+  plain version on the CPU), sequentially consistent across preemptors;
+  None for a batch outside the kernel's exact domain.
+* `preempt` — the host answer for one pod: with no terms in play the
+  affinity-free fast path (`_select_victims_fast`, exact arithmetic over
+  the node's aggregates), else the slow path (`select_victims_on_node`:
+  the full predicate chain on a copy-on-write shadow of the node), then
+  the six-key pick.
+* `fits_considering_nominated` / `fits_with_nominees` — the two-pass
+  nominee re-check the driver's host oracle runs on nominated nodes.
 """
 
 from __future__ import annotations
@@ -41,9 +39,11 @@ from ..api.types import (
 from ..oracle.nodeinfo import DEFAULT_BIND_ALL_HOST_IP, NodeInfo, Snapshot, accumulated_request
 from ..oracle.predicates import (
     check_node_unschedulable,
+    compute_predicate_metadata,
     get_pod_affinity_terms,
     get_pod_anti_affinity_terms,
     pod_fits_host,
+    pod_fits_on_node,
     pod_match_node_selector,
     pod_tolerates_node_taints,
 )
@@ -53,13 +53,77 @@ from ..state.tensors import _bucket, _node_bucket, spec_key
 
 NominatedFn = Callable[[str], List[Pod]]
 
-ORACLE_FALLBACK = "ROADMAP.md queue 1, oracle fallback"
-
 
 @dataclass
 class Victims:
     pods: List[Pod]
     num_pdb_violations: int = 0
+
+
+def _shadow_one(snapshot: Snapshot, node_name: str) -> Snapshot:
+    """Copy-on-write snapshot that clones only node_name's pod list (the one
+    thing the victim search and the nominee simulation mutate); every other
+    NodeInfo is shared with the source."""
+    shadow = Snapshot()
+    for n, info in snapshot.node_infos.items():
+        if n == node_name:
+            si = shadow.add_node(info.node)
+            si.set_pods(info.pods)
+        else:
+            shadow.node_infos[n] = info
+    return shadow
+
+
+def eligible_nominees(pod: Pod, node_name: str, nominated_fn: Optional[NominatedFn]) -> List[Pod]:
+    """Nominated pods the two-pass rule must count for `pod` on this node:
+    someone else's nomination with equal-or-higher priority
+    (generic_scheduler.go:620-630)."""
+    if nominated_fn is None:
+        return []
+    prio = pod.get_priority()
+    return [p for p in nominated_fn(node_name) if p.key() != pod.key() and p.get_priority() >= prio]
+
+
+def fits_considering_nominated(
+    pod: Pod,
+    node_name: str,
+    snapshot: Snapshot,
+    nominated_fn: Optional[NominatedFn],
+    meta=None,
+) -> bool:
+    """podFitsOnNode's two-pass rule (generic_scheduler.go:612-697): when
+    the node has nominated pods of priority >= the incoming pod's, the
+    predicates must pass both with those pods counted and without them
+    (nominated pods may never arrive, and their absence can break the
+    incoming pod's required pod affinity)."""
+    ni = snapshot.get(node_name)
+    if ni is None:
+        return False
+    nominees = eligible_nominees(pod, node_name, nominated_fn)
+    if meta is None:
+        meta = compute_predicate_metadata(pod, snapshot)
+    if not pod_fits_on_node(pod, ni, meta=meta)[0]:
+        return False
+    if not nominees:
+        return True
+    return fits_with_nominees(pod, node_name, snapshot, nominees, enabled=meta.enabled)
+
+
+def fits_with_nominees(
+    pod: Pod,
+    node_name: str,
+    snapshot: Snapshot,
+    nominees: Sequence[Pod],
+    enabled: Optional[frozenset] = None,
+) -> bool:
+    """The with-nominated-pods pass alone (the caller has checked the plain
+    pass)."""
+    shadow = _shadow_one(snapshot, node_name)
+    sni = shadow.get(node_name)
+    for p in nominees:
+        sni.add_pod(p.with_node(node_name))
+    meta2 = compute_predicate_metadata(pod, shadow, enabled=enabled)
+    return pod_fits_on_node(pod, sni, meta=meta2)[0]
 
 
 def pod_eligible_to_preempt_others(pod: Pod, snapshot: Snapshot) -> bool:
@@ -119,6 +183,63 @@ def _importance(p: Pod) -> Tuple[int, float]:
     """util.MoreImportantPod sort key: higher priority first, then earlier
     start (approximated by creation timestamp)."""
     return (-p.get_priority(), p.creation_timestamp)
+
+
+def select_victims_on_node(
+    pod: Pod,
+    node_name: str,
+    snapshot: Snapshot,
+    pdbs: Sequence[PodDisruptionBudget] = (),
+    can_disrupt: Optional[Callable[[Pod], bool]] = None,
+    enabled: Optional[frozenset] = None,
+    static_meta=None,
+) -> Optional[Victims]:
+    """selectVictimsOnNode (:1104): remove every lower-priority pod; if the
+    pod then fits, reprieve them most-important-first — PDB-protected pods
+    first; those that cannot be reprieved count as PDB violations for the
+    pick. `can_disrupt` narrows the victims (the driver excludes pods whose
+    bind is in flight). `static_meta`: predicate metadata that no victim
+    removal can change, computed once by the caller."""
+    ni = snapshot.get(node_name)
+    if ni is None:
+        return None
+    prio = pod.get_priority()
+    potential = [p for p in ni.pods if p.get_priority() < prio and (can_disrupt is None or can_disrupt(p))]
+    if not potential:
+        return None
+
+    shadow = _shadow_one(snapshot, node_name)
+    sni = shadow.get(node_name)
+    victims_set = {id(p) for p in potential}
+    sni.set_pods([p for p in sni.pods if id(p) not in victims_set])
+
+    def fits() -> bool:
+        meta = static_meta if static_meta is not None else compute_predicate_metadata(pod, shadow, enabled=enabled)
+        return pod_fits_on_node(pod, sni, meta=meta)[0]
+
+    if not fits():
+        return None
+
+    violating, non_violating = _pods_violating_pdbs(potential, pdbs)
+    victims: List[Pod] = []
+    num_violations = 0
+
+    def reprieve(p: Pod) -> bool:
+        sni.add_pod(p)
+        if fits():
+            return True
+        sni.remove_pod(p)
+        victims.append(p)
+        return False
+
+    for p in sorted(violating, key=_importance):
+        if not reprieve(p):
+            num_violations += 1
+    for p in sorted(non_violating, key=_importance):
+        reprieve(p)
+    if not victims:
+        return None
+    return Victims(pods=victims, num_pdb_violations=num_violations)
 
 
 def _select_victims_fast(
@@ -511,32 +632,28 @@ def preempt(
     """Preempt (:313): (node, victims, nominated pod keys to clear). The
     third element lists the LOWER-priority pods nominated to the chosen
     node (the scheduling queue's nominated index, :346-360), whose
-    nomination the caller clears: their node is about to be taken.
-    `enabled`, a Policy-restricted predicate set, leaves the fast path as
-    terms do."""
+    nomination the caller clears: their node is about to be taken."""
     if not pod_eligible_to_preempt_others(pod, snapshot):
         return None, [], []
     potential = nodes_where_preemption_might_help(pod, snapshot)
     if not potential:
         return None, [], []
-    # the affinity-free fast path: with no terms on the preemptor and no
-    # required anti-affinity on an existing pod, the predicate metadata is
-    # the same for every candidate shadow and the victim search is exact
+    # with no terms on the preemptor and no required anti-affinity on an
+    # existing pod (the only existing-pod terms the metadata reads), the
+    # predicate metadata is the same for every candidate shadow: computed
+    # once; with the default predicate set too, the victim search is exact
     # arithmetic (_select_victims_fast)
-    fast = enabled is None and not _has_terms(pod) and not _existing_anti_affinity(snapshot)
-    prio = pod.get_priority()
+    static_meta = None
+    if not _has_terms(pod) and not _existing_anti_affinity(snapshot):
+        static_meta = compute_predicate_metadata(pod, snapshot, enabled=enabled)
+    fast = static_meta is not None and enabled is None
     candidates: Dict[str, Victims] = {}
     for name in potential:
-        ni = snapshot.get(name)
-        if not fast:
-            if any(p.get_priority() < prio and (can_disrupt is None or can_disrupt(p)) for p in ni.pods):
-                raise NotImplementedError(
-                    f"preempting for pod {pod.key()} on node {name}: with (anti-)affinity or spread terms in "
-                    f"play, or a restricted predicate set, each candidate node needs the full predicate "
-                    f"chain ({ORACLE_FALLBACK})"
-                )
-            continue  # no lower-priority victim: no candidate, as the reference
-        v = _select_victims_fast(pod, ni, pdbs, can_disrupt)
+        if fast:
+            v = _select_victims_fast(pod, snapshot.get(name), pdbs, can_disrupt)
+        else:
+            v = select_victims_on_node(pod, name, snapshot, pdbs=pdbs, can_disrupt=can_disrupt, enabled=enabled,
+                                       static_meta=static_meta)
         if v is not None:
             candidates[name] = v
     chosen = pick_one_node_for_preemption(candidates)
@@ -545,6 +662,7 @@ def preempt(
     # lower-priority pending pods nominated to the chosen node lose their
     # nomination (getLowerPriorityNominatedPods :1240)
     clear: List[str] = []
+    prio = pod.get_priority()
     if nominated_fn is not None:
         for p in nominated_fn(chosen):
             if p.get_priority() < prio:

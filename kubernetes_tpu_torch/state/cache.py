@@ -39,6 +39,7 @@ import torch
 from ..api.types import Node, Pod
 from ..oracle.nodeinfo import NodeInfo, Snapshot, pod_has_affinity_constraints
 from .convert import arrays_to_torch
+from .node_tree import NodeTree
 from .terms import PatternBank, PatternOverflow
 from .tensors import (
     ImageTable,
@@ -69,10 +70,15 @@ class SchedulerCache:
     def __init__(self):
         self._lock = threading.RLock()
         self.snapshot = Snapshot()
+        # zone-interleaved iteration (internal/cache/node_tree.go) for the
+        # host oracle's placement walk
+        self.node_tree = NodeTree()
         self._pod_states: Dict[str, _PodState] = {}  # guarded by self._lock
         self._assumed: Set[str] = set()  # guarded by self._lock
         self.dirty_nodes: Set[str] = set()
         self.removed_nodes: Set[str] = set()
+        # every change to the snapshot's nodes or their pods
+        self.mutation_count = 0  # guarded by self._lock
         # (node, pod, ±1, folded) single-pod changes (assume/confirm/
         # remove) — the common event; consumed by TensorMirror.sync.
         # `folded` marks adds whose deltas a commit fold already applied
@@ -91,6 +97,7 @@ class SchedulerCache:
             self.pod_deltas.clear()
 
     def _add_pod_to_node(self, pod: Pod, folded: bool = False) -> None:
+        self.mutation_count += 1
         ni = self.snapshot.get(pod.node_name)
         if ni is None:
             # pod on an unknown node: track headlessly (the reference keeps
@@ -111,6 +118,7 @@ class SchedulerCache:
             return
         removed = ni.remove_pod_key(pod.key())
         if removed is not None:
+            self.mutation_count += 1
             self.pod_deltas.append((pod.node_name, removed, -1, False))
             self._collapse_deltas_locked()
 
@@ -208,10 +216,13 @@ class SchedulerCache:
             ni = self.snapshot.get(node.name)
             if ni is None:
                 self.snapshot.add_node(node)
+                self.node_tree.add_node(node)
             else:
+                self.node_tree.update_node(ni.node, node)
                 ni.node = node  # was a headless placeholder, or an update
             self.dirty_nodes.add(node.name)
             self.removed_nodes.discard(node.name)
+            self.mutation_count += 1
 
     def update_node(self, node: Node) -> None:
         self.add_node(node)
@@ -220,11 +231,24 @@ class SchedulerCache:
         with self._lock:
             ni = self.snapshot.node_infos.pop(name, None)
             if ni is not None:
+                self.node_tree.remove_node(ni.node)
                 for p in ni.pods:
                     self._pod_states.pop(p.key(), None)
                     self._assumed.discard(p.key())
             self.dirty_nodes.discard(name)
             self.removed_nodes.add(name)
+            self.mutation_count += 1
+
+    def node_order(self) -> List[str]:
+        """Zone-interleaved iteration order (NodeTree.order) for the host
+        oracle's placement walk; nodes the tree does not know (headless
+        placeholders) follow in insertion order."""
+        with self._lock:
+            order = [n for n in self.node_tree.order() if n in self.snapshot.node_infos]
+            if len(order) != len(self.snapshot.node_infos):
+                seen = set(order)
+                order.extend(n for n in self.snapshot.node_infos if n not in seen)
+            return order
 
     # -- counters ------------------------------------------------------------
 

@@ -29,8 +29,8 @@ Encoding scheme
 * Variable-length structures (taints, tolerations, selector terms, ports)
   are padded to per-structure capacities with a validity mask. A pod or
   node whose structures exceed capacity sets `fallback` (the filter masks
-  fallback nodes out; the port's driver refuses fallback pods until the
-  host oracle path is ported).
+  fallback nodes out; the driver re-checks fallback pods, and the -1 pods
+  of a batch beside fallback nodes, with the host oracle).
 
 All arrays are built host-side in numpy (cheap incremental row writes) and
 shipped to device per scheduling cycle; dtype discipline: int32 ids/slots,

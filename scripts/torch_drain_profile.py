@@ -1,14 +1,17 @@
 #!/usr/bin/env python3
 """Where the port's drain spends its time, on one NVIDIA card.
 
-    python3 scripts/torch_drain_profile.py [--config 2|3|4|6] [--services]
-        [--nodes N] [--pods P] [--batch 4096] [--out chiprun_out/drain_profile]
-        [--ab PAIRS]
+    python3 scripts/torch_drain_profile.py [--config 2|3|3-hard|4|6] [--services]
+        [--nodes N] [--pods P] [--batch 4096] [--runs plain,sampled,traced]
+        [--out chiprun_out/drain_profile] [--ab PAIRS]
 
 Drives a drain of chip_smoke.py phase 5 (kubernetes_tpu_torch's Scheduler,
 tie-noise on) on bench.py config 2 (default 5,000 nodes / 50,000 pods),
 config 3 (default 10,000 nodes / 100,000 pods; with --services, one
-Service per app feeds SelectorSpread), config 4 (default 2,000 nodes /
+Service per app feeds SelectorSpread), config 3-hard (config 3 with every
+constraint DoNotSchedule: the commit arbiter's defers, and the host
+oracle's re-placement of the pods deferred three times in a row; its
+warm-up drain is 1/100 of the pods), config 4 (default 2,000 nodes /
 20,000 pods: required hostname anti-affinity on every 10th pod, preferred
 zone affinity on the rest) or config 6 (default 500 full nodes with 7
 bound priority-0 pods each, --pods 2,000 pending priority-1000 pods that
@@ -16,7 +19,8 @@ land only by preemption, batch 1,024 by default so that batches
 dispatch with another batch's nominations outstanding; the drain waits
 out the queue's backoff in 50 ms sleeps, as bench.py's does, counted as
 `wait_s`; pods/s counts the preemptors) after a 1/10-scale warm-up drain
-that builds and loads the kernels, three times:
+that builds and loads the kernels, three times (or the runs named by
+`--runs`):
 
   1. plain      wall time and the driver's per-stage seconds, the
                 reference for the overheads of the two runs below;
@@ -84,6 +88,13 @@ STAGES = (
     ("commit/arbiter.py", "arbitrate"),
     ("scheduler/driver.py", "_commit_bulk"),
     ("scheduler/driver.py", "_commit_arbitrated"),
+    ("scheduler/driver.py", "_commit_loop"),
+    ("scheduler/driver.py", "_oracle_place"),
+    ("scheduler/driver.py", "_pod_meta"),
+    ("oracle/predicates.py", "compute_even_pods_spread_metadata"),
+    ("oracle/predicates.py", "pod_fits_on_node"),
+    ("scheduler/preemption.py", "fits_considering_nominated"),
+    ("ops/pipeline.py", "gather_score_rows"),
     ("scheduler/driver.py", "_apply"),
     ("scheduler/driver.py", "_dispatch_fold"),
     ("commit/fold.py", "plan_fold"),
@@ -110,7 +121,7 @@ def wait_backoff(queue) -> None:
     queue.move_all_to_active()
 
 
-def drain(config: int, services: bool, n_nodes: int, n_pods: int, batch: int, around=contextlib.nullcontext,
+def drain(config: str, services: bool, n_nodes: int, n_pods: int, batch: int, around=contextlib.nullcontext,
           planes: bool = True):
     from kubernetes_tpu_torch.models.clusters import (
         bench_config2,
@@ -125,19 +136,19 @@ def drain(config: int, services: bool, n_nodes: int, n_pods: int, batch: int, ar
 
     fn = None
     existing = []
-    if config == 2:
+    if config == "2":
         nodes, pods = bench_config2(n_nodes, n_pods)
-    elif config == 4:
+    elif config == "4":
         nodes, pods = bench_config4(n_nodes, n_pods)
-    elif config == 6:
+    elif config == "6":
         nodes, existing, pods = bench_config6(n_nodes, n_pods)
     else:
-        nodes, pods, fn = bench_config3(n_nodes, n_pods, services=services)
+        nodes, pods, fn = bench_config3(n_nodes, n_pods, services=services, hard=config == "3-hard")
     cache, queue = SchedulerCache(), PriorityQueue()
     fill_cache(cache, nodes, existing)
     for p in pods:
         queue.add(p)
-    if config == 6:
+    if config == "6":
         return drain_preemption(cache, queue, n_pods, batch, around, planes)
     sched = Scheduler(cache, queue, batch_size=batch, deterministic=False, seed=0, device="cuda",
                       commit_plane=planes)
@@ -146,7 +157,7 @@ def drain(config: int, services: bool, n_nodes: int, n_pods: int, batch: int, ar
     torch.cuda.synchronize()
     with around():
         t0 = time.perf_counter()
-        res = sched.run_until_empty()
+        res = sched.run_until_empty(max_cycles=100000)
         sched.wait_for_binds()
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
@@ -286,7 +297,7 @@ def ab(work, args, smi) -> int:
     runs first; each run's pods/s and stages, the medians and each side's
     pods/s range."""
     keys = ("pods_per_s", "wall_s", "sync_s", "encode_s", "solve_s", "commit_s", "apply_s", "fold_s")
-    if args.config == 6:
+    if args.config == "6":
         keys += ("wait_s", "batch_s", "preempt_s")
     runs = {"on": [], "off": []}
     for i in range(args.ab):
@@ -310,21 +321,24 @@ def ab(work, args, smi) -> int:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", type=int, choices=(2, 3, 4, 6), default=2)
+    ap.add_argument("--config", choices=("2", "3", "3-hard", "4", "6"), default="2")
     ap.add_argument("--services", action="store_true", help="config 3: one Service per app")
     ap.add_argument("--nodes", type=int, default=None,
                     help="default 5,000 (config 2) / 10,000 (config 3) / 2,000 (config 4) / 500 (config 6)")
     ap.add_argument("--pods", type=int, default=None,
                     help="default 50,000 (config 2) / 100,000 (config 3) / 20,000 (config 4) / 2,000 "
                          "preemptors (config 6)")
+    ap.add_argument("--runs", default="plain,sampled,traced", help="which of the three drains to run")
     ap.add_argument("--batch", type=int, default=None, help="default 4,096 (1,024 for config 6)")
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out", "drain_profile"))
     ap.add_argument("--ab", type=int, default=0, metavar="PAIRS",
                     help="run PAIRS alternating planes-on / planes-off drain pairs instead of the profile")
     args = ap.parse_args()
-    args.nodes = args.nodes or {2: 5000, 3: 10000, 4: 2000, 6: 500}[args.config]
-    args.pods = args.pods or {2: 50000, 3: 100000, 4: 20000, 6: 2000}[args.config]
-    args.batch = args.batch or (1024 if args.config == 6 else 4096)
+    cfg = args.config.split("-")[0]
+    args.nodes = args.nodes or {"2": 5000, "3": 10000, "4": 2000, "6": 500}[cfg]
+    args.pods = args.pods or {"2": 50000, "3": 100000, "4": 20000, "6": 2000}[cfg]
+    args.batch = args.batch or (1024 if args.config == "6" else 4096)
+    runs = set(args.runs.split(","))
     if not torch.cuda.is_available():
         print("torch_drain_profile: no CUDA device available", file=sys.stderr)
         return 1
@@ -336,21 +350,34 @@ def main() -> int:
           f"{args.nodes} nodes, {args.pods} pods, batch {args.batch}", flush=True)
 
     work = (args.config, args.services)
-    drain(*work, args.nodes // 10, args.pods // 10, args.batch // 4)  # builds + loads the kernels
+    # builds + loads the kernels
+    drain(*work, args.nodes // 10, args.pods // (100 if args.config == "3-hard" else 10), args.batch // 4)
     if args.ab:
         return ab(work, args, smi)
-    plain = drain(*work, args.nodes, args.pods, args.batch)
-    print(f"[profile] plain: {json.dumps(plain)}", flush=True)
-
-    sampler = StackSampler(threading.get_ident())
-    sampled = drain(*work, args.nodes, args.pods, args.batch, lambda: sampler)
-    host = sampler.report()
-    print(f"[profile] sampled: {json.dumps(sampled)}; {host['samples']} samples over "
-          f"{host['sampled_s']:.3f}s", flush=True)
-    for k, v in host["stage_share"].items():
-        print(f"[profile]   stage {k}: {100 * v:.1f}% of the sampled time", flush=True)
-    for k, v in host["top_leaves"].items():
-        print(f"[profile]   leaf {k}: {100 * v:.1f}%", flush=True)
+    summary = {"card": smi, "config": args.config, "services": args.services, "nodes": args.nodes,
+               "pods": args.pods, "batch": args.batch}
+    if "plain" in runs:
+        summary["plain"] = drain(*work, args.nodes, args.pods, args.batch)
+        print(f"[profile] plain: {json.dumps(summary['plain'])}", flush=True)
+    if "sampled" in runs:
+        sampler = StackSampler(threading.get_ident())
+        sampled = drain(*work, args.nodes, args.pods, args.batch, lambda: sampler)
+        host = sampler.report()
+        summary["sampled"] = {"run": sampled, **host}
+        print(f"[profile] sampled: {json.dumps(sampled)}; {host['samples']} samples over "
+              f"{host['sampled_s']:.3f}s", flush=True)
+        for k, v in host["stage_share"].items():
+            print(f"[profile]   stage {k}: {100 * v:.1f}% of the sampled time", flush=True)
+        for k, v in host["top_leaves"].items():
+            print(f"[profile]   leaf {k}: {100 * v:.1f}%", flush=True)
+    last = {"config": args.config, "services": args.services}
+    if "plain" in summary:
+        last["plain_pods_per_s"] = summary["plain"]["pods_per_s"]
+    if "traced" not in runs:
+        with open(os.path.join(args.out, "summary.json"), "w") as f:
+            json.dump(summary, f, indent=1)
+        print(json.dumps(last), flush=True)
+        return 0
 
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -375,17 +402,11 @@ def main() -> int:
     for name, v in list(device["per_name"].items())[:12]:
         print(f"[profile]   {v['busy_ms']:.3f} ms in {v['count']} x {name[:90]}", flush=True)
 
-    summary = {
-        "card": smi, "config": args.config, "services": args.services,
-        "nodes": args.nodes, "pods": args.pods, "batch": args.batch,
-        "plain": plain, "sampled": {"run": sampled, **host},
-        "traced": {"run": traced_run, "device": device},
-    }
+    summary["traced"] = {"run": traced_run, "device": device}
     with open(os.path.join(args.out, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
-    print(json.dumps({"config": args.config, "services": args.services,
-                      "plain_pods_per_s": plain["pods_per_s"], "idle_share": device["idle_share"],
-                      "busy_ms": device["busy_ms"], "window_ms": device["window_ms"]}), flush=True)
+    print(json.dumps({**last, "idle_share": device["idle_share"], "busy_ms": device["busy_ms"],
+                      "window_ms": device["window_ms"]}), flush=True)
     return 0 if device["device_events"] else 1
 
 

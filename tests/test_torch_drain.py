@@ -11,14 +11,18 @@ deterministic and with tie-noise. The port runs its default commit and
 fold planes there; it is also held, with the planes on and off, to the
 reference's planes-on Scheduler on configs 2, 3 and 4 and on config 3 with
 DoNotSchedule constraints ("config 3-hard", whose defers go through the
-commit arbiter). Tolerance: exact equality. Also: what the slices do not
-cover raises NotImplementedError and leaves the batch in the queue (a pod
-the arbiter defers three times in a row: every pod placed or queued)."""
+commit arbiter). The host oracle's drains (defer escalations, required
+pod affinity to in-batch anchors, encoding overflow, fallback node rows,
+late and outstanding nominations, term-carrying preemptors) equal the
+reference's default driver, its oracle and arbiter counters included.
+Tolerance: exact equality. Gang groups, not ported, raise
+NotImplementedError and leave the batch in the queue."""
 
 import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from kubernetes_tpu.api import types as RT
 from kubernetes_tpu.ops import filters as RF
@@ -101,15 +105,37 @@ def test_solve_pipeline_matches_reference(cfg, det, dedup):
 
 
 def test_solve_pipeline_refuses_terms_and_tracking():
-    """term_kinds=None (which assumes every kind, required pod affinity
-    included) is refused, naming the oracle fallback; an unknown kind is
-    an error. DoNotSchedule spread, the inter-pod kinds and the in-batch
-    tracking are ported (test_solve_pipeline_interpod_tracking_matches_reference,
-    test_torch_commit.py)."""
-    with pytest.raises(NotImplementedError, match="oracle fallback"):
-        PP.mask_and_score({}, {}, {}, term_kinds=None)
-    with pytest.raises(NotImplementedError, match="oracle fallback"):
-        PP.solve_pipeline({}, {}, {}, (0, 0), term_kinds=None)
+    """term_kinds=None is the reference's "assume every kind": the same
+    score and assignment as the reference's with None, on a cluster whose
+    batch carries DoNotSchedule and ScheduleAnyway spread and every
+    inter-pod kind (required pod affinity included, which the host oracle
+    re-checks), and as the port's with every kind named. An unknown kind is
+    an error."""
+    out = {}
+    for pkg, t in (("ref", RT), ("port", PT)):
+        nodes, existing, pending = random_cluster(43, 60, 40, 120, t=t, topology=True, hard_spread=True,
+                                                  interpod=True)
+        cache = (RCache if pkg == "ref" else SchedulerCache)()
+        fill_cache(cache, nodes, existing)
+        mirror = RMirror(cache) if pkg == "ref" else PMirror(cache, device="cpu")
+        batch = (RPodBatch if pkg == "ref" else PPodBatch)(mirror.vocab, 64)
+        for i, p in enumerate(pending):
+            batch.set_pod(i, p)
+        tb, aux = (r_compile if pkg == "ref" else p_compile)(mirror.vocab, pending, b_capacity=64)
+        out[pkg] = [mirror.nodes.arrays(), mirror.eps.arrays(), mirror.pats.arrays(), tb.arrays(), aux,
+                    batch.arrays(), (RF if pkg == "ref" else PF).make_ids(mirror.vocab)]
+    na, ea, xa, ta, au, pa, ids = out["ref"]
+    jx = lambda d: {k: jnp.asarray(v) for k, v in d.items()}  # noqa: E731
+    ref = RP.solve_pipeline(jx(na), jx(pa), jx(ea), jx(ta), jx(xa), jx(au), ids, jax.random.PRNGKey(2),
+                            deterministic=True, term_kinds=None, n_buckets=128)
+    na, ea, xa, ta, au, pa, ids = out["port"]
+    tc = lambda d: arrays_to_torch(d, "cpu")  # noqa: E731
+    kw = dict(deterministic=True, ea=tc(ea), ta=tc(ta), au=tc(au), xa=tc(xa), n_buckets=128)
+    port = PP.solve_pipeline(tc(na), tc(pa), ids, prng_key_data(2), term_kinds=None, **kw)
+    named = PP.solve_pipeline(tc(na), tc(pa), ids, prng_key_data(2), term_kinds=PP.PORTED_TERM_KINDS, **kw)
+    assert np.array_equal(np.asarray(ref[1]), port[1].numpy()) and torch.equal(port[1], named[1])  # score
+    assert np.array_equal(np.asarray(ref[0]), port[0].numpy()) and torch.equal(port[0], named[0])  # assignment
+    assert (np.asarray(ref[0]) >= 0).sum() > 10
     with pytest.raises(ValueError, match="unknown"):
         PP.mask_and_score({}, {}, {}, term_kinds=frozenset({"spread_soft", "gang"}))
 
@@ -286,7 +312,7 @@ def test_topology_drain_matches_reference_pod_for_pod(workload, services, det):
     assert ("sel_spread" in sched._term_kinds) == services
 
 
-def _cluster_with(pending_fn, existing_fn=None, t=PT, pkg="port", **port_kw):
+def _cluster_with(pending_fn, existing_fn=None, t=PT, pkg="port", ref_planes=False, **port_kw):
     nodes, pending = bench_config2(8, 6, t=t)
     for i, n in enumerate(nodes):
         n.labels["zone"] = f"z{i % 2}"
@@ -297,8 +323,8 @@ def _cluster_with(pending_fn, existing_fn=None, t=PT, pkg="port", **port_kw):
         queue.add(p)
     if pkg == "port":
         return Scheduler(cache, queue, device="cpu", enable_preemption=False, **port_kw), queue
-    return RScheduler(cache, queue, commit_plane=False, fold_plane=False, ingest_plane=False,
-                      term_plane=False, speculate=False, enable_preemption=False), queue
+    return RScheduler(cache, queue, commit_plane=ref_planes, fold_plane=ref_planes, ingest_plane=False,
+                      term_plane=False, speculate=False, columnar_cache=False, enable_preemption=False), queue
 
 
 def _anti(p, t=PT, labels=None):
@@ -347,14 +373,49 @@ def _existing_with(case):
     return existing_fn if case in ("existing-affinity", "pattern-overflow") else None
 
 
+ORACLE_COUNTERS = ("oracle_rechecks", "light_rechecks", "oracle_places", "arbiter_batches", "arbiter_place",
+                   "arbiter_defer", "arbiter_escalated")
+
+
+def _counters(stats):
+    return {k: stats.get(k, 0) for k in ORACLE_COUNTERS}
+
+
 @pytest.mark.parametrize("case", ["spread", "overflow", "term-overflow", "required-affinity",
                                   "pattern-overflow"])
 def test_unported_paths_raise_and_keep_the_batch(case):
-    """DoNotSchedule spread is refused with the commit plane off: the
-    reference's planes-off path re-checks it with its full host oracle."""
-    kw = {"commit_plane": False} if case == "spread" else {}
-    sched, queue = _cluster_with(lambda pods, t: _edit_pending(case, pods, t), _existing_with(case), **kw)
-    with pytest.raises(NotImplementedError, match="oracle fallback" if case == "spread" else "ROADMAP"):
+    """The paths the port refused before it had the host oracle now drain
+    pod for pod as the reference's planes-on driver (the planes-off one for
+    DoNotSchedule spread with the commit plane off): a pod whose
+    tolerations or spread selector overflow the encoding, required pod
+    affinity to pods of the same batch, an existing pod whose anti-affinity
+    selector overflows its pattern row. Their batches take the per-pod
+    loop, whose full host re-check and re-placement the counters show."""
+    planes = case != "spread"
+    results = []
+    for pkg, t in (("ref", RT), ("port", PT)):
+        sched, queue = _cluster_with(lambda pods, t: _edit_pending(case, pods, t), _existing_with(case), t=t,
+                                     pkg=pkg, ref_planes=planes, **({"commit_plane": planes} if pkg == "port" else {}))
+        res = sched.run_until_empty()
+        sched.wait_for_binds()
+        sched.close()
+        results.append((res, _counters(sched.stats)))
+    (ref, rc), (port, pc) = results
+    assert port.assignments == ref.assignments and port.scheduled == ref.scheduled == 6
+    assert pc == rc and pc["oracle_rechecks"] + pc["oracle_places"] > 0
+    if case == "required-affinity":  # its anchor commits earlier in the batch: the -1 is re-placed there
+        assert pc["oracle_places"] > 0
+        assert port.assignments["bench/pod-2"] == port.assignments["bench/pod-1"]
+
+
+def test_gang_refuses_and_keeps_the_batch():
+    """A pod of a PodGroup needs the gang solve, which is not ported: the
+    batch goes back to the queue and the driver raises."""
+    def edit(pods, t):
+        pods[2].labels["pod-group.scheduling.sigs.k8s.io/name"] = "g"
+
+    sched, queue = _cluster_with(edit)
+    with pytest.raises(NotImplementedError, match="gang"):
         sched.schedule_batch()
     assert queue.counts() == (6, 0, 0)
     sched.close()
@@ -499,14 +560,15 @@ def test_planes_on_drain_matches_planes_off_and_reference(workload):
     st = sched.stats
     assert st["fold_batches"] == st["batches"] and st["fold_pods"] == len(pending)
     assert osched.stats["fold_batches"] == 0 and osched.stats["arbiter_batches"] == 0
-    # no batch holds a DoNotSchedule pod: all take the bulk path. Config
-    # 4's batches carry required anti-affinity, which the reference
-    # arbitrates; here their tracked solve leaves the arbiter nothing to
-    # defer, and the placements above are the reference's
-    assert st["arbiter_batches"] == st["arbiter_place"] == 0
-    assert rsched.stats.get("arbiter_defer", 0) == 0
+    # configs 2 and 3 take the bulk path; config 4's batches carry required
+    # anti-affinity, which the arbiter re-checks as the reference's does
+    # (the tracked solve leaves it nothing to defer)
+    assert _counters(st) == _counters(rsched.stats) and st["arbiter_defer"] == 0
     if workload == "config4":
-        assert rsched.stats["arbiter_batches"] == st["batches"] == st["tracked_batches"]
+        assert st["arbiter_batches"] == st["batches"] == st["tracked_batches"]
+        assert st["arbiter_place"] == len(pending)
+    else:
+        assert st["arbiter_batches"] == 0
     assert sched.mirror.rows_shipped == 0
 
 
@@ -567,25 +629,17 @@ def test_mixed_hard_spread_drain_matches_reference(seed):
 
 
 def test_defer_escalation_refuses_and_keeps_every_pod():
-    """A pod the arbiter defers three batches in a row escalates, in the
-    reference, to its host oracle's re-placement — not ported: the batch
-    applies its placed pods, re-queues its defers and the escalated pod,
-    and raises. No pod is lost."""
-    nodes, pending = commit_plane_mix(8, 96)
-    cache, queue = SchedulerCache(), PriorityQueue()
-    fill_cache(cache, nodes)
-    for p in pending:
-        queue.add(p)
-    sched = Scheduler(cache, queue, batch_size=16, deterministic=True, device="cpu")
-    with pytest.raises(NotImplementedError, match="oracle fallback"):
-        sched.run_until_empty()
-    sched.wait_for_binds()
-    sched.close()
-    assert sched.stats["arbiter_escalated"] > 0 and sched.stats["arbiter_defer"] > 0
-    placed = cache.pod_count()
-    active, backoff, unschedulable = queue.counts()
-    assert placed > 0 and active > 0
-    assert placed + active + backoff + unschedulable == len(pending)
+    """A pod the arbiter defers three batches in a row escalates to the host
+    oracle's re-placement (`_oracle_place`): on the commit-plane mix at
+    batch 16 (perf_smoke's tiny config) the drain equals the reference's
+    planes-on, preemption-on driver — placements, nominations after every
+    batch, the arbiter's and the oracle's counters — and every pod lands."""
+    ra, rv, rn, rp, rst, _ = _preemption_drain("ref", "mix", batch=16)
+    pa, pv, pn, pp, st, sched = _preemption_drain("port", "mix", batch=16)
+    assert (pa, pv, pn, pp) == (ra, rv, rn, rp)
+    assert _counters(st) == _counters(rst)
+    assert st["arbiter_escalated"] > 0 and st["arbiter_defer"] > 0 and st["oracle_places"] == st["arbiter_escalated"]
+    assert len(pa) == 96 and sched.cache.pod_count() == 96 and sum(sched.queue.counts()) == 0
 
 
 # --- preemption against the reference's default (preemption-on) driver ---
@@ -601,6 +655,67 @@ class _Clock:
         return self.t
 
 
+def _preemption_workload(workload, t):
+    """(nodes, bound pods, pending pods, PDBs) of a preemption-on drain:
+    config 6 at 1/10; `random<seed>` / `ports<seed>` random preemption
+    clusters without / with host ports; `terms<seed>` a random cluster
+    mixing DoNotSchedule spread, required pod (anti-)affinity, preferred
+    terms and host ports; `mix` / `perf-mix` the commit-plane mix (perf_smoke's
+    tiny config, and 64 nodes / 800 pods)."""
+    name = workload.rstrip("0123456789")
+    seed = int(workload[len(name):] or 0)
+    if workload == "config6":
+        nodes, existing, pending = bench_config6(50, 200, t=t)
+        return nodes, existing, pending, []
+    if name in ("random", "ports"):
+        return random_preemption_cluster(seed, t=t, ports=name == "ports")
+    if name == "terms":
+        nodes, existing, pending = random_cluster(seed, 40, 100, 60, t=t, pins=False, topology=True,
+                                                  hard_spread=True, interpod=True, pending_ports=True)
+        return nodes, existing, pending, []
+    if name == "anchors":
+        return _anchors_cluster(t)
+    if name in ("overflow", "fallback"):
+        # fallback: nodes whose taints overflow the encoding beside pods
+        # pinned or selected onto no node (-1 pods while node rows fall
+        # back); overflow: pods whose tolerations or spread selectors and an
+        # existing pod whose anti-affinity selector overflow the encoding
+        nodes, existing, pending = random_cluster(seed, 40, 90, 60, t=t, overflow_nodes=4 if name == "fallback" else 0,
+                                                  pins=True, topology=name == "overflow")
+        if name == "overflow":
+            for i, p in enumerate(pending):
+                if i % 7 == 0:
+                    p.tolerations = [t.Toleration(key=f"k{j}", operator="Exists") for j in range(9)]
+                elif i % 11 == 0:
+                    p.topology_spread_constraints = [t.TopologySpreadConstraint(
+                        max_skew=1, topology_key=ZONE_KEY, when_unsatisfiable="ScheduleAnyway",
+                        label_selector=t.LabelSelector(match_labels={f"k{j}": "v" for j in range(5)}))]
+            existing[0].affinity = t.Affinity()
+            _anti(existing[0], t, {f"k{j}": "v" for j in range(5)})
+        return nodes, existing, pending, []
+    nodes, pending = commit_plane_mix(8, 96, t=t) if workload == "mix" else commit_plane_mix(64, 800, t=t)
+    return nodes, [], pending, []
+
+
+def _anchors_cluster(t):
+    """Required pod affinity to anchors of the same batch: 8 nodes over 4
+    zones; pod i % 4 == 0 is an anchor `app=db-<i % 3>`, the others
+    `app=web-<i % 3>` requiring a `db-<i % 3>` pod in their zone. In the
+    first batch the followers' masks see no anchor (a -1); an anchor
+    committed earlier in the batch makes the host oracle re-place them."""
+    nodes, _ = commit_plane_mix(8, 0, t=t)
+    pods = []
+    for i in range(64):
+        app = f"db-{i % 3}" if i % 4 == 0 else f"web-{i % 3}"
+        p = t.Pod(name=f"pod-{i}", namespace="bench", labels={"app": app},
+                  containers=[t.Container(name="c", requests={t.RESOURCE_CPU: t.Quantity.parse("100m")})])
+        if i % 4:
+            p.affinity = t.Affinity(pod_affinity=t.PodAffinity(required=[t.PodAffinityTerm(
+                label_selector=t.LabelSelector(match_labels={"app": f"db-{i % 3}"}), topology_key=ZONE_KEY)]))
+        pods.append(p)
+    return nodes, [], pods, []
+
+
 def _preemption_drain(pkg, workload, planes=True, batch=64):
     """Drain a preemption workload to the end: after every batch the binds
     are awaited (so both caches agree on which pods are assumed); when a
@@ -609,11 +724,7 @@ def _preemption_drain(pkg, workload, planes=True, batch=64):
     Returns (assignments, victim keys in delete order, the nominated index
     after each batch, preempted count, stats, scheduler)."""
     t = RT if pkg == "ref" else PT
-    if workload == "config6":
-        nodes, existing, pending = bench_config6(50, 200, t=t)
-        pdbs = []
-    else:
-        nodes, existing, pending, pdbs = random_preemption_cluster(int(workload[-1]), t=t)
+    nodes, existing, pending, pdbs = _preemption_workload(workload, t)
     clock = _Clock()
     cache = (RCache if pkg == "ref" else SchedulerCache)()
     fill_cache(cache, nodes, existing)
@@ -686,27 +797,134 @@ def test_preemption_drain_matches_reference(workload, planes):
 @pytest.mark.parametrize("case", ["victim-search", "nominee-recheck"])
 def test_preemption_oracle_fallback_refuses_and_keeps_the_batch(case):
     """victim-search: a preemptor with a required anti-affinity term that
-    fits nowhere, on nodes holding lower-priority pods, needs the
-    reference's full predicate chain per candidate node: refused, and the
-    pod is back in the queue. nominee-recheck: while a nomination is
-    outstanding, a batch holding a pod that is not resource-only takes the
-    reference's per-pod nominee re-check: refused before the solve."""
-    nodes, existing, pending = bench_config6(4, 6)
-    cache, queue = SchedulerCache(), PriorityQueue()
-    fill_cache(cache, nodes, existing)
-    sched = Scheduler(cache, queue, batch_size=8, device="cpu")
-    pending[0].affinity = PT.Affinity()
-    if case == "victim-search":
-        _anti(pending[0], PT, {"app": "zz"})
+    fits nowhere, on nodes holding lower-priority pods, takes the slow
+    victim search (the full predicate chain per candidate node).
+    nominee-recheck: while a nomination is outstanding, a batch holding a
+    pod that is not resource-only takes the per-pod loop, whose host
+    oracle re-checks picks on nominated nodes. Both drain as the
+    reference: the same placements, victims in order and nominations."""
+    out = {}
+    for pkg, t in (("ref", RT), ("port", PT)):
+        nodes, existing, pending = bench_config6(4, 6, t=t)
+        cache, clock = (RCache() if pkg == "ref" else SchedulerCache()), _Clock()
+        queue = (RQueue if pkg == "ref" else PriorityQueue)(now=clock)
+        fill_cache(cache, nodes, existing)
+        deleted = []
+
+        def delete(v, cache=cache, deleted=deleted):
+            deleted.append(v.key())
+            cache.remove_pod(v)
+
+        kw = dict(batch_size=8, deterministic=True, delete_fn=delete)
+        if pkg == "ref":
+            sched = RScheduler(cache, queue, enable_preemption=True, commit_plane=True, fold_plane=True,
+                               speculate=False, ingest_plane=False, term_plane=False, columnar_cache=False, **kw)
+        else:
+            sched = Scheduler(cache, queue, device="cpu", **kw)
+        pending[0].affinity = t.Affinity()
+        _anti(pending[0], t, {"app": "zz"})
+        if case == "nominee-recheck":
+            pending[1].nominated_node_name = nodes[0].name
+            queue.add(pending[1])
         queue.add(pending[0])
-    else:
-        pending[1].nominated_node_name = nodes[0].name
-        queue.add(pending[1])
-        _anti(pending[0], PT, {"app": "zz"})
-        queue.add(pending[0])
-    with pytest.raises(NotImplementedError, match="oracle fallback"):
-        sched.schedule_batch()
-    active, backoff, unschedulable = queue.counts()
-    assert active == (1 if case == "victim-search" else 2) and backoff == unschedulable == 0
-    assert cache.pod_count() == len(existing) and sched.stats["victims"] == 0
-    sched.close()
+        assignments, nominations = {}, []
+        for _ in range(6):
+            r = sched.schedule_batch()
+            sched.wait_for_binds()
+            assignments.update(r.assignments)
+            nominations.append(dict(queue.nominated))
+            clock.t += 1.0
+            queue.move_all_to_active()
+        sched.close()
+        out[pkg] = (assignments, deleted, nominations, _counters(sched.stats), sched.stats.get("victims"))
+    assert out["port"][:4] == out["ref"][:4]
+    assignments, deleted, _, counters, victims = out["port"]
+    assert deleted and len(assignments) == (2 if case == "nominee-recheck" else 1)
+    assert victims == len(deleted)
+    if case == "nominee-recheck":
+        assert counters["oracle_rechecks"] > 0
+
+
+@pytest.mark.parametrize("workload,batch", [("mix", 32), ("perf-mix", 256), ("ports20", 16), ("ports21", 8),
+                                            ("ports22", 32), ("terms24", 32), ("terms25", 16), ("anchors", 32),
+                                            ("overflow26", 32), ("fallback27", 32)])
+def test_oracle_drain_matches_reference(workload, batch):
+    """The workloads the port refused before its host oracle, on seeds the
+    other drains do not use, against the reference's default driver
+    (commit and fold planes on, preemption on): the commit-plane mix at
+    batch 32 and at 64 nodes / 800 pods (defers escalating to the host
+    oracle), random preemption clusters with host ports (the nominee
+    re-check), random clusters mixing DoNotSchedule spread, required pod
+    (anti-)affinity and host ports (the slow victim search), required pod
+    affinity to anchors of the same batch, pods and an existing pod whose
+    structures overflow the encoding, and -1 pods beside node rows that fell
+    back out of the device path (the per-pod loop's oracle). The same
+    placements, victims in delete order, nominations after every batch,
+    preempted count and oracle / arbiter counters; the folded banks end
+    equal to a fresh encode."""
+    ra, rv, rn, rp, rst, _ = _preemption_drain("ref", workload, batch=batch)
+    pa, pv, pn, pp, st, sched = _preemption_drain("port", workload, batch=batch)
+    assert (pa, pv, pn, pp) == (ra, rv, rn, rp)
+    assert _counters(st) == _counters(rst)
+    assert st["oracle_places"] + st["oracle_rechecks"] > 0 and len(pa) > 0
+    if workload.startswith("ports") or workload.startswith("terms"):
+        assert pp > 0 and pv
+    if workload == "anchors":
+        assert len(pa) == 64 and st["oracle_places"] > 0
+    m = sched.mirror
+    m.sync()
+    dev, _, _ = m.device_arrays()
+    fresh, _, rows = p_encode(sched.cache.snapshot, vocab=m.vocab, with_images=False)
+    assert rows == m.row_of
+    for k in ("requested", "nonzero_req", "pod_count"):
+        assert np.array_equal(dev[k].numpy(), fresh.arrays()[k]), k
+
+
+def test_late_nomination_takes_the_per_pod_loop_like_the_reference(monkeypatch):
+    """A nomination that appears after a batch's solve (an informer event
+    landing mid-batch) invalidates the solve's nominee fold: the batch takes
+    the per-pod loop, whose host oracle re-checks every pick on the
+    nominated node with the nominee counted and re-places the ones that no
+    longer fit — pod for pod as the reference, with the same counters."""
+    import kubernetes_tpu.ops.pipeline as RPipe
+    from kubernetes_tpu_torch.scheduler import driver as D
+
+    out = {}
+    for pkg, t in (("ref", RT), ("port", PT)):
+        nodes, pending = bench_config2(8, 40, t=t)
+        for p in pending:  # all on the untainted "large" nodes, big enough to crowd one
+            p.tolerations = []
+            p.containers[0].requests[t.RESOURCE_CPU] = t.Quantity.parse("3")
+        nominee = t.Pod(name="nominee", namespace="bench", nominated_node_name="node-1", priority=10,
+                        containers=[t.Container(name="c", requests={t.RESOURCE_CPU: t.Quantity.parse("30")})])
+        cache = (RCache if pkg == "ref" else SchedulerCache)()
+        queue = (RQueue if pkg == "ref" else PriorityQueue)()
+        fill_cache(cache, nodes)
+        for p in pending:
+            queue.add(p)
+        mod, real = (RPipe, RPipe.solve_pipeline) if pkg == "ref" else (D, D.solve_pipeline)
+
+        def solve(*args, _real=real, _queue=queue, _nominee=nominee, **kw):
+            result = _real(*args, **kw)
+            if _nominee.key() not in _queue.nominated:
+                _queue.add(_nominee)
+            return result
+
+        monkeypatch.setattr(mod, "solve_pipeline", solve)
+        if pkg == "ref":
+            sched = RScheduler(cache, queue, batch_size=40, deterministic=True, commit_plane=True, fold_plane=True,
+                               speculate=False, ingest_plane=False, term_plane=False, columnar_cache=False)
+        else:
+            sched = Scheduler(cache, queue, batch_size=40, deterministic=True, device="cpu")
+        first = sched.schedule_batch()
+        sched.wait_for_binds()
+        rest = sched.run_until_empty()
+        sched.wait_for_binds()
+        sched.close()
+        out[pkg] = (first.assignments, rest.assignments, _counters(sched.stats))
+    assert out["port"] == out["ref"]
+    first, rest, counters = out["port"]
+    assert counters["oracle_rechecks"] > 0 and counters["arbiter_batches"] == 0
+    # the picks the solve made on node-1 were re-checked with the nominee
+    # counted and re-placed: node-1 is left to the nominee
+    assert "node-1" not in first.values() and rest.get("bench/nominee") == "node-1"

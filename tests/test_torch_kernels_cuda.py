@@ -4,7 +4,8 @@ output), score, solve (with and without in-batch tracking), match_terms,
 spread_score, selector_spread_score, interpod_filter (every subset of its
 parts), interpod_score (each part and both), inbatch_port_conflict,
 spread_filter, the commit arbiter, the commit fold, the preemption victim
-search and the nominee overlay's usage fold.
+search, the nominee overlay's usage fold and the host oracle's score-row
+gather.
 Needs an NVIDIA card and nvcc:
 
     python -m pytest -m cuda tests/test_torch_kernels_cuda.py
@@ -441,3 +442,28 @@ def test_fold_usage_kernel_equals_plain_and_inverts(cuda):
     assert torch.equal(dreq.cpu(), want[0]) and torch.equal(dpc.cpu(), want[1])
     fold_usage(dreq, dpc, rows.to(cuda), -vecs.to(cuda), -cnt.to(cuda))
     assert torch.equal(dreq.cpu(), requested) and torch.equal(dpc.cpu(), pod_count)
+
+
+@pytest.mark.parametrize("u,n,rows", [
+    (1, 7, [0]),
+    (8, 1031, [5, 5, 0, 7, 5]),
+    (128, 10240, list(range(128))[::-1]),
+    (128, 10240, [3]),
+])
+def test_gather_score_rows_kernel_equals_plain(cuda, u, n, rows):
+    import numpy as np
+
+    rng = np.random.default_rng(u + n)
+    host = rng.integers(-(2**62), 2**62, (u, n), dtype=np.int64)
+    host[0, :2] = (np.iinfo(np.int64).min, np.iinfo(np.int64).max)
+    score = torch.from_numpy(host).to(cuda)
+    before = PP.gather_score_rows.launches
+    got = PP.gather_score_rows(score, rows)
+    assert PP.gather_score_rows.launches == before + 1
+    want = PP.gather_score_rows_plain(score, torch.tensor(rows, dtype=torch.int32, device=cuda))
+    assert got.dtype == torch.int64 and torch.equal(got, want)
+    assert PP.gather_score_rows(score, []).shape == (0, n)
+    assert PP.gather_score_rows.launches == before + 1  # nothing to gather: no launch
+    with pytest.raises(IndexError):
+        PP.gather_score_rows(score, [u])
+

@@ -8,9 +8,9 @@ victim masks, the lexicographic block minimum) against the plain version;
 `fold_usage` against the JAX one (duplicate rows, sentinel pads) and its
 exact inverse; the queue's nominated index, `batch_preempt_device`,
 `_select_victims_fast`, `pick_one_node_for_preemption` and `preempt`
-against the reference package on the same clusters; and the refusal of a
-term-carrying preemptor's victim search. Tolerance: exact equality; every
-value is an integer."""
+against the reference package on the same clusters; and a term-carrying
+preemptor's slow victim search. Tolerance: exact equality; every value is
+an integer."""
 
 import random
 
@@ -320,19 +320,28 @@ def test_host_victim_search_matches_reference(seed):
 
 
 def test_preempt_refuses_term_carrying_preemptor_with_a_victim():
-    """A preemptor with (anti-)affinity terms needs the reference's full
-    predicate chain on every candidate node that holds a victim: refused.
-    With no lower-priority pod anywhere there is no candidate and no
-    refusal, as the reference returns None before that chain."""
-    snap, pending, pdbs = _snapshots(5)["port"]
-    pod = next(p for p in pending if p.priority == 1000)
-    pod.affinity = PT.Affinity(pod_anti_affinity=PT.PodAntiAffinity(required=[PT.PodAffinityTerm(
-        label_selector=PT.LabelSelector(match_labels={"app": "zz"}), topology_key="kubernetes.io/hostname")]))
-    with pytest.raises(NotImplementedError, match="oracle fallback"):
-        PP.preempt(pod, snap, pdbs=pdbs)
-    pod.priority = -1
-    assert PP.preempt(pod, snap, pdbs=pdbs) == (None, [], [])
-    assert PP.batch_preempt_device([pod], snap, pdbs=pdbs) is None
+    """A preemptor with (anti-)affinity terms takes the slow victim search
+    (the full predicate chain on every candidate node that holds a
+    victim): the same node, victims and clear list as the reference; with
+    no lower-priority pod anywhere there is no candidate in either; the
+    device search declines the batch in both."""
+    got = {}
+    for pkg, t, mod in (("ref", RT, RP), ("port", PT, PP)):
+        snap, pending, pdbs = _snapshots(5)[pkg]
+        rows = []
+        for j, pod in enumerate(p for p in pending if p.priority == 1000):
+            pod.affinity = t.Affinity(pod_anti_affinity=t.PodAntiAffinity(required=[t.PodAffinityTerm(
+                label_selector=t.LabelSelector(match_labels={"app": f"a{j % 4}"}),
+                topology_key="kubernetes.io/hostname")]))
+            node, victims, clear = mod.preempt(pod, snap, pdbs=pdbs)
+            rows.append((node, [v.key() for v in victims], clear))
+            rows.append(mod.batch_preempt_device([pod], snap, pdbs=pdbs))
+            pod.priority = -1
+            rows.append(mod.preempt(pod, snap, pdbs=pdbs))
+        got[pkg] = rows
+    assert got["port"] == got["ref"]
+    assert any(r[0] is not None for r in got["port"][::3])
+    assert all(r is None for r in got["port"][1::3]) and all(r == (None, [], []) for r in got["port"][2::3])
 
 
 def test_bench_config6_priority_matches_the_reference_admission():
