@@ -18,8 +18,9 @@ batches of 4,096, and on the config-6 workload (500 nodes each holding 7
 bound priority-0 pods of 4 cores, 2,000 pending priority-1000 pods of 6
 cores that land only by preemption) and on config 3-hard (config 3 with
 every constraint DoNotSchedule) on the full 10,000-node cluster, where
-the commit arbiter's defers escalate to the host oracle — and checks what
-they placed. Phases:
+the commit arbiter's defers escalate to the host oracle, and on the
+config-5 gang workload (2,000 nodes, 1,000 groups of 64 pods placed all
+or nothing) — and checks what they placed. Phases:
 
   1. device     card name, count, power limit
   2. build      nvcc seconds and the -Xptxas -v register/shared lines
@@ -58,7 +59,11 @@ they placed. Phases:
                 repeated rows, N not a multiple of the block, int64
                 extremes) and at the config-3-hard shapes (U = 128,
                 N = 10,240, K = 128), one torch.index_select as its
-                library yardstick
+                library yardstick; solve_gang (both passes in one launch),
+                deterministic and with tie-noise, on the pipeline's mask and
+                score of the first config-5 batch (U=64, N=2048, B=4096, 64
+                groups) and at a tight shape (one more pod a node: most
+                groups drop), timed through its wrapper
   4. parity     config 2, config 3 and config 4 at 1/10 scale through
                 Scheduler with the commit plane on (the arbiter and the
                 fold), on cuda and on cpu, and with it off on cuda (config 3 without
@@ -85,7 +90,15 @@ they placed. Phases:
                 and config 3-hard at 100 / 1,000 / 128 with the commit
                 plane off (the per-pod loop): identical placements,
                 victims in order, nominations after every batch and the
-                oracle and arbiter counters
+                oracle and arbiter counters; then config 5 at 1/10 (200
+                nodes, 100 groups of 64, batch 1,024, a main path: the gang
+                solve), a tight random gang cluster (40 nodes, 60 groups, 80
+                ungrouped pods, batch 64, three rounds on a stepped clock:
+                dropped groups and host rollbacks; the same per-batch
+                counts, queue and counters, every group all or nothing, no
+                assume left beyond the placed pods; the groups never placed
+                are printed) and config 1 at full size (500 nodes, 5,000
+                pods): identical placements on cuda and cpu
   5. drain      config 2 at full size; then config 3 at full size, without
                 and with Services; then config 4 at full size, all with the
                 commit plane on (the default): every pod placed, no node
@@ -115,13 +128,18 @@ they placed. Phases:
                 4,096): every pod placed, no node over its limits, no zone
                 skew above max_skew, the device node and signature banks
                 equal to a fresh encode; the defers, escalations and
-                oracle counters
-  6. kernels    one JSON line: per kernel (the fifteen and the tracked
+                oracle counters; then config 5 at full size (2,000 nodes,
+                64,000 pods, batch 4,096): every pod placed, no node over
+                its limits, every batch a gang batch and no rollback, the
+                device node and signature banks equal to a fresh encode;
+                stages, pods/s and the mirror's rebuild count
+  6. kernels    one JSON line: per kernel (the sixteen and the tracked
                 solve) its launches in the main-path drains (the counts are
                 set to 0 before each drain and read after it: config 3-hard
-                and config 6 at 1/10, the oracle drains on cuda and the
-                eight full drains), error, times, bound and the library
-                yardstick where one PyTorch call computes the function
+                and config 6 at 1/10, the oracle drains, config 5 at 1/10,
+                the tight gang drain and config 1 on cuda, and the nine full
+                drains), error, times, bound and the library yardstick where
+                one PyTorch call computes the function
   7. result     the last line: {"ok": true, "device": {...}}
 
 Any failed phase exits non-zero before the result line. Without a CUDA
@@ -168,6 +186,11 @@ CONFIG6_PREEMPTORS = 2000
 # overlay); at 1/10 the same in batches of 64
 CONFIG6_BATCH = 1024
 CONFIG6_SMALL_BATCH = 64
+CONFIG1_NODES = 500
+CONFIG1_PODS = 5000
+CONFIG5_NODES = 2000
+CONFIG5_GROUPS = 1000  # of 64 pods each
+GANG_BATCH = 64  # the tight gang drain's batch: groups straddle it
 
 
 def log(msg: str) -> None:
@@ -511,6 +534,17 @@ def tracked_solve_work(mask, sig, pod_valid, pa, free0, count0, allowed, nz0, or
     slots = len(set(inb["topo_slot"][anti].tolist()))
     nbytes_ += tt * (1 + 4 + 4) + m_bb.numel() + pconf.numel() + n * 4 * slots
     return nbytes_, ops
+
+
+def gang_work(mask, sig, pod_valid, alive, pa, free0, count0, allowed, nz0, order, group):
+    """(bytes, integer operations) of csrc/solver.cu's gang kernel: the
+    solve's work for pass 1 over the valid pods and for pass 2 over the
+    pods left alive, plus the O(B) flag passes (the group ids read, gang_ok
+    written; three operations a position)."""
+    b1, o1 = solve_work(mask, sig, pod_valid, pa, free0, count0, allowed, nz0, order)
+    b2, o2 = solve_work(mask, sig, alive, pa, free0, count0, allowed, nz0, order)
+    b = group.numel()
+    return b1 + b2 + b * (4 + 1), o1 + o2 + 3 * b
 
 
 def spread_filter_work(na, ea, ta, m_sig_ns, u):
@@ -1188,6 +1222,68 @@ def phase_gather_kernels():
                                                 time_it=True, seed=4)}
 
 
+def compare_gang(enc, label, tight: bool):
+    """Hold the gang kernel against its plain version, deterministic and
+    with tie-noise, on the pipeline's own mask and score of one config-5
+    batch (every pod of group g on positions 64 g .. 64 g + 63); `tight`
+    lets each node take one more pod only, so pass 1 leaves most groups
+    short and they drop. Times (through the wrapper: the kernel updates its
+    carry in place, so each launch takes fresh copies), the plain
+    version's time and the bound."""
+    from kubernetes_tpu_torch.ops import pipeline as PP
+    from kubernetes_tpu_torch.ops import solver as SO
+
+    na, pa, sig = enc["na"], enc["pa"], enc["sig"]
+    mask, score = PP.mask_and_score(na, pa, enc["ids"])
+    b = sig.shape[0]
+    dev = sig.device
+    pod_valid = torch.ones(b, dtype=torch.bool, device=dev)
+    order = SO.pop_order(torch.zeros(b, dtype=torch.int32, device=dev), torch.arange(b, dtype=torch.int32, device=dev),
+                         pod_valid)
+    group = (torch.arange(b, device=dev) // 64).to(torch.int32)
+    free0 = na["alloc"] - na["requested"]
+    count0 = na["pod_count"].long()
+    allowed = count0 + 1 if tight else na["allowed_pods"].long()
+    nz0 = na["nonzero_req"]
+    args = (mask, score, pa["req"], free0, count0, allowed, order, group)
+    err = 0
+    for det in (True, False):
+        kw = dict(deterministic=det, req_any=pa["req_any"], sig=sig, pod_valid=pod_valid, return_carry=True,
+                  nz0=nz0, scoring_req=pa["scoring_req"])
+        key = SO.prng_key_data(7 + 2**32)
+        ka, kok, kc = SO.solve_gang(*args, key, **kw)
+        pa_, pok, pc = SO.solve_gang_plain(*args, key, **kw)
+        err = max(err, int((ka - pa_).abs().max()), int((kok != pok).sum()),
+                  *(int((x - y).abs().max()) for x, y in zip(kc, pc)))
+    check(err == 0, f"[{label}] gang kernel differs from its plain version by {err}")
+    dropped = int((~kok).sum()) // 64
+    check((dropped > 0) == tight, f"[{label}] {dropped} groups dropped")
+    kw = dict(deterministic=False, req_any=pa["req_any"], sig=sig, pod_valid=pod_valid, return_carry=True, nz0=nz0,
+              scoring_req=pa["scoring_req"])
+    st = {"max_abs_err": err, "dropped_groups": dropped, "placed": int((ka >= 0).sum())}
+    st["ms"] = cuda_ms(lambda: SO.solve_gang(*args, key, **kw), 5)
+    st["plain_ms"] = cuda_ms(lambda: SO.solve_gang_plain(*args, key, **kw), 2)
+    st["bound"] = bound(gang_work(mask, sig, pod_valid, pod_valid & kok, pa, free0, count0, allowed, nz0, order,
+                                  group))
+    log(f"[kernels] {label}: U={pa['valid'].shape[0]} N={na['valid'].shape[0]} B={b}: solve_gang exact "
+        f"({st['placed']} placed, {dropped} of {b // 64} groups dropped); kernel {st['ms']:.4f} ms (through its "
+        f"wrapper), plain {st['plain_ms']:.4f} ms, bound {st['bound'][0]:.6f} ms ({st['bound'][1]})")
+    return st
+
+
+def phase_gang_kernels():
+    """solve_gang at the config-5 shapes (the first 4,096-pod batch of the
+    full drain: 64 groups, U = 64 spec rows, N = 2,048) and at the tight
+    shape with drops."""
+    from kubernetes_tpu_torch.models.clusters import bench_config5
+
+    nodes, pods = bench_config5(CONFIG5_NODES, BATCH // 64)
+    enc = encode(nodes, [], pods, torch.device("cuda"))
+    st = compare_gang(enc, "config-5", tight=False)
+    st["tight"] = compare_gang(enc, "config-5 tight", tight=True)
+    return {"solve_gang": st}
+
+
 def phase_preempt_kernels():
     """preempt_batch on every branch and at the config-6 shapes; fold_usage
     likewise. Returns {kernel: stats}."""
@@ -1293,6 +1389,7 @@ def phase_kernels():
     stats.update(compare_commit(enc4, "config-4", time_it=True, parts=("arbitrate",)))
     stats.update(phase_preempt_kernels())
     stats.update(phase_gather_kernels())
+    stats.update(phase_gang_kernels())
     return stats
 
 
@@ -1320,19 +1417,30 @@ def kernel_counters():
         "spread_filter": (TO.spread_filter, "launches"), "arbitrate": (A.arbitrate, "launches"),
         "fold_commit_banks": (FO.fold_commit_banks, "launches"),
         "preempt_batch": (PR.preempt_batch, "launches"), "fold_usage": (FO.fold_usage, "launches"),
-        "gather_score_rows": (PP.gather_score_rows, "launches"),
+        "gather_score_rows": (PP.gather_score_rows, "launches"), "solve_gang": (SO.solve_gang, "launches"),
     }
 
 
 def drain(device, workload, n_nodes, n_pods, batch, deterministic, seed=0, services=False, planes=True,
           hard=False):
-    from kubernetes_tpu_torch.models.clusters import bench_config2, bench_config3, bench_config4, fill_cache
+    from kubernetes_tpu_torch.models.clusters import (
+        bench_config1,
+        bench_config2,
+        bench_config3,
+        bench_config4,
+        bench_config5,
+        fill_cache,
+    )
     from kubernetes_tpu_torch.scheduler.driver import Scheduler
     from kubernetes_tpu_torch.state.cache import SchedulerCache
     from kubernetes_tpu_torch.state.queue import PriorityQueue
 
     fn = None
-    if workload == "config2":
+    if workload == "config1":
+        nodes, pods = bench_config1(n_nodes, n_pods)
+    elif workload == "config5":
+        nodes, pods = bench_config5(n_nodes, n_pods // 64)
+    elif workload == "config2":
         nodes, pods = bench_config2(n_nodes, n_pods)
     elif workload == "config4":
         nodes, pods = bench_config4(n_nodes, n_pods)
@@ -1430,6 +1538,99 @@ def drain6(device, n_nodes, n_preemptors, batch, planes=True, stepped=False):
     check(not bad_victims, f"config-6 drain: bad victims {bad_victims[:5]}")
     out.update(sched=sched, nodes=nodes, existing=existing, pending=pending, victims=victims)
     return out
+
+
+def gang_drain(device, batch, deterministic, seed=11):
+    """Drain a tight random gang cluster (40 nodes, 60 groups, 80
+    ungrouped pods) in three rounds on one stepped clock: batches until one
+    does nothing, then the clock steps past the backoff and the
+    unschedulable pods move back. Returns what it saw."""
+    from kubernetes_tpu_torch.models.clusters import fill_cache, random_gang_cluster
+    from kubernetes_tpu_torch.scheduler.driver import Scheduler, pod_group_name
+    from kubernetes_tpu_torch.state.cache import SchedulerCache
+    from kubernetes_tpu_torch.state.queue import PriorityQueue
+
+    nodes, pods = random_gang_cluster(seed, n_nodes=40, n_groups=60, n_solo=80)
+    clock = StepClock()
+    cache, queue = SchedulerCache(), PriorityQueue(now=clock)
+    fill_cache(cache, nodes)
+    for p in pods:
+        queue.add(p)
+    sched = Scheduler(cache, queue, batch_size=batch, deterministic=deterministic, seed=seed, device=device)
+    out = {"assignments": {}, "batches": []}
+    t0 = time.perf_counter()
+    for _ in range(3):
+        for _ in range(1000):
+            r = sched.schedule_batch()
+            sched.wait_for_binds()
+            if not (r.scheduled or r.unschedulable or r.deferred):
+                break
+            out["batches"].append((r.scheduled, r.unschedulable, r.preempted))
+            out["assignments"].update(r.assignments)
+        clock.t += 30.0
+        queue.move_all_to_active()
+    out["wall"] = time.perf_counter() - t0
+    sched.close()
+    sizes, placed = {}, {}
+    for p in pods:
+        g = pod_group_name(p)
+        if g:
+            sizes[g] = sizes.get(g, 0) + 1
+            placed[g] = placed.get(g, 0) + (p.key() in out["assignments"])
+    partial = sorted(g for g in sizes if 0 < placed[g] < sizes[g])
+    check(not partial, f"tight gang drain: groups placed in part {partial}")
+    assumed = sorted(p.key() for p in pods if cache.is_assumed(p.key()))
+    check(assumed == sorted(out["assignments"]), "tight gang drain: an assume is left beside the placed pods")
+    out.update(sched=sched, queue=queue.counts(), dropped=sorted(g for g in sizes if not placed[g]),
+               groups=len(sizes), counters={k: sched.stats[k] for k in ("gang_batches", "gang_rollbacks",
+                                                                        "oracle_rechecks", "light_rechecks",
+                                                                        "oracle_places")})
+    return out
+
+
+def phase_gang_parity():
+    """Config 5 at 1/10 and the tight gang drain (main paths on cuda), and
+    config 1 at full size, each on cuda and cpu: identical placements."""
+    launches = {}
+
+    def add(got):
+        for k, v in got.items():
+            launches[k] = launches.get(k, 0) + v
+
+    n5, p5 = CONFIG5_NODES // 10, CONFIG5_GROUPS // 10 * 64
+    (gsched, _, pods, gpu, tg), got = run_main_path("config-5 /10", ["filter_mask", "score_matrix", "solve_gang"],
+                                                    lambda: drain("cuda", "config5", n5, p5, 1024, False, seed=3))
+    add(got)
+    _, _, _, cpu, tc = drain("cpu", "config5", n5, p5, 1024, False, seed=3)
+    check(gpu.scheduled == cpu.scheduled == p5 and gpu.assignments == cpu.assignments,
+          f"config-5 /10: {gpu.scheduled}/{cpu.scheduled} placed, or placed differently on cuda and cpu")
+    log(f"[parity] config-5 /10 ({n5} nodes, {p5 // 64} groups of 64, batch 1024, tie-noise): identical "
+        f"placements on cuda and cpu ({gpu.scheduled} pods, {gsched.stats['gang_batches']} gang batches; cuda "
+        f"{tg:.2f}s, cpu {tc:.2f}s); launches {got}")
+    gpu, got = run_main_path("tight gang", ["filter_mask", "score_matrix", "solve_gang"],
+                             lambda: gang_drain("cuda", GANG_BATCH, False))
+    add(got)
+    cpu = gang_drain("cpu", GANG_BATCH, False)
+    for key in ("assignments", "batches", "queue", "dropped", "counters"):
+        check(gpu[key] == cpu[key], f"tight gang drain: {key} differ on cuda and cpu")
+    check(gpu["dropped"] and gpu["counters"]["gang_rollbacks"] > 0,
+          f"tight gang drain: dropped {gpu['dropped']}, counters {gpu['counters']}")
+    log(f"[parity] tight gang (40 nodes, {gpu['groups']} groups, 80 ungrouped, batch {GANG_BATCH}, tie-noise, "
+        f"stepped clock, three rounds): identical placements, per-batch counts, queue and counters on cuda and "
+        f"cpu ({len(gpu['assignments'])} placed; {gpu['counters']}; queue {gpu['queue']}; cuda {gpu['wall']:.2f}s, "
+        f"cpu {cpu['wall']:.2f}s); every group all or nothing; {len(gpu['dropped'])} groups never placed: "
+        f"{gpu['dropped']}; launches {got}")
+    need = ["filter_mask", "score_matrix", "solve_greedy", "fold_commit_banks"]
+    (gsched, nodes, pods, gpu, tg), got = run_main_path("config-1", need, lambda: drain(
+        "cuda", "config1", CONFIG1_NODES, CONFIG1_PODS, BATCH, False, seed=3))
+    add(got)
+    _, _, _, cpu, tc = drain("cpu", "config1", CONFIG1_NODES, CONFIG1_PODS, BATCH, False, seed=3)
+    check(gpu.assignments == cpu.assignments, "config-1: placed differently on cuda and cpu")
+    verify_capacity(gsched, pods, gpu)
+    log(f"[parity] config-1 full ({CONFIG1_NODES} nodes, {CONFIG1_PODS} pods, batch {BATCH}, tie-noise): identical "
+        f"placements on cuda and cpu, every pod placed, no node over its limits ({gsched.stats['batches']} batches; "
+        f"cuda {tg:.2f}s, cpu {tc:.2f}s); launches {got}")
+    return launches
 
 
 ORACLE_COUNTERS = ("oracle_rechecks", "light_rechecks", "oracle_places", "arbiter_batches", "arbiter_defer",
@@ -1917,6 +2118,27 @@ def phase_drain(smi, total):
         f"{skew} (max_skew 1), device node bank and signature bank ({n_sigs} signatures) == fresh host encode; "
         f"arbiter_defer {st['arbiter_defer']}, arbiter_escalated {st['arbiter_escalated']}, oracle_places "
         f"{st['oracle_places']}, oracle_rechecks {st['oracle_rechecks']}; launches {launches}")
+    # config 5 at full size: every batch a gang batch, every pod through
+    # the per-pod loop
+    torch.cuda.reset_peak_memory_stats()
+    n5 = CONFIG5_GROUPS * 64
+    (sched, nodes, pods, res, wall), launches = run_main_path(
+        "config-5", ["filter_mask", "score_matrix", "solve_gang"],
+        lambda: drain("cuda", "config5", CONFIG5_NODES, n5, BATCH, deterministic=False))
+    add(launches)
+    verify_capacity(sched, pods, res)
+    verify_node_bank(sched)
+    n_sigs = verify_sig_bank(sched)
+    st = sched.stats
+    check(st["gang_batches"] == st["batches"] == launches["solve_gang"] and st["gang_rollbacks"] == 0,
+          f"config-5: {st['gang_batches']} gang batches of {st['batches']}, {launches['solve_gang']} gang solves, "
+          f"{st['gang_rollbacks']} rollbacks")
+    log_drain(f"config-5 full ({CONFIG5_NODES} nodes, {CONFIG5_GROUPS} groups of 64, batch {BATCH})", sched, res,
+              wall, smi)
+    log(f"[drain] config-5: every group placed whole, no node over its limits, device node bank and signature "
+        f"bank ({n_sigs} signatures) == fresh host encode; {st['gang_batches']} gang batches, mirror rebuilds "
+        f"{sched.mirror.rebuild_count}, oracle_rechecks {st['oracle_rechecks']}, light_rechecks "
+        f"{st['light_rechecks']}, oracle_places {st['oracle_places']}; launches {launches}")
     for batch in (BATCH, CONFIG6_BATCH):
         need = ["filter_mask", "score_matrix", "solve_greedy", "fold_commit_banks", "preempt_batch"]
         if batch < CONFIG6_PREEMPTORS:
@@ -1984,6 +2206,8 @@ def main() -> int:
     launches = dict(phase_parity())
     for k, v in phase_oracle_parity().items():
         launches[k] = launches.get(k, 0) + v
+    for k, v in phase_gang_parity().items():
+        launches[k] = launches.get(k, 0) + v
     phase_drain(smi, launches)
     sources = {
         "filter_mask": ("kubernetes_tpu_torch/csrc/filters.cu", "kubernetes_tpu/ops/filters.py:216"),
@@ -2002,6 +2226,7 @@ def main() -> int:
         "preempt_batch": ("kubernetes_tpu_torch/csrc/preempt.cu", "kubernetes_tpu/ops/preempt.py:63"),
         "fold_usage": ("kubernetes_tpu_torch/csrc/fold.cu", "kubernetes_tpu/ops/fold.py:74"),
         "gather_score_rows": ("kubernetes_tpu_torch/csrc/gather.cu", "kubernetes_tpu/ops/pipeline.py:374"),
+        "solve_gang": ("kubernetes_tpu_torch/csrc/solver.cu", "kubernetes_tpu/ops/solver.py:366"),
     }
     kernels = []
     for kname, (src, ref) in sources.items():

@@ -1,2 +1,3 @@
-"""The commit plane: the device commit arbiter (`arbiter`) and the fold
-planner of the resident-state plane (`fold`)."""
+"""The commit plane: the device commit arbiter (`arbiter`), the fold
+planner of the resident-state plane (`fold`) and the gang commit's
+rollback record (`apply`)."""

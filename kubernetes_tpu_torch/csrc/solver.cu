@@ -32,6 +32,8 @@
 // [U, N]; the node's bucket is read from the node bank's dense labels at
 // the term's key slot, so no [TT, N] bucket table exists.
 //
+// The walk is a __device__ function: solve_gang_kernel (below) runs it twice.
+//
 // Bound: the walk is serial over B pods (one barrier-separated step each);
 // the bytes it must move (mask and score once, the residuals) are far
 // below what a 1024-thread block moves in that many steps.
@@ -100,7 +102,11 @@ __device__ __forceinline__ bool better(int64_t s1, uint32_t k1, int32_t n1,
   return n1 < n0;
 }
 
-__global__ void __launch_bounds__(SOLVE_THREADS) solve_greedy_kernel(const SolveArgs a) {
+// The walk over the B pods in pop order, run by one block of SOLVE_THREADS
+// threads. It reads and updates a.free_ / a.count / a.nz in place and
+// writes a.assign; it ends with the threads possibly apart (a trailing
+// invalid pod has no barrier), so a caller that reads its results syncs.
+__device__ __forceinline__ void greedy_walk(const SolveArgs& a) {
   __shared__ int64_t w_score[NUM_WARPS];
   __shared__ uint32_t w_key[NUM_WARPS];
   __shared__ int32_t w_node[NUM_WARPS];
@@ -239,6 +245,68 @@ __global__ void __launch_bounds__(SOLVE_THREADS) solve_greedy_kernel(const Solve
   }
 }
 
+__global__ void __launch_bounds__(SOLVE_THREADS) solve_greedy_kernel(const SolveArgs a) { greedy_walk(a); }
+
+// All-or-nothing gang solve (kubernetes_tpu/ops/solver.py:solve_gang), both
+// passes in one launch of one block: the walk with the first split key on
+// a scratch carry (free1 / count1 / nz1, copies of the batch-start
+// residuals) into `first`; the group-fail flags, fail[group[p]] = 1 for each
+// grouped position pass 1 left at -1 (padding and invalid pods included, as
+// the reference's first < 0 does; ungrouped pods never flag); alive[p] =
+// pod_valid[p] && !dropped[p]; the walk with the second key on the returned
+// carry (free / count / nz, also copies of the batch-start residuals) with
+// alive as pod_valid; then assign = dropped ? -1 : second and gang_ok =
+// !dropped. No in-batch tracking, as the reference's solve_gang has none.
+//
+// Bound: two serial walks (the solve's bound twice) plus O(B) for the
+// flags; the flag passes are strided over the block's 1024 threads.
+struct GangArgs {
+  SolveArgs walk;        // pass 2's view: carry free_/count/nz, assign = the output
+  const int32_t* group;  // [B] group id in [-1, B)
+  int32_t* first;        // [B] scratch: pass 1's assignment
+  int64_t* free1;        // [N, R] scratch carry of pass 1
+  int64_t* count1;       // [N]
+  int64_t* nz1;          // [N, 2]
+  int32_t* fail;         // [B] scratch: group-fail flags (zeroed here)
+  uint8_t* alive;        // [B] scratch: pass 2's pod_valid
+  uint8_t* gang_ok;      // [B] out
+  uint32_t seed1, seed2; // tie-noise seeds of the two split keys
+};
+
+__global__ void __launch_bounds__(SOLVE_THREADS) solve_gang_kernel(const GangArgs g) {
+  const int tid = threadIdx.x;
+  const int B = g.walk.B;
+  SolveArgs p1 = g.walk;
+  p1.free_ = g.free1;
+  p1.count = g.count1;
+  p1.nz = g.nz1;
+  p1.assign = g.first;
+  p1.seed = g.seed1;
+  for (int p = tid; p < B; p += SOLVE_THREADS) g.fail[p] = 0;
+  greedy_walk(p1);
+  __syncthreads();
+  for (int p = tid; p < B; p += SOLVE_THREADS) {
+    const int32_t grp = g.group[p];
+    if (grp >= 0 && g.first[p] < 0) g.fail[grp] = 1;  // every writer stores 1
+  }
+  __syncthreads();
+  for (int p = tid; p < B; p += SOLVE_THREADS) {
+    const int32_t grp = g.group[p];
+    const bool dropped = grp >= 0 && g.fail[grp] != 0;
+    g.alive[p] = (g.walk.pod_valid[p] && !dropped) ? 1 : 0;
+    g.gang_ok[p] = dropped ? 0 : 1;
+  }
+  __syncthreads();
+  SolveArgs p2 = g.walk;
+  p2.pod_valid = g.alive;
+  p2.seed = g.seed2;
+  greedy_walk(p2);
+  __syncthreads();
+  for (int p = tid; p < B; p += SOLVE_THREADS) {
+    if (!g.gang_ok[p]) g.walk.assign[p] = -1;
+  }
+}
+
 extern "C" int ktpu_solve_greedy(const SolveArgs* args, cudaStream_t stream) {
   if (args->B > 0) {
     const size_t bytes = args->track ? (2 * (size_t)args->TT + (size_t)args->U) * sizeof(int32_t) : 0;
@@ -249,5 +317,11 @@ extern "C" int ktpu_solve_greedy(const SolveArgs* args, cudaStream_t stream) {
     }
     solve_greedy_kernel<<<1, SOLVE_THREADS, bytes, stream>>>(*args);
   }
+  return (int)cudaGetLastError();
+}
+
+extern "C" int ktpu_solve_gang(const GangArgs* args, cudaStream_t stream) {
+  if (args->walk.track) return (int)cudaErrorInvalidValue;  // the gang solve tracks nothing
+  if (args->walk.B > 0) solve_gang_kernel<<<1, SOLVE_THREADS, 0, stream>>>(*args);
   return (int)cudaGetLastError();
 }

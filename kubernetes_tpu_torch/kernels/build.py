@@ -49,7 +49,7 @@ ENTRY_POINTS = (
     "ktpu_match_terms", "ktpu_spread_score", "ktpu_selector_spread_score",
     "ktpu_interpod_filter", "ktpu_interpod_score", "ktpu_inbatch_port_conflict",
     "ktpu_spread_filter", "ktpu_arbitrate", "ktpu_fold_commit_banks",
-    "ktpu_preempt_batch", "ktpu_fold_usage", "ktpu_gather_score_rows",
+    "ktpu_preempt_batch", "ktpu_fold_usage", "ktpu_gather_score_rows", "ktpu_solve_gang",
 )
 
 _lock = threading.Lock()

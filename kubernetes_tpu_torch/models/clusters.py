@@ -5,6 +5,8 @@ Every builder takes the API types module to build with — this package's
 the port and for the reference package (whose types have the same
 constructors), and the two can be held pod for pod against each other.
 
+* `bench_config1` — bench.py config 1 (500 nodes / 5,000 pods at scale
+  1): resources only.
 * `bench_config2` — the scheduler_perf-style config 2 of the repository's
   bench.py (5,000 nodes / 50,000 pods at scale 1): NodeResourcesFit +
   TaintToleration + NodeAffinity.
@@ -17,6 +19,10 @@ constructors), and the two can be held pod for pod against each other.
   pods in 20 apps: every 10th pod with a required hostname anti-affinity
   against its own `exclusive` label, the rest with a preferred zone
   affinity to their own app).
+* `bench_config5` — bench.py config 5 (2,000 nodes / 1,000 gang groups of
+  64 pods at scale 1). `random_gang_cluster` is a tight seeded gang
+  workload whose groups do not all fit: dropped groups, min-available,
+  anti-affine members whose groups roll back on the host, ungrouped pods.
 * `bench_config6` — bench.py config 6 (500 nodes of 32 cores, each
   holding 7 bound priority-0 pods of 4 cores; 2,000 pending priority-1000
   pods of 6 cores / 2Gi that land only by preemption).
@@ -48,6 +54,7 @@ from typing import List, Optional, Tuple
 import numpy as np
 
 from ..api import types as port_types
+from ..scheduler.driver import POD_GROUP_LABEL, POD_GROUP_MIN_AVAILABLE
 
 TAINT_KEYS = ("dedicated", "gpu", "spot")
 EFFECTS = ("NoSchedule", "PreferNoSchedule", "NoExecute")
@@ -57,6 +64,31 @@ GPU = "example.com/gpu"
 ZONE_KEY = "failure-domain.beta.kubernetes.io/zone"
 HOST_KEY = "kubernetes.io/hostname"
 BENCH_ZONES = tuple(f"zone-{i}" for i in range(8))  # bench.py ZONES
+
+
+# --- bench.py config 1 ------------------------------------------------------
+
+def _bench_pod(t: ModuleType, i: int, cpu: str = "100m", labels: Optional[dict] = None):
+    """bench.py mk_pod: pod-<i> in namespace bench, one container
+    requesting `cpu` and 256Mi."""
+    return t.Pod(
+        name=f"pod-{i}",
+        namespace="bench",
+        labels=labels if labels is not None else {"app": f"svc-{i % 50}"},
+        containers=[t.Container(name="c", requests={
+            t.RESOURCE_CPU: t.Quantity.parse(cpu),
+            t.RESOURCE_MEMORY: t.Quantity.parse("256Mi"),
+        })],
+    )
+
+
+def bench_config1(n_nodes: int, n_pods: int, t: ModuleType = port_types) -> Tuple[list, list]:
+    """bench.py cfg1_resources: untainted nodes of 32 cores / 256Gi / 110
+    pods; pods of 100m, 250m or 500m (by index mod 3) and 256Mi in 50 apps.
+    Resources only."""
+    nodes = [_bench_node(t, i, taint=False) for i in range(n_nodes)]
+    pods = [_bench_pod(t, i, cpu=("100m", "250m", "500m")[i % 3]) for i in range(n_pods)]
+    return nodes, pods
 
 
 # --- bench.py config 2 ------------------------------------------------------
@@ -80,15 +112,7 @@ def bench_config2(n_nodes: int, n_pods: int, t: ModuleType = port_types) -> Tupl
     nodes = [_bench_node(t, i, taint=(i % 4 == 0)) for i in range(n_nodes)]
     pods = []
     for i in range(n_pods):
-        p = t.Pod(
-            name=f"pod-{i}",
-            namespace="bench",
-            labels={"app": f"svc-{i % 50}"},
-            containers=[t.Container(name="c", requests={
-                t.RESOURCE_CPU: t.Quantity.parse("100m"),
-                t.RESOURCE_MEMORY: t.Quantity.parse("256Mi"),
-            })],
-        )
+        p = _bench_pod(t, i)
         if i % 2 == 0:
             p.tolerations = [t.Toleration(key="dedicated", operator="Equal", value="batch", effect="NoSchedule")]
         p.affinity = t.Affinity(node_affinity=t.NodeAffinity(required=t.NodeSelector(
@@ -124,20 +148,13 @@ def bench_config3(n_nodes: int, n_pods: int, t: ModuleType = port_types, service
     pods = []
     for i in range(n_pods):
         app = f"svc-{i % 100}"
-        pods.append(t.Pod(
-            name=f"pod-{i}",
-            namespace="bench",
-            labels={"app": app},
-            containers=[t.Container(name="c", requests={
-                t.RESOURCE_CPU: t.Quantity.parse("100m"),
-                t.RESOURCE_MEMORY: t.Quantity.parse("256Mi"),
-            })],
-            topology_spread_constraints=[t.TopologySpreadConstraint(
-                max_skew=1, topology_key=ZONE_KEY,
-                when_unsatisfiable="DoNotSchedule" if hard else "ScheduleAnyway",
-                label_selector=t.LabelSelector(match_labels={"app": app}),
-            )],
-        ))
+        p = _bench_pod(t, i, labels={"app": app})
+        p.topology_spread_constraints = [t.TopologySpreadConstraint(
+            max_skew=1, topology_key=ZONE_KEY,
+            when_unsatisfiable="DoNotSchedule" if hard else "ScheduleAnyway",
+            label_selector=t.LabelSelector(match_labels={"app": app}),
+        )]
+        pods.append(p)
     fn = (lambda p: services_selectors(p, t)) if services else None
     return nodes, pods, fn
 
@@ -198,15 +215,7 @@ def bench_config4(n_nodes: int, n_pods: int, t: ModuleType = port_types) -> Tupl
     pods = []
     for i in range(n_pods):
         app = f"svc-{i % 20}"
-        p = t.Pod(
-            name=f"pod-{i}",
-            namespace="bench",
-            labels={"app": app},
-            containers=[t.Container(name="c", requests={
-                t.RESOURCE_CPU: t.Quantity.parse("100m"),
-                t.RESOURCE_MEMORY: t.Quantity.parse("256Mi"),
-            })],
-        )
+        p = _bench_pod(t, i, labels={"app": app})
         if i % 10 == 0:
             p.labels["exclusive"] = app
             p.affinity = t.Affinity(pod_anti_affinity=t.PodAntiAffinity(required=[t.PodAffinityTerm(
@@ -217,6 +226,84 @@ def bench_config4(n_nodes: int, n_pods: int, t: ModuleType = port_types) -> Tupl
                     label_selector=t.LabelSelector(match_labels={"app": app}), topology_key=ZONE_KEY))]))
         pods.append(p)
     return nodes, pods
+
+
+# --- bench.py config 5 ------------------------------------------------------
+
+def bench_config5(n_nodes: int, n_groups: int, t: ModuleType = port_types) -> Tuple[list, list]:
+    """bench.py cfg5_gang: untainted nodes of 32 cores / 256Gi / 110 pods;
+    `n_groups` gang groups of 64 pods of 100m / 256Mi, every pod of group g
+    labelled app=gang-<g> and with the PodGroup label gang-<g>."""
+    nodes = [_bench_node(t, i, taint=False) for i in range(n_nodes)]
+    pods = []
+    for g in range(n_groups):
+        for m in range(64):
+            pods.append(_bench_pod(t, g * 64 + m, labels={"app": f"gang-{g}", POD_GROUP_LABEL: f"gang-{g}"}))
+    return nodes, pods
+
+
+def random_gang_cluster(seed: int, n_nodes: int = 10, n_groups: int = 12, n_solo: int = 20,
+                        t: ModuleType = port_types) -> Tuple[list, list]:
+    """A tight seeded gang workload whose groups together ask for more than
+    the cluster holds, so that some groups drop: nodes of 2-4 cores and
+    6-10 pods over three zones; groups of 2-9 members of 250m-1000m (one
+    request per group), some with priorities, some declaring a
+    min-available above or equal to their size (by label or annotation),
+    some whose members carry a required hostname anti-affinity against
+    their own group (one member per node: larger groups fail on the host
+    and roll back) and some whose members are selected by another group's
+    anti term; and ungrouped pods between them. Returns (nodes, pods) in
+    enqueue order."""
+    rng = np.random.default_rng(seed)
+    nodes = []
+    for i in range(n_nodes):
+        alloc = {
+            t.RESOURCE_CPU: t.Quantity.parse(f"{int(rng.integers(2, 5)) * 1000}m"),
+            t.RESOURCE_MEMORY: t.Quantity.parse("8Gi"),
+            t.RESOURCE_PODS: t.Quantity.parse(int(rng.integers(6, 11))),
+        }
+        nodes.append(t.Node(name=f"n{i}", labels={HOST_KEY: f"n{i}", ZONE_KEY: ZONES[i % len(ZONES)]},
+                            allocatable=alloc, capacity=dict(alloc)))
+    members = []
+    for g in range(n_groups):
+        size = int(rng.integers(2, 10))
+        cpu = int(_pick(rng, (250, 500, 750, 1000)))
+        prio = int(_pick(rng, (0, 0, 10, 100)))
+        anti = rng.random() < 0.3
+        tag = f"t{int(rng.integers(0, 3))}"
+        need = int(_pick(rng, (0, 0, 0, size, size + 2)))
+        on_annotation = rng.random() < 0.5
+        for m in range(size):
+            labels = {"app": f"gang-{g}", "tier": tag}
+            annotations = {}
+            (annotations if on_annotation else labels)[POD_GROUP_LABEL] = f"gang-{g}"
+            if need:
+                (annotations if on_annotation else labels)[POD_GROUP_MIN_AVAILABLE] = str(need)
+            p = t.Pod(name=f"g{g}-m{m}", namespace="default", labels=labels, annotations=annotations,
+                      containers=[t.Container(name="c", requests={
+                          t.RESOURCE_CPU: t.Quantity.parse(f"{cpu}m"),
+                          t.RESOURCE_MEMORY: t.Quantity.parse("256Mi")})],
+                      priority=prio)
+            if anti:
+                # one member per node, and none beside a pod of the same tier
+                # from another anti-affine group
+                p.affinity = t.Affinity(pod_anti_affinity=t.PodAntiAffinity(required=[t.PodAffinityTerm(
+                    label_selector=t.LabelSelector(match_labels={"tier": tag}), topology_key=HOST_KEY)]))
+            members.append(p)
+    solos = []
+    for i in range(n_solo):
+        solos.append(t.Pod(
+            name=f"solo-{i}", namespace="default",
+            labels={"app": f"solo-{i % 3}", "tier": f"t{int(rng.integers(0, 3))}"},
+            containers=[t.Container(name="c", requests={
+                t.RESOURCE_CPU: t.Quantity.parse(f"{int(_pick(rng, (100, 500, 1500)))}m"),
+                t.RESOURCE_MEMORY: t.Quantity.parse("128Mi")})],
+            priority=int(_pick(rng, (0, 10, 100))),
+        ))
+    # groups arrive member by member, the solos between them
+    pods = members + solos
+    order = rng.permutation(len(pods))
+    return nodes, [pods[k] for k in order]
 
 
 # --- bench.py config 6 ------------------------------------------------------

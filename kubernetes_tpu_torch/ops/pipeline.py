@@ -13,6 +13,9 @@ earlier commits by the commit arbiter (commit/arbiter.py), which reads the
 solve's intermediates (`arbiter_inputs`) instead of launching them again.
 term_kinds=None is the reference's "assume every kind".
 
+`solve_pipeline_gang` (ref :285) is the same mask and score followed by the
+all-or-nothing two-pass gang solve (ops/solver.solve_gang).
+
 `gather_score_rows` (ref :374) gathers the rows of the [U, N] score
 matrix that the driver's host oracle ranks nodes by, so that only those
 rows cross to the host: csrc/gather.cu on CUDA tensors (counted in
@@ -33,7 +36,7 @@ from . import scores as S
 from . import topology as T
 from ..kernels import build
 from ..state.terms import ANTI_REQ
-from .solver import pop_order, solve_greedy
+from .solver import pop_order, solve_gang, solve_greedy
 
 Arrays = Dict[str, torch.Tensor]
 
@@ -228,6 +231,56 @@ def solve_pipeline(
         assign, carry_out = result
         return assign, score, carry_out
     return result, score
+
+
+def solve_pipeline_gang(
+    na: Arrays,  # NodeBank tensors
+    pa: Arrays,  # PodBatch tensors (one row per unique pod spec)
+    ids,  # interned constants (filters.make_ids)
+    key: Sequence[int],  # two uint32 key words, split for the two passes
+    group: torch.Tensor,  # [B] group id per batch position, -1 = ungrouped
+    pb: Optional[Arrays] = None,  # per-pod axis: sig/valid/priority [B]
+    carry: Optional[Tuple] = None,  # (free, count, nz) of the previous batch
+    deterministic: bool = False,
+    config: Optional[SolveConfig] = None,
+    term_kinds: Optional[frozenset] = frozenset(),
+    return_carry: bool = False,
+    *,
+    ea: Optional[Arrays] = None,  # SigBank tensors
+    ta: Optional[Arrays] = None,  # batch TermBank tensors
+    au: Optional[Arrays] = None,  # compile_batch_terms aux
+    xa: Optional[Arrays] = None,  # PatternBank tensors
+    n_buckets: Optional[int] = None,  # topology segment-axis bound
+):
+    """The gang variant (ref :285): the same mask → score, then the
+    all-or-nothing two-pass solve (ops/solver.solve_gang). Returns (assign
+    [B], score [U, N], gang_ok [B]), plus pass 2's (free, count, nz) carry
+    with return_carry. Members of dropped groups come back -1 with gang_ok
+    False, their capacity released to the other pods of pass 2. No in-batch
+    tracking and no arbiter inputs, as in the reference."""
+    _check_term_kinds(term_kinds)
+    na = apply_carry(na, carry)
+    mask, score = mask_and_score(na, pa, ids, config, term_kinds, ea=ea, ta=ta, au=au, xa=xa, n_buckets=n_buckets)
+    free0 = na["alloc"] - na["requested"]
+    if pb is None:
+        sig, pvalid, prio = None, pa["valid"], pa["priority"]
+    else:
+        sig, pvalid, prio = pb["sig"], pb["valid"], pb["priority"]
+    b = pvalid.shape[0]
+    order = pop_order(prio, torch.arange(b, dtype=torch.int32, device=pvalid.device), pvalid)
+    result = solve_gang(
+        mask, score, pa["req"], free0,
+        na["pod_count"].to(free0.dtype), na["allowed_pods"].to(free0.dtype),
+        order, group, key, deterministic=deterministic, req_any=pa["req_any"],
+        sig=sig, pod_valid=pvalid, return_carry=return_carry,
+        nz0=na["nonzero_req"].to(free0.dtype) if return_carry else None,
+        scoring_req=pa["scoring_req"] if return_carry else None,
+    )
+    if return_carry:
+        assign, gang_ok, carry_out = result
+        return assign, score, gang_ok, carry_out
+    assign, gang_ok = result
+    return assign, score, gang_ok
 
 
 GATHER_ENTRY = "ktpu_gather_score_rows"

@@ -17,6 +17,10 @@ applied within the batch).
   candidate commit of the round could change.
 * On CUDA tensors `solve_greedy` launches `csrc/solver.cu`, the sequential
   walk that the chunked scan provably equals (solver.py:110-126, :144-149).
+* `solve_gang` is the reference's all-or-nothing gang solve: two greedy
+  passes, with the two halves of `jax.random.split(key)` (`prng_split`),
+  around a group-fail segment max; on CUDA tensors one launch of
+  `csrc/solver.cu`'s gang kernel walks both passes.
 """
 
 from __future__ import annotations
@@ -40,6 +44,34 @@ def prng_key_data(seed: int) -> tuple:
     (threefry: [seed >> 32, seed & 0xFFFFFFFF])."""
     seed = int(seed)
     return ((seed >> 32) & _MASK32, seed & _MASK32)
+
+
+def _rotl32(x: int, r: int) -> int:
+    return ((x << r) | (x >> (32 - r))) & _MASK32
+
+
+def _threefry2x32(k0: int, k1: int, x0: int, x1: int) -> tuple:
+    """Threefry-2x32 with 20 rounds (Salmon et al., the block cipher of
+    jax.random's default generator) on one counter pair."""
+    ks = (k0, k1, k0 ^ k1 ^ 0x1BD11BDA)
+    rotations = ((13, 15, 26, 6), (17, 29, 16, 24))
+    x0, x1 = (x0 + ks[0]) & _MASK32, (x1 + ks[1]) & _MASK32
+    for i in range(5):
+        for r in rotations[i % 2]:
+            x0 = (x0 + x1) & _MASK32
+            x1 = _rotl32(x1, r) ^ x0
+        x0 = (x0 + ks[(i + 1) % 3]) & _MASK32
+        x1 = (x1 + ks[(i + 2) % 3] + i + 1) & _MASK32
+    return x0, x1
+
+
+def prng_split(key: Sequence[int]) -> tuple:
+    """The two key-word pairs of the reference's jax.random.split(key) under
+    the partitionable threefry layout (jax_threefry_partitionable=True):
+    key i is threefry2x32(key, (0, i)), the two words of one counter's
+    output."""
+    k0, k1 = int(key[0]) & _MASK32, int(key[-1]) & _MASK32
+    return _threefry2x32(k0, k1, 0, 0), _threefry2x32(k0, k1, 0, 1)
 
 
 def noise_seed(key: Sequence[int]) -> int:
@@ -439,3 +471,177 @@ def solve_greedy(
 
 solve_greedy.launches = 0
 solve_greedy.tracked_launches = 0
+
+
+# --- all-or-nothing gang solve ----------------------------------------------
+
+GANG_ENTRY = "ktpu_solve_gang"
+
+
+def check_group_ids(group: torch.Tensor, b: int) -> None:
+    """Every group id must lie in [-1, B): the segment max over group ids
+    indexes a [B] table (the reference's jitted scatter would drop an id
+    out of range and its gather clamp one; the driver never builds one)."""
+    if group.shape != (b,):
+        raise ValueError(f"expected group ids of shape ({b},), got {tuple(group.shape)}")
+    if b and group.numel():
+        lo, hi = (int(v) for v in torch.aminmax(group))
+        if lo < -1 or hi >= b:
+            raise IndexError(f"group ids must lie in [-1, {b}), got [{lo}, {hi}]")
+
+
+def gang_dropped(group: torch.Tensor, first: torch.Tensor) -> torch.Tensor:
+    """[B] bool: the grouped positions whose group has a member that pass 1
+    left unplaced (a segment max over group ids, which are < B)."""
+    grouped = group >= 0
+    failed = grouped & (first < 0)
+    gidx = torch.where(grouped, group, torch.zeros_like(group)).long()
+    fail_by_group = torch.zeros(group.shape[0], dtype=torch.int32, device=group.device)
+    fail_by_group.scatter_reduce_(0, gidx, failed.to(torch.int32), reduce="amax")
+    return grouped & (fail_by_group[gidx] > 0)
+
+
+def solve_gang_plain(
+    mask, score, req, free0, count0, allowed, order, group, key, deterministic=False,
+    req_any=None, sig=None, pod_valid=None, return_carry=False, nz0=None, scoring_req=None,
+    chunk: int = DEFAULT_CHUNK,
+):
+    """The reference's two-pass gang solve (solver.py:solve_gang) in plain
+    PyTorch: pass 1 places every valid pod with the first half of the split
+    key; groups with a member left unplaced are dropped; pass 2 re-solves
+    the rest from the same starting residuals with the second half. Returns
+    (assign, gang_ok[, pass 2's carry])."""
+    k1, k2 = prng_split(key)
+    first = solve_greedy_plain(mask, score, req, free0, count0, allowed, order, k1, deterministic,
+                               req_any, sig, pod_valid, chunk)
+    dropped = gang_dropped(group, first)
+    alive = ~dropped if pod_valid is None else pod_valid & ~dropped
+    result = solve_greedy_plain(mask, score, req, free0, count0, allowed, order, k2, deterministic,
+                                req_any, sig, alive, chunk, return_carry, nz0, scoring_req)
+    second, carry = result if return_carry else (result, None)
+    assign = torch.where(dropped, torch.full_like(second, -1), second)
+    if return_carry:
+        return assign, ~dropped, carry
+    return assign, ~dropped
+
+
+class GangArgs(ctypes.Structure):
+    """Mirror of `struct GangArgs` in csrc/solver.cu."""
+
+    _fields_ = [
+        ("walk", SolveArgs), ("group", ctypes.c_void_p), ("first", ctypes.c_void_p),
+        ("free1", ctypes.c_void_p), ("count1", ctypes.c_void_p), ("nz1", ctypes.c_void_p),
+        ("fail", ctypes.c_void_p), ("alive", ctypes.c_void_p), ("gang_ok", ctypes.c_void_p),
+        ("seed1", ctypes.c_uint32), ("seed2", ctypes.c_uint32),
+    ]
+
+
+def _solve_gang_cuda(
+    mask, score, req, free0, count0, allowed, order, group, key, deterministic,
+    req_any, sig, pod_valid, return_carry, nz0, scoring_req,
+):
+    U, N = mask.shape
+    R = req.shape[1]
+    if R > MAX_KERNEL_RESOURCES:
+        raise ValueError(f"the solve kernel takes at most {MAX_KERNEL_RESOURCES} resource slots, got {R}")
+    req_any, sig, pod_valid, nz0, scoring_req = _defaults(
+        mask, req, order, req_any, sig, pod_valid, nz0, scoring_req, free0
+    )
+    B = order.shape[0]
+    dev = mask.device
+    # pass 1 walks a scratch copy of the carry, pass 2 the returned one:
+    # both start from free0 / count0 / nz0
+    free0 = free0.to(torch.int64).contiguous()
+    count0 = count0.to(torch.int64).contiguous()
+    nz0 = nz0.to(torch.int64).contiguous()
+    free, count, nz = free0.clone(), count0.clone(), nz0.clone()
+    free1, count1, nz1 = free0.clone(), count0.clone(), nz0.clone()
+    allowed64 = allowed.to(torch.int64).contiguous()
+    order64 = order.to(torch.int64).contiguous()
+    sig32 = sig.to(torch.int32).contiguous()
+    group32 = group.to(torch.int32).contiguous()
+    out = torch.empty((B,), dtype=torch.int32, device=dev)
+    first = torch.empty((B,), dtype=torch.int32, device=dev)
+    fail = torch.empty((B,), dtype=torch.int32, device=dev)  # zeroed by the kernel
+    alive = torch.empty((B,), dtype=torch.bool, device=dev)
+    gang_ok = torch.empty((B,), dtype=torch.bool, device=dev)
+    k1, k2 = prng_split(key)
+    walk = SolveArgs(
+        mask=build.ptr(mask, torch.bool, (U, N)),
+        score=build.ptr(score, torch.int64, (U, N)),
+        req=build.ptr(req, torch.int64, (U, R)),
+        req_any=build.ptr(req_any, torch.bool, (U,)),
+        scoring_req=build.ptr(scoring_req, torch.int64, (U, 2)),
+        allowed=build.ptr(allowed64, torch.int64, (N,)),
+        order=build.ptr(order64, torch.int64, (B,)),
+        sig=build.ptr(sig32, torch.int32, (B,)),
+        pod_valid=build.ptr(pod_valid, torch.bool, (B,)),
+        free=build.ptr(free, torch.int64, (N, R)),
+        count=build.ptr(count, torch.int64, (N,)),
+        nz=build.ptr(nz, torch.int64, (N, 2)),
+        assign=build.ptr(out, torch.int32, (B,)),
+        U=U, N=N, R=R, B=B,
+        deterministic=1 if deterministic else 0,
+    )
+    args = GangArgs(
+        walk=walk,
+        group=build.ptr(group32, torch.int32, (B,)),
+        first=build.ptr(first, torch.int32, (B,)),
+        free1=build.ptr(free1, torch.int64, (N, R)),
+        count1=build.ptr(count1, torch.int64, (N,)),
+        nz1=build.ptr(nz1, torch.int64, (N, 2)),
+        fail=build.ptr(fail, torch.int32, (B,)),
+        alive=build.ptr(alive, torch.bool, (B,)),
+        gang_ok=build.ptr(gang_ok, torch.bool, (B,)),
+        seed1=noise_seed(k1), seed2=noise_seed(k2),
+    )
+    build.launch(GANG_ENTRY, args, dev)
+    solve_gang.launches += 1
+    if return_carry:
+        return out, gang_ok, (free, count, nz)
+    return out, gang_ok
+
+
+def solve_gang(
+    mask: torch.Tensor,  # [U, N] feasibility (spec rows)
+    score: torch.Tensor,  # [U, N] int64 weighted priority sums
+    req: torch.Tensor,  # [U, R] pod requests
+    free0: torch.Tensor,  # [N, R] alloc - requested at batch start
+    count0: torch.Tensor,  # [N] pod counts at batch start
+    allowed: torch.Tensor,  # [N] allowed pod numbers
+    order: torch.Tensor,  # [B] scan order (pop_order)
+    group: torch.Tensor,  # [B] group id per batch position, -1 = ungrouped
+    key: Sequence[int],  # two uint32 key words, split for the two passes
+    deterministic: bool = False,
+    req_any: Optional[torch.Tensor] = None,  # [U]
+    sig: Optional[torch.Tensor] = None,  # [B] pod → spec row (None: identity)
+    pod_valid: Optional[torch.Tensor] = None,  # [B] (None: all valid)
+    return_carry: bool = False,
+    nz0: Optional[torch.Tensor] = None,  # [N, 2]
+    scoring_req: Optional[torch.Tensor] = None,  # [U, 2]
+):
+    """All-or-nothing gang assignment (the reference's solve_gang): two
+    greedy passes around a group-fail segment max. Members of a group with
+    a member pass 1 could not place come back -1 with gang_ok False, and
+    their capacity goes to the other pods in pass 2. Returns (assign [B],
+    gang_ok [B] bool), plus pass 2's (free, count, nz) carry with
+    return_carry. No in-batch tracking, as in the reference. Group ids are
+    checked on the host first. CPU tensors run the plain version; CUDA
+    tensors launch csrc/solver.cu's solve_gang_kernel, both passes in one
+    launch (counted in `solve_gang.launches`)."""
+    check_group_ids(group, order.shape[0])
+    dev = mask.device
+    if dev.type == "cpu":
+        return solve_gang_plain(
+            mask, score, req, free0, count0, allowed, order, group, key, deterministic,
+            req_any, sig, pod_valid, return_carry, nz0, scoring_req,
+        )
+    if dev.type == "cuda":
+        return _solve_gang_cuda(
+            mask, score, req, free0, count0, allowed, order, group, key, deterministic,
+            req_any, sig, pod_valid, return_carry, nz0, scoring_req,
+        )
+    raise ValueError(f"no solve kernel for device {dev}")
+
+
+solve_gang.launches = 0

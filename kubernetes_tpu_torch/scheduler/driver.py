@@ -5,7 +5,8 @@ the reference's default commit path — the commit and fold planes on and
 preemption on, no ingest or term plane, no speculation, no framework
 plugins, extenders or volumes. Per batch:
 
-    pop_batch → TensorMirror.sync → spec dedup (with the pods' spreading
+    pop_batch (+ every queued member of each gang group present) →
+    TensorMirror.sync → spec dedup (with the pods' spreading
     selectors) → PodBatch encode + compile_batch_terms → device_arrays
     (node, signature and pattern banks) → the outstanding preemption
     nominees folded onto the node bank's usage columns → one
@@ -14,8 +15,11 @@ plugins, extenders or volumes. Per batch:
     needs it) → the commit arbiter when a pod needs a re-check → the
     nominee overlay taken off → commit in pop order
 
-and the commit takes one of the reference's three routes, picked per
-batch (`_schedule_batch`'s routing, ref :3578-:3760):
+A batch holding a pod of a gang group (the PodGroup label or annotation)
+solves through solve_pipeline_gang instead: the all-or-nothing two-pass
+solve, without the in-batch tracking and without the arbiter. The commit
+takes one of the reference's three routes, picked per batch
+(`_schedule_batch`'s routing, ref :3578-:3760):
 
 * the bulk path (`_commit_bulk`: every pod RECHECK_NONE, no encoding
   overflow, no nomination that appeared after the solve, no -1 beside
@@ -27,15 +31,20 @@ batch (`_schedule_batch`'s routing, ref :3578-:3760):
   next batch (re-queued without backoff) or fail each pod; a pod deferred
   three times in a row escalates to the host oracle's re-placement
   (`_oracle_place`);
-* the per-pod loop (`_commit_loop`, everything else: required pod
-  affinity, the commit plane off, encoding or pattern overflow, -1 pods
-  beside fallback node rows, outstanding nominations): each pod's pick is
+* the per-pod loop (`_commit_loop`, everything else: gang batches,
+  required pod affinity, the commit plane off, encoding or pattern
+  overflow, -1 pods beside fallback node rows, outstanding nominations):
+  each pod's pick is
   re-checked in pop order against the batch's earlier commits — by the
   full host oracle chain (oracle/predicates.pod_fits_on_node with the
   two-pass nominee rule) for RECHECK_FULL, fallback and nominated picks, by
   the light batch-conflict index for RECHECK_LIGHT — and re-placed by
   `_oracle_place` when it fails; a pod placed nowhere preempts on the
-  host (`_try_preempt`).
+  host (`_try_preempt`). A gang member is assumed as it is decided but
+  bound only once the loop ends with its group complete; a member the
+  solve dropped, one placed nowhere (no preemption for gang members) or a
+  group short of its declared min-available rolls the whole group back
+  (`GangRollbackRecord`: one bulk cache forget, the members failed).
 
 `_oracle_place` walks the nodes in the zone-interleaved order of
 state/node_tree.py and keeps the feasible node with the best device score,
@@ -57,10 +66,9 @@ The next batches see the outstanding nominations folded onto the node
 bank's usage columns (ops/fold.fold_usage: in place with the commit plane
 on, on a copy with it off), as podFitsOnNode's pass 1 counts them.
 
-Gang groups raise NotImplementedError (ROADMAP.md queue 1, gang), after
-the batch is returned to the queue. Nothing here turns an exception into
-another route: a kernel failure raises, after the batch's pods not yet
-handled are returned to the queue.
+Nothing here turns an exception into another route: a kernel failure
+raises, after the batch's pods not yet handled, and the staged members of
+any open gang group (their assumes forgotten), are returned to the queue.
 """
 
 from __future__ import annotations
@@ -76,12 +84,13 @@ import torch
 
 from ..api.selectors import match_label_selector
 from ..api.types import DO_NOT_SCHEDULE, Pod
+from ..commit.apply import GangRollbackRecord
 from ..commit.arbiter import V_DEFER, V_PLACE, arbitrate, kinds_covered
 from ..commit.fold import plan_fold
 from ..device import resolve_device
 from ..ops import filters as F
 from ..ops.fold import fold_usage
-from ..ops.pipeline import SolveConfig, gather_score_rows, solve_pipeline
+from ..ops.pipeline import SolveConfig, gather_score_rows, solve_pipeline, solve_pipeline_gang
 from ..ops.solver import prng_key_data
 from ..oracle.nodeinfo import accumulated_request
 from ..oracle.predicates import (
@@ -117,11 +126,34 @@ from .preemption import eligible_nominees, fits_considering_nominated, fits_with
 
 _log = logging.getLogger(__name__)
 
-# the coscheduling PodGroup marker the reference's gang path reads
+# the coscheduling PodGroup marker and the group's declared size, read as
+# the reference reads them (label preferred, annotation accepted)
 POD_GROUP_LABEL = "pod-group.scheduling.sigs.k8s.io/name"
+POD_GROUP_MIN_AVAILABLE = "pod-group.scheduling.sigs.k8s.io/min-available"
 
 # bind pool threads; a batch's binds are split into this many chunks
 BIND_WORKERS = 8
+
+
+def pod_group_name(pod: Pod) -> str:
+    """The pod's gang group, "" for none; memoized on the pod (labels and
+    annotations are spec-stable, and batch assembly, dispatch and the
+    commit loop each read it)."""
+    g = pod.__dict__.get("_grp_memo")
+    if g is None:
+        g = pod.labels.get(POD_GROUP_LABEL, "") or pod.annotations.get(POD_GROUP_LABEL, "")
+        pod.__dict__["_grp_memo"] = g
+    return g
+
+
+def pod_group_min_available(pod: Pod) -> int:
+    """The group's declared size (0 when unset or not an integer): a batch
+    holding fewer members must not bind its slice."""
+    raw = pod.labels.get(POD_GROUP_MIN_AVAILABLE, "") or pod.annotations.get(POD_GROUP_MIN_AVAILABLE, "")
+    try:
+        return int(raw)
+    except ValueError:
+        return 0
 
 
 @dataclass
@@ -191,6 +223,7 @@ class SolveOutput:
     inbatch_tracked: bool  # the solve tracked anti-affinity and host ports in the batch
     nom_adds: int  # queue.nomination_adds when the nominees were folded for the solve
     verdicts: Optional[List[int]]  # the arbiter's, when it ran (every term kind of the batch covered)
+    gang_ok: Optional[List[bool]] = None  # gang batches: False where the solve dropped the pod's group
 
 
 class _BatchConflictIndex:
@@ -206,23 +239,25 @@ class _BatchConflictIndex:
 
     Buckets group their entries by spec (controller replicas share labels
     and terms), and selector matches are memoized per (direction, commit
-    spec, term index, candidate spec). Without gang rollbacks no entry is
-    ever withdrawn (the reference's tombstones)."""
+    spec, term index, candidate spec): one match and a liveness peek per
+    bucket. Rolled-back gang members are tombstoned (`remove`), not
+    unindexed: a bucket blocks only while one of its commits is live."""
 
     def __init__(self):
-        # (key, value of commit node) → {spec: {term index: (committed pod, term)}}
+        # (key, value of commit node) → {spec: {term index: [(committed pod, term)]}}
         self._anti_by_kv: Dict[Tuple[str, str], Dict] = {}
-        # (key, value of commit node) → {spec: first committed pod}
+        # (key, value of commit node) → {spec: [committed pods]}
         self._commits_by_kv: Dict[Tuple[str, str], Dict] = {}
+        self._rolled_back: set = set()  # id() of the rolled-back pods
         self._match_memo: Dict[Tuple, bool] = {}
         self.any_anti = False
-        self.commits: List[Pod] = []  # flat, in commit order
+        self.commits: List[Pod] = []  # flat, in commit order (rolled-back pods stay, as in the reference)
 
     def add_commit(self, pod: Pod, node) -> None:
         self.commits.append(pod)
         spec = spec_key(pod)
         for kv in node.labels.items():
-            self._commits_by_kv.setdefault(kv, {}).setdefault(spec, pod)
+            self._commits_by_kv.setdefault(kv, {}).setdefault(spec, []).append(pod)
 
     def add_anti(self, pod: Pod, node) -> None:
         self.any_anti = True
@@ -231,7 +266,14 @@ class _BatchConflictIndex:
             k = term.topology_key
             v = node.labels.get(k) if k else None
             if v is not None:
-                self._anti_by_kv.setdefault((k, v), {}).setdefault(spec, {}).setdefault(t_i, (pod, term))
+                self._anti_by_kv.setdefault((k, v), {}).setdefault(spec, {}).setdefault(t_i, []).append((pod, term))
+
+    def remove(self, pod: Pod) -> None:
+        """Tombstone a rolled-back commit: it blocks no later pod."""
+        self._rolled_back.add(id(pod))
+
+    def _any_live(self, pods) -> bool:
+        return any(id(p) not in self._rolled_back for p in pods)
 
     def anti_conflict(self, pod: Pod, node) -> bool:
         p_spec = spec_key(pod)
@@ -239,12 +281,13 @@ class _BatchConflictIndex:
         for kv in node.labels.items():
             for c_spec, by_term in self._anti_by_kv.get(kv, {}).items():
                 # one representative match per (commit spec, term, pod spec)
-                for t_i, (c, term) in by_term.items():
+                for t_i, entries in by_term.items():
+                    c, term = entries[0]
                     mk = ("A", c_spec, t_i, p_spec)
                     hit = memo.get(mk)
                     if hit is None:
                         hit = memo[mk] = pod_matches_term(pod, c, term)
-                    if hit:
+                    if hit and self._any_live(e[0] for e in entries):
                         return True
         a = pod.affinity
         if a is not None and a.pod_anti_affinity is not None:
@@ -253,12 +296,12 @@ class _BatchConflictIndex:
                 v = node.labels.get(k) if k else None
                 if v is None:
                     continue
-                for c_spec, c in self._commits_by_kv.get((k, v), {}).items():
+                for c_spec, pods in self._commits_by_kv.get((k, v), {}).items():
                     mk = ("B", p_spec, t_i, c_spec)
                     hit = memo.get(mk)
                     if hit is None:
-                        hit = memo[mk] = pod_matches_term(c, pod, term)
-                    if hit:
+                        hit = memo[mk] = pod_matches_term(pods[0], pod, term)
+                    if hit and self._any_live(pods):
                         return True
         return False
 
@@ -318,13 +361,6 @@ def _minus_one_could_fit(pod: Pod, index: _BatchConflictIndex, preempted: bool, 
             if c.namespace == pod.namespace and match_label_selector(con.label_selector, c.labels):
                 return True
     return False
-
-
-def _unported_reason(pod: Pod) -> Optional[str]:
-    """Why this pod needs a program the port does not have yet, or None."""
-    if POD_GROUP_LABEL in pod.labels or POD_GROUP_LABEL in pod.annotations:
-        return "gang groups need solve_gang (ROADMAP.md queue 1, gang)"
-    return None
 
 
 def _term_kind_names(present, any_sel_spread: bool, etb) -> frozenset:
@@ -439,7 +475,9 @@ class Scheduler:
         # dispatches that overlaid outstanding nominations; oracle_rechecks
         # counts the per-pod loop's full host re-checks of a pick,
         # light_rechecks its batch-conflict re-checks, oracle_places the
-        # host oracle's re-placements the reference counts
+        # host oracle's re-placements the reference counts; gang_batches the
+        # batches solved all-or-nothing, gang_rollbacks the groups whose
+        # staged members the commit loop forgot
         self.stats: Dict[str, float] = {
             "sync_s": 0.0, "encode_s": 0.0, "solve_s": 0.0, "commit_s": 0.0, "batches": 0,
             "oracle_rechecks": 0, "light_rechecks": 0, "oracle_places": 0,
@@ -447,6 +485,7 @@ class Scheduler:
             "fold_overflow_batches": 0, "arbiter_batches": 0, "arbiter_place": 0, "arbiter_defer": 0,
             "arbiter_escalated": 0, "apply_s": 0.0, "preempt_batches": 0, "preempted": 0, "victims": 0,
             "preempt_s": 0.0, "preempt_reverify_miss": 0, "nominee_folds": 0,
+            "gang_batches": 0, "gang_rollbacks": 0,
         }
 
     def set_spread_selectors_fn(self, fn: Callable[[Pod], list]) -> None:
@@ -456,16 +495,6 @@ class Scheduler:
         self._spread_selectors_fn = fn
 
     # -- one batch -----------------------------------------------------------
-
-    def _refuse(self, infos: List[PodInfo], reason: str) -> None:
-        self.queue.requeue(infos)
-        raise NotImplementedError(reason)
-
-    def _check_slice(self, infos: List[PodInfo]) -> None:
-        for info in infos:
-            reason = _unported_reason(info.pod)
-            if reason is not None:
-                self._refuse(infos, f"pod {info.pod.key()}: {reason}")
 
     def _encode(self, infos: List[PodInfo]) -> Tuple[PodBatch, List[Pod], np.ndarray, TermBank, Dict[str, np.ndarray],
                                                      np.ndarray]:
@@ -504,10 +533,11 @@ class Scheduler:
                 fallback[owner] = True
         return batch, reps, np.asarray(sig_list, np.int32), tb, aux, fallback
 
-    def _topology_shape(self, tb: TermBank, aux: Dict[str, np.ndarray], reps: List[Pod]) -> frozenset:
+    def _topology_shape(self, tb: TermBank, aux: Dict[str, np.ndarray], reps: List[Pod], gang: bool) -> frozenset:
         """Grow the monotone term-kind union, the segment-axis bucket and
-        the in-batch tracking switch for this batch's terms; returns the
-        batch's own term kinds. The axis covers the dense values of every
+        (not on a gang batch, whose solve tracks nothing) the in-batch
+        tracking switch for this batch's terms; returns the batch's own term
+        kinds. The axis covers the dense values of every
         slot a batch term or an existing pattern names plus the zones (the
         SelectorSpread blend); it is not clamped to the node count, since
         dense ids are grow-only and live ones can exceed it under node
@@ -516,9 +546,9 @@ class Scheduler:
         present = set(np.unique(tb.kind[tb.valid]).tolist())
         kinds = _term_kind_names(present, bool(np.any(aux["n_sel_spread"] > 0)), pats)
         self._term_kinds = self._term_kinds | kinds
-        self._track_inbatch = self._track_inbatch or (
+        self._track_inbatch = self._track_inbatch or (not gang and (
             "anti_req" in self._term_kinds or any(p.host_ports() for p in reps)
-        )
+        ))
         vocab = self.mirror.vocab
         slots = set(np.asarray(tb.topo_slot[tb.valid], np.int64).tolist())
         slots |= set(np.asarray(pats.bank.topo_slot[pats.valid], np.int64).tolist())
@@ -532,7 +562,15 @@ class Scheduler:
         infos = self.queue.pop_batch(max_pods or self.batch_size)
         if not infos:
             return res
-        self._check_slice(infos)
+        # gang completeness: every queued member of a group present in the
+        # batch joins it, so all-or-nothing is decided over the whole group
+        groups = [pod_group_name(i.pod) for i in infos]
+        present = {g for g in groups if g}
+        if present:
+            extra = self.queue.pop_all_in_groups(present, pod_group_name)
+            infos.extend(extra)
+            groups.extend(pod_group_name(i.pod) for i in extra)
+        is_gang = bool(present)
         cycle = self.queue.scheduling_cycle()
         self.stats["batches"] += 1
         pods = [pi.pod for pi in infos]
@@ -547,7 +585,7 @@ class Scheduler:
 
         self._b_bucket = max(self._b_bucket, _bucket(len(pods)))
         batch, reps, sig, tb, aux, fallback = self._encode(infos)
-        batch_kinds = self._topology_shape(tb, aux, reps)
+        batch_kinds = self._topology_shape(tb, aux, reps, gang=is_gang)
         levels = [_recheck_level(r) for r in reps]
         pb = {
             "sig": np.zeros(self._b_bucket, np.int32),
@@ -576,23 +614,40 @@ class Scheduler:
         if self.queue.has_nominations():
             na = self._nominee_overlay(na, pods)
         solved: Dict = {}
-        assign, score = solve_pipeline(
-            na, pa, self._ids, key, pb=pbt, deterministic=self.deterministic,
-            config=self.solve_config, term_kinds=self._term_kinds,
-            track_inbatch=self._track_inbatch,
-            ea=ea, ta=ta, au=au, xa=xa, n_buckets=self._v_bucket, arbiter_inputs=solved,
-        )
-        if self._track_inbatch:
-            self.stats["tracked_batches"] += 1
+        gang_ok = None
+        if is_gang:
+            self.stats["gang_batches"] += 1
+            # group ids in first-seen order over the batch positions
+            gid: Dict[str, int] = {}
+            garr = np.full(self._b_bucket, -1, np.int32)
+            for i, g in enumerate(groups):
+                if g:
+                    garr[i] = gid.setdefault(g, len(gid))
+            assign, score, gang_ok = solve_pipeline_gang(
+                na, pa, self._ids, key, arrays_to_torch({"group": garr}, self.device)["group"], pb=pbt,
+                deterministic=self.deterministic, config=self.solve_config, term_kinds=self._term_kinds,
+                ea=ea, ta=ta, au=au, xa=xa, n_buckets=self._v_bucket,
+            )
+        else:
+            assign, score = solve_pipeline(
+                na, pa, self._ids, key, pb=pbt, deterministic=self.deterministic,
+                config=self.solve_config, term_kinds=self._term_kinds,
+                track_inbatch=self._track_inbatch,
+                ea=ea, ta=ta, au=au, xa=xa, n_buckets=self._v_bucket, arbiter_inputs=solved,
+            )
+            if self._track_inbatch:
+                self.stats["tracked_batches"] += 1
         # the commit arbiter, chained on the assignment on the device, for
-        # the batches whose verdicts the commit can use: a pod that needs a
-        # re-check, every present term kind covered
+        # the batches whose verdicts the commit can use: no gang group, a
+        # pod that needs a re-check, every present term kind covered
         verdict = None
-        if self.commit_plane and kinds_covered(batch_kinds) and any(lv != RECHECK_NONE for lv in levels):
+        if (self.commit_plane and not is_gang and kinds_covered(batch_kinds)
+                and any(lv != RECHECK_NONE for lv in levels)):
             verdict = arbitrate(na, pa, ea, ta, self._ids, assign, pbt,
                                 term_kinds=self._term_kinds, n_buckets=self._v_bucket, inputs=solved)
         assign_l = assign.cpu().numpy()[: len(pods)].tolist()
         verdicts = None if verdict is None else verdict.cpu().numpy()[: len(pods)].tolist()
+        gang_ok_l = None if gang_ok is None else gang_ok.cpu().numpy()[: len(pods)].tolist()
         # the overlay's job ends with the solve: the resident banks mirror
         # the host again before any commit fold or row patch lands on them
         self.mirror.unfold_nominees()
@@ -608,16 +663,18 @@ class Scheduler:
             levels=[levels[u] for u in sig],
             existing_overflow=bool(self.mirror.pats.overflow_rows),
             node_fallback_any=bool((self.mirror.nodes.fallback & self.mirror.nodes.valid).any()),
-            inbatch_tracked=self._track_inbatch,
+            inbatch_tracked=self._track_inbatch and not is_gang,
             nom_adds=nom_adds,
             verdicts=verdicts,
+            gang_ok=gang_ok_l,
         )
         # the reference's routes: the bulk path when nothing can change or
         # veto a device pick, else the arbiter's verdicts where they cover
-        # the batch, else the per-pod loop
+        # the batch, else the per-pod loop (every gang batch)
         nominated_fn = self.queue.nominated_pods_for_node if self.queue.has_nominations() else _no_nominations
         fast_bulk = (
-            all(lv == RECHECK_NONE for lv in out.levels)
+            not is_gang
+            and all(lv == RECHECK_NONE for lv in out.levels)
             and (nominated_fn is _no_nominations or nom_adds == self.queue.nomination_adds)
             and not out.existing_overflow
             and not any(out.fallback)
@@ -628,7 +685,7 @@ class Scheduler:
         elif self._arbiter_covers(out):
             self._commit_arbitrated(infos, out, cycle, res)
         else:
-            self._commit_loop(infos, out, cycle, res, nominated_fn)
+            self._commit_loop(infos, out, cycle, res, nominated_fn, groups)
         self.stats["commit_s"] += time.perf_counter() - t3
         return res
 
@@ -818,34 +875,81 @@ class Scheduler:
             self._preempt_deferred(preempt_fails, cycle, res)
 
     def _commit_loop(self, infos: List[PodInfo], out: SolveOutput, cycle: int, res: ScheduleResult,
-                     nominated_fn) -> None:
-        """The reference's per-pod commit loop (driver.py:3758-3990 without
-        gang groups, plugins, extenders, volumes and speculation): in pop
-        order, so every re-check sees the batch's earlier assumes. A pick
-        is re-checked by the full host oracle when the pod is RECHECK_FULL,
-        its encoding overflowed, an existing pod's terms overflowed or its
-        node holds nominations; by the batch-conflict index when it is
-        RECHECK_LIGHT (or follows a required anti-affinity commit) and the
-        solve's in-batch tracking no longer vouches for it; by a resource
-        check once an earlier pod left the device's pick. A failed re-check,
-        and a -1 that the batch's events may have made feasible, re-place
+                     nominated_fn, groups: List[str]) -> None:
+        """The reference's per-pod commit loop (driver.py:3758-4035 without
+        plugins, extenders, volumes and speculation): in pop order, so every
+        re-check sees the batch's earlier assumes. A pick is re-checked by
+        the full host oracle when the pod is RECHECK_FULL, its encoding
+        overflowed, an existing pod's terms overflowed or its node holds
+        nominations; by the batch-conflict index when it is RECHECK_LIGHT
+        (or follows a required anti-affinity commit) and the solve's
+        in-batch tracking no longer vouches for it; by a resource check
+        once an earlier pod left the device's pick. A failed re-check, and
+        a -1 that the batch's events may have made feasible, re-place
         through `_oracle_place`; a pod placed nowhere preempts on the host.
-        Nothing is folded: the next sync re-ships the rows host-wins."""
+        Nothing is folded: the next sync re-ships the rows host-wins.
+
+        Gang members (`groups[i]` non-empty) are prepared (assumed) as they
+        are decided and staged in their group's GangRollbackRecord; their
+        binds are submitted once the loop ends, for each group that is
+        complete and holds its declared min-available. A member the solve
+        dropped ("gang does not fit"), a member placed nowhere ("gang
+        member: no fit", no preemption) or a short group rolls the whole
+        group back: one bulk cache forget, the members failed and
+        tombstoned in the conflict index, the residuals diverged; later
+        members of a failed group fail ("gang incomplete")."""
         snap = self.cache.snapshot
         conflict_index = _BatchConflictIndex()
-        # a batch of RECHECK_NONE pods never reads the index
-        index_needed = any(lv != RECHECK_NONE for lv in out.levels)
+        # a batch of RECHECK_NONE pods without gang groups never reads the index
+        index_needed = out.gang_ok is not None or any(lv != RECHECK_NONE for lv in out.levels)
         # once a pod commits elsewhere than the solve chose, the solve's
         # carried residuals are stale for the rest of the batch
         residuals_diverged = False
         name_of = self.mirror.name_of_row
         jobs: List[Tuple[PodInfo, Pod, str]] = []
+        staged: Dict[str, GangRollbackRecord] = {}
+        failed_groups: set = set()
+
+        def rollback_group(g: str) -> None:
+            nonlocal residuals_diverged
+            failed_groups.add(g)
+            # the forgotten assumes leave the snapshot under the oracle's index
+            self._aff_index = None
+            rec = staged.pop(g, None)
+            if rec is None or not len(rec):
+                return
+            self.stats["gang_rollbacks"] += 1
+            res.unschedulable += rec.rollback(self.cache, self._fail, cycle,
+                                              on_member=lambda m: conflict_index.remove(m.pod))
+            residuals_diverged = True  # the staged capacity is released
+
+        def index_commit(i: int, pod: Pod, node_name: str, placed: Optional[Pod] = None) -> None:
+            c_node = snap.get(node_name) if index_needed else None
+            if c_node is not None:
+                conflict_index.add_commit(pod, c_node.node)
+                self._aff_extra.append((placed or pod.with_node(node_name), c_node.node.labels))
+                if out.has_anti[i]:
+                    conflict_index.add_anti(pod, c_node.node)
+
         i = 0
         disposed = False
         try:
             for i, info in enumerate(infos):
                 disposed = False
                 pod = info.pod
+                group = groups[i]
+                if group and group in failed_groups:
+                    res.unschedulable += 1
+                    disposed = True
+                    self._fail(info, cycle)  # gang incomplete
+                    continue
+                if group and out.gang_ok is not None and not out.gang_ok[i]:
+                    # the solve dropped the whole group in pass 2
+                    rollback_group(group)
+                    res.unschedulable += 1
+                    disposed = True
+                    self._fail(info, cycle)  # gang does not fit
+                    continue
                 row = out.assign[i]
                 node_name = name_of[row] if 0 <= row < len(name_of) else None
                 device_choice = node_name
@@ -898,6 +1002,14 @@ class Scheduler:
                     if device_choice is not None:
                         # the solve charged this pod to a node it never took
                         residuals_diverged = True
+                    if group:
+                        # one member without a home sinks its group; gang
+                        # members never preempt
+                        rollback_group(group)
+                        res.unschedulable += 1
+                        disposed = True
+                        self._fail(info, cycle)  # gang member: no fit
+                        continue
                     preempted_now = self.enable_preemption and self._try_preempt(info)
                     if preempted_now:
                         res.preempted += 1
@@ -911,47 +1023,89 @@ class Scheduler:
                         # victim deletions are cluster events (eventhandlers.go:127)
                         self.queue.move_all_to_active()
                     continue
+                if group:
+                    assumed = self._prepare_commit(info, node_name, cycle)
+                    if assumed is None:  # failed by the prepare
+                        rollback_group(group)
+                        res.unschedulable += 1
+                        disposed = True
+                        continue
+                    # from here the pod's disposition belongs to its group
+                    staged.setdefault(group, GangRollbackRecord(group)).stage(info, assumed, node_name)
+                    disposed = True
+                    index_commit(i, pod, node_name, assumed)
+                    if node_name != device_choice:
+                        residuals_diverged = True
+                    continue
                 disposed = True
                 if self._commit(info, node_name, cycle, jobs):
                     res.scheduled += 1
                     res.assignments[pod.key()] = node_name
-                    c_node = snap.get(node_name) if index_needed else None
-                    if c_node is not None:
-                        conflict_index.add_commit(pod, c_node.node)
-                        self._aff_extra.append((pod.with_node(node_name), c_node.node.labels))
-                        if out.has_anti[i]:
-                            conflict_index.add_anti(pod, c_node.node)
+                    index_commit(i, pod, node_name)
                     if node_name != device_choice:
                         residuals_diverged = True
                 else:
                     res.unschedulable += 1
                     if device_choice is not None:
                         residuals_diverged = True
+            # complete groups bind, unless the declared min-available says
+            # part of the group was not even queued yet
+            for g, rec in list(staged.items()):
+                need = max(pod_group_min_available(m[0].pod) for m in rec.members)
+                if need and len(rec) < need:
+                    rollback_group(g)
+                    continue
+                del staged[g]
+                for s_info, s_assumed, s_node in rec.members:
+                    self._finalize_commit(s_info, s_assumed, s_node, jobs)
+                    res.scheduled += 1
+                    res.assignments[s_info.pod.key()] = s_node
         except BaseException:
+            # the staged members of open groups (their assumes forgotten) and
             # the pods not yet handled go back before the error surfaces
-            self.queue.requeue(infos[i + 1 if disposed else i:])
+            back: List[PodInfo] = []
+            for rec in staged.values():
+                rec.rollback(self.cache, lambda m, _cycle: back.append(m), cycle)
+            staged.clear()
+            self._aff_index = None
+            self.queue.requeue(back + infos[i + 1 if disposed else i:])
             raise
         finally:
             self._submit_binds(jobs)
 
-    def _commit(self, info: PodInfo, node_name: str, cycle: int,
-                jobs: Optional[List[Tuple[PodInfo, Pod, str]]] = None) -> bool:
-        """The per-pod commit (the reference's `_prepare_commit` +
-        `_finalize_commit`): assume the pod in the cache, clear its
-        nomination (DeleteNominatedPodIfExists, scheduler.go:529), bind it
-        on the bind pool — appended to `jobs` for a chunked submission, or
-        submitted at once. A key the cache already tracks fails the pod."""
+    def _prepare_commit(self, info: PodInfo, node_name: str, cycle: int) -> Optional[Pod]:
+        """The per-pod commit's first half (the reference's
+        `_prepare_commit`): assume the pod in the cache, then clear its
+        nomination (DeleteNominatedPodIfExists, scheduler.go:529). Returns
+        the assumed pod, or None after failing a pod whose key the cache
+        already tracks. A gang member stays prepared until its group binds
+        or rolls back."""
         assumed = info.pod.with_node(node_name)
         try:
             self.cache.assume_pod(assumed)
         except ValueError:
             self._fail(info, cycle)
-            return False
+            return None
         self.queue.clear_nomination(info.pod.key())
+        return assumed
+
+    def _finalize_commit(self, info: PodInfo, assumed: Pod, node_name: str,
+                         jobs: Optional[List[Tuple[PodInfo, Pod, str]]] = None) -> None:
+        """The second half (the reference's `_finalize_commit`): the bind on
+        the bind pool, appended to `jobs` for a chunked submission or
+        submitted at once."""
         if jobs is None:
             self._submit_binds([(info, assumed, node_name)])
         else:
             jobs.append((info, assumed, node_name))
+
+    def _commit(self, info: PodInfo, node_name: str, cycle: int,
+                jobs: Optional[List[Tuple[PodInfo, Pod, str]]] = None) -> bool:
+        """Prepare and finalize one pod; False when the prepare failed it."""
+        assumed = self._prepare_commit(info, node_name, cycle)
+        if assumed is None:
+            return False
+        self._finalize_commit(info, assumed, node_name, jobs)
         return True
 
     # -- the host oracle ---------------------------------------------------------

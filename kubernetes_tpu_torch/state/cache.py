@@ -169,6 +169,21 @@ class SchedulerCache:
             del self._pod_states[key]
             self._assumed.discard(key)
 
+    def forget_pods(self, pods: List[Pod]) -> None:
+        """Bulk ForgetPod under one lock: the gang rollback's counterpart of
+        assume_pods (commit/apply.GangRollbackRecord unwinds a whole group
+        with one call). Pods not in the assumed state are skipped, exactly
+        as forget_pod skips them."""
+        with self._lock:
+            for pod in pods:
+                key = pod.key()
+                st = self._pod_states.get(key)
+                if st is None or not st.assumed:
+                    continue
+                self._remove_pod_from_node(st.pod)
+                del self._pod_states[key]
+                self._assumed.discard(key)
+
     # -- informer-confirmed pod events (cache.go:389-520) --------------------
 
     def add_pod(self, pod: Pod) -> None:

@@ -152,6 +152,32 @@ class PriorityQueue:
                 self._scheduling_cycle += 1
         return out
 
+    def pop_all_in_groups(self, groups, group_fn: Callable[[Pod], str]) -> List[PodInfo]:
+        """Take EVERY queued active pod whose group_fn(pod) is in `groups`,
+        whatever the batch size, in pop order: a gang group is decided
+        atomically, so a batch holding any member pulls in all the queued
+        members (a group straddling the batch boundary would otherwise have
+        its first slice bound before the rest was considered). Attempts and
+        pop timestamps as pop_batch sets them; the scheduling cycle does
+        not advance."""
+        with self._lock:
+            take = [e for e in self._active if group_fn(self._infos[e[2]].pod) in groups]
+            if not take:
+                return []
+            taken = {e[2] for e in take}
+            self._active = [e for e in self._active if e[2] not in taken]
+            heapq.heapify(self._active)
+            out = []
+            now = self._now()
+            for e in sorted(take):
+                key = e[2]
+                self._in_active.discard(key)
+                info = self._infos[key]
+                info.attempts += 1
+                info.pop_ts = now
+                out.append(info)
+        return out
+
     def requeue(self, infos: List[PodInfo]) -> None:
         """Return popped-but-unsolved pods to activeQ with their enqueue
         sequence kept, so they pop again in the same order (no backoff)."""

@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Where the port's drain spends its time, on one NVIDIA card.
 
-    python3 scripts/torch_drain_profile.py [--config 2|3|3-hard|4|6] [--services]
+    python3 scripts/torch_drain_profile.py [--config 2|3|3-hard|4|5|6] [--services]
         [--nodes N] [--pods P] [--batch 4096] [--runs plain,sampled,traced]
         [--out chiprun_out/drain_profile] [--ab PAIRS]
 
@@ -13,7 +13,9 @@ constraint DoNotSchedule: the commit arbiter's defers, and the host
 oracle's re-placement of the pods deferred three times in a row; its
 warm-up drain is 1/100 of the pods), config 4 (default 2,000 nodes /
 20,000 pods: required hostname anti-affinity on every 10th pod, preferred
-zone affinity on the rest) or config 6 (default 500 full nodes with 7
+zone affinity on the rest), config 5 (default 2,000 nodes / 64,000 pods in
+gang groups of 64: every batch solved all-or-nothing, every pod through
+the per-pod commit loop) or config 6 (default 500 full nodes with 7
 bound priority-0 pods each, --pods 2,000 pending priority-1000 pods that
 land only by preemption, batch 1,024 by default so that batches
 dispatch with another batch's nominations outstanding; the drain waits
@@ -89,6 +91,9 @@ STAGES = (
     ("scheduler/driver.py", "_commit_bulk"),
     ("scheduler/driver.py", "_commit_arbitrated"),
     ("scheduler/driver.py", "_commit_loop"),
+    ("state/queue.py", "pop_all_in_groups"),
+    ("ops/pipeline.py", "solve_pipeline_gang"),
+    ("scheduler/driver.py", "_prepare_commit"),
     ("scheduler/driver.py", "_oracle_place"),
     ("scheduler/driver.py", "_pod_meta"),
     ("oracle/predicates.py", "compute_even_pods_spread_metadata"),
@@ -127,6 +132,7 @@ def drain(config: str, services: bool, n_nodes: int, n_pods: int, batch: int, ar
         bench_config2,
         bench_config3,
         bench_config4,
+        bench_config5,
         bench_config6,
         fill_cache,
     )
@@ -140,6 +146,8 @@ def drain(config: str, services: bool, n_nodes: int, n_pods: int, batch: int, ar
         nodes, pods = bench_config2(n_nodes, n_pods)
     elif config == "4":
         nodes, pods = bench_config4(n_nodes, n_pods)
+    elif config == "5":
+        nodes, pods = bench_config5(n_nodes, n_pods // 64)
     elif config == "6":
         nodes, existing, pods = bench_config6(n_nodes, n_pods)
     else:
@@ -162,9 +170,10 @@ def drain(config: str, services: bool, n_nodes: int, n_pods: int, batch: int, ar
         torch.cuda.synchronize()
         wall = time.perf_counter() - t0
     sched.close()
-    if res.scheduled != n_pods:
-        raise SystemExit(f"drain placed {res.scheduled} of {n_pods} pods")
-    return {"wall_s": wall, "pods_per_s": n_pods / wall, **sched.stats}
+    if res.scheduled != len(pods):
+        raise SystemExit(f"drain placed {res.scheduled} of {len(pods)} pods")
+    return {"wall_s": wall, "pods_per_s": len(pods) / wall, "mirror_rebuilds": sched.mirror.rebuild_count,
+            **sched.stats}
 
 
 def drain_preemption(cache, queue, n_pods: int, batch: int, around, planes: bool):
@@ -321,13 +330,13 @@ def ab(work, args, smi) -> int:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--config", choices=("2", "3", "3-hard", "4", "6"), default="2")
+    ap.add_argument("--config", choices=("2", "3", "3-hard", "4", "5", "6"), default="2")
     ap.add_argument("--services", action="store_true", help="config 3: one Service per app")
     ap.add_argument("--nodes", type=int, default=None,
-                    help="default 5,000 (config 2) / 10,000 (config 3) / 2,000 (config 4) / 500 (config 6)")
+                    help="default 5,000 (config 2) / 10,000 (config 3) / 2,000 (configs 4, 5) / 500 (config 6)")
     ap.add_argument("--pods", type=int, default=None,
-                    help="default 50,000 (config 2) / 100,000 (config 3) / 20,000 (config 4) / 2,000 "
-                         "preemptors (config 6)")
+                    help="default 50,000 (config 2) / 100,000 (config 3) / 20,000 (config 4) / 64,000 in "
+                         "groups of 64 (config 5) / 2,000 preemptors (config 6)")
     ap.add_argument("--runs", default="plain,sampled,traced", help="which of the three drains to run")
     ap.add_argument("--batch", type=int, default=None, help="default 4,096 (1,024 for config 6)")
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out", "drain_profile"))
@@ -335,8 +344,8 @@ def main() -> int:
                     help="run PAIRS alternating planes-on / planes-off drain pairs instead of the profile")
     args = ap.parse_args()
     cfg = args.config.split("-")[0]
-    args.nodes = args.nodes or {"2": 5000, "3": 10000, "4": 2000, "6": 500}[cfg]
-    args.pods = args.pods or {"2": 50000, "3": 100000, "4": 20000, "6": 2000}[cfg]
+    args.nodes = args.nodes or {"2": 5000, "3": 10000, "4": 2000, "5": 2000, "6": 500}[cfg]
+    args.pods = args.pods or {"2": 50000, "3": 100000, "4": 20000, "5": 64000, "6": 2000}[cfg]
     args.batch = args.batch or (1024 if args.config == "6" else 4096)
     runs = set(args.runs.split(","))
     if not torch.cuda.is_available():

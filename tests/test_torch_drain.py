@@ -15,8 +15,8 @@ commit arbiter). The host oracle's drains (defer escalations, required
 pod affinity to in-batch anchors, encoding overflow, fallback node rows,
 late and outstanding nominations, term-carrying preemptors) equal the
 reference's default driver, its oracle and arbiter counters included.
-Tolerance: exact equality. Gang groups, not ported, raise
-NotImplementedError and leave the batch in the queue."""
+Tolerance: exact equality. A batch holding a gang group's pod schedules as
+the reference's (tests/test_torch_gang.py holds the gang path itself)."""
 
 import jax
 import jax.numpy as jnp
@@ -409,16 +409,21 @@ def test_unported_paths_raise_and_keep_the_batch(case):
 
 
 def test_gang_refuses_and_keeps_the_batch():
-    """A pod of a PodGroup needs the gang solve, which is not ported: the
-    batch goes back to the queue and the driver raises."""
+    """A pod of a PodGroup, once refused, now takes the gang solve and the
+    per-pod loop: the batch schedules placement for placement as the
+    reference's default commit path, and the queue ends empty on both."""
     def edit(pods, t):
         pods[2].labels["pod-group.scheduling.sigs.k8s.io/name"] = "g"
 
-    sched, queue = _cluster_with(edit)
-    with pytest.raises(NotImplementedError, match="gang"):
-        sched.schedule_batch()
-    assert queue.counts() == (6, 0, 0)
-    sched.close()
+    results = []
+    for pkg, t in (("ref", RT), ("port", PT)):
+        sched, queue = _cluster_with(edit, t=t, pkg=pkg, ref_planes=True)
+        res = sched.run_until_empty()
+        sched.wait_for_binds()
+        sched.close()
+        results.append((res.scheduled, res.unschedulable, res.assignments, queue.counts(), sched.stats["batches"]))
+    ref, port = results
+    assert port == ref and port[0] == 6 and port[3] == (0, 0, 0)
 
 
 @pytest.mark.parametrize("case", ["anti", "ports", "existing-affinity", "preferred-affinity", "spread"])

@@ -33,6 +33,7 @@ def _modules():
 def test_every_module_imports_with_jax_blocked():
     mods = _modules()
     assert "kubernetes_tpu_torch.scheduler.driver" in mods and "kubernetes_tpu_torch.kernels.build" in mods
+    assert "kubernetes_tpu_torch.commit.apply" in mods  # the gang commit's rollback record
     code = f"""
 import sys
 class Block:

@@ -4,8 +4,8 @@ output), score, solve (with and without in-batch tracking), match_terms,
 spread_score, selector_spread_score, interpod_filter (every subset of its
 parts), interpod_score (each part and both), inbatch_port_conflict,
 spread_filter, the commit arbiter, the commit fold, the preemption victim
-search, the nominee overlay's usage fold and the host oracle's score-row
-gather.
+search, the nominee overlay's usage fold, the host oracle's score-row gather and
+the two-pass gang solve.
 Needs an NVIDIA card and nvcc:
 
     python -m pytest -m cuda tests/test_torch_kernels_cuda.py
@@ -467,3 +467,43 @@ def test_gather_score_rows_kernel_equals_plain(cuda, u, n, rows):
     with pytest.raises(IndexError):
         PP.gather_score_rows(score, [u])
 
+
+
+@pytest.mark.parametrize("det", [True, False], ids=["deterministic", "noise"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_gang_kernel_equals_plain(cuda, seed, det):
+    """Both passes in one launch: groups of 2-12 members on scattered
+    positions (some with a spec that fits nowhere, so their groups drop),
+    ungrouped pods, a grouped padded position; the same assignment, gang_ok
+    and pass-2 carry as the plain version."""
+    import numpy as np
+
+    na, pa, ids = cluster(seed, cuda)
+    mask = F.combined_mask(na, pa, ids)
+    score = S.score_matrix(na, pa)
+    b = 640
+    rng = np.random.default_rng(seed)
+    sig = (torch.arange(b, device=cuda) % 200).to(torch.int32)
+    pod_valid = torch.arange(b, device=cuda) < b - 40
+    group = np.full(b, -1, np.int32)
+    pos, g, k = rng.permutation(b - 40), 0, 0
+    while k < len(pos) - 60:
+        size = int(rng.integers(2, 13))
+        group[pos[k:k + size]] = g
+        g, k = g + 1, k + size
+    group[b - 2] = g
+    group = torch.from_numpy(group).to(cuda)
+    order = SO.pop_order((torch.arange(b, device=cuda) % 3).to(torch.int32),
+                         torch.arange(b, dtype=torch.int32, device=cuda), pod_valid)
+    args = (mask, score, pa["req"], na["alloc"] - na["requested"], na["pod_count"].long(),
+            na["allowed_pods"].long(), order, group, SO.prng_key_data(seed + 2**32))
+    kw = dict(deterministic=det, req_any=pa["req_any"], sig=sig, pod_valid=pod_valid,
+              return_carry=True, nz0=na["nonzero_req"], scoring_req=pa["scoring_req"])
+    before, greedy = SO.solve_gang.launches, SO.solve_greedy.launches
+    got, ok, carry = SO.solve_gang(*args, **kw)
+    assert SO.solve_gang.launches == before + 1 and SO.solve_greedy.launches == greedy
+    want, want_ok, want_carry = SO.solve_gang_plain(*args, **kw)
+    assert torch.equal(got, want) and torch.equal(ok, want_ok)
+    for a, c in zip(carry, want_carry):
+        assert torch.equal(a, c)
+    assert int((~ok).sum()) > 0 and int((got >= 0).sum()) > 50
