@@ -20,7 +20,10 @@ cores that land only by preemption) and on config 3-hard (config 3 with
 every constraint DoNotSchedule) on the full 10,000-node cluster, where
 the commit arbiter's defers escalate to the host oracle, and on the
 config-5 gang workload (2,000 nodes, 1,000 groups of 64 pods placed all
-or nothing) — and checks what they placed. Phases:
+or nothing) — every one through the ingest and term planes (the pods
+admitted to a running scheduler, staged as the queue adds them, each
+batch's pod arrays and term table gathered on the card) — and checks what
+they placed. Phases:
 
   1. device     card name, count, power limit
   2. build      nvcc seconds and the -Xptxas -v register/shared lines
@@ -63,12 +66,22 @@ or nothing) — and checks what they placed. Phases:
                 deterministic and with tie-noise, on the pipeline's mask and
                 score of the first config-5 batch (U=64, N=2048, B=4096, 64
                 groups) and at a tight shape (one more pod a node: most
-                groups drop), timed through its wrapper
+                groups drop), timed through its wrapper; the ingest and
+                term planes' gather_stage and gather_terms (csrc/slab.cu,
+                one launch a dict) on their edges and at the config-3
+                shapes (U = TT = 128 lanes, 100 live, slab 256; timed) and
+                the config-5 ones (U = 64, slab 1,024; TT = 16, none live),
+                and scatter_rows on its edges (duplicates, an empty dirty
+                set) and at config 5's restage flush (64 of 1,024 rows,
+                timed), the library yardstick one index_select + where, or
+                one index_copy_, per array, summed
   4. parity     config 2, config 3 and config 4 at 1/10 scale through
                 Scheduler with the commit plane on (the arbiter and the
-                fold), on cuda and on cpu, and with it off on cuda (config 3 without
+                fold), on cuda and on cpu, with it off on cuda, and with the
+                ingest and term planes off on cuda (config 3 without
                 Services deterministic, with Services under tie-noise;
-                config 4 both): identical placements; then config 3-hard at
+                config 4 both): identical placements, the plane counters
+                equal on cuda and cpu; then config 3-hard at
                 1/10 (1,000 nodes, 10,000 pods, batch 128, deterministic) on
                 cuda (a main path: the arbiter's defers and spread_filter)
                 and cpu: identical placements and defers, every batch
@@ -99,7 +112,10 @@ or nothing) — and checks what they placed. Phases:
                 assume left beyond the placed pods; the groups never placed
                 are printed) and config 1 at full size (500 nodes, 5,000
                 pods): identical placements on cuda and cpu
-  5. drain      config 2 at full size; then config 3 at full size, without
+  5. drain      (after every full drain: each slab's device twin equals its
+                host slab, every batch gathered or legacy on each plane,
+                at most one legacy batch per slab rebuild) config 2 at
+                full size; then config 3 at full size, without
                 and with Services; then config 4 at full size, all with the
                 commit plane on (the default): every pod placed, no node
                 over its allocatable or pod limit, config 2's placements
@@ -133,7 +149,7 @@ or nothing) — and checks what they placed. Phases:
                 its limits, every batch a gang batch and no rollback, the
                 device node and signature banks equal to a fresh encode;
                 stages, pods/s and the mirror's rebuild count
-  6. kernels    one JSON line: per kernel (the sixteen and the tracked
+  6. kernels    one JSON line: per kernel (the nineteen and the tracked
                 solve) its launches in the main-path drains (the counts are
                 set to 0 before each drain and read after it: config 3-hard
                 and config 6 at 1/10, the oracle drains, config 5 at 1/10,
@@ -1284,6 +1300,185 @@ def phase_gang_kernels():
     return {"solve_gang": st}
 
 
+def seeded_slab(template, s, seed):
+    """A slab dict shaped like `template` at S rows from a numpy seed (bools,
+    int32, int64 with both extremes) and a one-row padding dict, on the
+    card."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.state.convert import arrays_to_torch
+
+    rng = np.random.default_rng(seed)
+    slab, empty = {}, {}
+    for k, v in template.items():
+        shape = (s,) + v.shape[1:]
+        if v.dtype == bool:
+            slab[k] = rng.random(shape) < 0.5
+        elif v.dtype == np.int64:
+            slab[k] = rng.integers(-(2**62), 2**62, shape, dtype=np.int64)
+            slab[k].flat[0], slab[k].flat[-1] = np.iinfo(np.int64).min, np.iinfo(np.int64).max
+        else:
+            slab[k] = rng.integers(-(2**31), 2**31 - 1, shape, dtype=v.dtype)
+        empty[k] = np.asarray(v[:1]).copy()
+    return slab, arrays_to_torch(slab, "cuda", copy=True), arrays_to_torch(empty, "cuda", copy=True)
+
+
+def slab_template(plane):
+    from kubernetes_tpu_torch.state.tensors import PodBatch, Vocab
+    from kubernetes_tpu_torch.state.terms import TermBank
+
+    return (PodBatch if plane == "stage" else TermBank)(Vocab(), 1).arrays()
+
+
+def slab_gather_work(bank, lanes, live):
+    """(bytes, integer operations) of a slab gather: each live lane's row of
+    every array read once, the padding row read once, every output row
+    written once, and the lane vectors (index, keep, column) read."""
+    rb = sum(int(v[0].numel() * v.element_size()) for v in bank.values())
+    return live * rb + rb + lanes * rb + 12 * lanes, 0
+
+
+def slab_scatter_work(bank, n_rows):
+    """(bytes, integer operations) of a row scatter: each dirty row of every
+    array read once from the staged copy and written once, the indices
+    read."""
+    rb = sum(int(v[0].numel() * v.element_size()) for v in bank.values())
+    return 2 * n_rows * rb + 4 * n_rows, 0
+
+
+def compare_slab_gather(label, plane, s, lanes, live, time_it, seed=0):
+    """Hold gather_stage / gather_terms against its plain version, bit for
+    bit, on a seeded slab with `live` kept lanes (repeated rows among them)
+    and padding after; with time_it, time the kernel (one prebuilt argument
+    struct relaunched), the plain version and the library yardstick (one
+    index_select + where per array, summed), and bound it."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.ingest import gather_stage, gather_stage_plain
+    from kubernetes_tpu_torch.kernels import build
+    from kubernetes_tpu_torch.ops import slab as SL
+    from kubernetes_tpu_torch.terms_plane import gather_terms, gather_terms_plain
+
+    _, bank, emp = seeded_slab(slab_template(plane), s, seed)
+    rng = np.random.default_rng(seed)
+    idx = np.zeros(lanes, np.int32)
+    idx[:live] = rng.integers(0, s, live)
+    idx[: min(3, live)] = idx[0]
+    keep = np.arange(lanes) < live
+    col = rng.integers(0, 2 if plane == "stage" else 512, lanes).astype(np.int32)
+    ti, tk, tc = (torch.from_numpy(a).cuda() for a in (idx, keep, col))
+    if plane == "stage":
+        name, got = "gather_stage", gather_stage(bank, idx, keep, emp, col.astype(bool))
+        plain = lambda: gather_stage_plain(bank, ti, tk, emp, tc.bool())  # noqa: E731
+    else:
+        name, got = "gather_terms", gather_terms(bank, idx, col, keep, emp)
+        plain = lambda: gather_terms_plain(bank, ti, tc, tk, emp)  # noqa: E731
+    want = plain()
+    err = sum(int((got[k] != want[k]).sum()) for k in want)
+    check(err == 0 and sorted(got) == sorted(want), f"[{label}] {name} differs from its plain version in {err} cells")
+    st = {"max_abs_err": err}
+    log(f"[kernels] {label}: S={s} lanes={lanes} live={live}: {name} exact")
+    if time_it:
+        host = np.stack([idx, keep.astype(np.int32), col])
+        lanes_d = torch.from_numpy(host).cuda()
+        out = {k: torch.empty_like(v) for k, v in want.items()}
+        ck = "fallback" if plane == "stage" else "owner"
+        gargs = SL.gather_args(bank, emp, out, lanes_d, ck, plane != "stage")
+        st["ms"] = cuda_ms(lambda: build.launch(SL.GATHER_ENTRY, gargs, ti.device), 200)
+        st["plain_ms"] = cuda_ms(plain, 50)
+        il = ti.long()
+
+        def library():
+            for k, v in bank.items():
+                g = torch.index_select(v, 0, il)
+                torch.where(tk.reshape((-1,) + (1,) * (g.ndim - 1)), g, emp[k])
+
+        st["library_ms"] = cuda_ms(library, 50)
+        st["bound"] = bound(slab_gather_work(bank, lanes, live))
+        log(f"[kernels] {label} {name}: kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, bound "
+            f"{st['bound'][0]:.6f} ms ({st['bound'][1]}), library index_select + where per array "
+            f"{st['library_ms']:.4f} ms")
+    return st
+
+
+def compare_slab_scatter(label, plane, s, rows, time_it, seed=0):
+    """Hold scatter_rows against its plain version (one index_copy_ per
+    array) on a seeded slab: `rows` dirty rows, duplicates carrying
+    identical bytes; with time_it, time the kernel alone (the packed rows
+    already on the card), the whole wrapper (packing and the one copy
+    included), the plain version and its library yardstick, and bound
+    it."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.kernels import build
+    from kubernetes_tpu_torch.ops import slab as SL
+    from kubernetes_tpu_torch.state.convert import arrays_to_torch
+
+    template = slab_template(plane)
+    host, dev, _ = seeded_slab(template, s, seed)
+    upd_all, _, _ = seeded_slab(template, max(len(rows), 1), seed + 1)
+    upd = {k: v[: len(rows)].copy() for k, v in upd_all.items()}
+    for j in range(1, len(rows)):
+        if rows[j] in rows[:j]:
+            for v in upd.values():
+                v[j] = v[rows.index(rows[j])]
+    idx = np.asarray(rows, np.int64)
+    want = arrays_to_torch(host, "cuda", copy=True)
+    ti = torch.from_numpy(idx).cuda()
+    tu = arrays_to_torch(upd, "cuda", copy=True)
+    SL.scatter_rows(dev, idx, upd)
+    SL.scatter_rows_plain(want, ti, tu)
+    err = sum(int((dev[k] != want[k]).sum()) for k in want)
+    check(err == 0, f"[{label}] scatter_rows differs from its plain version in {err} cells")
+    st = {"max_abs_err": err}
+    log(f"[kernels] {label}: S={s} R={len(rows)}: scatter_rows exact")
+    if time_it:
+        buf, offs = SL.pack_rows(dev, upd)
+        packed = torch.from_numpy(buf).cuda()
+        i32 = ti.int()
+        sargs = SL.scatter_args(dev, packed, offs, i32, len(rows))
+        st["ms"] = cuda_ms(lambda: build.launch(SL.SCATTER_ENTRY, sargs, ti.device), 200)
+        st["wrapper_ms"] = cuda_ms(lambda: SL.scatter_rows(dev, idx, upd), 50)
+        st["plain_ms"] = cuda_ms(lambda: SL.scatter_rows_plain(want, ti, tu), 50)
+
+        def library():
+            for k, u in tu.items():
+                want[k].index_copy_(0, ti, u)
+
+        st["library_ms"] = cuda_ms(library, 50)
+        st["bound"] = bound(slab_scatter_work(dev, len(rows)))
+        log(f"[kernels] {label} scatter_rows: kernel {st['ms']:.4f} ms (through its wrapper, packing and the copy "
+            f"included, {st['wrapper_ms']:.4f} ms), plain {st['plain_ms']:.4f} ms, bound {st['bound'][0]:.6f} ms "
+            f"({st['bound'][1]}), library index_copy_ per array {st['library_ms']:.4f} ms")
+    return st
+
+
+def phase_slab_kernels():
+    """The ingest and term planes' kernels: the gathers on their edges (S
+    not a multiple of the block, one lane, no live lane) and at the
+    config-3 (U = TT = 128 lanes, 100 live, slab 256) and config-5 (U = 64
+    on a 1,024-row slab; TT = 16 lanes, none live: config 5 has no terms)
+    shapes; the scatter on its edges (duplicates, the last row, an empty
+    dirty set) and at config 5's restage flush (64 dirty rows of a
+    1,024-row slab)."""
+    for plane in ("stage", "terms"):
+        compare_slab_gather("slab edges", plane, 37, 48, 5, time_it=False, seed=1)
+        compare_slab_gather("slab edges", plane, 3, 1, 1, time_it=False, seed=2)
+        compare_slab_scatter("slab edges", plane, 256, [3, 17, 17, 0, 255, 22], time_it=False, seed=3)
+        compare_slab_scatter("slab edges", plane, 37, [], time_it=False, seed=4)
+    stats = {
+        "gather_stage": compare_slab_gather("config-3", "stage", 256, 128, 100, time_it=True, seed=5),
+        "gather_terms": compare_slab_gather("config-3", "terms", 256, 128, 100, time_it=True, seed=6),
+        "scatter_rows": compare_slab_scatter("config-5", "stage", 1024, list(range(0, 1024, 16)), time_it=True,
+                                             seed=7),
+    }
+    info5 = compare_slab_gather("config-5", "stage", 1024, 64, 64, time_it=True, seed=8)
+    info5t = compare_slab_gather("config-5", "terms", 256, 16, 0, time_it=True, seed=9)
+    log(f"[kernels] config-5 gathers (information): gather_stage {info5['ms']:.4f} ms, gather_terms "
+        f"{info5t['ms']:.4f} ms")
+    return stats
+
+
 def phase_preempt_kernels():
     """preempt_batch on every branch and at the config-6 shapes; fold_usage
     likewise. Returns {kernel: stats}."""
@@ -1390,6 +1585,7 @@ def phase_kernels():
     stats.update(phase_preempt_kernels())
     stats.update(phase_gather_kernels())
     stats.update(phase_gang_kernels())
+    stats.update(phase_slab_kernels())
     return stats
 
 
@@ -1402,9 +1598,12 @@ def kernel_counters():
     from kubernetes_tpu_torch.ops import topology as TO
 
     from kubernetes_tpu_torch.commit import arbiter as A
+    from kubernetes_tpu_torch.ingest import gather_stage
     from kubernetes_tpu_torch.ops import fold as FO
     from kubernetes_tpu_torch.ops import pipeline as PP
     from kubernetes_tpu_torch.ops import preempt as PR
+    from kubernetes_tpu_torch.ops import slab as SL
+    from kubernetes_tpu_torch.terms_plane import gather_terms
 
     return {
         "filter_mask": (F.combined_mask, "launches"), "score_matrix": (S.score_matrix, "launches"),
@@ -1418,11 +1617,13 @@ def kernel_counters():
         "fold_commit_banks": (FO.fold_commit_banks, "launches"),
         "preempt_batch": (PR.preempt_batch, "launches"), "fold_usage": (FO.fold_usage, "launches"),
         "gather_score_rows": (PP.gather_score_rows, "launches"), "solve_gang": (SO.solve_gang, "launches"),
+        "gather_stage": (gather_stage, "launches"), "gather_terms": (gather_terms, "launches"),
+        "scatter_rows": (SL.scatter_rows, "launches"),
     }
 
 
 def drain(device, workload, n_nodes, n_pods, batch, deterministic, seed=0, services=False, planes=True,
-          hard=False):
+          hard=False, stage_planes=True):
     from kubernetes_tpu_torch.models.clusters import (
         bench_config1,
         bench_config2,
@@ -1448,12 +1649,14 @@ def drain(device, workload, n_nodes, n_pods, batch, deterministic, seed=0, servi
         nodes, pods, fn = bench_config3(n_nodes, n_pods, services=services, hard=hard)
     cache, queue = SchedulerCache(), PriorityQueue()
     fill_cache(cache, nodes)
-    for p in pods:
-        queue.add(p)
+    # the pods are admitted to a running scheduler: the queue stages each
+    # one into the ingest and term slabs as it adds it
     sched = Scheduler(cache, queue, batch_size=batch, deterministic=deterministic, seed=seed, device=device,
-                      commit_plane=planes)
+                      commit_plane=planes, ingest_plane=stage_planes, term_plane=stage_planes)
     if fn is not None:
         sched.set_spread_selectors_fn(fn)
+    for p in pods:
+        queue.add(p)
     if device == "cuda":
         torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -1490,8 +1693,6 @@ def drain6(device, n_nodes, n_preemptors, batch, planes=True, stepped=False):
     clock = StepClock() if stepped else time.monotonic
     cache, queue = SchedulerCache(), PriorityQueue(now=clock)
     fill_cache(cache, nodes, existing)
-    for p in pending:
-        queue.add(p)
     victims, unnominated, bad_victims = [], [], []
 
     def delete(v):
@@ -1509,6 +1710,8 @@ def drain6(device, n_nodes, n_preemptors, batch, planes=True, stepped=False):
 
     sched = Scheduler(cache, queue, batch_size=batch, deterministic=True, device=device, commit_plane=planes,
                       delete_fn=delete, nominate_fn=nominate)
+    for p in pending:
+        queue.add(p)
     out = {"assignments": {}, "nominations": [], "preempted": 0, "batch_s": 0.0}
     if device == "cuda":
         torch.cuda.synchronize()
@@ -1554,9 +1757,9 @@ def gang_drain(device, batch, deterministic, seed=11):
     clock = StepClock()
     cache, queue = SchedulerCache(), PriorityQueue(now=clock)
     fill_cache(cache, nodes)
+    sched = Scheduler(cache, queue, batch_size=batch, deterministic=deterministic, seed=seed, device=device)
     for p in pods:
         queue.add(p)
-    sched = Scheduler(cache, queue, batch_size=batch, deterministic=deterministic, seed=seed, device=device)
     out = {"assignments": {}, "batches": []}
     t0 = time.perf_counter()
     for _ in range(3):
@@ -1678,8 +1881,6 @@ def oracle_drain(device, workload, batch, planes=True):
     clock = StepClock()
     cache, queue = SchedulerCache(), PriorityQueue(now=clock)
     fill_cache(cache, nodes, existing)
-    for p in pending:
-        queue.add(p)
     victims = []
 
     def delete(v):
@@ -1688,6 +1889,8 @@ def oracle_drain(device, workload, batch, planes=True):
 
     sched = Scheduler(cache, queue, batch_size=batch, deterministic=True, device=device, commit_plane=planes,
                       pdb_lister=lambda: pdbs, delete_fn=delete)
+    for p in pending:
+        queue.add(p)
     out = {"assignments": {}, "victims": victims, "nominations": [], "preempted": 0}
     t0 = time.perf_counter()
     idle = stale = 0
@@ -1768,8 +1971,14 @@ def phase_parity():
         gsched, _, _, gpu, tg = drain("cuda", workload, n_nodes, n_pods, batch, det, seed=3, services=services)
         _, _, _, off, to = drain("cuda", workload, n_nodes, n_pods, batch, det, seed=3, services=services,
                                  planes=False)
-        _, _, _, cpu, tc = drain("cpu", workload, n_nodes, n_pods, batch, det, seed=3, services=services)
+        _, _, _, soff, ts = drain("cuda", workload, n_nodes, n_pods, batch, det, seed=3, services=services,
+                                  stage_planes=False)
+        csched, _, _, cpu, tc = drain("cpu", workload, n_nodes, n_pods, batch, det, seed=3, services=services)
         st = gsched.stats
+        pc = plane_counters(gsched)
+        check(pc == plane_counters(csched), f"parity drain ({workload}): plane counters {pc} on cuda, "
+              f"{plane_counters(csched)} on cpu")
+        verify_stage_planes(f"parity drain ({workload})", gsched)
         if workload == "config4":
             # later batches read the committed pods' terms from the PatternBank
             check({"et_anti", "et_score"} <= gsched._term_kinds and st["tracked_batches"] > 0,
@@ -1781,13 +1990,17 @@ def phase_parity():
               f"parity drain placed {gpu.scheduled}/{off.scheduled}/{cpu.scheduled}")
         diff = sum(1 for k, v in cpu.assignments.items() if gpu.assignments.get(k) != v)
         diff_off = sum(1 for k, v in off.assignments.items() if gpu.assignments.get(k) != v)
-        check(diff == 0 and diff_off == 0 and len(gpu.assignments) == len(cpu.assignments),
+        diff_soff = sum(1 for k, v in soff.assignments.items() if gpu.assignments.get(k) != v)
+        check(diff == 0 and diff_off == 0 and diff_soff == 0 and len(gpu.assignments) == len(cpu.assignments)
+              == len(soff.assignments),
               f"parity drain ({workload}, deterministic={det}, services={services}): {diff} pods placed "
-              f"differently on cuda and cpu, {diff_off} with the planes on and off")
+              f"differently on cuda and cpu, {diff_off} with the commit plane on and off, {diff_soff} with the "
+              f"ingest and term planes on and off")
         log(f"[parity] {workload} /10 ({n_nodes} nodes, {n_pods} pods, batch {batch}), deterministic={det}"
-            f"{', Services' if services else ''}: identical placements, planes on (cuda, cpu) and off (cuda) "
-            f"({gpu.scheduled} pods; {st['arbiter_batches']} arbitrated batches; cuda {tg:.2f}s, planes off "
-            f"{to:.2f}s, cpu {tc:.2f}s)")
+            f"{', Services' if services else ''}: identical placements, planes on (cuda, cpu), commit plane off "
+            f"(cuda) and ingest + term planes off (cuda) ({gpu.scheduled} pods; {st['arbiter_batches']} "
+            f"arbitrated batches; plane counters {pc} on cuda and cpu; cuda {tg:.2f}s, commit plane off "
+            f"{to:.2f}s, ingest + term off {ts:.2f}s, cpu {tc:.2f}s)")
     # config 3-hard at 1/10: a main path of its own (spread_filter and the
     # arbiter's defers run only on DoNotSchedule batches)
     n_nodes, n_pods = CONFIG3_NODES // 10, CONFIG3_PODS // 10
@@ -1999,15 +2212,42 @@ def zone_skew(nodes, pods, res):
     return max(max(per[(a, z)] for z in zones) - min(per[(a, z)] for z in zones) for a in apps)
 
 
+PLANE_COUNTERS = ("ingest_index_batches", "ingest_legacy_batches", "ingest_stale_rows", "ingest_restaged",
+                  "stage_sync_flushes", "term_index_batches", "term_legacy_batches", "term_stale_rows",
+                  "term_restaged", "term_sync_flushes")
+
+
+def plane_counters(sched):
+    return {k: sched.stats[k] for k in PLANE_COUNTERS}
+
+
+def verify_stage_planes(label, sched):
+    """The ingest and term planes after a drain: each slab's device twin
+    equals its host slab on the live rows, every batch went through a plane
+    either gathered or legacy, and a plane took the legacy path at most
+    once per slab rebuild."""
+    st = sched.stats
+    for plane, slab, bank in (("ingest", sched.stage, sched.stage_bank), ("term", sched.tstage, sched.term_bank)):
+        div = bank.device_divergence()
+        check(div == [], f"{label}: the {plane} slab's device twin differs from its host slab: {div}")
+        idx, leg = st[f"{plane}_index_batches"], st[f"{plane}_legacy_batches"]
+        check(idx + leg == st["batches"], f"{label}: {plane} plane {idx} gathered + {leg} legacy batches of "
+              f"{st['batches']}")
+        check(leg <= slab.stats["rebuilds"], f"{label}: {leg} {plane} legacy batches for {slab.stats['rebuilds']} "
+              f"slab rebuilds")
+
+
 def run_main_path(label, names, run):
     """Drive one main path with every kernel count set to 0 just before it;
-    read the counts of `names` just after and require each > 0."""
+    read the counts of `names` just after and require each > 0. Every main
+    path runs the ingest and term planes: their gathers launch once a
+    batch."""
     counters = kernel_counters()
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
     out = run()
     launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
-    for name in names:
+    for name in list(names) + ["gather_stage", "gather_terms"]:
         check(launches[name] > 0, f"kernel {name} was not launched by the {label} drain")
     return out, launches
 
@@ -2022,6 +2262,10 @@ def log_drain(label, sched, res, wall, smi):
         f"{st['fold_s']:.3f}, overflow {st['fold_overflow_batches']}), arbiter_batches {st['arbiter_batches']} "
         f"(place {st['arbiter_place']}, defer {st['arbiter_defer']}), apply_s {st['apply_s']:.3f}, "
         f"rows_shipped {sched.mirror.rows_shipped}")
+    log(f"[drain] {label} ingest and term planes: stage_s {st['stage_s']:.3f}, term_gather_s "
+        f"{st['term_gather_s']:.3f}; {plane_counters(sched)}; slab rebuilds {sched.stage.stats['rebuilds']} / "
+        f"{sched.tstage.stats['rebuilds']}, capacity {sched.stage.capacity} / {sched.tstage.capacity}; twins: "
+        f"{sched.stage_bank.stats} / {sched.term_bank.stats}")
 
 
 def verify_planes(label, sched, arbitrated=False):
@@ -2052,6 +2296,7 @@ def phase_drain(smi, total):
     add(launches)
     verify_drain(sched, nodes, pods, res, "cuda")
     verify_planes("config-2", sched)
+    verify_stage_planes("config-2", sched)
     verify_node_bank(sched)
     n_sigs = verify_sig_bank(sched)
     log_drain(f"config-2 full ({CONFIG2_NODES} nodes, {CONFIG2_PODS} pods, batch {BATCH})", sched, res, wall, smi)
@@ -2068,6 +2313,7 @@ def phase_drain(smi, total):
         add(launches)
         verify_capacity(sched, pods, res)
         verify_planes(label, sched)
+        verify_stage_planes(label, sched)
         verify_node_bank(sched)
         n_sigs = verify_sig_bank(sched)
         log_drain(f"{label} full ({CONFIG3_NODES} nodes, {CONFIG3_PODS} pods, batch {BATCH})",
@@ -2084,6 +2330,7 @@ def phase_drain(smi, total):
     add(launches)
     verify_capacity(sched, pods, res)
     verify_planes("config-4", sched, arbitrated=True)
+    verify_stage_planes("config-4", sched)
     verify_node_bank(sched)
     n_excl = verify_exclusive(pods, res)
     n_pats = verify_pattern_bank(sched)
@@ -2107,6 +2354,7 @@ def phase_drain(smi, total):
     verify_capacity(sched, pods, res)
     skew = zone_skew(nodes, pods, res)
     check(skew <= 1, f"config-3-hard full cluster: an app's zone counts differ by {skew} > max_skew 1")
+    verify_stage_planes("config-3-hard full cluster", sched)
     verify_node_bank(sched)
     n_sigs = verify_sig_bank(sched)
     st = sched.stats
@@ -2122,11 +2370,15 @@ def phase_drain(smi, total):
     # the per-pod loop
     torch.cuda.reset_peak_memory_stats()
     n5 = CONFIG5_GROUPS * 64
+    # its 1,000 distinct specs grow the pod slab 256 -> 1,024 during
+    # admission: the pairs staged before the last growth re-stage at their
+    # first dispatch, and those rows reach the twin through the scatter
     (sched, nodes, pods, res, wall), launches = run_main_path(
-        "config-5", ["filter_mask", "score_matrix", "solve_gang"],
+        "config-5", ["filter_mask", "score_matrix", "solve_gang", "scatter_rows"],
         lambda: drain("cuda", "config5", CONFIG5_NODES, n5, BATCH, deterministic=False))
     add(launches)
     verify_capacity(sched, pods, res)
+    verify_stage_planes("config-5", sched)
     verify_node_bank(sched)
     n_sigs = verify_sig_bank(sched)
     st = sched.stats
@@ -2149,6 +2401,7 @@ def phase_drain(smi, total):
         add(launches)
         verify_config6(out, f"config-6 batch {batch}")
         sched = out["sched"]
+        verify_stage_planes(f"config-6 batch {batch}", sched)
         st = sched.stats
         log(f"[drain] config-6 full ({CONFIG6_NODES} nodes, {CONFIG6_NODES * 7} bound, {CONFIG6_PREEMPTORS} "
             f"preemptors, batch {batch}): {len(out['assignments'])} placed, {len(out['victims'])} victims, every "
@@ -2227,6 +2480,9 @@ def main() -> int:
         "fold_usage": ("kubernetes_tpu_torch/csrc/fold.cu", "kubernetes_tpu/ops/fold.py:74"),
         "gather_score_rows": ("kubernetes_tpu_torch/csrc/gather.cu", "kubernetes_tpu/ops/pipeline.py:374"),
         "solve_gang": ("kubernetes_tpu_torch/csrc/solver.cu", "kubernetes_tpu/ops/solver.py:366"),
+        "gather_stage": ("kubernetes_tpu_torch/csrc/slab.cu", "kubernetes_tpu/ingest/gather.py:28"),
+        "gather_terms": ("kubernetes_tpu_torch/csrc/slab.cu", "kubernetes_tpu/terms_plane/gather.py:28"),
+        "scatter_rows": ("kubernetes_tpu_torch/csrc/slab.cu", "kubernetes_tpu/ingest/bank.py:54"),
     }
     kernels = []
     for kname, (src, ref) in sources.items():

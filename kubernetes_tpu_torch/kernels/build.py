@@ -50,6 +50,7 @@ ENTRY_POINTS = (
     "ktpu_interpod_filter", "ktpu_interpod_score", "ktpu_inbatch_port_conflict",
     "ktpu_spread_filter", "ktpu_arbitrate", "ktpu_fold_commit_banks",
     "ktpu_preempt_batch", "ktpu_fold_usage", "ktpu_gather_score_rows", "ktpu_solve_gang",
+    "ktpu_gather_slab", "ktpu_scatter_slab",
 )
 
 _lock = threading.Lock()

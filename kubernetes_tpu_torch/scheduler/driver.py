@@ -1,13 +1,15 @@
 """Scheduler driver: the batch scheduling loop.
 
 The port's lean copy of `kubernetes_tpu/scheduler/driver.py`, reproducing
-the reference's default commit path — the commit and fold planes on and
-preemption on, no ingest or term plane, no speculation, no framework
-plugins, extenders or volumes. Per batch:
+the reference's default path — the ingest, term, commit and fold planes on
+and preemption on, no speculation, warm-up, framework plugins, extenders or
+volumes. Per batch:
 
     pop_batch (+ every queued member of each gang group present) →
     TensorMirror.sync → spec dedup (with the pods' spreading
-    selectors) → PodBatch encode + compile_batch_terms → device_arrays
+    selectors) → the batch's pod arrays and term table gathered on the
+    device from the staged slabs (or, off the planes, PodBatch encode +
+    compile_batch_terms and their upload) → device_arrays
     (node, signature and pattern banks) → the outstanding preemption
     nominees folded onto the node bank's usage columns → one
     solve_pipeline (filter, score, topology and greedy-solve kernels, with
@@ -46,6 +48,23 @@ takes one of the reference's three routes, picked per batch
   group short of its declared min-available rolls the whole group back
   (`GangRollbackRecord`: one bulk cache forget, the members failed).
 
+The ingest and term planes (`ingest_plane`, `term_plane`, on by default as
+in the reference): the queue stages each pod when it admits it — its
+PodBatch row into ingest/stage.PodStage, its topology terms into
+terms_plane/stage.TermStage, content-interned and refcounted — and the
+entry carries the (row, generation) pairs. A dispatch validates the reps'
+pairs (`_stage_prologue`, `_term_prologue`; a stale one re-stages,
+counted), flushes the slabs' dirty rows into their device twins (one
+launch of csrc/slab.cu's row scatter each) and gathers the batch's pod
+arrays and term table on the device from int32 index vectors (one launch
+of csrc/slab.cu's gather each); the term kinds, topology slots, aux bits
+and overflow come from the interned entries. A batch the slabs cannot
+cover (a stale rep that cannot re-stage: slab at its ceiling; a slab
+rebuilt mid-resolve) takes the legacy host-built encode, counted in
+`ingest_legacy_batches` / `term_legacy_batches`. Placements are
+bit-identical either way. No warm-up and no uploader thread: every flush
+is the dispatch-time one (`stage_sync_flushes`, `term_sync_flushes`).
+
 `_oracle_place` walks the nodes in the zone-interleaved order of
 state/node_tree.py and keeps the feasible node with the best device score,
 first wins; the score rows it ranks by stay on the card until the batch's
@@ -66,9 +85,12 @@ The next batches see the outstanding nominations folded onto the node
 bank's usage columns (ops/fold.fold_usage: in place with the commit plane
 on, on a copy with it off), as podFitsOnNode's pass 1 counts them.
 
-Nothing here turns an exception into another route: a kernel failure
-raises, after the batch's pods not yet handled, and the staged members of
-any open gang group (their assumes forgotten), are returned to the queue.
+Nothing here turns an exception into another route — the reference's
+fault breaker, which sends a failed prologue to the legacy path, has no
+port: a kernel failure raises, after the batch's pods not yet handled, and
+the staged members of any open gang group (their assumes forgotten), are
+returned to the queue; a failure before the commit returns the whole
+batch.
 """
 
 from __future__ import annotations
@@ -88,6 +110,7 @@ from ..commit.apply import GangRollbackRecord
 from ..commit.arbiter import V_DEFER, V_PLACE, arbitrate, kinds_covered
 from ..commit.fold import plan_fold
 from ..device import resolve_device
+from ..ingest import PodStage, StageBank, gather_stage
 from ..ops import filters as F
 from ..ops.fold import fold_usage
 from ..ops.pipeline import SolveConfig, gather_score_rows, solve_pipeline, solve_pipeline_gang
@@ -116,11 +139,11 @@ from ..state.terms import (
     SEL_SPREAD,
     SPREAD_HARD,
     SPREAD_SOFT,
-    TermBank,
     compile_batch_terms,
     count_batch_terms,
 )
-from ..state.tensors import KeySlotOverflow, PodBatch, _bucket, _req_slot_pairs, dedup_specs, spec_key
+from ..state.tensors import KeySlotOverflow, PodBatch, _bucket, _req_slot_pairs, dedup_specs_keyed, spec_key
+from ..terms_plane import TermBankDevice, TermStage, gather_terms
 from . import preemption as preemption_mod
 from .preemption import eligible_nominees, fits_considering_nominated, fits_with_nominees
 
@@ -407,6 +430,8 @@ class Scheduler:
         pdb_lister: Optional[Callable[[], list]] = None,
         delete_fn: Optional[Callable[[Pod], None]] = None,
         nominate_fn: Optional[Callable[[Pod, str], None]] = None,
+        ingest_plane: bool = True,
+        term_plane: bool = True,
     ):
         self.device = resolve_device(device)
         # the arbiter's verdicts for DoNotSchedule batches and the commits
@@ -430,6 +455,26 @@ class Scheduler:
         self.delete_fn = delete_fn
         self.nominate_fn = nominate_fn
         self.mirror = TensorMirror(self.cache, self.device)
+        # the ingest plane: pod rows staged at admission into a slab whose
+        # twin lives on the device; covered dispatches gather the pod arrays
+        # there from an index vector (ref :710-726)
+        self.ingest_plane = ingest_plane
+        self.stage: Optional[PodStage] = None
+        self.stage_bank: Optional[StageBank] = None
+        if ingest_plane:
+            self.stage = PodStage(self.mirror.vocab)
+            self.stage_bank = StageBank(self.stage, self.device)
+            self.queue.attach_stage(self.stage)
+        # the term plane: each pod's topology terms interned at admission;
+        # covered dispatches gather the batch term table on the device from
+        # index and owner vectors (ref :736-750)
+        self.term_plane = term_plane
+        self.tstage: Optional[TermStage] = None
+        self.term_bank: Optional[TermBankDevice] = None
+        if term_plane:
+            self.tstage = TermStage(self.mirror.vocab)
+            self.term_bank = TermBankDevice(self.tstage, self.device)
+            self.queue.attach_term_stage(self.tstage)
         self._rng_seed = seed
         # one tie-break key per dispatch: the reference's
         # PRNGKey(seed + cycle), cycle advancing once per dispatch
@@ -477,7 +522,13 @@ class Scheduler:
         # light_rechecks its batch-conflict re-checks, oracle_places the
         # host oracle's re-placements the reference counts; gang_batches the
         # batches solved all-or-nothing, gang_rollbacks the groups whose
-        # staged members the commit loop forgot
+        # staged members the commit loop forgot. The planes, under the
+        # reference's names: *_index_batches the batches gathered on the
+        # device, *_legacy_batches those a plane could not cover,
+        # *_stale_rows the reps whose staged pair was stale, *_restaged those
+        # re-staged at dispatch, stage_sync_flushes / term_sync_flushes the
+        # dispatches that flushed dirty rows, stage_s / term_gather_s the
+        # prologues' seconds (resolve, flush, gather launch)
         self.stats: Dict[str, float] = {
             "sync_s": 0.0, "encode_s": 0.0, "solve_s": 0.0, "commit_s": 0.0, "batches": 0,
             "oracle_rechecks": 0, "light_rechecks": 0, "oracle_places": 0,
@@ -486,72 +537,240 @@ class Scheduler:
             "arbiter_escalated": 0, "apply_s": 0.0, "preempt_batches": 0, "preempted": 0, "victims": 0,
             "preempt_s": 0.0, "preempt_reverify_miss": 0, "nominee_folds": 0,
             "gang_batches": 0, "gang_rollbacks": 0,
+            "ingest_index_batches": 0, "ingest_legacy_batches": 0, "ingest_stale_rows": 0, "ingest_restaged": 0,
+            "stage_sync_flushes": 0, "stage_s": 0.0,
+            "term_index_batches": 0, "term_legacy_batches": 0, "term_stale_rows": 0, "term_restaged": 0,
+            "term_sync_flushes": 0, "term_gather_s": 0.0,
         }
 
     def set_spread_selectors_fn(self, fn: Callable[[Pod], list]) -> None:
         """Install the getSelectors equivalent (the Service / RC / RS /
         StatefulSet selectors that select a pod, selector_spreading.go
-        getSelectors) used for SelectorSpread scoring."""
+        getSelectors) used for SelectorSpread scoring. The term slab
+        interns (spec, selectors) pairs, so admission consults the same
+        function as the dispatch's dedup (ref :839)."""
         self._spread_selectors_fn = fn
+        if self.tstage is not None:
+            self.tstage.selectors_fn = fn
 
     # -- one batch -----------------------------------------------------------
 
-    def _encode(self, infos: List[PodInfo]) -> Tuple[PodBatch, List[Pod], np.ndarray, TermBank, Dict[str, np.ndarray],
-                                                     np.ndarray]:
+    def _encode(self, infos: List[PodInfo]) -> Tuple[Dict[str, torch.Tensor], List[Pod], np.ndarray,
+                                                     Dict[str, torch.Tensor], Dict[str, np.ndarray], np.ndarray,
+                                                     set, set]:
         """Collapse the batch to unique pod specs (replicas share one
-        mask/score row; pods behind different selectors never do), encode
-        one PodBatch row per spec, and compile the specs' topology terms
-        into a TermBank sized by the monotone term bucket. The last element
-        flags the spec rows whose structures or topology terms overflow the
-        encoding: the host oracle re-checks those pods."""
+        mask/score row; pods behind different selectors never do) and build
+        the solve's pod arrays and term table on the device: gathered from
+        the staged slabs where the planes cover the batch, else one
+        PodBatch row per spec and the specs' topology terms compiled into a
+        TermBank sized by the monotone term bucket, uploaded. Returns (pod
+        arrays, reps, sig, term table, aux, fallback, term kinds present,
+        topology slots named); `fallback` flags the spec rows whose
+        structures or topology terms overflow the encoding: the host oracle
+        re-checks those pods."""
         pods = [info.pod for info in infos]
         selectors = None
         if self._spread_selectors_fn is not None:
             selectors = {id(p): self._spread_selectors_fn(p) for p in pods}
-        reps, sig_list = dedup_specs(pods, selectors)
+        reps, sig_list, rep_keys = dedup_specs_keyed(pods, selectors)
+        rep_infos: List[PodInfo] = []  # the first queue entry of each spec
+        for info, u in zip(infos, sig_list):
+            if u == len(rep_infos):
+                rep_infos.append(info)
         self._u_bucket = max(self._u_bucket, _bucket(len(reps)))
         vocab = self.mirror.vocab
+        st = self.stats
         while True:
             try:
-                batch = PodBatch(vocab, self._u_bucket)
-                for i, p in enumerate(reps):
-                    batch.set_pod(i, p)
-                # size the term bucket BEFORE compiling: one compile at the
-                # final capacity
-                self._t_bucket = max(self._t_bucket, _bucket(max(count_batch_terms(reps, selectors), 1)))
-                tb, aux = compile_batch_terms(
-                    vocab, reps, spread_selectors=selectors,
-                    capacity=self._t_bucket, b_capacity=self._u_bucket,
-                )
-                self._t_bucket = max(self._t_bucket, tb.capacity)
+                staged = self._stage_prologue(reps, rep_infos) if self.stage is not None else None
+                if staged is not None:
+                    pa, fb = staged
+                    fallback = fb[: len(reps)].copy()
+                else:
+                    batch = PodBatch(vocab, self._u_bucket)
+                    for i, p in enumerate(reps):
+                        batch.set_pod(i, p)
+                    fallback = batch.fallback[: len(reps)].copy()
+                tp = self._term_prologue(reps, rep_infos, rep_keys, selectors) if self.tstage is not None else None
+                if tp is None:
+                    # size the term bucket BEFORE compiling: one compile at
+                    # the final capacity
+                    self._t_bucket = max(self._t_bucket, _bucket(max(count_batch_terms(reps, selectors), 1)))
+                    tb, aux = compile_batch_terms(
+                        vocab, reps, spread_selectors=selectors,
+                        capacity=self._t_bucket, b_capacity=self._u_bucket,
+                    )
+                    self._t_bucket = max(self._t_bucket, tb.capacity)
                 break
             except KeySlotOverflow:
                 self.mirror._rebuild()
-        fallback = batch.fallback[: len(reps)].copy()
-        for owner in tb.overflow_owners:
+        if staged is None:
+            pa = arrays_to_torch(batch.arrays(), self.device)
+            if self.stage is not None:
+                st["ingest_legacy_batches"] += 1
+        else:
+            st["ingest_index_batches"] += 1
+        if tp is None:
+            ta = arrays_to_torch(tb.arrays(), self.device)
+            overflow = tb.overflow_owners
+            present = set(np.unique(tb.kind[tb.valid]).tolist())
+            slots = set(np.asarray(tb.topo_slot[tb.valid], np.int64).tolist())
+            if self.tstage is not None:
+                st["term_legacy_batches"] += 1
+        else:
+            ta, aux, overflow, present, slots = tp["ta"], tp["aux"], tp["overflow"], tp["kinds"], tp["slots"]
+            st["term_index_batches"] += 1
+        for owner in overflow:
             if 0 <= owner < len(reps):
                 fallback[owner] = True
-        return batch, reps, np.asarray(sig_list, np.int32), tb, aux, fallback
+        return pa, reps, np.asarray(sig_list, np.int32), ta, aux, fallback, present, slots
 
-    def _topology_shape(self, tb: TermBank, aux: Dict[str, np.ndarray], reps: List[Pod], gang: bool) -> frozenset:
+    def _stage_prologue(self, reps: List[Pod], rep_infos: List[PodInfo]) -> Optional[Tuple[Dict, np.ndarray]]:
+        """Resolve each rep's staged row and gather the batch's pod arrays
+        from the slab's device twin (ref :1254-1347). Returns (pod arrays,
+        the [U] host fallback vector), or None when the batch cannot be
+        covered (a stale rep that cannot re-stage, the slab rebuilt
+        mid-resolve): the caller encodes the legacy PodBatch, counted.
+        Resolution, the dirty-row flush and the capture of the gather's
+        inputs hold the slab lock; the gather launches after it. A failed
+        flush or gather raises."""
+        stage, bank = self.stage, self.stage_bank
+        st = self.stats
+        t0 = time.perf_counter()
+        with stage._lock:
+            stage.ensure_current()
+            # a rebuild DURING resolution (a restage growing a full slab)
+            # makes the rows already collected garbage: detect it by
+            # generation and take the legacy path ("one legacy batch at
+            # worst")
+            gen0 = stage.generation
+            rows: List[int] = []
+            stale = 0
+            row_gen = stage.row_gen
+            for pod, pi in zip(reps, rep_infos):
+                if pi.pod is pod and 0 <= pi.staged_row < stage.capacity and row_gen[pi.staged_row] == pi.staged_gen:
+                    rows.append(pi.staged_row)
+                    continue
+                # updated or deleted between enqueue and pop, slab rebuilt,
+                # or admitted before the plane attached: re-stage the
+                # captured pod object
+                stale += 1
+                pair = stage.ensure_row(pod)
+                if pair is None:
+                    st["ingest_stale_rows"] += stale
+                    return None
+                rows.append(pair[0])
+                st["ingest_restaged"] += 1
+            st["ingest_stale_rows"] += stale
+            if stage.generation != gen0:
+                return None
+            u = self._u_bucket
+            idx = np.zeros(u, np.int32)
+            idx[: len(rows)] = rows
+            keep = np.zeros(u, bool)
+            keep[: len(rows)] = True
+            fb = np.zeros(u, bool)
+            fb[: len(rows)] = stage.batch.fallback[np.asarray(rows, np.int64)]
+            was_sync = bank.stats["sync_rows"]
+            bank_dev, empty_dev = bank.current_arrays()
+            if bank.stats["sync_rows"] != was_sync:
+                st["stage_sync_flushes"] += 1
+        pa = gather_stage(bank_dev, idx, keep, empty_dev, fb)
+        st["stage_s"] += time.perf_counter() - t0
+        return pa, fb
+
+    def _term_prologue(self, reps: List[Pod], rep_infos: List[PodInfo], rep_keys: List[tuple],
+                       selectors: Optional[Dict[int, list]]) -> Optional[Dict]:
+        """Resolve each rep's interned term entry and gather the batch's
+        term table from the term slab's device twin (ref :1368-1491).
+        Returns {"ta": the gathered table, "aux": the [U] aux bits from the
+        entries, "kinds": the term kinds present, "slots": the topology
+        slots named, "overflow": the reps whose terms overflow}, or None
+        when the batch cannot be covered: the caller compiles the legacy
+        TermBank, counted. The term bucket grows from the entries' row
+        count. Locking as `_stage_prologue`."""
+        ts, bank = self.tstage, self.term_bank
+        st = self.stats
+        t0 = time.perf_counter()
+        u = self._u_bucket
+        self_aff = np.zeros(u, bool)
+        has_aff = np.zeros(u, bool)
+        has_anti = np.zeros(u, bool)
+        n_sel = np.zeros(u, np.int32)
+        with ts._lock:
+            ts.ensure_current()
+            gen0 = ts.generation
+            idx_rows: List[int] = []
+            owners: List[int] = []
+            kinds: set = set()
+            slots: set = set()
+            overflow: List[int] = []
+            stale = 0
+            for b, (pod, pi) in enumerate(zip(reps, rep_infos)):
+                entry = (ts.entry_for(pi.term_row, pi.term_gen, rep_keys[b])
+                         if pi.pod is pod and pi.term_row >= 0 else None)
+                if entry is None:
+                    # stale (updated or deleted since admission, slab
+                    # rebuilt, selectors changed, or admitted before the
+                    # plane attached): re-intern the captured pod with this
+                    # dispatch's selectors
+                    stale += 1
+                    sels = selectors.get(id(pod)) if selectors else None
+                    pair = ts.ensure_entry(pod, sels)
+                    if pair is None:
+                        st["term_stale_rows"] += stale
+                        return None
+                    entry = ts._entries[pair[0]]
+                    st["term_restaged"] += 1
+                idx_rows.extend(entry.rows)
+                owners.extend([b] * len(entry.rows))
+                kinds |= entry.kinds
+                slots |= entry.topo_slots
+                if entry.overflow:
+                    overflow.append(b)
+                self_aff[b] = entry.self_aff_match
+                has_aff[b] = entry.has_aff
+                has_anti[b] = entry.has_anti
+                n_sel[b] = entry.n_sel_spread
+            st["term_stale_rows"] += stale
+            if ts.generation != gen0:
+                return None
+            self._t_bucket = max(self._t_bucket, _bucket(max(len(idx_rows), 1)))
+            t = self._t_bucket
+            idx = np.zeros(t, np.int32)
+            idx[: len(idx_rows)] = idx_rows
+            own = np.zeros(t, np.int32)
+            own[: len(idx_rows)] = owners
+            keep = np.zeros(t, bool)
+            keep[: len(idx_rows)] = True
+            was_sync = bank.stats["sync_rows"]
+            bank_dev, empty_dev = bank.current_arrays()
+            if bank.stats["sync_rows"] != was_sync:
+                st["term_sync_flushes"] += 1
+        ta = gather_terms(bank_dev, idx, own, keep, empty_dev)
+        st["term_gather_s"] += time.perf_counter() - t0
+        aux = {"self_aff_match": self_aff, "has_aff": has_aff, "has_anti": has_anti, "n_sel_spread": n_sel}
+        return dict(ta=ta, aux=aux, kinds=kinds, slots=slots, overflow=overflow)
+
+    def _topology_shape(self, present: set, slots: set, aux: Dict[str, np.ndarray], reps: List[Pod],
+                        gang: bool) -> frozenset:
         """Grow the monotone term-kind union, the segment-axis bucket and
         (not on a gang batch, whose solve tracks nothing) the in-batch
-        tracking switch for this batch's terms; returns the batch's own term
-        kinds. The axis covers the dense values of every
-        slot a batch term or an existing pattern names plus the zones (the
+        tracking switch for this batch's terms (`present`: the term kind
+        ints; `slots`: the topology slots they name); returns the batch's
+        own term kinds. The axis covers the dense values of every slot a
+        batch term or an existing pattern names plus the zones (the
         SelectorSpread blend); it is not clamped to the node count, since
         dense ids are grow-only and live ones can exceed it under node
         churn."""
         pats = self.mirror.pats
-        present = set(np.unique(tb.kind[tb.valid]).tolist())
         kinds = _term_kind_names(present, bool(np.any(aux["n_sel_spread"] > 0)), pats)
         self._term_kinds = self._term_kinds | kinds
         self._track_inbatch = self._track_inbatch or (not gang and (
             "anti_req" in self._term_kinds or any(p.host_ports() for p in reps)
         ))
         vocab = self.mirror.vocab
-        slots = set(np.asarray(tb.topo_slot[tb.valid], np.int64).tolist())
-        slots |= set(np.asarray(pats.bank.topo_slot[pats.valid], np.int64).tolist())
+        slots = set(slots) | set(np.asarray(pats.bank.topo_slot[pats.valid], np.int64).tolist())
         needed = [vocab.dense_size(int(sl)) for sl in slots if sl >= 0]
         needed.append(vocab.zone_count())
         self._v_bucket = max(self._v_bucket, _bucket(max(needed + [1])))
@@ -573,6 +792,40 @@ class Scheduler:
         is_gang = bool(present)
         cycle = self.queue.scheduling_cycle()
         self.stats["batches"] += 1
+        try:
+            out = self._solve_batch(infos, groups, is_gang)
+        except BaseException:
+            # nothing of the batch was committed: it goes back to the queue
+            # before the error surfaces
+            self.queue.requeue(infos)
+            raise
+        t3 = time.perf_counter()
+        assign_l, nom_adds = out.assign, out.nom_adds
+        # the reference's routes: the bulk path when nothing can change or
+        # veto a device pick, else the arbiter's verdicts where they cover
+        # the batch, else the per-pod loop (every gang batch)
+        nominated_fn = self.queue.nominated_pods_for_node if self.queue.has_nominations() else _no_nominations
+        fast_bulk = (
+            not is_gang
+            and all(lv == RECHECK_NONE for lv in out.levels)
+            and (nominated_fn is _no_nominations or nom_adds == self.queue.nomination_adds)
+            and not out.existing_overflow
+            and not any(out.fallback)
+            and not (out.node_fallback_any and any(r < 0 for r in assign_l))
+        )
+        if fast_bulk:
+            self._commit_bulk(infos, assign_l, cycle, res)
+        elif self._arbiter_covers(out):
+            self._commit_arbitrated(infos, out, cycle, res)
+        else:
+            self._commit_loop(infos, out, cycle, res, nominated_fn, groups)
+        self.stats["commit_s"] += time.perf_counter() - t3
+        return res
+
+    def _solve_batch(self, infos: List[PodInfo], groups: List[str], is_gang: bool) -> SolveOutput:
+        """Sync the mirror, encode (or gather) the batch and solve it on
+        the device: the dispatch half of a batch, up to the assignment and
+        the arbiter's verdicts on the host."""
         pods = [pi.pod for pi in infos]
 
         t0 = time.perf_counter()
@@ -584,8 +837,8 @@ class Scheduler:
         self._aff_extra = []
 
         self._b_bucket = max(self._b_bucket, _bucket(len(pods)))
-        batch, reps, sig, tb, aux, fallback = self._encode(infos)
-        batch_kinds = self._topology_shape(tb, aux, reps, gang=is_gang)
+        pa, reps, sig, ta, aux, fallback, present_kinds, slots = self._encode(infos)
+        batch_kinds = self._topology_shape(present_kinds, slots, aux, reps, gang=is_gang)
         levels = [_recheck_level(r) for r in reps]
         pb = {
             "sig": np.zeros(self._b_bucket, np.int32),
@@ -597,9 +850,7 @@ class Scheduler:
         pb["priority"][: len(pods)] = [p.get_priority() for p in pods]
         if self._ids is None:
             self._ids = F.make_ids(self.mirror.vocab)  # interned constants; stable
-        pa = arrays_to_torch(batch.arrays(), self.device)
         pbt = arrays_to_torch(pb, self.device)
-        ta = arrays_to_torch(tb.arrays(), self.device)
         au = arrays_to_torch(aux, self.device)
         t2 = time.perf_counter()
         self.stats["encode_s"] += t2 - t1
@@ -668,26 +919,7 @@ class Scheduler:
             verdicts=verdicts,
             gang_ok=gang_ok_l,
         )
-        # the reference's routes: the bulk path when nothing can change or
-        # veto a device pick, else the arbiter's verdicts where they cover
-        # the batch, else the per-pod loop (every gang batch)
-        nominated_fn = self.queue.nominated_pods_for_node if self.queue.has_nominations() else _no_nominations
-        fast_bulk = (
-            not is_gang
-            and all(lv == RECHECK_NONE for lv in out.levels)
-            and (nominated_fn is _no_nominations or nom_adds == self.queue.nomination_adds)
-            and not out.existing_overflow
-            and not any(out.fallback)
-            and not (out.node_fallback_any and any(r < 0 for r in assign_l))
-        )
-        if fast_bulk:
-            self._commit_bulk(infos, assign_l, cycle, res)
-        elif self._arbiter_covers(out):
-            self._commit_arbitrated(infos, out, cycle, res)
-        else:
-            self._commit_loop(infos, out, cycle, res, nominated_fn, groups)
-        self.stats["commit_s"] += time.perf_counter() - t3
-        return res
+        return out
 
     def _arbiter_covers(self, out: SolveOutput) -> bool:
         """Can this batch commit straight from the arbiter's verdicts (ref
@@ -1431,8 +1663,12 @@ class Scheduler:
         self._bind_pool = ThreadPoolExecutor(max_workers=BIND_WORKERS, thread_name_prefix="bind")
 
     def close(self) -> None:
-        """Finish in-flight binds and retire the bind pool. Idempotent."""
+        """Finish in-flight binds, retire the bind pool and flush both
+        slabs' dirty rows into their twins (ref :4192). Idempotent."""
         if self._closed:
             return
         self._closed = True
         self._bind_pool.shutdown(wait=True)
+        for bank in (self.stage_bank, self.term_bank):
+            if bank is not None:
+                bank.close()

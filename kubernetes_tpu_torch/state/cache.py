@@ -12,9 +12,10 @@ The port's own lean copies of `kubernetes_tpu.state.cache`:
   patching only DIRTY rows per cycle the way UpdateNodeInfoSnapshot walks
   its generation-ordered dirty list (cache.go:206-242), and keeps
   device-resident torch copies of all three. The copies are patched by
-  dirty rows with one `index_copy_` per changed array — the counterpart of
-  the reference's jitted `_row_scatter_fn`, a data move with no arithmetic
-  — and uploaded in full only after a rebuild. With the fold plane a
+  dirty rows through the ingest plane's row scatter (ops/slab.scatter_rows:
+  one host→device copy and one launch of csrc/slab.cu for a bank's
+  changed arrays) — the counterpart of the reference's jitted
+  `_row_scatter_fn` — and uploaded in full only after a rebuild. With the fold plane a
   committed batch's deltas are scattered into the resident copies in place
   (`fold_commit`, ops/fold.fold_commit_banks), and sync does not make
   those rows pending, so they are not re-shipped. The preemption nominees'
@@ -38,6 +39,7 @@ import torch
 
 from ..api.types import Node, Pod
 from ..oracle.nodeinfo import NodeInfo, Snapshot, pod_has_affinity_constraints
+from ..ops.slab import scatter_rows
 from .convert import arrays_to_torch
 from .node_tree import NodeTree
 from .terms import PatternBank, PatternOverflow
@@ -568,16 +570,13 @@ class TensorMirror:
         return self._dev, self._dev_eps, self._dev_pats
 
     def _patch_rows(self, dev: Dict[str, torch.Tensor], host: Dict[str, np.ndarray], rows: List[int], keys) -> None:
-        """Overwrite `rows` of the device copy `dev` with host truth: one
-        host→device slice and one index_copy_ per array (the counterpart
-        of the reference's `_row_scatter_fn`)."""
+        """Overwrite `rows` of the arrays `keys` of the device copy `dev`
+        with host truth, in place: one row scatter for all of them
+        (ops/slab.scatter_rows, the reference's `_row_scatter_fn`)."""
         if not rows:
             return
-        idx_np = np.asarray(rows, np.int64)
-        idx = torch.from_numpy(idx_np).to(self.device)
-        sliced = arrays_to_torch({k: host[k][idx_np] for k in keys}, self.device)
-        for k, v in sliced.items():
-            dev[k].index_copy_(0, idx, v)
+        idx = np.asarray(rows, np.int64)
+        scatter_rows({k: dev[k] for k in keys}, idx, {k: np.ascontiguousarray(host[k][idx]) for k in keys})
 
     # -- the fold plane (ops/fold, commit/fold) ------------------------------
 

@@ -15,6 +15,15 @@ the nominated-node index of preemption's nominees (nominatedPodMap,
 scheduling_queue.go:722): the driver folds the outstanding nominations
 into the device bank at dispatch and counts them in the victim search.
 
+Admission-time staging (the ingest and term planes, ref :134-216): with a
+staging slab attached, `add` encodes the pod's row (ingest/stage.PodStage)
+and interns its term set (terms_plane/stage.TermStage) once, outside the
+queue lock, and the entry carries the ready (row, generation) pairs. An
+entry's pairs are released only by delete, update or a re-add of its key
+— never by pop or bind — and the re-add paths (requeue,
+add_unschedulable, requeue_backoff) re-acquire a pair that went stale.
+Lock order where both are held: queue lock, then the slab's lock.
+
 Backoff: PodBackoffMap (pod_backoff.go): initial 1s, doubled per attempt,
 capped at 10s.
 """
@@ -46,11 +55,23 @@ class PodInfo:
     attempts: int = 0
     seq: int = 0  # monotonic enqueue sequence (tie-break within priority)
     pop_ts: float = 0.0  # time of the last pop
+    # the ingest plane's ready staged row and its generation; (-1, -1) = not
+    # staged. A generation that no longer matches at dispatch means the row
+    # went stale (update or delete between enqueue and pop, a slab rebuild):
+    # the pod re-stages or its batch takes the legacy encode, counted.
+    staged_row: int = -1
+    staged_gen: int = -1
+    # the term plane's interned term set: an ENTRY id of the term slab (one
+    # per distinct (spec, spreading selectors) pair) and its generation,
+    # under the same staleness contract
+    term_row: int = -1
+    term_gen: int = -1
 
 
 class PriorityQueue:
     def __init__(self, now: Callable[[], float] = time.monotonic):
-        self._lock = threading.Lock()
+        # reentrant: update() of an unknown key adds it under the lock
+        self._lock = threading.RLock()
         self._now = now
         self._seq = itertools.count()
         # activeQ entries are (neg_priority, seq, key) tuples: C-level tuple
@@ -70,6 +91,84 @@ class PriorityQueue:
         # whose dispatch folded the nominations is current only while no
         # nomination appeared since (clears only make it conservative)
         self.nomination_adds = 0  # guarded by self._lock
+        # the staging slabs (ingest/stage.PodStage, terms_plane/stage.
+        # TermStage), attached once before traffic
+        self._stage = None  # guarded by self._lock
+        self._tstage = None  # guarded by self._lock
+
+    # -- admission-time staging (ingest and term planes) ---------------------
+
+    def attach_stage(self, stage) -> None:
+        """Install the ingest plane's pod slab. Entries added before the
+        attach re-stage at dispatch (counted)."""
+        with self._lock:
+            self._stage = stage
+
+    def attach_term_stage(self, stage) -> None:
+        """Install the term plane's slab, under attach_stage's contract."""
+        with self._lock:
+            self._tstage = stage
+
+    def _planes_locked(self):
+        """(slab, row attribute, generation attribute) of each attached
+        plane: the one list every acquire/release/swap helper walks."""
+        out = []
+        if self._stage is not None:
+            out.append((self._stage, "staged_row", "staged_gen"))
+        if self._tstage is not None:
+            out.append((self._tstage, "term_row", "term_gen"))
+        return out
+
+    @staticmethod
+    def _plane_acquire(stage, info: PodInfo, row_attr: str, gen_attr: str) -> None:
+        """Acquire one plane's pair for `info` and record it; (-1, -1) when
+        the slab cannot stage the pod now."""
+        pair = stage.acquire(info.pod)
+        if pair is None:
+            setattr(info, row_attr, -1)
+            setattr(info, gen_attr, -1)
+        else:
+            setattr(info, row_attr, pair[0])
+            setattr(info, gen_attr, pair[1])
+
+    def _stage_acquire(self, info: PodInfo) -> None:
+        for stage, row_attr, gen_attr in self._planes_locked():
+            self._plane_acquire(stage, info, row_attr, gen_attr)
+
+    def _stage_release(self, info: Optional[PodInfo]) -> None:
+        if info is None:
+            return
+        for stage, row_attr, gen_attr in self._planes_locked():
+            row = getattr(info, row_attr)
+            if row < 0:
+                continue
+            stage.release(row, getattr(info, gen_attr))
+            setattr(info, row_attr, -1)
+            setattr(info, gen_attr, -1)
+
+    def _stage_swap(self, info: PodInfo, new: Pod) -> None:
+        """Point an entry at its updated pod and re-stage it, acquiring the
+        new pairs before releasing the old: a content-identical update is
+        an intern hit on the same row (no re-encode, no generation churn);
+        a real spec change lands elsewhere and the old row frees."""
+        old = [(stage, getattr(info, row_attr), getattr(info, gen_attr))
+               for stage, row_attr, gen_attr in self._planes_locked()]
+        info.pod = new
+        self._stage_acquire(info)
+        for stage, old_row, old_gen in old:
+            if old_row >= 0:
+                stage.release(old_row, old_gen)
+
+    def _stage_acquire_if_stale(self, info: PodInfo) -> None:
+        """On the re-add paths, re-acquire a pair that is missing or no
+        longer valid (its row was freed or rebuilt while the entry was
+        popped), so one staleness event re-stages once, not at every later
+        dispatch."""
+        for stage, row_attr, gen_attr in self._planes_locked():
+            row = getattr(info, row_attr)
+            if row >= 0 and stage.valid_pair(row, getattr(info, gen_attr)):
+                continue
+            self._plane_acquire(stage, info, row_attr, gen_attr)
 
     # -- internals -----------------------------------------------------------
 
@@ -126,10 +225,24 @@ class PriorityQueue:
     # -- public API (scheduling_queue.go) -----------------------------------
 
     def add(self, pod: Pod) -> None:
-        """Add: new pending pod → activeQ."""
+        """Add: new pending pod → activeQ. With the planes attached the
+        pod's row and term set are staged first, outside the queue lock
+        (the encode is admission's heavy half; the acquired references keep
+        the rows live until the pairs attach), then the previous entry of
+        the key releases its pairs."""
         self._warm_memos(pod)
+        stage, tstage = self._stage, self._tstage  # attached once, before traffic
+        pair = stage.acquire(pod) if stage is not None else None
+        tpair = tstage.acquire(pod) if tstage is not None else None
         with self._lock:
             info = PodInfo(pod=pod, timestamp=self._now(), seq=next(self._seq))
+            if pair is not None:
+                info.staged_row, info.staged_gen = pair
+            if tpair is not None:
+                info.term_row, info.term_gen = tpair
+            # attach the new pairs, then release the old: an identical re-add
+            # is an intern hit on the same rows
+            self._stage_release(self._infos.get(pod.key()))
             self._unschedulable.pop(pod.key(), None)
             self._push_active(info)
             self._update_nominated(pod)
@@ -183,6 +296,7 @@ class PriorityQueue:
         sequence kept, so they pop again in the same order (no backoff)."""
         with self._lock:
             for info in infos:
+                self._stage_acquire_if_stale(info)
                 self._unschedulable.pop(info.pod.key(), None)
                 self._push_active(info)
 
@@ -192,6 +306,7 @@ class PriorityQueue:
         of unschedulableQ (wait for an event)."""
         with self._lock:
             key = info.pod.key()
+            self._stage_acquire_if_stale(info)
             self._attempts[key] = self._attempts.get(key, 0) + 1
             self._last_failure[key] = self._now()
             cycle = pod_scheduling_cycle if pod_scheduling_cycle is not None else self._scheduling_cycle
@@ -209,6 +324,7 @@ class PriorityQueue:
         exponential backoff (1s → 10s), never unschedulableQ."""
         with self._lock:
             key = info.pod.key()
+            self._stage_acquire_if_stale(info)
             self._attempts[key] = self._attempts.get(key, 0) + 1
             self._last_failure[key] = self._now()
             self._unschedulable.pop(key, None)
@@ -216,6 +332,42 @@ class PriorityQueue:
             expiry = self._now() + self._backoff_duration(key)
             heapq.heappush(self._backoff, (expiry, info.seq, key))
             self._update_nominated(info.pod)
+
+    def delete(self, pod: Pod) -> None:
+        """Delete (ref :560): the entry leaves every sub-queue and releases
+        its staged pairs; a popped copy still in flight then sees the
+        generation mismatch at dispatch and re-stages (counted)."""
+        with self._lock:
+            key = pod.key()
+            self._stage_release(self._infos.get(key))
+            self._infos.pop(key, None)
+            self._unschedulable.pop(key, None)
+            self._in_active.discard(key)
+            self._attempts.pop(key, None)
+            self._last_failure.pop(key, None)
+            self._remove_nominated(key)
+            self._active = [e for e in self._active if e[2] != key]
+            heapq.heapify(self._active)
+            if any(k == key for _, _, k in self._backoff):
+                self._backoff = [t for t in self._backoff if t[2] != key]
+                heapq.heapify(self._backoff)
+
+    def update(self, old: Pod, new: Pod) -> None:
+        """Update (ref :582): an unschedulable entry moves back to activeQ,
+        a queued one keeps its place; either re-stages (`_stage_swap`). An
+        unknown key is added."""
+        self._warm_memos(new)
+        with self._lock:
+            key = new.key()
+            if key in self._unschedulable:
+                info = self._unschedulable.pop(key)
+                self._stage_swap(info, new)
+                self._push_active(info)
+            elif key in self._infos:
+                self._stage_swap(self._infos[key], new)
+            else:
+                self.add(new)
+            self._update_nominated(new)
 
     def scheduling_cycle(self) -> int:
         with self._lock:

@@ -261,8 +261,16 @@ def dedup_specs(pods, selectors: Optional[Dict[int, list]] = None) -> Tuple[list
     `selectors` maps id(pod) to its spreading selectors (the driver's
     set_spread_selectors_fn): pods whose selectors differ never share a
     row."""
+    reps, sig, _ = dedup_specs_keyed(pods, selectors)
+    return reps, sig
+
+
+def dedup_specs_keyed(pods, selectors: Optional[Dict[int, list]] = None) -> Tuple[list, List[int], List[tuple]]:
+    """dedup_specs plus each rep's spec key: the term plane's intern key,
+    so a staged term entry's validity is one equality check."""
     index: Dict[tuple, int] = {}
     reps: list = []
+    keys: List[tuple] = []
     sig: List[int] = []
     for p in pods:
         k = spec_key(p, selectors.get(id(p)) if selectors else None)
@@ -270,8 +278,9 @@ def dedup_specs(pods, selectors: Optional[Dict[int, list]] = None) -> Tuple[list
         if u is None:
             u = index[k] = len(reps)
             reps.append(p)
+            keys.append(k)
         sig.append(u)
-    return reps, sig
+    return reps, sig, keys
 
 
 def _req_slot_pairs(vocab: "Vocab", pod) -> Tuple[Tuple[int, int], ...]:

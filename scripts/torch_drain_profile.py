@@ -4,9 +4,11 @@
     python3 scripts/torch_drain_profile.py [--config 2|3|3-hard|4|5|6] [--services]
         [--nodes N] [--pods P] [--batch 4096] [--runs plain,sampled,traced]
         [--out chiprun_out/drain_profile] [--ab PAIRS]
+        [--ab-of commit|stage]
 
 Drives a drain of chip_smoke.py phase 5 (kubernetes_tpu_torch's Scheduler,
-tie-noise on) on bench.py config 2 (default 5,000 nodes / 50,000 pods),
+tie-noise on, every plane on — the pods admitted to the running scheduler,
+so the queue stages them into the ingest and term slabs) on bench.py config 2 (default 5,000 nodes / 50,000 pods),
 config 3 (default 10,000 nodes / 100,000 pods; with --services, one
 Service per app feeds SelectorSpread), config 3-hard (config 3 with every
 constraint DoNotSchedule: the commit arbiter's defers, and the host
@@ -42,9 +44,12 @@ that builds and loads the kernels, three times (or the runs named by
 
 With `--ab PAIRS` it runs, after the warm-up, PAIRS pairs of plain drains
 with the commit plane (the arbiter and the fold) on and off (the
-Scheduler's default and `commit_plane=False`), alternating which runs
-first, and reports each run's pods/s and stages, the medians and each
-side's lowest and highest pods/s, instead of the three runs above.
+Scheduler's default and `commit_plane=False`; with `--ab-of stage`, the
+ingest and term planes on and off instead), alternating which runs first,
+and reports each run's pods/s and stages, the medians and each side's
+lowest and highest pods/s, instead of the three runs above. Every run
+prints the planes' counters (gathered and legacy batches, restages, dirty
+flushes) beside the stage seconds.
 
 Prints one JSON object as the last line of its output and writes the full
 summary to --out/summary.json (--out/ab.json with --ab). Exits non-zero
@@ -80,6 +85,12 @@ STAGES = (
     ("state/tensors.py", "apply_delta"),
     ("state/terms.py", "apply_delta"),
     ("scheduler/driver.py", "_encode"),
+    ("scheduler/driver.py", "_stage_prologue"),
+    ("scheduler/driver.py", "_term_prologue"),
+    ("ingest/bank.py", "_flush_locked"),
+    ("ops/slab.py", "scatter_rows"),
+    ("ingest/gather.py", "gather_stage"),
+    ("terms_plane/gather.py", "gather_terms"),
     ("state/tensors.py", "dedup_specs"),
     ("state/tensors.py", "set_pod"),
     ("state/terms.py", "compile_batch_terms"),
@@ -126,8 +137,20 @@ def wait_backoff(queue) -> None:
     queue.move_all_to_active()
 
 
+PLANE_COUNTERS = ("ingest_index_batches", "ingest_legacy_batches", "ingest_stale_rows", "ingest_restaged",
+                  "stage_sync_flushes", "term_index_batches", "term_legacy_batches", "term_stale_rows",
+                  "term_restaged", "term_sync_flushes")
+
+
+def plane_line(label: str, r: dict) -> str:
+    """The stage seconds with the ingest and term planes' counters."""
+    stages = ", ".join(f"{k} {r[k]:.4f}" for k in ("sync_s", "encode_s", "stage_s", "term_gather_s", "solve_s",
+                                                    "commit_s"))
+    return f"[profile] {label} stages: {stages}; planes: " + ", ".join(f"{k} {r[k]}" for k in PLANE_COUNTERS)
+
+
 def drain(config: str, services: bool, n_nodes: int, n_pods: int, batch: int, around=contextlib.nullcontext,
-          planes: bool = True):
+          planes: bool = True, stage_planes: bool = True):
     from kubernetes_tpu_torch.models.clusters import (
         bench_config2,
         bench_config3,
@@ -154,14 +177,14 @@ def drain(config: str, services: bool, n_nodes: int, n_pods: int, batch: int, ar
         nodes, pods, fn = bench_config3(n_nodes, n_pods, services=services, hard=config == "3-hard")
     cache, queue = SchedulerCache(), PriorityQueue()
     fill_cache(cache, nodes, existing)
-    for p in pods:
-        queue.add(p)
-    if config == "6":
-        return drain_preemption(cache, queue, n_pods, batch, around, planes)
     sched = Scheduler(cache, queue, batch_size=batch, deterministic=False, seed=0, device="cuda",
-                      commit_plane=planes)
+                      commit_plane=planes, ingest_plane=stage_planes, term_plane=stage_planes)
     if fn is not None:
         sched.set_spread_selectors_fn(fn)
+    for p in pods:  # admitted to the running scheduler: staged as added, before the timed window
+        queue.add(p)
+    if config == "6":
+        return drain_preemption(sched, queue, n_pods, around)
     torch.cuda.synchronize()
     with around():
         t0 = time.perf_counter()
@@ -176,13 +199,9 @@ def drain(config: str, services: bool, n_nodes: int, n_pods: int, batch: int, ar
             **sched.stats}
 
 
-def drain_preemption(cache, queue, n_pods: int, batch: int, around, planes: bool):
+def drain_preemption(sched, queue, n_pods: int, around):
     """Config 6's drain: batches until the queue is empty, waiting out the
     backoff between preemption rounds (`wait_backoff`)."""
-    from kubernetes_tpu_torch.scheduler.driver import Scheduler
-
-    sched = Scheduler(cache, queue, batch_size=batch, deterministic=False, seed=0, device="cuda",
-                      commit_plane=planes)
     placed = 0
     wait_s = batch_s = 0.0
     torch.cuda.synchronize()
@@ -305,24 +324,30 @@ def ab(work, args, smi) -> int:
     """PAIRS pairs of plain drains, planes on and off, alternating which
     runs first; each run's pods/s and stages, the medians and each side's
     pods/s range."""
-    keys = ("pods_per_s", "wall_s", "sync_s", "encode_s", "solve_s", "commit_s", "apply_s", "fold_s")
+    keys = ("pods_per_s", "wall_s", "sync_s", "encode_s", "stage_s", "term_gather_s", "solve_s", "commit_s",
+            "apply_s", "fold_s")
     if args.config == "6":
         keys += ("wait_s", "batch_s", "preempt_s")
     runs = {"on": [], "off": []}
     for i in range(args.ab):
         for side in (("on", "off") if i % 2 == 0 else ("off", "on")):
-            r = drain(*work, args.nodes, args.pods, args.batch, planes=side == "on")
+            on = side == "on"
+            r = drain(*work, args.nodes, args.pods, args.batch, planes=on or args.ab_of != "commit",
+                      stage_planes=on or args.ab_of != "stage")
             runs[side].append({k: r[k] for k in keys})
-            print(f"[ab] pair {i} planes {side}: " + ", ".join(f"{k} {r[k]:.4f}" for k in keys), flush=True)
+            print(f"[ab] pair {i} {args.ab_of} planes {side}: " + ", ".join(f"{k} {r[k]:.4f}" for k in keys),
+                  flush=True)
+            print(plane_line(f"ab pair {i} {side}", r), flush=True)
     med = {side: {k: statistics.median(r[k] for r in rs) for k in keys} for side, rs in runs.items()}
     span = {side: [min(r["pods_per_s"] for r in rs), max(r["pods_per_s"] for r in rs)] for side, rs in runs.items()}
     for side in ("on", "off"):
         print(f"[ab] median planes {side}: " + ", ".join(f"{k} {v:.4f}" for k, v in med[side].items())
               + f"; pods_per_s range {span[side][0]:.4f}-{span[side][1]:.4f}", flush=True)
     with open(os.path.join(args.out, "ab.json"), "w") as f:
-        json.dump({"card": smi, "config": args.config, "services": args.services, "runs": runs, "median": med,
+        json.dump({"card": smi, "config": args.config, "services": args.services, "ab_of": args.ab_of,
+                   "runs": runs, "median": med,
                    "pods_per_s_range": span}, f, indent=1)
-    print(json.dumps({"config": args.config, "services": args.services,
+    print(json.dumps({"config": args.config, "services": args.services, "ab_of": args.ab_of,
                       "median_pods_per_s": {s_: med[s_]["pods_per_s"] for s_ in med},
                       "pods_per_s_range": span}), flush=True)
     return 0
@@ -342,6 +367,8 @@ def main() -> int:
     ap.add_argument("--out", default=os.path.join(REPO, "chiprun_out", "drain_profile"))
     ap.add_argument("--ab", type=int, default=0, metavar="PAIRS",
                     help="run PAIRS alternating planes-on / planes-off drain pairs instead of the profile")
+    ap.add_argument("--ab-of", choices=("commit", "stage"), default="commit",
+                    help="which planes --ab turns off: the commit and fold planes, or the ingest and term planes")
     args = ap.parse_args()
     cfg = args.config.split("-")[0]
     args.nodes = args.nodes or {"2": 5000, "3": 10000, "4": 2000, "5": 2000, "6": 500}[cfg]
@@ -368,6 +395,7 @@ def main() -> int:
     if "plain" in runs:
         summary["plain"] = drain(*work, args.nodes, args.pods, args.batch)
         print(f"[profile] plain: {json.dumps(summary['plain'])}", flush=True)
+        print(plane_line("plain", summary["plain"]), flush=True)
     if "sampled" in runs:
         sampler = StackSampler(threading.get_ident())
         sampled = drain(*work, args.nodes, args.pods, args.batch, lambda: sampler)
@@ -375,6 +403,7 @@ def main() -> int:
         summary["sampled"] = {"run": sampled, **host}
         print(f"[profile] sampled: {json.dumps(sampled)}; {host['samples']} samples over "
               f"{host['sampled_s']:.3f}s", flush=True)
+        print(plane_line("sampled", sampled), flush=True)
         for k, v in host["stage_share"].items():
             print(f"[profile]   stage {k}: {100 * v:.1f}% of the sampled time", flush=True)
         for k, v in host["top_leaves"].items():
@@ -406,6 +435,7 @@ def main() -> int:
         tp.export_chrome_trace(trace)
         device = device_split(trace)
     print(f"[profile] traced: {json.dumps(traced_run)}", flush=True)
+    print(plane_line("traced", traced_run), flush=True)
     print(f"[profile]   device busy {device['busy_ms']:.3f} ms of a {device['window_ms']:.3f} ms window, "
           f"idle share {device['idle_share']:.4f}, {device['device_events']} device events", flush=True)
     for name, v in list(device["per_name"].items())[:12]:

@@ -34,6 +34,10 @@ def test_every_module_imports_with_jax_blocked():
     mods = _modules()
     assert "kubernetes_tpu_torch.scheduler.driver" in mods and "kubernetes_tpu_torch.kernels.build" in mods
     assert "kubernetes_tpu_torch.commit.apply" in mods  # the gang commit's rollback record
+    # the ingest and term planes and their slab kernels' wrappers
+    for m in ("ingest", "ingest.stage", "ingest.gather", "ingest.bank", "terms_plane", "terms_plane.stage",
+              "terms_plane.gather", "terms_plane.bank", "ops.slab"):
+        assert f"kubernetes_tpu_torch.{m}" in mods, m
     code = f"""
 import sys
 class Block:

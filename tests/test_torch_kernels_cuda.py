@@ -5,7 +5,8 @@ spread_score, selector_spread_score, interpod_filter (every subset of its
 parts), interpod_score (each part and both), inbatch_port_conflict,
 spread_filter, the commit arbiter, the commit fold, the preemption victim
 search, the nominee overlay's usage fold, the host oracle's score-row gather and
-the two-pass gang solve.
+the two-pass gang solve, and the ingest and term planes' slab gather and row
+scatter (and a small drain through both planes, cuda == cpu).
 Needs an NVIDIA card and nvcc:
 
     python -m pytest -m cuda tests/test_torch_kernels_cuda.py
@@ -507,3 +508,137 @@ def test_gang_kernel_equals_plain(cuda, seed, det):
     for a, c in zip(carry, want_carry):
         assert torch.equal(a, c)
     assert int((~ok).sum()) > 0 and int((got >= 0).sum()) > 50
+
+
+def seeded_slab(template, s, seed):
+    """A slab dict shaped like `template` at S rows from a numpy seed (bools,
+    int32 and int64 with both extremes) and a one-row padding dict."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    slab, empty = {}, {}
+    for k, v in template.items():
+        shape = (s,) + v.shape[1:]
+        if v.dtype == bool:
+            slab[k] = rng.random(shape) < 0.5
+        elif v.dtype == np.int64:
+            slab[k] = rng.integers(-(2**62), 2**62, shape, dtype=np.int64)
+            slab[k].flat[0], slab[k].flat[-1] = np.iinfo(np.int64).min, np.iinfo(np.int64).max
+        else:
+            slab[k] = rng.integers(-(2**31), 2**31 - 1, shape, dtype=v.dtype)
+        empty[k] = np.asarray(v[:1]).copy()
+    return slab, empty
+
+
+@pytest.mark.parametrize("plane", ["stage", "terms"])
+@pytest.mark.parametrize("s,lanes,live", [(256, 128, 100), (1024, 64, 64), (37, 48, 5), (3, 1, 1)])
+def test_slab_gather_kernel_equals_plain(cuda, plane, s, lanes, live):
+    """The gather at the config-3 (U = 128, slab 256) and config-5 (U = 64,
+    slab 1,024) shapes and small odd ones (S not a multiple of the block,
+    one lane): padding lanes, repeated rows, int64 extremes, the override
+    column (fallback as given, owner masked)."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.ingest import gather_stage, gather_stage_plain
+    from kubernetes_tpu_torch.state.tensors import Vocab
+    from kubernetes_tpu_torch.state.terms import TermBank
+    from kubernetes_tpu_torch.terms_plane import gather_terms, gather_terms_plain
+
+    template = PodBatch(Vocab(), 1).arrays() if plane == "stage" else TermBank(Vocab(), 1).arrays()
+    slab, empty = seeded_slab(template, s, s + lanes)
+    rng = np.random.default_rng(s)
+    idx = np.zeros(lanes, np.int32)
+    idx[:live] = rng.integers(0, s, live)
+    idx[: min(3, live)] = idx[0]
+    keep = np.arange(lanes) < live
+    col = rng.integers(0, 2 if plane == "stage" else 1000, lanes).astype(np.int32)
+    bank, emp = arrays_to_torch(slab, cuda, copy=True), arrays_to_torch(empty, cuda, copy=True)
+    ti, tk, tc = (torch.from_numpy(a).to(cuda) for a in (idx, keep, col))
+    if plane == "stage":
+        before = gather_stage.launches
+        got = gather_stage(bank, idx, keep, emp, col.astype(bool))
+        assert gather_stage.launches == before + 1
+        want = gather_stage_plain(bank, ti, tk, emp, tc.bool())
+    else:
+        before = gather_terms.launches
+        got = gather_terms(bank, idx, col, keep, emp)
+        assert gather_terms.launches == before + 1
+        want = gather_terms_plain(bank, ti, tc, tk, emp)
+    assert sorted(got) == sorted(want)
+    for k in want:
+        assert got[k].dtype == want[k].dtype and torch.equal(got[k], want[k]), k
+    with pytest.raises(IndexError):
+        (gather_stage if plane == "stage" else gather_terms)(
+            *((bank, np.array([s], np.int32), np.ones(1, bool), emp, np.zeros(1, bool)) if plane == "stage"
+              else (bank, np.array([s], np.int32), np.zeros(1, np.int32), np.ones(1, bool), emp)))
+
+
+@pytest.mark.parametrize("plane", ["stage", "terms"])
+@pytest.mark.parametrize("s,rows", [(256, [3, 17, 17, 0, 255, 22]), (1024, list(range(0, 1024, 3))), (37, [36]),
+                                    (37, [])])
+def test_slab_scatter_kernel_equals_plain(cuda, plane, s, rows):
+    """The row scatter: duplicate rows (identical bytes), the last row, a
+    dirty set wider than a block, an empty dirty set (no launch)."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.ops import slab as SL
+    from kubernetes_tpu_torch.state.tensors import Vocab
+    from kubernetes_tpu_torch.state.terms import TermBank
+
+    template = PodBatch(Vocab(), 1).arrays() if plane == "stage" else TermBank(Vocab(), 1).arrays()
+    slab, _ = seeded_slab(template, s, s)
+    upd, _ = seeded_slab(template, max(len(rows), 1), s + 1)
+    upd = {k: v[: len(rows)].copy() for k, v in upd.items()}
+    idx = np.asarray(rows, np.int64)
+    for j in range(1, len(rows)):
+        if rows[j] in rows[:j]:
+            for v in upd.values():
+                v[j] = v[rows.index(rows[j])]  # a duplicate index carries identical bytes
+    dev = arrays_to_torch(slab, cuda, copy=True)
+    want = arrays_to_torch(slab, cuda, copy=True)
+    before = SL.scatter_rows.launches
+    SL.scatter_rows(dev, idx, upd)
+    assert SL.scatter_rows.launches == before + (1 if rows else 0)
+    SL.scatter_rows_plain(want, torch.from_numpy(idx).to(cuda), arrays_to_torch(upd, cuda))
+    for k in want:
+        assert torch.equal(dev[k], want[k]), k
+
+
+def test_planes_on_the_card_equal_the_cpu(cuda):
+    """A small drain through both planes on the card: the same placements
+    as on the CPU, every batch gathered on the card, and the device twins
+    equal to their host slabs."""
+    from kubernetes_tpu_torch.ingest import gather_stage
+    from kubernetes_tpu_torch.models.clusters import bench_config3
+    from kubernetes_tpu_torch.ops import slab as SL
+    from kubernetes_tpu_torch.scheduler.driver import Scheduler
+    from kubernetes_tpu_torch.state.queue import PriorityQueue
+    from kubernetes_tpu_torch.terms_plane import gather_terms
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        nodes, pods, fn = bench_config3(200, 2000, services=True)
+        cache, queue = SchedulerCache(), PriorityQueue()
+        fill_cache(cache, nodes)
+        sched = Scheduler(cache, queue, batch_size=512, deterministic=True, device=dev)
+        sched.set_spread_selectors_fn(fn)
+        for i, p in enumerate(pods):
+            if i % 100 < 50:
+                queue.add(p)
+        launches = (gather_stage.launches, gather_terms.launches, SL.scatter_rows.launches)
+        res = sched.schedule_batch()
+        for i, p in enumerate(pods):  # new apps, admitted after the twins are resident: flushed by the scatter
+            if i % 100 >= 50:
+                queue.add(p)
+        total = sched.run_until_empty()
+        sched.wait_for_binds()
+        st = sched.stats
+        assert st["ingest_index_batches"] == st["term_index_batches"] == st["batches"]
+        assert st["stage_sync_flushes"] > 0 and st["term_sync_flushes"] > 0
+        assert sched.stage_bank.device_divergence() == [] == sched.term_bank.device_divergence()
+        sched.close()
+        out[dev] = ({**res.assignments, **total.assignments},
+                    [a - b for a, b in zip((gather_stage.launches, gather_terms.launches, SL.scatter_rows.launches),
+                                           launches)])
+    assert out["cuda"][0] == out["cpu"][0] and len(out["cuda"][0]) == 2000
+    assert all(n > 0 for n in out["cuda"][1]) and out["cpu"][1] == [0, 0, 0]
