@@ -74,7 +74,15 @@ they placed. Phases:
                 and scatter_rows on its edges (duplicates, an empty dirty
                 set) and at config 5's restage flush (64 of 1,024 rows,
                 timed), the library yardstick one index_select + where, or
-                one index_copy_, per array, summed
+                one index_copy_, per array, summed; the score
+                kernel's RequestedToCapacityRatio branch (the default
+                shape, two-point bin-packing, a five-point shape with
+                down-sloping segments over cpu 3 / memory 1, beside
+                NodeAffinity and TaintToleration) and its component mode
+                (score_components) at the config-2 shapes, timed; the
+                extender's filter_mask (filter, spread-filter and
+                inter-pod-filter kernels, no score kernel) at the config
+                3-hard and config-4 batch shapes
   4. parity     config 2, config 3 and config 4 at 1/10 scale through
                 Scheduler with the commit plane on (the arbiter and the
                 fold), on cuda and on cpu, with it off on cuda, and with the
@@ -148,14 +156,40 @@ they placed. Phases:
                 64,000 pods, batch 4,096): every pod placed, no node over
                 its limits, every batch a gang batch and no rollback, the
                 device node and signature banks equal to a fresh encode;
-                stages, pods/s and the mirror's rebuild count
-  6. kernels    one JSON line: per kernel (the nineteen and the tracked
-                solve) its launches in the main-path drains (the counts are
-                set to 0 before each drain and read after it: config 3-hard
-                and config 6 at 1/10, the oracle drains, config 5 at 1/10,
-                the tight gang drain and config 1 on cuda, and the nine full
-                drains), error, times, bound and the library yardstick where
-                one PyTorch call computes the function
+                stages, pods/s and the mirror's rebuild count; then the
+                Policy seam: config 2 at full size built by
+                config.Configurator from an RTCR bin-packing Policy
+                (GeneralPredicates, PodToleratesNodeTaints,
+                CheckNodeUnschedulable, MatchInterPodAffinity; RTCR 2,
+                NodeAffinity 1, TaintToleration 1): every pod placed, no
+                violation, one RTCR score launch a batch, pods/s beside the
+                default provider's; at 1/10 cuda == cpu; a custom-argument
+                Policy (labelsPresence, serviceAffinity, labelPreference,
+                serviceAntiAffinity) on a config-1-sized cluster with
+                region and zone labels and one Service per app, the pods
+                cut to CUSTOM_PODS: cuda == cpu, every pod re-ranked on the
+                host; then the extender seam: the port's ExtenderServer on
+                cuda over config 3's full cluster (config 3-hard and
+                config-4 pods bound), EXT_REQUESTS /filter requests in
+                nodeCacheCapable mode with every node name, every one
+                answered by the device path and equal to the oracle path's
+                answers (a stride sample) and to a CPU server's; latency
+                of both paths; filter_mask at a request's shapes, timed;
+                /prioritize, /bind, /preemption, /healthz once; then a
+                Scheduler consulting an in-script extender over HTTP (even
+                nodes, index prioritize, weight 100; and a dead ignorable
+                one): cuda == cpu, every pod on an even node
+  6. kernels    one JSON line: per kernel (the nineteen, the tracked
+                solve, the RTCR branch, score_components and the
+                extender's filter_mask) its launches in the main-path
+                drains (the counts are set to 0 before each drain and read
+                after it: config 3-hard and config 6 at 1/10, the oracle
+                drains, config 5 at 1/10, the tight gang drain and config 1
+                on cuda, the nine full drains, the Policy drains, the
+                /filter requests and the extender client's drain;
+                score_components has no main-path caller and counts 0),
+                error, times, bound and the library yardstick where one
+                PyTorch call computes the function
   7. result     the last line: {"ok": true, "device": {...}}
 
 Any failed phase exits non-zero before the result line. Without a CUDA
@@ -328,19 +362,26 @@ def filter_work(na, pa):
     return nbytes_, ops
 
 
-def score_work(na, pa):
+def score_work(na, pa, priorities=None, rtcr=None, n_components=0):
     """(bytes, integer operations) of csrc/scores.cu's function on these
-    inputs under the default priority tuple. A pair of a valid spec and a
-    valid node costs the arithmetic of each weighted priority (least
-    requested 19, balanced allocation 14, the two normalizations 8 each,
-    avoid 4 + 3 per avoid entry, image 8 + 3 per image, limits 10, bias
-    and store 2), 4 per live preferred-term requirement plus 1 per
-    compared value lane, 1 per taint with an effect and 4 per (eligible
-    toleration, PreferNoSchedule taint)."""
+    inputs under a priority tuple (None = the default one) and RTCR
+    argument, or in its component mode with `n_components` planes. A pair
+    of a valid spec and a valid node costs the arithmetic of each weighted
+    priority (least requested 19, balanced allocation 14, the two
+    normalizations 8 each, avoid 4 + 3 per avoid entry, image 8 + 3 per
+    image, limits 10, bias and store 2; RTCR per resource 14 for the
+    utilization, the interpolation and the sums, 2 per shape point its
+    scan visits on this pair's utilization, and 4 for the mean), 4 per
+    live preferred-term requirement plus 1 per compared value lane, 1 per
+    taint with an effect and 4 per (eligible toleration, PreferNoSchedule
+    taint)."""
     from kubernetes_tpu_torch.ops import scores as S
 
     has_images = "image_scaled" in na
-    w = S.kernel_weights(None, has_images)
+    if n_components:
+        w, w_rtcr = [int(k < n_components) for k in range(8)], 0
+    else:
+        w, w_rtcr = S.kernel_weights(priorities, has_images)
     live_u, live_n = pa["valid"], na["valid"]
     u, n = live_u.numel(), live_n.numel()
     nu, nn = int(live_u.sum()), int(live_n.sum())
@@ -357,8 +398,22 @@ def score_work(na, pa):
     images = ids[(ids > 0) & (ids < v_img)]
     per_pair = 2 + 19 * (w[0] != 0) + 19 * (w[1] != 0) + 14 * (w[2] != 0) + 8 * (w[3] != 0) \
         + 8 * (w[4] != 0) + 4 * (w[5] != 0) + 8 * (w[6] != 0) + 10 * (w[7] != 0)
+    rtcr_ops = 0
+    if w_rtcr:
+        shape, res = rtcr if rtcr is not None else (S.DEFAULT_RTCR_SHAPE, S.DEFAULT_RTCR_RESOURCES)
+        pts = torch.tensor([x for x, _ in shape], dtype=torch.int64, device=na["alloc"].device)
+        for rname, _ in res:
+            col = S._RTCR_COLUMNS[rname]
+            cap = na["alloc"][live_n][:, col][None, :]
+            req = na["nonzero_req"][live_n][:, col][None, :] + pa["scoring_req"][live_u][:, col][:, None]
+            p = torch.where((cap == 0) | (req > cap), torch.full_like(req, 100),
+                            100 - torch.div((cap - req) * 100, cap.clamp(min=1), rounding_mode="floor"))
+            visited = ((p[..., None] > pts).sum(dim=-1) + 1).clamp(max=len(shape))
+            rtcr_ops += 14 * nu * nn + 2 * int(visited.sum())
+        rtcr_ops += 4 * nu * nn
     ops = (
         per_pair * nu * nn
+        + rtcr_ops
         + ((4 * n_req + lanes) * nn if w[3] else 0)
         + (nu * taints + 4 * tols * prefer if w[4] else 0)
         + (3 * avoid * nu if w[5] else 0)
@@ -373,7 +428,7 @@ def score_work(na, pa):
         + (avoid * 8 if w[5] else 0)             # avoid kind/uid
         + (nn * 8 * len(set(images.tolist())) if w[6] else 0)  # image_scaled columns
         + live_row_bytes(pa, [k for k, _ in S._POD_PTRS], live_u)
-        + u * n * 8                              # the score matrix
+        + max(n_components, 1) * u * n * 8       # the score matrix (or its planes)
     )
     return nbytes_, ops
 
@@ -1551,6 +1606,8 @@ def phase_kernels():
     for name, s in stats.items():
         log(f"[kernels] {name}: kernel {s['ms']:.4f} ms (through its wrapper {s['wrapper_ms']:.4f} ms), "
             f"plain {s['plain_ms']:.4f} ms, bound {s['bound'][0]:.4f} ms ({s['bound'][1]})")
+    # the score kernel's RTCR branch and component mode at the same shapes
+    stats.update(compare_policy_scores(e["na"], e["pa"], "config-2"))
     # the config-3 shapes mid-drain (50,000 pods bound), with and without
     # Services; the timed shapes are those with Services (every kernel runs)
     for services in (False, True):
@@ -1577,7 +1634,11 @@ def phase_kernels():
     # the config-3-hard shapes mid-drain (50,000 pods bound); then the
     # arbiter at the config-4 shapes (the path where it runs every batch)
     nodes, existing, pods, _ = config3_batch(False, CONFIG3_PODS // 2, hard=True)
-    hard = compare_commit(encode(nodes, existing, pods, dev), "config-3-hard", time_it=True)
+    enc3h = encode(nodes, existing, pods, dev)
+    hard = compare_commit(enc3h, "config-3-hard", time_it=True)
+    # the extender's filter_mask at the config-3-hard and config-4 batch shapes
+    compare_filter_mask(enc_filter_inputs(enc3h), "config-3-hard filter_mask", time_it=False)
+    compare_filter_mask(enc_filter_inputs(enc4), "config-4 filter_mask", time_it=False)
     log(f"[kernels] config-3-hard arbitrate (information): kernel {hard['arbitrate']['ms']:.4f} ms, "
         f"plain {hard['arbitrate']['plain_ms']:.4f} ms")
     stats.update(hard)
@@ -1619,6 +1680,8 @@ def kernel_counters():
         "gather_score_rows": (PP.gather_score_rows, "launches"), "solve_gang": (SO.solve_gang, "launches"),
         "gather_stage": (gather_stage, "launches"), "gather_terms": (gather_terms, "launches"),
         "scatter_rows": (SL.scatter_rows, "launches"),
+        "score_matrix[rtcr]": (S.score_matrix, "rtcr_launches"), "score_components": (S.score_components, "launches"),
+        "pipeline.filter_mask": (PP.filter_mask, "launches"),
     }
 
 
@@ -2237,17 +2300,18 @@ def verify_stage_planes(label, sched):
               f"slab rebuilds")
 
 
-def run_main_path(label, names, run):
+def run_main_path(label, names, run, staged=True):
     """Drive one main path with every kernel count set to 0 just before it;
-    read the counts of `names` just after and require each > 0. Every main
-    path runs the ingest and term planes: their gathers launch once a
-    batch."""
+    read the counts of `names` just after and require each > 0. Every
+    Scheduler main path runs the ingest and term planes: their gathers
+    launch once a batch (`staged`; the extender's /filter path has no
+    queue, so no plane)."""
     counters = kernel_counters()
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
     out = run()
     launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
-    for name in list(names) + ["gather_stage", "gather_terms"]:
+    for name in list(names) + (["gather_stage", "gather_terms"] if staged else []):
         check(launches[name] > 0, f"kernel {name} was not launched by the {label} drain")
     return out, launches
 
@@ -2300,6 +2364,7 @@ def phase_drain(smi, total):
     verify_node_bank(sched)
     n_sigs = verify_sig_bank(sched)
     log_drain(f"config-2 full ({CONFIG2_NODES} nodes, {CONFIG2_PODS} pods, batch {BATCH})", sched, res, wall, smi)
+    config2_pods_per_s = res.scheduled / wall
     log(f"[drain] config-2: device node bank usage columns and signature bank ({n_sigs} signatures) == fresh "
         f"host encode; launches {launches}")
     for services in (False, True):
@@ -2413,7 +2478,514 @@ def phase_drain(smi, total):
             f"preempted {st['preempted']}, reverify misses {st['preempt_reverify_miss']}, nominee folds "
             f"{st['nominee_folds']}; max_memory_allocated {torch.cuda.max_memory_allocated()} B; card {smi}; "
             f"launches {launches}")
-    return total
+    return config2_pods_per_s
+
+
+# ---------------------------------------------------------------------------
+# the Policy config and the HTTP extender seams
+# ---------------------------------------------------------------------------
+
+# the RequestedToCapacityRatio shapes the score kernel is held to: the
+# default (spread to the least used), two-point bin-packing, and five points
+# with down-sloping segments (Go's truncating division) over cpu 3 / memory 1
+RTCR_CASES = {
+    "default": None,
+    "binpack": (((0, 0), (100, 10)), (("cpu", 1), ("memory", 1))),
+    "down": (((0, 2), (20, 9), (45, 1), (80, 6), (100, 0)), (("cpu", 3), ("memory", 1))),
+}
+# the chip-smoke RTCR Policy's priorities (RTCR at weight 2)
+RTCR_PRIORITIES = (("RequestedToCapacityRatioPriority", 2), ("NodeAffinityPriority", 1),
+                   ("TaintTolerationPriority", 1))
+RTCR_POLICY = {
+    "kind": "Policy",
+    "predicates": [{"name": n} for n in ("GeneralPredicates", "PodToleratesNodeTaints", "CheckNodeUnschedulable",
+                                         "MatchInterPodAffinity")],
+    "priorities": [
+        {"name": "BinPack", "weight": 2, "argument": {"requestedToCapacityRatioArguments": {
+            "shape": [{"utilization": 0, "score": 0}, {"utilization": 100, "score": 10}]}}},
+        {"name": "NodeAffinityPriority", "weight": 1},
+        {"name": "TaintTolerationPriority", "weight": 1},
+    ],
+}
+ZONE_KEY = "failure-domain.beta.kubernetes.io/zone"
+REGION_KEY = "failure-domain.beta.kubernetes.io/region"
+# the custom-argument Policy: its predicates and priorities run as framework
+# plugins, so every pod re-ranks on the host over every node
+CUSTOM_POLICY = {
+    "kind": "Policy",
+    "predicates": [
+        {"name": "GeneralPredicates"}, {"name": "PodToleratesNodeTaints"},
+        {"name": "NoRetiring", "argument": {"labelsPresence": {"labels": ["retiring"], "presence": False}}},
+        {"name": "SvcRegion", "argument": {"serviceAffinity": {"labels": [REGION_KEY]}}},
+    ],
+    "priorities": [
+        {"name": "LeastRequestedPriority", "weight": 1},
+        {"name": "PreferSSD", "weight": 2, "argument": {"labelPreference": {"label": "disktype", "presence": True}}},
+        {"name": "SvcSpread", "weight": 3, "argument": {"serviceAntiAffinity": {"label": ZONE_KEY}}},
+    ],
+}
+# the custom-argument drain: config 1's 500 nodes; the pods are cut from
+# 5,000 to what the host plugins' per-pod scans finish in about a minute
+CUSTOM_NODES = 500
+CUSTOM_PODS = 1000
+# the extender phase: config 3's full cluster holding bound config 3-hard
+# and config 4 pods; /filter requests for the next pods of both
+EXT_BOUND3 = 20000
+EXT_BOUND4 = 2000
+EXT_REQUESTS = 256
+EXT_ORACLE_STRIDE = 8  # the oracle path answers every 8th request (32)
+# the Scheduler consulting an in-script extender: config 1's shapes
+CLIENT_NODES = 500
+CLIENT_PODS = 1000
+
+def filter_mask_work(na, ea, xa, ta, au, pa, kinds, v):
+    """(bytes, integer operations) of ops/pipeline.filter_mask with every
+    predicate on: filter_work, plus spread_filter_work under DoNotSchedule
+    spread and interpod_work's filter over the inter-pod parts present,
+    less the intermediate masks the composition never needs to write."""
+    from kubernetes_tpu_torch.ops import topology as TO
+
+    works = [filter_work(na, pa)]
+    u, n = pa["valid"].shape[0], na["valid"].shape[0]
+    if "spread_hard" in kinds:
+        works.append(spread_filter_work(na, ea, ta, TO.match_terms(ta, ea["label_vals"], ea["ns_id"]), u))
+    parts = tuple(p for p, k in (("existing", "et_anti"), ("aff", "aff_req"), ("anti", "anti_req")) if k in kinds)
+    if parts:
+        m_pt = TO.match_terms(xa, pa["label_vals"], pa["ns_id"])
+        m_sig = TO.match_terms(ta, ea["label_vals"], ea["ns_id"])
+        works.append(interpod_work("interpod_filter", na, ea, xa, ta, au, pa, parts, m_pt, m_sig))
+    return sum(w[0] for w in works) - (len(works) - 1) * u * n, sum(w[1] for w in works)
+
+
+def compare_policy_scores(na, pa, label):
+    """The score kernel's RTCR branch (three shapes, beside NodeAffinity and
+    TaintToleration, with a bias) and its component mode against their
+    plain versions on the same CUDA tensors; times (the entry alone: one
+    prebuilt struct relaunched), plain times and bounds. Returns {kernel:
+    stats}."""
+    from kubernetes_tpu_torch.kernels import build
+    from kubernetes_tpu_torch.ops import scores as S
+
+    dev = na["valid"].device
+    err = 0
+    for rtcr in RTCR_CASES.values():
+        k = S.score_matrix(na, pa, RTCR_PRIORITIES, rtcr, bias=10)
+        p = S.score_matrix_plain(na, pa, RTCR_PRIORITIES, rtcr, bias=10)
+        err = max(err, int((k - p).abs().max()))
+    check(err == 0, f"[{label}] the score kernel's RTCR branch differs from its plain version by {err}")
+    rtcr = RTCR_CASES["binpack"]
+    args, _ = S.score_args(na, pa, RTCR_PRIORITIES, bias=10, rtcr=rtcr)
+    out = {"score_matrix[rtcr]": {
+        "max_abs_err": err,
+        "ms": cuda_ms(lambda: build.launch(S.SCORE_ENTRY, args, dev), 200),
+        "wrapper_ms": cuda_ms(lambda: S.score_matrix(na, pa, RTCR_PRIORITIES, rtcr, bias=10), 200),
+        "plain_ms": cuda_ms(lambda: S.score_matrix_plain(na, pa, RTCR_PRIORITIES, rtcr, bias=10), 3),
+        "bound": bound(score_work(na, pa, RTCR_PRIORITIES, rtcr)),
+    }}
+    got, want = S.score_components(na, pa), S.score_components_plain(na, pa)
+    check(list(got) == list(want), f"[{label}] score_components planes {list(got)} != {list(want)}")
+    err_c = max(int((got[k] - want[k]).abs().max()) for k in want)
+    check(err_c == 0, f"[{label}] the score kernel's component mode differs from its plain version by {err_c}")
+    cargs, _ = S.score_args(na, pa, n_components=len(want))
+    out["score_components"] = {
+        "max_abs_err": err_c,
+        "ms": cuda_ms(lambda: build.launch(S.SCORE_ENTRY, cargs, dev), 200),
+        "wrapper_ms": cuda_ms(lambda: S.score_components(na, pa), 200),
+        "plain_ms": cuda_ms(lambda: S.score_components_plain(na, pa), 3),
+        "bound": bound(score_work(na, pa, n_components=len(want))),
+    }
+    log(f"[kernels] {label}: U={pa['valid'].shape[0]} N={na['valid'].shape[0]}: the RTCR branch exact on the "
+        f"{', '.join(RTCR_CASES)} shapes; score_components exact ({len(want)} planes: {', '.join(want)})")
+    for name, st in out.items():
+        log(f"[kernels] {label} {name}: kernel {st['ms']:.4f} ms (through its wrapper {st['wrapper_ms']:.4f} ms), "
+            f"plain {st['plain_ms']:.4f} ms, bound {st['bound'][0]:.6f} ms ({st['bound'][1]}); no single PyTorch "
+            f"call computes it")
+    return out
+
+
+def score_launch_counts():
+    from kubernetes_tpu_torch.ops import scores as S
+    from kubernetes_tpu_torch.ops import topology as TO
+
+    return (S.score_matrix.launches, TO.spread_score.launches, TO.interpod_score.launches,
+            TO.selector_spread_score.launches)
+
+
+def compare_filter_mask(inputs, label, time_it: bool):
+    """ops/pipeline.filter_mask (the extender's /filter program) against
+    its plain composition on the same CUDA tensors, under every predicate
+    and under the two topology gates alone; no score, spread-score or
+    inter-pod-score kernel may launch. With time_it, the whole composition
+    through its wrapper (its kernels run in sequence), the plain one and
+    the bound. Returns its stats."""
+    from kubernetes_tpu_torch.ops import pipeline as PP
+
+    bad = 0
+    for preds in (None, frozenset({"GeneralPredicates", "EvenPodsSpread"}),
+                  frozenset({"GeneralPredicates", "MatchInterPodAffinity"})):
+        kw = dict(inputs, config=PP.SolveConfig(predicates=preds) if preds is not None else inputs["config"])
+        before = score_launch_counts()
+        got = PP.filter_mask(**kw)
+        torch.cuda.synchronize()
+        check(score_launch_counts() == before, f"[{label}] filter_mask launched a score kernel")
+        bad += int((got != PP.filter_mask_plain(**kw)).sum())
+    check(bad == 0, f"[{label}] filter_mask differs from its plain version in {bad} pairs")
+    mask = PP.filter_mask(**inputs)
+    pa = inputs["pa"]
+    out = {"max_abs_err": min(bad, 1), "feasible": int(mask[pa["valid"]].sum())}
+    if time_it:
+        out["ms"] = cuda_ms(lambda: PP.filter_mask(**inputs), 50)
+        out["plain_ms"] = cuda_ms(lambda: PP.filter_mask_plain(**inputs), 3)
+        out["bound"] = bound(filter_mask_work(inputs["na"], inputs["ea"], inputs["xa"], inputs["ta"], inputs["au"],
+                                              pa, inputs["term_kinds"], inputs["n_buckets"]))
+    log(f"[kernels] {label}: filter_mask exact under 3 predicate sets, no score kernel launched (U="
+        f"{pa['valid'].shape[0]} N={inputs['na']['valid'].shape[0]} kinds {sorted(inputs['term_kinds'])}, "
+        f"{out['feasible']} feasible pairs)"
+        + (f"; through its wrapper {out['ms']:.4f} ms, plain {out['plain_ms']:.4f} ms, bound "
+           f"{out['bound'][0]:.6f} ms ({out['bound'][1]})" if time_it else ""))
+    return out
+
+
+def enc_filter_inputs(enc):
+    """filter_mask's keyword arguments for an `encode`d batch."""
+    return dict(na=enc["na"], pa=enc["pa"], ids=enc["ids"], config=None, term_kinds=enc["kinds"], ea=enc["ea"],
+                ta=enc["ta"], au=enc["au"], xa=enc["xa"], n_buckets=enc["v"])
+
+
+def policy_drain(device, n_nodes, n_pods, batch, policy=None):
+    """bench.py config 2 through `Configurator(...).create_from_config`
+    under the RTCR bin-packing Policy, the pods admitted to the running
+    scheduler."""
+    from kubernetes_tpu_torch.config import Configurator
+    from kubernetes_tpu_torch.models.clusters import bench_config2, fill_cache
+    from kubernetes_tpu_torch.state.cache import SchedulerCache
+    from kubernetes_tpu_torch.state.queue import PriorityQueue
+
+    nodes, pods = bench_config2(n_nodes, n_pods)
+    cache, queue = SchedulerCache(), PriorityQueue()
+    fill_cache(cache, nodes)
+    sched = Configurator(device=device, cache=cache, queue=queue, batch_size=batch, seed=0).create_from_config(
+        policy or RTCR_POLICY)
+    for p in pods:
+        queue.add(p)
+    if device == "cuda":
+        torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = sched.run_until_empty(max_cycles=100000)
+    sched.wait_for_binds()
+    wall = time.perf_counter() - t0
+    sched.close()
+    return sched, nodes, pods, res, wall
+
+
+def custom_policy_drain(device):
+    """The custom-argument Policy on `policy_cluster` (config 1's nodes in
+    8 zones over 2 regions, one Service per app, one bound anchor a app)."""
+    from kubernetes_tpu_torch.config import Configurator
+    from kubernetes_tpu_torch.models.clusters import fill_cache, policy_cluster
+    from kubernetes_tpu_torch.state.cache import SchedulerCache
+    from kubernetes_tpu_torch.state.queue import PriorityQueue
+
+    nodes, anchors, pods, services = policy_cluster(CUSTOM_NODES, CUSTOM_PODS)
+    cache, queue = SchedulerCache(), PriorityQueue()
+    fill_cache(cache, nodes, anchors)
+    sched = Configurator(device=device, cache=cache, queue=queue, batch_size=256, seed=0,
+                         service_lister=lambda: services).create_from_config(CUSTOM_POLICY)
+    for p in pods:
+        queue.add(p)
+    t0 = time.perf_counter()
+    res = sched.run_until_empty(max_cycles=1000)
+    sched.wait_for_binds()
+    wall = time.perf_counter() - t0
+    sched.close()
+    return sched, nodes, anchors, pods, res, wall
+
+
+def verify_custom_policy(sched, nodes, anchors, pods, res, label):
+    """Every pod placed, none on a retiring node, each app in its anchor's
+    region (serviceAffinity), no node over its limits."""
+    check(res.scheduled == len(pods), f"{label}: {res.scheduled} of {len(pods)} pods placed")
+    node_of = {n.name: n for n in nodes}
+    region_of_app = {a.labels["app"]: node_of[a.node_name].labels[REGION_KEY] for a in anchors}
+    bad = sum(1 for p in pods if "retiring" in node_of[res.assignments[p.key()]].labels
+              or node_of[res.assignments[p.key()]].labels[REGION_KEY] != region_of_app[p.labels["app"]])
+    check(bad == 0, f"{label}: {bad} placements on a retiring node or outside their app's region")
+    mirror = sched.mirror
+    mirror.sync()
+    bank = mirror.nodes
+    valid = bank.valid
+    check(bool((bank.requested[valid] <= bank.alloc[valid]).all()), f"{label}: a node's requests exceed its allocatable")
+    check(bool((bank.pod_count[valid] <= bank.allowed_pods[valid]).all()), f"{label}: a node holds too many pods")
+    check(sched.stats["oracle_places"] == len(pods), f"{label}: oracle_places {sched.stats['oracle_places']} != "
+          f"{len(pods)} pods")
+
+
+def phase_policy(smi, total, default_pods_per_s):
+    """The RTCR Policy drains (config 2 full on cuda, its pods/s beside the
+    default provider's drain of this call; at 1/10 cuda == cpu) and the
+    custom-argument Policy drain (cuda == cpu)."""
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    torch.cuda.reset_peak_memory_stats()
+    need = ["filter_mask", "score_matrix", "score_matrix[rtcr]", "solve_greedy", "fold_commit_banks"]
+    (sched, nodes, pods, res, wall), launches = run_main_path(
+        "config-2 RTCR Policy", need, lambda: policy_drain("cuda", CONFIG2_NODES, CONFIG2_PODS, BATCH))
+    add(launches)
+    verify_drain(sched, nodes, pods, res, "cuda")
+    verify_stage_planes("config-2 RTCR Policy", sched)
+    verify_node_bank(sched)
+    st = sched.stats
+    check(launches["score_matrix[rtcr]"] == st["batches"],
+          f"config-2 RTCR Policy: {launches['score_matrix[rtcr]']} RTCR score launches for {st['batches']} batches")
+    used = int((sched.mirror.nodes.pod_count[sched.mirror.nodes.valid] > 0).sum())
+    log_drain(f"config-2 RTCR Policy full ({CONFIG2_NODES} nodes, {CONFIG2_PODS} pods, batch {BATCH})", sched, res,
+              wall, smi)
+    log(f"[policy] config-2 RTCR bin-packing Policy: {res.scheduled / wall:.1f} pods/s against the default "
+        f"provider's {default_pods_per_s:.1f} pods/s in this call; the pods packed "
+        f"onto {used} of {CONFIG2_NODES} nodes; every batch one RTCR score launch; launches {launches}")
+    # 1/10: cuda == cpu pod for pod
+    small = {}
+    for device in ("cuda", "cpu"):
+        sched, nodes, pods, res, wall = policy_drain(device, CONFIG2_NODES // 10, CONFIG2_PODS // 10, BATCH // 8)
+        small[device] = (res.assignments, res.scheduled)
+        check(res.scheduled == len(pods), f"config-2 RTCR Policy at 1/10 on {device}: {res.scheduled} placed")
+    check(small["cuda"] == small["cpu"], "config-2 RTCR Policy at 1/10: cuda and cpu placements differ")
+    log(f"[policy] config-2 RTCR Policy at 1/10 ({CONFIG2_NODES // 10} nodes, {CONFIG2_PODS // 10} pods, batch "
+        f"{BATCH // 8}): cuda == cpu pod for pod")
+    # the custom-argument Policy: host plugins on every pod
+    out = {}
+    for device in ("cuda", "cpu"):
+        if device == "cuda":
+            (sched, nodes, anchors, pods, res, wall), launches = run_main_path(
+                "custom-argument Policy", ["filter_mask", "score_matrix", "solve_greedy", "gather_score_rows"],
+                lambda: custom_policy_drain("cuda"))
+            add(launches)
+        else:
+            sched, nodes, anchors, pods, res, wall = custom_policy_drain("cpu")
+        verify_custom_policy(sched, nodes, anchors, pods, res, f"custom-argument Policy on {device}")
+        out[device] = (res.assignments, sched.stats["oracle_places"])
+        log(f"[policy] custom-argument Policy on {device} ({CUSTOM_NODES} nodes, {CUSTOM_PODS} pods, cut from "
+            f"config 1's 5,000 to what the host plugins' per-pod scans finish in about a minute): every pod placed "
+            f"outside the retiring nodes and inside its app's region, oracle_places {sched.stats['oracle_places']}, "
+            f"{wall:.3f}s ({res.scheduled / wall:.1f} pods/s)")
+    check(out["cuda"] == out["cpu"], "custom-argument Policy: cuda and cpu placements differ")
+
+
+def extender_cluster():
+    """Config 3's full 10,000-node cluster holding EXT_BOUND3 config 3-hard
+    pods (round-robin) and EXT_BOUND4 config-4 pods (pod i on node 7 i mod
+    N); the next EXT_REQUESTS pods of both, interleaved."""
+    from kubernetes_tpu_torch.models.clusters import bench_config3, bench_config4
+
+    nodes, pods3, _ = bench_config3(CONFIG3_NODES, EXT_BOUND3 + EXT_REQUESTS // 2, hard=True)
+    _, pods4 = bench_config4(CONFIG4_NODES, EXT_BOUND4 + EXT_REQUESTS // 2)
+    for p in pods4:
+        p.name = "c4-" + p.name  # config 4's names would collide with config 3's
+    existing = [p.with_node(nodes[i % len(nodes)].name) for i, p in enumerate(pods3[:EXT_BOUND3])]
+    existing += [p.with_node(nodes[(7 * i) % len(nodes)].name) for i, p in enumerate(pods4[:EXT_BOUND4])]
+    pending = [p for pair in zip(pods3[EXT_BOUND3:], pods4[EXT_BOUND4:]) for p in pair]
+    return nodes, existing, pending
+
+
+def http_post(url, obj, timeout=300):
+    import urllib.request
+
+    req = urllib.request.Request(url, data=json.dumps(obj).encode(), headers={"Content-Type": "application/json"},
+                                 method="POST")
+    with urllib.request.urlopen(req, timeout=timeout) as r:
+        return json.loads(r.read())
+
+
+def percentile(xs, q):
+    xs = sorted(xs)
+    return xs[min(len(xs) - 1, int(round(q * (len(xs) - 1))))]
+
+
+def phase_extender(smi, total, stats):
+    """The port's ExtenderServer over config 3's full cluster: /filter in
+    nodeCacheCapable mode with every node name, on cuda (every request the
+    device path's), against the same cache's oracle path (a stride sample)
+    and a CPU server; filter_mask at the request's shapes against its plain
+    version; the other routes once each; then a Scheduler consulting an
+    in-script extender over HTTP, cuda == cpu."""
+    from kubernetes_tpu_torch.api.types import pod_to_k8s
+    from kubernetes_tpu_torch.extender import ExtenderServer
+    from kubernetes_tpu_torch.models.clusters import fill_cache
+    from kubernetes_tpu_torch.state.cache import SchedulerCache
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    t0 = time.perf_counter()
+    nodes, existing, pending = extender_cluster()
+    cache = SchedulerCache()
+    fill_cache(cache, nodes, existing)
+    names = [n.name for n in nodes]
+    bound_to = []
+    srv = ExtenderServer(cache=cache, device="cuda", bind_fn=bound_to.append).start()
+    oracle = ExtenderServer(cache=cache, device="cuda", device_threshold=len(names) + 1).start()
+    cpu = ExtenderServer(cache=cache, device="cpu").start()
+    log(f"[extender] config 3's cluster ({len(nodes)} nodes, {len(existing)} bound pods) built in "
+        f"{time.perf_counter() - t0:.3f}s; {len(pending)} /filter requests of {len(names)} names each")
+    bodies = [{"Pod": pod_to_k8s(p), "NodeNames": names} for p in pending]
+    try:
+        http_post(srv.url + "/filter", bodies[0])  # the mirror's first build and upload
+        srv.stats.update(filter_device=0, filter_oracle=0, filter_errors=0)
+        lat = []
+
+        def serve():
+            answers = []
+            for body in bodies:
+                t1 = time.perf_counter()
+                answers.append(http_post(srv.url + "/filter", body))
+                lat.append(time.perf_counter() - t1)
+            return answers
+
+        answers, launches = run_main_path("extender /filter",
+                                          ["filter_mask", "pipeline.filter_mask", "spread_filter", "interpod_filter"],
+                                          serve, staged=False)
+        add(launches)
+        st = srv.stats
+        check(st == {"filter_device": len(bodies), "filter_oracle": 0, "filter_errors": 0},
+              f"extender: the device path did not answer every request: {st}")
+        check(launches["pipeline.filter_mask"] == len(bodies) and launches["score_matrix"] == 0,
+              f"extender: {launches['pipeline.filter_mask']} filter_mask calls, {launches['score_matrix']} score "
+              f"launches for {len(bodies)} requests")
+        lat_o = []
+        for k in range(0, len(bodies), EXT_ORACLE_STRIDE):
+            t1 = time.perf_counter()
+            got = http_post(oracle.url + "/filter", bodies[k])
+            lat_o.append(time.perf_counter() - t1)
+            check(sorted(got["NodeNames"]) == sorted(answers[k]["NodeNames"])
+                  and set(got["FailedNodes"]) == set(answers[k]["FailedNodes"]),
+                  f"extender: request {k}'s device answer differs from the oracle path's")
+        check(oracle.stats["filter_oracle"] == len(lat_o), f"extender: oracle server counters {oracle.stats}")
+        t1 = time.perf_counter()
+        for k, body in enumerate(bodies):
+            check(http_post(cpu.url + "/filter", body) == answers[k],
+                  f"extender: request {k}'s cuda answer differs from the cpu server's")
+        cpu_s = time.perf_counter() - t1
+        check(cpu.stats["filter_device"] == len(bodies) and cpu.stats["filter_errors"] == 0,
+              f"extender: cpu server counters {cpu.stats}")
+        feasible = [len(a["NodeNames"]) for a in answers]
+        log(f"[extender] /filter on cuda: {len(bodies)} requests, every one by the device path ({st}); encode memo "
+            f"{srv.filter_encode_cache}; feasible nodes per request min {min(feasible)} median "
+            f"{percentile(feasible, 0.5)} max {max(feasible)}; latency median {percentile(lat, 0.5) * 1e3:.3f} ms "
+            f"p99 {percentile(lat, 0.99) * 1e3:.3f} ms (host clock, HTTP included); card {smi}")
+        log(f"[extender] /filter oracle path (device_threshold above N, every {EXT_ORACLE_STRIDE}th request: "
+            f"{len(lat_o)}): the same answers; latency median {percentile(lat_o, 0.5) * 1e3:.3f} ms p99 "
+            f"{percentile(lat_o, 0.99) * 1e3:.3f} ms; the cpu server's {len(bodies)} answers equal the cuda ones "
+            f"({cpu_s:.3f}s); launches {launches}")
+        # filter_mask at the request's shapes: held to its plain version, timed
+        stats["pipeline.filter_mask"] = compare_filter_mask(srv.filter_inputs(pending[0]), "extender /filter request",
+                                                            time_it=True)
+        stats["pipeline.filter_mask"]["latency_ms"] = (percentile(lat, 0.5) * 1e3, percentile(lat_o, 0.5) * 1e3)
+        # the other routes once each
+        pr = http_post(srv.url + "/prioritize", {"Pod": pod_to_k8s(pending[1]), "NodeNames": names[:200]})
+        check(len(pr) == 200 and all(0 <= d["Score"] <= 10 for d in pr), "extender: /prioritize answer out of range")
+        br = http_post(srv.url + "/bind", {"PodName": pending[0].name, "PodNamespace": pending[0].namespace,
+                                           "PodUID": pending[0].uid, "Node": names[0]})
+        check(br["Error"] == "" and bound_to[0].node == names[0], f"extender: /bind answered {br}")
+        victim = existing[0]
+        mv = http_post(srv.url + "/preemption", {"Pod": pod_to_k8s(pending[0]), "NodeNameToMetaVictims": {
+            victim.node_name: {"Pods": [{"UID": victim.uid}], "NumPDBViolations": 0},
+            "ghost": {"Pods": [{"UID": victim.uid}], "NumPDBViolations": 0}}})
+        check(list(mv["NodeNameToMetaVictims"]) == [victim.node_name], f"extender: /preemption answered {mv}")
+        import urllib.request
+
+        with urllib.request.urlopen(srv.url + "/healthz", timeout=10) as r:
+            check(json.loads(r.read())["ok"] is True, "extender: /healthz")
+        log("[extender] /prioritize, /bind, /preemption and /healthz answered")
+    finally:
+        for s in (srv, oracle, cpu):
+            s.stop()
+    phase_extender_client(total)
+
+
+def extender_client_drain(device, url):
+    """config 1's shapes (CLIENT_NODES nodes, CLIENT_PODS pods) through a
+    Scheduler consulting the in-script extender (weight 100) and a dead,
+    ignorable one."""
+    from kubernetes_tpu_torch.extender import ExtenderConfig, HTTPExtender
+    from kubernetes_tpu_torch.models.clusters import bench_config1, fill_cache
+    from kubernetes_tpu_torch.scheduler.driver import Scheduler
+    from kubernetes_tpu_torch.state.cache import SchedulerCache
+    from kubernetes_tpu_torch.state.queue import PriorityQueue
+
+    nodes, pods = bench_config1(CLIENT_NODES, CLIENT_PODS)
+    cache, queue = SchedulerCache(), PriorityQueue()
+    fill_cache(cache, nodes)
+    exts = [HTTPExtender(ExtenderConfig(url_prefix=url, filter_verb="filter", prioritize_verb="prioritize",
+                                        weight=100, node_cache_capable=True)),
+            HTTPExtender(ExtenderConfig(url_prefix="http://127.0.0.1:1", filter_verb="filter",
+                                        node_cache_capable=True, ignorable=True, timeout_s=0.5))]
+    sched = Scheduler(cache, queue, batch_size=256, seed=0, device=device, extenders=exts)
+    for p in pods:
+        queue.add(p)
+    t0 = time.perf_counter()
+    res = sched.run_until_empty(max_cycles=1000)
+    sched.wait_for_binds()
+    wall = time.perf_counter() - t0
+    sched.close()
+    return sched, pods, res, wall
+
+
+def phase_extender_client(total):
+    from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
+    import threading
+
+    class EvenNodes(BaseHTTPRequestHandler):
+        """Keeps the nodes with an even index; prioritizes by the index mod
+        11 (an extender's 0-10 range)."""
+
+        def log_message(self, fmt, *a):
+            pass
+
+        def do_POST(self):
+            payload = json.loads(self.rfile.read(int(self.headers.get("Content-Length", 0))))
+            index = lambda name: int(name.rsplit("-", 1)[1])  # noqa: E731
+            if self.path.endswith("/filter"):
+                out = {"NodeNames": [x for x in payload["NodeNames"] if index(x) % 2 == 0], "FailedNodes": {},
+                       "Error": ""}
+            else:
+                out = [{"Host": x, "Score": index(x) % 11} for x in payload["NodeNames"]]
+            body = json.dumps(out).encode()
+            self.send_response(200)
+            self.send_header("Content-Length", str(len(body)))
+            self.end_headers()
+            self.wfile.write(body)
+
+    httpd = ThreadingHTTPServer(("127.0.0.1", 0), EvenNodes)
+    th = threading.Thread(target=httpd.serve_forever, daemon=True)
+    th.start()
+    url = f"http://127.0.0.1:{httpd.server_address[1]}"
+    try:
+        out = {}
+        for device in ("cuda", "cpu"):
+            if device == "cuda":
+                (sched, pods, res, wall), launches = run_main_path(
+                    "extender client", ["filter_mask", "score_matrix", "solve_greedy", "gather_score_rows"],
+                    lambda: extender_client_drain("cuda", url))
+                for k, v in launches.items():
+                    total[k] = total.get(k, 0) + v
+            else:
+                sched, pods, res, wall = extender_client_drain("cpu", url)
+            check(res.scheduled == len(pods) and res.errors == 0, f"extender client on {device}: "
+                  f"{res.scheduled} of {len(pods)} placed, {res.errors} errors")
+            odd = [k for k, n in res.assignments.items() if int(n.rsplit("-", 1)[1]) % 2]
+            check(not odd, f"extender client on {device}: {len(odd)} pods on odd nodes")
+            out[device] = res.assignments
+            log(f"[extender] a Scheduler consulting an in-script extender (even nodes, index prioritize, weight "
+                f"100) and a dead ignorable one on {device}: {CLIENT_NODES} nodes, {CLIENT_PODS} pods, every pod on "
+                f"an even node, oracle_places {sched.stats['oracle_places']}, {wall:.3f}s")
+        check(out["cuda"] == out["cpu"], "extender client: cuda and cpu placements differ")
+    finally:
+        httpd.shutdown()
+        httpd.server_close()
 
 
 def verify_config6(out, label):
@@ -2455,13 +3027,29 @@ def main() -> int:
     t0 = time.perf_counter()
     name, count, smi = phase_device()
     phase_build()
+    clock = [time.perf_counter()]
+
+    def lap(what):
+        now = time.perf_counter()
+        log(f"[time] {what} {now - clock[0]:.1f}s")
+        clock[0] = now
+
     stats = phase_kernels()
+    lap("phase 3 kernels")
     launches = dict(phase_parity())
+    lap("phase 4 parity")
     for k, v in phase_oracle_parity().items():
         launches[k] = launches.get(k, 0) + v
+    lap("phase 4 oracle parity")
     for k, v in phase_gang_parity().items():
         launches[k] = launches.get(k, 0) + v
-    phase_drain(smi, launches)
+    lap("phase 4 gang parity")
+    config2_pods_per_s = phase_drain(smi, launches)
+    lap("phase 5 drains")
+    phase_policy(smi, launches, config2_pods_per_s)
+    lap("phase 5 Policy drains")
+    phase_extender(smi, launches, stats)
+    lap("phase 5 extender")
     sources = {
         "filter_mask": ("kubernetes_tpu_torch/csrc/filters.cu", "kubernetes_tpu/ops/filters.py:216"),
         "score_matrix": ("kubernetes_tpu_torch/csrc/scores.cu", "kubernetes_tpu/ops/scores.py:262"),
@@ -2483,11 +3071,16 @@ def main() -> int:
         "gather_stage": ("kubernetes_tpu_torch/csrc/slab.cu", "kubernetes_tpu/ingest/gather.py:28"),
         "gather_terms": ("kubernetes_tpu_torch/csrc/slab.cu", "kubernetes_tpu/terms_plane/gather.py:28"),
         "scatter_rows": ("kubernetes_tpu_torch/csrc/slab.cu", "kubernetes_tpu/ingest/bank.py:54"),
+        "score_matrix[rtcr]": ("kubernetes_tpu_torch/csrc/scores.cu", "kubernetes_tpu/ops/scores.py:183"),
+        "score_components": ("kubernetes_tpu_torch/csrc/scores.cu", "kubernetes_tpu/ops/scores.py:288"),
+        "pipeline.filter_mask": ("kubernetes_tpu_torch/csrc/filters.cu", "kubernetes_tpu/ops/pipeline.py:131"),
     }
     kernels = []
     for kname, (src, ref) in sources.items():
         s = stats[kname]
-        check(launches[kname] > 0, f"kernel {kname} was not launched by the drains")
+        # score_components has no caller on a main path (the reference's only
+        # caller is a test): its launches there are 0
+        check(launches[kname] > 0 or kname == "score_components", f"kernel {kname} was not launched by the drains")
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": ref,
             "launches": launches[kname], "max_abs_err": s["max_abs_err"],

@@ -12,10 +12,12 @@ Entry points run on the CUDA card unless the caller passes device="cpu",
 which runs each kernel's plain PyTorch version instead.
 
 Layout mirrors the reference package:
-  api/        typed Pod/Node objects, resource.Quantity, label selectors
-  oracle/     NodeInfo/Snapshot and the host oracle's predicate chain
+  api/        typed Pod/Node objects, resource.Quantity, label selectors,
+              Service, the k8s JSON wire conversion
+  oracle/     NodeInfo/Snapshot, the host oracle's predicate chain
               (predicates.go semantics), read by the driver's per-pod
-              re-checks, the victim search and the term compiler
+              re-checks, the victim search and the term compiler, and the
+              host priority set (the extender's /prioritize, Policy plugins)
   state/      interner, tensor encoding (node, signature, pod banks), term
               tables, queue, cache + device mirror, the zone-interleaved
               node order
@@ -23,6 +25,10 @@ Layout mirrors the reference package:
               (kernel wrappers + plain versions)
   commit/     the commit arbiter and the fold planner
   scheduler/  the batch driver and preemption
+  framework/  the Scheduling Framework: plugins, CycleState, the registry
+  extender/   the HTTP SchedulerExtender: server and client
+  config/     feature gates (utils/), providers, Policy, ComponentConfig,
+              the Configurator that builds a Scheduler from them
   kernels/    nvcc build + ctypes loading of csrc/*.cu
 """
 

@@ -35,6 +35,12 @@ constructors), and the two can be held pod for pod against each other.
   workload: zoned nodes, 1/8 of the pods with a required hostname
   anti-affinity, 1/8 with a DoNotSchedule zone spread in their own label
   space, the rest plain.
+* `make_node` / `make_pod` — one node or pod as the reference's
+  models/generators builds them (its tests' scenarios, rebuilt here).
+* `policy_cluster` — a config-1-sized cluster for the Policy's
+  custom-argument predicates and priorities: region and zone labels, a
+  `retiring` label on some nodes and `disktype=ssd` on others, apps with
+  one Service each and one bound anchor pod per app.
 * `random_cluster` — a seeded cluster meant to reach every branch of the
   filter and score programs: all node-selector operators, taints of every
   effect, unschedulable nodes, host pins, used host ports, images,
@@ -64,6 +70,64 @@ GPU = "example.com/gpu"
 ZONE_KEY = "failure-domain.beta.kubernetes.io/zone"
 HOST_KEY = "kubernetes.io/hostname"
 BENCH_ZONES = tuple(f"zone-{i}" for i in range(8))  # bench.py ZONES
+
+
+# --- single objects and the Policy cluster ---------------------------------
+
+def make_node(name: str, cpu_milli: int = 4000, mem: int = 16 * 2**30, pods: int = 110,
+              labels: Optional[dict] = None, taints: Optional[list] = None, unschedulable: bool = False,
+              t: ModuleType = port_types):
+    """A node as the reference's models/generators.make_node builds it."""
+    alloc = {
+        t.RESOURCE_CPU: t.Quantity.parse(f"{cpu_milli}m"),
+        t.RESOURCE_MEMORY: t.Quantity.parse(mem),
+        t.RESOURCE_PODS: t.Quantity.parse(pods),
+    }
+    return t.Node(name=name, labels=dict(labels or {}), taints=list(taints or []), unschedulable=unschedulable,
+                  capacity=dict(alloc), allocatable=alloc)
+
+
+def make_pod(name: str, namespace: str = "default", cpu_milli: int = 100, mem: int = 128 * 2**20,
+             labels: Optional[dict] = None, node_name: str = "", t: ModuleType = port_types, **kwargs):
+    """A pod as the reference's models/generators.make_pod builds it: one
+    container requesting `cpu_milli` and `mem` (a zero leaves it out)."""
+    requests = {}
+    if cpu_milli:
+        requests[t.RESOURCE_CPU] = t.Quantity.parse(f"{cpu_milli}m")
+    if mem:
+        requests[t.RESOURCE_MEMORY] = t.Quantity.parse(mem)
+    return t.Pod(name=name, namespace=namespace, labels=dict(labels or {}), node_name=node_name,
+                 containers=[t.Container(name="main", image=IMAGES[0], requests=requests)], **kwargs)
+
+
+REGION_KEY = "failure-domain.beta.kubernetes.io/region"
+
+
+def policy_cluster(n_nodes: int, n_pods: int, n_apps: int = 20, t: ModuleType = port_types):
+    """Nodes as bench.py config 1's (32 cores / 256Gi / 110 pods) in 8
+    zones over 2 regions (zone i in region i mod 2), every 7th node
+    labelled `retiring`, every 3rd `disktype=ssd`; pods of config 1's
+    sizes in `n_apps` apps with one Service each (selector app=<app>) and,
+    per app, one bound anchor pod on node (3 app) mod n_nodes. Returns
+    (nodes, anchors, pods, services)."""
+    nodes = []
+    for i in range(n_nodes):
+        node = _bench_node(t, i, taint=False)
+        node.labels[ZONE_KEY] = BENCH_ZONES[i % 8]
+        node.labels[REGION_KEY] = f"region-{i % 2}"
+        if i % 7 == 0:
+            node.labels["retiring"] = "2026-01-01"
+        if i % 3 == 0:
+            node.labels["disktype"] = "ssd"
+        nodes.append(node)
+    app = lambda i: f"svc-{i % n_apps}"  # noqa: E731
+    anchors = []
+    for a in range(n_apps):
+        p = _bench_pod(t, n_pods + a, labels={"app": app(a)})
+        anchors.append(p.with_node(nodes[(3 * a) % n_nodes].name))
+    pods = [_bench_pod(t, i, cpu=("100m", "250m", "500m")[i % 3], labels={"app": app(i)}) for i in range(n_pods)]
+    services = [t.Service(name=app(a), namespace="bench", selector={"app": app(a)}) for a in range(n_apps)]
+    return nodes, anchors, pods, services
 
 
 # --- bench.py config 1 ------------------------------------------------------

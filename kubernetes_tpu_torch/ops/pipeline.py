@@ -13,6 +13,9 @@ earlier commits by the commit arbiter (commit/arbiter.py), which reads the
 solve's intermediates (`arbiter_inputs`) instead of launching them again.
 term_kinds=None is the reference's "assume every kind".
 
+`filter_mask` (ref :131) is the mask half alone, for the extender's
+/filter route: `mask_and_score` and it build the mask in one function.
+
 `solve_pipeline_gang` (ref :285) is the same mask and score followed by the
 all-or-nothing two-pass gang solve (ops/solver.solve_gang).
 
@@ -83,6 +86,47 @@ def _check_term_kinds(term_kinds) -> frozenset:
     return frozenset(term_kinds)
 
 
+def _mask(
+    na: Arrays, pa: Arrays, ids, cfg: SolveConfig, kinds: frozenset, with_selector: bool, *,
+    ea: Optional[Arrays], ta: Optional[Arrays], au: Optional[Arrays], xa: Optional[Arrays],
+    n_buckets: Optional[int], arbiter_inputs: Optional[Dict], plain: bool = False,
+) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
+    """The Filter half that `mask_and_score` and `filter_mask` share, so the
+    gating cannot diverge: the enabled non-topology predicates
+    (`combined_mask`), the DoNotSchedule spread filter under the
+    EvenPodsSpread predicate, the inter-pod filter's parts under
+    MatchInterPodAffinity. Returns (mask, the raw node-selector output when
+    the spread filter ran or `with_selector` asks for it, else None).
+    `plain` calls the kernels' plain versions whatever the device
+    (`filter_mask_plain`)."""
+    preds = cfg.predicates
+    hard = (preds is None or "EvenPodsSpread" in preds) and "spread_hard" in kinds
+    sel = None
+    # the spread programs' candidate nodes pass the RAW node-selector
+    # predicate (no node/pod validity mask): one filter launch gives both
+    if plain:
+        mask = F.combined_mask_plain(na, pa, ids, preds)
+        if with_selector or hard:
+            sel = F.pod_match_node_selector(na, pa)
+    elif with_selector or hard:
+        mask, sel = F.combined_mask(na, pa, ids, predicates=preds, with_selector=True)
+    else:
+        mask = F.combined_mask(na, pa, ids, predicates=preds)
+    if hard:
+        spread_filter = T.spread_filter_plain if plain else T.spread_filter
+        ok, tables = spread_filter(na, ea, ta, sel, n_buckets=n_buckets, with_tables=True)
+        mask = mask & ok
+        if arbiter_inputs is not None:
+            arbiter_inputs["spread_tables"] = tables
+    if preds is None or "MatchInterPodAffinity" in preds:
+        parts = tuple(p for p, k in (("existing", "et_anti"), ("aff", "aff_req"), ("anti", "anti_req"))
+                      if k in kinds)
+        if parts:
+            interpod_filter = T.interpod_filter_plain if plain else T.interpod_filter
+            mask = mask & interpod_filter(na, ea, ta, au, xa, pa, parts=parts, n_buckets=n_buckets)
+    return mask, sel
+
+
 def mask_and_score(
     na: Arrays, pa: Arrays, ids, config: Optional[SolveConfig] = None,
     term_kinds: Optional[frozenset] = frozenset(), *,
@@ -93,9 +137,8 @@ def mask_and_score(
     tensors), `au` (compile_batch_terms aux), `xa` (PatternBank tensors)
     and `n_buckets` (the segment axis bound, None = N) feed the topology
     programs of the kinds named in `term_kinds`, gated as the reference
-    gates them: the DoNotSchedule spread filter under the EvenPodsSpread
-    predicate, the inter-pod filter's parts under MatchInterPodAffinity,
-    its score's under a non-zero InterPodAffinityPriority weight.
+    gates them: the mask as `_mask` builds it, the inter-pod score's parts
+    under a non-zero InterPodAffinityPriority weight.
     Without "sel_spread" the SelectorSpread priority still adds its
     term-absent constant: a pod with no controller selectors scores
     MaxNodeScore on every node (selector_spreading.go), so the score kernel
@@ -104,30 +147,14 @@ def mask_and_score(
     this stage computed them."""
     kinds = _check_term_kinds(term_kinds)
     cfg = config or DEFAULT_SOLVE_CONFIG
-    preds = cfg.predicates
     w_spread = cfg.priority_weight("EvenPodsSpreadPriority", 1)
     w_sel = cfg.priority_weight("SelectorSpreadPriority", 1)
     spread = bool(w_spread) and "spread_soft" in kinds
     sel_spread = bool(w_sel) and "sel_spread" in kinds
-    hard = (preds is None or "EvenPodsSpread" in preds) and "spread_hard" in kinds
-    # the spread programs' candidate nodes pass the RAW node-selector
-    # predicate (no node/pod validity mask): one filter launch gives both
-    if spread or hard:
-        mask, sel = F.combined_mask(na, pa, ids, predicates=cfg.predicates, with_selector=True)
-    else:
-        mask = F.combined_mask(na, pa, ids, predicates=cfg.predicates)
-    if hard:
-        ok, tables = T.spread_filter(na, ea, ta, sel, n_buckets=n_buckets, with_tables=True)
-        mask = mask & ok
-        if arbiter_inputs is not None:
-            arbiter_inputs["spread_tables"] = tables
-    if (spread or hard) and arbiter_inputs is not None:
+    mask, sel = _mask(na, pa, ids, cfg, kinds, spread, ea=ea, ta=ta, au=au, xa=xa, n_buckets=n_buckets,
+                      arbiter_inputs=arbiter_inputs)
+    if sel is not None and arbiter_inputs is not None:
         arbiter_inputs["sel"] = sel
-    if preds is None or "MatchInterPodAffinity" in preds:
-        parts = tuple(p for p, k in (("existing", "et_anti"), ("aff", "aff_req"), ("anti", "anti_req"))
-                      if k in kinds)
-        if parts:
-            mask = mask & T.interpod_filter(na, ea, ta, au, xa, pa, parts=parts, n_buckets=n_buckets)
     bias = 0 if sel_spread else w_sel * S.MAX_NODE_SCORE
     score = S.score_matrix(na, pa, priorities=cfg.priorities, rtcr=cfg.rtcr, bias=bias)
     w_ipa = cfg.priority_weight("InterPodAffinityPriority", 1)
@@ -140,6 +167,43 @@ def mask_and_score(
     if sel_spread:
         score = score + w_sel * T.selector_spread_score(na, ea, ta, au, n_buckets=n_buckets)
     return mask, score
+
+
+def filter_mask(
+    na: Arrays, pa: Arrays, ids, config: Optional[SolveConfig] = None,
+    term_kinds: Optional[frozenset] = frozenset(), *,
+    ea: Optional[Arrays] = None, ta: Optional[Arrays] = None, au: Optional[Arrays] = None,
+    xa: Optional[Arrays] = None, n_buckets: Optional[int] = None,
+) -> torch.Tensor:
+    """The Filter-only entry point (ref :131; the extender's /filter
+    route): `mask_and_score`'s mask through the same `_mask`, launching no
+    score, spread-score or inter-pod-score kernel. Its kernels are
+    csrc/filters.cu, and csrc/topology.cu's spread filter and
+    csrc/interpod.cu's filter where the term kinds ask for them (their
+    plain versions on CPU tensors); calls are counted in
+    `filter_mask.launches`."""
+    kinds = _check_term_kinds(term_kinds)
+    mask, _ = _mask(na, pa, ids, config or DEFAULT_SOLVE_CONFIG, kinds, False, ea=ea, ta=ta, au=au, xa=xa,
+                    n_buckets=n_buckets, arbiter_inputs=None)
+    if na["valid"].device.type == "cuda":
+        filter_mask.launches += 1
+    return mask
+
+
+filter_mask.launches = 0
+
+
+def filter_mask_plain(
+    na: Arrays, pa: Arrays, ids, config: Optional[SolveConfig] = None,
+    term_kinds: Optional[frozenset] = frozenset(), *,
+    ea: Optional[Arrays] = None, ta: Optional[Arrays] = None, au: Optional[Arrays] = None,
+    xa: Optional[Arrays] = None, n_buckets: Optional[int] = None,
+) -> torch.Tensor:
+    """`filter_mask` through the plain versions of its kernels, on any
+    device (what the kernels are held against on the card)."""
+    mask, _ = _mask(na, pa, ids, config or DEFAULT_SOLVE_CONFIG, _check_term_kinds(term_kinds), False, ea=ea,
+                    ta=ta, au=au, xa=xa, n_buckets=n_buckets, arbiter_inputs=None, plain=True)
+    return mask
 
 
 def apply_carry(na: Arrays, carry: Optional[Tuple]) -> Arrays:

@@ -5,9 +5,10 @@ divisions are Python floor divisions like the reference's `//`;
 BalancedResourceAllocation computes in float64 and truncates.
 
 `score_matrix` launches the hand-written kernel `csrc/scores.cu` on CUDA
-tensors and runs the plain PyTorch version below on CPU tensors. The
-kernel covers every priority but RequestedToCapacityRatio, whose plain
-version is ported here; asking the kernel for it raises (ROADMAP.md queue 2).
+tensors and runs the plain PyTorch version below on CPU tensors; the
+kernel covers every priority, RequestedToCapacityRatio's Policy shape
+included. `score_components` (each default priority's plane on its own) is
+the same kernel in its component mode.
 """
 
 from __future__ import annotations
@@ -265,20 +266,44 @@ def score_matrix_plain(
 
 def kernel_weights(priorities, has_images: bool):
     """The kernel's int64 weight vector (csrc/scores.cu W_* order) for a
-    (name, weight) tuple. Raises NotImplementedError for RTCR."""
+    (name, weight) tuple, and the RequestedToCapacityRatio weight."""
     pairs = priorities if priorities is not None else DEFAULT_PRIORITY_TUPLE
     w = [0] * 8
+    w_rtcr = 0
     for name, weight in pairs:
         if name == RTCR_NAME:
-            raise NotImplementedError(
-                "RequestedToCapacityRatioPriority has no CUDA kernel yet "
-                "(ROADMAP.md queue 2: the RTCR branch of the score kernel)"
-            )
+            w_rtcr += int(weight)
+            continue
         entry = PRIORITIES.get(name)
         if entry is None or (name == "ImageLocalityPriority" and not has_images):
             continue
         w[entry[0]] += int(weight)
-    return w
+    return w, w_rtcr
+
+
+# the argument struct's fixed room for the RTCR shape: validate_function_shape
+# allows at most 101 strictly increasing utilizations in [0, 100]
+RTCR_MAX_POINTS = 101
+RTCR_MAX_RESOURCES = 8
+
+# score_components' planes in the reference's dict order; the first six are
+# csrc/scores.cu's W_* slots 0-5, image_locality slot 6
+COMPONENTS = (
+    ("least_requested", least_requested),
+    ("most_requested", most_requested),
+    ("balanced_allocation", balanced_allocation),
+    ("node_affinity", node_affinity),
+    ("taint_toleration", taint_toleration),
+    ("prefer_avoid_pods", prefer_avoid_pods),
+    ("image_locality", image_locality),
+)
+
+
+def score_components_plain(nodes: Arrays, pods: Arrays) -> Dict[str, torch.Tensor]:
+    """Each default priority's [U, N] int64 score on its own (image
+    locality only when the bank has an image table); plain PyTorch."""
+    return {name: fn(nodes, pods) for name, fn in COMPONENTS
+            if name != "image_locality" or "image_scaled" in nodes}
 
 
 _NODE_PTRS = (
@@ -309,16 +334,39 @@ class ScoreArgs(ctypes.Structure):
         [("n_" + k, ctypes.c_void_p) for k, _ in _NODE_PTRS]
         + [("p_" + k, ctypes.c_void_p) for k, _ in _POD_PTRS]
         + [("out", ctypes.c_void_p), ("weights", ctypes.c_int64 * 8), ("bias", ctypes.c_int64)]
+        + [("w_rtcr", ctypes.c_int64), ("rtcr_res_w", ctypes.c_int64 * RTCR_MAX_RESOURCES),
+           ("rtcr_res_col", ctypes.c_int32 * RTCR_MAX_RESOURCES),
+           ("rtcr_u", ctypes.c_int32 * RTCR_MAX_POINTS), ("rtcr_s", ctypes.c_int32 * RTCR_MAX_POINTS),
+           ("rtcr_points", ctypes.c_int32), ("rtcr_res", ctypes.c_int32), ("n_components", ctypes.c_int32)]
         + [(d, ctypes.c_int32) for d in _DIMS]
     )
 
 
-def score_args(nodes: Arrays, pods: Arrays, priorities=None, bias: int = 0):
-    """The kernel's argument struct for these CUDA tensors, and the [U, N]
-    int64 output it writes. Validates device, dtype and contiguity, and
-    raises NotImplementedError for RequestedToCapacityRatio."""
+def _set_rtcr(args: ScoreArgs, rtcr) -> None:
+    """Write the RTCR shape and resources into the struct (None = the
+    default shape over cpu and memory). Raises on what its fixed room or
+    the node bank's two scoring columns cannot hold."""
+    shape, res = rtcr if rtcr is not None else (DEFAULT_RTCR_SHAPE, DEFAULT_RTCR_RESOURCES)
+    if not 1 <= len(shape) <= RTCR_MAX_POINTS:
+        raise ValueError(f"an RTCR shape has 1 to {RTCR_MAX_POINTS} points, got {len(shape)}")
+    if len(res) > RTCR_MAX_RESOURCES:
+        raise ValueError(f"at most {RTCR_MAX_RESOURCES} RTCR resources, got {len(res)}")
+    for i, (u, sc) in enumerate(shape):
+        args.rtcr_u[i], args.rtcr_s[i] = int(u), int(sc)
+    for i, (rname, weight) in enumerate(res):
+        if rname not in _RTCR_COLUMNS:
+            raise ValueError(f"RTCR resource {rname!r} has no device column (cpu and memory only)")
+        args.rtcr_res_col[i], args.rtcr_res_w[i] = _RTCR_COLUMNS[rname], int(weight)
+    args.rtcr_points, args.rtcr_res = len(shape), len(res)
+
+
+def score_args(nodes: Arrays, pods: Arrays, priorities=None, bias: int = 0, rtcr=None, n_components: int = 0):
+    """The kernel's argument struct for these CUDA tensors, and the output
+    it writes: the [U, N] int64 weighted sum, or with `n_components` > 0
+    the [n_components, U, N] int64 planes. Validates device, dtype and
+    contiguity."""
     has_images = "image_scaled" in nodes
-    weights = kernel_weights(priorities, has_images)
+    weights, w_rtcr = kernel_weights(priorities, has_images)
     n, r = nodes["alloc"].shape
     u = pods["valid"].shape[0]
     dims = dict(
@@ -328,7 +376,8 @@ def score_args(nodes: Arrays, pods: Arrays, priorities=None, bias: int = 0):
         AV=nodes["avoid_kind"].shape[1], CI=pods["image_ids"].shape[1],
         V_img=nodes["image_scaled"].shape[1] if has_images else 0,
     )
-    out = torch.empty((u, n), dtype=torch.int64, device=nodes["valid"].device)
+    shape = (n_components, u, n) if n_components else (u, n)
+    out = torch.empty(shape, dtype=torch.int64, device=nodes["valid"].device)
     args = ScoreArgs()
     for k, dt in _NODE_PTRS:
         if k == "image_scaled" and not has_images:
@@ -336,10 +385,14 @@ def score_args(nodes: Arrays, pods: Arrays, priorities=None, bias: int = 0):
         setattr(args, "n_" + k, build.ptr(nodes[k], dt))
     for k, dt in _POD_PTRS:
         setattr(args, "p_" + k, build.ptr(pods[k], dt))
-    args.out = build.ptr(out, torch.int64, (u, n))
+    args.out = build.ptr(out, torch.int64, shape)
     for i, w in enumerate(weights):
         args.weights[i] = w
     args.bias = int(bias)
+    args.n_components = int(n_components)
+    if w_rtcr and not n_components:
+        args.w_rtcr = w_rtcr
+        _set_rtcr(args, rtcr)
     for d, v in dims.items():
         setattr(args, d, int(v))
     return args, out
@@ -349,17 +402,44 @@ def score_matrix(
     nodes: Arrays, pods: Arrays, priorities=None, rtcr=None, bias: int = 0
 ) -> torch.Tensor:
     """Weighted priority sum [U, N] int64 (None = default provider
-    weights) plus `bias`. CPU tensors run the plain version; CUDA tensors
-    launch csrc/scores.cu (counted in `score_matrix.launches`)."""
+    weights) plus `bias`; `rtcr` is the RequestedToCapacityRatio Policy
+    argument (shape points, resource weights), None = its default. CPU
+    tensors run the plain version; CUDA tensors launch csrc/scores.cu
+    (counted in `score_matrix.launches`, and those scoring RTCR also in
+    `score_matrix.rtcr_launches`)."""
     dev = nodes["valid"].device
     if dev.type == "cpu":
         return score_matrix_plain(nodes, pods, priorities, rtcr, bias)
     if dev.type == "cuda":
-        args, out = score_args(nodes, pods, priorities, bias)
+        args, out = score_args(nodes, pods, priorities, bias, rtcr)
         build.launch(SCORE_ENTRY, args, dev)
         score_matrix.launches += 1
+        if args.w_rtcr:
+            score_matrix.rtcr_launches += 1
         return out
     raise ValueError(f"no score kernel for device {dev}")
 
 
 score_matrix.launches = 0
+score_matrix.rtcr_launches = 0
+
+
+def score_components(nodes: Arrays, pods: Arrays) -> Dict[str, torch.Tensor]:
+    """Each default priority's [U, N] int64 score on its own, as the
+    reference's dict (image_locality only when the bank has an image
+    table). CPU tensors run the plain version; CUDA tensors launch
+    csrc/scores.cu once in its component mode, every plane a view of one
+    [C, U, N] buffer (counted in `score_components.launches`)."""
+    dev = nodes["valid"].device
+    if dev.type == "cpu":
+        return score_components_plain(nodes, pods)
+    if dev.type == "cuda":
+        names = [name for name, _ in COMPONENTS if name != "image_locality" or "image_scaled" in nodes]
+        args, out = score_args(nodes, pods, n_components=len(names))
+        build.launch(SCORE_ENTRY, args, dev)
+        score_components.launches += 1
+        return {name: out[c] for c, name in enumerate(names)}
+    raise ValueError(f"no score kernel for device {dev}")
+
+
+score_components.launches = 0

@@ -281,6 +281,15 @@ class Snapshot:
     def get(self, name: str) -> Optional[NodeInfo]:
         return self.node_infos.get(name)
 
+    def nodes(self) -> List[Node]:
+        return [ni.node for ni in self.node_infos.values()]
+
+    def all_pods(self) -> List[Pod]:
+        out: List[Pod] = []
+        for ni in self.node_infos.values():
+            out.extend(ni.pods)
+        return out
+
     def total_image_nodes(self) -> Dict[str, int]:
         """image name -> number of nodes that have it (ImageStateSummary.NumNodes)."""
         counts: Dict[str, int] = {}

@@ -14,8 +14,8 @@ arbiter's executable spec (commit/arbiter.host_arbitrate) read it; the
 term compiler (state/terms.py) reads its term helpers.
 
 The Policy config's custom-argument predicates (CheckNodeLabelPresence,
-ServiceAffinity) are not ported: an enabled set naming them raises
-NotImplementedError (ROADMAP.md queue 1, host seams).
+ServiceAffinity) sit at the end: the config factory registers them as
+framework Filter plugins, so the chain itself never names them.
 """
 
 from __future__ import annotations
@@ -494,11 +494,6 @@ GENERAL_PREDICATES_EXPANSION = frozenset(
     {HOST_NAME_PRED, POD_FITS_HOST_PORTS_PRED, MATCH_NODE_SELECTOR_PRED, POD_FITS_RESOURCES_PRED}
 )
 
-# the Policy config's custom-argument predicates (api/types.go:83-121),
-# which the reference runs as framework Filter plugins: not ported
-POLICY_PREDICATES = frozenset({"CheckNodeLabelPresence", "ServiceAffinity"})
-
-
 def predicate_enabled(name: str, enabled) -> bool:
     """Is `name` on, given an enabled-set from Policy/provider config?
     None = default provider (everything the oracle implements)."""
@@ -528,11 +523,6 @@ def compute_predicate_metadata(
     affinity_index: Optional["SnapshotAffinityIndex"] = None,
     affinity_extra=(),
 ) -> PredicateMetadata:
-    if enabled is not None and enabled & POLICY_PREDICATES:
-        raise NotImplementedError(
-            f"the Policy predicates {sorted(enabled & POLICY_PREDICATES)} are not ported "
-            "(ROADMAP.md queue 1, host seams)"
-        )
     return PredicateMetadata(
         even_pods_spread=(
             compute_even_pods_spread_metadata(pod, snapshot)
@@ -560,7 +550,7 @@ def pod_fits_on_node(
     (predicates.go:147-153), short-circuiting like podFitsOnNode
     (core/generic_scheduler.go:612 with alwaysCheckAllPredicates=false),
     honoring meta.enabled (Policy/provider predicate selection). The
-    volume predicates are not ported (ROADMAP.md queue 1, host seams)."""
+    volume predicates are not ported (ROADMAP.md queue 1 item 7, volumes)."""
     if meta is None:
         if snapshot is None:
             raise ValueError("pod_fits_on_node needs `meta` or a `snapshot` to compute it from")
@@ -621,3 +611,86 @@ def find_nodes_that_fit(pod: Pod, snapshot: Snapshot) -> List[str]:
         for name, ni in snapshot.node_infos.items()
         if pod_fits_on_node(pod, ni, meta=meta)[0]
     ]
+
+
+# ---------------------------------------------------------------------------
+# Policy custom-argument predicates (api/types.go:83-121): labelsPresence →
+# CheckNodeLabelPresence (predicates.go:1033), serviceAffinity →
+# checkServiceAffinity (predicates.go:1123). Registered as framework Filter
+# plugins by the factory — they gate the host commit path, not the device
+# mask (arbitrary user-named predicates have no device encoding).
+# ---------------------------------------------------------------------------
+
+def check_node_label_presence(pod, node_info, labels, presence: bool) -> bool:
+    """CheckNodeLabelPresence (predicates.go:1033-1048): every listed label
+    key must be present (presence=True) or absent (presence=False) on the
+    node, values ignored."""
+    node_labels = node_info.node.labels
+    for label in labels:
+        exists = label in node_labels
+        if (exists and not presence) or (not exists and presence):
+            return False
+    return True
+
+
+def get_pod_services(pod, services):
+    """GetPodServices (client-go listers/core/v1/service_expansion.go):
+    same-namespace services with a NON-EMPTY selector matching the pod's
+    labels."""
+    out = []
+    for svc in services or []:
+        if svc.namespace != pod.namespace or not svc.selector:
+            continue
+        if all(pod.labels.get(k) == v for k, v in svc.selector.items()):
+            out.append(svc)
+    return out
+
+
+def service_affinity_precompute(pod, snapshot, labels, services):
+    """The once-per-pod half of checkServiceAffinity
+    (serviceAffinityMetadataProducer, predicates.go:1060-1082):
+    (base_labels, anchor_candidates) where base_labels come from the pod's
+    own nodeSelector and anchor_candidates is the ordered list of
+    already-placed same-namespace pods with labels matching OURS —
+    non-empty only when the pod belongs to some service. The per-node half
+    (service_affinity_fits) applies the FilterOutPods exclusion against
+    this list, so Filter stays O(1) amortized per node instead of
+    O(cluster pods)."""
+    base_labels = {k: pod.node_selector[k] for k in labels if k in pod.node_selector}
+    candidates = []
+    if len(labels) > len(base_labels) and get_pod_services(pod, services):
+        for other in snapshot.all_pods():
+            if other.namespace != pod.namespace or not other.node_name:
+                continue
+            if all(other.labels.get(k) == v for k, v in pod.labels.items()):
+                candidates.append(other)
+    return base_labels, candidates
+
+
+def service_affinity_fits(pod, node_info, snapshot, labels, base_labels, candidates) -> bool:
+    """Per-node half of checkServiceAffinity (predicates.go:1123-1160):
+    backfill missing constraint keys from the FIRST anchor candidate not on
+    the node under evaluation (FilterOutPods), then require the node to
+    carry every constrained label with the constrained value."""
+    affinity_labels = dict(base_labels)
+    if len(labels) > len(affinity_labels):
+        for other in candidates:
+            if other.node_name == node_info.node.name:
+                continue
+            anchor_ni = snapshot.get(other.node_name)
+            if anchor_ni is None:
+                continue
+            for k in labels:
+                if k not in affinity_labels and k in anchor_ni.node.labels:
+                    affinity_labels[k] = anchor_ni.node.labels[k]
+            break
+    node_labels = node_info.node.labels
+    return all(node_labels.get(k) == v for k, v in affinity_labels.items())
+
+
+def check_service_affinity(pod, node_info, snapshot, labels, services) -> bool:
+    """checkServiceAffinity (predicates.go:1123-1160): force the listed
+    node-label keys to stay homogeneous across a service's pods. One-shot
+    convenience wrapper; the framework plugin path precomputes per pod."""
+    base, cands = service_affinity_precompute(pod, snapshot, labels, services)
+    return service_affinity_fits(pod, node_info, snapshot, labels, base, cands)

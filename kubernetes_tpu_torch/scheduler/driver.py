@@ -2,8 +2,8 @@
 
 The port's lean copy of `kubernetes_tpu/scheduler/driver.py`, reproducing
 the reference's default path — the ingest, term, commit and fold planes on
-and preemption on, no speculation, warm-up, framework plugins, extenders or
-volumes. Per batch:
+and preemption on — and its host seams for Scheduling Framework plugins
+and HTTP extenders; no speculation, warm-up or volumes. Per batch:
 
     pop_batch (+ every queued member of each gang group present) →
     TensorMirror.sync → spec dedup (with the pods' spreading
@@ -85,6 +85,20 @@ The next batches see the outstanding nominations folded onto the node
 bank's usage columns (ops/fold.fold_usage: in place with the commit plane
 on, on a copy with it off), as podFitsOnNode's pass 1 counts them.
 
+Framework plugins and extenders (the reference's host seams): a QueueSort
+plugin's comparator orders the activeQ and, with the priority key zeroed,
+the solve's in-batch order; any other plugin or any extender sends every
+batch to the per-pod loop (`_commit_plane_statics_ok`: no arbiter dispatch,
+no bulk path). There PreFilter can reject a pod, Filter joins the full
+re-check, and Score / PostFilter plugins or an interested extender that
+filters or prioritizes re-rank every placed pod through `_oracle_place`'s
+full scan. Reserve / Unreserve wrap the assume; Permit (waiting pods),
+PreBind, Bind and PostBind run in the bind pipeline, or an interested
+extender with a bind verb binds. A non-ignorable extender failure is a
+scheduling error (`ScheduleResult.errors`): the pod goes back to the queue
+and never preempts. Extenders with a preemption verb trim or veto the host
+victim search's plan and make the device victim search ineligible.
+
 Nothing here turns an exception into another route — the reference's
 fault breaker, which sends a failed prologue to the legacy path, has no
 port: a kernel failure raises, after the batch's pods not yet handled, and
@@ -110,6 +124,7 @@ from ..commit.apply import GangRollbackRecord
 from ..commit.arbiter import V_DEFER, V_PLACE, arbitrate, kinds_covered
 from ..commit.fold import plan_fold
 from ..device import resolve_device
+from ..framework.interface import CycleState, Framework
 from ..ingest import PodStage, StageBank, gather_stage
 from ..ops import filters as F
 from ..ops.fold import fold_usage
@@ -183,9 +198,23 @@ def pod_group_min_available(pod: Pod) -> int:
 class ScheduleResult:
     scheduled: int = 0
     unschedulable: int = 0
+    errors: int = 0  # scheduling errors (a non-ignorable extender failure): re-queued, never preempting
     preempted: int = 0  # failed pods whose preemption deleted victims and nominated a node
     deferred: int = 0  # arbiter V_DEFER: re-queued for the next batch
     assignments: Dict[str, str] = field(default_factory=dict)
+
+
+class ExtenderError(Exception):
+    """A non-ignorable extender wire failure (ref :171). Not a "no fit": the
+    reference treats it as a scheduling error (core/generic_scheduler.go:
+    531-557 returns an error, not a FitError), so it never preempts."""
+
+
+# the extension points whose plugins force the per-pod loop (every one but
+# QueueSort)
+_HOST_POINTS = ("reserve", "filter", "pre_filter", "score", "post_filter", "permit", "pre_bind", "bind",
+                "post_bind")
+_VOLUME_SEAM = "volumes are not ported (ROADMAP.md queue 1 item 7, volumes)"
 
 
 class Binder:
@@ -432,7 +461,13 @@ class Scheduler:
         nominate_fn: Optional[Callable[[Pod, str], None]] = None,
         ingest_plane: bool = True,
         term_plane: bool = True,
+        framework: Optional[Framework] = None,
+        extenders: Optional[List] = None,
+        volume_checker: Optional[Callable] = None,
+        volume_binder=None,
     ):
+        if volume_checker is not None or volume_binder is not None:
+            raise NotImplementedError(f"Scheduler(volume_checker=..., volume_binder=...): {_VOLUME_SEAM}")
         self.device = resolve_device(device)
         # the arbiter's verdicts for DoNotSchedule batches and the commits
         # folded into the device banks (the reference's commit and fold
@@ -441,6 +476,15 @@ class Scheduler:
         self.cache = cache or SchedulerCache()
         self.queue = queue or PriorityQueue()
         self.binder = binder or Binder()
+        # Scheduling Framework plugins, consulted per pod on the host; a
+        # QueueSort plugin's comparator orders the activeQ (ref :546-550)
+        self.framework = framework or Framework()
+        qs_less = self.framework.queue_sort_less()
+        if qs_less is not None:
+            self.queue.set_queue_sort(qs_less)
+        # HTTP extenders (core/extender.go): consulted per pod on the host at
+        # Filter / Prioritize time, and at Bind when one binds
+        self.extenders: List = list(extenders or [])
         self.batch_size = batch_size
         self.deterministic = deterministic
         self.solve_config = solve_config
@@ -807,6 +851,7 @@ class Scheduler:
         nominated_fn = self.queue.nominated_pods_for_node if self.queue.has_nominations() else _no_nominations
         fast_bulk = (
             not is_gang
+            and self._commit_plane_statics_ok()
             and all(lv == RECHECK_NONE for lv in out.levels)
             and (nominated_fn is _no_nominations or nom_adds == self.queue.nomination_adds)
             and not out.existing_overflow
@@ -847,7 +892,10 @@ class Scheduler:
         }
         pb["sig"][: len(pods)] = sig
         pb["valid"][: len(pods)] = True
-        pb["priority"][: len(pods)] = [p.get_priority() for p in pods]
+        # under a QueueSort plugin the pop order is the in-batch order: a
+        # zero priority key makes the solve's order the batch positions
+        if self.queue._less is None:
+            pb["priority"][: len(pods)] = [p.get_priority() for p in pods]
         if self._ids is None:
             self._ids = F.make_ids(self.mirror.vocab)  # interned constants; stable
         pbt = arrays_to_torch(pb, self.device)
@@ -892,7 +940,7 @@ class Scheduler:
         # the batches whose verdicts the commit can use: no gang group, a
         # pod that needs a re-check, every present term kind covered
         verdict = None
-        if (self.commit_plane and not is_gang and kinds_covered(batch_kinds)
+        if (self.commit_plane and not is_gang and kinds_covered(batch_kinds) and self._commit_plane_statics_ok()
                 and any(lv != RECHECK_NONE for lv in levels)):
             verdict = arbitrate(na, pa, ea, ta, self._ids, assign, pbt,
                                 term_kinds=self._term_kinds, n_buckets=self._v_bucket, inputs=solved)
@@ -920,6 +968,28 @@ class Scheduler:
             gang_ok=gang_ok_l,
         )
         return out
+
+    def _commit_plane_statics_ok(self) -> bool:
+        """The deployment-static precondition of the bulk path and the
+        arbiter's verdicts (ref :2947-2967): any extender, or any plugin at
+        an extension point other than QueueSort, sends every batch to the
+        per-pod loop, so such a scheduler never dispatches the arbiter."""
+        if self.extenders:
+            return False
+        return not any(self.framework.has_plugins(point) for point in _HOST_POINTS)
+
+    def _lean_bind(self) -> bool:
+        """No Permit / PreBind / Bind / PostBind plugin and no binding
+        extender: the bind pipeline reduces to the binder and the cache's
+        finish (ref :3545-3552)."""
+        fw = self.framework
+        return (not any(fw.has_plugins(p) for p in ("permit", "pre_bind", "bind", "post_bind"))
+                and not any(e.supports_bind() for e in self.extenders))
+
+    def _pod_extenders(self, pod: Pod) -> List:
+        """The extenders interested in this pod (IsInterested,
+        core/extender.go:450; ref :2351)."""
+        return [e for e in self.extenders if e.is_interested(pod)]
 
     def _arbiter_covers(self, out: SolveOutput) -> bool:
         """Can this batch commit straight from the arbiter's verdicts (ref
@@ -985,15 +1055,28 @@ class Scheduler:
                 res.unschedulable += 1
                 self._fail(info, cycle)
                 continue
-            jobs.append((info, assumed, node_name))
+            jobs.append((info, assumed, node_name, None))
             res.assignments[info.pod.key()] = node_name
         res.scheduled += len(jobs)
-        self._submit_binds(jobs)
+        # the bulk and arbitrated routes run only without host plugins and
+        # extenders: the lean pipeline
+        self._submit_binds(jobs, True)
 
-    def _submit_binds(self, jobs: List[Tuple[PodInfo, Pod, str]]) -> None:
+    def _submit_binds(self, jobs: List[Tuple[PodInfo, Pod, str, Optional[CycleState]]], lean: bool) -> None:
+        """Submit (info, assumed pod, node, CycleState) bind jobs in
+        BIND_WORKERS chunks: the lean chunk without plugins or a binding
+        extender, else the full pipeline, one job a task when a Permit
+        plugin may park a pod on another's allow()."""
+        if not jobs:
+            return
+        if not lean and self.framework.has_plugins("permit"):
+            for job in jobs:
+                self._bind_pool.submit(self._bind_pipeline, *job)
+            return
         step = max(1, -(-len(jobs) // BIND_WORKERS))
+        run = self._bind_chunk if lean else self._bind_pipeline_chunk
         for i in range(0, len(jobs), step):
-            self._bind_pool.submit(self._bind_chunk, jobs[i : i + step])
+            self._bind_pool.submit(run, jobs[i : i + step])
 
     def _dispatch_fold(self, pairs: List[Tuple[Pod, int]]) -> bool:
         """Fold a committed batch's deltas (`pairs` = the final placed set
@@ -1131,14 +1214,27 @@ class Scheduler:
         tombstoned in the conflict index, the residuals diverged; later
         members of a failed group fail ("gang incomplete")."""
         snap = self.cache.snapshot
+        fw = self.framework
+        # host plugins: Filter joins the full re-check, PreFilter may reject
+        # the pod, Score and PostFilter take part in the selection, so every
+        # placed pod re-ranks on the host (its score rows fetched in one
+        # gather)
+        host_filter = fw.has_plugins("filter")
+        host_pre_filter = fw.has_plugins("pre_filter")
+        force_host_rank = fw.has_plugins("score") or fw.has_plugins("post_filter")
+        if force_host_rank:
+            out.score.prefetch(range(len(infos)))
+        lean = self._lean_bind()
         conflict_index = _BatchConflictIndex()
-        # a batch of RECHECK_NONE pods without gang groups never reads the index
-        index_needed = out.gang_ok is not None or any(lv != RECHECK_NONE for lv in out.levels)
+        # a batch of RECHECK_NONE pods without gang groups, Filter plugins
+        # or extenders never reads the index
+        index_needed = (out.gang_ok is not None or host_filter or bool(self.extenders)
+                        or any(lv != RECHECK_NONE for lv in out.levels))
         # once a pod commits elsewhere than the solve chose, the solve's
         # carried residuals are stale for the rest of the batch
         residuals_diverged = False
         name_of = self.mirror.name_of_row
-        jobs: List[Tuple[PodInfo, Pod, str]] = []
+        jobs: List[Tuple[PodInfo, Pod, str, CycleState]] = []
         staged: Dict[str, GangRollbackRecord] = {}
         failed_groups: set = set()
 
@@ -1151,7 +1247,7 @@ class Scheduler:
             if rec is None or not len(rec):
                 return
             self.stats["gang_rollbacks"] += 1
-            res.unschedulable += rec.rollback(self.cache, self._fail, cycle,
+            res.unschedulable += rec.rollback(self.cache, fw, self._fail, cycle,
                                               on_member=lambda m: conflict_index.remove(m.pod))
             residuals_diverged = True  # the staged capacity is released
 
@@ -1169,6 +1265,7 @@ class Scheduler:
             for i, info in enumerate(infos):
                 disposed = False
                 pod = info.pod
+                state = CycleState()
                 group = groups[i]
                 if group and group in failed_groups:
                     res.unschedulable += 1
@@ -1185,51 +1282,82 @@ class Scheduler:
                 row = out.assign[i]
                 node_name = name_of[row] if 0 <= row < len(name_of) else None
                 device_choice = node_name
+                if host_pre_filter:
+                    st = fw.run_pre_filter(state, pod)
+                    if not st.is_success():
+                        res.unschedulable += 1
+                        if device_choice is not None:
+                            # the solve charged this pod to a node it never takes
+                            residuals_diverged = True
+                        disposed = True
+                        self._fail(info, cycle)  # rejected by PreFilter
+                        continue
                 level = out.levels[i]
-                needs_full = out.fallback[i] or out.existing_overflow or level == RECHECK_FULL
+                needs_full = out.fallback[i] or out.existing_overflow or host_filter or level == RECHECK_FULL
                 # the solve sequenced anti-affinity and ports within the
                 # batch: LIGHT re-checks are redundant while commits follow
                 # its picks
                 tracked_ok = out.inbatch_tracked and not residuals_diverged
                 needs_light = (level == RECHECK_LIGHT or conflict_index.any_anti) and not tracked_ok
+                # Score / PostFilter plugins and interested extenders that
+                # filter or prioritize take part in the selection
+                pod_host_rank = force_host_rank or (bool(self.extenders) and any(
+                    e.supports_filter() or e.supports_prioritize() for e in self._pod_extenders(pod)))
                 placed_attempted = False
-                if node_name is not None and (needs_full or nominated_fn(node_name)):
-                    self.stats["oracle_rechecks"] += 1
-                    meta = self._pod_meta(pod)
-                    ok = snap.get(node_name) is not None and fits_considering_nominated(
-                        pod, node_name, snap, nominated_fn, meta=meta)
-                    if not ok:
-                        # invalidated by an earlier commit of the batch: re-place
-                        # against the live snapshot, ranked by the device score
-                        node_name = self._oracle_place(pod, out.score[i], meta)
-                        placed_attempted = True
-                elif node_name is not None and needs_light:
-                    self.stats["light_rechecks"] += 1
-                    ok = not self._intra_batch_conflict(pod, node_name, conflict_index)
-                    if ok and residuals_diverged:
-                        ni = snap.get(node_name)
-                        ok = ni is not None and pod_fits_resources(pod, ni)
-                    if not ok:
+                try:
+                    if node_name is not None and pod_host_rank:
+                        # no validation of the device pick: the host ranks anew
                         self.stats["oracle_places"] += 1
-                        node_name = self._oracle_place(pod, out.score[i], self._pod_meta(pod))
+                        node_name = self._oracle_place(pod, out.score[i], self._pod_meta(pod), state)
                         placed_attempted = True
-                elif node_name is not None and residuals_diverged:
-                    # an earlier re-placement moved capacity the solve did not
-                    # account for: a resource check on the live node first
-                    ni = snap.get(node_name)
-                    if ni is None or not pod_fits_resources(pod, ni):
-                        node_name = self._oracle_place(pod, out.score[i], self._pod_meta(pod))
-                        placed_attempted = True
-                if node_name is None and not placed_attempted and (
-                    out.fallback[i] or out.existing_overflow or out.node_fallback_any or residuals_diverged
-                    or _minus_one_could_fit(pod, conflict_index, res.preempted > 0, level)
-                ):
-                    # the device mask may be conservatively wrong (overflowed
-                    # encodings, excluded node rows, capacity charged to a node
-                    # an earlier pod left, a constraint an earlier commit
-                    # satisfied): the host oracle before declaring a no-fit
-                    self.stats["oracle_places"] += 1
-                    node_name = self._oracle_place(pod, out.score[i], self._pod_meta(pod))
+                    elif node_name is not None and (needs_full or nominated_fn(node_name)):
+                        self.stats["oracle_rechecks"] += 1
+                        meta = self._pod_meta(pod)
+                        ok = snap.get(node_name) is not None and fits_considering_nominated(
+                            pod, node_name, snap, nominated_fn, meta=meta)
+                        if ok and host_filter:
+                            ok = fw.run_filter(state, pod, snap.get(node_name)).is_success()
+                        if not ok:
+                            # invalidated by an earlier commit of the batch: re-place
+                            # against the live snapshot, ranked by the device score
+                            node_name = self._oracle_place(pod, out.score[i], meta, state)
+                            placed_attempted = True
+                    elif node_name is not None and needs_light:
+                        self.stats["light_rechecks"] += 1
+                        ok = not self._intra_batch_conflict(pod, node_name, conflict_index)
+                        if ok and residuals_diverged:
+                            ni = snap.get(node_name)
+                            ok = ni is not None and pod_fits_resources(pod, ni)
+                        if not ok:
+                            self.stats["oracle_places"] += 1
+                            node_name = self._oracle_place(pod, out.score[i], self._pod_meta(pod), state)
+                            placed_attempted = True
+                    elif node_name is not None and residuals_diverged:
+                        # an earlier re-placement moved capacity the solve did not
+                        # account for: a resource check on the live node first
+                        ni = snap.get(node_name)
+                        if ni is None or not pod_fits_resources(pod, ni):
+                            node_name = self._oracle_place(pod, out.score[i], self._pod_meta(pod), state)
+                            placed_attempted = True
+                    if node_name is None and not placed_attempted and (
+                        out.fallback[i] or out.existing_overflow or out.node_fallback_any or residuals_diverged
+                        or _minus_one_could_fit(pod, conflict_index, res.preempted > 0, level)
+                    ):
+                        # the device mask may be conservatively wrong (overflowed
+                        # encodings, excluded node rows, capacity charged to a node
+                        # an earlier pod left, a constraint an earlier commit
+                        # satisfied): the host oracle before declaring a no-fit
+                        self.stats["oracle_places"] += 1
+                        node_name = self._oracle_place(pod, out.score[i], self._pod_meta(pod), state)
+                except ExtenderError:
+                    # a wire failure, not a no-fit: the error path, never
+                    # preemption (MakeDefaultErrorFunc's re-queue, factory.go:646)
+                    res.errors += 1
+                    if device_choice is not None:
+                        residuals_diverged = True
+                    disposed = True
+                    self._fail(info, cycle)
+                    continue
                 if node_name is None:
                     if device_choice is not None:
                         # the solve charged this pod to a node it never took
@@ -1256,21 +1384,21 @@ class Scheduler:
                         self.queue.move_all_to_active()
                     continue
                 if group:
-                    assumed = self._prepare_commit(info, node_name, cycle)
+                    assumed = self._prepare_commit(info, node_name, cycle, state)
                     if assumed is None:  # failed by the prepare
                         rollback_group(group)
                         res.unschedulable += 1
                         disposed = True
                         continue
                     # from here the pod's disposition belongs to its group
-                    staged.setdefault(group, GangRollbackRecord(group)).stage(info, assumed, node_name)
+                    staged.setdefault(group, GangRollbackRecord(group)).stage(info, assumed, node_name, state)
                     disposed = True
                     index_commit(i, pod, node_name, assumed)
                     if node_name != device_choice:
                         residuals_diverged = True
                     continue
                 disposed = True
-                if self._commit(info, node_name, cycle, jobs):
+                if self._commit(info, node_name, cycle, state, jobs):
                     res.scheduled += 1
                     res.assignments[pod.key()] = node_name
                     index_commit(i, pod, node_name)
@@ -1288,8 +1416,8 @@ class Scheduler:
                     rollback_group(g)
                     continue
                 del staged[g]
-                for s_info, s_assumed, s_node in rec.members:
-                    self._finalize_commit(s_info, s_assumed, s_node, jobs)
+                for s_info, s_assumed, s_node, s_state in rec.members:
+                    self._finalize_commit(s_info, s_assumed, s_node, s_state, jobs)
                     res.scheduled += 1
                     res.assignments[s_info.pod.key()] = s_node
         except BaseException:
@@ -1297,47 +1425,54 @@ class Scheduler:
             # the pods not yet handled go back before the error surfaces
             back: List[PodInfo] = []
             for rec in staged.values():
-                rec.rollback(self.cache, lambda m, _cycle: back.append(m), cycle)
+                rec.rollback(self.cache, fw, lambda m, _cycle: back.append(m), cycle)
             staged.clear()
             self._aff_index = None
             self.queue.requeue(back + infos[i + 1 if disposed else i:])
             raise
         finally:
-            self._submit_binds(jobs)
+            self._submit_binds(jobs, lean)
 
-    def _prepare_commit(self, info: PodInfo, node_name: str, cycle: int) -> Optional[Pod]:
+    def _prepare_commit(self, info: PodInfo, node_name: str, cycle: int, state: CycleState) -> Optional[Pod]:
         """The per-pod commit's first half (the reference's
-        `_prepare_commit`): assume the pod in the cache, then clear its
+        `_prepare_commit`): Reserve plugins, then assume the pod in the
+        cache (a key the cache already tracks unreserves), then clear its
         nomination (DeleteNominatedPodIfExists, scheduler.go:529). Returns
-        the assumed pod, or None after failing a pod whose key the cache
-        already tracks. A gang member stays prepared until its group binds
-        or rolls back."""
-        assumed = info.pod.with_node(node_name)
+        the assumed pod, or None after failing the pod. A gang member stays
+        prepared until its group binds or rolls back."""
+        pod = info.pod
+        if not self.framework.run_reserve(state, pod, node_name).is_success():
+            self._fail(info, cycle)
+            return None
+        assumed = pod.with_node(node_name)
         try:
             self.cache.assume_pod(assumed)
         except ValueError:
+            self.framework.run_unreserve(state, pod, node_name)
             self._fail(info, cycle)
             return None
-        self.queue.clear_nomination(info.pod.key())
+        self.queue.clear_nomination(pod.key())
         return assumed
 
-    def _finalize_commit(self, info: PodInfo, assumed: Pod, node_name: str,
-                         jobs: Optional[List[Tuple[PodInfo, Pod, str]]] = None) -> None:
-        """The second half (the reference's `_finalize_commit`): the bind on
-        the bind pool, appended to `jobs` for a chunked submission or
-        submitted at once."""
+    def _finalize_commit(self, info: PodInfo, assumed: Pod, node_name: str, state: Optional[CycleState],
+                         jobs: Optional[List[Tuple[PodInfo, Pod, str, Optional[CycleState]]]] = None) -> None:
+        """The second half (the reference's `_finalize_commit`): the bind
+        pipeline on the bind pool, appended to `jobs` for a chunked
+        submission or submitted at once."""
         if jobs is None:
-            self._submit_binds([(info, assumed, node_name)])
+            self._submit_binds([(info, assumed, node_name, state)], self._lean_bind())
         else:
-            jobs.append((info, assumed, node_name))
+            jobs.append((info, assumed, node_name, state))
 
-    def _commit(self, info: PodInfo, node_name: str, cycle: int,
-                jobs: Optional[List[Tuple[PodInfo, Pod, str]]] = None) -> bool:
-        """Prepare and finalize one pod; False when the prepare failed it."""
-        assumed = self._prepare_commit(info, node_name, cycle)
+    def _commit(self, info: PodInfo, node_name: str, cycle: int, state: Optional[CycleState] = None,
+                jobs: Optional[List[Tuple[PodInfo, Pod, str, Optional[CycleState]]]] = None) -> bool:
+        """Prepare and finalize one pod; False when the prepare failed it.
+        `state` is the pod's CycleState from PreFilter on."""
+        state = state if state is not None else CycleState()
+        assumed = self._prepare_commit(info, node_name, cycle, state)
         if assumed is None:
             return False
-        self._finalize_commit(info, assumed, node_name, jobs)
+        self._finalize_commit(info, assumed, node_name, state, jobs)
         return True
 
     # -- the host oracle ---------------------------------------------------------
@@ -1426,7 +1561,8 @@ class Scheduler:
             return True
         return index.anti_conflict(pod, ni.node)
 
-    def _oracle_place(self, pod: Pod, score_row: np.ndarray, meta) -> Optional[str]:
+    def _oracle_place(self, pod: Pod, score_row: np.ndarray, meta,
+                      state: Optional[CycleState] = None) -> Optional[str]:
         """The host oracle's re-placement (ref driver.py:2388-2466): of the
         nodes feasible for `pod` on the live snapshot (this batch's assumes
         included) by the full predicate chain — nodes holding nominations
@@ -1438,7 +1574,11 @@ class Scheduler:
         checks have no side effects, so walking the nodes best score first
         (node order among equals) and stopping at the first feasible one
         returns the same node after checking only the nodes ranked above
-        it."""
+        it. With Filter, PostFilter or Score plugins, or an interested
+        extender that filters or prioritizes, the feasible set as a whole
+        takes part: the reference's full scan (`_host_ranked_place`)."""
+        if self._host_ranked(pod):
+            return self._host_ranked_place(pod, score_row, meta, state if state is not None else CycleState())
         snap = self.cache.snapshot
         nominated = self.queue.nominated_pods_for_node if self.queue.has_nominations() else _no_nominations
         order = self.cache.node_order()
@@ -1457,6 +1597,77 @@ class Scheduler:
                 continue
             return cand
         return None
+
+    def _host_ranked(self, pod: Pod) -> bool:
+        """Does anything on the host see the feasible set as a whole: a
+        Filter, PostFilter or Score plugin, or an interested extender that
+        filters or prioritizes?"""
+        fw = self.framework
+        if fw.has_plugins("filter") or fw.has_plugins("post_filter") or fw.has_plugins("score"):
+            return True
+        return any(e.supports_filter() or e.supports_prioritize() for e in self._pod_extenders(pod))
+
+    def _host_ranked_place(self, pod: Pod, score_row: np.ndarray, meta, state: CycleState) -> Optional[str]:
+        """The reference's full scan (ref :2396-2466): every node in node
+        order through the predicate chain, the Filter plugins and the
+        with-nominees pass; PostFilter over the feasible set; each
+        interested extender's filter narrows it (on the snapshot's nodes)
+        and its prioritize adds its weighted scores (HTTPExtender.prioritize
+        applies the extender's weight, so they add as they come); the Score
+        plugins add their weighted sum; the first maximum of device score +
+        plugin + extender scores in node order wins. An extender's wire
+        failure skips it when it is ignorable, else raises ExtenderError."""
+        fw = self.framework
+        snap = self.cache.snapshot
+        run_filter = fw.run_filter if fw.has_plugins("filter") else None
+        nominated = self.queue.nominated_pods_for_node if self.queue.has_nominations() else _no_nominations
+        feasible: List[str] = []
+        for cand in self.cache.node_order():
+            ni = snap.get(cand)
+            if ni is None or not pod_fits_on_node(pod, ni, meta=meta)[0]:
+                continue
+            if run_filter is not None and not run_filter(state, pod, ni).is_success():
+                continue
+            nominees = eligible_nominees(pod, cand, nominated)
+            if nominees and not fits_with_nominees(pod, cand, snap, nominees, enabled=self._enabled_preds):
+                continue
+            feasible.append(cand)
+        if not feasible:
+            return None
+        if fw.has_plugins("post_filter") and not fw.run_post_filter(state, pod, feasible, {}).is_success():
+            return None
+        ext_scores: Dict[str, int] = {}
+        for e in self._pod_extenders(pod):
+            snap_nodes = [snap.node_infos[n].node for n in feasible]
+            if e.supports_filter():
+                try:
+                    names, _failed = e.filter(pod, snap_nodes)
+                except Exception as err:
+                    if not e.is_ignorable():
+                        raise ExtenderError(str(err)) from err
+                    names = feasible
+                keep = set(names)
+                feasible = [n for n in feasible if n in keep]
+                if not feasible:
+                    return None
+                snap_nodes = [snap.node_infos[n].node for n in feasible]
+            if e.supports_prioritize():
+                try:
+                    for n, sc in e.prioritize(pod, snap_nodes).items():
+                        ext_scores[n] = ext_scores.get(n, 0) + sc
+                except Exception as err:
+                    if not e.is_ignorable():
+                        raise ExtenderError(str(err)) from err
+        plugin_scores = fw.run_scores(state, pod, feasible) if fw.has_plugins("score") else {}
+        row_of = self.mirror.row_of
+        best, best_score = None, None
+        for cand in feasible:
+            row = row_of.get(cand)
+            sc = int(score_row[row]) if row is not None and row < len(score_row) else 0
+            sc += plugin_scores.get(cand, 0) + ext_scores.get(cand, 0)
+            if best_score is None or sc > best_score:
+                best, best_score = cand, sc
+        return best
 
     def _fail(self, info: PodInfo, cycle: int) -> None:
         self.queue.add_unschedulable(info, cycle)
@@ -1524,6 +1735,25 @@ class Scheduler:
         )
         if node is None:
             return False
+        # extenders with a preemption verb trim or veto the victims
+        # (processPreemptionWithExtenders, core/generic_scheduler.go:323-345;
+        # consulted on the chosen node, as the reference does)
+        from ..extender.types import Victims  # the extender package imports this module
+
+        for e in self.extenders:
+            if not (e.supports_preemption() and e.is_interested(pod)):
+                continue
+            try:
+                result = e.process_preemption(pod, {node: Victims(pods=list(victims))})
+            except Exception:
+                if e.is_ignorable():
+                    continue
+                return False
+            kept = result.get(node)
+            if kept is None:
+                return False  # the extender vetoed the node
+            keep = set(kept.pod_uids)
+            victims = [v for v in victims if v.uid in keep]
         self._apply_preemption(pod, node, victims, clear)
         return True
 
@@ -1570,7 +1800,7 @@ class Scheduler:
         k = 0
         try:
             plans = None
-            if self._enabled_preds is None:
+            if self._enabled_preds is None and not any(e.supports_preemption() for e in self.extenders):
                 plans = preemption_mod.batch_preempt_device(
                     [i.pod for i in fails], self.cache.snapshot, pdbs=pdbs, can_disrupt=self._can_disrupt,
                     nominated=self.queue.nomination_extras({i.pod.key() for i in fails}), device=self.device,
@@ -1626,19 +1856,60 @@ class Scheduler:
         )
         return live is not None and [p.key() for p in live.pods] == [p.key() for p in victims]
 
-    def _bind_chunk(self, items: List[Tuple[PodInfo, Pod, str]]) -> None:
-        """Bind a chunk; a failed bind forgets the assume and retries the
-        pod through the backoff tier (MakeDefaultErrorFunc)."""
+    def _bind_chunk(self, items: List[Tuple[PodInfo, Pod, str, Optional[CycleState]]]) -> None:
+        """Bind a chunk through the lean pipeline (binder, then the cache's
+        finish); a failed bind unbinds the pod (`_unbind`)."""
         finished: List[Pod] = []
-        for info, assumed, node_name in items:
+        for info, assumed, node_name, state in items:
             try:
                 self.binder.bind(info.pod, node_name)
             except Exception:  # the bind RPC failed: forget + requeue
-                self.cache.forget_pod(assumed)
-                self.queue.requeue_backoff(info)
+                self._unbind(info, assumed, node_name, state)
                 continue
             finished.append(assumed)
         self.cache.finish_bindings(finished)
+
+    def _bind_pipeline_chunk(self, items: List[Tuple[PodInfo, Pod, str, Optional[CycleState]]]) -> None:
+        for job in items:
+            self._bind_pipeline(*job)
+
+    def _bind_pipeline(self, info: PodInfo, assumed: Pod, node_name: str, state: Optional[CycleState]) -> None:
+        """The full bind pipeline (scheduler.go:631-743; ref :2540-2595):
+        Permit (a WAIT parks the pod until allow, reject or timeout),
+        PreBind, then the bind — by an interested extender with a bind verb
+        (extendersBinding), else by a Bind plugin that does not skip, then
+        the binder — and PostBind. Any failure unbinds the pod."""
+        pod = info.pod
+        state = state if state is not None else CycleState()
+        fw = self.framework
+        try:
+            if not fw.run_permit(state, pod, node_name).is_success():
+                self._unbind(info, assumed, node_name, state)
+                return
+            if not fw.run_pre_bind(state, pod, node_name).is_success():
+                self._unbind(info, assumed, node_name, state)
+                return
+            ext = next((e for e in self.extenders if e.supports_bind() and e.is_interested(pod)), None)
+            if ext is not None:
+                ext.bind(pod, node_name)
+            else:
+                st = fw.run_bind(state, pod, node_name)
+                if st.code not in (0, 4):  # neither SUCCESS nor SKIP
+                    raise RuntimeError(st.message)
+                self.binder.bind(pod, node_name)
+        except Exception:  # the bind failed: forget + requeue
+            self._unbind(info, assumed, node_name, state)
+            return
+        self.cache.finish_bindings([assumed])
+        fw.run_post_bind(state, pod, node_name)
+
+    def _unbind(self, info: PodInfo, assumed: Pod, node_name: str, state: Optional[CycleState]) -> None:
+        """A bind pipeline failure (ref :2617): forget the assume, run the
+        Unreserve plugins and retry the pod through the backoff tier
+        (MakeDefaultErrorFunc)."""
+        self.cache.forget_pod(assumed)
+        self.framework.run_unreserve(state if state is not None else CycleState(), info.pod, node_name)
+        self.queue.requeue_backoff(info)
 
     # -- loop and lifecycle --------------------------------------------------
 
@@ -1648,10 +1919,11 @@ class Scheduler:
             r = self.schedule_batch()
             total.scheduled += r.scheduled
             total.unschedulable += r.unschedulable
+            total.errors += r.errors
             total.preempted += r.preempted
             total.deferred += r.deferred
             total.assignments.update(r.assignments)
-            if r.scheduled == 0 and r.unschedulable == 0 and r.deferred == 0:
+            if r.scheduled == 0 and r.unschedulable == 0 and r.errors == 0 and r.deferred == 0:
                 break
         return total
 

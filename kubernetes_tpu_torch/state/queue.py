@@ -68,6 +68,31 @@ class PodInfo:
     term_gen: int = -1
 
 
+class _ActiveEntry:
+    """activeQ heap node under a QueueSort plugin's comparator (ref :70).
+    Default-ordered queues keep plain (neg_priority, seq, key) tuples,
+    whose C-level comparison is the same (priority desc, seq asc) order."""
+
+    __slots__ = ("neg_prio", "seq", "key", "info", "less")
+
+    def __init__(self, info: PodInfo, less):
+        self.neg_prio = -info.pod.get_priority()
+        self.seq = info.seq
+        self.key = info.pod.key()
+        self.info = info
+        self.less = less
+
+    def __lt__(self, other: "_ActiveEntry") -> bool:
+        if self.less is not None:
+            return bool(self.less(self.info, other.info))
+        return (self.neg_prio, self.seq) < (other.neg_prio, other.seq)
+
+
+def _entry_key(e) -> str:
+    """Pod key of a heap entry in either representation."""
+    return e[2] if type(e) is tuple else e.key
+
+
 class PriorityQueue:
     def __init__(self, now: Callable[[], float] = time.monotonic):
         # reentrant: update() of an unknown key adds it under the lock
@@ -75,8 +100,10 @@ class PriorityQueue:
         self._now = now
         self._seq = itertools.count()
         # activeQ entries are (neg_priority, seq, key) tuples: C-level tuple
-        # comparison is the (priority desc, seq asc) comparator
-        self._active: List[Tuple[int, int, str]] = []  # guarded by self._lock
+        # comparison is the (priority desc, seq asc) comparator; under a
+        # QueueSort plugin's comparator (`set_queue_sort`), _ActiveEntry nodes
+        self._active: List = []  # guarded by self._lock
+        self._less = None  # the QueueSort comparator (PodInfo, PodInfo) -> bool; guarded by self._lock
         self._backoff: List[Tuple[float, int, str]] = []  # guarded by self._lock
         self._unschedulable: Dict[str, PodInfo] = {}  # guarded by self._lock
         self._infos: Dict[str, PodInfo] = {}  # guarded by self._lock
@@ -172,12 +199,28 @@ class PriorityQueue:
 
     # -- internals -----------------------------------------------------------
 
+    def set_queue_sort(self, less) -> None:
+        """Install a QueueSort plugin comparator (ref :262); re-sorts the
+        pending entries, switching the heap from the tuple to the
+        _ActiveEntry representation when a comparator appears."""
+        with self._lock:
+            entries = [self._infos[_entry_key(e)] for e in self._active]
+            self._less = less
+            if less is None:
+                self._active = [(-i.pod.get_priority(), i.seq, i.pod.key()) for i in entries]
+            else:
+                self._active = [_ActiveEntry(i, less) for i in entries]
+            heapq.heapify(self._active)
+
     def _push_active(self, info: PodInfo) -> None:
         key = info.pod.key()
         self._infos[key] = info
         if key in self._in_active:
             return
-        heapq.heappush(self._active, (-info.pod.get_priority(), info.seq, key))
+        if self._less is None:
+            heapq.heappush(self._active, (-info.pod.get_priority(), info.seq, key))
+        else:
+            heapq.heappush(self._active, _ActiveEntry(info, self._less))
         self._in_active.add(key)
 
     def _backoff_duration(self, key: str) -> float:
@@ -255,7 +298,7 @@ class PriorityQueue:
             out = []
             now = self._now()
             while self._active and len(out) < max_pods:
-                key = heapq.heappop(self._active)[2]
+                key = _entry_key(heapq.heappop(self._active))
                 self._in_active.discard(key)
                 info = self._infos[key]
                 info.attempts += 1
@@ -274,16 +317,16 @@ class PriorityQueue:
         pop timestamps as pop_batch sets them; the scheduling cycle does
         not advance."""
         with self._lock:
-            take = [e for e in self._active if group_fn(self._infos[e[2]].pod) in groups]
+            take = [e for e in self._active if group_fn(self._infos[_entry_key(e)].pod) in groups]
             if not take:
                 return []
-            taken = {e[2] for e in take}
-            self._active = [e for e in self._active if e[2] not in taken]
+            taken = {_entry_key(e) for e in take}
+            self._active = [e for e in self._active if _entry_key(e) not in taken]
             heapq.heapify(self._active)
             out = []
             now = self._now()
             for e in sorted(take):
-                key = e[2]
+                key = _entry_key(e)
                 self._in_active.discard(key)
                 info = self._infos[key]
                 info.attempts += 1
@@ -346,7 +389,7 @@ class PriorityQueue:
             self._attempts.pop(key, None)
             self._last_failure.pop(key, None)
             self._remove_nominated(key)
-            self._active = [e for e in self._active if e[2] != key]
+            self._active = [e for e in self._active if _entry_key(e) != key]
             heapq.heapify(self._active)
             if any(k == key for _, _, k in self._backoff):
                 self._backoff = [t for t in self._backoff if t[2] != key]

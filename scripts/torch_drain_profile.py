@@ -2,9 +2,9 @@
 """Where the port's drain spends its time, on one NVIDIA card.
 
     python3 scripts/torch_drain_profile.py [--config 2|3|3-hard|4|5|6] [--services]
-        [--nodes N] [--pods P] [--batch 4096] [--runs plain,sampled,traced]
-        [--out chiprun_out/drain_profile] [--ab PAIRS]
-        [--ab-of commit|stage]
+        [--policy default|rtcr] [--nodes N] [--pods P] [--batch 4096]
+        [--runs plain,sampled,traced] [--out chiprun_out/drain_profile]
+        [--ab PAIRS] [--ab-of commit|stage]
 
 Drives a drain of chip_smoke.py phase 5 (kubernetes_tpu_torch's Scheduler,
 tie-noise on, every plane on — the pods admitted to the running scheduler,
@@ -41,6 +41,13 @@ that builds and loads the kernels, three times (or the runs named by
                 Chrome trace, the device's busy time inside the drain's
                 window (the union of kernel, memcpy and memset intervals),
                 the idle share, and the busy time and count per name.
+
+With `--policy rtcr` (config 2 only) the Scheduler is built by
+`config.Configurator(...).create_from_config` from chip_smoke.py's
+RequestedToCapacityRatio bin-packing Policy (GeneralPredicates,
+PodToleratesNodeTaints, CheckNodeUnschedulable, MatchInterPodAffinity;
+RTCR at weight 2 with the shape (0, 0)-(100, 10), NodeAffinityPriority and
+TaintTolerationPriority at 1) instead of the default provider.
 
 With `--ab PAIRS` it runs, after the warm-up, PAIRS pairs of plain drains
 with the commit plane (the arbiter and the fold) on and off (the
@@ -149,8 +156,22 @@ def plane_line(label: str, r: dict) -> str:
     return f"[profile] {label} stages: {stages}; planes: " + ", ".join(f"{k} {r[k]}" for k in PLANE_COUNTERS)
 
 
-def drain(config: str, services: bool, n_nodes: int, n_pods: int, batch: int, around=contextlib.nullcontext,
-          planes: bool = True, stage_planes: bool = True):
+# chip_smoke.py's RTCR bin-packing Policy (--policy rtcr)
+RTCR_POLICY = {
+    "kind": "Policy",
+    "predicates": [{"name": n} for n in ("GeneralPredicates", "PodToleratesNodeTaints", "CheckNodeUnschedulable",
+                                         "MatchInterPodAffinity")],
+    "priorities": [
+        {"name": "BinPack", "weight": 2, "argument": {"requestedToCapacityRatioArguments": {
+            "shape": [{"utilization": 0, "score": 0}, {"utilization": 100, "score": 10}]}}},
+        {"name": "NodeAffinityPriority", "weight": 1},
+        {"name": "TaintTolerationPriority", "weight": 1},
+    ],
+}
+
+
+def drain(config: str, services: bool, policy: str, n_nodes: int, n_pods: int, batch: int,
+          around=contextlib.nullcontext, planes: bool = True, stage_planes: bool = True):
     from kubernetes_tpu_torch.models.clusters import (
         bench_config2,
         bench_config3,
@@ -177,8 +198,14 @@ def drain(config: str, services: bool, n_nodes: int, n_pods: int, batch: int, ar
         nodes, pods, fn = bench_config3(n_nodes, n_pods, services=services, hard=config == "3-hard")
     cache, queue = SchedulerCache(), PriorityQueue()
     fill_cache(cache, nodes, existing)
-    sched = Scheduler(cache, queue, batch_size=batch, deterministic=False, seed=0, device="cuda",
-                      commit_plane=planes, ingest_plane=stage_planes, term_plane=stage_planes)
+    kw = dict(batch_size=batch, deterministic=False, seed=0, device="cuda", commit_plane=planes,
+              ingest_plane=stage_planes, term_plane=stage_planes)
+    if policy == "rtcr":
+        from kubernetes_tpu_torch.config import Configurator
+
+        sched = Configurator(cache=cache, queue=queue, **kw).create_from_config(RTCR_POLICY)
+    else:
+        sched = Scheduler(cache, queue, **kw)
     if fn is not None:
         sched.set_spread_selectors_fn(fn)
     for p in pods:  # admitted to the running scheduler: staged as added, before the timed window
@@ -357,6 +384,8 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--config", choices=("2", "3", "3-hard", "4", "5", "6"), default="2")
     ap.add_argument("--services", action="store_true", help="config 3: one Service per app")
+    ap.add_argument("--policy", choices=("default", "rtcr"), default="default",
+                    help="rtcr: config 2 under chip_smoke.py's RTCR bin-packing Policy")
     ap.add_argument("--nodes", type=int, default=None,
                     help="default 5,000 (config 2) / 10,000 (config 3) / 2,000 (configs 4, 5) / 500 (config 6)")
     ap.add_argument("--pods", type=int, default=None,
@@ -382,15 +411,19 @@ def main() -> int:
     os.makedirs(args.out, exist_ok=True)
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
                          stdout=subprocess.PIPE, text=True).stdout.strip()
-    print(f"[profile] card: {smi}; config {args.config}{' + Services' if args.services else ''}, "
+    print(f"[profile] card: {smi}; config {args.config}{' + Services' if args.services else ''}"
+          f"{' under the RTCR Policy' if args.policy == 'rtcr' else ''}, "
           f"{args.nodes} nodes, {args.pods} pods, batch {args.batch}", flush=True)
 
-    work = (args.config, args.services)
+    if args.policy == "rtcr" and args.config != "2":
+        ap.error("--policy rtcr drains config 2")
+    work = (args.config, args.services, args.policy)
     # builds + loads the kernels
     drain(*work, args.nodes // 10, args.pods // (100 if args.config == "3-hard" else 10), args.batch // 4)
     if args.ab:
         return ab(work, args, smi)
-    summary = {"card": smi, "config": args.config, "services": args.services, "nodes": args.nodes,
+    summary = {"card": smi, "config": args.config, "services": args.services, "policy": args.policy,
+               "nodes": args.nodes,
                "pods": args.pods, "batch": args.batch}
     if "plain" in runs:
         summary["plain"] = drain(*work, args.nodes, args.pods, args.batch)
@@ -408,7 +441,7 @@ def main() -> int:
             print(f"[profile]   stage {k}: {100 * v:.1f}% of the sampled time", flush=True)
         for k, v in host["top_leaves"].items():
             print(f"[profile]   leaf {k}: {100 * v:.1f}%", flush=True)
-    last = {"config": args.config, "services": args.services}
+    last = {"config": args.config, "services": args.services, "policy": args.policy}
     if "plain" in summary:
         last["plain_pods_per_s"] = summary["plain"]["pods_per_s"]
     if "traced" not in runs:

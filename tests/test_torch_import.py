@@ -34,6 +34,10 @@ def test_every_module_imports_with_jax_blocked():
     mods = _modules()
     assert "kubernetes_tpu_torch.scheduler.driver" in mods and "kubernetes_tpu_torch.kernels.build" in mods
     assert "kubernetes_tpu_torch.commit.apply" in mods  # the gang commit's rollback record
+    # the Policy config, the framework and the HTTP extender
+    for m in ("config", "config.factory", "config.policy", "framework.interface", "framework.plugins.builtin",
+              "extender.server", "extender.client", "extender.types", "utils.featuregate"):
+        assert f"kubernetes_tpu_torch.{m}" in mods, m
     # the ingest and term planes and their slab kernels' wrappers
     for m in ("ingest", "ingest.stage", "ingest.gather", "ingest.bank", "terms_plane", "terms_plane.stage",
               "terms_plane.gather", "terms_plane.bank", "ops.slab"):
@@ -79,12 +83,27 @@ def test_source_names_no_jax_or_reference_import(path):
 
 
 def test_scheduler_without_cuda_raises(monkeypatch):
+    """The Scheduler, the extender server and the Configurator run on the
+    card unless asked for the CPU; without a card they raise."""
+    from kubernetes_tpu_torch.config import Configurator
+    from kubernetes_tpu_torch.extender import ExtenderServer
+
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         Scheduler()
     with pytest.raises(RuntimeError):
         Scheduler(device="cuda")
     assert Scheduler(device="cpu").device.type == "cpu"
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ExtenderServer()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        Configurator()
+    with pytest.raises(RuntimeError):
+        Configurator(device="cuda")
+    srv = ExtenderServer(device="cpu")
+    assert srv.device.type == "cpu"
+    srv.stop()
+    assert Configurator(device="cpu").create_from_provider().device.type == "cpu"
 
 
 def test_kernel_wrapper_refuses_other_devices():

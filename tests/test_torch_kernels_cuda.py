@@ -6,7 +6,9 @@ parts), interpod_score (each part and both), inbatch_port_conflict,
 spread_filter, the commit arbiter, the commit fold, the preemption victim
 search, the nominee overlay's usage fold, the host oracle's score-row gather and
 the two-pass gang solve, and the ingest and term planes' slab gather and row
-scatter (and a small drain through both planes, cuda == cpu).
+scatter (and a small drain through both planes, cuda == cpu); the score
+kernel's RequestedToCapacityRatio branch (three shapes) and component
+mode (score_components), and the extender's filter_mask composition.
 Needs an NVIDIA card and nvcc:
 
     python -m pytest -m cuda tests/test_torch_kernels_cuda.py
@@ -74,10 +76,72 @@ def test_score_kernel_equals_plain(cuda, seed, prios):
     assert torch.equal(got, S.score_matrix_plain(na, pa, prios, bias=20))
 
 
-def test_score_kernel_refuses_rtcr(cuda):
-    na, pa, _ = cluster(0, cuda)
-    with pytest.raises(NotImplementedError, match="RequestedToCapacityRatio"):
-        S.score_matrix(na, pa, (("RequestedToCapacityRatioPriority", 1),))
+RTCR_CASES = {
+    "default": ((("RequestedToCapacityRatioPriority", 2), ("NodeAffinityPriority", 1)), None),
+    "binpack": ((("RequestedToCapacityRatioPriority", 2), ("TaintTolerationPriority", 1)),
+                (((0, 0), (100, 10)), (("cpu", 1), ("memory", 1)))),
+    "down": ((("RequestedToCapacityRatioPriority", 1), ("LeastRequestedPriority", 1)),
+             (((0, 2), (20, 9), (45, 1), (80, 6), (100, 0)), (("cpu", 3), ("memory", 1)))),
+}
+
+
+@pytest.mark.parametrize("case", list(RTCR_CASES))
+@pytest.mark.parametrize("seed", [0, 1])
+def test_score_kernel_rtcr_matches_plain(cuda, seed, case):
+    """The RTCR branch: the default shape, a two-point bin-packing shape
+    and a five-point shape with a down-sloping segment (Go's truncating
+    division) over cpu 3 / memory 1, beside other priorities; one launch."""
+    na, pa, _ = cluster(seed, cuda)
+    prios, rtcr = RTCR_CASES[case]
+    before, before_rtcr = S.score_matrix.launches, S.score_matrix.rtcr_launches
+    got = S.score_matrix(na, pa, prios, rtcr, bias=10)
+    assert S.score_matrix.launches == before + 1 and S.score_matrix.rtcr_launches == before_rtcr + 1
+    assert torch.equal(got, S.score_matrix_plain(na, pa, prios, rtcr, bias=10))
+
+
+@pytest.mark.parametrize("images", [True, False])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_score_components_kernel_equals_plain(cuda, seed, images):
+    na, pa, _ = cluster(seed, cuda)
+    if not images:
+        na = {k: v for k, v in na.items() if k != "image_scaled"}
+    before = S.score_components.launches
+    got = S.score_components(na, pa)
+    assert S.score_components.launches == before + 1
+    want = S.score_components_plain(na, pa)
+    assert list(got) == list(want) and len(got) == (7 if images else 6)
+    for name in want:
+        assert torch.equal(got[name], want[name]), name
+
+
+@pytest.mark.parametrize("preds", [None, frozenset({"GeneralPredicates", "EvenPodsSpread"}),
+                                   frozenset({"GeneralPredicates", "MatchInterPodAffinity"})])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_filter_mask_equals_plain_and_launches_no_score_kernel(cuda, seed, preds):
+    """ops/pipeline.filter_mask on a cluster with DoNotSchedule spread and
+    every inter-pod term kind: equal to its plain composition, and no
+    score, spread-score or inter-pod-score kernel launched."""
+    nodes, existing, pending = random_cluster(seed, 200, 150, 600, overflow_nodes=0, topology=True, hard_spread=True,
+                                              interpod=True, pending_ports=True)
+    cache = SchedulerCache()
+    fill_cache(cache, nodes, existing)
+    mirror = TensorMirror(cache, cuda)
+    batch = PodBatch(mirror.vocab, 256)
+    for i, p in enumerate(pending):
+        batch.set_pod(i, p)
+    tb, aux = compile_batch_terms(mirror.vocab, pending, b_capacity=256)
+    na, ea, xa = mirror.device_arrays()
+    ta, au, pa = (arrays_to_torch(d, cuda) for d in (tb.arrays(), aux, batch.arrays()))
+    ids = F.make_ids(mirror.vocab)
+    cfg = PP.SolveConfig(predicates=preds)
+    score_counts = lambda: (S.score_matrix.launches, TO.spread_score.launches, TO.interpod_score.launches,  # noqa: E731
+                            TO.selector_spread_score.launches)
+    before, calls = score_counts(), PP.filter_mask.launches
+    got = PP.filter_mask(na, pa, ids, cfg, None, ea=ea, ta=ta, au=au, xa=xa, n_buckets=256)
+    torch.cuda.synchronize()
+    assert score_counts() == before and PP.filter_mask.launches == calls + 1
+    assert torch.equal(got, PP.filter_mask_plain(na, pa, ids, cfg, None, ea=ea, ta=ta, au=au, xa=xa, n_buckets=256))
+    assert bool(got[pa["valid"]].any()) and not bool(got[pa["valid"]].all())
 
 
 @pytest.mark.parametrize("det", [True, False], ids=["deterministic", "noise"])

@@ -142,10 +142,23 @@ def test_affinity_index_with_replayed_commits_matches_reference_and_the_walk(see
 
 
 def test_policy_predicates_are_refused():
-    nodes, existing, pending = _cluster(0, PT)
-    snap = PSnapshot(nodes, existing)
-    with pytest.raises(NotImplementedError, match="host seams"):
-        PPred.compute_predicate_metadata(pending[0], snap, enabled=frozenset({"CheckNodeLabelPresence"}))
+    """No longer refused: an enabled set naming the Policy's
+    custom-argument predicates (which run as framework Filter plugins) is
+    taken as the reference takes it, the chain skipping those names: the
+    same metadata and the same verdicts on every node."""
+    enabled = frozenset({"CheckNodeLabelPresence", "ServiceAffinity", "GeneralPredicates",
+                         "MatchInterPodAffinity"})
+    out = {}
+    for name, t, pred, snap_cls in PKGS:
+        nodes, existing, pending = _cluster(0, t)
+        snap = snap_cls(nodes, existing)
+        rows = []
+        for pod in pending[:20]:
+            meta = pred.compute_predicate_metadata(pod, snap, enabled=enabled)
+            rows.append((_meta(meta), [pred.pod_fits_on_node(pod, snap.get(n.name), meta=meta) for n in nodes]))
+        out[name] = rows
+    assert out["port"] == out["ref"]
+    assert any(ok for _, verdicts in out["port"] for ok, _ in verdicts)
 
 
 # --- NodeTree ----------------------------------------------------------------
