@@ -82,7 +82,16 @@ they placed. Phases:
                 (score_components) at the config-2 shapes, timed; the
                 extender's filter_mask (filter, spread-filter and
                 inter-pod-filter kernels, no score kernel) at the config
-                3-hard and config-4 batch shapes
+                3-hard and config-4 batch shapes; the node mesh's cluster
+                kernels at 2, 4 and 8 shards, each against its plain
+                version and the single-device kernel on the same inputs:
+                the sharded solve at the config-3 shapes, deterministic and
+                with tie-noise, tracked at the config-4 shapes, its gang
+                mode at the config-5 shapes, the sharded arbiter at the
+                config-3-hard (timed) and config-4 shapes, the sharded
+                commit fold on the config-3 batch's fold program and the
+                sharded usage fold at the config-6 nominee shapes; timed at
+                8 shards beside the single-device kernel
   4. parity     config 2, config 3 and config 4 at 1/10 scale through
                 Scheduler with the commit plane on (the arbiter and the
                 fold), on cuda and on cpu, with it off on cuda, and with the
@@ -178,15 +187,26 @@ they placed. Phases:
                 /prioritize, /bind, /preemption, /healthz once; then a
                 Scheduler consulting an in-script extender over HTTP (even
                 nodes, index prioritize, weight 100; and a dead ignorable
-                one): cuda == cpu, every pod on an even node
+                one): cuda == cpu, every pod on an even node; then the
+                node mesh (`Scheduler(mesh=node_mesh(8))`: the sharded
+                solve, gang solve, arbiter and folds): config 3 at full
+                size, every pod placed as the single-device config-3 drain
+                of this call placed it, no fallback off the mesh, the banks
+                equal to a fresh encode, pods/s beside the single-device
+                drain's; configs 4, 3-hard, 5 and 6 at 1/10, each equal to
+                its single-device drain of phase 4 (placements, counters;
+                config 6 also victims, nominations, preempted count)
   6. kernels    one JSON line: per kernel (the nineteen, the tracked
-                solve, the RTCR branch, score_components and the
-                extender's filter_mask) its launches in the main-path
+                solve, the RTCR branch, score_components, the extender's
+                filter_mask and the mesh's six: the sharded solve, tracked
+                and gang, the sharded arbiter and the two sharded folds)
+                its launches in the main-path
                 drains (the counts are set to 0 before each drain and read
                 after it: config 3-hard and config 6 at 1/10, the oracle
                 drains, config 5 at 1/10, the tight gang drain and config 1
                 on cuda, the nine full drains, the Policy drains, the
-                /filter requests and the extender client's drain;
+                /filter requests, the extender client's drain and the five
+                mesh drains;
                 score_components has no main-path caller and counts 0),
                 error, times, bound and the library yardstick where one
                 PyTorch call computes the function
@@ -227,8 +247,9 @@ BATCH = 4096
 HARD_BATCH = 128  # config 3-hard at 1/10: the size that escalates no defer
 # config 3-hard on the full 10,000-node cluster: the pods are cut from
 # 100,000 to what the host oracle's escalations let the script finish in
-# (the full drain: scripts/torch_drain_profile.py --config 3-hard)
-HARD_FULL_PODS = 32768
+# beside the mesh phases (the full drain: scripts/torch_drain_profile.py
+# --config 3-hard)
+HARD_FULL_PODS = 16384
 CONFIG6_NODES = 500
 CONFIG6_PREEMPTORS = 2000
 # config 6 in batches of 1,024: the second batch of the first round
@@ -241,6 +262,10 @@ CONFIG1_PODS = 5000
 CONFIG5_NODES = 2000
 CONFIG5_GROUPS = 1000  # of 64 pods each
 GANG_BATCH = 64  # the tight gang drain's batch: groups straddle it
+MESH_SHARDS = 8  # the node mesh's shards: one thread-block cluster of 8 CTAs
+# the single-device drains the mesh drains are held to, recorded by the
+# phases that run them: config 3 full, and configs 4, 3-hard, 5 and 6 at 1/10
+SINGLE = {}
 
 
 def log(msg: str) -> None:
@@ -1202,6 +1227,21 @@ def compare_preempt(arrays, label, time_it: bool):
     return st
 
 
+def usage_case(n, r, nominees, b):
+    """A seeded usage bank [n, r] and `nominees` overlay entries (about two
+    a node: duplicate rows) padded by sentinel rows to `b`, on the card."""
+    g = torch.Generator().manual_seed(6)
+    requested = torch.randint(0, 10**12, (n, r), generator=g).cuda()
+    pod_count = torch.randint(0, 110, (n,), generator=g).int().cuda()
+    rows = torch.full((b,), n, dtype=torch.int32)
+    rows[:nominees] = torch.randperm(nominees, generator=g).int() % max(n - 12, 1)
+    vecs = torch.zeros((b, r), dtype=torch.int64)
+    vecs[:nominees, 0] = 6000
+    vecs[:nominees, 1] = 2 << 30
+    cnt = (rows < n).int()
+    return requested, pod_count, rows.cuda(), vecs.cuda(), cnt.cuda()
+
+
 def compare_fold_usage(label, n, r, nominees, time_it: bool):
     """Hold fold_usage against its plain version with `nominees` entries
     (about two a node: duplicate rows) padded by sentinel rows to the next
@@ -1213,17 +1253,8 @@ def compare_fold_usage(label, n, r, nominees, time_it: bool):
     from kubernetes_tpu_torch.ops import fold as FO
     from kubernetes_tpu_torch.state.tensors import pow2_bucket
 
-    g = torch.Generator().manual_seed(6)
     b = pow2_bucket(nominees)
-    requested = torch.randint(0, 10**12, (n, r), generator=g).cuda()
-    pod_count = torch.randint(0, 110, (n,), generator=g).int().cuda()
-    rows = torch.full((b,), n, dtype=torch.int32)
-    rows[:nominees] = torch.randperm(nominees, generator=g).int() % max(n - 12, 1)
-    vecs = torch.zeros((b, r), dtype=torch.int64)
-    vecs[:nominees, 0] = 6000
-    vecs[:nominees, 1] = 2 << 30
-    cnt = (rows < n).int()
-    rows, vecs, cnt = rows.cuda(), vecs.cuda(), cnt.cuda()
+    requested, pod_count, rows, vecs, cnt = usage_case(n, r, nominees, b)
     kreq, kpc = requested.clone(), pod_count.clone()
     FO.fold_usage(kreq, kpc, rows, vecs, cnt)
     preq, ppc = FO.fold_usage_plain(requested.clone(), pod_count.clone(), rows, vecs, cnt)
@@ -1293,14 +1324,11 @@ def phase_gather_kernels():
                                                 time_it=True, seed=4)}
 
 
-def compare_gang(enc, label, tight: bool):
-    """Hold the gang kernel against its plain version, deterministic and
-    with tie-noise, on the pipeline's own mask and score of one config-5
-    batch (every pod of group g on positions 64 g .. 64 g + 63); `tight`
-    lets each node take one more pod only, so pass 1 leaves most groups
-    short and they drop. Times (through the wrapper: the kernel updates its
-    carry in place, so each launch takes fresh copies), the plain
-    version's time and the bound."""
+def gang_case(enc, tight: bool):
+    """The gang solve's positional arguments on the pipeline's own mask and
+    score of one config-5 batch (every pod of group g on positions
+    64 g .. 64 g + 63, pop order by position), and pod_valid; `tight` lets
+    each node take one more pod only."""
     from kubernetes_tpu_torch.ops import pipeline as PP
     from kubernetes_tpu_torch.ops import solver as SO
 
@@ -1312,11 +1340,26 @@ def compare_gang(enc, label, tight: bool):
     order = SO.pop_order(torch.zeros(b, dtype=torch.int32, device=dev), torch.arange(b, dtype=torch.int32, device=dev),
                          pod_valid)
     group = (torch.arange(b, device=dev) // 64).to(torch.int32)
-    free0 = na["alloc"] - na["requested"]
     count0 = na["pod_count"].long()
     allowed = count0 + 1 if tight else na["allowed_pods"].long()
+    return (mask, score, pa["req"], na["alloc"] - na["requested"], count0, allowed, order, group), pod_valid
+
+
+def compare_gang(enc, label, tight: bool):
+    """Hold the gang kernel against its plain version, deterministic and
+    with tie-noise, on the pipeline's own mask and score of one config-5
+    batch (every pod of group g on positions 64 g .. 64 g + 63); `tight`
+    lets each node take one more pod only, so pass 1 leaves most groups
+    short and they drop. Times (through the wrapper: the kernel updates its
+    carry in place, so each launch takes fresh copies), the plain
+    version's time and the bound."""
+    from kubernetes_tpu_torch.ops import solver as SO
+
+    na, pa, sig = enc["na"], enc["pa"], enc["sig"]
+    b = sig.shape[0]
+    args, pod_valid = gang_case(enc, tight)
+    mask, _, _, free0, count0, allowed, order, group = args
     nz0 = na["nonzero_req"]
-    args = (mask, score, pa["req"], free0, count0, allowed, order, group)
     err = 0
     for det in (True, False):
         kw = dict(deterministic=det, req_any=pa["req_any"], sig=sig, pod_valid=pod_valid, return_carry=True,
@@ -1352,7 +1395,7 @@ def phase_gang_kernels():
     enc = encode(nodes, [], pods, torch.device("cuda"))
     st = compare_gang(enc, "config-5", tight=False)
     st["tight"] = compare_gang(enc, "config-5 tight", tight=True)
-    return {"solve_gang": st}
+    return {"solve_gang": st}, enc
 
 
 def seeded_slab(template, s, seed):
@@ -1583,6 +1626,267 @@ def config3_batch(services: bool, n_existing: int, hard: bool = False):
     return nodes, existing, pods[n_existing:], fn
 
 
+# ---------------------------------------------------------------------------
+# the node mesh's cluster kernels
+# ---------------------------------------------------------------------------
+
+MESH_KERNEL_SHARDS = (2, 4, 8)
+
+
+def max_err(got, want) -> int:
+    """The largest |a - b| over paired tensors (booleans as 0 / 1)."""
+    return max(int((a.long() - b.long()).abs().max()) if a.numel() else 0 for a, b in zip(got, want))
+
+
+def mesh_solve_case(enc, track: bool):
+    """The solve's inputs of one encoded batch as the pipeline builds them
+    (solve_inputs: mask, score, residuals, pop order by three priorities),
+    with the in-batch tracking when asked."""
+    from kubernetes_tpu_torch.ops import pipeline as PP
+
+    sig = enc["sig"]
+    b = sig.shape[0]
+    dev = sig.device
+    pb = {"sig": sig, "valid": torch.ones(b, dtype=torch.bool, device=dev),
+          "priority": (torch.arange(b, device=dev) % 3).to(torch.int32)}
+    kw, _, inb = PP.solve_inputs(enc["na"], enc["pa"], enc["ids"], pb, None, None, enc["kinds"], True, track,
+                                 ea=enc["ea"], ta=enc["ta"], au=enc["au"], xa=enc["xa"], n_buckets=enc["v"],
+                                 arbiter_inputs=None)
+    return kw, inb, pb
+
+
+def compare_sharded_solve(enc, label, track: bool):
+    """Hold the cluster solve against its plain version and the
+    single-block kernel at 2, 4 and 8 shards, deterministic and with
+    tie-noise (choices and the carry); time it at 8 shards with tie-noise
+    (through its wrapper, which takes fresh copies of the carry), its plain
+    version, and bound it (the single-device solve's work)."""
+    from kubernetes_tpu_torch.ops import solver as SO
+    from kubernetes_tpu_torch.parallel import sharded as PS
+
+    kw, inb, _ = mesh_solve_case(enc, track)
+    err = 0
+    for det in (True, False):
+        key = SO.prng_key_data(7)
+        single = SO.solve_greedy(**kw, key=key, deterministic=det, return_carry=True, inb=inb)
+        for shards in MESH_KERNEL_SHARDS:
+            got = PS.solve_sharded(**kw, key=key, shards=shards, deterministic=det, return_carry=True, inb=inb)
+            plain = PS.solve_sharded_plain(**kw, key=key, shards=shards, deterministic=det, return_carry=True,
+                                           inb=inb)
+            err = max(err, max_err((got[0],) + tuple(got[1]), (plain[0],) + tuple(plain[1])),
+                      max_err((got[0],) + tuple(got[1]), (single[0],) + tuple(single[1])))
+    name = "solve_sharded_inb" if track else "solve_sharded"
+    check(err == 0, f"[{label}] {name} differs from its plain version or the single-block kernel by {err}")
+    key = SO.prng_key_data(7)
+    run = dict(**kw, key=key, shards=MESH_SHARDS, deterministic=False, return_carry=True, inb=inb)
+    st = {"max_abs_err": err, "placed": int((got[0] >= 0).sum())}
+    st["ms"] = cuda_ms(lambda: PS.solve_sharded(**run), 5)
+    st["plain_ms"] = cuda_ms(lambda: PS.solve_sharded_plain(**run), 1)
+    st["single_ms"] = cuda_ms(lambda: SO.solve_greedy(**kw, key=key, deterministic=False, return_carry=True,
+                                                      inb=inb), 5)
+    work = (kw["mask"], kw["sig"], kw["pod_valid"], enc["pa"], kw["free0"], kw["count0"], kw["allowed"], kw["nz0"],
+            kw["order"])
+    st["bound"] = bound(tracked_solve_work(*work, inb) if track else solve_work(*work))
+    log(f"[kernels] {label} {name}: U={enc['pa']['valid'].shape[0]} N={kw['mask'].shape[1]} B={kw['order'].shape[0]},"
+        f" shards {MESH_KERNEL_SHARDS}: exact against the plain version and the single-block kernel ({st['placed']} "
+        f"placed); {MESH_SHARDS} shards {st['ms']:.4f} ms (through its wrapper), single block {st['single_ms']:.4f} "
+        f"ms, plain {st['plain_ms']:.4f} ms, bound {st['bound'][0]:.6f} ms ({st['bound'][1]})")
+    return st
+
+
+def compare_sharded_arbiter(enc, label, time_it: bool):
+    """Hold the cluster verdict scan against its plain version and the
+    single-device kernel at 2, 4 and 8 shards, on the batch's own solve
+    (tracking as the driver would have it); time it at 8 shards (one
+    prebuilt struct relaunched) and its plain version, and bound it."""
+    from kubernetes_tpu_torch.commit import arbiter as A
+    from kubernetes_tpu_torch.kernels import build
+    from kubernetes_tpu_torch.ops import pipeline as PP
+    from kubernetes_tpu_torch.ops import solver as SO
+
+    na, ea, xa, ta, au, pa, ids, v, sig = (enc[k] for k in ("na", "ea", "xa", "ta", "au", "pa", "ids", "v", "sig"))
+    kinds = enc["kinds"]
+    b = sig.shape[0]
+    dev = sig.device
+    pb = {"sig": sig, "valid": torch.ones(b, dtype=torch.bool, device=dev),
+          "priority": torch.zeros(b, dtype=torch.int32, device=dev)}
+    track = "anti_req" in kinds or enc["ports"]
+    assign, _ = PP.solve_pipeline(na, pa, ids, SO.prng_key_data(5), pb=pb, term_kinds=kinds, track_inbatch=track,
+                                  ea=ea, ta=ta, au=au, xa=xa, n_buckets=v)
+    args = (na, pa, ea, ta, ids, assign, pb)
+    single = A.arbitrate(*args, term_kinds=kinds, n_buckets=v)
+    err = 0
+    for shards in MESH_KERNEL_SHARDS:
+        got = A.arbitrate_sharded(shards, *args, term_kinds=kinds, n_buckets=v)
+        plain = A.arbitrate_sharded_plain(shards, *args, term_kinds=kinds, n_buckets=v)
+        err += int((got != plain).sum()) + int((got != single).sum())
+    check(err == 0, f"[{label}] arbitrate_sharded differs from its plain version or the single-device kernel in "
+          f"{err} verdicts")
+    counts = [int((single == x).sum()) for x in (A.V_PLACE, A.V_DEFER, A.V_NOFIT)]
+    st = {"max_abs_err": min(err, 1)}
+    msg = ""
+    if time_it:
+        sargs, _ = A.arbiter_args(*args, term_kinds=kinds, n_buckets=v, shards=MESH_SHARDS)
+        st["ms"] = cuda_ms(lambda: build.launch(A.ARBITER_ENTRY, sargs, dev), 5)
+        aargs, _ = A.arbiter_args(*args, term_kinds=kinds, n_buckets=v)
+        st["single_ms"] = cuda_ms(lambda: build.launch(A.ARBITER_ENTRY, aargs, dev), 5)
+        st["plain_ms"] = cuda_ms(lambda: A.arbitrate_sharded_plain(MESH_SHARDS, *args, term_kinds=kinds,
+                                                                   n_buckets=v), 1)
+        st["bound"] = bound(arbiter_work(na, pa, ta, pb, single, "spread_hard" in kinds, v))
+        msg = (f"; {MESH_SHARDS} shards {st['ms']:.4f} ms, single-device kernel {st['single_ms']:.4f} ms, plain "
+               f"{st['plain_ms']:.4f} ms, bound {st['bound'][0]:.6f} ms ({st['bound'][1]})")
+    log(f"[kernels] {label} arbitrate_sharded: U={pa['valid'].shape[0]} N={na['valid'].shape[0]} "
+        f"TT={ta['valid'].shape[0]} V={v} B={b}, shards {MESH_KERNEL_SHARDS}: exact against the plain version and "
+        f"the single-device kernel (verdicts place/defer/nofit {counts}){msg}")
+    return st
+
+
+def compare_sharded_fold(enc, label):
+    """Hold the sharded commit fold against its plain version and the
+    single-device kernel at 2, 4 and 8 shards, on the fold program of the
+    batch's placed pods; time it at 8 shards (one prebuilt struct
+    relaunched), its plain version and the library's index_put_ per bank,
+    and bound it."""
+    from kubernetes_tpu_torch.commit.fold import plan_fold
+    from kubernetes_tpu_torch.kernels import build
+    from kubernetes_tpu_torch.ops import fold as FO
+    from kubernetes_tpu_torch.ops import solver as SO
+    from kubernetes_tpu_torch.state.convert import arrays_to_torch
+    from kubernetes_tpu_torch.state.tensors import pow2_bucket
+
+    na, ea, xa = enc["na"], enc["ea"], enc["xa"]
+    kw, inb, _ = mesh_solve_case(enc, False)
+    assign = SO.solve_greedy(**kw, key=SO.prng_key_data(7), inb=inb).tolist()
+    pods = enc["pods"]
+    b = len(pods)
+    prog = plan_fold(enc["mirror"], [(pods[i], assign[i]) for i in range(b) if assign[i] >= 0], pow2_bucket(b), 16)
+    check(prog is not None, f"[{label}] the fold plan overflowed a bank")
+    ctl = arrays_to_torch({k: getattr(prog, k) for k in ("rows", "req", "nz", "cnt", "sig", "pat_row", "pat_col",
+                                                         "pat_cnt")}, na["valid"].device)
+    banks = (na["requested"], na["nonzero_req"], na["pod_count"], ea["counts"], xa["counts"])
+    single = [x.clone() for x in banks]
+    FO.fold_commit_banks(*single, **ctl)
+    err = 0
+    for shards in MESH_KERNEL_SHARDS:
+        got = [x.clone() for x in banks]
+        plain = [x.clone() for x in banks]
+        FO.fold_commit_sharded(shards, *got, **ctl)
+        FO.fold_commit_sharded_plain(shards, *plain, **ctl)
+        err = max(err, max_err(got, plain), max_err(got, single))
+    check(err == 0, f"[{label}] fold_commit_sharded differs from its plain version or the single-device kernel by "
+          f"{err}")
+    oargs = FO.ShardedFoldArgs(FO.fold_args(*got, **ctl), MESH_SHARDS, na["valid"].shape[0] // MESH_SHARDS)
+    st = {"max_abs_err": err}
+    st["ms"] = cuda_ms(lambda: build.launch(FO.FOLD_SHARDED_ENTRY, oargs, na["valid"].device), 200)
+    st["plain_ms"] = cuda_ms(lambda: FO.fold_commit_sharded_plain(MESH_SHARDS, *plain, **ctl), 5)
+    st["bound"] = bound(fold_work(prog, na["requested"].shape[1]))
+    st["library_ms"] = library_fold_ms(got, ctl, prog.pods)
+    lib = st["library_ms"]
+    log(f"[kernels] {label} fold_commit_sharded: N={na['valid'].shape[0]} B={prog.rows.shape[0]} ({prog.pods} pods), "
+        f"shards {MESH_KERNEL_SHARDS}: exact against the plain version and the single-device kernel; "
+        f"{MESH_SHARDS} shards {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, bound {st['bound'][0]:.6f} ms "
+        f"({st['bound'][1]})" + (f", library {lib:.4f} ms" if lib is not None else ""))
+    return st
+
+
+def compare_sharded_fold_usage(label, n, r, nominees):
+    """fold_usage_sharded against its plain version and the single-device
+    kernel at 2, 4 and 8 shards on compare_fold_usage's entries (duplicate
+    rows, sentinel pads), its inverse restoring the bank; timed at 8
+    shards on the unpadded entries, with the library's index_put_ per
+    column, and bounded."""
+    from kubernetes_tpu_torch.kernels import build
+    from kubernetes_tpu_torch.ops import fold as FO
+    from kubernetes_tpu_torch.state.tensors import pow2_bucket
+
+    b = pow2_bucket(nominees)
+    requested, pod_count, rows, vecs, cnt = usage_case(n, r, nominees, b)
+    sreq, spc = requested.clone(), pod_count.clone()
+    FO.fold_usage(sreq, spc, rows, vecs, cnt)
+    err = 0
+    for shards in MESH_KERNEL_SHARDS:
+        kreq, kpc = requested.clone(), pod_count.clone()
+        FO.fold_usage_sharded(shards, kreq, kpc, rows, vecs, cnt)
+        preq, ppc = FO.fold_usage_sharded_plain(shards, requested.clone(), pod_count.clone(), rows, vecs, cnt)
+        err = max(err, max_err((kreq, kpc), (preq, ppc)), max_err((kreq, kpc), (sreq, spc)))
+        FO.fold_usage_sharded(shards, kreq, kpc, rows, -vecs, -cnt)
+        check(torch.equal(kreq, requested) and torch.equal(kpc, pod_count),
+              f"[{label}] fold_usage_sharded's inverse did not restore the bank at {shards} shards")
+    check(err == 0, f"[{label}] fold_usage_sharded differs from its plain version or the single-device kernel by {err}")
+    rows, vecs, cnt = rows[:nominees].contiguous(), vecs[:nominees].contiguous(), cnt[:nominees].contiguous()
+    uargs = FO.ShardedFoldUsageArgs(FO.fold_usage_args(kreq, kpc, rows, vecs, cnt), MESH_SHARDS, n // MESH_SHARDS)
+    st = {"max_abs_err": err}
+    st["ms"] = cuda_ms(lambda: build.launch(FO.FOLD_USAGE_SHARDED_ENTRY, uargs, kreq.device), 200)
+    st["plain_ms"] = cuda_ms(lambda: FO.fold_usage_sharded_plain(MESH_SHARDS, preq, ppc, rows, vecs, cnt), 20)
+    st["bound"] = bound(fold_usage_work(rows, n, r))
+    lr = rows.long()
+    st["library_ms"] = (cuda_ms(lambda: kreq.index_put_((lr,), vecs, accumulate=True), 200)
+                        + cuda_ms(lambda: kpc.index_put_((lr,), cnt, accumulate=True), 200))
+    log(f"[kernels] {label} fold_usage_sharded: N={n} R={r} B={b} ({nominees} nominees), shards {MESH_KERNEL_SHARDS}: "
+        f"exact against the plain version and the single-device kernel, its inverse restores the bank; "
+        f"{MESH_SHARDS} shards {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, bound {st['bound'][0]:.6f} ms "
+        f"({st['bound'][1]}), library {st['library_ms']:.4f} ms")
+    return st
+
+
+def compare_sharded_gang(enc, label):
+    """The cluster solve's gang mode (both passes in one launch) against
+    its plain version and the single-block gang kernel at 2, 4 and 8
+    shards, deterministic and with tie-noise, on compare_gang's config-5
+    batch; timed at 8 shards (through its wrapper), its plain version, and
+    bounded (the gang solve's work)."""
+    from kubernetes_tpu_torch.ops import solver as SO
+    from kubernetes_tpu_torch.parallel import sharded as PS
+
+    na, pa, sig = enc["na"], enc["pa"], enc["sig"]
+    b = sig.shape[0]
+    args, pod_valid = gang_case(enc, False)
+    mask, _, _, free0, count0, allowed, order, group = args
+    nz0 = na["nonzero_req"]
+    key = SO.prng_key_data(7 + 2**32)
+    err = 0
+    for det in (True, False):
+        kw = dict(deterministic=det, req_any=pa["req_any"], sig=sig, pod_valid=pod_valid, return_carry=True,
+                  nz0=nz0, scoring_req=pa["scoring_req"])
+        single = SO.solve_gang(*args, key, **kw)
+        for shards in MESH_KERNEL_SHARDS:
+            got = PS.solve_gang_sharded(*args, key, shards, **kw)
+            plain = PS.solve_gang_sharded_plain(*args, key, shards, **kw)
+            flat = lambda o: (o[0], o[1]) + tuple(o[2])  # noqa: E731
+            err = max(err, max_err(flat(got), flat(plain)), max_err(flat(got), flat(single)))
+    check(err == 0, f"[{label}] solve_gang_sharded differs from its plain version or the single-block kernel by {err}")
+    kw = dict(deterministic=False, req_any=pa["req_any"], sig=sig, pod_valid=pod_valid, return_carry=True, nz0=nz0,
+              scoring_req=pa["scoring_req"])
+    st = {"max_abs_err": err}
+    st["ms"] = cuda_ms(lambda: PS.solve_gang_sharded(*args, key, MESH_SHARDS, **kw), 5)
+    st["plain_ms"] = cuda_ms(lambda: PS.solve_gang_sharded_plain(*args, key, MESH_SHARDS, **kw), 1)
+    st["bound"] = bound(gang_work(mask, sig, pod_valid, pod_valid & got[1], pa, free0, count0, allowed, nz0, order,
+                                  group))
+    log(f"[kernels] {label} solve_gang_sharded: U={pa['valid'].shape[0]} N={na['valid'].shape[0]} B={b}, shards "
+        f"{MESH_KERNEL_SHARDS}: exact against the plain version and the single-block kernel; {MESH_SHARDS} shards "
+        f"{st['ms']:.4f} ms (through its wrapper), plain {st['plain_ms']:.4f} ms, bound {st['bound'][0]:.6f} ms "
+        f"({st['bound'][1]})")
+    return st
+
+
+def phase_mesh_kernels(enc3, enc4, enc3h, enc5):
+    """The node mesh's kernels at the main path's shapes: the solve at the
+    config-3 shapes, tracked at the config-4 shapes, its gang mode at the
+    config-5 shapes; the arbiter at the config-3-hard shapes (and, for
+    information, config-4's); the commit fold at the config-3 shapes; the
+    usage fold at the config-6 nominee shapes. Returns {kernel: stats}."""
+    stats = {
+        "solve_sharded": compare_sharded_solve(enc3, "config-3", track=False),
+        "solve_sharded_inb": compare_sharded_solve(enc4, "config-4", track=True),
+        "solve_gang_sharded": compare_sharded_gang(enc5, "config-5"),
+        "arbitrate_sharded": compare_sharded_arbiter(enc3h, "config-3-hard", time_it=True),
+        "fold_commit_sharded": compare_sharded_fold(enc3, "config-3"),
+        "fold_usage_sharded": compare_sharded_fold_usage("config-6", 512, 8, CONFIG6_PREEMPTORS - CONFIG6_BATCH),
+    }
+    compare_sharded_arbiter(enc4, "config-4", time_it=False)
+    return stats
+
+
 def phase_kernels():
     from kubernetes_tpu_torch.models.clusters import bench_config2, random_cluster, random_selectors
 
@@ -1645,8 +1949,10 @@ def phase_kernels():
     stats.update(compare_commit(enc4, "config-4", time_it=True, parts=("arbitrate",)))
     stats.update(phase_preempt_kernels())
     stats.update(phase_gather_kernels())
-    stats.update(phase_gang_kernels())
+    gang, enc5 = phase_gang_kernels()
+    stats.update(gang)
     stats.update(phase_slab_kernels())
+    stats.update(phase_mesh_kernels(enc, enc4, enc3h, enc5))
     return stats
 
 
@@ -1664,6 +1970,7 @@ def kernel_counters():
     from kubernetes_tpu_torch.ops import pipeline as PP
     from kubernetes_tpu_torch.ops import preempt as PR
     from kubernetes_tpu_torch.ops import slab as SL
+    from kubernetes_tpu_torch.parallel import sharded as PS
     from kubernetes_tpu_torch.terms_plane import gather_terms
 
     return {
@@ -1682,11 +1989,15 @@ def kernel_counters():
         "scatter_rows": (SL.scatter_rows, "launches"),
         "score_matrix[rtcr]": (S.score_matrix, "rtcr_launches"), "score_components": (S.score_components, "launches"),
         "pipeline.filter_mask": (PP.filter_mask, "launches"),
+        "solve_sharded": (PS.solve_sharded, "launches"), "solve_sharded_inb": (PS.solve_sharded, "tracked_launches"),
+        "solve_gang_sharded": (PS.solve_gang_sharded, "launches"), "arbitrate_sharded": (A.arbitrate_sharded, "launches"),
+        "fold_commit_sharded": (FO.fold_commit_sharded, "launches"),
+        "fold_usage_sharded": (FO.fold_usage_sharded, "launches"),
     }
 
 
 def drain(device, workload, n_nodes, n_pods, batch, deterministic, seed=0, services=False, planes=True,
-          hard=False, stage_planes=True):
+          hard=False, stage_planes=True, mesh=0):
     from kubernetes_tpu_torch.models.clusters import (
         bench_config1,
         bench_config2,
@@ -1695,6 +2006,7 @@ def drain(device, workload, n_nodes, n_pods, batch, deterministic, seed=0, servi
         bench_config5,
         fill_cache,
     )
+    from kubernetes_tpu_torch.parallel import node_mesh
     from kubernetes_tpu_torch.scheduler.driver import Scheduler
     from kubernetes_tpu_torch.state.cache import SchedulerCache
     from kubernetes_tpu_torch.state.queue import PriorityQueue
@@ -1715,7 +2027,8 @@ def drain(device, workload, n_nodes, n_pods, batch, deterministic, seed=0, servi
     # the pods are admitted to a running scheduler: the queue stages each
     # one into the ingest and term slabs as it adds it
     sched = Scheduler(cache, queue, batch_size=batch, deterministic=deterministic, seed=seed, device=device,
-                      commit_plane=planes, ingest_plane=stage_planes, term_plane=stage_planes)
+                      commit_plane=planes, ingest_plane=stage_planes, term_plane=stage_planes,
+                      mesh=node_mesh(mesh, device=device) if mesh else None)
     if fn is not None:
         sched.set_spread_selectors_fn(fn)
     for p in pods:
@@ -1741,13 +2054,14 @@ class StepClock:
         return self.t
 
 
-def drain6(device, n_nodes, n_preemptors, batch, planes=True, stepped=False):
+def drain6(device, n_nodes, n_preemptors, batch, planes=True, stepped=False, mesh=0):
     """Drain config 6 to the end with preemption on. After every batch
     the binds are awaited; when a batch does nothing while pods wait out
     their backoff, the loop waits (a stepped clock steps 1 s; the real
     clock sleeps 50 ms) and moves the unschedulable pods back, as
     bench.py's drain does. Returns a dict of what it saw."""
     from kubernetes_tpu_torch.models.clusters import bench_config6, fill_cache
+    from kubernetes_tpu_torch.parallel import node_mesh
     from kubernetes_tpu_torch.scheduler.driver import Scheduler
     from kubernetes_tpu_torch.state.cache import SchedulerCache
     from kubernetes_tpu_torch.state.queue import PriorityQueue
@@ -1772,7 +2086,7 @@ def drain6(device, n_nodes, n_preemptors, batch, planes=True, stepped=False):
         unnominated.clear()
 
     sched = Scheduler(cache, queue, batch_size=batch, deterministic=True, device=device, commit_plane=planes,
-                      delete_fn=delete, nominate_fn=nominate)
+                      delete_fn=delete, nominate_fn=nominate, mesh=node_mesh(mesh, device=device) if mesh else None)
     for p in pending:
         queue.add(p)
     out = {"assignments": {}, "nominations": [], "preempted": 0, "batch_s": 0.0}
@@ -1868,6 +2182,7 @@ def phase_gang_parity():
                                                     lambda: drain("cuda", "config5", n5, p5, 1024, False, seed=3))
     add(got)
     _, _, _, cpu, tc = drain("cpu", "config5", n5, p5, 1024, False, seed=3)
+    SINGLE["config5"] = (gsched, gpu)
     check(gpu.scheduled == cpu.scheduled == p5 and gpu.assignments == cpu.assignments,
           f"config-5 /10: {gpu.scheduled}/{cpu.scheduled} placed, or placed differently on cuda and cpu")
     log(f"[parity] config-5 /10 ({n5} nodes, {p5 // 64} groups of 64, batch 1024, tie-noise): identical "
@@ -2059,6 +2374,8 @@ def phase_parity():
               f"parity drain ({workload}, deterministic={det}, services={services}): {diff} pods placed "
               f"differently on cuda and cpu, {diff_off} with the commit plane on and off, {diff_soff} with the "
               f"ingest and term planes on and off")
+        if workload == "config4" and det:
+            SINGLE["config4"] = (gsched, gpu)
         log(f"[parity] {workload} /10 ({n_nodes} nodes, {n_pods} pods, batch {batch}), deterministic={det}"
             f"{', Services' if services else ''}: identical placements, planes on (cuda, cpu), commit plane off "
             f"(cuda) and ingest + term planes off (cuda) ({gpu.scheduled} pods; {st['arbiter_batches']} "
@@ -2083,6 +2400,7 @@ def phase_parity():
           f"{g['arbiter_escalated']}/{c['arbiter_escalated']}")
     skew = zone_skew(nodes, pods, gpu)
     check(skew <= 1, f"config-3-hard: an app's zone counts differ by {skew} > max_skew 1")
+    SINGLE["config3-hard"] = (gsched, gpu)
     log(f"[parity] config-3-hard /10 ({n_nodes} nodes, {n_pods} pods, batch {HARD_BATCH}), deterministic: "
         f"identical placements and defers on cuda and cpu ({gpu.scheduled} pods, {g['batches']} batches, "
         f"{g['arbiter_defer']} defers, 0 escalations; max per-app zone skew {skew}; cuda {tg:.2f}s, "
@@ -2098,6 +2416,7 @@ def phase_parity():
         for key in ("assignments", "victims", "nominations", "preempted"):
             check(gpu[key] == other[key], f"config-6 /10: {key} differ on cuda and {name}")
     g = gpu["sched"].stats
+    SINGLE["config6"] = gpu
     check(len(gpu["assignments"]) == p6 and gpu["preempted"] == p6 and g["preempt_reverify_miss"] == 0,
           f"config-6 /10 placed {len(gpu['assignments'])}, preempted {gpu['preempted']} of {p6}, "
           f"{g['preempt_reverify_miss']} plans rejected by the host re-verification")
@@ -2383,6 +2702,8 @@ def phase_drain(smi, total):
         n_sigs = verify_sig_bank(sched)
         log_drain(f"{label} full ({CONFIG3_NODES} nodes, {CONFIG3_PODS} pods, batch {BATCH})",
                   sched, res, wall, smi)
+        if not services:
+            SINGLE["config3"] = (sched, res, wall)
         log(f"[drain] {label}: device node bank usage columns and signature bank == fresh host encode "
             f"({n_sigs} signatures); "
             f"term kinds {sorted(sched._term_kinds)}, V={sched._v_bucket}, TT={sched._t_bucket}; "
@@ -2479,6 +2800,113 @@ def phase_drain(smi, total):
             f"{st['nominee_folds']}; max_memory_allocated {torch.cuda.max_memory_allocated()} B; card {smi}; "
             f"launches {launches}")
     return config2_pods_per_s
+
+
+def phase_mesh(smi, total):
+    """The node mesh's main paths on the card, each against the same
+    call's single-device drain (SINGLE): config 3 at full size on an
+    8-shard mesh, then configs 4, 3-hard, 5 and 6 at 1/10. Every mesh batch
+    on the sharded programs (sharded_fallbacks 0); the same placements (and
+    for config 6 victims, nominations and preempted counts) and counters;
+    the folded banks equal a fresh encode."""
+
+    def add(launches):
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+
+    def same_stats(label, mesh_sched, one_sched, keys):
+        a = {k: mesh_sched.stats[k] for k in keys}
+        b = {k: one_sched.stats[k] for k in keys}
+        check(a == b, f"{label}: counters {a} on the mesh, {b} on one device")
+        check(mesh_sched.stats["sharded_fallbacks"] == 0,
+              f"{label}: {mesh_sched.stats['sharded_fallbacks']} batches fell back off the mesh")
+
+    keys = ("batches", "fold_batches", "arbiter_batches", "arbiter_place", "arbiter_defer", "arbiter_escalated",
+            "tracked_batches", "gang_batches", "oracle_places")
+    # (b) config 3 at full size
+    torch.cuda.reset_peak_memory_stats()
+    need = ["filter_mask", "score_matrix", "solve_sharded", "match_terms", "spread_score", "fold_commit_sharded"]
+    (sched, nodes, pods, res, wall), launches = run_main_path("config-3 mesh", need, lambda: drain(
+        "cuda", "config3", CONFIG3_NODES, CONFIG3_PODS, BATCH, deterministic=False, mesh=MESH_SHARDS))
+    add(launches)
+    one_sched, one_res, one_wall = SINGLE["config3"]
+    check(res.scheduled == CONFIG3_PODS and res.assignments == one_res.assignments,
+          f"config-3 mesh: {res.scheduled} placed, {sum(1 for k, v in one_res.assignments.items() if res.assignments.get(k) != v)}"
+          f" placed differently from the single-device drain")
+    check(launches["solve_greedy"] == 0 and launches["solve_sharded"] == sched.stats["batches"],
+          f"config-3 mesh: {launches['solve_greedy']} single-device and {launches['solve_sharded']} sharded solves "
+          f"for {sched.stats['batches']} batches")
+    same_stats("config-3 mesh", sched, one_sched, keys)
+    verify_capacity(sched, pods, res)
+    verify_planes("config-3 mesh", sched)
+    verify_stage_planes("config-3 mesh", sched)
+    verify_node_bank(sched)
+    n_sigs = verify_sig_bank(sched)
+    log_drain(f"config-3 mesh full ({CONFIG3_NODES} nodes, {CONFIG3_PODS} pods, batch {BATCH}, {MESH_SHARDS} shards)",
+              sched, res, wall, smi)
+    log(f"[mesh] config-3 full on node_mesh({MESH_SHARDS}): every pod placed, placements == the single-device drain's, "
+        f"0 fallbacks, device node bank and signature bank ({n_sigs} signatures) == fresh host encode; "
+        f"{res.scheduled / wall:.1f} pods/s on the mesh beside {one_res.scheduled / one_wall:.1f} pods/s on one "
+        f"device (one call, card {smi}); launches {launches}")
+    # (c) at 1/10, each against its single-device drain of phase 4
+    n4, p4 = CONFIG4_NODES // 10, CONFIG4_PODS // 10
+    need = ["filter_mask", "score_matrix", "interpod_filter", "solve_sharded_inb", "arbitrate_sharded",
+            "fold_commit_sharded"]
+    (sched, _, pods, res, wall), launches = run_main_path("config-4 mesh /10", need, lambda: drain(
+        "cuda", "config4", n4, p4, 512, True, seed=3, mesh=MESH_SHARDS))
+    add(launches)
+    one_sched, one_res = SINGLE["config4"]
+    check(res.assignments == one_res.assignments and res.scheduled == p4,
+          f"config-4 mesh /10: {res.scheduled} placed, or placed differently from the single-device drain")
+    same_stats("config-4 mesh /10", sched, one_sched, keys)
+    verify_node_bank(sched)
+    log(f"[mesh] config-4 /10 ({n4} nodes, {p4} pods, batch 512) on node_mesh({MESH_SHARDS}): placements and counters "
+        f"== the single-device drain's ({sched.stats['arbiter_batches']} arbitrated, {sched.stats['tracked_batches']} "
+        f"tracked batches; {wall:.2f}s); launches {launches}")
+    n3, p3 = CONFIG3_NODES // 10, CONFIG3_PODS // 10
+    need = ["filter_mask", "score_matrix", "spread_filter", "solve_sharded", "arbitrate_sharded",
+            "fold_commit_sharded"]
+    (sched, nodes, pods, res, wall), launches = run_main_path("config-3-hard mesh /10", need, lambda: drain(
+        "cuda", "config3", n3, p3, HARD_BATCH, True, hard=True, mesh=MESH_SHARDS))
+    add(launches)
+    one_sched, one_res = SINGLE["config3-hard"]
+    check(res.assignments == one_res.assignments and res.scheduled == p3,
+          f"config-3-hard mesh /10: {res.scheduled} placed, or placed differently from the single-device drain")
+    same_stats("config-3-hard mesh /10", sched, one_sched, keys)
+    check(sched.stats["arbiter_batches"] == sched.stats["batches"] and sched.stats["arbiter_defer"] > 0,
+          f"config-3-hard mesh /10: {sched.stats['arbiter_batches']} of {sched.stats['batches']} batches arbitrated, "
+          f"{sched.stats['arbiter_defer']} defers")
+    verify_node_bank(sched)
+    log(f"[mesh] config-3-hard /10 ({n3} nodes, {p3} pods, batch {HARD_BATCH}) on node_mesh({MESH_SHARDS}): "
+        f"placements, defers and counters == the single-device drain's ({sched.stats['arbiter_defer']} defers; "
+        f"{wall:.2f}s); launches {launches}")
+    n5, p5 = CONFIG5_NODES // 10, CONFIG5_GROUPS // 10 * 64
+    (sched, _, pods, res, wall), launches = run_main_path(
+        "config-5 mesh /10", ["filter_mask", "score_matrix", "solve_gang_sharded"],
+        lambda: drain("cuda", "config5", n5, p5, 1024, False, seed=3, mesh=MESH_SHARDS))
+    add(launches)
+    one_sched, one_res = SINGLE["config5"]
+    check(res.assignments == one_res.assignments and res.scheduled == p5 and launches["solve_gang"] == 0,
+          f"config-5 mesh /10: {res.scheduled} placed, or placed differently from the single-device drain")
+    same_stats("config-5 mesh /10", sched, one_sched, keys)
+    log(f"[mesh] config-5 /10 ({n5} nodes, {p5 // 64} groups of 64, batch 1024, tie-noise) on "
+        f"node_mesh({MESH_SHARDS}): placements and counters == the single-device drain's "
+        f"({sched.stats['gang_batches']} gang batches; {wall:.2f}s); launches {launches}")
+    n6, p6 = CONFIG6_NODES // 10, CONFIG6_PREEMPTORS // 10
+    need = ["filter_mask", "score_matrix", "solve_sharded", "fold_commit_sharded", "preempt_batch",
+            "fold_usage_sharded"]
+    out, launches = run_main_path("config-6 mesh /10", need, lambda: drain6(
+        "cuda", n6, p6, CONFIG6_SMALL_BATCH, stepped=True, mesh=MESH_SHARDS))
+    add(launches)
+    one = SINGLE["config6"]
+    for key in ("assignments", "victims", "nominations", "preempted"):
+        check(out[key] == one[key], f"config-6 mesh /10: {key} differ from the single-device drain")
+    same_stats("config-6 mesh /10", out["sched"], one["sched"], keys + ("nominee_folds", "preempt_batches"))
+    check(launches["fold_usage"] == 0, f"config-6 mesh /10: {launches['fold_usage']} single-device usage folds")
+    log(f"[mesh] config-6 /10 ({n6} nodes, {p6} preemptors, batch {CONFIG6_SMALL_BATCH}, stepped clock) on "
+        f"node_mesh({MESH_SHARDS}): placements, victims in order, nominations after every batch and preempted "
+        f"count == the single-device drain's ({out['sched'].stats['nominee_folds']} nominee folds; "
+        f"{out['wall']:.2f}s); launches {launches}")
 
 
 # ---------------------------------------------------------------------------
@@ -3046,6 +3474,8 @@ def main() -> int:
     lap("phase 4 gang parity")
     config2_pods_per_s = phase_drain(smi, launches)
     lap("phase 5 drains")
+    phase_mesh(smi, launches)
+    lap("phase 5 mesh drains")
     phase_policy(smi, launches, config2_pods_per_s)
     lap("phase 5 Policy drains")
     phase_extender(smi, launches, stats)
@@ -3074,6 +3504,12 @@ def main() -> int:
         "score_matrix[rtcr]": ("kubernetes_tpu_torch/csrc/scores.cu", "kubernetes_tpu/ops/scores.py:183"),
         "score_components": ("kubernetes_tpu_torch/csrc/scores.cu", "kubernetes_tpu/ops/scores.py:288"),
         "pipeline.filter_mask": ("kubernetes_tpu_torch/csrc/filters.cu", "kubernetes_tpu/ops/pipeline.py:131"),
+        "solve_sharded": ("kubernetes_tpu_torch/csrc/solver.cu", "kubernetes_tpu/parallel/sharded.py:51"),
+        "solve_sharded_inb": ("kubernetes_tpu_torch/csrc/solver.cu", "kubernetes_tpu/parallel/sharded.py:89"),
+        "solve_gang_sharded": ("kubernetes_tpu_torch/csrc/solver.cu", "kubernetes_tpu/parallel/sharded.py:435"),
+        "arbitrate_sharded": ("kubernetes_tpu_torch/csrc/arbiter.cu", "kubernetes_tpu/commit/arbiter.py:323"),
+        "fold_commit_sharded": ("kubernetes_tpu_torch/csrc/fold.cu", "kubernetes_tpu/ops/fold.py:156"),
+        "fold_usage_sharded": ("kubernetes_tpu_torch/csrc/fold.cu", "kubernetes_tpu/ops/fold.py:164"),
     }
     kernels = []
     for kname, (src, ref) in sources.items():

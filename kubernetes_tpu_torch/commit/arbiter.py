@@ -27,16 +27,25 @@ tables — from the dict the driver passed solve_pipeline as
 
 `arbitrate_plain` is the reference's scan as a Python loop of PyTorch ops;
 the reference's float32 ca / cb / cs tables are only compared > 0, so they
-are int32 here. On CUDA tensors `arbitrate` launches csrc/arbiter.cu, one
-block walking the same B steps (counted in `arbitrate.launches`).
+are int32 here. On CUDA tensors `arbitrate` launches csrc/arbiter.cu, a
+thread-block cluster of one CTA walking the same B steps (counted in
+`arbitrate.launches`).
 `host_arbitrate` (ref :583) is the arbiter's executable spec: the same
 walk on the host by the full oracle predicate chain; only the tests call
 it.
+
+`arbitrate_sharded` (ref :323 `_arbiter_body_sharded`, :484
+`make_sharded_arbiter`) is the same scan over a node mesh's shards: the
+residuals and cs shard-local, the tables replicated, one packed
+owner-shard broadcast a step. `arbitrate_sharded_plain` writes the shard
+axis out; on CUDA tensors the same csrc/arbiter.cu scan runs it as a
+cluster of one CTA a shard (`arbitrate_sharded.launches`).
 """
 
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 from typing import Dict, List, Optional, Tuple
 
 import torch
@@ -49,6 +58,7 @@ from ..ops.pipeline import apply_carry
 from ..ops.solver import pop_order
 from ..oracle.nodeinfo import Snapshot
 from ..oracle.predicates import compute_predicate_metadata, get_hard_spread_constraints, pod_fits_on_node
+from ..parallel.mesh import node_shards, shard_rows
 from ..state.terms import ANTI_REQ, SPREAD_HARD
 
 Arrays = Dict[str, torch.Tensor]
@@ -244,12 +254,21 @@ class ArbiterArgs(ctypes.Structure):
     )
 
 
+class ClusterArbiterArgs(ctypes.Structure):
+    """Mirror of `struct ClusterArbiterArgs` in csrc/arbiter.cu."""
+
+    _fields_ = [("arb", ArbiterArgs), ("S", ctypes.c_int32), ("Nl", ctypes.c_int32)]
+
+
 def arbiter_args(na: Arrays, pa: Arrays, ea: Arrays, ta: Arrays, ids, assign: torch.Tensor, pb: Arrays,
                  carry: Optional[Tuple] = None, term_kinds: Optional[frozenset] = None,
-                 n_buckets: Optional[int] = None, inputs: Optional[Dict] = None):
-    """The arbiter kernel's argument struct (with its scratch, the pop
-    order and the solve's intermediates, see _solve_inputs) and the [B]
-    int32 verdict it writes."""
+                 n_buckets: Optional[int] = None, inputs: Optional[Dict] = None, shards: int = 1):
+    """The arbiter kernel's argument struct for a cluster of `shards` CTAs
+    (1 on one device, one a node shard on a mesh), with its scratch, the
+    pop order and the solve's intermediates (see _solve_inputs), and the
+    [B] int32 verdict it writes. The scratch holds one replica of ca / cb /
+    md / mh a CTA; the packed-facts slots and a CTA's cs columns count
+    against the shared-memory budget."""
     na = apply_carry(na, carry)
     dev = assign.device
     sig, pod_valid = pb["sig"], pb["valid"]
@@ -268,17 +287,19 @@ def arbiter_args(na: Arrays, pa: Arrays, ea: Arrays, ta: Arrays, ids, assign: to
             "count0": na["pod_count"].to(torch.int64), "allowed": na["allowed_pods"].to(torch.int64)}
     if have_spread:
         keep.update(got["spread_tables"])
-    table_bytes = 3 * tt * v * 4
+    reps = shards
+    n_cols = shard_rows(n, shards)  # cs columns a CTA keeps
+    table_bytes = 3 * tt * v * 4 + 2 * (2 + 3 * tt) * 4
     in_shared = table_bytes <= SHARED_TABLE_BYTES
-    cs_shared = in_shared and table_bytes + u * n * 4 <= SHARED_TABLE_BYTES
+    cs_shared = in_shared and table_bytes + u * n_cols * 4 <= SHARED_TABLE_BYTES
     scratch = dict(
         free_=torch.empty((n, r), dtype=torch.int64, device=dev),
         count=torch.empty((n,), dtype=torch.int64, device=dev),
-        ca=torch.empty((1 if in_shared else tt, v), dtype=torch.int32, device=dev),
-        cb=torch.empty((1 if in_shared else tt, v), dtype=torch.int32, device=dev),
-        md=torch.empty((1 if in_shared else tt, v), dtype=torch.int32, device=dev),
+        ca=torch.empty((1 if in_shared else reps * tt, v), dtype=torch.int32, device=dev),
+        cb=torch.empty((1 if in_shared else reps * tt, v), dtype=torch.int32, device=dev),
+        md=torch.empty((1 if in_shared else reps * tt, v), dtype=torch.int32, device=dev),
         cs=torch.empty((1 if cs_shared else u, n), dtype=torch.int32, device=dev),
-        mh=torch.empty((tt,), dtype=torch.int32, device=dev),
+        mh=torch.empty((reps * tt,), dtype=torch.int32, device=dev),
         gm=torch.empty((tt, u), dtype=torch.int32, device=dev),
     )
     verdict = torch.empty((b,), dtype=torch.int32, device=dev)
@@ -311,7 +332,18 @@ def arbiter_args(na: Arrays, pa: Arrays, ea: Arrays, ta: Arrays, ids, assign: to
     a.tables_in_shared = int(in_shared)
     a.cs_in_shared = int(cs_shared)
     a.keepalive = (keep, scratch)
-    return a, verdict
+    args = ClusterArbiterArgs(arb=a, S=shards, Nl=n_cols)
+    args.keepalive = a
+    return args, verdict
+
+
+def _launch_arbiter(args: ClusterArbiterArgs, dev) -> None:
+    """Launch csrc/arbiter.cu's scan as one cluster of `args.S` CTAs; more
+    than build.MAX_CLUSTER CTAs, or a cluster the card cannot co-schedule,
+    raises."""
+    a = args.arb
+    build.check_clusters(ARBITER_ENTRY, args, (a.TT, a.V, a.U, a.tables_in_shared, a.cs_in_shared))
+    build.launch(ARBITER_ENTRY, args, dev)
 
 
 def arbitrate(
@@ -320,7 +352,8 @@ def arbitrate(
     inputs: Optional[Dict] = None,
 ) -> torch.Tensor:
     """Verdict [B] per batch position. CPU tensors run the plain version;
-    CUDA tensors launch csrc/arbiter.cu (counted in `arbitrate.launches`).
+    CUDA tensors launch csrc/arbiter.cu, one CTA (counted in
+    `arbitrate.launches`).
     `carry` is the residual carry the solve ran on; `inputs` is the dict
     the solve filled as `arbiter_inputs` (what is missing there is
     launched first, see _solve_inputs)."""
@@ -329,13 +362,164 @@ def arbitrate(
         return arbitrate_plain(na, pa, ea, ta, ids, assign, pb, carry, term_kinds, n_buckets, inputs)
     if dev.type == "cuda":
         args, verdict = arbiter_args(na, pa, ea, ta, ids, assign, pb, carry, term_kinds, n_buckets, inputs)
-        build.launch(ARBITER_ENTRY, args, dev)
+        _launch_arbiter(args, dev)
         arbitrate.launches += 1
         return verdict
     raise ValueError(f"no arbiter kernel for device {dev}")
 
 
 arbitrate.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# the verdict scan over node shards
+# ---------------------------------------------------------------------------
+
+def arbitrate_sharded_plain(
+    shards: int, na: Arrays, pa: Arrays, ea: Arrays, ta: Arrays, ids, assign: torch.Tensor, pb: Arrays,
+    carry: Optional[Tuple] = None, term_kinds: Optional[frozenset] = None, n_buckets: Optional[int] = None,
+    inputs: Optional[Dict] = None,
+) -> torch.Tensor:
+    """The reference's shard_map'd verdict scan (arbiter.py:323
+    _arbiter_body_sharded) with the shard axis written out: shard s owns
+    node rows [s * Nl, (s + 1) * Nl) with their residuals, count and cs
+    columns; each step the assigned node's owner packs its facts (capacity,
+    host-port clash, per term has-key, bucket and DoNotSchedule candidate
+    bit), every other shard the identity of max, and one max over shards
+    broadcasts them; the ca / cb / md / mh tables are replicated and
+    updated from the broadcast facts. The same verdicts as
+    `arbitrate_plain`."""
+    na = apply_carry(na, carry)
+    dev = assign.device
+    sig, pod_valid = pb["sig"], pb["valid"]
+    b = sig.shape[0]
+    u_cap = pa["valid"].shape[0]
+    n = na["valid"].shape[0]
+    nl = shard_rows(n, shards)
+    v = n_buckets or n
+    order = pop_order(pb["priority"], torch.arange(b, dtype=torch.int32, device=dev), pod_valid)
+    r = na["alloc"].shape[1]
+    free = (na["alloc"] - na["requested"]).view(shards, nl, r).clone()  # shard-local
+    count = na["pod_count"].to(free.dtype).view(shards, nl).clone()
+    allowed = na["allowed_pods"].to(free.dtype).view(shards, nl)
+    req, req_any = pa["req"], pa["req_any"]
+    t_anti = ta["valid"] & (ta["kind"] == ANTI_REQ)
+    t_owner = ta["owner"]
+    have_spread = term_kinds is None or "spread_hard" in term_kinds
+    got = _solve_inputs(na, pa, ea, ta, ids, inputs, have_spread, v, plain=True)
+    m_raw = got["m_raw"]
+    m_bb = m_raw & t_anti[:, None]
+    bucket_n, haskey_n = T._bucket_of(na, ta["topo_slot"])
+    tt = t_anti.shape[0]
+    bucket_s = bucket_n.long().view(tt, shards, nl).transpose(0, 1)  # [S, TT, Nl] shard-local columns
+    haskey_s = haskey_n.view(tt, shards, nl).transpose(0, 1)
+    pconf = got["pconf"]
+    t_rows = torch.arange(tt, device=dev)
+    if have_spread:
+        sp = _spread_tables(pa, ta, got["spread_tables"], m_raw)
+        hard, owner = sp["hard"], sp["owner"]
+        cand_s = sp["cand"][owner.long()].view(tt, shards, nl).transpose(0, 1)  # [S, TT, Nl]
+    # replicated state (identical on every shard by construction)
+    ca = torch.zeros((tt, v), dtype=torch.int32, device=dev)
+    cb = torch.zeros((tt, v), dtype=torch.int32, device=dev)
+    md = torch.zeros((tt, v), dtype=torch.int32, device=dev)
+    mh = torch.zeros((tt,), dtype=torch.int32, device=dev)
+    cs = torch.zeros((shards, u_cap, nl), dtype=torch.int32, device=dev)  # shard-local columns
+    verdict = torch.full((b,), V_NOFIT, dtype=torch.int32, device=dev)
+    sig_l, assign_l, pv_l = sig.tolist(), assign.tolist(), pod_valid.tolist()
+    ident = torch.cat([torch.zeros(2 + tt, dtype=torch.int64, device=dev),
+                       torch.full((tt,), -1, dtype=torch.int64, device=dev),
+                       torch.zeros(tt, dtype=torch.int64, device=dev)])
+
+    def scatter_add(table, mask, buck, val):
+        keep = mask & (buck < v)
+        table.index_put_((t_rows[keep], buck[keep]), val[keep].to(table.dtype), accumulate=True)
+
+    for p in order.tolist():
+        if not pv_l[p]:
+            continue  # V_NOFIT; commits nothing
+        u, nrow = sig_l[p], assign_l[p]
+        if nrow < 0:
+            # -1: V_DEFER only when an earlier commit matched one of my hard terms
+            couldfit = have_spread and bool((hard & (owner == u) & (mh > 0)).any())
+            verdict[p] = V_DEFER if couldfit else V_NOFIT
+            continue
+        r_q = req[u]
+        # each shard's packed facts: the identity of max on every shard but
+        # the node's owner, whose facts are real
+        own_sh, l = divmod(nrow, nl)
+        cap_ok = (~req_any[u] | (r_q <= free[own_sh, l]).all()) & (count[own_sh, l] + 1 <= allowed[own_sh, l])
+        block_p = (pconf[u] & (cs[own_sh, :, l] > 0)).any()
+        cand_l = cand_s[own_sh, :, l] if have_spread else torch.zeros(tt, dtype=torch.bool, device=dev)
+        rows = ident.expand(shards, -1).clone()
+        rows[own_sh] = torch.cat([torch.stack([cap_ok, block_p]).long(), haskey_s[own_sh, :, l].long(),
+                                  bucket_s[own_sh, :, l], cand_l.long()])
+        packed = rows.amax(dim=0)  # the one pmax of the step
+        cap_ok = packed[0] > 0
+        block_p = packed[1] > 0
+        hk = packed[2 : 2 + tt] > 0
+        buck = packed[2 + tt : 2 + 2 * tt]
+        cand_b = packed[2 + 2 * tt :] > 0
+        bc = buck.clamp(min=0, max=v - 1)  # gathers clamp
+        own_u = (t_owner == u) & t_anti
+        block_a = (own_u & hk & (ca[t_rows, bc] > 0)).any()
+        block_b = (m_bb[:, u] & hk & (cb[t_rows, bc] > 0)).any()
+        if have_spread:
+            own_h = hard & (owner == u)
+            cnt = sp["merged_cnt0"] + md
+            present = sp["merged_present"]
+            min_t = torch.where(present, cnt, _BIG).amin(dim=1)
+            at_b = torch.where(present[t_rows, bc], cnt[t_rows, bc], 0)
+            skew_ok_t = hk & (at_b + sp["self_m"] - min_t <= sp["skew"])
+            sp_ok = torch.where(own_h, skew_ok_t, True).all() | ~sp["any_pair_u"][u]
+        else:
+            sp_ok = torch.ones((), dtype=torch.bool, device=dev)
+        ok = bool(cap_ok & ~block_a & ~block_b & ~block_p & sp_ok)
+        verdict[p] = V_PLACE if ok else V_DEFER
+        if not ok:
+            continue
+        free[own_sh, l] -= r_q  # the owner folds the commit into its residuals and cs
+        count[own_sh, l] += 1
+        cs[own_sh, u, l] += 1
+        ones = torch.ones(tt, dtype=torch.int32, device=dev)  # every shard: the replicated tables
+        scatter_add(ca, m_bb[:, u] & hk, buck, ones)
+        scatter_add(cb, own_u & hk, buck, ones)
+        if have_spread:
+            contrib = torch.where(hard & cand_b, sp["gm"][:, u], 0)
+            scatter_add(md, contrib > 0, buck, contrib)
+            mh += sp["m_batch_hard"][:, u].to(mh.dtype)
+    return verdict
+
+
+def arbitrate_sharded(
+    shards: int, na: Arrays, pa: Arrays, ea: Arrays, ta: Arrays, ids, assign: torch.Tensor, pb: Arrays,
+    carry: Optional[Tuple] = None, term_kinds: Optional[frozenset] = None, n_buckets: Optional[int] = None,
+    inputs: Optional[Dict] = None,
+) -> torch.Tensor:
+    """`arbitrate` over `shards` node shards: the same verdicts. CPU
+    tensors run the plain version; CUDA tensors launch csrc/arbiter.cu's
+    scan as one cluster of `shards` CTAs (counted in
+    `arbitrate_sharded.launches`). A shard count the card cannot run as one
+    cluster raises."""
+    dev = assign.device
+    if dev.type == "cpu":
+        return arbitrate_sharded_plain(shards, na, pa, ea, ta, ids, assign, pb, carry, term_kinds, n_buckets, inputs)
+    if dev.type == "cuda":
+        args, verdict = arbiter_args(na, pa, ea, ta, ids, assign, pb, carry, term_kinds, n_buckets, inputs,
+                                     shards=shards)
+        _launch_arbiter(args, dev)
+        arbitrate_sharded.launches += 1
+        return verdict
+    raise ValueError(f"no arbiter kernel for device {dev}")
+
+
+arbitrate_sharded.launches = 0
+
+
+def make_sharded_arbiter(mesh):
+    """The verdict scan bound to `mesh`'s node shards, with `arbitrate`'s
+    signature (ref :484)."""
+    return partial(arbitrate_sharded, node_shards(mesh))
 
 
 def host_arbitrate(pods, assign_rows, node_name_of_row, snapshot: Snapshot,

@@ -97,3 +97,64 @@ __device__ __forceinline__ int64_t floordiv(int64_t a, int64_t b) {
   if ((a % b != 0) && ((a < 0) != (b < 0))) --q;
   return q;
 }
+
+// Opt a kernel in to more than the default 48 KB of dynamic shared memory.
+static inline int set_smem(const void* kernel, size_t bytes) {
+  if (bytes > 48 * 1024) {
+    return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
+  }
+  return 0;
+}
+
+// Thread-block clusters (the solve and the arbiter run one cluster of S
+// CTAs, S = 1 on one device, one CTA a node shard on a mesh): 8 is the
+// portable cluster size, 16 the largest Hopper allows (non-portable).
+#define PORTABLE_CLUSTER 8
+#define MAX_CLUSTER 16
+
+// One cluster of S CTAs: the launch configuration, the non-portable size
+// opt-in above 8 and the dynamic shared-memory opt-in.
+static inline int cluster_config(const void* kernel, int S, int threads, size_t bytes, cudaStream_t stream,
+                                 cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
+  if (S < 1 || S > MAX_CLUSTER) return (int)cudaErrorInvalidValue;
+  int rc;
+  if (S > PORTABLE_CLUSTER &&
+      (rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1))) {
+    return rc;
+  }
+  if ((rc = set_smem(kernel, bytes))) return rc;
+  *cfg = cudaLaunchConfig_t{};
+  cfg->gridDim = dim3(S, 1, 1);
+  cfg->blockDim = dim3(threads, 1, 1);
+  cfg->dynamicSmemBytes = bytes;
+  cfg->stream = stream;
+  attr->id = cudaLaunchAttributeClusterDimension;
+  attr->val.clusterDim.x = S;
+  attr->val.clusterDim.y = 1;
+  attr->val.clusterDim.z = 1;
+  cfg->attrs = attr;
+  cfg->numAttrs = 1;
+  return 0;
+}
+
+// Launch `kernel(*arg)` as one cluster of S CTAs.
+template <typename Args>
+static inline int launch_cluster(const void* kernel, int S, int threads, size_t bytes, const Args& arg,
+                                 cudaStream_t stream) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int rc = cluster_config(kernel, S, threads, bytes, stream, &cfg, &attr);
+  if (rc) return rc;
+  void* params[] = {(void*)&arg};
+  if ((rc = (int)cudaLaunchKernelExC(&cfg, kernel, params))) return rc;
+  return (int)cudaGetLastError();
+}
+
+// How many such clusters the card holds at once (0: it cannot launch one).
+static inline int cluster_capacity(const void* kernel, int S, int threads, size_t bytes, int* out) {
+  cudaLaunchConfig_t cfg;
+  cudaLaunchAttribute attr;
+  int rc = cluster_config(kernel, S, threads, bytes, 0, &cfg, &attr);
+  if (rc) return rc;
+  return (int)cudaOccupancyMaxActiveClusters(out, kernel, &cfg);
+}

@@ -89,10 +89,3 @@ __device__ __forceinline__ bool dense_bucket(const int32_t* label_dense, int K, 
   *b = d < 0 ? 0 : d;
   return d >= 0 && slot >= 0;
 }
-
-static int set_smem(const void* kernel, size_t bytes) {
-  if (bytes > 48 * 1024) {
-    return (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)bytes);
-  }
-  return 0;
-}

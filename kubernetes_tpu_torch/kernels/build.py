@@ -45,13 +45,20 @@ NVCC_FLAGS = (
 # entry points of the C interface: each takes (const <Args>*, cudaStream_t)
 # and returns the cudaError_t of its launch
 ENTRY_POINTS = (
-    "ktpu_filter_mask", "ktpu_score_matrix", "ktpu_solve_greedy",
+    "ktpu_filter_mask", "ktpu_score_matrix", "ktpu_solve",
     "ktpu_match_terms", "ktpu_spread_score", "ktpu_selector_spread_score",
     "ktpu_interpod_filter", "ktpu_interpod_score", "ktpu_inbatch_port_conflict",
     "ktpu_spread_filter", "ktpu_arbitrate", "ktpu_fold_commit_banks",
-    "ktpu_preempt_batch", "ktpu_fold_usage", "ktpu_gather_score_rows", "ktpu_solve_gang",
-    "ktpu_gather_slab", "ktpu_scatter_slab",
+    "ktpu_preempt_batch", "ktpu_fold_usage", "ktpu_gather_score_rows",
+    "ktpu_gather_slab", "ktpu_scatter_slab", "ktpu_fold_commit_sharded", "ktpu_fold_usage_sharded",
+    # cluster capacity queries of the cluster launches (ktpu_solve,
+    # ktpu_arbitrate): (const <Args>*, int* out) -> cudaError_t
+    "ktpu_solve_clusters", "ktpu_arbitrate_clusters",
 )
+
+# CTAs of one thread-block cluster: 8 is the portable size, 16 the largest
+# Hopper allows (non-portable); csrc/common.cuh's MAX_CLUSTER
+MAX_CLUSTER = 16
 
 _lock = threading.Lock()
 _lib: Optional[ctypes.CDLL] = None
@@ -182,6 +189,38 @@ def launch(entry: str, args: ctypes.Structure, device: torch.device) -> None:
     rc = fn(ctypes.addressof(args), ctypes.c_void_p(stream))
     if rc != 0:
         raise KernelLaunchError(f"{entry}: CUDA error {rc}")
+
+
+def cluster_capacity(entry: str, args: ctypes.Structure) -> int:
+    """How many thread-block clusters of the launch `args` describes the
+    card holds at once (0: it cannot launch one), from the entry's
+    `<entry>_clusters` query; raises KernelLaunchError on a CUDA error."""
+    fn = getattr(library(), entry + "_clusters")
+    out = ctypes.c_int(0)
+    rc = fn(ctypes.addressof(args), ctypes.addressof(out))
+    if rc != 0:
+        raise KernelLaunchError(f"{entry}_clusters: CUDA error {rc}")
+    return out.value
+
+
+_CLUSTERS_OK: Dict[tuple, int] = {}
+
+
+def check_clusters(entry: str, args: ctypes.Structure, key: tuple) -> None:
+    """Refuse a cluster launch of `entry` the card cannot run: more than
+    MAX_CLUSTER CTAs (`args.S`), or a cluster it cannot co-schedule
+    (cluster_capacity is 0). `key` names what else sizes the launch; the
+    query is cached per (entry, S, key)."""
+    shards = args.S
+    if not 1 <= shards <= MAX_CLUSTER:
+        raise ValueError(f"{shards} node shards: the cluster kernels take 1 to {MAX_CLUSTER} (one CTA a shard)")
+    full = (entry, shards) + tuple(key)
+    got = _CLUSTERS_OK.get(full)
+    if got is None:
+        got = _CLUSTERS_OK[full] = cluster_capacity(entry, args)
+    if got < 1:
+        raise RuntimeError(f"{entry}: the card cannot co-schedule a cluster of {shards} CTAs for this launch "
+                           f"({key})")
 
 
 def ptr(t: torch.Tensor, dtype: torch.dtype, shape=None) -> int:

@@ -32,18 +32,32 @@ nominees on one node give duplicate rows, so its kernel (`csrc/fold.cu`,
 counted apart in `fold_usage.launches`) adds with integer atomics. The
 same call on a clone of the columns is the reference's copy overlay
 (`scheduler/driver.py:404 _nominee_fold_fn`).
+
+`make_sharded_fold_fns(mesh)` is the port of `kubernetes_tpu/ops/fold.py:96`:
+the (commit, usage) pair for banks split over the mesh's S node shards of
+Nl rows each (rows [s * Nl, (s + 1) * Nl) of the one tensor). The control
+arrays are replicated; each shard rebases the global rows onto its own and
+drops foreign lanes, so no collective is needed. `fold_commit_sharded` and
+`fold_usage_sharded` write that shard axis out (their plain versions loop
+over the shards' row views); on CUDA tensors one launch of
+`csrc/fold.cu`'s sharded kernels covers every shard (counted in their
+`.launches`).
 """
 
 from __future__ import annotations
 
 import ctypes
+from functools import partial
 
 import torch
 
 from ..kernels import build
+from ..parallel.mesh import node_shards, shard_rows
 
 FOLD_ENTRY = "ktpu_fold_commit_banks"
 FOLD_USAGE_ENTRY = "ktpu_fold_usage"
+FOLD_SHARDED_ENTRY = "ktpu_fold_commit_sharded"
+FOLD_USAGE_SHARDED_ENTRY = "ktpu_fold_usage_sharded"
 
 
 def fold_commit_banks_plain(
@@ -208,3 +222,105 @@ def fold_usage(requested, pod_count, rows, vecs, cnt):
 
 
 fold_usage.launches = 0
+
+
+# --- the node-sharded twins -------------------------------------------------
+
+def _local_rows(rows: torch.Tensor, base: int, n_local: int) -> torch.Tensor:
+    """Global row -> shard-local row; foreign and sentinel lanes -> n_local
+    (out of range, dropped). Sentinel N is foreign to every shard: for the
+    last shard N - base == n_local, already out of range."""
+    mine = (rows >= base) & (rows < base + n_local)
+    return torch.where(mine, rows - base, torch.full_like(rows, n_local))
+
+
+def fold_commit_sharded_plain(shards: int, requested, nonzero_req, pod_count, sig_counts, pat_counts,
+                              rows, req, nz, cnt, sig, pat_row, pat_col, pat_cnt):
+    """The reference's shard_map'd commit fold with the shard axis written
+    out: each shard's row views take the lanes rebased onto them."""
+    nl = shard_rows(requested.shape[0], shards)
+    for s in range(shards):
+        lo, hi = s * nl, (s + 1) * nl
+        fold_commit_banks_plain(
+            requested[lo:hi], nonzero_req[lo:hi], pod_count[lo:hi], sig_counts[lo:hi], pat_counts[lo:hi],
+            _local_rows(rows, lo, nl), req, nz, cnt, sig, _local_rows(pat_row, lo, nl), pat_col, pat_cnt,
+        )
+    return requested, nonzero_req, pod_count, sig_counts, pat_counts
+
+
+class ShardedFoldArgs(ctypes.Structure):
+    """Mirror of `struct ShardedFoldArgs` in csrc/fold.cu."""
+
+    _fields_ = [("fold", FoldArgs), ("S", ctypes.c_int32), ("Nl", ctypes.c_int32)]
+
+
+def fold_commit_sharded(shards: int, requested, nonzero_req, pod_count, sig_counts, pat_counts,
+                        rows, req, nz, cnt, sig, pat_row, pat_col, pat_cnt):
+    """The commit fold over `shards` node shards, in place. CPU tensors run
+    the plain version; CUDA tensors launch csrc/fold.cu's sharded kernel,
+    every shard in one launch (counted in `fold_commit_sharded.launches`).
+    Returns the banks."""
+    banks = (requested, nonzero_req, pod_count, sig_counts, pat_counts)
+    dev = requested.device
+    if dev.type == "cpu":
+        return fold_commit_sharded_plain(shards, *banks, rows, req, nz, cnt, sig, pat_row, pat_col, pat_cnt)
+    if dev.type == "cuda":
+        nl = shard_rows(requested.shape[0], shards)
+        args = ShardedFoldArgs(fold_args(*banks, rows, req, nz, cnt, sig, pat_row, pat_col, pat_cnt), shards, nl)
+        build.launch(FOLD_SHARDED_ENTRY, args, dev)
+        fold_commit_sharded.launches += 1
+        return banks
+    raise ValueError(f"no fold kernel for device {dev}")
+
+
+fold_commit_sharded.launches = 0
+
+
+def fold_usage_sharded_plain(shards: int, requested, pod_count, rows, vecs, cnt):
+    """The reference's shard_map'd usage fold with the shard axis written
+    out."""
+    nl = shard_rows(requested.shape[0], shards)
+    for s in range(shards):
+        lo, hi = s * nl, (s + 1) * nl
+        fold_usage_plain(requested[lo:hi], pod_count[lo:hi], _local_rows(rows, lo, nl), vecs, cnt)
+    return requested, pod_count
+
+
+class ShardedFoldUsageArgs(ctypes.Structure):
+    """Mirror of `struct ShardedFoldUsageArgs` in csrc/fold.cu."""
+
+    _fields_ = [("fold", FoldUsageArgs), ("S", ctypes.c_int32), ("Nl", ctypes.c_int32)]
+
+
+def fold_usage_sharded(shards: int, requested, pod_count, rows, vecs, cnt):
+    """The usage fold over `shards` node shards, in place. CPU tensors run
+    the plain version; CUDA tensors launch csrc/fold.cu's sharded kernel
+    (counted in `fold_usage_sharded.launches`). Returns (requested,
+    pod_count)."""
+    dev = requested.device
+    if dev.type == "cpu":
+        return fold_usage_sharded_plain(shards, requested, pod_count, rows, vecs, cnt)
+    if dev.type == "cuda":
+        nl = shard_rows(requested.shape[0], shards)
+        args = ShardedFoldUsageArgs(fold_usage_args(requested, pod_count, rows, vecs, cnt), shards, nl)
+        build.launch(FOLD_USAGE_SHARDED_ENTRY, args, dev)
+        fold_usage_sharded.launches += 1
+        return requested, pod_count
+    raise ValueError(f"no fold kernel for device {dev}")
+
+
+fold_usage_sharded.launches = 0
+
+_SHARDED_FOLD_CACHE: dict = {}
+
+
+def make_sharded_fold_fns(mesh):
+    """(commit, usage) fold functions bound to `mesh`'s node shards, with
+    fold_commit_banks' and fold_usage's signatures. Memoized per mesh."""
+    cached = _SHARDED_FOLD_CACHE.get(mesh)
+    if cached is not None:
+        return cached
+    shards = node_shards(mesh)
+    fns = (partial(fold_commit_sharded, shards), partial(fold_usage_sharded, shards))
+    _SHARDED_FOLD_CACHE[mesh] = fns
+    return fns

@@ -239,6 +239,43 @@ def _inbatch_tensors(na: Arrays, pa: Arrays, ta: Arrays, ids, n_buckets: Optiona
     }
 
 
+def solve_inputs(
+    na: Arrays, pa: Arrays, ids, pb: Optional[Arrays], carry: Optional[Tuple], config: Optional[SolveConfig],
+    term_kinds: Optional[frozenset], return_carry: bool, track_inbatch: bool, *, ea: Optional[Arrays],
+    ta: Optional[Arrays], au: Optional[Arrays], xa: Optional[Arrays], n_buckets: Optional[int],
+    arbiter_inputs: Optional[Dict],
+) -> Tuple[Dict, torch.Tensor, Optional[Dict]]:
+    """What every solve pipeline (single-device, gang, node-sharded) hands
+    its solve: the residual carry overlaid, the mask and score, the pop
+    order and the per-pod axis. Returns (the solve's keyword arguments
+    but key / deterministic / return_carry / inb, the [U, N] score, the
+    in-batch tracking dict or None)."""
+    _check_term_kinds(term_kinds)
+    na = apply_carry(na, carry)
+    mask, score = mask_and_score(
+        na, pa, ids, config, term_kinds, ea=ea, ta=ta, au=au, xa=xa, n_buckets=n_buckets,
+        arbiter_inputs=arbiter_inputs,
+    )
+    free0 = na["alloc"] - na["requested"]
+    if pb is None:
+        sig, pvalid, prio = None, pa["valid"], pa["priority"]
+    else:
+        sig, pvalid, prio = pb["sig"], pb["valid"], pb["priority"]
+    b = pvalid.shape[0]
+    order = pop_order(prio, torch.arange(b, dtype=torch.int32, device=pvalid.device), pvalid)
+    inb = _inbatch_tensors(na, pa, ta, ids, n_buckets) if track_inbatch else None
+    if inb is not None and arbiter_inputs is not None:
+        arbiter_inputs.update(m_raw=inb["m_bb"], pconf=inb["port_conflict"])
+    kw = dict(
+        mask=mask, score=score, req=pa["req"], free0=free0,
+        count0=na["pod_count"].to(free0.dtype), allowed=na["allowed_pods"].to(free0.dtype),
+        order=order, req_any=pa["req_any"], sig=sig, pod_valid=pvalid,
+        nz0=na["nonzero_req"].to(free0.dtype) if return_carry else None,
+        scoring_req=pa["scoring_req"] if return_carry else None,
+    )
+    return kw, score, inb
+
+
 def solve_pipeline(
     na: Arrays,  # NodeBank tensors
     pa: Arrays,  # PodBatch tensors (one row per unique pod spec)
@@ -266,31 +303,9 @@ def solve_pipeline(
     receives what the arbiter would otherwise launch again: mask_and_score's
     entries and, with the tracking, the term matches against the spec rows
     ("m_raw") and the port-conflict table ("pconf")."""
-    _check_term_kinds(term_kinds)
-    na = apply_carry(na, carry)
-    mask, score = mask_and_score(
-        na, pa, ids, config, term_kinds, ea=ea, ta=ta, au=au, xa=xa, n_buckets=n_buckets,
-        arbiter_inputs=arbiter_inputs,
-    )
-    free0 = na["alloc"] - na["requested"]
-    if pb is None:
-        sig, pvalid, prio = None, pa["valid"], pa["priority"]
-    else:
-        sig, pvalid, prio = pb["sig"], pb["valid"], pb["priority"]
-    b = pvalid.shape[0]
-    order = pop_order(prio, torch.arange(b, dtype=torch.int32, device=pvalid.device), pvalid)
-    inb = _inbatch_tensors(na, pa, ta, ids, n_buckets) if track_inbatch else None
-    if inb is not None and arbiter_inputs is not None:
-        arbiter_inputs.update(m_raw=inb["m_bb"], pconf=inb["port_conflict"])
-    result = solve_greedy(
-        mask, score, pa["req"], free0,
-        na["pod_count"].to(free0.dtype), na["allowed_pods"].to(free0.dtype),
-        order, key, deterministic=deterministic, req_any=pa["req_any"],
-        sig=sig, pod_valid=pvalid, return_carry=return_carry,
-        nz0=na["nonzero_req"].to(free0.dtype) if return_carry else None,
-        scoring_req=pa["scoring_req"] if return_carry else None,
-        inb=inb,
-    )
+    kw, score, inb = solve_inputs(na, pa, ids, pb, carry, config, term_kinds, return_carry, track_inbatch, ea=ea,
+                                  ta=ta, au=au, xa=xa, n_buckets=n_buckets, arbiter_inputs=arbiter_inputs)
+    result = solve_greedy(**kw, key=key, deterministic=deterministic, return_carry=return_carry, inb=inb)
     if return_carry:
         assign, carry_out = result
         return assign, score, carry_out
@@ -322,24 +337,9 @@ def solve_pipeline_gang(
     with return_carry. Members of dropped groups come back -1 with gang_ok
     False, their capacity released to the other pods of pass 2. No in-batch
     tracking and no arbiter inputs, as in the reference."""
-    _check_term_kinds(term_kinds)
-    na = apply_carry(na, carry)
-    mask, score = mask_and_score(na, pa, ids, config, term_kinds, ea=ea, ta=ta, au=au, xa=xa, n_buckets=n_buckets)
-    free0 = na["alloc"] - na["requested"]
-    if pb is None:
-        sig, pvalid, prio = None, pa["valid"], pa["priority"]
-    else:
-        sig, pvalid, prio = pb["sig"], pb["valid"], pb["priority"]
-    b = pvalid.shape[0]
-    order = pop_order(prio, torch.arange(b, dtype=torch.int32, device=pvalid.device), pvalid)
-    result = solve_gang(
-        mask, score, pa["req"], free0,
-        na["pod_count"].to(free0.dtype), na["allowed_pods"].to(free0.dtype),
-        order, group, key, deterministic=deterministic, req_any=pa["req_any"],
-        sig=sig, pod_valid=pvalid, return_carry=return_carry,
-        nz0=na["nonzero_req"].to(free0.dtype) if return_carry else None,
-        scoring_req=pa["scoring_req"] if return_carry else None,
-    )
+    kw, score, _ = solve_inputs(na, pa, ids, pb, carry, config, term_kinds, return_carry, False, ea=ea, ta=ta,
+                                au=au, xa=xa, n_buckets=n_buckets, arbiter_inputs=None)
+    result = solve_gang(**kw, group=group, key=key, deterministic=deterministic, return_carry=return_carry)
     if return_carry:
         assign, gang_ok, carry_out = result
         return assign, score, gang_ok, carry_out

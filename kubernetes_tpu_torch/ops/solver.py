@@ -16,11 +16,13 @@ applied within the batch).
   stops a round at the first pod whose anti/port mask an earlier
   candidate commit of the round could change.
 * On CUDA tensors `solve_greedy` launches `csrc/solver.cu`, the sequential
-  walk that the chunked scan provably equals (solver.py:110-126, :144-149).
+  walk that the chunked scan provably equals (solver.py:110-126, :144-149),
+  as a thread-block cluster of one CTA (parallel/sharded.py launches the
+  same kernel with one CTA a node shard).
 * `solve_gang` is the reference's all-or-nothing gang solve: two greedy
   passes, with the two halves of `jax.random.split(key)` (`prng_split`),
   around a group-fail segment max; on CUDA tensors one launch of
-  `csrc/solver.cu`'s gang kernel walks both passes.
+  `csrc/solver.cu`'s gang mode walks both passes.
 """
 
 from __future__ import annotations
@@ -146,7 +148,7 @@ def _inb_state(inb, U: int, N: int, dev):
     tt = t_anti.shape[0]
     return dict(
         t_anti=t_anti, t_owner=inb["owner"], m_bb=inb["m_bb"] & t_anti[:, None],
-        bucket_n=bucket_n.long(), haskey_n=haskey_n, pconf=inb["port_conflict"], V=v, TT=tt,
+        bucket_n=bucket_n.long(), haskey_n=haskey_n, pconf=inb["port_conflict"], V=v, TT=tt, U=U, N=N,
         ca=torch.zeros((tt, v), dtype=torch.int32, device=dev),
         cb=torch.zeros((tt, v), dtype=torch.int32, device=dev),
         cs=torch.zeros((U, N), dtype=torch.int32, device=dev),
@@ -169,17 +171,21 @@ def _scatter_min_rows(rows: int, width: int, idx: torch.Tensor, vals: torch.Tens
     return out[:, :width]
 
 
-def _inb_block(st, sg, own_t, cand_ok, cand, jrange, K):
+def _inb_block(st, sg, own_t, cand_ok, cand, jrange, K, bK=None, hkK=None):
     """The reference's pairwise commit barrier: [K] bool, pod j must not
     commit this round because an earlier candidate commit i of the round
     contributes to a ca/cb row j reads at the same topology bucket, or
     port-conflicts j's spec on j's chosen node. A bucket >= V reads as no
     contributor (the reference's int32 fill value would block the round's
-    first pod forever: the driver sizes V so that no bucket reaches it)."""
+    first pod forever: the driver sizes V so that no bucket reaches it).
+    `bK` / `hkK` [TT, K]: each candidate's bucket and has-key bit where the
+    caller already has them (the sharded solve broadcasts them from the
+    owner shard), else read here."""
     tt, v = st["TT"], st["V"]
     cidx3 = torch.where(cand_ok, cand, 0).long()
-    bK = st["bucket_n"][:, cidx3]  # [TT, K] bucket of each choice
-    hkK = st["haskey_n"][:, cidx3] & cand_ok[None, :]
+    if bK is None:
+        bK = st["bucket_n"][:, cidx3]  # [TT, K] bucket of each choice
+        hkK = st["haskey_n"][:, cidx3] & cand_ok[None, :]
     own_kt = own_t & hkK  # j reads ca[t, bK]
     contrib = st["m_bb"][:, sg] & hkK  # i bumps ca[t, bK]
     idxK = jrange[None, :].expand(tt, K)
@@ -192,7 +198,7 @@ def _inb_block(st, sg, own_t, cand_ok, cand, jrange, K):
     block_b = (contrib & (g_own < jrange[None, :])).any(dim=0)
     # ports: the earliest candidate per (spec, node); j is blocked when a
     # port-conflicting spec has an earlier candidate on j's chosen node
-    u, n = st["cs"].shape
+    u, n = st["U"], st["N"]
     flat = torch.where(cand_ok, sg * n + cidx3, u * n)
     mi_sn = torch.full((u * n + 1,), K, dtype=torch.int64, device=sg.device)
     mi_sn.scatter_reduce_(0, flat, torch.where(cand_ok, jrange, K), reduce="amin")
@@ -201,20 +207,27 @@ def _inb_block(st, sg, own_t, cand_ok, cand, jrange, K):
     return cand_ok & (block_a | block_b | block_p)
 
 
-def _inb_record(st, sg, own_t, commit, cand):
+def _inb_record(st, sg, own_t, commit, cand, bcand=None, hk=None):
     """Count this round's commits into the in-batch tables: ca per term a
     committed pod matches, cb per term it owns (per topology bucket of its
-    node), cs per (spec, node); a bucket >= V is dropped."""
+    node), cs per (spec, node); a bucket >= V is dropped. With `bcand` /
+    `hk` [TT, K] (the commits' buckets and has-key bits, broadcast by the
+    sharded solve) only ca and cb are counted: cs is shard-local there."""
     tt, v = st["TT"], st["V"]
     cidx2 = torch.where(commit, cand, 0).long()
-    bcand = st["bucket_n"][:, cidx2]  # [TT, K]
-    hk = st["haskey_n"][:, cidx2] & commit[None, :] & (bcand < v)
+    count_cs = bcand is None
+    if count_cs:
+        bcand = st["bucket_n"][:, cidx2]  # [TT, K]
+        hk = st["haskey_n"][:, cidx2] & commit[None, :]
+    hk = hk & (bcand < v)
     rows = torch.arange(tt, device=sg.device)[:, None] * (v + 1)
     for table, sel in ((st["ca"], st["m_bb"][:, sg] & hk), (st["cb"], own_t & hk)):
         flat = (rows + torch.where(sel, bcand, v)).flatten()
         acc = torch.zeros(tt * (v + 1), dtype=torch.int32, device=sg.device)
         acc.index_add_(0, flat, torch.ones_like(flat, dtype=torch.int32))
         table += acc.view(tt, v + 1)[:, :v]
+    if not count_cs:
+        return
     u, n = st["cs"].shape
     flat = torch.where(commit, sg * n + cidx2, u * n)
     acc = torch.zeros(u * n + 1, dtype=torch.int32, device=sg.device)
@@ -346,9 +359,10 @@ MAX_KERNEL_RESOURCES = 32  # csrc/solver.cu stages one request row in shared mem
 MAX_TRACK_LIST_BYTES = 200 * 1024
 
 
-def _track_args(args: SolveArgs, inb, U: int, N: int, dev) -> dict:
+def _track_args(args: SolveArgs, inb, U: int, N: int, dev, replicas: int = 1) -> dict:
     """Point the solve struct at the in-batch tables; returns the tensors
-    it must keep alive (the zeroed commit tables included)."""
+    it must keep alive (the zeroed commit tables included). `replicas`:
+    copies of ca / cb, one per shard of the sharded solve."""
     tt = inb["anti"].shape[0]
     n, k = inb["label_dense"].shape
     v = int(inb["n_buckets"])
@@ -356,8 +370,8 @@ def _track_args(args: SolveArgs, inb, U: int, N: int, dev) -> dict:
         raise ValueError(f"{tt} term rows and {U} spec rows exceed the solve kernel's shared lists")
     keep = dict(
         owner=inb["owner"].to(torch.int32).contiguous(),
-        ca=torch.zeros((tt, v), dtype=torch.int32, device=dev),
-        cb=torch.zeros((tt, v), dtype=torch.int32, device=dev),
+        ca=torch.zeros((replicas * tt, v), dtype=torch.int32, device=dev),
+        cb=torch.zeros((replicas * tt, v), dtype=torch.int32, device=dev),
         cs=torch.zeros((U, N), dtype=torch.int32, device=dev),
     )
     args.t_anti = build.ptr(inb["anti"], torch.bool, (tt,))
@@ -373,10 +387,12 @@ def _track_args(args: SolveArgs, inb, U: int, N: int, dev) -> dict:
     return keep
 
 
-def _solve_greedy_cuda(
-    mask, score, req, free0, count0, allowed, order, key, deterministic,
-    req_any, sig, pod_valid, return_carry, nz0, scoring_req, inb=None,
-):
+def walk_args(mask, score, req, free0, count0, allowed, order, deterministic, req_any, sig, pod_valid, nz0,
+              scoring_req) -> tuple:
+    """The walk part of csrc/solver.cu's struct over these CUDA tensors:
+    (SolveArgs, the [B] int32 assignment it writes, and the (free, count,
+    nz) carry it updates in place: int64 copies of free0 / count0 / nz0).
+    The struct holds what it points at in `.keepalive`."""
     U, N = mask.shape
     R = req.shape[1]
     if R > MAX_KERNEL_RESOURCES:
@@ -408,17 +424,94 @@ def _solve_greedy_cuda(
         nz=build.ptr(nz, torch.int64, (N, 2)),
         assign=build.ptr(out, torch.int32, (B,)),
         U=U, N=N, R=R, B=B,
-        seed=noise_seed(key),
         deterministic=1 if deterministic else 0,
     )
-    if inb is not None:
-        args.keepalive = _track_args(args, inb, U, N, mask.device)
-    build.launch("ktpu_solve_greedy", args, mask.device)
+    args.keepalive = (allowed64, order64, sig32, req_any, pod_valid, scoring_req)
+    return args, out, (free, count, nz)
+
+
+SOLVE_ENTRY = "ktpu_solve"
+
+
+class ClusterSolveArgs(ctypes.Structure):
+    """Mirror of `struct ClusterSolveArgs` in csrc/solver.cu."""
+
+    _fields_ = [
+        ("walk", SolveArgs), ("S", ctypes.c_int32), ("Nl", ctypes.c_int32), ("gang", ctypes.c_int32),
+        ("group", ctypes.c_void_p), ("first", ctypes.c_void_p), ("fail", ctypes.c_void_p),
+        ("alive", ctypes.c_void_p), ("gang_ok", ctypes.c_void_p), ("free1", ctypes.c_void_p),
+        ("count1", ctypes.c_void_p), ("nz1", ctypes.c_void_p), ("seed1", ctypes.c_uint32),
+        ("seed2", ctypes.c_uint32),
+    ]
+
+
+def solve_args(mask, score, req, free0, count0, allowed, order, key, deterministic, req_any, sig, pod_valid, nz0,
+               scoring_req, shards: int = 1, inb=None, group=None) -> tuple:
+    """csrc/solver.cu's struct for these CUDA tensors, one cluster of
+    `shards` CTAs (1 on one device, one a node shard on a mesh; N must be
+    a multiple of it): (ClusterSolveArgs, the [B] int32 assignment, the
+    (free, count, nz) carry it updates in place, gang_ok or None). With
+    `group` the two-pass gang mode (no tracking): pass 1 walks a scratch
+    copy of the carry, pass 2 the returned one, both from free0 / count0 /
+    nz0. The struct holds what it points at in `.keepalive`."""
+    walk, out, carry = walk_args(mask, score, req, free0, count0, allowed, order, deterministic, req_any, sig,
+                                 pod_valid, nz0, scoring_req)
+    U, N = mask.shape
+    dev = mask.device
+    if group is None:
+        walk.seed = noise_seed(key)
+        if inb is not None:
+            walk.tracked = _track_args(walk, inb, U, N, dev, replicas=shards)
+        args = ClusterSolveArgs(walk=walk, S=shards, Nl=N // shards, gang=0)
+        args.keepalive = walk
+        return args, out, carry, None
+    R = req.shape[1]
+    B = order.shape[0]
+    free1, count1, nz1 = (c.clone() for c in carry)
+    group32 = group.to(torch.int32).contiguous()
+    first = torch.empty((shards * B,), dtype=torch.int32, device=dev)  # a replica a CTA
+    fail = torch.empty((shards * B,), dtype=torch.int32, device=dev)  # zeroed by the kernel
+    alive = torch.empty((shards * B,), dtype=torch.bool, device=dev)
+    gang_ok = torch.empty((B,), dtype=torch.bool, device=dev)
+    k1, k2 = prng_split(key)
+    args = ClusterSolveArgs(
+        walk=walk, S=shards, Nl=N // shards, gang=1,
+        group=build.ptr(group32, torch.int32, (B,)),
+        first=build.ptr(first, torch.int32),
+        fail=build.ptr(fail, torch.int32),
+        alive=build.ptr(alive, torch.bool),
+        gang_ok=build.ptr(gang_ok, torch.bool, (B,)),
+        free1=build.ptr(free1, torch.int64, (N, R)),
+        count1=build.ptr(count1, torch.int64, (N,)),
+        nz1=build.ptr(nz1, torch.int64, (N, 2)),
+        seed1=noise_seed(k1), seed2=noise_seed(k2),
+    )
+    args.keepalive = (walk, group32, first, fail, alive, free1, count1, nz1)
+    return args, out, carry, gang_ok
+
+
+def launch_solve(args: ClusterSolveArgs, dev) -> None:
+    """Launch csrc/solver.cu as one cluster of `args.S` CTAs. More than
+    build.MAX_CLUSTER CTAs, or a cluster the card cannot co-schedule,
+    raises."""
+    w = args.walk
+    smem = (2 * w.TT + w.U) * 4 if w.track else 0
+    build.check_clusters(SOLVE_ENTRY, args, (smem,))
+    build.launch(SOLVE_ENTRY, args, dev)
+
+
+def _solve_greedy_cuda(
+    mask, score, req, free0, count0, allowed, order, key, deterministic,
+    req_any, sig, pod_valid, return_carry, nz0, scoring_req, inb=None,
+):
+    args, out, carry, _ = solve_args(mask, score, req, free0, count0, allowed, order, key, deterministic, req_any,
+                                     sig, pod_valid, nz0, scoring_req, inb=inb)
+    launch_solve(args, mask.device)
     solve_greedy.launches += 1
     if inb is not None:
         solve_greedy.tracked_launches += 1
     if return_carry:
-        return out, (free, count, nz)
+        return out, carry
     return out
 
 
@@ -443,8 +536,8 @@ def solve_greedy(
     """Greedy-by-priority batch assignment → node row per pod (-1 = no
     fit), plus the post-batch (free, count, nz) carry with return_carry.
     CPU tensors run the plain chunked version; CUDA tensors launch
-    csrc/solver.cu (counted in `solve_greedy.launches`, and those with
-    tracking also in `solve_greedy.tracked_launches`).
+    csrc/solver.cu, one CTA (counted in `solve_greedy.launches`, and those
+    with tracking also in `solve_greedy.tracked_launches`).
 
     `inb` (ops/pipeline._inbatch_tensors) turns on the in-batch tracking:
     a pod may not take a node sharing a topology bucket with an earlier
@@ -474,9 +567,6 @@ solve_greedy.tracked_launches = 0
 
 
 # --- all-or-nothing gang solve ----------------------------------------------
-
-GANG_ENTRY = "ktpu_solve_gang"
-
 
 def check_group_ids(group: torch.Tensor, b: int) -> None:
     """Every group id must lie in [-1, B): the segment max over group ids
@@ -525,80 +615,16 @@ def solve_gang_plain(
     return assign, ~dropped
 
 
-class GangArgs(ctypes.Structure):
-    """Mirror of `struct GangArgs` in csrc/solver.cu."""
-
-    _fields_ = [
-        ("walk", SolveArgs), ("group", ctypes.c_void_p), ("first", ctypes.c_void_p),
-        ("free1", ctypes.c_void_p), ("count1", ctypes.c_void_p), ("nz1", ctypes.c_void_p),
-        ("fail", ctypes.c_void_p), ("alive", ctypes.c_void_p), ("gang_ok", ctypes.c_void_p),
-        ("seed1", ctypes.c_uint32), ("seed2", ctypes.c_uint32),
-    ]
-
-
 def _solve_gang_cuda(
     mask, score, req, free0, count0, allowed, order, group, key, deterministic,
     req_any, sig, pod_valid, return_carry, nz0, scoring_req,
 ):
-    U, N = mask.shape
-    R = req.shape[1]
-    if R > MAX_KERNEL_RESOURCES:
-        raise ValueError(f"the solve kernel takes at most {MAX_KERNEL_RESOURCES} resource slots, got {R}")
-    req_any, sig, pod_valid, nz0, scoring_req = _defaults(
-        mask, req, order, req_any, sig, pod_valid, nz0, scoring_req, free0
-    )
-    B = order.shape[0]
-    dev = mask.device
-    # pass 1 walks a scratch copy of the carry, pass 2 the returned one:
-    # both start from free0 / count0 / nz0
-    free0 = free0.to(torch.int64).contiguous()
-    count0 = count0.to(torch.int64).contiguous()
-    nz0 = nz0.to(torch.int64).contiguous()
-    free, count, nz = free0.clone(), count0.clone(), nz0.clone()
-    free1, count1, nz1 = free0.clone(), count0.clone(), nz0.clone()
-    allowed64 = allowed.to(torch.int64).contiguous()
-    order64 = order.to(torch.int64).contiguous()
-    sig32 = sig.to(torch.int32).contiguous()
-    group32 = group.to(torch.int32).contiguous()
-    out = torch.empty((B,), dtype=torch.int32, device=dev)
-    first = torch.empty((B,), dtype=torch.int32, device=dev)
-    fail = torch.empty((B,), dtype=torch.int32, device=dev)  # zeroed by the kernel
-    alive = torch.empty((B,), dtype=torch.bool, device=dev)
-    gang_ok = torch.empty((B,), dtype=torch.bool, device=dev)
-    k1, k2 = prng_split(key)
-    walk = SolveArgs(
-        mask=build.ptr(mask, torch.bool, (U, N)),
-        score=build.ptr(score, torch.int64, (U, N)),
-        req=build.ptr(req, torch.int64, (U, R)),
-        req_any=build.ptr(req_any, torch.bool, (U,)),
-        scoring_req=build.ptr(scoring_req, torch.int64, (U, 2)),
-        allowed=build.ptr(allowed64, torch.int64, (N,)),
-        order=build.ptr(order64, torch.int64, (B,)),
-        sig=build.ptr(sig32, torch.int32, (B,)),
-        pod_valid=build.ptr(pod_valid, torch.bool, (B,)),
-        free=build.ptr(free, torch.int64, (N, R)),
-        count=build.ptr(count, torch.int64, (N,)),
-        nz=build.ptr(nz, torch.int64, (N, 2)),
-        assign=build.ptr(out, torch.int32, (B,)),
-        U=U, N=N, R=R, B=B,
-        deterministic=1 if deterministic else 0,
-    )
-    args = GangArgs(
-        walk=walk,
-        group=build.ptr(group32, torch.int32, (B,)),
-        first=build.ptr(first, torch.int32, (B,)),
-        free1=build.ptr(free1, torch.int64, (N, R)),
-        count1=build.ptr(count1, torch.int64, (N,)),
-        nz1=build.ptr(nz1, torch.int64, (N, 2)),
-        fail=build.ptr(fail, torch.int32, (B,)),
-        alive=build.ptr(alive, torch.bool, (B,)),
-        gang_ok=build.ptr(gang_ok, torch.bool, (B,)),
-        seed1=noise_seed(k1), seed2=noise_seed(k2),
-    )
-    build.launch(GANG_ENTRY, args, dev)
+    args, out, carry, gang_ok = solve_args(mask, score, req, free0, count0, allowed, order, key, deterministic,
+                                           req_any, sig, pod_valid, nz0, scoring_req, group=group)
+    launch_solve(args, mask.device)
     solve_gang.launches += 1
     if return_carry:
-        return out, gang_ok, (free, count, nz)
+        return out, gang_ok, carry
     return out, gang_ok
 
 
@@ -627,7 +653,7 @@ def solve_gang(
     gang_ok [B] bool), plus pass 2's (free, count, nz) carry with
     return_carry. No in-batch tracking, as in the reference. Group ids are
     checked on the host first. CPU tensors run the plain version; CUDA
-    tensors launch csrc/solver.cu's solve_gang_kernel, both passes in one
+    tensors launch csrc/solver.cu's gang mode, one CTA, both passes in one
     launch (counted in `solve_gang.launches`)."""
     check_group_ids(group, order.shape[0])
     dev = mask.device

@@ -131,6 +131,8 @@ from ..ops.fold import fold_usage
 from ..ops.pipeline import SolveConfig, gather_score_rows, solve_pipeline, solve_pipeline_gang
 from ..ops.solver import prng_key_data
 from ..oracle.nodeinfo import accumulated_request
+from ..parallel.mesh import indexed_device, node_shards
+from ..parallel.sharded import make_sharded_pipeline
 from ..oracle.predicates import (
     SnapshotAffinityIndex,
     compute_predicate_metadata,
@@ -442,7 +444,9 @@ def _term_kind_names(present, any_sel_spread: bool, etb) -> frozenset:
 
 
 class Scheduler:
-    """The batch driver on one device: the card unless `device="cpu"`."""
+    """The batch driver on one device: the card unless `device="cpu"`, or
+    the device of `mesh` (parallel.node_mesh: the node axis split over
+    shards of that device)."""
 
     def __init__(
         self,
@@ -465,10 +469,11 @@ class Scheduler:
         extenders: Optional[List] = None,
         volume_checker: Optional[Callable] = None,
         volume_binder=None,
+        mesh=None,
     ):
         if volume_checker is not None or volume_binder is not None:
             raise NotImplementedError(f"Scheduler(volume_checker=..., volume_binder=...): {_VOLUME_SEAM}")
-        self.device = resolve_device(device)
+        self.device = resolve_device(device if device is not None or mesh is None else mesh.device)
         # the arbiter's verdicts for DoNotSchedule batches and the commits
         # folded into the device banks (the reference's commit and fold
         # planes, which it turns on together by default)
@@ -499,6 +504,21 @@ class Scheduler:
         self.delete_fn = delete_fn
         self.nominate_fn = nominate_fn
         self.mirror = TensorMirror(self.cache, self.device)
+        # a node mesh (parallel.node_mesh) routes every solve, gang solve
+        # and arbiter scan through the sharded programs (node columns and
+        # residuals shard-local), and the mirror folds through the sharded
+        # folds (ref :552-565)
+        self.mesh = mesh
+        self._sharded = None
+        self._mesh_shards = 0
+        if mesh is not None:
+            if indexed_device(mesh.device) != indexed_device(self.device):
+                raise ValueError(f"the mesh lies on {mesh.device}, the scheduler on {self.device}")
+            self._sharded = make_sharded_pipeline(mesh)
+            self._mesh_shards = node_shards(mesh)
+            self.mirror.set_mesh(mesh)
+        # logged once on each change into the indivisible-capacity fallback
+        self._sharded_fallback_logged = False
         # the ingest plane: pod rows staged at admission into a slab whose
         # twin lives on the device; covered dispatches gather the pod arrays
         # there from an index vector (ref :710-726)
@@ -584,7 +604,7 @@ class Scheduler:
             "ingest_index_batches": 0, "ingest_legacy_batches": 0, "ingest_stale_rows": 0, "ingest_restaged": 0,
             "stage_sync_flushes": 0, "stage_s": 0.0,
             "term_index_batches": 0, "term_legacy_batches": 0, "term_stale_rows": 0, "term_restaged": 0,
-            "term_sync_flushes": 0, "term_gather_s": 0.0,
+            "term_sync_flushes": 0, "term_gather_s": 0.0, "sharded_fallbacks": 0,
         }
 
     def set_spread_selectors_fn(self, fn: Callable[[Pod], list]) -> None:
@@ -912,6 +932,7 @@ class Scheduler:
         nom_adds = self.queue.nomination_adds
         if self.queue.has_nominations():
             na = self._nominee_overlay(na, pods)
+        use_sharded = self._use_sharded()
         solved: Dict = {}
         gang_ok = None
         if is_gang:
@@ -922,13 +943,15 @@ class Scheduler:
             for i, g in enumerate(groups):
                 if g:
                     garr[i] = gid.setdefault(g, len(gid))
-            assign, score, gang_ok = solve_pipeline_gang(
+            gang_fn = self._sharded.gang if use_sharded else solve_pipeline_gang
+            assign, score, gang_ok = gang_fn(
                 na, pa, self._ids, key, arrays_to_torch({"group": garr}, self.device)["group"], pb=pbt,
                 deterministic=self.deterministic, config=self.solve_config, term_kinds=self._term_kinds,
                 ea=ea, ta=ta, au=au, xa=xa, n_buckets=self._v_bucket,
             )
         else:
-            assign, score = solve_pipeline(
+            solve_fn = self._sharded if use_sharded else solve_pipeline
+            assign, score = solve_fn(
                 na, pa, self._ids, key, pb=pbt, deterministic=self.deterministic,
                 config=self.solve_config, term_kinds=self._term_kinds,
                 track_inbatch=self._track_inbatch,
@@ -942,7 +965,8 @@ class Scheduler:
         verdict = None
         if (self.commit_plane and not is_gang and kinds_covered(batch_kinds) and self._commit_plane_statics_ok()
                 and any(lv != RECHECK_NONE for lv in levels)):
-            verdict = arbitrate(na, pa, ea, ta, self._ids, assign, pbt,
+            arb_fn = self._sharded.arbitrate if use_sharded else arbitrate
+            verdict = arb_fn(na, pa, ea, ta, self._ids, assign, pbt,
                                 term_kinds=self._term_kinds, n_buckets=self._v_bucket, inputs=solved)
         assign_l = assign.cpu().numpy()[: len(pods)].tolist()
         verdicts = None if verdict is None else verdict.cpu().numpy()[: len(pods)].tolist()
@@ -968,6 +992,32 @@ class Scheduler:
             gang_ok=gang_ok_l,
         )
         return out
+
+    def _shards_now(self) -> int:
+        """The shard count the next dispatch partitions the nodes over: the
+        mesh's when the node capacity divides into it, else 0 (the
+        single-device fallback: a small cluster on a large mesh; ref
+        :1046)."""
+        if self._sharded is None or self.mirror.nodes.capacity % self._mesh_shards != 0:
+            return 0
+        return self._mesh_shards
+
+    def _use_sharded(self) -> bool:
+        """Route this dispatch: the sharded programs on a mesh, unless the
+        capacity does not divide into its shards — the one legal way off
+        them, counted in stats["sharded_fallbacks"] and warned about once
+        per entry into it (ref :1817-1845)."""
+        use = self._shards_now() > 0
+        if self._sharded is not None and not use:
+            self.stats["sharded_fallbacks"] += 1
+            if not self._sharded_fallback_logged:
+                self._sharded_fallback_logged = True
+                _log.warning("sharded solve FALLBACK: node capacity %d not divisible by %d mesh shards; "
+                             "dispatching the single-device pipeline until the bucket grows",
+                             self.mirror.nodes.capacity, self._mesh_shards)
+        elif use:
+            self._sharded_fallback_logged = False
+        return use
 
     def _commit_plane_statics_ok(self) -> bool:
         """The deployment-static precondition of the bulk path and the

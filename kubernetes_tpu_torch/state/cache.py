@@ -58,6 +58,21 @@ from .tensors import (
 # add/remove ship these three arrays instead of the whole row
 USAGE_KEYS = ("requested", "nonzero_req", "pod_count")
 
+#: shipped-byte kinds whose payloads are predominantly node-major bank rows:
+#: on a node mesh each shard holds 1/shards of them; everything else (fold
+#: control arrays) is replicated to every shard in full (ref :69)
+NODE_MAJOR_SHIP_KINDS = frozenset({"full", "rows", "usage", "warm"})
+
+
+def per_shard_bytes(shipped: Dict[str, int], shards: int) -> Dict[str, int]:
+    """The per-shard view of a {kind: bytes} shipping ledger (ref :75):
+    node-major kinds split over the shards, the rest replicated. An
+    approximation, as the reference's: the node-major kinds also carry
+    small replicated metadata."""
+    if not shards:
+        return dict(shipped)
+    return {k: (v // shards if k in NODE_MAJOR_SHIP_KINDS else v) for k, v in shipped.items()}
+
 
 @dataclass
 class _PodState:
@@ -314,6 +329,9 @@ class TensorMirror:
         # (rows, vecs, cnt) tensors of the nominee overlay now added onto
         # the resident usage columns, or None
         self._nominee_overlay: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
+        # the node mesh the banks are split over (set_mesh) and its folds
+        self._mesh = None
+        self._sharded_folds = None
         self.rows_shipped = 0  # node rows patched into the device copy
         self._rebuild()
 
@@ -580,10 +598,42 @@ class TensorMirror:
 
     # -- the fold plane (ops/fold, commit/fold) ------------------------------
 
+    def set_mesh(self, mesh) -> None:
+        """Split the device banks over `mesh`'s node shards (ref :1239):
+        shard s owns rows [s * Nl, (s + 1) * Nl) of each node-major tensor,
+        which on one card stays one tensor. Commit folds and the nominee
+        overlay then go through the sharded folds
+        (ops/fold.make_sharded_fold_fns)."""
+        self._mesh = mesh
+        self._sharded_folds = None  # rebuilt for the new mesh on demand
+        self.mark_device_stale()
+
     def can_fold(self) -> bool:
         """The device banks are resident and current-shaped: a commit fold
-        may scatter into them."""
-        return self._dev is not None and not self._device_stale
+        may scatter into them. On a mesh, only while the node capacity
+        divides into its shards, the sharded solve's own rule (ref :1578);
+        otherwise the host patches the rows."""
+        if self._dev is None or self._device_stale:
+            return False
+        if self._mesh is None:
+            return True
+        from ..parallel.mesh import node_shards
+
+        shards = node_shards(self._mesh)
+        return shards > 0 and self.nodes.capacity % shards == 0
+
+    def _fold_fns(self):
+        """(commit fold, usage fold) for the banks' layout: the
+        single-device kernels, or the mesh's sharded twins (ref :1592)."""
+        if self._mesh is None:
+            from ..ops.fold import fold_commit_banks, fold_usage
+
+            return fold_commit_banks, fold_usage
+        if self._sharded_folds is None:
+            from ..ops.fold import make_sharded_fold_fns
+
+            self._sharded_folds = make_sharded_fold_fns(self._mesh)
+        return self._sharded_folds
 
     def mark_device_stale(self) -> None:
         """Re-upload the full banks from host truth at the next
@@ -599,8 +649,6 @@ class TensorMirror:
         not resident (the caller's assumes then ship as pending rows). A
         kernel that fails to launch raises; the banks are then marked
         stale (a partial fold never survives an upload)."""
-        from ..ops.fold import fold_commit_banks
-
         if not self.can_fold():
             return False
         self.unfold_nominees()
@@ -609,6 +657,7 @@ class TensorMirror:
             "rows": prog.rows, "req": prog.req, "nz": prog.nz, "cnt": prog.cnt, "sig": prog.sig,
             "pat_row": prog.pat_row, "pat_col": prog.pat_col, "pat_cnt": prog.pat_cnt,
         }, self.device)
+        fold_commit_banks, _ = self._fold_fns()
         try:
             fold_commit_banks(n["requested"], n["nonzero_req"], n["pod_count"], e["counts"], p["counts"], **ctl)
         except Exception:
@@ -631,8 +680,7 @@ class TensorMirror:
         of range add nothing. Returns the node
         bank (the same tensors device_arrays() returned). A kernel that
         fails marks the banks stale (host wins) and raises."""
-        from ..ops.fold import fold_usage
-
+        _, fold_usage = self._fold_fns()
         self.unfold_nominees()
         n = self._dev
         ov = tuple(arrays_to_torch({"rows": rows, "vecs": vecs, "cnt": cnt}, self.device).values())
@@ -649,14 +697,13 @@ class TensorMirror:
         (negated vectors and counts: integer adds invert exactly). Every
         other consumer of the resident banks calls this first (the
         reference's `_restore_nominees`)."""
-        from ..ops.fold import fold_usage
-
         ov = self._nominee_overlay
         if ov is None:
             return
         self._nominee_overlay = None
         rows, vecs, cnt = ov
         n = self._dev
+        _, fold_usage = self._fold_fns()
         try:
             fold_usage(n["requested"], n["pod_count"], rows, -vecs, -cnt)
         except Exception:

@@ -4,7 +4,7 @@
     python3 scripts/torch_drain_profile.py [--config 2|3|3-hard|4|5|6] [--services]
         [--policy default|rtcr] [--nodes N] [--pods P] [--batch 4096]
         [--runs plain,sampled,traced] [--out chiprun_out/drain_profile]
-        [--ab PAIRS] [--ab-of commit|stage]
+        [--ab PAIRS] [--ab-of commit|stage] [--mesh S]
 
 Drives a drain of chip_smoke.py phase 5 (kubernetes_tpu_torch's Scheduler,
 tie-noise on, every plane on — the pods admitted to the running scheduler,
@@ -57,6 +57,13 @@ and reports each run's pods/s and stages, the medians and each side's
 lowest and highest pods/s, instead of the three runs above. Every run
 prints the planes' counters (gathered and legacy batches, restages, dirty
 flushes) beside the stage seconds.
+
+With `--mesh S` every drain runs on a node mesh of S shards of the card
+(`Scheduler(mesh=parallel.node_mesh(S))`: the solve and arbiter of
+csrc/solver.cu and csrc/arbiter.cu as clusters of S CTAs, and the sharded
+folds of csrc/fold.cu), and the traced run is made
+twice, on one device and on the mesh, so the two device splits (idle
+share, busy time per kernel) stand side by side.
 
 Prints one JSON object as the last line of its output and writes the full
 summary to --out/summary.json (--out/ab.json with --ab). Exits non-zero
@@ -171,7 +178,7 @@ RTCR_POLICY = {
 
 
 def drain(config: str, services: bool, policy: str, n_nodes: int, n_pods: int, batch: int,
-          around=contextlib.nullcontext, planes: bool = True, stage_planes: bool = True):
+          around=contextlib.nullcontext, planes: bool = True, stage_planes: bool = True, mesh: int = 0):
     from kubernetes_tpu_torch.models.clusters import (
         bench_config2,
         bench_config3,
@@ -180,6 +187,7 @@ def drain(config: str, services: bool, policy: str, n_nodes: int, n_pods: int, b
         bench_config6,
         fill_cache,
     )
+    from kubernetes_tpu_torch.parallel import node_mesh
     from kubernetes_tpu_torch.scheduler.driver import Scheduler
     from kubernetes_tpu_torch.state.cache import SchedulerCache
     from kubernetes_tpu_torch.state.queue import PriorityQueue
@@ -199,7 +207,7 @@ def drain(config: str, services: bool, policy: str, n_nodes: int, n_pods: int, b
     cache, queue = SchedulerCache(), PriorityQueue()
     fill_cache(cache, nodes, existing)
     kw = dict(batch_size=batch, deterministic=False, seed=0, device="cuda", commit_plane=planes,
-              ingest_plane=stage_planes, term_plane=stage_planes)
+              ingest_plane=stage_planes, term_plane=stage_planes, mesh=node_mesh(mesh) if mesh else None)
     if policy == "rtcr":
         from kubernetes_tpu_torch.config import Configurator
 
@@ -398,6 +406,8 @@ def main() -> int:
                     help="run PAIRS alternating planes-on / planes-off drain pairs instead of the profile")
     ap.add_argument("--ab-of", choices=("commit", "stage"), default="commit",
                     help="which planes --ab turns off: the commit and fold planes, or the ingest and term planes")
+    ap.add_argument("--mesh", type=int, default=0, metavar="S",
+                    help="drain on a node mesh of S shards of the card; the traced run also on one device")
     args = ap.parse_args()
     cfg = args.config.split("-")[0]
     args.nodes = args.nodes or {"2": 5000, "3": 10000, "4": 2000, "5": 2000, "6": 500}[cfg]
@@ -413,25 +423,30 @@ def main() -> int:
                          stdout=subprocess.PIPE, text=True).stdout.strip()
     print(f"[profile] card: {smi}; config {args.config}{' + Services' if args.services else ''}"
           f"{' under the RTCR Policy' if args.policy == 'rtcr' else ''}, "
-          f"{args.nodes} nodes, {args.pods} pods, batch {args.batch}", flush=True)
+          f"{args.nodes} nodes, {args.pods} pods, batch {args.batch}"
+          f"{f', node mesh of {args.mesh} shards' if args.mesh else ''}", flush=True)
 
     if args.policy == "rtcr" and args.config != "2":
         ap.error("--policy rtcr drains config 2")
+    if args.mesh and (args.ab or args.policy != "default"):
+        ap.error("--mesh drains the default provider's profile runs")
     work = (args.config, args.services, args.policy)
     # builds + loads the kernels
-    drain(*work, args.nodes // 10, args.pods // (100 if args.config == "3-hard" else 10), args.batch // 4)
+    for mesh in sorted({0, args.mesh}):
+        drain(*work, args.nodes // 10, args.pods // (100 if args.config == "3-hard" else 10), args.batch // 4,
+              mesh=mesh)
     if args.ab:
         return ab(work, args, smi)
     summary = {"card": smi, "config": args.config, "services": args.services, "policy": args.policy,
                "nodes": args.nodes,
-               "pods": args.pods, "batch": args.batch}
+               "pods": args.pods, "batch": args.batch, "mesh": args.mesh}
     if "plain" in runs:
-        summary["plain"] = drain(*work, args.nodes, args.pods, args.batch)
+        summary["plain"] = drain(*work, args.nodes, args.pods, args.batch, mesh=args.mesh)
         print(f"[profile] plain: {json.dumps(summary['plain'])}", flush=True)
         print(plane_line("plain", summary["plain"]), flush=True)
     if "sampled" in runs:
         sampler = StackSampler(threading.get_ident())
-        sampled = drain(*work, args.nodes, args.pods, args.batch, lambda: sampler)
+        sampled = drain(*work, args.nodes, args.pods, args.batch, lambda: sampler, mesh=args.mesh)
         host = sampler.report()
         summary["sampled"] = {"run": sampled, **host}
         print(f"[profile] sampled: {json.dumps(sampled)}; {host['samples']} samples over "
@@ -441,7 +456,7 @@ def main() -> int:
             print(f"[profile]   stage {k}: {100 * v:.1f}% of the sampled time", flush=True)
         for k, v in host["top_leaves"].items():
             print(f"[profile]   leaf {k}: {100 * v:.1f}%", flush=True)
-    last = {"config": args.config, "services": args.services, "policy": args.policy}
+    last = {"config": args.config, "services": args.services, "policy": args.policy, "mesh": args.mesh}
     if "plain" in summary:
         last["plain_pods_per_s"] = summary["plain"]["pods_per_s"]
     if "traced" not in runs:
@@ -452,31 +467,41 @@ def main() -> int:
 
     from torch.profiler import ProfilerActivity, profile, record_function
 
-    tp = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+    def trace_one(mesh: int):
+        """One traced drain (on a mesh of `mesh` shards, or one device):
+        its run and the device split of its trace."""
+        tp = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
 
-    @contextlib.contextmanager
-    def traced():
-        with tp:
-            with record_function("drain"):
-                yield
+        @contextlib.contextmanager
+        def traced():
+            with tp:
+                with record_function("drain"):
+                    yield
 
-    traced_run = drain(*work, args.nodes, args.pods, args.batch, traced)
-    scratch = os.path.join(REPO, "build")
-    os.makedirs(scratch, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=scratch) as d:
-        trace = os.path.join(d, "drain_trace.json")
-        tp.export_chrome_trace(trace)
-        device = device_split(trace)
-    print(f"[profile] traced: {json.dumps(traced_run)}", flush=True)
-    print(plane_line("traced", traced_run), flush=True)
-    print(f"[profile]   device busy {device['busy_ms']:.3f} ms of a {device['window_ms']:.3f} ms window, "
-          f"idle share {device['idle_share']:.4f}, {device['device_events']} device events", flush=True)
-    for name, v in list(device["per_name"].items())[:12]:
-        print(f"[profile]   {v['busy_ms']:.3f} ms in {v['count']} x {name[:90]}", flush=True)
+        run = drain(*work, args.nodes, args.pods, args.batch, traced, mesh=mesh)
+        scratch = os.path.join(REPO, "build")
+        os.makedirs(scratch, exist_ok=True)
+        with tempfile.TemporaryDirectory(dir=scratch) as d:
+            trace = os.path.join(d, "drain_trace.json")
+            tp.export_chrome_trace(trace)
+            device = device_split(trace)
+        label = f"traced mesh {mesh}" if mesh else "traced"
+        print(f"[profile] {label}: {json.dumps(run)}", flush=True)
+        print(plane_line(label, run), flush=True)
+        print(f"[profile]   {label}: device busy {device['busy_ms']:.3f} ms of a {device['window_ms']:.3f} ms "
+              f"window, idle share {device['idle_share']:.4f}, {device['device_events']} device events", flush=True)
+        for name, v in list(device["per_name"].items())[:12]:
+            print(f"[profile]   {label}: {v['busy_ms']:.3f} ms in {v['count']} x {name[:90]}", flush=True)
+        return {"run": run, "device": device}
 
-    summary["traced"] = {"run": traced_run, "device": device}
+    if args.mesh:  # the single-device trace beside the mesh's
+        summary["traced_one_device"] = trace_one(0)
+    summary["traced"] = trace_one(args.mesh)
+    device = summary["traced"]["device"]
     with open(os.path.join(args.out, "summary.json"), "w") as f:
         json.dump(summary, f, indent=1)
+    if args.mesh:
+        last["one_device_idle_share"] = summary["traced_one_device"]["device"]["idle_share"]
     print(json.dumps({**last, "idle_share": device["idle_share"], "busy_ms": device["busy_ms"],
                       "window_ms": device["window_ms"]}), flush=True)
     return 0 if device["device_events"] else 1

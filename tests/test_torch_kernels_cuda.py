@@ -8,8 +8,11 @@ search, the nominee overlay's usage fold, the host oracle's score-row gather and
 the two-pass gang solve, and the ingest and term planes' slab gather and row
 scatter (and a small drain through both planes, cuda == cpu); the score
 kernel's RequestedToCapacityRatio branch (three shapes) and component
-mode (score_components), and the extender's filter_mask composition.
-Needs an NVIDIA card and nvcc:
+mode (score_components), and the extender's filter_mask composition; the
+node mesh's cluster launches (csrc/solver.cu's solve, tracked solve and
+gang mode, csrc/arbiter.cu's scan, csrc/fold.cu's sharded folds) at 1, 2, 4 and 8
+shards against their plain versions and the single-device kernels, and a
+16-CTA cluster run or refused. Needs an NVIDIA card and nvcc:
 
     python -m pytest -m cuda tests/test_torch_kernels_cuda.py
 
@@ -706,3 +709,161 @@ def test_planes_on_the_card_equal_the_cpu(cuda):
                                            launches)])
     assert out["cuda"][0] == out["cpu"][0] and len(out["cuda"][0]) == 2000
     assert all(n > 0 for n in out["cuda"][1]) and out["cpu"][1] == [0, 0, 0]
+
+
+# --- the node mesh's cluster kernels -------------------------------------------
+
+SHARDS = [1, 2, 4, 8]
+
+
+def _solve_case(cuda, seed, tracked):
+    """(args, kwargs) of a solve on a seeded cluster's mask and score: 640
+    pods over 150 or 200 spec rows, padding, three priorities; with
+    `tracked`, the inter-pod cluster and its in-batch tracking."""
+    if tracked:
+        na, ea, xa, ta, au, pa, ids = interpod_cluster(seed, cuda)
+        mask = F.combined_mask(na, pa, ids) & TO.interpod_filter(na, ea, ta, au, xa, pa, ("existing", "aff", "anti"),
+                                                                 n_buckets=256)
+        score = S.score_matrix(na, pa) + TO.interpod_score(na, ea, ta, xa, pa, n_buckets=256)
+    else:
+        na, pa, ids = cluster(seed, cuda)
+        mask, score = F.combined_mask(na, pa, ids), S.score_matrix(na, pa)
+    b = 640
+    pod_valid = torch.arange(b, device=cuda) < b - 40
+    order = SO.pop_order((torch.arange(b, device=cuda) % 3).to(torch.int32),
+                         torch.arange(b, dtype=torch.int32, device=cuda), pod_valid)
+    args = (mask, score, pa["req"], na["alloc"] - na["requested"], na["pod_count"].long(),
+            na["allowed_pods"].long(), order)
+    kw = dict(req_any=pa["req_any"], sig=(torch.arange(b, device=cuda) % (150 if tracked else 200)).to(torch.int32),
+              pod_valid=pod_valid, return_carry=True, nz0=na["nonzero_req"], scoring_req=pa["scoring_req"])
+    if tracked:
+        kw["inb"] = PP._inbatch_tensors(na, pa, ta, ids, 256)
+    return args, kw
+
+
+@pytest.mark.parametrize("tracked", [False, True], ids=["untracked", "tracked"])
+@pytest.mark.parametrize("det", [True, False], ids=["deterministic", "noise"])
+@pytest.mark.parametrize("shards", SHARDS)
+def test_sharded_solve_kernel_equals_plain(cuda, shards, det, tracked):
+    """One cluster of S CTAs: the same choices and residuals as the plain
+    sharded solve and the single-block kernel."""
+    from kubernetes_tpu_torch.parallel import sharded as PS
+
+    args, kw = _solve_case(cuda, 0, tracked)
+    key = SO.prng_key_data(3)
+    before, tracked_before = PS.solve_sharded.launches, PS.solve_sharded.tracked_launches
+    got, carry = PS.solve_sharded(*args, key, shards, det, **kw)
+    assert PS.solve_sharded.launches == before + 1
+    assert PS.solve_sharded.tracked_launches == tracked_before + int(tracked)
+    want, want_carry = PS.solve_sharded_plain(*args, key, shards, det, **kw)
+    single, single_carry = SO.solve_greedy(*args, key, det, **kw)
+    assert torch.equal(got, want) and torch.equal(got, single)
+    for a, c, d in zip(carry, want_carry, single_carry):
+        assert torch.equal(a, c) and torch.equal(a, d)
+    assert int((got >= 0).sum()) > 50
+
+
+@pytest.mark.parametrize("det", [True, False], ids=["deterministic", "noise"])
+@pytest.mark.parametrize("shards", SHARDS)
+def test_sharded_gang_kernel_equals_plain(cuda, shards, det):
+    """The gang mode: both passes in one cluster launch, against the plain
+    sharded gang solve and the single-block gang kernel."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.parallel import sharded as PS
+
+    args, kw = _solve_case(cuda, 1, False)
+    b = args[-1].shape[0]
+    rng = np.random.default_rng(5)
+    group = torch.from_numpy(np.where(rng.random(b) < 0.7, rng.integers(0, 60, b), -1).astype(np.int32)).to(cuda)
+    key = SO.prng_key_data(2**32 + 7)
+    before = PS.solve_gang_sharded.launches
+    got, ok, carry = PS.solve_gang_sharded(*args, group, key, shards, det, **kw)
+    assert PS.solve_gang_sharded.launches == before + 1
+    want, want_ok, want_carry = PS.solve_gang_sharded_plain(*args, group, key, shards, det, **kw)
+    single, single_ok, _ = SO.solve_gang(*args, group, key, det, **kw)
+    assert torch.equal(got, want) and torch.equal(ok, want_ok) and torch.equal(got, single) and torch.equal(ok, single_ok)
+    for a, c in zip(carry, want_carry):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("track", [True, False], ids=["tracked", "untracked"])
+@pytest.mark.parametrize("shards", SHARDS)
+def test_sharded_arbiter_kernel_equals_plain(cuda, shards, track):
+    """The cluster scan on a solved DoNotSchedule / inter-pod / host-port
+    batch, with and without the spread kinds: the plain sharded scan's,
+    the single-device kernel's and the plain scan's verdicts."""
+    from kubernetes_tpu_torch.commit import arbiter as A
+
+    na, ea, xa, ta, au, pa, ids, v = hard_spread_cluster(0, cuda)
+    b = 360
+    pb = {"sig": (torch.arange(b, device=cuda) % 120).to(torch.int32),
+          "valid": torch.arange(b, device=cuda) < b - 8,
+          "priority": (torch.arange(b, device=cuda) % 3).to(torch.int32)}
+    kinds = frozenset({"spread_hard", "spread_soft", "anti_req", "pref", "et_anti", "et_score"})
+    assign, _ = PP.solve_pipeline(na, pa, ids, SO.prng_key_data(1), pb=pb, term_kinds=kinds,
+                                  track_inbatch=track, ea=ea, ta=ta, au=au, xa=xa, n_buckets=v)
+    for tk in (kinds, kinds - {"spread_hard"}):
+        before = A.arbitrate_sharded.launches
+        got = A.arbitrate_sharded(shards, na, pa, ea, ta, ids, assign, pb, term_kinds=tk, n_buckets=v)
+        assert A.arbitrate_sharded.launches == before + 1
+        want = A.arbitrate_sharded_plain(shards, na, pa, ea, ta, ids, assign, pb, term_kinds=tk, n_buckets=v)
+        assert torch.equal(got, want)
+        assert torch.equal(got, A.arbitrate(na, pa, ea, ta, ids, assign, pb, term_kinds=tk, n_buckets=v))
+    assert bool((want == A.V_PLACE).any())
+    if not track:
+        assert bool((want == A.V_DEFER).any())
+
+
+@pytest.mark.parametrize("shards", SHARDS)
+def test_sharded_fold_kernels_equal_plain(cuda, shards):
+    """Both sharded folds (duplicate rows, sentinels, int16 wrap) against
+    their plain versions and the single-device kernels."""
+    from kubernetes_tpu_torch.ops import fold as FO
+
+    g = torch.Generator().manual_seed(shards)
+    n, r, s, pt, b, t = 64, 6, 40, 12, 4096, 900
+    banks = [torch.randint(0, 10**9, (n, r), generator=g), torch.randint(0, 10**9, (n, 2), generator=g),
+             torch.randint(0, 100, (n,), generator=g).int(),
+             torch.randint(-32768, 32767, (n, s), generator=g).to(torch.int16),
+             torch.randint(-32768, 32767, (n, pt), generator=g).to(torch.int16)]
+    ctl = [torch.randint(0, n + 1, (b,), generator=g).int(), torch.randint(0, 9000, (b, r), generator=g),
+           torch.randint(0, 9000, (b, 2), generator=g), torch.ones(b, dtype=torch.int32),
+           torch.randint(0, s + 1, (b,), generator=g).int(), torch.randint(0, n + 1, (t,), generator=g).int(),
+           torch.randint(0, pt + 1, (t,), generator=g).int(), torch.ones(t, dtype=torch.int16)]
+    got = [x.to(cuda) for x in banks]
+    single = [x.to(cuda) for x in banks]
+    before = FO.fold_commit_sharded.launches
+    FO.fold_commit_sharded(shards, *got, *(x.to(cuda) for x in ctl))
+    assert FO.fold_commit_sharded.launches == before + 1
+    FO.fold_commit_banks(*single, *(x.to(cuda) for x in ctl))
+    want = FO.fold_commit_sharded_plain(shards, *(x.clone() for x in banks), *ctl)
+    for a, w, o in zip(got, want, single):
+        assert torch.equal(a.cpu(), w) and torch.equal(a, o)
+    req, cnt = banks[0].to(cuda), banks[2].to(cuda)
+    before = FO.fold_usage_sharded.launches
+    FO.fold_usage_sharded(shards, req, cnt, ctl[0].to(cuda), ctl[1].to(cuda), ctl[3].to(cuda))
+    assert FO.fold_usage_sharded.launches == before + 1
+    w_req, w_cnt = FO.fold_usage_sharded_plain(shards, banks[0].clone(), banks[2].clone(), ctl[0], ctl[1], ctl[3])
+    assert torch.equal(req.cpu(), w_req) and torch.equal(cnt.cpu(), w_cnt)
+    FO.fold_usage_sharded(shards, req, cnt, ctl[0].to(cuda), -ctl[1].to(cuda), -ctl[3].to(cuda))
+    assert torch.equal(req.cpu(), banks[0]) and torch.equal(cnt.cpu(), banks[2])
+
+
+def test_sharded_cluster_of_16_runs_or_is_refused(cuda):
+    """16 shards need the non-portable cluster size: the kernel either runs
+    one 16-CTA cluster, equal to the plain version, or is refused with the
+    documented error (the card cannot co-schedule it); 32 shards are
+    refused before any launch."""
+    from kubernetes_tpu_torch.parallel import sharded as PS
+
+    args, kw = _solve_case(cuda, 0, False)
+    key = SO.prng_key_data(3)
+    try:
+        got, _ = PS.solve_sharded(*args, key, 16, False, **kw)
+    except RuntimeError as e:
+        assert "cannot co-schedule a cluster of 16 CTAs" in str(e)
+    else:
+        assert torch.equal(got, PS.solve_sharded_plain(*args, key, 16, False, **kw)[0])
+    with pytest.raises(ValueError, match="1 to 16"):
+        PS.solve_sharded(*args, key, 32, False, **kw)
