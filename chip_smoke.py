@@ -58,8 +58,11 @@ they placed. Phases:
                 for bit, and timed at the config-6 nominee shapes (976
                 nominees on 512 rows, B=976), with one
                 index_put_(accumulate=True) per column as its library
-                yardstick; gather_score_rows on its edges (K = 1,
-                repeated rows, N not a multiple of the block, int64
+                yardstick; the single-device solve's cluster layouts (8 and
+                16 CTAs, each with the st.async, mbarrier and cluster-barrier
+                elections) at the config-2 and config-3 shapes, each equal to
+                the plain version, timed in turns; gather_score_rows on its
+                edges (K = 1, repeated rows, N not a multiple of the block, int64
                 extremes) and at the config-3-hard shapes (U = 128,
                 N = 10,240, K = 128), one torch.index_select as its
                 library yardstick; solve_gang (both passes in one launch),
@@ -196,7 +199,11 @@ they placed. Phases:
                 drain's; configs 4, 3-hard, 5 and 6 at 1/10, each equal to
                 its single-device drain of phase 4 (placements, counters;
                 config 6 also victims, nominations, preempted count)
-  6. kernels    one JSON line: per kernel (the nineteen, the tracked
+  6. kernels    a {"redesign": ...} line (the serial walks at the main
+                path's shapes: the solve plain, tracked, gang and on the
+                mesh, the arbiter on one CTA and the mesh; ms, plain ms,
+                bound ms and µs a pod, and the solve layouts' ms), then
+                one JSON line: per kernel (the nineteen, the tracked
                 solve, the RTCR branch, score_components, the extender's
                 filter_mask and the mesh's six: the sharded solve, tracked
                 and gang, the sharded arbiter and the two sharded folds)
@@ -852,7 +859,7 @@ def compare_kernels(na, pa, ids, sig, label, time_it: bool):
         err = max(err, int((ka - pa_).abs().max()), *(int((x - y).abs().max()) for x, y in zip(kc, pc)))
         placed = int((ka >= 0).sum())
     check(err == 0, f"[{label}] solve kernel differs from its plain version by {err}")
-    out["solve_greedy"] = {"max_abs_err": err, "placed": placed}
+    out["solve_greedy"] = {"max_abs_err": err, "placed": placed, "pods": int(pod_valid.sum())}
     if time_it:
         kw = dict(deterministic=False, req_any=pa["req_any"], sig=sig, pod_valid=pod_valid,
                   return_carry=True, nz0=nz0, scoring_req=pa["scoring_req"])
@@ -1032,7 +1039,7 @@ def compare_interpod(enc, label, time_it: bool):
         err = max(err, int((ka - pa_).abs().max()), *(int((x - y).abs().max()) for x, y in zip(kc, pc)))
         placed = int((ka >= 0).sum())
     check(err == 0, f"[{label}] tracked solve kernel differs from its plain version by {err}")
-    out["solve_greedy_inb"] = {"max_abs_err": err, "placed": placed}
+    out["solve_greedy_inb"] = {"max_abs_err": err, "placed": placed, "pods": int(pod_valid.sum())}
     log(f"[kernels] {label}: U={pa['valid'].shape[0]} N={na['valid'].shape[0]} TT={ta['valid'].shape[0]} "
         f"S={ea['valid'].shape[0]} PT={xa['valid'].shape[0]} V={v} B={b}: interpod_filter (7 part subsets), "
         f"interpod_score (3), inbatch_port_conflict, tracked solve exact ({int(mask.sum())} feasible pairs, "
@@ -1128,7 +1135,7 @@ def compare_commit(enc, label, time_it: bool, parts=("spread_filter", "arbitrate
     check(err == 0, f"[{label}] arbitrate kernel differs from its plain version in {err} verdicts")
     verdict = A.arbitrate(na, pa, ea, ta, ids, assign, pb, term_kinds=kinds, n_buckets=v)
     counts = [int((verdict == x).sum()) for x in (A.V_PLACE, A.V_DEFER, A.V_NOFIT)]
-    out["arbitrate"] = {"max_abs_err": min(err, 1)}
+    out["arbitrate"] = {"max_abs_err": min(err, 1), "pods": b}
     placed = torch.nonzero(verdict == A.V_PLACE).flatten().tolist()
     assign_l = assign.tolist()
     prog = plan_fold(enc["mirror"], [(enc["pods"][i], assign_l[i]) for i in placed], pow2_bucket(b), 16)
@@ -1374,7 +1381,8 @@ def compare_gang(enc, label, tight: bool):
     check((dropped > 0) == tight, f"[{label}] {dropped} groups dropped")
     kw = dict(deterministic=False, req_any=pa["req_any"], sig=sig, pod_valid=pod_valid, return_carry=True, nz0=nz0,
               scoring_req=pa["scoring_req"])
-    st = {"max_abs_err": err, "dropped_groups": dropped, "placed": int((ka >= 0).sum())}
+    st = {"max_abs_err": err, "dropped_groups": dropped, "placed": int((ka >= 0).sum()),
+          "pods": int(pod_valid.sum())}
     st["ms"] = cuda_ms(lambda: SO.solve_gang(*args, key, **kw), 5)
     st["plain_ms"] = cuda_ms(lambda: SO.solve_gang_plain(*args, key, **kw), 2)
     st["bound"] = bound(gang_work(mask, sig, pod_valid, pod_valid & kok, pa, free0, count0, allowed, nz0, order,
@@ -1679,7 +1687,7 @@ def compare_sharded_solve(enc, label, track: bool):
     check(err == 0, f"[{label}] {name} differs from its plain version or the single-block kernel by {err}")
     key = SO.prng_key_data(7)
     run = dict(**kw, key=key, shards=MESH_SHARDS, deterministic=False, return_carry=True, inb=inb)
-    st = {"max_abs_err": err, "placed": int((got[0] >= 0).sum())}
+    st = {"max_abs_err": err, "placed": int((got[0] >= 0).sum()), "pods": int(kw["pod_valid"].sum())}
     st["ms"] = cuda_ms(lambda: PS.solve_sharded(**run), 5)
     st["plain_ms"] = cuda_ms(lambda: PS.solve_sharded_plain(**run), 1)
     st["single_ms"] = cuda_ms(lambda: SO.solve_greedy(**kw, key=key, deterministic=False, return_carry=True,
@@ -1692,6 +1700,54 @@ def compare_sharded_solve(enc, label, track: bool):
         f"placed); {MESH_SHARDS} shards {st['ms']:.4f} ms (through its wrapper), single block {st['single_ms']:.4f} "
         f"ms, plain {st['plain_ms']:.4f} ms, bound {st['bound'][0]:.6f} ms ({st['bound'][1]})")
     return st
+
+
+# the single-device solve's cluster layouts held against each other: the
+# CTAs of the cluster and the election's synchronisation
+SOLO_LAYOUTS = ((8, "mbarrier"), (16, "mbarrier"), (8, "async"), (16, "async"), (8, "cluster"), (16, "cluster"))
+
+
+def compare_solve_layouts(enc, label):
+    """The single-device solve at this batch's shapes (deterministic off)
+    under each of SOLO_LAYOUTS, each equal to the plain version (choices
+    and carry), timed in turns (A B C D D C B A, one prebuilt struct a
+    layout, fresh carries each launch through the wrapper's copies);
+    returns {layout: ms} and logs ms and µs a pod beside the wrapper's
+    default (ops/solver.SOLO_SHARDS, SOLVE_SYNC). A layout the card
+    cannot co-schedule is reported, not timed."""
+    from kubernetes_tpu_torch.kernels import build
+    from kubernetes_tpu_torch.ops import solver as SO
+
+    kw, _, _ = mesh_solve_case(enc, False)
+    dev = kw["mask"].device
+    key = SO.prng_key_data(7)
+    want = SO.solve_greedy_plain(**kw, key=key, deterministic=False, return_carry=True)
+    pods = int(kw["pod_valid"].sum())
+    built = {}
+    for shards, sync in SOLO_LAYOUTS:
+        pos = ("mask", "score", "req", "free0", "count0", "allowed", "order")
+        rest = ("req_any", "sig", "pod_valid", "nz0", "scoring_req")
+        args, out, carry, _ = SO.solve_args(*(kw[k] for k in pos), key, False, *(kw[k] for k in rest),
+                                            shards=shards, sync=sync)
+        try:
+            SO.launch_solve(args, dev)
+        except RuntimeError as e:
+            log(f"[kernels] {label} solve layout S={shards} {sync}: refused ({e})")
+            continue
+        torch.cuda.synchronize()
+        err = max_err((out,) + tuple(carry), (want[0],) + tuple(want[1]))
+        check(err == 0, f"[{label}] the solve at S={shards} ({sync}) differs from its plain version by {err}")
+        built[(shards, sync)] = args
+    times = {k: [] for k in built}
+    for k in list(built) + list(reversed(list(built))):
+        times[k].append(cuda_ms(lambda: build.launch(SO.SOLVE_ENTRY, built[k], dev), 5))
+    ms = {k: sum(v) / len(v) for k, v in times.items()}
+    default = (SO.SOLO_SHARDS, SO.SOLVE_SYNC)
+    log(f"[kernels] {label} solve layouts (U={kw['mask'].shape[0]} N={kw['mask'].shape[1]} B={kw['order'].shape[0]},"
+        f" {pods} pods; exact against the plain version): " + ", ".join(
+            f"S={s_} {y}{' (default)' if (s_, y) == default else ''} {m:.4f} ms = {m * 1000 / pods:.3f} us a pod"
+            for (s_, y), m in ms.items()))
+    return {f"S{s_}-{y}": m for (s_, y), m in ms.items()}
 
 
 def compare_sharded_arbiter(enc, label, time_it: bool):
@@ -1723,7 +1779,7 @@ def compare_sharded_arbiter(enc, label, time_it: bool):
     check(err == 0, f"[{label}] arbitrate_sharded differs from its plain version or the single-device kernel in "
           f"{err} verdicts")
     counts = [int((single == x).sum()) for x in (A.V_PLACE, A.V_DEFER, A.V_NOFIT)]
-    st = {"max_abs_err": min(err, 1)}
+    st = {"max_abs_err": min(err, 1), "pods": b}
     msg = ""
     if time_it:
         sargs, _ = A.arbiter_args(*args, term_kinds=kinds, n_buckets=v, shards=MESH_SHARDS)
@@ -1857,7 +1913,7 @@ def compare_sharded_gang(enc, label):
     check(err == 0, f"[{label}] solve_gang_sharded differs from its plain version or the single-block kernel by {err}")
     kw = dict(deterministic=False, req_any=pa["req_any"], sig=sig, pod_valid=pod_valid, return_carry=True, nz0=nz0,
               scoring_req=pa["scoring_req"])
-    st = {"max_abs_err": err}
+    st = {"max_abs_err": err, "pods": int(pod_valid.sum())}
     st["ms"] = cuda_ms(lambda: PS.solve_gang_sharded(*args, key, MESH_SHARDS, **kw), 5)
     st["plain_ms"] = cuda_ms(lambda: PS.solve_gang_sharded_plain(*args, key, MESH_SHARDS, **kw), 1)
     st["bound"] = bound(gang_work(mask, sig, pod_valid, pod_valid & got[1], pa, free0, count0, allowed, nz0, order,
@@ -1953,7 +2009,42 @@ def phase_kernels():
     stats.update(gang)
     stats.update(phase_slab_kernels())
     stats.update(phase_mesh_kernels(enc, enc4, enc3h, enc5))
+    # the redesigned walk's cluster layouts on one device, at the config-2
+    # and config-3 shapes, and the walks' per-pod summary
+    layouts = {"config-2": compare_solve_layouts(e, "config-2"), "config-3": compare_solve_layouts(enc, "config-3")}
+    stats["_redesign"] = redesign_summary(stats, hard["arbitrate"], layouts)
     return stats
+
+
+def redesign_summary(stats, arb3h, layouts):
+    """The serial walks' times at the main path's shapes: ms, plain ms,
+    bound and µs a pod (a step for the arbiter), each from this run."""
+    from kubernetes_tpu_torch.ops import solver as SO
+
+    def row(st, ms_key="ms"):
+        ms = st[ms_key]
+        return {"ms": ms, "plain_ms": st["plain_ms"], "bound_ms": st["bound"][0], "us_per_pod": ms * 1000 / st["pods"]}
+
+    sh = stats["solve_sharded"]
+    out = {
+        f"solve config-2 (S={SO.SOLO_SHARDS})": row(stats["solve_greedy"]),
+        # plain: the sharded plain version (the same function)
+        f"solve config-3 (S={SO.SOLO_SHARDS})": row(sh, "single_ms"),
+        "solve tracked config-4": row(stats["solve_greedy_inb"]),
+        "solve gang config-5": row(stats["solve_gang"]),
+        "solve sharded config-3 (8 CTAs)": row(sh),
+        "solve sharded tracked config-4 (8 CTAs)": row(stats["solve_sharded_inb"]),
+        "solve gang sharded config-5 (8 CTAs)": row(stats["solve_gang_sharded"]),
+        "arbitrate config-3-hard": row(arb3h),
+        "arbitrate config-4": row(stats["arbitrate"]),
+        "arbitrate sharded config-3-hard (8 CTAs)": row(stats["arbitrate_sharded"]),
+        "solve layouts": layouts,
+    }
+    for k, v in out.items():
+        if "ms" in v:
+            log(f"[redesign] {k}: {v['ms']:.4f} ms, {v['us_per_pod']:.3f} us a pod, plain {v['plain_ms']:.4f} ms, "
+                f"bound {v['bound_ms']:.6f} ms")
+    return out
 
 
 def kernel_counters():
@@ -3524,6 +3615,7 @@ def main() -> int:
             "bound_ms": s["bound"][0], "bound_by": s["bound"][1], "library_ms": s.get("library_ms"),
         })
     log(f"[done] {time.perf_counter() - t0:.1f}s; card: {smi}")
+    print(json.dumps({"redesign": stats["_redesign"]}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": name, "count": count}}), flush=True)

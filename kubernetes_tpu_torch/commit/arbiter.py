@@ -27,8 +27,10 @@ tables — from the dict the driver passed solve_pipeline as
 
 `arbitrate_plain` is the reference's scan as a Python loop of PyTorch ops;
 the reference's float32 ca / cb / cs tables are only compared > 0, so they
-are int32 here. On CUDA tensors `arbitrate` launches csrc/arbiter.cu, a
-thread-block cluster of one CTA walking the same B steps (counted in
+are int32 here. On CUDA tensors `arbitrate` launches csrc/arbiter.cu: its
+grid-wide launches hoist every fact no commit can change (each spec row's
+relevant terms and clash list, each placed pod's buckets), then a
+thread-block cluster of one CTA walks the same B steps (counted in
 `arbitrate.launches`).
 `host_arbitrate` (ref :583) is the arbiter's executable spec: the same
 walk on the host by the full oracle predicate chain; only the tests call
@@ -77,7 +79,7 @@ ARBITER_COVERED_KINDS = frozenset({
 })
 
 ARBITER_ENTRY = "ktpu_arbitrate"
-# ca, cb and md live in shared memory while they fit, cs too
+# ca, cb and the merged counts live in shared memory while they fit, cs too
 SHARED_TABLE_BYTES = 200 * 1024
 
 
@@ -248,7 +250,8 @@ class ArbiterArgs(ctypes.Structure):
             "order", "sig", "pod_valid", "assign", "free0", "count0", "allowed", "req", "req_any",
             "t_valid", "t_kind", "t_owner", "t_topo_slot", "t_self_match", "t_weight", "m_raw",
             "label_dense", "pconf", "cand", "merged_cnt0", "merged_present", "any_pair_t",
-            "free_", "count", "ca", "cb", "cs", "md", "mh", "gm", "verdict")]
+            "free_", "count", "ca", "cb", "cs", "mc", "rel", "relg", "rel_n", "conf", "conf_n", "cs_read", "facts",
+            "steps", "n_steps", "verdict")]
         + [(d, ctypes.c_int32) for d in (
             "B", "U", "N", "R", "TT", "K", "V", "have_spread", "tables_in_shared", "cs_in_shared")]
     )
@@ -267,8 +270,9 @@ def arbiter_args(na: Arrays, pa: Arrays, ea: Arrays, ta: Arrays, ids, assign: to
     (1 on one device, one a node shard on a mesh), with its scratch, the
     pop order and the solve's intermediates (see _solve_inputs), and the
     [B] int32 verdict it writes. The scratch holds one replica of ca / cb /
-    md / mh a CTA; the packed-facts slots and a CTA's cs columns count
-    against the shared-memory budget."""
+    the merged counts a CTA where they do not fit shared memory, the
+    hoisted per-spec term words, clash lists and per-pod facts, and the
+    step list; a CTA's cs columns share the shared-memory budget."""
     na = apply_carry(na, carry)
     dev = assign.device
     sig, pod_valid = pb["sig"], pb["valid"]
@@ -289,18 +293,29 @@ def arbiter_args(na: Arrays, pa: Arrays, ea: Arrays, ta: Arrays, ids, assign: to
         keep.update(got["spread_tables"])
     reps = shards
     n_cols = shard_rows(n, shards)  # cs columns a CTA keeps
-    table_bytes = 3 * tt * v * 4 + 2 * (2 + 3 * tt) * 4
+    # shared memory: the per-term minimum, values at it and mh [TT] int32;
+    # ca, cb (and the merged counts with hard spread) [TT, V] int32; cs [U, Nl]
+    n_tables = 3 if have_spread else 2
+    table_bytes = 3 * tt * 4 + n_tables * tt * v * 4
     in_shared = table_bytes <= SHARED_TABLE_BYTES
     cs_shared = in_shared and table_bytes + u * n_cols * 4 <= SHARED_TABLE_BYTES
+    in_dev = 0 if in_shared else reps * tt
     scratch = dict(
         free_=torch.empty((n, r), dtype=torch.int64, device=dev),
         count=torch.empty((n,), dtype=torch.int64, device=dev),
-        ca=torch.empty((1 if in_shared else reps * tt, v), dtype=torch.int32, device=dev),
-        cb=torch.empty((1 if in_shared else reps * tt, v), dtype=torch.int32, device=dev),
-        md=torch.empty((1 if in_shared else reps * tt, v), dtype=torch.int32, device=dev),
-        cs=torch.empty((1 if cs_shared else u, n), dtype=torch.int32, device=dev),
-        mh=torch.empty((reps * tt,), dtype=torch.int32, device=dev),
-        gm=torch.empty((tt, u), dtype=torch.int32, device=dev),
+        ca=torch.empty((in_dev, v), dtype=torch.int32, device=dev),
+        cb=torch.empty((in_dev, v), dtype=torch.int32, device=dev),
+        mc=torch.empty((in_dev if have_spread else 0, v), dtype=torch.int32, device=dev),
+        cs=torch.empty((0 if cs_shared else u, n), dtype=torch.int32, device=dev),
+        rel=torch.empty((u, tt), dtype=torch.int32, device=dev),
+        relg=torch.empty((u, tt), dtype=torch.int32, device=dev),
+        rel_n=torch.empty((u,), dtype=torch.int32, device=dev),
+        conf=torch.empty((u, u), dtype=torch.int32, device=dev),
+        conf_n=torch.empty((u,), dtype=torch.int32, device=dev),
+        cs_read=torch.empty((u,), dtype=torch.int32, device=dev),
+        facts=torch.empty((b, tt), dtype=torch.int32, device=dev),
+        steps=torch.empty((b, 4), dtype=torch.int32, device=dev),
+        n_steps=torch.empty((1,), dtype=torch.int32, device=dev),
     )
     verdict = torch.empty((b,), dtype=torch.int32, device=dev)
     a = ArbiterArgs()
@@ -352,7 +367,7 @@ def arbitrate(
     inputs: Optional[Dict] = None,
 ) -> torch.Tensor:
     """Verdict [B] per batch position. CPU tensors run the plain version;
-    CUDA tensors launch csrc/arbiter.cu, one CTA (counted in
+    CUDA tensors launch csrc/arbiter.cu, its scan one CTA (counted in
     `arbitrate.launches`).
     `carry` is the residual carry the solve ran on; `inputs` is the dict
     the solve filled as `arbiter_inputs` (what is missing there is

@@ -17,8 +17,9 @@ applied within the batch).
   candidate commit of the round could change.
 * On CUDA tensors `solve_greedy` launches `csrc/solver.cu`, the sequential
   walk that the chunked scan provably equals (solver.py:110-126, :144-149),
-  as a thread-block cluster of one CTA (parallel/sharded.py launches the
-  same kernel with one CTA a node shard).
+  as a thread-block cluster of SOLO_SHARDS CTAs, each holding its node
+  rows' residuals in shared memory (`solve_layout`; parallel/sharded.py
+  launches the same kernel with one CTA a node shard).
 * `solve_gang` is the reference's all-or-nothing gang solve: two greedy
   passes, with the two halves of `jax.random.split(key)` (`prng_split`),
   around a group-fail segment max; on CUDA tensors one launch of
@@ -432,6 +433,23 @@ def walk_args(mask, score, req, free0, count0, allowed, order, deterministic, re
 
 SOLVE_ENTRY = "ktpu_solve"
 
+# One device runs the solve as a thread-block cluster of this many CTAs
+# (csrc/solver.cu: node rows split over the CTAs, each CTA's residuals in
+# its shared memory); with the st.async election 16 beat 8 at the config-2
+# and config-3 shapes (chip_smoke.py's solve layouts, PERF.md)
+SOLO_SHARDS = 16
+SOLVE_THREADS = 512  # csrc/solver.cu's CTA
+MAX_ROWS_PER_THREAD = 4  # the resident walk's rows a thread (csrc/solver.cu)
+# a CTA's dynamic shared memory for the resident residuals (the card's 227
+# KB a block less the kernel's static slots, with room to spare)
+SOLVE_SMEM_BUDGET = 220 * 1024
+SYNC_MODES = {"mbarrier": 0, "cluster": 1, "async": 2}
+# the election's synchronisation across the cluster (csrc/solver.cu): each
+# CTA's candidate stored into every CTA with st.async, completing bytes on
+# the receiver's mbarrier; "mbarrier" (remote store + release arrive) and
+# "cluster" (cluster.sync) measured slower (PERF.md)
+SOLVE_SYNC = "async"
+
 
 class ClusterSolveArgs(ctypes.Structure):
     """Mirror of `struct ClusterSolveArgs` in csrc/solver.cu."""
@@ -441,33 +459,70 @@ class ClusterSolveArgs(ctypes.Structure):
         ("group", ctypes.c_void_p), ("first", ctypes.c_void_p), ("fail", ctypes.c_void_p),
         ("alive", ctypes.c_void_p), ("gang_ok", ctypes.c_void_p), ("free1", ctypes.c_void_p),
         ("count1", ctypes.c_void_p), ("nz1", ctypes.c_void_p), ("seed1", ctypes.c_uint32),
-        ("seed2", ctypes.c_uint32),
+        ("seed2", ctypes.c_uint32), ("resident", ctypes.c_int32), ("sync_mode", ctypes.c_int32),
+        ("track_shared", ctypes.c_int32), ("steps", ctypes.c_void_p), ("sel", ctypes.c_void_p),
     ]
 
 
+def solve_layout(n: int, r: int, b: int, shards: int, tt: int = 0, u: int = 0, v: int = 0,
+                 track: bool = False) -> dict:
+    """Where csrc/solver.cu keeps its state for this shape: `rows` (Nl =
+    ceil(N / S) node rows a CTA), `resident` (the CTA's residuals — free
+    [R, Nl], count, nz [2, Nl] int64, the pods each row still takes and
+    its negative-slot bits [Nl] int32 — and the [B] int32 choices in its
+    shared memory: when they fit SOLVE_SMEM_BUDGET with at most
+    MAX_ROWS_PER_THREAD rows a thread), `track_shared` (the tracking's ca /
+    cb replicas, [TT, V] int32 each, in shared memory too) and `smem`, the
+    dynamic shared-memory bytes a CTA asks for."""
+    rows = -(-n // shards)
+    state = (r + 4) * rows * 8 + b * 4
+    resident = rows <= MAX_ROWS_PER_THREAD * SOLVE_THREADS and state <= SOLVE_SMEM_BUDGET
+    smem = state if resident else 0
+    track_shared = False
+    if track:
+        smem += (2 * tt + u) * 4
+        track_shared = smem + 2 * tt * v * 4 <= SOLVE_SMEM_BUDGET
+        if track_shared:
+            smem += 2 * tt * v * 4
+    return {"rows": rows, "resident": resident, "track_shared": track_shared, "smem": smem}
+
+
 def solve_args(mask, score, req, free0, count0, allowed, order, key, deterministic, req_any, sig, pod_valid, nz0,
-               scoring_req, shards: int = 1, inb=None, group=None) -> tuple:
+               scoring_req, shards: Optional[int] = None, inb=None, group=None, sync: Optional[str] = None) -> tuple:
     """csrc/solver.cu's struct for these CUDA tensors, one cluster of
-    `shards` CTAs (1 on one device, one a node shard on a mesh; N must be
-    a multiple of it): (ClusterSolveArgs, the [B] int32 assignment, the
-    (free, count, nz) carry it updates in place, gang_ok or None). With
-    `group` the two-pass gang mode (no tracking): pass 1 walks a scratch
-    copy of the carry, pass 2 the returned one, both from free0 / count0 /
-    nz0. The struct holds what it points at in `.keepalive`."""
+    `shards` CTAs (SOLO_SHARDS on one device, one a node shard on a mesh):
+    (ClusterSolveArgs, the [B] int32 assignment, the (free, count, nz)
+    carry it updates in place, gang_ok or None). With `group` the two-pass
+    gang mode (no tracking): both passes from free0 / count0 / nz0.
+    `sync` picks the election's synchronisation (SOLVE_SYNC by default).
+    The struct holds what it points at in `.keepalive`."""
     walk, out, carry = walk_args(mask, score, req, free0, count0, allowed, order, deterministic, req_any, sig,
                                  pod_valid, nz0, scoring_req)
     U, N = mask.shape
-    dev = mask.device
-    if group is None:
-        walk.seed = noise_seed(key)
-        if inb is not None:
-            walk.tracked = _track_args(walk, inb, U, N, dev, replicas=shards)
-        args = ClusterSolveArgs(walk=walk, S=shards, Nl=N // shards, gang=0)
-        args.keepalive = walk
-        return args, out, carry, None
     R = req.shape[1]
     B = order.shape[0]
-    free1, count1, nz1 = (c.clone() for c in carry)
+    dev = mask.device
+    shards = SOLO_SHARDS if shards is None else shards
+    track = group is None and inb is not None
+    tt = inb["anti"].shape[0] if track else 0
+    v = int(inb["n_buckets"]) if track else 0
+    lay = solve_layout(N, R, B, shards, tt, U, v, track)
+    steps = torch.empty((shards * B * 4,), dtype=torch.int32, device=dev)
+    sel = torch.empty((0 if lay["resident"] else shards * B,), dtype=torch.int32, device=dev)
+    common = dict(S=shards, Nl=lay["rows"], resident=int(lay["resident"]),
+                  sync_mode=SYNC_MODES[sync or SOLVE_SYNC], track_shared=int(lay["track_shared"]),
+                  steps=steps.data_ptr(), sel=sel.data_ptr())
+    if group is None:
+        walk.seed = noise_seed(key)
+        if track:
+            walk.tracked = _track_args(walk, inb, U, N, dev, replicas=0 if lay["track_shared"] else shards)
+        args = ClusterSolveArgs(walk=walk, gang=0, **common)
+        args.keepalive = (walk, steps, sel)
+        args.smem = lay["smem"]
+        return args, out, carry, None
+    # pass 1's scratch carry: only the device-memory state walks in place
+    scratch = tuple(c.clone() if not lay["resident"] else c for c in carry)
+    free1, count1, nz1 = scratch
     group32 = group.to(torch.int32).contiguous()
     first = torch.empty((shards * B,), dtype=torch.int32, device=dev)  # a replica a CTA
     fail = torch.empty((shards * B,), dtype=torch.int32, device=dev)  # zeroed by the kernel
@@ -475,7 +530,7 @@ def solve_args(mask, score, req, free0, count0, allowed, order, key, determinist
     gang_ok = torch.empty((B,), dtype=torch.bool, device=dev)
     k1, k2 = prng_split(key)
     args = ClusterSolveArgs(
-        walk=walk, S=shards, Nl=N // shards, gang=1,
+        walk=walk, gang=1,
         group=build.ptr(group32, torch.int32, (B,)),
         first=build.ptr(first, torch.int32),
         fail=build.ptr(fail, torch.int32),
@@ -484,20 +539,22 @@ def solve_args(mask, score, req, free0, count0, allowed, order, key, determinist
         free1=build.ptr(free1, torch.int64, (N, R)),
         count1=build.ptr(count1, torch.int64, (N,)),
         nz1=build.ptr(nz1, torch.int64, (N, 2)),
-        seed1=noise_seed(k1), seed2=noise_seed(k2),
+        seed1=noise_seed(k1), seed2=noise_seed(k2), **common,
     )
-    args.keepalive = (walk, group32, first, fail, alive, free1, count1, nz1)
+    args.keepalive = (walk, group32, first, fail, alive, scratch, steps, sel)
+    args.smem = lay["smem"]
     return args, out, carry, gang_ok
 
 
-def launch_solve(args: ClusterSolveArgs, dev) -> None:
+def launch_solve(args: ClusterSolveArgs, dev, counted=None) -> None:
     """Launch csrc/solver.cu as one cluster of `args.S` CTAs. More than
     build.MAX_CLUSTER CTAs, or a cluster the card cannot co-schedule,
-    raises."""
-    w = args.walk
-    smem = (2 * w.TT + w.U) * 4 if w.track else 0
-    build.check_clusters(SOLVE_ENTRY, args, (smem,))
+    raises. A launch whose residuals stay in device memory counts in
+    `counted.global_state_launches` (the wrapper's function)."""
+    build.check_clusters(SOLVE_ENTRY, args, (args.smem, args.resident, args.track_shared))
     build.launch(SOLVE_ENTRY, args, dev)
+    if counted is not None and not args.resident:
+        counted.global_state_launches += 1
 
 
 def _solve_greedy_cuda(
@@ -506,7 +563,7 @@ def _solve_greedy_cuda(
 ):
     args, out, carry, _ = solve_args(mask, score, req, free0, count0, allowed, order, key, deterministic, req_any,
                                      sig, pod_valid, nz0, scoring_req, inb=inb)
-    launch_solve(args, mask.device)
+    launch_solve(args, mask.device, solve_greedy)
     solve_greedy.launches += 1
     if inb is not None:
         solve_greedy.tracked_launches += 1
@@ -536,8 +593,10 @@ def solve_greedy(
     """Greedy-by-priority batch assignment → node row per pod (-1 = no
     fit), plus the post-batch (free, count, nz) carry with return_carry.
     CPU tensors run the plain chunked version; CUDA tensors launch
-    csrc/solver.cu, one CTA (counted in `solve_greedy.launches`, and those
-    with tracking also in `solve_greedy.tracked_launches`).
+    csrc/solver.cu, one cluster of SOLO_SHARDS CTAs (counted in
+    `solve_greedy.launches`, those with tracking also in
+    `solve_greedy.tracked_launches`, and those whose residuals are too
+    large for shared memory in `solve_greedy.global_state_launches`).
 
     `inb` (ops/pipeline._inbatch_tensors) turns on the in-batch tracking:
     a pod may not take a node sharing a topology bucket with an earlier
@@ -564,6 +623,7 @@ def solve_greedy(
 
 solve_greedy.launches = 0
 solve_greedy.tracked_launches = 0
+solve_greedy.global_state_launches = 0
 
 
 # --- all-or-nothing gang solve ----------------------------------------------
@@ -621,7 +681,7 @@ def _solve_gang_cuda(
 ):
     args, out, carry, gang_ok = solve_args(mask, score, req, free0, count0, allowed, order, key, deterministic,
                                            req_any, sig, pod_valid, nz0, scoring_req, group=group)
-    launch_solve(args, mask.device)
+    launch_solve(args, mask.device, solve_gang)
     solve_gang.launches += 1
     if return_carry:
         return out, gang_ok, carry
@@ -653,8 +713,10 @@ def solve_gang(
     gang_ok [B] bool), plus pass 2's (free, count, nz) carry with
     return_carry. No in-batch tracking, as in the reference. Group ids are
     checked on the host first. CPU tensors run the plain version; CUDA
-    tensors launch csrc/solver.cu's gang mode, one CTA, both passes in one
-    launch (counted in `solve_gang.launches`)."""
+    tensors launch csrc/solver.cu's gang mode, one cluster of SOLO_SHARDS
+    CTAs, both passes in one launch (counted in `solve_gang.launches`; a
+    launch with its residuals in device memory also in
+    `solve_gang.global_state_launches`)."""
     check_group_ids(group, order.shape[0])
     dev = mask.device
     if dev.type == "cpu":
@@ -671,3 +733,4 @@ def solve_gang(
 
 
 solve_gang.launches = 0
+solve_gang.global_state_launches = 0

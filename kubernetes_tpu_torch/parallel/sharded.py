@@ -237,7 +237,7 @@ def solve_sharded(
         shard_rows(mask.shape[1], shards)
         args, out, carry, _ = solve_args(mask, score, req, free0, count0, allowed, order, key, deterministic,
                                          req_any, sig, pod_valid, nz0, scoring_req, shards=shards, inb=inb)
-        launch_solve(args, dev)
+        launch_solve(args, dev, solve_sharded)
         solve_sharded.launches += 1
         if inb is not None:
             solve_sharded.tracked_launches += 1
@@ -247,6 +247,7 @@ def solve_sharded(
 
 solve_sharded.launches = 0
 solve_sharded.tracked_launches = 0
+solve_sharded.global_state_launches = 0
 
 
 def solve_gang_sharded_plain(
@@ -290,13 +291,14 @@ def solve_gang_sharded(
         shard_rows(mask.shape[1], shards)
         args, out, carry, gang_ok = solve_args(mask, score, req, free0, count0, allowed, order, key, deterministic,
                                                req_any, sig, pod_valid, nz0, scoring_req, shards=shards, group=group)
-        launch_solve(args, dev)
+        launch_solve(args, dev, solve_gang_sharded)
         solve_gang_sharded.launches += 1
         return (out, gang_ok, carry) if return_carry else (out, gang_ok)
     raise ValueError(f"no solve kernel for device {dev}")
 
 
 solve_gang_sharded.launches = 0
+solve_gang_sharded.global_state_launches = 0
 
 _PIPELINE_CACHE: Dict[Mesh, object] = {}
 

@@ -217,6 +217,35 @@ class ExtenderError(Exception):
 _HOST_POINTS = ("reserve", "filter", "pre_filter", "score", "post_filter", "permit", "pre_bind", "bind",
                 "post_bind")
 _VOLUME_SEAM = "volumes are not ported (ROADMAP.md queue 1 item 7, volumes)"
+_COLUMNAR = "the columnar cache is not ported (ROADMAP.md queue 1 item 4, columnar cache)"
+_SPECULATION = ("warm-up, speculation and the commit pipeline are not ported (ROADMAP.md queue 1 item 6, "
+                "warm-up, speculation and the commit pipeline)")
+_OBSERVABILITY = ("faults, events, tracing and health are not ported (ROADMAP.md queue 1 item 8, robustness "
+                  "and observability)")
+
+
+def _refuse_reference_options(kw: Dict[str, object], commit_plane: bool) -> None:
+    """The reference Scheduler's keywords the port has no counterpart for:
+    a value equal to the port's behaviour is accepted and does nothing;
+    any other raises NotImplementedError naming its ROADMAP item."""
+    accepted = {
+        "speculate": ((False,), _SPECULATION), "spec_depth": ((2,), _SPECULATION),
+        "compile_plan": ((None,), _SPECULATION), "columnar_cache": ((False,), _COLUMNAR),
+        "error_fn": ((None,), _OBSERVABILITY), "event_fn": ((None,), _OBSERVABILITY),
+        "trace": ((None, False), _OBSERVABILITY), "fault_plan": ((None,), _OBSERVABILITY),
+        "bind_workers": ((BIND_WORKERS,), _OBSERVABILITY),
+    }
+    for name, (oks, item) in accepted.items():
+        value = kw[name]
+        # None and the booleans by identity; the counts as ints (True is no count)
+        if not any(value is ok if ok is None or isinstance(ok, bool) else type(value) is int and value == ok
+                   for ok in oks):
+            raise NotImplementedError(f"Scheduler({name}={value!r}): {item}")
+    fold_plane = kw["fold_plane"]
+    if fold_plane is not None and bool(fold_plane) != bool(commit_plane):
+        raise NotImplementedError(
+            f"Scheduler(commit_plane={commit_plane!r}, fold_plane={fold_plane!r}): not ported; the port's "
+            "commit_plane turns the commit arbiter and the commit fold on and off together")
 
 
 class Binder:
@@ -470,7 +499,23 @@ class Scheduler:
         volume_checker: Optional[Callable] = None,
         volume_binder=None,
         mesh=None,
+        error_fn: Optional[Callable] = None,
+        bind_workers: int = BIND_WORKERS,
+        event_fn: Optional[Callable] = None,
+        speculate: bool = False,
+        spec_depth: int = 2,
+        compile_plan=None,
+        fold_plane: Optional[bool] = None,
+        columnar_cache: bool = False,
+        trace: Optional[bool] = None,
+        fault_plan=None,
     ):
+        # the reference's keywords: its defaults where they are the port's
+        # behaviour (fold_plane follows commit_plane), refused otherwise
+        _refuse_reference_options(dict(
+            error_fn=error_fn, bind_workers=bind_workers, event_fn=event_fn, speculate=speculate,
+            spec_depth=spec_depth, compile_plan=compile_plan, fold_plane=fold_plane,
+            columnar_cache=columnar_cache, trace=trace, fault_plan=fault_plan), commit_plane)
         if volume_checker is not None or volume_binder is not None:
             raise NotImplementedError(f"Scheduler(volume_checker=..., volume_binder=...): {_VOLUME_SEAM}")
         self.device = resolve_device(device if device is not None or mesh is None else mesh.device)
@@ -1983,6 +2028,30 @@ class Scheduler:
             return
         self._bind_pool.shutdown(wait=True)
         self._bind_pool = ThreadPoolExecutor(max_workers=BIND_WORKERS, thread_name_prefix="bind")
+
+    # the reference's warm-up, speculation, tracing and fault-service
+    # methods: refused, naming their ROADMAP items
+    def warmup(self, max_pods: Optional[int] = None) -> int:
+        raise NotImplementedError(f"Scheduler.warmup: {_SPECULATION}")
+
+    @property
+    def ready(self) -> bool:
+        raise NotImplementedError(f"Scheduler.ready: {_SPECULATION}")
+
+    def flush_speculative(self) -> int:
+        raise NotImplementedError(f"Scheduler.flush_speculative: {_SPECULATION}")
+
+    def abort(self) -> None:
+        raise NotImplementedError(f"Scheduler.abort: {_OBSERVABILITY}")
+
+    def dump_trace(self, path: str) -> str:
+        raise NotImplementedError(f"Scheduler.dump_trace: {_OBSERVABILITY}")
+
+    def enable_health_monitor(self, *args, **kwargs):
+        raise NotImplementedError(f"Scheduler.enable_health_monitor: {_OBSERVABILITY}")
+
+    def service_faults(self) -> None:
+        raise NotImplementedError(f"Scheduler.service_faults: {_OBSERVABILITY}")
 
     def close(self) -> None:
         """Finish in-flight binds, retire the bind pool and flush both

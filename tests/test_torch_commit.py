@@ -212,14 +212,18 @@ def test_arbitrate_with_carry_matches_reference(workload, spread, monkeypatch):
 
 def arbiter_cu_walk(na, pa, ea, ta, ids, assign, pb, term_kinds, n_buckets):
     """csrc/arbiter.cu's algorithm in Python, on numpy arrays: the init
-    kernel (residual copies, gm as the per-(term, spec row) count of
-    matching hard terms of the term's (owner, key) group), then the scan's
-    steps exactly as its warp runs them — reads of a [TT, V] table at a
-    node's bucket clamped to V - 1, writes at a bucket >= V dropped, the
-    minimum over values recomputed only for the pod's own hard terms. The
-    hard-spread metadata (candidate nodes, merged counts) is the scratch
-    of topology.cu's spread-filter entry, taken here from its plain
-    version."""
+    launches (residual copies; per spec row its relevant terms — anti terms
+    it owns or matches, hard terms it owns or matches or whose (owner, key)
+    group matches it, gm the group's match count — and its port-clashing
+    spec rows; per placed pod and relevant term the node's bucket capped
+    at V, has-key and candidate bits), then the scan's steps exactly as its
+    warp runs them: reads of a [TT, V] table at a node's bucket clamped to
+    V - 1, writes at a bucket >= V dropped, the merged counts kept at the
+    present values only, and each hard term's minimum over them kept with
+    the number of values holding it, recomputed over V only when the last
+    of them grows. The hard-spread metadata (candidate nodes, merged
+    counts) is the scratch of topology.cu's spread-filter entry, taken
+    here from its plain version."""
     t = {k: v.numpy() for k, v in ta.items()}
     n_ = {k: v.numpy() for k, v in na.items()}
     order = PA.pop_order(pb["priority"], torch.arange(pb["sig"].shape[0], dtype=torch.int32),
@@ -228,6 +232,7 @@ def arbiter_cu_walk(na, pa, ea, ta, ids, assign, pb, term_kinds, n_buckets):
     u_cap, (n, k) = pa["valid"].shape[0], n_["label_dense"].shape
     tt = t["valid"].shape[0]
     v = n_buckets or n
+    big = 2**30
     m_raw = PTopo.match_terms_plain(ta, pa["label_vals"], pa["ns_id"]).numpy()
     pconf = PF.inbatch_port_conflict_plain(pa, ids).numpy()
     req, req_any = pa["req"].numpy(), pa["req_any"].numpy()
@@ -235,71 +240,86 @@ def arbiter_cu_walk(na, pa, ea, ta, ids, assign, pb, term_kinds, n_buckets):
     count = n_["pod_count"].astype(np.int64).copy()
     allowed = n_["allowed_pods"].astype(np.int64)
     have_spread = term_kinds is None or "spread_hard" in term_kinds
-    hard = t["valid"] & (t["kind"] == SPREAD_HARD)
+    hard = t["valid"] & (t["kind"] == SPREAD_HARD) & have_spread
     anti = t["valid"] & (t["kind"] == ANTI_REQ)
-    gm = np.zeros((tt, u_cap), np.int64)
     if have_spread:
         sel = PF.pod_match_node_selector(na, pa)
         sp = {key: x.numpy() for key, x in PTopo.spread_hard_tables_plain(na, ea, ta, sel, v).items()}
+        present = sp["merged_present"][:, :v].astype(bool)
+        mc = np.where(present, sp["merged_cnt"][:, :v].astype(np.int64), big)
+    # the init launches: relevant terms and clash lists per spec row
+    rel = [[] for _ in range(u_cap)]
+    for u in range(u_cap):
         for ti in range(tt):
-            if not hard[ti]:
-                continue
-            for q in range(tt):
-                if hard[q] and t["owner"][q] == t["owner"][ti] and t["topo_slot"][q] == t["topo_slot"][ti]:
-                    gm[ti] += m_raw[q]
+            m, own = bool(m_raw[ti, u]), t["owner"][ti] == u
+            gm = 0
+            if hard[ti]:
+                gm = sum(int(m_raw[q, u]) for q in range(tt) if hard[q] and t["owner"][q] == t["owner"][ti]
+                         and t["topo_slot"][q] == t["topo_slot"][ti])
+            if (anti[ti] and (m or own)) or (hard[ti] and (m or own or gm > 0)):
+                rel[u].append((ti, m, own, gm))
+    conf = [np.flatnonzero(pconf[u]) for u in range(u_cap)]
+
+    def fact(node, ti):
+        slot = t["topo_slot"][ti]
+        d = n_["label_dense"][node, min(max(slot, 0), k - 1)]
+        cand = have_spread and bool(sp["cand"][t["owner"][ti], node])
+        return min(max(d, 0), v), bool(d >= 0 and slot >= 0), cand
+
+    def merged_min(ti):
+        row = mc[ti][present[ti]]
+        if not row.size:
+            return big, 0
+        return int(row.min()), int((row == row.min()).sum())
+
+    mn, at_min = np.zeros(tt, np.int64), np.zeros(tt, np.int64)
+    for ti in np.flatnonzero(hard):
+        mn[ti], at_min[ti] = merged_min(ti)
     ca = np.zeros((tt, v), np.int64)
     cb = np.zeros((tt, v), np.int64)
-    md = np.zeros((tt, v), np.int64)
     cs = np.zeros((u_cap, n), np.int64)
     mh = np.zeros(tt, np.int64)
     verdict = np.full(order.shape[0], PA.V_NOFIT, np.int32)
-
-    def bucket(node, ti):
-        slot = t["topo_slot"][ti]
-        d = n_["label_dense"][node, min(max(slot, 0), k - 1)]
-        return max(d, 0), bool(d >= 0 and slot >= 0)
-
     for p in order:
         if not pv[p]:
             continue
         u, nrow = int(sig[p]), int(asg[p])
-        ncl = max(nrow, 0)
-        cap_ok = (not req_any[u] or bool((req[u] <= free[ncl]).all())) and count[ncl] + 1 <= allowed[ncl]
-        blocked = sp_bad = any_pair = couldfit = False
-        for ti in range(tt):
-            b, hk = bucket(ncl, ti)
-            bc = min(b, v - 1)
-            own = t["owner"][ti] == u
-            if anti[ti] and hk:
-                blocked |= bool(own and ca[ti, bc] > 0) or bool(m_raw[ti, u] and cb[ti, bc] > 0)
-            if have_spread and own and hard[ti]:
-                any_pair |= bool(sp["any_pair_t"][ti])
-                cnt = sp["merged_cnt"][ti].astype(np.int64) + md[ti]
-                present = sp["merged_present"][ti]
-                mn = cnt[present].min() if present.any() else 2**30
-                at_b = cnt[bc] if present[bc] else 0
-                sp_bad |= not (hk and at_b + int(t["self_match"][ti]) - mn <= t["weight"][ti])
-                couldfit |= mh[ti] > 0
-        blocked |= bool((pconf[u] & (cs[:, ncl] > 0)).any())
-        ok = cap_ok and not blocked and (not sp_bad or not any_pair)
         if nrow < 0:
+            couldfit = any(own and hard[ti] and mh[ti] > 0 for ti, _, own, _ in rel[u])
             verdict[p] = PA.V_DEFER if couldfit else PA.V_NOFIT
             continue
+        facts = [fact(nrow, ti) for ti, _, _, _ in rel[u]]
+        cap_ok = (not req_any[u] or bool((req[u] <= free[nrow]).all())) and count[nrow] + 1 <= allowed[nrow]
+        blocked = bool((cs[conf[u], nrow] > 0).any())
+        sp_bad = any_pair = False
+        for (ti, m, own, _), (b, hk, _) in zip(rel[u], facts):
+            bc = min(b, v - 1)
+            if anti[ti] and hk:
+                blocked |= bool(own and ca[ti, bc] > 0) or bool(m and cb[ti, bc] > 0)
+            if hard[ti] and own:
+                any_pair |= bool(sp["any_pair_t"][ti])
+                at_b = mc[ti, bc] if present[ti, bc] else 0
+                sp_bad |= not (hk and at_b + int(t["self_match"][ti]) - mn[ti] <= t["weight"][ti])
+        ok = cap_ok and not blocked and (not sp_bad or not any_pair)
         verdict[p] = PA.V_PLACE if ok else PA.V_DEFER
         if not ok:
             continue
-        free[ncl] -= req[u]
-        count[ncl] += 1
-        cs[u, ncl] += 1
-        for ti in range(tt):
-            b, hk = bucket(ncl, ti)
+        free[nrow] -= req[u]
+        count[nrow] += 1
+        cs[u, nrow] += 1
+        for (ti, m, own, gm), (b, hk, cand) in zip(rel[u], facts):
             if anti[ti] and hk and b < v:
-                ca[ti, b] += int(m_raw[ti, u])
-                cb[ti, b] += int(t["owner"][ti] == u)
-            if have_spread and hard[ti]:
-                if sp["cand"][t["owner"][ti], ncl] and gm[ti, u] > 0 and b < v:
-                    md[ti, b] += gm[ti, u]
-                mh[ti] += int(m_raw[ti, u])
+                ca[ti, b] += int(m)
+                cb[ti, b] += int(own)
+            if hard[ti]:
+                if cand and gm > 0 and b < v and present[ti, b]:
+                    old = mc[ti, b]
+                    mc[ti, b] = old + gm
+                    if old == mn[ti]:
+                        at_min[ti] -= 1
+                        if at_min[ti] == 0:  # the last value at the minimum grew
+                            mn[ti], at_min[ti] = merged_min(ti)
+                mh[ti] += int(m)
     return verdict
 
 

@@ -63,7 +63,8 @@ print('ok', len({mods!r}))
     assert out.stdout.startswith("ok")
 
 
-@pytest.mark.parametrize("path", ["kubernetes_tpu_torch", "chip_smoke.py", "scripts/torch_drain_profile.py"])
+@pytest.mark.parametrize("path", ["kubernetes_tpu_torch", "chip_smoke.py", "scripts/torch_drain_profile.py",
+                                  "scripts/torch_solve_stamps.py"])
 def test_source_names_no_jax_or_reference_import(path):
     full = os.path.join(REPO, path)
     files = [full] if full.endswith(".py") else [
@@ -104,6 +105,65 @@ def test_scheduler_without_cuda_raises(monkeypatch):
     assert srv.device.type == "cpu"
     srv.stop()
     assert Configurator(device="cpu").create_from_provider().device.type == "cpu"
+
+
+# the reference Scheduler's keywords and methods the port has no counterpart
+# for: ("ok", kwargs) constructs; ("refused", kwargs or a method name, the
+# text the NotImplementedError must hold)
+_ITEM4, _ITEM6, _ITEM8 = "queue 1 item 4", "queue 1 item 6", "queue 1 item 8"
+_REFERENCE_SURFACE = [
+    ("ok", dict(speculate=False)), ("ok", dict(spec_depth=2)), ("ok", dict(compile_plan=None)),
+    ("ok", dict(columnar_cache=False)), ("ok", dict(error_fn=None)), ("ok", dict(event_fn=None)),
+    ("ok", dict(trace=None)), ("ok", dict(trace=False)), ("ok", dict(fault_plan=None)),
+    ("ok", dict(bind_workers=8)), ("ok", dict(fold_plane=True)), ("ok", dict(commit_plane=False, fold_plane=False)),
+    ("ok", dict(speculate=False, spec_depth=2, compile_plan=None, columnar_cache=False, error_fn=None,
+                event_fn=None, trace=None, fault_plan=None, bind_workers=8, commit_plane=True, fold_plane=True)),
+    ("refused", dict(speculate=True), _ITEM6), ("refused", dict(spec_depth=3), _ITEM6),
+    ("refused", dict(compile_plan=object()), _ITEM6), ("refused", dict(columnar_cache=True), _ITEM4),
+    ("refused", dict(error_fn=print), _ITEM8), ("refused", dict(event_fn=print), _ITEM8),
+    ("refused", dict(trace=True), _ITEM8), ("refused", dict(fault_plan=object()), _ITEM8),
+    ("refused", dict(bind_workers=4), _ITEM8), ("refused", dict(bind_workers=True), _ITEM8),
+    ("refused", dict(commit_plane=True, fold_plane=False), "fold_plane=False"),
+    ("refused", dict(commit_plane=False, fold_plane=True), "fold_plane=True"),
+    ("refused", "warmup", _ITEM6), ("refused", "ready", _ITEM6), ("refused", "flush_speculative", _ITEM6),
+    ("refused", "abort", _ITEM8), ("refused", "dump_trace", _ITEM8),
+    ("refused", "enable_health_monitor", _ITEM8), ("refused", "service_faults", _ITEM8),
+]
+
+
+def _surface_id(case) -> str:
+    """A stable test id (no object addresses: every worker collects the same)."""
+    what = case[1]
+    if isinstance(what, str):
+        return f"{case[0]}-{what}"
+    return case[0] + "-" + ",".join(
+        f"{k}={v!r}" if v is None or isinstance(v, (bool, int)) else f"{k}=<{type(v).__name__}>"
+        for k, v in what.items())
+
+
+@pytest.mark.parametrize("case", _REFERENCE_SURFACE, ids=_surface_id)
+def test_reference_scheduler_surface_is_accepted_or_refused(case):
+    """Each reference keyword the port's behaviour equals constructs; any
+    other value, and each reference-only method, raises
+    NotImplementedError naming its ROADMAP item (never TypeError or
+    AttributeError); commit_plane without fold_plane is refused by name."""
+    if case[0] == "ok":
+        sched = Scheduler(device="cpu", **case[1])
+        assert sched.device.type == "cpu"
+        sched.close()
+        return
+    _, what, text = case
+    if isinstance(what, dict):
+        with pytest.raises(NotImplementedError, match=text):
+            Scheduler(device="cpu", **what)
+        return
+    sched = Scheduler(device="cpu")
+    try:
+        with pytest.raises(NotImplementedError, match=text):
+            attr = getattr(sched, what)
+            attr("trace.json") if what == "dump_trace" else attr()
+    finally:
+        sched.close()
 
 
 def test_kernel_wrapper_refuses_other_devices():

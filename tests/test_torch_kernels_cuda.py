@@ -12,7 +12,13 @@ mode (score_components), and the extender's filter_mask composition; the
 node mesh's cluster launches (csrc/solver.cu's solve, tracked solve and
 gang mode, csrc/arbiter.cu's scan, csrc/fold.cu's sharded folds) at 1, 2, 4 and 8
 shards against their plain versions and the single-device kernels, and a
-16-CTA cluster run or refused. Needs an NVIDIA card and nvcc:
+16-CTA cluster run or refused; the single-device solve as a cluster of 1
+to 16 CTAs with its residuals in shared memory (every mode, padded node
+rows, all-tied scores, R = 32, runs of one spec and none, the three
+election synchronisations) and its counted device-memory path, and the
+arbiter's hoisted facts with its tables in shared and in device memory,
+and at the config-3-hard and config-4 batch shapes (chip_smoke.py's).
+Needs an NVIDIA card and nvcc:
 
     python -m pytest -m cuda tests/test_torch_kernels_cuda.py
 
@@ -867,3 +873,257 @@ def test_sharded_cluster_of_16_runs_or_is_refused(cuda):
         assert torch.equal(got, PS.solve_sharded_plain(*args, key, 16, False, **kw)[0])
     with pytest.raises(ValueError, match="1 to 16"):
         PS.solve_sharded(*args, key, 32, False, **kw)
+
+
+# ---------------------------------------------------------------------------
+# the solve walk as a cluster on one device: shared-memory residuals, spec
+# rows prefetched, padded node rows, the counted device-memory path
+# ---------------------------------------------------------------------------
+
+def synthetic_solve(seed, device, u=24, n=517, b=700, r=8, ties=False, runs=True, fit_nowhere=True,
+                    holes=True, tight=False):
+    """(args, kwargs) of a solve on seeded random tensors: U spec rows of R
+    resource slots over N nodes (any N, so the padding of the last CTA's
+    rows shows), B pods in pop order over three priorities. `ties`: every
+    score equal (the tie-break noise decides every pod); `runs`: pods of
+    one spec in runs (the prefetch reuses the row), else consecutive pods
+    never share a spec; `fit_nowhere`: one spec masked off everywhere and
+    one asking more than any node has; `holes`: invalid pods scattered
+    through the batch beside the padded tail; `tight`: one pod a node."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    mask = rng.random((u, n)) < 0.6
+    score = np.zeros((u, n), np.int64) if ties else rng.integers(0, 12, (u, n))
+    req = rng.integers(0, 1000, (u, r))
+    req[rng.random((u, r)) < 0.3] = 0
+    req[0] = 0  # a spec asking nothing
+    free0 = rng.integers(500, 6000, (n, r))
+    count0 = rng.integers(0, 5, n)
+    allowed = count0 + (1 if tight else rng.integers(1, 30, n))
+    if fit_nowhere:
+        mask[1] = False
+        req[2] = 10**7
+    if runs:
+        sig = np.repeat(rng.integers(0, u, -(-b // 7)), 7)[:b]
+    else:
+        sig = (np.arange(b) * 5) % u
+    pod_valid = np.arange(b) < b - 37
+    if holes:
+        pod_valid &= rng.random(b) > 0.1
+    prio = rng.integers(0, 3, b)
+    t = lambda x, dt: torch.as_tensor(np.ascontiguousarray(x), dtype=dt, device=device)  # noqa: E731
+    order = SO.pop_order(t(prio, torch.int32), torch.arange(b, dtype=torch.int32, device=device),
+                         t(pod_valid, torch.bool))
+    args = (t(mask, torch.bool), t(score, torch.int64), t(req, torch.int64), t(free0, torch.int64),
+            t(count0, torch.int64), t(allowed, torch.int64), order)
+    kw = dict(req_any=t((req > 0).any(-1), torch.bool), sig=t(sig, torch.int32), pod_valid=t(pod_valid, torch.bool),
+              return_carry=True, nz0=t(rng.integers(0, 100, (n, 2)), torch.int64),
+              scoring_req=t(rng.integers(0, 50, (u, 2)), torch.int64))
+    return args, kw
+
+
+def _solo_or_refused(fn, shards):
+    """fn()'s result, or None when the card cannot co-schedule `shards`
+    CTAs as one cluster (the documented refusal, never a fallback)."""
+    try:
+        return fn()
+    except RuntimeError as e:
+        assert shards > 8 and f"cannot co-schedule a cluster of {shards} CTAs" in str(e)
+        return None
+
+
+SOLO = [1, 2, 4, 8, 16]
+SOLVE_CASES = {
+    "runs": {}, "no-runs": dict(runs=False), "ties": dict(ties=True), "r32": dict(r=32, u=12),
+    "no-holes": dict(holes=False, fit_nowhere=False), "n-divisible": dict(n=512),
+}
+
+
+@pytest.mark.parametrize("case", sorted(SOLVE_CASES))
+@pytest.mark.parametrize("det", [True, False], ids=["deterministic", "noise"])
+@pytest.mark.parametrize("shards", SOLO)
+def test_solo_cluster_solve_equals_plain(cuda, monkeypatch, shards, det, case):
+    """solve_greedy as one cluster of S CTAs on one device (N = 517: the
+    last CTA's rows padded), the residuals in shared memory: the same
+    choices and carry as the plain version, on runs of one spec and on
+    consecutive distinct specs, all-tied scores, R = 32, pods that fit
+    nowhere, invalid pods through the batch."""
+    monkeypatch.setattr(SO, "SOLO_SHARDS", shards)
+    args, kw = synthetic_solve(shards * 10 + det, cuda, **SOLVE_CASES[case])
+    key = SO.prng_key_data(11)
+    before, glob = SO.solve_greedy.launches, SO.solve_greedy.global_state_launches
+    got = _solo_or_refused(lambda: SO.solve_greedy(*args, key, det, **kw), shards)
+    if got is None:
+        return
+    assert SO.solve_greedy.launches == before + 1 and SO.solve_greedy.global_state_launches == glob
+    want = SO.solve_greedy_plain(*args, key, det, **kw)
+    assert torch.equal(got[0], want[0])
+    for a, c in zip(got[1], want[1]):
+        assert torch.equal(a, c)
+    assert int((got[0] >= 0).sum()) > 100
+
+
+@pytest.mark.parametrize("det", [True, False], ids=["deterministic", "noise"])
+@pytest.mark.parametrize("shards", SOLO)
+def test_solo_cluster_tracked_solve_equals_plain(cuda, monkeypatch, shards, det):
+    """The tracked solve (in-batch anti-affinity, host ports) as one
+    cluster of S CTAs on one device: the plain version's choices and carry."""
+    monkeypatch.setattr(SO, "SOLO_SHARDS", shards)
+    args, kw = _solve_case(cuda, 1, True)
+    key = SO.prng_key_data(5)
+    before = SO.solve_greedy.tracked_launches
+    got = _solo_or_refused(lambda: SO.solve_greedy(*args, key, det, **kw), shards)
+    if got is None:
+        return
+    assert SO.solve_greedy.tracked_launches == before + 1
+    want = SO.solve_greedy_plain(*args, key, det, **kw)
+    assert torch.equal(got[0], want[0])
+    for a, c in zip(got[1], want[1]):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("tight", [False, True], ids=["loose", "tight"])
+@pytest.mark.parametrize("det", [True, False], ids=["deterministic", "noise"])
+@pytest.mark.parametrize("shards", SOLO)
+def test_solo_cluster_gang_solve_equals_plain(cuda, monkeypatch, shards, det, tight):
+    """The gang mode as one cluster of S CTAs on one device, both passes in
+    shared memory; `tight` (one pod a node) drops groups."""
+    import numpy as np
+
+    monkeypatch.setattr(SO, "SOLO_SHARDS", shards)
+    args, kw = synthetic_solve(shards + 3, cuda, tight=tight, n=301 if tight else 517)
+    b = args[-1].shape[0]
+    rng = np.random.default_rng(shards)
+    group = np.where(rng.random(b) < 0.7, rng.integers(0, 90, b), -1).astype(np.int32)
+    group = torch.from_numpy(group).to(cuda)
+    key = SO.prng_key_data(2**32 + 9)
+    got = _solo_or_refused(lambda: SO.solve_gang(*args, group, key, det, **kw), shards)
+    if got is None:
+        return
+    want = SO.solve_gang_plain(*args, group, key, det, **kw)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    for a, c in zip(got[2], want[2]):
+        assert torch.equal(a, c)
+    if tight:
+        assert int((~want[1]).sum()) > 0
+
+
+@pytest.mark.parametrize("gang", [False, True], ids=["greedy", "gang"])
+@pytest.mark.parametrize("det", [True, False], ids=["deterministic", "noise"])
+def test_solve_too_large_for_shared_memory_takes_counted_device_path(cuda, det, gang):
+    """A node count whose rows do not fit a CTA's shared memory (N =
+    40,000 over the default cluster: more than 2,048 rows a CTA) takes the
+    same kernel's device-memory path, counted, and equals the plain version."""
+    import numpy as np
+
+    args, kw = synthetic_solve(7, cuda, u=8, n=40000, b=512)
+    lay = SO.solve_layout(40000, 8, 512, SO.SOLO_SHARDS)
+    assert not lay["resident"]
+    key = SO.prng_key_data(4)
+    if gang:
+        group = torch.from_numpy((np.arange(512) // 8).astype(np.int32)).to(cuda)
+        before = SO.solve_gang.global_state_launches
+        got = SO.solve_gang(*args, group, key, det, **kw)
+        assert SO.solve_gang.global_state_launches == before + 1
+        want = SO.solve_gang_plain(*args, group, key, det, **kw)
+        assert torch.equal(got[1], want[1])
+        got, want = (got[0], got[2]), (want[0], want[2])
+    else:
+        before = SO.solve_greedy.global_state_launches
+        got = SO.solve_greedy(*args, key, det, **kw)
+        assert SO.solve_greedy.global_state_launches == before + 1
+        want = SO.solve_greedy_plain(*args, key, det, **kw)
+    assert torch.equal(got[0], want[0])
+    for a, c in zip(got[1], want[1]):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("sync", ["mbarrier", "async", "cluster"])
+@pytest.mark.parametrize("shards", [2, 8, 16])
+def test_solve_election_sync_modes_agree(cuda, shards, sync):
+    """Both ways of synchronising the election across the cluster (the
+    mbarrier push, the cluster barrier) give the plain version's solve."""
+    args, kw = synthetic_solve(shards, cuda)
+    key = SO.prng_key_data(8)
+    rest = (kw["req_any"], kw["sig"], kw["pod_valid"], kw["nz0"], kw["scoring_req"])
+
+    def run():
+        sargs, out, carry, _ = SO.solve_args(*args, key, False, *rest, shards=shards, sync=sync)
+        SO.launch_solve(sargs, cuda)
+        torch.cuda.synchronize()
+        return out, carry
+
+    got = _solo_or_refused(run, shards)
+    if got is None:
+        return
+    want = SO.solve_greedy_plain(*args, key, False, **kw)
+    assert torch.equal(got[0], want[0])
+    for a, c in zip(got[1], want[1]):
+        assert torch.equal(a, c)
+
+
+@pytest.mark.parametrize("n_buckets", [16, 2048], ids=["tables-shared", "tables-device"])
+@pytest.mark.parametrize("track", [True, False], ids=["tracked", "untracked"])
+@pytest.mark.parametrize("shards", SHARDS)
+def test_arbiter_hoisted_facts_equal_plain(cuda, shards, track, n_buckets):
+    """The redesigned scan (facts hoisted into the grid-wide launches, the
+    running DoNotSchedule minimum) with its tables in shared memory (V =
+    16) and in device memory (V = 2,048), on a solved DoNotSchedule /
+    inter-pod / host-port batch: the plain scan's verdicts, one CTA or S."""
+    from kubernetes_tpu_torch.commit import arbiter as A
+
+    na, ea, xa, ta, au, pa, ids, _ = hard_spread_cluster(1, cuda)
+    b = 360
+    pb = {"sig": (torch.arange(b, device=cuda) % 120).to(torch.int32),
+          "valid": torch.arange(b, device=cuda) < b - 8,
+          "priority": (torch.arange(b, device=cuda) % 3).to(torch.int32)}
+    kinds = frozenset({"spread_hard", "spread_soft", "anti_req", "pref", "et_anti", "et_score"})
+    assign, _ = PP.solve_pipeline(na, pa, ids, SO.prng_key_data(2), pb=pb, term_kinds=kinds,
+                                  track_inbatch=track, ea=ea, ta=ta, au=au, xa=xa, n_buckets=n_buckets)
+    for tk in (kinds, kinds - {"spread_hard"}):
+        if shards == 1:
+            got = A.arbitrate(na, pa, ea, ta, ids, assign, pb, term_kinds=tk, n_buckets=n_buckets)
+        else:
+            got = A.arbitrate_sharded(shards, na, pa, ea, ta, ids, assign, pb, term_kinds=tk, n_buckets=n_buckets)
+        want = A.arbitrate_plain(na, pa, ea, ta, ids, assign, pb, term_kinds=tk, n_buckets=n_buckets)
+        assert torch.equal(got, want)
+    assert bool((want == A.V_PLACE).any())
+
+
+@pytest.mark.parametrize("shards", SHARDS)
+@pytest.mark.parametrize("config", ["config-3-hard", "config-4"])
+def test_arbiter_at_the_main_path_shapes_equals_plain(cuda, config, shards):
+    """The arbiter at the shapes its drains give it, one 4,096-pod batch
+    solved on the card (chip_smoke.py's batches): config 3-hard (U = TT =
+    128, N = 10,240, V = 16: tables in shared memory) and config 4 (U = TT
+    = 32, N = 2,048, V = 2,048: tables in device memory), one CTA or S."""
+    import os
+    import sys
+
+    from kubernetes_tpu_torch.commit import arbiter as A
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    import chip_smoke as C
+
+    if config == "config-4":
+        nodes, existing, pods = C.config4_batch(1000)
+    else:
+        nodes, existing, pods, _ = C.config3_batch(False, 5000, hard=True)
+    enc = C.encode(nodes, existing, pods, cuda)
+    na, ea, xa, ta, au, pa, ids, v, sig, kinds = (enc[k] for k in ("na", "ea", "xa", "ta", "au", "pa", "ids", "v",
+                                                                   "sig", "kinds"))
+    b = sig.shape[0]
+    pb = {"sig": sig, "valid": torch.ones(b, dtype=torch.bool, device=cuda),
+          "priority": torch.zeros(b, dtype=torch.int32, device=cuda)}
+    track = "anti_req" in kinds or enc["ports"]
+    assign, _ = PP.solve_pipeline(na, pa, ids, SO.prng_key_data(5), pb=pb, term_kinds=kinds, track_inbatch=track,
+                                  ea=ea, ta=ta, au=au, xa=xa, n_buckets=v)
+    args = (na, pa, ea, ta, ids, assign, pb)
+    if shards == 1:
+        got = A.arbitrate(*args, term_kinds=kinds, n_buckets=v)
+    else:
+        got = A.arbitrate_sharded(shards, *args, term_kinds=kinds, n_buckets=v)
+    want = A.arbitrate_plain(*args, term_kinds=kinds, n_buckets=v)
+    assert torch.equal(got, want)
+    assert bool((want == A.V_PLACE).any())

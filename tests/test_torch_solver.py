@@ -324,3 +324,28 @@ def test_sequential_walk_inb_equals_chunked_plain(case, det):
     assert np.array_equal(want.numpy(), walk)
     for a, b in zip(want_carry, carry):
         assert np.array_equal(a.numpy(), b)
+
+
+def test_solve_layout_keeps_the_main_path_shapes_resident():
+    """Where csrc/solver.cu keeps its state: the config-2, config-3 and
+    config-5 batches (B = 4,096) over the single-device cluster hold their
+    CTA's residuals and the choices in shared memory; an N that is no
+    multiple of S pads the last CTA's rows; more than 2,048 rows a CTA, or
+    more bytes than a CTA's budget, take the device-memory path; the
+    tracked solve's ca / cb replicas join them only where both fit."""
+    s = PSO.SOLO_SHARDS
+    for n in (6144, 10240, 2048):
+        lay = PSO.solve_layout(n, 8, 4096, s)
+        rows = -(-n // s)
+        assert lay == {"rows": rows, "resident": True, "track_shared": False, "smem": 12 * rows * 8 + 4096 * 4}
+        assert lay["smem"] <= PSO.SOLVE_SMEM_BUDGET
+    assert PSO.solve_layout(517, 8, 700, 16)["rows"] == 33
+    big = PSO.solve_layout(40000, 8, 512, 16)
+    assert big["rows"] == 2500 and not big["resident"] and big["smem"] == 0
+    assert not PSO.solve_layout(16 * 2000, 32, 65536, 16)["resident"]  # rows fit the threads, bytes do not
+    tracked = PSO.solve_layout(2048, 8, 4096, s, tt=32, u=32, v=2048, track=True)
+    assert tracked["resident"] and not tracked["track_shared"]
+    assert tracked["smem"] == 12 * (2048 // s) * 8 + 4096 * 4 + (2 * 32 + 32) * 4
+    small = PSO.solve_layout(300, 8, 640, s, tt=16, u=64, v=64, track=True)
+    rows = -(-300 // s)
+    assert small["track_shared"] and small["smem"] == 12 * rows * 8 + 640 * 4 + (2 * 16 + 64) * 4 + 2 * 16 * 64 * 4
