@@ -58,10 +58,9 @@ they placed. Phases:
                 for bit, and timed at the config-6 nominee shapes (976
                 nominees on 512 rows, B=976), with one
                 index_put_(accumulate=True) per column as its library
-                yardstick; the single-device solve's cluster layouts (8 and
-                16 CTAs, each with the st.async, mbarrier and cluster-barrier
-                elections) at the config-2 and config-3 shapes, each equal to
-                the plain version, timed in turns; gather_score_rows on its
+                yardstick; the single-device solve as a cluster of 8 and
+                of 16 CTAs at the config-2 and config-3 shapes, each equal
+                to the plain version, timed in turns; gather_score_rows on its
                 edges (K = 1, repeated rows, N not a multiple of the block, int64
                 extremes) and at the config-3-hard shapes (U = 128,
                 N = 10,240, K = 128), one torch.index_select as its
@@ -202,7 +201,7 @@ they placed. Phases:
   6. kernels    a {"redesign": ...} line (the serial walks at the main
                 path's shapes: the solve plain, tracked, gang and on the
                 mesh, the arbiter on one CTA and the mesh; ms, plain ms,
-                bound ms and µs a pod, and the solve layouts' ms), then
+                bound ms and µs a pod, and the 8- and 16-CTA solve's ms), then
                 one JSON line: per kernel (the nineteen, the tracked
                 solve, the RTCR branch, score_components, the extender's
                 filter_mask and the mesh's six: the sharded solve, tracked
@@ -1702,19 +1701,17 @@ def compare_sharded_solve(enc, label, track: bool):
     return st
 
 
-# the single-device solve's cluster layouts held against each other: the
-# CTAs of the cluster and the election's synchronisation
-SOLO_LAYOUTS = ((8, "mbarrier"), (16, "mbarrier"), (8, "async"), (16, "async"), (8, "cluster"), (16, "cluster"))
+# the single-device solve's cluster sizes held against each other
+SOLO_LAYOUTS = (8, 16)
 
 
 def compare_solve_layouts(enc, label):
     """The single-device solve at this batch's shapes (deterministic off)
-    under each of SOLO_LAYOUTS, each equal to the plain version (choices
-    and carry), timed in turns (A B C D D C B A, one prebuilt struct a
-    layout, fresh carries each launch through the wrapper's copies);
-    returns {layout: ms} and logs ms and µs a pod beside the wrapper's
-    default (ops/solver.SOLO_SHARDS, SOLVE_SYNC). A layout the card
-    cannot co-schedule is reported, not timed."""
+    as a cluster of each of SOLO_LAYOUTS CTAs, each equal to the plain
+    version (choices and carry), timed in turns (A B B A, one prebuilt
+    struct a layout, fresh carries each launch through the wrapper's
+    copies); returns {layout: ms} and logs ms and µs a pod beside the
+    wrapper's default (ops/solver.SOLO_SHARDS)."""
     from kubernetes_tpu_torch.kernels import build
     from kubernetes_tpu_torch.ops import solver as SO
 
@@ -1724,30 +1721,25 @@ def compare_solve_layouts(enc, label):
     want = SO.solve_greedy_plain(**kw, key=key, deterministic=False, return_carry=True)
     pods = int(kw["pod_valid"].sum())
     built = {}
-    for shards, sync in SOLO_LAYOUTS:
+    for shards in SOLO_LAYOUTS:
         pos = ("mask", "score", "req", "free0", "count0", "allowed", "order")
         rest = ("req_any", "sig", "pod_valid", "nz0", "scoring_req")
         args, out, carry, _ = SO.solve_args(*(kw[k] for k in pos), key, False, *(kw[k] for k in rest),
-                                            shards=shards, sync=sync)
-        try:
-            SO.launch_solve(args, dev)
-        except RuntimeError as e:
-            log(f"[kernels] {label} solve layout S={shards} {sync}: refused ({e})")
-            continue
+                                            shards=shards)
+        SO.launch_solve(args, dev)
         torch.cuda.synchronize()
         err = max_err((out,) + tuple(carry), (want[0],) + tuple(want[1]))
-        check(err == 0, f"[{label}] the solve at S={shards} ({sync}) differs from its plain version by {err}")
-        built[(shards, sync)] = args
+        check(err == 0, f"[{label}] the solve at S={shards} differs from its plain version by {err}")
+        built[shards] = args
     times = {k: [] for k in built}
     for k in list(built) + list(reversed(list(built))):
         times[k].append(cuda_ms(lambda: build.launch(SO.SOLVE_ENTRY, built[k], dev), 5))
     ms = {k: sum(v) / len(v) for k, v in times.items()}
-    default = (SO.SOLO_SHARDS, SO.SOLVE_SYNC)
     log(f"[kernels] {label} solve layouts (U={kw['mask'].shape[0]} N={kw['mask'].shape[1]} B={kw['order'].shape[0]},"
         f" {pods} pods; exact against the plain version): " + ", ".join(
-            f"S={s_} {y}{' (default)' if (s_, y) == default else ''} {m:.4f} ms = {m * 1000 / pods:.3f} us a pod"
-            for (s_, y), m in ms.items()))
-    return {f"S{s_}-{y}": m for (s_, y), m in ms.items()}
+            f"S={s_}{' (default)' if s_ == SO.SOLO_SHARDS else ''} {m:.4f} ms = {m * 1000 / pods:.3f} us a pod"
+            for s_, m in ms.items()))
+    return {f"S{s_}": m for s_, m in ms.items()}
 
 
 def compare_sharded_arbiter(enc, label, time_it: bool):
@@ -2009,7 +2001,7 @@ def phase_kernels():
     stats.update(gang)
     stats.update(phase_slab_kernels())
     stats.update(phase_mesh_kernels(enc, enc4, enc3h, enc5))
-    # the redesigned walk's cluster layouts on one device, at the config-2
+    # the redesigned walk at 8 and 16 CTAs on one device, at the config-2
     # and config-3 shapes, and the walks' per-pod summary
     layouts = {"config-2": compare_solve_layouts(e, "config-2"), "config-3": compare_solve_layouts(enc, "config-3")}
     stats["_redesign"] = redesign_summary(stats, hard["arbitrate"], layouts)
@@ -2038,12 +2030,11 @@ def redesign_summary(stats, arb3h, layouts):
         "arbitrate config-3-hard": row(arb3h),
         "arbitrate config-4": row(stats["arbitrate"]),
         "arbitrate sharded config-3-hard (8 CTAs)": row(stats["arbitrate_sharded"]),
-        "solve layouts": layouts,
     }
     for k, v in out.items():
-        if "ms" in v:
-            log(f"[redesign] {k}: {v['ms']:.4f} ms, {v['us_per_pod']:.3f} us a pod, plain {v['plain_ms']:.4f} ms, "
-                f"bound {v['bound_ms']:.6f} ms")
+        log(f"[redesign] {k}: {v['ms']:.4f} ms, {v['us_per_pod']:.3f} us a pod, plain {v['plain_ms']:.4f} ms, "
+            f"bound {v['bound_ms']:.6f} ms")
+    out["solve layouts"] = layouts
     return out
 
 

@@ -50,18 +50,13 @@
 // a warp reduction (four redux.sync: the score's two words, the noise, the
 // node), ONE CTA barrier, then the election:
 //   * S = 1: every warp reduces the warp candidates itself;
-//   * S > 1, st.async (`sync_mode` 2, the wrappers' default): warp 0
-//     reduces the CTA's candidate; its lane 0 arrives on this CTA's
-//     mbarrier expecting S candidates' bytes, and lane d stores the
-//     candidate into CTA d's slot with st.async, completing those bytes on
-//     CTA d's mbarrier; each CTA waits on its own mbarrier's phase and every
-//     warp reduces the S candidates from local shared memory;
-//   * S > 1, mbarrier (`sync_mode` 0): the same with a remote store and a
-//     remote arrive (release at cluster scope) a lane; S arrivals a phase;
-//   * S > 1, cluster barrier (`sync_mode` 1): warp 0 publishes its
-//     candidate, cluster.sync(), every warp reads the S candidates through
-//     distributed shared memory.
-// The last two are kept to measure the three (PERF.md).
+//   * S > 1: warp 0 reduces the CTA's candidate; its lane 0 arrives on
+//     this CTA's mbarrier expecting S candidates' bytes, and lane d stores
+//     the candidate into CTA d's slot with st.async, completing those bytes
+//     on CTA d's mbarrier; each CTA waits on its own mbarrier's phase and
+//     every warp reduces the S candidates from local shared memory. (This
+//     election beat a remote-arrive mbarrier and a full cluster barrier on
+//     the card; PERF.md records the measurement.)
 // Every CTA reduces the same S candidates under one total order (ties go
 // to the lowest node index, as jnp.argmax does), so every CTA elects the
 // same node — the replication the reference's pmax / pmin give — and only
@@ -113,9 +108,6 @@ namespace cg = cooperative_groups;
 #define SOLVE_WARPS (SOLVE_THREADS / 32)
 #define MAX_ROWS_PER_THREAD 4  // the resident walk's rows a thread (Nl <= 2,048)
 #define LANES_MASK 0xffffffffu
-#define SYNC_MBARRIER 0
-#define SYNC_CLUSTER 1
-#define SYNC_ASYNC 2
 
 struct SolveArgs {
   const uint8_t* mask;         // [U, N]
@@ -161,7 +153,6 @@ struct ClusterSolveArgs {
   int64_t* nz1;           // [N, 2]
   uint32_t seed1, seed2;  // tie-noise seeds of the two split keys
   int32_t resident;       // 1: the residuals in shared memory (see solve_smem)
-  int32_t sync_mode;      // S > 1: SYNC_MBARRIER, SYNC_CLUSTER or SYNC_ASYNC
   int32_t track_shared;   // tracking: ca / cb replicas in shared memory
   int4* steps;            // [S, B] scratch: (rank, position, spec row) of the valid pods in pop order
   int32_t* sel;           // [S, B] scratch: the choices by step (device-memory state only)
@@ -236,13 +227,6 @@ __device__ __forceinline__ void mbar_init(uint64_t* bar, uint32_t count) {
   asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count) : "memory");
 }
 
-// arrive (release at cluster scope) on CTA `rank`'s copy of `bar`
-__device__ __forceinline__ void mbar_arrive_remote(uint64_t* bar, uint32_t rank) {
-  uint32_t remote;
-  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;" : "=r"(remote) : "r"(smem_u32(bar)), "r"(rank));
-  asm volatile("mbarrier.arrive.release.cluster.shared::cluster.b64 _, [%0];" ::"r"(remote) : "memory");
-}
-
 // arrive on this CTA's `bar` expecting `bytes` of st.async data this phase
 __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)), "r"(bytes) : "memory");
@@ -283,7 +267,6 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
 struct Walk {
   cg::cluster_group cluster;
   int shard, S, Nl, lo;     // this CTA, the cluster size, its rows [lo, lo + Nl)
-  int sync_mode;
   uint32_t step;            // election steps taken so far (the mbarrier phases)
   int64_t* free_s;          // resident: [R, Nl] slot-major
   int64_t* cnt_s;           // resident: [Nl] pod counts (written back)
@@ -562,29 +545,14 @@ __device__ void greedy_walk(const SolveArgs& a, Walk& w, const int4* steps, cons
       if (warp == 0) {
         if (lane < SOLVE_WARPS) c = wslot[wb][lane];
         warp_best(c);  // this CTA's candidate, in every lane
-        if (w.sync_mode == SYNC_MBARRIER) {
-          if (lane < w.S) {  // lane d pushes it into CTA d's slot and arrives there
-            Cand* dst = w.cluster.map_shared_rank(&w.e[wb * MAX_CLUSTER + w.shard], lane);
-            *dst = c;
-            mbar_arrive_remote(&w.bars[wb], (uint32_t)lane);
-          }
-        } else if (w.sync_mode == SYNC_ASYNC) {
-          // this CTA's one arrival expects the S candidates' bytes; lane d
-          // stores into CTA d's slot, completing them there
-          if (lane == 0) mbar_arrive_expect_tx(&w.bars[wb], (uint32_t)(w.S * sizeof(Cand)));
-          if (lane < w.S) cand_store_async(&w.e[wb * MAX_CLUSTER + w.shard], c, &w.bars[wb], (uint32_t)lane);
-        } else if (lane == 0) {
-          w.e[wb * MAX_CLUSTER] = c;
-        }
+        // this CTA's one arrival expects the S candidates' bytes; lane d
+        // stores into CTA d's slot, completing them there
+        if (lane == 0) mbar_arrive_expect_tx(&w.bars[wb], (uint32_t)(w.S * sizeof(Cand)));
+        if (lane < w.S) cand_store_async(&w.e[wb * MAX_CLUSTER + w.shard], c, &w.bars[wb], (uint32_t)lane);
       }
       c = Cand{0, 0u, -1};
-      if (w.sync_mode != SYNC_CLUSTER) {
-        mbar_wait(&w.bars[wb], (w.step >> 1) & 1u);
-        if (lane < w.S) c = w.e[wb * MAX_CLUSTER + lane];
-      } else {
-        w.cluster.sync();
-        if (lane < w.S) c = *w.cluster.map_shared_rank(&w.e[wb * MAX_CLUSTER], lane);
-      }
+      mbar_wait(&w.bars[wb], (w.step >> 1) & 1u);
+      if (lane < w.S) c = w.e[wb * MAX_CLUSTER + lane];
       warp_best(c);
     }
     const int32_t n = c.n;
@@ -737,7 +705,6 @@ __global__ void __launch_bounds__(SOLVE_THREADS) solve_kernel(const ClusterSolve
   w.S = g.S;
   w.Nl = g.Nl;
   w.lo = w.shard * g.Nl;
-  w.sync_mode = g.sync_mode;
   w.step = 0;
   w.e = e;
   w.bars = bars;
@@ -768,9 +735,8 @@ __global__ void __launch_bounds__(SOLVE_THREADS) solve_kernel(const ClusterSolve
   }
   if (g.S > 1) {
     if (threadIdx.x == 0) {
-      const uint32_t arrivals = g.sync_mode == SYNC_ASYNC ? 1u : (uint32_t)g.S;
-      mbar_init(&bars[0], arrivals);
-      mbar_init(&bars[1], arrivals);
+      mbar_init(&bars[0], 1u);  // this CTA's own arrival; the pushes complete bytes
+      mbar_init(&bars[1], 1u);
       asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
     }
     w.cluster.sync();  // every CTA's mbarriers are ready before the first push
@@ -787,7 +753,7 @@ __global__ void __launch_bounds__(SOLVE_THREADS) solve_kernel(const ClusterSolve
 static int solve_valid(const ClusterSolveArgs& g) {
   const SolveArgs& a = g.walk;
   if (g.S < 1 || g.S > MAX_CLUSTER || g.Nl < 1 || g.Nl != (a.N + g.S - 1) / g.S) return 0;
-  if (a.R > 32 || g.sync_mode < SYNC_MBARRIER || g.sync_mode > SYNC_ASYNC) return 0;
+  if (a.R > 32) return 0;
   if (g.resident && g.Nl > MAX_ROWS_PER_THREAD * SOLVE_THREADS) return 0;
   if (g.track_shared && !a.track) return 0;
   return !(g.gang && a.track);  // the gang solve tracks nothing

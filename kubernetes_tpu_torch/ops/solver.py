@@ -435,20 +435,13 @@ SOLVE_ENTRY = "ktpu_solve"
 
 # One device runs the solve as a thread-block cluster of this many CTAs
 # (csrc/solver.cu: node rows split over the CTAs, each CTA's residuals in
-# its shared memory); with the st.async election 16 beat 8 at the config-2
-# and config-3 shapes (chip_smoke.py's solve layouts, PERF.md)
+# its shared memory); 16 beat 8 at the config-2 and config-3 shapes (PERF.md)
 SOLO_SHARDS = 16
 SOLVE_THREADS = 512  # csrc/solver.cu's CTA
 MAX_ROWS_PER_THREAD = 4  # the resident walk's rows a thread (csrc/solver.cu)
 # a CTA's dynamic shared memory for the resident residuals (the card's 227
 # KB a block less the kernel's static slots, with room to spare)
 SOLVE_SMEM_BUDGET = 220 * 1024
-SYNC_MODES = {"mbarrier": 0, "cluster": 1, "async": 2}
-# the election's synchronisation across the cluster (csrc/solver.cu): each
-# CTA's candidate stored into every CTA with st.async, completing bytes on
-# the receiver's mbarrier; "mbarrier" (remote store + release arrive) and
-# "cluster" (cluster.sync) measured slower (PERF.md)
-SOLVE_SYNC = "async"
 
 
 class ClusterSolveArgs(ctypes.Structure):
@@ -459,8 +452,8 @@ class ClusterSolveArgs(ctypes.Structure):
         ("group", ctypes.c_void_p), ("first", ctypes.c_void_p), ("fail", ctypes.c_void_p),
         ("alive", ctypes.c_void_p), ("gang_ok", ctypes.c_void_p), ("free1", ctypes.c_void_p),
         ("count1", ctypes.c_void_p), ("nz1", ctypes.c_void_p), ("seed1", ctypes.c_uint32),
-        ("seed2", ctypes.c_uint32), ("resident", ctypes.c_int32), ("sync_mode", ctypes.c_int32),
-        ("track_shared", ctypes.c_int32), ("steps", ctypes.c_void_p), ("sel", ctypes.c_void_p),
+        ("seed2", ctypes.c_uint32), ("resident", ctypes.c_int32), ("track_shared", ctypes.c_int32),
+        ("steps", ctypes.c_void_p), ("sel", ctypes.c_void_p),
     ]
 
 
@@ -488,13 +481,12 @@ def solve_layout(n: int, r: int, b: int, shards: int, tt: int = 0, u: int = 0, v
 
 
 def solve_args(mask, score, req, free0, count0, allowed, order, key, deterministic, req_any, sig, pod_valid, nz0,
-               scoring_req, shards: Optional[int] = None, inb=None, group=None, sync: Optional[str] = None) -> tuple:
+               scoring_req, shards: Optional[int] = None, inb=None, group=None) -> tuple:
     """csrc/solver.cu's struct for these CUDA tensors, one cluster of
     `shards` CTAs (SOLO_SHARDS on one device, one a node shard on a mesh):
     (ClusterSolveArgs, the [B] int32 assignment, the (free, count, nz)
     carry it updates in place, gang_ok or None). With `group` the two-pass
     gang mode (no tracking): both passes from free0 / count0 / nz0.
-    `sync` picks the election's synchronisation (SOLVE_SYNC by default).
     The struct holds what it points at in `.keepalive`."""
     walk, out, carry = walk_args(mask, score, req, free0, count0, allowed, order, deterministic, req_any, sig,
                                  pod_valid, nz0, scoring_req)
@@ -510,7 +502,7 @@ def solve_args(mask, score, req, free0, count0, allowed, order, key, determinist
     steps = torch.empty((shards * B * 4,), dtype=torch.int32, device=dev)
     sel = torch.empty((0 if lay["resident"] else shards * B,), dtype=torch.int32, device=dev)
     common = dict(S=shards, Nl=lay["rows"], resident=int(lay["resident"]),
-                  sync_mode=SYNC_MODES[sync or SOLVE_SYNC], track_shared=int(lay["track_shared"]),
+                  track_shared=int(lay["track_shared"]),
                   steps=steps.data_ptr(), sel=sel.data_ptr())
     if group is None:
         walk.seed = noise_seed(key)

@@ -63,8 +63,7 @@ print('ok', len({mods!r}))
     assert out.stdout.startswith("ok")
 
 
-@pytest.mark.parametrize("path", ["kubernetes_tpu_torch", "chip_smoke.py", "scripts/torch_drain_profile.py",
-                                  "scripts/torch_solve_stamps.py"])
+@pytest.mark.parametrize("path", ["kubernetes_tpu_torch", "chip_smoke.py", "scripts/torch_drain_profile.py"])
 def test_source_names_no_jax_or_reference_import(path):
     full = os.path.join(REPO, path)
     files = [full] if full.endswith(".py") else [
@@ -186,3 +185,59 @@ def test_entry_points_match_the_kernel_sources():
             defined |= set(re.findall(r'extern "C" int (ktpu_\w+)\(', f.read()))
     assert len(build.ENTRY_POINTS) == len(set(build.ENTRY_POINTS))
     assert set(build.ENTRY_POINTS) == defined
+
+
+def _struct_mirrors():
+    """Every ctypes mirror of a kernel's argument struct in the port, as
+    (class, C struct name, source file) from its docstring."""
+    import ctypes
+    import importlib
+    import re
+
+    out = []
+    for name in _modules():
+        mod = importlib.import_module(name)
+        for cls in vars(mod).values():
+            if isinstance(cls, type) and issubclass(cls, ctypes.Structure) and cls.__module__ == name:
+                m = re.search(r"`struct (\w+)` in (csrc/\w+\.cu)", cls.__doc__ or "")
+                assert m, f"{name}.{cls.__name__} names no C struct"
+                out.append((cls, m.group(1), m.group(2)))
+    return out
+
+
+_C_WIDTHS = {"int32_t": 4, "uint32_t": 4, "int64_t": 8, "uint64_t": 8, "uint8_t": 1, "int": 4}
+
+
+@pytest.mark.parametrize("mirror", _struct_mirrors(), ids=lambda m: m[1])
+def test_ctypes_mirror_matches_the_kernel_struct(mirror):
+    """A wrapper's ctypes struct has the C struct's fields in the same
+    order at the same widths (a drift is read wrongly only on the card)."""
+    import ctypes
+    import re
+
+    cls, cname, src = mirror
+    with open(os.path.join(PKG, src)) as f:
+        text = f.read()
+    m = re.search(r"struct (?:__align__\(\d+\) )?%s \{(.*?)\n\};" % cname, text, re.S)
+    assert m, f"no struct {cname} in {src}"
+    fields = []
+    for decl in re.sub(r"//[^\n]*", "", m.group(1)).split(";"):
+        decl = decl.strip()
+        if not decl:
+            continue
+        t = re.match(r"(?:const\s+)?([\w:]+)\s*(\**)\s*(.*)", decl, re.S)
+        ctype, ptr, rest = t.groups()
+        for part in rest.split(","):
+            arr = re.search(r"\[(\w+)\]", part)
+            fields.append((part.strip().lstrip("*").split("[")[0].strip().rstrip("_"),
+                           "*" if ptr or part.strip().startswith("*") else ctype, arr.group(1) if arr else None))
+    py = cls._fields_
+    assert [f[0] for f in fields] == [f[0].rstrip("_") for f in py]  # `free` may be spelt free_
+    for (name, ctype, arr), (_, pytype) in zip(fields, py):
+        if ctype == "*":
+            assert ctypes.sizeof(pytype) == 8, name
+        elif ctype in _C_WIDTHS:
+            assert ctypes.sizeof(pytype) == _C_WIDTHS[ctype] * (1 if arr is None else pytype._length_), name
+        else:  # a nested struct or an array of them
+            inner = pytype._type_ if arr else pytype
+            assert inner.__name__ == ctype, name

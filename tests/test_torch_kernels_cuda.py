@@ -1039,30 +1039,6 @@ def test_solve_too_large_for_shared_memory_takes_counted_device_path(cuda, det, 
         assert torch.equal(a, c)
 
 
-@pytest.mark.parametrize("sync", ["mbarrier", "async", "cluster"])
-@pytest.mark.parametrize("shards", [2, 8, 16])
-def test_solve_election_sync_modes_agree(cuda, shards, sync):
-    """Both ways of synchronising the election across the cluster (the
-    mbarrier push, the cluster barrier) give the plain version's solve."""
-    args, kw = synthetic_solve(shards, cuda)
-    key = SO.prng_key_data(8)
-    rest = (kw["req_any"], kw["sig"], kw["pod_valid"], kw["nz0"], kw["scoring_req"])
-
-    def run():
-        sargs, out, carry, _ = SO.solve_args(*args, key, False, *rest, shards=shards, sync=sync)
-        SO.launch_solve(sargs, cuda)
-        torch.cuda.synchronize()
-        return out, carry
-
-    got = _solo_or_refused(run, shards)
-    if got is None:
-        return
-    want = SO.solve_greedy_plain(*args, key, False, **kw)
-    assert torch.equal(got[0], want[0])
-    for a, c in zip(got[1], want[1]):
-        assert torch.equal(a, c)
-
-
 @pytest.mark.parametrize("n_buckets", [16, 2048], ids=["tables-shared", "tables-device"])
 @pytest.mark.parametrize("track", [True, False], ids=["tracked", "untracked"])
 @pytest.mark.parametrize("shards", SHARDS)
