@@ -1204,33 +1204,59 @@ def library_fold_ms(banks, ctl, pods):
         return None
 
 
-def compare_preempt(arrays, label, time_it: bool):
+def compare_preempt(arrays, label, time_it: bool, plain_time: bool = True):
     """Hold preempt_batch against its plain version on the same CUDA
-    tensors; with time_it, time the kernel (one prebuilt struct
-    relaunched) and the plain version, and bound it. Returns its stats."""
+    tensors, and read the walk's reuse counts (rows evaluated beside P x N,
+    steps walked by one warp, tree rebuilds) and where its state lived;
+    with time_it, time the kernel (one prebuilt struct relaunched) and, with
+    plain_time, the plain version, and bound it. Returns its stats."""
     from kubernetes_tpu_torch.kernels import build
     from kubernetes_tpu_torch.ops import preempt as PR
     from kubernetes_tpu_torch.state.convert import arrays_to_torch
 
     a = arrays_to_torch(arrays, "cuda")
+    before = PR.preempt_batch.device_memory_launches
     got = PR.preempt_batch(**a)
+    device_memory = PR.preempt_batch.device_memory_launches - before
     want = PR.preempt_batch_plain(**a)
     bad = sum(int((g != w).sum()) for g, w in zip(got, want))
     check(bad == 0, f"[{label}] preempt_batch kernel differs from its plain version in {bad} values")
     found = int((got[0] >= 0).sum())
     p, n = a["cand"].shape
     v, r = a["vict_req"].shape[1:]
-    st = {"max_abs_err": int(max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want)))}
+    lay = PR.preempt_layout(n, v, r)
+    pargs, again = PR.preempt_args(**a)
+    PR.launch_preempt(pargs, a["cand"].device)
+    bad = sum(int((g != w).sum()) for g, w in zip(again, want))
+    check(bad == 0, f"[{label}] preempt_batch relaunched differs from its plain version in {bad} values")
+    evaluated, solo, rebuilds = pargs.counts.tolist()
+    st = {"max_abs_err": int(max(int((g.long() - w.long()).abs().max()) for g, w in zip(got, want))),
+          "steps": p, "evaluated": evaluated, "full_evaluations": p * n, "solo_steps": solo, "rebuilds": rebuilds,
+          "resident": lay["resident"], "device_memory_launches": device_memory}
     log(f"[kernels] {label}: P={p} N={n} V={v} R={r}: preempt_batch exact ({found} preemptors placed, "
-        f"{int(got[2][a['p_valid']].sum())} fit as things stand)")
+        f"{int(got[2][a['p_valid']].sum())} fit as things stand); reuse: {evaluated} rows evaluated of "
+        f"P x N = {p * n}, {solo} steps walked by one warp, {rebuilds} tree rebuilds; state in "
+        f"{'shared' if lay['resident'] else 'device'} memory")
     if time_it:
-        pargs, _ = PR.preempt_args(**a)
         st["ms"] = cuda_ms(lambda: build.launch(PR.PREEMPT_ENTRY, pargs, a["cand"].device), 5)
-        st["plain_ms"] = cuda_ms(lambda: PR.preempt_batch_plain(**a), 1)
+        if plain_time:
+            st["plain_ms"] = cuda_ms(lambda: PR.preempt_batch_plain(**a), 1)
         st["bound"] = bound(preempt_work(a))
-        log(f"[kernels] {label} preempt_batch: kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, "
-            f"bound {st['bound'][0]:.6f} ms ({st['bound'][1]})")
+        log(f"[kernels] {label} preempt_batch: kernel {st['ms']:.4f} ms ({st['ms'] * 1000 / p:.3f} us a step), "
+            f"plain {st.get('plain_ms', float('nan')):.4f} ms, bound {st['bound'][0]:.6f} ms ({st['bound'][1]})")
     return st
+
+
+def without_reuse(arrays):
+    """The same preemption round with a new spec at every step: the valid
+    preemptors' priorities alternate p, p + 1 (the victims below them do
+    not change)."""
+    import numpy as np
+
+    out = dict(arrays)
+    live = arrays["p_valid"]
+    out["p_prio"] = arrays["p_prio"] + (live & (np.arange(live.shape[0]) % 2 == 1)).astype(np.int32)
+    return out
 
 
 def usage_case(n, r, nominees, b):
@@ -1597,6 +1623,14 @@ def phase_preempt_kernels():
 
     for seed, (p, n, v, r) in enumerate([(48, 40, 8, 8), (24, 20, 64, 8), (20, 16, 8, 16), (40, 1100, 8, 8)]):
         compare_preempt(random_preempt_arrays(seed, p, n, v, r), f"preempt all-branches {seed}", time_it=False)
+        runs = compare_preempt(random_preempt_arrays(seed, p, n, v, r, runs=True), f"preempt runs {seed}",
+                               time_it=False)
+        check(runs["solo_steps"] > 0 and runs["evaluated"] < p * n, f"preempt runs {seed}: no reuse ({runs})")
+    # a carry too large for shared memory: the counted device-memory walk
+    dm = compare_preempt(random_preempt_arrays(4, 64, 2100, 8, 8, runs=True), "preempt device memory",
+                         time_it=True, plain_time=False)
+    check(not dm["resident"] and dm["device_memory_launches"] == 1,
+          f"preempt device memory: {dm['device_memory_launches']} counted device-memory launches")
     nodes, existing, pending, pdbs = random_preemption_cluster(3, n_nodes=60, n_pending=120)
     snap = Snapshot(nodes, existing)
     names = list(snap.node_infos)
@@ -1606,6 +1640,17 @@ def phase_preempt_kernels():
     nodes, existing, pending = bench_config6(CONFIG6_NODES, CONFIG6_PREEMPTORS)
     arrays, _, _ = preempt_arrays(pending, Snapshot(nodes, existing))
     stats = {"preempt_batch": compare_preempt(arrays, "config-6", time_it=True)}
+    p6, n6 = arrays["cand"].shape
+    # the same round with a new spec at every step, and seeded runs of
+    # repeated specs at the same shapes, each timed
+    nr = compare_preempt(without_reuse(arrays), "config-6 no reuse", time_it=True, plain_time=False)
+    # only the zero-spec padding rows after the first repeat a spec
+    check(nr["solo_steps"] == p6 - CONFIG6_PREEMPTORS - 1 and nr["evaluated"] >= CONFIG6_PREEMPTORS * n6,
+          f"config-6 no reuse: the walk reused rows ({nr})")
+    rr = compare_preempt(random_preempt_arrays(6, p6, n6, 8, 8, runs=True), "config-6 shapes, runs", time_it=True,
+                         plain_time=False)
+    stats["_preempt"] = {"config-6": stats["preempt_batch"], "config-6 no reuse": nr, "config-6 shapes, runs": rr,
+                         "device memory (N = 2,100)": dm}
     compare_fold_usage("fold_usage all-branches", 40, 16, 70, time_it=False)
     stats["fold_usage"] = compare_fold_usage("config-6", 512, 8, CONFIG6_PREEMPTORS - CONFIG6_BATCH, time_it=True)
     return stats
@@ -1968,6 +2013,8 @@ def phase_kernels():
         label = "config-3" + (" + Services" if services else "")
         topo = compare_topology(enc, label, time_it=services)
     stats.update(topo)
+    # the score kernel at the config-3 shapes (N = 10,240) in all three modes
+    score3 = compare_score_shapes(enc["na"], enc["pa"], "config-3")
     # the all-branches inter-pod cluster: every term kind in the batch and
     # among the bound pods (negative weights), every selector kind,
     # namespaces, zone / hostname / rack keys, nodes without a key,
@@ -2005,7 +2052,30 @@ def phase_kernels():
     # and config-3 shapes, and the walks' per-pod summary
     layouts = {"config-2": compare_solve_layouts(e, "config-2"), "config-3": compare_solve_layouts(enc, "config-3")}
     stats["_redesign"] = redesign_summary(stats, hard["arbitrate"], layouts)
+    score2 = {k: stats[k] for k in ("score_matrix", "score_matrix[rtcr]", "score_components")}
+    stats["_redesign"]["victim search and score matrix"] = victim_search_and_score_summary(stats.pop("_preempt"), score2, score3)
     return stats
+
+
+def victim_search_and_score_summary(preempt, score2, score3):
+    """The victim search's and the score matrix's times at the main path's
+    shapes, each from this run: ms, plain ms where timed, bound, and the
+    walk's reuse counts."""
+    out = {}
+    for label, st in preempt.items():
+        out[f"preempt {label}"] = {k: st.get(k) for k in ("ms", "plain_ms", "steps", "evaluated", "full_evaluations",
+                                                         "solo_steps", "rebuilds", "resident")}
+        out[f"preempt {label}"]["bound_ms"] = st["bound"][0]
+        log(f"[redesign] preempt {label}: {st['ms']:.4f} ms, {st['ms'] * 1000 / st['steps']:.3f} us a step, "
+            f"{st['evaluated']} of {st['full_evaluations']} rows evaluated, {st['solo_steps']} one-warp steps, "
+            f"bound {st['bound'][0]:.6f} ms")
+    for cfg, sc in (("config-2", score2), ("config-3", score3)):
+        for name, st in sc.items():
+            out[f"{name} {cfg}"] = {"ms": st["ms"], "wrapper_ms": st["wrapper_ms"], "plain_ms": st["plain_ms"],
+                                    "bound_ms": st["bound"][0]}
+            log(f"[redesign] {name} {cfg}: {st['ms']:.4f} ms (wrapper {st['wrapper_ms']:.4f}), "
+                f"bound {st['bound'][0]:.6f} ms")
+    return out
 
 
 def redesign_summary(stats, arb3h, layouts):
@@ -3110,6 +3180,36 @@ def compare_policy_scores(na, pa, label):
         log(f"[kernels] {label} {name}: kernel {st['ms']:.4f} ms (through its wrapper {st['wrapper_ms']:.4f} ms), "
             f"plain {st['plain_ms']:.4f} ms, bound {st['bound'][0]:.6f} ms ({st['bound'][1]}); no single PyTorch "
             f"call computes it")
+    return out
+
+
+def compare_score_shapes(na, pa, label):
+    """The score kernel at a main path's shapes in all three modes: the
+    default tuple (and two Policy weightings) exact and timed, then the
+    RTCR branch and the component mode (compare_policy_scores). Returns
+    {kernel: stats}."""
+    from kubernetes_tpu_torch.kernels import build
+    from kubernetes_tpu_torch.ops import scores as S
+
+    err = 0
+    for pr in (None, (("MostRequestedPriority", 2), ("ResourceLimitsPriority", 3), ("NodeAffinityPriority", 5)),
+               tuple((name, i + 1) for i, name in enumerate(S.PRIORITIES))):
+        err = max(err, int((S.score_matrix(na, pa, pr, bias=10) - S.score_matrix_plain(na, pa, pr, bias=10)).abs()
+                           .max()))
+    check(err == 0, f"[{label}] score kernel differs from its plain version by {err}")
+    args, _ = S.score_args(na, pa, bias=10)
+    out = {"score_matrix": {
+        "max_abs_err": err, "ctas_a_row": args.C, "tiles_a_cta": args.TPC,
+        "ms": cuda_ms(lambda: build.launch(S.SCORE_ENTRY, args, na["valid"].device), 200),
+        "wrapper_ms": cuda_ms(lambda: S.score_matrix(na, pa, bias=10), 200),
+        "plain_ms": cuda_ms(lambda: S.score_matrix_plain(na, pa, bias=10), 3),
+        "bound": bound(score_work(na, pa)),
+    }}
+    st = out["score_matrix"]
+    log(f"[kernels] {label} score_matrix (U={pa['valid'].shape[0]} N={na['valid'].shape[0]}, clusters of "
+        f"{args.C} CTAs, {args.TPC} tiles a CTA): kernel {st['ms']:.4f} ms (through its wrapper "
+        f"{st['wrapper_ms']:.4f} ms), plain {st['plain_ms']:.4f} ms, bound {st['bound'][0]:.6f} ms ({st['bound'][1]})")
+    out.update(compare_policy_scores(na, pa, label))
     return out
 
 

@@ -107,16 +107,18 @@ static inline int set_smem(const void* kernel, size_t bytes) {
 }
 
 // Thread-block clusters (the solve and the arbiter run one cluster of S
-// CTAs, S = 1 on one device, one CTA a node shard on a mesh): 8 is the
-// portable cluster size, 16 the largest Hopper allows (non-portable).
+// CTAs, S = 1 on one device, one CTA a node shard on a mesh; the score
+// matrix a cluster a spec row): 8 is the portable cluster size, 16 the
+// largest Hopper allows (non-portable).
 #define PORTABLE_CLUSTER 8
 #define MAX_CLUSTER 16
 
-// One cluster of S CTAs: the launch configuration, the non-portable size
-// opt-in above 8 and the dynamic shared-memory opt-in.
+// A grid of `rows` clusters of S CTAs each (gridDim = (S, rows), cluster
+// dim S along x): the launch configuration, the non-portable size opt-in
+// above 8 and the dynamic shared-memory opt-in.
 static inline int cluster_config(const void* kernel, int S, int threads, size_t bytes, cudaStream_t stream,
-                                 cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr) {
-  if (S < 1 || S > MAX_CLUSTER) return (int)cudaErrorInvalidValue;
+                                 cudaLaunchConfig_t* cfg, cudaLaunchAttribute* attr, int rows = 1) {
+  if (S < 1 || S > MAX_CLUSTER || rows < 1) return (int)cudaErrorInvalidValue;
   int rc;
   if (S > PORTABLE_CLUSTER &&
       (rc = (int)cudaFuncSetAttribute(kernel, cudaFuncAttributeNonPortableClusterSizeAllowed, 1))) {
@@ -124,7 +126,7 @@ static inline int cluster_config(const void* kernel, int S, int threads, size_t 
   }
   if ((rc = set_smem(kernel, bytes))) return rc;
   *cfg = cudaLaunchConfig_t{};
-  cfg->gridDim = dim3(S, 1, 1);
+  cfg->gridDim = dim3(S, rows, 1);
   cfg->blockDim = dim3(threads, 1, 1);
   cfg->dynamicSmemBytes = bytes;
   cfg->stream = stream;
@@ -137,13 +139,13 @@ static inline int cluster_config(const void* kernel, int S, int threads, size_t 
   return 0;
 }
 
-// Launch `kernel(*arg)` as one cluster of S CTAs.
+// Launch `kernel(*arg)` as `rows` clusters of S CTAs (one by default).
 template <typename Args>
 static inline int launch_cluster(const void* kernel, int S, int threads, size_t bytes, const Args& arg,
-                                 cudaStream_t stream) {
+                                 cudaStream_t stream, int rows = 1) {
   cudaLaunchConfig_t cfg;
   cudaLaunchAttribute attr;
-  int rc = cluster_config(kernel, S, threads, bytes, stream, &cfg, &attr);
+  int rc = cluster_config(kernel, S, threads, bytes, stream, &cfg, &attr, rows);
   if (rc) return rc;
   void* params[] = {(void*)&arg};
   if ((rc = (int)cudaLaunchKernelExC(&cfg, kernel, params))) return rc;

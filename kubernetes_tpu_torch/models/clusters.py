@@ -849,7 +849,7 @@ def fill_cache(cache, nodes: list, existing: Optional[List] = None) -> None:
         cache.add_pod(p)
 
 
-def random_preempt_arrays(seed: int, p: int = 48, n: int = 40, v: int = 8, r: int = 8) -> dict:
+def random_preempt_arrays(seed: int, p: int = 48, n: int = 40, v: int = 8, r: int = 8, runs: bool = False) -> dict:
     """Seeded padded inputs of ops/preempt.preempt_batch (numpy, the
     driver's dtypes) meant to reach every branch of the scan: candidate
     masks with holes, preemptors that request nothing (p_req_any False) or
@@ -859,7 +859,15 @@ def random_preempt_arrays(seed: int, p: int = 48, n: int = 40, v: int = 8, r: in
     rows padding. Two thirds of the nodes copy one of a few
     template nodes, changing at most one of start times, a victim's
     priority, a victim's request or a PDB flag, so the six-key pick is
-    decided at every key, the row included."""
+    decided at every key, the row included.
+
+    With `runs` the preemptors are instead runs of repeated specs (lengths
+    1-12, at most a quarter of the rows) drawn from four templates, as a controller's replicas queue: one
+    template requests nothing (its steps fit as things stand wherever a pod
+    slot is free), one an extended-resource unit, two have every node as
+    candidate and two have holes;
+    the last 5 rows are zero padding with no candidate, and two rows inside
+    the runs are invalid. The nodes are the default mode's."""
     rng = np.random.default_rng(seed)
     a = {}
     a["cand"] = rng.random((p, n)) < 0.85
@@ -905,4 +913,33 @@ def random_preempt_arrays(seed: int, p: int = 48, n: int = 40, v: int = 8, r: in
     nom = rng.random(n) < 0.2
     a["nom_extra0"] = np.where(nom[:, None], rng.integers(0, 2, (n, r)) * 1000, 0).astype(np.int64)
     a["nom_cnt0"] = nom.astype(np.int32)
+    if runs:
+        _preemptor_runs(np.random.default_rng([seed, 7]), a, p, n, r)
     return a
+
+
+def _preemptor_runs(rng, a: dict, p: int, n: int, r: int, n_tmpl: int = 4) -> None:
+    """Overwrite the preemptor rows of `a` with runs of repeated template
+    specs (see random_preempt_arrays)."""
+    t_req = rng.integers(0, 4, (n_tmpl, r)).astype(np.int64) * 1000
+    t_req[:, :2] = rng.integers(2, 4, (n_tmpl, 2)) * 1000  # cpu and memory: most steps need victims
+    t_req[:, 3:] = 0
+    t_req[n_tmpl - 1, 3] = 1  # the last template asks for one extended-resource unit
+    t_req[0] = 0
+    t_prio = rng.choice([5, 10, 100], n_tmpl).astype(np.int32)
+    t_cand = rng.random((n_tmpl, n)) < 0.85
+    t_cand[1:3] = True
+    live = p - 5
+    rows = []
+    while len(rows) < live:
+        rows += [int(rng.integers(0, n_tmpl))] * int(rng.integers(1, min(12, max(2, live // 4)) + 1))
+    rows = np.asarray(rows[:live])
+    a["p_req"] = np.zeros((p, r), np.int64)
+    a["p_req"][:live] = t_req[rows]
+    a["p_req_any"] = a["p_req"].any(axis=1)
+    a["p_prio"] = np.zeros(p, np.int32)
+    a["p_prio"][:live] = t_prio[rows]
+    a["cand"] = np.zeros((p, n), bool)
+    a["cand"][:live] = t_cand[rows]
+    a["p_valid"] = np.arange(p) < live
+    a["p_valid"][rng.choice(live, 2, replace=False)] = False

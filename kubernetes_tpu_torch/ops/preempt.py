@@ -29,8 +29,11 @@ arithmetic.
 `preempt_batch_plain` is the scan as a Python loop of PyTorch ops with the
 reference's dtypes (int64 resources and timestamps, int32 priorities and
 counts). On CUDA tensors `preempt_batch` launches csrc/preempt.cu (one
-block walking the P steps; counted in `preempt_batch.launches`); on CPU
-tensors it runs the plain version; any other device raises.
+block walking the P steps with the carry and a cache of every node's victim
+search in shared memory, re-evaluating only the rows whose inputs changed;
+counted in `preempt_batch.launches`, and a walk whose state does not fit
+shared memory in `preempt_batch.device_memory_launches`); on CPU tensors it
+runs the plain version; any other device raises.
 """
 
 from __future__ import annotations
@@ -145,31 +148,65 @@ class PreemptArgs(ctypes.Structure):
             "cand", "p_req", "p_req_any", "p_prio", "p_valid", "vict_req", "vict_prio", "vict_ts",
             "vict_pdb", "vict_valid", "free0", "count_free0", "node_valid", "nom_extra0", "nom_cnt0",
             "nodes_out", "victims_out", "fits_free_out",
-            "nfree", "ncount", "alive", "vmask", "pdbmask")]
-        + [(d, ctypes.c_int32) for d in ("P", "N", "V", "R")]
+            "state", "step_flags", "step_checked", "walk_stats")]
+        + [("state_bytes", ctypes.c_int64), ("smem_bytes", ctypes.c_int64)]
+        + [(d, ctypes.c_int32) for d in ("P", "N", "V", "R", "NP", "resident", "victims_resident")]
     )
+
+
+#: the walk's dynamic shared memory budget (the card's 227 KB a block, less
+#: the kernel's static slots, with room to spare)
+PREEMPT_SMEM_BUDGET = 220 * 1024
+
+
+def _align16(x: int) -> int:
+    return (x + 15) & ~15
+
+
+def preempt_layout(n: int, v: int, r: int) -> dict:
+    """Where csrc/preempt.cu keeps its walk's state for N nodes, V victim
+    slots and R resource slots: `NP` (the tournament tree's leaves, a power
+    of two >= max(N, 2)), `carry` (its bytes: nfree [R, N] int64; alive,
+    PDB, victim masks and the three key words [N] uint64; the tree's three
+    key words [NP] uint64; pod slack [N] int32; the fits-free and valid
+    bits [N]; as `preempt_carry_bytes`), `resident` (the carry in shared memory: it fits
+    PREEMPT_SMEM_BUDGET), `victims_resident` (the victims' requests,
+    priorities and start times there too) and `smem`, the dynamic shared
+    memory the walk asks for."""
+    np_ = max(2, 1 << max(0, n - 1).bit_length())
+    carry = _align16(n * (8 * r + 54) + 24 * np_)
+    victims = n * v * (8 * r + 12)
+    resident = carry <= PREEMPT_SMEM_BUDGET
+    victims_resident = resident and carry + victims <= PREEMPT_SMEM_BUDGET
+    smem = (carry + (victims if victims_resident else 0)) if resident else 0
+    return {"NP": np_, "carry": carry, "resident": resident, "victims_resident": victims_resident, "smem": smem}
 
 
 def preempt_args(cand, p_req, p_req_any, p_prio, p_valid, vict_req, vict_prio, vict_ts, vict_pdb, vict_valid,
                  free0, count_free0, node_valid, nom_extra0, nom_cnt0):
     """(argument struct, (nodes_out, victims_out, fits_free_out)) for these
-    CUDA tensors; the outputs and the kernel's scratch (the carry) are
-    allocated here. Validates device, dtype, shape and contiguity, and the
-    kernel's limits (V <= 64, R <= 64)."""
+    CUDA tensors; the outputs, the walk's state in device memory (its home
+    when it does not fit shared memory), the hoisted step facts and the
+    walk's counters (`.walk_stats`: [rows evaluated, steps walked by one
+    warp, tree rebuilds], int64 on the card, as `.counts`) are allocated
+    here. Validates
+    device, dtype, shape and contiguity, and the kernel's limits (V <= 64,
+    R <= 64)."""
     n, v, r = vict_req.shape
     p = p_prio.shape[0]
-    if v > MAX_VICTIM_SLOTS or r > MAX_RESOURCES:
-        raise ValueError(f"preempt kernel takes V <= {MAX_VICTIM_SLOTS} and R <= {MAX_RESOURCES}, got V={v} R={r}")
+    if v > MAX_VICTIM_SLOTS or r > MAX_RESOURCES or r < 1:
+        raise ValueError(f"preempt kernel takes V <= {MAX_VICTIM_SLOTS} and 1 <= R <= {MAX_RESOURCES}, "
+                         f"got V={v} R={r}")
     dev = vict_req.device
+    lay = preempt_layout(n, v, r)
     nodes_out = torch.empty(p, dtype=torch.int32, device=dev)
     victims_out = torch.empty((p, v), dtype=torch.bool, device=dev)
     fits_free_out = torch.empty(p, dtype=torch.bool, device=dev)
     scratch = {
-        "nfree": torch.empty((n, r), dtype=torch.int64, device=dev),
-        "ncount": torch.empty(n, dtype=torch.int32, device=dev),
-        "alive": torch.empty(n, dtype=torch.int64, device=dev),
-        "vmask": torch.empty(n, dtype=torch.int64, device=dev),
-        "pdbmask": torch.empty(n, dtype=torch.int64, device=dev),
+        "state": torch.empty(lay["carry"], dtype=torch.uint8, device=dev),
+        "step_flags": torch.empty(p, dtype=torch.int32, device=dev),
+        "step_checked": torch.empty(p, dtype=torch.int64, device=dev),
+        "walk_stats": torch.zeros(3, dtype=torch.int64, device=dev),
     }
     a = PreemptArgs()
     a.cand = build.ptr(cand, torch.bool, (p, n))
@@ -192,17 +229,30 @@ def preempt_args(cand, p_req, p_req_any, p_prio, p_valid, vict_req, vict_prio, v
     a.fits_free_out = build.ptr(fits_free_out, torch.bool)
     for k, t in scratch.items():
         setattr(a, k, t.data_ptr())
+    a.state_bytes, a.smem_bytes = lay["carry"], lay["smem"]
     a.P, a.N, a.V, a.R = p, n, v, r
+    a.NP, a.resident, a.victims_resident = lay["NP"], int(lay["resident"]), int(lay["victims_resident"])
     # the scratch must outlive the launch: the struct holds its pointers
     a._keep = scratch
+    a.counts = scratch["walk_stats"]
     return a, (nodes_out, victims_out, fits_free_out)
+
+
+def launch_preempt(args: PreemptArgs, dev) -> None:
+    """Launch csrc/preempt.cu (its two prologues and the walk); a walk whose
+    state stays in device memory counts in
+    `preempt_batch.device_memory_launches`."""
+    build.launch(PREEMPT_ENTRY, args, dev)
+    if not args.resident:
+        preempt_batch.device_memory_launches += 1
 
 
 def preempt_batch(cand, p_req, p_req_any, p_prio, p_valid, vict_req, vict_prio, vict_ts, vict_pdb, vict_valid,
                   free0, count_free0, node_valid, nom_extra0, nom_cnt0):
     """(chosen [P] int32 row or -1, victims [P, V] bool, fits_free [P]
     bool). CPU tensors run the plain version; CUDA tensors launch
-    csrc/preempt.cu (counted in `preempt_batch.launches`)."""
+    csrc/preempt.cu (counted in `preempt_batch.launches`; a walk too large
+    for shared memory also in `preempt_batch.device_memory_launches`)."""
     args = (cand, p_req, p_req_any, p_prio, p_valid, vict_req, vict_prio, vict_ts, vict_pdb, vict_valid,
             free0, count_free0, node_valid, nom_extra0, nom_cnt0)
     dev = vict_req.device
@@ -210,10 +260,11 @@ def preempt_batch(cand, p_req, p_req_any, p_prio, p_valid, vict_req, vict_prio, 
         return preempt_batch_plain(*args)
     if dev.type == "cuda":
         st, out = preempt_args(*args)
-        build.launch(PREEMPT_ENTRY, st, dev)
+        launch_preempt(st, dev)
         preempt_batch.launches += 1
         return out
     raise ValueError(f"no preempt kernel for device {dev}")
 
 
 preempt_batch.launches = 0
+preempt_batch.device_memory_launches = 0

@@ -5,8 +5,9 @@ divisions are Python floor divisions like the reference's `//`;
 BalancedResourceAllocation computes in float64 and truncates.
 
 `score_matrix` launches the hand-written kernel `csrc/scores.cu` on CUDA
-tensors and runs the plain PyTorch version below on CPU tensors; the
-kernel covers every priority, RequestedToCapacityRatio's Policy shape
+tensors (a thread-block cluster a spec row along the node axis,
+`score_layout`) and runs the plain PyTorch version below on CPU tensors;
+the kernel covers every priority, RequestedToCapacityRatio's Policy shape
 included. `score_components` (each default priority's plane on its own) is
 the same kernel in its component mode.
 """
@@ -333,13 +334,42 @@ class ScoreArgs(ctypes.Structure):
     _fields_ = (
         [("n_" + k, ctypes.c_void_p) for k, _ in _NODE_PTRS]
         + [("p_" + k, ctypes.c_void_p) for k, _ in _POD_PTRS]
-        + [("out", ctypes.c_void_p), ("weights", ctypes.c_int64 * 8), ("bias", ctypes.c_int64)]
+        + [("out", ctypes.c_void_p), ("raw", ctypes.c_void_p), ("weights", ctypes.c_int64 * 8),
+           ("bias", ctypes.c_int64)]
         + [("w_rtcr", ctypes.c_int64), ("rtcr_res_w", ctypes.c_int64 * RTCR_MAX_RESOURCES),
            ("rtcr_res_col", ctypes.c_int32 * RTCR_MAX_RESOURCES),
            ("rtcr_u", ctypes.c_int32 * RTCR_MAX_POINTS), ("rtcr_s", ctypes.c_int32 * RTCR_MAX_POINTS),
            ("rtcr_points", ctypes.c_int32), ("rtcr_res", ctypes.c_int32), ("n_components", ctypes.c_int32)]
+        + [(d, ctypes.c_int32) for d in ("C", "TPC", "raw_shared", "smem")]
         + [(d, ctypes.c_int32) for d in _DIMS]
     )
+
+
+SCORE_TILE = 256  # csrc/scores.cu's nodes a tile (one a thread of a CTA)
+SCORE_ROW_CTAS = 8  # a spec row's cluster at most: the portable cluster size
+SCORE_TARGET_CTAS = 132 * 8  # the CTAs that fill the card (132 SMs, 8 CTAs of 256 threads each)
+SCORE_SMEM_BUDGET = 200 * 1024
+
+
+def score_layout(n: int, u: int, need_raw: bool, pt: int, reqs: int, vals: int, tl: int, ci: int) -> dict:
+    """How csrc/scores.cu splits a [U, N] launch: `C` CTAs a spec row (one
+    thread-block cluster along the node axis: at most SCORE_ROW_CTAS, at
+    most the row's tiles of SCORE_TILE nodes, enough for U * C to fill the
+    card), `TPC` tiles a CTA (CTA c takes tiles c, c + C, ...),
+    `raw_shared` (the raw NodeAffinity / TaintToleration values, 12 bytes a
+    node, kept in shared memory between the passes; else `scratch` bytes of
+    device memory) and `smem`, the dynamic shared memory a CTA asks for
+    (its staged preferred terms, tolerations and image columns, and the
+    raws when shared; as csrc/scores.cu's score_smem_bytes)."""
+    tiles = max(1, -(-n // SCORE_TILE))
+    c = max(1, min(SCORE_ROW_CTAS, tiles, -(-SCORE_TARGET_CTAS // max(u, 1))))
+    tpc = -(-tiles // c)
+    pr = pt * reqs
+    stage = 8 * pr + 4 * (2 * pr + pr * vals + pt + 4 * tl + ci) + pt + tl
+    raw = 12 * tpc * SCORE_TILE if need_raw else 0
+    raw_shared = need_raw and stage + raw <= SCORE_SMEM_BUDGET
+    return {"C": c, "TPC": tpc, "raw_shared": raw_shared, "smem": stage + (raw if raw_shared else 0),
+            "scratch": raw * u * c if need_raw and not raw_shared else 0}
 
 
 def _set_rtcr(args: ScoreArgs, rtcr) -> None:
@@ -363,8 +393,8 @@ def _set_rtcr(args: ScoreArgs, rtcr) -> None:
 def score_args(nodes: Arrays, pods: Arrays, priorities=None, bias: int = 0, rtcr=None, n_components: int = 0):
     """The kernel's argument struct for these CUDA tensors, and the output
     it writes: the [U, N] int64 weighted sum, or with `n_components` > 0
-    the [n_components, U, N] int64 planes. Validates device, dtype and
-    contiguity."""
+    the [n_components, U, N] int64 planes; the launch's split is
+    `score_layout`'s. Validates device, dtype and contiguity."""
     has_images = "image_scaled" in nodes
     weights, w_rtcr = kernel_weights(priorities, has_images)
     n, r = nodes["alloc"].shape
@@ -395,6 +425,13 @@ def score_args(nodes: Arrays, pods: Arrays, priorities=None, bias: int = 0, rtcr
         _set_rtcr(args, rtcr)
     for d, v in dims.items():
         setattr(args, d, int(v))
+    on = [k < n_components if n_components else weights[k] != 0 for k in range(8)]
+    lay = score_layout(n, u, on[3] or on[4], dims["PT"], dims["REQS"], dims["VALS"], dims["TL"], dims["CI"])
+    args.C, args.TPC, args.raw_shared, args.smem = lay["C"], lay["TPC"], int(lay["raw_shared"]), lay["smem"]
+    if lay["scratch"]:
+        raw = torch.empty(lay["scratch"], dtype=torch.uint8, device=out.device)
+        args.raw = raw.data_ptr()
+        args._keep = raw  # the scratch must outlive the launch
     return args, out
 
 

@@ -208,6 +208,16 @@ def _struct_mirrors():
 _C_WIDTHS = {"int32_t": 4, "uint32_t": 4, "int64_t": 8, "uint64_t": 8, "uint8_t": 1, "int": 4}
 
 
+def test_ctypes_mirrors_cover_the_redesigned_structs():
+    """The victim search's and the score matrix's argument structs (their
+    walk state, step facts, counters and launch split) are among the
+    mirrors the check below holds against the C structs."""
+    names = {cname: {f[0] for f in cls._fields_} for cls, cname, _ in _struct_mirrors()}
+    assert {"state", "step_flags", "step_checked", "walk_stats", "NP", "resident",
+            "victims_resident"} <= names["PreemptArgs"]
+    assert {"raw", "C", "TPC", "raw_shared", "smem"} <= names["ScoreArgs"]
+
+
 @pytest.mark.parametrize("mirror", _struct_mirrors(), ids=lambda m: m[1])
 def test_ctypes_mirror_matches_the_kernel_struct(mirror):
     """A wrapper's ctypes struct has the C struct's fields in the same

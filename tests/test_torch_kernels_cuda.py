@@ -17,7 +17,12 @@ to 16 CTAs with its residuals in shared memory (every mode, padded node
 rows, all-tied scores, R = 32, runs of one spec and none, the three
 election synchronisations) and its counted device-memory path, and the
 arbiter's hoisted facts with its tables in shared and in device memory,
-and at the config-3-hard and config-4 batch shapes (chip_smoke.py's).
+and at the config-3-hard and config-4 batch shapes (chip_smoke.py's); the
+victim search on runs of repeated specs, on config 6's round with one
+spec and with a new spec every step (its reuse counts) and past shared
+memory (its counted device-memory path); the score kernel's clusters at
+the node axis's edges and at the config-2 and config-3 shapes, in all
+three modes.
 Needs an NVIDIA card and nvcc:
 
     python -m pytest -m cuda tests/test_torch_kernels_cuda.py
@@ -28,6 +33,7 @@ scores int64 (BalancedAllocation's and SelectorSpread's float64 truncate
 identically; the library is built with -fmad=false), assignments and
 carries integers."""
 
+import numpy as np
 import pytest
 import torch
 
@@ -121,6 +127,113 @@ def test_score_components_kernel_equals_plain(cuda, seed, images):
     assert list(got) == list(want) and len(got) == (7 if images else 6)
     for name in want:
         assert torch.equal(got[name], want[name]), name
+
+
+SCORE_MODES = {
+    "default": None,
+    "rtcr": ((("RequestedToCapacityRatioPriority", 2), ("NodeAffinityPriority", 1), ("TaintTolerationPriority", 1),
+              ("LeastRequestedPriority", 1)),
+             (((0, 2), (20, 9), (45, 1), (80, 6), (100, 0)), (("cpu", 3), ("memory", 1)))),
+}
+
+
+def score_mode_equal(na, pa, mode):
+    """The kernel against its plain version in one mode: the default tuple,
+    an RTCR Policy with a down-sloping segment beside NodeAffinity and
+    TaintToleration, or the component planes."""
+    if mode == "components":
+        got, want = S.score_components(na, pa), S.score_components_plain(na, pa)
+        assert list(got) == list(want)
+        for name in want:
+            assert torch.equal(got[name], want[name]), name
+        return want
+    prios, rtcr = SCORE_MODES[mode] or (None, None)
+    got = S.score_matrix(na, pa, prios, rtcr, bias=10)
+    assert torch.equal(got, S.score_matrix_plain(na, pa, prios, rtcr, bias=10))
+    return None
+
+
+def tiled_nodes(na, n):
+    """The node bank's rows repeated to exactly n rows."""
+    reps = -(-n // na["valid"].shape[0])
+    return {k: torch.cat([v] * reps)[:n].contiguous() for k, v in na.items()}
+
+
+SCORE_EDGES = {"below-a-tile": 100, "ragged": 1000, "ragged-multi-tile": 2600, "all-invalid": 700,
+               "max-beyond-cta-0": 1500, "raws-in-device-memory": 140000}
+
+
+@pytest.mark.parametrize("mode", ["default", "rtcr", "components"])
+@pytest.mark.parametrize("edge", list(SCORE_EDGES))
+def test_score_kernel_edge_shapes_equal_plain(cuda, edge, mode):
+    """The score kernel's clusters at the node axis's edges: N below one
+    tile (one CTA a row), N not a multiple of the tile (one and several
+    tiles a CTA), no valid node (NodeAffinity 0, TaintToleration 10), and
+    every valid node in CTA 1's tiles (the row maxima come from another
+    CTA of the cluster), and 140,000 nodes over 4 spec rows (the raw values
+    kept in device memory between the passes), exact in all three modes."""
+    na, pa, _ = cluster(0, cuda)
+    n = SCORE_EDGES[edge]
+    na = tiled_nodes(na, n)
+    if edge == "raws-in-device-memory":
+        pa = {k: v[:4].contiguous() for k, v in pa.items()}
+    u = pa["valid"].shape[0]
+    lay = S.score_layout(n, u, True, pa["pref_valid"].shape[1], pa["pref_req_op"].shape[2],
+                         pa["pref_req_vals"].shape[3], pa["tol_key"].shape[1], pa["image_ids"].shape[1])
+    assert lay["C"] * lay["TPC"] * S.SCORE_TILE >= n
+    assert lay["raw_shared"] == (edge != "raws-in-device-memory")
+    if edge == "below-a-tile":
+        assert lay["C"] == 1
+    if edge == "ragged-multi-tile":
+        assert lay["TPC"] > 1 and n % S.SCORE_TILE
+    if edge == "all-invalid":
+        na["valid"] = torch.zeros_like(na["valid"])
+    cta1 = None
+    if edge == "max-beyond-cta-0":
+        assert lay["C"] > 1
+        tile = torch.arange(n, device=cuda) // S.SCORE_TILE
+        cta1 = (tile % lay["C"]) == 1
+        na["valid"] = na["valid"] & cta1
+    want = score_mode_equal(na, pa, mode)
+    if want is not None and edge == "all-invalid":
+        assert bool((want["taint_toleration"] == 10).all()) and bool((want["node_affinity"] == 0).all())
+    if want is not None and cta1 is not None:
+        assert bool((want["node_affinity"][:, cta1] == 10).any())
+
+
+_MAIN_SHAPES = {}
+
+
+def main_path_score_inputs(config):
+    """The first batch's score inputs as the driver builds them, on the
+    CPU: config 2 (5,000 nodes: N = 6,144) and config 3 (10,000 nodes: N =
+    10,240), 4,096 pods deduplicated to their spec rows (U = 128)."""
+    from kubernetes_tpu_torch.models.clusters import bench_config2, bench_config3
+    from kubernetes_tpu_torch.state.tensors import dedup_specs, pow2_bucket
+
+    if config not in _MAIN_SHAPES:
+        if config == "config-2":
+            nodes, pods = bench_config2(5000, 4096)
+        else:
+            nodes, pods, _ = bench_config3(10000, 4096)
+        cache = SchedulerCache()
+        fill_cache(cache, nodes, [])
+        mirror = TensorMirror(cache, "cpu")
+        reps, _ = dedup_specs(pods, None)
+        batch = PodBatch(mirror.vocab, pow2_bucket(len(reps)))
+        for i, p in enumerate(reps):
+            batch.set_pod(i, p)
+        _MAIN_SHAPES[config] = ({k: v.clone() for k, v in mirror.device_arrays()[0].items()}, batch.arrays())
+    return _MAIN_SHAPES[config]
+
+
+@pytest.mark.parametrize("mode", ["default", "rtcr", "components"])
+@pytest.mark.parametrize("config", ["config-2", "config-3"])
+def test_score_kernel_at_the_main_path_shapes_equals_plain(cuda, config, mode):
+    nodes, pods = main_path_score_inputs(config)
+    na, pa = {k: v.to(cuda) for k, v in nodes.items()}, arrays_to_torch(pods, cuda)
+    assert na["valid"].shape[0] == (6144 if config == "config-2" else 10240) and pa["valid"].shape[0] == 128
+    score_mode_equal(na, pa, mode)
 
 
 @pytest.mark.parametrize("preds", [None, frozenset({"GeneralPredicates", "EvenPodsSpread"}),
@@ -459,17 +572,32 @@ def test_fold_kernel_equals_plain(cuda):
         assert torch.equal(got.cpu(), w)
 
 
+def preempt_counted(a):
+    """preempt_batch's kernel on these CUDA arrays through one prebuilt
+    struct: (outputs, [rows evaluated, steps walked by one warp, tree
+    rebuilds], the layout)."""
+    from kubernetes_tpu_torch.ops import preempt as PR
+
+    st, out = PR.preempt_args(**a)
+    PR.launch_preempt(st, a["cand"].device)
+    n, v, r = a["vict_req"].shape
+    return out, st.counts.tolist(), PR.preempt_layout(n, v, r)
+
+
+@pytest.mark.parametrize("mode", ["iid", "runs"])
 @pytest.mark.parametrize("shape", [(48, 40, 8, 8), (24, 20, 64, 8), (20, 16, 8, 16), (40, 1100, 8, 8)])
 @pytest.mark.parametrize("seed", [0, 1])
-def test_preempt_kernel_equals_plain(cuda, seed, shape):
+def test_preempt_kernel_equals_plain(cuda, seed, shape, mode):
     """Random padded arrays reaching every branch (tests/test_torch_preempt.py
     checks the plain version against the JAX scan), at 64 victim slots, 16
-    resource slots and more nodes than a block has threads."""
+    resource slots and more nodes than a block has threads; `runs`: the
+    preemptors in runs of repeated specs (the reuse path, the one-warp
+    steps, the tree), fits-free templates, invalid rows inside the runs."""
     from kubernetes_tpu_torch.models.clusters import random_preempt_arrays
     from kubernetes_tpu_torch.ops.preempt import preempt_batch, preempt_batch_plain
 
     p, n, v, r = shape
-    a = arrays_to_torch(random_preempt_arrays(seed, p, n, v, r), cuda)
+    a = arrays_to_torch(random_preempt_arrays(seed, p, n, v, r, runs=mode == "runs"), cuda)
     before = preempt_batch.launches
     got = preempt_batch(**a)
     assert preempt_batch.launches == before + 1
@@ -477,24 +605,70 @@ def test_preempt_kernel_equals_plain(cuda, seed, shape):
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert int((got[0] >= 0).sum()) >= 3
+    again, counts, lay = preempt_counted(a)
+    for g, w in zip(again, want):
+        assert torch.equal(g, w)
+    assert lay["resident"]
+    if mode == "runs":
+        assert counts[0] < p * n and counts[1] > 0 and counts[2] > 0, counts
 
 
-def test_preempt_kernel_equals_plain_at_config6(cuda):
+def config6_arrays(cuda, reuse=True):
     """The first preemption round of bench.py config 6 at full size (500
-    full nodes, 2,000 preemptors: P = 2,048, N = 512, V = 8, R = 8)."""
+    full nodes, 2,000 preemptors of one spec: P = 2,048, N = 512, V = 8,
+    R = 8); without `reuse` the priorities alternate 1000 / 1001, so every
+    step has a new spec."""
     from kubernetes_tpu_torch.models.clusters import bench_config6
-    from kubernetes_tpu_torch.ops.preempt import preempt_batch, preempt_batch_plain
     from kubernetes_tpu_torch.scheduler.preemption import preempt_arrays
 
     nodes, existing, pending = bench_config6(500, 2000)
     arrays, _, _ = preempt_arrays(pending, Snapshot(nodes, existing))
+    if not reuse:
+        live = arrays["p_valid"]
+        arrays["p_prio"] = arrays["p_prio"] + (live & (np.arange(live.shape[0]) % 2 == 1)).astype(np.int32)
     a = arrays_to_torch(arrays, cuda)
     assert tuple(a["vict_req"].shape) == (512, 8, 8) and a["cand"].shape[0] == 2048
+    return a
+
+
+@pytest.mark.parametrize("reuse", [True, False], ids=["one-spec", "no-reuse"])
+def test_preempt_kernel_equals_plain_at_config6(cuda, reuse):
+    """Config 6's round: one spec (every step after the first re-evaluates
+    only the row the step before chose, walked by one warp) and a new spec
+    at every step (every row each step), both exact."""
+    from kubernetes_tpu_torch.ops.preempt import preempt_batch, preempt_batch_plain
+
+    a = config6_arrays(cuda, reuse)
     got = preempt_batch(**a)
     want = preempt_batch_plain(**a)
     for g, w in zip(got, want):
         assert torch.equal(g, w)
     assert int((got[0] >= 0).sum()) == 2000
+    _, counts, lay = preempt_counted(a)
+    assert lay["resident"] and not lay["victims_resident"]
+    if reuse:
+        assert counts[0] < 2 * 2048 + 512 and counts[1] >= 2000, counts
+    else:
+        # only the zero-spec padding rows after the first repeat a spec
+        assert counts[0] >= 2000 * 512 and counts[1] == 2048 - 2000 - 1, counts
+
+
+def test_preempt_too_large_for_shared_memory_takes_counted_device_path(cuda):
+    """N = 2,100 at R = 8: the carry does not fit shared memory; the same
+    walk keeps it in device memory, counted, and equals the plain version."""
+    from kubernetes_tpu_torch.models.clusters import random_preempt_arrays
+    from kubernetes_tpu_torch.ops.preempt import preempt_batch, preempt_batch_plain, preempt_layout
+
+    assert not preempt_layout(2100, 8, 8)["resident"]
+    for runs in (False, True):
+        a = arrays_to_torch(random_preempt_arrays(4, 64, 2100, 8, 8, runs=runs), cuda)
+        before = preempt_batch.device_memory_launches
+        got = preempt_batch(**a)
+        assert preempt_batch.device_memory_launches == before + 1
+        want = preempt_batch_plain(**a)
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+        assert int((got[0] >= 0).sum()) >= 3
 
 
 def test_fold_usage_kernel_equals_plain_and_inverts(cuda):

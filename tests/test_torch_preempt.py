@@ -2,9 +2,12 @@
 against `kubernetes_tpu.ops.preempt.preempt_batch` on seeded padded arrays
 that reach every branch of the scan (PDB violators, fits_free, preemptors
 requesting nothing, extended-resource slots, nominee charges, ties decided
-at each of the six pick keys, padded rows, 64 victim slots), and a Python
-walk of csrc/preempt.cu's algorithm (the nominee-adjusted carry, 64-bit
-victim masks, the lexicographic block minimum) against the plain version;
+at each of the six pick keys, padded rows, 64 victim slots) and on runs of
+repeated specs, and a Python walk of csrc/preempt.cu's algorithm (the
+hoisted step facts, the nominee-adjusted carry, 64-bit victim masks, the
+per-node cache re-evaluated only where the carry or the spec changed, the
+packed keys and the tournament tree kept leaf by leaf) against the plain
+version, with its reuse counts, and the walk's memory layout;
 `fold_usage` against the JAX one (duplicate rows, sentinel pads) and its
 exact inverse; the queue's nominated index, `batch_preempt_device`,
 `_select_victims_fast`, `pick_one_node_for_preemption` and `preempt`
@@ -38,19 +41,20 @@ from kubernetes_tpu_torch.state.queue import PriorityQueue
 SHAPES = {"base": (48, 40, 8, 8), "v64": (24, 20, 64, 8), "r16": (20, 16, 8, 16)}
 
 
-def _arrays(seed, shape):
+def _arrays(seed, shape, mode="iid"):
     p, n, v, r = SHAPES[shape]
-    return random_preempt_arrays(seed, p, n, v, r)
+    return random_preempt_arrays(seed, p, n, v, r, runs=mode == "runs")
 
 
 def _torch(a):
     return {k: torch.from_numpy(x.copy()) for k, x in a.items()}
 
 
+@pytest.mark.parametrize("mode", ["iid", "runs"])
 @pytest.mark.parametrize("shape", list(SHAPES))
 @pytest.mark.parametrize("seed", [0, 1, 2])
-def test_preempt_batch_matches_reference(seed, shape):
-    a = _arrays(seed, shape)
+def test_preempt_batch_matches_reference(seed, shape, mode):
+    a = _arrays(seed, shape, mode)
     want = r_preempt_batch(**{k: jnp.asarray(x) for k, x in a.items()})
     got = preempt_batch(**_torch(a))  # CPU tensors: the plain version
     for w, g in zip(want, got):
@@ -62,15 +66,45 @@ def test_preempt_batch_matches_reference(seed, shape):
     assert (chosen < SHAPES[shape][1] - 4).all()  # nor do padded nodes get picked
 
 
+_NONE = (2**64 - 1,) * 3
+
+
+def _pack(viol, maxprio, psum, cnt, negts, row):
+    """csrc/preempt.cu's pick key: three 64-bit words whose unsigned order is
+    the order of the tuple (viol, maxprio, psum, cnt, negts, row)."""
+    mp, ps, nt = maxprio + 2**31, psum + 2**37, (negts % 2**64) ^ (1 << 63)
+    assert 0 <= viol <= 64 and 0 <= mp < 2**32 and 0 <= ps < 2**38 and 0 <= cnt <= 64 and 0 <= row < 2**32
+    return ((viol << 57) | (mp << 25) | (ps >> 13),
+            ((ps & 0x1FFF) << 51) | (cnt << 44) | (nt >> 20),
+            ((nt & 0xFFFFF) << 44) | (row << 12))
+
+
 def _kernel_walk(a):
-    """csrc/preempt.cu's algorithm in Python: per node the nominee-adjusted
-    carry and a victim-slot bitmask, the reprieve in slot order, and the
-    pick as the lexicographic minimum of (keys..., row). Returns the three
-    outputs and, per found step, the index of the first key (5 = the row)
-    that separated the chosen node from the runner-up (-1: the only
-    feasible node)."""
+    """csrc/preempt.cu's algorithm in Python. The prologue's step facts
+    (checked mask, same spec, cand holding every valid node or none); per
+    node the nominee-adjusted carry, 64-bit victim masks and a cache of its
+    victim search as if it were a candidate (fits-free bit, victim mask,
+    packed key); a step with a new spec re-evaluates every row, a step with
+    the same spec only the row the step before chose; the pick is a
+    tournament tree of least keys (a key names its row) kept up to date
+    leaf by leaf (the path rewritten from the prefix minimum of its
+    siblings' keys) with a count of
+    valid nodes fitting as they stand, on the steps one warp walks (same
+    spec, cand full or empty); other steps take a gated minimum over the
+    cache, and the tree is rebuilt before a run of one-warp steps.
+    Returns the three outputs, per found step the index of the first key
+    (5 = the row) that separated the chosen node from the runner-up (-1:
+    the only feasible node), and the walk's counts: rows evaluated, steps
+    walked by one warp, tree rebuilds (the kernel's walk_stats)."""
     p, n = a["cand"].shape
     v, r = a["vict_req"].shape[1:]
+    valid = [bool(x) for x in a["node_valid"]]
+    # the prologues
+    same = [k > 0 and np.array_equal(a["p_req"][k], a["p_req"][k - 1]) and a["p_req_any"][k] == a["p_req_any"][k - 1]
+            and a["p_prio"][k] == a["p_prio"][k - 1] for k in range(p)]
+    live_any = [bool((a["cand"][k] & a["node_valid"]).any()) for k in range(p)]
+    cfull = [bool((a["cand"][k] | ~a["node_valid"]).all()) for k in range(p)]
+    solo = [k > 0 and same[k] and (cfull[k] or not live_any[k]) for k in range(p)]
     nfree = (a["free0"] - a["nom_extra0"]).tolist()
     ncount = (a["count_free0"] - a["nom_cnt0"]).tolist()
     alive = [sum(1 << j for j in range(v) if a["vict_valid"][i, j]) for i in range(n)]
@@ -78,26 +112,29 @@ def _kernel_walk(a):
     vreq = a["vict_req"].tolist()
     vprio = a["vict_prio"].tolist()
     vts = a["vict_ts"].tolist()
-    nodes_out, victims_out, ff_out, deciders = [], [], [], []
-    for k in range(p):
+    key, ff, vms = [_NONE] * n, [False] * n, [0] * n
+    npow = max(2, 1 << max(0, n - 1).bit_length())
+    levels = npow.bit_length() - 1
+    tree = [_NONE] * npow
+    counts = {"evaluated": 0, "solo": 0, "rebuilds": 0}
+
+    def search(i, k):
+        """selectVictimsOnNode for row i as if it were a candidate: (packed
+        key or _NONE, fits-as-it-stands, victim mask); the plain tuple key
+        beside the packed one."""
+        counts["evaluated"] += 1
         req = a["p_req"][k].tolist()
         checked = [x < 3 or req[x] > 0 for x in range(r)]
         any_req = bool(a["p_req_any"][k])
         prio = int(a["p_prio"][k])
-        ff = False
-        keys = []
-        masks = {}
-        for i in range(n):
-            live = bool(a["cand"][k, i] and a["node_valid"][i])
-            free_ok = not any_req or all(not checked[x] or nfree[i][x] - req[x] >= 0 for x in range(r))
-            ff |= live and free_ok and ncount[i] >= 1
-            lower = [j for j in range(v) if (alive[i] >> j) & 1 and vprio[i][j] < prio]
-            head = [nfree[i][x] - req[x] + sum(vreq[i][j][x] for j in lower) for x in range(r)]
-            res_ok = not any_req or all(not checked[x] or head[x] >= 0 for x in range(r))
-            cslack = ncount[i] + len(lower) - 1
-            if not (live and res_ok and cslack >= 0 and lower):
-                continue
-            vm = 0
+        free_ok = not any_req or all(not checked[x] or nfree[i][x] - req[x] >= 0 for x in range(r))
+        fits_free = free_ok and ncount[i] >= 1
+        lower = [j for j in range(v) if (alive[i] >> j) & 1 and vprio[i][j] < prio]
+        head = [nfree[i][x] - req[x] + sum(vreq[i][j][x] for j in lower) for x in range(r)]
+        res_ok = not any_req or all(not checked[x] or head[x] >= 0 for x in range(r))
+        cslack = ncount[i] + len(lower) - 1
+        vm = 0
+        if res_ok and cslack >= 0 and lower:
             for j in lower:
                 keep = not any_req or all(not checked[x] or head[x] - vreq[i][j][x] >= 0 for x in range(r))
                 if keep and cslack >= 1:
@@ -105,46 +142,139 @@ def _kernel_walk(a):
                     cslack -= 1
                 else:
                     vm |= 1 << j
-            if not vm:
-                continue
-            vs = [j for j in range(v) if (vm >> j) & 1]
-            maxprio = max(vprio[i][j] for j in vs)
-            maxts = max([-(2**62)] + [vts[i][j] for j in vs if vprio[i][j] == maxprio])
-            keys.append((bin(vm & pdbm[i]).count("1"), maxprio, sum(vprio[i][j] for j in vs), len(vs), -maxts, i))
-            masks[i] = vm
-        ff_out.append(ff)
-        keys.sort()
-        found = bool(keys) and bool(a["p_valid"][k]) and not ff
-        if not found:
+        if not vm:
+            return _NONE, fits_free, 0
+        vs = [j for j in range(v) if (vm >> j) & 1]
+        maxprio = max([-(2**31)] + [vprio[i][j] for j in vs])
+        maxts = max([-(2**62)] + [vts[i][j] for j in vs if vprio[i][j] == maxprio])
+        plain = (bin(vm & pdbm[i]).count("1"), maxprio, sum(vprio[i][j] for j in vs), len(vs), -maxts, i)
+        packed = _pack(*plain)
+        assert (packed < _pack(*tuple(plain[:5]) + (i + 1,))) and packed < _NONE
+        return packed, fits_free, vm
+
+    def store(i, k):
+        key[i], ff[i], vms[i] = search(i, k)
+
+    def key_at(j):
+        return key[j] if j < n and valid[j] else _NONE
+
+    def tree_key(x):
+        return key_at(x - npow) if x >= npow else tree[x]
+
+    def row_of(key_):
+        return (key_[2] >> 12) & 0xFFFFFFFF
+
+    def rebuild():
+        m = npow >> 1
+        while m >= 1:
+            for x in range(m, 2 * m):
+                tree[x] = min(tree_key(2 * x), tree_key(2 * x + 1))
+            m >>= 1
+        counts["rebuilds"] += 1
+
+    def reeval(c, k):
+        """Re-evaluate row c; rewrite its tree path from the prefix minimum
+        of its siblings' keys; return the fits-free delta and the least key
+        excluding c."""
+        leaf = npow + c
+        pm, prefix = _NONE, []
+        for lvl in range(levels):
+            pm = min(pm, tree_key((leaf >> lvl) ^ 1))
+            prefix.append(pm)
+        old_ff = ff[c]
+        store(c, k)
+        kc = key_at(c)
+        for lvl, pm_l in enumerate(prefix):
+            tree[leaf >> (lvl + 1)] = min(kc, pm_l)
+        return (int(ff[c]) - int(old_ff)) if valid[c] else 0, pm
+
+    nodes_out, victims_out, ff_out, deciders = [], [], [], []
+    dirty, tree_ok, ffc = -1, False, 0
+    for k in range(p):
+        chosen = -1
+        if solo[k]:
+            counts["solo"] += 1
+            if dirty >= 0:
+                d, ko = reeval(dirty, k)
+                ffc += d
+                if cfull[k]:
+                    best = min(key_at(dirty), ko)
+                    chosen = row_of(best) if best != _NONE else -1
+            elif cfull[k] and tree_key(1) != _NONE:
+                chosen = row_of(tree_key(1))
+            any_ff = cfull[k] and ffc > 0
+        else:
+            if not same[k]:
+                for i in range(n):
+                    store(i, k)
+                tree_ok = False
+            elif dirty >= 0:
+                ffc += reeval(dirty, k)[0]
+            live = [i for i in range(n) if a["cand"][k, i] and valid[i]]
+            any_ff = any(ff[i] for i in live)
+            best = min([(key[i], i) for i in live], default=(_NONE, -1))
+            chosen = best[1] if best[0] != _NONE else -1
+        # the gated minimum the pick must equal, and which key decided it
+        keys = sorted(key[i] for i in range(n) if a["cand"][k, i] and valid[i] and key[i] != _NONE)
+        assert (chosen >= 0) == bool(keys) and (chosen < 0 or key[chosen] == keys[0])
+        found = chosen >= 0 and bool(a["p_valid"][k]) and not any_ff
+        ff_out.append(any_ff)
+        if found:
+            deciders.append(-1 if len(keys) == 1 else _decider(keys[0], keys[1]))
+            vm = vms[chosen]
+            req = a["p_req"][k].tolist()
+            for x in range(r):
+                nfree[chosen][x] += sum(vreq[chosen][j][x] for j in range(v) if (vm >> j) & 1) - req[x]
+            ncount[chosen] += bin(vm).count("1") - 1
+            alive[chosen] &= ~vm
+            nodes_out.append(chosen)
+            victims_out.append([bool((vm >> j) & 1) for j in range(v)])
+            dirty = chosen
+        else:
             nodes_out.append(-1)
             victims_out.append([False] * v)
-            continue
-        best = keys[0]
-        deciders.append(-1 if len(keys) == 1 else next(x for x in range(6) if keys[1][x] != best[x]))
-        i = best[5]
-        vm = masks[i]
-        for x in range(r):
-            nfree[i][x] += sum(vreq[i][j][x] for j in range(v) if (vm >> j) & 1) - req[x]
-        ncount[i] += bin(vm).count("1") - 1
-        alive[i] &= ~vm
-        nodes_out.append(i)
-        victims_out.append([bool((vm >> j) & 1) for j in range(v)])
-    return (np.asarray(nodes_out, np.int32), np.asarray(victims_out, bool), np.asarray(ff_out, bool)), deciders
+            dirty = -1
+        if not solo[k] and k + 1 < p and solo[k + 1] and not tree_ok:
+            rebuild()
+            ffc = sum(1 for i in range(n) if valid[i] and ff[i])
+            tree_ok = True
+    outputs = (np.asarray(nodes_out, np.int32), np.asarray(victims_out, bool), np.asarray(ff_out, bool))
+    return outputs, deciders, counts
 
 
-def test_kernel_walk_matches_plain_and_reaches_every_branch():
+def _decider(best, runner):
+    """The first of the six key fields (5 = the row) in which two packed
+    keys differ."""
+    def unpack(w):
+        bits = (w[0] << 128) | (w[1] << 64) | w[2]
+        widths = (7, 32, 38, 7, 64, 32)
+        out, shift = [], 192
+        for wd in widths:
+            shift -= wd
+            out.append((bits >> shift) & ((1 << wd) - 1))
+        return out
+    b, q = unpack(best), unpack(runner)
+    return next(x for x in range(6) if b[x] != q[x])
+
+
+@pytest.mark.parametrize("mode", ["iid", "runs"])
+def test_kernel_walk_matches_plain_and_reaches_every_branch(mode):
     """The kernel's algorithm equals the plain scan, and over the seeds
     and shapes the arrays reach every branch: each of the six pick keys
     decides some step, some steps find their pod fitting as things stand,
     some preemptors request nothing and some request an extended slot,
-    some picks evict a PDB-violating victim, some nodes carry nominees."""
+    some picks evict a PDB-violating victim, some nodes carry nominees.
+    With runs of repeated specs the reuse path carries the walk: far fewer
+    rows evaluated than P x N, steps walked by one warp, the tree rebuilt
+    before them."""
     deciders = set()
     fits_free = requests_nothing = scalar = pdb_victims = 0
+    evaluated = full = solo = rebuilds = 0
     for shape in SHAPES:
         for seed in range(3):
-            a = _arrays(seed, shape)
+            a = _arrays(seed, shape, mode)
             plain = preempt_batch_plain(**_torch(a))
-            walked, dec = _kernel_walk(a)
+            walked, dec, counts = _kernel_walk(a)
             for w, g in zip(walked, plain):
                 assert np.array_equal(w, g.numpy())
             deciders |= set(dec)
@@ -155,8 +285,34 @@ def test_kernel_walk_matches_plain_and_reaches_every_branch():
             pdb_victims += sum(int((walked[1][k] & a["vict_pdb"][chosen[k]]).any())
                                for k in range(len(chosen)) if chosen[k] >= 0)
             assert a["nom_cnt0"].sum() > 0
+            evaluated += counts["evaluated"]
+            full += a["cand"].size
+            solo += counts["solo"]
+            rebuilds += counts["rebuilds"]
     assert {0, 1, 2, 3, 4, 5} <= deciders, deciders
     assert fits_free > 0 and requests_nothing > 0 and scalar > 0 and pdb_victims > 0
+    if mode == "runs":
+        assert evaluated < full // 2 and solo > 0 and rebuilds > 0, (evaluated, full, solo, rebuilds)
+    else:
+        assert evaluated >= full - SHAPES["base"][0] * SHAPES["base"][1]
+
+
+def test_preempt_layout_places_the_carry():
+    """csrc/preempt.cu keeps the walk's carry in shared memory when it fits
+    (config 6: N = 512, R = 8, the tree's 512 leaves), the victims there
+    too when they also fit, and in device memory past the budget (a
+    counted path)."""
+    from kubernetes_tpu_torch.ops.preempt import PREEMPT_SMEM_BUDGET, preempt_layout
+
+    six = preempt_layout(512, 8, 8)
+    assert six == {"NP": 512, "carry": 512 * (8 * 8 + 54) + 24 * 512, "resident": True, "victims_resident": False,
+                   "smem": 512 * (8 * 8 + 54) + 24 * 512}
+    small = preempt_layout(40, 8, 8)
+    assert small["NP"] == 64 and small["victims_resident"] and small["smem"] == small["carry"] + 40 * 8 * (8 * 8 + 12)
+    assert preempt_layout(1, 8, 8)["NP"] == 2 and preempt_layout(1100, 8, 8)["resident"]
+    big = preempt_layout(2100, 8, 8)
+    assert not big["resident"] and big["smem"] == 0 and big["carry"] > PREEMPT_SMEM_BUDGET
+    assert all(preempt_layout(n, 64, r)["carry"] % 16 == 0 for n in (1, 7, 40, 513) for r in (1, 8, 64))
 
 
 @pytest.mark.parametrize("seed", [0, 1])

@@ -147,3 +147,74 @@ def test_rtcr_kernel_algorithm_matches_plain(name):
     want = PS.requested_to_capacity_ratio(tn, tp, shape, res)
     assert torch.equal(_walk_rtcr(tn, tp, shape, res), want)
     assert len(torch.unique(want)) > 1
+
+
+def _div_small(a, b):
+    """csrc/scores.cu's div_small: the float64 quotient, one exact step."""
+    q = int(float(a) / float(b))
+    r = a - q * b
+    return q - 1 if r < 0 else (q + 1 if r >= b else q)
+
+
+def _floordiv_fast(a, b):
+    return _div_small(a, b) if a >= 0 and b >= 1 and ((a | b) >> 53) == 0 else a // b
+
+
+def _least_most(req, cap):
+    """csrc/scores.cu's least_most on its fused domain (0 <= req <= cap <
+    2^59): one division serves LeastRequested and MostRequested."""
+    q = _floordiv_fast(req * 10, cap)
+    return 10 - q - (1 if req * 10 - q * cap else 0), q
+
+
+def _normalize_quotient(x, m):
+    """csrc/scores.cu's normalize for 0 <= x, 1 <= m below 2^53: through the
+    float64 reciprocal of the row maximum, corrected exactly."""
+    rinv = 1.0 / float(m)
+    q = int(float(x) * rinv)
+    r = x - q * m
+    while r < 0:
+        q, r = q - 1, r + m
+    while r >= m:
+        q, r = q + 1, r - m
+    return q
+
+
+def test_score_kernel_divisions_are_exact():
+    """The score kernel's cut divisions (the fused LeastRequested /
+    MostRequested quotient, float64 division with one correction, the
+    NormalizeReduce reciprocal) equal floor division on edge and random
+    operands up to and across 2^53 and 2^59."""
+    rng = np.random.default_rng(0)
+    edges = [1, 2, 3, 7, 10, 2**31 - 1, 2**32, 2**52 - 1, 2**52, 2**53 - 1, 2**53, 2**53 + 1, 2**58, 2**59 - 1]
+    caps = edges + [int(x) for x in rng.integers(1, 2**40, 300)] + [int(x) for x in rng.integers(1, 2**59, 300)]
+    for cap in caps:
+        reqs = {0, 1, cap // 3, cap // 2, max(cap - 1, 0), cap} | {int(x) for x in rng.integers(0, cap + 1, 6)}
+        for req in reqs:
+            assert _least_most(req, cap) == (((cap - req) * 10) // cap, (req * 10) // cap), (req, cap)
+    for hi_a, hi_b in ((2**53, 2**53), (2**53, 2**20), (2**20, 2**53), (1000, 30)):
+        a = [int(x) for x in rng.integers(0, hi_a, 4000)] + [0, hi_a - 1]
+        b = [int(x) for x in rng.integers(1, hi_b, 4000)] + [1, hi_b - 1]
+        for x, m in zip(a, b):
+            assert _div_small(x, m) == x // m and _normalize_quotient(x, m) == x // m, (x, m)
+
+
+@pytest.mark.parametrize("n,u", [(6144, 128), (10240, 128), (100, 256), (1000, 256), (2600, 256), (300, 16),
+                                 (200000, 128)])
+def test_score_layout_covers_every_tile_and_fills_the_card(n, u):
+    """A cluster of C <= 8 CTAs a spec row covers all of its node tiles;
+    C is enough for U * C CTAs to fill the card's 132 SMs, or the row's
+    tiles; raws that do not fit shared memory go to device scratch."""
+    lay = PS.score_layout(n, u, True, 4, 6, 8, 8, 4)
+    tiles = -(-n // PS.SCORE_TILE)
+    assert 1 <= lay["C"] <= PS.SCORE_ROW_CTAS and lay["C"] * lay["TPC"] >= tiles > (lay["TPC"] - 1) * lay["C"]
+    assert lay["C"] == min(PS.SCORE_ROW_CTAS, tiles) or u * lay["C"] >= PS.SCORE_TARGET_CTAS
+    if n <= PS.SCORE_TILE:
+        assert lay["C"] == 1
+    stage = 8 * 24 + 4 * (2 * 24 + 24 * 8 + 4 + 4 * 8 + 4) + 4 + 8
+    if lay["raw_shared"]:
+        assert lay["smem"] == stage + 12 * lay["TPC"] * PS.SCORE_TILE and lay["scratch"] == 0
+    else:
+        assert lay["smem"] == stage and lay["scratch"] == 12 * lay["TPC"] * PS.SCORE_TILE * u * lay["C"]
+    assert lay["raw_shared"] == (n < 100000)
+    assert not PS.score_layout(n, u, False, 4, 6, 8, 8, 4)["raw_shared"]
