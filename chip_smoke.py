@@ -39,8 +39,15 @@ they placed. Phases:
                 cluster reaching every inter-pod branch and at the config-4
                 shapes (U=32, N=2048, TT=32, S=256, PT=32, V=2048);
                 CUDA-event times of kernel and plain version, and each
-                kernel's bound
-                the commit plane's spread_filter, arbitrate and
+                kernel's bound; the filter also with int64 pod counts (read
+                in place: no conversion), with spec rows past a CTA's
+                shared memory (its counted device-memory path) and timed at
+                five tile shapes in turns
+                the commit plane's spread_filter (one launch, no
+                match_terms launch, its mask and every table cell exact at
+                the driver's V, 16, 64 and 40,000; the device-memory tables
+                counted; timed at 4, 8 and 16 CTAs a spec row in turns),
+                arbitrate and
                 fold_commit_banks on a seeded cluster reaching every branch
                 (DoNotSchedule spread, inter-pod terms, host ports) and at
                 the config-3-hard shapes (config 3 with DoNotSchedule
@@ -201,7 +208,14 @@ they placed. Phases:
   6. kernels    a {"redesign": ...} line (the serial walks at the main
                 path's shapes: the solve plain, tracked, gang and on the
                 mesh, the arbiter on one CTA and the mesh; ms, plain ms,
-                bound ms and µs a pod, and the 8- and 16-CTA solve's ms), then
+                bound ms and µs a pod, and the 8- and 16-CTA solve's ms;
+                the victim search and the score matrix; the spread filter
+                at the config-3-hard shapes and the feasibility mask at the
+                config-2 shapes, alone and through their wrappers, beside
+                their times before the redesign, their bounds, the chosen
+                cluster size and tile, the alternatives timed, the
+                device-memory paths and their main-path launches, and the
+                extender's filter_mask through its wrapper), then
                 one JSON line: per kernel (the nineteen, the tracked
                 solve, the RTCR branch, score_components, the extender's
                 filter_mask and the mesh's six: the sharded solve, tracked
@@ -649,13 +663,17 @@ def gang_work(mask, sig, pod_valid, alive, pa, free0, count0, allowed, nz0, orde
     return b1 + b2 + b * (4 + 1), o1 + o2 + 3 * b
 
 
-def spread_filter_work(na, ea, ta, m_sig_ns, u):
+def spread_filter_work(na, ea, ta, m_sig_ns, u, v, tables=True):
     """(bytes, integer operations) of spread_filter on these inputs, over
-    live lanes: per hard term, per valid node 1 add per matched signature
-    and 6 for the bucket (candidate counts, presence); per spec row with
-    hard terms, per valid node 6 per term (bucket, gather, skew test);
-    reads the matched signatures' counts columns, the dense label column of
-    each hard slot, the owners' selector rows, writes [U, N] bytes."""
+    live lanes: the hard terms' matches against the valid signatures
+    (match_terms' count, restricted to the hard terms: the launch computes
+    them); per hard term, per valid node 1 add per matched signature and 6
+    for the bucket (candidate counts, presence); per spec row with hard
+    terms, per valid node 6 per term (bucket, gather, skew test); reads the
+    hard term rows, the signatures' label slots they name, the matched
+    signatures' counts columns, the dense label column of each hard slot,
+    the owners' selector rows, writes the [U, N] mask and, with `tables`,
+    the candidate bytes and the [TT, V] / [TT] tables."""
     from kubernetes_tpu_torch.state.terms import SPREAD_HARD
 
     n = na["valid"].shape[0]
@@ -666,8 +684,20 @@ def spread_filter_work(na, ea, ta, m_sig_ns, u):
     slots = len(set(ta["topo_slot"][hard].tolist()))
     owners = len(set(ta["owner"][hard].tolist()))
     n_hard = int(hard.sum())
-    ops = nn * (matched + 6 * n_hard) + nn * 6 * n_hard
-    nbytes_ = nn * 2 * sigs + nn * 4 * slots + owners * n + n_hard * ea["valid"].shape[0] + u * n
+    ns_live = int(ea["valid"].sum())
+    ml = int((ta["ml_slot"][hard] >= 0).sum())
+    ex_live = ta["ex_op"][hard] != 0
+    lanes = int(((ta["ex_vals"][hard] >= 0) & ex_live[..., None]).sum())
+    match_ops = ns_live * (2 * ml + 3 * int(ex_live.sum()) + lanes + n_hard * (2 + ta["ns_ids"].shape[1]))
+    label_slots = set(ta["ml_slot"][hard][ta["ml_slot"][hard] >= 0].tolist()) | \
+        set(ta["ex_slot"][hard][ex_live].tolist())
+    row_bytes = sum(int(v[0].numel() * v.element_size()) for k, v in ta.items()
+                    if k in ("valid", "kind", "owner", "topo_slot", "self_match", "weight", "has_selector", "ml_slot",
+                             "ml_val", "ex_op", "ex_slot", "ex_vals", "ns_any", "ns_ids"))
+    ops = match_ops + nn * (matched + 6 * n_hard) + nn * 6 * n_hard
+    tt = ta["valid"].shape[0]
+    nbytes_ = (n_hard * row_bytes + ns_live * (4 * len(label_slots) + 4) + nn * 2 * sigs + nn * 4 * slots
+               + owners * n + u * n + (u * n + tt * (5 * v + 5) if tables else 0))
     return nbytes_, ops
 
 
@@ -797,21 +827,62 @@ def compare_kernels(na, pa, ids, sig, label, time_it: bool):
     # --- filter, under every predicate subset the Policy names can form
     subsets = [None, frozenset({"GeneralPredicates"}), frozenset({"PodToleratesNodeTaints", "CheckNodeUnschedulable"}),
                frozenset({"MatchNodeSelector"}), frozenset({"PodFitsHostPorts", "PodFitsResources"})]
+    # ... with the pod counts at int32 and int64 (a carried state), read in
+    # place (the struct holds the caller's tensors: no conversion), the raw
+    # selector output beside, and the counted device-memory path (spec rows
+    # padded past shared memory)
+    widths = {"int32": na, "int64": {**na, "pod_count": na["pod_count"].long(),
+                                     "allowed_pods": na["allowed_pods"].long()}}
+    # 7,000 toleration lanes a spec row (those past the encoder's 8 invalid):
+    # past a CTA's shared memory, on 4 rows (the plain version's broadcast)
+    wide = {k: v[:4] for k, v in pa.items()}
+    for k in ("tol_key", "tol_op", "tol_val", "tol_effect", "tol_valid"):
+        wide[k] = torch.cat([wide[k], torch.zeros(4, 7000 - pa[k].shape[1], dtype=pa[k].dtype, device=pa[k].device)],
+                            1)
     mismatched = 0
+    dev_mem = F.combined_mask.device_memory_launches
     for preds in subsets:
-        k = F.combined_mask(na, pa, ids, preds)
-        p = F.combined_mask_plain(na, pa, ids, preds)
-        mismatched += int((k != p).sum())
+        for nw in widths.values():
+            k, sel = F.combined_mask(nw, pa, ids, preds, with_selector=True)
+            p = F.combined_mask_plain(nw, pa, ids, preds)
+            mismatched += int((k != p).sum()) + int((sel != F.pod_match_node_selector(nw, pa)).sum())
+            a64, _, _ = F.filter_args(nw, pa, ids, preds)
+            check(a64.n_pod_count == nw["pod_count"].data_ptr() and a64.n_allowed_pods == nw["allowed_pods"].data_ptr(),
+                  f"[{label}] the filter wrapper converted the pod counts")
+        mismatched += int((F.combined_mask(na, wide, ids, preds) != F.combined_mask_plain(na, wide, ids, preds)).sum())
     check(mismatched == 0, f"[{label}] filter kernel differs from its plain version in {mismatched} pairs")
+    check(F.combined_mask.device_memory_launches == dev_mem + len(subsets),
+          f"[{label}] the filter's device-memory path was not counted")
     mask = F.combined_mask(na, pa, ids)
     # booleans: the largest |kernel - plain| is 1 if any pair differs
     out["filter_mask"] = {"max_abs_err": min(mismatched, 1), "feasible": int(mask.sum())}
     if time_it:
         # the kernel alone: relaunch one prebuilt argument struct, so the
         # wrapper's host-side struct building does not pace the device
+        fm = out["filter_mask"]
         args, _, _ = F.filter_args(na, pa, ids)
-        out["filter_mask"]["ms"] = cuda_ms(lambda: build.launch(F.FILTER_ENTRY, args, na["valid"].device), 200)
-        out["filter_mask"]["wrapper_ms"] = cuda_ms(lambda: F.combined_mask(na, pa, ids), 200)
+        fm["ms"] = cuda_ms(lambda: build.launch(F.FILTER_ENTRY, args, na["valid"].device), 200)
+        fm["wrapper_ms"] = cuda_ms(lambda: F.combined_mask(na, pa, ids), 200)
+        fm["layout"] = {k: getattr(args, k) for k in ("UT", "NT", "row_bytes", "staged", "smem")}
+        # the tile shapes, each exact, in turns; int64 counts; device memory
+        fm["tiles_ms"] = {}
+        want = F.combined_mask_plain(na, pa, ids)
+        tiles = ((16, 128), (32, 128), (8, 256), (8, 128), (4, 256))
+        for tile in tiles + tiles[::-1]:
+            targs, tout, _ = F.filter_args(na, pa, ids, tile=tile)
+            build.launch(F.FILTER_ENTRY, targs, na["valid"].device)
+            check(bool(torch.equal(tout, want)), f"[{label}] filter tile {tile} differs from its plain version")
+            ms = cuda_ms(lambda: build.launch(F.FILTER_ENTRY, targs, na["valid"].device), 200)
+            key = f"{tile[0]}x{tile[1]}"
+            fm["tiles_ms"][key] = min(ms, fm["tiles_ms"].get(key, ms))
+        a64, _, _ = F.filter_args(widths["int64"], pa, ids)
+        fm["int64_ms"] = cuda_ms(lambda: build.launch(F.FILTER_ENTRY, a64, na["valid"].device), 200)
+        dargs, _, _ = F.filter_args(na, wide, ids)
+        fm["device_memory_ms"] = cuda_ms(lambda: build.launch(F.FILTER_ENTRY, dargs, na["valid"].device), 50)
+        log(f"[kernels] {label} filter_mask: layout {fm['layout']}; tiles "
+            + ", ".join(f"{k}: {t:.4f} ms" for k, t in fm["tiles_ms"].items())
+            + f"; int64 counts {fm['int64_ms']:.4f} ms; device-memory path (4 spec rows of 7,000 toleration "
+            f"lanes) {fm['device_memory_ms']:.4f} ms")
         out["filter_mask"]["plain_ms"] = cuda_ms(lambda: F.combined_mask_plain(na, pa, ids), 3)
         out["filter_mask"]["bound"] = bound(filter_work(na, pa))
 
@@ -1099,7 +1170,6 @@ def compare_commit(enc, label, time_it: bool, parts=("spread_filter", "arbitrate
     from kubernetes_tpu_torch.ops import topology as TO
     from kubernetes_tpu_torch.state.convert import arrays_to_torch
     from kubernetes_tpu_torch.state.tensors import pow2_bucket
-    from kubernetes_tpu_torch.state.terms import SPREAD_HARD
 
     na, ea, xa, ta, au, pa, ids, v, sig = (enc[k] for k in ("na", "ea", "xa", "ta", "au", "pa", "ids", "v", "sig"))
     kinds = enc["kinds"]
@@ -1107,11 +1177,20 @@ def compare_commit(enc, label, time_it: bool, parts=("spread_filter", "arbitrate
     out = {}
     _, sel = F.combined_mask(na, pa, ids, with_selector=True)
     if "spread_filter" in parts:
+        # one launch a call (the term matches inside it), its mask and every
+        # table cell exact, at the driver's V, 16, 64 and 40,000 (device memory)
         bad = 0
-        for nb in sorted({v, 16, 40000}):
-            bad += int((TO.spread_filter(na, ea, ta, sel, n_buckets=nb)
-                        != TO.spread_filter_plain(na, ea, ta, sel, nb)).sum())
-        check(bad == 0, f"[{label}] spread_filter kernel differs from its plain version in {bad} pairs")
+        dev_tables = TO.spread_filter.device_table_launches
+        for nb in sorted({v, 16, 64, 40000}):
+            calls, matches = TO.spread_filter.launches, TO.match_terms.launches
+            got, tb = TO.spread_filter(na, ea, ta, sel, n_buckets=nb, with_tables=True)
+            check(TO.spread_filter.launches == calls + 1 and TO.match_terms.launches == matches,
+                  f"[{label}] spread_filter is not one launch without match_terms")
+            want, want_tb = TO.spread_filter_plain(na, ea, ta, sel, nb, with_tables=True)
+            bad += int((got != want).sum()) + sum(int((tb[k] != want_tb[k]).sum()) for k in want_tb)
+        check(bad == 0, f"[{label}] spread_filter kernel differs from its plain version in {bad} cells")
+        check(TO.spread_filter.device_table_launches == dev_tables + 1,
+              f"[{label}] spread_filter's device-memory tables were not counted once (V = 40,000)")
         out["spread_filter"] = {"max_abs_err": min(bad, 1)}
     b = sig.shape[0]
     pb = {"sig": sig, "valid": torch.ones(b, dtype=torch.bool, device=dev),
@@ -1156,11 +1235,31 @@ def compare_commit(enc, label, time_it: bool, parts=("spread_filter", "arbitrate
         f"{int((prog.pat_cnt > 0).sum())} pattern instances folded)")
     if time_it:
         if "spread_filter" in parts:
-            m_ns = TO.match_terms(ta, ea["label_vals"], ea["ns_id"])
-            fargs, _ = TO.spread_args(na, ea, ta, m_ns, sel, v, SPREAD_HARD)
-            out["spread_filter"]["ms"] = cuda_ms(lambda: build.launch(TO.SPREAD_FILTER_ENTRY, fargs, dev), 200)
-            out["spread_filter"]["plain_ms"] = cuda_ms(lambda: TO.spread_filter_plain(na, ea, ta, sel, v), 5)
-            out["spread_filter"]["bound"] = bound(spread_filter_work(na, ea, ta, m_ns, pa["valid"].shape[0]))
+            m_ns = TO.match_terms_plain(ta, ea["label_vals"], ea["ns_id"])
+            sf = out["spread_filter"]
+            fargs, _, _ = TO.spread_filter_args(na, ea, ta, sel, v)
+            sf["ms"] = cuda_ms(lambda: build.launch(TO.SPREAD_FILTER_ENTRY, fargs, dev), 200)
+            sf["wrapper_ms"] = cuda_ms(lambda: TO.spread_filter(na, ea, ta, sel, n_buckets=v, with_tables=True), 200)
+            sf["plain_ms"] = cuda_ms(lambda: TO.spread_filter_plain(na, ea, ta, sel, v), 5)
+            sf["bound"] = bound(spread_filter_work(na, ea, ta, m_ns, pa["valid"].shape[0], v))
+            sf["layout"] = {k: getattr(fargs, k) for k in ("C", "slice", "vslice", "copies", "local_table", "smem")}
+            # the cluster size: 4, 8 and 16 CTAs a spec row, each exact, in turns
+            want, want_tb = TO.spread_filter_plain(na, ea, ta, sel, v, with_tables=True)
+            sf["ctas_ms"] = {}
+            for ctas in (4, 8, 16, 16, 8, 4):
+                cargs, cmask, ctb = TO.spread_filter_args(na, ea, ta, sel, v, cluster=ctas)
+                build.launch(TO.SPREAD_FILTER_ENTRY, cargs, dev)
+                bad_c = int((cmask != want).sum()) + sum(int((ctb[k] != want_tb[k]).sum()) for k in want_tb)
+                check(bad_c == 0, f"[{label}] spread_filter at {ctas} CTAs a row differs in {bad_c} cells")
+                ms = cuda_ms(lambda: build.launch(TO.SPREAD_FILTER_ENTRY, cargs, dev), 200)
+                sf["ctas_ms"][ctas] = min(ms, sf["ctas_ms"].get(ctas, ms))
+            # the device-memory tables at V = 40,000, the kernel alone
+            dargs, _, _ = TO.spread_filter_args(na, ea, ta, sel, 40000)
+            sf["device_tables_ms"] = cuda_ms(lambda: build.launch(TO.SPREAD_FILTER_ENTRY, dargs, dev), 50)
+            log(f"[kernels] {label} spread_filter: layout {sf['layout']}; by CTAs a row "
+                + ", ".join(f"{c}: {t:.4f} ms" for c, t in sorted(sf["ctas_ms"].items()))
+                + f"; device-memory tables (V = 40,000) {sf['device_tables_ms']:.4f} ms; through its wrapper "
+                f"{sf['wrapper_ms']:.4f} ms")
         if "arbitrate" in parts:
             aargs, _ = A.arbiter_args(na, pa, ea, ta, ids, assign, pb, term_kinds=kinds, n_buckets=v)
             out["arbitrate"]["ms"] = cuda_ms(lambda: build.launch(A.ARBITER_ENTRY, aargs, dev), 5)
@@ -2054,7 +2153,42 @@ def phase_kernels():
     stats["_redesign"] = redesign_summary(stats, hard["arbitrate"], layouts)
     score2 = {k: stats[k] for k in ("score_matrix", "score_matrix[rtcr]", "score_components")}
     stats["_redesign"]["victim search and score matrix"] = victim_search_and_score_summary(stats.pop("_preempt"), score2, score3)
+    stats["_redesign"]["spread filter and feasibility mask"] = spread_and_mask_summary(stats["filter_mask"],
+                                                                                       hard["spread_filter"])
     return stats
+
+
+# the two kernels' times before their redesign (PERF.md's device-program
+# table: chip_smoke.py on NVIDIA H100 80GB HBM3, 700.00 W, the kernel alone):
+# the spread filter's four kernels and the match_terms launch its wrapper
+# made first, at the config-3-hard shapes; the mask at the config-2 shapes;
+# the extender's filter_mask through its wrapper
+BEFORE_MS = {"spread_filter": 0.0928, "spread_filter_match_terms": 0.0138, "filter_mask": 0.0384,
+             "pipeline.filter_mask": 0.3984}
+
+
+def spread_and_mask_summary(fm, sf):
+    """The redesigned spread filter (config-3-hard shapes) and mask
+    (config-2 shapes): each kernel alone and through its wrapper, the
+    times before, the bounds, the chosen cluster size and tile, the
+    alternatives timed, and the device-memory paths' times."""
+    out = {
+        "spread_filter config-3-hard": {
+            "ms": sf["ms"], "wrapper_ms": sf["wrapper_ms"], "plain_ms": sf["plain_ms"], "bound_ms": sf["bound"][0],
+            "before_ms": BEFORE_MS["spread_filter"] + BEFORE_MS["spread_filter_match_terms"],
+            "before_parts_ms": [BEFORE_MS["spread_filter"], BEFORE_MS["spread_filter_match_terms"]],
+            "C": sf["layout"]["C"], "layout": sf["layout"], "ctas_ms": sf["ctas_ms"],
+            "device_tables_ms": sf["device_tables_ms"]},
+        "filter_mask config-2": {
+            "ms": fm["ms"], "wrapper_ms": fm["wrapper_ms"], "plain_ms": fm["plain_ms"], "bound_ms": fm["bound"][0],
+            "before_ms": BEFORE_MS["filter_mask"], "tile": [fm["layout"]["UT"], fm["layout"]["NT"]],
+            "layout": fm["layout"], "tiles_ms": fm["tiles_ms"], "int64_ms": fm["int64_ms"],
+            "device_memory_ms": fm["device_memory_ms"]},
+    }
+    for k, v in out.items():
+        log(f"[redesign] {k}: {v['ms']:.4f} ms alone, {v['wrapper_ms']:.4f} through its wrapper, before "
+            f"{v['before_ms']:.4f}, bound {v['bound_ms']:.6f} ms, plain {v['plain_ms']:.4f} ms")
+    return out
 
 
 def victim_search_and_score_summary(preempt, score2, score3):
@@ -2134,6 +2268,8 @@ def kernel_counters():
         "inbatch_port_conflict": (F.inbatch_port_conflict, "launches"),
         "solve_greedy_inb": (SO.solve_greedy, "tracked_launches"),
         "spread_filter": (TO.spread_filter, "launches"), "arbitrate": (A.arbitrate, "launches"),
+        "spread_filter[device tables]": (TO.spread_filter, "device_table_launches"),
+        "filter_mask[device memory]": (F.combined_mask, "device_memory_launches"),
         "fold_commit_banks": (FO.fold_commit_banks, "launches"),
         "preempt_batch": (PR.preempt_batch, "launches"), "fold_usage": (FO.fold_usage, "launches"),
         "gather_score_rows": (PP.gather_score_rows, "launches"), "solve_gang": (SO.solve_gang, "launches"),
@@ -3128,7 +3264,8 @@ def filter_mask_work(na, ea, xa, ta, au, pa, kinds, v):
     works = [filter_work(na, pa)]
     u, n = pa["valid"].shape[0], na["valid"].shape[0]
     if "spread_hard" in kinds:
-        works.append(spread_filter_work(na, ea, ta, TO.match_terms(ta, ea["label_vals"], ea["ns_id"]), u))
+        works.append(spread_filter_work(na, ea, ta, TO.match_terms_plain(ta, ea["label_vals"], ea["ns_id"]), u, v,
+                                        tables=False))
     parts = tuple(p for p, k in (("existing", "et_anti"), ("aff", "aff_req"), ("anti", "anti_req")) if k in kinds)
     if parts:
         m_pt = TO.match_terms(xa, pa["label_vals"], pa["ns_id"])
@@ -3705,6 +3842,15 @@ def main() -> int:
             "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound"][0], "bound_by": s["bound"][1], "library_ms": s.get("library_ms"),
         })
+    red = stats["_redesign"]["spread filter and feasibility mask"]
+    ext = stats["pipeline.filter_mask"]
+    red["extender filter_mask"] = {"wrapper_ms": ext["ms"], "before_wrapper_ms": BEFORE_MS["pipeline.filter_mask"],
+                                   "bound_ms": ext["bound"][0]}
+    red["main path device-memory launches"] = {k: launches.get(k, 0) for k in
+                                               ("spread_filter[device tables]", "filter_mask[device memory]")}
+    log(f"[redesign] extender filter_mask: {ext['ms']:.4f} ms through its wrapper (before "
+        f"{BEFORE_MS['pipeline.filter_mask']:.4f}); main path device-memory launches "
+        f"{red['main path device-memory launches']}")
     log(f"[done] {time.perf_counter() - t0:.1f}s; card: {smi}")
     print(json.dumps({"redesign": stats["_redesign"]}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

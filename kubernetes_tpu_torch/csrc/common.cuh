@@ -139,6 +139,17 @@ static inline int cluster_config(const void* kernel, int S, int threads, size_t 
   return 0;
 }
 
+// The two halves of a split cluster barrier: a CTA arrives once its reads
+// of the other CTAs' shared memory are done and waits before it exits, so
+// no CTA leaves while another still reads its shared memory.
+__device__ __forceinline__ void cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
+}
+
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
+}
+
 // Launch `kernel(*arg)` as `rows` clusters of S CTAs (one by default).
 template <typename Args>
 static inline int launch_cluster(const void* kernel, int S, int threads, size_t bytes, const Args& arg,

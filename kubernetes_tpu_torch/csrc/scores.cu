@@ -294,14 +294,6 @@ __device__ __forceinline__ int64_t block_max(int64_t v, int64_t* red) {
   return __shfl_sync(0xffffffffu, v, 0);
 }
 
-__device__ __forceinline__ void cluster_arrive() {
-  asm volatile("barrier.cluster.arrive.release.aligned;" ::: "memory");
-}
-
-__device__ __forceinline__ void cluster_wait() {
-  asm volatile("barrier.cluster.wait.acquire.aligned;" ::: "memory");
-}
-
 // the dynamic shared memory of a CTA, in this order: (raw_shared) the raw
 // NodeAffinity sums [TPC * SCORE_TILE] int64; the staged requirement
 // operands [PT, REQS] int64; (raw_shared) the raw taint counts [TPC *

@@ -236,8 +236,8 @@ def combined_mask_plain(nodes: Arrays, pods: Arrays, ids, predicates=None) -> to
 
 _NODE_PTRS = (
     ("valid", torch.bool), ("fallback", torch.bool), ("name_id", torch.int32),
-    ("alloc", torch.int64), ("requested", torch.int64), ("allowed_pods", torch.int32),
-    ("pod_count", torch.int32), ("label_vals", torch.int32), ("label_num", torch.int64),
+    ("alloc", torch.int64), ("requested", torch.int64), ("allowed_pods", None),
+    ("pod_count", None), ("label_vals", torch.int32), ("label_num", torch.int64),
     ("label_num_ok", torch.bool), ("taint_key", torch.int32), ("taint_val", torch.int32),
     ("taint_effect", torch.int32), ("unschedulable", torch.bool), ("port_proto", torch.int32),
     ("port_ip", torch.int32), ("port_num", torch.int32),
@@ -252,9 +252,20 @@ _POD_PTRS = (
     ("port_ip", torch.int32), ("port_num", torch.int32),
 )
 _DIMS = ("N", "U", "K", "R", "T", "P", "TL", "NSP", "TERMS", "REQS", "VALS", "PP")
+# the pod count and allowed pods are read at the width the caller holds
+# them (a carried batch state holds int64: ops/pipeline.apply_carry);
+# csrc/filters.cu's FilterArgs.counts64 bits
+_COUNT_BITS = {"pod_count": 1, "allowed_pods": 2}
 
 
 FILTER_ENTRY = "ktpu_filter_mask"
+
+# csrc/filters.cu's tile: UT spec rows x NT nodes a CTA (timed against
+# (16, 128), (32, 128), (8, 128) and (4, 256) at the config-2 shapes:
+# PERF.md), and a CTA's shared-memory budget; the staged row's header lanes
+FILTER_TILE = (8, 256)
+FILTER_SMEM = 96 * 1024
+_HDR = 12
 
 
 class FilterArgs(ctypes.Structure):
@@ -265,20 +276,38 @@ class FilterArgs(ctypes.Structure):
         + [("p_" + k, ctypes.c_void_p) for k, _ in _POD_PTRS]
         + [("out", ctypes.c_void_p), ("sel_out", ctypes.c_void_p)]
         + [(d, ctypes.c_int32) for d in _DIMS]
-        + [("wildcard_ip", ctypes.c_int32), ("unschedulable_key", ctypes.c_int32),
-           ("empty_val", ctypes.c_int32), ("predicates", ctypes.c_int32)]
+        + [(k, ctypes.c_int32) for k in ("wildcard_ip", "unschedulable_key", "empty_val", "predicates",
+                                         "counts64", "UT", "NT", "row_bytes", "staged", "smem")]
     )
 
 
-def filter_args(nodes: Arrays, pods: Arrays, ids, predicates=None, with_selector: bool = False):
+def filter_layout(dims: Dict[str, int], tile=None) -> Dict[str, int]:
+    """The mask kernel's tile for these widths (`_DIMS`), as csrc/filters.cu's
+    `filter_row_bytes` / `filter_smem_bytes` count it: a staged spec row's
+    bytes (every lane of every width, so any row fits), UT rows a CTA —
+    halved until the rows and the label-slot map fit the budget — and
+    `staged` 0 where even one row does not: the counted device-memory path,
+    UT rows a CTA evaluated from the padded arrays."""
+    ut0, nt = tile or FILTER_TILE
+    r, tl, nsp, pp = dims["R"], dims["TL"], dims["NSP"], dims["PP"]
+    terms, tr = dims["TERMS"], dims["TERMS"] * dims["REQS"]
+    n32 = _HDR + 4 * tl + 3 * nsp + r + 3 * pp + terms + 4 * tr + tr * dims["VALS"]
+    row = -(-(8 * (r + tr + (r + tr) % 2) + 4 * n32) // 16) * 16
+    node = 8 * dims["K"]
+    ut = ut0
+    while ut > 1 and ut * row + node > FILTER_SMEM:
+        ut //= 2
+    staged = ut * row + node <= FILTER_SMEM
+    return {"UT": ut if staged else ut0, "NT": nt, "row_bytes": row, "staged": int(staged),
+            "smem": ut * row + node if staged else 0}
+
+
+def filter_args(nodes: Arrays, pods: Arrays, ids, predicates=None, with_selector: bool = False, tile=None):
     """The kernel's argument struct for these CUDA tensors, the [U, N] mask
     it writes and, with `with_selector`, the [U, N] raw selector predicate
     it writes in the same launch (else None). Validates device, dtype and
-    contiguity (raises)."""
-    nodes = dict(nodes)
-    # a carried batch state holds pod counts as int64 (ops/pipeline.apply_carry)
-    nodes["pod_count"] = nodes["pod_count"].to(torch.int32)
-    nodes["allowed_pods"] = nodes["allowed_pods"].to(torch.int32)
+    contiguity (raises); converts nothing. `tile` overrides (UT, NT) (for
+    measuring)."""
     n, r = nodes["alloc"].shape
     u = pods["valid"].shape[0]
     dims = dict(
@@ -293,8 +322,14 @@ def filter_args(nodes: Arrays, pods: Arrays, ids, predicates=None, with_selector
     out = torch.empty((u, n), dtype=torch.bool, device=nodes["valid"].device)
     sel = torch.empty_like(out) if with_selector else None
     args = FilterArgs()
+    counts64 = 0
     for k, dt in _NODE_PTRS:
-        setattr(args, "n_" + k, build.ptr(nodes[k], dt))
+        if dt is None:  # pod_count / allowed_pods: int32 or int64
+            dt = nodes[k].dtype if nodes[k].dtype in (torch.int32, torch.int64) else torch.int32
+            counts64 |= _COUNT_BITS[k] if dt == torch.int64 else 0
+            setattr(args, "n_" + k, build.ptr(nodes[k], dt, (n,)))
+        else:
+            setattr(args, "n_" + k, build.ptr(nodes[k], dt))
     for k, dt in _POD_PTRS:
         setattr(args, "p_" + k, build.ptr(pods[k], dt))
     args.out = build.ptr(out, torch.bool, (u, n))
@@ -305,8 +340,9 @@ def filter_args(nodes: Arrays, pods: Arrays, ids, predicates=None, with_selector
     args.unschedulable_key = int(ids["unschedulable_key"])
     args.empty_val = int(ids["empty_val"])
     args.predicates = sum(PRED_BITS[k] for k in enabled_masks(predicates))
-    # the struct holds raw pointers: keep the converted tensors alive with it
-    args.keepalive = (nodes["pod_count"], nodes["allowed_pods"])
+    args.counts64 = counts64
+    for k, v in filter_layout(dims, tile).items():
+        setattr(args, k, v)
     return args, out, sel
 
 
@@ -318,7 +354,8 @@ def combined_mask(
     (None = all); with `with_selector`, the pair (mask, raw
     pod_match_node_selector [U, N]). CPU tensors run the plain versions;
     CUDA tensors launch csrc/filters.cu once for both (counted in
-    `combined_mask.launches`)."""
+    `combined_mask.launches`; a launch whose spec rows do not fit shared
+    memory also in `combined_mask.device_memory_launches`)."""
     dev = nodes["valid"].device
     if dev.type == "cpu":
         mask = combined_mask_plain(nodes, pods, ids, predicates)
@@ -327,11 +364,13 @@ def combined_mask(
         args, out, sel = filter_args(nodes, pods, ids, predicates, with_selector)
         build.launch(FILTER_ENTRY, args, dev)
         combined_mask.launches += 1
+        combined_mask.device_memory_launches += int(not args.staged)
         return (out, sel) if with_selector else out
     raise ValueError(f"no filter kernel for device {dev}")
 
 
 combined_mask.launches = 0
+combined_mask.device_memory_launches = 0
 
 
 def inbatch_port_conflict_plain(pods: Arrays, ids) -> torch.Tensor:

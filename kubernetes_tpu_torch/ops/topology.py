@@ -478,9 +478,22 @@ class SpreadArgs(ctypes.Structure):
         [(k, ctypes.c_void_p) for k in (
             "t_valid", "t_kind", "t_owner", "t_topo_slot", "m_sig", "e_valid", "counts",
             "n_valid", "label_dense", "sel", "member", "sig_list", "pair_cnt", "pair_present",
-            "merged_cnt", "merged_present", "out", "t_self_match", "t_weight", "min_t", "any_pair_t",
-            "mask")]
-        + [(d, ctypes.c_int32) for d in ("TT", "S", "N", "K", "U", "V", "table_in_shared", "kind")]
+            "merged_cnt", "merged_present", "out")]
+        + [(d, ctypes.c_int32) for d in ("TT", "S", "N", "K", "U", "V", "table_in_shared")]
+    )
+
+
+class SpreadFilterArgs(ctypes.Structure):
+    """Mirror of `struct SpreadFilterArgs` in csrc/topology.cu."""
+
+    _fields_ = (
+        [(k, ctypes.c_void_p) for k in (
+            "t_valid", "t_kind", "t_owner", "t_topo_slot", "t_self_match", "t_weight", "t_has_selector",
+            "t_ml_slot", "t_ml_val", "t_ex_op", "t_ex_slot", "t_ex_vals", "t_ns_any", "t_ns_ids",
+            "e_labels", "e_ns", "e_valid", "counts", "n_valid", "label_dense", "sel",
+            "cand", "merged_cnt", "merged_present", "min_t", "any_pair_t", "mask")]
+        + [(d, ctypes.c_int32) for d in ("TT", "S", "N", "K", "KE", "ML", "EX", "VALS", "NS", "U", "V",
+                                         "C", "slice", "vslice", "copies", "local_table", "smem")]
     )
 
 
@@ -553,13 +566,10 @@ def _term_ptrs(a, terms: Arrays, tt: int, keys) -> None:
 
 
 def spread_args(nodes: Arrays, eps: Arrays, terms: Arrays, m_sig: torch.Tensor,
-                selector_mask: torch.Tensor, n_buckets: Optional[int] = None, kind: int = SPREAD_SOFT):
-    """The spread kernels' argument struct (with its scratch buffers) and
-    the output they write: for SPREAD_SOFT the [U, N] int64 score
-    (`m_sig` is match_terms's raw output without the namespace test), for
-    SPREAD_HARD the [U, N] bool mask (`m_sig` with the namespace test);
-    the hard tables are the scratch `member` (the candidate nodes),
-    `merged_cnt`, `merged_present`, `min_t` and `any_pair_t`."""
+                selector_mask: torch.Tensor, n_buckets: Optional[int] = None):
+    """The spread-score kernels' argument struct (with its scratch buffers)
+    and the [U, N] int64 score they write; `m_sig` is match_terms's raw
+    output without the namespace test."""
     tt = _check_terms(terms)
     u, n = selector_mask.shape
     s = eps["valid"].shape[0]
@@ -575,16 +585,9 @@ def spread_args(nodes: Arrays, eps: Arrays, terms: Arrays, m_sig: torch.Tensor,
         merged_cnt=torch.empty((tt, v), dtype=torch.int32, device=dev),
         merged_present=torch.empty((tt, v), dtype=torch.bool, device=dev),
     )
-    hard = kind == SPREAD_HARD
-    if hard:
-        scratch.update(min_t=torch.empty((tt,), dtype=torch.int32, device=dev),
-                       any_pair_t=torch.empty((tt,), dtype=torch.bool, device=dev))
-    out = torch.empty((u, n), dtype=torch.bool if hard else torch.int64, device=dev)
+    out = torch.empty((u, n), dtype=torch.int64, device=dev)
     a = SpreadArgs()
     _term_ptrs(a, terms, tt, ("valid", "kind", "owner", "topo_slot"))
-    if hard:
-        a.t_self_match = build.ptr(terms["self_match"], torch.bool, (tt,))
-        a.t_weight = build.ptr(terms["weight"], torch.int32, (tt,))
     a.m_sig = build.ptr(m_sig, torch.bool, (tt, s))
     a.e_valid = build.ptr(eps["valid"], torch.bool, (s,))
     a.counts = build.ptr(eps["counts"], torch.int16, (n, s))
@@ -593,15 +596,109 @@ def spread_args(nodes: Arrays, eps: Arrays, terms: Arrays, m_sig: torch.Tensor,
     a.sel = build.ptr(selector_mask, torch.bool, (u, n))
     for name, t in scratch.items():
         setattr(a, name, build.ptr(t, t.dtype))
-    if hard:
-        a.mask = build.ptr(out, torch.bool)
-    else:
-        a.out = build.ptr(out, torch.int64)
+    a.out = build.ptr(out, torch.int64)
     a.TT, a.S, a.N, a.K, a.U, a.V = tt, s, n, k, u, v
     a.table_in_shared = int(in_shared)
-    a.kind = kind
     a.keepalive = scratch
     return a, out
+
+
+# csrc/topology.cu's spread filter: one cluster of SPREAD_FILTER_CLUSTER
+# CTAs a spec row (timed at 4, 8 and 16 CTAs at the config-3-hard shapes:
+# PERF.md), a window of SPREAD_LIST matched signatures, the per-warp copies
+# of its bucket tables in shared memory up to SPREAD_COPY_CELLS cells, a
+# local copy of the merged table up to SPREAD_LOCAL_V buckets, and a CTA's
+# shared-memory budget
+SPREAD_FILTER_CLUSTER = 4
+SPREAD_LIST = 1024
+SPREAD_COPY_CELLS = 4096
+SPREAD_LOCAL_V = 1024
+SPREAD_SMEM = 200 * 1024
+_WARPS = 8  # 256 threads a CTA
+_ST_BUCKET = 0x3FFFFFFF
+
+
+def spread_filter_layout(tt: int, n: int, v: int, cluster: Optional[int] = None) -> Dict[str, int]:
+    """The spread filter's launch for TT terms, N nodes and V buckets, as
+    csrc/topology.cu's `spread_filter_smem_bytes` counts it: `C` CTAs a
+    spec row (doubled up to 16 while a CTA's node states overflow the
+    budget), each owning `slice` nodes and `vslice` buckets; `copies`
+    per-warp copies of the V-wide bucket tables in shared memory (0: the
+    tables live in device memory, the counted path), `local_table` (every
+    CTA copies the merged table; else a lookup reads the owning CTA's
+    slice) and `smem` bytes. Raises when even 16 CTAs cannot hold the node
+    states."""
+    if not 1 <= v < _ST_BUCKET:
+        raise ValueError(f"{v} buckets: the spread filter takes 1 to {_ST_BUCKET - 1}")
+    c = int(cluster or SPREAD_FILTER_CLUSTER)
+    if not 1 <= c <= build.MAX_CLUSTER:
+        raise ValueError(f"{c} CTAs a spec row: the spread filter takes 1 to {build.MAX_CLUSTER}")
+
+    def base(c_):
+        return 4 * (tt + 2 * SPREAD_LIST + -(-n // c_))
+
+    while base(c) > SPREAD_SMEM and c < build.MAX_CLUSTER:
+        c = min(2 * c, build.MAX_CLUSTER)
+    if base(c) > SPREAD_SMEM:
+        raise ValueError(f"{tt} terms and {n} nodes exceed the spread filter's shared memory")
+    vs = -(-v // c)
+    copies = 0
+    for p in (_WARPS, 4, 2, 1):
+        if (p == 1 or p * v <= SPREAD_COPY_CELLS) and base(c) + 5 * (p * v + vs) <= SPREAD_SMEM:
+            copies = p
+            break
+    local = int(copies > 0 and v <= SPREAD_LOCAL_V and base(c) + 5 * (copies * v + vs + v) <= SPREAD_SMEM)
+    smem = base(c) + (5 * (copies * v + vs) + 5 * v * local if copies else 0)
+    return {"C": c, "slice": -(-n // c), "vslice": vs, "copies": copies, "local_table": local, "smem": smem}
+
+
+def spread_filter_args(nodes: Arrays, eps: Arrays, terms: Arrays, selector_mask: torch.Tensor,
+                       n_buckets: Optional[int] = None, cluster: Optional[int] = None):
+    """The spread filter's argument struct for these CUDA tensors and the
+    outputs its one launch writes: (args, mask [U, N] bool, tables: cand
+    [U, N] bool, merged_cnt [TT, V] int32, merged_present [TT, V] bool,
+    min_t [TT] int32, any_pair_t [TT] bool). `cluster` overrides the CTAs a
+    spec row (for measuring)."""
+    tt = _check_terms(terms)
+    u, n = selector_mask.shape
+    s, ke = eps["label_vals"].shape
+    k = nodes["label_dense"].shape[1]
+    v = int(n_buckets or n)
+    lay = spread_filter_layout(tt, n, v, cluster)
+    dev = selector_mask.device
+    mask = torch.empty((u, n), dtype=torch.bool, device=dev)
+    tables = {
+        "cand": torch.empty((u, n), dtype=torch.bool, device=dev),
+        "merged_cnt": torch.empty((tt, v), dtype=torch.int32, device=dev),
+        "merged_present": torch.empty((tt, v), dtype=torch.bool, device=dev),
+        "min_t": torch.empty((tt,), dtype=torch.int32, device=dev),
+        "any_pair_t": torch.empty((tt,), dtype=torch.bool, device=dev),
+    }
+    ml, ex, vals = terms["ml_slot"].shape[1], terms["ex_op"].shape[1], terms["ex_vals"].shape[2]
+    nsc = terms["ns_ids"].shape[1]
+    a = SpreadFilterArgs()
+    _term_ptrs(a, terms, tt, ("valid", "kind", "owner", "topo_slot"))
+    for key, dt, shape in (("self_match", torch.bool, (tt,)), ("weight", torch.int32, (tt,)),
+                           ("has_selector", torch.bool, (tt,)), ("ml_slot", torch.int32, (tt, ml)),
+                           ("ml_val", torch.int32, (tt, ml)), ("ex_op", torch.int32, (tt, ex)),
+                           ("ex_slot", torch.int32, (tt, ex)), ("ex_vals", torch.int32, (tt, ex, vals)),
+                           ("ns_any", torch.bool, (tt,)), ("ns_ids", torch.int32, (tt, nsc))):
+        setattr(a, "t_" + key, build.ptr(terms[key], dt, shape))
+    a.e_labels = build.ptr(eps["label_vals"], torch.int32, (s, ke))
+    a.e_ns = build.ptr(eps["ns_id"], torch.int32, (s,))
+    a.e_valid = build.ptr(eps["valid"], torch.bool, (s,))
+    a.counts = build.ptr(eps["counts"], torch.int16, (n, s))
+    a.n_valid = build.ptr(nodes["valid"], torch.bool, (n,))
+    a.label_dense = build.ptr(nodes["label_dense"], torch.int32, (n, k))
+    a.sel = build.ptr(selector_mask, torch.bool, (u, n))
+    for name, t in tables.items():
+        setattr(a, name, build.ptr(t, t.dtype))
+    a.mask = build.ptr(mask, torch.bool)
+    a.TT, a.S, a.N, a.K, a.KE, a.ML, a.EX, a.VALS, a.NS, a.U, a.V = tt, s, n, k, ke, ml, ex, vals, nsc, u, v
+    for key, val in lay.items():
+        setattr(a, key, val)
+    a.keepalive = tables
+    return a, mask, tables
 
 
 def spread_filter(
@@ -609,29 +706,27 @@ def spread_filter(
     with_tables: bool = False,
 ):
     """The [U, N] bool EvenPodsSpread (DoNotSchedule) predicate. CPU
-    tensors run the plain version; CUDA tensors launch the match kernel
-    (with the namespace test) and then csrc/topology.cu's spread-filter
-    entry (counted in `spread_filter.launches`). `selector_mask` is the
-    RAW PodMatchNodeSelector matrix. With `with_tables`, the pair (mask,
-    the metadata of spread_hard_tables_plain: on the card the launch's own
-    scratch)."""
+    tensors run the plain version; CUDA tensors launch csrc/topology.cu's
+    spread-filter entry once — the term matches against the signatures are
+    computed inside it (counted in `spread_filter.launches`; a launch whose
+    bucket tables live in device memory also in
+    `spread_filter.device_table_launches`). `selector_mask` is the RAW
+    PodMatchNodeSelector matrix. With `with_tables`, the pair (mask, the
+    metadata of spread_hard_tables_plain, written by the same launch)."""
     dev = selector_mask.device
     if dev.type == "cpu":
         return spread_filter_plain(nodes, eps, terms, selector_mask, n_buckets, with_tables)
     if dev.type == "cuda":
-        m_sig = match_terms(terms, eps["label_vals"], eps["ns_id"])
-        args, out = spread_args(nodes, eps, terms, m_sig, selector_mask, n_buckets, SPREAD_HARD)
+        args, out, tables = spread_filter_args(nodes, eps, terms, selector_mask, n_buckets)
         build.launch(SPREAD_FILTER_ENTRY, args, dev)
         spread_filter.launches += 1
-        if not with_tables:
-            return out
-        sc = args.keepalive
-        return out, {"cand": sc["member"], "merged_cnt": sc["merged_cnt"], "merged_present": sc["merged_present"],
-                     "min_t": sc["min_t"], "any_pair_t": sc["any_pair_t"]}
+        spread_filter.device_table_launches += int(args.copies == 0)
+        return (out, tables) if with_tables else out
     raise ValueError(f"no topology kernel for device {dev}")
 
 
 spread_filter.launches = 0
+spread_filter.device_table_launches = 0
 
 
 def spread_score(

@@ -9,7 +9,9 @@
 * `spread_filter` against the JAX `spread_filter` on seeded clusters and
   on one built for its branches (max_skew 1 and 3, two constraints of one
   pod on one key, nodes missing the key, an empty pair map), at V = 16
-  and V = N;
+  and V = N; and csrc/topology.cu's cluster kernel walked in Python (C =
+  1, 3, 8, 16 CTAs a spec row, V = 16, 64, 40,000, signature windows)
+  against the plain version's mask and tables and the JAX arbiter's;
 * the driver's arbitrated route: the arbiter reads its batch's solve
   intermediates (equal to what it computes alone), and an already-assumed
   key fails its pod while the rest of the batch is applied.
@@ -17,6 +19,7 @@
 Tolerance: exact equality; every value is an integer."""
 
 
+import functools
 import threading
 
 import jax.numpy as jnp
@@ -411,6 +414,217 @@ def test_spread_filter_matches_reference(cluster, v):
     # the filter passes and fails somewhere
     rows = len(pending)
     assert want[:rows].any() and not want[:rows].all()
+
+
+# ---------------------------------------------------------------------------
+# csrc/topology.cu's spread filter as its clusters walk it: one cluster of
+# C CTAs a spec row, each CTA a node slice and a bucket slice; the row's
+# groups (one per topology key) in order; matched signatures with their
+# multiplicity in windows; per-CTA, per-warp partial tables summed over the
+# cluster; lookups in the owning CTA's slice — held to the plain version
+# and to the JAX package's tables
+# ---------------------------------------------------------------------------
+
+_NO_KEY = 0x3FFFFFFF
+
+
+def _wrap32(x):
+    return ((int(x) + 2**31) % 2**32) - 2**31
+
+
+def spread_filter_walk(na, ea, ta, sel, v, cluster, list_cap=None):
+    """(mask, tables, layout) of the cluster kernel's algorithm."""
+    list_cap = list_cap or PTopo.SPREAD_LIST
+    t = {k: x.numpy() for k, x in ta.items()}
+    counts = ea["counts"].numpy().astype(np.int64)
+    ev = ea["valid"].numpy()
+    nv, ld, sel = na["valid"].numpy(), na["label_dense"].numpy(), sel.numpy()
+    u_rows, n = sel.shape
+    tt, s_n = len(t["valid"]), len(ev)
+    lay = PTopo.spread_filter_layout(tt, n, v, cluster)
+    c_n, sl, vs, copies = lay["C"], lay["slice"], lay["vslice"], lay["copies"]
+    m = PTopo.match_terms_plain(ta, ea["label_vals"], ea["ns_id"]).numpy()  # term_matches in the launch
+    hard = t["valid"] & (t["kind"] == SPREAD_HARD)
+    slot = t["topo_slot"]
+    mask = np.zeros((u_rows, n), bool)
+    cand = np.zeros((u_rows, n), bool)
+    mcnt = np.full((tt, v), -7, np.int64)  # sentinels: every cell must be written
+    mpres = np.full((tt, v), 2, np.int64)
+    min_t = np.full(tt, -7, np.int64)
+    anyp = np.full(tt, 2, np.int64)
+    for u in range(u_rows):
+        terms = [q for q in range(tt) if hard[q] and t["owner"][q] == u]  # ascending
+        cand[u] = nv & sel[u]
+        for q in terms:
+            cand[u] &= _bkt_col(ld, slot[q])[1]
+        ok = np.ones(n, bool)
+        any_row = False
+        for i, lead in enumerate(terms):
+            if any(slot[terms[j]] == slot[lead] for j in range(i)):
+                continue
+            group = [q for q in terms[i:] if slot[q] == slot[lead]]
+            b, has = _bkt_col(ld, slot[lead])
+            bkt = np.where(has, np.minimum(b, v), _NO_KEY)
+            # per CTA, per warp copy (device memory: one table)
+            pc = np.zeros((c_n, max(copies, 1), v), np.int64)
+            pp = np.zeros((c_n, max(copies, 1), v), bool)
+            s0 = 0
+            while True:
+                window = [(s, sum(int(m[q, s]) for q in group)) for s in range(s0, min(s_n, s0 + list_cap)) if ev[s]]
+                window = [(s, k) for s, k in window if k]
+                if window or s0 == 0:
+                    for x in range(n):
+                        if not cand[u, x] or bkt[x] >= v:
+                            continue
+                        c, off = divmod(x, sl)
+                        copy = (off % 256 // 32) % max(copies, 1)
+                        pc[c, copy, bkt[x]] += sum(k * counts[x, s] for s, k in window)
+                        pp[c, copy, bkt[x]] |= s0 == 0
+                s0 += list_cap
+                if s0 >= s_n:
+                    break
+            # each CTA sums its bucket slice over the cluster
+            slices_c, slices_p, mins, anys = [], [], [], []
+            for c in range(c_n):
+                lo, hi = min(v, c * vs), min(v, c * vs + vs)
+                cs, ps = pc[:, :, lo:hi].sum((0, 1)), pp[:, :, lo:hi].any((0, 1))
+                for q in group:
+                    mcnt[q, lo:hi], mpres[q, lo:hi] = cs, ps
+                slices_c.append(cs)
+                slices_p.append(ps)
+                mins.append(min([int(x) for x in cs[ps]] + [2**30]))
+                anys.append(bool(ps.any()))
+            gmin, gany = min(mins), any(anys)
+            for q in group:
+                min_t[q], anyp[q] = gmin, int(gany)
+            any_row |= gany
+            for x in range(n):
+                if not ok[x]:
+                    continue
+                if bkt[x] == _NO_KEY:
+                    ok[x] = False
+                    continue
+                bc = min(bkt[x], v - 1)
+                r = bc // vs  # the owning CTA's slice
+                cn, pr = slices_c[r][bc - r * vs], slices_p[r][bc - r * vs]
+                match = int(cn) if pr else 0
+                ok[x] = all(_wrap32(match + int(t["self_match"][q]) - gmin) <= t["weight"][q] for q in group)
+        mask[u] = ok | (not any_row)
+        for q in range(u, tt, u_rows):  # rows no spec row owns
+            if not (hard[q] and 0 <= t["owner"][q] < u_rows):
+                mcnt[q], mpres[q], min_t[q], anyp[q] = 0, 0, 2**30, 0
+    tables = {"cand": cand, "merged_cnt": mcnt, "merged_present": mpres.astype(bool), "min_t": min_t,
+              "any_pair_t": anyp.astype(bool)}
+    assert (mpres != 2).all() and (anyp != 2).all()
+    return mask, tables, lay
+
+
+def _bkt_col(ld, sl):
+    """Every node's (bucket clipped >= 0, has_key) at one term slot."""
+    d = ld[:, 0 if sl < 0 else min(sl, ld.shape[1] - 1)].astype(np.int64)
+    return np.maximum(d, 0), (d >= 0) & (sl >= 0)
+
+
+@functools.lru_cache(maxsize=None)
+def _spread_refs(cluster, v):
+    """The JAX spread_filter's mask and arbiter tables of a case (computed
+    once for every cluster size that walks it)."""
+    na, ea, ta, pa = _spread_case(cluster)
+    jx = lambda d: {k: jnp.asarray(x) for k, x in d.items()}  # noqa: E731
+    mask = np.asarray(RTopo.spread_filter(jx(na), jx(ea), jx(ta), RF.pod_match_node_selector(jx(na), jx(pa)),
+                                          n_buckets=v))
+    bucket_n, haskey_n = RTopo._bucket_of(jx(na), jnp.asarray(ta["topo_slot"]))
+    rtb = RA._spread_tables(jx(na), jx(pa), jx(ea), jx(ta), bucket_n, haskey_n, v)
+    return mask, {k: np.asarray(rtb[k]) for k in ("merged_cnt0", "merged_present", "cand_t")}
+
+
+@functools.lru_cache(maxsize=None)
+def _spread_case(cluster):
+    if cluster == "branches":
+        nodes, existing, pending = _branches_cluster(RT)
+    else:
+        nodes, existing, pending = random_cluster(int(cluster[-1]), 60, 48, 200, t=RT, topology=True,
+                                                  hard_spread=True)
+    bank, sigs, _ = r_encode(Snapshot(nodes, existing))
+    batch = RPodBatch(bank.vocab, 64)
+    for i, p in enumerate(pending):
+        batch.set_pod(i, p)
+    tb, _ = r_compile(bank.vocab, pending, b_capacity=64)
+    na, ea = bank.arrays(), sigs.arrays()
+    # cut the node axis past the live nodes to a width no C divides
+    n = len(nodes) + 1
+    cut = {k: (x[:n] if x.ndim and x.shape[0] == na["valid"].shape[0] else x) for k, x in na.items()}
+    return cut, {**ea, "counts": ea["counts"][:n]}, tb.arrays(), batch.arrays()
+
+
+@pytest.mark.parametrize("v", [16, 64, 40000])
+@pytest.mark.parametrize("cluster_ctas", [1, 3, 8, 16])
+@pytest.mark.parametrize("cluster", ["branches", "random-3"])
+def test_spread_filter_cluster_walk(cluster, cluster_ctas, v):
+    """The cluster kernel's algorithm equals spread_filter_plain (mask and
+    every table cell, non-hard rows included) and the JAX spread_filter and
+    arbiter tables: C = 1, 3, 8 and 16 CTAs a row (N not a multiple of C),
+    V = 16 (hostname buckets at or past V dropped and clamped), 64 and
+    40,000 (the tables in device memory); rows owning 0, 1 and 2 hard
+    terms, on one key and on two."""
+    na, ea, ta, pa = _spread_case(cluster)
+    tna, tea, tta, tpa = _tc(na), _tc(ea), _tc(ta), _tc(pa)
+    sel = PF.pod_match_node_selector(tna, tpa)
+    got, tables, lay = spread_filter_walk(tna, tea, tta, sel, v, cluster_ctas)
+    want, want_tb = PTopo.spread_filter_plain(tna, tea, tta, sel, v, with_tables=True)
+    assert np.array_equal(got, want.numpy())
+    for k in ("cand", "merged_cnt", "merged_present", "min_t", "any_pair_t"):
+        assert np.array_equal(tables[k], want_tb[k].numpy()), k
+    ref, rtb = _spread_refs(cluster, v)
+    assert np.array_equal(got, ref)
+    hard = ta["valid"] & (ta["kind"] == SPREAD_HARD)
+    assert np.array_equal(tables["merged_cnt"][hard], np.asarray(rtb["merged_cnt0"])[hard])
+    assert np.array_equal(tables["merged_present"][hard], np.asarray(rtb["merged_present"])[hard])
+    assert np.array_equal(tables["cand"][ta["owner"]][hard], np.asarray(rtb["cand_t"])[hard])
+    # the walk's shapes: node slices that do not divide N, the device-memory
+    # tables at V = 40,000, rows with 0, 1 and 2+ hard terms, one key and two
+    n = na["valid"].shape[0]
+    assert lay["C"] == cluster_ctas and (cluster_ctas == 1 or n % cluster_ctas != 0)
+    assert (lay["copies"] == 0) == (v == 40000)
+    per_row = [sorted(ta["topo_slot"][hard & (ta["owner"] == u)].tolist()) for u in range(pa["valid"].shape[0])]
+    assert {0, 1} <= {len(r) for r in per_row}
+    if cluster == "branches":
+        assert any(len(r) >= 2 and len(set(r)) == 1 for r in per_row)
+        assert any(len(set(r)) >= 2 for r in per_row)
+    else:
+        dense = na["label_dense"][:, sorted(set(ta["topo_slot"][hard].tolist()))]
+        assert v != 16 or (dense >= v).any()  # buckets past V
+
+
+@pytest.mark.parametrize("list_cap", [1, 3])
+def test_spread_filter_walk_signature_windows(list_cap):
+    """Windows of matched signatures (the kernel's SPREAD_LIST, cut to 1
+    and 3 here so a row's signatures span several) sum to the same tables."""
+    na, ea, ta, pa = _spread_case("random-4")
+    tna, tea, tta, tpa = _tc(na), _tc(ea), _tc(ta), _tc(pa)
+    sel = PF.pod_match_node_selector(tna, tpa)
+    got, tables, _ = spread_filter_walk(tna, tea, tta, sel, 64, 8, list_cap=list_cap)
+    want, want_tb = PTopo.spread_filter_plain(tna, tea, tta, sel, 64, with_tables=True)
+    assert np.array_equal(got, want.numpy())
+    for k in want_tb:
+        assert np.array_equal(tables[k], want_tb[k].numpy()), k
+
+
+def test_spread_filter_layout():
+    """The launch's layout: V = 16 takes 8 per-warp table copies and a
+    local merged table, the hostname V = 16,384 one copy and lookups in the
+    owning CTA's slice, V = 40,000 device memory; a CTA's node states past
+    the budget double the cluster; the bytes are the kernel's formula."""
+    lay = PTopo.spread_filter_layout(128, 10240, 16)
+    assert (lay["C"], lay["slice"], lay["vslice"], lay["copies"], lay["local_table"]) == (4, 2560, 4, 8, 1)
+    assert lay["smem"] == 4 * (128 + 2 * PTopo.SPREAD_LIST + 2560) + 5 * (8 * 16 + 4) + 5 * 16
+    lay = PTopo.spread_filter_layout(128, 10240, 16384)
+    assert (lay["copies"], lay["local_table"]) == (1, 0)
+    lay = PTopo.spread_filter_layout(128, 10240, 40000)
+    assert (lay["copies"], lay["local_table"], lay["smem"]) == (0, 0, 4 * (128 + 2 * PTopo.SPREAD_LIST + 2560))
+    assert PTopo.spread_filter_layout(128, 400000, 16)["C"] == 16
+    with pytest.raises(ValueError):
+        PTopo.spread_filter_layout(128, 2_000_000, 16)
 
 
 # ---------------------------------------------------------------------------

@@ -218,6 +218,18 @@ def test_ctypes_mirrors_cover_the_redesigned_structs():
     assert {"raw", "C", "TPC", "raw_shared", "smem"} <= names["ScoreArgs"]
 
 
+def test_ctypes_mirrors_cover_the_spread_filter_and_mask_structs():
+    """The spread filter's one-launch struct (the term fields its in-launch
+    matching reads, the tables it writes, its cluster layout) and the mask's
+    tile fields are among the mirrors the check below holds against the C
+    structs; the spread score's struct keeps only its soft-term fields."""
+    names = {cname: {f[0] for f in cls._fields_} for cls, cname, _ in _struct_mirrors()}
+    assert {"t_has_selector", "t_ml_slot", "t_ns_ids", "e_labels", "e_ns", "cand", "merged_cnt", "min_t",
+            "any_pair_t", "C", "slice", "vslice", "copies", "local_table", "smem"} <= names["SpreadFilterArgs"]
+    assert {"counts64", "UT", "NT", "row_bytes", "staged", "smem"} <= names["FilterArgs"]
+    assert not {"mask", "min_t", "kind", "t_weight"} & names["SpreadArgs"]
+
+
 @pytest.mark.parametrize("mirror", _struct_mirrors(), ids=lambda m: m[1])
 def test_ctypes_mirror_matches_the_kernel_struct(mirror):
     """A wrapper's ctypes struct has the C struct's fields in the same

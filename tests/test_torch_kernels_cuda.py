@@ -22,7 +22,12 @@ victim search on runs of repeated specs, on config 6's round with one
 spec and with a new spec every step (its reuse counts) and past shared
 memory (its counted device-memory path); the score kernel's clusters at
 the node axis's edges and at the config-2 and config-3 shapes, in all
-three modes.
+three modes; the spread filter as one launch (no match_terms launch) at
+V = 16, 64, 256 and 40,000 (its device-memory tables counted), every
+table cell, and at 1, 3, 4, 8 and 16 CTAs a spec row on node axes no C
+divides with rows owning 0, 1 and 2 hard terms; the mask at every tile
+shape, with int32 and int64 pod counts read in place, and past shared
+memory (its counted device-memory path).
 Needs an NVIDIA card and nvcc:
 
     python -m pytest -m cuda tests/test_torch_kernels_cuda.py
@@ -78,6 +83,57 @@ def test_filter_kernel_equals_plain(cuda, seed, preds):
     got = F.combined_mask(na, pa, ids, preds)
     assert F.combined_mask.launches == before + 1
     assert torch.equal(got, F.combined_mask_plain(na, pa, ids, preds))
+
+
+@pytest.mark.parametrize("widths", ["int32", "int64", "pod-count-int64", "allowed-int64"])
+def test_filter_kernel_reads_counts_at_their_width(cuda, widths):
+    """int64 pod counts and allowed pods (a carried state) are read in
+    place: the struct holds the caller's tensors, no conversion launches."""
+    na, pa, ids = cluster(0, cuda)
+    na = dict(na)
+    if widths in ("int64", "pod-count-int64"):
+        na["pod_count"] = na["pod_count"].long()
+    if widths in ("int64", "allowed-int64"):
+        na["allowed_pods"] = na["allowed_pods"].long()
+    args, out, _ = F.filter_args(na, pa, ids)
+    assert args.n_pod_count == na["pod_count"].data_ptr() and args.n_allowed_pods == na["allowed_pods"].data_ptr()
+    before = F.combined_mask.launches
+    for preds in (None, frozenset({"PodFitsResources"})):
+        got = F.combined_mask(na, pa, ids, preds)
+        assert torch.equal(got, F.combined_mask_plain(na, pa, ids, preds))
+    assert F.combined_mask.launches == before + 2
+
+
+@pytest.mark.parametrize("tile", [(16, 128), (32, 128), (8, 256), (3, 64)])
+def test_filter_kernel_tiles_equal_plain(cuda, tile):
+    """Every tile shape, with U and N not multiples of it, mask and raw
+    selector against the plain versions."""
+    from kubernetes_tpu_torch.kernels import build
+
+    na, pa, ids = cluster(1, cuda)
+    na = {k: v[:299] for k, v in na.items()}
+    pa = {k: v[:253] for k, v in pa.items()}
+    for preds in (None, frozenset({"GeneralPredicates"}), frozenset({"MatchNodeSelector", "HostName"})):
+        args, out, sel = F.filter_args(na, pa, ids, preds, with_selector=True, tile=tile)
+        assert args.staged == 1 and (args.UT, args.NT) == tile
+        build.launch(F.FILTER_ENTRY, args, cuda)
+        assert torch.equal(out, F.combined_mask_plain(na, pa, ids, preds))
+        assert torch.equal(sel, F.pod_match_node_selector(na, pa))
+
+
+def test_filter_kernel_device_memory_path(cuda):
+    """Widths past the shared-memory budget (7,000 toleration lanes a spec
+    row, those past the encoder's 8 invalid) take the counted device-memory
+    path, exact."""
+    na, pa, ids = cluster(0, cuda)
+    pa = {k: v[:12] for k, v in pa.items()}
+    for k in ("tol_key", "tol_op", "tol_val", "tol_effect", "tol_valid"):
+        pa[k] = torch.cat([pa[k], torch.zeros(12, 7000 - pa[k].shape[1], dtype=pa[k].dtype, device=cuda)], 1)
+    before = F.combined_mask.device_memory_launches
+    mask, sel = F.combined_mask(na, pa, ids, with_selector=True)
+    assert F.combined_mask.device_memory_launches == before + 1
+    assert torch.equal(mask, F.combined_mask_plain(na, pa, ids))
+    assert torch.equal(sel, F.pod_match_node_selector(na, pa))
 
 
 @pytest.mark.parametrize("prios", [None, (("MostRequestedPriority", 2), ("ResourceLimitsPriority", 1)),
@@ -459,14 +515,18 @@ def hard_spread_cluster(seed, device):
         [F.make_ids(mirror.vocab), 256]
 
 
-@pytest.mark.parametrize("n_buckets", [16, 256, 40000])
+@pytest.mark.parametrize("n_buckets", [16, 64, 256, 40000])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_spread_filter_kernel_equals_plain(cuda, seed, n_buckets):
+    """One launch a call (the term matches inside it: no match_terms
+    launch); V = 40,000 keeps its tables in device memory, counted."""
     na, ea, _, ta, _, pa, ids, _ = hard_spread_cluster(seed, cuda)
     _, sel = F.combined_mask(na, pa, ids, with_selector=True)
-    before = TO.spread_filter.launches
+    before, matches, dev_tables = TO.spread_filter.launches, TO.match_terms.launches, \
+        TO.spread_filter.device_table_launches
     got = TO.spread_filter(na, ea, ta, sel, n_buckets=n_buckets)
-    assert TO.spread_filter.launches == before + 1
+    assert TO.spread_filter.launches == before + 1 and TO.match_terms.launches == matches
+    assert TO.spread_filter.device_table_launches == dev_tables + (n_buckets == 40000)
     want = TO.spread_filter_plain(na, ea, ta, sel, n_buckets)
     assert torch.equal(got, want)
     assert bool(want.any()) and not bool(want.all())
@@ -499,12 +559,11 @@ def test_arbiter_kernel_equals_plain(cuda, seed, track):
         assert bool((want == A.V_DEFER).any())
 
 
-@pytest.mark.parametrize("n_buckets", [16, 40000])
+@pytest.mark.parametrize("n_buckets", [16, 64, 40000])
 def test_spread_filter_kernel_tables_equal_plain(cuda, n_buckets):
-    """spread_filter's tables (its launch's scratch) equal the plain
-    metadata, from one counted launch: the candidate rows, and the
-    per-term tables on the DoNotSchedule terms (the only rows the
-    kernels write, and the only ones the arbiter reads)."""
+    """spread_filter's tables equal the plain metadata in every cell, from
+    one counted launch: the candidate rows and the per-term tables (zero
+    rows, min_t 2^30 and no pair on terms that are not DoNotSchedule)."""
     na, ea, _, ta, _, pa, ids, _ = hard_spread_cluster(0, cuda)
     _, sel = F.combined_mask(na, pa, ids, with_selector=True)
     before = TO.spread_filter.launches
@@ -514,10 +573,84 @@ def test_spread_filter_kernel_tables_equal_plain(cuda, n_buckets):
     assert torch.equal(got, want)
     assert tables.keys() == want_tables.keys()
     hard = ta["valid"] & (ta["kind"] == SPREAD_HARD)
-    assert bool(hard.any())
-    assert torch.equal(tables["cand"], want_tables["cand"])
-    for k in ("merged_cnt", "merged_present", "min_t", "any_pair_t"):
-        assert torch.equal(tables[k][hard], want_tables[k][hard].to(tables[k].dtype)), k
+    assert bool(hard.any()) and not bool(hard.all())
+    for k in want_tables:
+        assert tables[k].dtype == want_tables[k].dtype and torch.equal(tables[k], want_tables[k]), k
+
+
+def branches_spread_cluster(device):
+    """(na, ea, ta, sel) of a small cluster whose spec rows own 0, 1 and 2
+    DoNotSchedule terms, two on one key and two on two keys (zone, rack,
+    a key no node has), with nodes missing a key and a node selector."""
+    from kubernetes_tpu_torch.api import types as t
+    from kubernetes_tpu_torch.models.clusters import HOST_KEY, ZONE_KEY
+
+    nodes = []
+    for i in range(37):
+        labels = {HOST_KEY: f"n{i}"}
+        if i < 35:
+            labels[ZONE_KEY] = f"z{i % 3}"
+        if i % 2 == 0:
+            labels["rack"] = f"r{i % 4}"
+        alloc = {t.RESOURCE_CPU: t.Quantity.parse("8"), t.RESOURCE_MEMORY: t.Quantity.parse("32Gi"),
+                 t.RESOURCE_PODS: t.Quantity.parse(110)}
+        nodes.append(t.Node(name=f"n{i}", labels=labels, allocatable=alloc, capacity=dict(alloc)))
+    existing = [t.Pod(name=f"e{i}", namespace="other" if i == 7 else "bench",
+                      labels={"app": "a" if i % 3 else "b", "tier": "x" if i % 2 else "y"}, node_name=f"n{(i * 5) % 37}")
+                for i in range(60)]
+
+    def con(key, skew, sel):
+        return t.TopologySpreadConstraint(max_skew=skew, topology_key=key, when_unsatisfiable="DoNotSchedule",
+                                          label_selector=t.LabelSelector(match_labels=sel))
+
+    specs = [[con(ZONE_KEY, 1, {"app": "a"})], [con(ZONE_KEY, 3, {"app": "a"})],
+             [con(ZONE_KEY, 1, {"app": "a"}), con(ZONE_KEY, 2, {"tier": "x"})], [con("rack", 1, {"app": "b"})],
+             [con("no-such-key", 1, {"app": "a"})], [con(ZONE_KEY, 1, {"app": "b"}), con("rack", 1, {"app": "a"})],
+             [], [con(HOST_KEY, 1, {"app": "a"})]]
+    pending = []
+    for i, cons in enumerate(specs):
+        p = t.Pod(name=f"p{i}", namespace="bench", labels={"app": "a" if i % 2 else "b", "tier": "x"},
+                  topology_spread_constraints=cons)
+        if i == 5:
+            p.node_selector = {"rack": "r0"}
+        pending.append(p)
+    bank, sigs, _ = encode_snapshot(Snapshot(nodes, existing))
+    batch = PodBatch(bank.vocab, 16)
+    for i, p in enumerate(pending):
+        batch.set_pod(i, p)
+    tb, _ = compile_batch_terms(bank.vocab, pending, b_capacity=16)
+    na, ea, ta, pa = (arrays_to_torch(d, device) for d in (bank.arrays(), sigs.arrays(), tb.arrays(), batch.arrays()))
+    return na, ea, ta, F.pod_match_node_selector(na, pa)
+
+
+def cut_nodes(na, ea, sel, n):
+    """The spread filter's inputs cut to their first n node rows."""
+    width = na["valid"].shape[0]
+    return ({k: (v[:n] if v.dim() and v.shape[0] == width else v) for k, v in na.items()},
+            {**ea, "counts": ea["counts"][:n]}, sel[:, :n].contiguous())
+
+
+@pytest.mark.parametrize("n_buckets", [16, 64, 40000])
+@pytest.mark.parametrize("ctas", [1, 3, 4, 8, 16])
+def test_spread_filter_cluster_sizes_equal_plain(cuda, ctas, n_buckets):
+    """The cluster kernel at C = 1, 3, 4, 8 and 16 CTAs a spec row, on node
+    axes of 38 and 151 rows (no C > 1 divides them), its mask and every
+    table cell against the plain version: rows with 0, 1 and 2 hard terms
+    on one key and on two, buckets past V = 16 (the hostname key)."""
+    from kubernetes_tpu_torch.kernels import build
+
+    na, ea, ta, sel = branches_spread_cluster(cuda)
+    rna, rea, _, rta, _, rpa, _, _ = hard_spread_cluster(1, cuda)
+    cases = [(*cut_nodes(na, ea, sel, 38), ta),
+             (*cut_nodes(rna, rea, F.pod_match_node_selector(rna, rpa), 151), rta)]
+    for na, ea, sel, ta in cases:
+        args, mask, tables = TO.spread_filter_args(na, ea, ta, sel, n_buckets, cluster=ctas)
+        assert args.C == ctas and (args.copies == 0) == (n_buckets == 40000)
+        build.launch(TO.SPREAD_FILTER_ENTRY, args, cuda)
+        want, want_tables = TO.spread_filter_plain(na, ea, ta, sel, n_buckets, with_tables=True)
+        assert torch.equal(mask, want)
+        for k in want_tables:
+            assert torch.equal(tables[k], want_tables[k]), k
 
 
 @pytest.mark.parametrize("track", [True, False], ids=["tracked", "untracked"])
