@@ -30,14 +30,22 @@ they placed. Phases:
   3. kernels    each kernel == its plain version: filter (and its raw
                 node-selector output), score and solve on a seeded cluster
                 reaching every predicate/priority branch and at the config-2
-                shapes (U=128, N=6144, B=4096); match_terms, spread_score and
+                shapes (U=128, N=6144, B=4096); match_terms (one problem
+                with and without namespaces, three problems in one launch),
+                spread_score (one launch, no match launch, at the driver's
+                V, 16, 64 and 40,000: device-memory tables, counted) and
                 selector_spread_score on a seeded cluster reaching every
                 topology branch and at the config-3 shapes (U=128, N=10240,
-                TT=128 or 256, S=256, V=16); interpod_filter (every subset
+                TT=128 or 256, S=256, V=16), the spread score timed at 1, 4,
+                8, 16 and all spec rows a cluster in turns, alone, through its
+                wrapper, with device-memory tables and by the profiler's
+                device duration, the match kernel too; interpod_filter (every subset
                 of its parts), interpod_score (each part and both),
                 inbatch_port_conflict and the tracked solve on a seeded
                 cluster reaching every inter-pod branch and at the config-4
-                shapes (U=32, N=2048, TT=32, S=256, PT=32, V=2048);
+                shapes (U=32, N=2048, TT=32, S=256, PT=32, V=2048), with the
+                batch's match plan (its three matrices in one launch, timed
+                beside the same as three launches);
                 CUDA-event times of kernel and plain version, and each
                 kernel's bound; the filter also with int64 pod counts (read
                 in place: no conversion), with spec rows past a CTA's
@@ -143,7 +151,9 @@ they placed. Phases:
                 at most one legacy batch per slab rebuild) config 2 at
                 full size; then config 3 at full size, without
                 and with Services; then config 4 at full size, all with the
-                commit plane on (the default): every pod placed, no node
+                commit plane on (the default; one spread_score launch a
+                batch, no match launch on config 3, one a batch with
+                Services and at most one on config 4, logged a batch): every pod placed, no node
                 over its allocatable or pod limit, config 2's placements
                 pass the taint/affinity checks, config 4 puts no two pods
                 of one `exclusive` value on a node, and after each drain the
@@ -215,9 +225,14 @@ they placed. Phases:
                 their times before the redesign, their bounds, the chosen
                 cluster size and tile, the alternatives timed, the
                 device-memory paths and their main-path launches, and the
-                extender's filter_mask through its wrapper), then
-                one JSON line: per kernel (the nineteen, the tracked
-                solve, the RTCR branch, score_components, the extender's
+                extender's filter_mask through its wrapper; the spread score
+                and the match kernel: relaunch mean and device duration
+                beside the times before, the spec rows a cluster timed, the
+                device-memory tables, and every full drain's match launches
+                and matrices a batch), then
+                one JSON line: per kernel (the nineteen, the match plan's
+                multi-problem launch, the tracked solve, the RTCR branch,
+                score_components, the extender's
                 filter_mask and the mesh's six: the sharded solve, tracked
                 and gang, the sharded arbiter and the two sharded folds)
                 its launches in the main-path
@@ -497,23 +512,46 @@ def solve_work(mask, sig, pod_valid, pa, free0, count0, allowed, nz0, order):
     return nbytes_, ops
 
 
+def match_work(problems):
+    """(bytes, integer operations) of one match launch over (terms, labels,
+    namespaces or None, live subjects) problems, over live lanes: per (valid
+    term, live subject) 2 per matchLabels pair with a slot, 3 + 1 per value
+    lane per expression with an operator, 2 + 1 per namespace lane when
+    tested; reads the live term rows, the label slots they name of every
+    live subject (and its namespace), writes the [TT, X] bytes."""
+    nbytes_ = ops = 0
+    for terms, labels, ns, live_x in problems:
+        live = terms["valid"]
+        tt, nx = int(live.sum()), int(live_x.sum())
+        ml = int((terms["ml_slot"][live] >= 0).sum())
+        ex_live = terms["ex_op"][live] != 0
+        lanes = int(((terms["ex_vals"][live] >= 0) & ex_live[..., None]).sum())
+        slots = set(terms["ml_slot"][live][terms["ml_slot"][live] >= 0].tolist()) | \
+            set(terms["ex_slot"][live][ex_live].tolist())
+        ns_lanes = tt * (2 + terms["ns_ids"].shape[1]) if ns is not None else 0
+        ops += nx * (2 * ml + 3 * int(ex_live.sum()) + lanes + ns_lanes)
+        row_bytes = sum(int(v[0].numel() * v.element_size()) for k, v in terms.items()
+                        if k in ("valid", "has_selector", "ml_slot", "ml_val", "ex_op", "ex_slot", "ex_vals",
+                                 "ns_any", "ns_ids"))
+        nbytes_ += tt * row_bytes + nx * (4 * len(slots) + (4 if ns is not None else 0)) + \
+            terms["valid"].shape[0] * labels.shape[0]
+    return nbytes_, ops
+
+
 def topology_work(kernel, na, ea, ta, au, m_sig_soft=None, m_sig_ns=None):
     """(bytes, integer operations, float64 operations) of one topology
     kernel's function on these inputs, over live lanes: valid terms of the
     kernel's kinds, valid signatures, valid nodes, spec rows owning such
     terms, selector lanes in use.
-      match_terms     per (live term, valid signature): 2 per matchLabels
-                      pair with a slot, 3 + 1 per value lane per expression
-                      with an operator, 1 per namespace lane when tested;
-                      reads the live term rows, the label slots they name
-                      of every valid signature (and its namespace), writes
-                      the [TT, S] bytes
-      spread_score    per soft term: per valid node 1 add per matched
-                      signature and 6 for the bucket; per spec row with
-                      soft terms, per valid node 6 per term (gather) and 8
-                      (total, min, score); reads the matched signatures'
-                      counts columns, the dense label column of each soft
-                      slot, the owners' selector rows, writes [U, N] int64
+      spread_score    the soft terms' matches against the valid signatures
+                      (match_work, no namespace test: the launch computes
+                      them); per soft term, per valid node 1 add per
+                      matched signature and 6 for the bucket; per spec row
+                      with soft terms, per valid node 6 per term (gather)
+                      and 8 (total, min, score); reads the matched
+                      signatures' counts columns, the dense label column of
+                      each soft slot, the owners' selector rows, writes
+                      [U, N] int64
       selector_spread per spec row with selectors, per valid node 1 add per
                       matched signature, 4 (max, zone) and 6 float64 (the
                       blend); reads the matched signatures' counts columns,
@@ -523,24 +561,8 @@ def topology_work(kernel, na, ea, ta, au, m_sig_soft=None, m_sig_ns=None):
     n = na["valid"].shape[0]
     nn = int(na["valid"].sum())
     s_live = ea["valid"]
-    ns_live = int(s_live.sum())
     u = au["n_sel_spread"].shape[0]
     tv = ta["valid"]
-    if kernel == "match_terms":
-        live = tv
-        tt = int(live.sum())
-        ml = int((ta["ml_slot"][live] >= 0).sum())
-        ex_live = ta["ex_op"][live] != 0
-        ex = int(ex_live.sum())
-        lanes = int(((ta["ex_vals"][live] >= 0) & ex_live[..., None]).sum())
-        slots = set(ta["ml_slot"][live][ta["ml_slot"][live] >= 0].tolist()) | \
-            set(ta["ex_slot"][live][ex_live].tolist())
-        ops = ns_live * (2 * ml + 3 * ex + lanes + tt * (2 + ta["ns_ids"].shape[1]))
-        row_bytes = sum(int(v[0].numel() * v.element_size()) for k, v in ta.items()
-                        if k in ("valid", "has_selector", "ml_slot", "ml_val", "ex_op", "ex_slot",
-                                 "ex_vals", "ns_any", "ns_ids"))
-        nbytes_ = tt * row_bytes + ns_live * (4 * len(slots) + 4) + ta["valid"].shape[0] * s_live.shape[0]
-        return nbytes_, ops, 0
     if kernel == "spread_score":
         soft = tv & (ta["kind"] == SPREAD_SOFT)
         m = m_sig_soft[soft] & s_live[None, :]
@@ -549,9 +571,11 @@ def topology_work(kernel, na, ea, ta, au, m_sig_soft=None, m_sig_ns=None):
         slots = len(set(ta["topo_slot"][soft].tolist()))
         owners = set(ta["owner"][soft].tolist())
         n_soft = int(soft.sum())
-        ops = nn * (matched + 6 * n_soft) + nn * (6 * n_soft + 8 * len(owners))
-        nbytes_ = (nn * 2 * sigs + nn * 4 * slots + len(owners) * n + n
-                   + n_soft * ea["valid"].shape[0] + u * n * 8)
+        soft_terms = {k: x[soft] for k, x in ta.items() if x.shape[:1] == tv.shape}
+        m_bytes, m_ops = match_work([(soft_terms, ea["label_vals"], None, s_live)])
+        m_bytes -= n_soft * ea["label_vals"].shape[0]  # the matches are not written
+        ops = m_ops + nn * (matched + 6 * n_soft) + nn * (6 * n_soft + 8 * len(owners))
+        nbytes_ = m_bytes + nn * 2 * sigs + nn * 4 * slots + len(owners) * n + n + u * n * 8
         return nbytes_, ops, 0
     ss = tv & (ta["kind"] == SEL_SPREAD)
     rows = set(ta["owner"][ss].tolist())
@@ -787,6 +811,35 @@ def bound(work):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
+def device_ms(fn, kernel: str, reps: int = 50) -> float:
+    """The mean device duration (ms) of the kernel named `kernel` over
+    `reps` runs of fn(), from a torch.profiler (CUPTI) trace: the summed
+    durations of its device events over their count (a relaunch mean by
+    CUDA events also holds the gaps the host leaves between launches).
+    Fails when the trace holds fewer than half of them."""
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
+    os.makedirs(scratch, exist_ok=True)
+    with tempfile.TemporaryDirectory(dir=scratch) as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    durs = [e["dur"] for e in events if e.get("ph") == "X" and e.get("cat") == "kernel" and kernel in e.get("name", "")]
+    # (the trace may drop an event at its edges: at least half of them)
+    check(len(durs) >= reps // 2, f"the profiler saw {len(durs)} of {reps} launches of {kernel}")
+    return sum(durs) / len(durs) / 1e3
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -983,11 +1036,16 @@ def encode(nodes, existing, pods, device, selectors_fn=None):
 
 
 def compare_topology(enc, label, time_it: bool):
-    """Hold the filter's raw-selector output and the three topology kernels
-    against their plain versions on the same CUDA tensors; with time_it,
-    time each (kernel alone: one prebuilt struct relaunched) and bound it.
-    Extra segment-axis widths reach the dropped-bucket and device-memory
-    table branches."""
+    """Hold the filter's raw-selector output, the match kernel (one problem
+    with and without the namespace test, then three problems in one
+    launch), the spread score (one launch, no match launch, at the
+    driver's V, 16, 64 and 40,000: device-memory tables, counted) and the
+    selector spread against their plain versions on the same CUDA tensors;
+    with time_it, time each (kernel alone: one prebuilt struct relaunched,
+    CUDA events; the match and the spread score also by the profiler's
+    device duration, the spread score through its wrapper, at 1, 4, 8, 16
+    and all spec rows a cluster in turns and with device-memory tables) and
+    bound it."""
     from kubernetes_tpu_torch.kernels import build
     from kubernetes_tpu_torch.ops import filters as F
     from kubernetes_tpu_torch.ops import topology as TO
@@ -1003,11 +1061,23 @@ def compare_topology(enc, label, time_it: bool):
     for ns in (None, ea["ns_id"]):
         mismatched += int((TO.match_terms(ta, ea["label_vals"], ns)
                            != TO.match_terms_plain(ta, ea["label_vals"], ns)).sum())
+    problems = [(ta, ea["label_vals"], ea["ns_id"]), (ta, ea["label_vals"], None), (ta, pa["label_vals"], pa["ns_id"])]
+    launches = TO.match_terms.launches
+    multi = TO.match_terms_multi(problems)
+    check(TO.match_terms.launches == launches + 1, f"[{label}] three match problems took more than one launch")
+    mismatched += sum(int((m != TO.match_terms_plain(*p)).sum()) for m, p in zip(multi, problems))
     check(mismatched == 0, f"[{label}] match_terms kernel differs from its plain version in {mismatched} pairs")
     out["match_terms"] = {"max_abs_err": min(mismatched, 1)}
     err_s = err_z = 0
-    for nb in sorted({v, 16, 40000}):
+    dev_tables = TO.spread_score.device_table_launches
+    widths = (ta["valid"].shape[0], na["valid"].shape[0])
+    dims = (pa["valid"].shape[0], ta["ml_slot"].shape[1], ta["ex_op"].shape[1], ta["ex_vals"].shape[2])
+    want_dev = sum(int(TO.spread_score_layout(*widths, nb, *dims)["copies"] == 0) for nb in sorted({v, 16, 64, 40000}))
+    for nb in sorted({v, 16, 64, 40000}):
+        calls, matches = TO.spread_score.launches, TO.match_terms.launches
         a = TO.spread_score(na, ea, ta, au, sel, n_buckets=nb)
+        check(TO.spread_score.launches == calls + 1 and TO.match_terms.launches == matches,
+              f"[{label}] spread_score is not one launch without match_terms")
         b = TO.spread_score_plain(na, ea, ta, au, sel, n_buckets=nb)
         err_s = max(err_s, int((a - b).abs().max()))
         a = TO.selector_spread_score(na, ea, ta, au, n_buckets=nb)
@@ -1015,26 +1085,53 @@ def compare_topology(enc, label, time_it: bool):
         err_z = max(err_z, int((a - b).abs().max()))
     check(err_s == 0, f"[{label}] spread_score kernel differs from its plain version by {err_s}")
     check(err_z == 0, f"[{label}] selector_spread_score kernel differs from its plain version by {err_z}")
+    got_dev = TO.spread_score.device_table_launches - dev_tables
+    check(got_dev == want_dev >= 1, f"[{label}] spread_score's device-memory tables were counted {got_dev} times "
+          f"for {want_dev} such launches (V = 40,000 one of them)")
     out["spread_score"] = {"max_abs_err": err_s}
     out["selector_spread_score"] = {"max_abs_err": err_z}
     spread = TO.spread_score(na, ea, ta, au, sel, n_buckets=v)
     zsel = TO.selector_spread_score(na, ea, ta, au, n_buckets=v)
     log(f"[kernels] {label}: U={pa['valid'].shape[0]} N={na['valid'].shape[0]} TT={ta['valid'].shape[0]} "
-        f"S={ea['valid'].shape[0]} V={v}: raw selector, match_terms, spread_score, selector_spread_score "
-        f"exact (spread sum {int(spread.sum())}, selector-spread sum {int(zsel.sum())})")
+        f"S={ea['valid'].shape[0]} V={v}: raw selector, match_terms (1 and 3 problems a launch), spread_score "
+        f"(one launch, V = {sorted({v, 16, 64, 40000})}), selector_spread_score exact (spread sum "
+        f"{int(spread.sum())}, selector-spread sum {int(zsel.sum())})")
     if time_it:
-        m_soft = TO.match_terms(ta, ea["label_vals"], None)
+        m_soft = TO.match_terms_plain(ta, ea["label_vals"], None)
         m_ns = TO.match_terms(ta, ea["label_vals"], ea["ns_id"])
-        margs, _ = TO.match_args(ta, ea["label_vals"], ea["ns_id"])
-        out["match_terms"]["ms"] = cuda_ms(lambda: build.launch(TO.MATCH_ENTRY, margs, dev), 200)
-        out["match_terms"]["plain_ms"] = cuda_ms(
-            lambda: TO.match_terms_plain(ta, ea["label_vals"], ea["ns_id"]), 5)
-        out["match_terms"]["bound"] = bound(topology_work("match_terms", na, ea, ta, au))
-        sargs, _ = TO.spread_args(na, ea, ta, m_soft, sel, v)
-        out["spread_score"]["ms"] = cuda_ms(lambda: build.launch(TO.SPREAD_ENTRY, sargs, dev), 200)
-        out["spread_score"]["plain_ms"] = cuda_ms(
-            lambda: TO.spread_score_plain(na, ea, ta, au, sel, n_buckets=v), 5)
-        out["spread_score"]["bound"] = bound(topology_work("spread_score", na, ea, ta, au, m_sig_soft=m_soft))
+        margs, _ = TO.match_args([(ta, ea["label_vals"], ea["ns_id"])])
+        mt = out["match_terms"]
+        mt["ms"] = cuda_ms(lambda: build.launch(TO.MATCH_ENTRY, margs, dev), 200)
+        mt["device_ms"] = device_ms(lambda: build.launch(TO.MATCH_ENTRY, margs, dev), "match_terms_kernel")
+        mt["plain_ms"] = cuda_ms(lambda: TO.match_terms_plain(ta, ea["label_vals"], ea["ns_id"]), 5)
+        mt["bound"] = bound(match_work([(ta, ea["label_vals"], ea["ns_id"], ea["valid"])]))
+        ss = out["spread_score"]
+        sargs, _ = TO.spread_args(na, ea, ta, sel, v)
+        ss["ms"] = cuda_ms(lambda: build.launch(TO.SPREAD_ENTRY, sargs, dev), 200)
+        ss["device_ms"] = device_ms(lambda: build.launch(TO.SPREAD_ENTRY, sargs, dev), "spread_score_cluster_kernel")
+        ss["wrapper_ms"] = cuda_ms(lambda: TO.spread_score(na, ea, ta, au, sel, n_buckets=v), 200)
+        ss["plain_ms"] = cuda_ms(lambda: TO.spread_score_plain(na, ea, ta, au, sel, n_buckets=v), 5)
+        ss["bound"] = bound(topology_work("spread_score", na, ea, ta, au, m_sig_soft=m_soft))
+        ss["layout"] = {k: getattr(sargs, k) for k in ("R", "C", "slice", "vslice", "copies", "dense_cap", "smem")}
+        # the spec rows a cluster: 1, 4, 8, 16 and all, each exact, in turns
+        want = TO.spread_score_plain(na, ea, ta, au, sel, n_buckets=v)
+        u = pa["valid"].shape[0]
+        ss["rows_ms"] = {}
+        for rows in (1, 4, 8, 16, u, u, 16, 8, 4, 1):
+            rargs, rout = TO.spread_args(na, ea, ta, sel, v, rows=rows)
+            build.launch(TO.SPREAD_ENTRY, rargs, dev)
+            check(torch.equal(rout, want), f"[{label}] spread_score at {rows} rows a cluster differs")
+            ms = cuda_ms(lambda: build.launch(TO.SPREAD_ENTRY, rargs, dev), 200)
+            key = "all" if rows == u else str(rows)
+            ss["rows_ms"][key] = min(ms, ss["rows_ms"].get(key, ms))
+        # the device-memory tables at V = 40,000, the kernel alone
+        dargs, _ = TO.spread_args(na, ea, ta, sel, 40000)
+        ss["device_tables_ms"] = cuda_ms(lambda: build.launch(TO.SPREAD_ENTRY, dargs, dev), 50)
+        log(f"[kernels] {label} spread_score: layout {ss['layout']}; by rows a cluster "
+            + ", ".join(f"{r}: {t:.4f} ms" for r, t in ss["rows_ms"].items())
+            + f"; device tables (V = 40,000) {ss['device_tables_ms']:.4f} ms; through its wrapper "
+            f"{ss['wrapper_ms']:.4f} ms; device duration {ss['device_ms']:.4f} ms")
+        log(f"[kernels] {label} match_terms: device duration {mt['device_ms']:.4f} ms")
         zargs, _ = TO.selector_spread_args(na, ea, ta, au, m_ns, v)
         out["selector_spread_score"]["ms"] = cuda_ms(lambda: build.launch(TO.SEL_SPREAD_ENTRY, zargs, dev), 200)
         out["selector_spread_score"]["plain_ms"] = cuda_ms(
@@ -1089,6 +1186,15 @@ def compare_interpod(enc, label, time_it: bool):
     out["interpod_filter"] = {"max_abs_err": min(bad_f, 1)}
     out["interpod_score"] = {"max_abs_err": bad_s}
     out["inbatch_port_conflict"] = {"max_abs_err": min(bad_p, 1)}
+    # the batch's match plan: its three matrices in one launch, each exact
+    plan = [(ta, ea["label_vals"], ea["ns_id"]), (xa, pa["label_vals"], pa["ns_id"]),
+            (ta, pa["label_vals"], pa["ns_id"])]
+    launches = TO.match_terms.launches
+    got = TO.match_terms_multi(plan)
+    check(TO.match_terms.launches == launches + 1, f"[{label}] the match plan took more than one launch")
+    bad_m = sum(int((g != TO.match_terms_plain(*p)).sum()) for g, p in zip(got, plan))
+    check(bad_m == 0, f"[{label}] the multi-problem match differs from its plain version in {bad_m} pairs")
+    out["match_terms[plan]"] = {"max_abs_err": min(bad_m, 1), "problems": len(plan)}
 
     # the tracked solve on the pipeline's own mask and score
     kinds = frozenset({"aff_req", "anti_req", "pref", "et_anti", "et_score"})
@@ -1130,6 +1236,19 @@ def compare_interpod(enc, label, time_it: bool):
             lambda: TO.interpod_score_plain(na, ea, ta, xa, pa, parts_s, v), 5)
         out["interpod_score"]["bound"] = bound(interpod_work("interpod_score", na, ea, xa, ta, au, pa, parts_s,
                                                              m_pt, m_sig))
+        mp = out["match_terms[plan]"]
+        margs, _ = TO.match_args(plan)
+        mp["ms"] = cuda_ms(lambda: build.launch(TO.MATCH_ENTRY, margs, dev), 200)
+        mp["device_ms"] = device_ms(lambda: build.launch(TO.MATCH_ENTRY, margs, dev), "match_terms_kernel")
+        mp["plain_ms"] = cuda_ms(lambda: [TO.match_terms_plain(*p) for p in plan], 5)
+        mp["bound"] = bound(match_work([(ta, ea["label_vals"], ea["ns_id"], ea["valid"]),
+                                        (xa, pa["label_vals"], pa["ns_id"], pa["valid"]),
+                                        (ta, pa["label_vals"], pa["ns_id"], pa["valid"])]))
+        singles = [TO.match_args([p])[0] for p in plan]  # the same matrices as three launches
+        mp["three_launches_ms"] = cuda_ms(lambda: [build.launch(TO.MATCH_ENTRY, a_, dev) for a_ in singles], 200)
+        log(f"[kernels] {label} match plan (3 problems, one launch): {mp['ms']:.4f} ms (device duration "
+            f"{mp['device_ms']:.4f}), as three launches {mp['three_launches_ms']:.4f} ms, bound "
+            f"{mp['bound'][0]:.6f} ms ({mp['bound'][1]})")
         pargs, _ = F.port_conflict_args(pa, ids)
         out["inbatch_port_conflict"]["ms"] = cuda_ms(lambda: build.launch(F.PORT_CONFLICT_ENTRY, pargs, dev), 200)
         out["inbatch_port_conflict"]["plain_ms"] = cuda_ms(lambda: F.inbatch_port_conflict_plain(pa, ids), 5)
@@ -2106,12 +2225,15 @@ def phase_kernels():
     stats.update(compare_policy_scores(e["na"], e["pa"], "config-2"))
     # the config-3 shapes mid-drain (50,000 pods bound), with and without
     # Services; the timed shapes are those with Services (every kernel runs)
+    # (the kernels line keeps the timings with Services, the shapes of the
+    # times before the redesign; the spread score is also timed at TT = 128)
+    topo = {}
     for services in (False, True):
         nodes, existing, pods, fn = config3_batch(services, CONFIG3_PODS // 2)
         enc = encode(nodes, existing, pods, dev, fn)
         label = "config-3" + (" + Services" if services else "")
-        topo = compare_topology(enc, label, time_it=services)
-    stats.update(topo)
+        topo[services] = compare_topology(enc, label, time_it=True)
+    stats.update(topo[True])
     # the score kernel at the config-3 shapes (N = 10,240) in all three modes
     score3 = compare_score_shapes(enc["na"], enc["pa"], "config-3")
     # the all-branches inter-pod cluster: every term kind in the batch and
@@ -2155,6 +2277,8 @@ def phase_kernels():
     stats["_redesign"]["victim search and score matrix"] = victim_search_and_score_summary(stats.pop("_preempt"), score2, score3)
     stats["_redesign"]["spread filter and feasibility mask"] = spread_and_mask_summary(stats["filter_mask"],
                                                                                        hard["spread_filter"])
+    stats["_redesign"]["spread score and term match"] = spread_and_match_summary(topo[False], topo[True],
+                                                                                 stats["match_terms[plan]"])
     return stats
 
 
@@ -2164,7 +2288,39 @@ def phase_kernels():
 # made first, at the config-3-hard shapes; the mask at the config-2 shapes;
 # the extender's filter_mask through its wrapper
 BEFORE_MS = {"spread_filter": 0.0928, "spread_filter_match_terms": 0.0138, "filter_mask": 0.0384,
-             "pipeline.filter_mask": 0.3984}
+             "pipeline.filter_mask": 0.3984,
+             # the spread score's four kernels and its match launch, and the
+             # match kernel, at the config-3 + Services shapes
+             "spread_score": 0.1087, "spread_score_match_terms": 0.0127, "match_terms": 0.0127}
+
+
+def spread_and_match_summary(s3, s3s, plan):
+    """The redesigned spread score at the config-3 shapes (TT = 128, and
+    TT = 256 with Services: the shapes of the time before) and match kernel
+    (one problem at the config-3 + Services shapes; the config-4 plan's
+    three problems in one launch, beside the same as three launches): the
+    relaunch mean and the profiler's device duration, the times before,
+    the bounds, the spec rows a cluster timed and the device-memory
+    tables' time."""
+    out = {}
+    for key, st in (("spread_score config-3", s3["spread_score"]),
+                    ("spread_score config-3 + Services", s3s["spread_score"])):
+        out[key] = {"ms": st["ms"], "device_ms": st["device_ms"], "wrapper_ms": st["wrapper_ms"],
+                    "plain_ms": st["plain_ms"], "bound_ms": st["bound"][0],
+                    "before_ms": BEFORE_MS["spread_score"] + BEFORE_MS["spread_score_match_terms"],
+                    "before_parts_ms": [BEFORE_MS["spread_score"], BEFORE_MS["spread_score_match_terms"]],
+                    "layout": st["layout"], "rows_ms": st["rows_ms"], "device_tables_ms": st["device_tables_ms"]}
+    mt = s3s["match_terms"]
+    out["match_terms config-3 + Services"] = {"ms": mt["ms"], "device_ms": mt["device_ms"], "plain_ms": mt["plain_ms"],
+                                              "bound_ms": mt["bound"][0], "before_ms": BEFORE_MS["match_terms"]}
+    out["match_terms[plan] config-4"] = {"ms": plan["ms"], "device_ms": plan["device_ms"],
+                                         "three_launches_ms": plan["three_launches_ms"], "plain_ms": plan["plain_ms"],
+                                         "bound_ms": plan["bound"][0], "problems": plan["problems"]}
+    for k, v in out.items():
+        log(f"[redesign] {k}: {v['ms']:.4f} ms relaunched, {v['device_ms']:.4f} ms device duration, before "
+            f"{v.get('before_ms', float('nan')):.4f}, bound {v['bound_ms']:.6f} ms, plain {v['plain_ms']:.4f} ms"
+            + (f", by rows a cluster {v['rows_ms']}" if "rows_ms" in v else ""))
+    return out
 
 
 def spread_and_mask_summary(fm, sf):
@@ -2269,6 +2425,9 @@ def kernel_counters():
         "solve_greedy_inb": (SO.solve_greedy, "tracked_launches"),
         "spread_filter": (TO.spread_filter, "launches"), "arbitrate": (A.arbitrate, "launches"),
         "spread_filter[device tables]": (TO.spread_filter, "device_table_launches"),
+        "spread_score[device tables]": (TO.spread_score, "device_table_launches"),
+        "match_terms[problems]": (TO.match_terms, "problems"),
+        "match_terms[plan]": (TO.match_terms, "multi_launches"),
         "filter_mask[device memory]": (F.combined_mask, "device_memory_launches"),
         "fold_commit_banks": (FO.fold_commit_banks, "launches"),
         "preempt_batch": (PR.preempt_batch, "launches"), "fold_usage": (FO.fold_usage, "launches"),
@@ -2329,6 +2488,23 @@ def drain(device, workload, n_nodes, n_pods, batch, deterministic, seed=0, servi
     wall = time.perf_counter() - t0
     sched.close()
     return sched, nodes, pods, res, wall
+
+
+# match launches and matrices a batch per full drain (phase 5), for the
+# redesign line
+MATCHES = {}
+
+
+def record_matches(label, launches, batches):
+    """Log and keep a drain's match launches and matrices a batch, and its
+    spread_score launches a batch."""
+    per = {"batches": batches, "match_launches_per_batch": launches["match_terms"] / batches,
+           "match_problems_per_batch": launches["match_terms[problems]"] / batches,
+           "spread_score_launches_per_batch": launches["spread_score"] / batches}
+    MATCHES[label] = per
+    log(f"[drain] {label}: {per['match_launches_per_batch']:.3f} match launches and "
+        f"{per['match_problems_per_batch']:.3f} match matrices a batch, {per['spread_score_launches_per_batch']:.3f} "
+        f"spread_score launches a batch ({batches} batches)")
 
 
 class StepClock:
@@ -2976,9 +3152,11 @@ def phase_drain(smi, total):
         f"host encode; launches {launches}")
     for services in (False, True):
         label = "config-3" + (" + Services" if services else "")
-        need = ["filter_mask", "score_matrix", "solve_greedy", "match_terms", "spread_score", "fold_commit_banks"]
+        # the spread score matches inside its launch: a config-3 batch
+        # launches no match, one with Services one (SelectorSpread's m_sig)
+        need = ["filter_mask", "score_matrix", "solve_greedy", "spread_score", "fold_commit_banks"]
         if services:
-            need.append("selector_spread_score")
+            need += ["match_terms", "selector_spread_score"]
         torch.cuda.reset_peak_memory_stats()
         (sched, nodes, pods, res, wall), launches = run_main_path(label, need, lambda: drain(
             "cuda", "config3", CONFIG3_NODES, CONFIG3_PODS, BATCH, deterministic=False, services=services))
@@ -2990,6 +3168,11 @@ def phase_drain(smi, total):
         n_sigs = verify_sig_bank(sched)
         log_drain(f"{label} full ({CONFIG3_NODES} nodes, {CONFIG3_PODS} pods, batch {BATCH})",
                   sched, res, wall, smi)
+        batches = sched.stats["batches"]
+        check(launches["spread_score"] == batches and launches["match_terms"] == (batches if services else 0),
+              f"{label}: {launches['spread_score']} spread_score and {launches['match_terms']} match launches for "
+              f"{batches} batches")
+        record_matches(label, launches, batches)
         if not services:
             SINGLE["config3"] = (sched, res, wall)
         log(f"[drain] {label}: device node bank usage columns and signature bank == fresh host encode "
@@ -3010,6 +3193,10 @@ def phase_drain(smi, total):
     n_pats = verify_pattern_bank(sched)
     n_sigs = verify_sig_bank(sched)
     label = f"config-4 full ({CONFIG4_NODES} nodes, {CONFIG4_PODS} pods, batch {BATCH})"
+    batches = sched.stats["batches"]
+    check(launches["match_terms"] <= batches, f"config-4: {launches['match_terms']} match launches for {batches} "
+          f"batches (the plan's matrices take one launch a batch)")
+    record_matches("config-4", launches, batches)
     log_drain(label, sched, res, wall, smi)
     log(f"[drain] config-4: {n_excl} exclusive pods on distinct nodes per value; device pattern bank == fresh "
         f"host encode ({n_pats} patterns), signature bank and node bank usage columns too ({n_sigs} "
@@ -3032,6 +3219,7 @@ def phase_drain(smi, total):
     verify_node_bank(sched)
     n_sigs = verify_sig_bank(sched)
     st = sched.stats
+    record_matches("config-3-hard", launches, st["batches"])
     check(st["arbiter_batches"] == st["batches"], f"config-3-hard full cluster: {st['arbiter_batches']} of "
           f"{st['batches']} batches arbitrated")
     log_drain(f"config-3-hard full cluster ({CONFIG3_NODES} nodes, {HARD_FULL_PODS} pods, batch {BATCH})",
@@ -3113,10 +3301,13 @@ def phase_mesh(smi, total):
             "tracked_batches", "gang_batches", "oracle_places")
     # (b) config 3 at full size
     torch.cuda.reset_peak_memory_stats()
-    need = ["filter_mask", "score_matrix", "solve_sharded", "match_terms", "spread_score", "fold_commit_sharded"]
+    need = ["filter_mask", "score_matrix", "solve_sharded", "spread_score", "fold_commit_sharded"]
     (sched, nodes, pods, res, wall), launches = run_main_path("config-3 mesh", need, lambda: drain(
         "cuda", "config3", CONFIG3_NODES, CONFIG3_PODS, BATCH, deterministic=False, mesh=MESH_SHARDS))
     add(launches)
+    check(launches["spread_score"] == sched.stats["batches"] and launches["match_terms"] == 0,
+          f"config-3 mesh: {launches['spread_score']} spread_score and {launches['match_terms']} match launches for "
+          f"{sched.stats['batches']} batches")
     one_sched, one_res, one_wall = SINGLE["config3"]
     check(res.scheduled == CONFIG3_PODS and res.assignments == one_res.assignments,
           f"config-3 mesh: {res.scheduled} placed, {sum(1 for k, v in one_res.assignments.items() if res.assignments.get(k) != v)}"
@@ -3804,6 +3995,7 @@ def main() -> int:
         "score_matrix": ("kubernetes_tpu_torch/csrc/scores.cu", "kubernetes_tpu/ops/scores.py:262"),
         "solve_greedy": ("kubernetes_tpu_torch/csrc/solver.cu", "kubernetes_tpu/ops/solver.py:90"),
         "match_terms": ("kubernetes_tpu_torch/csrc/topology.cu", "kubernetes_tpu/ops/topology.py:49"),
+        "match_terms[plan]": ("kubernetes_tpu_torch/csrc/topology.cu", "kubernetes_tpu/ops/topology.py:49"),
         "spread_score": ("kubernetes_tpu_torch/csrc/topology.cu", "kubernetes_tpu/ops/topology.py:227"),
         "selector_spread_score": ("kubernetes_tpu_torch/csrc/topology.cu", "kubernetes_tpu/ops/topology.py:433"),
         "interpod_filter": ("kubernetes_tpu_torch/csrc/interpod.cu", "kubernetes_tpu/ops/topology.py:281"),
@@ -3851,6 +4043,11 @@ def main() -> int:
     log(f"[redesign] extender filter_mask: {ext['ms']:.4f} ms through its wrapper (before "
         f"{BEFORE_MS['pipeline.filter_mask']:.4f}); main path device-memory launches "
         f"{red['main path device-memory launches']}")
+    red = stats["_redesign"]["spread score and term match"]
+    red["match launches a batch"] = MATCHES
+    red["main path device-table launches"] = launches.get("spread_score[device tables]", 0)
+    log(f"[redesign] match launches a batch {MATCHES}; spread_score device-table launches on the main path "
+        f"{red['main path device-table launches']}")
     log(f"[done] {time.perf_counter() - t0:.1f}s; card: {smi}")
     print(json.dumps({"redesign": stats["_redesign"]}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

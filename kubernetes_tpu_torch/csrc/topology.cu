@@ -2,7 +2,8 @@
 // ScheduleAnyway score) and SelectorSpread score.
 //
 // Replace, in kubernetes_tpu/ops/topology.py:
-//   ktpu_match_terms            match_terms (:49)
+//   ktpu_match_terms            match_terms (:49), up to MATCH_PROBLEMS
+//                               (terms, subjects) problems in one launch
 //   ktpu_spread_filter          spread_filter (:182) with match_terms,
 //                               _bucket_of, _seg_sum, _sig_cnt_node,
 //                               _merge_same_key, _gather_rows and
@@ -10,8 +11,9 @@
 //                               kubernetes_tpu/commit/arbiter.py
 //                               _spread_tables (:76) reads (cand and the
 //                               merged tables, written by the same launch)
-//   ktpu_spread_score           spread_score (:227) with the same helpers and
-//                               _scatter_add
+//   ktpu_spread_score           spread_score (:227) with match_terms (no
+//                               namespace test), the same helpers and
+//                               _scatter_add inside
 //   ktpu_selector_spread_score  selector_spread_score (:433)
 //
 // Existing pods are label SIGNATURES (state/tensors.SigBank): counts[N, S]
@@ -25,46 +27,182 @@
 // operation order, and the library is built with -fmad=false.
 //
 // Bound: none of them has enough arithmetic to matter. match_terms is
-// bound by its [TT, X] byte output and label reads; the spread programs read the
-// counts columns of the matched signatures once per term or spec row, the
-// node bank's dense label column once per term, and write [U, N] int64
-// (the filter [U, N] bytes): bytes. Their real cost is launch count and the
-// reads a node costs (one 32-byte sector for each 2-byte count or 4-byte
-// label: the banks are node-major). The spread score is four launches of
-// U or TT blocks; the spread filter is one launch of U clusters (below),
-// whose floor is the cluster launch and those sectors.
+// bound by its [TT, X] byte output and label reads; the spread programs read
+// the counts columns of the matched signatures, the node bank's dense label
+// column of each key and the selector rows, and write [U, N] int64 (the
+// filter [U, N] bytes): bytes. Their real cost is launch count and the reads
+// a node costs (one 32-byte sector for each 2-byte count or 4-byte label:
+// the banks are node-major). The spread score and the spread filter are
+// each one launch of clusters (below), the match one launch a batch.
 #include <cooperative_groups.h>
 
 #include "topology.cuh"
 
 namespace cg = cooperative_groups;
 
-// ---------------------------------------------------------------------------
-// match_terms
-// ---------------------------------------------------------------------------
+#define LOAD_BATCH 16  // global loads a thread has in flight at once when staging
 
-struct MatchArgs {
-  const uint8_t* valid;         // [TT]
-  const uint8_t* has_selector;  // [TT]
-  const int32_t* ml_slot;       // [TT, ML]
-  const int32_t* ml_val;        // [TT, ML]
-  const int32_t* ex_op;         // [TT, EX]
-  const int32_t* ex_slot;       // [TT, EX]
-  const int32_t* ex_vals;       // [TT, EX, VALS]
-  const uint8_t* ns_any;        // [TT]
-  const int32_t* ns_ids;        // [TT, NS]
-  const int32_t* labels;        // [X, K]
-  const int32_t* ns;            // [X], or null: no namespace test
-  uint8_t* out;                 // [TT, X]
-  int32_t TT, X, K, ML, EX, VALS, NS;
-};
+// Append the indices i < n with pred(i) to `list` in ascending order (a
+// block-wide ordered compaction); returns their count.
+template <typename Pred>
+__device__ int ordered_compact(int n, Pred pred, int32_t* list, int32_t* warp_cnt) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int total = 0;
+  for (int base = 0; base < n; base += THREADS) {
+    const int i = base + threadIdx.x;
+    const bool f = i < n && pred(i);
+    const unsigned bal = __ballot_sync(0xffffffffu, f);
+    if (lane == 0) warp_cnt[warp] = __popc(bal);
+    __syncthreads();
+    int off = total, sum = 0;
+    for (int w = 0; w < THREADS / 32; ++w) {
+      off += w < warp ? warp_cnt[w] : 0;
+      sum += warp_cnt[w];
+    }
+    if (f) list[off + __popc(bal & ((1u << lane) - 1u))] = i;
+    total += sum;
+    __syncthreads();
+  }
+  return total;
+}
 
+// ---------------------------------------------------------------------------
+// A term's label selector compacted into shared memory (the match kernel's
+// term tiles, the spread score's term chunks): only its live lanes, so a
+// test against a subject reads shared memory and the subject's label slots.
+//   word 0      TR_DEAD (an invalid row, a nil selector or a NEVER
+//               expression: it matches nothing), TR_NS (the namespace test
+//               applies), the test count (bits 0-9) and namespace lanes
+//               (bits 10-19)
+//   tests       two words each: (op << 24) | the clipped slot, then the
+//               matchLabels value, or (pool word << 16) | value count for
+//               In / NotIn, or 0
+//   value pool  an In / NotIn expression's value lanes >= 0 and one -1 lane
+//               where it had any (a padded lane equals only a -1 label)
+//   namespaces  the term's namespace lanes, as they are
 // metav1.LabelSelectorAsSelector over interned ids (topology.match_terms):
 // matchLabels at clipped slots (a negative slot passes), expressions with
-// present = value id != 0 at the clipped slot, unknown operators pass; a
-// nil selector or an invalid row matches nothing. Term t's fields and
-// subject x's labels (row width K) and namespace (ns null: no namespace
-// test); every read is of an input no kernel writes while it runs.
+// present = value id != 0 at the clipped slot, unknown operators pass.
+// ---------------------------------------------------------------------------
+
+#define TR_DEAD 0x80000000u
+#define TR_NS 0x40000000u
+#define TR_EQ 15  // a matchLabels pair, beside the OP_* codes
+
+__host__ __device__ __forceinline__ int term_row_ns(int ML, int EX, int VALS) { return 1 + 2 * (ML + EX) + EX * VALS; }
+
+__host__ __device__ __forceinline__ int term_row_words(int ML, int EX, int VALS, int NS) {
+  return term_row_ns(ML, EX, VALS) + NS;
+}
+
+struct TermSel {  // a term bank's selector fields (a device-side view)
+  const uint8_t* valid;
+  const uint8_t* has_selector;
+  const int32_t* ml_slot;
+  const int32_t* ml_val;
+  const int32_t* ex_op;
+  const int32_t* ex_slot;
+  const int32_t* ex_vals;
+  const uint8_t* ns_any;
+  const int32_t* ns_ids;
+  int ML, EX, VALS, NS;
+};
+
+// Compact term t's selector (subject label rows of width K; with_ns: the
+// namespace test applies) into `row`.
+__device__ void compact_term(const TermSel& f, int t, int K, bool with_ns, int32_t* row) {
+  if (!f.valid[t] || !f.has_selector[t]) {
+    row[0] = (int32_t)TR_DEAD;
+    return;
+  }
+  const int kmax = K - 1;
+  const int pool0 = 1 + 2 * (f.ML + f.EX);
+  int32_t* tests = row + 1;
+  int nt = 0, np = 0;
+  for (int j = 0; j < f.ML; ++j) {
+    const int32_t slot = f.ml_slot[(int64_t)t * f.ML + j];
+    if (slot < 0) continue;
+    tests[2 * nt] = (int32_t)(((uint32_t)TR_EQ << 24) | (uint32_t)(slot > kmax ? kmax : slot));
+    tests[2 * nt + 1] = f.ml_val[(int64_t)t * f.ML + j];
+    ++nt;
+  }
+  for (int j = 0; j < f.EX; ++j) {
+    const int64_t e = (int64_t)t * f.EX + j;
+    const int32_t op = f.ex_op[e];
+    if (op == OP_NEVER) {
+      row[0] = (int32_t)TR_DEAD;
+      return;
+    }
+    if (op != OP_IN && op != OP_NOT_IN && op != OP_EXISTS && op != OP_DOES_NOT_EXIST) continue;
+    const int32_t slot = f.ex_slot[e];
+    int32_t arg = 0;
+    if (op == OP_IN || op == OP_NOT_IN) {
+      const int off = np;
+      bool pad = false;
+      for (int k = 0; k < f.VALS; ++k) {
+        const int32_t v = f.ex_vals[e * f.VALS + k];
+        if (v >= 0) {
+          row[pool0 + np++] = v;
+        } else {
+          pad = true;
+        }
+      }
+      if (pad) row[pool0 + np++] = -1;
+      arg = ((pool0 + off) << 16) | (np - off);
+    }
+    tests[2 * nt] = (int32_t)(((uint32_t)op << 24) | (uint32_t)(slot < 0 ? 0 : (slot > kmax ? kmax : slot)));
+    tests[2 * nt + 1] = arg;
+    ++nt;
+  }
+  uint32_t head = (uint32_t)nt;
+  if (with_ns && !f.ns_any[t]) {
+    const int ns0 = term_row_ns(f.ML, f.EX, f.VALS);
+    for (int j = 0; j < f.NS; ++j) row[ns0 + j] = f.ns_ids[(int64_t)t * f.NS + j];
+    head |= TR_NS | ((uint32_t)f.NS << 10);
+  }
+  row[0] = (int32_t)head;
+}
+
+// Does the compacted `row` match a subject whose label at a clipped slot is
+// lab(slot) and whose namespace is nsx?
+template <typename Label>
+__device__ __forceinline__ bool eval_term(const int32_t* row, int ns0, Label lab, int32_t nsx) {
+  const uint32_t head = (uint32_t)row[0];
+  if (head & TR_DEAD) return false;
+  const int nt = head & 1023;
+  for (int i = 0; i < nt; ++i) {
+    const uint32_t w = (uint32_t)row[1 + 2 * i];
+    const int32_t arg = row[2 + 2 * i];
+    const int32_t op = (int32_t)(w >> 24);
+    const int32_t v = lab((int)(w & 0xFFFFFFu));
+    if (op == TR_EQ) {
+      if (v != arg) return false;
+      continue;
+    }
+    const bool present = v != 0;
+    bool ok;
+    if (op == OP_IN || op == OP_NOT_IN) {
+      const int off = arg >> 16, cnt = arg & 0xFFFF;
+      bool in_set = false;
+      for (int k = 0; k < cnt; ++k) in_set |= v == row[off + k];
+      ok = op == OP_IN ? (present && in_set) : (!present || !in_set);
+    } else {
+      ok = op == OP_EXISTS ? present : !present;
+    }
+    if (!ok) return false;
+  }
+  if (head & TR_NS) {
+    const int nn = (head >> 10) & 1023;
+    bool in = false;
+    for (int j = 0; j < nn; ++j) in |= row[ns0 + j] == nsx;
+    if (!in) return false;
+  }
+  return true;
+}
+
+// The same test read straight from the term bank (the spread filter's
+// in-launch matching): term t against subject x's labels (row width K) and
+// namespace (ns null: no namespace test).
 __device__ __forceinline__ bool selector_matches(
     const uint8_t* valid, const uint8_t* has_selector, const int32_t* ml_slot, const int32_t* ml_val,
     const int32_t* ex_op, const int32_t* ex_slot, const int32_t* ex_vals, const uint8_t* ns_any,
@@ -108,204 +246,844 @@ __device__ __forceinline__ bool selector_matches(
   return true;
 }
 
-__device__ bool term_matches(const MatchArgs& a, int t, int x) {
-  return selector_matches(a.valid, a.has_selector, a.ml_slot, a.ml_val, a.ex_op, a.ex_slot, a.ex_vals, a.ns_any,
-                          a.ns_ids, a.labels, a.ns, a.K, a.ML, a.EX, a.VALS, a.NS, t, x);
+// ---------------------------------------------------------------------------
+// match_terms: one launch for up to MATCH_PROBLEMS (terms, subjects)
+// problems, blockIdx.z the problem. A CTA takes MATCH_TERM_TILE terms x
+// xtile subjects (xtile a power of two): the tile's term rows (each
+// field's rows one contiguous run of the bank) copied into shared memory
+// and compacted there once (a dead row matches nothing and names no
+// slot); the subjects' labels staged at the slots the tile's tests name
+// only, a column a slot (conflict-free along the subjects); then every pair
+// tested from shared memory alone, written along the subjects.
+// ---------------------------------------------------------------------------
+
+#define MATCH_PROBLEMS 4
+#define MATCH_TERM_TILE 8
+
+struct MatchProblem {
+  const uint8_t* valid;         // [TT]
+  const uint8_t* has_selector;  // [TT]
+  const int32_t* ml_slot;       // [TT, ML]
+  const int32_t* ml_val;        // [TT, ML]
+  const int32_t* ex_op;         // [TT, EX]
+  const int32_t* ex_slot;       // [TT, EX]
+  const int32_t* ex_vals;       // [TT, EX, VALS]
+  const uint8_t* ns_any;        // [TT]
+  const int32_t* ns_ids;        // [TT, NS]
+  const int32_t* labels;        // [X, K]
+  const int32_t* ns;            // [X], or null: no namespace test
+  uint8_t* out;                 // [TT, X]
+  int32_t TT, X, K, ML, EX, VALS, NS;
+  int32_t xtile;                // subjects a CTA (ops/topology.match_layout)
+};
+
+struct MatchArgs {
+  MatchProblem p[MATCH_PROBLEMS];
+  int32_t count;  // problems in use
+  int32_t smem;   // a CTA's dynamic shared memory: the largest problem's
+};
+
+// the int32 words of a tile's term rows as the bank holds them: the int32
+// fields, then three bytes a row (valid, has-selector, any namespace)
+__host__ __device__ __forceinline__ int match_raw_words(const MatchProblem& p) {
+  return MATCH_TERM_TILE * (2 * p.ML + 2 * p.EX + p.EX * p.VALS + p.NS) + (3 * MATCH_TERM_TILE + 3) / 4;
 }
 
-__global__ void match_terms_kernel(const MatchArgs a) {
-  const int x = blockIdx.x * blockDim.x + threadIdx.x;
-  const int t = blockIdx.y;
-  if (x >= a.X) return;
-  a.out[(int64_t)t * a.X + x] = term_matches(a, t, x) ? 1 : 0;
+// the label slots a tile's compacted tests can name
+__host__ __device__ __forceinline__ int match_slot_cap(const MatchProblem& p) {
+  const int tests = MATCH_TERM_TILE * (p.ML + p.EX);
+  return tests < p.K ? tests : p.K;
+}
+
+// a problem's CTA: the tile's term rows as copied and as compacted, the slot
+// map [K], the slots and their label columns [slot cap, xtile + 1] and the
+// namespaces [xtile], int32 words (ops/topology.match_layout)
+__host__ __device__ __forceinline__ size_t match_smem_bytes(const MatchProblem& p) {
+  return 4 * ((size_t)match_raw_words(p) + (size_t)MATCH_TERM_TILE * term_row_words(p.ML, p.EX, p.VALS, p.NS) +
+              p.K + (size_t)match_slot_cap(p) * (p.xtile + 1) + p.xtile);
+}
+
+__global__ void __launch_bounds__(THREADS) match_terms_kernel(const __grid_constant__ MatchArgs a) {
+  extern __shared__ __align__(16) int32_t msm[];
+  __shared__ int32_t warp_cnt[THREADS / 32];
+  const MatchProblem& p = a.p[blockIdx.z];  // read in place from the launch's parameters
+  const int t0 = blockIdx.y * MATCH_TERM_TILE, x0 = blockIdx.x * p.xtile;
+  if (t0 >= p.TT || x0 >= p.X) return;
+  const int nt = min(MATCH_TERM_TILE, p.TT - t0), nx = min(p.xtile, p.X - x0);
+  const int rw = term_row_words(p.ML, p.EX, p.VALS, p.NS), ns0 = term_row_ns(p.ML, p.EX, p.VALS);
+  const bool with_ns = p.ns != nullptr;
+  // the tile's term rows as the bank holds them (each field's rows are one
+  // contiguous run), the compacted rows, the label slots they name (a map
+  // slot -> column, the columns' slots), the subjects' labels at those
+  // slots column by column, the subjects' namespaces
+  const int s1 = nt * p.ML, s2 = 2 * s1, s3 = s2 + nt * p.EX, s4 = s3 + nt * p.EX, s5 = s4 + nt * p.EX * p.VALS;
+  const int words = s5 + nt * p.NS, raw_n = words + 3 * nt;
+  int32_t* raw = msm;
+  uint8_t* rawb = (uint8_t*)(raw + words);
+  int32_t* rows = raw + match_raw_words(p);
+  int32_t* slot_of = rows + MATCH_TERM_TILE * rw;  // [K]
+  int32_t* slots = slot_of + p.K;                  // [match_slot_cap]
+  int32_t* lab = slots + match_slot_cap(p);        // [match_slot_cap, xtile]
+  int32_t* nss = lab + match_slot_cap(p) * p.xtile;  // [xtile]
+  auto load = [&](int e) -> int32_t {  // element e of the term rows' copy, from the bank
+    if (e < s1) return __ldg(p.ml_slot + (int64_t)t0 * p.ML + e);
+    if (e < s2) return __ldg(p.ml_val + (int64_t)t0 * p.ML + e - s1);
+    if (e < s3) return __ldg(p.ex_op + (int64_t)t0 * p.EX + e - s2);
+    if (e < s4) return __ldg(p.ex_slot + (int64_t)t0 * p.EX + e - s3);
+    if (e < s5) return __ldg(p.ex_vals + (int64_t)t0 * p.EX * p.VALS + e - s4);
+    if (e < words) return __ldg(p.ns_ids + (int64_t)t0 * p.NS + e - s5);
+    if (e < words + nt) return __ldg(p.valid + t0 + e - words);
+    if (e < words + 2 * nt) return __ldg(p.has_selector + t0 + e - words - nt);
+    return __ldg(p.ns_any + t0 + e - words - 2 * nt);
+  };
+  auto store = [&](int e, int32_t v) {
+    if (e < words) {
+      raw[e] = v;
+    } else {
+      rawb[e - words] = (uint8_t)v;
+    }
+  };
+  // 1. the term rows (a thread's first two elements in flight at once) and
+  // the subjects' namespaces; the slot map cleared
+  const int ea = threadIdx.x, eb = threadIdx.x + THREADS;
+  const int32_t va = ea < raw_n ? load(ea) : 0, vb = eb < raw_n ? load(eb) : 0;
+  const int32_t nsv = with_ns && (int)threadIdx.x < nx ? __ldg(p.ns + x0 + threadIdx.x) : 0;
+  for (int k = threadIdx.x; k < p.K; k += THREADS) slot_of[k] = 0;
+  if (ea < raw_n) store(ea, va);
+  if (eb < raw_n) store(eb, vb);
+  for (int e = threadIdx.x + 2 * THREADS; e < raw_n; e += THREADS) store(e, load(e));  // wide term rows
+  for (int x = threadIdx.x; x < nx && with_ns; x += THREADS) nss[x] = x == (int)threadIdx.x ? nsv : __ldg(p.ns + x0 + x);
+  __syncthreads();
+  // 2. the rows compacted from the copy (a dead row has no test and reads
+  // no label); the slots their tests name
+  if ((int)threadIdx.x < nt) {
+    const TermSel tile{rawb, rawb + nt, raw, raw + s1, raw + s2, raw + s3, raw + s4, rawb + 2 * nt, raw + s5,
+                       p.ML, p.EX, p.VALS, p.NS};
+    int32_t* row = rows + threadIdx.x * rw;
+    compact_term(tile, threadIdx.x, p.K, with_ns, row);
+    const uint32_t head = (uint32_t)row[0];
+    for (int i = 0; i < (int)(head & 1023) && !(head & TR_DEAD); ++i) slot_of[(uint32_t)row[1 + 2 * i] & 0xFFFFFFu] = 1;
+  }
+  __syncthreads();
+  const int nslots = ordered_compact(p.K, [&](int k) { return slot_of[k] != 0; }, slots, warp_cnt);
+  for (int j = threadIdx.x; j < nslots; j += THREADS) slot_of[slots[j]] = j;
+  // 3. the subjects' labels at those slots, a column a slot (loads in batches)
+  int xshift = 0;
+  while ((1 << xshift) < p.xtile) ++xshift;
+  for (int k0 = threadIdx.x; k0 < (nslots << xshift); k0 += LOAD_BATCH * THREADS) {
+    int32_t got[LOAD_BATCH];
+#pragma unroll
+    for (int q = 0; q < LOAD_BATCH; ++q) {  // the batch's loads first
+      const int k = k0 + q * THREADS, xl = k & (p.xtile - 1);
+      got[q] = (k < (nslots << xshift) && xl < nx) ? __ldg(p.labels + (int64_t)(x0 + xl) * p.K + slots[k >> xshift]) : 0;
+    }
+#pragma unroll
+    for (int q = 0; q < LOAD_BATCH; ++q) {
+      const int k = k0 + q * THREADS;
+      if (k < (nslots << xshift)) lab[k] = got[q];
+    }
+  }
+  __syncthreads();
+  // 4. every pair from shared memory, written along the subjects
+  for (int i = threadIdx.x; i < nt * nx; i += THREADS) {
+    const int tl = i / nx, xl = i - tl * nx;
+    const bool m = eval_term(rows + tl * rw, ns0, [&](int sc) { return lab[(slot_of[sc] << xshift) + xl]; },
+                             with_ns ? nss[xl] : 0);
+    p.out[(int64_t)(t0 + tl) * p.X + x0 + xl] = m ? 1 : 0;
+  }
 }
 
 extern "C" int ktpu_match_terms(const MatchArgs* args, cudaStream_t stream) {
-  if (args->TT > 0 && args->X > 0) {
-    dim3 grid((args->X + THREADS - 1) / THREADS, args->TT);
-    match_terms_kernel<<<grid, THREADS, 0, stream>>>(*args);
+  const MatchArgs& a = *args;
+  if (a.count < 1 || a.count > MATCH_PROBLEMS) return (int)cudaErrorInvalidValue;
+  int gx = 0, gy = 0;
+  for (int z = 0; z < a.count; ++z) {
+    const MatchProblem& p = a.p[z];
+    if (p.TT < 1 || p.X < 1 || p.K < 1 || p.xtile < 1 || match_smem_bytes(p) > (size_t)a.smem) {
+      return (int)cudaErrorInvalidValue;
+    }
+    const int bx = (p.X + p.xtile - 1) / p.xtile, by = (p.TT + MATCH_TERM_TILE - 1) / MATCH_TERM_TILE;
+    gx = bx > gx ? bx : gx;
+    gy = by > gy ? by : gy;
   }
+  int rc;
+  if ((rc = set_smem((const void*)match_terms_kernel, (size_t)a.smem))) return rc;
+  match_terms_kernel<<<dim3(gx, gy, a.count), THREADS, (size_t)a.smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------------------
-// spread_score: four launches from one entry
-//   1. member   [U, N]: valid node carrying every topology key of row u's
-//               soft terms
-//   2. pairs    per term: counts of matching pods on counting nodes (member
-//               & raw node selector) and member presence, per topology value
-//               bucket
-//   3. merge    per term: sum the pair tables of the row's terms on the same
-//               key
-//   4. score    per spec row: gather back per node, sum over the row's
-//               terms, total and min over member nodes, 10*(total-cnt)/diff
+// spread_score: ONE launch, a grid of clusters of C CTAs along the node
+// axis; cluster y takes the R spec rows [y * R, y * R + R), CTA c of it the
+// node slice [c * slice, ...) and the bucket slice [c * vslice, ...).
+//
+//   1. The rows' ScheduleAnyway terms in ascending order; their
+//      (owner, key) groups ordered by row (a row's groups are one range),
+//      each with its size; the distinct keys; per row the mask of its keys.
+//      Each slice node's dense label at the first dense_cap keys and its
+//      mask of keys present (bit 31: a valid node) are staged once, so a
+//      node's membership of a row (valid, every key of the row present) is
+//      one test. A cluster whose rows hold no soft term writes zeros.
+//   2. Presence: per key, each valid node carrying it marks its bucket and
+//      counts itself in the key's member histogram (at its clamped bucket);
+//      a row with one key takes its group's presence from its key's, a row
+//      with several keys marks its member nodes' buckets itself.
+//   3. Counts, per chunk of SCORE_TW terms (their rows compacted) and
+//      window of SCORE_SWIN signatures: the matching (term, signature)
+//      pairs (no namespace test: the reference counts over all
+//      namespaces) as a list of (column, group); per node
+//      tile the counts at the matched signatures in ascending order (a
+//      warp's loads share the sectors of a node's row) and the rows'
+//      selector bytes, staged once for every row of the cluster, loads in
+//      batches; each pair's nonzero count at a member node passing the raw
+//      node selector into its group's table at the node's bucket (buckets
+//      >= V dropped), in per-warp copies.
+//   4. The copies folded; a cluster barrier; each CTA sums its bucket slice
+//      of the count, presence and key histogram tables over the cluster
+//      through distributed shared memory (a thread per cell and CTA); a
+//      cluster barrier; every CTA copies the merged tables back. Past
+//      shared memory (copies == 0) the pairs and presence go by global
+//      atomics straight into merged_cnt / merged_present at the group's
+//      first term's row, and every row takes step 5's per-node path; so
+//      does a cluster whose rows hold more groups than the shared tables
+//      (gcap).
+//   5. A node's count: over the row's groups, group size x the merged
+//      count at the node's clamped bucket where it is present and the node
+//      carries the key (uint32, the reference's int32 wrap). A one-key row
+//      has its total, minimum and membership from its key's histogram (V
+//      buckets, not N nodes); another row sums them over its slice nodes,
+//      then over the cluster through distributed shared memory. The score
+//      10 * (total - count) / (total - min) is written along the nodes (a
+//      32-bit division where the operands fit; a one-key row's score is a
+//      table by bucket, so a node costs two shared reads). Two CTAs fit an
+//      SM, so one CTA's waits overlap the other's work. The exit waits on
+//      a split cluster barrier so no CTA leaves while another reads its
+//      shared memory.
 // ---------------------------------------------------------------------------
 
+#define SCORE_TW 16            // terms a chunk
+#define SCORE_SWIN 256         // signatures a window
+#define SCORE_TILE_WORDS 4096  // the counts tile: int16 pairs
+#define SCORE_SEL_BYTES 8192   // the tile's selector bytes: R x tile nodes
+#define SCORE_CHUNK 256        // nodes a warp walks for one row at once
+#define KEY_BITS 31            // keys a node's key mask holds (bit 31: a valid node)
+#define SCORE_FTAB_BYTES 16384  // one-key rows' scores by bucket, R x V int64, where they fit
+
+// do the one-key rows' scores by bucket fit in shared memory?
+__host__ __device__ __forceinline__ bool score_by_bucket(int R, int V) {
+  return (size_t)R * V * 8 <= SCORE_FTAB_BYTES;
+}
+
 struct SpreadArgs {
-  const uint8_t* t_valid;       // [TT]
-  const int32_t* t_kind;        // [TT]
-  const int32_t* t_owner;       // [TT]
-  const int32_t* t_topo_slot;   // [TT]
-  const uint8_t* m_sig;         // [TT, S] match_terms without namespaces
-  const uint8_t* e_valid;       // [S]
-  const int16_t* counts;        // [N, S]
-  const uint8_t* n_valid;       // [N]
-  const int32_t* label_dense;   // [N, K]
-  const uint8_t* sel;           // [U, N] raw PodMatchNodeSelector
-  uint8_t* member;              // [U, N] scratch
-  int32_t* sig_list;            // [TT, S] scratch
-  int32_t* pair_cnt;            // [TT, V] scratch
-  int32_t* pair_present;        // [TT, V] scratch
-  int32_t* merged_cnt;          // [TT, V] scratch
-  uint8_t* merged_present;      // [TT, V] scratch
-  int64_t* out;                 // [U, N] score
-  int32_t TT, S, N, K, U, V, table_in_shared;
+  const uint8_t* t_valid;         // [TT]
+  const int32_t* t_kind;          // [TT]
+  const int32_t* t_owner;         // [TT]
+  const int32_t* t_topo_slot;     // [TT]
+  const uint8_t* t_has_selector;  // [TT]
+  const int32_t* t_ml_slot;       // [TT, ML]
+  const int32_t* t_ml_val;        // [TT, ML]
+  const int32_t* t_ex_op;         // [TT, EX]
+  const int32_t* t_ex_slot;       // [TT, EX]
+  const int32_t* t_ex_vals;       // [TT, EX, VALS]
+  const int32_t* e_labels;        // [S, KE] signature labels
+  const uint8_t* e_valid;         // [S]
+  const int16_t* counts;          // [N, S]
+  const uint8_t* n_valid;         // [N]
+  const int32_t* label_dense;     // [N, K]
+  const uint8_t* sel;             // [U, N] raw PodMatchNodeSelector
+  int32_t* merged_cnt;            // [TT, V] the device tables (copies == 0)
+  uint8_t* merged_present;        // [TT, V]
+  int64_t* out;                   // [U, N]
+  int32_t TT, S, N, K, KE, ML, EX, VALS, U, V;
+  // the launch (ops/topology.spread_score_layout): R spec rows a cluster of
+  // C CTAs, the node and bucket slices of a CTA, the per-warp table copies
+  // (0: the tables in device memory), the groups (and keys) the shared
+  // tables hold (a cluster with more takes the device tables), the keys
+  // staged for the slice, and the dynamic shared memory
+  int32_t R, C, slice, vslice, copies, gcap, dense_cap, smem;
 };
 
-__device__ __forceinline__ bool is_soft(const SpreadArgs& a, int t) {
-  return a.t_valid[t] && a.t_kind[t] == SPREAD_SOFT;
+// the dynamic shared memory of a CTA, in this order: int32 words — the
+// rows' int64 slice and cluster totals 4 R; where score_by_bucket, the
+// one-key rows' scores by bucket R x V int64; the rows' int32 slice minimum
+// and membership, cluster minimum and membership, key mask 5 R; the terms,
+// their owners and keys, their groups, the groups' rows, keys, key
+// indices, sizes and first terms, the keys, a scratch list 11 TT; the rows'
+// group ranges R + 1; a chunk's compacted term rows; the pair
+// list SCORE_TW x SCORE_SWIN; the column map and columns 2 SCORE_SWIN; the
+// counts tile SCORE_TILE_WORDS; the staged keys dense_cap x slice; the
+// nodes' key masks slice; with copies > 0 the count tables copies x gcap x
+// V, the merged bucket slice gcap x vslice and the local merged table gcap
+// x V, and the key histograms gcap x V, gcap x vslice, gcap x V. Then
+// bytes: the tile's selector bytes SCORE_SEL_BYTES, with copies > 0 the
+// presence tables gcap x V, gcap x vslice, gcap x V and the key presence
+// gcap x V; rounded up to 16. ops/topology.spread_score_layout computes the
+// same bytes.
+__host__ __device__ __forceinline__ size_t spread_score_smem_bytes(const SpreadArgs& a) {
+  size_t words = 9 * (size_t)a.R + (score_by_bucket(a.R, a.V) ? 2 * (size_t)a.R * a.V : 0) + 11 * (size_t)a.TT +
+                 a.R + 1 +
+                 SCORE_TW * (size_t)term_row_words(a.ML, a.EX, a.VALS, 0) + (size_t)SCORE_TW * SCORE_SWIN +
+                 2 * SCORE_SWIN + SCORE_TILE_WORDS + ((size_t)a.dense_cap + 1) * a.slice;
+  size_t bytes = SCORE_SEL_BYTES;
+  if (a.copies > 0) {
+    const size_t cells = (size_t)a.gcap * a.V, vs = (size_t)a.gcap * a.vslice;
+    words += a.copies * cells + vs + cells + 2 * cells + vs;
+    bytes += 3 * cells + vs;
+  }
+  return 4 * words + ((bytes + 15) & ~(size_t)15);
 }
 
-__global__ void spread_member_kernel(const SpreadArgs a) {
-  extern __shared__ int32_t terms[];  // [TT]
-  __shared__ int n_terms;
-  const int u = blockIdx.x;
-  const int nt = owner_terms(a.t_valid, a.t_kind, a.t_owner, a.TT, SPREAD_SOFT, u, terms, &n_terms);
-  for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
-    bool m = a.n_valid[n];
-    for (int i = 0; i < nt && m; ++i) {
-      int32_t b;
-      m = dense_bucket(a.label_dense, a.K, n, a.t_topo_slot[terms[i]], &b);
-    }
-    a.member[(int64_t)u * a.N + n] = m ? 1 : 0;
-  }
+// node x's dense label at key `slot` (clipped), or -1 where it has none
+__device__ __forceinline__ int32_t score_dense(const SpreadArgs& a, int x, int32_t slot) {
+  const int sc = slot < 0 ? 0 : (slot > a.K - 1 ? a.K - 1 : slot);
+  const int32_t d = __ldg(a.label_dense + (int64_t)x * a.K + sc);
+  return (d >= 0 && slot >= 0) ? d : -1;
 }
 
-__global__ void spread_pairs_kernel(const SpreadArgs a) {
-  extern __shared__ int32_t table[];  // [2V] when table_in_shared
-  __shared__ int n_sigs;
-  const int t = blockIdx.x;
-  if (!is_soft(a, t)) return;
-  const int u = a.t_owner[t];
-  const int32_t slot = a.t_topo_slot[t];
-  int32_t* sigs = a.sig_list + (int64_t)t * a.S;
-  if (threadIdx.x == 0) n_sigs = 0;
-  __syncthreads();
-  for (int s = threadIdx.x; s < a.S; s += blockDim.x) {
-    if (a.m_sig[(int64_t)t * a.S + s] && a.e_valid[s]) sigs[atomicAdd(&n_sigs, 1)] = s;
-  }
-  int32_t* cnt = a.table_in_shared ? table : a.pair_cnt + (int64_t)t * a.V;
-  int32_t* present = a.table_in_shared ? table + a.V : a.pair_present + (int64_t)t * a.V;
-  for (int v = threadIdx.x; v < a.V; v += blockDim.x) {
-    cnt[v] = 0;
-    present[v] = 0;
-  }
-  __syncthreads();
-  const int ns = n_sigs;
-  for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
-    const int64_t un = (int64_t)u * a.N + n;
-    const bool mem = a.member[un];
-    int32_t b;
-    const bool has = dense_bucket(a.label_dense, a.K, n, slot, &b);
-    if (b >= a.V) continue;  // segment_sum drops out-of-range buckets
-    if (mem && a.sel[un]) {
-      const int16_t* row = a.counts + (int64_t)n * a.S;
-      int32_t c = 0;
-      for (int i = 0; i < ns; ++i) c += row[sigs[i]];
-      if (c != 0) atomicAdd(&cnt[b], c);
-    }
-    if (mem && has) present[b] = 1;
-  }
-  __syncthreads();
-  if (a.table_in_shared) {
-    for (int v = threadIdx.x; v < a.V; v += blockDim.x) {
-      a.pair_cnt[(int64_t)t * a.V + v] = cnt[v];
-      a.pair_present[(int64_t)t * a.V + v] = present[v];
-    }
-  }
+// MaxNodeScore * (total - count) floor-divided by diff (the reference's int64
+// arithmetic), with a 32-bit division where the operands fit
+__device__ __forceinline__ int64_t spread_node_score(int64_t total, int64_t cn, int64_t diff) {
+  if (diff <= 0) return MAX_NODE_SCORE;
+  const int64_t num = MAX_NODE_SCORE * (total - cn);
+  if (num >= 0 && num <= 0xFFFFFFFFll && diff <= 0xFFFFFFFFll) return (int64_t)((uint32_t)num / (uint32_t)diff);
+  return floordiv(num, diff);
 }
 
-__global__ void spread_merge_kernel(const SpreadArgs a) {
-  extern __shared__ int32_t group[];  // [TT]
-  __shared__ int n_group;
-  const int t = blockIdx.x;
-  if (!is_soft(a, t)) return;
-  if (threadIdx.x == 0) n_group = 0;
-  __syncthreads();
-  for (int q = threadIdx.x; q < a.TT; q += blockDim.x) {
-    if (is_soft(a, q) && a.t_owner[q] == a.t_owner[t] && a.t_topo_slot[q] == a.t_topo_slot[t]) {
-      group[atomicAdd(&n_group, 1)] = q;
-    }
-  }
-  __syncthreads();
-  const int ng = n_group;
-  for (int v = threadIdx.x; v < a.V; v += blockDim.x) {
-    int32_t c = 0, p = 0;
-    for (int i = 0; i < ng; ++i) {
-      c += a.pair_cnt[(int64_t)group[i] * a.V + v];
-      p += a.pair_present[(int64_t)group[i] * a.V + v];
-    }
-    a.merged_cnt[(int64_t)t * a.V + v] = c;
-    a.merged_present[(int64_t)t * a.V + v] = p > 0 ? 1 : 0;
-  }
-}
+__global__ void __launch_bounds__(THREADS) spread_score_cluster_kernel(const __grid_constant__ SpreadArgs a) {
+  extern __shared__ __align__(16) uint8_t dyn[];
+  __shared__ int32_t warp_cnt[THREADS / 32];
+  __shared__ int n_groups, n_keys, n_pairs, n_generic;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int c = blockIdx.x, C = a.C, tid = threadIdx.x, V = a.V, R = a.R, TT = a.TT;
+  const int lane = tid & 31, warp = tid >> 5;
+  const int r0 = blockIdx.y * R;
+  const int nrows = min(R, a.U - r0);
+  const size_t cells = a.copies > 0 ? (size_t)a.gcap * V : 0;
+  const size_t vcells = a.copies > 0 ? (size_t)a.gcap * a.vslice : 0;
+  const int rwords = term_row_words(a.ML, a.EX, a.VALS, 0);
 
-__global__ void spread_score_kernel(const SpreadArgs a) {
-  extern __shared__ int32_t terms[];  // [TT]
-  __shared__ int n_terms;
-  __shared__ int64_t red[THREADS / 32];
-  const int u = blockIdx.x;
-  const int nt = owner_terms(a.t_valid, a.t_kind, a.t_owner, a.TT, SPREAD_SOFT, u, terms, &n_terms);
-  int64_t total = 0, mn = BIG_COUNT, any = 0;
-  int64_t* out = a.out + (int64_t)u * a.N;
-  for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
+  const bool by_bucket = score_by_bucket(R, V);
+  int64_t* p_total = (int64_t*)dyn;  // [R] this slice's
+  int64_t* q_total = p_total + R;    // [R] the cluster's
+  int64_t* ftab = q_total + R;       // [R, V] a one-key row's score by clamped bucket
+  int32_t* p_min = (int32_t*)(ftab + (by_bucket ? (size_t)R * V : 0));
+  int32_t* p_any = p_min + R;
+  int32_t* q_min = p_any + R;  // [R] the cluster's
+  int32_t* q_any = q_min + R;
+  uint32_t* rmask = (uint32_t*)(q_any + R);  // [R] bit 31 and the row's keys
+  int32_t* terms = (int32_t*)(rmask + R);    // [TT] the rows' soft terms, ascending
+  int32_t* t_own = terms + TT;   // [TT] their owners
+  int32_t* t_key = t_own + TT;   // [TT] and keys
+  int32_t* tgrp = t_key + TT;    // [TT] each listed term's group
+  int32_t* g_row = tgrp + TT;    // per group: its row - r0
+  int32_t* g_slot = g_row + TT;  //   its key
+  int32_t* g_key = g_slot + TT;  //   its key's index
+  int32_t* g_size = g_key + TT;  //   its terms
+  int32_t* g_lead = g_size + TT;  //  its first term
+  int32_t* keys = g_lead + TT;   // [TT] the distinct keys
+  int32_t* scratch = keys + TT;  // [TT]
+  int32_t* rg = scratch + TT;    // [R + 1] row r's groups: [rg[r], rg[r + 1])
+  int32_t* crows = rg + R + 1;   // [SCORE_TW, rwords] a chunk's compacted term rows
+  int32_t* pairs = crows + SCORE_TW * rwords;       // [SCORE_TW * SCORE_SWIN]
+  int32_t* colmap = pairs + SCORE_TW * SCORE_SWIN;  // [SCORE_SWIN]
+  int32_t* cols = colmap + SCORE_SWIN;              // [SCORE_SWIN]
+  int16_t* ctile = (int16_t*)(cols + SCORE_SWIN);   // [tile nodes, stride]
+  int32_t* dense = cols + SCORE_SWIN + SCORE_TILE_WORDS;      // [dense_cap, slice]
+  uint32_t* kb = (uint32_t*)(dense + (size_t)a.dense_cap * a.slice);  // [slice]
+  int32_t* pcnt = (int32_t*)(kb + a.slice);  // [copies, gcap, V]
+  int32_t* mcnt = pcnt + a.copies * cells;   // [gcap, vslice]
+  int32_t* lcnt = mcnt + vcells;             // [gcap, V]
+  int32_t* kh = lcnt + cells;                // [gcap, V] members a key's bucket holds
+  int32_t* mkh = kh + cells;                 // [gcap, vslice]
+  int32_t* lkh = mkh + vcells;               // [gcap, V]
+  uint8_t* stile = (uint8_t*)(lkh + cells);  // [R, tile nodes]
+  uint8_t* ppres = stile + SCORE_SEL_BYTES;  // [gcap, V]
+  uint8_t* mpres = ppres + cells;            // [gcap, vslice]
+  uint8_t* lpres = mpres + vcells;           // [gcap, V]
+  uint8_t* kpres = lpres + cells;            // [gcap, V]
+
+  const int n0 = c * a.slice, n1 = min(a.N, n0 + a.slice), ns = max(n1 - n0, 0);
+  const int v0 = min(V, c * a.vslice), v1 = min(V, v0 + a.vslice);
+
+  // 1. the rows' soft terms, their groups (ordered by row) and keys
+  if (tid == 0) n_groups = n_keys = n_generic = 0;
+  for (int r = tid; r < R; r += THREADS) {
+    p_total[r] = q_total[r] = 0;
+    p_min[r] = q_min[r] = BIG_COUNT;
+    p_any[r] = q_any[r] = 0;
+  }
+  const int nt = ordered_compact(
+      TT,
+      [&](int t) {
+        const int32_t o = a.t_owner[t];
+        return a.t_valid[t] && a.t_kind[t] == SPREAD_SOFT && o >= r0 && o < r0 + nrows;
+      },
+      terms, warp_cnt);
+  for (int i = tid; i < nt; i += THREADS) {
+    t_own[i] = a.t_owner[terms[i]];
+    t_key[i] = a.t_topo_slot[terms[i]];
+  }
+  __syncthreads();
+  for (int i = tid; i < nt; i += THREADS) {  // each term's group leader: the first term on its (owner, key)
+    int lead = i;
+    for (int j = 0; j < i; ++j) {
+      if (t_own[j] == t_own[i] && t_key[j] == t_key[i]) {
+        lead = j;
+        break;
+      }
+    }
+    scratch[i] = lead;
+  }
+  __syncthreads();
+  for (int i = tid; i < nt; i += THREADS) {  // the leaders ranked by (row, position)
+    if (scratch[i] != i) continue;
+    const int32_t o = t_own[i];
+    int rank = 0, size = 0;
+    for (int j = 0; j < nt; ++j) {
+      const int lj = scratch[j];
+      size += lj == i;
+      rank += lj == j && (t_own[j] < o || (t_own[j] == o && j < i));
+    }
+    g_row[rank] = o - r0;
+    g_slot[rank] = t_key[i];
+    g_size[rank] = size;
+    g_lead[rank] = terms[i];
+    tgrp[i] = rank;
+    atomicAdd(&n_groups, 1);
+  }
+  __syncthreads();
+  const int G = n_groups;
+  for (int i = tid; i < nt; i += THREADS) {
+    if (scratch[i] != i) tgrp[i] = tgrp[scratch[i]];
+  }
+  for (int r = tid; r <= R; r += THREADS) {
+    int k = 0;
+    for (int g = 0; g < G; ++g) k += g_row[g] < r;
+    rg[r] = k;
+  }
+  __syncthreads();
+  for (int g = tid; g < G; g += THREADS) {  // each group's key leader
+    int l = g;
+    for (int h = 0; h < g; ++h) {
+      if (g_slot[h] == g_slot[g]) {
+        l = h;
+        break;
+      }
+    }
+    scratch[g] = l;
+  }
+  __syncthreads();
+  for (int g = tid; g < G; g += THREADS) {
+    if (scratch[g] != g) continue;
+    int k = 0;
+    for (int h = 0; h < g; ++h) k += scratch[h] == h;
+    keys[k] = g_slot[g];
+    g_key[g] = k;
+    atomicAdd(&n_keys, 1);
+  }
+  __syncthreads();
+  for (int g = tid; g < G; g += THREADS) {
+    if (scratch[g] != g) g_key[g] = g_key[scratch[g]];
+  }
+  if (G == 0) {  // no soft term in these rows: zeros, nothing read
+    for (int r = 0; r < nrows; ++r) {
+      int64_t* out = a.out + (int64_t)(r0 + r) * a.N;
+      for (int x = n0 + tid; x < n1; x += THREADS) out[x] = 0;
+    }
+    return;
+  }
+  __syncthreads();
+  const int D = n_keys;
+  const bool masks = D <= KEY_BITS;  // else membership walks the row's groups
+  // the tables in shared memory, unless the layout put them in device
+  // memory or these rows hold more groups than the shared tables (uniform
+  // over the cluster: every CTA takes the same rows)
+  const bool shared_tables = a.copies > 0 && G <= a.gcap;
+  for (int r = tid; r < nrows; r += THREADS) {
+    uint32_t m = 1u << 31;
+    for (int g = rg[r]; g < rg[r + 1] && masks; ++g) m |= 1u << g_key[g];
+    rmask[r] = m;
+    // a row takes the per-node path when it has several keys, or the tables live in device memory
+    if (rg[r + 1] - rg[r] > 1 || !shared_tables) atomicAdd(&n_generic, 1);
+  }
+
+  // 2. the slice's labels at the staged keys and key masks; clear the
+  // tables; presence and the key histograms
+  const int dcap = min(D, a.dense_cap);
+  for (int d = 0; d < dcap; ++d) {  // the slice's labels at the staged keys
+    for (int xb = tid; xb < ns; xb += LOAD_BATCH * THREADS) {
+      int32_t got[LOAD_BATCH];
+#pragma unroll
+      for (int q = 0; q < LOAD_BATCH; ++q) {  // the batch's loads first
+        const int xl = xb + q * THREADS;
+        got[q] = xl < ns ? score_dense(a, n0 + xl, keys[d]) : 0;
+      }
+#pragma unroll
+      for (int q = 0; q < LOAD_BATCH; ++q) {
+        const int xl = xb + q * THREADS;
+        if (xl < ns) dense[d * a.slice + xl] = got[q];
+      }
+    }
+  }
+  __syncthreads();
+  auto dense_at = [&](int d, int x) -> int32_t {
+    return d < dcap ? dense[d * a.slice + (x - n0)] : score_dense(a, x, keys[d]);
+  };
+  for (int xl = tid; xl < ns; xl += THREADS) {
+    uint32_t m = __ldg(a.n_valid + n0 + xl) ? 1u << 31 : 0u;
+    for (int d = 0; d < D && masks; ++d) m |= dense_at(d, n0 + xl) >= 0 ? 1u << d : 0u;
+    kb[xl] = m;
+  }
+  if (shared_tables) {
+    for (int k = tid; k < a.copies * G * V; k += THREADS) {
+      const int p = k / (G * V);
+      pcnt[p * cells + (k - p * G * V)] = 0;
+    }
+    for (int k = tid; k < G * V; k += THREADS) ppres[k] = 0;
+    for (int k = tid; k < D * V; k += THREADS) {
+      kh[k] = 0;
+      kpres[k] = 0;
+    }
+    for (int k = tid; k < G * a.vslice; k += THREADS) {
+      mcnt[k] = 0;
+      mpres[k] = 0;
+    }
+    for (int k = tid; k < D * a.vslice; k += THREADS) mkh[k] = 0;
+    __syncthreads();
+  } else {
+    for (int g = 0; g < G; ++g) {
+      for (int v = v0 + tid; v < v1; v += THREADS) {
+        a.merged_cnt[(int64_t)g_lead[g] * V + v] = 0;
+        a.merged_present[(int64_t)g_lead[g] * V + v] = 0;
+      }
+    }
+    __threadfence();
+    cluster.sync();  // every CTA's slice of the rows is clear
+  }
+  auto member_of = [&](int r, int x) -> bool {
+    const uint32_t m = kb[x - n0];
+    if (masks) return (m & rmask[r]) == rmask[r];
+    if (!(m >> 31)) return false;
+    for (int g = rg[r]; g < rg[r + 1]; ++g) {
+      if (dense_at(g_key[g], x) < 0) return false;
+    }
+    return true;
+  };
+  if (shared_tables) {  // per key: presence and the member histogram
+    for (int d = 0; d < D; ++d) {
+      for (int x = n0 + tid; x < n1; x += THREADS) {
+        if (!(kb[x - n0] >> 31)) continue;
+        const int32_t b = dense_at(d, x);
+        if (b < 0) continue;
+        if (b < V) kpres[d * V + b] = 1;  // segment_sum drops out-of-range buckets
+        atomicAdd(&kh[d * V + (b > V - 1 ? V - 1 : b)], 1);  // gathers clamp
+      }
+    }
+    __syncthreads();
+    for (int k = tid; k < G * V; k += THREADS) {  // a one-key row's presence is its key's
+      const int g = k / V, r = g_row[g];
+      if (rg[r + 1] - rg[r] == 1) ppres[k] = kpres[g_key[g] * V + (k - g * V)];
+    }
+  }
+  if (n_generic) {  // a row with several keys (or device tables): its member nodes' buckets
+    for (int r = 0; r < nrows; ++r) {
+      if ((shared_tables && rg[r + 1] - rg[r] < 2) || rg[r] == rg[r + 1]) continue;
+      for (int x = n0 + tid; x < n1; x += THREADS) {
+        if (!member_of(r, x)) continue;
+        for (int g = rg[r]; g < rg[r + 1]; ++g) {
+          const int32_t b = dense_at(g_key[g], x);  // >= 0: a member carries every key
+          if (b >= V) continue;
+          if (shared_tables) {
+            ppres[g * V + b] = 1;
+          } else {
+            a.merged_present[(int64_t)g_lead[g] * V + b] = 1;
+          }
+        }
+      }
+    }
+  }
+
+  // 3. the counts: per chunk of terms and window of signatures, the matched
+  // pairs; per node tile the counts and selector bytes staged once for
+  // every row
+  const TermSel bank{a.t_valid, a.t_has_selector, a.t_ml_slot, a.t_ml_val, a.t_ex_op, a.t_ex_slot, a.t_ex_vals,
+                     nullptr, nullptr, a.ML, a.EX, a.VALS, 0};
+  int32_t* mine = pcnt + (shared_tables ? (size_t)(warp % a.copies) * cells : 0);
+  for (int i0 = 0; i0 < nt; i0 += SCORE_TW) {
+    const int tw = min(SCORE_TW, nt - i0);
+    __syncthreads();  // the previous chunk's rows are no longer read
+    if (tid < tw) compact_term(bank, terms[i0 + tid], a.KE, false, crows + tid * rwords);
+    for (int s0 = 0; s0 < a.S; s0 += SCORE_SWIN) {
+      const int sw = min(SCORE_SWIN, a.S - s0);
+      __syncthreads();  // the previous window's list and columns are no longer read
+      if (tid == 0) n_pairs = 0;
+      for (int k = tid; k < SCORE_SWIN; k += THREADS) colmap[k] = 0;
+      __syncthreads();
+      for (int sl = tid; sl < sw; sl += THREADS) {  // a signature against the chunk's terms
+        const int s = s0 + sl;
+        if (!__ldg(a.e_valid + s)) continue;
+        const int32_t* lab = a.e_labels + (int64_t)s * a.KE;
+        for (int il = 0; il < tw; ++il) {
+          if (eval_term(crows + il * rwords, 0, [&](int sc) { return __ldg(lab + sc); }, 0)) {
+            pairs[atomicAdd(&n_pairs, 1)] = (sl << 16) | tgrp[i0 + il];
+            colmap[sl] = 1;
+          }
+        }
+      }
+      __syncthreads();
+      const int np = n_pairs;
+      if (np == 0) continue;
+      const int ncol = ordered_compact(sw, [&](int k) { return colmap[k] != 0; }, cols, warp_cnt);
+      for (int j = tid; j < ncol; j += THREADS) {
+        const int k = cols[j];
+        colmap[k] = j;
+        cols[j] = s0 + k;
+      }
+      __syncthreads();
+      for (int k = tid; k < np; k += THREADS) {
+        const int32_t e = pairs[k];
+        pairs[k] = (colmap[e >> 16] << 16) | (e & 0xFFFF);
+      }
+      // as many nodes a tile as the matched columns and the rows' selector
+      // bytes leave room for; the counts at an odd word stride (no bank
+      // conflicts along the nodes)
+      const int stride = ((ncol + 1) & ~3) + 2;
+      const int tn_max = min(2 * SCORE_TILE_WORDS / stride, SCORE_SEL_BYTES / nrows);
+      for (int x0 = n0; x0 < n1; x0 += tn_max) {
+        const int tn = min(tn_max, n1 - x0);
+        __syncthreads();  // the pairs are remapped; the previous tile is no longer read
+        {  // the counts at the matched columns: 2^cshift lanes a node row, no division
+          int cshift = 0;
+          while ((1 << cshift) < ncol) ++cshift;
+          const int per = THREADS >> cshift, j = tid & ((1 << cshift) - 1);
+          const int col = j < ncol ? cols[j] : 0;
+          for (int xb = tid >> cshift; xb < tn; xb += LOAD_BATCH * per) {
+            int16_t got[LOAD_BATCH];
+#pragma unroll
+            for (int q = 0; q < LOAD_BATCH; ++q) {  // the batch's loads first
+              const int xl = xb + q * per;
+              got[q] = (j < ncol && xl < tn) ? __ldg(a.counts + (int64_t)(x0 + xl) * a.S + col) : 0;
+            }
+#pragma unroll
+            for (int q = 0; q < LOAD_BATCH; ++q) {
+              const int xl = xb + q * per;
+              if (j < ncol && xl < tn) ctile[xl * stride + j] = got[q];
+            }
+          }
+        }
+        for (int xl = tid; xl < tn; xl += THREADS) {  // the rows' selector bytes: a thread a node
+          for (int rb = 0; rb < nrows; rb += LOAD_BATCH) {
+            uint8_t got[LOAD_BATCH];
+#pragma unroll
+            for (int q = 0; q < LOAD_BATCH; ++q) {
+              const int r = rb + q;
+              got[q] = r < nrows ? __ldg(a.sel + (int64_t)(r0 + r) * a.N + x0 + xl) : 0;
+            }
+#pragma unroll
+            for (int q = 0; q < LOAD_BATCH; ++q) {
+              if (rb + q < nrows) stile[(rb + q) * tn + xl] = got[q];
+            }
+          }
+        }
+        __syncthreads();
+        const bool row_bits = masks && nrows <= 32;
+        for (int xl = tid; xl < tn; xl += THREADS) {
+          const int x = x0 + xl;
+          // the node's counting rows (member, raw selector) and its bucket at
+          // the first key, before the pairs: a pair's tail stays short
+          uint32_t cb = 0;
+          for (int r = 0; r < nrows && row_bits; ++r) {
+            cb |= (stile[r * tn + xl] && (kb[x - n0] & rmask[r]) == rmask[r]) ? 1u << r : 0u;
+          }
+          const int32_t b0 = dense_at(0, x);
+          for (int k = 0; k < np; ++k) {
+            const int32_t e = pairs[k];
+            const int32_t cn = ctile[xl * stride + (e >> 16)];
+            if (cn == 0) continue;
+            const int g = e & 0xFFFF, r = g_row[g], d = g_key[g];
+            if (row_bits ? !((cb >> r) & 1u) : (!stile[r * tn + xl] || !member_of(r, x))) continue;
+            const int32_t b = d == 0 ? b0 : dense_at(d, x);
+            if (b >= V) continue;
+            if (shared_tables) {
+              atomicAdd(&mine[g * V + b], cn);
+            } else {
+              atomicAdd(&a.merged_cnt[(int64_t)g_lead[g] * V + b], cn);
+            }
+          }
+        }
+      }
+    }
+  }
+
+  // 4. the tables over the copies and the cluster
+  __syncthreads();
+  if (shared_tables) {
+    for (int k = tid; k < G * V && a.copies > 1; k += THREADS) {
+      int32_t s = pcnt[k];
+      for (int p = 1; p < a.copies; ++p) s += pcnt[p * cells + k];
+      pcnt[k] = s;
+    }
+  } else {
+    __threadfence();
+  }
+  cluster.sync();  // every CTA's partial tables are complete
+  if (shared_tables) {  // this CTA's bucket slice summed over the cluster: a thread per (cell, CTA)
+    const int vs = v1 - v0;
+    for (int k = tid; k < (G + D) * vs * C; k += THREADS) {
+      const int rk = k % C, gv = k / C, g = gv / vs, v = v0 + (gv - g * vs);
+      if (g < G) {
+        const int32_t cn = *cluster.map_shared_rank(&pcnt[g * V + v], rk);
+        const uint8_t pr = *cluster.map_shared_rank(&ppres[g * V + v], rk);
+        if (cn) atomicAdd(&mcnt[g * a.vslice + v - v0], cn);
+        if (pr) mpres[g * a.vslice + v - v0] = 1;
+      } else {
+        const int32_t h = *cluster.map_shared_rank(&kh[(g - G) * V + v], rk);
+        if (h) atomicAdd(&mkh[(g - G) * a.vslice + v - v0], h);
+      }
+    }
+    cluster.sync();  // every CTA's merged bucket slice is in place
+    for (int k = tid; k < (G + D) * V; k += THREADS) {
+      const int g = k / V, v = k - g * V, rk = v / a.vslice, off = v - rk * a.vslice;
+      if (g < G) {
+        lcnt[k] = *cluster.map_shared_rank(&mcnt[g * a.vslice + off], rk);
+        lpres[k] = *cluster.map_shared_rank(&mpres[g * a.vslice + off], rk);
+      } else {
+        lkh[k - G * V] = *cluster.map_shared_rank(&mkh[(g - G) * a.vslice + off], rk);
+      }
+    }
+    __syncthreads();
+  }
+
+  // 5. per row: the node counts, the total, minimum and membership, the score
+  auto bucket_count = [&](int g, int bc) -> uint32_t {  // group g's merged count at bucket bc, where present
+    int32_t cn;
+    uint8_t pr;
+    if (shared_tables) {
+      cn = lcnt[g * V + bc];
+      pr = lpres[g * V + bc];
+    } else {
+      const int64_t i = (int64_t)g_lead[g] * V + bc;
+      cn = __ldcg(a.merged_cnt + i);
+      pr = __ldcg(a.merged_present + i);
+    }
+    return pr ? (uint32_t)g_size[g] * (uint32_t)cn : 0u;
+  };
+  auto node_count = [&](int r, int x) -> int32_t {
     uint32_t nc = 0;  // int32 with the reference's wrap-around
-    for (int i = 0; i < nt; ++i) {
-      const int t = terms[i];
-      int32_t b;
-      const bool has = dense_bucket(a.label_dense, a.K, n, a.t_topo_slot[t], &b);
-      const int64_t tv = (int64_t)t * a.V + (b > a.V - 1 ? a.V - 1 : b);  // gathers clamp
-      if (has && a.merged_present[tv]) nc += (uint32_t)a.merged_cnt[tv];
+    for (int g = rg[r]; g < rg[r + 1]; ++g) {
+      const int32_t d = dense_at(g_key[g], x);
+      if (d >= 0) nc += bucket_count(g, d > V - 1 ? V - 1 : d);  // gathers clamp
     }
-    const int32_t c = (int32_t)nc;
-    out[n] = c;
-    if (a.member[(int64_t)u * a.N + n]) {
-      total += c;
-      mn = c < mn ? c : mn;
+    return (int32_t)nc;
+  };
+  for (int r = warp; r < nrows && shared_tables; r += THREADS / 32) {  // a one-key row: from its key's histogram
+    if (rg[r + 1] - rg[r] != 1) continue;
+    const int g = rg[r];
+    int64_t tot = 0;
+    int32_t mn = BIG_COUNT;
+    int any = 0;
+    for (int bc = lane; bc < V; bc += 32) {
+      const int32_t h = lkh[g_key[g] * V + bc];
+      if (!h) continue;
+      const int32_t cn = (int32_t)bucket_count(g, bc);
+      tot += (int64_t)h * cn;
+      mn = cn < mn ? cn : mn;
       any = 1;
     }
+    for (int off = 16; off > 0; off >>= 1) {
+      tot += __shfl_xor_sync(0xffffffffu, (long long)tot, off);
+      const int32_t o = __shfl_xor_sync(0xffffffffu, mn, off);
+      mn = o < mn ? o : mn;
+      any |= __shfl_xor_sync(0xffffffffu, any, off);
+    }
+    if (lane == 0) {
+      q_total[r] = tot;
+      q_min[r] = mn;
+      q_any[r] = any;
+    }
   }
-  total = block_sum<int64_t>(total, red);
-  mn = block_min<int64_t>(mn, red, BIG_COUNT);
-  any = block_max<int64_t>(any, red, 0);
-  const int64_t min_cnt = any ? mn : 0;
-  const int64_t diff = total - min_cnt;
-  const bool has_soft = nt > 0;
-  for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
-    const int64_t c = out[n];
-    const int64_t f = diff > 0 ? floordiv(MAX_NODE_SCORE * (total - c), diff) : MAX_NODE_SCORE;
-    out[n] = (has_soft && a.member[(int64_t)u * a.N + n]) ? f : 0;
+  const int chunks = (ns + SCORE_CHUNK - 1) / SCORE_CHUNK;
+  if (n_generic) {  // another row: over its slice nodes, then over the cluster
+    for (int it = warp; it < nrows * chunks; it += THREADS / 32) {
+      const int r = it / chunks, xa = n0 + (it - r * chunks) * SCORE_CHUNK, xb = min(n1, xa + SCORE_CHUNK);
+      if (rg[r] == rg[r + 1] || (shared_tables && rg[r + 1] - rg[r] == 1)) continue;
+      int64_t tot = 0;
+      int32_t mn = BIG_COUNT;
+      int any = 0;
+      for (int x = xa + lane; x < xb; x += 32) {
+        if (!member_of(r, x)) continue;
+        const int32_t cn = node_count(r, x);
+        tot += cn;
+        mn = cn < mn ? cn : mn;
+        any = 1;
+      }
+      for (int off = 16; off > 0; off >>= 1) {
+        tot += __shfl_xor_sync(0xffffffffu, (long long)tot, off);
+        const int32_t o = __shfl_xor_sync(0xffffffffu, mn, off);
+        mn = o < mn ? o : mn;
+        any |= __shfl_xor_sync(0xffffffffu, any, off);
+      }
+      if (lane == 0 && any) {
+        atomicAdd((unsigned long long*)&p_total[r], (unsigned long long)tot);
+        atomicMin(&p_min[r], mn);
+        atomicOr(&p_any[r], 1);
+      }
+    }
+    cluster.sync();  // every CTA's row partials are complete
+    for (int i = tid; i < nrows * C; i += THREADS) {  // a thread per (row, CTA)
+      const int r = i / C, rk = i - r * C;
+      if (rg[r] == rg[r + 1] || (shared_tables && rg[r + 1] - rg[r] == 1)) continue;
+      if (!*cluster.map_shared_rank(&p_any[r], rk)) continue;
+      atomicAdd((unsigned long long*)&q_total[r], (unsigned long long)*cluster.map_shared_rank(&p_total[r], rk));
+      atomicMin(&q_min[r], *cluster.map_shared_rank(&p_min[r], rk));
+      q_any[r] = 1;
+    }
   }
+  cluster_arrive();  // this CTA's reads of the others' shared memory are done
+  __syncthreads();
+  const bool fast = shared_tables && by_bucket && masks;  // one-key rows write from their score by bucket
+  for (int i = tid; i < nrows * V && fast; i += THREADS) {
+    const int r = i / V, bc = i - r * V;
+    if (rg[r + 1] - rg[r] != 1) continue;
+    const int64_t total = q_total[r], diff = total - (q_any[r] ? q_min[r] : 0);
+    ftab[i] = spread_node_score(total, (int32_t)bucket_count(rg[r], bc), diff);
+  }
+  __syncthreads();
+  for (int it = warp; it < nrows * chunks; it += THREADS / 32) {
+    const int r = it / chunks, xa = n0 + (it - r * chunks) * SCORE_CHUNK, xb = min(n1, xa + SCORE_CHUNK);
+    int64_t* out = a.out + (int64_t)(r0 + r) * a.N;
+    if (rg[r] == rg[r + 1]) {  // no soft term: zeros, nothing read
+      for (int x = xa + lane; x < xb; x += 32) out[x] = 0;
+      continue;
+    }
+    if (fast && rg[r + 1] - rg[r] == 1) {
+      const uint32_t m = rmask[r];
+      const int d = g_key[rg[r]];
+      const int64_t* f = ftab + (size_t)r * V;
+      for (int x = xa + lane; x < xb; x += 32) {
+        const int32_t b = dense_at(d, x);  // a member carries the key: b >= 0
+        out[x] = (kb[x - n0] & m) == m ? f[b > V - 1 ? V - 1 : b] : 0;
+      }
+      continue;
+    }
+    const int64_t total = q_total[r], diff = total - (q_any[r] ? q_min[r] : 0);
+    for (int x = xa + lane; x < xb; x += 32) {
+      out[x] = member_of(r, x) ? spread_node_score(total, node_count(r, x), diff) : 0;
+    }
+  }
+  cluster_wait();  // no CTA leaves while another may read its shared memory
 }
 
 extern "C" int ktpu_spread_score(const SpreadArgs* args, cudaStream_t stream) {
   const SpreadArgs& a = *args;
-  if (a.U <= 0 || a.N <= 0 || a.TT <= 0) return (int)cudaGetLastError();
-  const size_t term_bytes = (size_t)a.TT * sizeof(int32_t);
-  const size_t table_bytes = a.table_in_shared ? (size_t)2 * a.V * sizeof(int32_t) : 0;
-  int rc;
-  if ((rc = set_smem((const void*)spread_member_kernel, term_bytes))) return rc;
-  if ((rc = set_smem((const void*)spread_pairs_kernel, table_bytes))) return rc;
-  if ((rc = set_smem((const void*)spread_merge_kernel, term_bytes))) return rc;
-  if ((rc = set_smem((const void*)spread_score_kernel, term_bytes))) return rc;
-  spread_member_kernel<<<a.U, THREADS, term_bytes, stream>>>(a);
-  if ((rc = (int)cudaGetLastError())) return rc;
-  spread_pairs_kernel<<<a.TT, THREADS, table_bytes, stream>>>(a);
-  if ((rc = (int)cudaGetLastError())) return rc;
-  spread_merge_kernel<<<a.TT, THREADS, term_bytes, stream>>>(a);
-  if ((rc = (int)cudaGetLastError())) return rc;
-  spread_score_kernel<<<a.U, THREADS, term_bytes, stream>>>(a);
-  return (int)cudaGetLastError();
+  if (a.U <= 0 || a.N <= 0) return (int)cudaGetLastError();
+  if (a.R < 1 || a.C < 1 || a.C > MAX_CLUSTER || a.V < 1 || a.TT < 0 || a.TT > 0xFFFF || a.S < 0 || a.KE < 1 ||
+      a.dense_cap < 0 || a.copies < 0 || a.gcap < 0 || (size_t)a.C * a.slice < (size_t)a.N ||
+      (size_t)a.C * a.vslice < (size_t)a.V || spread_score_smem_bytes(a) != (size_t)a.smem) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch_cluster((const void*)spread_score_cluster_kernel, a.C, THREADS, (size_t)a.smem, a, stream,
+                        (a.U + a.R - 1) / a.R);
 }
 
 // ---------------------------------------------------------------------------

@@ -86,19 +86,68 @@ def _check_term_kinds(term_kinds) -> frozenset:
     return frozenset(term_kinds)
 
 
+def _filter_parts(cfg: SolveConfig, kinds: frozenset) -> tuple:
+    """The inter-pod filter's parts a batch runs: under
+    MatchInterPodAffinity, those whose term kinds it holds."""
+    if not (cfg.predicates is None or "MatchInterPodAffinity" in cfg.predicates):
+        return ()
+    return tuple(p for p, k in (("existing", "et_anti"), ("aff", "aff_req"), ("anti", "anti_req")) if k in kinds)
+
+
+def _score_parts(cfg: SolveConfig, kinds: frozenset) -> tuple:
+    """The inter-pod score's parts a batch runs: under a non-zero
+    InterPodAffinityPriority weight, those whose term kinds it holds."""
+    if not cfg.priority_weight("InterPodAffinityPriority", 1):
+        return ()
+    return tuple(p for p, k in (("pref", "pref"), ("existing", "et_score")) if k in kinds)
+
+
+def match_plan(
+    pa: Arrays, cfg: SolveConfig, kinds: frozenset, *, ea: Optional[Arrays], ta: Optional[Arrays],
+    xa: Optional[Arrays], score: bool = True, track_inbatch: bool = False,
+) -> Dict[str, torch.Tensor]:
+    """Every distinct raw term-match matrix a batch's consumers read, all
+    from ONE match launch (`topology.match_terms_multi`; none where no
+    consumer reads one):
+      m_sig [TT, S]  batch terms x signatures, with namespaces: the inter-pod
+                     filter's "aff" / "anti", the inter-pod score's "pref",
+                     SelectorSpread (`score`)
+      m_pt  [PT, U]  patterns x spec rows, with namespaces: the inter-pod
+                     filter's and score's "existing"
+      m_bb  [TT, U]  batch terms x spec rows, with namespaces: the solve's
+                     in-batch tracking and the arbiter's `m_raw`
+    The spread programs match inside their own launches. Each consumer
+    applies its own validity and kind masks to the raw matrix (on CPU
+    tensors the plain versions read the same matrices)."""
+    fparts = set(_filter_parts(cfg, kinds))
+    sparts = set(_score_parts(cfg, kinds)) if score else set()
+    sel_spread = score and bool(cfg.priority_weight("SelectorSpreadPriority", 1)) and "sel_spread" in kinds
+    want = {}
+    if fparts & {"aff", "anti"} or "pref" in sparts or sel_spread:
+        want["m_sig"] = (ta, ea["label_vals"], ea["ns_id"])
+    if "existing" in fparts | sparts:
+        want["m_pt"] = (xa, pa["label_vals"], pa["ns_id"])
+    if track_inbatch:
+        want["m_bb"] = (ta, pa["label_vals"], pa["ns_id"])
+    if not want:
+        return {}
+    return dict(zip(want, T.match_terms_multi(list(want.values()))))
+
+
 def _mask(
     na: Arrays, pa: Arrays, ids, cfg: SolveConfig, kinds: frozenset, with_selector: bool, *,
     ea: Optional[Arrays], ta: Optional[Arrays], au: Optional[Arrays], xa: Optional[Arrays],
-    n_buckets: Optional[int], arbiter_inputs: Optional[Dict], plain: bool = False,
+    n_buckets: Optional[int], arbiter_inputs: Optional[Dict], matches: Dict[str, torch.Tensor],
+    plain: bool = False,
 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
     """The Filter half that `mask_and_score` and `filter_mask` share, so the
     gating cannot diverge: the enabled non-topology predicates
     (`combined_mask`), the DoNotSchedule spread filter under the
     EvenPodsSpread predicate, the inter-pod filter's parts under
-    MatchInterPodAffinity. Returns (mask, the raw node-selector output when
-    the spread filter ran or `with_selector` asks for it, else None).
-    `plain` calls the kernels' plain versions whatever the device
-    (`filter_mask_plain`)."""
+    MatchInterPodAffinity (reading the batch's `matches`, see match_plan).
+    Returns (mask, the raw node-selector output when the spread filter ran
+    or `with_selector` asks for it, else None). `plain` calls the kernels'
+    plain versions whatever the device (`filter_mask_plain`)."""
     preds = cfg.predicates
     hard = (preds is None or "EvenPodsSpread" in preds) and "spread_hard" in kinds
     sel = None
@@ -118,12 +167,11 @@ def _mask(
         mask = mask & ok
         if arbiter_inputs is not None:
             arbiter_inputs["spread_tables"] = tables
-    if preds is None or "MatchInterPodAffinity" in preds:
-        parts = tuple(p for p, k in (("existing", "et_anti"), ("aff", "aff_req"), ("anti", "anti_req"))
-                      if k in kinds)
-        if parts:
-            interpod_filter = T.interpod_filter_plain if plain else T.interpod_filter
-            mask = mask & interpod_filter(na, ea, ta, au, xa, pa, parts=parts, n_buckets=n_buckets)
+    parts = _filter_parts(cfg, kinds)
+    if parts:
+        interpod_filter = T.interpod_filter_plain if plain else T.interpod_filter
+        mask = mask & interpod_filter(na, ea, ta, au, xa, pa, parts=parts, n_buckets=n_buckets,
+                                      m_pt=matches.get("m_pt"), m_sig=matches.get("m_sig"))
     return mask, sel
 
 
@@ -132,6 +180,7 @@ def mask_and_score(
     term_kinds: Optional[frozenset] = frozenset(), *,
     ea: Optional[Arrays] = None, ta: Optional[Arrays] = None, au: Optional[Arrays] = None,
     xa: Optional[Arrays] = None, n_buckets: Optional[int] = None, arbiter_inputs: Optional[Dict] = None,
+    matches: Optional[Dict[str, torch.Tensor]] = None,
 ) -> Tuple[torch.Tensor, torch.Tensor]:
     """The Filter+Score stage. `ea` (SigBank tensors), `ta` (batch TermBank
     tensors), `au` (compile_batch_terms aux), `xa` (PatternBank tensors)
@@ -142,30 +191,35 @@ def mask_and_score(
     Without "sel_spread" the SelectorSpread priority still adds its
     term-absent constant: a pod with no controller selectors scores
     MaxNodeScore on every node (selector_spreading.go), so the score kernel
-    carries `w * 10`. A dict passed as `arbiter_inputs` receives the raw
-    selector ("sel") and the DoNotSchedule tables ("spread_tables") where
-    this stage computed them."""
+    carries `w * 10`. The term matches the stage reads come from `matches`
+    (the batch's match_plan; computed here, in one launch, when None). A
+    dict passed as `arbiter_inputs` receives the raw selector ("sel") and
+    the DoNotSchedule tables ("spread_tables") where this stage computed
+    them."""
     kinds = _check_term_kinds(term_kinds)
     cfg = config or DEFAULT_SOLVE_CONFIG
+    if matches is None:
+        matches = match_plan(pa, cfg, kinds, ea=ea, ta=ta, xa=xa)
     w_spread = cfg.priority_weight("EvenPodsSpreadPriority", 1)
     w_sel = cfg.priority_weight("SelectorSpreadPriority", 1)
     spread = bool(w_spread) and "spread_soft" in kinds
     sel_spread = bool(w_sel) and "sel_spread" in kinds
     mask, sel = _mask(na, pa, ids, cfg, kinds, spread, ea=ea, ta=ta, au=au, xa=xa, n_buckets=n_buckets,
-                      arbiter_inputs=arbiter_inputs)
+                      arbiter_inputs=arbiter_inputs, matches=matches)
     if sel is not None and arbiter_inputs is not None:
         arbiter_inputs["sel"] = sel
     bias = 0 if sel_spread else w_sel * S.MAX_NODE_SCORE
     score = S.score_matrix(na, pa, priorities=cfg.priorities, rtcr=cfg.rtcr, bias=bias)
     w_ipa = cfg.priority_weight("InterPodAffinityPriority", 1)
-    if w_ipa:
-        parts = tuple(p for p, k in (("pref", "pref"), ("existing", "et_score")) if k in kinds)
-        if parts:
-            score = score + w_ipa * T.interpod_score(na, ea, ta, xa, pa, parts=parts, n_buckets=n_buckets)
+    parts = _score_parts(cfg, kinds)
+    if parts:
+        score = score + w_ipa * T.interpod_score(na, ea, ta, xa, pa, parts=parts, n_buckets=n_buckets,
+                                                 m_pt=matches.get("m_pt"), m_sig=matches.get("m_sig"))
     if spread:
         score = score + w_spread * T.spread_score(na, ea, ta, au, sel, n_buckets=n_buckets)
     if sel_spread:
-        score = score + w_sel * T.selector_spread_score(na, ea, ta, au, n_buckets=n_buckets)
+        score = score + w_sel * T.selector_spread_score(na, ea, ta, au, n_buckets=n_buckets,
+                                                        m_sig=matches.get("m_sig"))
     return mask, score
 
 
@@ -177,14 +231,17 @@ def filter_mask(
 ) -> torch.Tensor:
     """The Filter-only entry point (ref :131; the extender's /filter
     route): `mask_and_score`'s mask through the same `_mask`, launching no
-    score, spread-score or inter-pod-score kernel. Its kernels are
+    score, spread-score or inter-pod-score kernel (its term matches: one
+    launch of the match plan, score=False). Its kernels are
     csrc/filters.cu, and csrc/topology.cu's spread filter and
     csrc/interpod.cu's filter where the term kinds ask for them (their
     plain versions on CPU tensors); calls are counted in
     `filter_mask.launches`."""
     kinds = _check_term_kinds(term_kinds)
-    mask, _ = _mask(na, pa, ids, config or DEFAULT_SOLVE_CONFIG, kinds, False, ea=ea, ta=ta, au=au, xa=xa,
-                    n_buckets=n_buckets, arbiter_inputs=None)
+    cfg = config or DEFAULT_SOLVE_CONFIG
+    matches = match_plan(pa, cfg, kinds, ea=ea, ta=ta, xa=xa, score=False)
+    mask, _ = _mask(na, pa, ids, cfg, kinds, False, ea=ea, ta=ta, au=au, xa=xa, n_buckets=n_buckets,
+                    arbiter_inputs=None, matches=matches)
     if na["valid"].device.type == "cuda":
         filter_mask.launches += 1
     return mask
@@ -202,7 +259,7 @@ def filter_mask_plain(
     """`filter_mask` through the plain versions of its kernels, on any
     device (what the kernels are held against on the card)."""
     mask, _ = _mask(na, pa, ids, config or DEFAULT_SOLVE_CONFIG, _check_term_kinds(term_kinds), False, ea=ea,
-                    ta=ta, au=au, xa=xa, n_buckets=n_buckets, arbiter_inputs=None, plain=True)
+                    ta=ta, au=au, xa=xa, n_buckets=n_buckets, arbiter_inputs=None, matches={}, plain=True)
     return mask
 
 
@@ -220,18 +277,20 @@ def apply_carry(na: Arrays, carry: Optional[Tuple]) -> Arrays:
     }
 
 
-def _inbatch_tensors(na: Arrays, pa: Arrays, ta: Arrays, ids, n_buckets: Optional[int]) -> Dict:
+def _inbatch_tensors(na: Arrays, pa: Arrays, ta: Arrays, ids, n_buckets: Optional[int],
+                     m_bb: Optional[torch.Tensor] = None) -> Dict:
     """solve_greedy's `inb` dict: what lets the solver serialize required
     anti-affinity and host-port conflicts WITHIN the batch. m_bb [TT, U]
-    (each term against the spec rows' labels and namespaces) comes from the
-    match_terms kernel and the pairwise port-conflict table [U, U] from the
+    (each term against the spec rows' labels and namespaces) is the batch's
+    match plan's, or comes from a match_terms launch when not given, and the
+    pairwise port-conflict table [U, U] from the
     inbatch_port_conflict kernel; the solver reads each node's bucket at a
     term's key from the node bank's dense labels (`label_dense`,
     `topo_slot`), so no [TT, N] bucket table is built."""
     return {
         "anti": ta["valid"] & (ta["kind"] == ANTI_REQ),
         "owner": ta["owner"],
-        "m_bb": T.match_terms(ta, pa["label_vals"], pa["ns_id"]),
+        "m_bb": T.match_terms(ta, pa["label_vals"], pa["ns_id"]) if m_bb is None else m_bb,
         "topo_slot": ta["topo_slot"],
         "label_dense": na["label_dense"],
         "port_conflict": F.inbatch_port_conflict(pa, ids),
@@ -250,11 +309,14 @@ def solve_inputs(
     order and the per-pod axis. Returns (the solve's keyword arguments
     but key / deterministic / return_carry / inb, the [U, N] score, the
     in-batch tracking dict or None)."""
-    _check_term_kinds(term_kinds)
+    kinds = _check_term_kinds(term_kinds)
     na = apply_carry(na, carry)
+    # the batch's term matches: every consumer's raw matrix from one launch
+    matches = match_plan(pa, config or DEFAULT_SOLVE_CONFIG, kinds, ea=ea, ta=ta, xa=xa,
+                         track_inbatch=track_inbatch)
     mask, score = mask_and_score(
         na, pa, ids, config, term_kinds, ea=ea, ta=ta, au=au, xa=xa, n_buckets=n_buckets,
-        arbiter_inputs=arbiter_inputs,
+        arbiter_inputs=arbiter_inputs, matches=matches,
     )
     free0 = na["alloc"] - na["requested"]
     if pb is None:
@@ -263,7 +325,7 @@ def solve_inputs(
         sig, pvalid, prio = pb["sig"], pb["valid"], pb["priority"]
     b = pvalid.shape[0]
     order = pop_order(prio, torch.arange(b, dtype=torch.int32, device=pvalid.device), pvalid)
-    inb = _inbatch_tensors(na, pa, ta, ids, n_buckets) if track_inbatch else None
+    inb = _inbatch_tensors(na, pa, ta, ids, n_buckets, matches.get("m_bb")) if track_inbatch else None
     if inb is not None and arbiter_inputs is not None:
         arbiter_inputs.update(m_raw=inb["m_bb"], pconf=inb["port_conflict"])
     kw = dict(

@@ -37,7 +37,7 @@ arbiter replays the skew predicate on it with the batch's commits added.
 from __future__ import annotations
 
 import ctypes
-from typing import Dict, Optional
+from typing import Dict, Optional, Sequence, Tuple
 
 import torch
 
@@ -280,17 +280,19 @@ def spread_score_plain(
 
 def selector_spread_score_plain(
     nodes: Arrays, eps: Arrays, terms: Arrays, aux: Arrays, n_buckets: Optional[int] = None,
+    m_sig: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """CalculateSpreadPriorityMap/Reduce: count same-namespace,
     non-deleting pods matching ALL of the pod's controller selectors; blend
     1/3 node level + 2/3 zone level in float64, fewer is better; truncate.
-    [U, N] int64."""
+    [U, N] int64. `m_sig`: the raw match_terms(terms, signature labels,
+    signature namespaces), computed here when None."""
     b = aux["n_sel_spread"].shape[0]
     n = nodes["valid"].shape[0]
     v = n_buckets or n
     ss = terms["valid"] & (terms["kind"] == SEL_SPREAD)
     owner = terms["owner"]
-    m_sig = match_terms_plain(terms, eps["label_vals"], eps["ns_id"])  # ns compiled = pod ns
+    m_sig = _term_matches(terms, eps, m_sig)  # ns compiled = pod ns
     # AND across the pod's selectors, at the signature level
     matchall = _matchall_rows(m_sig, owner, ss, b)
     matchall = matchall & eps["valid"][None, :] & ~eps["deleting"][None, :]
@@ -328,6 +330,18 @@ def selector_spread_score_plain(
     return blended.to(torch.int64)
 
 
+def _term_matches(terms: Arrays, eps: Arrays, m_sig: Optional[torch.Tensor]) -> torch.Tensor:
+    """The raw batch terms x signatures match [TT, S] with the namespace
+    test: `m_sig` where given (a batch's match plan), else computed."""
+    return match_terms_plain(terms, eps["label_vals"], eps["ns_id"]) if m_sig is None else m_sig
+
+
+def _pattern_matches(ex_terms: Arrays, pods: Arrays, m_pt: Optional[torch.Tensor]) -> torch.Tensor:
+    """The raw patterns x spec rows match [PT, U] with the namespace test:
+    `m_pt` where given, else computed."""
+    return match_terms_plain(ex_terms, pods["label_vals"], pods["ns_id"]) if m_pt is None else m_pt
+
+
 FILTER_PARTS = ("existing", "aff", "anti")
 SCORE_PARTS = ("pref", "existing")
 
@@ -335,6 +349,7 @@ SCORE_PARTS = ("pref", "existing")
 def interpod_filter_plain(
     nodes: Arrays, eps: Arrays, terms: Arrays, aux: Arrays, ex_terms: Arrays, pods: Arrays,
     parts: tuple = FILTER_PARTS, n_buckets: Optional[int] = None,
+    m_pt: Optional[torch.Tensor] = None, m_sig: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """InterPodAffinityMatches (predicates.go:1269), metadata path, [U, N]:
       "existing"  existing pods' required anti-affinity (PatternBank)
@@ -344,7 +359,8 @@ def interpod_filter_plain(
                   terms (first-pod-in-series escape when none exists);
       "anti"      the pod's required anti-affinity: a node sharing a
                   topology value with a matching existing pod fails.
-    A part left out contributes its term-absent identity (pass)."""
+    A part left out contributes its term-absent identity (pass). `m_pt` /
+    `m_sig`: the raw matches (_pattern_matches, _term_matches)."""
     b = pods["valid"].shape[0]
     n = nodes["valid"].shape[0]
     v = n_buckets or n
@@ -352,7 +368,7 @@ def interpod_filter_plain(
 
     if "existing" in parts:
         ex_anti = ex_terms["valid"] & (ex_terms["kind"] == ANTI_REQ)
-        m_pt = match_terms_plain(ex_terms, pods["label_vals"], pods["ns_id"]) & ex_anti[:, None]  # [PT, U]
+        m_pt = _pattern_matches(ex_terms, pods, m_pt) & ex_anti[:, None]  # [PT, U]
         bucket_n, haskey_n = _bucket_of(nodes, ex_terms["topo_slot"])  # [PT, N]
         hosted = torch.where(haskey_n, ex_terms["counts"].T.to(torch.int32), 0)
         present = _seg_sum(hosted, bucket_n, v) > 0  # [PT, V]
@@ -365,7 +381,7 @@ def interpod_filter_plain(
         aff = terms["valid"] & (terms["kind"] == AFF_REQ)
         anti = terms["valid"] & (terms["kind"] == ANTI_REQ)
         owner = terms["owner"]
-        m_sig = match_terms_plain(terms, eps["label_vals"], eps["ns_id"]) & eps["valid"][None, :]  # [TT, S]
+        m_sig = _term_matches(terms, eps, m_sig) & eps["valid"][None, :]  # [TT, S]
         bucket_n2, haskey_n2 = _bucket_of(nodes, terms["topo_slot"])  # [TT, N]
 
     if "aff" in parts:
@@ -391,13 +407,15 @@ def interpod_filter_plain(
 def interpod_score_plain(
     nodes: Arrays, eps: Arrays, terms: Arrays, ex_terms: Arrays, pods: Arrays,
     parts: tuple = SCORE_PARTS, n_buckets: Optional[int] = None,
+    m_pt: Optional[torch.Tensor] = None, m_sig: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """CalculateInterPodAffinityPriority (interpod_affinity.go:99), [U, N]
     int64: weighted same-topology counts from "pref" (the pod's preferred
     terms against existing pods; ANTI_PREF weights are stored negative)
     and "existing" (existing pods' required-affinity (hard weight) and
     preferred terms against the pod), min-max normalized to [0, 10] over
-    the valid nodes with 0 clamped in."""
+    the valid nodes with 0 clamped in. `m_pt` / `m_sig`: the raw matches
+    (_pattern_matches, _term_matches)."""
     b = pods["valid"].shape[0]
     n = nodes["valid"].shape[0]
     v = n_buckets or n
@@ -406,7 +424,7 @@ def interpod_score_plain(
     if "pref" in parts:
         pref = terms["valid"] & ((terms["kind"] == AFF_PREF) | (terms["kind"] == ANTI_PREF))
         owner = terms["owner"]
-        m_sig = match_terms_plain(terms, eps["label_vals"], eps["ns_id"]) & eps["valid"][None, :] & pref[:, None]
+        m_sig = _term_matches(terms, eps, m_sig) & eps["valid"][None, :] & pref[:, None]
         bucket_n, haskey_n = _bucket_of(nodes, terms["topo_slot"])
         cnt_node = _sig_cnt_node(m_sig, eps["counts"])  # [TT, N]
         cnt = _seg_sum(torch.where(haskey_n, cnt_node, 0), bucket_n, v)  # [TT, V]
@@ -416,7 +434,7 @@ def interpod_score_plain(
     if "existing" in parts:
         kind = ex_terms["kind"]
         ex_score = ex_terms["valid"] & ((kind == AFF_REQ) | (kind == AFF_PREF) | (kind == ANTI_PREF))
-        m_pt = match_terms_plain(ex_terms, pods["label_vals"], pods["ns_id"]) & ex_score[:, None]  # [PT, U]
+        m_pt = _pattern_matches(ex_terms, pods, m_pt) & ex_score[:, None]  # [PT, U]
         bucket_ne, haskey_ne = _bucket_of(nodes, ex_terms["topo_slot"])  # [PT, N]
         hosted = torch.where(haskey_ne, ex_terms["counts"].T.to(torch.int32), 0)
         cnt_v = _seg_sum(hosted, bucket_ne, v)  # [PT, V]
@@ -460,15 +478,30 @@ _PART_BITS = {("filter", "existing"): 1, ("filter", "aff"): 2, ("filter", "anti"
               ("score", "pref"): 8, ("score", "existing"): 16}
 
 
-class MatchArgs(ctypes.Structure):
-    """Mirror of `struct MatchArgs` in csrc/topology.cu."""
+# csrc/topology.cu's match kernel: up to MATCH_PROBLEMS problems a launch,
+# tiles of MATCH_TERM_TILE terms x MATCH_XTILE subjects (fewer subjects
+# while their staged label rows would pass MATCH_LABEL_BYTES)
+MATCH_PROBLEMS = 4
+MATCH_TERM_TILE = 8
+MATCH_XTILE = 64
+MATCH_LABEL_BYTES = 48 * 1024
+
+
+class MatchProblem(ctypes.Structure):
+    """Mirror of `struct MatchProblem` in csrc/topology.cu."""
 
     _fields_ = (
         [(k, ctypes.c_void_p) for k in (
             "valid", "has_selector", "ml_slot", "ml_val", "ex_op", "ex_slot", "ex_vals",
             "ns_any", "ns_ids", "labels", "ns", "out")]
-        + [(d, ctypes.c_int32) for d in ("TT", "X", "K", "ML", "EX", "VALS", "NS")]
+        + [(d, ctypes.c_int32) for d in ("TT", "X", "K", "ML", "EX", "VALS", "NS", "xtile")]
     )
+
+
+class MatchArgs(ctypes.Structure):
+    """Mirror of `struct MatchArgs` in csrc/topology.cu."""
+
+    _fields_ = [("p", MatchProblem * MATCH_PROBLEMS), ("count", ctypes.c_int32), ("smem", ctypes.c_int32)]
 
 
 class SpreadArgs(ctypes.Structure):
@@ -476,10 +509,11 @@ class SpreadArgs(ctypes.Structure):
 
     _fields_ = (
         [(k, ctypes.c_void_p) for k in (
-            "t_valid", "t_kind", "t_owner", "t_topo_slot", "m_sig", "e_valid", "counts",
-            "n_valid", "label_dense", "sel", "member", "sig_list", "pair_cnt", "pair_present",
+            "t_valid", "t_kind", "t_owner", "t_topo_slot", "t_has_selector", "t_ml_slot", "t_ml_val", "t_ex_op",
+            "t_ex_slot", "t_ex_vals", "e_labels", "e_valid", "counts", "n_valid", "label_dense", "sel",
             "merged_cnt", "merged_present", "out")]
-        + [(d, ctypes.c_int32) for d in ("TT", "S", "N", "K", "U", "V", "table_in_shared")]
+        + [(d, ctypes.c_int32) for d in ("TT", "S", "N", "K", "KE", "ML", "EX", "VALS", "U", "V",
+                                         "R", "C", "slice", "vslice", "copies", "gcap", "dense_cap", "smem")]
     )
 
 
@@ -515,48 +549,97 @@ def _check_terms(terms: Arrays) -> int:
     return tt
 
 
-def match_args(terms: Arrays, labels: torch.Tensor, ns: Optional[torch.Tensor] = None):
-    """The match kernel's argument struct for these CUDA tensors, and the
-    [TT, X] bool output it writes. Validates device, dtype, shape and
-    contiguity (raises)."""
-    tt = terms["valid"].shape[0]
-    x, k = labels.shape
-    ml, ex, vals = terms["ml_slot"].shape[1], terms["ex_op"].shape[1], terms["ex_vals"].shape[2]
-    nsc = terms["ns_ids"].shape[1]
-    out = torch.empty((tt, x), dtype=torch.bool, device=labels.device)
+def term_row_words(ml: int, ex: int, vals: int, ns: int) -> int:
+    """The int32 words of one compacted term row in csrc/topology.cu: a
+    header, two words a test, the value pool, the namespace lanes."""
+    return 1 + 2 * (ml + ex) + ex * vals + ns
+
+
+def match_layout(k: int, ml: int, ex: int, vals: int, ns: int) -> Dict[str, int]:
+    """A match problem's CTA as csrc/topology.cu's `match_smem_bytes` counts
+    it: `xtile` subjects (MATCH_XTILE, halved while the label columns of
+    the slots a tile's tests can name [min(K, tile x (ML + EX)), xtile]
+    pass MATCH_LABEL_BYTES) and `smem` bytes (the tile's term rows as copied
+    and as compacted, the slot map [K], then the subjects). Raises on widths
+    the compacted rows cannot encode."""
+    if not 1 <= k < 1 << 24 or ml + ex > 1023 or ns > 1023 or term_row_words(ml, ex, vals, ns) >= 1 << 15:
+        raise ValueError(f"term widths ML={ml} EX={ex} VALS={vals} NS={ns} K={k} exceed the match kernel's rows")
+    cap = min(k, MATCH_TERM_TILE * (ml + ex))  # the label slots a tile's tests can name
+    xt = MATCH_XTILE
+    while xt > 1 and 4 * (cap + 1) * xt > MATCH_LABEL_BYTES:
+        xt //= 2
+    raw = MATCH_TERM_TILE * (2 * ml + 2 * ex + ex * vals + ns) + (3 * MATCH_TERM_TILE + 3) // 4
+    return {"xtile": xt, "smem": 4 * (raw + MATCH_TERM_TILE * term_row_words(ml, ex, vals, ns) + k
+                                      + cap * (xt + 1) + xt)}
+
+
+def match_args(problems: Sequence[Tuple[Arrays, torch.Tensor, Optional[torch.Tensor]]]):
+    """The match kernel's argument struct for up to MATCH_PROBLEMS (terms,
+    labels [X, K], namespaces [X] or None) problems on one CUDA device, and
+    each problem's [TT, X] bool output (an empty one is not launched).
+    Validates device, dtype, shape and contiguity (raises)."""
+    if not 1 <= len(problems) <= MATCH_PROBLEMS:
+        raise ValueError(f"{len(problems)} match problems: one launch takes 1 to {MATCH_PROBLEMS}")
     a = MatchArgs()
-    a.valid = build.ptr(terms["valid"], torch.bool, (tt,))
-    a.has_selector = build.ptr(terms["has_selector"], torch.bool, (tt,))
-    a.ml_slot = build.ptr(terms["ml_slot"], torch.int32, (tt, ml))
-    a.ml_val = build.ptr(terms["ml_val"], torch.int32, (tt, ml))
-    a.ex_op = build.ptr(terms["ex_op"], torch.int32, (tt, ex))
-    a.ex_slot = build.ptr(terms["ex_slot"], torch.int32, (tt, ex))
-    a.ex_vals = build.ptr(terms["ex_vals"], torch.int32, (tt, ex, vals))
-    a.ns_any = build.ptr(terms["ns_any"], torch.bool, (tt,))
-    a.ns_ids = build.ptr(terms["ns_ids"], torch.int32, (tt, nsc))
-    a.labels = build.ptr(labels, torch.int32)
-    a.ns = None if ns is None else build.ptr(ns, torch.int32, (x,))
-    a.out = build.ptr(out, torch.bool)
-    a.TT, a.X, a.K, a.ML, a.EX, a.VALS, a.NS = tt, x, k, ml, ex, vals, nsc
-    return a, out
+    outs, count, smem = [], 0, 0
+    for terms, labels, ns in problems:
+        tt = terms["valid"].shape[0]
+        x, k = labels.shape
+        out = torch.empty((tt, x), dtype=torch.bool, device=labels.device)
+        outs.append(out)
+        if tt == 0 or x == 0:
+            continue
+        ml, ex, vals = terms["ml_slot"].shape[1], terms["ex_op"].shape[1], terms["ex_vals"].shape[2]
+        nsc = terms["ns_ids"].shape[1]
+        lay = match_layout(k, ml, ex, vals, nsc)
+        p = a.p[count]
+        for key, dt, shape in (("valid", torch.bool, (tt,)), ("has_selector", torch.bool, (tt,)),
+                               ("ml_slot", torch.int32, (tt, ml)), ("ml_val", torch.int32, (tt, ml)),
+                               ("ex_op", torch.int32, (tt, ex)), ("ex_slot", torch.int32, (tt, ex)),
+                               ("ex_vals", torch.int32, (tt, ex, vals)), ("ns_any", torch.bool, (tt,)),
+                               ("ns_ids", torch.int32, (tt, nsc))):
+            setattr(p, key, build.ptr(terms[key], dt, shape))
+        p.labels = build.ptr(labels, torch.int32)
+        p.ns = None if ns is None else build.ptr(ns, torch.int32, (x,))
+        p.out = build.ptr(out, torch.bool)
+        p.TT, p.X, p.K, p.ML, p.EX, p.VALS, p.NS, p.xtile = tt, x, k, ml, ex, vals, nsc, lay["xtile"]
+        smem = max(smem, lay["smem"])
+        count += 1
+    a.count, a.smem = count, smem
+    return a, outs
+
+
+def match_terms_multi(problems: Sequence[Tuple[Arrays, torch.Tensor, Optional[torch.Tensor]]]):
+    """match_terms for each (terms, labels, ns) problem, as a list of
+    [TT, X] bool matrices. CPU tensors run the plain version per problem;
+    CUDA tensors launch csrc/topology.cu's match kernel ONCE for up to
+    MATCH_PROBLEMS problems (counted in `match_terms.launches`, the
+    matrices in `match_terms.problems`, a launch of two or more in
+    `match_terms.multi_launches`)."""
+    dev = problems[0][1].device
+    if dev.type == "cpu":
+        return [match_terms_plain(*p) for p in problems]
+    if dev.type == "cuda":
+        args, outs = match_args(problems)
+        if args.count:
+            build.launch(MATCH_ENTRY, args, dev)
+            match_terms.launches += 1
+            match_terms.problems += args.count
+            match_terms.multi_launches += int(args.count > 1)
+        return outs
+    raise ValueError(f"no topology kernel for device {dev}")
 
 
 def match_terms(terms: Arrays, labels: torch.Tensor, ns: Optional[torch.Tensor] = None) -> torch.Tensor:
     """[TT, X] term x subject match. CPU tensors run the plain version;
-    CUDA tensors launch csrc/topology.cu (counted in
-    `match_terms.launches`)."""
-    dev = labels.device
-    if dev.type == "cpu":
-        return match_terms_plain(terms, labels, ns)
-    if dev.type == "cuda":
-        args, out = match_args(terms, labels, ns)
-        build.launch(MATCH_ENTRY, args, dev)
-        match_terms.launches += 1
-        return out
-    raise ValueError(f"no topology kernel for device {dev}")
+    CUDA tensors launch csrc/topology.cu's match kernel with this one
+    problem (counted in `match_terms.launches` and `.problems`)."""
+    return match_terms_multi([(terms, labels, ns)])[0]
 
 
 match_terms.launches = 0
+match_terms.problems = 0
+match_terms.multi_launches = 0
 
 
 def _term_ptrs(a, terms: Arrays, tt: int, keys) -> None:
@@ -565,41 +648,119 @@ def _term_ptrs(a, terms: Arrays, tt: int, keys) -> None:
         setattr(a, "t_" + k, build.ptr(terms[k], dts[k], (tt,)))
 
 
-def spread_args(nodes: Arrays, eps: Arrays, terms: Arrays, m_sig: torch.Tensor,
-                selector_mask: torch.Tensor, n_buckets: Optional[int] = None):
-    """The spread-score kernels' argument struct (with its scratch buffers)
-    and the [U, N] int64 score they write; `m_sig` is match_terms's raw
-    output without the namespace test."""
+# csrc/topology.cu's spread score: SPREAD_SCORE_ROWS spec rows a cluster
+# (timed at 1, 4, 8, 16 and all rows at the config-3 shapes: PERF.md), as
+# many CTAs a cluster (up to 16) as keep the launch near SPREAD_SCORE_CTAS
+# (two CTAs an SM, so one CTA's waits overlap the other's work); a
+# chunk of SCORE_TW terms, a window of SCORE_SWIN signatures, a counts tile
+# of SCORE_TILE_WORDS int32 words beside the rows' selector bytes
+# (SCORE_SEL_BYTES); up to SCORE_DENSE_MAX keys of a node slice staged, in
+# at most SCORE_DENSE_BYTES
+SPREAD_SCORE_ROWS = 8
+SPREAD_SCORE_CTAS = 256
+SCORE_TW, SCORE_SWIN, SCORE_TILE_WORDS, SCORE_SEL_BYTES = 16, 256, 4096, 8192
+SCORE_DENSE_MAX = 8
+SCORE_DENSE_BYTES = 8 * 1024
+SCORE_GROUPS_A_ROW = 4
+SCORE_GROUPS_MIN = 32
+SCORE_FTAB_BYTES = 16384  # one-key rows' scores by bucket, R x V int64, where they fit
+
+
+def spread_score_layout(tt: int, n: int, v: int, u: int, ml: int, ex: int, vals: int,
+                        rows: Optional[int] = None, cluster: Optional[int] = None,
+                        gcap: Optional[int] = None) -> Dict[str, int]:
+    """The spread score's launch for TT terms (selector widths ML, EX,
+    VALS), N nodes, V buckets and U spec rows, as csrc/topology.cu's
+    `spread_score_smem_bytes` counts it: `R` spec rows a cluster of `C`
+    CTAs, each owning `slice` nodes and `vslice` buckets; `copies` per-warp
+    copies of the [gcap, V] tables in shared memory (0: the tables live in
+    device memory, the counted path), `gcap` the groups (one a spec row and
+    topology key) they hold — SCORE_GROUPS_A_ROW a row, at least
+    SCORE_GROUPS_MIN, at most TT; a cluster whose rows hold more takes the
+    device tables —, `dense_cap` keys of the node slice staged, and `smem`
+    bytes. `rows`, `cluster` and `gcap` override R, C and gcap (for
+    measuring and testing)."""
+    if not 1 <= v < 2**31 or tt > 0xFFFF:
+        raise ValueError(f"V = {v}, TT = {tt}: the spread score takes 1 <= V < 2^31 and TT <= 65,535")
+    r = max(1, min(int(rows or SPREAD_SCORE_ROWS), max(u, 1)))
+    clusters = -(-max(u, 1) // r)
+    if cluster is None:
+        c = 1
+        while 2 * c <= build.MAX_CLUSTER and clusters * 2 * c <= SPREAD_SCORE_CTAS:
+            c *= 2
+    else:
+        c = int(cluster)
+    if not 1 <= c <= build.MAX_CLUSTER:
+        raise ValueError(f"{c} CTAs a cluster: the spread score takes 1 to {build.MAX_CLUSTER}")
+    sl, vs = -(-n // c), -(-v // c)
+    words0 = (9 * r + (2 * r * v if r * v * 8 <= SCORE_FTAB_BYTES else 0) + 11 * tt + r + 1
+              + SCORE_TW * term_row_words(ml, ex, vals, 0) + SCORE_TW * SCORE_SWIN + 2 * SCORE_SWIN
+              + SCORE_TILE_WORDS + sl)
+
+    gcap = min(tt, max(SCORE_GROUPS_MIN, SCORE_GROUPS_A_ROW * r)) if gcap is None else int(gcap)
+
+    def smem(copies: int, dcap: int) -> int:
+        words, nbytes = words0 + dcap * sl, SCORE_SEL_BYTES
+        if copies:
+            cells = gcap * v
+            words += copies * cells + gcap * vs + cells + 2 * cells + gcap * vs
+            nbytes += 3 * cells + gcap * vs
+        return 4 * words + ((nbytes + 15) & ~15)
+
+    copies = 0
+    for p in (_WARPS, 4, 2, 1):
+        if (p == 1 or p * gcap * v <= SPREAD_COPY_CELLS) and smem(p, 0) <= SPREAD_SMEM:
+            copies = p
+            break
+    if smem(copies, 0) > SPREAD_SMEM:
+        raise ValueError(f"{tt} terms and {r} spec rows a cluster exceed the spread score's shared memory")
+    dcap = min(SCORE_DENSE_MAX, SCORE_DENSE_BYTES // (4 * sl), (SPREAD_SMEM - smem(copies, 0)) // (4 * sl))
+    return {"R": r, "C": c, "slice": sl, "vslice": vs, "copies": copies, "gcap": gcap, "dense_cap": dcap,
+            "smem": smem(copies, dcap)}
+
+
+def spread_args(nodes: Arrays, eps: Arrays, terms: Arrays, selector_mask: torch.Tensor,
+                n_buckets: Optional[int] = None, rows: Optional[int] = None, cluster: Optional[int] = None,
+                gcap: Optional[int] = None):
+    """The spread score's argument struct for these CUDA tensors (with its
+    device-memory tables) and the [U, N] int64 score its one launch
+    writes. `rows`, `cluster` and `gcap` override the
+    spec rows and CTAs a cluster and the groups its shared tables hold (for
+    measuring and testing)."""
     tt = _check_terms(terms)
     u, n = selector_mask.shape
-    s = eps["valid"].shape[0]
+    s, ke = eps["label_vals"].shape
     k = nodes["label_dense"].shape[1]
     v = int(n_buckets or n)
+    ml, ex, vals = terms["ml_slot"].shape[1], terms["ex_op"].shape[1], terms["ex_vals"].shape[2]
+    lay = spread_score_layout(tt, n, v, u, ml, ex, vals, rows, cluster, gcap)
     dev = selector_mask.device
-    in_shared = 2 * v * 4 <= SHARED_TABLE_BYTES
-    scratch = dict(
-        member=torch.empty((u, n), dtype=torch.bool, device=dev),
-        sig_list=torch.empty((tt, s), dtype=torch.int32, device=dev),
-        pair_cnt=torch.empty((tt, v), dtype=torch.int32, device=dev),
-        pair_present=torch.empty((tt, v), dtype=torch.int32, device=dev),
-        merged_cnt=torch.empty((tt, v), dtype=torch.int32, device=dev),
-        merged_present=torch.empty((tt, v), dtype=torch.bool, device=dev),
-    )
+    # the device tables: the layout's, or a cluster's whose rows hold more
+    # groups than its shared tables
+    tables = {
+        "merged_cnt": torch.empty((tt, v), dtype=torch.int32, device=dev),
+        "merged_present": torch.empty((tt, v), dtype=torch.bool, device=dev),
+    }
     out = torch.empty((u, n), dtype=torch.int64, device=dev)
     a = SpreadArgs()
     _term_ptrs(a, terms, tt, ("valid", "kind", "owner", "topo_slot"))
-    a.m_sig = build.ptr(m_sig, torch.bool, (tt, s))
+    for key, dt, shape in (("has_selector", torch.bool, (tt,)), ("ml_slot", torch.int32, (tt, ml)),
+                           ("ml_val", torch.int32, (tt, ml)), ("ex_op", torch.int32, (tt, ex)),
+                           ("ex_slot", torch.int32, (tt, ex)), ("ex_vals", torch.int32, (tt, ex, vals))):
+        setattr(a, "t_" + key, build.ptr(terms[key], dt, shape))
+    a.e_labels = build.ptr(eps["label_vals"], torch.int32, (s, ke))
     a.e_valid = build.ptr(eps["valid"], torch.bool, (s,))
     a.counts = build.ptr(eps["counts"], torch.int16, (n, s))
     a.n_valid = build.ptr(nodes["valid"], torch.bool, (n,))
     a.label_dense = build.ptr(nodes["label_dense"], torch.int32, (n, k))
     a.sel = build.ptr(selector_mask, torch.bool, (u, n))
-    for name, t in scratch.items():
+    for name, t in tables.items():
         setattr(a, name, build.ptr(t, t.dtype))
     a.out = build.ptr(out, torch.int64)
-    a.TT, a.S, a.N, a.K, a.U, a.V = tt, s, n, k, u, v
-    a.table_in_shared = int(in_shared)
-    a.keepalive = scratch
+    a.TT, a.S, a.N, a.K, a.KE, a.ML, a.EX, a.VALS, a.U, a.V = tt, s, n, k, ke, ml, ex, vals, u, v
+    for key, val in lay.items():
+        setattr(a, key, val)
+    a.keepalive = tables
     return a, out
 
 
@@ -734,23 +895,26 @@ def spread_score(
     n_buckets: Optional[int] = None,
 ) -> torch.Tensor:
     """The [U, N] int64 EvenPodsSpread (ScheduleAnyway) score. CPU tensors
-    run the plain version; CUDA tensors launch the match kernel and then
-    csrc/topology.cu's spread kernel (counted in `spread_score.launches`).
-    `selector_mask` is the RAW PodMatchNodeSelector matrix (not masked by
-    node or pod validity)."""
+    run the plain version; CUDA tensors launch csrc/topology.cu's spread
+    score once — the term matches against the signatures are computed
+    inside it (counted in `spread_score.launches`; a launch whose bucket
+    tables live in device memory also in
+    `spread_score.device_table_launches`). `selector_mask` is the RAW
+    PodMatchNodeSelector matrix (not masked by node or pod validity)."""
     dev = selector_mask.device
     if dev.type == "cpu":
         return spread_score_plain(nodes, eps, terms, aux, selector_mask, n_buckets)
     if dev.type == "cuda":
-        m_sig = match_terms(terms, eps["label_vals"], None)
-        args, out = spread_args(nodes, eps, terms, m_sig, selector_mask, n_buckets)
+        args, out = spread_args(nodes, eps, terms, selector_mask, n_buckets)
         build.launch(SPREAD_ENTRY, args, dev)
         spread_score.launches += 1
+        spread_score.device_table_launches += int(args.copies == 0)
         return out
     raise ValueError(f"no topology kernel for device {dev}")
 
 
 spread_score.launches = 0
+spread_score.device_table_launches = 0
 
 
 def selector_spread_args(nodes: Arrays, eps: Arrays, terms: Arrays, aux: Arrays, m_sig: torch.Tensor,
@@ -790,16 +954,19 @@ def selector_spread_args(nodes: Arrays, eps: Arrays, terms: Arrays, aux: Arrays,
 
 def selector_spread_score(
     nodes: Arrays, eps: Arrays, terms: Arrays, aux: Arrays, n_buckets: Optional[int] = None,
+    m_sig: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The [U, N] int64 SelectorSpread score. CPU tensors run the plain
     version; CUDA tensors launch the match kernel (with the namespace test)
-    and then csrc/topology.cu's selector-spread kernel (counted in
-    `selector_spread_score.launches`)."""
+    unless `m_sig` — that raw [TT, S] match, from the batch's match plan —
+    is given, and then csrc/topology.cu's selector-spread kernel (counted
+    in `selector_spread_score.launches`)."""
     dev = nodes["valid"].device
     if dev.type == "cpu":
-        return selector_spread_score_plain(nodes, eps, terms, aux, n_buckets)
+        return selector_spread_score_plain(nodes, eps, terms, aux, n_buckets, m_sig)
     if dev.type == "cuda":
-        m_sig = match_terms(terms, eps["label_vals"], eps["ns_id"])
+        if m_sig is None:
+            m_sig = match_terms(terms, eps["label_vals"], eps["ns_id"])
         args, out = selector_spread_args(nodes, eps, terms, aux, m_sig, n_buckets)
         build.launch(SEL_SPREAD_ENTRY, args, dev)
         selector_spread_score.launches += 1
@@ -882,18 +1049,20 @@ def interpod_args(which: str, nodes: Arrays, eps: Arrays, terms: Arrays, ex_term
 def interpod_filter(
     nodes: Arrays, eps: Arrays, terms: Arrays, aux: Arrays, ex_terms: Arrays, pods: Arrays,
     parts: tuple = FILTER_PARTS, n_buckets: Optional[int] = None,
+    m_pt: Optional[torch.Tensor] = None, m_sig: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The [U, N] bool InterPodAffinityMatches mask over `parts`. CPU
-    tensors run the plain version; CUDA tensors launch the match kernel
-    (patterns x spec rows for "existing", terms x signatures for "aff" /
-    "anti") and then csrc/interpod.cu's filter entry (counted in
-    `interpod_filter.launches`)."""
+    tensors run the plain version; CUDA tensors launch the match kernel once
+    for what the parts read and was not given (patterns x spec rows `m_pt`
+    for "existing", terms x signatures `m_sig` for "aff" / "anti": the raw
+    matrices of the batch's match plan) and then csrc/interpod.cu's filter
+    entry (counted in `interpod_filter.launches`)."""
     dev = nodes["valid"].device
     if dev.type == "cpu":
-        return interpod_filter_plain(nodes, eps, terms, aux, ex_terms, pods, parts, n_buckets)
+        return interpod_filter_plain(nodes, eps, terms, aux, ex_terms, pods, parts, n_buckets, m_pt, m_sig)
     if dev.type == "cuda":
         m_pt, m_sig = _interpod_matches(eps, terms, ex_terms, pods, "existing" in parts,
-                                        "aff" in parts or "anti" in parts)
+                                        "aff" in parts or "anti" in parts, m_pt, m_sig)
         args, out = interpod_args("filter", nodes, eps, terms, ex_terms, pods, m_pt, m_sig, parts, aux, n_buckets)
         build.launch(INTERPOD_FILTER_ENTRY, args, dev)
         interpod_filter.launches += 1
@@ -907,17 +1076,18 @@ interpod_filter.launches = 0
 def interpod_score(
     nodes: Arrays, eps: Arrays, terms: Arrays, ex_terms: Arrays, pods: Arrays,
     parts: tuple = SCORE_PARTS, n_buckets: Optional[int] = None,
+    m_pt: Optional[torch.Tensor] = None, m_sig: Optional[torch.Tensor] = None,
 ) -> torch.Tensor:
     """The [U, N] int64 inter-pod affinity priority over `parts`. CPU
-    tensors run the plain version; CUDA tensors launch the match kernel
-    (terms x signatures for "pref", patterns x spec rows for "existing")
-    and then csrc/interpod.cu's score entry (counted in
-    `interpod_score.launches`)."""
+    tensors run the plain version; CUDA tensors launch the match kernel once
+    for what the parts read and was not given (terms x signatures `m_sig`
+    for "pref", patterns x spec rows `m_pt` for "existing") and then
+    csrc/interpod.cu's score entry (counted in `interpod_score.launches`)."""
     dev = nodes["valid"].device
     if dev.type == "cpu":
-        return interpod_score_plain(nodes, eps, terms, ex_terms, pods, parts, n_buckets)
+        return interpod_score_plain(nodes, eps, terms, ex_terms, pods, parts, n_buckets, m_pt, m_sig)
     if dev.type == "cuda":
-        m_pt, m_sig = _interpod_matches(eps, terms, ex_terms, pods, "existing" in parts, "pref" in parts)
+        m_pt, m_sig = _interpod_matches(eps, terms, ex_terms, pods, "existing" in parts, "pref" in parts, m_pt, m_sig)
         args, out = interpod_args("score", nodes, eps, terms, ex_terms, pods, m_pt, m_sig, parts, None, n_buckets)
         build.launch(INTERPOD_SCORE_ENTRY, args, dev)
         interpod_score.launches += 1
@@ -929,16 +1099,24 @@ interpod_score.launches = 0
 
 
 def _interpod_matches(eps: Arrays, terms: Arrays, ex_terms: Arrays, pods: Arrays, patterns: bool,
-                      batch_terms: bool):
-    """The match_terms launches the inter-pod kernels read: patterns x spec
-    rows [PT, U] and batch terms x signatures [TT, S], both with the
-    namespace test; a side the parts do not read is an unread
-    placeholder of its shape."""
+                      batch_terms: bool, m_pt: Optional[torch.Tensor], m_sig: Optional[torch.Tensor]):
+    """The matches the inter-pod kernels read: patterns x spec rows [PT, U]
+    and batch terms x signatures [TT, S], both with the namespace test; the
+    ones needed and not given come from one match launch, a side the parts
+    do not read is an unread placeholder of its shape."""
     dev = pods["valid"].device
     pt, u = ex_terms["valid"].shape[0], pods["valid"].shape[0]
     tt, s = terms["valid"].shape[0], eps["valid"].shape[0]
-    m_pt = match_terms(ex_terms, pods["label_vals"], pods["ns_id"]) if patterns else \
-        torch.zeros((pt, u), dtype=torch.bool, device=dev)
-    m_sig = match_terms(terms, eps["label_vals"], eps["ns_id"]) if batch_terms else \
-        torch.zeros((tt, s), dtype=torch.bool, device=dev)
+    want = {}
+    if patterns and m_pt is None:
+        want["m_pt"] = (ex_terms, pods["label_vals"], pods["ns_id"])
+    if batch_terms and m_sig is None:
+        want["m_sig"] = (terms, eps["label_vals"], eps["ns_id"])
+    got = dict(zip(want, match_terms_multi(list(want.values())))) if want else {}
+    m_pt = got.get("m_pt", m_pt)
+    m_sig = got.get("m_sig", m_sig)
+    if m_pt is None:
+        m_pt = torch.zeros((pt, u), dtype=torch.bool, device=dev)
+    if m_sig is None:
+        m_sig = torch.zeros((tt, s), dtype=torch.bool, device=dev)
     return m_pt, m_sig

@@ -1,8 +1,9 @@
 """The port's inter-pod programs against `kubernetes_tpu.ops.topology` /
 `kubernetes_tpu.ops.pipeline` on the same seeded encodings:
 `interpod_filter` for every non-empty subset of its parts ("existing",
-"aff", "anti"), `interpod_score` for each part and both, `_scatter_or` and
-`_inbatch_tensors` — on the interpod random cluster (zone, hostname and
+"aff", "anti"), `interpod_score` for each part and both, `_scatter_or`,
+`_inbatch_tensors` and the batch's match plan (`match_plan`: the raw
+matrices it names, and each consumer given them) — on the interpod random cluster (zone, hostname and
 rack keys: V = 128 > 64 takes the reference's segment_sum branch, V = 16
 drops buckets; nil / empty / every-operator selectors; namespaces; the
 first-pod affinity escape; negative ANTI_PREF weights; host ports with
@@ -160,6 +161,54 @@ def test_inbatch_tensors_match_reference(seed, n_buckets):
     same(r["bucket_n"], bucket)
     same(r["haskey_n"], haskey)
     assert p["n_buckets"] == np.asarray(r["ca0"]).shape[1]
+
+
+PLAN_CASES = [
+    ("config-3", frozenset({"spread_soft"}), False, set()),
+    ("config-3-services", frozenset({"spread_soft", "sel_spread"}), False, {"m_sig"}),
+    ("config-3-hard", frozenset({"spread_hard"}), False, set()),
+    ("existing-anti", frozenset({"et_anti"}), False, {"m_pt"}),
+    ("config-4", frozenset({"anti_req", "pref", "et_anti", "et_score"}), True, {"m_sig", "m_pt", "m_bb"}),
+]
+
+
+@pytest.mark.parametrize("kinds,track,want", [c[1:] for c in PLAN_CASES], ids=[c[0] for c in PLAN_CASES])
+def test_match_plan_names_each_matrix_once(kinds, track, want):
+    """ops/pipeline.match_plan computes exactly the distinct raw matrices a
+    batch's consumers read (the spread programs match inside their own
+    launches), each equal to the JAX match_terms on the same inputs."""
+    (rn, re, rx, rt, _, rp), (pn, pe, px, pt, _, pp) = both(2)
+    plan = PP.match_plan(pp, PP.DEFAULT_SOLVE_CONFIG, kinds, ea=pe, ta=pt, xa=px, track_inbatch=track)
+    assert set(plan) == want
+    ref = {"m_sig": (rt, re), "m_pt": (rx, rp), "m_bb": (rt, rp)}
+    for key, got in plan.items():
+        terms, subj = ref[key]
+        same(RTopo.match_terms(terms, subj["label_vals"], subj["ns_id"]), got)
+
+
+@pytest.mark.parametrize("n_buckets", [128, 16])
+@pytest.mark.parametrize("seed", [2, 3])
+def test_consumers_read_the_plan_matrices_exactly(seed, n_buckets):
+    """interpod_filter (every subset of its parts), interpod_score (each
+    part and both) and _inbatch_tensors given the match plan's raw
+    matrices return exactly what they return computing their own."""
+    _, (pn, pe, px, pt, pa_, pp) = both(seed)
+    ids = encoded("port", seed)[6]
+    plan = PP.match_plan(pp, PP.DEFAULT_SOLVE_CONFIG, PP.PORTED_TERM_KINDS, ea=pe, ta=pt, xa=px, track_inbatch=True)
+    assert set(plan) == {"m_sig", "m_pt", "m_bb"}
+    for parts in FILTER_SUBSETS:
+        assert torch.equal(PTopo.interpod_filter(pn, pe, pt, pa_, px, pp, parts, n_buckets, m_pt=plan["m_pt"],
+                                                 m_sig=plan["m_sig"]),
+                           PTopo.interpod_filter(pn, pe, pt, pa_, px, pp, parts, n_buckets)), parts
+    for parts in SCORE_PARTS:
+        assert torch.equal(PTopo.interpod_score(pn, pe, pt, px, pp, parts, n_buckets, m_pt=plan["m_pt"],
+                                                m_sig=plan["m_sig"]),
+                           PTopo.interpod_score(pn, pe, pt, px, pp, parts, n_buckets)), parts
+    got, alone = PP._inbatch_tensors(pn, pp, pt, ids, n_buckets, plan["m_bb"]), PP._inbatch_tensors(pn, pp, pt, ids,
+                                                                                                   n_buckets)
+    assert got.keys() == alone.keys()
+    for k, v in got.items():
+        assert torch.equal(v, alone[k]) if isinstance(v, torch.Tensor) else v == alone[k], k
 
 
 # ---------------------------------------------------------------------------

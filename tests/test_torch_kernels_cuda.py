@@ -1,7 +1,10 @@
 """Each hand-written CUDA kernel against its plain PyTorch version on the
 card, on seeded all-branches clusters: filter (and its raw node-selector
-output), score, solve (with and without in-batch tracking), match_terms,
-spread_score, selector_spread_score, interpod_filter (every subset of its
+output), score, solve (with and without in-batch tracking), match_terms
+(and its multi-problem launch, 1-4 problems, narrow tiles for wide label
+rows), spread_score (one launch, no match launch, at V = 16, 64, 256 and
+40,000 and every rows-a-cluster choice; a small config-4 drain launches
+one match a batch), selector_spread_score, interpod_filter (every subset of its
 parts), interpod_score (each part and both), inbatch_port_conflict,
 spread_filter, the commit arbiter, the commit fold, the preemption victim
 search, the nominee overlay's usage fold, the host oracle's score-row gather and
@@ -42,6 +45,7 @@ import numpy as np
 import pytest
 import torch
 
+from kubernetes_tpu_torch.kernels import build
 from kubernetes_tpu_torch.models.clusters import fill_cache, random_cluster, random_selectors
 from kubernetes_tpu_torch.ops import filters as F
 from kubernetes_tpu_torch.ops import scores as S
@@ -376,23 +380,90 @@ def test_filter_raw_selector_output_equals_plain(cuda, seed):
 def test_match_terms_kernel_equals_plain(cuda, seed, with_ns):
     _, ea, ta, _, _, _ = topology_cluster(seed, cuda)
     ns = ea["ns_id"] if with_ns else None
-    before = TO.match_terms.launches
+    before, problems = TO.match_terms.launches, TO.match_terms.problems
     got = TO.match_terms(ta, ea["label_vals"], ns)
-    assert TO.match_terms.launches == before + 1
+    assert TO.match_terms.launches == before + 1 and TO.match_terms.problems == problems + 1
     assert torch.equal(got, TO.match_terms_plain(ta, ea["label_vals"], ns))
 
 
-@pytest.mark.parametrize("n_buckets", [16, 256, 40000])
+@pytest.mark.parametrize("count", [1, 2, 3, 4])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_multi_problem_match_equals_plain_per_problem(cuda, seed, count):
+    """One launch for 1-4 problems of different shapes (terms x signatures
+    with and without namespaces, patterns x spec rows, terms x spec rows),
+    each equal to its plain version."""
+    na, ea, xa, ta, au, pa, ids = interpod_cluster(seed, cuda)
+    problems = [(ta, ea["label_vals"], ea["ns_id"]), (xa, pa["label_vals"], pa["ns_id"]),
+                (ta, pa["label_vals"], pa["ns_id"]), (ta, ea["label_vals"], None)][:count]
+    before, n_problems = TO.match_terms.launches, TO.match_terms.problems
+    got = TO.match_terms_multi(problems)
+    assert TO.match_terms.launches == before + 1 and TO.match_terms.problems == n_problems + count
+    for (terms, labels, ns), g in zip(problems, got):
+        assert torch.equal(g, TO.match_terms_plain(terms, labels, ns))
+
+
+def test_match_kernel_stages_only_the_named_slots(cuda):
+    """Label rows of 1,024 slots (only the slots a tile's tests name are
+    staged) and selectors of 64 matchLabels and 64 expressions a term (1,024
+    slots a tile: tiles of 8 subjects); the matches equal the plain
+    version's."""
+    _, ea, ta, _, _, _ = topology_cluster(0, cuda)
+    wide = torch.zeros((ea["label_vals"].shape[0], 1024), dtype=torch.int32, device=cuda)
+    wide[:, :ea["label_vals"].shape[1]] = ea["label_vals"]
+    for ns in (None, ea["ns_id"]):
+        assert torch.equal(TO.match_terms(ta, wide, ns), TO.match_terms_plain(ta, wide, ns))
+    pad = {"ml_slot": -1, "ml_val": 0, "ex_op": 0, "ex_slot": -1, "ex_vals": -1}
+    wide_terms = dict(ta)
+    for key, fill in pad.items():
+        t = ta[key]
+        w = torch.full((t.shape[0], 64) + tuple(t.shape[2:]), fill, dtype=t.dtype, device=cuda)
+        w[:, :t.shape[1]] = t
+        wide_terms[key] = w.contiguous()
+    assert TO.match_layout(1024, 64, 64, ta["ex_vals"].shape[2], ta["ns_ids"].shape[1])["xtile"] == 8
+    for ns in (None, ea["ns_id"]):
+        assert torch.equal(TO.match_terms(wide_terms, wide, ns), TO.match_terms_plain(wide_terms, wide, ns))
+
+
+@pytest.mark.parametrize("n_buckets", [16, 64, 256, 40000])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_spread_kernel_equals_plain(cuda, seed, n_buckets):
-    """V = 16 drops the hostname buckets, 256 holds them in shared memory,
-    40,000 takes the device-memory table."""
+    """One launch a call and no match launch (the matches inside it): V =
+    16 drops the hostname buckets in shared-memory tables, 64 and 256 hold
+    them (in shared or device memory as the layout says: the tables are
+    [TT, V]), 40,000 takes the device-memory tables; a device-memory launch
+    counted."""
     na, ea, ta, au, pa, _ = topology_cluster(seed, cuda)
     sel = F.pod_match_node_selector(na, pa)
-    before = TO.spread_score.launches
+    before, matches, dev_tables = TO.spread_score.launches, TO.match_terms.launches, \
+        TO.spread_score.device_table_launches
     got = TO.spread_score(na, ea, ta, au, sel, n_buckets=n_buckets)
-    assert TO.spread_score.launches == before + 1
+    assert TO.spread_score.launches == before + 1 and TO.match_terms.launches == matches
+    lay = TO.spread_score_layout(ta["valid"].shape[0], na["valid"].shape[0], n_buckets, pa["valid"].shape[0],
+                                 ta["ml_slot"].shape[1], ta["ex_op"].shape[1], ta["ex_vals"].shape[2])
+    assert TO.spread_score.device_table_launches == dev_tables + int(lay["copies"] == 0)
+    assert lay["copies"] > 0 if n_buckets == 16 else (lay["copies"] == 0 if n_buckets == 40000 else True)
     assert torch.equal(got, TO.spread_score_plain(na, ea, ta, au, sel, n_buckets=n_buckets))
+
+
+@pytest.mark.parametrize("n_buckets", [16, 64, 40000])
+@pytest.mark.parametrize("rows,ctas,gcap", [(1, None, None), (4, None, None), (16, None, None),
+                                            (256, None, None), (3, 5, None), (16, 1, None), (7, 16, None),
+                                            (16, None, 2), (4, 3, 1)])
+def test_spread_kernel_rows_a_cluster_equal_plain(cuda, rows, ctas, gcap, n_buckets):
+    """Every rows-a-cluster choice (1, 4, 16, all; and 3, 7 and 16 rows on
+    5, 16 and 1 CTAs, node axes no C divides) writes exactly the plain
+    score, with the tables in shared memory and (V = 40,000) in device
+    memory, and where a cluster's rows hold more groups than its shared
+    tables (gcap 1 and 2: those clusters take the device tables); rows
+    owning 0, 1 and 2 soft terms."""
+    na, ea, ta, au, pa, _ = topology_cluster(2, cuda, n_nodes=203)
+    sel = F.pod_match_node_selector(na, pa)
+    want = TO.spread_score_plain(na, ea, ta, au, sel, n_buckets=n_buckets)
+    args, out = TO.spread_args(na, ea, ta, sel, n_buckets, rows=rows, cluster=ctas, gcap=gcap)
+    build.launch(TO.SPREAD_ENTRY, args, cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+    assert bool((want > 0).any()) and bool(((want > 0) & (want < 10)).any())
 
 
 @pytest.mark.parametrize("n_buckets", [16, 40000])
@@ -1022,6 +1093,35 @@ def test_planes_on_the_card_equal_the_cpu(cuda):
                                            launches)])
     assert out["cuda"][0] == out["cpu"][0] and len(out["cuda"][0]) == 2000
     assert all(n > 0 for n in out["cuda"][1]) and out["cpu"][1] == [0, 0, 0]
+
+
+def test_config4_drain_launches_one_match_a_batch(cuda):
+    """A small config-4 drain (required anti-affinity, preferred affinity,
+    the existing pods' terms, in-batch tracking) launches one match a batch
+    — its two or three matrices in one launch — and places as the CPU
+    does."""
+    from kubernetes_tpu_torch.models.clusters import bench_config4
+    from kubernetes_tpu_torch.scheduler.driver import Scheduler
+    from kubernetes_tpu_torch.state.queue import PriorityQueue
+
+    out = {}
+    for dev in ("cuda", "cpu"):
+        nodes, pods = bench_config4(200, 2000)
+        cache, queue = SchedulerCache(), PriorityQueue()
+        fill_cache(cache, nodes)
+        sched = Scheduler(cache, queue, batch_size=512, deterministic=True, device=dev)
+        for p in pods:
+            queue.add(p)
+        launches, problems = TO.match_terms.launches, TO.match_terms.problems
+        res = sched.run_until_empty()
+        sched.wait_for_binds()
+        batches = sched.stats["batches"]
+        sched.close()
+        out[dev] = (res.assignments, TO.match_terms.launches - launches, TO.match_terms.problems - problems, batches)
+    assignments, launches, problems, batches = out["cuda"]
+    assert assignments == out["cpu"][0] and len(assignments) == 2000
+    # the first batch finds no existing pod's terms: its plan holds two matrices
+    assert launches == batches and 2 * batches <= problems <= 3 * batches
 
 
 # --- the node mesh's cluster kernels -------------------------------------------

@@ -5,13 +5,15 @@ reference's segment_sum branch; two constraints on one key; a too-small
 V that drops buckets; restrictive node selectors; nodes missing the key;
 fallback nodes) and `selector_spread_score` (zones and no zones, deleting
 signatures, rows with 0, 1 and 2 selectors, and the float64 blend that
-truncates 6.999999999999999 to 6), and the kernels' algorithm written as
-csrc/topology.cu walks it. Tolerance: exact equality, dtype
-included. On the CPU the port runs its plain versions."""
+truncates 6.999999999999999 to 6), and the kernels' algorithms written as
+csrc/topology.cu walks them (the match kernel's compacted rows, the spread
+score's clusters, the selector-spread blocks), and the launch layouts.
+Tolerance: exact equality, dtype included. On the CPU the port runs its plain versions."""
 
 import jax.numpy as jnp
 import numpy as np
 import pytest
+import torch
 
 from kubernetes_tpu.api import types as RT
 from kubernetes_tpu.ops import filters as RF
@@ -24,11 +26,14 @@ from kubernetes_tpu.state.terms import compile_batch_terms as r_compile
 from kubernetes_tpu_torch.api import types as PT
 from kubernetes_tpu_torch.models.clusters import HOST_KEY, ZONE_KEY, random_cluster, random_selectors
 from kubernetes_tpu_torch.ops import filters as PF
+from kubernetes_tpu_torch.ops import pipeline as PP
 from kubernetes_tpu_torch.ops import topology as PTopo
 from kubernetes_tpu_torch.oracle.nodeinfo import Snapshot as PSnapshot
 from kubernetes_tpu_torch.state.convert import arrays_to_torch
 from kubernetes_tpu_torch.state.tensors import PodBatch as PPodBatch
 from kubernetes_tpu_torch.state.tensors import encode_snapshot as p_encode
+from kubernetes_tpu_torch.state.tensors import OP_DOES_NOT_EXIST, OP_EXISTS, OP_IN, OP_NEVER, OP_NOT_IN
+from kubernetes_tpu_torch.state.terms import SPREAD_SOFT
 from kubernetes_tpu_torch.state.terms import compile_batch_terms as p_compile
 
 
@@ -132,6 +137,20 @@ def test_selector_spread_score_matches_reference(no_zones, n_buckets, seed):
     assert len(np.unique(p.numpy())) >= 3
 
 
+@pytest.mark.parametrize("seed", [4, 5])
+def test_selector_spread_reads_the_plan_matrix_exactly(seed):
+    """selector_spread_score given the match plan's raw m_sig returns
+    exactly what it returns computing its own (Services: the plan's one
+    matrix)."""
+    pn, pe, pt, pa_, pp = (arrays_to_torch(d, "cpu") for d in encoded("port", seed=seed, selectors=True))
+    plan = PP.match_plan(pp, PP.DEFAULT_SOLVE_CONFIG, frozenset({"spread_soft", "sel_spread"}), ea=pe, ta=pt,
+                         xa=None)
+    assert set(plan) == {"m_sig"}
+    for v in (16, 128):
+        assert torch.equal(PTopo.selector_spread_score(pn, pe, pt, pa_, n_buckets=v, m_sig=plan["m_sig"]),
+                           PTopo.selector_spread_score(pn, pe, pt, pa_, n_buckets=v))
+
+
 def _truncation_case(t, encode, snapshot_cls, batch_cls, compile_fn):
     """Two zones: node a holds 10 pods the selector matches, node b 3. For
     b, fscore = 10*(10-3)/10 = 7.0 and the zone score is 7.0 too, so the
@@ -166,55 +185,161 @@ def test_selector_spread_blend_truncates_like_the_reference():
 
 
 # ---------------------------------------------------------------------------
-# csrc/topology.cu's algorithm, written as its blocks walk it (the matched
-# signatures compacted per term or spec row, pair tables per soft term, a
-# same-key merge, a per-row score; buckets >= V dropped from sums and
-# clamped in gathers), held to the plain versions on the CPU — the card
-# tests then hold the kernels themselves to the plain versions
+# csrc/topology.cu's algorithms, written as its CTAs walk them (the match
+# kernel's compacted term rows; the spread score's clusters of R spec rows:
+# groups per (row, key), staged counts at the matched signatures per node
+# tile, per-CTA tables summed over the cluster by bucket slice, per-row
+# partials; buckets >= V dropped from sums and clamped in gathers), held to
+# the plain versions on the CPU — the card tests then hold the kernels
+# themselves to the plain versions
 # ---------------------------------------------------------------------------
 
 
-def _bucket(ld, n, slot):
-    k = ld.shape[1]
-    d = ld[n, 0 if slot < 0 else min(slot, k - 1)]
-    return max(d, 0), bool(d >= 0 and slot >= 0)
+def compact_row(terms, t, k, with_ns):
+    """A term's compacted selector as csrc/topology.cu's compact_term builds
+    it: (tests, namespace lanes or None), or None for a dead row."""
+    g = {key: terms[key].numpy() for key in ("valid", "has_selector", "ml_slot", "ml_val", "ex_op", "ex_slot",
+                                              "ex_vals", "ns_any", "ns_ids")}
+    if not g["valid"][t] or not g["has_selector"][t]:
+        return None
+    tests = [("eq", min(int(s), k - 1), int(v)) for s, v in zip(g["ml_slot"][t], g["ml_val"][t]) if s >= 0]
+    for op, slot, vals in zip(g["ex_op"][t], g["ex_slot"][t], g["ex_vals"][t]):
+        if op == OP_NEVER:
+            return None
+        if op not in (OP_IN, OP_NOT_IN, OP_EXISTS, OP_DOES_NOT_EXIST):
+            continue
+        pool = [int(v) for v in vals if v >= 0] + ([-1] if (vals < 0).any() else [])
+        tests.append((int(op), 0 if slot < 0 else min(int(slot), k - 1), pool))
+    ns = [int(x) for x in g["ns_ids"][t]] if with_ns and not g["ns_any"][t] else None
+    return tests, ns
 
 
-def spread_walk(na, ea, ta, m_sig, sel, v):
+def eval_row(row, lab, nsx):
+    if row is None:
+        return False
+    tests, ns = row
+    for op, sc, arg in tests:
+        v = int(lab[sc])
+        if op == "eq":
+            if v != arg:
+                return False
+            continue
+        present = v != 0
+        if op in (OP_IN, OP_NOT_IN):
+            in_set = v in arg
+            ok = (present and in_set) if op == OP_IN else (not present or not in_set)
+        else:
+            ok = present if op == OP_EXISTS else not present
+        if not ok:
+            return False
+    return ns is None or nsx in ns
+
+
+def match_walk(terms, labels, ns):
+    """[TT, X] from the compacted rows, as the match kernel's tiles test
+    each (term, subject) pair."""
+    lab = labels.numpy()
+    nsv = None if ns is None else ns.numpy()
+    rows = [compact_row(terms, t, lab.shape[1], ns is not None) for t in range(terms["valid"].shape[0])]
+    return np.array([[eval_row(r, lab[x], None if nsv is None else int(nsv[x])) for x in range(lab.shape[0])]
+                     for r in rows], bool).reshape(len(rows), lab.shape[0])
+
+
+def spread_cluster_walk(na, ea, ta, sel, v, rows, ctas):
+    """csrc/topology.cu's spread score at R = `rows` spec rows a cluster of
+    C = `ctas` CTAs (spread_score_layout's slices), cluster by cluster."""
     valid, kind, owner, slot = (ta[k].numpy() for k in ("valid", "kind", "owner", "topo_slot"))
-    counts, ev = ea["counts"].numpy().astype(np.int64), ea["valid"].numpy()
+    tt = len(valid)
+    counts, ev, elab = ea["counts"].numpy().astype(np.int64), ea["valid"].numpy(), ea["label_vals"].numpy()
     nv, ld, sel = na["valid"].numpy(), na["label_dense"].numpy(), sel.numpy()
     u_rows, n = sel.shape
-    soft = valid & (kind == 6)
-    terms_of = [[t for t in range(len(valid)) if soft[t] and owner[t] == u] for u in range(u_rows)]
-    member = np.array([[bool(nv[x]) and all(_bucket(ld, x, slot[t])[1] for t in terms_of[u])
-                        for x in range(n)] for u in range(u_rows)])
-    pair_cnt = np.zeros((len(valid), v), np.int64)
-    pair_present = np.zeros((len(valid), v), bool)
-    for t in np.flatnonzero(soft):
-        u, sigs = owner[t], np.flatnonzero(m_sig[t].numpy() & ev)
-        for x in range(n):
-            b, has = _bucket(ld, x, slot[t])
-            if b >= v:
-                continue
-            if member[u, x] and sel[u, x]:
-                pair_cnt[t, b] += counts[x, sigs].sum()
-            pair_present[t, b] |= member[u, x] and has
+    s_all, k = counts.shape[1], ld.shape[1]
+    lay = PTopo.spread_score_layout(tt, n, v, u_rows, ta["ml_slot"].shape[1], ta["ex_op"].shape[1],
+                                    ta["ex_vals"].shape[2], rows=rows, cluster=ctas)
+    R, C, sl, vs = lay["R"], lay["C"], lay["slice"], lay["vslice"]
+    crow = {t: compact_row(ta, t, elab.shape[1], False) for t in range(tt)}
+
+    def dense(x, s):
+        d = ld[x, 0 if s < 0 else min(s, k - 1)]
+        return int(d) if d >= 0 and s >= 0 else -1
+
     out = np.zeros((u_rows, n), np.int64)
-    for u in range(u_rows):
-        cnt = np.zeros(n, np.int64)
-        for t in terms_of[u]:
-            group = [q for q in terms_of[u] if slot[q] == slot[t]]
-            merged_cnt, merged_present = pair_cnt[group].sum(0), pair_present[group].any(0)
+    for r0 in range(0, u_rows, R):
+        nrows = min(R, u_rows - r0)
+        terms = [t for t in range(tt) if valid[t] and kind[t] == SPREAD_SOFT and r0 <= owner[t] < r0 + nrows]
+        leads = [i for i, t in enumerate(terms)
+                 if not any(owner[terms[j]] == owner[t] and slot[terms[j]] == slot[t] for j in range(i))]
+        leads.sort(key=lambda i: (owner[terms[i]], i))  # a row's groups are one range
+        groups = [(int(owner[terms[i]]) - r0, int(slot[terms[i]])) for i in leads]
+        size = [sum(1 for t in terms if (owner[t] - r0, slot[t]) == g) for g in groups]
+        tgrp = [groups.index((int(owner[t]) - r0, int(slot[t]))) for t in terms]
+        of_row = [[g for g, (r, _) in enumerate(groups) if r == r_] for r_ in range(nrows)]
+
+        def member(r, x):
+            return bool(nv[x]) and all(dense(x, groups[g][1]) >= 0 for g in of_row[r])
+
+        part_cnt = np.zeros((C, len(groups), v), np.int64)
+        part_pres = np.zeros((C, len(groups), v), bool)
+        for c in range(C):
+            nodes = range(c * sl, min(n, (c + 1) * sl))
+            for r in range(nrows):
+                for x in (x for x in nodes if of_row[r] and member(r, x)):
+                    for g in of_row[r]:
+                        if dense(x, groups[g][1]) < v:
+                            part_pres[c, g, dense(x, groups[g][1])] = True
+            for i0 in range(0, len(terms), PTopo.SCORE_TW):
+                for s0 in range(0, s_all, PTopo.SCORE_SWIN):
+                    pairs = [(s, tgrp[i]) for i in range(i0, min(len(terms), i0 + PTopo.SCORE_TW))
+                             for s in range(s0, min(s_all, s0 + PTopo.SCORE_SWIN))
+                             if ev[s] and eval_row(crow[terms[i]], elab[s], None)]
+                    cols = sorted({s for s, _ in pairs})  # the tile's columns, ascending
+                    stride = ((len(cols) + 1) & ~3) + 2
+                    tn = min(2 * PTopo.SCORE_TILE_WORDS // stride, PTopo.SCORE_SEL_BYTES // nrows)
+                    for x0 in range(nodes.start, nodes.stop, tn):
+                        for x in range(x0, min(nodes.stop, x0 + tn)):
+                            tile = {s: counts[x, s] for s in cols}
+                            for s, g in pairs:
+                                r, key = groups[g]
+                                if tile[s] and member(r, x) and sel[r0 + r, x] and dense(x, key) < v:
+                                    part_cnt[c, g, dense(x, key)] += tile[s]
+        merged_cnt = np.zeros((len(groups), v), np.int64)
+        merged_pres = np.zeros((len(groups), v), bool)
+        for c in range(C):  # CTA c sums its bucket slice over the cluster
+            b = slice(min(v, c * vs), min(v, c * vs + vs))
+            merged_cnt[:, b] = part_cnt[:, :, b].sum(0)
+            merged_pres[:, b] = part_pres[:, :, b].any(0)
+        for r in range(nrows):
+            if not of_row[r]:
+                continue
+            cnt, mem = np.zeros(n, np.int64), np.zeros(n, bool)
             for x in range(n):
-                b, has = _bucket(ld, x, slot[t])
-                if has and merged_present[min(b, v - 1)]:
-                    cnt[x] += merged_cnt[min(b, v - 1)]
-        mem = member[u]
-        total = int(cnt[mem].sum())
-        diff = total - (int(cnt[mem].min()) if mem.any() else 0)
-        f = (10 * (total - cnt)) // diff if diff > 0 else np.full(n, 10)
-        out[u] = np.where(mem & bool(terms_of[u]), f, 0)
+                nc, m = 0, bool(nv[x])
+                for g in of_row[r]:
+                    d = dense(x, groups[g][1])
+                    if d < 0:
+                        m = False
+                    elif merged_pres[g, min(d, v - 1)]:
+                        nc += size[g] * int(merged_cnt[g, min(d, v - 1)])
+                cnt[x], mem[x] = int(np.int64(nc).astype(np.int32)), m
+            if lay["copies"] and len(groups) <= lay["gcap"] and len(of_row[r]) == 1:
+                # a one-key row: its key's member histogram (at the clamped
+                # bucket, summed over the cluster) against the count a bucket
+                g = of_row[r][0]
+                hist = np.zeros(v, np.int64)
+                for x in range(n):
+                    if nv[x] and dense(x, groups[g][1]) >= 0:
+                        hist[min(dense(x, groups[g][1]), v - 1)] += 1
+                at = np.array([int(np.int64(size[g] * int(merged_cnt[g, b]) if merged_pres[g, b] else 0)
+                                   .astype(np.int32)) for b in range(v)], np.int64)
+                total = int((hist * at).sum())
+                low = int(at[hist > 0].min()) if (hist > 0).any() else 0
+            else:  # over each CTA's slice nodes, then the cluster
+                parts = [(cnt[c * sl:(c + 1) * sl][mem[c * sl:(c + 1) * sl]]) for c in range(C)]
+                total = sum(int(p.sum()) for p in parts)
+                low = min((int(p.min()) for p in parts if len(p)), default=0)
+            diff = total - low
+            f = (10 * (total - cnt)) // diff if diff > 0 else np.full(n, 10)
+            out[r0 + r] = np.where(mem, f, 0)
     return out
 
 
@@ -247,17 +372,69 @@ def selector_spread_walk(na, ea, ta, au, m_sig, v):
 
 @pytest.mark.parametrize("n_buckets", [16, 64, 40000])
 def test_kernel_walk_equals_plain(n_buckets):
-    """The topology kernels' algorithm (as csrc/topology.cu walks it)
-    equals the plain versions: V = 16 drops hostname buckets, 64 holds
-    them, 40,000 is the device-memory-table width."""
+    """The selector-spread kernel's algorithm (as csrc/topology.cu walks
+    it) equals the plain version: V = 16 drops buckets, 64 holds them,
+    40,000 is the device-memory-table width."""
     pn, pe, pt, pa_, pp = (arrays_to_torch(d, "cpu")
                            for d in encoded("port", seed=7, selectors=True, n_nodes=40))
-    sel = PF.pod_match_node_selector(pn, pp)
-    m_soft = PTopo.match_terms(pt, pe["label_vals"], None)
     m_ns = PTopo.match_terms(pt, pe["label_vals"], pe["ns_id"])
-    want = PTopo.spread_score_plain(pn, pe, pt, pa_, sel, n_buckets=n_buckets).numpy()
-    assert ((want > 0) & (want < 10)).any()
-    assert np.array_equal(spread_walk(pn, pe, pt, m_soft, sel, n_buckets), want)
     want = PTopo.selector_spread_score_plain(pn, pe, pt, pa_, n_buckets=n_buckets).numpy()
     assert ((want > 0) & (want < 10)).any()
     assert np.array_equal(selector_spread_walk(pn, pe, pt, pa_, m_ns, n_buckets), want)
+
+
+@pytest.mark.parametrize("rows,ctas", [(1, 1), (3, 4), (64, 16)], ids=["1-row", "3-rows", "all-rows"])
+@pytest.mark.parametrize("n_buckets", [16, 64, 40000])
+def test_spread_cluster_walk_equals_plain(n_buckets, rows, ctas):
+    """The spread score's one-launch algorithm (as csrc/topology.cu's
+    clusters walk it) equals the plain version at one, several and all
+    spec rows a cluster, on node axes the CTAs do not divide: V = 16 drops
+    hostname and rack buckets, 64 holds them, 40,000 is the device-memory
+    table width. The rows own 0, 1 and 2 soft terms, two on one key."""
+    pn, pe, pt, pa_, pp = (arrays_to_torch(d, "cpu")
+                           for d in encoded("port", seed=7, case="same-key", selectors=True, n_nodes=40))
+    soft = pt["valid"] & (pt["kind"] == SPREAD_SOFT)
+    per_row = torch.bincount(pt["owner"][soft].long(), minlength=64)
+    assert {0, 2} <= set(per_row.tolist())
+    sel = PF.pod_match_node_selector(pn, pp)
+    want = PTopo.spread_score_plain(pn, pe, pt, pa_, sel, n_buckets=n_buckets).numpy()
+    assert ((want > 0) & (want < 10)).any()
+    assert np.array_equal(spread_cluster_walk(pn, pe, pt, sel, n_buckets, rows, ctas), want)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_match_walk_and_multi_match_reference(seed):
+    """The match kernel's compacted rows (dead rows, value pools keeping one
+    -1 lane, clipped slots, namespace lanes) equal match_terms_plain and the
+    JAX match_terms on each problem of one multi-problem call: terms x
+    signatures with and without the namespace test, terms x spec rows."""
+    (rn, re, rt, ra, rp), (pn, pe, pt, pa_, pp) = both(seed=seed, selectors=True)
+    problems = [(pt, pe["label_vals"], pe["ns_id"]), (pt, pe["label_vals"], None), (pt, pp["label_vals"], pp["ns_id"])]
+    ref = [RTopo.match_terms(rt, re["label_vals"], re["ns_id"]), RTopo.match_terms(rt, re["label_vals"], None),
+           RTopo.match_terms(rt, rp["label_vals"], rp["ns_id"])]
+    for (terms, labels, ns), got, r in zip(problems, PTopo.match_terms_multi(problems), ref):
+        same(r, got)
+        assert torch.equal(got, PTopo.match_terms_plain(terms, labels, ns))
+        assert np.array_equal(match_walk(terms, labels, ns), got.numpy())
+        assert 0 < int(got.sum()) < got.numel()
+
+
+def test_match_and_spread_score_layouts():
+    """The launches the wrappers build: a match CTA's subjects halve while
+    the label columns of the slots its tile's tests can name pass 48 KB; the spread score's clusters fill about 256
+    CTAs (two an SM), keep its tables in shared memory at V = 16 and 64 and
+    move them to device memory at 40,000, and stay within the shared-memory
+    budget (at 8 rows a cluster: two CTAs an SM)."""
+    assert PTopo.match_layout(64, 4, 4, 6, 4)["xtile"] == 64
+    assert PTopo.match_layout(1024, 4, 4, 6, 4)["xtile"] == 64  # wide rows: only the named slots staged
+    assert PTopo.match_layout(1024, 64, 64, 6, 4)["xtile"] == 8  # wide selectors: 1,024 slots a tile
+    with pytest.raises(ValueError):
+        PTopo.match_layout(64, 1000, 100, 6, 4)
+    for rows, c in ((1, 2), (4, 8), (8, 16), (16, 16), (128, 16)):
+        lay = PTopo.spread_score_layout(128, 10240, 16, 128, 4, 4, 6, rows=rows)
+        assert (lay["R"], lay["C"]) == (rows, c) and lay["C"] * lay["slice"] >= 10240
+        assert lay["copies"] > 0 and lay["smem"] <= PTopo.SPREAD_SMEM
+    assert PTopo.spread_score_layout(128, 10240, 64, 128, 4, 4, 6)["copies"] > 0
+    dev = PTopo.spread_score_layout(128, 10240, 40000, 128, 4, 4, 6)
+    assert dev["copies"] == 0 and dev["smem"] <= PTopo.SPREAD_SMEM
+    assert 2 * PTopo.spread_score_layout(128, 10240, 16, 128, 4, 4, 6)["smem"] <= 227 * 1024
