@@ -39,8 +39,15 @@ they placed. Phases:
                 TT=128 or 256, S=256, V=16), the spread score timed at 1, 4,
                 8, 16 and all spec rows a cluster in turns, alone, through its
                 wrapper, with device-memory tables and by the profiler's
-                device duration, the match kernel too; interpod_filter (every subset
-                of its parts), interpod_score (each part and both),
+                device duration, the match kernel too; the selector spread
+                (one cluster launch, no match launch given the plan) timed
+                at 3, 4, 8 and 16 CTAs a spec row in turns, with its zone
+                tables in bucket slices and in device memory, and by the
+                profiler's device duration; interpod_filter (every subset
+                of its parts; one cluster launch, no match launch given the
+                plan, its device-memory tables counted; timed at 1 to 16
+                CTAs a spec row in turns, through its wrapper, by the
+                profiler's device duration), interpod_score (each part and both),
                 inbatch_port_conflict and the tracked solve on a seeded
                 cluster reaching every inter-pod branch and at the config-4
                 shapes (U=32, N=2048, TT=32, S=256, PT=32, V=2048), with the
@@ -229,7 +236,12 @@ they placed. Phases:
                 and the match kernel: relaunch mean and device duration
                 beside the times before, the spec rows a cluster timed, the
                 device-memory tables, and every full drain's match launches
-                and matrices a batch), then
+                and matrices a batch; the inter-pod filter at the config-4
+                shapes and at a config-4 pod's extender request, and the
+                selector spread: relaunch mean, device duration, through
+                the wrapper, the CTAs a spec row, beside the times before,
+                and their main-path launches), a [launches] line (every
+                counter summed over the main-path drains), then
                 one JSON line: per kernel (the nineteen, the match plan's
                 multi-problem launch, the tracked solve, the RTCR branch,
                 score_components, the extender's
@@ -811,32 +823,38 @@ def bound(work):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_ms(fn, kernel: str, reps: int = 50) -> float:
+def device_ms(fn, kernel: str, reps: int = 50, tries: int = 3) -> float:
     """The mean device duration (ms) of the kernel named `kernel` over
     `reps` runs of fn(), from a torch.profiler (CUPTI) trace: the summed
     durations of its device events over their count (a relaunch mean by
     CUDA events also holds the gaps the host leaves between launches).
-    Fails when the trace holds fewer than half of them."""
+    A trace may drop events (at its edges, or all of them in an
+    occasional session): a trace holding fewer than half of the launches
+    is taken again, up to `tries` traces; fails when none holds half."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
 
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
-            fn()
-        torch.cuda.synchronize()
     scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
     os.makedirs(scratch, exist_ok=True)
-    with tempfile.TemporaryDirectory(dir=scratch) as d:
-        path = os.path.join(d, "trace.json")
-        prof.export_chrome_trace(path)
-        with open(path) as f:
-            events = json.load(f)["traceEvents"]
-    durs = [e["dur"] for e in events if e.get("ph") == "X" and e.get("cat") == "kernel" and kernel in e.get("name", "")]
-    # (the trace may drop an event at its edges: at least half of them)
-    check(len(durs) >= reps // 2, f"the profiler saw {len(durs)} of {reps} launches of {kernel}")
+    durs = []
+    for _ in range(tries):
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(reps):
+                fn()
+            torch.cuda.synchronize()
+        with tempfile.TemporaryDirectory(dir=scratch) as d:
+            path = os.path.join(d, "trace.json")
+            prof.export_chrome_trace(path)
+            with open(path) as f:
+                events = json.load(f)["traceEvents"]
+        durs = [e["dur"] for e in events
+                if e.get("ph") == "X" and e.get("cat") == "kernel" and kernel in e.get("name", "")]
+        if len(durs) >= reps // 2:
+            break
+    check(len(durs) >= reps // 2, f"the profiler saw {len(durs)} of {reps} launches of {kernel} in {tries} traces")
     return sum(durs) / len(durs) / 1e3
 
 
@@ -1073,6 +1091,7 @@ def compare_topology(enc, label, time_it: bool):
     widths = (ta["valid"].shape[0], na["valid"].shape[0])
     dims = (pa["valid"].shape[0], ta["ml_slot"].shape[1], ta["ex_op"].shape[1], ta["ex_vals"].shape[2])
     want_dev = sum(int(TO.spread_score_layout(*widths, nb, *dims)["copies"] == 0) for nb in sorted({v, 16, 64, 40000}))
+    m_ns_plan = TO.match_terms(ta, ea["label_vals"], ea["ns_id"])  # the plan's m_sig
     for nb in sorted({v, 16, 64, 40000}):
         calls, matches = TO.spread_score.launches, TO.match_terms.launches
         a = TO.spread_score(na, ea, ta, au, sel, n_buckets=nb)
@@ -1080,7 +1099,16 @@ def compare_topology(enc, label, time_it: bool):
               f"[{label}] spread_score is not one launch without match_terms")
         b = TO.spread_score_plain(na, ea, ta, au, sel, n_buckets=nb)
         err_s = max(err_s, int((a - b).abs().max()))
-        a = TO.selector_spread_score(na, ea, ta, au, n_buckets=nb)
+        calls, matches, zdev = (TO.selector_spread_score.launches, TO.match_terms.launches,
+                                TO.selector_spread_score.device_table_launches)
+        a = TO.selector_spread_score(na, ea, ta, au, n_buckets=nb, m_sig=m_ns_plan)
+        zlay = TO.selector_spread_layout(widths[0], widths[1], nb, au["n_sel_spread"].shape[0])
+        check(TO.selector_spread_score.launches == calls + 1 and TO.match_terms.launches == matches
+              and TO.selector_spread_score.device_table_launches == zdev + int(zlay["mode"] == 2),
+              f"[{label}] selector_spread_score given the plan is not one launch without match_terms, its device "
+              f"tables counted")
+        check((zlay["mode"] == 2) == (nb == 40000), f"[{label}] selector_spread_score's zone tables at V = {nb}: "
+              f"mode {zlay['mode']}")
         b = TO.selector_spread_score_plain(na, ea, ta, au, n_buckets=nb)
         err_z = max(err_z, int((a - b).abs().max()))
     check(err_s == 0, f"[{label}] spread_score kernel differs from its plain version by {err_s}")
@@ -1132,12 +1160,37 @@ def compare_topology(enc, label, time_it: bool):
             + f"; device tables (V = 40,000) {ss['device_tables_ms']:.4f} ms; through its wrapper "
             f"{ss['wrapper_ms']:.4f} ms; device duration {ss['device_ms']:.4f} ms")
         log(f"[kernels] {label} match_terms: device duration {mt['device_ms']:.4f} ms")
+        zs = out["selector_spread_score"]
         zargs, _ = TO.selector_spread_args(na, ea, ta, au, m_ns, v)
-        out["selector_spread_score"]["ms"] = cuda_ms(lambda: build.launch(TO.SEL_SPREAD_ENTRY, zargs, dev), 200)
-        out["selector_spread_score"]["plain_ms"] = cuda_ms(
-            lambda: TO.selector_spread_score_plain(na, ea, ta, au, n_buckets=v), 5)
-        out["selector_spread_score"]["bound"] = bound(
-            topology_work("selector_spread_score", na, ea, ta, au, m_sig_ns=m_ns))
+        zs["ms"] = cuda_ms(lambda: build.launch(TO.SEL_SPREAD_ENTRY, zargs, dev), 200)
+        zs["device_ms"] = device_ms(lambda: build.launch(TO.SEL_SPREAD_ENTRY, zargs, dev),
+                                    "selector_spread_cluster_kernel")
+        zs["wrapper_ms"] = cuda_ms(lambda: TO.selector_spread_score(na, ea, ta, au, n_buckets=v, m_sig=m_ns), 200)
+        zs["plain_ms"] = cuda_ms(lambda: TO.selector_spread_score_plain(na, ea, ta, au, n_buckets=v), 5)
+        zs["bound"] = bound(topology_work("selector_spread_score", na, ea, ta, au, m_sig_ns=m_ns))
+        zs["layout"] = {k: getattr(zargs, k) for k in ("C", "slice", "vslice", "mode", "smem")}
+        # the CTAs a spec row: 3 (the fewest whose registers hold N), 4, 8
+        # and 16, each exact, in turns
+        want = TO.selector_spread_score_plain(na, ea, ta, au, n_buckets=v)
+        zs["ctas_ms"] = {}
+        for c in (3, 4, 8, 16, 16, 8, 4, 3):
+            cargs, cout = TO.selector_spread_args(na, ea, ta, au, m_ns, v, cluster=c)
+            build.launch(TO.SEL_SPREAD_ENTRY, cargs, dev)
+            check(torch.equal(cout, want), f"[{label}] selector_spread_score at {c} CTAs a spec row differs")
+            ms = cuda_ms(lambda: build.launch(TO.SEL_SPREAD_ENTRY, cargs, dev), 200)
+            zs["ctas_ms"][str(c)] = min(ms, zs["ctas_ms"].get(str(c), ms))
+        # the zone tables in bucket slices (V = 16,384) and in device memory (40,000)
+        for nb, key in ((16384, "slices_ms"), (40000, "device_tables_ms")):
+            dargs, dout = TO.selector_spread_args(na, ea, ta, au, m_ns, nb)
+            build.launch(TO.SEL_SPREAD_ENTRY, dargs, dev)
+            check(torch.equal(dout, TO.selector_spread_score_plain(na, ea, ta, au, n_buckets=nb)),
+                  f"[{label}] selector_spread_score at V = {nb} differs")
+            zs[key] = cuda_ms(lambda: build.launch(TO.SEL_SPREAD_ENTRY, dargs, dev), 50)
+        log(f"[kernels] {label} selector_spread_score: layout {zs['layout']}; by CTAs a spec row "
+            + ", ".join(f"{c}: {ms_:.4f} ms" for c, ms_ in zs["ctas_ms"].items())
+            + f"; zone tables in slices (V = 16,384) {zs['slices_ms']:.4f} ms, in device memory (V = 40,000) "
+            f"{zs['device_tables_ms']:.4f} ms; through its wrapper {zs['wrapper_ms']:.4f} ms; device duration "
+            f"{zs['device_ms']:.4f} ms")
         for name in ("match_terms", "spread_score", "selector_spread_score"):
             st = out[name]
             log(f"[kernels] {label} {name}: kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, "
@@ -1155,9 +1208,11 @@ def compare_interpod(enc, label, time_it: bool):
     interpod_score (each part and both), inbatch_port_conflict and the
     tracked solve (deterministic and under tie-noise) against their plain
     versions on the same CUDA tensors, at the driver's V and at V = 16
-    (dropped buckets) and 40,000 (device-memory tables); with time_it,
-    time each (kernel alone: one prebuilt struct relaunched) and bound it.
-    Returns {kernel: stats}."""
+    (dropped buckets) and 40,000 (device-memory tables); the filter given
+    the plan's matrices is one launch and no match launch; with time_it,
+    time each (kernel alone: one prebuilt struct relaunched; the filter
+    also as time_interpod_filter says) and bound it. Returns {kernel:
+    stats}."""
     from kubernetes_tpu_torch.kernels import build
     from kubernetes_tpu_torch.ops import filters as F
     from kubernetes_tpu_torch.ops import pipeline as PP
@@ -1169,11 +1224,24 @@ def compare_interpod(enc, label, time_it: bool):
     dev = na["valid"].device
     out = {}
     bad_f = bad_s = 0
+    # the plan's matrices: given them, the filter is one launch and no match launch
+    m_pt_plan = TO.match_terms(xa, pa["label_vals"], pa["ns_id"])
+    m_sig_plan = TO.match_terms(ta, ea["label_vals"], ea["ns_id"])
+    dims = (xa["valid"].shape[0], ta["valid"].shape[0], na["valid"].shape[0])
     for nb in sorted({v, 16, 40000}):
+        ilay = TO.interpod_filter_layout(*dims, nb, pa["valid"].shape[0])
         for parts in FILTER_SUBSETS:
-            k = TO.interpod_filter(na, ea, ta, au, xa, pa, parts=parts, n_buckets=nb)
+            calls, matches, idev = (TO.interpod_filter.launches, TO.match_terms.launches,
+                                    TO.interpod_filter.device_table_launches)
+            k = TO.interpod_filter(na, ea, ta, au, xa, pa, parts=parts, n_buckets=nb, m_pt=m_pt_plan, m_sig=m_sig_plan)
+            check(TO.interpod_filter.launches == calls + 1 and TO.match_terms.launches == matches
+                  and TO.interpod_filter.device_table_launches == idev + int(ilay["tcap"] == 0),
+                  f"[{label}] interpod_filter given the plan is not one launch without match_terms, its device "
+                  f"tables counted")
             p = TO.interpod_filter_plain(na, ea, ta, au, xa, pa, parts, nb)
             bad_f += int((k != p).sum()) + int(k.dtype != p.dtype)
+            k = TO.interpod_filter(na, ea, ta, au, xa, pa, parts=parts, n_buckets=nb)
+            bad_f += int((k != p).sum())
         for parts in SCORE_PARTS:
             k = TO.interpod_score(na, ea, ta, xa, pa, parts=parts, n_buckets=nb)
             p = TO.interpod_score_plain(na, ea, ta, xa, pa, parts, nb)
@@ -1224,13 +1292,8 @@ def compare_interpod(enc, label, time_it: bool):
         parts_f, parts_s = FILTER_SUBSETS[-1], SCORE_PARTS[-1]
         m_pt = TO.match_terms(xa, pa["label_vals"], pa["ns_id"])
         m_sig = TO.match_terms(ta, ea["label_vals"], ea["ns_id"])
-        fargs, _ = TO.interpod_args("filter", na, ea, ta, xa, pa, m_pt, m_sig, parts_f, au, v)
-        out["interpod_filter"]["ms"] = cuda_ms(lambda: build.launch(TO.INTERPOD_FILTER_ENTRY, fargs, dev), 200)
-        out["interpod_filter"]["plain_ms"] = cuda_ms(
-            lambda: TO.interpod_filter_plain(na, ea, ta, au, xa, pa, parts_f, v), 5)
-        out["interpod_filter"]["bound"] = bound(interpod_work("interpod_filter", na, ea, xa, ta, au, pa, parts_f,
-                                                              m_pt, m_sig))
-        sargs, _ = TO.interpod_args("score", na, ea, ta, xa, pa, m_pt, m_sig, parts_s, None, v)
+        out["interpod_filter"].update(time_interpod_filter(na, ea, ta, au, xa, pa, m_pt, m_sig, parts_f, v, label))
+        sargs, _ = TO.interpod_score_args(na, ea, ta, xa, pa, m_pt, m_sig, parts_s, v)
         out["interpod_score"]["ms"] = cuda_ms(lambda: build.launch(TO.INTERPOD_SCORE_ENTRY, sargs, dev), 200)
         out["interpod_score"]["plain_ms"] = cuda_ms(
             lambda: TO.interpod_score_plain(na, ea, ta, xa, pa, parts_s, v), 5)
@@ -1251,6 +1314,8 @@ def compare_interpod(enc, label, time_it: bool):
             f"{mp['bound'][0]:.6f} ms ({mp['bound'][1]})")
         pargs, _ = F.port_conflict_args(pa, ids)
         out["inbatch_port_conflict"]["ms"] = cuda_ms(lambda: build.launch(F.PORT_CONFLICT_ENTRY, pargs, dev), 200)
+        out["inbatch_port_conflict"]["device_ms"] = device_ms(lambda: build.launch(F.PORT_CONFLICT_ENTRY, pargs, dev),
+                                                              "inbatch_port_conflict_kernel")
         out["inbatch_port_conflict"]["plain_ms"] = cuda_ms(lambda: F.inbatch_port_conflict_plain(pa, ids), 5)
         out["inbatch_port_conflict"]["bound"] = bound(interpod_work("inbatch_port_conflict", na, ea, xa, ta, au,
                                                                     pa, ()))
@@ -1267,6 +1332,69 @@ def compare_interpod(enc, label, time_it: bool):
             log(f"[kernels] {label} {name}: kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, "
                 f"bound {st['bound'][0]:.6f} ms ({st['bound'][1]})")
     return out
+
+
+def filter_rows_with_work(ta, au, xa, pa, m_pt, parts):
+    """The spec rows the inter-pod filter tabulates: those owning an
+    AFF_REQ term (under has_aff) or an ANTI_REQ term of the parts, or
+    matched by an ANTI_REQ pattern ("existing")."""
+    from kubernetes_tpu_torch.state.terms import AFF_REQ, ANTI_REQ
+
+    tv, tk, town = ta["valid"], ta["kind"], ta["owner"].long()
+    owns = torch.zeros_like(tv)
+    if "aff" in parts:
+        owns |= tv & (tk == AFF_REQ) & au["has_aff"][town.clamp(0, au["has_aff"].shape[0] - 1)]
+    if "anti" in parts:
+        owns |= tv & (tk == ANTI_REQ)
+    rows = set(town[owns].tolist())
+    if "existing" in parts:
+        anti = xa["valid"] & (xa["kind"] == ANTI_REQ)
+        rows |= set(torch.nonzero((m_pt & anti[:, None]).any(dim=0)).flatten().tolist())
+    return len(rows)
+
+
+def time_interpod_filter(na, ea, ta, au, xa, pa, m_pt, m_sig, parts, v, label):
+    """The inter-pod filter's one launch on these inputs: the kernel alone
+    (relaunch mean by CUDA events, the profiler's device duration), through
+    its wrapper given the plan, its plain version, the bound, the rows it
+    tabulates, the CTAs a spec row 1 to 16 in turns (each exact) and the
+    device-memory tables at V = 40,000. Returns its stats."""
+    from kubernetes_tpu_torch.kernels import build
+    from kubernetes_tpu_torch.ops import topology as TO
+
+    dev = na["valid"].device
+    st = {}
+    fargs, _ = TO.interpod_filter_args(na, ea, ta, au, xa, pa, m_pt, m_sig, parts, v)
+    st["ms"] = cuda_ms(lambda: build.launch(TO.INTERPOD_FILTER_ENTRY, fargs, dev), 200)
+    st["device_ms"] = device_ms(lambda: build.launch(TO.INTERPOD_FILTER_ENTRY, fargs, dev),
+                                "interpod_filter_cluster_kernel")
+    st["wrapper_ms"] = cuda_ms(lambda: TO.interpod_filter(na, ea, ta, au, xa, pa, parts=parts, n_buckets=v,
+                                                          m_pt=m_pt, m_sig=m_sig), 200)
+    st["plain_ms"] = cuda_ms(lambda: TO.interpod_filter_plain(na, ea, ta, au, xa, pa, parts, v), 5)
+    st["bound"] = bound(interpod_work("interpod_filter", na, ea, xa, ta, au, pa, parts, m_pt, m_sig))
+    st["layout"] = {k: getattr(fargs, k) for k in ("C", "slice", "vslice", "tcap", "smem")}
+    st["rows"] = [filter_rows_with_work(ta, au, xa, pa, m_pt, parts), pa["valid"].shape[0]]
+    want = TO.interpod_filter_plain(na, ea, ta, au, xa, pa, parts, v)
+    st["ctas_ms"] = {}
+    for c in (1, 2, 4, 8, 16, 16, 8, 4, 2, 1):
+        cargs, cout = TO.interpod_filter_args(na, ea, ta, au, xa, pa, m_pt, m_sig, parts, v, cluster=c)
+        build.launch(TO.INTERPOD_FILTER_ENTRY, cargs, dev)
+        check(torch.equal(cout, want), f"[{label}] interpod_filter at {c} CTAs a spec row differs")
+        ms = cuda_ms(lambda: build.launch(TO.INTERPOD_FILTER_ENTRY, cargs, dev), 200)
+        st["ctas_ms"][str(c)] = min(ms, st["ctas_ms"].get(str(c), ms))
+    dargs, dout = TO.interpod_filter_args(na, ea, ta, au, xa, pa, m_pt, m_sig, parts, 40000, cluster=1)
+    check(dargs.tcap == 0, f"[{label}] interpod_filter at V = 40,000 on one CTA a row holds its tables in shared "
+          f"memory")
+    build.launch(TO.INTERPOD_FILTER_ENTRY, dargs, dev)
+    check(torch.equal(dout, TO.interpod_filter_plain(na, ea, ta, au, xa, pa, parts, 40000)),
+          f"[{label}] interpod_filter's device-memory tables differ")
+    st["device_tables_ms"] = cuda_ms(lambda: build.launch(TO.INTERPOD_FILTER_ENTRY, dargs, dev), 50)
+    log(f"[kernels] {label} interpod_filter {'+'.join(parts)}: layout {st['layout']}, {st['rows'][0]} of "
+        f"{st['rows'][1]} spec rows tabulate; relaunched {st['ms']:.4f} ms, device duration {st['device_ms']:.4f} "
+        f"ms, through its wrapper {st['wrapper_ms']:.4f} ms; by CTAs a spec row "
+        + ", ".join(f"{c}: {ms_:.4f} ms" for c, ms_ in st["ctas_ms"].items())
+        + f"; device tables (V = 40,000, one CTA a row) {st['device_tables_ms']:.4f} ms")
+    return st
 
 
 def compare_commit(enc, label, time_it: bool, parts=("spread_filter", "arbitrate", "fold_commit_banks")):
@@ -1388,6 +1516,8 @@ def compare_commit(enc, label, time_it: bool, parts=("spread_filter", "arbitrate
         if "fold_commit_banks" in parts:
             oargs = FO.fold_args(*kb, **ctl)
             out["fold_commit_banks"]["ms"] = cuda_ms(lambda: build.launch(FO.FOLD_ENTRY, oargs, dev), 200)
+            out["fold_commit_banks"]["device_ms"] = device_ms(lambda: build.launch(FO.FOLD_ENTRY, oargs, dev),
+                                                              "fold_commit_kernel")
             out["fold_commit_banks"]["plain_ms"] = cuda_ms(lambda: FO.fold_commit_banks_plain(*pbk, **ctl), 5)
             out["fold_commit_banks"]["bound"] = bound(fold_work(prog, na["requested"].shape[1]))
             out["fold_commit_banks"]["library_ms"] = library_fold_ms(kb, ctl, prog.pods)
@@ -1520,6 +1650,7 @@ def compare_fold_usage(label, n, r, nominees, time_it: bool):
         rows, vecs, cnt = rows[:nominees].contiguous(), vecs[:nominees].contiguous(), cnt[:nominees].contiguous()
         uargs = FO.fold_usage_args(kreq, kpc, rows, vecs, cnt)
         st["ms"] = cuda_ms(lambda: build.launch(FO.FOLD_USAGE_ENTRY, uargs, kreq.device), 200)
+        st["device_ms"] = device_ms(lambda: build.launch(FO.FOLD_USAGE_ENTRY, uargs, kreq.device), "fold_usage_kernel")
         st["plain_ms"] = cuda_ms(lambda: FO.fold_usage_plain(preq, ppc, rows, vecs, cnt), 20)
         st["bound"] = bound(fold_usage_work(rows, n, r))
         lr = rows.long()
@@ -1734,6 +1865,7 @@ def compare_slab_gather(label, plane, s, lanes, live, time_it, seed=0):
         ck = "fallback" if plane == "stage" else "owner"
         gargs = SL.gather_args(bank, emp, out, lanes_d, ck, plane != "stage")
         st["ms"] = cuda_ms(lambda: build.launch(SL.GATHER_ENTRY, gargs, ti.device), 200)
+        st["device_ms"] = device_ms(lambda: build.launch(SL.GATHER_ENTRY, gargs, ti.device), "gather_slab_kernel")
         st["plain_ms"] = cuda_ms(plain, 50)
         il = ti.long()
 
@@ -1787,6 +1919,7 @@ def compare_slab_scatter(label, plane, s, rows, time_it, seed=0):
         i32 = ti.int()
         sargs = SL.scatter_args(dev, packed, offs, i32, len(rows))
         st["ms"] = cuda_ms(lambda: build.launch(SL.SCATTER_ENTRY, sargs, ti.device), 200)
+        st["device_ms"] = device_ms(lambda: build.launch(SL.SCATTER_ENTRY, sargs, ti.device), "scatter_slab_kernel")
         st["wrapper_ms"] = cuda_ms(lambda: SL.scatter_rows(dev, idx, upd), 50)
         st["plain_ms"] = cuda_ms(lambda: SL.scatter_rows_plain(want, ti, tu), 50)
 
@@ -2246,6 +2379,8 @@ def phase_kernels():
     nodes, existing, pods = config4_batch(CONFIG4_PODS // 2)
     enc4 = encode(nodes, existing, pods, dev)
     stats.update(compare_interpod(enc4, "config-4", time_it=True))
+    # the same kernel at a config-4 pod's extender /filter request (U = 16, one live row)
+    stats["_request4"] = extender_request_kernels()
     # the commit plane on the all-branches cluster: DoNotSchedule spread on
     # zone and hostname keys beside every inter-pod kind and host ports
     nodes, existing, pods = random_cluster(14, 500, 600, 1500, overflow_nodes=6, topology=True, hard_spread=True,
@@ -2279,6 +2414,13 @@ def phase_kernels():
                                                                                        hard["spread_filter"])
     stats["_redesign"]["spread score and term match"] = spread_and_match_summary(topo[False], topo[True],
                                                                                  stats["match_terms[plan]"])
+    stats["_redesign"]["inter-pod filter and selector spread"] = interpod_and_selector_summary(
+        stats["interpod_filter"], stats["selector_spread_score"])
+    # the kernels at their launch latency: the relaunch mean beside the device duration
+    latency = {k: [stats[k]["ms"], stats[k]["device_ms"]] for k in LATENCY_ROWS if "device_ms" in stats[k]}
+    stats["_redesign"]["inter-pod filter and selector spread"]["launch-latency rows [relaunched, device] ms"] = latency
+    log("[redesign] launch-latency rows, relaunch mean / device duration: "
+        + ", ".join(f"{k} {ms:.4f} / {d:.4f} ms" for k, (ms, d) in latency.items()))
     return stats
 
 
@@ -2291,7 +2433,33 @@ BEFORE_MS = {"spread_filter": 0.0928, "spread_filter_match_terms": 0.0138, "filt
              "pipeline.filter_mask": 0.3984,
              # the spread score's four kernels and its match launch, and the
              # match kernel, at the config-3 + Services shapes
-             "spread_score": 0.1087, "spread_score_match_terms": 0.0127, "match_terms": 0.0127}
+             "spread_score": 0.1087, "spread_score_match_terms": 0.0127, "match_terms": 0.0127,
+             # the inter-pod filter's three kernels at the config-4 shapes and
+             # the selector spread's one block a row at the config-3 +
+             # Services shapes, the kernel alone, relaunched
+             "interpod_filter": 0.0197, "selector_spread_score": 0.0654}
+
+
+# the kernels PERF.md lists at their launch latency
+LATENCY_ROWS = ("gather_stage", "gather_terms", "scatter_rows", "fold_commit_banks", "fold_usage",
+                "inbatch_port_conflict")
+
+
+def interpod_and_selector_summary(ip4, zs):
+    """The redesigned inter-pod filter (config-4 shapes; the extender's
+    request is added after phase 5) and selector spread (config-3 +
+    Services shapes): relaunch mean, device duration, through the wrapper,
+    the bound, the time before, the CTAs a spec row and the device tables."""
+    keys = ("ms", "device_ms", "wrapper_ms", "ctas_ms", "layout", "device_tables_ms")
+    out = {"interpod_filter config-4": {**{k: ip4[k] for k in keys}, "rows": ip4["rows"],
+                                        "bound_ms": ip4["bound"][0], "before_ms": BEFORE_MS["interpod_filter"]},
+           "selector_spread_score": {**{k: zs[k] for k in keys}, "slices_ms": zs["slices_ms"],
+                                     "bound_ms": zs["bound"][0], "before_ms": BEFORE_MS["selector_spread_score"]}}
+    for k, v in out.items():
+        log(f"[redesign] {k}: {v['ms']:.4f} ms relaunched, {v['device_ms']:.4f} ms device duration, "
+            f"{v['wrapper_ms']:.4f} ms through its wrapper, before {v['before_ms']:.4f} ms, bound "
+            f"{v['bound_ms']:.6f} ms; CTAs a spec row {v['ctas_ms']}")
+    return out
 
 
 def spread_and_match_summary(s3, s3s, plan):
@@ -2426,6 +2594,8 @@ def kernel_counters():
         "spread_filter": (TO.spread_filter, "launches"), "arbitrate": (A.arbitrate, "launches"),
         "spread_filter[device tables]": (TO.spread_filter, "device_table_launches"),
         "spread_score[device tables]": (TO.spread_score, "device_table_launches"),
+        "interpod_filter[device tables]": (TO.interpod_filter, "device_table_launches"),
+        "selector_spread_score[device tables]": (TO.selector_spread_score, "device_table_launches"),
         "match_terms[problems]": (TO.match_terms, "problems"),
         "match_terms[plan]": (TO.match_terms, "multi_launches"),
         "filter_mask[device memory]": (F.combined_mask, "device_memory_launches"),
@@ -3584,6 +3754,54 @@ def compare_filter_mask(inputs, label, time_it: bool):
     return out
 
 
+def extender_request_kernels():
+    """A config-4 pod's /filter request (its required terms and the bound
+    pods' patterns) on the extender's cluster, as the ExtenderServer builds
+    it (phase 3: the server is never started): filter_mask through its
+    wrapper and the inter-pod filter alone, each exact and timed."""
+    from kubernetes_tpu_torch.extender import ExtenderServer
+    from kubernetes_tpu_torch.models.clusters import fill_cache
+    from kubernetes_tpu_torch.state.cache import SchedulerCache
+
+    nodes, existing, pending = extender_cluster()
+    cache = SchedulerCache()
+    fill_cache(cache, nodes, existing)
+    srv = ExtenderServer(cache=cache, device="cuda")
+    try:
+        req = srv.filter_inputs(pending[1])
+        label = "extender /filter request (config-4 pod)"
+        return {"filter_mask": compare_filter_mask(req, label, time_it=True),
+                "interpod_filter": interpod_filter_request(req, label)}
+    finally:
+        srv.stop()
+
+
+def interpod_filter_request(inputs, label):
+    """The inter-pod filter at an extender request's shapes (U = 16 rows,
+    one live): its parts and the match plan as filter_mask builds them;
+    exact against its plain version, then timed (time_interpod_filter).
+    Returns its stats."""
+    from kubernetes_tpu_torch.ops import pipeline as PP
+    from kubernetes_tpu_torch.ops import topology as TO
+
+    cfg = inputs["config"] or PP.DEFAULT_SOLVE_CONFIG
+    kinds = PP._check_term_kinds(inputs["term_kinds"])
+    parts = PP._filter_parts(cfg, kinds)
+    check(bool(parts), f"[{label}] the request runs no inter-pod filter part ({sorted(kinds)})")
+    na, ea, ta, au, xa, pa, v = (inputs[k] for k in ("na", "ea", "ta", "au", "xa", "pa", "n_buckets"))
+    plan = PP.match_plan(pa, cfg, kinds, ea=ea, ta=ta, xa=xa, score=False)
+    m_pt = plan.get("m_pt", TO.match_terms(xa, pa["label_vals"], pa["ns_id"]))
+    m_sig = plan.get("m_sig", TO.match_terms(ta, ea["label_vals"], ea["ns_id"]))
+    got = TO.interpod_filter(na, ea, ta, au, xa, pa, parts=parts, n_buckets=v, m_pt=m_pt, m_sig=m_sig)
+    check(torch.equal(got, TO.interpod_filter_plain(na, ea, ta, au, xa, pa, parts, v)),
+          f"[{label}] interpod_filter differs from its plain version")
+    st = time_interpod_filter(na, ea, ta, au, xa, pa, m_pt, m_sig, parts, v, label)
+    st["parts"] = list(parts)
+    st["shape"] = {"U": pa["valid"].shape[0], "live": int(pa["valid"].sum()), "N": na["valid"].shape[0], "V": v,
+                   "PT": xa["valid"].shape[0], "TT": ta["valid"].shape[0]}
+    return st
+
+
 def enc_filter_inputs(enc):
     """filter_mask's keyword arguments for an `encode`d batch."""
     return dict(na=enc["na"], pa=enc["pa"], ids=enc["ids"], config=None, term_kinds=enc["kinds"], ea=enc["ea"],
@@ -4048,6 +4266,27 @@ def main() -> int:
     red["main path device-table launches"] = launches.get("spread_score[device tables]", 0)
     log(f"[redesign] match launches a batch {MATCHES}; spread_score device-table launches on the main path "
         f"{red['main path device-table launches']}")
+    red = stats["_redesign"]["inter-pod filter and selector spread"]
+    req = stats.pop("_request4")
+    ipr = req["interpod_filter"]
+    red["interpod_filter extender request"] = {
+        **{k: ipr[k] for k in ("ms", "device_ms", "wrapper_ms", "ctas_ms", "layout", "rows", "parts", "shape",
+                               "device_tables_ms")},
+        "bound_ms": ipr["bound"][0], "filter_mask_wrapper_ms": req["filter_mask"]["ms"]}
+    red["main path launches"] = {k: launches.get(k, 0) for k in (
+        "interpod_filter", "interpod_filter[device tables]", "selector_spread_score",
+        "selector_spread_score[device tables]")}
+    check(red["main path launches"]["interpod_filter[device tables]"] == 0
+          and red["main path launches"]["selector_spread_score[device tables]"] == 0,
+          f"a main path took the inter-pod filter's or the selector spread's device tables: "
+          f"{red['main path launches']}")
+    log(f"[redesign] interpod_filter at a config-4 pod's /filter request {ipr['shape']} parts {ipr['parts']}: "
+        f"{ipr['ms']:.4f} ms relaunched, {ipr['device_ms']:.4f} ms device duration, {ipr['wrapper_ms']:.4f} ms "
+        f"through its wrapper, {ipr['rows'][0]} of {ipr['rows'][1]} rows tabulate, CTAs a spec row "
+        f"{ipr['ctas_ms']}; filter_mask through its wrapper {req['filter_mask']['ms']:.4f} ms; main path "
+        f"launches {red['main path launches']}")
+    log(f"[launches] main-path launches summed over every drain: "
+        + json.dumps({k: v for k, v in sorted(launches.items())}))
     log(f"[done] {time.perf_counter() - t0:.1f}s; card: {smi}")
     print(json.dumps({"redesign": stats["_redesign"]}), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)

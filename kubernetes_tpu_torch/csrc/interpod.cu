@@ -12,22 +12,35 @@
 // counts[N, S] int16) matched by the batch's terms, and their own terms as
 // PATTERNS (state/terms.PatternBank, counts[N, PT] int16) matched against
 // the batch's spec rows. The term x signature and pattern x spec-row
-// matches come from the match_terms kernel (topology.cu), launched by the
-// wrappers before these.
+// matches come from the match_terms kernel (topology.cu): the batch's match
+// plan, or one match launch by the wrappers.
 //
-// ktpu_interpod_filter: up to three launches, by the parts asked for
-//   1. pattern tables   one block per ANTI_REQ pattern: its instance counts
-//                       summed per topology bucket ("existing")
-//   2. term tables      one block per AFF_REQ / ANTI_REQ term: the
-//                       signatures it counts compacted into a list (for
-//                       required affinity those matching EVERY AFF_REQ term
-//                       of its owner), their per-node counts summed per
-//                       bucket, and whether any bucket is non-empty
-//   3. mask             one thread per (spec row, node): OR over the row's
-//                       matching ANTI_REQ patterns, AND over its AFF_REQ
-//                       terms (with the first-pod escape), OR over its
-//                       ANTI_REQ terms, each a gather of its table at the
-//                       node's bucket
+// ktpu_interpod_filter: ONE launch, a grid of U thread-block clusters of C
+//   CTAs, one cluster a spec row u; CTA c owns the node slice [c * slice,
+//   (c + 1) * slice) and the bucket slice [c * vslice, ...) of every table.
+//   1. The row's ITEMS, compacted once in shared memory in ascending order
+//      (so every CTA walks the same chunks and the barriers match): its
+//      matching ANTI_REQ patterns ("existing", code pt), its AFF_REQ terms
+//      ("aff", where has_aff[u]) and its ANTI_REQ terms ("anti"; code
+//      PT + t). A row without items (no matching pattern, no owned term)
+//      writes its all-pass row and tabulates nothing.
+//   2. The items in chunks of tcap per-bucket tables in shared memory (one
+//      table at a time in device memory when tcap is 0):
+//      a. each CTA clears its bucket slice of the chunk's tables; a cluster
+//         barrier;
+//      b. each CTA adds its nodes' counts into the OWNING CTA's bucket slice
+//         through distributed shared memory (integer atomics; buckets >= V
+//         dropped): a pattern's instances x_counts[n, pt], a term's matched
+//         signatures' counts, the signatures compacted in windows of
+//         SIG_WINDOW (an AFF_REQ term's: those matching EVERY AFF_REQ term
+//         of the row; an ANTI_REQ term's: its own); a cluster barrier;
+//      c. each node reads each table at its clamped bucket: a pattern or an
+//         ANTI_REQ term holding a pod there blocks it, every AFF_REQ term
+//         must hold one; each CTA notes whether its slice of an AFF_REQ
+//         table holds a pod (the first-pod escape's any_pair).
+//   3. any_pair over the cluster (one more barrier, for a row that can take
+//      the escape), then the mask; the exit waits on a split cluster
+//      barrier so no CTA leaves while another reads its shared memory.
 // ktpu_interpod_score: pattern tables (AFF_REQ / AFF_PREF / ANTI_PREF),
 //   term tables (AFF_PREF / ANTI_PREF), then one block per spec row: the
 //   weighted per-node sums in int64, the row's min and max over valid
@@ -39,18 +52,279 @@
 // dropped from a sum and clamped in a gather, as segment_sum and the JAX
 // gather do.
 //
-// Bound: bytes. Each table block reads one dense label column and the
-// counts columns its term or pattern names; the mask and score kernels
-// read the small tables and write [U, N]. The arithmetic is a few integer
-// adds per (term, node); the real cost at the config-4 shapes is the
-// launches and the serial walks of N nodes by PT or TT blocks.
+// Bound: bytes. The filter reads, per item and node of the row, the dense
+// label at the item's key and the counts columns it names, and writes
+// [U, N] bytes; the tables stay in the cluster's shared memory (in device
+// memory only past its budget). The arithmetic is a few integer adds per
+// (item, node). What costs is the reads a node takes (a 32-byte sector for
+// each 2-byte count or 4-byte label: the banks are node-major), a CTA's
+// chain of dependent round trips and cluster barriers and, for the score,
+// the launches and the serial walks of N nodes by PT or TT blocks.
+#include <cooperative_groups.h>
+
 #include "topology.cuh"
+
+namespace cg = cooperative_groups;
 
 #define PART_EXISTING 1   // interpod_filter "existing"
 #define PART_AFF 2        // interpod_filter "aff"
 #define PART_ANTI 4       // interpod_filter "anti"
 #define PART_PREF 8       // interpod_score "pref"
 #define PART_X_SCORE 16   // interpod_score "existing"
+
+__device__ __forceinline__ bool kind_in(int32_t kind, int kind_mask) {
+  return kind > 0 && kind < 31 && ((kind_mask >> kind) & 1);
+}
+
+__device__ __forceinline__ int clamp_bucket(int32_t b, int V) { return b > V - 1 ? V - 1 : b; }
+
+// the dense label of node x at a slot (clipped; -1: absent)
+__device__ __forceinline__ int32_t dense_at(const int32_t* label_dense, int K, int x, int32_t slot) {
+  const int sc = slot < 0 ? 0 : (slot > K - 1 ? K - 1 : slot);
+  return __ldg(label_dense + (int64_t)x * K + sc);
+}
+
+// ---------------------------------------------------------------------------
+// interpod_filter
+// ---------------------------------------------------------------------------
+
+#define IP_BATCH 4        // nodes a thread loads for at once
+#define SIG_WINDOW 1024   // signatures a window of a term's compaction
+#define IP_OK 1           // no pattern or ANTI_REQ term blocks the node
+#define IP_AFF_OK 2       // every AFF_REQ term holds a pod in the node's bucket
+
+struct InterpodFilterArgs {
+  const int32_t* label_dense;     // [N, K]
+  const uint8_t* x_valid;         // [PT] patterns
+  const int32_t* x_kind;          // [PT]
+  const int32_t* x_topo_slot;     // [PT]
+  const int16_t* x_counts;        // [N, PT]
+  const uint8_t* m_pt;            // [PT, U] pattern matches spec row (labels + namespace)
+  const uint8_t* t_valid;         // [TT] batch terms
+  const int32_t* t_kind;          // [TT]
+  const int32_t* t_owner;         // [TT]
+  const int32_t* t_topo_slot;     // [TT]
+  const uint8_t* m_sig;           // [TT, S] term matches signature (labels + namespace)
+  const uint8_t* e_valid;         // [S]
+  const int16_t* counts;          // [N, S]
+  const uint8_t* self_aff_match;  // [U]
+  const uint8_t* has_aff;         // [U]
+  int32_t* dtable;                // [U, V] the tables in device memory (tcap == 0)
+  uint8_t* mask;                  // [U, N]
+  int32_t N, K, PT, TT, S, U, V, parts;
+  // the launch (ops/topology.interpod_filter_layout): C CTAs a spec row,
+  // the node and bucket slices of a CTA, the item tables a chunk holds in
+  // shared memory (0: one at a time in device memory) and the dynamic
+  // shared memory
+  int32_t C, slice, vslice, tcap, smem;
+};
+
+// the dynamic shared memory of a CTA, in this order: the chunk's bucket
+// slices [tcap, vslice], the row's items [PT + TT] and a signature window
+// [SIG_WINDOW] (int32), the node states [slice] (bytes).
+// ops/topology.interpod_filter_layout computes the same bytes.
+__host__ __device__ __forceinline__ size_t interpod_filter_smem_bytes(const InterpodFilterArgs& a) {
+  return 4 * ((size_t)a.tcap * a.vslice + (size_t)a.PT + a.TT + SIG_WINDOW) + (size_t)a.slice;
+}
+
+// The cell of bucket b (< V) of the chunk's table j: in the owning CTA's
+// shared memory, or in the row's device-memory table.
+__device__ __forceinline__ int32_t* ip_cell(const InterpodFilterArgs& a, int32_t* tab, int32_t* dtab, int j, int b) {
+  if (a.tcap == 0) return dtab + b;
+  const int r = b / a.vslice;
+  return cg::this_cluster().map_shared_rank(tab + (size_t)j * a.vslice + (b - r * a.vslice), r);
+}
+
+__device__ __forceinline__ int32_t ip_get(const InterpodFilterArgs& a, int32_t* tab, int32_t* dtab, int j, int b) {
+  return a.tcap == 0 ? __ldcg(dtab + b) : *ip_cell(a, tab, dtab, j, b);
+}
+
+// Table j of the chunk += count(x) at the bucket of every node x of
+// [n0, n1) with the key and a bucket below V (segment_sum drops the rest).
+template <typename Count>
+__device__ __forceinline__ void ip_tabulate(const InterpodFilterArgs& a, int32_t* tab, int32_t* dtab, int j,
+                                            int32_t slot, int n0, int n1, Count count) {
+  for (int x0 = n0 + threadIdx.x; x0 < n1; x0 += IP_BATCH * THREADS) {
+    int32_t d[IP_BATCH], cn[IP_BATCH];
+#pragma unroll
+    for (int k = 0; k < IP_BATCH; ++k) {  // the batch's label loads first
+      const int x = x0 + k * THREADS;
+      d[k] = (x < n1 && slot >= 0) ? dense_at(a.label_dense, a.K, x, slot) : -1;
+    }
+#pragma unroll
+    for (int k = 0; k < IP_BATCH; ++k) cn[k] = (d[k] >= 0 && d[k] < a.V) ? count(x0 + k * THREADS) : 0;
+#pragma unroll
+    for (int k = 0; k < IP_BATCH; ++k) {
+      if (cn[k] != 0) atomicAdd(ip_cell(a, tab, dtab, j, d[k]), cn[k]);
+    }
+  }
+}
+
+__global__ void __launch_bounds__(THREADS) interpod_filter_cluster_kernel(const InterpodFilterArgs a) {
+  extern __shared__ __align__(16) uint8_t dyn[];
+  __shared__ int32_t warp_cnt[THREADS / 32];
+  __shared__ int32_t any_flag;  // this CTA's slices of the AFF_REQ tables hold a pod
+  cg::cluster_group cluster = cg::this_cluster();
+  const int u = blockIdx.y, c = blockIdx.x, tid = threadIdx.x, V = a.V;
+  int32_t* tab = (int32_t*)dyn;                          // [tcap, vslice]
+  int32_t* items = tab + (size_t)a.tcap * a.vslice;      // [PT + TT]
+  int32_t* sigs = items + a.PT + a.TT;                   // [SIG_WINDOW]
+  uint8_t* state = (uint8_t*)(sigs + SIG_WINDOW);        // [slice]
+  int32_t* dtab = a.tcap == 0 ? a.dtable + (int64_t)u * V : nullptr;
+  const int n0 = c * a.slice, n1 = min(a.N, n0 + a.slice);
+  const int v0 = min(V, c * a.vslice), v1 = min(V, v0 + a.vslice);
+  const int64_t row = (int64_t)u * a.N;
+  const bool want_x = (a.parts & PART_EXISTING) != 0;
+  const bool want_aff = (a.parts & PART_AFF) != 0 && a.has_aff[u];
+  const bool want_anti = (a.parts & PART_ANTI) != 0;
+
+  // 1. the row's items
+  // (each predicate loads its operands together: one round trip, not a chain)
+  const int ni = ordered_compact(a.PT + a.TT, [&](int i) -> bool {
+    if (i < a.PT) {
+      if (!want_x) return false;
+      const bool v = a.x_valid[i] != 0, m = a.m_pt[(int64_t)i * a.U + u] != 0;
+      return v & m & (a.x_kind[i] == ANTI_REQ);
+    }
+    const int t = i - a.PT;
+    const bool v = a.t_valid[t] != 0;
+    const int32_t o = a.t_owner[t], k = a.t_kind[t];
+    return v & (o == u) & (((k == AFF_REQ) & want_aff) | ((k == ANTI_REQ) & want_anti));
+  }, items, warp_cnt);
+  if (ni == 0) {  // nothing to tabulate: the row passes everywhere (every CTA of the cluster returns here)
+    for (int x = n0 + tid; x < n1; x += THREADS) a.mask[row + x] = 1;
+    return;
+  }
+  int has_aff_item = 0;
+  for (int i = tid; i < ni; i += THREADS) has_aff_item |= items[i] >= a.PT && a.t_kind[items[i] - a.PT] == AFF_REQ;
+  // the row can take the first-pod escape
+  const bool escape = __syncthreads_or(has_aff_item) && a.self_aff_match[u];
+  for (int x = n0 + tid; x < n1; x += THREADS) state[x - n0] = IP_OK | IP_AFF_OK;
+  int any_local = 0;
+
+  // 2. the items, a chunk of tables at a time
+  const int per = a.tcap > 0 ? a.tcap : 1;
+  for (int i0 = 0; i0 < ni; i0 += per) {
+    const int i1 = min(ni, i0 + per);
+    // a. this CTA's bucket slices of the chunk's tables, cleared
+    if (a.tcap > 0) {
+      for (int k = tid; k < (i1 - i0) * a.vslice; k += THREADS) tab[k] = 0;
+    } else {
+      for (int v = v0 + tid; v < v1; v += THREADS) dtab[v] = 0;
+      __threadfence();
+    }
+    cluster.sync();  // every slice is clear before any CTA adds into it
+
+    // b. the node slice's counts into the owning CTAs' slices
+    for (int i = i0; i < i1; ++i) {
+      const int code = items[i];
+      if (code < a.PT) {
+        ip_tabulate(a, tab, dtab, i - i0, a.x_topo_slot[code], n0, n1,
+                    [&](int x) { return (int32_t)__ldg(a.x_counts + (int64_t)x * a.PT + code); });
+        continue;
+      }
+      const int t = code - a.PT;
+      const bool aff = a.t_kind[t] == AFF_REQ;
+      for (int s0 = 0; s0 < a.S; s0 += SIG_WINDOW) {
+        const int ns = ordered_compact(min(a.S - s0, SIG_WINDOW), [&](int k) -> bool {
+          const int s = s0 + k;
+          bool ok = a.e_valid[s] != 0;
+          if (!aff) return ok & (a.m_sig[(int64_t)t * a.S + s] != 0);
+          for (int q = 0; q < ni; ++q) {  // every AFF_REQ term of the row matches it
+            const int tq = items[q] - a.PT;
+            if (tq >= 0 && a.t_kind[tq] == AFF_REQ) ok &= a.m_sig[(int64_t)tq * a.S + s] != 0;
+          }
+          return ok;
+        }, sigs, warp_cnt);
+        if (ns > 0) {
+          const int16_t* cols = a.counts + s0;
+          ip_tabulate(a, tab, dtab, i - i0, a.t_topo_slot[t], n0, n1, [&](int x) {
+            const int16_t* rc = cols + (int64_t)x * a.S;
+            int32_t cn = 0;
+            for (int q = 0; q < ns; ++q) cn += __ldg(rc + sigs[q]);
+            return cn;
+          });
+        }
+        __syncthreads();  // the window's list is read before the next one is built
+      }
+    }
+    if (a.tcap == 0) __threadfence();
+    cluster.sync();  // the chunk's tables are complete
+
+    // c. each node's tests at its clamped bucket
+    for (int x0 = n0 + tid; x0 < n1; x0 += IP_BATCH * THREADS) {
+      uint8_t st[IP_BATCH];
+#pragma unroll
+      for (int k = 0; k < IP_BATCH; ++k) st[k] = x0 + k * THREADS < n1 ? state[x0 + k * THREADS - n0] : 0;
+      for (int i = i0; i < i1; ++i) {
+        const int code = items[i];
+        const bool pat = code < a.PT;
+        const int32_t slot = pat ? a.x_topo_slot[code] : a.t_topo_slot[code - a.PT];
+        const bool aff = !pat && a.t_kind[code - a.PT] == AFF_REQ;
+        int32_t d[IP_BATCH];
+#pragma unroll
+        for (int k = 0; k < IP_BATCH; ++k) {
+          const bool live = (st[k] & IP_OK) && (!aff || (st[k] & IP_AFF_OK));
+          d[k] = (live && slot >= 0) ? dense_at(a.label_dense, a.K, x0 + k * THREADS, slot) : -1;
+        }
+#pragma unroll
+        for (int k = 0; k < IP_BATCH; ++k) {
+          if (!(st[k] & IP_OK)) continue;
+          const bool present = d[k] >= 0 && ip_get(a, tab, dtab, i - i0, clamp_bucket(d[k], V)) > 0;
+          if (aff) {
+            if (!present) st[k] &= ~IP_AFF_OK;
+          } else if (present) {
+            st[k] &= ~IP_OK;
+          }
+        }
+      }
+#pragma unroll
+      for (int k = 0; k < IP_BATCH; ++k) {
+        if (x0 + k * THREADS < n1) state[x0 + k * THREADS - n0] = st[k];
+      }
+    }
+    // any_pair: this CTA's slices of the chunk's AFF_REQ tables
+    for (int i = i0; i < i1 && escape; ++i) {
+      const int code = items[i];
+      if (code < a.PT || a.t_kind[code - a.PT] != AFF_REQ) continue;
+      for (int v = v0 + tid; v < v1; v += THREADS) {
+        any_local |= (a.tcap > 0 ? tab[(size_t)(i - i0) * a.vslice + (v - v0)] : __ldcg(dtab + v)) > 0;
+      }
+    }
+    if (i1 < ni) cluster.sync();  // every CTA is past its reads before the next chunk clears its slices
+  }
+
+  // 3. any_pair over the cluster, then the mask
+  bool any_pair = false;
+  if (escape) {
+    any_local = __syncthreads_or(any_local);
+    if (tid == 0) any_flag = any_local;
+    cluster.sync();
+    for (int r = 0; r < a.C; ++r) any_pair |= *cluster.map_shared_rank(&any_flag, r) != 0;
+  }
+  cluster_arrive();  // this CTA's reads of the others' shared memory are done
+  const bool pass_aff = escape && !any_pair;
+  for (int x = n0 + tid; x < n1; x += THREADS) {
+    const uint8_t st = state[x - n0];
+    a.mask[row + x] = ((st & IP_OK) && ((st & IP_AFF_OK) || pass_aff)) ? 1 : 0;
+  }
+  cluster_wait();  // no CTA leaves while another may read its shared memory
+}
+
+extern "C" int ktpu_interpod_filter(const InterpodFilterArgs* args, cudaStream_t stream) {
+  const InterpodFilterArgs& a = *args;
+  if (a.U <= 0 || a.N <= 0) return (int)cudaGetLastError();
+  if (a.C < 1 || a.C > MAX_CLUSTER || a.V < 1 || a.slice < 1 || a.vslice < 1 ||
+      (size_t)a.C * a.slice < (size_t)a.N || (size_t)a.C * a.vslice < (size_t)a.V || a.tcap < 0 ||
+      (a.tcap == 0 && a.dtable == nullptr) || interpod_filter_smem_bytes(a) != (size_t)a.smem) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch_cluster((const void*)interpod_filter_cluster_kernel, a.C, THREADS, (size_t)a.smem, a, stream, a.U);
+}
+
+// ---------------------------------------------------------------------------
+// interpod_score: the pattern and term tables, then one block per spec row
+// ---------------------------------------------------------------------------
 
 struct InterpodArgs {
   const uint8_t* n_valid;         // [N]
@@ -70,22 +344,12 @@ struct InterpodArgs {
   const uint8_t* e_valid;         // [S]
   const int16_t* counts;          // [N, S]
   const uint8_t* p_valid;         // [U]
-  const uint8_t* self_aff_match;  // [U]
-  const uint8_t* has_aff;         // [U]
   int32_t* sig_list;              // [TT, S] scratch
   int32_t* x_table;               // [PT, V] scratch: per-bucket pattern instances
   int32_t* t_table;               // [TT, V] scratch: per-bucket term matches
-  uint8_t* any_pair;              // [TT] scratch: the term's table is non-empty
-  uint8_t* mask;                  // [U, N] filter output
   int64_t* score;                 // [U, N] score output
   int32_t N, K, PT, TT, S, U, V, parts, table_in_shared;
 };
-
-__device__ __forceinline__ bool kind_in(int32_t kind, int kind_mask) {
-  return kind > 0 && kind < 31 && ((kind_mask >> kind) & 1);
-}
-
-__device__ __forceinline__ int clamp_bucket(int32_t b, int V) { return b > V - 1 ? V - 1 : b; }
 
 // Per-bucket instance sums of one pattern of a wanted kind: the hosting
 // node must carry the pattern's topology key.
@@ -109,31 +373,19 @@ __global__ void pattern_table_kernel(const InterpodArgs a, int kind_mask) {
   }
 }
 
-// Per-bucket match sums of one batch term of a wanted kind, and whether any
-// bucket holds a match.
+// Per-bucket match sums of one batch term of a wanted kind (the preferred
+// kinds: a term's own matched signatures).
 __global__ void term_table_kernel(const InterpodArgs a, int kind_mask) {
-  extern __shared__ int32_t smem[];  // [V] table when in shared, then [TT] the owner's AFF_REQ terms
-  __shared__ int n_sigs, n_aff;
+  extern __shared__ int32_t smem[];  // [V] table when in shared
+  __shared__ int n_sigs;
   const int t = blockIdx.x;
   if (!a.t_valid[t] || !kind_in(a.t_kind[t], kind_mask)) return;
   int32_t* table = a.table_in_shared ? smem : a.t_table + (int64_t)t * a.V;
-  int32_t* aff_terms = a.table_in_shared ? smem + a.V : smem;
-  const bool all_of_owner = a.t_kind[t] == AFF_REQ;
-  int na = 0;
-  if (all_of_owner) {
-    na = owner_terms(a.t_valid, a.t_kind, a.t_owner, a.TT, AFF_REQ, a.t_owner[t], aff_terms, &n_aff);
-  }
   int32_t* sigs = a.sig_list + (int64_t)t * a.S;
   if (threadIdx.x == 0) n_sigs = 0;
   __syncthreads();
   for (int s = threadIdx.x; s < a.S; s += blockDim.x) {
-    bool ok = a.e_valid[s];
-    if (all_of_owner) {
-      for (int i = 0; i < na && ok; ++i) ok = a.m_sig[(int64_t)aff_terms[i] * a.S + s];
-    } else {
-      ok = ok && a.m_sig[(int64_t)t * a.S + s];
-    }
-    if (ok) sigs[atomicAdd(&n_sigs, 1)] = s;
+    if (a.e_valid[s] && a.m_sig[(int64_t)t * a.S + s]) sigs[atomicAdd(&n_sigs, 1)] = s;
   }
   for (int v = threadIdx.x; v < a.V; v += blockDim.x) table[v] = 0;
   __syncthreads();
@@ -147,73 +399,10 @@ __global__ void term_table_kernel(const InterpodArgs a, int kind_mask) {
     for (int i = 0; i < ns; ++i) c += row[sigs[i]];
     if (c != 0) atomicAdd(&table[b], c);
   }
-  __syncthreads();
-  int any = 0;
-  for (int v = threadIdx.x; v < a.V; v += blockDim.x) {
-    const int32_t c = table[v];
-    if (a.table_in_shared) a.t_table[(int64_t)t * a.V + v] = c;
-    any |= c > 0;
+  if (a.table_in_shared) {
+    __syncthreads();
+    for (int v = threadIdx.x; v < a.V; v += blockDim.x) a.t_table[(int64_t)t * a.V + v] = table[v];
   }
-  any = __syncthreads_or(any);
-  if (threadIdx.x == 0) a.any_pair[t] = any ? 1 : 0;
-}
-
-__global__ void interpod_mask_kernel(const InterpodArgs a) {
-  extern __shared__ int32_t lists[];  // [PT] matching ANTI_REQ patterns, [TT] AFF_REQ, [TT] ANTI_REQ terms
-  __shared__ int n_pats, n_aff, n_anti;
-  const int u = blockIdx.y;
-  const int n = blockIdx.x * blockDim.x + threadIdx.x;
-  int32_t* pats = lists;
-  int32_t* aff = lists + a.PT;
-  int32_t* anti = aff + a.TT;
-  if (threadIdx.x == 0) n_pats = 0;
-  __syncthreads();
-  if (a.parts & PART_EXISTING) {
-    for (int pt = threadIdx.x; pt < a.PT; pt += blockDim.x) {
-      if (a.x_valid[pt] && a.x_kind[pt] == ANTI_REQ && a.m_pt[(int64_t)pt * a.U + u]) {
-        pats[atomicAdd(&n_pats, 1)] = pt;
-      }
-    }
-  }
-  const int naff = (a.parts & PART_AFF) ? owner_terms(a.t_valid, a.t_kind, a.t_owner, a.TT, AFF_REQ, u, aff, &n_aff) : 0;
-  const int nanti = (a.parts & PART_ANTI) ? owner_terms(a.t_valid, a.t_kind, a.t_owner, a.TT, ANTI_REQ, u, anti, &n_anti) : 0;
-  __syncthreads();
-  const int np = n_pats;
-  if (n >= a.N) return;
-  bool ok = true;
-  // existing pods' required anti-affinity: a matching pattern hosted in the
-  // node's bucket blocks it
-  for (int i = 0; i < np && ok; ++i) {
-    const int pt = pats[i];
-    int32_t b;
-    if (dense_bucket(a.label_dense, a.K, n, a.x_topo_slot[pt], &b) &&
-        a.x_table[(int64_t)pt * a.V + clamp_bucket(b, a.V)] > 0) {
-      ok = false;
-    }
-  }
-  // required affinity: every term's bucket holds a pod matching all of them,
-  // unless no such pod exists anywhere and the pod matches its own terms
-  if (ok && (a.parts & PART_AFF) && a.has_aff[u]) {
-    bool aff_ok = true, any_pair = false;
-    for (int i = 0; i < naff; ++i) {
-      const int t = aff[i];
-      int32_t b;
-      const bool has = dense_bucket(a.label_dense, a.K, n, a.t_topo_slot[t], &b);
-      aff_ok = aff_ok && has && a.t_table[(int64_t)t * a.V + clamp_bucket(b, a.V)] > 0;
-      any_pair = any_pair || a.any_pair[t];
-    }
-    ok = aff_ok || (!any_pair && a.self_aff_match[u]);
-  }
-  // required anti-affinity: a matching pod in any term's bucket blocks
-  for (int i = 0; i < nanti && ok; ++i) {
-    const int t = anti[i];
-    int32_t b;
-    if (dense_bucket(a.label_dense, a.K, n, a.t_topo_slot[t], &b) &&
-        a.t_table[(int64_t)t * a.V + clamp_bucket(b, a.V)] > 0) {
-      ok = false;
-    }
-  }
-  a.mask[(int64_t)u * a.N + n] = ok ? 1 : 0;
 }
 
 __global__ void interpod_score_kernel(const InterpodArgs a) {
@@ -295,24 +484,10 @@ static int launch_pattern_tables(const InterpodArgs& a, int kind_mask, cudaStrea
 
 static int launch_term_tables(const InterpodArgs& a, int kind_mask, cudaStream_t stream) {
   if (a.TT <= 0) return 0;
-  const size_t bytes = table_bytes(a) + (size_t)a.TT * sizeof(int32_t);
+  const size_t bytes = table_bytes(a);
   int rc;
   if ((rc = set_smem((const void*)term_table_kernel, bytes))) return rc;
   term_table_kernel<<<a.TT, THREADS, bytes, stream>>>(a, kind_mask);
-  return (int)cudaGetLastError();
-}
-
-extern "C" int ktpu_interpod_filter(const InterpodArgs* args, cudaStream_t stream) {
-  const InterpodArgs& a = *args;
-  if (a.U <= 0 || a.N <= 0) return (int)cudaGetLastError();
-  int rc;
-  if ((a.parts & PART_EXISTING) && (rc = launch_pattern_tables(a, 1 << ANTI_REQ, stream))) return rc;
-  const int term_kinds = ((a.parts & PART_AFF) ? 1 << AFF_REQ : 0) | ((a.parts & PART_ANTI) ? 1 << ANTI_REQ : 0);
-  if (term_kinds && (rc = launch_term_tables(a, term_kinds, stream))) return rc;
-  const size_t bytes = ((size_t)a.PT + 2 * (size_t)a.TT) * sizeof(int32_t);
-  if ((rc = set_smem((const void*)interpod_mask_kernel, bytes))) return rc;
-  dim3 grid((a.N + THREADS - 1) / THREADS, a.U);
-  interpod_mask_kernel<<<grid, THREADS, bytes, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

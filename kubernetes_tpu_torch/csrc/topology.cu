@@ -32,8 +32,9 @@
 // column of each key and the selector rows, and write [U, N] int64 (the
 // filter [U, N] bytes): bytes. Their real cost is launch count and the reads
 // a node costs (one 32-byte sector for each 2-byte count or 4-byte label:
-// the banks are node-major). The spread score and the spread filter are
-// each one launch of clusters (below), the match one launch a batch.
+// the banks are node-major). The spread score, the spread filter and the
+// selector spread are each one launch of clusters (below), the match one
+// launch a batch.
 #include <cooperative_groups.h>
 
 #include "topology.cuh"
@@ -41,30 +42,6 @@
 namespace cg = cooperative_groups;
 
 #define LOAD_BATCH 16  // global loads a thread has in flight at once when staging
-
-// Append the indices i < n with pred(i) to `list` in ascending order (a
-// block-wide ordered compaction); returns their count.
-template <typename Pred>
-__device__ int ordered_compact(int n, Pred pred, int32_t* list, int32_t* warp_cnt) {
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  int total = 0;
-  for (int base = 0; base < n; base += THREADS) {
-    const int i = base + threadIdx.x;
-    const bool f = i < n && pred(i);
-    const unsigned bal = __ballot_sync(0xffffffffu, f);
-    if (lane == 0) warp_cnt[warp] = __popc(bal);
-    __syncthreads();
-    int off = total, sum = 0;
-    for (int w = 0; w < THREADS / 32; ++w) {
-      off += w < warp ? warp_cnt[w] : 0;
-      sum += warp_cnt[w];
-    }
-    if (f) list[off + __popc(bal & ((1u << lane) - 1u))] = i;
-    total += sum;
-    __syncthreads();
-  }
-  return total;
-}
 
 // ---------------------------------------------------------------------------
 // A term's label selector compacted into shared memory (the match kernel's
@@ -1527,13 +1504,38 @@ extern "C" int ktpu_spread_filter(const SpreadFilterArgs* args, cudaStream_t str
 }
 
 // ---------------------------------------------------------------------------
-// selector_spread_score: one block per spec row u
-//   the row's matched signatures = AND over its SEL_SPREAD terms' matches
-//   (with namespaces), valid, not deleting, and at least one selector;
-//   pass 1: per-node counts (0 on invalid nodes), their max, and per-zone
-//   sums (over valid nodes with a zone) in a V-wide table; pass 2: the
-//   float64 node/zone blend, truncated.
+// selector_spread_score: ONE launch, a grid of U thread-block clusters of C
+// CTAs, one cluster a spec row u; CTA c owns the node slice [c * slice,
+// (c + 1) * slice) (an even count: a thread owns node pairs) and, where the
+// zone table lives in slices, the bucket slice [c * vslice, ...).
+//   1. The row's SEL_SPREAD terms in ascending order; then, in windows of
+//      SPREAD_LIST, the signatures matching every one of them (valid, not
+//      deleting; none where the row has no selector) compacted in shared
+//      memory; each thread sums its nodes' counts at them in registers (0
+//      on an invalid node), kept there for pass 2; each node's zone (-1
+//      off a valid node) in shared memory.
+//   2. The zone sums over valid nodes with a zone below V, by `mode`:
+//      0 (V <= SEL_LOCAL_V): a V-wide partial table a CTA in shared memory;
+//        after a cluster barrier every CTA sums the C partials through
+//        distributed shared memory and keeps each bucket's zone score;
+//      1: each node adds into the owning CTA's bucket slice (distributed
+//        shared memory atomics), the slices cleared before a cluster
+//        barrier;
+//      2: the same slices in the row's device-memory table (counted).
+//      The node maximum and have_zones (a valid node with a zone anywhere)
+//      over the cluster from each CTA's partial; the zone maximum from the
+//      merged table, or from the slices' maxima after one more barrier.
+//   3. Pass 2: the float64 node/zone blend in the reference's operation
+//      order, truncated; each output written once, a node pair a 16-byte
+//      store where aligned. The exit waits on a split cluster barrier so no
+//      CTA leaves while another reads its shared memory.
+// A CTA is a chain of dependent round trips more than it is bytes: the
+// predicates load their operands together, one barrier closes each
+// reduction, and four CTAs fit an SM (64 registers a thread), so a launch
+// of up to 528 CTAs runs in one wave.
 // ---------------------------------------------------------------------------
+
+#define SEL_PAIRS 8  // node pairs a thread keeps in registers: a slice <= 2 * SEL_PAIRS * THREADS
 
 struct SelSpreadArgs {
   const uint8_t* t_valid;       // [TT]
@@ -1546,11 +1548,24 @@ struct SelSpreadArgs {
   const int16_t* counts;        // [N, S]
   const uint8_t* n_valid;       // [N]
   const int32_t* zone_dense;    // [N]
-  int32_t* sig_list;            // [U, S] scratch
-  int64_t* ztable;              // [U, V] scratch unless table_in_shared
+  int64_t* ztable;              // [U, V] the zone tables in device memory (mode 2)
   int64_t* out;                 // [U, N]
-  int32_t TT, S, N, U, V, table_in_shared;
+  int32_t TT, S, N, U, V;
+  // the launch (ops/topology.selector_spread_layout): C CTAs a spec row,
+  // the node and bucket slices of a CTA, where the zone tables live (0
+  // local, 1 bucket slices, 2 device memory) and the dynamic shared memory
+  int32_t C, slice, vslice, mode, smem;
 };
+
+// the dynamic shared memory of a CTA, in this order: the zone tables
+// (mode 0: the partial [V] int64 and the zone scores [V] float64; mode 1:
+// the bucket slice [vslice] int64), the row's terms [TT], a signature
+// window [SPREAD_LIST] and the node zones [slice] (int32).
+// ops/topology.selector_spread_layout computes the same bytes.
+__host__ __device__ __forceinline__ size_t sel_spread_smem_bytes(const SelSpreadArgs& a) {
+  const size_t cells = a.mode == 0 ? 2 * (size_t)a.V : (a.mode == 1 ? (size_t)a.vslice : 0);
+  return 8 * cells + 4 * ((size_t)a.TT + SPREAD_LIST + a.slice);
+}
 
 __device__ __forceinline__ double spread_fraction(int64_t mx, int64_t c) {
   // 10 * (max - c) as float64 / max(max, 1), or 10 when max == 0
@@ -1558,69 +1573,228 @@ __device__ __forceinline__ double spread_fraction(int64_t mx, int64_t c) {
   return ((double)MAX_NODE_SCORE * (double)(mx - c)) / (double)mx;
 }
 
-__global__ void selector_spread_kernel(const SelSpreadArgs a) {
-  extern __shared__ int64_t smem64[];  // [V] zone table (when in shared), then [TT] terms
-  __shared__ int n_terms, n_sigs;
-  __shared__ int64_t red[THREADS / 32];
-  const int u = blockIdx.x;
-  int64_t* table = a.table_in_shared ? smem64 : a.ztable + (int64_t)u * a.V;
-  int32_t* terms = (int32_t*)(a.table_in_shared ? smem64 + a.V : smem64);
-  const int nt = owner_terms(a.t_valid, a.t_kind, a.t_owner, a.TT, SEL_SPREAD, u, terms, &n_terms);
-  int32_t* sigs = a.sig_list + (int64_t)u * a.S;
-  if (threadIdx.x == 0) n_sigs = 0;
+__device__ __forceinline__ int64_t warp_max64(int64_t v) {
+  for (int off = 16; off > 0; off >>= 1) {
+    const int64_t o = __shfl_xor_sync(0xffffffffu, v, off);
+    v = o > v ? o : v;
+  }
+  return v;
+}
+
+__global__ void __launch_bounds__(THREADS, 4) selector_spread_cluster_kernel(const SelSpreadArgs a) {
+  extern __shared__ __align__(16) uint8_t dyn[];
+  __shared__ int32_t warp_cnt[THREADS / 32];
+  __shared__ int64_t red_max[THREADS / 32];
+  __shared__ int32_t red_zones[THREADS / 32];
+  __shared__ int64_t part_max, part_zmax;  // this CTA's partials, read by the cluster
+  __shared__ int32_t part_zones;
+  cg::cluster_group cluster = cg::this_cluster();
+  const int u = blockIdx.y, c = blockIdx.x, tid = threadIdx.x, V = a.V, mode = a.mode;
+  const int lane = tid & 31, warp = tid >> 5;
+  int64_t* ztab = (int64_t*)dyn;  // mode 0: the partial [V]; mode 1: the bucket slice [vslice]
+  double* zscore = (double*)(ztab + V);  // mode 0: each bucket's zone score [V]
+  const size_t cells = mode == 0 ? 2 * (size_t)V : (mode == 1 ? (size_t)a.vslice : 0);
+  int32_t* terms = (int32_t*)(ztab + cells);  // [TT]
+  int32_t* sigs = terms + a.TT;               // [SPREAD_LIST]
+  int32_t* zones = sigs + SPREAD_LIST;        // [slice]: the node's zone, -1 off a valid node
+  int64_t* dtab = mode == 2 ? a.ztable + (int64_t)u * V : nullptr;
+  const int n0 = c * a.slice, n1 = min(a.N, n0 + a.slice);
+  const int v0 = min(V, c * a.vslice), v1 = min(V, v0 + a.vslice);
+  const bool has_selectors = a.n_sel_spread[u] > 0;
+
+  // the tables cleared (mode 0 its partial; else this CTA's bucket slice)
+  if (mode == 0) {
+    for (int v = tid; v < V; v += THREADS) ztab[v] = 0;
+  } else {
+    for (int v = v0 + tid; v < v1; v += THREADS) {
+      if (mode == 1) {
+        ztab[v - v0] = 0;
+      } else {
+        dtab[v] = 0;
+      }
+    }
+  }
+  // this thread's node pairs: x = n0 + 2 * (tid + k * THREADS) + h, lane q = 2 k + h
+  int32_t cnt[2 * SEL_PAIRS];
+  uint32_t valid = 0;
+#pragma unroll
+  for (int q = 0; q < 2 * SEL_PAIRS; ++q) {
+    const int x = n0 + 2 * (tid + (q >> 1) * THREADS) + (q & 1);
+    cnt[q] = 0;
+    if (x < n1) {
+      const bool v = __ldg(a.n_valid + x) != 0;
+      const int32_t z = __ldg(a.zone_dense + x);
+      valid |= (uint32_t)v << q;
+      zones[x - n0] = (v && z >= 0) ? z : -1;
+    }
+  }
+
+  // 1. the row's terms, the matched signatures window by window, the counts
+  const int nt = ordered_compact(a.TT, [&](int t) -> bool {
+    const bool v = a.t_valid[t] != 0;
+    const int32_t k = a.t_kind[t], o = a.t_owner[t];
+    return v & (k == SEL_SPREAD) & (o == u);
+  }, terms, warp_cnt);
+  if (has_selectors) {
+    for (int s0 = 0; s0 < a.S; s0 += SPREAD_LIST) {
+      const int ns = ordered_compact(min(a.S - s0, SPREAD_LIST), [&](int k) -> bool {
+        const int s = s0 + k;
+        bool ok = (a.e_valid[s] != 0) & (a.e_deleting[s] == 0);
+        for (int i = 0; i < nt; ++i) ok &= a.m_sig[(int64_t)terms[i] * a.S + s] != 0;
+        return ok;
+      }, sigs, warp_cnt);
+      for (int j = 0; j < ns; ++j) {
+        const int16_t* col = a.counts + s0 + sigs[j];
+#pragma unroll
+        for (int q = 0; q < 2 * SEL_PAIRS; ++q) {  // a signature's counts for all of the thread's nodes at once
+          if ((valid >> q) & 1) cnt[q] += __ldg(col + (int64_t)(n0 + 2 * (tid + (q >> 1) * THREADS) + (q & 1)) * a.S);
+        }
+      }
+      __syncthreads();  // the window's list is read before the next one is built
+    }
+  }
+
+  // 2. the zone sums; the node maximum and have_zones of this CTA
+  if (mode == 0) {
+    __syncthreads();  // the partial is clear; the zones are in place
+  } else {
+    if (mode == 2) __threadfence();
+    cluster.sync();  // every bucket slice is clear before any CTA adds into it
+  }
+  int64_t mx = 0;
+  int any_zone = 0;
+#pragma unroll
+  for (int q = 0; q < 2 * SEL_PAIRS; ++q) {
+    const int x = n0 + 2 * (tid + (q >> 1) * THREADS) + (q & 1);
+    if (!((valid >> q) & 1)) continue;
+    mx = cnt[q] > mx ? cnt[q] : mx;
+    const int32_t z = zones[x - n0];
+    if (z < 0) continue;
+    any_zone = 1;
+    if (z >= V || cnt[q] == 0) continue;  // segment_sum drops a zone >= V
+    int64_t* cellp;
+    if (mode == 0) {
+      cellp = ztab + z;
+    } else if (mode == 1) {
+      const int r = z / a.vslice;
+      cellp = cluster.map_shared_rank(ztab + (z - r * a.vslice), r);
+    } else {
+      cellp = dtab + z;
+    }
+    atomicAdd((unsigned long long*)cellp, (unsigned long long)(int64_t)cnt[q]);
+  }
+  mx = warp_max64(mx);
+  any_zone = __any_sync(0xffffffffu, any_zone);
+  if (lane == 0) {
+    red_max[warp] = mx;
+    red_zones[warp] = any_zone;
+  }
   __syncthreads();
-  if (a.n_sel_spread[u] > 0) {
-    for (int s = threadIdx.x; s < a.S; s += blockDim.x) {
-      bool ok = a.e_valid[s] && !a.e_deleting[s];
-      for (int i = 0; i < nt && ok; ++i) ok = a.m_sig[(int64_t)terms[i] * a.S + s];
-      if (ok) sigs[atomicAdd(&n_sigs, 1)] = s;
+  if (tid == 0) {
+    int64_t m = 0;
+    int32_t zs = 0;
+    for (int w = 0; w < THREADS / 32; ++w) {
+      m = red_max[w] > m ? red_max[w] : m;
+      zs |= red_zones[w];
+    }
+    part_max = m;
+    part_zones = zs;
+  }
+  if (mode == 2) __threadfence();
+  cluster.sync();  // every CTA's partials are complete
+
+  int64_t gmax = 0;
+  bool have_zones = false;
+  for (int r = 0; r < a.C; ++r) {
+    const int64_t pm = *cluster.map_shared_rank(&part_max, r);
+    gmax = pm > gmax ? pm : gmax;
+    have_zones |= *cluster.map_shared_rank(&part_zones, r) != 0;
+  }
+  int64_t zmax = 0;
+  if (mode == 0) {  // the merged table, locally
+    for (int v = tid; v < V; v += THREADS) {
+      int64_t zc = 0;
+      for (int r = 0; r < a.C; ++r) zc += *cluster.map_shared_rank(ztab + v, r);
+      zmax = zc > zmax ? zc : zmax;
+      ((int64_t*)zscore)[v] = zc;  // the merged count for now; its score below
+    }
+  } else {  // this CTA's bucket slice
+    for (int v = v0 + tid; v < v1; v += THREADS) {
+      const int64_t zc = mode == 1 ? ztab[v - v0] : (int64_t)__ldcg((const long long*)dtab + v);
+      zmax = zc > zmax ? zc : zmax;
     }
   }
-  for (int v = threadIdx.x; v < a.V; v += blockDim.x) table[v] = 0;
+  zmax = warp_max64(zmax);
+  if (lane == 0) red_max[warp] = zmax;  // (free again: tid 0 read it before the cluster barrier)
   __syncthreads();
-  const int ns = n_sigs;
-  int64_t* out = a.out + (int64_t)u * a.N;
-  int64_t mx = 0, have_zones = 0;
-  for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
-    int64_t c = 0;
-    if (a.n_valid[n]) {
-      const int16_t* row = a.counts + (int64_t)n * a.S;
-      for (int i = 0; i < ns; ++i) c += row[sigs[i]];
-    }
-    out[n] = c;
-    mx = c > mx ? c : mx;
-    const int32_t z = a.zone_dense[n];
-    if (z >= 0 && a.n_valid[n]) {
-      have_zones = 1;
-      if (z < a.V && c != 0) atomicAdd((unsigned long long*)&table[z], (unsigned long long)c);
+  zmax = 0;
+  for (int w = 0; w < THREADS / 32; ++w) zmax = red_max[w] > zmax ? red_max[w] : zmax;
+  if (mode == 0) {
+    for (int v = tid; v < V; v += THREADS) zscore[v] = spread_fraction(zmax, ((int64_t*)zscore)[v]);
+    __syncthreads();
+  } else {  // the slices' maxima over the cluster
+    if (tid == 0) part_zmax = zmax;
+    cluster.sync();
+    for (int r = 0; r < a.C; ++r) {
+      const int64_t pz = *cluster.map_shared_rank(&part_zmax, r);
+      zmax = pz > zmax ? pz : zmax;
     }
   }
-  mx = block_max<int64_t>(mx, red, 0);
-  have_zones = block_max<int64_t>(have_zones, red, 0);  // any(zone_ok) over all nodes
-  int64_t mz = 0;
-  for (int v = threadIdx.x; v < a.V; v += blockDim.x) mz = table[v] > mz ? table[v] : mz;
-  mz = block_max<int64_t>(mz, red, 0);
-  for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
-    const int64_t c = out[n];
-    const double fscore = spread_fraction(mx, c);
-    const int32_t z = a.zone_dense[n];
-    double blended = fscore;
-    if (have_zones && z >= 0 && a.n_valid[n]) {
-      // the zone score of the node's bucket (a V-wide gather: clamped)
-      const double zscore = spread_fraction(mz, table[z > a.V - 1 ? a.V - 1 : z]);
-      blended = fscore * (1.0 / 3.0) + (2.0 / 3.0) * zscore;
+  if (mode != 1) cluster_arrive();  // this CTA's reads of the others' shared memory are done
+
+  // 3. the blend, each output written once
+  const int64_t row = (int64_t)u * a.N;
+  int64_t* out = a.out + row;
+#pragma unroll
+  for (int k = 0; k < SEL_PAIRS; ++k) {
+    const int x = n0 + 2 * (tid + k * THREADS);
+    if (x >= n1) break;
+    int64_t o[2];
+#pragma unroll
+    for (int h = 0; h < 2; ++h) {
+      const int q = 2 * k + h;
+      const double fscore = spread_fraction(gmax, cnt[q]);
+      double blended = fscore;
+      const int32_t z = x + h < n1 ? zones[x + h - n0] : -1;
+      if (have_zones && z >= 0) {
+        // the zone score of the node's bucket (a V-wide gather: clamped)
+        const int b = z > V - 1 ? V - 1 : z;
+        double zs;
+        if (mode == 0) {
+          zs = zscore[b];
+        } else {
+          int64_t zc;
+          if (mode == 1) {
+            const int r = b / a.vslice;
+            zc = *cluster.map_shared_rank(ztab + (b - r * a.vslice), r);
+          } else {
+            zc = (int64_t)__ldcg((const long long*)dtab + b);
+          }
+          zs = spread_fraction(zmax, zc);
+        }
+        blended = fscore * (1.0 / 3.0) + (2.0 / 3.0) * zs;
+      }
+      o[h] = (int64_t)blended;
     }
-    out[n] = (int64_t)blended;
+    if (x + 1 < n1 && ((row + x) & 1) == 0) {
+      *(longlong2*)(out + x) = make_longlong2(o[0], o[1]);
+    } else {
+      out[x] = o[0];
+      if (x + 1 < n1) out[x + 1] = o[1];
+    }
   }
+  if (mode == 1) cluster_arrive();
+  cluster_wait();  // no CTA leaves while another may read its shared memory
 }
 
 extern "C" int ktpu_selector_spread_score(const SelSpreadArgs* args, cudaStream_t stream) {
   const SelSpreadArgs& a = *args;
   if (a.U <= 0 || a.N <= 0) return (int)cudaGetLastError();
-  const size_t bytes = (a.table_in_shared ? (size_t)a.V * sizeof(int64_t) : 0) +
-                       (size_t)a.TT * sizeof(int32_t);
-  int rc;
-  if ((rc = set_smem((const void*)selector_spread_kernel, bytes))) return rc;
-  selector_spread_kernel<<<a.U, THREADS, bytes, stream>>>(a);
-  return (int)cudaGetLastError();
+  if (a.C < 1 || a.C > MAX_CLUSTER || a.V < 1 || a.slice < 2 || (a.slice & 1) ||
+      a.slice > 2 * SEL_PAIRS * THREADS || (size_t)a.C * a.slice < (size_t)a.N || a.vslice < 1 ||
+      (size_t)a.C * a.vslice < (size_t)a.V || a.mode < 0 || a.mode > 2 || (a.mode == 2 && a.ztable == nullptr) ||
+      sel_spread_smem_bytes(a) != (size_t)a.smem) {
+    return (int)cudaErrorInvalidValue;
+  }
+  return launch_cluster((const void*)selector_spread_cluster_kernel, a.C, THREADS, (size_t)a.smem, a, stream, a.U);
 }

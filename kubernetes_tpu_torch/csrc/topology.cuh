@@ -1,6 +1,6 @@
 // Shared pieces of the topology kernels (topology.cu, interpod.cu): the
-// block size, block-wide reductions, per-row term lists in shared memory,
-// the dense topology bucket of a node, and the dynamic shared-memory opt-in.
+// block size, block-wide reductions, ordered compactions and per-row term
+// lists in shared memory, and the dense topology bucket of a node.
 #pragma once
 
 #include "common.cuh"
@@ -66,18 +66,28 @@ __device__ __forceinline__ T block_min(T v, T* red, T ident) {
   return -block_max<T>(-v, red, -ident);
 }
 
-// Append the terms of `kind` owned by spec row u to `list` (shared memory);
-// returns their count. The order is arbitrary: every use is an AND or an
-// integer sum.
-__device__ __forceinline__ int owner_terms(const uint8_t* valid, const int32_t* kind, const int32_t* owner, int TT,
-                           int32_t want_kind, int u, int32_t* list, int* n_list) {
-  if (threadIdx.x == 0) *n_list = 0;
-  __syncthreads();
-  for (int t = threadIdx.x; t < TT; t += blockDim.x) {
-    if (valid[t] && kind[t] == want_kind && owner[t] == u) list[atomicAdd(n_list, 1)] = t;
+// Append the indices i < n with pred(i) to `list` in ascending order (a
+// block-wide ordered compaction); returns their count.
+template <typename Pred>
+__device__ int ordered_compact(int n, Pred pred, int32_t* list, int32_t* warp_cnt) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int total = 0;
+  for (int base = 0; base < n; base += THREADS) {
+    const int i = base + threadIdx.x;
+    const bool f = i < n && pred(i);
+    const unsigned bal = __ballot_sync(0xffffffffu, f);
+    if (lane == 0) warp_cnt[warp] = __popc(bal);
+    __syncthreads();
+    int off = total, sum = 0;
+    for (int w = 0; w < THREADS / 32; ++w) {
+      off += w < warp ? warp_cnt[w] : 0;
+      sum += warp_cnt[w];
+    }
+    if (f) list[off + __popc(bal & ((1u << lane) - 1u))] = i;
+    total += sum;
+    __syncthreads();
   }
-  __syncthreads();
-  return *n_list;
+  return total;
 }
 
 // _bucket_of for one node: the dense value at the clipped slot, clipped to

@@ -470,7 +470,7 @@ INTERPOD_SCORE_ENTRY = "ktpu_interpod_score"
 # V-wide bucket table there too while it fits (else in device memory)
 MAX_TERMS = 16384
 SHARED_TABLE_BYTES = 160 * 1024
-# the inter-pod kernels stage a row's term and pattern lists in shared memory
+# the inter-pod score stages a row's term and pattern lists in shared memory
 MAX_LIST_BYTES = 200 * 1024
 
 # csrc/interpod.cu's part bits
@@ -537,8 +537,8 @@ class SelSpreadArgs(ctypes.Structure):
     _fields_ = (
         [(k, ctypes.c_void_p) for k in (
             "t_valid", "t_kind", "t_owner", "m_sig", "n_sel_spread", "e_valid", "e_deleting",
-            "counts", "n_valid", "zone_dense", "sig_list", "ztable", "out")]
-        + [(d, ctypes.c_int32) for d in ("TT", "S", "N", "U", "V", "table_in_shared")]
+            "counts", "n_valid", "zone_dense", "ztable", "out")]
+        + [(d, ctypes.c_int32) for d in ("TT", "S", "N", "U", "V", "C", "slice", "vslice", "mode", "smem")]
     )
 
 
@@ -917,22 +917,68 @@ spread_score.launches = 0
 spread_score.device_table_launches = 0
 
 
+# csrc/topology.cu's selector spread: one cluster of C CTAs a spec row, C
+# doubled from the fewest that keep a CTA's node pairs in registers
+# (SEL_PAIRS a thread: 4,096 nodes a CTA) while the launch stays within
+# SEL_SPREAD_CTAS, four CTAs an SM in one wave (timed at 3, 4, 8 and 16
+# CTAs at the config-3 shapes: PERF.md); the zone table a CTA's local
+# partial up to SEL_LOCAL_V buckets, else bucket slices of up to
+# SEL_SLICE_BYTES in shared memory, else device memory (the counted path)
+SEL_SPREAD_CTAS = 512
+SEL_PAIRS = 8
+SEL_LOCAL_V = 1024
+SEL_SLICE_BYTES = 64 * 1024
+
+
+def selector_spread_layout(tt: int, n: int, v: int, u: int, cluster: Optional[int] = None,
+                           mode: Optional[int] = None) -> Dict[str, int]:
+    """The selector-spread launch for TT terms, N nodes, V buckets and U
+    spec rows, as csrc/topology.cu's `sel_spread_smem_bytes` counts it: `C`
+    CTAs a spec row, each owning `slice` nodes (even: a thread owns node
+    pairs) and `vslice` buckets; `mode` where the zone tables live (0: a
+    V-wide partial a CTA, merged locally; 1: bucket slices in shared
+    memory; 2: device memory, the counted path) and `smem` bytes.
+    `cluster` and `mode` override C and the mode (for measuring and
+    testing). Raises past 16 CTAs' registers (65,536 nodes)."""
+    if not 1 <= v < 2**31:
+        raise ValueError(f"{v} buckets: the selector spread takes 1 <= V < 2^31")
+    per_cta = 2 * SEL_PAIRS * 256
+    c_min = max(1, -(-n // per_cta))
+    if c_min > build.MAX_CLUSTER:
+        raise ValueError(f"{n} nodes exceed the selector spread's {build.MAX_CLUSTER * per_cta} (16 CTAs' registers)")
+    if cluster is None:
+        c = c_min
+        while 2 * c <= build.MAX_CLUSTER and max(u, 1) * 2 * c <= SEL_SPREAD_CTAS:
+            c *= 2
+    else:
+        c = int(cluster)
+    if not c_min <= c <= build.MAX_CLUSTER:
+        raise ValueError(f"{c} CTAs a spec row: the selector spread takes {c_min} to {build.MAX_CLUSTER} for N = {n}")
+    sl, vs = 2 * -(-n // (2 * c)), -(-v // c)
+    if mode is None:
+        mode = 0 if v <= SEL_LOCAL_V else (1 if 8 * vs <= SEL_SLICE_BYTES else 2)
+    cells = (2 * v, vs, 0)[int(mode)]
+    smem = 8 * cells + 4 * (tt + SPREAD_LIST + sl)
+    if smem > SPREAD_SMEM:
+        raise ValueError(f"{tt} terms and V = {v} in mode {mode} exceed the selector spread's shared memory")
+    return {"C": c, "slice": sl, "vslice": vs, "mode": int(mode), "smem": smem}
+
+
 def selector_spread_args(nodes: Arrays, eps: Arrays, terms: Arrays, aux: Arrays, m_sig: torch.Tensor,
-                         n_buckets: Optional[int] = None):
-    """The selector-spread kernel's argument struct (with its scratch) and
-    the [U, N] int64 output it writes. `m_sig` is match_terms's output
-    with the namespace test."""
+                         n_buckets: Optional[int] = None, cluster: Optional[int] = None,
+                         mode: Optional[int] = None):
+    """The selector-spread kernel's argument struct (with its device-memory
+    zone tables in mode 2) and the [U, N] int64 output its one launch
+    writes. `m_sig` is match_terms's output with the namespace test;
+    `cluster` and `mode` override the layout (for measuring and testing)."""
     tt = _check_terms(terms)
     u = aux["n_sel_spread"].shape[0]
     n = nodes["valid"].shape[0]
     s = eps["valid"].shape[0]
     v = int(n_buckets or n)
+    lay = selector_spread_layout(tt, n, v, u, cluster, mode)
     dev = m_sig.device
-    in_shared = v * 8 <= SHARED_TABLE_BYTES
-    scratch = dict(
-        sig_list=torch.empty((u, s), dtype=torch.int32, device=dev),
-        ztable=torch.empty((u if not in_shared else 1, v), dtype=torch.int64, device=dev),
-    )
+    tables = {"ztable": torch.empty((u, v), dtype=torch.int64, device=dev)} if lay["mode"] == 2 else {}
     out = torch.empty((u, n), dtype=torch.int64, device=dev)
     a = SelSpreadArgs()
     _term_ptrs(a, terms, tt, ("valid", "kind", "owner"))
@@ -943,12 +989,13 @@ def selector_spread_args(nodes: Arrays, eps: Arrays, terms: Arrays, aux: Arrays,
     a.counts = build.ptr(eps["counts"], torch.int16, (n, s))
     a.n_valid = build.ptr(nodes["valid"], torch.bool, (n,))
     a.zone_dense = build.ptr(nodes["zone_dense"], torch.int32, (n,))
-    for name, t in scratch.items():
+    for name, t in tables.items():
         setattr(a, name, build.ptr(t, t.dtype))
     a.out = build.ptr(out, torch.int64)
     a.TT, a.S, a.N, a.U, a.V = tt, s, n, u, v
-    a.table_in_shared = int(in_shared)
-    a.keepalive = scratch
+    for key, val in lay.items():
+        setattr(a, key, val)
+    a.keepalive = tables
     return a, out
 
 
@@ -959,8 +1006,10 @@ def selector_spread_score(
     """The [U, N] int64 SelectorSpread score. CPU tensors run the plain
     version; CUDA tensors launch the match kernel (with the namespace test)
     unless `m_sig` — that raw [TT, S] match, from the batch's match plan —
-    is given, and then csrc/topology.cu's selector-spread kernel (counted
-    in `selector_spread_score.launches`)."""
+    is given, and then csrc/topology.cu's selector-spread kernel once, a
+    cluster a spec row (counted in `selector_spread_score.launches`; a
+    launch whose zone tables live in device memory also in
+    `selector_spread_score.device_table_launches`)."""
     dev = nodes["valid"].device
     if dev.type == "cpu":
         return selector_spread_score_plain(nodes, eps, terms, aux, n_buckets, m_sig)
@@ -970,11 +1019,13 @@ def selector_spread_score(
         args, out = selector_spread_args(nodes, eps, terms, aux, m_sig, n_buckets)
         build.launch(SEL_SPREAD_ENTRY, args, dev)
         selector_spread_score.launches += 1
+        selector_spread_score.device_table_launches += int(args.mode == 2)
         return out
     raise ValueError(f"no topology kernel for device {dev}")
 
 
 selector_spread_score.launches = 0
+selector_spread_score.device_table_launches = 0
 
 
 class InterpodArgs(ctypes.Structure):
@@ -984,20 +1035,123 @@ class InterpodArgs(ctypes.Structure):
         [(k, ctypes.c_void_p) for k in (
             "n_valid", "label_dense", "x_valid", "x_kind", "x_topo_slot", "x_weight", "x_counts", "m_pt",
             "t_valid", "t_kind", "t_owner", "t_topo_slot", "t_weight", "m_sig", "e_valid", "counts",
-            "p_valid", "self_aff_match", "has_aff", "sig_list", "x_table", "t_table", "any_pair",
-            "mask", "score")]
+            "p_valid", "sig_list", "x_table", "t_table", "score")]
         + [(d, ctypes.c_int32) for d in ("N", "K", "PT", "TT", "S", "U", "V", "parts", "table_in_shared")]
     )
 
 
-def interpod_args(which: str, nodes: Arrays, eps: Arrays, terms: Arrays, ex_terms: Arrays, pods: Arrays,
-                  m_pt: torch.Tensor, m_sig: torch.Tensor, parts: tuple, aux: Optional[Arrays] = None,
-                  n_buckets: Optional[int] = None):
-    """The argument struct (with its scratch) of csrc/interpod.cu's
-    `which` ("filter" or "score") entry for these CUDA tensors, and the
-    [U, N] output it writes (bool mask or int64 score). `m_pt` is
-    match_terms(ex_terms, pod labels, pod namespaces) [PT, U], `m_sig`
-    match_terms(terms, signature labels, signature namespaces) [TT, S]."""
+class InterpodFilterArgs(ctypes.Structure):
+    """Mirror of `struct InterpodFilterArgs` in csrc/interpod.cu."""
+
+    _fields_ = (
+        [(k, ctypes.c_void_p) for k in (
+            "label_dense", "x_valid", "x_kind", "x_topo_slot", "x_counts", "m_pt", "t_valid", "t_kind", "t_owner",
+            "t_topo_slot", "m_sig", "e_valid", "counts", "self_aff_match", "has_aff", "dtable", "mask")]
+        + [(d, ctypes.c_int32) for d in ("N", "K", "PT", "TT", "S", "U", "V", "parts",
+                                         "C", "slice", "vslice", "tcap", "smem")]
+    )
+
+
+# csrc/interpod.cu's filter: one cluster of C CTAs a spec row, C doubled
+# while the launch stays within INTERPOD_FILTER_CTAS (timed at 1 to 16 CTAs
+# at the config-4 and the extender's /filter shapes: PERF.md); up to
+# INTERPOD_TCAP item tables a chunk, their bucket slices within
+# INTERPOD_TABLE_BYTES of a CTA's shared memory (none fits: device memory,
+# the counted path); a window of INTERPOD_SIG_WINDOW signatures
+INTERPOD_FILTER_CTAS = 256
+INTERPOD_TCAP = 16
+INTERPOD_TABLE_BYTES = 64 * 1024
+INTERPOD_SIG_WINDOW = 1024
+
+
+def interpod_filter_layout(pt: int, tt: int, n: int, v: int, u: int, cluster: Optional[int] = None,
+                           tcap: Optional[int] = None) -> Dict[str, int]:
+    """The inter-pod filter's launch for PT patterns, TT terms, N nodes, V
+    buckets and U spec rows, as csrc/interpod.cu's
+    `interpod_filter_smem_bytes` counts it: `C` CTAs a spec row (doubled up
+    to 16 while a CTA's node states and lists overflow the budget), each
+    owning `slice` nodes and `vslice` buckets; `tcap` item tables a chunk in
+    shared memory (0: one table at a time in device memory, the counted
+    path) and `smem` bytes. `cluster` and `tcap` override C and tcap (for
+    measuring and testing)."""
+    if not 1 <= v < 2**31:
+        raise ValueError(f"{v} buckets: the inter-pod filter takes 1 <= V < 2^31")
+    if cluster is None:
+        c = 1
+        while 2 * c <= build.MAX_CLUSTER and max(u, 1) * 2 * c <= INTERPOD_FILTER_CTAS:
+            c *= 2
+    else:
+        c = int(cluster)
+    if not 1 <= c <= build.MAX_CLUSTER:
+        raise ValueError(f"{c} CTAs a spec row: the inter-pod filter takes 1 to {build.MAX_CLUSTER}")
+
+    def base(c_):
+        return 4 * (pt + tt + INTERPOD_SIG_WINDOW) + -(-n // c_)
+
+    while base(c) > SPREAD_SMEM and c < build.MAX_CLUSTER:
+        c = min(2 * c, build.MAX_CLUSTER)
+    if base(c) > SPREAD_SMEM:
+        raise ValueError(f"{pt} patterns, {tt} terms and {n} nodes exceed the inter-pod filter's shared memory")
+    sl, vs = -(-n // c), -(-v // c)
+    if tcap is None:
+        tcap = min(INTERPOD_TCAP, INTERPOD_TABLE_BYTES // (4 * vs), (SPREAD_SMEM - base(c)) // (4 * vs))
+    return {"C": c, "slice": sl, "vslice": vs, "tcap": int(tcap), "smem": base(c) + 4 * int(tcap) * vs}
+
+
+def interpod_filter_args(nodes: Arrays, eps: Arrays, terms: Arrays, aux: Arrays, ex_terms: Arrays, pods: Arrays,
+                         m_pt: Optional[torch.Tensor], m_sig: Optional[torch.Tensor], parts: tuple = FILTER_PARTS,
+                         n_buckets: Optional[int] = None, cluster: Optional[int] = None,
+                         tcap: Optional[int] = None):
+    """The inter-pod filter's argument struct for these CUDA tensors (with
+    its device-memory tables where the layout takes them) and the [U, N]
+    bool mask its one launch writes. `m_pt` is match_terms(ex_terms, pod
+    labels, pod namespaces) [PT, U], read for "existing"; `m_sig`
+    match_terms(terms, signature labels, signature namespaces) [TT, S], read
+    for "aff" / "anti" (None where unread). `cluster` and `tcap` override
+    the layout (for measuring and testing)."""
+    tt = _check_terms(terms)
+    u = pods["valid"].shape[0]
+    n, k = nodes["label_dense"].shape
+    s = eps["valid"].shape[0]
+    pt = ex_terms["valid"].shape[0]
+    v = int(n_buckets or n)
+    lay = interpod_filter_layout(pt, tt, n, v, u, cluster, tcap)
+    dev = nodes["valid"].device
+    tables = {"dtable": torch.empty((u, v), dtype=torch.int32, device=dev)} if lay["tcap"] == 0 else {}
+    out = torch.empty((u, n), dtype=torch.bool, device=dev)
+    a = InterpodFilterArgs()
+    a.label_dense = build.ptr(nodes["label_dense"], torch.int32, (n, k))
+    for key, dt in (("valid", torch.bool), ("kind", torch.int32), ("topo_slot", torch.int32)):
+        setattr(a, "x_" + key, build.ptr(ex_terms[key], dt, (pt,)))
+    _term_ptrs(a, terms, tt, ("valid", "kind", "owner", "topo_slot"))
+    a.x_counts = build.ptr(ex_terms["counts"], torch.int16, (n, pt))
+    if "existing" in parts:
+        a.m_pt = build.ptr(m_pt, torch.bool, (pt, u))
+    if "aff" in parts or "anti" in parts:
+        a.m_sig = build.ptr(m_sig, torch.bool, (tt, s))
+    a.e_valid = build.ptr(eps["valid"], torch.bool, (s,))
+    a.counts = build.ptr(eps["counts"], torch.int16, (n, s))
+    a.self_aff_match = build.ptr(aux["self_aff_match"], torch.bool, (u,))
+    a.has_aff = build.ptr(aux["has_aff"], torch.bool, (u,))
+    for name, t in tables.items():
+        setattr(a, name, build.ptr(t, t.dtype))
+    a.mask = build.ptr(out, torch.bool)
+    a.N, a.K, a.PT, a.TT, a.S, a.U, a.V = n, k, pt, tt, s, u, v
+    a.parts = sum(_PART_BITS[("filter", p)] for p in set(parts))
+    for key, val in lay.items():
+        setattr(a, key, val)
+    a.keepalive = tables
+    return a, out
+
+
+def interpod_score_args(nodes: Arrays, eps: Arrays, terms: Arrays, ex_terms: Arrays, pods: Arrays,
+                        m_pt: Optional[torch.Tensor], m_sig: Optional[torch.Tensor], parts: tuple = SCORE_PARTS,
+                        n_buckets: Optional[int] = None):
+    """The argument struct (with its scratch) of csrc/interpod.cu's score
+    entry for these CUDA tensors, and the [U, N] int64 score it writes.
+    `m_pt` is match_terms(ex_terms, pod labels, pod namespaces) [PT, U],
+    read for "existing"; `m_sig` match_terms(terms, signature labels,
+    signature namespaces) [TT, S], read for "pref" (None where unread)."""
     tt = _check_terms(terms)
     u = pods["valid"].shape[0]
     n, k = nodes["label_dense"].shape
@@ -1005,17 +1159,15 @@ def interpod_args(which: str, nodes: Arrays, eps: Arrays, terms: Arrays, ex_term
     pt = ex_terms["valid"].shape[0]
     v = int(n_buckets or n)
     dev = nodes["valid"].device
-    in_shared = (v + tt) * 4 <= SHARED_TABLE_BYTES
-    list_bytes = (pt + 2 * tt) * 4
-    if list_bytes > MAX_LIST_BYTES:
-        raise ValueError(f"{tt} term rows and {pt} patterns exceed the inter-pod kernels' shared lists")
+    in_shared = v * 4 <= SHARED_TABLE_BYTES
+    if (pt + tt) * 4 > MAX_LIST_BYTES:
+        raise ValueError(f"{tt} term rows and {pt} patterns exceed the inter-pod score's shared lists")
     scratch = dict(
         sig_list=torch.empty((tt, s), dtype=torch.int32, device=dev),
         x_table=torch.empty((pt, v), dtype=torch.int32, device=dev),
         t_table=torch.empty((tt, v), dtype=torch.int32, device=dev),
-        any_pair=torch.empty((tt,), dtype=torch.bool, device=dev),
     )
-    out = torch.empty((u, n), dtype=torch.bool if which == "filter" else torch.int64, device=dev)
+    out = torch.empty((u, n), dtype=torch.int64, device=dev)
     a = InterpodArgs()
     a.n_valid = build.ptr(nodes["valid"], torch.bool, (n,))
     a.label_dense = build.ptr(nodes["label_dense"], torch.int32, (n, k))
@@ -1025,22 +1177,18 @@ def interpod_args(which: str, nodes: Arrays, eps: Arrays, terms: Arrays, ex_term
         setattr(a, "t_" + key, build.ptr(terms[key], dt, (tt,)))
     a.t_owner = build.ptr(terms["owner"], torch.int32, (tt,))
     a.x_counts = build.ptr(ex_terms["counts"], torch.int16, (n, pt))
-    a.m_pt = build.ptr(m_pt, torch.bool, (pt, u))
-    a.m_sig = build.ptr(m_sig, torch.bool, (tt, s))
+    if "existing" in parts:
+        a.m_pt = build.ptr(m_pt, torch.bool, (pt, u))
+    if "pref" in parts:
+        a.m_sig = build.ptr(m_sig, torch.bool, (tt, s))
     a.e_valid = build.ptr(eps["valid"], torch.bool, (s,))
     a.counts = build.ptr(eps["counts"], torch.int16, (n, s))
     a.p_valid = build.ptr(pods["valid"], torch.bool, (u,))
-    if aux is not None:
-        a.self_aff_match = build.ptr(aux["self_aff_match"], torch.bool, (u,))
-        a.has_aff = build.ptr(aux["has_aff"], torch.bool, (u,))
     for name, t in scratch.items():
         setattr(a, name, build.ptr(t, t.dtype))
-    if which == "filter":
-        a.mask = build.ptr(out, torch.bool)
-    else:
-        a.score = build.ptr(out, torch.int64)
+    a.score = build.ptr(out, torch.int64)
     a.N, a.K, a.PT, a.TT, a.S, a.U, a.V = n, k, pt, tt, s, u, v
-    a.parts = sum(_PART_BITS[(which, p)] for p in set(parts))
+    a.parts = sum(_PART_BITS[("score", p)] for p in set(parts))
     a.table_in_shared = int(in_shared)
     a.keepalive = scratch
     return a, out
@@ -1056,21 +1204,25 @@ def interpod_filter(
     for what the parts read and was not given (patterns x spec rows `m_pt`
     for "existing", terms x signatures `m_sig` for "aff" / "anti": the raw
     matrices of the batch's match plan) and then csrc/interpod.cu's filter
-    entry (counted in `interpod_filter.launches`)."""
+    once, a cluster a spec row (counted in `interpod_filter.launches`; a
+    launch whose tables live in device memory also in
+    `interpod_filter.device_table_launches`)."""
     dev = nodes["valid"].device
     if dev.type == "cpu":
         return interpod_filter_plain(nodes, eps, terms, aux, ex_terms, pods, parts, n_buckets, m_pt, m_sig)
     if dev.type == "cuda":
         m_pt, m_sig = _interpod_matches(eps, terms, ex_terms, pods, "existing" in parts,
                                         "aff" in parts or "anti" in parts, m_pt, m_sig)
-        args, out = interpod_args("filter", nodes, eps, terms, ex_terms, pods, m_pt, m_sig, parts, aux, n_buckets)
+        args, out = interpod_filter_args(nodes, eps, terms, aux, ex_terms, pods, m_pt, m_sig, parts, n_buckets)
         build.launch(INTERPOD_FILTER_ENTRY, args, dev)
         interpod_filter.launches += 1
+        interpod_filter.device_table_launches += int(args.tcap == 0)
         return out
     raise ValueError(f"no topology kernel for device {dev}")
 
 
 interpod_filter.launches = 0
+interpod_filter.device_table_launches = 0
 
 
 def interpod_score(
@@ -1088,7 +1240,7 @@ def interpod_score(
         return interpod_score_plain(nodes, eps, terms, ex_terms, pods, parts, n_buckets, m_pt, m_sig)
     if dev.type == "cuda":
         m_pt, m_sig = _interpod_matches(eps, terms, ex_terms, pods, "existing" in parts, "pref" in parts, m_pt, m_sig)
-        args, out = interpod_args("score", nodes, eps, terms, ex_terms, pods, m_pt, m_sig, parts, None, n_buckets)
+        args, out = interpod_score_args(nodes, eps, terms, ex_terms, pods, m_pt, m_sig, parts, n_buckets)
         build.launch(INTERPOD_SCORE_ENTRY, args, dev)
         interpod_score.launches += 1
         return out
@@ -1103,20 +1255,11 @@ def _interpod_matches(eps: Arrays, terms: Arrays, ex_terms: Arrays, pods: Arrays
     """The matches the inter-pod kernels read: patterns x spec rows [PT, U]
     and batch terms x signatures [TT, S], both with the namespace test; the
     ones needed and not given come from one match launch, a side the parts
-    do not read is an unread placeholder of its shape."""
-    dev = pods["valid"].device
-    pt, u = ex_terms["valid"].shape[0], pods["valid"].shape[0]
-    tt, s = terms["valid"].shape[0], eps["valid"].shape[0]
+    do not read stays as given (None: the kernels read no pointer there)."""
     want = {}
     if patterns and m_pt is None:
         want["m_pt"] = (ex_terms, pods["label_vals"], pods["ns_id"])
     if batch_terms and m_sig is None:
         want["m_sig"] = (terms, eps["label_vals"], eps["ns_id"])
     got = dict(zip(want, match_terms_multi(list(want.values())))) if want else {}
-    m_pt = got.get("m_pt", m_pt)
-    m_sig = got.get("m_sig", m_sig)
-    if m_pt is None:
-        m_pt = torch.zeros((pt, u), dtype=torch.bool, device=dev)
-    if m_sig is None:
-        m_sig = torch.zeros((tt, s), dtype=torch.bool, device=dev)
-    return m_pt, m_sig
+    return got.get("m_pt", m_pt), got.get("m_sig", m_sig)

@@ -63,7 +63,8 @@ print('ok', len({mods!r}))
     assert out.stdout.startswith("ok")
 
 
-@pytest.mark.parametrize("path", ["kubernetes_tpu_torch", "chip_smoke.py", "scripts/torch_drain_profile.py"])
+@pytest.mark.parametrize("path", ["kubernetes_tpu_torch", "chip_smoke.py", "scripts/torch_drain_profile.py",
+                                  "scripts/topology_ab.py"])
 def test_source_names_no_jax_or_reference_import(path):
     full = os.path.join(REPO, path)
     files = [full] if full.endswith(".py") else [
@@ -240,6 +241,22 @@ def test_ctypes_mirrors_cover_the_spread_score_and_match_structs():
             "slice", "vslice", "copies", "dense_cap", "smem"} <= names["SpreadArgs"]
     assert not {"m_sig", "member", "sig_list", "pair_cnt", "table_in_shared"} & names["SpreadArgs"]
     assert names["MatchArgs"] == {"p", "count", "smem"} and "xtile" in names["MatchProblem"]
+
+
+def test_ctypes_mirrors_cover_the_interpod_filter_and_selector_spread_structs():
+    """The inter-pod filter's one-launch struct (its cluster layout and
+    device-memory tables, no scratch of the tables it keeps in shared
+    memory) and the selector spread's (its cluster layout and zone-table
+    mode, no signature-list scratch) are among the mirrors the check below
+    holds against the C structs; the inter-pod score keeps the table
+    kernels' struct without the filter's fields."""
+    names = {cname: {f[0] for f in cls._fields_} for cls, cname, _ in _struct_mirrors()}
+    assert {"m_pt", "m_sig", "self_aff_match", "has_aff", "dtable", "mask", "C", "slice", "vslice", "tcap",
+            "smem"} <= names["InterpodFilterArgs"]
+    assert not {"sig_list", "x_table", "t_table", "any_pair", "table_in_shared"} & names["InterpodFilterArgs"]
+    assert {"ztable", "C", "slice", "vslice", "mode", "smem"} <= names["SelSpreadArgs"]
+    assert not {"sig_list", "table_in_shared"} & names["SelSpreadArgs"]
+    assert not {"mask", "has_aff", "self_aff_match", "any_pair"} & names["InterpodArgs"]
 
 
 @pytest.mark.parametrize("mirror", _struct_mirrors(), ids=lambda m: m[1])

@@ -212,12 +212,14 @@ def test_consumers_read_the_plan_matrices_exactly(seed, n_buckets):
 
 
 # ---------------------------------------------------------------------------
-# csrc/interpod.cu's algorithm, written as its blocks walk it: per-bucket
-# tables of the patterns and terms (for required affinity, of the
-# signatures matching every AFF_REQ term of the owner), then per spec row
-# the gathers at each node's bucket — buckets >= V dropped from the tables
-# and clamped in the gathers. The card tests hold the kernels themselves
-# to the plain versions.
+# csrc/interpod.cu's algorithms, written as its CTAs walk them: the filter's
+# clusters (a spec row's items compacted once, chunks of per-bucket tables
+# whose bucket slices each CTA owns and every CTA's node slice adds into,
+# the tests at each node's clamped bucket, any_pair from each CTA's slices;
+# rows without items tabulate nothing) and the score's per-pattern and
+# per-term tables, then a block per spec row — buckets >= V dropped from
+# the tables and clamped in the gathers. The card tests hold the kernels
+# themselves to the plain versions.
 # ---------------------------------------------------------------------------
 
 
@@ -241,7 +243,82 @@ def _tables(na, rows_valid, slots, per_node, v):
     return out
 
 
-def interpod_walk(na, ea, ta, aux, xa, pa, m_pt, m_sig, parts, v, which):
+def interpod_filter_walk(na, ea, ta, aux, xa, pa, m_pt, m_sig, parts, v, cluster=None, tcap=None):
+    """csrc/interpod.cu's filter at C = `cluster` CTAs a spec row and `tcap`
+    item tables a chunk (interpod_filter_layout's), cluster by cluster.
+    Returns (the mask, the spec rows that tabulated anything)."""
+    ld = na["label_dense"].numpy()
+    n, k = ld.shape
+    tv, tk, town, tslot = (ta[key].numpy() for key in ("valid", "kind", "owner", "topo_slot"))
+    xv, xk, xslot = (xa[key].numpy() for key in ("valid", "kind", "topo_slot"))
+    xc, ec, ev = xa["counts"].numpy().astype(np.int64), ea["counts"].numpy().astype(np.int64), ea["valid"].numpy()
+    m_pt, m_sig = m_pt.numpy(), m_sig.numpy()
+    npt, tt, s_all, u_rows = len(xv), len(tv), len(ev), pa["valid"].shape[0]
+    lay = PTopo.interpod_filter_layout(npt, tt, n, v, u_rows, cluster, tcap)
+    C, sl, vs, tc = lay["C"], lay["slice"], lay["vslice"], lay["tcap"]
+    win = PTopo.INTERPOD_SIG_WINDOW
+
+    def dense(slot):  # every node's dense label at the slot (-1: no key)
+        d = ld[:, 0 if slot < 0 else min(slot, k - 1)].astype(np.int64)
+        return np.where((d >= 0) & (slot >= 0), d, -1)
+
+    out = np.ones((u_rows, n), bool)
+    tabulated = []
+    for u in range(u_rows):
+        want_aff = "aff" in parts and bool(aux["has_aff"][u])
+        items = [p for p in range(npt) if "existing" in parts and xv[p] and xk[p] == 2 and m_pt[p, u]]
+        items += [npt + t for t in range(tt) if tv[t] and town[t] == u
+                  and ((tk[t] == 1 and want_aff) or (tk[t] == 2 and "anti" in parts))]
+        if not items:  # the all-pass row; nothing tabulated
+            continue
+        tabulated.append(u)
+        aff_terms = [i - npt for i in items if i >= npt and tk[i - npt] == 1]
+        escape = bool(aff_terms) and bool(aux["self_aff_match"][u])
+
+        def node_counts(code):  # each node's count for the item, window by window (int32)
+            if code < npt:
+                return xc[:, code]
+            t, cn = code - npt, np.zeros(n, np.int64)
+            for s0 in range(0, s_all, win):
+                ss = np.arange(s0, min(s_all, s0 + win))
+                ok = ev[ss] & (np.all(m_sig[np.ix_(aff_terms, ss)], axis=0) if tk[t] == 1 else m_sig[t, ss])
+                cn += ec[:, ss[ok]].sum(axis=1)
+            return cn.astype(np.int32).astype(np.int64)
+
+        ok_st, aff_st, any_cta = np.ones(n, bool), np.ones(n, bool), np.zeros(C, bool)
+        per = tc if tc > 0 else 1
+        for i0 in range(0, len(items), per):
+            chunk = items[i0:i0 + per]
+            # CTA r owns buckets [r * vs, (r + 1) * vs) of each table (tc == 0:
+            # the same cells in the row's device table); every CTA's node
+            # slice adds into the owners' cells
+            owned = np.zeros((len(chunk), C, vs), np.int64)
+            for j, code in enumerate(chunk):
+                d = dense(xslot[code] if code < npt else tslot[code - npt])
+                cn = node_counts(code)
+                for c in range(C):
+                    xs = np.arange(c * sl, min(n, (c + 1) * sl))
+                    add = (d[xs] >= 0) & (d[xs] < v) & (cn[xs] != 0)
+                    np.add.at(owned[j], (d[xs][add] // vs, d[xs][add] % vs), cn[xs][add])
+            owned = owned.astype(np.int32)  # int32 cells
+            for j, code in enumerate(chunk):  # the tests at each node's clamped bucket
+                d = dense(xslot[code] if code < npt else tslot[code - npt])
+                b = np.minimum(np.maximum(d, 0), v - 1)
+                present = (d >= 0) & (owned[j][b // vs, b % vs] > 0)
+                if code >= npt and tk[code - npt] == 1:
+                    aff_st &= present | ~ok_st
+                    for r in range(C):  # this CTA's slice of the table
+                        any_cta[r] |= escape and bool((owned[j, r, :max(0, min(v, (r + 1) * vs) - r * vs)] > 0).any())
+                else:
+                    ok_st &= ~present
+        any_pair = bool(any_cta.any())
+        out[u] = ok_st & (aff_st | (escape and not any_pair))
+    return out, tabulated
+
+
+def interpod_score_walk(na, ea, ta, xa, pa, m_pt, m_sig, parts, v):
+    """csrc/interpod.cu's score: the per-pattern and per-term tables, then
+    a block per spec row (the weighted sums, min-max normalized)."""
     ld = na["label_dense"].numpy()
     n_nodes = ld.shape[0]
     nv = na["valid"].numpy()
@@ -252,40 +329,14 @@ def interpod_walk(na, ea, ta, aux, xa, pa, m_pt, m_sig, parts, v, which):
     u_rows = pa["valid"].shape[0]
     pv = pa["valid"].numpy()
 
-    def term_sigs(t):
-        if tk[t] == 1:  # AFF_REQ: signatures matching every AFF_REQ term of the owner
-            group = [q for q in range(len(tv)) if tv[q] and tk[q] == 1 and town[q] == town[t]]
-            return np.flatnonzero(ev & np.all(m_sig[group], axis=0))
-        return np.flatnonzero(ev & m_sig[t])
-
     def gather(tab, slot, n):
         b, has = _bucket(ld, n, slot)
         return has, tab[min(b, v - 1)]
 
-    if which == "filter":
-        x_kinds, t_kinds = ({2} if "existing" in parts else set()), \
-            ({1} if "aff" in parts else set()) | ({2} if "anti" in parts else set())
-    else:
-        x_kinds, t_kinds = ({1, 3, 4} if "existing" in parts else set()), ({3, 4} if "pref" in parts else set())
+    x_kinds, t_kinds = ({1, 3, 4} if "existing" in parts else set()), ({3, 4} if "pref" in parts else set())
     xt = _tables(na, xv & np.isin(xk, list(x_kinds)), xslot, lambda r, n: xc[n, r], v)
-    sig_of = {t: term_sigs(t) for t in np.flatnonzero(tv & np.isin(tk, list(t_kinds)))}
+    sig_of = {t: np.flatnonzero(ev & m_sig[t]) for t in np.flatnonzero(tv & np.isin(tk, list(t_kinds)))}
     tt = _tables(na, tv & np.isin(tk, list(t_kinds)), tslot, lambda r, n: ec[n, sig_of[r]].sum(), v)
-    if which == "filter":
-        out = np.ones((u_rows, n_nodes), bool)
-        for u in range(u_rows):
-            pats = [p for p in xt if xk[p] == 2 and m_pt[p, u]]
-            aff = [t for t in tt if tk[t] == 1 and town[t] == u]
-            anti = [t for t in tt if tk[t] == 2 and town[t] == u]
-            for n in range(n_nodes):
-                ok = not any(h and c > 0 for h, c in (gather(xt[p], xslot[p], n) for p in pats))
-                if ok and "aff" in parts and aux["has_aff"][u]:
-                    aff_ok = all(h and c > 0 for h, c in (gather(tt[t], tslot[t], n) for t in aff))
-                    any_pair = any((tt[t] > 0).any() for t in aff)
-                    ok = aff_ok or (not any_pair and bool(aux["self_aff_match"][u]))
-                if ok and any(h and c > 0 for h, c in (gather(tt[t], tslot[t], n) for t in anti)):
-                    ok = False
-                out[u, n] = ok
-        return out
     out = np.zeros((u_rows, n_nodes), np.int64)
     for u in range(u_rows):
         pref = [t for t in tt if town[t] == u]
@@ -305,20 +356,81 @@ def interpod_walk(na, ea, ta, aux, xa, pa, m_pt, m_sig, parts, v, which):
     return out
 
 
+def _walk_inputs(pkg="port"):
+    d = encoded(pkg, 2, n_nodes=40)[:6]
+    if pkg == "ref":
+        return [{k: jnp.asarray(v) for k, v in x.items()} for x in d]
+    return [arrays_to_torch(x, "cpu") for x in d]
+
+
 @pytest.mark.parametrize("n_buckets", [16, 128])
 def test_kernel_walk_equals_plain(n_buckets):
-    """The inter-pod kernels' algorithm (as csrc/interpod.cu walks it)
-    equals the plain versions for every filter part and both score parts."""
-    pn, pe, px, pt, pa_, pp = (arrays_to_torch(d, "cpu") for d in encoded("port", 2, n_nodes=40)[:6])
+    """The inter-pod kernels' algorithms (as csrc/interpod.cu walks them,
+    the filter at its default layout) equal the plain versions for every
+    filter part and both score parts."""
+    pn, pe, px, pt, pa_, pp = _walk_inputs()
     m_pt = PTopo.match_terms(px, pp["label_vals"], pp["ns_id"])
     m_sig = PTopo.match_terms(pt, pe["label_vals"], pe["ns_id"])
     aux = {k: v.numpy() for k, v in pa_.items()}
     for parts in FILTER_SUBSETS:
         want = PTopo.interpod_filter_plain(pn, pe, pt, pa_, px, pp, parts, n_buckets).numpy()
-        got = interpod_walk(pn, pe, pt, aux, px, pp, m_pt, m_sig, parts, n_buckets, "filter")
+        got, _ = interpod_filter_walk(pn, pe, pt, aux, px, pp, m_pt, m_sig, parts, n_buckets)
         assert np.array_equal(got, want), parts
     for parts in SCORE_PARTS:
         want = PTopo.interpod_score_plain(pn, pe, pt, px, pp, parts, n_buckets).numpy()
-        got = interpod_walk(pn, pe, pt, aux, px, pp, m_pt, m_sig, parts, n_buckets, "score")
+        got = interpod_score_walk(pn, pe, pt, px, pp, m_pt, m_sig, parts, n_buckets)
         assert np.array_equal(got, want), parts
         assert ((want > 0) & (want < 10)).any()
+
+
+def _drain_v(na):
+    """The segment axis the driver sizes for this cluster (the largest
+    dense label count, bucketed)."""
+    from kubernetes_tpu_torch.state.tensors import _bucket as bucket
+
+    return bucket(int(na["label_dense"].max()) + 1)
+
+
+@pytest.mark.parametrize("cluster,tcap", [(None, None), (1, None), (3, 1), (16, None), (2, 0)],
+                         ids=["default", "C1", "C3-one-table-a-chunk", "C16", "C2-device"])
+@pytest.mark.parametrize("n_buckets", [16, "drain", 64, 40000])
+def test_filter_cluster_walk_equals_plain_and_reference(n_buckets, cluster, tcap):
+    """The inter-pod filter's one-launch algorithm at 1, 2, 3, 4 and 16
+    CTAs a spec row (node and bucket axes no C divides), with its tables in
+    shared memory (several a chunk and one a chunk) and in device memory
+    (V = 40,000 at one or two CTAs; tcap 0), equals the plain version and
+    the JAX reference for every subset of the parts. The batch holds
+    invalid padding rows (tabulated only where a pattern matches them: the
+    plain version does not mask by validity), a pattern no row matches, and
+    rows taking the first-pod escape; exactly the rows with a matching
+    pattern or an owned term tabulate."""
+    pn, pe, px, pt, pa_, pp = _walk_inputs()
+    rn, re, rx, rt, ra, rp = _walk_inputs("ref")
+    v = _drain_v(pn) if n_buckets == "drain" else n_buckets
+    m_pt = PTopo.match_terms(px, pp["label_vals"], pp["ns_id"])
+    m_sig = PTopo.match_terms(pt, pe["label_vals"], pe["ns_id"])
+    aux = {k: x.numpy() for k, x in pa_.items()}
+    anti_x = (px["valid"] & (px["kind"] == 2)).numpy()
+    assert (anti_x & ~m_pt.numpy().any(axis=1)).any()  # a pattern no row matches
+    assert not bool(pp["valid"].all())
+    lay = PTopo.interpod_filter_layout(px["valid"].shape[0], pt["valid"].shape[0], pn["valid"].shape[0], v,
+                                       pp["valid"].shape[0], cluster, tcap)
+    assert (lay["tcap"] == 0) == (tcap == 0 or (v == 40000 and lay["C"] <= 2))
+    escaped = 0
+    for parts in FILTER_SUBSETS:
+        got, rows = interpod_filter_walk(pn, pe, pt, aux, px, pp, m_pt, m_sig, parts, v, cluster, tcap)
+        want = PTopo.interpod_filter_plain(pn, pe, pt, pa_, px, pp, parts, v)
+        assert np.array_equal(got, want.numpy()), parts
+        same(RTopo.interpod_filter(rn, re, rt, ra, rx, rp, parts=parts, n_buckets=v), torch.from_numpy(got))
+        owns = (pt["valid"] & ((pt["kind"] == 1) & torch.tensor("aff" in parts) & pa_["has_aff"][pt["owner"].long()]
+                               | (pt["kind"] == 2) & torch.tensor("anti" in parts)))
+        work = set(pt["owner"][owns].tolist())
+        if "existing" in parts:
+            work |= set(np.flatnonzero((m_pt.numpy() & anti_x[:, None]).any(axis=0)).tolist())
+        assert set(rows) == work, parts
+        if "existing" not in parts:  # padding rows own no term (a pattern may match one: it is tabulated)
+            assert not set(rows) & set(np.flatnonzero(~pp["valid"].numpy()).tolist()), parts
+        if "aff" in parts:  # rows passing by the escape alone: no pod matches all their terms anywhere
+            esc = PTopo.interpod_filter_plain(pn, pe, pt, pa_, px, pp, ("aff",), v)
+            escaped += int((esc.all(dim=1) & pa_["has_aff"] & pa_["self_aff_match"] & pp["valid"]).sum())
+    assert escaped > 0

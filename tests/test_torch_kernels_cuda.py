@@ -466,14 +466,75 @@ def test_spread_kernel_rows_a_cluster_equal_plain(cuda, rows, ctas, gcap, n_buck
     assert bool((want > 0).any()) and bool(((want > 0) & (want < 10)).any())
 
 
-@pytest.mark.parametrize("n_buckets", [16, 40000])
+@pytest.mark.parametrize("n_buckets", [16, 64, 256, 40000])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_selector_spread_kernel_equals_plain(cuda, seed, n_buckets):
+    """One launch a call (none of match_terms when given the plan's m_sig),
+    exact at V = 16, 64, 256 and 40,000; the device-memory zone tables (V =
+    40,000) counted."""
     na, ea, ta, au, _, _ = topology_cluster(seed, cuda)
-    before = TO.selector_spread_score.launches
-    got = TO.selector_spread_score(na, ea, ta, au, n_buckets=n_buckets)
-    assert TO.selector_spread_score.launches == before + 1
-    assert torch.equal(got, TO.selector_spread_score_plain(na, ea, ta, au, n_buckets=n_buckets))
+    m_sig = TO.match_terms(ta, ea["label_vals"], ea["ns_id"])
+    before, dev_tables, matches = (TO.selector_spread_score.launches, TO.selector_spread_score.device_table_launches,
+                                   TO.match_terms.launches)
+    got = TO.selector_spread_score(na, ea, ta, au, n_buckets=n_buckets, m_sig=m_sig)
+    torch.cuda.synchronize()
+    assert TO.selector_spread_score.launches == before + 1 and TO.match_terms.launches == matches
+    lay = TO.selector_spread_layout(ta["valid"].shape[0], na["valid"].shape[0], n_buckets, au["n_sel_spread"].shape[0])
+    assert TO.selector_spread_score.device_table_launches == dev_tables + int(lay["mode"] == 2)
+    assert (lay["mode"] == 2) == (n_buckets == 40000)
+    want = TO.selector_spread_score_plain(na, ea, ta, au, n_buckets=n_buckets)
+    assert torch.equal(got, want)
+    assert len(torch.unique(want)) >= 3
+
+
+def tiled_topology(na, ea, n):
+    """The node bank and the signature counts repeated to exactly n node
+    rows (every row's counts beside its node's)."""
+    reps = -(-n // na["valid"].shape[0])
+    return tiled_nodes(na, n), {**ea, "counts": torch.cat([ea["counts"]] * reps)[:n].contiguous()}
+
+
+@pytest.mark.parametrize("n_buckets", [16, 64, 40000])
+@pytest.mark.parametrize("mode", [None, 1, 2], ids=["default", "slices", "device"])
+@pytest.mark.parametrize("ctas", [1, 3, 4, 16])
+def test_selector_spread_cluster_sizes_and_modes_equal_plain(cuda, ctas, mode, n_buckets):
+    """The cluster kernel at C = 1, 3, 4 and 16 CTAs a spec row on a node
+    axis no C > 1 divides (203 rows, odd: the last node pair is ragged),
+    its zone tables local, in bucket slices of shared memory and in device
+    memory, against the plain version."""
+    from kubernetes_tpu_torch.kernels import build
+
+    na, ea, ta, au, _, _ = topology_cluster(3, cuda)
+    na, ea = tiled_topology(na, ea, 203)
+    m_sig = TO.match_terms(ta, ea["label_vals"], ea["ns_id"])
+    if (ctas, mode, n_buckets) == (1, 1, 40000):  # one CTA's slice of 40,000 int64 buckets: past shared memory
+        with pytest.raises(ValueError):
+            TO.selector_spread_args(na, ea, ta, au, m_sig, n_buckets, cluster=ctas, mode=mode)
+        return
+    args, out = TO.selector_spread_args(na, ea, ta, au, m_sig, n_buckets, cluster=ctas, mode=mode)
+    default = 0 if n_buckets <= TO.SEL_LOCAL_V else (1 if 8 * -(-n_buckets // ctas) <= TO.SEL_SLICE_BYTES else 2)
+    assert args.C == ctas and args.mode == (mode if mode is not None else default)
+    build.launch(TO.SEL_SPREAD_ENTRY, args, cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(out, TO.selector_spread_score_plain(na, ea, ta, au, n_buckets=n_buckets))
+
+
+@pytest.mark.parametrize("ctas", [None, 8, 16])
+@pytest.mark.parametrize("n_buckets", [16, 16384])
+def test_selector_spread_kernel_at_the_main_path_width(cuda, n_buckets, ctas):
+    """At config 3's node axis (N = 10,240: a CTA's 1,280 to 2,560 nodes in
+    registers, 3 to 5 node pairs a thread) the kernel writes exactly the
+    plain score; V = 16,384 takes the bucket slices."""
+    from kubernetes_tpu_torch.kernels import build
+
+    na, ea, ta, au, _, _ = topology_cluster(0, cuda)
+    na, ea = tiled_topology(na, ea, 10240)
+    m_sig = TO.match_terms(ta, ea["label_vals"], ea["ns_id"])
+    args, out = TO.selector_spread_args(na, ea, ta, au, m_sig, n_buckets, cluster=ctas)
+    assert args.mode == (0 if n_buckets == 16 else 1)
+    build.launch(TO.SEL_SPREAD_ENTRY, args, cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(out, TO.selector_spread_score_plain(na, ea, ta, au, n_buckets=n_buckets))
 
 
 def interpod_cluster(seed, device, n_nodes=200):
@@ -503,12 +564,97 @@ FILTER_SUBSETS = [("existing",), ("aff",), ("anti",), ("existing", "aff"), ("exi
 @pytest.mark.parametrize("n_buckets", [16, 256, 40000])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_interpod_filter_kernel_equals_plain(cuda, seed, n_buckets):
-    """V = 16 drops the hostname buckets, 256 holds the tables in shared
-    memory, 40,000 takes the device-memory tables."""
+    """Every subset of the parts: one launch a call, none of match_terms
+    when given the plan's m_pt / m_sig; V = 16 drops the hostname buckets,
+    256 holds the tables in shared memory, 40,000 takes the device-memory
+    tables (U = 256: one CTA a spec row), counted."""
     na, ea, xa, ta, au, pa, _ = interpod_cluster(seed, cuda)
+    m_pt = TO.match_terms(xa, pa["label_vals"], pa["ns_id"])
+    m_sig = TO.match_terms(ta, ea["label_vals"], ea["ns_id"])
+    lay = TO.interpod_filter_layout(xa["valid"].shape[0], ta["valid"].shape[0], na["valid"].shape[0], n_buckets,
+                                    pa["valid"].shape[0])
+    assert (lay["tcap"] == 0) == (n_buckets == 40000)
     for parts in FILTER_SUBSETS:
-        before = TO.interpod_filter.launches
+        before, dev_tables, matches = (TO.interpod_filter.launches, TO.interpod_filter.device_table_launches,
+                                       TO.match_terms.launches)
+        got = TO.interpod_filter(na, ea, ta, au, xa, pa, parts=parts, n_buckets=n_buckets, m_pt=m_pt, m_sig=m_sig)
+        torch.cuda.synchronize()
+        assert TO.interpod_filter.launches == before + 1 and TO.match_terms.launches == matches
+        assert TO.interpod_filter.device_table_launches == dev_tables + int(lay["tcap"] == 0)
+        assert torch.equal(got, TO.interpod_filter_plain(na, ea, ta, au, xa, pa, parts, n_buckets)), parts
+        # without the plan: one match launch for the matrices the parts read
         got = TO.interpod_filter(na, ea, ta, au, xa, pa, parts=parts, n_buckets=n_buckets)
+        assert TO.match_terms.launches == matches + 1
+        assert torch.equal(got, TO.interpod_filter_plain(na, ea, ta, au, xa, pa, parts, n_buckets)), parts
+
+
+def cut_interpod(na, ea, xa, n):
+    """The inter-pod filter's node-axis inputs cut or repeated to n rows."""
+    reps = -(-n // na["valid"].shape[0])
+    return (tiled_nodes(na, n), {**ea, "counts": torch.cat([ea["counts"]] * reps)[:n].contiguous()},
+            {**xa, "counts": torch.cat([xa["counts"]] * reps)[:n].contiguous()})
+
+
+@pytest.mark.parametrize("n_buckets", [16, 64, 40000])
+@pytest.mark.parametrize("tcap", [None, 1, 0], ids=["default", "one-table-a-chunk", "device"])
+@pytest.mark.parametrize("ctas", [1, 3, 4, 16])
+def test_interpod_filter_cluster_sizes_equal_plain(cuda, ctas, tcap, n_buckets):
+    """The cluster kernel at C = 1, 3, 4 and 16 CTAs a spec row on a node
+    axis no C > 1 divides (151 rows), with its tables in shared memory
+    (several a chunk and one a chunk) and in device memory, against the
+    plain version for every subset of the parts."""
+    from kubernetes_tpu_torch.kernels import build
+
+    na, ea, xa, ta, au, pa, _ = interpod_cluster(1, cuda)
+    na, ea, xa = cut_interpod(na, ea, xa, 151)
+    m_pt = TO.match_terms(xa, pa["label_vals"], pa["ns_id"])
+    m_sig = TO.match_terms(ta, ea["label_vals"], ea["ns_id"])
+    for parts in FILTER_SUBSETS:
+        args, out = TO.interpod_filter_args(na, ea, ta, au, xa, pa, m_pt, m_sig, parts, n_buckets, cluster=ctas,
+                                            tcap=tcap)
+        assert args.C == ctas and (tcap is None or args.tcap == tcap)
+        build.launch(TO.INTERPOD_FILTER_ENTRY, args, cuda)
+        torch.cuda.synchronize()
+        assert torch.equal(out, TO.interpod_filter_plain(na, ea, ta, au, xa, pa, parts, n_buckets)), parts
+
+
+def interpod_one_row(seed, device, n_nodes=200):
+    """The extender's /filter shape on the inter-pod cluster: a 16-row batch
+    holding one pending pod that owns a required (anti-)affinity term (row
+    0; rows 1-15 padding), with the cluster's node, signature and pattern
+    banks."""
+    nodes, existing, pending = random_cluster(seed, n_nodes, 150, 600, overflow_nodes=3, topology=True,
+                                              interpod=True)
+    cache = SchedulerCache()
+    fill_cache(cache, nodes, existing)
+    mirror = TensorMirror(cache, device)
+    for p in pending:
+        tb, aux = compile_batch_terms(mirror.vocab, [p], b_capacity=16)
+        kinds = set(tb.arrays()["kind"][tb.arrays()["valid"]].tolist())
+        if kinds & {1, 2}:  # AFF_REQ or ANTI_REQ
+            break
+    batch = PodBatch(mirror.vocab, 16)
+    batch.set_pod(0, p)
+    na, ea, xa = mirror.device_arrays()
+    return [na, ea, xa] + [arrays_to_torch(d, device) for d in (tb.arrays(), aux, batch.arrays())]
+
+
+@pytest.mark.parametrize("n_buckets", [16, 16384, 40000])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_interpod_filter_one_live_row_equals_plain(cuda, seed, n_buckets):
+    """The extender's /filter shape: U = 16 rows, one live (a pod owning a
+    required term), N = 10,240 node rows: one launch of 16 clusters of 16
+    CTAs, exact for every subset of the parts; the padding rows' rows too."""
+    na, ea, xa, ta, au, pa = interpod_one_row(seed, cuda)
+    na, ea, xa = cut_interpod(na, ea, xa, 10240)
+    assert int(pa["valid"].sum()) == 1 and pa["valid"].shape[0] == 16
+    m_pt = TO.match_terms(xa, pa["label_vals"], pa["ns_id"])
+    m_sig = TO.match_terms(ta, ea["label_vals"], ea["ns_id"])
+    for parts in FILTER_SUBSETS:
+        args, _ = TO.interpod_filter_args(na, ea, ta, au, xa, pa, m_pt, m_sig, parts, n_buckets)
+        assert args.C == 16
+        before = TO.interpod_filter.launches
+        got = TO.interpod_filter(na, ea, ta, au, xa, pa, parts=parts, n_buckets=n_buckets, m_pt=m_pt, m_sig=m_sig)
         assert TO.interpod_filter.launches == before + 1
         assert torch.equal(got, TO.interpod_filter_plain(na, ea, ta, au, xa, pa, parts, n_buckets)), parts
 

@@ -343,44 +343,128 @@ def spread_cluster_walk(na, ea, ta, sel, v, rows, ctas):
     return out
 
 
-def selector_spread_walk(na, ea, ta, au, m_sig, v):
+def selector_spread_walk(na, ea, ta, au, m_sig, v, cluster=None, mode=None):
+    """csrc/topology.cu's selector spread at C = `cluster` CTAs a spec row
+    and the zone tables in `mode` (selector_spread_layout's), cluster by
+    cluster: the row's matched signatures in windows of SPREAD_LIST, each
+    CTA's node slice (its counts, maximum, have_zones and zone partial: a
+    V-wide table of its own in mode 0, adds into the owning CTA's bucket
+    slice in mode 1, into the row's device table in mode 2), the partials
+    over the cluster, then the float64 blend."""
     valid, kind, owner = (ta[k].numpy() for k in ("valid", "kind", "owner"))
     counts = ea["counts"].numpy().astype(np.int64)
-    live = ea["valid"].numpy() & ~ea["deleting"].numpy()
+    ev, edel = ea["valid"].numpy(), ea["deleting"].numpy()
     nv, zd, n_sel = na["valid"].numpy(), na["zone_dense"].numpy(), au["n_sel_spread"].numpy()
-    zone_ok = (zd >= 0) & nv
+    m_sig = m_sig.numpy()
+    u_rows, n, s_all = len(n_sel), len(nv), len(ev)
+    lay = PTopo.selector_spread_layout(len(valid), n, v, u_rows, cluster, mode)
+    C, sl, vs, md = lay["C"], lay["slice"], lay["vslice"], lay["mode"]
+    assert sl % 2 == 0 and C * sl >= n and sl <= 2 * PTopo.SEL_PAIRS * 256
 
     def frac(mx, c):
         return 10.0 if mx <= 0 else (10.0 * float(mx - c)) / float(mx)
 
-    out = np.zeros((len(n_sel), len(nv)), np.int64)
-    for u in range(len(n_sel)):
-        ok = live & (n_sel[u] > 0)
-        for t in np.flatnonzero(valid & (kind == 7) & (owner == u)):
-            ok = ok & m_sig[t].numpy()
-        c = np.where(nv, counts[:, np.flatnonzero(ok)].sum(1), 0)
-        table = np.zeros(v, np.int64)
-        for x in np.flatnonzero(zone_ok & (zd < v)):
-            table[zd[x]] += c[x]
-        for x in range(len(nv)):
-            blend = frac(c.max(), c[x])
-            if zone_ok.any() and zone_ok[x]:
-                blend = blend * (1.0 / 3.0) + (2.0 / 3.0) * frac(table.max(), table[min(zd[x], v - 1)])
+    out = np.zeros((u_rows, n), np.int64)
+    for u in range(u_rows):
+        terms = [t for t in range(len(valid)) if valid[t] and kind[t] == 7 and owner[t] == u]
+        cnt = np.zeros(n, np.int64)
+        for s0 in range(0, s_all, PTopo.SPREAD_LIST) if n_sel[u] > 0 else ():
+            ss = np.arange(s0, min(s_all, s0 + PTopo.SPREAD_LIST))
+            ok = ev[ss] & ~edel[ss] & np.all(m_sig[np.ix_(terms, ss)], axis=0)
+            cnt += counts[:, ss[ok]].sum(axis=1)
+        cnt = np.where(nv, cnt.astype(np.int32), 0).astype(np.int64)  # registers: int32, 0 off valid nodes
+        part_max, part_zones = np.zeros(C, np.int64), np.zeros(C, bool)
+        partial = np.zeros((C, v), np.int64)  # mode 0: a CTA's own V-wide table
+        owned = np.zeros((C, vs), np.int64)   # modes 1 and 2: CTA r's bucket slice (mode 2 in device memory)
+        for c in range(C):
+            xs = np.arange(c * sl, min(n, (c + 1) * sl))
+            live = nv[xs]
+            part_max[c] = max(int(cnt[xs][live].max(initial=0)), 0)
+            zok = live & (zd[xs] >= 0)
+            part_zones[c] = zok.any()
+            add = zok & (zd[xs] < v) & (cnt[xs] != 0)
+            z, val = zd[xs][add], cnt[xs][add]
+            if md == 0:
+                np.add.at(partial[c], z, val)
+            else:
+                np.add.at(owned, (z // vs, z % vs), val)
+        gmax, have = int(part_max.max()), bool(part_zones.any())
+        if md == 0:  # every CTA merges the C partials locally
+            merged = partial.sum(axis=0)
+            zmax = max(int(merged.max()), 0)
+        else:  # each slice's maximum, then over the cluster
+            merged = owned.reshape(-1)[:v]
+            zmax = max(max(int(owned[r, :max(0, min(v, (r + 1) * vs) - r * vs)].max(initial=0)), 0) for r in range(C))
+        for x in range(n):
+            blend = frac(gmax, int(cnt[x]))
+            if have and nv[x] and zd[x] >= 0:
+                blend = blend * (1.0 / 3.0) + (2.0 / 3.0) * frac(zmax, int(merged[min(zd[x], v - 1)]))
             out[u, x] = int(blend)
     return out
 
 
 @pytest.mark.parametrize("n_buckets", [16, 64, 40000])
 def test_kernel_walk_equals_plain(n_buckets):
-    """The selector-spread kernel's algorithm (as csrc/topology.cu walks
-    it) equals the plain version: V = 16 drops buckets, 64 holds them,
-    40,000 is the device-memory-table width."""
+    """The selector-spread kernel's algorithm (as csrc/topology.cu's
+    clusters walk it, at the default layout) equals the plain version: V =
+    16 drops buckets, 64 holds them, both in a CTA's local table; 40,000
+    takes the bucket slices (8 CTAs a row here; the device tables: the
+    cluster-size test below)."""
     pn, pe, pt, pa_, pp = (arrays_to_torch(d, "cpu")
                            for d in encoded("port", seed=7, selectors=True, n_nodes=40))
     m_ns = PTopo.match_terms(pt, pe["label_vals"], pe["ns_id"])
     want = PTopo.selector_spread_score_plain(pn, pe, pt, pa_, n_buckets=n_buckets).numpy()
     assert ((want > 0) & (want < 10)).any()
+    assert PTopo.selector_spread_layout(pt["valid"].shape[0], 43, n_buckets, 64)["mode"] == (
+        1 if n_buckets == 40000 else 0)
     assert np.array_equal(selector_spread_walk(pn, pe, pt, pa_, m_ns, n_buckets), want)
+
+
+@pytest.mark.parametrize("cluster,mode", [(1, None), (3, None), (16, None), (4, 1), (2, 2), (5, 1)],
+                         ids=["C1", "C3", "C16", "C4-slices", "C2-device", "C5-slices"])
+@pytest.mark.parametrize("n_buckets", [16, "drain", 64, 40000])
+def test_selector_spread_cluster_walk_equals_plain_and_reference(n_buckets, cluster, mode):
+    """The selector spread's one-launch algorithm at 1, 2, 3, 4, 5 and 16
+    CTAs a spec row on a node axis no C divides, with the zone tables local
+    (V <= 1,024), in bucket slices of shared memory and in device memory,
+    at V = 16, the segment axis the driver sizes for this cluster, 64 and
+    40,000, equals the plain version and the JAX reference: rows with 0, 1
+    and 2 selectors, deleting signatures, invalid padding rows, nodes
+    without a zone, fallback nodes."""
+    from kubernetes_tpu_torch.state.tensors import _bucket
+
+    kw = dict(seed=7, selectors=True, n_nodes=40)
+    (rn, re, rt, ra, rp), (pn, pe, pt, pa_, pp) = both(**kw)
+    if n_buckets == "drain":  # the largest dense label count, bucketed
+        n_buckets = _bucket(int(pn["label_dense"].max()) + 1)
+    assert bool(pe["deleting"].any()) and not bool(pp["valid"].all())
+    assert {0, 1, 2} <= set(pa_["n_sel_spread"].tolist())
+    assert bool(((pn["zone_dense"] < 0) & pn["valid"]).any()) and bool((pn["fallback"] & pn["valid"]).any())
+    m_ns = PTopo.match_terms(pt, pe["label_vals"], pe["ns_id"])
+    got = selector_spread_walk(pn, pe, pt, pa_, m_ns, n_buckets, cluster, mode)
+    want = PTopo.selector_spread_score_plain(pn, pe, pt, pa_, n_buckets=n_buckets)
+    assert np.array_equal(got, want.numpy())
+    same(RTopo.selector_spread_score(rn, re, rt, ra, n_buckets=n_buckets), torch.from_numpy(got))
+
+
+def test_selector_spread_layouts():
+    """The launches the selector-spread wrapper builds: at the config-3 +
+    Services shapes (U = 128, N = 10,240, TT = 256) 3 CTAs a spec row (384
+    CTAs, one wave; a CTA's 3,414 nodes in registers), the zone table local
+    at V = 16, in bucket slices at 16,384 and in device memory at 40,000;
+    the fewest CTAs that hold a slice's node pairs in registers, doubled
+    while the launch stays within 512 CTAs."""
+    lay = PTopo.selector_spread_layout(256, 10240, 16, 128)
+    assert (lay["C"], lay["slice"], lay["mode"]) == (3, 3414, 0)
+    assert PTopo.selector_spread_layout(256, 10240, 16384, 128)["mode"] == 1
+    assert PTopo.selector_spread_layout(256, 10240, 40000, 128)["mode"] == 2
+    assert PTopo.selector_spread_layout(256, 10240, 16, 8)["C"] == 12
+    assert PTopo.selector_spread_layout(256, 2000, 16, 64)["C"] == 8
+    assert PTopo.selector_spread_layout(256, 5000, 16, 1024)["C"] == 2
+    with pytest.raises(ValueError):
+        PTopo.selector_spread_layout(256, 10240, 16, 128, cluster=2)  # 5,120 nodes a CTA: past its registers
+    with pytest.raises(ValueError):
+        PTopo.selector_spread_layout(256, 70000, 16, 128)
 
 
 @pytest.mark.parametrize("rows,ctas", [(1, 1), (3, 4), (64, 16)], ids=["1-row", "3-rows", "all-rows"])
