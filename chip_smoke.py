@@ -85,20 +85,25 @@ they placed. Phases:
                 to the plain version, timed in turns; gather_score_rows on its
                 edges (K = 1, repeated rows, N not a multiple of the block, int64
                 extremes) and at the config-3-hard shapes (U = 128,
-                N = 10,240, K = 128), one torch.index_select as its
-                library yardstick; solve_gang (both passes in one launch),
+                N = 10,240, K = 128, and the driver's K of 1, 2 and 4), one
+                torch.index_select as its library yardstick, both
+                relaunched and by device duration; solve_gang (both passes in one launch),
                 deterministic and with tie-noise, on the pipeline's mask and
                 score of the first config-5 batch (U=64, N=2048, B=4096, 64
                 groups) and at a tight shape (one more pod a node: most
                 groups drop), timed through its wrapper; the ingest and
-                term planes' gather_stage and gather_terms (csrc/slab.cu,
-                one launch a dict) on their edges and at the config-3
-                shapes (U = TT = 128 lanes, 100 live, slab 256; timed) and
-                the config-5 ones (U = 64, slab 1,024; TT = 16, none live),
-                and scatter_rows on its edges (duplicates, an empty dirty
-                set) and at config 5's restage flush (64 of 1,024 rows,
-                timed), the library yardstick one index_select + where, or
-                one index_copy_, per array, summed; the score
+                term planes' batch gather (csrc/slab.cu: the pod arrays
+                and the term table in one launch) through its one-problem
+                calls gather_stage and gather_terms on their edges, both
+                problems on edges and at the config-3 shapes (U = TT = 128
+                lanes, 100 live, slabs of 256) and the config-5 ones (U =
+                64, slab 1,024; TT = 16, none live), each under the sync
+                debug mode and timed relaunched, by device duration and
+                through its wrapper, and scatter_rows on its edges
+                (duplicates, an empty dirty set) and at config 5's restage
+                flush (64 of 1,024 rows, timed), the library yardstick one
+                index_select + where, or one index_copy_, per array,
+                summed; the score
                 kernel's RequestedToCapacityRatio branch (the default
                 shape, two-point bin-packing, a five-point shape with
                 down-sloping segments over cpu 3 / memory 1, beside
@@ -155,7 +160,8 @@ they placed. Phases:
                 pods): identical placements on cuda and cpu
   5. drain      (after every full drain: each slab's device twin equals its
                 host slab, every batch gathered or legacy on each plane,
-                at most one legacy batch per slab rebuild) config 2 at
+                at most one legacy batch per slab rebuild, one batch-gather
+                launch a covered batch) config 2 at
                 full size; then config 3 at full size, without
                 and with Services; then config 4 at full size, all with the
                 commit plane on (the default; one spread_score launch a
@@ -240,9 +246,14 @@ they placed. Phases:
                 shapes and at a config-4 pod's extender request, and the
                 selector spread: relaunch mean, device duration, through
                 the wrapper, the CTAs a spec row, beside the times before,
-                and their main-path launches), a [launches] line (every
+                and their main-path launches; the batch slab gather at the
+                config-3 and config-5 shapes, relaunched, by device
+                duration and through its wrapper, beside the two launches
+                before, and its main-path launches; gather_score_rows at K
+                = 128, 1, 2 and 4 beside torch.index_select, relaunched and
+                by device duration), a [launches] line (every
                 counter summed over the main-path drains), then
-                one JSON line: per kernel (the nineteen, the match plan's
+                one JSON line: per kernel (the eighteen, the match plan's
                 multi-problem launch, the tracked solve, the RTCR branch,
                 score_components, the extender's
                 filter_mask and the mesh's six: the sharded solve, tracked
@@ -823,14 +834,18 @@ def bound(work):
     return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
 
 
-def device_ms(fn, kernel: str, reps: int = 50, tries: int = 3) -> float:
-    """The mean device duration (ms) of the kernel named `kernel` over
-    `reps` runs of fn(), from a torch.profiler (CUPTI) trace: the summed
-    durations of its device events over their count (a relaunch mean by
-    CUDA events also holds the gaps the host leaves between launches).
-    A trace may drop events (at its edges, or all of them in an
-    occasional session): a trace holding fewer than half of the launches
-    is taken again, up to `tries` traces; fails when none holds half."""
+def device_ms(fn, kernel, reps: int = 50, tries: int = 6) -> float:
+    """The mean device duration (ms) of the kernel named `kernel` (None:
+    every kernel) over runs of fn(), from torch.profiler (CUPTI) traces of
+    `reps` runs each: the summed durations of its device events over their
+    count (a relaunch mean by CUDA events also holds the gaps the host
+    leaves between launches). A trace may drop events (at its edges, or
+    most of them in an occasional session), so the events of successive
+    traces are pooled until they hold half of one trace's launches, up to
+    `tries` traces. When even that falls short, the mean comes from CUDA
+    events around `reps` runs queued behind a sleep kernel, so that the
+    card runs them back to back with no host gap (every kernel of fn()
+    and the gaps between them: an upper bound), and a line says so."""
     import tempfile
 
     from torch.profiler import ProfilerActivity, profile
@@ -850,12 +865,30 @@ def device_ms(fn, kernel: str, reps: int = 50, tries: int = 3) -> float:
             prof.export_chrome_trace(path)
             with open(path) as f:
                 events = json.load(f)["traceEvents"]
-        durs = [e["dur"] for e in events
-                if e.get("ph") == "X" and e.get("cat") == "kernel" and kernel in e.get("name", "")]
+        durs += [e["dur"] for e in events
+                 if e.get("ph") == "X" and e.get("cat") == "kernel" and (kernel is None or kernel in e.get("name", ""))]
         if len(durs) >= reps // 2:
-            break
-    check(len(durs) >= reps // 2, f"the profiler saw {len(durs)} of {reps} launches of {kernel} in {tries} traces")
-    return sum(durs) / len(durs) / 1e3
+            return sum(durs) / len(durs) / 1e3
+    ms = queued_ms(fn, reps)
+    log(f"[device_ms] the profiler saw {len(durs)} launches of {kernel} in {tries} traces of {reps}: "
+        f"{ms:.6f} ms a run from CUDA events behind a sleep kernel")
+    return ms
+
+
+def queued_ms(fn, reps: int = 50) -> float:
+    """The mean milliseconds a run of fn() holds the card when `reps` runs
+    are queued behind a sleep kernel long enough for the host to enqueue
+    them all, timed by CUDA events on the current stream."""
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    fn()  # a first launch may load its module
+    torch.cuda.synchronize()
+    torch.cuda._sleep(200_000_000)  # ~0.1 s at the H100's clock, far longer than the enqueueing
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
 
 
 # ---------------------------------------------------------------------------
@@ -1665,8 +1698,9 @@ def compare_gather(label, u, n, rows, time_it: bool, seed=0):
     """Hold gather_score_rows against its plain version, bit for bit, on a
     seeded [U, N] int64 score matrix holding both int64 extremes, for the
     row list `rows`; with time_it, time the kernel (one prebuilt argument
-    struct relaunched), the plain version and the library's
-    torch.index_select, and bound it."""
+    struct relaunched, and its device duration), the plain version and the
+    library's torch.index_select (relaunched and by device duration), and
+    bound it."""
     from kubernetes_tpu_torch.kernels import build
     from kubernetes_tpu_torch.ops import pipeline as PP
 
@@ -1688,21 +1722,31 @@ def compare_gather(label, u, n, rows, time_it: bool, seed=0):
         st["ms"] = cuda_ms(lambda: build.launch(PP.GATHER_ENTRY, gargs, score.device), 200)
         st["plain_ms"] = cuda_ms(lambda: PP.gather_score_rows_plain(score, idx), 200)
         st["library_ms"] = cuda_ms(lambda: torch.index_select(score, 0, idx), 200)
+        st["device_ms"] = device_ms(lambda: build.launch(PP.GATHER_ENTRY, gargs, score.device), "gather_rows_kernel")
+        # index_select launches one kernel a call: every kernel event counts
+        st["library_device_ms"] = device_ms(lambda: torch.index_select(score, 0, idx), None)
         st["bound"] = bound(gather_work(len(rows), n))
-        log(f"[kernels] {label} gather_score_rows: kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, bound "
-            f"{st['bound'][0]:.6f} ms ({st['bound'][1]}), library index_select {st['library_ms']:.4f} ms")
+        log(f"[kernels] {label} gather_score_rows K={len(rows)}: kernel {st['ms']:.4f} ms relaunched, "
+            f"{st['device_ms']:.4f} ms device; plain {st['plain_ms']:.4f} ms, bound {st['bound'][0]:.6f} ms "
+            f"({st['bound'][1]}), library index_select {st['library_ms']:.4f} ms relaunched, "
+            f"{st['library_device_ms']:.4f} ms device")
     return st
 
 
 def phase_gather_kernels():
     """gather_score_rows on its edges (K = 1, repeated rows, N not a
     multiple of the block) and at the config-3-hard shapes (U = 128,
-    N = 10,240, K = 128)."""
+    N = 10,240) with K = 128 and the driver's usual K of 1, 2 and 4, each
+    beside torch.index_select in the same call."""
     compare_gather("gather edges", 1, 7, [0], time_it=False, seed=1)
     compare_gather("gather edges", 8, 1031, [5, 5, 0, 7, 5], time_it=False, seed=2)
     compare_gather("gather edges", 40, 300, [39], time_it=False, seed=3)
-    return {"gather_score_rows": compare_gather("config-3-hard", 128, 10240, list(range(128))[::-1],
-                                                time_it=True, seed=4)}
+    st = compare_gather("config-3-hard", 128, 10240, list(range(128))[::-1], time_it=True, seed=4)
+    # the driver's usual K: one to four rows an escalated pod ranks by
+    st["k_rows"] = {k: {f: v for f, v in compare_gather("config-3-hard", 128, 10240, [7, 91, 3, 120][:k],
+                                                          time_it=True, seed=4 + k).items() if f != "bound"}
+                    for k in (1, 2, 4)}
+    return {"gather_score_rows": st}
 
 
 def gang_case(enc, tight: bool):
@@ -1826,18 +1870,11 @@ def slab_scatter_work(bank, n_rows):
     return 2 * n_rows * rb + 4 * n_rows, 0
 
 
-def compare_slab_gather(label, plane, s, lanes, live, time_it, seed=0):
-    """Hold gather_stage / gather_terms against its plain version, bit for
-    bit, on a seeded slab with `live` kept lanes (repeated rows among them)
-    and padding after; with time_it, time the kernel (one prebuilt argument
-    struct relaunched), the plain version and the library yardstick (one
-    index_select + where per array, summed), and bound it."""
+def slab_lanes(plane, s, lanes, live, seed):
+    """A seeded slab of `plane` on the card at S rows and `lanes` lanes with
+    `live` kept (repeated rows among them) and padding after: (bank, empty,
+    idx, keep, col), the lanes numpy."""
     import numpy as np
-
-    from kubernetes_tpu_torch.ingest import gather_stage, gather_stage_plain
-    from kubernetes_tpu_torch.kernels import build
-    from kubernetes_tpu_torch.ops import slab as SL
-    from kubernetes_tpu_torch.terms_plane import gather_terms, gather_terms_plain
 
     _, bank, emp = seeded_slab(slab_template(plane), s, seed)
     rng = np.random.default_rng(seed)
@@ -1846,37 +1883,119 @@ def compare_slab_gather(label, plane, s, lanes, live, time_it, seed=0):
     idx[: min(3, live)] = idx[0]
     keep = np.arange(lanes) < live
     col = rng.integers(0, 2 if plane == "stage" else 512, lanes).astype(np.int32)
+    return bank, emp, idx, keep, col
+
+
+def slab_problem(plane, case):
+    """(the plane's gather problem, its plain version as a thunk)."""
+    from kubernetes_tpu_torch.ingest import gather_stage_plain, stage_problem
+    from kubernetes_tpu_torch.terms_plane import gather_terms_plain, term_problem
+
+    bank, emp, idx, keep, col = case
     ti, tk, tc = (torch.from_numpy(a).cuda() for a in (idx, keep, col))
     if plane == "stage":
-        name, got = "gather_stage", gather_stage(bank, idx, keep, emp, col.astype(bool))
-        plain = lambda: gather_stage_plain(bank, ti, tk, emp, tc.bool())  # noqa: E731
-    else:
-        name, got = "gather_terms", gather_terms(bank, idx, col, keep, emp)
-        plain = lambda: gather_terms_plain(bank, ti, tc, tk, emp)  # noqa: E731
-    want = plain()
-    err = sum(int((got[k] != want[k]).sum()) for k in want)
-    check(err == 0 and sorted(got) == sorted(want), f"[{label}] {name} differs from its plain version in {err} cells")
-    st = {"max_abs_err": err}
-    log(f"[kernels] {label}: S={s} lanes={lanes} live={live}: {name} exact")
+        return (stage_problem(bank, idx, keep, emp, col.astype(bool)),
+                lambda: gather_stage_plain(bank, ti, tk, emp, tc.bool()))
+    return term_problem(bank, idx, col, keep, emp), lambda: gather_terms_plain(bank, ti, tc, tk, emp)
+
+
+def slab_diff(got, want) -> int:
+    check(list(got) == list(want), f"the gathered keys {list(got)} are not the plain version's {list(want)}")
+    return sum(int((got[k] != want[k]).sum()) + (got[k].dtype != want[k].dtype) for k in want)
+
+
+def compare_slab_gather(label, plane, s, lanes, live, seed=0):
+    """Hold gather_stage / gather_terms (the batch gather's one-problem
+    calls, one launch each) against its plain version, bit for bit."""
+    from kubernetes_tpu_torch.ingest import gather_stage
+    from kubernetes_tpu_torch.terms_plane import gather_terms
+
+    case = slab_lanes(plane, s, lanes, live, seed)
+    bank, emp, idx, keep, col = case
+    fn = gather_stage if plane == "stage" else gather_terms
+    before = fn.launches
+    got = (gather_stage(bank, idx, keep, emp, col.astype(bool)) if plane == "stage"
+           else gather_terms(bank, idx, col, keep, emp))
+    err = slab_diff(got, slab_problem(plane, case)[1]())
+    check(err == 0 and fn.launches == before + 1, f"[{label}] {fn.__name__} differs from its plain version in {err} "
+          f"cells ({fn.launches - before} launches)")
+    log(f"[kernels] {label}: S={s} lanes={lanes} live={live}: {fn.__name__} exact, one launch")
+
+
+def compare_slab_batch(label, shapes, time_it, seed=0):
+    """Hold the batch gather (gather_batch: the pod arrays and the term
+    table in ONE launch) against the plain versions, bit for bit; `shapes`
+    maps each plane to (slab rows, lanes, live lanes). The wrapper also
+    runs under torch.cuda.set_sync_debug_mode("error"). With time_it: the
+    kernel alone (a prebuilt argument block and buffer relaunched), its
+    device duration, the wrapper (lanes to pinned memory, one allocation,
+    one non-blocking copy, the launch, the views), the pinned copy alone,
+    the plain versions and the library yardstick (one index_select + where
+    per array, summed), and the bound."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.kernels import build
+    from kubernetes_tpu_torch.ops import slab as SL
+
+    cases = [(plane, slab_lanes(plane, *shape, seed + j)) for j, (plane, shape) in enumerate(shapes.items())]
+    probs, plains = zip(*(slab_problem(plane, case) for plane, case in cases))
+    before = SL.gather_batch.launches
+    got = SL.gather_batch(list(probs))
+    wants = [plain() for plain in plains]
+    err = sum(slab_diff(g, w) for g, w in zip(got, wants))
+    check(err == 0 and SL.gather_batch.launches == before + 1,
+          f"[{label}] gather_batch differs from the plain versions in {err} cells "
+          f"({SL.gather_batch.launches - before} launches)")
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        again = SL.gather_batch(list(probs))
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    check(sum(slab_diff(g, w) for g, w in zip(again, wants)) == 0, f"[{label}] gather_batch differs on a second call")
+    st = {"max_abs_err": err, "shapes": {k: list(v) for k, v in shapes.items()}}
+    log(f"[kernels] {label}: {shapes}: gather_batch exact in one launch, no synchronisation")
     if time_it:
-        host = np.stack([idx, keep.astype(np.int32), col])
-        lanes_d = torch.from_numpy(host).cuda()
-        out = {k: torch.empty_like(v) for k, v in want.items()}
-        ck = "fallback" if plane == "stage" else "owner"
-        gargs = SL.gather_args(bank, emp, out, lanes_d, ck, plane != "stage")
-        st["ms"] = cuda_ms(lambda: build.launch(SL.GATHER_ENTRY, gargs, ti.device), 200)
-        st["device_ms"] = device_ms(lambda: build.launch(SL.GATHER_ENTRY, gargs, ti.device), "gather_slab_kernel")
-        st["plain_ms"] = cuda_ms(plain, 50)
-        il = ti.long()
+        lanes = [SL.host_lanes(p) for p in probs]
+        plan = SL.gather_plan(list(probs), [len(ln[0]) for ln in lanes])
+        host = np.zeros(plan.host_bytes, np.uint8)
+        plan.fill(host, lanes)
+        buf = torch.empty(plan.nbytes, dtype=torch.uint8, device="cuda")
+        buf[: plan.host_bytes].copy_(torch.from_numpy(host))
+        args = SL.GatherBatchArgs.from_buffer_copy(plan.args)
+        args.base = buf.data_ptr()
+        dev = buf.device
+
+        def launch():
+            build.launch(SL.GATHER_ENTRY, args, dev)
+
+        launch()
+        check(sum(slab_diff(g, w) for g, w in zip(plan.views(buf), wants)) == 0,
+              f"[{label}] the relaunched gather differs from the plain versions")
+        pinned = torch.empty(plan.host_bytes, dtype=torch.uint8, pin_memory=True)
+        st["ms"] = cuda_ms(launch, 200)
+        st["device_ms"] = device_ms(launch, "gather_batch_kernel")
+        st["wrapper_ms"] = cuda_ms(lambda: SL.gather_batch(list(probs)), 200)
+        st["copy_ms"] = cuda_ms(lambda: buf[: plan.host_bytes].copy_(pinned, non_blocking=True), 200)
+        st["plain_ms"] = cuda_ms(lambda: [plain() for plain in plains], 50)
+        tensors = []
+        for p, (idx, keep, _) in zip(probs, lanes):
+            tensors.append((p, torch.from_numpy(idx).cuda().long(), torch.from_numpy(keep).cuda()))
 
         def library():
-            for k, v in bank.items():
-                g = torch.index_select(v, 0, il)
-                torch.where(tk.reshape((-1,) + (1,) * (g.ndim - 1)), g, emp[k])
+            for p, il, tk in tensors:
+                for k, v in p.slab.items():
+                    g = torch.index_select(v, 0, il)
+                    torch.where(tk.reshape((-1,) + (1,) * (g.ndim - 1)), g, p.empty[k])
 
         st["library_ms"] = cuda_ms(library, 50)
-        st["bound"] = bound(slab_gather_work(bank, lanes, live))
-        log(f"[kernels] {label} {name}: kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, bound "
+        work = [slab_gather_work(p.slab, len(ln[0]), int(ln[1].sum())) for p, ln in zip(probs, lanes)]
+        st["bound"] = bound((sum(w[0] for w in work), 0))
+        st["ctas"] = plan.n_ctas
+        st["segments"] = len(plan.segments)
+        log(f"[kernels] {label} gather_batch: kernel {st['ms']:.4f} ms relaunched, {st['device_ms']:.4f} ms device "
+            f"duration, {st['wrapper_ms']:.4f} ms through its wrapper (the pinned copy alone {st['copy_ms']:.4f} ms), "
+            f"{plan.n_ctas} CTAs for {len(plan.segments)} segments; plain {st['plain_ms']:.4f} ms, bound "
             f"{st['bound'][0]:.6f} ms ({st['bound'][1]}), library index_select + where per array "
             f"{st['library_ms']:.4f} ms")
     return st
@@ -1936,28 +2055,30 @@ def compare_slab_scatter(label, plane, s, rows, time_it, seed=0):
 
 
 def phase_slab_kernels():
-    """The ingest and term planes' kernels: the gathers on their edges (S
-    not a multiple of the block, one lane, no live lane) and at the
-    config-3 (U = TT = 128 lanes, 100 live, slab 256) and config-5 (U = 64
-    on a 1,024-row slab; TT = 16 lanes, none live: config 5 has no terms)
-    shapes; the scatter on its edges (duplicates, the last row, an empty
-    dirty set) and at config 5's restage flush (64 dirty rows of a
-    1,024-row slab)."""
+    """The ingest and term planes' kernels: the batch gather through its
+    one-problem calls on their edges (S not a multiple of the block, one
+    lane), both problems in one launch on edges (no live lane, one lane)
+    and at the config-3 (U = TT = 128 lanes, 100 live, slabs of 256) and
+    config-5 (U = 64 on a 1,024-row slab; TT = 16 lanes, none live: config
+    5 has no terms) shapes; the scatter on its edges (duplicates, the last
+    row, an empty dirty set) and at config 5's restage flush (64 dirty rows
+    of a 1,024-row slab)."""
     for plane in ("stage", "terms"):
-        compare_slab_gather("slab edges", plane, 37, 48, 5, time_it=False, seed=1)
-        compare_slab_gather("slab edges", plane, 3, 1, 1, time_it=False, seed=2)
+        compare_slab_gather("slab edges", plane, 37, 48, 5, seed=1)
+        compare_slab_gather("slab edges", plane, 3, 1, 1, seed=2)
         compare_slab_scatter("slab edges", plane, 256, [3, 17, 17, 0, 255, 22], time_it=False, seed=3)
         compare_slab_scatter("slab edges", plane, 37, [], time_it=False, seed=4)
+    compare_slab_batch("slab edges", {"stage": (37, 48, 0), "terms": (3, 1, 1)}, time_it=False, seed=10)
+    compare_slab_batch("slab edges", {"stage": (1, 1, 1), "terms": (40, 1031, 700)}, time_it=False, seed=12)
     stats = {
-        "gather_stage": compare_slab_gather("config-3", "stage", 256, 128, 100, time_it=True, seed=5),
-        "gather_terms": compare_slab_gather("config-3", "terms", 256, 128, 100, time_it=True, seed=6),
+        "gather_batch": compare_slab_batch("config-3", {"stage": (256, 128, 100), "terms": (256, 128, 100)},
+                                           time_it=True, seed=5),
         "scatter_rows": compare_slab_scatter("config-5", "stage", 1024, list(range(0, 1024, 16)), time_it=True,
                                              seed=7),
     }
-    info5 = compare_slab_gather("config-5", "stage", 1024, 64, 64, time_it=True, seed=8)
-    info5t = compare_slab_gather("config-5", "terms", 256, 16, 0, time_it=True, seed=9)
-    log(f"[kernels] config-5 gathers (information): gather_stage {info5['ms']:.4f} ms, gather_terms "
-        f"{info5t['ms']:.4f} ms")
+    info5 = compare_slab_batch("config-5", {"stage": (1024, 64, 64), "terms": (256, 16, 0)}, time_it=True, seed=8)
+    stats["gather_batch"]["config-5"] = {k: info5[k] for k in ("ms", "device_ms", "wrapper_ms", "copy_ms", "ctas")}
+    stats["gather_batch"]["config-5"]["bound_ms"] = info5["bound"][0]
     return stats
 
 
@@ -2421,6 +2542,7 @@ def phase_kernels():
     stats["_redesign"]["inter-pod filter and selector spread"]["launch-latency rows [relaunched, device] ms"] = latency
     log("[redesign] launch-latency rows, relaunch mean / device duration: "
         + ", ".join(f"{k} {ms:.4f} / {d:.4f} ms" for k, (ms, d) in latency.items()))
+    stats["_redesign"]["batch slab gather"] = slab_gather_summary(stats["gather_batch"], stats["gather_score_rows"])
     return stats
 
 
@@ -2441,8 +2563,37 @@ BEFORE_MS = {"spread_filter": 0.0928, "spread_filter_match_terms": 0.0138, "filt
 
 
 # the kernels PERF.md lists at their launch latency
-LATENCY_ROWS = ("gather_stage", "gather_terms", "scatter_rows", "fold_commit_banks", "fold_usage",
+LATENCY_ROWS = ("gather_batch", "scatter_rows", "fold_commit_banks", "fold_usage",
                 "inbatch_port_conflict")
+
+
+# the slab gathers before the batch gather, PERF.md's device-program table
+# (chip_smoke.py on NVIDIA H100 80GB HBM3, 700.00 W): gather_stage and
+# gather_terms at the config-3 shapes, two launches a batch
+BEFORE_MS["slab_gathers"] = {"relaunched": [0.0155, 0.0103], "device": [0.0049, 0.0018]}
+
+
+def slab_gather_summary(gb, gsr):
+    """The batch gather at the config-3 and config-5 shapes (relaunched,
+    device, through its wrapper, the pinned copy alone, CTAs, the bound)
+    beside the two launches before; gather_score_rows at K = 128 and the
+    driver's K beside torch.index_select, both by relaunch and device
+    duration, in this call."""
+    keys = ("ms", "device_ms", "wrapper_ms", "copy_ms", "ctas")
+    out = {"config-3": {**{k: gb[k] for k in keys}, "bound_ms": gb["bound"][0],
+                        "before_ms": BEFORE_MS["slab_gathers"]},
+           "config-5": gb["config-5"]}
+    for k, v in out.items():
+        log(f"[redesign] batch slab gather {k}: {v['ms']:.4f} ms relaunched, {v['device_ms']:.4f} ms device, "
+            f"{v['wrapper_ms']:.4f} ms through its wrapper (pinned copy {v['copy_ms']:.4f} ms), {v['ctas']} CTAs, "
+            f"bound {v['bound_ms']:.6f} ms")
+    rows = {128: gsr, **gsr["k_rows"]}
+    out["gather_score_rows"] = {f"K={k}": {f: r[f] for f in ("ms", "device_ms", "library_ms", "library_device_ms")}
+                                for k, r in rows.items()}
+    for k, r in out["gather_score_rows"].items():
+        log(f"[redesign] gather_score_rows {k}: kernel {r['ms']:.4f} ms relaunched / {r['device_ms']:.4f} ms device; "
+            f"index_select {r['library_ms']:.4f} / {r['library_device_ms']:.4f} ms")
+    return out
 
 
 def interpod_and_selector_summary(ip4, zs):
@@ -2575,13 +2726,11 @@ def kernel_counters():
     from kubernetes_tpu_torch.ops import topology as TO
 
     from kubernetes_tpu_torch.commit import arbiter as A
-    from kubernetes_tpu_torch.ingest import gather_stage
     from kubernetes_tpu_torch.ops import fold as FO
     from kubernetes_tpu_torch.ops import pipeline as PP
     from kubernetes_tpu_torch.ops import preempt as PR
     from kubernetes_tpu_torch.ops import slab as SL
     from kubernetes_tpu_torch.parallel import sharded as PS
-    from kubernetes_tpu_torch.terms_plane import gather_terms
 
     return {
         "filter_mask": (F.combined_mask, "launches"), "score_matrix": (S.score_matrix, "launches"),
@@ -2602,8 +2751,7 @@ def kernel_counters():
         "fold_commit_banks": (FO.fold_commit_banks, "launches"),
         "preempt_batch": (PR.preempt_batch, "launches"), "fold_usage": (FO.fold_usage, "launches"),
         "gather_score_rows": (PP.gather_score_rows, "launches"), "solve_gang": (SO.solve_gang, "launches"),
-        "gather_stage": (gather_stage, "launches"), "gather_terms": (gather_terms, "launches"),
-        "scatter_rows": (SL.scatter_rows, "launches"),
+        "gather_batch": (SL.gather_batch, "launches"), "scatter_rows": (SL.scatter_rows, "launches"),
         "score_matrix[rtcr]": (S.score_matrix, "rtcr_launches"), "score_components": (S.score_components, "launches"),
         "pipeline.filter_mask": (PP.filter_mask, "launches"),
         "solve_sharded": (PS.solve_sharded, "launches"), "solve_sharded_inb": (PS.solve_sharded, "tracked_launches"),
@@ -3237,12 +3385,21 @@ def plane_counters(sched):
     return {k: sched.stats[k] for k in PLANE_COUNTERS}
 
 
-def verify_stage_planes(label, sched):
+def verify_stage_planes(label, sched, launches=None):
     """The ingest and term planes after a drain: each slab's device twin
     equals its host slab on the live rows, every batch went through a plane
     either gathered or legacy, and a plane took the legacy path at most
-    once per slab rebuild."""
+    once per slab rebuild. Given the drain's `launches`: one batch-gather
+    launch a covered batch (a batch either plane gathered)."""
     st = sched.stats
+    if launches is not None:
+        got, idx_i, idx_t = launches["gather_batch"], st["ingest_index_batches"], st["term_index_batches"]
+        if st["ingest_legacy_batches"] == 0 or st["term_legacy_batches"] == 0:
+            lo = hi = max(idx_i, idx_t)  # every batch one plane did not gather, the other did
+        else:
+            lo, hi = max(idx_i, idx_t), min(st["batches"], idx_i + idx_t)
+        check(lo <= got <= hi, f"{label}: {got} batch-gather launches for {st['batches']} batches ({idx_i} pod-array "
+              f"and {idx_t} term-table gathers): one launch a covered batch expected")
     for plane, slab, bank in (("ingest", sched.stage, sched.stage_bank), ("term", sched.tstage, sched.term_bank)):
         div = bank.device_divergence()
         check(div == [], f"{label}: the {plane} slab's device twin differs from its host slab: {div}")
@@ -3257,14 +3414,14 @@ def run_main_path(label, names, run, staged=True):
     """Drive one main path with every kernel count set to 0 just before it;
     read the counts of `names` just after and require each > 0. Every
     Scheduler main path runs the ingest and term planes: their gathers
-    launch once a batch (`staged`; the extender's /filter path has no
-    queue, so no plane)."""
+    launch together, once a batch (`staged`; the extender's /filter path
+    has no queue, so no plane)."""
     counters = kernel_counters()
     for fn, attr in counters.values():
         setattr(fn, attr, 0)
     out = run()
     launches = {name: getattr(fn, attr) for name, (fn, attr) in counters.items()}
-    for name in list(names) + (["gather_stage", "gather_terms"] if staged else []):
+    for name in list(names) + (["gather_batch"] if staged else []):
         check(launches[name] > 0, f"kernel {name} was not launched by the {label} drain")
     return out, launches
 
@@ -3313,7 +3470,7 @@ def phase_drain(smi, total):
     add(launches)
     verify_drain(sched, nodes, pods, res, "cuda")
     verify_planes("config-2", sched)
-    verify_stage_planes("config-2", sched)
+    verify_stage_planes("config-2", sched, launches)
     verify_node_bank(sched)
     n_sigs = verify_sig_bank(sched)
     log_drain(f"config-2 full ({CONFIG2_NODES} nodes, {CONFIG2_PODS} pods, batch {BATCH})", sched, res, wall, smi)
@@ -3333,7 +3490,7 @@ def phase_drain(smi, total):
         add(launches)
         verify_capacity(sched, pods, res)
         verify_planes(label, sched)
-        verify_stage_planes(label, sched)
+        verify_stage_planes(label, sched, launches)
         verify_node_bank(sched)
         n_sigs = verify_sig_bank(sched)
         log_drain(f"{label} full ({CONFIG3_NODES} nodes, {CONFIG3_PODS} pods, batch {BATCH})",
@@ -3357,7 +3514,7 @@ def phase_drain(smi, total):
     add(launches)
     verify_capacity(sched, pods, res)
     verify_planes("config-4", sched, arbitrated=True)
-    verify_stage_planes("config-4", sched)
+    verify_stage_planes("config-4", sched, launches)
     verify_node_bank(sched)
     n_excl = verify_exclusive(pods, res)
     n_pats = verify_pattern_bank(sched)
@@ -3385,7 +3542,7 @@ def phase_drain(smi, total):
     verify_capacity(sched, pods, res)
     skew = zone_skew(nodes, pods, res)
     check(skew <= 1, f"config-3-hard full cluster: an app's zone counts differ by {skew} > max_skew 1")
-    verify_stage_planes("config-3-hard full cluster", sched)
+    verify_stage_planes("config-3-hard full cluster", sched, launches)
     verify_node_bank(sched)
     n_sigs = verify_sig_bank(sched)
     st = sched.stats
@@ -3410,7 +3567,7 @@ def phase_drain(smi, total):
         lambda: drain("cuda", "config5", CONFIG5_NODES, n5, BATCH, deterministic=False))
     add(launches)
     verify_capacity(sched, pods, res)
-    verify_stage_planes("config-5", sched)
+    verify_stage_planes("config-5", sched, launches)
     verify_node_bank(sched)
     n_sigs = verify_sig_bank(sched)
     st = sched.stats
@@ -3433,7 +3590,7 @@ def phase_drain(smi, total):
         add(launches)
         verify_config6(out, f"config-6 batch {batch}")
         sched = out["sched"]
-        verify_stage_planes(f"config-6 batch {batch}", sched)
+        verify_stage_planes(f"config-6 batch {batch}", sched, launches)
         st = sched.stats
         log(f"[drain] config-6 full ({CONFIG6_NODES} nodes, {CONFIG6_NODES * 7} bound, {CONFIG6_PREEMPTORS} "
             f"preemptors, batch {batch}): {len(out['assignments'])} placed, {len(out['victims'])} victims, every "
@@ -3488,7 +3645,7 @@ def phase_mesh(smi, total):
     same_stats("config-3 mesh", sched, one_sched, keys)
     verify_capacity(sched, pods, res)
     verify_planes("config-3 mesh", sched)
-    verify_stage_planes("config-3 mesh", sched)
+    verify_stage_planes("config-3 mesh", sched, launches)
     verify_node_bank(sched)
     n_sigs = verify_sig_bank(sched)
     log_drain(f"config-3 mesh full ({CONFIG3_NODES} nodes, {CONFIG3_PODS} pods, batch {BATCH}, {MESH_SHARDS} shards)",
@@ -3891,7 +4048,7 @@ def phase_policy(smi, total, default_pods_per_s):
         "config-2 RTCR Policy", need, lambda: policy_drain("cuda", CONFIG2_NODES, CONFIG2_PODS, BATCH))
     add(launches)
     verify_drain(sched, nodes, pods, res, "cuda")
-    verify_stage_planes("config-2 RTCR Policy", sched)
+    verify_stage_planes("config-2 RTCR Policy", sched, launches)
     verify_node_bank(sched)
     st = sched.stats
     check(launches["score_matrix[rtcr]"] == st["batches"],
@@ -4227,8 +4384,8 @@ def main() -> int:
         "fold_usage": ("kubernetes_tpu_torch/csrc/fold.cu", "kubernetes_tpu/ops/fold.py:74"),
         "gather_score_rows": ("kubernetes_tpu_torch/csrc/gather.cu", "kubernetes_tpu/ops/pipeline.py:374"),
         "solve_gang": ("kubernetes_tpu_torch/csrc/solver.cu", "kubernetes_tpu/ops/solver.py:366"),
-        "gather_stage": ("kubernetes_tpu_torch/csrc/slab.cu", "kubernetes_tpu/ingest/gather.py:28"),
-        "gather_terms": ("kubernetes_tpu_torch/csrc/slab.cu", "kubernetes_tpu/terms_plane/gather.py:28"),
+        "gather_batch": ("kubernetes_tpu_torch/csrc/slab.cu",
+                         "kubernetes_tpu/ingest/gather.py:28 and kubernetes_tpu/terms_plane/gather.py:28"),
         "scatter_rows": ("kubernetes_tpu_torch/csrc/slab.cu", "kubernetes_tpu/ingest/bank.py:54"),
         "score_matrix[rtcr]": ("kubernetes_tpu_torch/csrc/scores.cu", "kubernetes_tpu/ops/scores.py:183"),
         "score_components": ("kubernetes_tpu_torch/csrc/scores.cu", "kubernetes_tpu/ops/scores.py:288"),
@@ -4285,6 +4442,9 @@ def main() -> int:
         f"through its wrapper, {ipr['rows'][0]} of {ipr['rows'][1]} rows tabulate, CTAs a spec row "
         f"{ipr['ctas_ms']}; filter_mask through its wrapper {req['filter_mask']['ms']:.4f} ms; main path "
         f"launches {red['main path launches']}")
+    red = stats["_redesign"]["batch slab gather"]
+    red["main path launches"] = {k: launches.get(k, 0) for k in ("gather_batch", "scatter_rows")}
+    log(f"[redesign] batch slab gather: main-path launches {red['main path launches']}")
     log(f"[launches] main-path launches summed over every drain: "
         + json.dumps({k: v for k, v in sorted(launches.items())}))
     log(f"[done] {time.perf_counter() - t0:.1f}s; card: {smi}")

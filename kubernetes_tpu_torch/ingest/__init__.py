@@ -9,8 +9,9 @@ The port of `kubernetes_tpu/ingest`:
   and the entry carries a ready (row, generation) pair.
 * `bank`   — `StageBank`: the slab's twin on the device, patched by the
   dirty rows at dispatch through csrc/slab.cu's row scatter.
-* `gather` — `gather_stage`: the batch's pod arrays rebuilt on the device
-  from the twin and an int32 index vector, csrc/slab.cu's gather.
+* `gather` — `stage_problem` / `gather_stage`: the batch's pod arrays
+  rebuilt on the device from the twin and an int32 index vector,
+  csrc/slab.cu's batch gather (one launch with the term table).
 
 Coverage is per batch: every rep must hold a valid staged row whose
 generation matches, or re-stage at dispatch (counted); a batch that cannot
@@ -19,7 +20,8 @@ PodBatch, counted. Placements are bit-identical either way.
 """
 
 from .bank import StageBank
-from .gather import gather_stage, gather_stage_plain
+from .gather import gather_stage, gather_stage_plain, stage_problem
 from .stage import MAX_CAPACITY, MIN_CAPACITY, PodStage
 
-__all__ = ["PodStage", "StageBank", "gather_stage", "gather_stage_plain", "MAX_CAPACITY", "MIN_CAPACITY"]
+__all__ = ["PodStage", "StageBank", "gather_stage", "gather_stage_plain", "stage_problem", "MAX_CAPACITY",
+           "MIN_CAPACITY"]

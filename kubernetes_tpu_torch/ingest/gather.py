@@ -1,9 +1,11 @@
 """Index-only dispatch prologue: a batch's pod arrays rebuilt on the card.
 
-The port of `kubernetes_tpu/ingest/gather.py`. One launch of
-csrc/slab.cu's gather rebuilds the exact per-batch PodBatch array dict the
-solve, gang and arbiter programs read, from the resident staged slab and an
-int32 index vector — the only pod-side payload a covered dispatch ships.
+The port of `kubernetes_tpu/ingest/gather.py`. csrc/slab.cu's batch gather
+rebuilds the exact per-batch PodBatch array dict the solve, gang and
+arbiter programs read, from the resident staged slab and an int32 index
+vector — the only pod-side payload a covered dispatch ships. The driver
+hands `stage_problem` to `ops/slab.gather_batch` beside the term table's
+problem (one launch a batch); `gather_stage` is the one-problem call.
 Padding lanes reproduce an untouched PodBatch row bit for bit (`empty` is
 the slab's one-row zero state: -1 pads on the selector and term slots,
 zeros elsewhere), so the programs downstream see exactly what the legacy
@@ -20,7 +22,7 @@ from typing import Dict
 
 import torch
 
-from ..ops.slab import gather_slab, gather_slab_plain
+from ..ops.slab import GatherProblem, gather_batch, gather_slab_plain
 
 Arrays = Dict[str, torch.Tensor]
 
@@ -34,17 +36,23 @@ def gather_stage_plain(bank: Arrays, idx: torch.Tensor, keep: torch.Tensor, empt
     return out
 
 
+def stage_problem(bank: Arrays, idx, keep, empty: Arrays, fallback) -> GatherProblem:
+    """The pod arrays' gather problem: `fallback` written as shipped."""
+    return GatherProblem(bank, empty, idx, keep, fallback, "fallback", col_masked=False)
+
+
 def gather_stage(bank: Arrays, idx, keep, empty: Arrays, fallback) -> Arrays:
     """bank: the staged slab dict ([S, ...] on the device); idx: [U] int32
     slab rows; keep: [U] bool (True for the batch's specs, False for
     padding); empty: the one-row padding dict; fallback: [U] bool (the
     host's effective fallback). idx, keep and fallback are host vectors.
     Returns the batch's pod-array dict, [U, ...], on the bank's device:
-    CUDA banks launch csrc/slab.cu once (counted in
-    `gather_stage.launches`), CPU banks run the plain version."""
-    out, launched = gather_slab(bank, idx, keep, empty, col=fallback, col_key="fallback", col_masked=False)
-    if launched:
-        gather_stage.launches += 1
+    CUDA banks launch csrc/slab.cu's batch gather once for this one problem
+    (counted in `gather_stage.launches` and `gather_batch.launches`), CPU
+    banks run the plain version."""
+    before = gather_batch.launches
+    (out,) = gather_batch([stage_problem(bank, idx, keep, empty, fallback)])
+    gather_stage.launches += gather_batch.launches - before
     return out
 
 

@@ -50,7 +50,7 @@ ENTRY_POINTS = (
     "ktpu_interpod_filter", "ktpu_interpod_score", "ktpu_inbatch_port_conflict",
     "ktpu_spread_filter", "ktpu_arbitrate", "ktpu_fold_commit_banks",
     "ktpu_preempt_batch", "ktpu_fold_usage", "ktpu_gather_score_rows",
-    "ktpu_gather_slab", "ktpu_scatter_slab", "ktpu_fold_commit_sharded", "ktpu_fold_usage_sharded",
+    "ktpu_gather_batch", "ktpu_scatter_slab", "ktpu_fold_commit_sharded", "ktpu_fold_usage_sharded",
     # cluster capacity queries of the cluster launches (ktpu_solve,
     # ktpu_arbitrate): (const <Args>*, int* out) -> cudaError_t
     "ktpu_solve_clusters", "ktpu_arbitrate_clusters",

@@ -56,9 +56,9 @@ entry carries the (row, generation) pairs. A dispatch validates the reps'
 pairs (`_stage_prologue`, `_term_prologue`; a stale one re-stages,
 counted), flushes the slabs' dirty rows into their device twins (one
 launch of csrc/slab.cu's row scatter each) and gathers the batch's pod
-arrays and term table on the device from int32 index vectors (one launch
-of csrc/slab.cu's gather each); the term kinds, topology slots, aux bits
-and overflow come from the interned entries. A batch the slabs cannot
+arrays and term table on the device from int32 index vectors (ONE launch
+of csrc/slab.cu's batch gather for both, in `_encode`); the term kinds,
+topology slots, aux bits and overflow come from the interned entries. A batch the slabs cannot
 cover (a stale rep that cannot re-stage: slab at its ceiling; a slab
 rebuilt mid-resolve) takes the legacy host-built encode, counted in
 `ingest_legacy_batches` / `term_legacy_batches`. Placements are
@@ -125,10 +125,11 @@ from ..commit.arbiter import V_DEFER, V_PLACE, arbitrate, kinds_covered
 from ..commit.fold import plan_fold
 from ..device import resolve_device
 from ..framework.interface import CycleState, Framework
-from ..ingest import PodStage, StageBank, gather_stage
+from ..ingest import PodStage, StageBank, stage_problem
 from ..ops import filters as F
 from ..ops.fold import fold_usage
 from ..ops.pipeline import SolveConfig, gather_score_rows, solve_pipeline, solve_pipeline_gang
+from ..ops.slab import GatherProblem, gather_batch
 from ..ops.solver import prng_key_data
 from ..oracle.nodeinfo import accumulated_request
 from ..parallel.mesh import indexed_device, node_shards
@@ -160,7 +161,7 @@ from ..state.terms import (
     count_batch_terms,
 )
 from ..state.tensors import KeySlotOverflow, PodBatch, _bucket, _req_slot_pairs, dedup_specs_keyed, spec_key
-from ..terms_plane import TermBankDevice, TermStage, gather_terms
+from ..terms_plane import TermBankDevice, TermStage, term_problem
 from . import preemption as preemption_mod
 from .preemption import eligible_nominees, fits_considering_nominated, fits_with_nominees
 
@@ -637,7 +638,9 @@ class Scheduler:
         # *_stale_rows the reps whose staged pair was stale, *_restaged those
         # re-staged at dispatch, stage_sync_flushes / term_sync_flushes the
         # dispatches that flushed dirty rows, stage_s / term_gather_s the
-        # prologues' seconds (resolve, flush, gather launch)
+        # prologues' seconds (resolve, flush; the batch's one gather launch
+        # goes to stage_s when it gathers the pod arrays, else to
+        # term_gather_s)
         self.stats: Dict[str, float] = {
             "sync_s": 0.0, "encode_s": 0.0, "solve_s": 0.0, "commit_s": 0.0, "batches": 0,
             "oracle_rechecks": 0, "light_rechecks": 0, "oracle_places": 0,
@@ -693,8 +696,7 @@ class Scheduler:
             try:
                 staged = self._stage_prologue(reps, rep_infos) if self.stage is not None else None
                 if staged is not None:
-                    pa, fb = staged
-                    fallback = fb[: len(reps)].copy()
+                    fallback = staged.col[: len(reps)].copy()
                 else:
                     batch = PodBatch(vocab, self._u_bucket)
                     for i, p in enumerate(reps):
@@ -713,11 +715,19 @@ class Scheduler:
                 break
             except KeySlotOverflow:
                 self.mirror._rebuild()
+        # one gather launch for both covered planes, after the retry loop (a
+        # discarded attempt launches nothing)
+        problems = ([staged] if staged is not None else []) + ([tp["problem"]] if tp is not None else [])
+        if problems:
+            t0 = time.perf_counter()
+            gathered = gather_batch(problems)
+            st["stage_s" if staged is not None else "term_gather_s"] += time.perf_counter() - t0
         if staged is None:
             pa = arrays_to_torch(batch.arrays(), self.device)
             if self.stage is not None:
                 st["ingest_legacy_batches"] += 1
         else:
+            pa = gathered[0]
             st["ingest_index_batches"] += 1
         if tp is None:
             ta = arrays_to_torch(tb.arrays(), self.device)
@@ -727,22 +737,22 @@ class Scheduler:
             if self.tstage is not None:
                 st["term_legacy_batches"] += 1
         else:
-            ta, aux, overflow, present, slots = tp["ta"], tp["aux"], tp["overflow"], tp["kinds"], tp["slots"]
+            ta, aux, overflow, present, slots = gathered[-1], tp["aux"], tp["overflow"], tp["kinds"], tp["slots"]
             st["term_index_batches"] += 1
         for owner in overflow:
             if 0 <= owner < len(reps):
                 fallback[owner] = True
         return pa, reps, np.asarray(sig_list, np.int32), ta, aux, fallback, present, slots
 
-    def _stage_prologue(self, reps: List[Pod], rep_infos: List[PodInfo]) -> Optional[Tuple[Dict, np.ndarray]]:
-        """Resolve each rep's staged row and gather the batch's pod arrays
-        from the slab's device twin (ref :1254-1347). Returns (pod arrays,
-        the [U] host fallback vector), or None when the batch cannot be
-        covered (a stale rep that cannot re-stage, the slab rebuilt
-        mid-resolve): the caller encodes the legacy PodBatch, counted.
-        Resolution, the dirty-row flush and the capture of the gather's
-        inputs hold the slab lock; the gather launches after it. A failed
-        flush or gather raises."""
+    def _stage_prologue(self, reps: List[Pod], rep_infos: List[PodInfo]) -> Optional[GatherProblem]:
+        """Resolve each rep's staged row and capture the gather of the
+        batch's pod arrays from the slab's device twin (ref :1254-1347).
+        Returns the gather problem (its `col` the [U] host fallback vector),
+        or None when the batch cannot be covered (a stale rep that cannot
+        re-stage, the slab rebuilt mid-resolve): the caller encodes the
+        legacy PodBatch, counted. Resolution, the dirty-row flush and the
+        capture of the gather's inputs hold the slab lock; `_encode`
+        launches the gather after both prologues. A failed flush raises."""
         stage, bank = self.stage, self.stage_bank
         st = self.stats
         t0 = time.perf_counter()
@@ -784,20 +794,19 @@ class Scheduler:
             bank_dev, empty_dev = bank.current_arrays()
             if bank.stats["sync_rows"] != was_sync:
                 st["stage_sync_flushes"] += 1
-        pa = gather_stage(bank_dev, idx, keep, empty_dev, fb)
         st["stage_s"] += time.perf_counter() - t0
-        return pa, fb
+        return stage_problem(bank_dev, idx, keep, empty_dev, fb)
 
     def _term_prologue(self, reps: List[Pod], rep_infos: List[PodInfo], rep_keys: List[tuple],
                        selectors: Optional[Dict[int, list]]) -> Optional[Dict]:
-        """Resolve each rep's interned term entry and gather the batch's
-        term table from the term slab's device twin (ref :1368-1491).
-        Returns {"ta": the gathered table, "aux": the [U] aux bits from the
-        entries, "kinds": the term kinds present, "slots": the topology
-        slots named, "overflow": the reps whose terms overflow}, or None
-        when the batch cannot be covered: the caller compiles the legacy
-        TermBank, counted. The term bucket grows from the entries' row
-        count. Locking as `_stage_prologue`."""
+        """Resolve each rep's interned term entry and capture the gather of
+        the batch's term table from the term slab's device twin (ref
+        :1368-1491). Returns {"problem": the gather problem, "aux": the [U]
+        aux bits from the entries, "kinds": the term kinds present,
+        "slots": the topology slots named, "overflow": the reps whose terms
+        overflow}, or None when the batch cannot be covered: the caller
+        compiles the legacy TermBank, counted. The term bucket grows from
+        the entries' row count. Locking as `_stage_prologue`."""
         ts, bank = self.tstage, self.term_bank
         st = self.stats
         t0 = time.perf_counter()
@@ -856,10 +865,10 @@ class Scheduler:
             bank_dev, empty_dev = bank.current_arrays()
             if bank.stats["sync_rows"] != was_sync:
                 st["term_sync_flushes"] += 1
-        ta = gather_terms(bank_dev, idx, own, keep, empty_dev)
         st["term_gather_s"] += time.perf_counter() - t0
         aux = {"self_aff_match": self_aff, "has_aff": has_aff, "has_anti": has_anti, "n_sel_spread": n_sel}
-        return dict(ta=ta, aux=aux, kinds=kinds, slots=slots, overflow=overflow)
+        return dict(problem=term_problem(bank_dev, idx, own, keep, empty_dev), aux=aux, kinds=kinds, slots=slots,
+                    overflow=overflow)
 
     def _topology_shape(self, present: set, slots: set, aux: Dict[str, np.ndarray], reps: List[Pod],
                         gang: bool) -> frozenset:

@@ -19,7 +19,7 @@ from typing import Dict
 
 import torch
 
-from ..ops.slab import gather_slab, gather_slab_plain
+from ..ops.slab import GatherProblem, gather_batch, gather_slab_plain
 
 Arrays = Dict[str, torch.Tensor]
 
@@ -34,17 +34,22 @@ def gather_terms_plain(bank: Arrays, idx: torch.Tensor, owner: torch.Tensor, kee
     return out
 
 
+def term_problem(bank: Arrays, idx, owner, keep, empty: Arrays) -> GatherProblem:
+    """The term table's gather problem: `owner` written as keep ? owner : 0."""
+    return GatherProblem(bank, empty, idx, keep, owner, "owner", col_masked=True)
+
+
 def gather_terms(bank: Arrays, idx, owner, keep, empty: Arrays) -> Arrays:
     """bank: the term slab dict ([S, ...] on the device); idx: [T] int32
     slab rows; owner: [T] int32 owning rep of each lane; keep: [T] bool
     (True for real term lanes); empty: the one-row padding dict. idx, owner
     and keep are host vectors. Returns the batch's term-table dict, [T,
-    ...], on the bank's device: CUDA banks launch csrc/slab.cu once
-    (counted in `gather_terms.launches`), CPU banks run the plain
-    version."""
-    out, launched = gather_slab(bank, idx, keep, empty, col=owner, col_key="owner", col_masked=True)
-    if launched:
-        gather_terms.launches += 1
+    ...], on the bank's device: CUDA banks launch csrc/slab.cu's batch
+    gather once for this one problem (counted in `gather_terms.launches`
+    and `gather_batch.launches`), CPU banks run the plain version."""
+    before = gather_batch.launches
+    (out,) = gather_batch([term_problem(bank, idx, owner, keep, empty)])
+    gather_terms.launches += gather_batch.launches - before
     return out
 
 

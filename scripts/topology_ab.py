@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Topology kernels of two checkouts of the port, on one card.
+"""Topology and slab kernels of two checkouts of the port, on one card.
 
-    python3 scripts/topology_ab.py --parent DIR [--mode spread|interpod|selector] [--rounds 2]
+    python3 scripts/topology_ab.py --parent DIR [--mode spread|interpod|selector|slab] [--rounds 2]
 
 DIR holds another checkout of the repository (for example the parent commit,
 unpacked with `git archive`). Each round measures the parent, then this
@@ -22,6 +22,13 @@ building its own kernels). Modes:
              its wrapper
   selector   the selector-spread entry (the plan's m_sig given) at the
              config-3 + Services batch shapes
+  slab       a batch's slab gathers, the pod arrays and the term table, at
+             the config-3 shapes (U = TT = 128 lanes, 100 live, slabs of
+             256 rows) and the config-5 ones (U = 64 on a 1,024-row slab;
+             TT = 16 lanes, none live): a checkout with ops/slab.gather_batch
+             launches both in one launch, an older one launches
+             gather_stage and gather_terms one after the other; through the
+             wrappers too (gather_batch, or gather_stage + gather_terms)
 
 For each: the relaunch mean (CUDA events over 200 calls) and the device
 duration from a torch.profiler (CUPTI) trace: the summed durations of the
@@ -47,14 +54,19 @@ KERNELS = {
     "interpod": ("pattern_table_kernel", "term_table_kernel", "interpod_mask_kernel",
                  "interpod_filter_cluster_kernel"),
     "selector": ("selector_spread_kernel", "selector_spread_cluster_kernel"),
+    # the parent's gather a slab and this checkout's one for both
+    "slab": ("gather_slab_kernel", "gather_batch_kernel"),
 }
 KERNELS["match"] = ("match_terms_kernel",)
 
 
-def device_ms(fn, kernels, reps: int = 50, tries: int = 3) -> dict:
+def device_ms(fn, kernels, reps: int = 50, tries: int = 6, per_call: int = 1) -> dict:
     """Per kernel name: the mean device milliseconds a call of fn() spends
-    in it, from a torch.profiler trace of `reps` calls (a trace that saw
-    fewer than half of them is taken again, up to `tries` traces)."""
+    in it, from torch.profiler traces of `reps` calls each (a trace may
+    drop events, so successive traces are pooled until they hold half of
+    one trace's calls, up to `tries` traces);
+    `per_call` is how many launches of its most launched kernel a call
+    makes."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -72,19 +84,18 @@ def device_ms(fn, kernels, reps: int = 50, tries: int = 3) -> dict:
             prof.export_chrome_trace(path)
             with open(path) as f:
                 events = json.load(f)["traceEvents"]
-        out = {}
         for e in events:
             if e.get("ph") == "X" and e.get("cat") == "kernel":
                 name = next((k for k in kernels if k in e.get("name", "")), None)
                 if name:
                     n, t = out.get(name, (0, 0.0))
                     out[name] = (n + 1, t + e["dur"] / 1e3)
-        if out and max(n for n, _ in out.values()) >= reps // 2:
+        if out and max(n for n, _ in out.values()) >= reps * per_call // 2:
             break
     else:
         raise SystemExit(f"the profiler saw too few launches of {kernels} in {tries} traces")
-    # a trace may drop an event at its edges: the mean over the calls seen
-    calls = max(n for n, _ in out.values())
+    # the mean over the calls seen
+    calls = max(n for n, _ in out.values()) / per_call
     return {k: t / calls for k, (n, t) in out.items()}
 
 
@@ -221,7 +232,93 @@ def measure_selector(root: str) -> dict:
                                                                                m_sig=m_sig), 200)}
 
 
-MEASURES = {"spread": measure_spread, "interpod": measure_interpod, "selector": measure_selector}
+def measure_slab(root: str) -> dict:
+    """The slab gathers of the checkout at `root`: a batch's pod arrays and
+    term table, relaunched from prebuilt arguments, by device duration and
+    through the wrappers, each equal to the plain versions."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as CS
+    from kubernetes_tpu_torch.ingest import gather_stage, gather_stage_plain
+    from kubernetes_tpu_torch.kernels import build
+    from kubernetes_tpu_torch.ops import slab as SL
+    from kubernetes_tpu_torch.terms_plane import gather_terms, gather_terms_plain
+
+    dev = torch.device("cuda")
+    out = {}
+    shapes = {"config3": ((256, 128, 100), (256, 128, 100)), "config5": ((1024, 64, 64), (256, 16, 0))}
+    for label, sizes in shapes.items():
+        planes = []
+        for j, (plane, (s, n, live)) in enumerate(zip(("stage", "terms"), sizes)):
+            _, bank, emp = CS.seeded_slab(CS.slab_template(plane), s, 5 + j)
+            rng = np.random.default_rng(5 + j)
+            idx = np.zeros(n, np.int32)
+            idx[:live] = rng.integers(0, s, live)
+            keep = np.arange(n) < live
+            col = rng.integers(0, 2 if plane == "stage" else 512, n).astype(np.int32)
+            ti, tk, tc = (torch.from_numpy(a).to(dev) for a in (idx, keep, col))
+            want = (gather_stage_plain(bank, ti, tk, emp, tc.bool()) if plane == "stage"
+                    else gather_terms_plain(bank, ti, tc, tk, emp))
+            planes.append((plane, bank, emp, idx, keep, col, want))
+        if hasattr(SL, "gather_batch"):  # one launch for both
+            probs = [SL.GatherProblem(bank, emp, idx, keep, col.astype(bool) if plane == "stage" else col,
+                                      "fallback" if plane == "stage" else "owner", plane != "stage")
+                     for plane, bank, emp, idx, keep, col, _ in planes]
+            lanes = [SL.host_lanes(p) for p in probs]
+            plan = SL.gather_plan(probs, [len(ln[0]) for ln in lanes])
+            host = np.zeros(plan.host_bytes, np.uint8)
+            plan.fill(host, lanes)
+            buf = torch.empty(plan.nbytes, dtype=torch.uint8, device=dev)
+            buf[: plan.host_bytes].copy_(torch.from_numpy(host))
+            args = SL.GatherBatchArgs.from_buffer_copy(plan.args)
+            args.base = buf.data_ptr()
+
+            def launch():
+                build.launch(SL.GATHER_ENTRY, args, dev)
+
+            def wrapper():
+                return SL.gather_batch(probs)
+
+            def outputs():
+                return plan.views(buf)
+        else:  # the parent: one launch a slab
+            launches, outs, held = [], [], []
+            for plane, bank, emp, idx, keep, col, _ in planes:
+                lanes_d = torch.from_numpy(np.stack([idx, keep.astype(np.int32), col])).to(dev)
+                held.append(lanes_d)  # the argument struct points into it
+                o = {k: torch.empty((len(idx),) + tuple(v.shape[1:]), dtype=v.dtype, device=dev)
+                     for k, v in bank.items()}
+                ck = "fallback" if plane == "stage" else "owner"
+                launches.append(SL.gather_args(bank, emp, o, lanes_d, ck, plane != "stage"))
+                outs.append(o)
+
+            def launch():
+                for a in launches:
+                    build.launch(SL.GATHER_ENTRY, a, dev)
+
+            def wrapper():
+                (_, b1, e1, i1, k1, c1, _), (_, b2, e2, i2, k2, c2, _) = planes
+                return [gather_stage(b1, i1, k1, e1, c1.astype(bool)), gather_terms(b2, i2, c2, k2, e2)]
+
+            def outputs():
+                return outs
+        launch()
+        torch.cuda.synchronize()
+        for got_all in (outputs(), wrapper()):
+            for got, (plane, *_r, want) in zip(got_all, planes):
+                if any(not torch.equal(got[k], want[k]) for k in want):
+                    raise SystemExit(f"{root}: the {plane} gather differs from its plain version at {label}")
+        kernels = device_ms(launch, KERNELS["slab"], per_call=1 if hasattr(SL, "gather_batch") else 2)
+        out[f"{label}_ms"] = CS.cuda_ms(launch, 200)
+        out[f"{label}_device_ms"] = sum(kernels.values())
+        out[f"{label}_kernels"] = kernels
+        out[f"{label}_wrapper_ms"] = CS.cuda_ms(wrapper, 200)
+    return out
+
+
+MEASURES = {"spread": measure_spread, "interpod": measure_interpod, "selector": measure_selector,
+            "slab": measure_slab}
 
 
 def measure(root: str, mode: str) -> dict:

@@ -103,8 +103,7 @@ STAGES = (
     ("scheduler/driver.py", "_term_prologue"),
     ("ingest/bank.py", "_flush_locked"),
     ("ops/slab.py", "scatter_rows"),
-    ("ingest/gather.py", "gather_stage"),
-    ("terms_plane/gather.py", "gather_terms"),
+    ("ops/slab.py", "gather_batch"),
     ("state/tensors.py", "dedup_specs"),
     ("state/tensors.py", "set_pod"),
     ("state/terms.py", "compile_batch_terms"),

@@ -4,7 +4,7 @@ plain slab gather (`gather_stage_plain`, and the `gather_stage` wrapper's
 CPU path) against the reference's jitted `gather_stage` on seeded slabs
 with padding lanes, repeated rows and every dtype, the gathered dict
 against the legacy PodBatch of the same reps, a walk of csrc/slab.cu's
-word loop, a flush through the plain row scatter against the reference's
+batch gather, a flush through the plain row scatter against the reference's
 `_scatter_fn()`, and drains of the port's default Scheduler (both planes
 on) against the reference's with the same planes on (speculation and the
 columnar cache off, no warm-up, so every flush is the dispatch-time one):
@@ -266,29 +266,59 @@ def assert_same(ref, port):
         assert np.array_equal(r, p), k
 
 
+def walk_batch(problems):
+    """csrc/slab.cu's batch gather, CTA by CTA and thread by thread, over
+    the host's GatherPlan of `problems` (CPU tensors): the lane region as
+    the wrapper writes it (GatherPlan.fill: rows = keep ? idx : -1, the
+    columns' final bytes), each CTA's segment by the kernel's binary search
+    of first_cta, each thread's words from one division and the segment's
+    row and word steps, every field read from the argument block the
+    launch passes (`plan.args`). Returns (each problem's output dict as numpy arrays, the number
+    of kernel writes of every buffer byte)."""
+    lens = [len(np.asarray(p.idx)) for p in problems]
+    plan = SL.GatherPlan(problems, lens)
+    buf = np.zeros(plan.nbytes, np.uint8)
+    writes = np.zeros(plan.nbytes, np.int64)
+    plan.fill(buf[: plan.host_bytes], [SL.host_lanes(p) for p in problems])
+    a = plan.args  # the kernel's argument block, as the launch passes it
+    for b in range(a.n_ctas):
+        lo, hi = 0, a.n_segments - 1
+        while lo < hi:
+            mid = (lo + hi + 1) >> 1
+            lo, hi = (mid, hi) if a.first_cta[mid] <= b else (lo, mid - 1)
+        seg, j, k = a.seg[lo], plan.segments[lo][0], plan.segments[lo][1]
+        wb, words, rw = 1 << seg.log_word, SL.CHUNK_BYTES >> seg.log_word, seg.row_words
+        src = problems[j].slab[k].numpy().view(np.uint8).reshape(-1)
+        pad = problems[j].empty[k].numpy().view(np.uint8).reshape(-1)
+        assert (seg.src, seg.empty) == (problems[j].slab[k].data_ptr(), problems[j].empty[k].data_ptr())
+        rows = buf[seg.rows :].view(np.int32)
+        chunk = b - a.first_cta[lo]
+        end = min((chunk + 1) * words, seg.n_words)
+        for t in range(SL.THREADS):
+            w = chunk * words + t
+            if w >= end:
+                continue
+            ln = w // rw
+            c = w - ln * rw
+            while w < end:
+                r = int(rows[ln])
+                word = src[(r * rw + c) * wb : (r * rw + c + 1) * wb] if r >= 0 else pad[c * wb : (c + 1) * wb]
+                buf[seg.dst + w * wb : seg.dst + (w + 1) * wb] = word
+                writes[seg.dst + w * wb : seg.dst + (w + 1) * wb] += 1
+                ln, c = ln + seg.step_rows, c + seg.step_words
+                if c >= rw:
+                    c, ln = c - rw, ln + 1
+                w += SL.THREADS
+    outs = plan.views(torch.from_numpy(buf))
+    return [{k: v.numpy() for k, v in o.items()} for o in outs], writes
+
+
 def walk_gather(slab, idx, keep, empty, col=None, col_key=None, masked=True):
-    """csrc/slab.cu's gather, word for word: each array viewed as words of
-    the width the kernel picks (8, 4 or 1 bytes), w = l * row_words + c,
-    out[w] = keep[l] ? src[idx[l] * row_words + c] : empty[c]; the override
-    column written as 1 or 4 bytes. numpy arrays in, numpy arrays out."""
-    out = {}
-    for k, v in slab.items():
-        rb = v[0].nbytes
-        if k == col_key:
-            c = np.where(keep, col, 0) if masked else col
-            out[k] = (c != 0) if rb == 1 else c.astype(v.dtype)
-            continue
-        wb = 8 if rb % 8 == 0 else 4 if rb % 4 == 0 else 1
-        wt = {8: np.uint64, 4: np.uint32, 1: np.uint8}[wb]
-        src = np.ascontiguousarray(v).view(np.uint8).view(wt).reshape(-1)
-        pad = np.ascontiguousarray(empty[k]).view(np.uint8).view(wt).reshape(-1)
-        rw = rb // wb
-        dst = np.empty(len(idx) * rw, wt)
-        for w in range(dst.size):
-            ln, c = divmod(w, rw)
-            dst[w] = src[int(idx[ln]) * rw + c] if keep[ln] else pad[c]
-        out[k] = dst.view(np.uint8).view(v.dtype).reshape((len(idx),) + v.shape[1:])
-    return out
+    """csrc/slab.cu's batch gather walked in Python (walk_batch) for one
+    problem: numpy arrays in, numpy arrays out."""
+    prob = SL.GatherProblem(arrays_to_torch(slab, "cpu", copy=True), arrays_to_torch(empty, "cpu", copy=True), idx,
+                            keep, col, col_key, masked)
+    return walk_batch([prob])[0][0]
 
 
 @pytest.mark.parametrize("seed", [0, 1, 2])
@@ -308,10 +338,10 @@ def test_gather_stage_plain_matches_reference(seed):
 
 
 def test_slab_kernel_walk_matches_plain_gather():
-    """csrc/slab.cu's word loop, walked in Python, equals the plain gather:
-    every word width (int64 rows, int32 rows not a multiple of 8 bytes,
-    bool rows of odd length), padding lanes, repeated rows, both override
-    modes."""
+    """csrc/slab.cu's batch gather, walked in Python, equals the plain
+    gather: every word width (int64 rows, int32 rows not a multiple of 8
+    bytes, bool rows of odd length), padding lanes, repeated rows, the
+    shipped override column."""
     rng = np.random.default_rng(5)
     template = PodBatch(Vocab(), 1).arrays()
     slab, empty = seeded_slab(template, 9, 5)
@@ -622,7 +652,7 @@ def test_a_failing_gather_or_flush_raises_with_the_batch_requeued(where, monkeyp
         raise RuntimeError("injected")
 
     if where == "gather":
-        monkeypatch.setattr(D, "gather_stage", boom)
+        monkeypatch.setattr(D, "gather_batch", boom)
     else:
         monkeypatch.setattr(bank_mod, "scatter_rows", boom)
     with pytest.raises(RuntimeError, match="injected"):

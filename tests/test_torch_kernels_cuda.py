@@ -9,7 +9,10 @@ parts), interpod_score (each part and both), inbatch_port_conflict,
 spread_filter, the commit arbiter, the commit fold, the preemption victim
 search, the nominee overlay's usage fold, the host oracle's score-row gather and
 the two-pass gang solve, and the ingest and term planes' slab gather and row
-scatter (and a small drain through both planes, cuda == cpu); the score
+scatter (the batch gather at row bytes 1 to 256, pointers only 4-byte
+aligned, one and two problems, the config-3 and config-5 shapes, its
+wrapper under the sync debug mode; a small drain through both planes, cuda
+== cpu, one gather launch a batch); the score
 kernel's RequestedToCapacityRatio branch (three shapes) and component
 mode (score_components), and the extender's filter_mask composition; the
 node mesh's cluster launches (csrc/solver.cu's solve, tracked solve and
@@ -1170,6 +1173,140 @@ def test_slab_gather_kernel_equals_plain(cuda, plane, s, lanes, live):
               else (bank, np.array([s], np.int32), np.zeros(1, np.int32), np.ones(1, bool), emp)))
 
 
+def synthetic_slab(cuda, s, widths, seed, shift=0):
+    """A slab of one array a row width in `widths` (bytes: 1 bool, 4 int32,
+    12 int32 x 3, 24 int64 x 3, 256 int32 x 64) and its padding row, from a
+    numpy seed; with `shift`, the 256-byte array sits `shift` bytes past a
+    16-byte boundary."""
+    kinds = {1: (bool, ()), 4: (np.int32, ()), 12: (np.int32, (3,)), 24: (np.int64, (3,)), 256: (np.int32, (64,))}
+    rng = np.random.default_rng(seed)
+    slab, empty = {}, {}
+    for w in widths:
+        dt, tail = kinds[w]
+        if dt is bool:
+            a = rng.random((s,) + tail) < 0.5
+        else:
+            a = rng.integers(np.iinfo(dt).min, np.iinfo(dt).max, (s,) + tail, dtype=dt, endpoint=True)
+        slab[f"w{w}"], empty[f"w{w}"] = a, np.full((1,) + tail, 7, dt) if dt is not bool else np.ones((1,), bool)
+    bank, emp = arrays_to_torch(slab, cuda, copy=True), arrays_to_torch(empty, cuda, copy=True)
+    if shift:
+        v = bank["w256"]
+        raw = torch.zeros(v.numel() * 4 + 32, dtype=torch.uint8, device=cuda)
+        off = (-raw.data_ptr()) % 16 + shift
+        moved = raw[off : off + v.numel() * 4].view(torch.int32).view(v.shape)
+        moved.copy_(v)
+        assert moved.data_ptr() % 16 == shift
+        bank["w256"] = moved
+    return bank, emp
+
+
+def batch_lanes(s, n, live, seed):
+    rng = np.random.default_rng(seed)
+    idx = np.zeros(n, np.int32)
+    idx[:live] = rng.integers(0, s, live)
+    idx[: min(3, live)] = idx[0]
+    return idx, np.arange(n) < live
+
+
+def plain_problem(prob, cuda):
+    """The plain gather of one GatherProblem on the card."""
+    from kubernetes_tpu_torch.ops import slab as SL
+
+    idx, keep, col = SL.host_lanes(prob)
+    tk = torch.from_numpy(keep).to(cuda)
+    out = SL.gather_slab_plain(prob.slab, torch.from_numpy(idx).to(cuda), tk, prob.empty)
+    if prob.col_key is not None:
+        out[prob.col_key] = torch.from_numpy(col).to(cuda).to(prob.slab[prob.col_key].dtype)
+    return out
+
+
+def assert_batch_equals_plain(probs, cuda):
+    from kubernetes_tpu_torch.ops import slab as SL
+
+    before = SL.gather_batch.launches
+    got = SL.gather_batch(probs)
+    assert SL.gather_batch.launches == before + 1
+    for g, p in zip(got, probs):
+        want = plain_problem(p, cuda)
+        assert list(g) == list(want)
+        for k in want:
+            assert g[k].dtype == want[k].dtype and g[k].shape == want[k].shape and torch.equal(g[k], want[k]), k
+
+
+@pytest.mark.parametrize("shift", [0, 4, 8], ids=["aligned", "4-byte-pointer", "8-byte-pointer"])
+@pytest.mark.parametrize("n,live", [(1, 1), (1, 0), (100, 77), (1031, 600), (4096, 4000)])
+@pytest.mark.parametrize("two", [False, True], ids=["one-problem", "two-problems"])
+def test_batch_gather_row_widths_equal_plain(cuda, two, n, live, shift):
+    """The batch gather bit for bit at row bytes 1, 4, 12, 24 and 256 (16-,
+    8-, 4- and 1-byte words), a 256-byte array whose pointer is only 4- or
+    8-byte aligned, one lane, lane counts that are not a multiple of a
+    chunk, one and two problems in one launch."""
+    from kubernetes_tpu_torch.ops import slab as SL
+
+    bank, emp = synthetic_slab(cuda, 300, (1, 4, 12, 24, 256), seed=n, shift=shift)
+    idx, keep = batch_lanes(300, n, live, seed=n + 1)
+    probs = [SL.GatherProblem(bank, emp, idx, keep)]
+    if two:
+        bank2, emp2 = synthetic_slab(cuda, 17, (256, 24, 4, 1), seed=n + 2)
+        idx2, keep2 = batch_lanes(17, max(n // 3, 1), max(live // 3, 0), seed=n + 3)
+        col = np.arange(len(idx2), dtype=np.int32) * 3 - 5
+        probs.append(SL.GatherProblem(bank2, emp2, idx2, keep2, col, "w4", True))
+    assert_batch_equals_plain(probs, cuda)
+
+
+@pytest.mark.parametrize("shape", ["config-3", "config-5"])
+@pytest.mark.parametrize("which", ["both", "stage", "terms"])
+def test_batch_gather_at_the_main_path_shapes_equals_plain(cuda, shape, which):
+    """The pod arrays and the term table in one launch at the config-3
+    (U = TT = 128, 100 live, slabs of 256) and config-5 (U = 64 on a
+    1,024-row slab; TT = 16, none live) shapes, and each alone: padding
+    lanes, repeated rows, int64 extremes, both override columns."""
+    from kubernetes_tpu_torch.ingest import stage_problem
+    from kubernetes_tpu_torch.state.tensors import Vocab
+    from kubernetes_tpu_torch.state.terms import TermBank
+    from kubernetes_tpu_torch.terms_plane import term_problem
+
+    sizes = {"config-3": ((256, 128, 100), (256, 128, 100)), "config-5": ((1024, 64, 64), (256, 16, 0))}[shape]
+    probs = []
+    for plane, (s, n, live) in zip(("stage", "terms"), sizes):
+        if which not in ("both", plane):
+            continue
+        template = PodBatch(Vocab(), 1).arrays() if plane == "stage" else TermBank(Vocab(), 1).arrays()
+        slab, empty = seeded_slab(template, s, s + n)
+        bank, emp = arrays_to_torch(slab, cuda, copy=True), arrays_to_torch(empty, cuda, copy=True)
+        idx, keep = batch_lanes(s, n, live, seed=s)
+        col = np.random.default_rng(n).integers(0, 2 if plane == "stage" else 1000, n).astype(np.int32)
+        probs.append(stage_problem(bank, idx, keep, emp, col.astype(bool)) if plane == "stage"
+                     else term_problem(bank, idx, col, keep, emp))
+    assert_batch_equals_plain(probs, cuda)
+
+
+def test_batch_gather_wrapper_never_synchronises(cuda):
+    """gather_batch under torch.cuda.set_sync_debug_mode("error"): the
+    lanes reach the card by a non-blocking copy from pinned memory, so
+    nothing synchronises the stream (a pageable copy would raise)."""
+    from kubernetes_tpu_torch.ops import slab as SL
+
+    bank, emp = synthetic_slab(cuda, 64, (1, 4, 12, 24, 256), seed=5)
+    bank2, emp2 = synthetic_slab(cuda, 32, (4, 256), seed=6)
+    idx, keep = batch_lanes(64, 128, 100, seed=7)
+    idx2, keep2 = batch_lanes(32, 16, 9, seed=8)
+    probs = [SL.GatherProblem(bank, emp, idx, keep, keep.astype(np.int32), "w1", False),
+             SL.GatherProblem(bank2, emp2, idx2, keep2, np.arange(16, dtype=np.int32), "w4", True)]
+    SL.gather_batch(probs)  # the plan built and the pinned pool warmed outside the check
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        outs = [SL.gather_batch(probs) for _ in range(3)]
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    for got in outs:
+        for g, p in zip(got, probs):
+            want = plain_problem(p, cuda)
+            assert all(torch.equal(g[k], want[k]) for k in want)
+
+
 @pytest.mark.parametrize("plane", ["stage", "terms"])
 @pytest.mark.parametrize("s,rows", [(256, [3, 17, 17, 0, 255, 22]), (1024, list(range(0, 1024, 3))), (37, [36]),
                                     (37, [])])
@@ -1203,14 +1340,13 @@ def test_slab_scatter_kernel_equals_plain(cuda, plane, s, rows):
 
 def test_planes_on_the_card_equal_the_cpu(cuda):
     """A small drain through both planes on the card: the same placements
-    as on the CPU, every batch gathered on the card, and the device twins
-    equal to their host slabs."""
-    from kubernetes_tpu_torch.ingest import gather_stage
+    as on the CPU, every batch gathered on the card in ONE launch for its
+    pod arrays and term table, and the device twins equal to their host
+    slabs."""
     from kubernetes_tpu_torch.models.clusters import bench_config3
     from kubernetes_tpu_torch.ops import slab as SL
     from kubernetes_tpu_torch.scheduler.driver import Scheduler
     from kubernetes_tpu_torch.state.queue import PriorityQueue
-    from kubernetes_tpu_torch.terms_plane import gather_terms
 
     out = {}
     for dev in ("cuda", "cpu"):
@@ -1222,7 +1358,7 @@ def test_planes_on_the_card_equal_the_cpu(cuda):
         for i, p in enumerate(pods):
             if i % 100 < 50:
                 queue.add(p)
-        launches = (gather_stage.launches, gather_terms.launches, SL.scatter_rows.launches)
+        launches = (SL.gather_batch.launches, SL.scatter_rows.launches)
         res = sched.schedule_batch()
         for i, p in enumerate(pods):  # new apps, admitted after the twins are resident: flushed by the scatter
             if i % 100 >= 50:
@@ -1231,14 +1367,15 @@ def test_planes_on_the_card_equal_the_cpu(cuda):
         sched.wait_for_binds()
         st = sched.stats
         assert st["ingest_index_batches"] == st["term_index_batches"] == st["batches"]
+        gathers = SL.gather_batch.launches - launches[0]
+        assert gathers == (st["batches"] if dev == "cuda" else 0), (gathers, st["batches"])
         assert st["stage_sync_flushes"] > 0 and st["term_sync_flushes"] > 0
         assert sched.stage_bank.device_divergence() == [] == sched.term_bank.device_divergence()
         sched.close()
         out[dev] = ({**res.assignments, **total.assignments},
-                    [a - b for a, b in zip((gather_stage.launches, gather_terms.launches, SL.scatter_rows.launches),
-                                           launches)])
+                    [a - b for a, b in zip((SL.gather_batch.launches, SL.scatter_rows.launches), launches)])
     assert out["cuda"][0] == out["cpu"][0] and len(out["cuda"][0]) == 2000
-    assert all(n > 0 for n in out["cuda"][1]) and out["cpu"][1] == [0, 0, 0]
+    assert all(n > 0 for n in out["cuda"][1]) and out["cpu"][1] == [0, 0]
 
 
 def test_config4_drain_launches_one_match_a_batch(cuda):

@@ -380,7 +380,7 @@ def test_a_failing_term_gather_raises_with_the_batch_requeued(monkeypatch):
     def boom(*a, **k):
         raise RuntimeError("injected")
 
-    monkeypatch.setattr(D, "gather_terms", boom)
+    monkeypatch.setattr(D, "gather_batch", boom)
     with pytest.raises(RuntimeError, match="injected"):
         sched.schedule_batch()
     assert sched.queue.counts() == (5, 0, 0) and sched.stats["term_legacy_batches"] == 0
