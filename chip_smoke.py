@@ -83,11 +83,13 @@ they placed. Phases:
                 yardstick; the single-device solve as a cluster of 8 and
                 of 16 CTAs at the config-2 and config-3 shapes, each equal
                 to the plain version, timed in turns; gather_score_rows on its
-                edges (K = 1, repeated rows, N not a multiple of the block, int64
-                extremes) and at the config-3-hard shapes (U = 128,
-                N = 10,240, K = 128, and the driver's K of 1, 2 and 4), one
-                torch.index_select as its library yardstick, both
-                relaunched and by device duration; solve_gang (both passes in one launch),
+                edges (K = 1, repeated rows, N * 8 not a multiple of 16, a
+                host destination 8 bytes past 16, K past the argument
+                block's cap, int64 extremes), through its wrapper and into
+                device and pinned host buffers, and at the config-3-hard
+                shapes (U = 128, N = 10,240, K = 128, and the driver's K of
+                1, 2 and 4), one torch.index_select as its library
+                yardstick, both relaunched and by device duration; solve_gang (both passes in one launch),
                 deterministic and with tie-noise, on the pipeline's mask and
                 score of the first config-5 batch (U=64, N=2048, B=4096, 64
                 groups) and at a tight shape (one more pod a node: most
@@ -100,8 +102,10 @@ they placed. Phases:
                 64, slab 1,024; TT = 16, none live), each under the sync
                 debug mode and timed relaunched, by device duration and
                 through its wrapper, and scatter_rows on its edges
-                (duplicates, an empty dirty set) and at config 5's restage
-                flush (64 of 1,024 rows, timed), the library yardstick one
+                (duplicates, an empty dirty set, one row), staged and taken
+                from host truth, at config 5's restage flush (64 of 1,024
+                rows, timed) and a mirror sync's six patches in one launch
+                (config 3, and config 4 timed), the library yardstick one
                 index_select + where, or one index_copy_, per array,
                 summed; the score
                 kernel's RequestedToCapacityRatio branch (the default
@@ -250,8 +254,14 @@ they placed. Phases:
                 config-3 and config-5 shapes, relaunched, by device
                 duration and through its wrapper, beside the two launches
                 before, and its main-path launches; gather_score_rows at K
-                = 128, 1, 2 and 4 beside torch.index_select, relaunched and
-                by device duration), a [launches] line (every
+                = 128, 1, 2 and 4 into the card and into pinned host
+                memory, relaunched and by device duration, through its
+                wrapper and the driver's fetch,
+                beside torch.index_select (with .cpu() too) and the times
+                before; the row scatter at config 5's flush and a config-4
+                mirror sync's six patches in one launch (the wrapper warm
+                and with its layout rebuilt each call),
+                and both kernels' main-path launches), a [launches] line (every
                 counter summed over the main-path drains), then
                 one JSON line: per kernel (the eighteen, the match plan's
                 multi-problem launch, the tracked solve, the RTCR branch,
@@ -839,7 +849,8 @@ def device_ms(fn, kernel, reps: int = 50, tries: int = 6) -> float:
     every kernel) over runs of fn(), from torch.profiler (CUPTI) traces of
     `reps` runs each: the summed durations of its device events over their
     count (a relaunch mean by CUDA events also holds the gaps the host
-    leaves between launches). A trace may drop events (at its edges, or
+    leaves between launches). A tuple of names, each launched once a run,
+    sums their means: a run's device time. A trace may drop events (at its edges, or
     most of them in an occasional session), so the events of successive
     traces are pooled until they hold half of one trace's launches, up to
     `tries` traces. When even that falls short, the mean comes from CUDA
@@ -850,6 +861,8 @@ def device_ms(fn, kernel, reps: int = 50, tries: int = 6) -> float:
 
     from torch.profiler import ProfilerActivity, profile
 
+    if isinstance(kernel, tuple):
+        return sum(device_ms(fn, k, reps, tries) for k in kernel)
     fn()
     torch.cuda.synchronize()
     scratch = os.path.join(os.path.dirname(os.path.abspath(__file__)), "build")
@@ -1328,6 +1341,10 @@ def compare_interpod(enc, label, time_it: bool):
         out["interpod_filter"].update(time_interpod_filter(na, ea, ta, au, xa, pa, m_pt, m_sig, parts_f, v, label))
         sargs, _ = TO.interpod_score_args(na, ea, ta, xa, pa, m_pt, m_sig, parts_s, v)
         out["interpod_score"]["ms"] = cuda_ms(lambda: build.launch(TO.INTERPOD_SCORE_ENTRY, sargs, dev), 200)
+        # its table kernels and its score kernel, each launched once a call
+        out["interpod_score"]["device_ms"] = device_ms(lambda: build.launch(TO.INTERPOD_SCORE_ENTRY, sargs, dev),
+                                                       ("pattern_table_kernel", "term_table_kernel",
+                                                        "interpod_score_kernel"))
         out["interpod_score"]["plain_ms"] = cuda_ms(
             lambda: TO.interpod_score_plain(na, ea, ta, xa, pa, parts_s, v), 5)
         out["interpod_score"]["bound"] = bound(interpod_work("interpod_score", na, ea, xa, ta, au, pa, parts_s,
@@ -1694,53 +1711,85 @@ def compare_fold_usage(label, n, r, nominees, time_it: bool):
     return st
 
 
-def compare_gather(label, u, n, rows, time_it: bool, seed=0):
+def compare_gather(label, u, n, rows, time_it: bool, seed=0, out_shift=0):
     """Hold gather_score_rows against its plain version, bit for bit, on a
     seeded [U, N] int64 score matrix holding both int64 extremes, for the
-    row list `rows`; with time_it, time the kernel (one prebuilt argument
-    struct relaunched, and its device duration), the plain version and the
-    library's torch.index_select (relaunched and by device duration), and
-    bound it."""
+    row list `rows`: through its wrapper (the rows in pinned host memory),
+    and its kernel into a device buffer and into a pinned host buffer
+    `out_shift` elements past a 16-byte boundary (K past the argument
+    block: the lanes on the card). With time_it, time the kernel into the
+    device and into the host (one prebuilt argument block relaunched, and
+    the device duration), the wrapper, the driver's fetch
+    (ScoreRows.prefetch), the plain version and the library's
+    torch.index_select on the card and with .cpu() after it, and bound it
+    (the alternative design, a device destination and one non-blocking
+    copy into pinned memory, is timed by scripts/topology_ab.py --mode
+    gather)."""
     from kubernetes_tpu_torch.kernels import build
     from kubernetes_tpu_torch.ops import pipeline as PP
+    from kubernetes_tpu_torch.scheduler.driver import ScoreRows
 
     g = torch.Generator().manual_seed(seed)
     score = torch.randint(-(2**62), 2**62, (u, n), generator=g, dtype=torch.int64)
     score[0, 0] = torch.iinfo(torch.int64).min
     score[-1, -1] = torch.iinfo(torch.int64).max
     score = score.cuda()
-    idx = torch.tensor(rows, dtype=torch.int32, device=score.device)
-    got = PP.gather_score_rows(score, rows)
+    dev = score.device
+    k = len(rows)
+    idx = torch.tensor(rows, dtype=torch.int32, device=dev)
     want = PP.gather_score_rows_plain(score, idx)
-    err = 0 if torch.equal(got, want) else int((got != want).sum())
+    want_h = want.cpu()
+    got = PP.gather_score_rows(score, rows)
+    check(got.is_pinned(), f"[{label}] gather_score_rows did not return pinned host rows")
+    err = int((got != want_h).sum())
+    lanes = idx if k > PP.GATHER_MAX_INLINE else None
+    dev_out = torch.empty((k, n), dtype=torch.int64, device=dev)
+    raw = torch.empty(k * n + 2, dtype=torch.int64).pin_memory()
+    host_out = raw[out_shift : out_shift + k * n].view(k, n)
+    dargs, hargs = PP.gather_args(score, rows, dev_out, lanes), PP.gather_args(score, rows, host_out, lanes)
+    build.launch(PP.GATHER_ENTRY, dargs, dev)
+    build.launch(PP.GATHER_ENTRY, hargs, dev)
+    torch.cuda.synchronize()
+    err += int((dev_out != want).sum()) + int((host_out != want_h).sum())
     check(err == 0, f"[{label}] gather_score_rows differs from its plain version in {err} cells")
     st = {"max_abs_err": err}
-    log(f"[kernels] {label}: U={u} N={n} K={len(rows)}: gather_score_rows exact")
+    log(f"[kernels] {label}: U={u} N={n} K={k}: gather_score_rows exact through its wrapper and into device and "
+        f"pinned host memory{' (rows from the lanes)' if lanes is not None else ''}")
     if time_it:
-        out = torch.empty_like(got)
-        gargs = PP.gather_args(score, idx, out)
-        st["ms"] = cuda_ms(lambda: build.launch(PP.GATHER_ENTRY, gargs, score.device), 200)
+        st["ms"] = cuda_ms(lambda: build.launch(PP.GATHER_ENTRY, dargs, dev), 200)
+        st["device_ms"] = device_ms(lambda: build.launch(PP.GATHER_ENTRY, dargs, dev), "gather_rows_kernel")
+        st["host_ms"] = cuda_ms(lambda: build.launch(PP.GATHER_ENTRY, hargs, dev), 200)
+        st["host_device_ms"] = device_ms(lambda: build.launch(PP.GATHER_ENTRY, hargs, dev), "gather_rows_kernel")
+        st["wrapper_ms"] = cuda_ms(lambda: PP.gather_score_rows(score, rows), 200)
+        sig = list(rows)
+        st["prefetch_ms"] = cuda_ms(lambda: ScoreRows(score, sig).prefetch(range(k)), 200)
         st["plain_ms"] = cuda_ms(lambda: PP.gather_score_rows_plain(score, idx), 200)
         st["library_ms"] = cuda_ms(lambda: torch.index_select(score, 0, idx), 200)
-        st["device_ms"] = device_ms(lambda: build.launch(PP.GATHER_ENTRY, gargs, score.device), "gather_rows_kernel")
         # index_select launches one kernel a call: every kernel event counts
         st["library_device_ms"] = device_ms(lambda: torch.index_select(score, 0, idx), None)
-        st["bound"] = bound(gather_work(len(rows), n))
-        log(f"[kernels] {label} gather_score_rows K={len(rows)}: kernel {st['ms']:.4f} ms relaunched, "
-            f"{st['device_ms']:.4f} ms device; plain {st['plain_ms']:.4f} ms, bound {st['bound'][0]:.6f} ms "
-            f"({st['bound'][1]}), library index_select {st['library_ms']:.4f} ms relaunched, "
-            f"{st['library_device_ms']:.4f} ms device")
+        st["library_host_ms"] = cuda_ms(lambda: torch.index_select(score, 0, idx).cpu(), 200)
+        st["bound"] = bound(gather_work(k, n))
+        st["ctas"] = dargs.chunks * k
+        log(f"[kernels] {label} gather_score_rows K={k}: kernel into the card {st['ms']:.4f} ms relaunched, "
+            f"{st['device_ms']:.4f} ms device; into pinned host memory {st['host_ms']:.4f} / "
+            f"{st['host_device_ms']:.4f} ms; wrapper (rows on the host) {st['wrapper_ms']:.4f} ms, ScoreRows.prefetch "
+            f"{st['prefetch_ms']:.4f} ms; {st['ctas']} CTAs; plain {st['plain_ms']:.4f} ms, bound "
+            f"{st['bound'][0]:.6f} ms ({st['bound'][1]}), index_select {st['library_ms']:.4f} ms relaunched, "
+            f"{st['library_device_ms']:.4f} ms device, with .cpu() {st['library_host_ms']:.4f} ms")
     return st
 
 
 def phase_gather_kernels():
-    """gather_score_rows on its edges (K = 1, repeated rows, N not a
-    multiple of the block) and at the config-3-hard shapes (U = 128,
+    """gather_score_rows on its edges (K = 1, repeated rows, N * 8 not a
+    multiple of 16, the host destination 8 bytes past 16, K past the
+    argument block's cap) and at the config-3-hard shapes (U = 128,
     N = 10,240) with K = 128 and the driver's usual K of 1, 2 and 4, each
     beside torch.index_select in the same call."""
     compare_gather("gather edges", 1, 7, [0], time_it=False, seed=1)
     compare_gather("gather edges", 8, 1031, [5, 5, 0, 7, 5], time_it=False, seed=2)
+    compare_gather("gather edges", 8, 1031, [5, 5, 0, 7, 6], time_it=False, seed=2, out_shift=1)
     compare_gather("gather edges", 40, 300, [39], time_it=False, seed=3)
+    compare_gather("gather edges", 128, 2050, [i % 128 for i in range(513)], time_it=False, seed=3, out_shift=1)
     st = compare_gather("config-3-hard", 128, 10240, list(range(128))[::-1], time_it=True, seed=4)
     # the driver's usual K: one to four rows an escalated pod ranks by
     st["k_rows"] = {k: {f: v for f, v in compare_gather("config-3-hard", 128, 10240, [7, 91, 3, 120][:k],
@@ -2003,11 +2052,12 @@ def compare_slab_batch(label, shapes, time_it, seed=0):
 
 def compare_slab_scatter(label, plane, s, rows, time_it, seed=0):
     """Hold scatter_rows against its plain version (one index_copy_ per
-    array) on a seeded slab: `rows` dirty rows, duplicates carrying
-    identical bytes; with time_it, time the kernel alone (the packed rows
-    already on the card), the whole wrapper (packing and the one copy
-    included), the plain version and its library yardstick, and bound
-    it."""
+    array) on a seeded slab: `rows` dirty rows taken from host truth (the
+    planes' flush), duplicates carrying identical bytes; with time_it, time
+    the kernel alone (the staging buffer already on the card), the plane's
+    flush through its wrapper (packing into pinned memory and the one copy
+    included), also with its layout rebuilt each call (cold), the plain
+    version and its library yardstick, and bound it."""
     import numpy as np
 
     from kubernetes_tpu_torch.kernels import build
@@ -2023,23 +2073,36 @@ def compare_slab_scatter(label, plane, s, rows, time_it, seed=0):
             for v in upd.values():
                 v[j] = v[rows.index(rows[j])]
     idx = np.asarray(rows, np.int64)
+    truth = {k: v.copy() for k, v in host.items()}  # host truth holding the dirty rows
+    for k, v in truth.items():
+        v[idx] = upd[k]
     want = arrays_to_torch(host, "cuda", copy=True)
     ti = torch.from_numpy(idx).cuda()
     tu = arrays_to_torch(upd, "cuda", copy=True)
-    SL.scatter_rows(dev, idx, upd)
+    SL.scatter_rows(dev, idx, truth)
     SL.scatter_rows_plain(want, ti, tu)
     err = sum(int((dev[k] != want[k]).sum()) for k in want)
     check(err == 0, f"[{label}] scatter_rows differs from its plain version in {err} cells")
     st = {"max_abs_err": err}
-    log(f"[kernels] {label}: S={s} R={len(rows)}: scatter_rows exact")
+    log(f"[kernels] {label}: S={s} R={len(rows)}: scatter_rows exact, taken from host truth")
     if time_it:
-        buf, offs = SL.pack_rows(dev, upd)
-        packed = torch.from_numpy(buf).cuda()
-        i32 = ti.int()
-        sargs = SL.scatter_args(dev, packed, offs, i32, len(rows))
+        prob = SL.ScatterProblem(dev, idx, truth)
+        lanes = [SL.scatter_lanes(prob)]
+        plan = SL.ScatterPlan([prob], [len(rows)], [lanes[0][1]])
+        staging = np.zeros(plan.nbytes, np.uint8)
+        plan.fill(staging, [prob], lanes)
+        buf = torch.from_numpy(staging).cuda()
+        sargs = SL.ScatterArgs.from_buffer_copy(plan.args[0])
+        sargs.base = buf.data_ptr()
         st["ms"] = cuda_ms(lambda: build.launch(SL.SCATTER_ENTRY, sargs, ti.device), 200)
         st["device_ms"] = device_ms(lambda: build.launch(SL.SCATTER_ENTRY, sargs, ti.device), "scatter_slab_kernel")
-        st["wrapper_ms"] = cuda_ms(lambda: SL.scatter_rows(dev, idx, upd), 50)
+        st["wrapper_ms"] = cuda_ms(lambda: SL.scatter_rows(dev, idx, truth), 50)
+
+        def cold():
+            SL._SCATTER_LAYOUTS.clear()
+            SL.scatter_rows(dev, idx, truth)
+
+        st["cold_wrapper_ms"] = cuda_ms(cold, 50)
         st["plain_ms"] = cuda_ms(lambda: SL.scatter_rows_plain(want, ti, tu), 50)
 
         def library():
@@ -2048,9 +2111,97 @@ def compare_slab_scatter(label, plane, s, rows, time_it, seed=0):
 
         st["library_ms"] = cuda_ms(library, 50)
         st["bound"] = bound(slab_scatter_work(dev, len(rows)))
-        log(f"[kernels] {label} scatter_rows: kernel {st['ms']:.4f} ms (through its wrapper, packing and the copy "
-            f"included, {st['wrapper_ms']:.4f} ms), plain {st['plain_ms']:.4f} ms, bound {st['bound'][0]:.6f} ms "
+        st["ctas"] = plan.args[0].n_ctas
+        log(f"[kernels] {label} scatter_rows: kernel {st['ms']:.4f} ms relaunched, {st['device_ms']:.4f} ms device, "
+            f"{st['ctas']} CTAs; the plane's flush through its wrapper {st['wrapper_ms']:.4f} ms (its layout "
+            f"rebuilt each call {st['cold_wrapper_ms']:.4f}), plain {st['plain_ms']:.4f} ms, bound {st['bound'][0]:.6f} ms "
             f"({st['bound'][1]}), library index_copy_ per array {st['library_ms']:.4f} ms")
+    return st
+
+
+def mirror_patches(mirror, n_node, n_usage, n_sig, n_pat, seed):
+    """A mirror sync's six patch problems on clones of `mirror`'s resident
+    banks, host truth its host banks with every row changed: node rows,
+    usage rows (not node rows), the signature and pattern banks' counts
+    (their node rows) and metadata (signature and pattern rows). Returns
+    (problems, the clones)."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.ops import slab as SL
+    from kubernetes_tpu_torch.state.cache import USAGE_KEYS
+
+    rng = np.random.default_rng(seed)
+    dn, de, dp = ({k: v.clone() for k, v in d.items()} for d in mirror.device_arrays())
+    hn, he, hp = ({k: np.roll(v, 1, axis=0) if k != "counts" else v + 1 for k, v in d.items()}
+                  for d in (mirror.nodes.arrays(), mirror.eps.arrays(), mirror.pats.arrays()))
+    n = next(iter(dn.values())).shape[0]
+    rows = rng.permutation(n)
+    # Python ints, as the mirror's sorted sets of dirty rows
+    node_rows, usage_rows = sorted(rows[:n_node].tolist()), sorted(rows[n_node : n_node + n_usage].tolist())
+    count_rows = sorted(rows[: n_node + n_usage].tolist())
+    sig_rows = sorted(rng.choice(de["valid"].shape[0], n_sig, replace=False).tolist())
+    pat_rows = sorted(rng.choice(dp["valid"].shape[0], n_pat, replace=False).tolist())
+    problems = [SL.ScatterProblem(dn, node_rows, hn, tuple(k for k in hn if k != "image_scaled")),
+                SL.ScatterProblem(dn, usage_rows, hn, USAGE_KEYS),
+                SL.ScatterProblem(de, count_rows, he, ("counts",)),
+                SL.ScatterProblem(de, sig_rows, he, tuple(k for k in he if k != "counts")),
+                SL.ScatterProblem(dp, node_rows, hp, ("counts",)),
+                SL.ScatterProblem(dp, pat_rows, hp, tuple(k for k in hp if k != "counts"))]
+    return problems, (dn, de, dp)
+
+
+def compare_mirror_scatter(label, mirror, time_it, seed=0):
+    """A mirror sync's six patches (ops/slab.scatter_batch) in ONE launch
+    against one index_copy_ per array per problem; with time_it, the kernel
+    alone and the one call through its wrapper, also with its layout
+    rebuilt each call (cold). The parent's six calls are timed beside it by
+    scripts/topology_ab.py --mode scatter."""
+    import numpy as np
+
+    from kubernetes_tpu_torch.kernels import build
+    from kubernetes_tpu_torch.ops import slab as SL
+
+    sizes = (32, 128, 8, 4)  # node rows, usage rows, signature rows, pattern rows
+    problems, banks = mirror_patches(mirror, *sizes, seed)
+    want = [{k: v.clone() for k, v in d.items()} for d in banks]
+    for p in problems:
+        d = want[next(i for i, b in enumerate(banks) if b is p.slab)]
+        ti = torch.tensor(np.asarray(p.rows, np.int64), device="cuda")
+        for k in p.keys:
+            d[k].index_copy_(0, ti, torch.from_numpy(np.take(p.host[k], np.asarray(p.rows), axis=0)).cuda())
+    before = SL.scatter_batch.launches
+    SL.scatter_batch(problems)
+    launches = SL.scatter_batch.launches - before
+    err = sum(int((b[k] != w[k]).sum()) for b, w in zip(banks, want) for k in w)
+    check(err == 0 and launches == 1, f"[{label}] the mirror sync's scatter differs in {err} cells or took "
+                                      f"{launches} launches")
+    lanes = [SL.scatter_lanes(p) for p in problems]
+    plan = SL.ScatterPlan(problems, [ln[0].shape[0] for ln in lanes], [ln[1] for ln in lanes])
+    st = {"max_abs_err": err, "segments": len(plan.segments), "problems": len(problems),
+          "rows": [len(p.rows) for p in problems]}
+    log(f"[kernels] {label}: the mirror sync's six patches {st['rows']} in one scatter launch "
+        f"({st['segments']} segments): exact")
+    if time_it:
+        staging = np.zeros(plan.nbytes, np.uint8)
+        plan.fill(staging, problems, lanes)
+        buf = torch.from_numpy(staging).cuda()
+        sargs = SL.ScatterArgs.from_buffer_copy(plan.args[0])
+        sargs.base = buf.data_ptr()
+        st["ms"] = cuda_ms(lambda: build.launch(SL.SCATTER_ENTRY, sargs, buf.device), 200)
+        st["device_ms"] = device_ms(lambda: build.launch(SL.SCATTER_ENTRY, sargs, buf.device), "scatter_slab_kernel")
+        st["wrapper_ms"] = cuda_ms(lambda: SL.scatter_batch(problems), 50)
+
+        def cold():
+            SL._SCATTER_LAYOUTS.clear()
+            SL.scatter_batch(problems)
+
+        st["cold_wrapper_ms"] = cuda_ms(cold, 50)
+        st["ctas"] = plan.args[0].n_ctas
+        st["bound"] = bound((sum(2 * len(p.rows) * SL.row_bytes(p.slab[k]) + 4 * len(p.rows)
+                                 for p in problems for k in p.keys), 0))
+        log(f"[kernels] {label} mirror sync scatter: kernel {st['ms']:.4f} ms relaunched, {st['device_ms']:.4f} ms "
+            f"device, {st['ctas']} CTAs; one call through its wrapper {st['wrapper_ms']:.4f} ms (its layout rebuilt "
+            f"each call {st['cold_wrapper_ms']:.4f} ms); bound {st['bound'][0]:.6f} ms")
     return st
 
 
@@ -2076,6 +2227,7 @@ def phase_slab_kernels():
         "scatter_rows": compare_slab_scatter("config-5", "stage", 1024, list(range(0, 1024, 16)), time_it=True,
                                              seed=7),
     }
+    compare_slab_scatter("slab edges", "stage", 5, [4], time_it=False, seed=9)
     info5 = compare_slab_batch("config-5", {"stage": (1024, 64, 64), "terms": (256, 16, 0)}, time_it=True, seed=8)
     stats["gather_batch"]["config-5"] = {k: info5[k] for k in ("ms", "device_ms", "wrapper_ms", "copy_ms", "ctas")}
     stats["gather_batch"]["config-5"]["bound_ms"] = info5["bound"][0]
@@ -2343,6 +2495,8 @@ def compare_sharded_fold(enc, label):
     oargs = FO.ShardedFoldArgs(FO.fold_args(*got, **ctl), MESH_SHARDS, na["valid"].shape[0] // MESH_SHARDS)
     st = {"max_abs_err": err}
     st["ms"] = cuda_ms(lambda: build.launch(FO.FOLD_SHARDED_ENTRY, oargs, na["valid"].device), 200)
+    st["device_ms"] = device_ms(lambda: build.launch(FO.FOLD_SHARDED_ENTRY, oargs, na["valid"].device),
+                                "fold_commit_sharded_kernel")
     st["plain_ms"] = cuda_ms(lambda: FO.fold_commit_sharded_plain(MESH_SHARDS, *plain, **ctl), 5)
     st["bound"] = bound(fold_work(prog, na["requested"].shape[1]))
     st["library_ms"] = library_fold_ms(got, ctl, prog.pods)
@@ -2382,6 +2536,8 @@ def compare_sharded_fold_usage(label, n, r, nominees):
     uargs = FO.ShardedFoldUsageArgs(FO.fold_usage_args(kreq, kpc, rows, vecs, cnt), MESH_SHARDS, n // MESH_SHARDS)
     st = {"max_abs_err": err}
     st["ms"] = cuda_ms(lambda: build.launch(FO.FOLD_USAGE_SHARDED_ENTRY, uargs, kreq.device), 200)
+    st["device_ms"] = device_ms(lambda: build.launch(FO.FOLD_USAGE_SHARDED_ENTRY, uargs, kreq.device),
+                                "fold_usage_sharded_kernel")
     st["plain_ms"] = cuda_ms(lambda: FO.fold_usage_sharded_plain(MESH_SHARDS, preq, ppc, rows, vecs, cnt), 20)
     st["bound"] = bound(fold_usage_work(rows, n, r))
     lr = rows.long()
@@ -2524,6 +2680,8 @@ def phase_kernels():
     gang, enc5 = phase_gang_kernels()
     stats.update(gang)
     stats.update(phase_slab_kernels())
+    compare_mirror_scatter("config-3", enc["mirror"], time_it=False, seed=1)
+    stats["scatter_rows"]["mirror sync"] = compare_mirror_scatter("config-4", enc4["mirror"], time_it=True, seed=2)
     stats.update(phase_mesh_kernels(enc, enc4, enc3h, enc5))
     # the redesigned walk at 8 and 16 CTAs on one device, at the config-2
     # and config-3 shapes, and the walks' per-pod summary
@@ -2542,7 +2700,15 @@ def phase_kernels():
     stats["_redesign"]["inter-pod filter and selector spread"]["launch-latency rows [relaunched, device] ms"] = latency
     log("[redesign] launch-latency rows, relaunch mean / device duration: "
         + ", ".join(f"{k} {ms:.4f} / {d:.4f} ms" for k, (ms, d) in latency.items()))
-    stats["_redesign"]["batch slab gather"] = slab_gather_summary(stats["gather_batch"], stats["gather_score_rows"])
+    stats["_redesign"]["batch slab gather"] = slab_gather_summary(stats["gather_batch"])
+    stats["_redesign"]["score-row gather and row scatter"] = score_gather_and_scatter_summary(
+        stats["gather_score_rows"], stats["scatter_rows"])
+    # the table rows that carried only a relaunch mean
+    gaps = {k: [stats[k]["ms"], stats[k]["device_ms"]] for k in ("interpod_score", "fold_commit_sharded",
+                                                                  "fold_usage_sharded")}
+    stats["_redesign"]["score-row gather and row scatter"]["table gaps [relaunched, device] ms"] = gaps
+    log("[redesign] table gaps, relaunch mean / device duration: "
+        + ", ".join(f"{k} {ms:.4f} / {d:.4f} ms" for k, (ms, d) in gaps.items()))
     return stats
 
 
@@ -2573,12 +2739,10 @@ LATENCY_ROWS = ("gather_batch", "scatter_rows", "fold_commit_banks", "fold_usage
 BEFORE_MS["slab_gathers"] = {"relaunched": [0.0155, 0.0103], "device": [0.0049, 0.0018]}
 
 
-def slab_gather_summary(gb, gsr):
+def slab_gather_summary(gb):
     """The batch gather at the config-3 and config-5 shapes (relaunched,
     device, through its wrapper, the pinned copy alone, CTAs, the bound)
-    beside the two launches before; gather_score_rows at K = 128 and the
-    driver's K beside torch.index_select, both by relaunch and device
-    duration, in this call."""
+    beside the two launches before."""
     keys = ("ms", "device_ms", "wrapper_ms", "copy_ms", "ctas")
     out = {"config-3": {**{k: gb[k] for k in keys}, "bound_ms": gb["bound"][0],
                         "before_ms": BEFORE_MS["slab_gathers"]},
@@ -2587,12 +2751,52 @@ def slab_gather_summary(gb, gsr):
         log(f"[redesign] batch slab gather {k}: {v['ms']:.4f} ms relaunched, {v['device_ms']:.4f} ms device, "
             f"{v['wrapper_ms']:.4f} ms through its wrapper (pinned copy {v['copy_ms']:.4f} ms), {v['ctas']} CTAs, "
             f"bound {v['bound_ms']:.6f} ms")
+    return out
+
+
+# the score-row gather and the row scatter before their redesign (PERF.md's
+# device-program table, chip_smoke.py on NVIDIA H100 80GB HBM3, 700.00 W):
+# gather_score_rows at the config-3-hard shapes (K = 128; the driver's K of
+# 1, 2, 4: device only), one block row a gathered row, into a device buffer;
+# scatter_rows at config 5's restage flush, one block row an array
+BEFORE_MS["gather_score_rows"] = {"K=128": {"ms": 0.0184, "device_ms": 0.0049},
+                                  "K=1": {"device_ms": 0.0013}, "K=2": {"device_ms": 0.0013},
+                                  "K=4": {"device_ms": 0.0014}}
+BEFORE_MS["scatter_rows"] = {"ms": 0.0139, "device_ms": 0.0034, "wrapper_ms": 0.3778}
+
+
+def score_gather_and_scatter_summary(gsr, sc):
+    """gather_score_rows at K = 128 and the driver's K (into the card and
+    into pinned host memory, relaunched and by device duration; the
+    wrapper, the driver's fetch; index_select and index_select(...).cpu())
+    and the row scatter at config 5's restage flush and a mirror sync's six
+    patches (the wrapper warm and with its layout rebuilt each call), each
+    beside its time before."""
+    fields = ("ms", "device_ms", "host_ms", "host_device_ms", "wrapper_ms", "prefetch_ms",
+              "library_ms", "library_device_ms", "library_host_ms", "ctas")
     rows = {128: gsr, **gsr["k_rows"]}
-    out["gather_score_rows"] = {f"K={k}": {f: r[f] for f in ("ms", "device_ms", "library_ms", "library_device_ms")}
-                                for k, r in rows.items()}
+    out = {"gather_score_rows": {f"K={k}": {**{f: r[f] for f in fields},
+                                            "before": BEFORE_MS["gather_score_rows"][f"K={k}"]}
+                                 for k, r in rows.items()}}
+    out["gather_score_rows"]["K=128"]["bound_ms"] = gsr["bound"][0]
     for k, r in out["gather_score_rows"].items():
-        log(f"[redesign] gather_score_rows {k}: kernel {r['ms']:.4f} ms relaunched / {r['device_ms']:.4f} ms device; "
-            f"index_select {r['library_ms']:.4f} / {r['library_device_ms']:.4f} ms")
+        log(f"[redesign] gather_score_rows {k}: into the card {r['ms']:.4f} ms relaunched / {r['device_ms']:.4f} "
+            f"device, into pinned host {r['host_ms']:.4f} / {r['host_device_ms']:.4f}; wrapper {r['wrapper_ms']:.4f}, "
+            f"prefetch {r['prefetch_ms']:.4f}; index_select "
+            f"{r['library_ms']:.4f} / {r['library_device_ms']:.4f}, with .cpu() {r['library_host_ms']:.4f}; before "
+            f"{r['before']}")
+    out["scatter_rows config-5 flush"] = {**{f: sc[f] for f in ("ms", "device_ms", "wrapper_ms", "cold_wrapper_ms",
+                                                                 "library_ms", "ctas")},
+                                          "bound_ms": sc["bound"][0], "before": BEFORE_MS["scatter_rows"]}
+    mirror = sc["mirror sync"]
+    out["scatter_rows mirror sync config-4"] = {**{f: mirror[f] for f in ("ms", "device_ms", "wrapper_ms",
+                                                                           "cold_wrapper_ms", "ctas", "segments",
+                                                                           "rows")},
+                                                "bound_ms": mirror["bound"][0]}
+    for k in ("scatter_rows config-5 flush", "scatter_rows mirror sync config-4"):
+        v = out[k]
+        log(f"[redesign] {k}: {v['ms']:.4f} ms relaunched, {v['device_ms']:.4f} ms device, {v['wrapper_ms']:.4f} ms "
+            f"through its wrapper ({v['cold_wrapper_ms']:.4f} cold), {v['ctas']} CTAs, bound {v['bound_ms']:.6f} ms; {v.get('before', '')}")
     return out
 
 
@@ -2751,7 +2955,10 @@ def kernel_counters():
         "fold_commit_banks": (FO.fold_commit_banks, "launches"),
         "preempt_batch": (PR.preempt_batch, "launches"), "fold_usage": (FO.fold_usage, "launches"),
         "gather_score_rows": (PP.gather_score_rows, "launches"), "solve_gang": (SO.solve_gang, "launches"),
-        "gather_batch": (SL.gather_batch, "launches"), "scatter_rows": (SL.scatter_rows, "launches"),
+        "gather_batch": (SL.gather_batch, "launches"), "scatter_rows": (SL.scatter_batch, "launches"),
+        "scatter_rows[split]": (SL.scatter_batch, "split_launches"),
+        "scatter_rows[layout hits]": (SL.scatter_batch, "layout_hits"),
+        "scatter_rows[layout misses]": (SL.scatter_batch, "layout_misses"),
         "score_matrix[rtcr]": (S.score_matrix, "rtcr_launches"), "score_components": (S.score_components, "launches"),
         "pipeline.filter_mask": (PP.filter_mask, "launches"),
         "solve_sharded": (PS.solve_sharded, "launches"), "solve_sharded_inb": (PS.solve_sharded, "tracked_launches"),
@@ -4121,9 +4328,9 @@ def phase_extender(smi, total, stats):
     """The port's ExtenderServer over config 3's full cluster: /filter in
     nodeCacheCapable mode with every node name, on cuda (every request the
     device path's), against the same cache's oracle path (a stride sample)
-    and a CPU server; filter_mask at the request's shapes against its plain
-    version; the other routes once each; then a Scheduler consulting an
-    in-script extender over HTTP, cuda == cpu."""
+    and a CPU server; filter_mask at the request's shapes against its
+    plain version; the other routes once each; then a Scheduler consulting
+    an in-script extender over HTTP, cuda == cpu."""
     from kubernetes_tpu_torch.api.types import pod_to_k8s
     from kubernetes_tpu_torch.extender import ExtenderServer
     from kubernetes_tpu_torch.models.clusters import fill_cache
@@ -4445,6 +4652,15 @@ def main() -> int:
     red = stats["_redesign"]["batch slab gather"]
     red["main path launches"] = {k: launches.get(k, 0) for k in ("gather_batch", "scatter_rows")}
     log(f"[redesign] batch slab gather: main-path launches {red['main path launches']}")
+    red = stats["_redesign"]["score-row gather and row scatter"]
+    red["main path launches"] = {k: launches.get(k, 0) for k in ("gather_score_rows", "scatter_rows",
+                                                                 "scatter_rows[split]")}
+    check(red["main path launches"]["scatter_rows[split]"] == 0,
+          f"a main-path scatter call took more than one launch: {red['main path launches']}")
+    # the scatter caches only its layout per set of patched tensors: how often the drains found it
+    red["scatter layouts"] = {k: launches.get(f"scatter_rows[layout {k}]", 0) for k in ("hits", "misses")}
+    log(f"[redesign] score-row gather and row scatter: main-path launches {red['main path launches']} "
+        f"(before: gather_score_rows 2,211, scatter_rows 317); scatter layouts {red['scatter layouts']}")
     log(f"[launches] main-path launches summed over every drain: "
         + json.dumps({k: v for k, v in sorted(launches.items())}))
     log(f"[done] {time.perf_counter() - t0:.1f}s; card: {smi}")

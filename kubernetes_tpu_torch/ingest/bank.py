@@ -6,7 +6,9 @@ dispatch-time synchronous flush, counted in `stats["sync_rows"]`. The slab
 uploads whole once (a plain host→device copy, as TensorMirror uploads its
 banks) and again after a slab rebuild; after that only the rows admissions
 staged since the last flush cross, through ONE launch of csrc/slab.cu's
-row scatter (ops/slab.scatter_rows) that ships exactly the dirty rows. The
+row scatter (ops/slab.scatter_rows, a one-problem call of scatter_batch)
+that ships exactly the dirty rows, taken from the host slab into pinned
+memory and copied without blocking. The
 reference pads a flush to its STAGE_RUNGS to bound the number of XLA
 programs; the port compiles none.
 
@@ -85,10 +87,9 @@ class StageBank:
 
     def _scatter_rows(self, rows: List[int]) -> None:
         """Write host truth of `rows` into the twin: one launch for every
-        array of the slab (ref :215)."""
-        idx = np.asarray(rows, np.int64)
-        host = self.stage.batch.arrays()
-        scatter_rows(self._dev, idx, {k: np.ascontiguousarray(h[idx]) for k, h in host.items()})
+        array of the slab (ref :215), the rows taken from the host slab
+        straight into the launch's pinned buffer."""
+        scatter_rows(self._dev, rows, self.stage.batch.arrays())
 
     def current_arrays(self) -> Tuple[Arrays, Arrays]:
         """(slab twin, padding row) with every dirty row flushed: the

@@ -54,6 +54,9 @@ ENTRY_POINTS = (
     # cluster capacity queries of the cluster launches (ktpu_solve,
     # ktpu_arbitrate): (const <Args>*, int* out) -> cudaError_t
     "ktpu_solve_clusters", "ktpu_arbitrate_clusters",
+    # (const void* p, int* out) -> cudaError_t: is p pinned host memory the
+    # card reaches at the same address (the score-row gather's destination)
+    "ktpu_host_pointer",
 )
 
 # CTAs of one thread-block cluster: 8 is the portable size, 16 the largest

@@ -19,19 +19,20 @@ term_kinds=None is the reference's "assume every kind".
 `solve_pipeline_gang` (ref :285) is the same mask and score followed by the
 all-or-nothing two-pass gang solve (ops/solver.solve_gang).
 
-`gather_score_rows` (ref :374) gathers the rows of the [U, N] score
-matrix that the driver's host oracle ranks nodes by, so that only those
-rows cross to the host: csrc/gather.cu on CUDA tensors (counted in
-`gather_score_rows.launches`), `index_select` on CPU tensors.
+`gather_score_rows` (ref :374) brings the rows of the [U, N] score matrix
+that the driver's host oracle ranks nodes by to the host, so that only
+those rows cross: csrc/gather.cu on CUDA tensors, writing straight into
+pinned host memory (counted in `gather_score_rows.launches`),
+`index_select` on CPU tensors.
 """
 
 from __future__ import annotations
 
-from dataclasses import dataclass
-from typing import Dict, Optional, Sequence, Tuple
-
 import ctypes
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Sequence, Tuple
 
+import numpy as np
 import torch
 
 from . import filters as F
@@ -410,6 +411,12 @@ def solve_pipeline_gang(
 
 
 GATHER_ENTRY = "ktpu_gather_score_rows"
+HOST_POINTER_ENTRY = "ktpu_host_pointer"
+GATHER_THREADS = 256  # SCORE_GATHER_THREADS in csrc/gather.cu
+GATHER_MAX_WORDS = 4  # SCORE_GATHER_MAX_WORDS: 16-byte words a thread (a CTA: 512 x words int64)
+GATHER_MIN_CTAS = 264  # SCORE_GATHER_MIN_CTAS: two CTAs an SM before CTAs widen
+GATHER_MAX_INLINE = 512  # SCORE_GATHER_MAX_INLINE: row indices in the argument block
+_INT32_MAX = 2**31 - 1
 
 
 def gather_score_rows_plain(score: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
@@ -420,48 +427,135 @@ def gather_score_rows_plain(score: torch.Tensor, idx: torch.Tensor) -> torch.Ten
 class GatherArgs(ctypes.Structure):
     """Mirror of `struct GatherArgs` in csrc/gather.cu."""
 
-    _fields_ = [("score", ctypes.c_void_p), ("idx", ctypes.c_void_p), ("out", ctypes.c_void_p),
-                ("U", ctypes.c_int32), ("N", ctypes.c_int32), ("K", ctypes.c_int32)]
+    _fields_ = [("score", ctypes.c_void_p), ("out", ctypes.c_void_p), ("lanes", ctypes.c_void_p),
+                ("U", ctypes.c_int32), ("N", ctypes.c_int32), ("K", ctypes.c_int32), ("chunks", ctypes.c_int32),
+                ("words", ctypes.c_int32), ("rows", ctypes.c_int32 * GATHER_MAX_INLINE)]
 
 
-def gather_args(score: torch.Tensor, idx: torch.Tensor, out: torch.Tensor) -> GatherArgs:
-    """The gather kernel's argument struct for these CUDA tensors (raises
-    on a device, dtype, shape or layout the kernel does not take)."""
-    u, n = score.shape
-    k = idx.shape[0]
+def score_gather_words(k: int, n: int) -> int:
+    """16-byte words a thread of the gather: the widest (4, 2) whose launch
+    still has GATHER_MIN_CTAS CTAs, else 1."""
+    for words in (GATHER_MAX_WORDS, 2):
+        if k * -(-n // (2 * GATHER_THREADS * words)) >= GATHER_MIN_CTAS:
+            return words
+    return 1
+
+
+def score_rows(rows, u: int) -> List[int]:
+    """The row indices `rows` (a sequence of ints, or a 1-D numpy array or
+    CPU tensor) as Python ints, each checked against U on the host (the
+    reference's jitted gather would clamp one out of range; the driver
+    never passes one)."""
+    if isinstance(rows, (torch.Tensor, np.ndarray)):
+        if rows.ndim != 1:
+            raise ValueError(f"expected a 1-D index vector, got shape {tuple(rows.shape)}")
+        out = [int(r) for r in rows.tolist()]
+    else:
+        out = []
+        for r in rows:
+            if not isinstance(r, (int, np.integer)):
+                raise ValueError(f"expected a 1-D index vector of ints, got an entry {r!r}")
+            out.append(int(r))
+    if out and (min(out) < 0 or max(out) >= u):
+        raise IndexError(f"score row index out of range [0, {u}): {out}")
+    return out
+
+
+def score_gather_block(score_ptr: int, out_ptr: int, lanes_ptr: Optional[int], u: int, n: int,
+                       rows: Sequence[int]) -> GatherArgs:
+    """The gather kernel's argument block for these addresses: the rows
+    inline up to GATHER_MAX_INLINE, else `lanes_ptr` (the [K] int32 rows on
+    the card); ceil(N / (512 x words)) CTAs a row (score_gather_words)."""
+    k = len(rows)
     a = GatherArgs()
-    a.score = build.ptr(score, torch.int64, (u, n))
-    a.idx = build.ptr(idx, torch.int32, (k,))
-    a.out = build.ptr(out, torch.int64, (k, n))
+    a.score, a.out = score_ptr, out_ptr
+    if k <= GATHER_MAX_INLINE:
+        a.rows[:k] = rows
+    elif lanes_ptr is None:
+        raise ValueError(f"{k} rows exceed the argument block's {GATHER_MAX_INLINE}: pass them on the card")
+    else:
+        a.lanes = lanes_ptr
     a.U, a.N, a.K = u, n, k
+    a.words = score_gather_words(k, n)
+    a.chunks = -(-n // (2 * GATHER_THREADS * a.words))
+    if a.chunks * k > _INT32_MAX:
+        raise ValueError(f"a gather of {k} rows of {n} scores exceeds the kernel's 32-bit grid")
     return a
 
 
+def host_destination_ok(t: torch.Tensor) -> None:
+    """Raise unless the pinned CPU tensor `t` is host memory the card
+    reaches at the same address (unified addressing: the caching host
+    allocator's blocks are). Asked of the driver once a process
+    (cudaPointerGetAttributes); every block comes from the same allocator."""
+    if not t.is_pinned():
+        raise ValueError("the gather's host destination must be pinned memory")
+    if host_destination_ok.mapped is None:
+        flag = ctypes.c_int(0)
+        rc = getattr(build.library(), HOST_POINTER_ENTRY)(ctypes.c_void_p(t.data_ptr()), ctypes.addressof(flag))
+        if rc != 0:
+            raise build.KernelLaunchError(f"{HOST_POINTER_ENTRY}: CUDA error {rc}")
+        host_destination_ok.mapped = bool(flag.value)
+    if not host_destination_ok.mapped:
+        raise RuntimeError("pinned host memory is not mapped into the card's address space at its host address: "
+                           "the score-row gather cannot write the rows to the host")
+
+
+host_destination_ok.mapped = None  # the card's answer for the caching host allocator's blocks
+
+
+def gather_args(score: torch.Tensor, rows: Sequence[int], out: torch.Tensor,
+                lanes: Optional[torch.Tensor] = None) -> GatherArgs:
+    """The gather kernel's argument block: `score` the [U, N] int64 CUDA
+    matrix, `rows` checked host ints, `out` the [K, N] int64 destination —
+    a CUDA tensor or a pinned CPU tensor —, `lanes` the rows as a [K] int32
+    CUDA tensor when K > GATHER_MAX_INLINE (raises on a device, dtype,
+    shape or layout the kernel does not take)."""
+    u, n = score.shape
+    k = len(rows)
+    sp = build.ptr(score, torch.int64, (u, n))
+    if out.is_cuda:
+        op = build.ptr(out, torch.int64, (k, n))
+    else:
+        if out.dtype != torch.int64 or tuple(out.shape) != (k, n) or not out.is_contiguous():
+            raise ValueError(f"expected a contiguous int64 [{k}, {n}] destination, got {out.dtype} "
+                             f"{tuple(out.shape)}")
+        host_destination_ok(out)
+        op = out.data_ptr()
+    lp = build.ptr(lanes, torch.int32, (k,)) if lanes is not None else None
+    return score_gather_block(sp, op, lp, u, n, rows)
+
+
 def gather_score_rows(score: torch.Tensor, rows) -> torch.Tensor:
-    """The rows `rows` (host indices: a sequence of ints or a CPU tensor)
-    of the [U, N] score matrix, as a [K, N] tensor on score's device.
-    Every index is checked against U on the host (the reference's jitted
-    gather would clamp one out of range; the driver never passes one).
+    """The rows `rows` (host indices: a sequence of ints, or a 1-D numpy
+    array or CPU tensor) of the [U, N] score matrix, ON THE HOST as a
+    [K, N] int64 CPU tensor. Every index is checked against U on the host.
     CPU tensors run the plain version; CUDA tensors launch csrc/gather.cu
-    (counted in `gather_score_rows.launches`)."""
-    idx = torch.as_tensor(rows, dtype=torch.int32, device="cpu")
-    if idx.ndim != 1:
-        raise ValueError(f"expected a 1-D index vector, got shape {tuple(idx.shape)}")
-    u = score.shape[0]
-    if idx.numel() and (int(idx.min()) < 0 or int(idx.max()) >= u):
-        raise IndexError(f"score row index out of range [0, {u}): {idx.tolist()}")
+    once (counted in `gather_score_rows.launches`) with the rows in its
+    argument block (past GATHER_MAX_INLINE: copied from pinned memory
+    without blocking) and a pinned host buffer as its destination, then
+    wait on one CUDA event: no device output, no separate copy."""
+    u, n = score.shape
+    idx = score_rows(rows, u)
     dev = score.device
     if dev.type == "cpu":
-        return gather_score_rows_plain(score, idx)
-    if dev.type == "cuda":
-        out = torch.empty((idx.shape[0], score.shape[1]), dtype=score.dtype, device=dev)
-        if idx.numel() == 0:
-            return out
-        idx_d = idx.to(dev)
-        build.launch(GATHER_ENTRY, gather_args(score, idx_d, out), dev)
-        gather_score_rows.launches += 1
+        return gather_score_rows_plain(score, torch.tensor(idx, dtype=torch.int32))
+    if dev.type != "cuda":
+        raise ValueError(f"no gather kernel for device {dev}")
+    out = torch.empty((len(idx), n), dtype=score.dtype, pin_memory=True)
+    if not idx or not n:
         return out
-    raise ValueError(f"no gather kernel for device {dev}")
+    lanes = None
+    if len(idx) > GATHER_MAX_INLINE:
+        pinned = torch.tensor(idx, dtype=torch.int32).pin_memory()
+        lanes = torch.empty(len(idx), dtype=torch.int32, device=dev)
+        lanes.copy_(pinned, non_blocking=True)
+    build.launch(GATHER_ENTRY, gather_args(score, idx, out, lanes), dev)
+    gather_score_rows.launches += 1
+    done = torch.cuda.Event()
+    done.record(torch.cuda.current_stream(dev))
+    done.synchronize()
+    return out
 
 
 gather_score_rows.launches = 0

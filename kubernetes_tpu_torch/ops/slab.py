@@ -1,5 +1,5 @@
 """Slab row gather and row scatter: the transport kernels of the ingest and
-term planes (csrc/slab.cu).
+term planes and of the mirror's row patches (csrc/slab.cu).
 
 `gather_batch` rebuilds a batch's array dicts from resident slab dicts and
 their lane vectors: every gather problem of the batch (the pod arrays, the
@@ -9,27 +9,34 @@ term table) in ONE launch (`ktpu_gather_batch`),
 
 with one optional column per problem written over one array (the term
 table's `owner`, keep ? owner : 0; the pod arrays' `fallback`, as shipped).
-`scatter_rows` patches a slab dict in place from dirty host rows, again one
-launch (`ktpu_scatter_slab`), after one host→device copy of the rows packed
-into a single buffer.
+`scatter_batch` patches resident slab dicts in place from host rows: every
+patch problem of a call (the mirror's six patches of a sync; a plane's
+dirty rows) in ONE launch (`ktpu_scatter_slab`); `scatter_rows` is its
+one-problem call.
 
 On CPU tensors both run their plain PyTorch versions (`index_select` +
 `where` per array, `index_copy_` per array); on CUDA tensors they launch
 the kernels or raise. Every index is checked against the slab's rows on the
 host (the reference's jitted `v[idx]` would clamp one out of range; the
 driver never builds one). `gather_batch.launches` counts the gather's
-launches, `scatter_rows.launches` the scatter's; the planes' one-problem
-wrappers (ingest/gather.gather_stage, terms_plane/gather.gather_terms)
-count theirs too.
+launches, `scatter_batch.launches` the scatter's; the planes' one-problem
+wrappers (ingest/gather.gather_stage, terms_plane/gather.gather_terms,
+scatter_rows) count theirs too.
 
-The gather's host side does no per-array work a call: its launch layout (a
-`GatherPlan`: the segment table, the buffer layout, the argument block) is
-built once per set of slab tensors and lane counts and cached while those
-tensors live. A call writes the lanes into pinned host memory, allocates
-ONE device buffer (lanes and columns first, then every output, each 16-byte
-aligned), copies the lanes into its head with `non_blocking=True` (no
-stream synchronisation: the caching host allocator keeps the pinned block
-until the copy ran), launches, and returns typed views of the buffer.
+A gather's launch layout (a `GatherPlan`: the segment table, the buffer
+layout, the argument block) is built once per set of slab tensors and lane
+counts and cached while those tensors live; a scatter caches only what
+does not depend on its rows (a `ScatterLayout`, per set of patched
+tensors) and computes its offsets and argument blocks column-wise each
+call (`ScatterPlan`). A gather writes the lanes into pinned host memory,
+allocates ONE device buffer (lanes and columns first, then every output,
+each 16-byte aligned), copies the lanes into its head with
+`non_blocking=True`, launches, and returns typed views of the buffer. A
+scatter takes the host rows straight into one pinned buffer (ndarray.take
+into its views: row vectors first, then every (problem, array)'s rows,
+each 16-byte aligned), copies it into one device staging buffer with
+`non_blocking=True` and launches. Neither synchronises: the caching
+host allocator keeps a pinned block until the copy that reads it ran.
 """
 
 from __future__ import annotations
@@ -46,29 +53,14 @@ from ..state.convert import arrays_to_torch
 
 GATHER_ENTRY = "ktpu_gather_batch"
 SCATTER_ENTRY = "ktpu_scatter_slab"
-MAX_ARRAYS = 48  # SLAB_MAX_ARRAYS in csrc/slab.cu (the scatter's table)
+MAX_ARRAYS = 64  # SLAB_MAX_ARRAYS in csrc/slab.cu: (problem, array) segments a scatter launch
 MAX_SEGMENTS = 64  # GATHER_MAX_SEGMENTS: gathered (problem, array) segments a launch
 THREADS = 256  # SLAB_THREADS
-CHUNK_BYTES = 4096  # GATHER_CHUNK_BYTES: output bytes a CTA of the gather
-_ALIGN = 16  # byte alignment of each segment in the packed scatter rows and the gather's buffer
+CHUNK_BYTES = 4096  # GATHER_CHUNK_BYTES: output (the scatter: staged) bytes a CTA
+_ALIGN = 16  # byte alignment of each region of the scatter's staging buffer and the gather's buffer
 _INT32_MAX = 2**31 - 1
 
 Arrays = Dict[str, torch.Tensor]
-
-
-class SlabArray(ctypes.Structure):
-    """Mirror of `struct SlabArray` in csrc/slab.cu."""
-
-    _fields_ = [("src", ctypes.c_void_p), ("empty", ctypes.c_void_p), ("dst", ctypes.c_void_p),
-                ("row_bytes", ctypes.c_int64)]
-
-
-class SlabArgs(ctypes.Structure):
-    """Mirror of `struct SlabArgs` in csrc/slab.cu."""
-
-    _fields_ = [("a", SlabArray * MAX_ARRAYS), ("idx", ctypes.c_void_p), ("keep", ctypes.c_void_p),
-                ("col", ctypes.c_void_p), ("col_array", ctypes.c_int32), ("col_masked", ctypes.c_int32),
-                ("n_arrays", ctypes.c_int32), ("L", ctypes.c_int32)]
 
 
 class GatherSeg(ctypes.Structure):
@@ -364,72 +356,319 @@ def scatter_rows_plain(slab: Arrays, idx: torch.Tensor, updates: Arrays) -> None
         slab[k].index_copy_(0, il, u)
 
 
-def pack_rows(slab: Arrays, updates: Dict[str, np.ndarray]):
-    """One host uint8 buffer holding every array's staged rows (each
-    segment 16-byte aligned) and their byte offsets, in slab order."""
-    offs, total = [], 0
-    blobs = []
-    for k in slab:
-        b = np.ascontiguousarray(updates[k]).view(np.uint8).reshape(-1)
-        offs.append(total)
-        blobs.append(b)
-        total += -(-b.size // _ALIGN) * _ALIGN
-    buf = np.zeros(max(total, _ALIGN), np.uint8)
-    for o, b in zip(offs, blobs):
-        buf[o : o + b.size] = b
-    return buf, offs
+class ScatterSeg(ctypes.Structure):
+    """Mirror of `struct ScatterSeg` in csrc/slab.cu."""
+
+    _fields_ = [("dst", ctypes.c_void_p), ("src", ctypes.c_int32), ("rows", ctypes.c_int32),
+                ("log_word", ctypes.c_int32), ("row_words", ctypes.c_int32), ("n_words", ctypes.c_int32),
+                ("step_rows", ctypes.c_int32), ("step_words", ctypes.c_int32), ("pad", ctypes.c_int32)]
 
 
-def scatter_args(slab: Arrays, packed: torch.Tensor, offs: Sequence[int], idx: torch.Tensor, n_rows: int) -> SlabArgs:
-    """The scatter kernel's argument struct: `packed` the uint8 CUDA buffer
-    of pack_rows, `idx` the [R] int32 CUDA row vector."""
-    keys = list(slab)
-    if len(keys) > MAX_ARRAYS:
-        raise ValueError(f"{len(keys)} slab arrays, the kernel takes at most {MAX_ARRAYS}")
-    a = SlabArgs()
-    base = build.ptr(packed, torch.uint8)
-    for j, k in enumerate(keys):
-        v = slab[k]
-        a.a[j].src = base + offs[j]
-        a.a[j].dst = build.ptr(v, v.dtype)
-        a.a[j].row_bytes = row_bytes(v)
-    a.idx = build.ptr(idx, torch.int32, (n_rows,))
-    a.col_array = -1
-    a.n_arrays = len(keys)
-    a.L = n_rows
-    return a
+class ScatterArgs(ctypes.Structure):
+    """Mirror of `struct ScatterArgs` in csrc/slab.cu."""
+
+    _fields_ = [("seg", ScatterSeg * MAX_ARRAYS), ("first_cta", ctypes.c_int32 * MAX_ARRAYS),
+                ("base", ctypes.c_void_p), ("n_segments", ctypes.c_int32), ("n_ctas", ctypes.c_int32)]
 
 
-def scatter_rows(slab: Arrays, rows, updates: Dict[str, np.ndarray]) -> None:
-    """Write the host rows `updates[k]` ([R, ...] each, numpy) into rows
-    `rows` of every array of the resident slab dict, in place. CPU slabs
-    run `scatter_rows_plain`; CUDA slabs take one host→device copy of the
-    packed rows and one launch of csrc/slab.cu (counted in
-    `scatter_rows.launches`). No dirty row, no launch."""
-    idx_np = _lane_vector(rows, "row", np.int32)
-    if set(updates) != set(slab):
-        raise ValueError(f"updates name {sorted(updates)}, the slab {sorted(slab)}")
-    first = next(iter(slab.values()))
-    check_rows(idx_np, first.shape[0])
-    for k, u in updates.items():
-        if np.dtype(u.dtype).itemsize != slab[k].element_size():
-            raise TypeError(f"updates[{k!r}] is {u.dtype}, the slab array {slab[k].dtype}")
-        if u.shape != (idx_np.shape[0],) + tuple(slab[k].shape[1:]):
-            raise ValueError(f"updates[{k!r}] has shape {u.shape}, expected "
-                             f"{(idx_np.shape[0],) + tuple(slab[k].shape[1:])}")
-    if idx_np.size == 0:
+# ScatterSeg as a numpy record: a call fills its argument blocks column-wise
+_SEG_DTYPE = np.dtype([(name, np.uint64 if name == "dst" else np.int32) for name, _ in ScatterSeg._fields_])
+
+
+class ScatterProblem(NamedTuple):
+    """One patch of a scatter launch: rows `rows` ([R] slab rows: ints,
+    numpy or a CPU tensor) of the arrays `keys` (None: every array of
+    `slab`) of the resident dict `slab` take the same rows of the host
+    arrays `host[k]` (host truth, [S', ...] as the mirror's and the planes'
+    banks hold it)."""
+
+    slab: Arrays
+    rows: object
+    host: Dict[str, np.ndarray]
+    keys: Optional[Tuple[str, ...]] = None
+
+
+def scatter_keys(p: ScatterProblem) -> Tuple[np.ndarray, Tuple[str, ...]]:
+    """(the [R] int32 slab rows, the patched keys) of one problem, the rows
+    checked against the slab's row count; no per-array work."""
+    idx = _lane_vector(p.rows, "row", np.int32)
+    keys = tuple(p.slab) if p.keys is None else tuple(p.keys)
+    if keys:
+        check_rows(idx, p.slab[keys[0]].shape[0])
+    return idx, keys
+
+
+def check_slab(p: ScatterProblem, keys: Tuple[str, ...]) -> None:
+    """Raise unless every patched slab array has the first's row count and
+    device."""
+    first = p.slab[keys[0]]
+    for k in keys:
+        v = p.slab[k]
+        if v.shape[0] != first.shape[0] or v.device != first.device:
+            raise ValueError(f"slab array {k!r}: {tuple(v.shape)} on {v.device}, {keys[0]!r} "
+                             f"{tuple(first.shape)} on {first.device}")
+
+
+def _check_host(k: str, h: Optional[np.ndarray], tail: tuple, itemsize: int, top: int) -> None:
+    """Raise unless the host array `h` of slab array `k` exists with the
+    slab array's row shape `tail` and element size, and a row past `top`."""
+    if h is None:
+        raise ValueError(f"no host rows for slab array {k!r}")
+    if h.dtype.itemsize != itemsize:
+        raise TypeError(f"host rows {k!r} are {h.dtype}, the slab array's elements {itemsize} bytes")
+    if h.shape[1:] != tail:
+        raise ValueError(f"host rows {k!r} have shape {h.shape}, expected [S', {', '.join(map(str, tail))}]")
+    if top >= h.shape[0]:
+        raise IndexError(f"host array {k!r} has {h.shape[0]} rows, row {top} asked")
+
+
+def check_arrays(p: ScatterProblem, idx: np.ndarray, keys: Tuple[str, ...]) -> None:
+    """check_slab, and every host array there with the slab array's row
+    shape and element size and a row past every row asked."""
+    check_slab(p, keys)
+    top = int(idx.max()) if idx.size else -1
+    for k in keys:
+        v = p.slab[k]
+        _check_host(k, p.host.get(k), tuple(v.shape[1:]), v.element_size(), top)
+
+
+def scatter_lanes(p: ScatterProblem) -> Tuple[np.ndarray, Tuple[str, ...]]:
+    """scatter_keys with every array checked (check_arrays)."""
+    idx, keys = scatter_keys(p)
+    if keys:
+        check_arrays(p, idx, keys)
+    return idx, keys
+
+
+def _sharing(problems: Sequence[ScatterProblem], keys) -> List[Tuple[int, ...]]:
+    """Groups of two or more problems that patch one array (by storage
+    address)."""
+    owners: Dict[int, List[int]] = {}
+    for j, (p, ks) in enumerate(zip(problems, keys)):
+        for k in ks:
+            if p.slab[k].numel():
+                owners.setdefault(p.slab[k].data_ptr(), []).append(j)
+    return sorted({tuple(js) for js in owners.values() if len(js) > 1})
+
+
+def _check_disjoint(groups: Sequence[Tuple[int, ...]], lanes) -> None:
+    for js in groups:
+        seen: set = set()
+        for j in js:
+            rows = set(lanes[j][0].tolist())
+            if seen & rows:
+                raise ValueError(f"scatter problems {list(js)} write the same row of one slab array")
+            seen |= rows
+
+
+def check_disjoint(problems: Sequence[ScatterProblem], lanes) -> None:
+    """Raise when two problems write the same row of one array: the
+    launch writes in no order, so only disjoint patches are exact."""
+    _check_disjoint(_sharing(problems, [keys for _, keys in lanes]), lanes)
+
+
+class ScatterLayout:
+    """What the scatter keeps of one set of patched slab tensors: per
+    (problem, array) segment with row bytes, in order, its problem `prob`,
+    key, destination `dst`, row bytes `rb`, word width `lw` (log2: the
+    widest word dividing the row bytes and the pointer), words a row `rw`
+    and the row shape `tail`; and `sharing`, the groups of problems that
+    patch one array; `hosts`, every patched (problem, key) with its row
+    shape and element size, for check_hosts. Nothing here depends on a
+    call's rows or host arrays; the slab arrays are checked once, here."""
+
+    def __init__(self, problems: Sequence[ScatterProblem], keys: Sequence[Tuple[str, ...]]):
+        segs = []
+        self.hosts: List[Tuple[int, str, tuple, int]] = []
+        for j, (p, ks) in enumerate(zip(problems, keys)):
+            if ks:
+                check_slab(p, ks)
+            for k in ks:
+                v = p.slab[k]
+                if not v.is_contiguous():
+                    raise ValueError(f"slab array {k!r} is not contiguous")
+                self.hosts.append((j, k, tuple(v.shape[1:]), v.element_size()))
+                rb = row_bytes(v)
+                if rb:
+                    segs.append((j, k, v.data_ptr(), rb, _log_word(rb | v.data_ptr()), tuple(v.shape[1:])))
+        self.keys = [(j, k) for j, k, _, _, _, _ in segs]
+        self.tail = [t for _, _, _, _, _, t in segs]
+        self.prob = np.array([s[0] for s in segs], np.int64)
+        self.dst = np.array([s[2] for s in segs], np.uint64)
+        self.rb = np.array([s[3] for s in segs], np.int64)
+        self.lw = np.array([s[4] for s in segs], np.int64)
+        self.rw = self.rb >> self.lw
+        self.sharing = _sharing(problems, keys)
+        self.refs: List[weakref.ref] = []  # set by scatter_layout
+
+    def check_hosts(self, problems: Sequence[ScatterProblem], lanes) -> None:
+        """check_arrays' host-side checks for a call of this layout."""
+        tops = [int(idx.max()) if idx.size else -1 for idx, _ in lanes]
+        for j, k, tail, itemsize in self.hosts:
+            _check_host(k, problems[j].host.get(k), tail, itemsize, tops[j])
+
+
+_ARGS_SIZE = ctypes.sizeof(ScatterArgs)
+_FIRST_OFF = ScatterArgs.first_cta.offset
+_COUNTS_OFF = ScatterArgs.n_segments.offset
+
+
+def _aligned(n: np.ndarray) -> np.ndarray:
+    return -(-n // _ALIGN) * _ALIGN
+
+
+class ScatterPlan:
+    """One scatter call's launch layout, from its ScatterLayout and row
+    counts `lens`. The staging buffer holds each problem's [R] int32 row
+    vector (at `rows_off`), then every live (problem, array)'s staged rows,
+    each region 16-byte aligned; `live` picks the layout's segments with a
+    row, `src`, `n_words` and `ctas` are theirs; `args` the argument
+    blocks, the fewest launches of at most MAX_ARRAYS segments (`base`
+    left 0). Everything is computed column-wise, once a call."""
+
+    def __init__(self, problems: Sequence[ScatterProblem], lens: Sequence[int], keys: Sequence[Tuple[str, ...]],
+                 layout: Optional[ScatterLayout] = None):
+        lay = layout if layout is not None else ScatterLayout(problems, keys)
+        self.layout = lay
+        n_p = np.asarray(lens, np.int64).reshape(-1)
+        vec = _aligned(4 * n_p)
+        self.rows_off = np.cumsum(vec) - vec
+        n = n_p[lay.prob]
+        self.live = np.flatnonzero(n)
+        n, rb, lw, rw = n[self.live], lay.rb[self.live], lay.lw[self.live], lay.rw[self.live]
+        self.n = n
+        size = _aligned(n * rb)
+        self.src = int(vec.sum()) + np.cumsum(size) - size
+        self.n_words = n * rw
+        chunk_words = CHUNK_BYTES >> lw
+        if self.n_words.size and int((self.n_words + chunk_words).max()) > _INT32_MAX:
+            raise ValueError("a scatter segment's words exceed the kernel's 32-bit index")
+        self.ctas = -(-self.n_words // chunk_words)
+        nbytes = int(vec.sum() + size.sum())
+        if nbytes > _INT32_MAX:
+            raise ValueError(f"a scatter of {nbytes} staged bytes exceeds the kernel's 32-bit offsets")
+        self.nbytes = max(nbytes, _ALIGN)
+        self.args: List[ScatterArgs] = []
+        for start in range(0, self.live.size, MAX_ARRAYS):
+            part = slice(start, start + MAX_ARRAYS)
+            m = self.n_words[part].size
+            blk = np.zeros(_ARGS_SIZE, np.uint8)
+            seg = blk[: MAX_ARRAYS * _SEG_DTYPE.itemsize].view(_SEG_DTYPE)[:m]
+            seg["dst"] = lay.dst[self.live[part]]
+            seg["src"], seg["rows"] = self.src[part], self.rows_off[lay.prob[self.live[part]]]
+            seg["log_word"], seg["row_words"], seg["n_words"] = lw[part], rw[part], self.n_words[part]
+            seg["step_rows"], seg["step_words"] = np.divmod(THREADS, rw[part])
+            ctas = self.ctas[part]
+            blk[_FIRST_OFF : _FIRST_OFF + 4 * m].view(np.int32)[:] = np.cumsum(ctas) - ctas
+            blk[_COUNTS_OFF : _COUNTS_OFF + 8].view(np.int32)[:] = (m, ctas.sum())
+            self.args.append(ScatterArgs.from_buffer(blk))
+
+    @property
+    def segments(self) -> List[tuple]:
+        """Each live segment as (problem, key, dst, src, rows, log_word,
+        row_words, n_words, ctas)."""
+        lay = self.layout
+        return [(*lay.keys[s], int(lay.dst[s]), int(self.src[i]), int(self.rows_off[lay.prob[s]]),
+                 int(lay.lw[s]), int(lay.rw[s]), int(self.n_words[i]), int(self.ctas[i]))
+                for i, s in enumerate(self.live)]
+
+    def fill(self, host: np.ndarray, problems: Sequence[ScatterProblem], lanes) -> None:
+        """Write the staging buffer (uint8, `nbytes` long): each problem's
+        row vector, then its rows taken from host truth straight into the
+        buffer (ndarray.take into a view; no intermediate array)."""
+        for (idx, _), off in zip(lanes, self.rows_off.tolist()):
+            host[off : off + 4 * idx.shape[0]].view(np.int32)[:] = idx
+        lay = self.layout
+        for s, off, n in zip(self.live.tolist(), self.src.tolist(), self.n.tolist()):
+            j, k = lay.keys[s]
+            h = problems[j].host[k]
+            view = np.ndarray((n,) + lay.tail[s], h.dtype, host, off)
+            h.take(lanes[j][0], 0, view, "clip")  # rows checked: no buffering
+
+
+_SCATTER_LAYOUTS: Dict[tuple, ScatterLayout] = {}
+
+
+def scatter_layout(problems: Sequence[ScatterProblem], keys: Sequence[Tuple[str, ...]]) -> ScatterLayout:
+    """The cached ScatterLayout of `problems`' patched tensors: keyed by
+    the keys and the identity of every patched slab tensor, whatever the
+    rows (a mirror's or a bank's one key while its tensors live), dropped
+    when any of those tensors is freed (as gather_plan). A miss is counted
+    in `scatter_batch.layout_misses`, a hit in `scatter_batch.layout_hits`."""
+    key = tuple((ks, tuple(id(p.slab[k]) for k in ks)) for p, ks in zip(problems, keys))
+    lay = _SCATTER_LAYOUTS.get(key)
+    if lay is not None:
+        scatter_batch.layout_hits += 1
+        return lay
+    scatter_batch.layout_misses += 1
+    lay = ScatterLayout(problems, keys)
+    drop = lambda _ref, key=key, layouts=_SCATTER_LAYOUTS: layouts.pop(key, None)  # noqa: E731
+    lay.refs = [weakref.ref(p.slab[k], drop) for p, ks in zip(problems, keys) for k in ks]
+    if len(_SCATTER_LAYOUTS) >= _MAX_PLANS:
+        _SCATTER_LAYOUTS.pop(next(iter(_SCATTER_LAYOUTS)))
+    _SCATTER_LAYOUTS[key] = lay
+    return lay
+
+
+def scatter_batch(problems: Sequence[ScatterProblem]) -> None:
+    """Patch every problem's rows into its resident slab arrays from host
+    truth, in place. Refuses two problems writing one (array, row). CPU
+    slabs run `scatter_rows_plain` per problem; CUDA slabs (every problem
+    on one card) take the rows into one pinned buffer, one copy of it with
+    `non_blocking=True` (no synchronisation: the caching host allocator
+    keeps a pinned block until the copy that reads it ran) and ONE launch
+    of csrc/slab.cu's scatter for all of them (counted in
+    `scatter_batch.launches`; a call past MAX_ARRAYS segments takes the
+    fewest launches, the ones beyond the first counted in
+    `scatter_batch.split_launches`). No dirty row, no launch."""
+    lanes = [scatter_keys(p) for p in problems]
+    live = [j for j, (idx, keys) in enumerate(lanes) if idx.size and keys]
+    devs = {problems[j].slab[lanes[j][1][0]].device for j in live}
+    if devs <= {torch.device("cpu")}:
+        for p, (idx, keys) in zip(problems, lanes):
+            if keys:
+                check_arrays(p, idx, keys)
+        check_disjoint(problems, lanes)
+        for j in live:
+            (idx, keys), p = lanes[j], problems[j]
+            rows = {k: np.take(p.host[k], idx, axis=0) for k in keys}
+            scatter_rows_plain(p.slab, torch.from_numpy(idx), arrays_to_torch(rows, "cpu"))
         return
-    dev = first.device
-    if dev.type == "cpu":
-        scatter_rows_plain(slab, torch.from_numpy(idx_np), arrays_to_torch(updates, "cpu"))
+    if len(devs) != 1 or next(iter(devs)).type != "cuda":
+        raise ValueError(f"no slab scatter kernel for devices {sorted(map(str, devs))}")
+    dev = next(iter(devs))
+    layout = scatter_layout(problems, [keys for _, keys in lanes])
+    layout.check_hosts(problems, lanes)
+    _check_disjoint(layout.sharing, lanes)
+    plan = ScatterPlan(problems, [idx.shape[0] for idx, _ in lanes], None, layout)
+    if not plan.args:
         return
-    if dev.type != "cuda":
-        raise ValueError(f"no slab scatter kernel for device {dev}")
-    buf, offs = pack_rows(slab, updates)
-    packed = torch.from_numpy(buf).to(dev)
-    idx_d = torch.from_numpy(idx_np).to(dev)
-    build.launch(SCATTER_ENTRY, scatter_args(slab, packed, offs, idx_d, idx_np.shape[0]), dev)
-    scatter_rows.launches += 1
+    pinned = torch.empty(plan.nbytes, dtype=torch.uint8, pin_memory=True)
+    plan.fill(pinned.numpy(), problems, lanes)
+    buf = torch.empty(plan.nbytes, dtype=torch.uint8, device=dev)
+    if buf.data_ptr() % _ALIGN:
+        raise ValueError("the staging buffer is not 16-byte aligned")
+    buf.copy_(pinned, non_blocking=True)
+    for i, args in enumerate(plan.args):
+        args.base = buf.data_ptr()
+        build.launch(SCATTER_ENTRY, args, dev)
+        scatter_batch.launches += 1
+        scatter_batch.split_launches += i > 0
+
+
+scatter_batch.launches = 0
+scatter_batch.split_launches = 0
+scatter_batch.layout_hits = 0
+scatter_batch.layout_misses = 0
+
+
+def scatter_rows(slab: Arrays, rows, host: Dict[str, np.ndarray]) -> None:
+    """One problem of `scatter_batch`: rows `rows` of every array of the
+    resident slab dict take the same rows of the host arrays `host` (host
+    truth). Its launches are counted in `scatter_rows.launches` too."""
+    before = scatter_batch.launches
+    scatter_batch([ScatterProblem(slab, rows, host)])
+    scatter_rows.launches += scatter_batch.launches - before
 
 
 scatter_rows.launches = 0

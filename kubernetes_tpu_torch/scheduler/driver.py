@@ -265,10 +265,12 @@ class ScoreRows:
     """Lazy per-row view of the batch's [U, N] device score matrix (ref
     driver.py:88-132): the host oracle ranks feasible nodes by a pod's row,
     and only the rows it asks for cross to the host, gathered on the card
-    (ops/pipeline.gather_score_rows). `sig` maps batch positions onto spec
-    rows; replicas share one fetched row. Exactly the wanted rows are
-    gathered (the reference pads the count to a power of two for its jit
-    cache)."""
+    straight into pinned host memory (ops/pipeline.gather_score_rows).
+    `sig` maps batch positions onto spec rows; replicas share one fetched
+    row. Exactly the wanted rows are gathered (the reference pads the count
+    to a power of two for its jit cache). The escalation loop and the
+    host-ranked commit loop prefetch every row they will read in one
+    gather."""
 
     def __init__(self, score: torch.Tensor, sig: Sequence[int]):
         self._dev = score
@@ -288,7 +290,7 @@ class ScoreRows:
         want = sorted({int(self._sig[i]) for i in indices} - self._cache.keys())
         if not want:
             return
-        rows = gather_score_rows(self._dev, want).cpu().numpy()
+        rows = gather_score_rows(self._dev, want).numpy()
         for j, u in enumerate(want):
             self._cache[u] = rows[j]
 
@@ -1268,6 +1270,14 @@ class Scheduler:
         self.stats["arbiter_defer"] += len(defers)
         metas: Dict = {}
         commits: List[Tuple[Pod, str]] = []
+        if escalate:
+            # every escalated pod reads its score row and the matrix does not
+            # change within the batch: one gather for all of them
+            try:
+                out.score.prefetch([i for i, _ in escalate])
+            except BaseException:
+                self.queue.requeue([info for _, info in escalate] + preempt_fails)
+                raise
         for n, (i, info) in enumerate(escalate):
             self.stats["arbiter_escalated"] += 1
             pod = info.pod

@@ -12,9 +12,11 @@ The port's own lean copies of `kubernetes_tpu.state.cache`:
   patching only DIRTY rows per cycle the way UpdateNodeInfoSnapshot walks
   its generation-ordered dirty list (cache.go:206-242), and keeps
   device-resident torch copies of all three. The copies are patched by
-  dirty rows through the ingest plane's row scatter (ops/slab.scatter_rows:
-  one host→device copy and one launch of csrc/slab.cu for a bank's
-  changed arrays) — the counterpart of the reference's jitted
+  dirty rows through the ingest plane's row scatter (ops/slab.scatter_batch:
+  a sync's up to six patches — node rows, usage rows, and the signature
+  and pattern banks' counts and metadata — packed straight from the host
+  banks into pinned memory, one non-blocking copy and ONE launch of
+  csrc/slab.cu) — the counterpart of the reference's jitted
   `_row_scatter_fn` — and uploaded in full only after a rebuild. With the fold plane a
   committed batch's deltas are scattered into the resident copies in place
   (`fold_commit`, ops/fold.fold_commit_banks), and sync does not make
@@ -39,7 +41,7 @@ import torch
 
 from ..api.types import Node, Pod
 from ..oracle.nodeinfo import NodeInfo, Snapshot, pod_has_affinity_constraints
-from ..ops.slab import scatter_rows
+from ..ops.slab import ScatterProblem, scatter_batch
 from .convert import arrays_to_torch
 from .node_tree import NodeTree
 from .terms import PatternBank, PatternOverflow
@@ -574,27 +576,21 @@ class TensorMirror:
         node_rows = sorted(self._pending_node_rows)
         usage_rows = sorted(self._pending_usage_rows - self._pending_node_rows)
         count_rows = sorted(self._pending_usage_rows | self._pending_node_rows)
-        self._patch_rows(self._dev, host, node_rows, tuple(k for k in host if k != "image_scaled"))
-        self._patch_rows(self._dev, host, usage_rows, USAGE_KEYS)
+        # the sync's patches, disjoint by construction (usage rows exclude
+        # node rows; counts and metadata are different arrays): ONE scatter
+        patches = [ScatterProblem(self._dev, node_rows, host, tuple(k for k in host if k != "image_scaled")),
+                   ScatterProblem(self._dev, usage_rows, host, USAGE_KEYS)]
         for dev, host_b, meta_rows, cnt_rows in (
             (self._dev_eps, host_e, self.eps.dirty_sig_rows, count_rows),
             (self._dev_pats, host_p, self.pats.dirty_pattern_rows,
              self._pending_pat_rows | self._pending_node_rows),
         ):
-            self._patch_rows(dev, host_b, sorted(cnt_rows), ("counts",))
-            self._patch_rows(dev, host_b, sorted(meta_rows), tuple(k for k in host_b if k != "counts"))
+            patches.append(ScatterProblem(dev, sorted(cnt_rows), host_b, ("counts",)))
+            patches.append(ScatterProblem(dev, sorted(meta_rows), host_b, tuple(k for k in host_b if k != "counts")))
+        scatter_batch(patches)
         self.rows_shipped += len(node_rows) + len(usage_rows)
         self._clear_pending()
         return self._dev, self._dev_eps, self._dev_pats
-
-    def _patch_rows(self, dev: Dict[str, torch.Tensor], host: Dict[str, np.ndarray], rows: List[int], keys) -> None:
-        """Overwrite `rows` of the arrays `keys` of the device copy `dev`
-        with host truth, in place: one row scatter for all of them
-        (ops/slab.scatter_rows, the reference's `_row_scatter_fn`)."""
-        if not rows:
-            return
-        idx = np.asarray(rows, np.int64)
-        scatter_rows({k: dev[k] for k in keys}, idx, {k: np.ascontiguousarray(host[k][idx]) for k in keys})
 
     # -- the fold plane (ops/fold, commit/fold) ------------------------------
 

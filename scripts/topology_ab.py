@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
-"""Topology and slab kernels of two checkouts of the port, on one card.
+"""Topology, slab and score-row kernels of two checkouts of the port, on one card.
 
-    python3 scripts/topology_ab.py --parent DIR [--mode spread|interpod|selector|slab] [--rounds 2]
+    python3 scripts/topology_ab.py --parent DIR [--mode spread|interpod|selector|slab|gather|scatter] [--rounds 2]
 
 DIR holds another checkout of the repository (for example the parent commit,
 unpacked with `git archive`). Each round measures the parent, then this
@@ -29,6 +29,17 @@ building its own kernels). Modes:
              launches both in one launch, an older one launches
              gather_stage and gather_terms one after the other; through the
              wrappers too (gather_batch, or gather_stage + gather_terms)
+  gather     the score-row gather at the config-3-hard shapes (U = 128,
+             N = 10,240) for K = 128, 1, 2 and 4: the kernel into a device
+             buffer, the rows on the host through the wrapper, the
+             driver's ScoreRows.prefetch, and index_select on the card and
+             with .cpu(); a checkout whose kernel takes the rows in its
+             argument block also into pinned host memory and the
+             alternative (a device buffer, then a non-blocking copy)
+  scatter    the row scatter at config 5's restage flush (64 of 1,024 pod
+             slab rows) and a mirror sync's six patches at the config-4
+             shapes: a checkout with ops/slab.scatter_batch patches a sync
+             in one launch, an older one in six scatter_rows calls
 
 For each: the relaunch mean (CUDA events over 200 calls) and the device
 duration from a torch.profiler (CUPTI) trace: the summed durations of the
@@ -317,8 +328,196 @@ def measure_slab(root: str) -> dict:
     return out
 
 
+def measure_gather(root: str) -> dict:
+    """The score-row gather of the checkout at `root` at the config-3-hard
+    shapes (U = 128, N = 10,240) for K = 128 and the driver's K of 1, 2 and
+    4: the kernel into a device buffer (relaunched, device duration), the
+    rows on the host through the wrapper, the driver's fetch
+    (ScoreRows.prefetch), index_select on the card and with .cpu(); this
+    checkout's kernel into pinned host memory and the alternative design
+    (device buffer, non-blocking copy into pinned memory, event wait) too.
+    Every result equal to index_select."""
+    import torch
+
+    import chip_smoke as CS
+    from kubernetes_tpu_torch.kernels import build
+    from kubernetes_tpu_torch.ops import pipeline as PP
+    from kubernetes_tpu_torch.scheduler.driver import ScoreRows
+
+    dev = torch.device("cuda")
+    g = torch.Generator().manual_seed(4)
+    score = torch.randint(-(2**62), 2**62, (128, 10240), generator=g, dtype=torch.int64).to(dev)
+    redesigned = hasattr(PP, "score_gather_block")
+    out = {}
+    for rows in (list(range(128))[::-1], [7], [7, 91], [7, 91, 3, 120]):
+        k = len(rows)
+        idx = torch.tensor(rows, dtype=torch.int32, device=dev)
+        want = torch.index_select(score, 0, idx)
+        dst = torch.empty((k, 10240), dtype=torch.int64, device=dev)
+        args = PP.gather_args(score, rows, dst) if redesigned else PP.gather_args(score, idx, dst)
+
+        def launch(a=args):
+            build.launch(PP.GATHER_ENTRY, a, dev)
+
+        def wrapper(rows=rows):
+            got = PP.gather_score_rows(score, rows)
+            return got if redesigned else got.cpu()
+
+        launch()
+        torch.cuda.synchronize()
+        if not (torch.equal(dst, want) and torch.equal(wrapper(), want.cpu())):
+            raise SystemExit(f"{root}: the score-row gather differs from index_select at K = {k}")
+        label = f"K{k}"
+        out[f"{label}_ms"] = CS.cuda_ms(launch, 200)
+        out[f"{label}_device_ms"] = sum(device_ms(launch, ("gather_rows_kernel",)).values())
+        out[f"{label}_wrapper_ms"] = CS.cuda_ms(wrapper, 200)
+        out[f"{label}_prefetch_ms"] = CS.cuda_ms(lambda rows=rows: ScoreRows(score, rows).prefetch(range(len(rows))),
+                                                 200)
+        out[f"{label}_index_select_ms"] = CS.cuda_ms(lambda idx=idx: torch.index_select(score, 0, idx), 200)
+        out[f"{label}_index_select_device_ms"] = sum(
+            device_ms(lambda idx=idx: torch.index_select(score, 0, idx), ("index", "gather", "Index")).values())
+        out[f"{label}_index_select_cpu_ms"] = CS.cuda_ms(lambda idx=idx: torch.index_select(score, 0, idx).cpu(), 200)
+        if redesigned:
+            host = torch.empty((k, 10240), dtype=torch.int64, pin_memory=True)
+            hargs = PP.gather_args(score, rows, host)
+
+            def alternative(rows=rows, k=k):
+                o = torch.empty((k, 10240), dtype=torch.int64, device=dev)
+                build.launch(PP.GATHER_ENTRY, PP.gather_args(score, rows, o), dev)
+                pinned = torch.empty((k, 10240), dtype=torch.int64, pin_memory=True)
+                pinned.copy_(o, non_blocking=True)
+                done = torch.cuda.Event()
+                done.record()
+                done.synchronize()
+                return pinned
+
+            if not torch.equal(alternative(), want.cpu()):
+                raise SystemExit(f"{root}: the alternative gather differs at K = {k}")
+            out[f"{label}_host_ms"] = CS.cuda_ms(lambda a=hargs: build.launch(PP.GATHER_ENTRY, a, dev), 200)
+            out[f"{label}_host_device_ms"] = sum(device_ms(lambda a=hargs: build.launch(PP.GATHER_ENTRY, a, dev),
+                                                           ("gather_rows_kernel",)).values())
+            out[f"{label}_alternative_ms"] = CS.cuda_ms(alternative, 200)
+    return out
+
+
+def _patches(mirror, seed=2):
+    """A mirror sync's six patches, as (resident dict clone, rows, host
+    truth, keys): node rows, usage rows, the signature and pattern banks'
+    counts and metadata (chip_smoke.py's sizes: 32, 128, 8 and 4 rows)."""
+    import numpy as np
+
+    rng = np.random.default_rng(seed)
+    dn, de, dp = ({k: v.clone() for k, v in d.items()} for d in mirror.device_arrays())
+    hn, he, hp = ({k: np.roll(v, 1, axis=0) if k != "counts" else v + 1 for k, v in d.items()}
+                  for d in (mirror.nodes.arrays(), mirror.eps.arrays(), mirror.pats.arrays()))
+    n = next(iter(dn.values())).shape[0]
+    perm = rng.permutation(n)
+    # Python ints, as the mirror's sorted sets of dirty rows
+    node_rows, usage_rows = sorted(perm[:32].tolist()), sorted(perm[32:160].tolist())
+    count_rows = sorted(perm[:160].tolist())
+    sig_rows = sorted(rng.choice(de["valid"].shape[0], 8, replace=False).tolist())
+    pat_rows = sorted(rng.choice(dp["valid"].shape[0], 4, replace=False).tolist())
+    return [(dn, node_rows, hn, tuple(k for k in hn if k != "image_scaled")),
+            (dn, usage_rows, hn, ("requested", "nonzero_req", "pod_count")),
+            (de, count_rows, he, ("counts",)), (de, sig_rows, he, tuple(k for k in he if k != "counts")),
+            (dp, node_rows, hp, ("counts",)), (dp, pat_rows, hp, tuple(k for k in hp if k != "counts"))]
+
+
+def measure_scatter(root: str) -> dict:
+    """The row scatter of the checkout at `root`: config 5's restage flush
+    (64 of 1,024 rows of the pod slab) relaunched from prebuilt arguments,
+    by device duration and as the plane's flush calls it (the parent: the
+    caller's staged copy, then scatter_rows; this checkout: scatter_rows
+    taking host truth); and a mirror sync's six patches at the config-4
+    shapes (the parent: six scatter_rows calls as its mirror made them;
+    this checkout: one scatter_batch call, also with its layout rebuilt
+    each call). Every result equal to index_copy_."""
+    import numpy as np
+    import torch
+
+    import chip_smoke as CS
+    from kubernetes_tpu_torch.kernels import build
+    from kubernetes_tpu_torch.ops import slab as SL
+    from kubernetes_tpu_torch.state.convert import arrays_to_torch
+
+    dev = torch.device("cuda")
+    redesigned = hasattr(SL, "scatter_batch")
+    out = {}
+    host, bank, _ = CS.seeded_slab(CS.slab_template("stage"), 1024, 7)
+    idx = np.arange(0, 1024, 16)
+    truth = {k: np.roll(v, 5, axis=0) for k, v in host.items()}
+    want = arrays_to_torch(host, dev, copy=True)
+    ti = torch.from_numpy(idx).to(dev)
+    for k, v in want.items():
+        v.index_copy_(0, ti, torch.from_numpy(np.ascontiguousarray(truth[k][idx])).to(dev))
+    if redesigned:
+        prob = SL.ScatterProblem(bank, idx, truth)
+        lanes = [SL.scatter_lanes(prob)]
+        plan = SL.ScatterPlan([prob], [idx.size], [lanes[0][1]])
+        staging = np.zeros(plan.nbytes, np.uint8)
+        plan.fill(staging, [prob], lanes)
+        buf = torch.from_numpy(staging).to(dev)
+        args = SL.ScatterArgs.from_buffer_copy(plan.args[0])
+        args.base = buf.data_ptr()
+
+        def flush():
+            SL.scatter_rows(bank, idx, truth)
+    else:
+        packed_np, offs = SL.pack_rows(bank, {k: np.ascontiguousarray(truth[k][idx]) for k in bank})
+        packed = torch.from_numpy(packed_np).to(dev)
+        i32 = ti.int()
+        args = SL.scatter_args(bank, packed, offs, i32, idx.size)
+
+        def flush():
+            SL.scatter_rows(bank, idx, {k: np.ascontiguousarray(h[idx]) for k, h in truth.items()})
+
+    def launch():
+        build.launch(SL.SCATTER_ENTRY, args, dev)
+
+    for fn in (launch, flush):
+        fn()
+        torch.cuda.synchronize()
+        if any(not torch.equal(bank[k], want[k]) for k in want):
+            raise SystemExit(f"{root}: the row scatter differs from index_copy_ at config 5's flush")
+    out["flush_ms"] = CS.cuda_ms(launch, 200)
+    out["flush_device_ms"] = sum(device_ms(launch, ("scatter_slab_kernel",)).values())
+    out["flush_wrapper_ms"] = CS.cuda_ms(flush, 50)
+    if redesigned:  # the layout rebuilt each call: what a flush costs when the cache misses
+        out["flush_cold_wrapper_ms"] = CS.cuda_ms(lambda: (SL._SCATTER_LAYOUTS.clear(), flush()), 50)
+    nodes, existing, pods = CS.config4_batch(CS.CONFIG4_PODS // 2)
+    enc = CS.encode(nodes, existing, pods, dev)
+    patches = _patches(enc["mirror"])
+    wants = {}
+    for d, rows, h, keys in patches:
+        w = wants.setdefault(id(d), {k: v.clone() for k, v in d.items()})
+        tr = torch.tensor(np.asarray(rows, np.int64), device=dev)
+        for k in keys:
+            w[k].index_copy_(0, tr, torch.from_numpy(np.ascontiguousarray(h[k][np.asarray(rows)])).to(dev))
+    if redesigned:
+        problems = [SL.ScatterProblem(d, rows, h, keys) for d, rows, h, keys in patches]
+
+        def sync():
+            SL.scatter_batch(problems)
+    else:
+        def sync():  # the parent mirror's _patch_rows, six times
+            for d, rows, h, keys in patches:
+                i = np.asarray(rows, np.int64)
+                SL.scatter_rows({k: d[k] for k in keys}, i, {k: np.ascontiguousarray(h[k][i]) for k in keys})
+    sync()
+    torch.cuda.synchronize()
+    for d, _, _, _ in patches:
+        if any(not torch.equal(d[k], v) for k, v in wants[id(d)].items()):
+            raise SystemExit(f"{root}: the mirror sync's scatter differs from index_copy_")
+    out["mirror_sync_wrapper_ms"] = CS.cuda_ms(sync, 50)
+    if redesigned:
+        out["mirror_sync_cold_wrapper_ms"] = CS.cuda_ms(lambda: (SL._SCATTER_LAYOUTS.clear(), sync()), 50)
+    out["mirror_sync_device_ms"] = sum(device_ms(sync, ("scatter_slab_kernel",),
+                                                 per_call=1 if redesigned else 6).values())
+    return out
+
+
 MEASURES = {"spread": measure_spread, "interpod": measure_interpod, "selector": measure_selector,
-            "slab": measure_slab}
+            "slab": measure_slab, "gather": measure_gather, "scatter": measure_scatter}
 
 
 def measure(root: str, mode: str) -> dict:

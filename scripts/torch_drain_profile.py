@@ -102,14 +102,13 @@ STAGES = (
     ("scheduler/driver.py", "_stage_prologue"),
     ("scheduler/driver.py", "_term_prologue"),
     ("ingest/bank.py", "_flush_locked"),
-    ("ops/slab.py", "scatter_rows"),
+    ("ops/slab.py", "scatter_batch"),
     ("ops/slab.py", "gather_batch"),
     ("state/tensors.py", "dedup_specs"),
     ("state/tensors.py", "set_pod"),
     ("state/terms.py", "compile_batch_terms"),
     ("state/convert.py", "arrays_to_torch"),
     ("state/cache.py", "device_arrays"),
-    ("state/cache.py", "_patch_rows"),
     ("ops/pipeline.py", "solve_pipeline"),
     ("commit/arbiter.py", "arbitrate"),
     ("scheduler/driver.py", "_commit_bulk"),

@@ -5,7 +5,9 @@ CPU path) against the reference's jitted `gather_stage` on seeded slabs
 with padding lanes, repeated rows and every dtype, the gathered dict
 against the legacy PodBatch of the same reps, a walk of csrc/slab.cu's
 batch gather, a flush through the plain row scatter against the reference's
-`_scatter_fn()`, and drains of the port's default Scheduler (both planes
+`_scatter_fn()` (host truth taken by the scatter, repeated rows, both
+planes' slabs in one multi-problem call), the bank's flush as one
+host-truth problem, and drains of the port's default Scheduler (both planes
 on) against the reference's with the same planes on (speculation and the
 columnar cache off, no warm-up, so every flush is the dispatch-time one):
 the reference suite's mixed / anti / gang scenarios, its preemption and
@@ -431,13 +433,67 @@ def test_scatter_plain_matches_reference(dup):
     padded = np.concatenate([rows, np.full(10, rows[0])])
     ref_upd = {k: np.concatenate([v, np.repeat(v[:1], 10, 0)]) for k, v in upd.items()}
     ref = r_scatter_fn()(ref_dict(slab), jnp.asarray(padded.astype(np.int32)), ref_dict(ref_upd))
+    truth = {k: v.copy() for k, v in slab.items()}  # host truth holding the dirty rows
+    for k, v in truth.items():
+        v[rows] = upd[k]
     bank = arrays_to_torch(slab, "cpu", copy=True)
-    SL.scatter_rows(bank, rows, upd)
+    SL.scatter_rows(bank, rows, truth)
     assert_same(ref, bank)
-    SL.scatter_rows(bank, np.zeros(0, np.int64), {k: v[:0] for k, v in upd.items()})  # no dirty row
+    SL.scatter_rows(bank, np.zeros(0, np.int64), truth)  # no dirty row
     assert_same(ref, bank)
     assert SL.scatter_rows.launches == 0
     del rng
+
+
+@pytest.mark.parametrize("dup", [False, True], ids=["distinct", "duplicates"])
+def test_multi_problem_scatter_matches_reference_scatter_fn(dup):
+    """One scatter_batch call patching a pod slab and a term slab (the two
+    planes' flushes as one call), the rows taken from the host slabs,
+    equals the reference's `_scatter_fn()` on each slab, with repeated rows
+    too (they carry identical bytes); the one-problem scatter_rows equals
+    it too."""
+    from kubernetes_tpu_torch.state.terms import TermBank
+
+    slab, _ = seeded_slab(PodBatch(Vocab(), 1).arrays(), 40, 11)
+    term, _ = seeded_slab(TermBank(Vocab(), 1).arrays(), 24, 12)
+    host_s, _ = seeded_slab(PodBatch(Vocab(), 1).arrays(), 40, 13)
+    host_t, _ = seeded_slab(TermBank(Vocab(), 1).arrays(), 24, 14)
+    rows_s, rows_t = (np.array([39, 0, 17, 0, 4]), np.array([5, 23, 5])) if dup else (np.array([39, 0, 17, 4]),
+                                                                                       np.array([5, 23]))
+    tw_s, tw_t = arrays_to_torch(slab, "cpu", copy=True), arrays_to_torch(term, "cpu", copy=True)
+    SL.scatter_batch([SL.ScatterProblem(tw_s, rows_s, host_s), SL.ScatterProblem(tw_t, rows_t, host_t)])
+    for got, base, host, rows in ((tw_s, slab, host_s, rows_s), (tw_t, term, host_t, rows_t)):
+        ref = r_scatter_fn()(ref_dict(base), jnp.asarray(rows.astype(np.int32)),
+                             {k: jnp.asarray(v[rows]) for k, v in host.items()})
+        assert_same(ref, got)
+        one = arrays_to_torch(base, "cpu", copy=True)
+        SL.scatter_rows(one, rows, host)
+        assert_same(ref, one)
+    assert SL.scatter_batch.launches == SL.scatter_rows.launches == 0
+
+
+def test_stage_bank_flush_takes_host_truth_in_one_problem(monkeypatch):
+    """A plane's flush is one problem of the scatter, its rows taken from
+    the host slab by the scatter itself (no staged copy built first): one
+    call a flush, naming exactly the dirty rows."""
+    calls = []
+    real = bank_mod.scatter_rows
+
+    def spy(slab, rows, host):
+        calls.append((list(rows), host is ps.batch.arrays() or set(host) == set(slab)))
+        return real(slab, rows, host)
+
+    monkeypatch.setattr(bank_mod, "scatter_rows", spy)
+    pp = _pods(PT, 6)
+    ps = p_stage_mod.PodStage(Vocab())
+    pb = StageBank(ps, "cpu")
+    for p in pp[:10]:
+        ps.acquire(p)
+    pb.current_arrays()  # the full upload
+    dirty = sorted({ps.acquire(p)[0] for p in pp[10:20]})
+    pb.current_arrays()
+    assert calls == [(dirty, True)]
+    assert pb.device_divergence() == []
 
 
 def test_stage_bank_flush_matches_reference_bank():

@@ -1050,8 +1050,11 @@ def test_fold_usage_kernel_equals_plain_and_inverts(cuda):
     (8, 1031, [5, 5, 0, 7, 5]),
     (128, 10240, list(range(128))[::-1]),
     (128, 10240, [3]),
+    (128, 10240, [i % 128 for i in range(600)]),
 ])
 def test_gather_score_rows_kernel_equals_plain(cuda, u, n, rows):
+    """The wrapper: the rows on the host, in a pinned buffer the kernel
+    wrote (one launch, none for no row), equal to index_select."""
     import numpy as np
 
     rng = np.random.default_rng(u + n)
@@ -1061,13 +1064,65 @@ def test_gather_score_rows_kernel_equals_plain(cuda, u, n, rows):
     before = PP.gather_score_rows.launches
     got = PP.gather_score_rows(score, rows)
     assert PP.gather_score_rows.launches == before + 1
+    assert got.device.type == "cpu" and got.is_pinned()
     want = PP.gather_score_rows_plain(score, torch.tensor(rows, dtype=torch.int32, device=cuda))
-    assert got.dtype == torch.int64 and torch.equal(got, want)
+    assert got.dtype == torch.int64 and torch.equal(got, want.cpu())
     assert PP.gather_score_rows(score, []).shape == (0, n)
     assert PP.gather_score_rows.launches == before + 1  # nothing to gather: no launch
     with pytest.raises(IndexError):
         PP.gather_score_rows(score, [u])
 
+
+@pytest.mark.parametrize("dest", ["device", "pinned-host"])
+@pytest.mark.parametrize("u,n,rows,out_shift", [
+    (1, 7, [0], 0),  # K = 1, N * 8 not a multiple of 16
+    (8, 1031, [5, 5, 0, 7, 6], 0),  # repeated rows, odd N: the head and tail by row phase
+    (8, 1031, [5, 5, 0, 7, 6], 1),  # the destination one element past 16 bytes: phases differ
+    (40, 4097, [39, 0, 1], 1),
+    (128, 10240, [7, 91, 3, 120], 0),  # the driver's K at the config-3-hard shapes
+    (128, 10240, list(range(128))[::-1], 0),
+    (128, 2050, [i % 128 for i in range(513)], 0),  # K past the argument block: the lanes
+    (700, 9, list(range(700))[::-1], 1),
+])
+def test_score_gather_destinations_equal_plain(cuda, u, n, rows, out_shift, dest):
+    """The kernel into a device buffer and into pinned host memory, at
+    16-byte and 8-byte destination phases, on int64 extremes: every
+    element equal to index_select, none written outside the rows."""
+    import numpy as np
+
+    rng = np.random.default_rng(u * n)
+    host = rng.integers(-(2**62), 2**62, (u, n), dtype=np.int64)
+    host[0, 0], host[-1, -1] = np.iinfo(np.int64).min, np.iinfo(np.int64).max
+    score = torch.from_numpy(host).to(cuda)
+    k = len(rows)
+    raw = (torch.full((k * n + 2,), -1, dtype=torch.int64, device=cuda) if dest == "device"
+           else torch.full((k * n + 2,), -1, dtype=torch.int64).pin_memory())
+    out = raw[out_shift : out_shift + k * n].view(k, n)
+    lanes = torch.tensor(rows, dtype=torch.int32, device=cuda) if k > PP.GATHER_MAX_INLINE else None
+    args = PP.gather_args(score, rows, out, lanes)
+    assert (args.lanes is not None) == (lanes is not None) and args.chunks == -(-n // (512 * args.words))
+    build.launch(PP.GATHER_ENTRY, args, cuda)
+    torch.cuda.synchronize()
+    want = PP.gather_score_rows_plain(score, torch.tensor(rows, dtype=torch.int32, device=cuda))
+    assert torch.equal(out.to(cuda), want)
+    rest = torch.cat([raw[:out_shift], raw[out_shift + k * n:]])
+    assert (rest == -1).all()
+
+
+def test_score_rows_prefetch_on_the_card_equals_the_cpu(cuda):
+    """The driver's lazy view on a device matrix: one gather for the rows a
+    prefetch names, the cached rows host numpy arrays equal to the CPU's."""
+    from kubernetes_tpu_torch.scheduler.driver import ScoreRows
+
+    rng = np.random.default_rng(5)
+    host = rng.integers(-(2**40), 2**40, (6, 300), dtype=np.int64)
+    dev, cpu = ScoreRows(torch.from_numpy(host).to(cuda), [2, 2, 0, 5, 0]), ScoreRows(torch.from_numpy(host), [2, 2, 0, 5, 0])
+    before = PP.gather_score_rows.launches
+    dev.prefetch([0, 1, 2, 3, 4])
+    assert PP.gather_score_rows.launches == before + 1
+    for i in range(5):
+        assert isinstance(dev[i], np.ndarray) and np.array_equal(dev[i], cpu[i])
+    assert PP.gather_score_rows.launches == before + 1
 
 
 @pytest.mark.parametrize("det", [True, False], ids=["deterministic", "noise"])
@@ -1328,14 +1383,110 @@ def test_slab_scatter_kernel_equals_plain(cuda, plane, s, rows):
         if rows[j] in rows[:j]:
             for v in upd.values():
                 v[j] = v[rows.index(rows[j])]  # a duplicate index carries identical bytes
+    truth = {k: v.copy() for k, v in slab.items()}  # host truth holding the dirty rows
+    for k, v in truth.items():
+        v[idx] = upd[k]
     dev = arrays_to_torch(slab, cuda, copy=True)
     want = arrays_to_torch(slab, cuda, copy=True)
     before = SL.scatter_rows.launches
-    SL.scatter_rows(dev, idx, upd)
+    SL.scatter_rows(dev, idx, truth)
     assert SL.scatter_rows.launches == before + (1 if rows else 0)
     SL.scatter_rows_plain(want, torch.from_numpy(idx).to(cuda), arrays_to_torch(upd, cuda))
     for k in want:
         assert torch.equal(dev[k], want[k]), k
+
+
+@pytest.mark.parametrize("shift", [0, 4], ids=["aligned", "4-byte-aligned-pointer"])
+@pytest.mark.parametrize("case", ["mirror-sync", "two-planes", "split", "one-row", "empty-and-zero-rows"])
+def test_multi_problem_scatter_kernel_equals_plain(cuda, case, shift):
+    """Several patch problems in one launch against one index_copy_ per
+    array per problem: a mirror sync's six patches (two row sets of one
+    dict, counts and metadata of two more), both planes' slabs, a call past
+    SLAB_MAX_ARRAYS segments (the fewest launches, counted), one row, and
+    problems with no row or no array (no launch); row widths of 1 to 256
+    bytes, the 256-byte array 4 bytes past a 16-byte boundary with `shift`;
+    overlapping problems refused."""
+    from kubernetes_tpu_torch.ops import slab as SL
+    from kubernetes_tpu_torch.state.tensors import Vocab
+    from kubernetes_tpu_torch.state.terms import TermBank
+
+    rng = np.random.default_rng(len(case) + shift)
+    pod_h, _ = seeded_slab(PodBatch(Vocab(), 1).arrays(), 300, 1)
+    term_h, _ = seeded_slab(TermBank(Vocab(), 1).arrays(), 64, 2)
+    syn, _ = synthetic_slab(cuda, 40, (1, 4, 12, 24, 256), 3, shift=shift)
+    syn_h = {k: v.cpu().numpy()[::-1].copy() for k, v in syn.items()}
+    pod, term = arrays_to_torch(pod_h, cuda, copy=True), arrays_to_torch(term_h, cuda, copy=True)
+    pod_new = {k: np.roll(v, 1, axis=0) for k, v in pod_h.items()}  # host truth differs from the twin
+    term_new = {k: np.roll(v, 3, axis=0) for k, v in term_h.items()}
+    keys = tuple(pod)
+    if case == "mirror-sync":
+        probs = [SL.ScatterProblem(pod, sorted(rng.choice(300, 40, replace=False)), pod_new, keys[3:]),
+                 SL.ScatterProblem(pod, [0, 299], pod_new, keys[:3]),
+                 SL.ScatterProblem(term, [1, 2, 3], term_new, ("kind",)),
+                 SL.ScatterProblem(term, [60, 9], term_new, ("weight", "ns_ids", "ex_vals")),
+                 SL.ScatterProblem(syn, [39, 0, 5], syn_h, ("w1", "w4")),
+                 SL.ScatterProblem(syn, [7], syn_h, ("w12", "w24", "w256"))]
+    elif case == "two-planes":
+        probs = [SL.ScatterProblem(pod, list(range(0, 300, 16)), pod_new),
+                 SL.ScatterProblem(term, [63, 0, 31], term_new)]
+    elif case == "split":
+        pod2 = arrays_to_torch(pod_h, cuda, copy=True)
+        probs = [SL.ScatterProblem(pod, [5, 6, 250], pod_new), SL.ScatterProblem(pod2, [299], pod_new),
+                 SL.ScatterProblem(syn, [1, 2], syn_h)]
+    elif case == "one-row":
+        probs = [SL.ScatterProblem(syn, [17], syn_h)]
+    else:
+        probs = [SL.ScatterProblem(pod, [], pod_new), SL.ScatterProblem(term, [4], term_new, ())]
+    want = {}
+    for p in probs:
+        d = want.setdefault(id(p.slab), {k: v.clone() for k, v in p.slab.items()})
+        idx = torch.tensor(np.asarray(p.rows, np.int64), device=cuda)
+        for k in (p.keys if p.keys is not None else tuple(p.slab)):
+            rows = np.take(p.host[k], np.asarray(p.rows, np.int64), axis=0)
+            d[k].index_copy_(0, idx, torch.from_numpy(np.ascontiguousarray(rows)).to(cuda))
+    before, split = SL.scatter_batch.launches, SL.scatter_batch.split_launches
+    SL.scatter_batch(probs)
+    torch.cuda.synchronize()
+    launches = {"split": 2, "empty-and-zero-rows": 0}.get(case, 1)
+    assert SL.scatter_batch.launches - before == launches
+    assert SL.scatter_batch.split_launches - split == (1 if case == "split" else 0)
+    for p in probs:
+        for k, v in want[id(p.slab)].items():
+            assert torch.equal(p.slab[k], v), (case, k)
+    with pytest.raises(ValueError, match="same row"):
+        SL.scatter_batch([SL.ScatterProblem(syn, [3], syn_h), SL.ScatterProblem(syn, [3, 4], syn_h, ("w4",))])
+
+
+def test_scatter_never_synchronises_and_reuses_its_layout(cuda):
+    """Twenty back-to-back scatters of changing host truth and changing
+    row counts under the sync debug mode: no call synchronises, each
+    call's rows land exact (a clone after each, stream-ordered, holds that
+    call's truth), and every call after the first finds the bank's layout
+    in the cache whatever its row count."""
+    from kubernetes_tpu_torch.ops import slab as SL
+    from kubernetes_tpu_torch.state.tensors import Vocab
+
+    host, _ = seeded_slab(PodBatch(Vocab(), 1).arrays(), 512, 9)
+    bank = arrays_to_torch(host, cuda, copy=True)
+    rows = [list(range(3 + i, 512, 8 + i)) for i in range(21)]
+    truths = [{k: np.roll(v, i + 1, axis=0) for k, v in host.items()} for i in range(21)]
+    misses, hits = SL.scatter_batch.layout_misses, SL.scatter_batch.layout_hits
+    SL.scatter_rows(bank, rows[0], truths[0])  # the layout
+    clones = []
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        for r, t in zip(rows[1:], truths[1:]):
+            SL.scatter_rows(bank, r, t)
+            clones.append({k: v.clone() for k, v in bank.items()})
+    finally:
+        torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    for r, t, got in zip(rows[1:], truths[1:], clones):
+        idx = np.asarray(r)
+        for k, v in got.items():
+            assert np.array_equal(v.cpu().numpy()[idx], t[k][idx]), k
+    assert (SL.scatter_batch.layout_misses - misses, SL.scatter_batch.layout_hits - hits) == (1, 20)
 
 
 def test_planes_on_the_card_equal_the_cpu(cuda):

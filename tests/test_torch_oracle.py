@@ -15,7 +15,12 @@ seeded clusters built in each package:
 * `host_arbitrate` against the reference's and against the port's
   `arbitrate` on the batches the port's driver arbitrates;
 * `gather_score_rows`' plain version against the JAX gather (K = 1,
-  repeated rows, int64 extremes), and its host index check.
+  repeated rows, int64 extremes), and its host index check on the
+  caller's ints; csrc/gather.cu's kernel walked in Python over its
+  argument block (every output element once, 16-byte words by the rows'
+  phases, the rows past the block's cap from the lanes);
+* the escalation loop's one prefetch a batch for its escalated rows, in
+  drains equal to the reference's.
 
 Tolerance: exact equality.
 """
@@ -460,3 +465,139 @@ def test_escalation_meta_advances_like_a_fresh_computation():
     assert memo[D.spec_key(probe)][0] is not hit[0]  # computed afresh
     sched.wait_for_binds()
     sched.close()
+
+
+# --- the score-row gather's kernel, walked on the host ------------------------------------
+
+def walk_score_gather(score, rows, score_addr, out_addr):
+    """csrc/gather.cu's kernel CTA by CTA over its argument block
+    (score_gather_block: the rows inline up to GATHER_MAX_INLINE, past it
+    read from the lanes the wrapper copies), at the given base addresses,
+    whose 16-byte phases choose each row's words; each CTA's 16-byte words
+    taken thread by thread (word p is thread p % THREADS's iteration
+    p // THREADS). Returns (out, writes per out element, 16-byte words
+    used)."""
+    u, n = score.shape
+    k = len(rows)
+    a = PPipe.score_gather_block(score_addr, out_addr, 1 if k > PPipe.GATHER_MAX_INLINE else None, u, n, rows)
+    out = np.zeros((k, n), np.int64)
+    writes = np.zeros((k, n), np.int64)
+    threads, words = PPipe.GATHER_THREADS, a.words
+    chunk_n = 2 * threads * words
+    wide_words = 0
+    for b in range(a.chunks * a.K):
+        kk = b // a.chunks
+        chunk = b - kk * a.chunks
+        r = rows[kk] if a.lanes else a.rows[kk]
+        src_addr, dst_addr = a.score + r * n * 8, a.out + kk * n * 8
+        phase = (src_addr >> 3) & 1
+        wide = phase == (dst_addr >> 3) & 1
+        head = phase if wide else 0
+        idx = []
+        if head == 1 and chunk == 0:
+            idx.append(np.array([0]))  # thread 0
+        lo = head + chunk * chunk_n
+        hi = min(lo + chunk_n, n)
+        if lo < hi:
+            if wide:
+                pairs = (hi - lo) >> 1
+                p = np.arange(words * threads)
+                p = p[p < pairs]
+                first = lo + 2 * p
+                assert not ((src_addr + 8 * first) % 16).any() and not ((dst_addr + 8 * first) % 16).any()
+                idx += [first, first + 1]
+                wide_words += p.size
+                if (hi - lo) & 1:
+                    idx.append(np.array([hi - 1]))  # the scalar tail, thread 0
+            else:
+                idx.append(np.arange(lo, hi))
+        for e in idx:
+            out[kk, e] = score[r, e]
+            np.add.at(writes[kk], e, 1)
+    return out, writes, wide_words
+
+
+@pytest.mark.parametrize("u,n,rows,phases", [
+    (3, 7, [0], (0, 0)),
+    (8, 1031, [5, 5, 0, 7, 6], (0, 0)),  # odd N: each row's phase by its index
+    (8, 1031, [5, 5, 0, 7, 6], (1, 0)),
+    (4, 2048, [3, 1], (0, 0)),  # exactly one CTA a row
+    (4, 2049, [0, 1, 2, 3], (1, 1)),  # a pair-aligned row past one CTA, the scalar head
+    (128, 10240, [7, 91, 3, 120], (0, 0)),  # the config-3-hard rows at the driver's K
+    (640, 3, list(range(640))[::-1], (0, 0)),  # K past the argument block: the lanes
+    (600, 2050, [i % 600 for i in range(0, 513 * 7, 7)], (0, 1)),  # K = 513, repeated rows
+])
+def test_score_gather_walk_covers_every_output_element_once(u, n, rows, phases):
+    """The score-row gather's kernel walked in Python: every output element
+    written exactly once and equal to the plain gather (and the JAX
+    gather), 16-byte words wherever a row's source and destination share a
+    phase (an odd head alone, an odd tail as a scalar), 8-byte words where
+    they do not, the rows past the argument block's cap from the lanes."""
+    score = _score(u + n, u, n)
+    out, writes, wide = walk_score_gather(score, rows, 0x10000 + 8 * phases[0], 0x90000 + 8 * phases[1])
+    assert (writes == 1).all()
+    want = np.asarray(RPipe.gather_score_rows(jnp.asarray(score), jnp.asarray(np.asarray(rows, np.int32))))
+    assert np.array_equal(out, want)
+    assert np.array_equal(PPipe.gather_score_rows(torch.from_numpy(score), rows).numpy(), want)
+    if n % 2 == 0 and phases[0] == phases[1]:
+        assert wide == len(rows) * (n // 2)  # every element in a 16-byte word
+    if len(rows) > PPipe.GATHER_MAX_INLINE:
+        with pytest.raises(ValueError, match="exceed"):
+            PPipe.score_gather_block(1, 2, None, u, n, rows)
+    # CTAs widen only while the launch keeps two an SM
+    block = PPipe.score_gather_block(0, 0, 1, u, n, rows)
+    ctas = block.chunks * len(rows)
+    assert block.words in (1, 2, 4) and (block.words == 1 or ctas >= PPipe.GATHER_MIN_CTAS)
+    assert block.words == 4 or len(rows) * -(-n // (2 * PPipe.GATHER_THREADS * 2 * block.words)) < \
+        PPipe.GATHER_MIN_CTAS
+
+
+def test_score_rows_are_checked_python_ints():
+    """The wrapper's host check works on the caller's ints (a list, a numpy
+    vector or a CPU tensor), with no tensor built for it."""
+    assert PPipe.score_rows([3, np.int64(2)], 4) == [3, 2]
+    assert PPipe.score_rows(np.array([1, 0], np.int32), 2) == [1, 0]
+    assert PPipe.score_rows(torch.tensor([1]), 2) == [1]
+    with pytest.raises(IndexError, match="out of range"):
+        PPipe.score_rows([2], 2)
+    with pytest.raises(ValueError, match="1-D"):
+        PPipe.score_rows(np.zeros((1, 1), np.int64), 2)
+
+
+@pytest.mark.parametrize("workload,batch", [("mix", 16), ("perf-mix", 256)])
+def test_escalation_loop_prefetches_its_rows_once_a_batch(workload, batch, monkeypatch):
+    """An arbitrated drain whose defers escalate to the host oracle: every
+    batch that escalates makes exactly ONE prefetch of the score rows, for
+    exactly its escalated pods (the loop then reads them from the cache),
+    and the drain equals the reference's pod for pod and counter for
+    counter."""
+    from test_torch_drain import _counters, _preemption_drain
+
+    ra, rv, rn, rp, rst, _ = _preemption_drain("ref", workload, batch=batch)
+    batches, current = [], []
+    real_arb, real_prefetch = D.Scheduler._commit_arbitrated, D.ScoreRows.prefetch
+
+    def arbitrated(self, infos, out, *a, **k):
+        current.append([])
+        try:
+            return real_arb(self, infos, out, *a, **k)
+        finally:
+            batches.append(current.pop())
+
+    def prefetch(self, indices):
+        indices = list(indices)
+        if current:
+            current[-1].append(indices)
+        return real_prefetch(self, indices)
+
+    monkeypatch.setattr(D.Scheduler, "_commit_arbitrated", arbitrated)
+    monkeypatch.setattr(D.ScoreRows, "prefetch", prefetch)
+    pa, pv, pn, pp, st, _ = _preemption_drain("port", workload, batch=batch)
+    assert (pa, pv, pn, pp) == (ra, rv, rn, rp)
+    assert _counters(st) == _counters(rst)
+    escalating = [calls for calls in batches if calls]
+    assert all(len(calls) == 1 for calls in escalating)
+    assert sum(len(calls[0]) for calls in escalating) == st["arbiter_escalated"] > 0
+    assert all(len(set(calls[0])) == len(calls[0]) for calls in escalating)
+    if workload == "perf-mix":
+        assert max(len(calls[0]) for calls in escalating) > 1  # pods of one batch share the gather

@@ -147,8 +147,11 @@ def test_term_scatter_and_bank_match_reference():
     rows = np.array([29, 0, 7, 12])
     ref = r_scatter_fn()(ref_dict(slab), jnp.asarray(np.r_[rows, [29] * 12].astype(np.int32)),
                          ref_dict({k: np.concatenate([v, np.repeat(v[:1], 12, 0)]) for k, v in upd.items()}))
+    truth = {k: v.copy() for k, v in slab.items()}  # host truth holding the dirty rows
+    for k, v in truth.items():
+        v[rows] = upd[k]
     bank = arrays_to_torch(slab, "cpu", copy=True)
-    SL.scatter_rows(bank, rows, upd)
+    SL.scatter_rows(bank, rows, truth)
     assert_same(ref, bank)
     pp, pfn = _pods_and_selectors(PT, 8)
     rp, rfn = _pods_and_selectors(RT, 8)
