@@ -47,8 +47,12 @@ they placed. Phases:
                 of its parts; one cluster launch, no match launch given the
                 plan, its device-memory tables counted; timed at 1 to 16
                 CTAs a spec row in turns, through its wrapper, by the
-                profiler's device duration), interpod_score (each part and both),
-                inbatch_port_conflict and the tracked solve on a seeded
+                profiler's device duration), interpod_score (each part and both;
+                one cluster launch, no match launch given the plan, its
+                device-memory tables counted; exact at 1 to 16 CTAs a spec
+                row and with device tables at V = 40,000; timed at 1 to 16
+                CTAs in turns, through its wrapper, by the profiler's
+                device duration), inbatch_port_conflict and the tracked solve on a seeded
                 cluster reaching every inter-pod branch and at the config-4
                 shapes (U=32, N=2048, TT=32, S=256, PT=32, V=2048), with the
                 batch's match plan (its three matrices in one launch, timed
@@ -70,6 +74,12 @@ they placed. Phases:
                 batch solved on the card), arbitrate also at the config-4
                 shapes (U=32, N=2048, TT=32, V=2048, B=4096); the fold's
                 library yardstick is one index_put_(accumulate=True) per bank;
+                the fold through its tensor wrapper and through the packed
+                program (the live lanes in one pinned upload), timed over
+                the packed lanes, the padded program and through
+                TensorMirror.fold_commit; a fold stress program (4,096
+                lanes on 5 rows, counts of both signs, int16 cells over
+                their whole range) on one device and on 2, 4 and 8 shards;
                 preempt_batch on seeded arrays reaching every branch (PDB
                 violators, fits_free, preemptors requesting nothing,
                 extended-resource slots, nominee charges, ties at each pick
@@ -1288,10 +1298,29 @@ def compare_interpod(enc, label, time_it: bool):
             bad_f += int((k != p).sum()) + int(k.dtype != p.dtype)
             k = TO.interpod_filter(na, ea, ta, au, xa, pa, parts=parts, n_buckets=nb)
             bad_f += int((k != p).sum())
+        slay = TO.interpod_score_layout(*dims, nb, pa["valid"].shape[0])
         for parts in SCORE_PARTS:
-            k = TO.interpod_score(na, ea, ta, xa, pa, parts=parts, n_buckets=nb)
+            calls, matches, sdev = (TO.interpod_score.launches, TO.match_terms.launches,
+                                    TO.interpod_score.device_table_launches)
+            k = TO.interpod_score(na, ea, ta, xa, pa, parts=parts, n_buckets=nb, m_pt=m_pt_plan, m_sig=m_sig_plan)
+            check(TO.interpod_score.launches == calls + 1 and TO.match_terms.launches == matches
+                  and TO.interpod_score.device_table_launches == sdev + int(slay["tcap"] == 0),
+                  f"[{label}] interpod_score given the plan is not one launch without match_terms, its device "
+                  f"tables counted")
             p = TO.interpod_score_plain(na, ea, ta, xa, pa, parts, nb)
             bad_s = max(bad_s, int((k - p).abs().max()) + int(k.dtype != p.dtype))
+            k = TO.interpod_score(na, ea, ta, xa, pa, parts=parts, n_buckets=nb)
+            bad_s = max(bad_s, int((k - p).abs().max()))
+    # the score at every cluster width, and its device-memory tables (V = 40,000 on one CTA a row)
+    want_s = TO.interpod_score_plain(na, ea, ta, xa, pa, SCORE_PARTS[-1], v)
+    for c in (1, 2, 4, 8, 16):
+        cargs, cout = TO.interpod_score_args(na, ea, ta, xa, pa, m_pt_plan, m_sig_plan, SCORE_PARTS[-1], v, cluster=c)
+        build.launch(TO.INTERPOD_SCORE_ENTRY, cargs, dev)
+        bad_s = max(bad_s, int((cout - want_s).abs().max()))
+    dargs, dout = TO.interpod_score_args(na, ea, ta, xa, pa, m_pt_plan, m_sig_plan, SCORE_PARTS[-1], 40000, cluster=1)
+    check(dargs.tcap == 0, f"[{label}] interpod_score at V = 40,000 on one CTA a row did not take its device-memory tables")
+    build.launch(TO.INTERPOD_SCORE_ENTRY, dargs, dev)
+    bad_s = max(bad_s, int((dout - TO.interpod_score_plain(na, ea, ta, xa, pa, SCORE_PARTS[-1], 40000)).abs().max()))
     check(bad_f == 0, f"[{label}] interpod_filter kernel differs from its plain version in {bad_f} pairs")
     check(bad_s == 0, f"[{label}] interpod_score kernel differs from its plain version by {bad_s}")
     pconf = F.inbatch_port_conflict(pa, ids)
@@ -1339,16 +1368,7 @@ def compare_interpod(enc, label, time_it: bool):
         m_pt = TO.match_terms(xa, pa["label_vals"], pa["ns_id"])
         m_sig = TO.match_terms(ta, ea["label_vals"], ea["ns_id"])
         out["interpod_filter"].update(time_interpod_filter(na, ea, ta, au, xa, pa, m_pt, m_sig, parts_f, v, label))
-        sargs, _ = TO.interpod_score_args(na, ea, ta, xa, pa, m_pt, m_sig, parts_s, v)
-        out["interpod_score"]["ms"] = cuda_ms(lambda: build.launch(TO.INTERPOD_SCORE_ENTRY, sargs, dev), 200)
-        # its table kernels and its score kernel, each launched once a call
-        out["interpod_score"]["device_ms"] = device_ms(lambda: build.launch(TO.INTERPOD_SCORE_ENTRY, sargs, dev),
-                                                       ("pattern_table_kernel", "term_table_kernel",
-                                                        "interpod_score_kernel"))
-        out["interpod_score"]["plain_ms"] = cuda_ms(
-            lambda: TO.interpod_score_plain(na, ea, ta, xa, pa, parts_s, v), 5)
-        out["interpod_score"]["bound"] = bound(interpod_work("interpod_score", na, ea, xa, ta, au, pa, parts_s,
-                                                             m_pt, m_sig))
+        out["interpod_score"].update(time_interpod_score(na, ea, ta, au, xa, pa, m_pt, m_sig, parts_s, v, label))
         mp = out["match_terms[plan]"]
         margs, _ = TO.match_args(plan)
         mp["ms"] = cuda_ms(lambda: build.launch(TO.MATCH_ENTRY, margs, dev), 200)
@@ -1401,6 +1421,43 @@ def filter_rows_with_work(ta, au, xa, pa, m_pt, parts):
         anti = xa["valid"] & (xa["kind"] == ANTI_REQ)
         rows |= set(torch.nonzero((m_pt & anti[:, None]).any(dim=0)).flatten().tolist())
     return len(rows)
+
+
+def time_interpod_score(na, ea, ta, au, xa, pa, m_pt, m_sig, parts, v, label):
+    """The inter-pod score's one launch on these inputs: the kernel alone
+    (relaunch mean by CUDA events, the profiler's device duration), through
+    its wrapper given the plan, its plain version, the bound, the rows it
+    tabulates, the CTAs a spec row 1 to 16 in turns (each exact) and the
+    device-memory tables at V = 40,000. Returns its stats."""
+    from kubernetes_tpu_torch.kernels import build
+    from kubernetes_tpu_torch.ops import topology as TO
+
+    dev = na["valid"].device
+    st = {}
+    sargs, _ = TO.interpod_score_args(na, ea, ta, xa, pa, m_pt, m_sig, parts, v)
+    st["ms"] = cuda_ms(lambda: build.launch(TO.INTERPOD_SCORE_ENTRY, sargs, dev), 200)
+    st["device_ms"] = device_ms(lambda: build.launch(TO.INTERPOD_SCORE_ENTRY, sargs, dev),
+                                "interpod_score_cluster_kernel")
+    st["wrapper_ms"] = cuda_ms(lambda: TO.interpod_score(na, ea, ta, xa, pa, parts=parts, n_buckets=v, m_pt=m_pt,
+                                                         m_sig=m_sig), 200)
+    st["plain_ms"] = cuda_ms(lambda: TO.interpod_score_plain(na, ea, ta, xa, pa, parts, v), 5)
+    st["bound"] = bound(interpod_work("interpod_score", na, ea, xa, ta, au, pa, parts, m_pt, m_sig))
+    st["layout"] = {k: getattr(sargs, k) for k in ("C", "slice", "vslice", "tcap", "smem")}
+    want = TO.interpod_score_plain(na, ea, ta, xa, pa, parts, v)
+    st["ctas_ms"] = {}
+    for c in (1, 2, 4, 8, 16, 16, 8, 4, 2, 1):
+        cargs, cout = TO.interpod_score_args(na, ea, ta, xa, pa, m_pt, m_sig, parts, v, cluster=c)
+        build.launch(TO.INTERPOD_SCORE_ENTRY, cargs, dev)
+        check(torch.equal(cout, want), f"[{label}] interpod_score at {c} CTAs a spec row differs")
+        ms = cuda_ms(lambda: build.launch(TO.INTERPOD_SCORE_ENTRY, cargs, dev), 200)
+        st["ctas_ms"][str(c)] = min(ms, st["ctas_ms"].get(str(c), ms))
+    dargs, _ = TO.interpod_score_args(na, ea, ta, xa, pa, m_pt, m_sig, parts, 40000, cluster=1)
+    st["device_tables_ms"] = cuda_ms(lambda: build.launch(TO.INTERPOD_SCORE_ENTRY, dargs, dev), 50)
+    log(f"[kernels] {label} interpod_score {'+'.join(parts)}: layout {st['layout']}; relaunched {st['ms']:.4f} ms, "
+        f"device duration {st['device_ms']:.4f} ms, through its wrapper {st['wrapper_ms']:.4f} ms; by CTAs a spec row "
+        + ", ".join(f"{c}: {ms_:.4f} ms" for c, ms_ in st["ctas_ms"].items())
+        + f"; device tables (V = 40,000, one CTA a row) {st['device_tables_ms']:.4f} ms")
+    return st
 
 
 def time_interpod_filter(na, ea, ta, au, xa, pa, m_pt, m_sig, parts, v, label):
@@ -1523,6 +1580,13 @@ def compare_commit(enc, label, time_it: bool, parts=("spread_filter", "arbitrate
     FO.fold_commit_banks(*kb, **ctl)
     FO.fold_commit_banks_plain(*pbk, **ctl)
     err_f = max(int((x.long() - y.long()).abs().max()) for x, y in zip(kb, pbk))
+    # the main path's packed program: the live lanes in one pinned upload, one launch
+    packed = FO.fold_control(**{k: getattr(prog, k) for k in ctl}, n=na["valid"].shape[0], pin=True)
+    kp = [x.clone() for x in banks]
+    calls = FO.fold_commit_banks.launches
+    FO.fold_commit_packed(*kp, packed)
+    check(FO.fold_commit_banks.launches == calls + 1, f"[{label}] the packed fold is not one launch")
+    err_f = max(err_f, max(int((x.long() - y.long()).abs().max()) for x, y in zip(kp, pbk)))
     check(err_f == 0, f"[{label}] fold_commit_banks kernel differs from its plain version by {err_f}")
     out["fold_commit_banks"] = {"max_abs_err": err_f}
     log(f"[kernels] {label}: U={pa['valid'].shape[0]} N={na['valid'].shape[0]} TT={ta['valid'].shape[0]} "
@@ -1564,13 +1628,7 @@ def compare_commit(enc, label, time_it: bool, parts=("spread_filter", "arbitrate
                 lambda: A.arbitrate_plain(na, pa, ea, ta, ids, assign, pb, term_kinds=kinds, n_buckets=v), 1)
             out["arbitrate"]["bound"] = bound(arbiter_work(na, pa, ta, pb, verdict, "spread_hard" in kinds, v))
         if "fold_commit_banks" in parts:
-            oargs = FO.fold_args(*kb, **ctl)
-            out["fold_commit_banks"]["ms"] = cuda_ms(lambda: build.launch(FO.FOLD_ENTRY, oargs, dev), 200)
-            out["fold_commit_banks"]["device_ms"] = device_ms(lambda: build.launch(FO.FOLD_ENTRY, oargs, dev),
-                                                              "fold_commit_kernel")
-            out["fold_commit_banks"]["plain_ms"] = cuda_ms(lambda: FO.fold_commit_banks_plain(*pbk, **ctl), 5)
-            out["fold_commit_banks"]["bound"] = bound(fold_work(prog, na["requested"].shape[1]))
-            out["fold_commit_banks"]["library_ms"] = library_fold_ms(kb, ctl, prog.pods)
+            out["fold_commit_banks"].update(time_fold(enc["mirror"], prog, kb, pbk, ctl, packed, label))
         for name in parts:
             st = out[name]
             lib = st.get("library_ms")
@@ -1578,6 +1636,103 @@ def compare_commit(enc, label, time_it: bool, parts=("spread_filter", "arbitrate
                 f"bound {st['bound'][0]:.6f} ms ({st['bound'][1]})"
                 + (f", library {lib:.4f} ms" if lib is not None else ""))
     return {k: out[k] for k in parts}
+
+
+def time_fold(mirror, prog, kb, pbk, ctl, packed, label):
+    """The commit fold on this program: the kernel alone over the packed
+    live lanes (one prebuilt struct relaunched, and the profiler's device
+    duration), over the padded program (device duration), through
+    TensorMirror.fold_commit (pack, one pinned upload, one launch: what a
+    folded batch costs the driver; the mirror's banks restored after), its
+    plain version, the library's index_put_ per bank and the bound.
+    Returns its stats."""
+    from kubernetes_tpu_torch.kernels import build
+    from kubernetes_tpu_torch.ops import fold as FO
+
+    dev = kb[0].device
+    st = {}
+    dbuf = packed.buf.to(dev)
+    pargs = FO.packed_args(kb, packed, dbuf.data_ptr())
+    st["ms"] = cuda_ms(lambda: build.launch(FO.FOLD_ENTRY, pargs, dev), 200)
+    st["device_ms"] = device_ms(lambda: build.launch(FO.FOLD_ENTRY, pargs, dev), "fold_commit_kernel")
+    oargs = FO.fold_args(*kb, **ctl)
+    st["padded_device_ms"] = device_ms(lambda: build.launch(FO.FOLD_ENTRY, oargs, dev), "fold_commit_kernel")
+    n, e, p = mirror.device_arrays()
+    resident = [n["requested"], n["nonzero_req"], n["pod_count"], e["counts"], p["counts"]]
+    saved = [x.clone() for x in resident]
+    check(mirror.fold_commit(prog), f"[{label}] the mirror's banks are not resident")
+    st["mirror_ms"] = cuda_ms(lambda: mirror.fold_commit(prog), 200)
+    # the mirror's path in two parts: the packing alone (host clock), the
+    # upload and launch of a packed program
+    arrays = {k: getattr(prog, k) for k in ctl}
+    t0 = time.perf_counter()
+    for _ in range(200):
+        FO.fold_control(**arrays, n=kb[0].shape[0], pin=True)
+    st["pack_ms"] = (time.perf_counter() - t0) / 200 * 1e3
+    st["upload_launch_ms"] = cuda_ms(lambda: FO.fold_commit_packed(*resident, packed), 200)
+    for x, y in zip(resident, saved):
+        x.copy_(y)
+    st["plain_ms"] = cuda_ms(lambda: FO.fold_commit_banks_plain(*pbk, **ctl), 5)
+    st["bound"] = bound(fold_work(prog, kb[0].shape[1]))
+    st["library_ms"] = library_fold_ms(kb, ctl, prog.pods)
+    st["elements"] = packed.b * (packed.r + 4) + packed.t
+    log(f"[kernels] {label} fold_commit_banks: {packed.b} live lanes of {prog.rows.shape[0]}, {packed.t} triples of "
+        f"{prog.pat_bucket}, {st['elements']} elements; packed relaunched {st['ms']:.4f} ms, device "
+        f"{st['device_ms']:.4f} ms (padded program {st['padded_device_ms']:.4f}); through the mirror "
+        f"{st['mirror_ms']:.4f} ms (packing {st['pack_ms']:.4f} ms on the host clock, upload and launch of the packed "
+        f"program {st['upload_launch_ms']:.4f} ms)")
+    return st
+
+
+def compare_fold_edges(dev):
+    """The commit fold on a program built to stress its adds: 4,096 lanes
+    on 5 node rows and 3 signatures, 900 triples on 4 rows and 3 patterns
+    (words shared by both halves), counts of both signs (-3 to 4), int16
+    cells across the whole range (low halves carry, high halves wrap),
+    sentinel lanes; through the tensor wrapper and the packed path, on one
+    device and on 2, 4 and 8 shards, against the plain versions."""
+    from kubernetes_tpu_torch.ops import fold as FO
+
+    g = torch.Generator().manual_seed(18)
+    n, r, s, pt, b, t = 64, 6, 40, 12, 4096, 900
+    banks = [torch.randint(0, 10**9, (n, r), generator=g), torch.randint(0, 10**9, (n, 2), generator=g),
+             torch.randint(0, 100, (n,), generator=g).int(),
+             torch.randint(-32768, 32768, (n, s), generator=g).to(torch.int16),
+             torch.randint(-32768, 32768, (n, pt), generator=g).to(torch.int16)]
+    rows = torch.randint(0, 5, (b,), generator=g).int()
+    rows[::7] = n
+    sig = torch.randint(0, 3, (b,), generator=g).int()
+    sig[::5] = s
+    pat_row = torch.randint(0, 4, (t,), generator=g).int()
+    pat_col = torch.randint(0, 3, (t,), generator=g).int()
+    pat_col[::9] = pt
+    ctl = {"rows": rows, "req": torch.randint(-9000, 9000, (b, r), generator=g),
+           "nz": torch.randint(-9000, 9000, (b, 2), generator=g), "cnt": torch.randint(-3, 5, (b,), generator=g).int(),
+           "sig": sig, "pat_row": pat_row, "pat_col": pat_col,
+           "pat_cnt": torch.randint(-3, 5, (t,), generator=g).to(torch.int16)}
+    dctl = {k: v.to(dev) for k, v in ctl.items()}
+    packed = FO.fold_control(**{k: v.numpy() for k, v in ctl.items()}, n=n, pin=True)
+    err = 0
+    for shards in (None, 2, 4, 8):
+        want = [x.clone() for x in banks]
+        if shards is None:
+            FO.fold_commit_banks_plain(*want, **ctl)
+            got = [x.to(dev, copy=True) for x in banks]
+            FO.fold_commit_banks(*got, **dctl)
+        else:
+            FO.fold_commit_sharded_plain(shards, *want, **ctl)
+            got = [x.to(dev, copy=True) for x in banks]
+            FO.fold_commit_sharded(shards, *got, **dctl)
+        err = max(err, max_err([x.cpu() for x in got], want))
+        got = [x.to(dev, copy=True) for x in banks]
+        FO.fold_commit_packed(*got, packed, shards=shards)
+        err = max(err, max_err([x.cpu() for x in got], want))
+    check(err == 0, f"[kernels] the fold's stress program differs from its plain version by {err}")
+    live = (rows < n) & (sig < s)
+    log(f"[kernels] fold stress program: {b} lanes ({int(live.sum())} signature adds on {len(set(rows[live].tolist()))} "
+        f"rows), {t} triples, counts -3..4, int16 cells over the whole range: tensor and packed paths exact on one "
+        f"device and at 2, 4 and 8 shards")
+    return err
 
 
 def library_fold_ms(banks, ctl, pods):
@@ -2680,6 +2835,7 @@ def phase_kernels():
     gang, enc5 = phase_gang_kernels()
     stats.update(gang)
     stats.update(phase_slab_kernels())
+    compare_fold_edges(dev)
     compare_mirror_scatter("config-3", enc["mirror"], time_it=False, seed=1)
     stats["scatter_rows"]["mirror sync"] = compare_mirror_scatter("config-4", enc4["mirror"], time_it=True, seed=2)
     stats.update(phase_mesh_kernels(enc, enc4, enc3h, enc5))
@@ -2709,6 +2865,8 @@ def phase_kernels():
     stats["_redesign"]["score-row gather and row scatter"]["table gaps [relaunched, device] ms"] = gaps
     log("[redesign] table gaps, relaunch mean / device duration: "
         + ", ".join(f"{k} {ms:.4f} / {d:.4f} ms" for k, (ms, d) in gaps.items()))
+    stats["_redesign"]["commit fold and inter-pod score"] = fold_and_score_summary(
+        stats["fold_commit_banks"], stats["fold_commit_sharded"], stats["interpod_score"])
     return stats
 
 
@@ -2726,6 +2884,38 @@ BEFORE_MS = {"spread_filter": 0.0928, "spread_filter_match_terms": 0.0138, "filt
              # the selector spread's one block a row at the config-3 +
              # Services shapes, the kernel alone, relaunched
              "interpod_filter": 0.0197, "selector_spread_score": 0.0654}
+
+
+# the commit fold and the inter-pod score before their redesign (PERF.md's
+# device-program table, chip_smoke.py on NVIDIA H100 80GB HBM3, 700.00 W):
+# the fold at the config-3-hard batch's program (the padded lanes, a thread
+# a lane), the sharded fold at the config-3 one on 8 shards, the score's
+# three kernels at the config-4 batch shapes
+BEFORE_MS["fold_commit_banks"] = {"ms": 0.0128, "device_ms": 0.0040}
+BEFORE_MS["fold_commit_sharded"] = {"ms": 0.0143, "device_ms": 0.0036}
+BEFORE_MS["interpod_score"] = {"ms": 0.0286, "device_ms": 0.0255}
+
+
+def fold_and_score_summary(fold, sharded, score):
+    """The commit fold (the packed kernel relaunched and by device duration,
+    the padded program's device duration, through the mirror), the sharded
+    fold and the inter-pod score (relaunched, device, through its wrapper,
+    the CTA sweep, the device-memory tables), each beside its time before."""
+    out = {
+        "fold_commit_banks": {**{k: fold[k] for k in ("ms", "device_ms", "padded_device_ms", "mirror_ms", "pack_ms",
+                                                      "upload_launch_ms", "plain_ms", "library_ms", "elements")},
+                              "bound_ms": fold["bound"][0], "before": BEFORE_MS["fold_commit_banks"]},
+        "fold_commit_sharded": {"ms": sharded["ms"], "device_ms": sharded["device_ms"],
+                                "before": BEFORE_MS["fold_commit_sharded"]},
+        "interpod_score": {**{k: score[k] for k in ("ms", "device_ms", "wrapper_ms", "ctas_ms", "device_tables_ms",
+                                                    "layout")},
+                           "bound_ms": score["bound"][0], "before": BEFORE_MS["interpod_score"]},
+    }
+    for k, v in out.items():
+        extra = f", through the mirror {v['mirror_ms']:.4f} ms" if "mirror_ms" in v else ""
+        log(f"[redesign] {k}: {v['ms']:.4f} ms relaunched, {v['device_ms']:.4f} ms device{extra} (before "
+            f"{v['before']['ms']:.4f} / {v['before']['device_ms']:.4f})")
+    return out
 
 
 # the kernels PERF.md lists at their launch latency
@@ -2948,6 +3138,7 @@ def kernel_counters():
         "spread_filter[device tables]": (TO.spread_filter, "device_table_launches"),
         "spread_score[device tables]": (TO.spread_score, "device_table_launches"),
         "interpod_filter[device tables]": (TO.interpod_filter, "device_table_launches"),
+        "interpod_score[device tables]": (TO.interpod_score, "device_table_launches"),
         "selector_spread_score[device tables]": (TO.selector_spread_score, "device_table_launches"),
         "match_terms[problems]": (TO.match_terms, "problems"),
         "match_terms[plan]": (TO.match_terms, "multi_launches"),
@@ -3597,9 +3788,13 @@ def verify_stage_planes(label, sched, launches=None):
     equals its host slab on the live rows, every batch went through a plane
     either gathered or legacy, and a plane took the legacy path at most
     once per slab rebuild. Given the drain's `launches`: one batch-gather
-    launch a covered batch (a batch either plane gathered)."""
+    launch a covered batch (a batch either plane gathered), and one commit
+    fold launch a folded batch."""
     st = sched.stats
     if launches is not None:
+        folds = launches["fold_commit_banks"] + launches["fold_commit_sharded"]
+        check(folds == st["fold_batches"], f"{label}: {folds} commit fold launches for {st['fold_batches']} folded "
+              f"batches")
         got, idx_i, idx_t = launches["gather_batch"], st["ingest_index_batches"], st["term_index_batches"]
         if st["ingest_legacy_batches"] == 0 or st["term_legacy_batches"] == 0:
             lo = hi = max(idx_i, idx_t)  # every batch one plane did not gather, the other did

@@ -1,31 +1,46 @@
 // Resident-state fold: a committed batch's deltas scattered into the device
 // banks in place.
 //
-// Replaces kubernetes_tpu/ops/fold.py:fold_commit_banks (:44). One launch
-// covers the B commit lanes and the T pattern triples: thread i < B adds
-// lane i's request vector, non-zero scoring request and pod count into its
-// node row and one count into its (node, signature) cell; thread B + j adds
-// triple j's count into its (node, pattern) cell. A lane whose index is out
-// of range (the padding sentinels N, S, PT) adds nothing, as the
-// reference's mode="drop" scatters.
+// Replaces kubernetes_tpu/ops/fold.py:fold_commit_banks (:44). One launch,
+// ONE THREAD A BANK ELEMENT: the B commit lanes' (lane, column) elements —
+// the R request columns and the two non-zero columns (int64), the pod count
+// (int32) and the signature cell (int16) — then the T pattern triples
+// (int16), laid out
+//   [0, B*(R+2))            lane e / (R+2), column e % (R+2) of [req | nz]
+//   [B*(R+2), B*(R+3))      lane's pod count
+//   [B*(R+3), B*(R+4))      lane's (node, signature) cell
+//   [B*(R+4), B*(R+4) + T)  triple's (node, pattern) cell
+// so neighbouring threads read neighbouring control words (coalesced) and
+// every thread issues its loads together: one round trip, then one add. A
+// lane whose index is out of range (the padding sentinels N, S, PT) adds
+// nothing, as the reference's mode="drop" scatters. The main path
+// (ops/fold.fold_commit_packed) hands B and T as the LIVE counts of the
+// batch's program, packed in one pinned upload, so the grid covers no
+// padding; a caller passing padded tensors gets its sentinels dropped.
 //
-// Duplicates are the norm (many pods of one signature land on one node), so
-// every add is an integer atomic: 64-bit atomicAdd on the int64 columns
-// (two's-complement add on the unsigned view), 32-bit atomicAdd on the pod
-// count, and for the int16 count cells a 32-bit atomicCAS loop on the
-// aligned word holding the half, which wraps the half as two's complement
-// like the reference's astype + add. Integer adds commute, so the result is
-// exact in any order.
+// Duplicates are the norm (many pods of one signature land on one node, one
+// pod's pattern triples share words), so every add is an integer atomic,
+// and none waits for its result where the result is unused: fire-and-forget
+// reductions (`red.global.add`) on the int64 columns (two's-complement add
+// on the unsigned view) and the int32 pod count. An int16 cell takes ONE
+// 32-bit atomic add on its aligned word: the high half adds (v & 0xFFFF) <<
+// 16, whose carry out of bit 31 is the int16 wrap; the low half adds
+// v & 0xFFFF, and where the returned old value shows a carry out of the low
+// half ((old & 0xFFFF) + (v & 0xFFFF) > 0xFFFF) one more reduction adds
+// 0xFFFF0000, taking the carry back out of the high half. Each is an add
+// mod 2^32 that leaves the other half's bits as they were, so the result is
+// exact in any interleaving, as the reference's astype + add wraps.
 //
-// Bound: bytes. The lanes read their control rows once and touch
-// R + 2 + 1 + 1 (or 1) bank cells each; a few thousand lanes are a few
-// hundred KB, so a launch costs its latency, not its bandwidth.
+// Bound: bytes. A live lane reads (R + 2) * 8 + 12 control bytes and a
+// triple 10 and each touches a bank cell; a config-3 batch is ~200 KB, so a
+// launch costs its latency (one wave, one round trip a thread) and not its
+// bandwidth.
 //
 // fold_usage_kernel replaces kubernetes_tpu/ops/fold.py:fold_usage (:74),
 // the preemption nominees' overlay on the usage columns: thread i adds
-// entry i's request vector and pod count into its node row with the same
-// 64- and 32-bit atomics (several nominees on one node are duplicate rows);
-// the driver removes the overlay with negated vectors and counts, an exact
+// entry i's request vector and pod count into its node row with 64- and
+// 32-bit atomics (several nominees on one node are duplicate rows); the
+// driver removes the overlay with negated vectors and counts, an exact
 // integer inverse. Bound: bytes, a few KB a launch.
 //
 // The node-sharded twins (fold_commit_sharded_kernel, fold_usage_sharded_
@@ -34,9 +49,9 @@
 // split over S node shards of Nl rows, the control arrays are replicated,
 // and each shard rebases the global rows onto its own and drops foreign
 // lanes, so no collective is needed. One launch covers every shard:
-// blockIdx.y is the shard, and each lane adds only on the shard that owns
-// its row, with the same integer atomics. Bound: bytes, as the fold's; the
-// S-fold grid reads each lane's row S times (a few KB).
+// blockIdx.y is the shard, and each element adds only on the shard that
+// owns its row, with the same atomics. Bound: bytes, as the fold's; the
+// S-fold grid reads each element's control S times (a few hundred KB).
 #include "common.cuh"
 
 #define FOLD_THREADS 256
@@ -58,53 +73,85 @@ struct FoldArgs {
   int32_t N, R, S, PT, B, T;
 };
 
-__device__ __forceinline__ void add_i64(int64_t* p, int64_t v) {
-  if (v != 0) atomicAdd((unsigned long long*)p, (unsigned long long)v);
+// fire-and-forget adds: the result is not returned, so no thread waits on it
+__device__ __forceinline__ void red_add_u64(void* p, unsigned long long v) {
+  asm volatile("red.global.add.u64 [%0], %1;" ::"l"(__cvta_generic_to_global(p)), "l"(v) : "memory");
 }
 
-// *p += v on an int16 cell: CAS on the aligned 32-bit word that holds it
+__device__ __forceinline__ void red_add_u32(void* p, unsigned int v) {
+  asm volatile("red.global.add.u32 [%0], %1;" ::"l"(__cvta_generic_to_global(p)), "r"(v) : "memory");
+}
+
+__device__ __forceinline__ void add_i64(int64_t* p, int64_t v) {
+  if (v != 0) red_add_u64(p, (unsigned long long)v);
+}
+
+// *p += v on an int16 cell, wrapping: one 32-bit atomic add on the aligned
+// word that holds it (the carry correction, where the low half carried, a
+// second fire-and-forget add). Between a low half's carry and its correction
+// the word's high half reads one too high: exact once the kernel ends, since
+// the banks are read and written only on the fold's stream, and each int16
+// bank either holds whole words or ends its own allocation, so the high half
+// past an odd bank's last cell is allocator padding that no tensor holds
+// (ops/fold._bank_args checks this).
 __device__ __forceinline__ void add_i16(int16_t* p, int32_t v) {
-  if ((v & 0xFFFF) == 0) return;
+  const unsigned int h = (unsigned int)v & 0xFFFFu;
+  if (h == 0) return;
   const uintptr_t addr = (uintptr_t)p;
   unsigned int* word = (unsigned int*)(addr & ~(uintptr_t)3);
-  const unsigned int shift = (addr & 2) ? 16u : 0u;
-  unsigned int old = *word, assumed;
-  do {
-    assumed = old;
-    const unsigned int half = (assumed >> shift) & 0xFFFFu;
-    const unsigned int sum = (half + (unsigned int)v) & 0xFFFFu;
-    const unsigned int next = (assumed & ~(0xFFFFu << shift)) | (sum << shift);
-    old = atomicCAS(word, assumed, next);
-  } while (old != assumed);
+  if (addr & 2) {  // the high half: its carry leaves the word, the int16 wrap
+    red_add_u32(word, h << 16);
+    return;
+  }
+  const unsigned int old = atomicAdd(word, h);
+  if ((old & 0xFFFFu) + h > 0xFFFFu) red_add_u32(word, 0xFFFF0000u);  // the carry out of the high half again
 }
 
-// Lane i of one commit fold, on the shard owning rows [lo, lo + Nl): a row
-// outside them (another shard's, or a padding sentinel) adds nothing; the
-// single-device fold is the one shard lo = 0, Nl = N.
-__device__ __forceinline__ void commit_lane(const FoldArgs& a, int i, int lo, int Nl) {
-  if (i < a.B) {
-    const int32_t row = a.rows[i] - lo;  // rebased onto the shard's rows
+// Element e of one commit fold, on the shard owning rows [lo, lo + Nl): a
+// row outside them (another shard's, or a padding sentinel) adds nothing;
+// the single-device fold is the one shard lo = 0, Nl = N.
+__device__ __forceinline__ void commit_element(const FoldArgs& a, int64_t e, int lo, int Nl) {
+  const int W = a.R + 2;
+  const int64_t wide = (int64_t)a.B * W;
+  if (e < wide) {  // an int64 column of a lane: its row and its value in one round trip
+    const int i = (int)(e / W), c = (int)(e - (int64_t)i * W);
+    const int64_t v = c < a.R ? __ldg(a.req + (int64_t)i * a.R + c) : __ldg(a.nz + (int64_t)i * 2 + (c - a.R));
+    const int32_t row = __ldg(a.rows + i) - lo;
     if (row < 0 || row >= Nl) return;
-    int64_t* requested = a.requested + (int64_t)lo * a.R;
-    int64_t* nonzero_req = a.nonzero_req + (int64_t)lo * 2;
-    for (int r = 0; r < a.R; ++r) add_i64(requested + (int64_t)row * a.R + r, a.req[(int64_t)i * a.R + r]);
-    add_i64(nonzero_req + (int64_t)row * 2 + 0, a.nz[(int64_t)i * 2 + 0]);
-    add_i64(nonzero_req + (int64_t)row * 2 + 1, a.nz[(int64_t)i * 2 + 1]);
-    const int32_t c = a.cnt[i];
-    if (c != 0) atomicAdd(a.pod_count + lo + row, c);
-    const int32_t s = a.sig[i];
-    if (s >= 0 && s < a.S) add_i16(a.sig_counts + ((int64_t)lo + row) * a.S + s, c);
-  } else if (i < a.B + a.T) {
-    const int j = i - a.B;
-    const int32_t row = a.pat_row[j] - lo;
-    const int32_t col = a.pat_col[j];
+    add_i64(c < a.R ? a.requested + ((int64_t)lo + row) * a.R + c : a.nonzero_req + ((int64_t)lo + row) * 2 + (c - a.R),
+            v);
+    return;
+  }
+  e -= wide;
+  if (e < 2 * (int64_t)a.B) {  // a lane's pod count, then its signature cell
+    const int i = (int)(e < a.B ? e : e - a.B);
+    const int32_t row = __ldg(a.rows + i) - lo, c = __ldg(a.cnt + i);
+    if (e < a.B) {
+      if (row >= 0 && row < Nl && c != 0) red_add_u32(a.pod_count + lo + row, (unsigned int)c);
+      return;
+    }
+    const int32_t s = __ldg(a.sig + i);
+    if (row < 0 || row >= Nl || s < 0 || s >= a.S) return;
+    add_i16(a.sig_counts + ((int64_t)lo + row) * a.S + s, c);
+    return;
+  }
+  e -= 2 * (int64_t)a.B;
+  if (e < a.T) {  // a pattern triple
+    const int j = (int)e;
+    const int32_t row = __ldg(a.pat_row + j) - lo, col = __ldg(a.pat_col + j);
+    const int32_t v = __ldg(a.pat_cnt + j);
     if (row < 0 || row >= Nl || col < 0 || col >= a.PT) return;
-    add_i16(a.pat_counts + ((int64_t)lo + row) * a.PT + col, (int32_t)a.pat_cnt[j]);
+    add_i16(a.pat_counts + ((int64_t)lo + row) * a.PT + col, v);
   }
 }
 
-__global__ void fold_commit_kernel(const FoldArgs a) {
-  commit_lane(a, blockIdx.x * blockDim.x + threadIdx.x, 0, a.N);
+// the launch's elements: B lanes of R + 4 and T triples
+__host__ __device__ __forceinline__ int64_t fold_elements(const FoldArgs& a) {
+  return (int64_t)a.B * (a.R + 4) + a.T;
+}
+
+__global__ void __launch_bounds__(FOLD_THREADS) fold_commit_kernel(const FoldArgs a) {
+  commit_element(a, (int64_t)blockIdx.x * FOLD_THREADS + threadIdx.x, 0, a.N);
 }
 
 // the node-sharded fold: blockIdx.y is the shard
@@ -113,8 +160,8 @@ struct ShardedFoldArgs {
   int32_t S, Nl;  // shards, rows a shard (N = S * Nl)
 };
 
-__global__ void fold_commit_sharded_kernel(const ShardedFoldArgs g) {
-  commit_lane(g.fold, blockIdx.x * blockDim.x + threadIdx.x, blockIdx.y * g.Nl, g.Nl);
+__global__ void __launch_bounds__(FOLD_THREADS) fold_commit_sharded_kernel(const ShardedFoldArgs g) {
+  commit_element(g.fold, (int64_t)blockIdx.x * FOLD_THREADS + threadIdx.x, blockIdx.y * g.Nl, g.Nl);
 }
 
 struct FoldUsageArgs {
@@ -156,22 +203,26 @@ extern "C" int ktpu_fold_usage(const FoldUsageArgs* args, cudaStream_t stream) {
   return (int)cudaGetLastError();
 }
 
+static bool fold_shape_ok(const FoldArgs& a) { return a.B >= 0 && a.T >= 0 && a.R >= 0; }
+
+static unsigned fold_blocks(const FoldArgs& a) {
+  return (unsigned)((fold_elements(a) + FOLD_THREADS - 1) / FOLD_THREADS);
+}
+
 extern "C" int ktpu_fold_commit_banks(const FoldArgs* args, cudaStream_t stream) {
-  const int lanes = args->B + args->T;
-  if (lanes > 0) {
-    fold_commit_kernel<<<(lanes + FOLD_THREADS - 1) / FOLD_THREADS, FOLD_THREADS, 0, stream>>>(*args);
-  }
+  if (!fold_shape_ok(*args)) return (int)cudaErrorInvalidValue;
+  if (fold_elements(*args) > 0) fold_commit_kernel<<<fold_blocks(*args), FOLD_THREADS, 0, stream>>>(*args);
   return (int)cudaGetLastError();
 }
 
 static bool sharded_shape_ok(int S, int Nl, int N) { return S >= 1 && Nl >= 1 && (int64_t)S * Nl == N; }
 
 extern "C" int ktpu_fold_commit_sharded(const ShardedFoldArgs* args, cudaStream_t stream) {
-  if (!sharded_shape_ok(args->S, args->Nl, args->fold.N)) return (int)cudaErrorInvalidValue;
-  const int lanes = args->fold.B + args->fold.T;
-  if (lanes > 0) {
-    const dim3 grid((lanes + FOLD_THREADS - 1) / FOLD_THREADS, args->S);
-    fold_commit_sharded_kernel<<<grid, FOLD_THREADS, 0, stream>>>(*args);
+  if (!sharded_shape_ok(args->S, args->Nl, args->fold.N) || !fold_shape_ok(args->fold)) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (fold_elements(args->fold) > 0) {
+    fold_commit_sharded_kernel<<<dim3(fold_blocks(args->fold), args->S), FOLD_THREADS, 0, stream>>>(*args);
   }
   return (int)cudaGetLastError();
 }

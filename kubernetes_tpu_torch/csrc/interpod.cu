@@ -41,10 +41,13 @@
 //   3. any_pair over the cluster (one more barrier, for a row that can take
 //      the escape), then the mask; the exit waits on a split cluster
 //      barrier so no CTA leaves while another reads its shared memory.
-// ktpu_interpod_score: pattern tables (AFF_REQ / AFF_PREF / ANTI_PREF),
-//   term tables (AFF_PREF / ANTI_PREF), then one block per spec row: the
-//   weighted per-node sums in int64, the row's min and max over valid
-//   nodes with 0 clamped in, and 10 * (c - min) // (max - min).
+// ktpu_interpod_score: ONE launch, a grid of U clusters of C CTAs, the
+//   filter's layout: a row's items (matching AFF_REQ / AFF_PREF / ANTI_PREF
+//   patterns, owned AFF_PREF / ANTI_PREF terms) compacted once, their
+//   per-bucket tables in the owning CTAs' shared memory (device memory past
+//   the budget), each node's weighted sum in registers across the items,
+//   the row's min and max over valid nodes (0 clamped in) by one reduction
+//   over the cluster, and 10 * (c - min) // (max - min) written once.
 //
 // Every count is an integer sum (atomics on int32 tables): the reference's
 // f32 products are exact only below 2^24, these everywhere, and the order
@@ -52,14 +55,14 @@
 // dropped from a sum and clamped in a gather, as segment_sum and the JAX
 // gather do.
 //
-// Bound: bytes. The filter reads, per item and node of the row, the dense
-// label at the item's key and the counts columns it names, and writes
-// [U, N] bytes; the tables stay in the cluster's shared memory (in device
+// Bound: bytes. Both kernels read, per item and node of the row, the dense
+// label at the item's key and the counts columns it names, and write the
+// [U, N] output (1 byte a cell for the filter, 8 for the score); the tables stay in the cluster's shared memory (in device
 // memory only past its budget). The arithmetic is a few integer adds per
 // (item, node). What costs is the reads a node takes (a 32-byte sector for
 // each 2-byte count or 4-byte label: the banks are node-major), a CTA's
 // chain of dependent round trips and cluster barriers and, for the score,
-// the launches and the serial walks of N nodes by PT or TT blocks.
+// the dependent label-then-table read of each (item, node).
 #include <cooperative_groups.h>
 
 #include "topology.cuh"
@@ -71,10 +74,6 @@ namespace cg = cooperative_groups;
 #define PART_ANTI 4       // interpod_filter "anti"
 #define PART_PREF 8       // interpod_score "pref"
 #define PART_X_SCORE 16   // interpod_score "existing"
-
-__device__ __forceinline__ bool kind_in(int32_t kind, int kind_mask) {
-  return kind > 0 && kind < 31 && ((kind_mask >> kind) & 1);
-}
 
 __device__ __forceinline__ int clamp_bucket(int32_t b, int V) { return b > V - 1 ? V - 1 : b; }
 
@@ -128,21 +127,27 @@ __host__ __device__ __forceinline__ size_t interpod_filter_smem_bytes(const Inte
 }
 
 // The cell of bucket b (< V) of the chunk's table j: in the owning CTA's
-// shared memory, or in the row's device-memory table.
-__device__ __forceinline__ int32_t* ip_cell(const InterpodFilterArgs& a, int32_t* tab, int32_t* dtab, int j, int b) {
+// shared memory, or in the row's device-memory table. (Args: the filter's
+// or the score's struct; both carry the same layout fields.)
+template <typename Args>
+__device__ __forceinline__ int32_t* ip_cell(const Args& a, int32_t* tab, int32_t* dtab, int j, int b) {
   if (a.tcap == 0) return dtab + b;
   const int r = b / a.vslice;
   return cg::this_cluster().map_shared_rank(tab + (size_t)j * a.vslice + (b - r * a.vslice), r);
 }
 
-__device__ __forceinline__ int32_t ip_get(const InterpodFilterArgs& a, int32_t* tab, int32_t* dtab, int j, int b) {
+template <typename Args>
+__device__ __forceinline__ int32_t ip_get(const Args& a, int32_t* tab, int32_t* dtab, int j, int b) {
   return a.tcap == 0 ? __ldcg(dtab + b) : *ip_cell(a, tab, dtab, j, b);
 }
 
 // Table j of the chunk += count(x) at the bucket of every node x of
 // [n0, n1) with the key and a bucket below V (segment_sum drops the rest).
-template <typename Count>
-__device__ __forceinline__ void ip_tabulate(const InterpodFilterArgs& a, int32_t* tab, int32_t* dtab, int j,
+// Eager: each node's count is loaded beside its label (one round trip, a
+// count read for a node without the key too); else only where the label
+// has the key.
+template <bool Eager = false, typename Args, typename Count>
+__device__ __forceinline__ void ip_tabulate(const Args& a, int32_t* tab, int32_t* dtab, int j,
                                             int32_t slot, int n0, int n1, Count count) {
   for (int x0 = n0 + threadIdx.x; x0 < n1; x0 += IP_BATCH * THREADS) {
     int32_t d[IP_BATCH], cn[IP_BATCH];
@@ -150,9 +155,13 @@ __device__ __forceinline__ void ip_tabulate(const InterpodFilterArgs& a, int32_t
     for (int k = 0; k < IP_BATCH; ++k) {  // the batch's label loads first
       const int x = x0 + k * THREADS;
       d[k] = (x < n1 && slot >= 0) ? dense_at(a.label_dense, a.K, x, slot) : -1;
+      if (Eager) cn[k] = (x < n1 && slot >= 0) ? count(x) : 0;
     }
 #pragma unroll
-    for (int k = 0; k < IP_BATCH; ++k) cn[k] = (d[k] >= 0 && d[k] < a.V) ? count(x0 + k * THREADS) : 0;
+    for (int k = 0; k < IP_BATCH; ++k) {
+      if (!Eager) cn[k] = (d[k] >= 0 && d[k] < a.V) ? count(x0 + k * THREADS) : 0;
+      else if (d[k] < 0 || d[k] >= a.V) cn[k] = 0;
+    }
 #pragma unroll
     for (int k = 0; k < IP_BATCH; ++k) {
       if (cn[k] != 0) atomicAdd(ip_cell(a, tab, dtab, j, d[k]), cn[k]);
@@ -323,8 +332,10 @@ extern "C" int ktpu_interpod_filter(const InterpodFilterArgs* args, cudaStream_t
 }
 
 // ---------------------------------------------------------------------------
-// interpod_score: the pattern and term tables, then one block per spec row
+// interpod_score: one launch, a cluster of C CTAs a spec row
 // ---------------------------------------------------------------------------
+
+#define IPS_NODES 16  // nodes a thread holds in registers (a CTA's slice <= IPS_NODES * THREADS)
 
 struct InterpodArgs {
   const uint8_t* n_valid;         // [N]
@@ -344,168 +355,210 @@ struct InterpodArgs {
   const uint8_t* e_valid;         // [S]
   const int16_t* counts;          // [N, S]
   const uint8_t* p_valid;         // [U]
-  int32_t* sig_list;              // [TT, S] scratch
-  int32_t* x_table;               // [PT, V] scratch: per-bucket pattern instances
-  int32_t* t_table;               // [TT, V] scratch: per-bucket term matches
+  int32_t* dtable;                // [U, V] the tables in device memory (tcap == 0)
   int64_t* score;                 // [U, N] score output
-  int32_t N, K, PT, TT, S, U, V, parts, table_in_shared;
+  int32_t N, K, PT, TT, S, U, V, parts;
+  // the launch (ops/topology.interpod_score_layout): C CTAs a spec row,
+  // the node and bucket slices of a CTA, the item tables a chunk holds in
+  // shared memory (0: one at a time in device memory) and the dynamic
+  // shared memory
+  int32_t C, slice, vslice, tcap, smem;
 };
 
-// Per-bucket instance sums of one pattern of a wanted kind: the hosting
-// node must carry the pattern's topology key.
-__global__ void pattern_table_kernel(const InterpodArgs a, int kind_mask) {
-  extern __shared__ int32_t table_s[];  // [V] when table_in_shared
-  const int pt = blockIdx.x;
-  if (!a.x_valid[pt] || !kind_in(a.x_kind[pt], kind_mask)) return;
-  int32_t* table = a.table_in_shared ? table_s : a.x_table + (int64_t)pt * a.V;
-  for (int v = threadIdx.x; v < a.V; v += blockDim.x) table[v] = 0;
-  __syncthreads();
-  const int32_t slot = a.x_topo_slot[pt];
-  for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
-    int32_t b;
-    if (!dense_bucket(a.label_dense, a.K, n, slot, &b) || b >= a.V) continue;
-    const int32_t c = a.x_counts[(int64_t)n * a.PT + pt];
-    if (c != 0) atomicAdd(&table[b], c);
-  }
-  if (a.table_in_shared) {
-    __syncthreads();
-    for (int v = threadIdx.x; v < a.V; v += blockDim.x) a.x_table[(int64_t)pt * a.V + v] = table_s[v];
-  }
+// the dynamic shared memory of a CTA, in this order: the chunk's bucket
+// slices [tcap, vslice], the row's items [PT + TT] and a signature window
+// [SIG_WINDOW] (int32; the int64 reduction cells are static).
+// ops/topology.interpod_score_layout computes the same bytes.
+__host__ __device__ __forceinline__ size_t interpod_score_smem_bytes(const InterpodArgs& a) {
+  return 4 * ((size_t)a.tcap * a.vslice + (size_t)a.PT + a.TT + SIG_WINDOW);
 }
 
-// Per-bucket match sums of one batch term of a wanted kind (the preferred
-// kinds: a term's own matched signatures).
-__global__ void term_table_kernel(const InterpodArgs a, int kind_mask) {
-  extern __shared__ int32_t smem[];  // [V] table when in shared
-  __shared__ int n_sigs;
-  const int t = blockIdx.x;
-  if (!a.t_valid[t] || !kind_in(a.t_kind[t], kind_mask)) return;
-  int32_t* table = a.table_in_shared ? smem : a.t_table + (int64_t)t * a.V;
-  int32_t* sigs = a.sig_list + (int64_t)t * a.S;
-  if (threadIdx.x == 0) n_sigs = 0;
-  __syncthreads();
-  for (int s = threadIdx.x; s < a.S; s += blockDim.x) {
-    if (a.e_valid[s] && a.m_sig[(int64_t)t * a.S + s]) sigs[atomicAdd(&n_sigs, 1)] = s;
-  }
-  for (int v = threadIdx.x; v < a.V; v += blockDim.x) table[v] = 0;
-  __syncthreads();
-  const int ns = n_sigs;
-  const int32_t slot = a.t_topo_slot[t];
-  for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
-    int32_t b;
-    if (!dense_bucket(a.label_dense, a.K, n, slot, &b) || b >= a.V) continue;
-    const int16_t* row = a.counts + (int64_t)n * a.S;
-    int32_t c = 0;
-    for (int i = 0; i < ns; ++i) c += row[sigs[i]];
-    if (c != 0) atomicAdd(&table[b], c);
-  }
-  if (a.table_in_shared) {
-    __syncthreads();
-    for (int v = threadIdx.x; v < a.V; v += blockDim.x) a.t_table[(int64_t)t * a.V + v] = table[v];
-  }
-}
-
-__global__ void interpod_score_kernel(const InterpodArgs a) {
-  extern __shared__ int32_t lists[];  // [TT] the row's preferred terms, [PT] its matching score patterns
-  __shared__ int n_pref, n_pats;
-  __shared__ int64_t red[THREADS / 32];
-  const int u = blockIdx.x;
-  int32_t* pref = lists;
-  int32_t* pats = lists + a.TT;
-  if (threadIdx.x == 0) {
-    n_pref = 0;
-    n_pats = 0;
-  }
-  __syncthreads();
-  if (a.parts & PART_PREF) {
-    for (int t = threadIdx.x; t < a.TT; t += blockDim.x) {
-      if (a.t_valid[t] && (a.t_kind[t] == AFF_PREF || a.t_kind[t] == ANTI_PREF) && a.t_owner[t] == u) {
-        pref[atomicAdd(&n_pref, 1)] = t;
-      }
-    }
-  }
-  if (a.parts & PART_X_SCORE) {
-    for (int pt = threadIdx.x; pt < a.PT; pt += blockDim.x) {
-      const int32_t k = a.x_kind[pt];
-      if (a.x_valid[pt] && (k == AFF_REQ || k == AFF_PREF || k == ANTI_PREF) && a.m_pt[(int64_t)pt * a.U + u]) {
-        pats[atomicAdd(&n_pats, 1)] = pt;
-      }
-    }
-  }
-  __syncthreads();
-  const int np = n_pref, nx = n_pats;
-  const bool row_valid = a.p_valid[u];
+// Spec row u = blockIdx.y, CTA c = blockIdx.x of its cluster, owning the
+// node slice [c * slice, ...) and the bucket slice [c * vslice, ...) of each
+// item table.
+//   1. The row's ITEMS, compacted once in ascending order (every CTA walks
+//      the same chunks, so the barriers match): the patterns of a score kind
+//      (AFF_REQ, AFF_PREF, ANTI_PREF) that match the row ("existing", code
+//      pt) and the row's own AFF_PREF / ANTI_PREF terms ("pref", code
+//      PT + t). A row without items, or an invalid row, writes its zero row
+//      and tabulates nothing (every CTA of the cluster returns here, before
+//      any cluster barrier).
+//   2. The items in chunks of tcap per-bucket tables in shared memory (one
+//      at a time in device memory when tcap is 0), filled as the filter
+//      fills them: clear a slice, a cluster barrier, each CTA adds its nodes'
+//      counts into the owning CTA's slice by distributed shared memory
+//      (a pattern's instances, a term's matched signatures' counts in
+//      windows of SIG_WINDOW), a cluster barrier; then each node adds the
+//      item's weighted count at its clamped bucket to its sum, which stays
+//      in registers across the items: a term's count x weight wraps in
+//      int32 (the reference's int32 product), a pattern's is an int64
+//      product.
+//   3. The row's max (0 clamped in) and min (0 clamped in) over the valid
+//      nodes: a block reduction, then each CTA reads the cluster's partials
+//      by distributed shared memory; each node's 10 * (c - min) // (max -
+//      min) is written once.
+__global__ void __launch_bounds__(THREADS) interpod_score_cluster_kernel(const InterpodArgs a) {
+  extern __shared__ __align__(16) uint8_t dyn[];
+  __shared__ int64_t red[2 * (THREADS / 32)];  // the warps' maxima, then their minima
+  __shared__ int64_t ext[2];                   // this CTA's max and min, read by the cluster
+  __shared__ int32_t warp_cnt[THREADS / 32];
+  cg::cluster_group cluster = cg::this_cluster();
+  const int u = blockIdx.y, c = blockIdx.x, tid = threadIdx.x, V = a.V;
+  int32_t* tab = (int32_t*)dyn;                          // [tcap, vslice]
+  int32_t* items = tab + (size_t)a.tcap * a.vslice;      // [PT + TT]
+  int32_t* sigs = items + a.PT + a.TT;                   // [SIG_WINDOW]
+  int32_t* dtab = a.tcap == 0 ? a.dtable + (int64_t)u * V : nullptr;
+  const int n0 = c * a.slice, n1 = min(a.N, n0 + a.slice);
   int64_t* out = a.score + (int64_t)u * a.N;
-  int64_t mx = 0, mn = 0;  // the clamps max(., 0) and min(., 0)
-  for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
-    int64_t c = 0;
-    for (int i = 0; i < np; ++i) {
-      const int t = pref[i];
-      int32_t b;
-      if (dense_bucket(a.label_dense, a.K, n, a.t_topo_slot[t], &b)) {
-        const uint32_t cnt = (uint32_t)a.t_table[(int64_t)t * a.V + clamp_bucket(b, a.V)];
-        c += (int64_t)(int32_t)(cnt * (uint32_t)a.t_weight[t]);  // the reference's int32 product
+  const bool want_pref = (a.parts & PART_PREF) != 0, want_x = (a.parts & PART_X_SCORE) != 0;
+  const bool row_valid = a.p_valid[u] != 0;
+
+  // 1. the row's items
+  const int ni = !row_valid ? 0 : ordered_compact(a.PT + a.TT, [&](int i) -> bool {
+    if (i < a.PT) {
+      if (!want_x) return false;
+      const bool v = a.x_valid[i] != 0, m = a.m_pt[(int64_t)i * a.U + u] != 0;
+      const int32_t k = a.x_kind[i];
+      return v & m & ((k == AFF_REQ) | (k == AFF_PREF) | (k == ANTI_PREF));
+    }
+    if (!want_pref) return false;
+    const int t = i - a.PT;
+    const bool v = a.t_valid[t] != 0;
+    const int32_t o = a.t_owner[t], k = a.t_kind[t];
+    return v & (o == u) & ((k == AFF_PREF) | (k == ANTI_PREF));
+  }, items, warp_cnt);
+  if (ni == 0) {  // every count is 0: the zero row (every CTA of the cluster returns here)
+    for (int x = n0 + tid; x < n1; x += THREADS) out[x] = 0;
+    return;
+  }
+  int64_t sum[IPS_NODES];
+  unsigned valid = 0;  // bit k: node n0 + tid + k * THREADS is a valid node (loaded now, read at the end)
+#pragma unroll
+  for (int k = 0; k < IPS_NODES; ++k) {
+    const int x = n0 + tid + k * THREADS;
+    sum[k] = 0;
+    valid |= (x < n1 && a.n_valid[x]) ? 1u << k : 0u;
+  }
+
+  // 2. the items, a chunk of tables at a time
+  const int per = a.tcap > 0 ? a.tcap : 1;
+  const int v0 = min(V, c * a.vslice), v1 = min(V, v0 + a.vslice);
+  for (int i0 = 0; i0 < ni; i0 += per) {
+    const int i1 = min(ni, i0 + per);
+    // a. this CTA's bucket slices of the chunk's tables, cleared
+    if (a.tcap > 0) {
+      for (int k = tid; k < (i1 - i0) * a.vslice; k += THREADS) tab[k] = 0;
+    } else {
+      for (int v = v0 + tid; v < v1; v += THREADS) dtab[v] = 0;
+      __threadfence();
+    }
+    cluster.sync();  // every slice is clear before any CTA adds into it
+
+    // b. the node slice's counts into the owning CTAs' slices
+    for (int i = i0; i < i1; ++i) {
+      const int code = items[i];
+      if (code < a.PT) {
+        ip_tabulate<true>(a, tab, dtab, i - i0, a.x_topo_slot[code], n0, n1,
+                          [&](int x) { return (int32_t)__ldg(a.x_counts + (int64_t)x * a.PT + code); });
+        continue;
+      }
+      const int t = code - a.PT;
+      for (int s0 = 0; s0 < a.S; s0 += SIG_WINDOW) {
+        const int ns = ordered_compact(min(a.S - s0, SIG_WINDOW), [&](int k) -> bool {
+          const int s = s0 + k;
+          return (a.e_valid[s] != 0) & (a.m_sig[(int64_t)t * a.S + s] != 0);
+        }, sigs, warp_cnt);
+        if (ns > 0) {
+          const int16_t* cols = a.counts + s0;
+          ip_tabulate<true>(a, tab, dtab, i - i0, a.t_topo_slot[t], n0, n1, [&](int x) {
+            const int16_t* rc = cols + (int64_t)x * a.S;
+            int32_t cn = 0;
+            for (int q = 0; q < ns; ++q) cn += __ldg(rc + sigs[q]);
+            return cn;
+          });
+        }
+        __syncthreads();  // the window's list is read before the next one is built
       }
     }
-    for (int i = 0; i < nx; ++i) {
-      const int pt = pats[i];
-      int32_t b;
-      if (dense_bucket(a.label_dense, a.K, n, a.x_topo_slot[pt], &b)) {
-        c += (int64_t)a.x_weight[pt] * (int64_t)a.x_table[(int64_t)pt * a.V + clamp_bucket(b, a.V)];
+    if (a.tcap == 0) __threadfence();
+    cluster.sync();  // the chunk's tables are complete
+
+    // c. each node's weighted count at its clamped bucket, into its sum
+    for (int i = i0; i < i1; ++i) {
+      const int code = items[i];
+      const bool pat = code < a.PT;
+      const int32_t slot = pat ? a.x_topo_slot[code] : a.t_topo_slot[code - a.PT];
+      const int32_t w = pat ? a.x_weight[code] : a.t_weight[code - a.PT];
+      int32_t d[IPS_NODES];
+#pragma unroll
+      for (int k = 0; k < IPS_NODES; ++k) {  // the label loads first
+        const int x = n0 + tid + k * THREADS;
+        d[k] = (x < n1 && slot >= 0) ? dense_at(a.label_dense, a.K, x, slot) : -1;
+      }
+#pragma unroll
+      for (int k = 0; k < IPS_NODES; ++k) {
+        if (d[k] < 0) continue;
+        const int32_t cnt = ip_get(a, tab, dtab, i - i0, clamp_bucket(d[k], V));
+        sum[k] += pat ? (int64_t)w * (int64_t)cnt : (int64_t)(int32_t)((uint32_t)cnt * (uint32_t)w);
       }
     }
-    out[n] = c;
-    if (row_valid && a.n_valid[n]) {
-      mx = c > mx ? c : mx;
-      mn = c < mn ? c : mn;
+    if (i1 < ni) cluster.sync();  // every CTA is past its reads before the next chunk clears its slices
+  }
+
+  // 3. the row's max and min over the valid nodes (0 clamped in), then the
+  // scores: both over the warp by shuffles, over the block in one barrier,
+  // over the cluster in one more
+  int64_t mx = 0, mn = 0;
+#pragma unroll
+  for (int k = 0; k < IPS_NODES; ++k) {
+    if ((valid >> k) & 1u) {
+      mx = sum[k] > mx ? sum[k] : mx;
+      mn = sum[k] < mn ? sum[k] : mn;
     }
   }
-  mx = block_max<int64_t>(mx, red, 0);
-  mn = block_min<int64_t>(mn, red, 0);
+  for (int off = 16; off > 0; off >>= 1) {
+    const int64_t hi = __shfl_down_sync(0xffffffffu, mx, off), lo = __shfl_down_sync(0xffffffffu, mn, off);
+    mx = hi > mx ? hi : mx;
+    mn = lo < mn ? lo : mn;
+  }
+  if ((tid & 31) == 0) {
+    red[tid >> 5] = mx;
+    red[THREADS / 32 + (tid >> 5)] = mn;
+  }
+  __syncthreads();
+  if (tid == 0) {
+    for (int w = 1; w < THREADS / 32; ++w) {
+      mx = red[w] > mx ? red[w] : mx;
+      mn = red[THREADS / 32 + w] < mn ? red[THREADS / 32 + w] : mn;
+    }
+    ext[0] = mx;
+    ext[1] = mn;
+  }
+  cluster.sync();  // every CTA's partials are in place
+  for (int r = 0; r < a.C; ++r) {
+    const int64_t* o = cluster.map_shared_rank(ext, r);
+    mx = o[0] > mx ? o[0] : mx;
+    mn = o[1] < mn ? o[1] : mn;
+  }
+  cluster_arrive();  // this CTA's reads of the others' shared memory are done
   const int64_t diff = mx - mn;
-  for (int n = threadIdx.x; n < a.N; n += blockDim.x) {
-    const int64_t c = out[n];
-    out[n] = (row_valid && a.n_valid[n] && diff > 0) ? floordiv(MAX_NODE_SCORE * (c - mn), diff) : 0;
+#pragma unroll
+  for (int k = 0; k < IPS_NODES; ++k) {
+    const int x = n0 + tid + k * THREADS;
+    if (x < n1) out[x] = (((valid >> k) & 1u) && diff > 0) ? floordiv(MAX_NODE_SCORE * (sum[k] - mn), diff) : 0;
   }
-}
-
-static size_t table_bytes(const InterpodArgs& a) {
-  return a.table_in_shared ? (size_t)a.V * sizeof(int32_t) : 0;
-}
-
-static int launch_pattern_tables(const InterpodArgs& a, int kind_mask, cudaStream_t stream) {
-  if (a.PT <= 0) return 0;
-  const size_t bytes = table_bytes(a);
-  int rc;
-  if ((rc = set_smem((const void*)pattern_table_kernel, bytes))) return rc;
-  pattern_table_kernel<<<a.PT, THREADS, bytes, stream>>>(a, kind_mask);
-  return (int)cudaGetLastError();
-}
-
-static int launch_term_tables(const InterpodArgs& a, int kind_mask, cudaStream_t stream) {
-  if (a.TT <= 0) return 0;
-  const size_t bytes = table_bytes(a);
-  int rc;
-  if ((rc = set_smem((const void*)term_table_kernel, bytes))) return rc;
-  term_table_kernel<<<a.TT, THREADS, bytes, stream>>>(a, kind_mask);
-  return (int)cudaGetLastError();
+  cluster_wait();  // no CTA leaves while another may read its shared memory
 }
 
 extern "C" int ktpu_interpod_score(const InterpodArgs* args, cudaStream_t stream) {
   const InterpodArgs& a = *args;
   if (a.U <= 0 || a.N <= 0) return (int)cudaGetLastError();
-  int rc;
-  if ((a.parts & PART_X_SCORE) &&
-      (rc = launch_pattern_tables(a, (1 << AFF_REQ) | (1 << AFF_PREF) | (1 << ANTI_PREF), stream))) {
-    return rc;
+  if (a.C < 1 || a.C > MAX_CLUSTER || a.V < 1 || a.slice < 1 || a.vslice < 1 || a.slice > IPS_NODES * THREADS ||
+      (size_t)a.C * a.slice < (size_t)a.N || (size_t)a.C * a.vslice < (size_t)a.V || a.tcap < 0 ||
+      (a.tcap == 0 && a.dtable == nullptr) || interpod_score_smem_bytes(a) != (size_t)a.smem) {
+    return (int)cudaErrorInvalidValue;
   }
-  if ((a.parts & PART_PREF) && (rc = launch_term_tables(a, (1 << AFF_PREF) | (1 << ANTI_PREF), stream))) {
-    return rc;
-  }
-  const size_t bytes = ((size_t)a.TT + (size_t)a.PT) * sizeof(int32_t);
-  if ((rc = set_smem((const void*)interpod_score_kernel, bytes))) return rc;
-  interpod_score_kernel<<<a.U, THREADS, bytes, stream>>>(a);
-  return (int)cudaGetLastError();
+  return launch_cluster((const void*)interpod_score_cluster_kernel, a.C, THREADS, (size_t)a.smem, a, stream, a.U);
 }
 
 // ---------------------------------------------------------------------------

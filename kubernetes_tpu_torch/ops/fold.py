@@ -21,7 +21,18 @@ add.
 
 On CUDA tensors `fold_commit_banks` launches `csrc/fold.cu` (counted in
 `fold_commit_banks.launches`); on CPU tensors it runs the plain version.
-Any other device raises.
+Any other device raises. The kernel runs one thread a bank element (a
+lane's column, pod count or signature cell, a pattern triple), int16 cells
+by one 32-bit atomic add with a carry correction (csrc/fold.cu).
+
+The main path (`TensorMirror.fold_commit`) does not upload the program
+array by array: `fold_control` packs the program's LIVE lanes and triples
+into one host buffer (pinned on the card's path) at 16-byte-aligned
+offsets, and `fold_commit_packed` moves it with one non-blocking copy into
+one device buffer and launches on its base pointer plus those offsets —
+no blocking copy, no allocation per array, no padding over the bus or in
+the grid. The pinned block outlives the copy: PyTorch's caching host
+allocator keeps it until the copy that reads it has run.
 
 `fold_usage` is the port of `kubernetes_tpu/ops/fold.py:74`: the usage
 columns alone (`requested[rows] += vecs; pod_count[rows] += cnt`, mode
@@ -48,7 +59,9 @@ from __future__ import annotations
 
 import ctypes
 from functools import partial
+from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from ..kernels import build
@@ -118,21 +131,40 @@ class FoldArgs(ctypes.Structure):
     )
 
 
-def fold_args(requested, nonzero_req, pod_count, sig_counts, pat_counts,
-              rows, req, nz, cnt, sig, pat_row, pat_col, pat_cnt) -> FoldArgs:
-    """The fold kernel's argument struct for these CUDA tensors. Validates
-    device, dtype, shape and contiguity (raises)."""
+def _i16_bank_ptr(bank: torch.Tensor, n: int) -> int:
+    """An int16 bank's pointer (validated). The kernel adds to a cell
+    through the 32-bit word holding it, and a low half's carry touches the
+    high half until its correction lands: the bank must hold whole words or
+    end its storage, so that no other tensor's bytes share its last word."""
+    p = build.ptr(bank, torch.int16, (n, bank.shape[1]))
+    end = bank.storage_offset() + bank.numel()
+    if end % 2 and end * 2 != bank.untyped_storage().nbytes():
+        raise ValueError("an int16 bank of an odd number of cells must end its storage: its last word would reach "
+                         "into the next tensor's bytes")
+    return p
+
+
+def _bank_args(requested, nonzero_req, pod_count, sig_counts, pat_counts) -> FoldArgs:
+    """The fold struct's bank half for these CUDA tensors (validated)."""
     n, r = requested.shape
-    s = sig_counts.shape[1]
-    pt = pat_counts.shape[1]
-    b = rows.shape[0]
-    t = pat_row.shape[0]
     a = FoldArgs()
     a.requested = build.ptr(requested, torch.int64, (n, r))
     a.nonzero_req = build.ptr(nonzero_req, torch.int64, (n, 2))
     a.pod_count = build.ptr(pod_count, torch.int32, (n,))
-    a.sig_counts = build.ptr(sig_counts, torch.int16, (n, s))
-    a.pat_counts = build.ptr(pat_counts, torch.int16, (n, pt))
+    a.sig_counts = _i16_bank_ptr(sig_counts, n)
+    a.pat_counts = _i16_bank_ptr(pat_counts, n)
+    a.N, a.R, a.S, a.PT = n, r, sig_counts.shape[1], pat_counts.shape[1]
+    return a
+
+
+def fold_args(requested, nonzero_req, pod_count, sig_counts, pat_counts,
+              rows, req, nz, cnt, sig, pat_row, pat_col, pat_cnt) -> FoldArgs:
+    """The fold kernel's argument struct for these CUDA tensors. Validates
+    device, dtype, shape and contiguity (raises)."""
+    a = _bank_args(requested, nonzero_req, pod_count, sig_counts, pat_counts)
+    r = a.R
+    b = rows.shape[0]
+    t = pat_row.shape[0]
     a.rows = build.ptr(rows, torch.int32, (b,))
     a.req = build.ptr(req, torch.int64, (b, r))
     a.nz = build.ptr(nz, torch.int64, (b, 2))
@@ -141,7 +173,7 @@ def fold_args(requested, nonzero_req, pod_count, sig_counts, pat_counts,
     a.pat_row = build.ptr(pat_row, torch.int32, (t,))
     a.pat_col = build.ptr(pat_col, torch.int32, (t,))
     a.pat_cnt = build.ptr(pat_cnt, torch.int16, (t,))
-    a.N, a.R, a.S, a.PT, a.B, a.T = n, r, s, pt, b, t
+    a.B, a.T = b, t
     return a
 
 
@@ -163,6 +195,108 @@ def fold_commit_banks(requested, nonzero_req, pod_count, sig_counts, pat_counts,
 
 
 fold_commit_banks.launches = 0
+
+
+# --- the packed program: one buffer, one upload ------------------------------
+
+# the control arrays in buffer order (int64 first), with their dtypes and
+# whether they are per lane ("b") or per triple ("t")
+CONTROL = (("req", np.int64, "b"), ("nz", np.int64, "b"), ("rows", np.int32, "b"), ("cnt", np.int32, "b"),
+           ("sig", np.int32, "b"), ("pat_row", np.int32, "t"), ("pat_col", np.int32, "t"),
+           ("pat_cnt", np.int16, "t"))
+_ALIGN = 16
+
+
+class FoldControl:
+    """A fold program's live lanes and triples packed into ONE host buffer
+    (`buf`, uint8; pinned for the card): each control array at its
+    16-byte-aligned byte offset `offsets[name]`, B lanes of R request
+    columns and T triples."""
+
+    def __init__(self, buf: torch.Tensor, b: int, t: int, r: int, offsets: Dict[str, int]):
+        self.buf, self.b, self.t, self.r, self.offsets = buf, b, t, r, offsets
+
+    def arrays(self) -> Dict[str, torch.Tensor]:
+        """The control arrays as views of the buffer (the buffer unpacked)."""
+        host, out = self.buf.numpy(), {}
+        for name, dt, axis in CONTROL:
+            n = self.b if axis == "b" else self.t
+            shape = (n, self.r) if name == "req" else (n, 2) if name == "nz" else (n,)
+            off = self.offsets[name]
+            out[name] = torch.from_numpy(host[off:off + int(np.prod(shape)) * np.dtype(dt).itemsize].view(dt)
+                                         .reshape(shape))
+        return out
+
+
+def live_counts(rows: np.ndarray, pat_row: np.ndarray, pat_cnt: np.ndarray, n: int):
+    """(B, T): the prefixes of a program's lanes and triples that can add
+    anything to banks of n rows — through the last lane whose row is in
+    range, the last triple whose row is in range and whose count is not 0.
+    Lanes past them are padding (plan_fold pads the tails)."""
+    lanes = np.flatnonzero((rows >= 0) & (rows < n))
+    trips = np.flatnonzero((pat_row >= 0) & (pat_row < n) & (pat_cnt != 0))
+    return (int(lanes[-1]) + 1 if lanes.size else 0), (int(trips[-1]) + 1 if trips.size else 0)
+
+
+def fold_control(rows, req, nz, cnt, sig, pat_row, pat_col, pat_cnt, n: int, pin: bool = False) -> FoldControl:
+    """Pack a fold program (numpy arrays, FoldProgram's fields) for banks of
+    n node rows: its live lanes and triples (`live_counts`) into one host
+    buffer, pinned when `pin` (the card's path needs a CUDA build)."""
+    b, t = live_counts(rows, pat_row, pat_cnt, n)
+    src = {"rows": rows, "req": req, "nz": nz, "cnt": cnt, "sig": sig, "pat_row": pat_row, "pat_col": pat_col,
+           "pat_cnt": pat_cnt}
+    parts = [(name, dt, np.asarray(src[name])[:b if axis == "b" else t]) for name, dt, axis in CONTROL]
+    offsets, off = {}, 0
+    for name, dt, a in parts:  # each array at a 16-byte-aligned offset
+        offsets[name] = off
+        off += -(-(a.size * np.dtype(dt).itemsize) // _ALIGN) * _ALIGN
+    buf = torch.empty(max(off, _ALIGN), dtype=torch.uint8, pin_memory=pin)
+    host = buf.numpy()
+    for name, dt, a in parts:
+        host[offsets[name]:offsets[name] + a.size * np.dtype(dt).itemsize].view(dt).reshape(a.shape)[...] = a
+    return FoldControl(buf, b, t, int(req.shape[1]), offsets)
+
+
+def packed_args(banks, ctl: FoldControl, base: int) -> FoldArgs:
+    """The fold struct for the banks and a packed program whose buffer lies
+    on the card at `base`: each control pointer is base + its offset, B and
+    T the live counts."""
+    a = _bank_args(*banks)
+    if ctl.r != a.R:
+        raise ValueError(f"the program has {ctl.r} request columns, the bank {a.R}")
+    for name, _, _ in CONTROL:
+        setattr(a, name, base + ctl.offsets[name])
+    a.B, a.T = ctl.b, ctl.t
+    return a
+
+
+def fold_commit_packed(requested, nonzero_req, pod_count, sig_counts, pat_counts, ctl: FoldControl,
+                       shards: Optional[int] = None):
+    """Fold a packed program into the five resident banks, in place (over
+    `shards` node shards where given). CPU banks run the plain version on
+    the unpacked arrays; CUDA banks take the buffer in ONE non-blocking copy
+    into one device buffer and ONE launch of csrc/fold.cu (counted in
+    `fold_commit_banks.launches`, or `fold_commit_sharded.launches` on
+    shards). Returns the banks."""
+    banks = (requested, nonzero_req, pod_count, sig_counts, pat_counts)
+    dev = requested.device
+    if dev.type == "cpu":
+        arrays = ctl.arrays()
+        if shards is None:
+            return fold_commit_banks_plain(*banks, **arrays)
+        return fold_commit_sharded_plain(shards, *banks, **arrays)
+    if dev.type != "cuda":
+        raise ValueError(f"no fold kernel for device {dev}")
+    buf = torch.empty(ctl.buf.shape[0], dtype=torch.uint8, device=dev)
+    buf.copy_(ctl.buf, non_blocking=True)
+    args = packed_args(banks, ctl, buf.data_ptr())
+    if shards is None:
+        build.launch(FOLD_ENTRY, args, dev)
+        fold_commit_banks.launches += 1
+    else:
+        build.launch(FOLD_SHARDED_ENTRY, ShardedFoldArgs(args, shards, shard_rows(requested.shape[0], shards)), dev)
+        fold_commit_sharded.launches += 1
+    return banks
 
 
 def fold_usage_plain(

@@ -469,9 +469,6 @@ INTERPOD_SCORE_ENTRY = "ktpu_interpod_score"
 # a kernel block keeps its owner's term list in shared memory, and its
 # V-wide bucket table there too while it fits (else in device memory)
 MAX_TERMS = 16384
-SHARED_TABLE_BYTES = 160 * 1024
-# the inter-pod score stages a row's term and pattern lists in shared memory
-MAX_LIST_BYTES = 200 * 1024
 
 # csrc/interpod.cu's part bits
 _PART_BITS = {("filter", "existing"): 1, ("filter", "aff"): 2, ("filter", "anti"): 4,
@@ -1035,8 +1032,9 @@ class InterpodArgs(ctypes.Structure):
         [(k, ctypes.c_void_p) for k in (
             "n_valid", "label_dense", "x_valid", "x_kind", "x_topo_slot", "x_weight", "x_counts", "m_pt",
             "t_valid", "t_kind", "t_owner", "t_topo_slot", "t_weight", "m_sig", "e_valid", "counts",
-            "p_valid", "sig_list", "x_table", "t_table", "score")]
-        + [(d, ctypes.c_int32) for d in ("N", "K", "PT", "TT", "S", "U", "V", "parts", "table_in_shared")]
+            "p_valid", "dtable", "score")]
+        + [(d, ctypes.c_int32) for d in ("N", "K", "PT", "TT", "S", "U", "V", "parts",
+                                         "C", "slice", "vslice", "tcap", "smem")]
     )
 
 
@@ -1074,8 +1072,17 @@ def interpod_filter_layout(pt: int, tt: int, n: int, v: int, u: int, cluster: Op
     shared memory (0: one table at a time in device memory, the counted
     path) and `smem` bytes. `cluster` and `tcap` override C and tcap (for
     measuring and testing)."""
+    return _interpod_layout("filter", pt, tt, n, v, u, cluster, tcap, node_bytes=1, max_slice=n)
+
+
+def _interpod_layout(what: str, pt: int, tt: int, n: int, v: int, u: int, cluster: Optional[int],
+                     tcap: Optional[int], node_bytes: int, max_slice: int) -> Dict[str, int]:
+    """The cluster layout both inter-pod kernels share: C doubled while the
+    launch stays within INTERPOD_FILTER_CTAS, then up to 16 while a CTA's
+    lists and `node_bytes` a node of shared memory overflow the budget or
+    its slice exceeds `max_slice` nodes; the item tables a chunk."""
     if not 1 <= v < 2**31:
-        raise ValueError(f"{v} buckets: the inter-pod filter takes 1 <= V < 2^31")
+        raise ValueError(f"{v} buckets: the inter-pod {what} takes 1 <= V < 2^31")
     if cluster is None:
         c = 1
         while 2 * c <= build.MAX_CLUSTER and max(u, 1) * 2 * c <= INTERPOD_FILTER_CTAS:
@@ -1083,19 +1090,39 @@ def interpod_filter_layout(pt: int, tt: int, n: int, v: int, u: int, cluster: Op
     else:
         c = int(cluster)
     if not 1 <= c <= build.MAX_CLUSTER:
-        raise ValueError(f"{c} CTAs a spec row: the inter-pod filter takes 1 to {build.MAX_CLUSTER}")
+        raise ValueError(f"{c} CTAs a spec row: the inter-pod {what} takes 1 to {build.MAX_CLUSTER}")
 
     def base(c_):
-        return 4 * (pt + tt + INTERPOD_SIG_WINDOW) + -(-n // c_)
+        return 4 * (pt + tt + INTERPOD_SIG_WINDOW) + node_bytes * -(-n // c_)
 
-    while base(c) > SPREAD_SMEM and c < build.MAX_CLUSTER:
+    def over(c_):
+        return base(c_) > SPREAD_SMEM or -(-n // c_) > max_slice
+
+    while over(c) and c < build.MAX_CLUSTER:
         c = min(2 * c, build.MAX_CLUSTER)
-    if base(c) > SPREAD_SMEM:
-        raise ValueError(f"{pt} patterns, {tt} terms and {n} nodes exceed the inter-pod filter's shared memory")
+    if over(c):
+        raise ValueError(f"{pt} patterns, {tt} terms and {n} nodes exceed the inter-pod {what}'s shared memory "
+                         f"or registers")
     sl, vs = -(-n // c), -(-v // c)
     if tcap is None:
         tcap = min(INTERPOD_TCAP, INTERPOD_TABLE_BYTES // (4 * vs), (SPREAD_SMEM - base(c)) // (4 * vs))
     return {"C": c, "slice": sl, "vslice": vs, "tcap": int(tcap), "smem": base(c) + 4 * int(tcap) * vs}
+
+
+# csrc/interpod.cu's score keeps each node's sum in registers, at most
+# INTERPOD_SCORE_NODES a thread of 256
+INTERPOD_SCORE_NODES = 16
+
+
+def interpod_score_layout(pt: int, tt: int, n: int, v: int, u: int, cluster: Optional[int] = None,
+                          tcap: Optional[int] = None) -> Dict[str, int]:
+    """The inter-pod score's launch, as csrc/interpod.cu's
+    `interpod_score_smem_bytes` counts it: the filter's layout
+    (`interpod_filter_layout`) without the node states, a CTA's node slice
+    at most INTERPOD_SCORE_NODES x 256 (its sums live in registers).
+    `cluster` and `tcap` override C and tcap (for measuring and testing)."""
+    return _interpod_layout("score", pt, tt, n, v, u, cluster, tcap, node_bytes=0,
+                            max_slice=INTERPOD_SCORE_NODES * _WARPS * 32)
 
 
 def interpod_filter_args(nodes: Arrays, eps: Arrays, terms: Arrays, aux: Arrays, ex_terms: Arrays, pods: Arrays,
@@ -1146,27 +1173,24 @@ def interpod_filter_args(nodes: Arrays, eps: Arrays, terms: Arrays, aux: Arrays,
 
 def interpod_score_args(nodes: Arrays, eps: Arrays, terms: Arrays, ex_terms: Arrays, pods: Arrays,
                         m_pt: Optional[torch.Tensor], m_sig: Optional[torch.Tensor], parts: tuple = SCORE_PARTS,
-                        n_buckets: Optional[int] = None):
-    """The argument struct (with its scratch) of csrc/interpod.cu's score
-    entry for these CUDA tensors, and the [U, N] int64 score it writes.
-    `m_pt` is match_terms(ex_terms, pod labels, pod namespaces) [PT, U],
-    read for "existing"; `m_sig` match_terms(terms, signature labels,
-    signature namespaces) [TT, S], read for "pref" (None where unread)."""
+                        n_buckets: Optional[int] = None, cluster: Optional[int] = None,
+                        tcap: Optional[int] = None):
+    """The inter-pod score's argument struct for these CUDA tensors (with
+    its device-memory tables where the layout takes them, no other
+    scratch) and the [U, N] int64 score its one launch writes. `m_pt` is
+    match_terms(ex_terms, pod labels, pod namespaces) [PT, U], read for
+    "existing"; `m_sig` match_terms(terms, signature labels, signature
+    namespaces) [TT, S], read for "pref" (None where unread). `cluster` and
+    `tcap` override the layout (for measuring and testing)."""
     tt = _check_terms(terms)
     u = pods["valid"].shape[0]
     n, k = nodes["label_dense"].shape
     s = eps["valid"].shape[0]
     pt = ex_terms["valid"].shape[0]
     v = int(n_buckets or n)
+    lay = interpod_score_layout(pt, tt, n, v, u, cluster, tcap)
     dev = nodes["valid"].device
-    in_shared = v * 4 <= SHARED_TABLE_BYTES
-    if (pt + tt) * 4 > MAX_LIST_BYTES:
-        raise ValueError(f"{tt} term rows and {pt} patterns exceed the inter-pod score's shared lists")
-    scratch = dict(
-        sig_list=torch.empty((tt, s), dtype=torch.int32, device=dev),
-        x_table=torch.empty((pt, v), dtype=torch.int32, device=dev),
-        t_table=torch.empty((tt, v), dtype=torch.int32, device=dev),
-    )
+    tables = {"dtable": torch.empty((u, v), dtype=torch.int32, device=dev)} if lay["tcap"] == 0 else {}
     out = torch.empty((u, n), dtype=torch.int64, device=dev)
     a = InterpodArgs()
     a.n_valid = build.ptr(nodes["valid"], torch.bool, (n,))
@@ -1184,13 +1208,14 @@ def interpod_score_args(nodes: Arrays, eps: Arrays, terms: Arrays, ex_terms: Arr
     a.e_valid = build.ptr(eps["valid"], torch.bool, (s,))
     a.counts = build.ptr(eps["counts"], torch.int16, (n, s))
     a.p_valid = build.ptr(pods["valid"], torch.bool, (u,))
-    for name, t in scratch.items():
+    for name, t in tables.items():
         setattr(a, name, build.ptr(t, t.dtype))
     a.score = build.ptr(out, torch.int64)
     a.N, a.K, a.PT, a.TT, a.S, a.U, a.V = n, k, pt, tt, s, u, v
     a.parts = sum(_PART_BITS[("score", p)] for p in set(parts))
-    a.table_in_shared = int(in_shared)
-    a.keepalive = scratch
+    for key, val in lay.items():
+        setattr(a, key, val)
+    a.keepalive = tables
     return a, out
 
 
@@ -1234,7 +1259,9 @@ def interpod_score(
     tensors run the plain version; CUDA tensors launch the match kernel once
     for what the parts read and was not given (terms x signatures `m_sig`
     for "pref", patterns x spec rows `m_pt` for "existing") and then
-    csrc/interpod.cu's score entry (counted in `interpod_score.launches`)."""
+    csrc/interpod.cu's score once, a cluster a spec row (counted in
+    `interpod_score.launches`; a launch whose tables live in device memory
+    also in `interpod_score.device_table_launches`)."""
     dev = nodes["valid"].device
     if dev.type == "cpu":
         return interpod_score_plain(nodes, eps, terms, ex_terms, pods, parts, n_buckets, m_pt, m_sig)
@@ -1243,11 +1270,13 @@ def interpod_score(
         args, out = interpod_score_args(nodes, eps, terms, ex_terms, pods, m_pt, m_sig, parts, n_buckets)
         build.launch(INTERPOD_SCORE_ENTRY, args, dev)
         interpod_score.launches += 1
+        interpod_score.device_table_launches += int(args.tcap == 0)
         return out
     raise ValueError(f"no topology kernel for device {dev}")
 
 
 interpod_score.launches = 0
+interpod_score.device_table_launches = 0
 
 
 def _interpod_matches(eps: Arrays, terms: Arrays, ex_terms: Arrays, pods: Arrays, patterns: bool,

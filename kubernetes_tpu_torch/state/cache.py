@@ -19,7 +19,7 @@ The port's own lean copies of `kubernetes_tpu.state.cache`:
   csrc/slab.cu) — the counterpart of the reference's jitted
   `_row_scatter_fn` — and uploaded in full only after a rebuild. With the fold plane a
   committed batch's deltas are scattered into the resident copies in place
-  (`fold_commit`, ops/fold.fold_commit_banks), and sync does not make
+  (`fold_commit`, ops/fold.fold_commit_packed), and sync does not make
   those rows pending, so they are not re-shipped. The preemption nominees'
   overlay is added onto the resident usage columns in place for one
   dispatch (`fold_nominees`, ops/fold.fold_usage) and taken off again by
@@ -34,6 +34,7 @@ from __future__ import annotations
 
 import threading
 from dataclasses import dataclass
+from functools import partial
 from typing import Dict, List, Optional, Set, Tuple
 
 import numpy as np
@@ -331,9 +332,8 @@ class TensorMirror:
         # (rows, vecs, cnt) tensors of the nominee overlay now added onto
         # the resident usage columns, or None
         self._nominee_overlay: Optional[Tuple[torch.Tensor, torch.Tensor, torch.Tensor]] = None
-        # the node mesh the banks are split over (set_mesh) and its folds
+        # the node mesh the banks are split over (set_mesh)
         self._mesh = None
-        self._sharded_folds = None
         self.rows_shipped = 0  # node rows patched into the device copy
         self._rebuild()
 
@@ -598,10 +598,9 @@ class TensorMirror:
         """Split the device banks over `mesh`'s node shards (ref :1239):
         shard s owns rows [s * Nl, (s + 1) * Nl) of each node-major tensor,
         which on one card stays one tensor. Commit folds and the nominee
-        overlay then go through the sharded folds
-        (ops/fold.make_sharded_fold_fns)."""
+        overlay then go through the sharded folds (ops/fold
+        .fold_commit_packed with `shards`, fold_usage_sharded)."""
         self._mesh = mesh
-        self._sharded_folds = None  # rebuilt for the new mesh on demand
         self.mark_device_stale()
 
     def can_fold(self) -> bool:
@@ -611,25 +610,25 @@ class TensorMirror:
         otherwise the host patches the rows."""
         if self._dev is None or self._device_stale:
             return False
+        shards = self._shards()
+        return shards is None or (shards > 0 and self.nodes.capacity % shards == 0)
+
+    def _shards(self) -> Optional[int]:
+        """The number of node shards the banks are split over, or None
+        without a mesh."""
         if self._mesh is None:
-            return True
+            return None
         from ..parallel.mesh import node_shards
 
-        shards = node_shards(self._mesh)
-        return shards > 0 and self.nodes.capacity % shards == 0
+        return node_shards(self._mesh)
 
-    def _fold_fns(self):
-        """(commit fold, usage fold) for the banks' layout: the
-        single-device kernels, or the mesh's sharded twins (ref :1592)."""
-        if self._mesh is None:
-            from ..ops.fold import fold_commit_banks, fold_usage
+    def _usage_fold(self):
+        """The usage fold for the banks' layout: the single-device kernel,
+        or the mesh's sharded twin (ref :1592)."""
+        from ..ops.fold import fold_usage, fold_usage_sharded
 
-            return fold_commit_banks, fold_usage
-        if self._sharded_folds is None:
-            from ..ops.fold import make_sharded_fold_fns
-
-            self._sharded_folds = make_sharded_fold_fns(self._mesh)
-        return self._sharded_folds
+        shards = self._shards()
+        return fold_usage if shards is None else partial(fold_usage_sharded, shards)
 
     def mark_device_stale(self) -> None:
         """Re-upload the full banks from host truth at the next
@@ -640,22 +639,27 @@ class TensorMirror:
 
     def fold_commit(self, prog) -> bool:
         """Apply a planned commit fold (commit/fold.FoldProgram) to the
-        resident banks in place: fold_commit_banks writes into the same
-        storages device_arrays() returns. Returns False when the banks are
-        not resident (the caller's assumes then ship as pending rows). A
-        kernel that fails to launch raises; the banks are then marked
-        stale (a partial fold never survives an upload)."""
+        resident banks in place: the fold writes into the same storages
+        device_arrays() returns. Returns False when the banks are not
+        resident (the caller's assumes then ship as pending rows). The
+        program's live lanes are packed into one buffer (ops/fold
+        .fold_control, pinned on the card) and folded by
+        fold_commit_packed: on the card one non-blocking copy and one
+        launch, on the CPU the plain version on the unpacked arrays. A
+        kernel that fails to launch raises; the banks are then marked stale
+        (a partial fold never survives an upload)."""
         if not self.can_fold():
             return False
         self.unfold_nominees()
         n, e, p = self._dev, self._dev_eps, self._dev_pats
-        ctl = arrays_to_torch({
-            "rows": prog.rows, "req": prog.req, "nz": prog.nz, "cnt": prog.cnt, "sig": prog.sig,
-            "pat_row": prog.pat_row, "pat_col": prog.pat_col, "pat_cnt": prog.pat_cnt,
-        }, self.device)
-        fold_commit_banks, _ = self._fold_fns()
+        banks = (n["requested"], n["nonzero_req"], n["pod_count"], e["counts"], p["counts"])
+        arrays = {"rows": prog.rows, "req": prog.req, "nz": prog.nz, "cnt": prog.cnt, "sig": prog.sig,
+                  "pat_row": prog.pat_row, "pat_col": prog.pat_col, "pat_cnt": prog.pat_cnt}
         try:
-            fold_commit_banks(n["requested"], n["nonzero_req"], n["pod_count"], e["counts"], p["counts"], **ctl)
+            from ..ops.fold import fold_commit_packed, fold_control
+
+            ctl = fold_control(**arrays, n=banks[0].shape[0], pin=banks[0].is_cuda)
+            fold_commit_packed(*banks, ctl, shards=self._shards())
         except Exception:
             self.mark_device_stale()
             raise
@@ -676,7 +680,7 @@ class TensorMirror:
         of range add nothing. Returns the node
         bank (the same tensors device_arrays() returned). A kernel that
         fails marks the banks stale (host wins) and raises."""
-        _, fold_usage = self._fold_fns()
+        fold_usage = self._usage_fold()
         self.unfold_nominees()
         n = self._dev
         ov = tuple(arrays_to_torch({"rows": rows, "vecs": vecs, "cnt": cnt}, self.device).values())
@@ -699,7 +703,7 @@ class TensorMirror:
         self._nominee_overlay = None
         rows, vecs, cnt = ov
         n = self._dev
-        _, fold_usage = self._fold_fns()
+        fold_usage = self._usage_fold()
         try:
             fold_usage(n["requested"], n["pod_count"], rows, -vecs, -cnt)
         except Exception:

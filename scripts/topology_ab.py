@@ -1,7 +1,8 @@
 #!/usr/bin/env python3
 """Topology, slab and score-row kernels of two checkouts of the port, on one card.
 
-    python3 scripts/topology_ab.py --parent DIR [--mode spread|interpod|selector|slab|gather|scatter] [--rounds 2]
+    python3 scripts/topology_ab.py --parent DIR [--mode spread|interpod|selector|slab|gather|scatter|fold|ipscore]
+                                   [--rounds 2]
 
 DIR holds another checkout of the repository (for example the parent commit,
 unpacked with `git archive`). Each round measures the parent, then this
@@ -40,6 +41,15 @@ building its own kernels). Modes:
              slab rows) and a mirror sync's six patches at the config-4
              shapes: a checkout with ops/slab.scatter_batch patches a sync
              in one launch, an older one in six scatter_rows calls
+  fold       the commit fold at the config-3 and config-5 batches'
+             programs (4,096 pods folded onto node rows of the mid-drain
+             cluster): the kernel alone (a checkout with
+             ops/fold.fold_control launches over its packed live lanes, an
+             older one over the padded program) and TensorMirror.fold_commit
+             through its wrapper (what a folded batch costs the driver)
+  ipscore    the inter-pod score entry (both parts, the match plan's
+             matrices given) at the config-4 batch shapes, and through its
+             wrapper
 
 For each: the relaunch mean (CUDA events over 200 calls) and the device
 duration from a torch.profiler (CUPTI) trace: the summed durations of the
@@ -67,6 +77,10 @@ KERNELS = {
     "selector": ("selector_spread_kernel", "selector_spread_cluster_kernel"),
     # the parent's gather a slab and this checkout's one for both
     "slab": ("gather_slab_kernel", "gather_batch_kernel"),
+    "fold": ("fold_commit_kernel",),
+    # the parent's two table kernels and score kernel, and this checkout's one
+    "ipscore": ("pattern_table_kernel", "term_table_kernel", "interpod_score_kernel",
+                "interpod_score_cluster_kernel"),
 }
 KERNELS["match"] = ("match_terms_kernel",)
 
@@ -516,8 +530,105 @@ def measure_scatter(root: str) -> dict:
     return out
 
 
+def measure_fold(root: str) -> dict:
+    """The commit fold of the checkout at `root` on two batch programs: the
+    config-3 batch (4,096 pods of the mid-drain cluster, 10,000 nodes) and the config-5 one (4,096 gang pods on 2,000 nodes), each pod
+    folded onto node row 7 * i mod the cluster's nodes. The kernel alone
+    (relaunched and by device duration) and TensorMirror.fold_commit
+    through its wrapper; every result equal to the plain version, the
+    mirror's banks restored after the timing."""
+    import torch
+
+    import chip_smoke as CS
+    from kubernetes_tpu_torch.commit.fold import plan_fold
+    from kubernetes_tpu_torch.kernels import build
+    from kubernetes_tpu_torch.models.clusters import bench_config5
+    from kubernetes_tpu_torch.ops import fold as FO
+    from kubernetes_tpu_torch.state.convert import arrays_to_torch
+
+    dev = torch.device("cuda")
+    packed_path = hasattr(FO, "fold_control")
+    nodes, existing, pods, _ = CS.config3_batch(False, CS.CONFIG3_PODS // 2)
+    c5_nodes, c5_pods = bench_config5(CS.CONFIG5_NODES, CS.BATCH // 64)
+    out = {}
+    for label, (ns, ex, ps) in (("config3", (nodes, existing, pods)), ("config5", (c5_nodes, [], c5_pods))):
+        enc = CS.encode(ns, ex, ps, dev)
+        mirror, na = enc["mirror"], enc["na"]
+        rows = sorted(mirror.row_of.values())
+        prog = plan_fold(mirror, [(p, rows[(7 * i) % len(rows)]) for i, p in enumerate(ps[:CS.BATCH])], CS.BATCH, 16)
+        if prog is None:
+            raise SystemExit(f"{root}: the {label} fold plan overflowed a bank")
+        n, e, x = mirror.device_arrays()  # the plan's new rows shipped
+        resident = [n["requested"], n["nonzero_req"], n["pod_count"], e["counts"], x["counts"]]
+        ctl = arrays_to_torch({k: getattr(prog, k) for k in ("rows", "req", "nz", "cnt", "sig", "pat_row", "pat_col",
+                                                             "pat_cnt")}, dev)
+        kb = [t.clone() for t in resident]
+        want = FO.fold_commit_banks_plain(*(t.clone() for t in resident), **ctl)
+        if packed_path:
+            packed = FO.fold_control(**{k: getattr(prog, k) for k in ctl}, n=na["valid"].shape[0], pin=True)
+            dbuf = packed.buf.to(dev)
+            args = FO.packed_args(kb, packed, dbuf.data_ptr())
+        else:
+            args = FO.fold_args(*kb, **ctl)
+
+        def launch():
+            build.launch(FO.FOLD_ENTRY, args, dev)
+
+        launch()
+        torch.cuda.synchronize()
+        if any(not torch.equal(a, w) for a, w in zip(kb, want)):
+            raise SystemExit(f"{root}: the fold kernel differs from its plain version at {label}")
+        saved = [t.clone() for t in resident]
+        if not mirror.fold_commit(prog):
+            raise SystemExit(f"{root}: the mirror's banks are not resident at {label}")
+        torch.cuda.synchronize()
+        if any(not torch.equal(a, w) for a, w in zip(resident, want)):
+            raise SystemExit(f"{root}: the mirror's fold differs from the plain version at {label}")
+        out[f"{label}_ms"] = CS.cuda_ms(launch, 200)
+        out[f"{label}_device_ms"] = sum(device_ms(launch, KERNELS["fold"]).values())
+        out[f"{label}_mirror_ms"] = CS.cuda_ms(lambda: mirror.fold_commit(prog), 200)
+        for t, v in zip(resident, saved):
+            t.copy_(v)
+        out[f"{label}_lanes"] = [prog.pods, int(prog.rows.shape[0]), int((prog.pat_cnt != 0).sum()), prog.pat_bucket]
+    return out
+
+
+def measure_ipscore(root: str) -> dict:
+    """The inter-pod score of the checkout at `root` at the config-4 batch
+    shapes (both parts, the plan's m_pt / m_sig given): its entry relaunched
+    from a prebuilt struct, by device duration (every kernel a call
+    launches), and through its wrapper."""
+    import torch
+
+    import chip_smoke as CS
+    from kubernetes_tpu_torch.kernels import build
+    from kubernetes_tpu_torch.ops import topology as TO
+
+    dev = torch.device("cuda")
+    nodes, existing, pods = CS.config4_batch(CS.CONFIG4_PODS // 2)
+    enc = CS.encode(nodes, existing, pods, dev)
+    na, ea, xa, ta, pa, v = (enc[k] for k in ("na", "ea", "xa", "ta", "pa", "v"))
+    parts = ("pref", "existing")
+    m_pt = TO.match_terms(xa, pa["label_vals"], pa["ns_id"])
+    m_sig = TO.match_terms(ta, ea["label_vals"], ea["ns_id"])
+    args, got = TO.interpod_score_args(na, ea, ta, xa, pa, m_pt, m_sig, parts, v)
+
+    def score():
+        build.launch(TO.INTERPOD_SCORE_ENTRY, args, dev)
+
+    score()
+    torch.cuda.synchronize()
+    if not torch.equal(got, TO.interpod_score_plain(na, ea, ta, xa, pa, parts, v)):
+        raise SystemExit(f"{root}: the inter-pod score differs from its plain version")
+    kernels = device_ms(score, KERNELS["ipscore"])
+    return {"score_ms": CS.cuda_ms(score, 200), "score_device_ms": sum(kernels.values()), "score_kernels": kernels,
+            "score_wrapper_ms": CS.cuda_ms(lambda: TO.interpod_score(na, ea, ta, xa, pa, parts=parts, n_buckets=v,
+                                                                     m_pt=m_pt, m_sig=m_sig), 200)}
+
+
 MEASURES = {"spread": measure_spread, "interpod": measure_interpod, "selector": measure_selector,
-            "slab": measure_slab, "gather": measure_gather, "scatter": measure_scatter}
+            "slab": measure_slab, "gather": measure_gather, "scatter": measure_scatter, "fold": measure_fold,
+            "ipscore": measure_ipscore}
 
 
 def measure(root: str, mode: str) -> dict:

@@ -248,8 +248,8 @@ def test_ctypes_mirrors_cover_the_interpod_filter_and_selector_spread_structs():
     device-memory tables, no scratch of the tables it keeps in shared
     memory) and the selector spread's (its cluster layout and zone-table
     mode, no signature-list scratch) are among the mirrors the check below
-    holds against the C structs; the inter-pod score keeps the table
-    kernels' struct without the filter's fields."""
+    holds against the C structs; the inter-pod score's struct (its own
+    cluster layout) has none of the filter's mask fields."""
     names = {cname: {f[0] for f in cls._fields_} for cls, cname, _ in _struct_mirrors()}
     assert {"m_pt", "m_sig", "self_aff_match", "has_aff", "dtable", "mask", "C", "slice", "vslice", "tcap",
             "smem"} <= names["InterpodFilterArgs"]

@@ -316,44 +316,78 @@ def interpod_filter_walk(na, ea, ta, aux, xa, pa, m_pt, m_sig, parts, v, cluster
     return out, tabulated
 
 
-def interpod_score_walk(na, ea, ta, xa, pa, m_pt, m_sig, parts, v):
-    """csrc/interpod.cu's score: the per-pattern and per-term tables, then
-    a block per spec row (the weighted sums, min-max normalized)."""
+def interpod_score_walk(na, ea, ta, xa, pa, m_pt, m_sig, parts, v, cluster=None, tcap=None):
+    """csrc/interpod.cu's score at C = `cluster` CTAs a spec row and `tcap`
+    item tables a chunk (interpod_score_layout's), cluster by cluster: a
+    row's items compacted, their tables filled slice by owning slice, each
+    node's sum kept across the items, the row's max and min from the CTAs'
+    partials. Returns (the score, the spec rows that tabulated anything)."""
     ld = na["label_dense"].numpy()
-    n_nodes = ld.shape[0]
+    n, k = ld.shape
     nv = na["valid"].numpy()
-    tv, tk, town, tslot, tw = (ta[k].numpy() for k in ("valid", "kind", "owner", "topo_slot", "weight"))
-    xv, xk, xslot, xw = (xa[k].numpy() for k in ("valid", "kind", "topo_slot", "weight"))
+    tv, tk, town, tslot, tw = (ta[key].numpy() for key in ("valid", "kind", "owner", "topo_slot", "weight"))
+    xv, xk, xslot, xw = (xa[key].numpy() for key in ("valid", "kind", "topo_slot", "weight"))
     xc, ec, ev = xa["counts"].numpy().astype(np.int64), ea["counts"].numpy().astype(np.int64), ea["valid"].numpy()
     m_pt, m_sig = m_pt.numpy(), m_sig.numpy()
-    u_rows = pa["valid"].shape[0]
+    npt, tt, s_all, u_rows = len(xv), len(tv), len(ev), pa["valid"].shape[0]
     pv = pa["valid"].numpy()
+    lay = PTopo.interpod_score_layout(npt, tt, n, v, u_rows, cluster, tcap)
+    C, sl, vs, tc = lay["C"], lay["slice"], lay["vslice"], lay["tcap"]
+    assert sl <= PTopo.INTERPOD_SCORE_NODES * 256  # each node's sum in one thread's registers
+    win = PTopo.INTERPOD_SIG_WINDOW
 
-    def gather(tab, slot, n):
-        b, has = _bucket(ld, n, slot)
-        return has, tab[min(b, v - 1)]
+    @functools.lru_cache(maxsize=None)
+    def item(code):  # every node's dense label at the item's slot (-1: no key) and its count (int32, windowed)
+        slot = xslot[code] if code < npt else tslot[code - npt]
+        d = ld[:, 0 if slot < 0 else min(slot, k - 1)].astype(np.int64)
+        d = np.where((d >= 0) & (slot >= 0), d, -1)
+        if code < npt:
+            return d, xc[:, code]
+        t, cn = code - npt, np.zeros(n, np.int64)
+        for s0 in range(0, s_all, win):
+            ss = np.arange(s0, min(s_all, s0 + win))
+            cn += ec[:, ss[ev[ss] & m_sig[t, ss]]].sum(axis=1)
+        return d, cn.astype(np.int32).astype(np.int64)
 
-    x_kinds, t_kinds = ({1, 3, 4} if "existing" in parts else set()), ({3, 4} if "pref" in parts else set())
-    xt = _tables(na, xv & np.isin(xk, list(x_kinds)), xslot, lambda r, n: xc[n, r], v)
-    sig_of = {t: np.flatnonzero(ev & m_sig[t]) for t in np.flatnonzero(tv & np.isin(tk, list(t_kinds)))}
-    tt = _tables(na, tv & np.isin(tk, list(t_kinds)), tslot, lambda r, n: ec[n, sig_of[r]].sum(), v)
-    out = np.zeros((u_rows, n_nodes), np.int64)
+    out = np.zeros((u_rows, n), np.int64)
+    tabulated = []
     for u in range(u_rows):
-        pref = [t for t in tt if town[t] == u]
-        pats = [p for p in xt if m_pt[p, u]]
-        c = np.zeros(n_nodes, np.int64)
-        for n in range(n_nodes):
-            for t in pref:
-                h, cnt = gather(tt[t], tslot[t], n)
-                c[n] += int(np.int32(cnt) * np.int32(tw[t])) if h else 0
-            for p in pats:
-                h, cnt = gather(xt[p], xslot[p], n)
-                c[n] += int(xw[p]) * int(cnt) if h else 0
-        live = nv & pv[u]
-        mx, mn = max(int(c[live].max(initial=0)), 0), min(int(c[live].min(initial=0)), 0)
+        items = [p for p in range(npt) if "existing" in parts and xv[p] and xk[p] in (1, 3, 4) and m_pt[p, u]]
+        items += [npt + t for t in range(tt) if "pref" in parts and tv[t] and town[t] == u and tk[t] in (3, 4)]
+        if not pv[u] or not items:  # the zero row; nothing tabulated
+            continue
+        tabulated.append(u)
+        sums = np.zeros(n, np.int64)
+        per = tc if tc > 0 else 1
+        for i0 in range(0, len(items), per):
+            chunk = items[i0:i0 + per]
+            # CTA r owns buckets [r * vs, (r + 1) * vs) of each table (tc == 0:
+            # the same cells in the row's device table); the CTAs' node
+            # slices partition the nodes, and each node adds into its
+            # bucket's owner cell
+            owned = np.zeros((len(chunk), C, vs), np.int64)
+            for j, code in enumerate(chunk):
+                d, cn = item(code)
+                add = (d >= 0) & (d < v) & (cn != 0)
+                np.add.at(owned[j], (d[add] // vs, d[add] % vs), cn[add])
+            owned = owned.astype(np.int32)  # int32 cells
+            for j, code in enumerate(chunk):  # each node's weighted count at its clamped bucket
+                pat = code < npt
+                d, _ = item(code)
+                b = np.minimum(np.maximum(d, 0), v - 1)
+                cnt = owned[j][b // vs, b % vs]
+                w = xw[code] if pat else tw[code - npt]
+                contrib = cnt.astype(np.int64) * np.int64(w) if pat else (cnt * np.int32(w)).astype(np.int64)
+                sums += np.where(d >= 0, contrib, 0)
+        # each CTA's max and min over its valid nodes (0 clamped in), then the cluster's
+        mx = mn = 0
+        for c in range(C):
+            xs = np.arange(c * sl, min(n, (c + 1) * sl))
+            live = sums[xs][nv[xs]]
+            mx, mn = max(mx, int(live.max(initial=0))), min(mn, int(live.min(initial=0)))
         diff = mx - mn
-        out[u] = np.where(live & (diff > 0), (10 * (c - mn)) // max(diff, 1), 0)
-    return out
+        out[u] = np.where(nv & (diff > 0), (10 * (sums - mn)) // max(diff, 1), 0)
+    return out, tabulated
 
 
 def _walk_inputs(pkg="port"):
@@ -378,7 +412,7 @@ def test_kernel_walk_equals_plain(n_buckets):
         assert np.array_equal(got, want), parts
     for parts in SCORE_PARTS:
         want = PTopo.interpod_score_plain(pn, pe, pt, px, pp, parts, n_buckets).numpy()
-        got = interpod_score_walk(pn, pe, pt, px, pp, m_pt, m_sig, parts, n_buckets)
+        got, _ = interpod_score_walk(pn, pe, pt, px, pp, m_pt, m_sig, parts, n_buckets)
         assert np.array_equal(got, want), parts
         assert ((want > 0) & (want < 10)).any()
 
@@ -434,3 +468,61 @@ def test_filter_cluster_walk_equals_plain_and_reference(n_buckets, cluster, tcap
             esc = PTopo.interpod_filter_plain(pn, pe, pt, pa_, px, pp, ("aff",), v)
             escaped += int((esc.all(dim=1) & pa_["has_aff"] & pa_["self_aff_match"] & pp["valid"]).sum())
     assert escaped > 0
+
+
+@functools.lru_cache(maxsize=None)
+def _reference_score(parts, v):
+    rn, re, rx, rt, _, rp = _walk_inputs("ref")
+    return np.asarray(RTopo.interpod_score(rn, re, rt, rx, rp, parts=parts, n_buckets=v))
+
+
+SCORE_WALKS = [(16, 1, None), (16, None, None), ("drain", 2, 0), ("drain", 3, 1), (64, 16, None), (64, None, None),
+               (40000, 1, None), (40000, 2, None), (40000, 16, None), (40000, None, None)]
+
+
+@pytest.mark.parametrize("n_buckets,cluster,tcap", SCORE_WALKS,
+                         ids=["V16-C1", "V16-default-C4", "drain-C2-device", "drain-C3-one-table-a-chunk", "V64-C16",
+                              "V64-default-C4", "V40000-C1-device", "V40000-C2-device", "V40000-C16",
+                              "V40000-default-C4"])
+def test_score_cluster_walk_equals_plain_and_reference(n_buckets, cluster, tcap):
+    """The inter-pod score's one-launch algorithm at 1, 2, 3, 4 and 16 CTAs
+    a spec row (node and bucket axes no C > 2 divides) over V = 16, the
+    drain's V, 64 and 40,000, with its tables in shared memory (several a
+    chunk and one a chunk) and in device memory (V = 40,000 at one or two
+    CTAs, and tcap 0), equals the plain version and the JAX reference for
+    each part and both. Exactly the valid rows with a
+    matching score pattern or an owned preferred term tabulate: padding
+    rows and rows without items write zero rows untabulated."""
+    pn, pe, px, pt, _, pp = _walk_inputs()
+    v = _drain_v(pn) if n_buckets == "drain" else n_buckets
+    m_pt = PTopo.match_terms(px, pp["label_vals"], pp["ns_id"])
+    m_sig = PTopo.match_terms(pt, pe["label_vals"], pe["ns_id"])
+    lay = PTopo.interpod_score_layout(px["valid"].shape[0], pt["valid"].shape[0], pn["valid"].shape[0], v,
+                                      pp["valid"].shape[0], cluster, tcap)
+    assert (lay["tcap"] == 0) == (tcap == 0 or (v == 40000 and lay["C"] <= 2))
+    assert lay["C"] == (cluster or 4)  # 64 rows: the default doubles C to 4
+    valid = pp["valid"].numpy()
+    assert not valid.all()
+    xk, tk = px["kind"].numpy(), pt["kind"].numpy()
+    x_score = (px["valid"].numpy() & np.isin(xk, [1, 3, 4]))[:, None] & m_pt.numpy()
+    owners = pt["owner"].numpy()[pt["valid"].numpy() & np.isin(tk, [3, 4])]
+    for parts in SCORE_PARTS:
+        got, rows = interpod_score_walk(pn, pe, pt, px, pp, m_pt, m_sig, parts, v, cluster, tcap)
+        want = PTopo.interpod_score_plain(pn, pe, pt, px, pp, parts, v, m_pt=m_pt, m_sig=m_sig)
+        assert np.array_equal(got, want.numpy()), parts
+        assert np.array_equal(got, _reference_score(parts, v)), parts
+        work = set(owners.tolist()) if "pref" in parts else set()
+        if "existing" in parts:
+            work |= set(np.flatnonzero(x_score.any(axis=0)).tolist())
+        assert set(rows) == work & set(np.flatnonzero(valid).tolist()), parts
+        assert set(rows) < set(range(pp["valid"].shape[0])), parts  # some rows tabulate nothing
+
+
+def test_score_layout_raises_past_its_node_ceiling():
+    """The score keeps each node's sum in registers: at most 4,096 nodes a
+    CTA and 16 CTAs a spec row, so 65,536 node rows fit and one more
+    raises."""
+    lay = PTopo.interpod_score_layout(32, 32, 65536, 16, 32)
+    assert lay["C"] == 16 and lay["slice"] == PTopo.INTERPOD_SCORE_NODES * 256 == 4096
+    with pytest.raises(ValueError):
+        PTopo.interpod_score_layout(32, 32, 65537, 16, 32)

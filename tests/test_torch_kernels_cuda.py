@@ -5,8 +5,12 @@ output), score, solve (with and without in-batch tracking), match_terms
 rows), spread_score (one launch, no match launch, at V = 16, 64, 256 and
 40,000 and every rows-a-cluster choice; a small config-4 drain launches
 one match a batch), selector_spread_score, interpod_filter (every subset of its
-parts), interpod_score (each part and both), inbatch_port_conflict,
-spread_filter, the commit arbiter, the commit fold, the preemption victim
+parts), interpod_score (each part and both; one kernel in the profiler, at
+1-16 CTAs a spec row, device-memory tables at V = 40,000),
+inbatch_port_conflict, spread_filter, the commit arbiter, the commit fold
+(its tensor wrapper and the packed path, duplicates, int16 carries and
+counts of both signs; TensorMirror.fold_commit one pinned copy and one
+kernel in the profiler), the preemption victim
 search, the nominee overlay's usage fold, the host oracle's score-row gather and
 the two-pass gang solve, and the ingest and term planes' slab gather and row
 scatter (the batch gather at row bytes 1 to 256, pointers only 4-byte
@@ -662,17 +666,64 @@ def test_interpod_filter_one_live_row_equals_plain(cuda, seed, n_buckets):
         assert torch.equal(got, TO.interpod_filter_plain(na, ea, ta, au, xa, pa, parts, n_buckets)), parts
 
 
+TRACED_CALLS = 10
+
+
+def device_events(fn, calls=TRACED_CALLS):
+    """(kernel names, copy names) of the device events `calls` calls of
+    fn() leave in a profiler trace. A trace may drop events at its edges,
+    so a check reads "at most one a call" and "at least one"."""
+    import json
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = [e for e in json.load(f)["traceEvents"] if e.get("ph") == "X"]
+    return ([e["name"] for e in events if e.get("cat") == "kernel"],
+            [e["name"] for e in events if e.get("cat") == "gpu_memcpy"])
+
+
 @pytest.mark.parametrize("n_buckets", [16, 256, 40000])
 @pytest.mark.parametrize("seed", [0, 1])
 def test_interpod_score_kernel_equals_plain(cuda, seed, n_buckets):
+    """Each part and both: one launch a call (one kernel in the profiler,
+    none of match_terms when given the plan's m_pt / m_sig), exact at the
+    layout's cluster width (U = 256: one CTA a row; V = 40,000 takes the
+    device-memory tables, counted) and at 1, 2, 3, 4, 8 and 16 CTAs a spec
+    row (device tables at 40,000 up to two CTAs)."""
     na, ea, xa, ta, _, pa, _ = interpod_cluster(seed, cuda)
+    m_pt = TO.match_terms(xa, pa["label_vals"], pa["ns_id"])
+    m_sig = TO.match_terms(ta, ea["label_vals"], ea["ns_id"])
+    lay = TO.interpod_score_layout(xa["valid"].shape[0], ta["valid"].shape[0], na["valid"].shape[0], n_buckets,
+                                   pa["valid"].shape[0])
+    assert (lay["tcap"] == 0) == (n_buckets == 40000)
     for parts in (("pref",), ("existing",), ("pref", "existing")):
-        before = TO.interpod_score.launches
+        before, dev_tables = TO.interpod_score.launches, TO.interpod_score.device_table_launches
         got = TO.interpod_score(na, ea, ta, xa, pa, parts=parts, n_buckets=n_buckets)
         assert TO.interpod_score.launches == before + 1
+        assert TO.interpod_score.device_table_launches == dev_tables + int(lay["tcap"] == 0)
         want = TO.interpod_score_plain(na, ea, ta, xa, pa, parts, n_buckets)
         assert got.dtype == want.dtype == torch.int64
         assert torch.equal(got, want), parts
+        names, _ = device_events(lambda: TO.interpod_score(na, ea, ta, xa, pa, parts=parts, n_buckets=n_buckets,
+                                                           m_pt=m_pt, m_sig=m_sig))
+        assert 1 <= len(names) <= TRACED_CALLS and all("interpod_score_cluster_kernel" in k for k in names), names
+        for ctas in (1, 2, 3, 4, 8, 16):
+            args, out = TO.interpod_score_args(na, ea, ta, xa, pa, m_pt, m_sig, parts, n_buckets, cluster=ctas)
+            assert args.C == ctas and (args.tcap == 0) == (n_buckets == 40000 and ctas <= 2)
+            build.launch(TO.INTERPOD_SCORE_ENTRY, args, cuda)
+            torch.cuda.synchronize()
+            assert torch.equal(out, want), (parts, ctas)
 
 
 @pytest.mark.parametrize("seed", [0, 1])
@@ -899,30 +950,111 @@ def test_arbiter_reads_solve_inputs_without_relaunching(cuda, track):
     assert torch.equal(got, want)
 
 
-def test_fold_kernel_equals_plain(cuda):
-    from kubernetes_tpu_torch.ops.fold import fold_commit_banks, fold_commit_banks_plain
-
-    g = torch.Generator().manual_seed(0)
-    n, r, s, pt, b, t = 64, 6, 40, 12, 4096, 900
+def fold_case(case, g, n, r, s, pt, b, t):
+    """Banks and a fold program (the control tensors in PROGRAM order) for
+    the card's fold tests: "duplicates", every lane on one of a few rows
+    and cells with counts of 1 and cells near the int16 edges; "carries",
+    int16 cells over their whole range (low halves carry, high halves wrap)
+    and counts of both signs; sentinel lanes in both."""
+    lo16 = -32768
     banks = [torch.randint(0, 10**9, (n, r), generator=g), torch.randint(0, 10**9, (n, 2), generator=g),
              torch.randint(0, 100, (n,), generator=g).int(),
-             torch.randint(-32768, 32767, (n, s), generator=g).to(torch.int16),
-             torch.randint(-32768, 32767, (n, pt), generator=g).to(torch.int16)]
-    # duplicate-heavy: every lane lands on one of a few rows and cells
-    ctl = [torch.randint(0, 5, (b,), generator=g).int(), torch.randint(0, 9000, (b, r), generator=g),
-           torch.randint(0, 9000, (b, 2), generator=g), torch.ones(b, dtype=torch.int32),
+             torch.randint(lo16, 32768, (n, s), generator=g).to(torch.int16),
+             torch.randint(lo16, 32768, (n, pt), generator=g).to(torch.int16)]
+    if case == "duplicates":
+        cnt, pat_cnt = torch.ones(b, dtype=torch.int32), torch.ones(t, dtype=torch.int16)
+    else:
+        cnt, pat_cnt = torch.randint(-3, 5, (b,), generator=g).int(), torch.randint(-3, 5, (t,), generator=g).to(
+            torch.int16)
+    ctl = [torch.randint(0, 5, (b,), generator=g).int(), torch.randint(-9000, 9000, (b, r), generator=g),
+           torch.randint(-9000, 9000, (b, 2), generator=g), cnt,
            torch.randint(0, 3, (b,), generator=g).int(), torch.randint(0, 4, (t,), generator=g).int(),
-           torch.randint(0, 3, (t,), generator=g).int(), torch.ones(t, dtype=torch.int16)]
+           torch.randint(0, 3, (t,), generator=g).int(), pat_cnt]
     ctl[0][::7] = n  # sentinel lanes
     ctl[4][::5] = s
     ctl[6][::9] = pt
+    return banks, ctl
+
+
+FOLD_PROGRAM = ("rows", "req", "nz", "cnt", "sig", "pat_row", "pat_col", "pat_cnt")
+
+
+@pytest.mark.parametrize("case", ["duplicates", "carries"])
+def test_fold_kernel_equals_plain(cuda, case):
+    """The fold through its tensor wrapper (padded lanes dropped in the
+    kernel) and through the packed path (the live lanes in one pinned
+    upload), one launch each, equal to the plain version."""
+    from kubernetes_tpu_torch.ops.fold import (fold_commit_banks, fold_commit_banks_plain, fold_commit_packed,
+                                               fold_control)
+
+    g = torch.Generator().manual_seed(0)
+    n, r, s, pt, b, t = 64, 6, 40, 12, 4096, 900
+    banks, ctl = fold_case(case, g, n, r, s, pt, b, t)
+    want = fold_commit_banks_plain(*(x.clone() for x in banks), *ctl)
     dev_banks = [x.to(cuda) for x in banks]
     before = fold_commit_banks.launches
     fold_commit_banks(*dev_banks, *(x.to(cuda) for x in ctl))
     assert fold_commit_banks.launches == before + 1
-    want = fold_commit_banks_plain(*(x.clone() for x in banks), *ctl)
     for got, w in zip(dev_banks, want):
         assert torch.equal(got.cpu(), w)
+    packed = fold_control(**{k: x.numpy() for k, x in zip(FOLD_PROGRAM, ctl)}, n=n, pin=True)
+    assert packed.buf.is_pinned()
+    dev_banks = [x.to(cuda) for x in banks]
+    fold_commit_packed(*dev_banks, packed)
+    assert fold_commit_banks.launches == before + 2
+    for got, w in zip(dev_banks, want):
+        assert torch.equal(got.cpu(), w)
+
+
+def test_fold_refuses_an_int16_bank_sharing_its_last_word(cuda):
+    """An int16 bank of an odd number of cells whose last 32-bit word
+    reaches into more of its storage is refused (a low half's carry would
+    touch the next bytes until its correction); the same bank ending its
+    own storage folds."""
+    from kubernetes_tpu_torch.ops.fold import fold_commit_banks, fold_commit_banks_plain
+
+    g = torch.Generator().manual_seed(3)
+    n, r, s, pt, b, t = 3, 6, 5, 3, 64, 16
+    banks, ctl = fold_case("carries", g, n, r, s, pt, b, t)
+    ctl[0] = torch.randint(0, n + 1, (b,), generator=g).int()
+    ctl[5] = torch.randint(0, n + 1, (t,), generator=g).int()
+    dev = [x.to(cuda) for x in banks]
+    shared = torch.zeros(n * s + 1, dtype=torch.int16, device=cuda)
+    with pytest.raises(ValueError):
+        fold_commit_banks(dev[0], dev[1], dev[2], shared[:n * s].view(n, s), dev[4], *(x.to(cuda) for x in ctl))
+    want = fold_commit_banks_plain(*(x.clone() for x in banks), *ctl)
+    fold_commit_banks(*dev, *(x.to(cuda) for x in ctl))
+    for got, w in zip(dev, want):
+        assert torch.equal(got.cpu(), w)
+
+
+def test_mirror_fold_is_one_pinned_copy_and_one_kernel(cuda):
+    """TensorMirror.fold_commit on the card: the folded banks equal the CPU
+    mirror's fold of the same program; in the profiler each fold is one
+    host-to-device copy, from pinned memory, and one kernel (no per-array
+    upload)."""
+    from kubernetes_tpu_torch.commit.fold import plan_fold
+
+    nodes, existing, pending = random_cluster(5, 30, 40, 60, topology=True, interpod=True, pending_affinity=True)
+    mirrors = []
+    for device in (cuda, "cpu"):
+        cache = SchedulerCache()
+        fill_cache(cache, nodes, existing)
+        m = TensorMirror(cache, device)
+        m.device_arrays()
+        rows = sorted(m.row_of.values())
+        prog = plan_fold(m, [(p, rows[(7 * i) % len(rows)]) for i, p in enumerate(pending)], 128, 16)
+        assert prog is not None and int((prog.pat_cnt > 0).sum()) > 0
+        m.device_arrays()  # ship the new rows' metadata before the fold
+        assert m.fold_commit(prog)
+        mirrors.append((m, prog))
+    (gm, gprog), (cm, _) = mirrors
+    for dg, dc in zip(gm.device_arrays(), cm.device_arrays()):
+        for k in dc:
+            assert torch.equal(dg[k].cpu(), dc[k]), k
+    kernels, copies = device_events(lambda: gm.fold_commit(gprog))
+    assert 1 <= len(kernels) <= TRACED_CALLS and all("fold_commit_kernel" in k for k in kernels), kernels
+    assert 1 <= len(copies) <= TRACED_CALLS and all("HtoD" in c and "Pinned" in c for c in copies), copies
 
 
 def preempt_counted(a):
@@ -1662,22 +1794,22 @@ def test_sharded_arbiter_kernel_equals_plain(cuda, shards, track):
         assert bool((want == A.V_DEFER).any())
 
 
+@pytest.mark.parametrize("case", ["duplicates", "carries"])
 @pytest.mark.parametrize("shards", SHARDS)
-def test_sharded_fold_kernels_equal_plain(cuda, shards):
-    """Both sharded folds (duplicate rows, sentinels, int16 wrap) against
-    their plain versions and the single-device kernels."""
+def test_sharded_fold_kernels_equal_plain(cuda, shards, case):
+    """Both sharded folds (duplicate rows, sentinels, int16 wrap and, in
+    the carries case, low-half carries and counts of both signs) against
+    their plain versions and the single-device kernels; the commit fold
+    through the tensor wrapper and the packed path."""
     from kubernetes_tpu_torch.ops import fold as FO
 
     g = torch.Generator().manual_seed(shards)
     n, r, s, pt, b, t = 64, 6, 40, 12, 4096, 900
-    banks = [torch.randint(0, 10**9, (n, r), generator=g), torch.randint(0, 10**9, (n, 2), generator=g),
-             torch.randint(0, 100, (n,), generator=g).int(),
-             torch.randint(-32768, 32767, (n, s), generator=g).to(torch.int16),
-             torch.randint(-32768, 32767, (n, pt), generator=g).to(torch.int16)]
-    ctl = [torch.randint(0, n + 1, (b,), generator=g).int(), torch.randint(0, 9000, (b, r), generator=g),
-           torch.randint(0, 9000, (b, 2), generator=g), torch.ones(b, dtype=torch.int32),
-           torch.randint(0, s + 1, (b,), generator=g).int(), torch.randint(0, n + 1, (t,), generator=g).int(),
-           torch.randint(0, pt + 1, (t,), generator=g).int(), torch.ones(t, dtype=torch.int16)]
+    banks, ctl = fold_case(case, g, n, r, s, pt, b, t)
+    ctl[0] = torch.randint(0, n + 1, (b,), generator=g).int()  # rows on every shard
+    ctl[4] = torch.randint(0, s + 1, (b,), generator=g).int()  # every signature and pattern column
+    ctl[5] = torch.randint(0, n + 1, (t,), generator=g).int()
+    ctl[6] = torch.randint(0, pt + 1, (t,), generator=g).int()
     got = [x.to(cuda) for x in banks]
     single = [x.to(cuda) for x in banks]
     before = FO.fold_commit_sharded.launches
@@ -1687,6 +1819,12 @@ def test_sharded_fold_kernels_equal_plain(cuda, shards):
     want = FO.fold_commit_sharded_plain(shards, *(x.clone() for x in banks), *ctl)
     for a, w, o in zip(got, want, single):
         assert torch.equal(a.cpu(), w) and torch.equal(a, o)
+    packed = FO.fold_control(**{k: x.numpy() for k, x in zip(FOLD_PROGRAM, ctl)}, n=n, pin=True)
+    got = [x.to(cuda) for x in banks]
+    FO.fold_commit_packed(*got, packed, shards=shards)
+    assert FO.fold_commit_sharded.launches == before + 2
+    for a, w in zip(got, want):
+        assert torch.equal(a.cpu(), w)
     req, cnt = banks[0].to(cuda), banks[2].to(cuda)
     before = FO.fold_usage_sharded.launches
     FO.fold_usage_sharded(shards, req, cnt, ctl[0].to(cuda), ctl[1].to(cuda), ctl[3].to(cuda))
