@@ -52,7 +52,13 @@ they placed. Phases:
                 device-memory tables counted; exact at 1 to 16 CTAs a spec
                 row and with device tables at V = 40,000; timed at 1 to 16
                 CTAs in turns, through its wrapper, by the profiler's
-                device duration), inbatch_port_conflict and the tracked solve on a seeded
+                device duration), the in-batch port table (the match
+                launch's slice beside 0, 1 and 3 of the plan's term
+                problems and a port-only call, each exact; live ports on
+                the all-branches cluster; timed as a port-only launch and
+                as the plan with and without the slice, and at five tiles
+                of spec rows x columns a CTA, also on live port lists at U
+                = 128 and 512) and the tracked solve on a seeded
                 cluster reaching every inter-pod branch and at the config-4
                 shapes (U=32, N=2048, TT=32, S=256, PT=32, V=2048), with the
                 batch's match plan (its three matrices in one launch, timed
@@ -132,7 +138,8 @@ they placed. Phases:
                 with tie-noise, tracked at the config-4 shapes, its gang
                 mode at the config-5 shapes, the sharded arbiter at the
                 config-3-hard (timed) and config-4 shapes, the sharded
-                commit fold on the config-3 batch's fold program and the
+                commit fold (one element grid) at 1, 2, 4 and 8 shards on
+                the config-3 batch's fold program and the
                 sharded usage fold at the config-6 nominee shapes; timed at
                 8 shards beside the single-device kernel
   4. parity     config 2, config 3 and config 4 at 1/10 scale through
@@ -271,7 +278,11 @@ they placed. Phases:
                 before; the row scatter at config 5's flush and a config-4
                 mirror sync's six patches in one launch (the wrapper warm
                 and with its layout rebuilt each call),
-                and both kernels' main-path launches), a [launches] line (every
+                and both kernels' main-path launches; the port table and
+                the sharded commit fold beside their times before, with
+                the main path's standalone port launches, which must be 0,
+                and the port tables its match launches carried), a
+                [launches] line (every
                 counter summed over the main-path drains), then
                 one JSON line: per kernel (the eighteen, the match plan's
                 multi-problem launch, the tracked solve, the RTCR branch,
@@ -1323,15 +1334,14 @@ def compare_interpod(enc, label, time_it: bool):
     bad_s = max(bad_s, int((dout - TO.interpod_score_plain(na, ea, ta, xa, pa, SCORE_PARTS[-1], 40000)).abs().max()))
     check(bad_f == 0, f"[{label}] interpod_filter kernel differs from its plain version in {bad_f} pairs")
     check(bad_s == 0, f"[{label}] interpod_score kernel differs from its plain version by {bad_s}")
-    pconf = F.inbatch_port_conflict(pa, ids)
-    bad_p = int((pconf != F.inbatch_port_conflict_plain(pa, ids)).sum())
-    check(bad_p == 0, f"[{label}] inbatch_port_conflict kernel differs from its plain version in {bad_p} pairs")
-    out["interpod_filter"] = {"max_abs_err": min(bad_f, 1)}
-    out["interpod_score"] = {"max_abs_err": bad_s}
-    out["inbatch_port_conflict"] = {"max_abs_err": min(bad_p, 1)}
-    # the batch's match plan: its three matrices in one launch, each exact
     plan = [(ta, ea["label_vals"], ea["ns_id"]), (xa, pa["label_vals"], pa["ns_id"]),
             (ta, pa["label_vals"], pa["ns_id"])]
+    # the port table: the match launch's slice beside 0, 1 and 3 term problems, and a port-only call
+    bad_p, pconf = compare_port_table(plan, pa, ids, label)
+    out["interpod_filter"] = {"max_abs_err": min(bad_f, 1)}
+    out["interpod_score"] = {"max_abs_err": bad_s}
+    out["inbatch_port_conflict"] = {"max_abs_err": bad_p}
+    # the batch's match plan: its three matrices in one launch, each exact
     launches = TO.match_terms.launches
     got = TO.match_terms_multi(plan)
     check(TO.match_terms.launches == launches + 1, f"[{label}] the match plan took more than one launch")
@@ -1382,10 +1392,7 @@ def compare_interpod(enc, label, time_it: bool):
         log(f"[kernels] {label} match plan (3 problems, one launch): {mp['ms']:.4f} ms (device duration "
             f"{mp['device_ms']:.4f}), as three launches {mp['three_launches_ms']:.4f} ms, bound "
             f"{mp['bound'][0]:.6f} ms ({mp['bound'][1]})")
-        pargs, _ = F.port_conflict_args(pa, ids)
-        out["inbatch_port_conflict"]["ms"] = cuda_ms(lambda: build.launch(F.PORT_CONFLICT_ENTRY, pargs, dev), 200)
-        out["inbatch_port_conflict"]["device_ms"] = device_ms(lambda: build.launch(F.PORT_CONFLICT_ENTRY, pargs, dev),
-                                                              "inbatch_port_conflict_kernel")
+        out["inbatch_port_conflict"].update(time_port_table(plan, pa, ids, label))
         out["inbatch_port_conflict"]["plain_ms"] = cuda_ms(lambda: F.inbatch_port_conflict_plain(pa, ids), 5)
         out["inbatch_port_conflict"]["bound"] = bound(interpod_work("inbatch_port_conflict", na, ea, xa, ta, au,
                                                                     pa, ()))
@@ -1401,6 +1408,140 @@ def compare_interpod(enc, label, time_it: bool):
             st = out[name]
             log(f"[kernels] {label} {name}: kernel {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, "
                 f"bound {st['bound'][0]:.6f} ms ({st['bound'][1]})")
+    return out
+
+
+def compare_port_table(plan, pa, ids, label):
+    """The in-batch port table against its plain version: from match
+    launches holding 0, 1 and 3 of the plan's term problems beside it (one
+    launch each, counted as a match launch with a port table, each matrix
+    exact too) and from a port-only call (counted as a standalone port
+    launch). Returns (the largest error, 0 or 1; the table)."""
+    from kubernetes_tpu_torch.ops import filters as F
+    from kubernetes_tpu_torch.ops import topology as TO
+
+    want = F.inbatch_port_conflict_plain(pa, ids)
+    bad = bad_m = 0
+    for count in (0, 1, 3):
+        before = (TO.match_terms.launches, TO.match_terms.port_tables, F.inbatch_port_conflict.launches)
+        got = TO.match_terms_multi(plan[:count], ports=(pa, ids))
+        check((TO.match_terms.launches, TO.match_terms.port_tables, F.inbatch_port_conflict.launches)
+              == (before[0] + 1, before[1] + 1, before[2]),
+              f"[{label}] the port table beside {count} term problems is not one counted match launch")
+        bad += int((got[-1] != want).sum()) + int(got[-1].dtype != want.dtype)
+        bad_m += sum(int((g != TO.match_terms_plain(*p)).sum()) for g, p in zip(got, plan[:count]))
+    before = (TO.match_terms.launches, F.inbatch_port_conflict.launches)
+    alone = F.inbatch_port_conflict(pa, ids)
+    check((TO.match_terms.launches, F.inbatch_port_conflict.launches) == (before[0], before[1] + 1),
+          f"[{label}] the port-only call is not one standalone port launch")
+    bad += int((alone != want).sum())
+    check(bad == 0 and bad_m == 0, f"[{label}] the port table differs from its plain version in {bad} pairs, the "
+          f"matrices beside it in {bad_m}")
+    log(f"[kernels] {label} port table: U={pa['valid'].shape[0]} PP={pa['port_num'].shape[1]}, exact beside 0, 1 "
+        f"and 3 term problems and as a port-only call ({int(want.sum())} clashing pairs, "
+        f"{int((pa['port_num'] > 0).any(dim=1).sum())} rows with a live port)")
+    return min(bad, 1), alone
+
+
+def port_rows(seed, u, pp=8):
+    """Seeded spec-row port lists [U, PP] on the card: about a third of the
+    rows hold one to three live ports at scattered lanes, three numbers,
+    two protocols, each IP the wildcard (7) or one of two addresses; the
+    padding lanes carry stray protocol and IP ids."""
+    g = torch.Generator().manual_seed(seed)
+    live = torch.rand(u, generator=g) < 0.35
+    lane = torch.rand(u, pp, generator=g) < 0.25
+    lane[torch.arange(u), torch.randint(0, pp, (u,), generator=g)] = True  # one live lane at least
+    on = live[:, None] & lane
+    num = torch.where(on, torch.tensor([80, 443, 8080])[torch.randint(0, 3, (u, pp), generator=g)], 0)
+    proto = torch.where(on, torch.randint(3, 5, (u, pp), generator=g), torch.randint(0, 6, (u, pp), generator=g))
+    ip = torch.where(on, torch.tensor([7, 11, 12])[torch.randint(0, 3, (u, pp), generator=g)],
+                     torch.randint(0, 14, (u, pp), generator=g))
+    dev = torch.device("cuda")
+    return ({"port_num": num.int().to(dev), "port_proto": proto.int().to(dev), "port_ip": ip.int().to(dev)},
+            {"wildcard_ip": 7})
+
+
+def time_port_table(plan, pa, ids, label):
+    """The port table's times at these shapes: the port-only launch (one
+    prebuilt struct relaunched, and its device duration), the plan's three
+    matrices with and without the slice (relaunched and device, in turns:
+    without, with, with, without, best of each), and the port-only launch
+    on seeded live port lists at U = 128 and 512 (each exact, over an
+    output filled with True first)."""
+    from kubernetes_tpu_torch.kernels import build
+    from kubernetes_tpu_torch.ops import filters as F
+    from kubernetes_tpu_torch.ops import topology as TO
+
+    dev = torch.device("cuda")
+    run = lambda a: (lambda: build.launch(TO.MATCH_ENTRY, a, dev))  # noqa: E731
+    pargs, _ = TO.match_args([], (pa, ids))
+    out = {"ms": cuda_ms(run(pargs), 200), "device_ms": device_ms(run(pargs), "match_terms_kernel"),
+           "layout": {k: getattr(pargs.port, k) for k in ("rows", "cols")}}
+    with_p, _ = TO.match_args(plan, (pa, ids))
+    without, _ = TO.match_args(plan)
+    times = {"plan": [], "plan with port slice": []}
+    for key, a in (("plan", without), ("plan with port slice", with_p), ("plan with port slice", with_p),
+                   ("plan", without)):
+        times[key].append((cuda_ms(run(a), 200), device_ms(run(a), "match_terms_kernel")))
+    for key, ts in times.items():
+        out[key] = {"ms": min(t[0] for t in ts), "device_ms": min(t[1] for t in ts)}
+    out["plan with port slice"]["layout"] = {k: getattr(with_p.port, k) for k in ("rows", "cols")}
+    live = {}
+    for name, (pods, pids) in (("U=128", port_rows(1, 128)), ("U=512", port_rows(2, 512))):
+        want = F.inbatch_port_conflict_plain(pods, pids)
+        a, (table,) = TO.match_args([], (pods, pids))
+        table.fill_(True)
+        build.launch(TO.MATCH_ENTRY, a, dev)
+        check(torch.equal(table, want), f"[{label}] the port-only launch differs on live port lists ({name})")
+        live[name] = [cuda_ms(run(a), 100), device_ms(run(a), "match_terms_kernel")]
+    out["live lists port-only [relaunched, device] ms"] = live
+    log(f"[kernels] {label} port table: port-only {out['ms']:.4f} ms relaunched, {out['device_ms']:.4f} ms device "
+        f"(layout {out['layout']}); the plan without the slice {out['plan']['ms']:.4f} / "
+        f"{out['plan']['device_ms']:.4f} ms, with it {out['plan with port slice']['ms']:.4f} / "
+        f"{out['plan with port slice']['device_ms']:.4f} ms; live lists port-only {live}")
+    return out
+
+
+def time_arbiter_port_slice(enc, label):
+    """The arbiter's m_raw and pconf at these shapes: their one match
+    launch with the port slice as port_layout fits it to m_raw's x-y plane,
+    the same launch with PORT_TILE tiles on a grid grown for them (the
+    layout it replaced), and m_raw alone; each exact, timed in turns
+    (relaunched and device duration: alone, fitted, grown, grown, fitted,
+    alone; best of each)."""
+    from kubernetes_tpu_torch.kernels import build
+    from kubernetes_tpu_torch.ops import filters as F
+    from kubernetes_tpu_torch.ops import topology as TO
+
+    dev = torch.device("cuda")
+    pa, ta, ids = enc["pa"], enc["ta"], enc["ids"]
+    prob = [(ta, pa["label_vals"], pa["ns_id"])]
+    want_m, want_p = TO.match_terms_plain(*prob[0]), F.inbatch_port_conflict_plain(pa, ids)
+    fitted, f_out = TO.match_args(prob, (pa, ids))
+    grown, g_out = TO.match_args(prob, (pa, ids))
+    lay = TO.port_layout(*pa["port_num"].shape)  # PORT_TILE, no plane to fit
+    grown.port.rows, grown.port.cols, grown.smem = lay["rows"], lay["cols"], max(grown.smem, lay["smem"])
+    alone, a_out = TO.match_args(prob)
+    run = lambda a: (lambda: build.launch(TO.MATCH_ENTRY, a, dev))  # noqa: E731
+    for a, outs in ((fitted, f_out), (grown, g_out), (alone, a_out)):
+        outs[-1].fill_(True)
+        run(a)()
+        check(torch.equal(outs[0], want_m) and (len(outs) == 1 or torch.equal(outs[1], want_p)),
+              f"[{label}] the arbiter's match launch differs from its plain versions")
+    keys = {"m_raw": alone, "m_raw + port slice": fitted, "m_raw + port slice, PORT_TILE tiles, grid grown": grown}
+    times = {k: [] for k in keys}
+    for k in ("m_raw", "m_raw + port slice", "m_raw + port slice, PORT_TILE tiles, grid grown",
+              "m_raw + port slice, PORT_TILE tiles, grid grown", "m_raw + port slice", "m_raw"):
+        times[k].append((cuda_ms(run(keys[k]), 200), device_ms(run(keys[k]), "match_terms_kernel")))
+    out = {k: {"ms": min(t[0] for t in ts), "device_ms": min(t[1] for t in ts)} for k, ts in times.items()}
+    out["shapes"] = {"U": pa["port_num"].shape[0], "PP": pa["port_num"].shape[1], "TT": ta["valid"].shape[0]}
+    out["layouts"] = {"fitted": {k: getattr(fitted.port, k) for k in ("rows", "cols")},
+                      "grown": {k: getattr(grown.port, k) for k in ("rows", "cols")}}
+    out["slice_device_ms"] = out["m_raw + port slice"]["device_ms"] - out["m_raw"]["device_ms"]
+    log(f"[kernels] {label} arbiter m_raw + pconf {out['shapes']}: one launch "
+        + ", ".join(f"{k} {v['ms']:.4f} / {v['device_ms']:.4f} ms" for k, v in out.items() if k in keys)
+        + f" (relaunched / device); layouts {out['layouts']}; the slice {out['slice_device_ms']:+.4f} ms device")
     return out
 
 
@@ -2613,12 +2754,16 @@ def compare_sharded_arbiter(enc, label, time_it: bool):
     return st
 
 
+# the sharded commit fold's shard counts: one element grid whatever S
+FOLD_GRID_SHARDS = (1,) + MESH_KERNEL_SHARDS
+
+
 def compare_sharded_fold(enc, label):
     """Hold the sharded commit fold against its plain version and the
-    single-device kernel at 2, 4 and 8 shards, on the fold program of the
+    single-device kernel at 1, 2, 4 and 8 shards, on the fold program of the
     batch's placed pods; time it at 8 shards (one prebuilt struct
-    relaunched), its plain version and the library's index_put_ per bank,
-    and bound it."""
+    relaunched, and its device duration), its plain version and the
+    library's index_put_ per bank, and bound it."""
     from kubernetes_tpu_torch.commit.fold import plan_fold
     from kubernetes_tpu_torch.kernels import build
     from kubernetes_tpu_torch.ops import fold as FO
@@ -2639,7 +2784,7 @@ def compare_sharded_fold(enc, label):
     single = [x.clone() for x in banks]
     FO.fold_commit_banks(*single, **ctl)
     err = 0
-    for shards in MESH_KERNEL_SHARDS:
+    for shards in FOLD_GRID_SHARDS:
         got = [x.clone() for x in banks]
         plain = [x.clone() for x in banks]
         FO.fold_commit_sharded(shards, *got, **ctl)
@@ -2647,19 +2792,21 @@ def compare_sharded_fold(enc, label):
         err = max(err, max_err(got, plain), max_err(got, single))
     check(err == 0, f"[{label}] fold_commit_sharded differs from its plain version or the single-device kernel by "
           f"{err}")
-    oargs = FO.ShardedFoldArgs(FO.fold_args(*got, **ctl), MESH_SHARDS, na["valid"].shape[0] // MESH_SHARDS)
+    # on one card the sharded commit launches the single fold's kernel
+    fargs = FO.fold_args(*got, **ctl)
     st = {"max_abs_err": err}
-    st["ms"] = cuda_ms(lambda: build.launch(FO.FOLD_SHARDED_ENTRY, oargs, na["valid"].device), 200)
-    st["device_ms"] = device_ms(lambda: build.launch(FO.FOLD_SHARDED_ENTRY, oargs, na["valid"].device),
-                                "fold_commit_sharded_kernel")
+    st["ms"] = cuda_ms(lambda: build.launch(FO.FOLD_ENTRY, fargs, na["valid"].device), 200)
+    st["device_ms"] = device_ms(lambda: build.launch(FO.FOLD_ENTRY, fargs, na["valid"].device),
+                                "fold_commit_kernel")
     st["plain_ms"] = cuda_ms(lambda: FO.fold_commit_sharded_plain(MESH_SHARDS, *plain, **ctl), 5)
     st["bound"] = bound(fold_work(prog, na["requested"].shape[1]))
     st["library_ms"] = library_fold_ms(got, ctl, prog.pods)
     lib = st["library_ms"]
     log(f"[kernels] {label} fold_commit_sharded: N={na['valid'].shape[0]} B={prog.rows.shape[0]} ({prog.pods} pods), "
-        f"shards {MESH_KERNEL_SHARDS}: exact against the plain version and the single-device kernel; "
-        f"{MESH_SHARDS} shards {st['ms']:.4f} ms, plain {st['plain_ms']:.4f} ms, bound {st['bound'][0]:.6f} ms "
-        f"({st['bound'][1]})" + (f", library {lib:.4f} ms" if lib is not None else ""))
+        f"shards {FOLD_GRID_SHARDS}: exact against the plain version and the single-device kernel; "
+        f"{MESH_SHARDS} shards {st['ms']:.4f} ms (device {st['device_ms']:.4f}, the single fold's launch), plain "
+        f"{st['plain_ms']:.4f} ms, bound {st['bound'][0]:.6f} ms ({st['bound'][1]})"
+        + (f", library {lib:.4f} ms" if lib is not None else ""))
     return st
 
 
@@ -2772,6 +2919,10 @@ def phase_kernels():
     nodes, existing, pods = random_cluster(11, 900, 1000, 1500, overflow_nodes=12, pending_ports=True)
     e = encode(nodes, existing, pods, dev)
     compare_kernels(e["na"], e["pa"], e["ids"], e["sig"], "all-branches", time_it=False)
+    # the port table with live ports (the cluster's pending pods hold host ports)
+    _, table = compare_port_table([(e["ta"], e["pa"]["label_vals"], e["pa"]["ns_id"])], e["pa"], e["ids"],
+                                  "all-branches live ports")
+    check(bool(table.any()), "all-branches live ports: no spec pair clashes")
     # the all-branches topology cluster: zone / hostname (V > 64) / rack
     # keys, nodes without a key, fallback nodes, every selector kind, two
     # constraints on one key, namespaces, deleting pods, 0-2 selectors
@@ -2823,6 +2974,7 @@ def phase_kernels():
     nodes, existing, pods, _ = config3_batch(False, CONFIG3_PODS // 2, hard=True)
     enc3h = encode(nodes, existing, pods, dev)
     hard = compare_commit(enc3h, "config-3-hard", time_it=True)
+    stats["inbatch_port_conflict"]["arbiter config-3-hard"] = time_arbiter_port_slice(enc3h, "config-3-hard")
     # the extender's filter_mask at the config-3-hard and config-4 batch shapes
     compare_filter_mask(enc_filter_inputs(enc3h), "config-3-hard filter_mask", time_it=False)
     compare_filter_mask(enc_filter_inputs(enc4), "config-4 filter_mask", time_it=False)
@@ -2867,6 +3019,8 @@ def phase_kernels():
         + ", ".join(f"{k} {ms:.4f} / {d:.4f} ms" for k, (ms, d) in gaps.items()))
     stats["_redesign"]["commit fold and inter-pod score"] = fold_and_score_summary(
         stats["fold_commit_banks"], stats["fold_commit_sharded"], stats["interpod_score"])
+    stats["_redesign"]["port table and sharded fold"] = port_table_and_sharded_fold_summary(
+        stats["inbatch_port_conflict"], stats["fold_commit_sharded"])
     return stats
 
 
@@ -2915,6 +3069,48 @@ def fold_and_score_summary(fold, sharded, score):
         extra = f", through the mirror {v['mirror_ms']:.4f} ms" if "mirror_ms" in v else ""
         log(f"[redesign] {k}: {v['ms']:.4f} ms relaunched, {v['device_ms']:.4f} ms device{extra} (before "
             f"{v['before']['ms']:.4f} / {v['before']['device_ms']:.4f})")
+    return out
+
+
+# the in-batch port table and the sharded commit fold before their redesign
+# (PERF.md's device-program table, chip_smoke.py on NVIDIA H100 80GB HBM3,
+# 700.00 W): the port table's own pair-a-thread kernel at the config-4
+# batch shapes, the config-4 plan's match launch without it, the sharded
+# fold's grid of 8 shard slices at the config-3 program
+BEFORE_MS["port table and sharded fold"] = {
+    "inbatch_port_conflict": {"ms": 0.0133, "device_ms": 0.0017}, "plan": {"device_ms": 0.0045},
+    "fold_commit_sharded": {"ms": 0.0091, "device_ms": 0.0029}}
+
+
+def port_table_and_sharded_fold_summary(port, sharded):
+    """The port table (the port-only launch, the plan with and without its
+    slice, the tiles) and the sharded commit fold (relaunched and
+    device), each beside its time before."""
+    before = BEFORE_MS["port table and sharded fold"]
+    out = {
+        "inbatch_port_conflict": {**{k: port[k] for k in ("ms", "device_ms", "layout", "plan", "plan with port slice",
+                                                          "live lists port-only [relaunched, device] ms",
+                                                          "arbiter config-3-hard", "plain_ms")},
+                                  "bound_ms": port["bound"][0], "before": before["inbatch_port_conflict"],
+                                  "plan before": before["plan"]},
+        "fold_commit_sharded": {"ms": sharded["ms"], "device_ms": sharded["device_ms"], "shards": FOLD_GRID_SHARDS,
+                                "before": before["fold_commit_sharded"]},
+    }
+    slice_cost = out["inbatch_port_conflict"]["plan with port slice"]["device_ms"] - port["plan"]["device_ms"]
+    out["inbatch_port_conflict"]["slice_device_ms"] = slice_cost
+    arb = port["arbiter config-3-hard"]
+    log(f"[redesign] port table: port-only {port['ms']:.4f} ms relaunched, {port['device_ms']:.4f} ms device (before "
+        f"its own kernel {before['inbatch_port_conflict']['ms']:.4f} / "
+        f"{before['inbatch_port_conflict']['device_ms']:.4f}); "
+        f"the plan {port['plan']['device_ms']:.4f} ms device without the slice, "
+        f"{port['plan with port slice']['device_ms']:.4f} with it ({slice_cost:+.4f}); the config-3-hard arbiter's "
+        f"m_raw {arb['m_raw']['device_ms']:.4f} ms device alone, {arb['m_raw + port slice']['device_ms']:.4f} with "
+        f"the slice ({arb['slice_device_ms']:+.4f}), "
+        f"{arb['m_raw + port slice, PORT_TILE tiles, grid grown']['device_ms']:.4f} with PORT_TILE tiles on a grown "
+        f"grid")
+    log(f"[redesign] fold_commit_sharded as the single fold's launch: {sharded['ms']:.4f} ms relaunched, "
+        f"{sharded['device_ms']:.4f} ms device (before {before['fold_commit_sharded']['ms']:.4f} / "
+        f"{before['fold_commit_sharded']['device_ms']:.4f})")
     return out
 
 
@@ -3133,6 +3329,7 @@ def kernel_counters():
         "selector_spread_score": (TO.selector_spread_score, "launches"),
         "interpod_filter": (TO.interpod_filter, "launches"), "interpod_score": (TO.interpod_score, "launches"),
         "inbatch_port_conflict": (F.inbatch_port_conflict, "launches"),
+        "match_terms[port tables]": (TO.match_terms, "port_tables"),
         "solve_greedy_inb": (SO.solve_greedy, "tracked_launches"),
         "spread_filter": (TO.spread_filter, "launches"), "arbitrate": (A.arbitrate, "launches"),
         "spread_filter[device tables]": (TO.spread_filter, "device_table_launches"),
@@ -3910,7 +4107,7 @@ def phase_drain(smi, total):
             f"per-app max zone skew {zone_skew(nodes, pods, res)} (information only); launches {launches}")
     torch.cuda.reset_peak_memory_stats()
     need = ["filter_mask", "score_matrix", "solve_greedy", "match_terms", "interpod_filter", "interpod_score",
-            "inbatch_port_conflict", "solve_greedy_inb", "fold_commit_banks"]
+            "match_terms[port tables]", "solve_greedy_inb", "fold_commit_banks"]
     (sched, nodes, pods, res, wall), launches = run_main_path("config-4", need, lambda: drain(
         "cuda", "config4", CONFIG4_NODES, CONFIG4_PODS, BATCH, deterministic=False))
     add(launches)
@@ -4777,7 +4974,7 @@ def main() -> int:
         "selector_spread_score": ("kubernetes_tpu_torch/csrc/topology.cu", "kubernetes_tpu/ops/topology.py:433"),
         "interpod_filter": ("kubernetes_tpu_torch/csrc/interpod.cu", "kubernetes_tpu/ops/topology.py:281"),
         "interpod_score": ("kubernetes_tpu_torch/csrc/interpod.cu", "kubernetes_tpu/ops/topology.py:363"),
-        "inbatch_port_conflict": ("kubernetes_tpu_torch/csrc/interpod.cu", "kubernetes_tpu/ops/pipeline.py:178"),
+        "inbatch_port_conflict": ("kubernetes_tpu_torch/csrc/topology.cu", "kubernetes_tpu/ops/pipeline.py:178"),
         "solve_greedy_inb": ("kubernetes_tpu_torch/csrc/solver.cu", "kubernetes_tpu/ops/solver.py:175"),
         "spread_filter": ("kubernetes_tpu_torch/csrc/topology.cu", "kubernetes_tpu/ops/topology.py:182"),
         "arbitrate": ("kubernetes_tpu_torch/csrc/arbiter.cu", "kubernetes_tpu/commit/arbiter.py:157"),
@@ -4799,18 +4996,31 @@ def main() -> int:
         "fold_commit_sharded": ("kubernetes_tpu_torch/csrc/fold.cu", "kubernetes_tpu/ops/fold.py:156"),
         "fold_usage_sharded": ("kubernetes_tpu_torch/csrc/fold.cu", "kubernetes_tpu/ops/fold.py:164"),
     }
+    # the port table rides in the batches' match launches: its launches are
+    # the tables those carried, and no main path makes a standalone one
+    counted = {"inbatch_port_conflict": "match_terms[port tables]"}
+    check(launches["inbatch_port_conflict"] == 0,
+          f"the main-path drains made {launches['inbatch_port_conflict']} standalone port-table launches")
     kernels = []
     for kname, (src, ref) in sources.items():
         s = stats[kname]
+        n_launched = launches[counted.get(kname, kname)]
         # score_components has no caller on a main path (the reference's only
         # caller is a test): its launches there are 0
-        check(launches[kname] > 0 or kname == "score_components", f"kernel {kname} was not launched by the drains")
+        check(n_launched > 0 or kname == "score_components", f"kernel {kname} was not launched by the drains")
         kernels.append({
             "name": kname, "route": "cuda", "source": src, "replaces": ref,
-            "launches": launches[kname], "max_abs_err": s["max_abs_err"],
+            "launches": n_launched, "max_abs_err": s["max_abs_err"],
             "ms": s["ms"], "plain_ms": s["plain_ms"],
             "bound_ms": s["bound"][0], "bound_by": s["bound"][1], "library_ms": s.get("library_ms"),
         })
+        if kname == "inbatch_port_conflict":
+            # its launches ride in match launches; its times are a port-only
+            # call's, so the slice's cost on the main path stands beside them
+            kernels[-1]["ms_of"] = "a port-only call of the match launch"
+            kernels[-1]["main_path_slice_device_ms"] = {
+                "config-4 plan": s["plan with port slice"]["device_ms"] - s["plan"]["device_ms"],
+                "config-3-hard arbiter m_raw": s["arbiter config-3-hard"]["slice_device_ms"]}
     red = stats["_redesign"]["spread filter and feasibility mask"]
     ext = stats["pipeline.filter_mask"]
     red["extender filter_mask"] = {"wrapper_ms": ext["ms"], "before_wrapper_ms": BEFORE_MS["pipeline.filter_mask"],
@@ -4856,6 +5066,11 @@ def main() -> int:
     red["scatter layouts"] = {k: launches.get(f"scatter_rows[layout {k}]", 0) for k in ("hits", "misses")}
     log(f"[redesign] score-row gather and row scatter: main-path launches {red['main path launches']} "
         f"(before: gather_score_rows 2,211, scatter_rows 317); scatter layouts {red['scatter layouts']}")
+    red = stats["_redesign"]["port table and sharded fold"]
+    red["main path launches"] = {k: launches.get(k, 0) for k in (
+        "inbatch_port_conflict", "match_terms[port tables]", "match_terms", "fold_commit_sharded")}
+    log(f"[redesign] port table and sharded fold: main-path launches {red['main path launches']} (before: "
+        f"inbatch_port_conflict 270 standalone, match_terms 559, fold_commit_sharded 124)")
     log(f"[launches] main-path launches summed over every drain: "
         + json.dumps({k: v for k, v in sorted(launches.items())}))
     log(f"[done] {time.perf_counter() - t0:.1f}s; card: {smi}")

@@ -56,7 +56,7 @@ from ..api.selectors import match_label_selector
 from ..kernels import build
 from ..ops import filters as F
 from ..ops import topology as T
-from ..ops.pipeline import apply_carry
+from ..ops.pipeline import apply_carry, inbatch_matches
 from ..ops.solver import pop_order
 from ..oracle.nodeinfo import Snapshot
 from ..oracle.predicates import compute_predicate_metadata, get_hard_spread_constraints, pod_fits_on_node
@@ -95,13 +95,15 @@ def _solve_inputs(na: Arrays, pa: Arrays, ea: Arrays, ta: Arrays, ids, inputs: O
     with `have_spread`, spread_filter's tables — taken from `inputs` (the
     solve's `arbiter_inputs`) where present, else computed here: by the
     plain versions with `plain`, else by the same counted kernels the
-    solve launches."""
+    solve launches (`m_raw` and `pconf` from one match launch)."""
     got = dict(inputs or {})
-    if "m_raw" not in got:
-        match = T.match_terms_plain if plain else T.match_terms
-        got["m_raw"] = match(ta, pa["label_vals"], pa["ns_id"])
-    if "pconf" not in got:
-        got["pconf"] = (F.inbatch_port_conflict_plain if plain else F.inbatch_port_conflict)(pa, ids)
+    if plain:
+        if "m_raw" not in got:
+            got["m_raw"] = T.match_terms_plain(ta, pa["label_vals"], pa["ns_id"])
+        if "pconf" not in got:
+            got["pconf"] = F.inbatch_port_conflict_plain(pa, ids)
+    else:
+        got["m_raw"], got["pconf"] = inbatch_matches(pa, ta, ids, got.get("m_raw"), got.get("pconf"))
     if have_spread and "spread_tables" not in got:
         sel = got.get("sel")
         if plain:

@@ -72,23 +72,50 @@ __device__ __forceinline__ bool tolerated(
   return false;
 }
 
+// A host-port list as three arrays (the pod-vs-node filter's lists) ...
+struct PortArrays {
+  const int32_t* n;
+  const int32_t* p;
+  const int32_t* i;
+  __device__ __forceinline__ int32_t num(int k) const { return n[k]; }
+  __device__ __forceinline__ int32_t proto(int k) const { return p[k]; }
+  __device__ __forceinline__ int32_t ip(int k) const { return i[k]; }
+};
+
+// ... or as (num, proto, ip, -) words (the match launch's port slice keeps
+// a spec row's live lanes so in shared memory)
+struct PortLanes {
+  const int4* l;
+  __device__ __forceinline__ int32_t num(int k) const { return l[k].x; }
+  __device__ __forceinline__ int32_t proto(int k) const { return l[k].y; }
+  __device__ __forceinline__ int32_t ip(int k) const { return l[k].z; }
+};
+
 // HostPortInfo.CheckConflict (filters.port_clash) between two host-port
 // lists: the same (protocol, port) conflicts when either IP is the wildcard
 // or the two are equal; port 0 lanes are padding. The one definition the
-// pod-vs-node filter and the pod-vs-pod in-batch conflict table share.
-__device__ __forceinline__ bool ports_clash(
-    const int32_t* num_a, const int32_t* proto_a, const int32_t* ip_a, int PA,
-    const int32_t* num_b, const int32_t* proto_b, const int32_t* ip_b, int PB, int32_t wildcard_ip) {
+// pod-vs-node filter and the pod-vs-pod in-batch conflict table (the match
+// launch's port slice, topology.cu) share.
+template <class A, class B>
+__device__ __forceinline__ bool port_lists_clash(const A& a, int PA, const B& b, int PB, int32_t wildcard_ip) {
   for (int i = 0; i < PA; ++i) {
-    if (num_a[i] <= 0) continue;
+    const int32_t na = a.num(i);
+    if (na <= 0) continue;
     for (int j = 0; j < PB; ++j) {
-      if (num_b[j] > 0 && num_b[j] == num_a[i] && proto_b[j] == proto_a[i] &&
-          (ip_a[i] == wildcard_ip || ip_b[j] == wildcard_ip || ip_a[i] == ip_b[j])) {
+      const int32_t nb = b.num(j);
+      if (nb > 0 && nb == na && b.proto(j) == a.proto(i) &&
+          (a.ip(i) == wildcard_ip || b.ip(j) == wildcard_ip || a.ip(i) == b.ip(j))) {
         return true;
       }
     }
   }
   return false;
+}
+
+__device__ __forceinline__ bool ports_clash(
+    const int32_t* num_a, const int32_t* proto_a, const int32_t* ip_a, int PA,
+    const int32_t* num_b, const int32_t* proto_b, const int32_t* ip_b, int PB, int32_t wildcard_ip) {
+  return port_lists_clash(PortArrays{num_a, proto_a, ip_a}, PA, PortArrays{num_b, proto_b, ip_b}, PB, wildcard_ip);
 }
 
 // Python's floor division (jnp `//`) on int64.

@@ -43,15 +43,19 @@
 // driver removes the overlay with negated vectors and counts, an exact
 // integer inverse. Bound: bytes, a few KB a launch.
 //
-// The node-sharded twins (fold_commit_sharded_kernel, fold_usage_sharded_
+// The node-sharded folds (ops/fold.fold_commit_sharded, fold_usage_sharded_
 // kernel) replace kubernetes_tpu/ops/fold.py:make_sharded_fold_fns (:96),
 // its commit (:156) and usage (:164) folds under shard_map: the banks are
 // split over S node shards of Nl rows, the control arrays are replicated,
 // and each shard rebases the global rows onto its own and drops foreign
-// lanes, so no collective is needed. One launch covers every shard:
-// blockIdx.y is the shard, and each element adds only on the shard that
-// owns its row, with the same atomics. Bound: bytes, as the fold's; the
-// S-fold grid reads each element's control S times (a few hundred KB).
+// lanes, so no collective is needed. On one card the shards are row
+// ranges of one bank, so the sharded commit IS the single fold: an
+// element's row in [0, N) lies in exactly one shard and adds at the same
+// address, and any other row belongs to no shard and adds nothing, as the
+// reference's _local_rows drops it. ops/fold.fold_commit_sharded checks
+// N = S * Nl and launches fold_commit_kernel, each element read once. The
+// sharded usage fold keeps a grid of S slices (blockIdx.y the shard), each
+// lane read S times.
 #include "common.cuh"
 
 #define FOLD_THREADS 256
@@ -107,41 +111,39 @@ __device__ __forceinline__ void add_i16(int16_t* p, int32_t v) {
   if ((old & 0xFFFFu) + h > 0xFFFFu) red_add_u32(word, 0xFFFF0000u);  // the carry out of the high half again
 }
 
-// Element e of one commit fold, on the shard owning rows [lo, lo + Nl): a
-// row outside them (another shard's, or a padding sentinel) adds nothing;
-// the single-device fold is the one shard lo = 0, Nl = N.
-__device__ __forceinline__ void commit_element(const FoldArgs& a, int64_t e, int lo, int Nl) {
+// Element e of one commit fold: a lane or triple whose row is not in
+// [0, N) (a padding sentinel, a negative row) adds nothing.
+__device__ __forceinline__ void commit_element(const FoldArgs& a, int64_t e) {
   const int W = a.R + 2;
   const int64_t wide = (int64_t)a.B * W;
   if (e < wide) {  // an int64 column of a lane: its row and its value in one round trip
     const int i = (int)(e / W), c = (int)(e - (int64_t)i * W);
     const int64_t v = c < a.R ? __ldg(a.req + (int64_t)i * a.R + c) : __ldg(a.nz + (int64_t)i * 2 + (c - a.R));
-    const int32_t row = __ldg(a.rows + i) - lo;
-    if (row < 0 || row >= Nl) return;
-    add_i64(c < a.R ? a.requested + ((int64_t)lo + row) * a.R + c : a.nonzero_req + ((int64_t)lo + row) * 2 + (c - a.R),
-            v);
+    const int32_t row = __ldg(a.rows + i);
+    if (row < 0 || row >= a.N) return;
+    add_i64(c < a.R ? a.requested + (int64_t)row * a.R + c : a.nonzero_req + (int64_t)row * 2 + (c - a.R), v);
     return;
   }
   e -= wide;
   if (e < 2 * (int64_t)a.B) {  // a lane's pod count, then its signature cell
     const int i = (int)(e < a.B ? e : e - a.B);
-    const int32_t row = __ldg(a.rows + i) - lo, c = __ldg(a.cnt + i);
+    const int32_t row = __ldg(a.rows + i), c = __ldg(a.cnt + i);
     if (e < a.B) {
-      if (row >= 0 && row < Nl && c != 0) red_add_u32(a.pod_count + lo + row, (unsigned int)c);
+      if (row >= 0 && row < a.N && c != 0) red_add_u32(a.pod_count + row, (unsigned int)c);
       return;
     }
     const int32_t s = __ldg(a.sig + i);
-    if (row < 0 || row >= Nl || s < 0 || s >= a.S) return;
-    add_i16(a.sig_counts + ((int64_t)lo + row) * a.S + s, c);
+    if (row < 0 || row >= a.N || s < 0 || s >= a.S) return;
+    add_i16(a.sig_counts + (int64_t)row * a.S + s, c);
     return;
   }
   e -= 2 * (int64_t)a.B;
   if (e < a.T) {  // a pattern triple
     const int j = (int)e;
-    const int32_t row = __ldg(a.pat_row + j) - lo, col = __ldg(a.pat_col + j);
+    const int32_t row = __ldg(a.pat_row + j), col = __ldg(a.pat_col + j);
     const int32_t v = __ldg(a.pat_cnt + j);
-    if (row < 0 || row >= Nl || col < 0 || col >= a.PT) return;
-    add_i16(a.pat_counts + ((int64_t)lo + row) * a.PT + col, v);
+    if (row < 0 || row >= a.N || col < 0 || col >= a.PT) return;
+    add_i16(a.pat_counts + (int64_t)row * a.PT + col, v);
   }
 }
 
@@ -151,17 +153,7 @@ __host__ __device__ __forceinline__ int64_t fold_elements(const FoldArgs& a) {
 }
 
 __global__ void __launch_bounds__(FOLD_THREADS) fold_commit_kernel(const FoldArgs a) {
-  commit_element(a, (int64_t)blockIdx.x * FOLD_THREADS + threadIdx.x, 0, a.N);
-}
-
-// the node-sharded fold: blockIdx.y is the shard
-struct ShardedFoldArgs {
-  FoldArgs fold;
-  int32_t S, Nl;  // shards, rows a shard (N = S * Nl)
-};
-
-__global__ void __launch_bounds__(FOLD_THREADS) fold_commit_sharded_kernel(const ShardedFoldArgs g) {
-  commit_element(g.fold, (int64_t)blockIdx.x * FOLD_THREADS + threadIdx.x, blockIdx.y * g.Nl, g.Nl);
+  commit_element(a, (int64_t)blockIdx.x * FOLD_THREADS + threadIdx.x);
 }
 
 struct FoldUsageArgs {
@@ -216,16 +208,6 @@ extern "C" int ktpu_fold_commit_banks(const FoldArgs* args, cudaStream_t stream)
 }
 
 static bool sharded_shape_ok(int S, int Nl, int N) { return S >= 1 && Nl >= 1 && (int64_t)S * Nl == N; }
-
-extern "C" int ktpu_fold_commit_sharded(const ShardedFoldArgs* args, cudaStream_t stream) {
-  if (!sharded_shape_ok(args->S, args->Nl, args->fold.N) || !fold_shape_ok(args->fold)) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (fold_elements(args->fold) > 0) {
-    fold_commit_sharded_kernel<<<dim3(fold_blocks(args->fold), args->S), FOLD_THREADS, 0, stream>>>(*args);
-  }
-  return (int)cudaGetLastError();
-}
 
 extern "C" int ktpu_fold_usage_sharded(const ShardedFoldUsageArgs* args, cudaStream_t stream) {
   if (!sharded_shape_ok(args->S, args->Nl, args->fold.N)) return (int)cudaErrorInvalidValue;

@@ -1,12 +1,12 @@
-// Inter-pod affinity kernels: InterPodAffinityMatches, the inter-pod
-// affinity priority and the solver's pairwise host-port conflict table.
+// Inter-pod affinity kernels: InterPodAffinityMatches and the inter-pod
+// affinity priority. (The solver's pairwise host-port conflict table is the
+// match launch's port slice, topology.cu.)
 //
 // Replace, in kubernetes_tpu/ops:
 //   ktpu_interpod_filter        topology.py:281 interpod_filter, with _bucket_of,
 //                               _seg_sum, _sig_cnt_node, _gather_rows, _scatter_and
 //                               and _scatter_or (:164) inside
 //   ktpu_interpod_score         topology.py:363 interpod_score
-//   ktpu_inbatch_port_conflict  pipeline.py:178 _inbatch_tensors' [U, U] port_clash
 //
 // Existing pods enter twice: as label SIGNATURES (state/tensors.SigBank,
 // counts[N, S] int16) matched by the batch's terms, and their own terms as
@@ -559,33 +559,4 @@ extern "C" int ktpu_interpod_score(const InterpodArgs* args, cudaStream_t stream
     return (int)cudaErrorInvalidValue;
   }
   return launch_cluster((const void*)interpod_score_cluster_kernel, a.C, THREADS, (size_t)a.smem, a, stream, a.U);
-}
-
-// ---------------------------------------------------------------------------
-// inbatch_port_conflict: [U, U], one thread per spec pair
-// ---------------------------------------------------------------------------
-
-struct PortConflictArgs {
-  const int32_t* port_num;    // [U, PP]
-  const int32_t* port_proto;  // [U, PP]
-  const int32_t* port_ip;     // [U, PP]
-  uint8_t* out;               // [U, U]
-  int32_t U, PP, wildcard_ip;
-};
-
-__global__ void inbatch_port_conflict_kernel(const PortConflictArgs a) {
-  const int64_t i = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (i >= (int64_t)a.U * a.U) return;
-  const int64_t u = i / a.U, w = i % a.U;
-  a.out[i] = ports_clash(a.port_num + u * a.PP, a.port_proto + u * a.PP, a.port_ip + u * a.PP, a.PP,
-                         a.port_num + w * a.PP, a.port_proto + w * a.PP, a.port_ip + w * a.PP, a.PP,
-                         a.wildcard_ip) ? 1 : 0;
-}
-
-extern "C" int ktpu_inbatch_port_conflict(const PortConflictArgs* args, cudaStream_t stream) {
-  const int64_t pairs = (int64_t)args->U * args->U;
-  if (pairs > 0) {
-    inbatch_port_conflict_kernel<<<(unsigned)((pairs + THREADS - 1) / THREADS), THREADS, 0, stream>>>(*args);
-  }
-  return (int)cudaGetLastError();
 }

@@ -3,8 +3,10 @@
 //
 // Replace, in kubernetes_tpu/ops/topology.py:
 //   ktpu_match_terms            match_terms (:49), up to MATCH_PROBLEMS
-//                               (terms, subjects) problems in one launch
-//   ktpu_spread_filter          spread_filter (:182) with match_terms,
+//                               (terms, subjects) problems in one launch,
+//                               and with them, or alone, pipeline.py:178
+//                               _inbatch_tensors' [U, U] port_clash table
+//   ktpu_spread_filter         spread_filter (:182) with match_terms,
 //                               _bucket_of, _seg_sum, _sig_cnt_node,
 //                               _merge_same_key, _gather_rows and
 //                               _scatter_and inside, and the metadata that
@@ -232,6 +234,12 @@ __device__ __forceinline__ bool selector_matches(
 // slot); the subjects' labels staged at the slots the tile's tests name
 // only, a column a slot (conflict-free along the subjects); then every pair
 // tested from shared memory alone, written along the subjects.
+//
+// The launch may carry the batch's in-batch host-port table beside its term
+// problems (or alone: a port-only launch, count 0): the slice blockIdx.z ==
+// count, see port_table below. The solve's in-batch tracking and the
+// arbiter read it with the batch's term x spec-row matches, so it rides in
+// the launch that makes those.
 // ---------------------------------------------------------------------------
 
 #define MATCH_PROBLEMS 4
@@ -254,10 +262,20 @@ struct MatchProblem {
   int32_t xtile;                // subjects a CTA (ops/topology.match_layout)
 };
 
+struct PortProblem {
+  const int32_t* num;    // [U, PP] (0: a padding lane)
+  const int32_t* proto;  // [U, PP]
+  const int32_t* ip;     // [U, PP]
+  uint8_t* out;          // [U, U] bool, or null: no port table in the launch
+  int32_t U, PP, wildcard_ip;
+  int32_t rows, cols;    // a CTA's tile: spec rows x columns (ops/topology.port_layout)
+};
+
 struct MatchArgs {
   MatchProblem p[MATCH_PROBLEMS];
-  int32_t count;  // problems in use
-  int32_t smem;   // a CTA's dynamic shared memory: the largest problem's
+  PortProblem port;
+  int32_t count;  // term problems in use
+  int32_t smem;   // a CTA's dynamic shared memory: the largest problem's or the port slice's
 };
 
 // the int32 words of a tile's term rows as the bank holds them: the int32
@@ -280,9 +298,117 @@ __host__ __device__ __forceinline__ size_t match_smem_bytes(const MatchProblem& 
               p.K + (size_t)match_slot_cap(p) * (p.xtile + 1) + p.xtile);
 }
 
+// ---------------------------------------------------------------------------
+// The port slice: [U, U] bool, out[u, w] = some host port of spec row u
+// clashes with one of spec row w. Replaces kubernetes_tpu/ops/pipeline.py:178
+// _inbatch_tensors' pairwise port_clash. CTA `tile` (blockIdx.y * gridDim.x
+// + blockIdx.x) takes a tile of `rows` spec rows x `cols` columns (a
+// multiple of 16; ops/topology.port_layout):
+//   1. one thread a tile row or column makes ONE pass over that spec row's
+//      PP lanes (their loads issued together) and keeps the live lanes
+//      (num > 0) compacted at the row's first slots as (num, proto, ip, -)
+//      words, beside its live count;
+//   2. one thread a cell, 16 consecutive columns of one row a half-warp: a
+//      pair whose row or column has no live lane is false without a test;
+//      a live pair runs port_lists_clash (common.cuh, the pod-vs-node
+//      filter's rule) over the compacted lanes; the warp's ballot gathers
+//      the cells and one lane of each half-warp writes its 16 bytes in ONE
+//      16-byte store (each thread its own byte where U is not a multiple
+//      of 16).
+// A cell a thread: a live pair's test is a chain of dependent shared-memory
+// reads over both lists (~0.7 us on the card), so no thread takes more than
+// a cell or two at the PORT_TILE tile, and at most four where the tile
+// widens to fit the term problems' plane (ops/topology.PORT_CELLS).
+// Bound: bytes (the [U, PP] lists read once, [U, U] written once); bench.py's
+// batches hold no host port, so a CTA costs one round trip of loads and its
+// stores.
+// ---------------------------------------------------------------------------
+
+#define PORT_LOAD 8  // a row's lanes loaded at once
+
+// the slice's shared memory: the tile rows' and columns' lanes, then their
+// live counts (ops/topology.port_layout)
+__host__ __device__ __forceinline__ size_t port_smem_bytes(const PortProblem& q) {
+  return ((size_t)16 * q.PP + 4) * ((size_t)q.rows + q.cols);
+}
+
+__host__ __device__ __forceinline__ int port_tiles(const PortProblem& q) {
+  return ((q.U + q.rows - 1) / q.rows) * ((q.U + q.cols - 1) / q.cols);
+}
+
+// spec row `row`'s live lanes compacted into lanes[0 ...]; returns their count
+__device__ __forceinline__ int stage_port_row(const PortProblem& q, int row, int4* lanes) {
+  const int64_t base = (int64_t)row * q.PP;
+  int c = 0;
+  for (int k0 = 0; k0 < q.PP; k0 += PORT_LOAD) {
+    int32_t num[PORT_LOAD], proto[PORT_LOAD], ip[PORT_LOAD];
+#pragma unroll
+    for (int k = 0; k < PORT_LOAD; ++k) {  // the loads first
+      const bool in = k0 + k < q.PP;
+      num[k] = in ? __ldg(q.num + base + k0 + k) : 0;
+      proto[k] = in ? __ldg(q.proto + base + k0 + k) : 0;
+      ip[k] = in ? __ldg(q.ip + base + k0 + k) : 0;
+    }
+#pragma unroll
+    for (int k = 0; k < PORT_LOAD; ++k) {
+      if (num[k] > 0) lanes[c++] = make_int4(num[k], proto[k], ip[k], 0);
+    }
+  }
+  return c;
+}
+
+__device__ __forceinline__ void port_table(const PortProblem& q, int tile, int32_t* smem) {
+  const int col_tiles = (q.U + q.cols - 1) / q.cols;
+  if (tile >= port_tiles(q)) return;
+  const int r0 = (tile / col_tiles) * q.rows, c0 = (tile % col_tiles) * q.cols;
+  const int nr = min(q.rows, q.U - r0), nc = min(q.cols, q.U - c0);
+  int4* lanes = reinterpret_cast<int4*>(smem);                                     // [rows + cols, PP]
+  int32_t* cnt = reinterpret_cast<int32_t*>(lanes + (size_t)(q.rows + q.cols) * q.PP);  // [rows + cols]
+  // 1. the tile's rows, then its columns: one thread a spec row
+  for (int t = threadIdx.x; t < nr + nc; t += THREADS) {
+    const int slot = t < nr ? t : q.rows + (t - nr);
+    cnt[slot] = stage_port_row(q, t < nr ? r0 + t : c0 + (t - nr), lanes + (size_t)slot * q.PP);
+  }
+  __syncthreads();
+  // 2. a cell a thread, rows along the tile: 16 columns of a row a half-warp
+  const bool vec = (q.U & 15) == 0 && (reinterpret_cast<uintptr_t>(q.out) & 15) == 0;
+  const int lane = threadIdx.x & 31;
+  for (int i0 = 0; i0 < q.rows * q.cols; i0 += THREADS) {  // the same trip count for every thread
+    const int i = i0 + threadIdx.x, r = i / q.cols, c = i - r * q.cols;
+    const bool in = i < q.rows * q.cols && r < nr && c < nc;
+    bool hit = false;
+    if (in) {
+      const int rc = cnt[r], cc = cnt[q.rows + c];
+      hit = rc > 0 && cc > 0 &&
+            port_lists_clash(PortLanes{lanes + (size_t)r * q.PP}, rc, PortLanes{lanes + (size_t)(q.rows + c) * q.PP},
+                             cc, q.wildcard_ip);
+    }
+    const unsigned bits = __ballot_sync(0xffffffffu, hit);
+    uint8_t* dst = q.out + (int64_t)(r0 + r) * q.U + c0 + c;
+    if (vec) {  // a half-warp's 16 columns, one row, all in range: one store by its first lane
+      if (in && (lane & 15) == 0) {
+        const unsigned h = bits >> (lane & 16);
+        uint32_t w[4];
+#pragma unroll
+        for (int k = 0; k < 4; ++k) {
+          w[k] = ((h >> (4 * k)) & 1u) | (((h >> (4 * k + 1)) & 1u) << 8) | (((h >> (4 * k + 2)) & 1u) << 16) |
+                 (((h >> (4 * k + 3)) & 1u) << 24);
+        }
+        *reinterpret_cast<uint4*>(dst) = make_uint4(w[0], w[1], w[2], w[3]);
+      }
+    } else if (in) {
+      *dst = hit ? 1 : 0;
+    }
+  }
+}
+
 __global__ void __launch_bounds__(THREADS) match_terms_kernel(const __grid_constant__ MatchArgs a) {
   extern __shared__ __align__(16) int32_t msm[];
   __shared__ int32_t warp_cnt[THREADS / 32];
+  if ((int)blockIdx.z == a.count) {  // the port slice
+    port_table(a.port, blockIdx.y * gridDim.x + blockIdx.x, msm);
+    return;
+  }
   const MatchProblem& p = a.p[blockIdx.z];  // read in place from the launch's parameters
   const int t0 = blockIdx.y * MATCH_TERM_TILE, x0 = blockIdx.x * p.xtile;
   if (t0 >= p.TT || x0 >= p.X) return;
@@ -370,10 +496,17 @@ __global__ void __launch_bounds__(THREADS) match_terms_kernel(const __grid_const
   }
 }
 
+// The launch's grid (ops/topology.match_grid): x and y cover every term
+// problem's tiles, z one slice a problem and the port slice last; the port
+// slice's CTAs are the first `tiles` of its x-y plane. ops/topology.
+// port_layout widens the slice's tiles until they fit the term problems'
+// plane where a CTA can take them; x grows only where they still outnumber
+// it (those extra CTAs of a term slice find no tile and return).
 extern "C" int ktpu_match_terms(const MatchArgs* args, cudaStream_t stream) {
   const MatchArgs& a = *args;
-  if (a.count < 1 || a.count > MATCH_PROBLEMS) return (int)cudaErrorInvalidValue;
-  int gx = 0, gy = 0;
+  const bool port = a.port.out != nullptr;
+  if (a.count < 0 || a.count > MATCH_PROBLEMS || a.count + (int)port < 1) return (int)cudaErrorInvalidValue;
+  int gx = 1, gy = 1;
   for (int z = 0; z < a.count; ++z) {
     const MatchProblem& p = a.p[z];
     if (p.TT < 1 || p.X < 1 || p.K < 1 || p.xtile < 1 || match_smem_bytes(p) > (size_t)a.smem) {
@@ -383,9 +516,17 @@ extern "C" int ktpu_match_terms(const MatchArgs* args, cudaStream_t stream) {
     gx = bx > gx ? bx : gx;
     gy = by > gy ? by : gy;
   }
+  if (port) {
+    const PortProblem& q = a.port;
+    if (q.U < 1 || q.PP < 1 || q.rows < 1 || q.cols < 16 || (q.cols & 15) || port_smem_bytes(q) > (size_t)a.smem) {
+      return (int)cudaErrorInvalidValue;
+    }
+    const int tiles = port_tiles(q);
+    if ((int64_t)gx * gy < tiles) gx = (tiles + gy - 1) / gy;
+  }
   int rc;
   if ((rc = set_smem((const void*)match_terms_kernel, (size_t)a.smem))) return rc;
-  match_terms_kernel<<<dim3(gx, gy, a.count), THREADS, (size_t)a.smem, stream>>>(a);
+  match_terms_kernel<<<dim3(gx, gy, a.count + (int)port), THREADS, (size_t)a.smem, stream>>>(a);
   return (int)cudaGetLastError();
 }
 

@@ -47,10 +47,10 @@ NVCC_FLAGS = (
 ENTRY_POINTS = (
     "ktpu_filter_mask", "ktpu_score_matrix", "ktpu_solve",
     "ktpu_match_terms", "ktpu_spread_score", "ktpu_selector_spread_score",
-    "ktpu_interpod_filter", "ktpu_interpod_score", "ktpu_inbatch_port_conflict",
+    "ktpu_interpod_filter", "ktpu_interpod_score",
     "ktpu_spread_filter", "ktpu_arbitrate", "ktpu_fold_commit_banks",
     "ktpu_preempt_batch", "ktpu_fold_usage", "ktpu_gather_score_rows",
-    "ktpu_gather_batch", "ktpu_scatter_slab", "ktpu_fold_commit_sharded", "ktpu_fold_usage_sharded",
+    "ktpu_gather_batch", "ktpu_scatter_slab", "ktpu_fold_usage_sharded",
     # cluster capacity queries of the cluster launches (ktpu_solve,
     # ktpu_arbitrate): (const <Args>*, int* out) -> cudaError_t
     "ktpu_solve_clusters", "ktpu_arbitrate_clusters",

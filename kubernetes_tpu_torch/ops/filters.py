@@ -12,7 +12,9 @@ CPU tensors it runs the plain PyTorch version below, a straight port of the
 JAX arithmetic. Any other device raises. `inbatch_port_conflict` — the
 spec-pair host-port table of the solver's in-batch tracking
 (ops/pipeline._inbatch_tensors) — shares `port_clash` with the
-PodFitsHostPorts mask; its kernel is in `csrc/interpod.cu`.
+PodFitsHostPorts mask; its kernel is the port slice of the match launch in
+`csrc/topology.cu`, which carries the table beside the batch's term
+matches.
 """
 
 from __future__ import annotations
@@ -387,41 +389,20 @@ def inbatch_port_conflict_plain(pods: Arrays, ids) -> torch.Tensor:
     ).any(dim=3).any(dim=2)
 
 
-PORT_CONFLICT_ENTRY = "ktpu_inbatch_port_conflict"
-
-
-class PortConflictArgs(ctypes.Structure):
-    """Mirror of `struct PortConflictArgs` in csrc/interpod.cu."""
-
-    _fields_ = (
-        [(k, ctypes.c_void_p) for k in ("port_num", "port_proto", "port_ip", "out")]
-        + [(d, ctypes.c_int32) for d in ("U", "PP", "wildcard_ip")]
-    )
-
-
-def port_conflict_args(pods: Arrays, ids):
-    """The port-conflict kernel's argument struct and the [U, U] output."""
-    u, pp = pods["port_num"].shape
-    out = torch.empty((u, u), dtype=torch.bool, device=pods["port_num"].device)
-    a = PortConflictArgs()
-    for k in ("port_num", "port_proto", "port_ip"):
-        setattr(a, k, build.ptr(pods[k], torch.int32, (u, pp)))
-    a.out = build.ptr(out, torch.bool)
-    a.U, a.PP, a.wildcard_ip = u, pp, int(ids["wildcard_ip"])
-    return a, out
-
-
 def inbatch_port_conflict(pods: Arrays, ids) -> torch.Tensor:
     """The [U, U] spec-pair host-port conflict table. CPU tensors run the
-    plain version; CUDA tensors launch csrc/interpod.cu (counted in
-    `inbatch_port_conflict.launches`)."""
+    plain version; CUDA tensors launch csrc/topology.cu's match kernel with
+    the port table alone (counted here, in `inbatch_port_conflict.launches`;
+    the main path takes the table from the batch's match launch instead,
+    `topology.match_terms_multi(..., ports=...)`)."""
     dev = pods["port_num"].device
     if dev.type == "cpu":
         return inbatch_port_conflict_plain(pods, ids)
     if dev.type == "cuda":
-        args, out = port_conflict_args(pods, ids)
-        build.launch(PORT_CONFLICT_ENTRY, args, dev)
-        inbatch_port_conflict.launches += 1
+        from .topology import launch_match  # the topology module imports this one
+
+        args, (out,) = launch_match([], (pods, ids))
+        inbatch_port_conflict.launches += int(bool(args.port.out))
         return out
     raise ValueError(f"no filter kernel for device {dev}")
 

@@ -50,9 +50,11 @@ Nl rows each (rows [s * Nl, (s + 1) * Nl) of the one tensor). The control
 arrays are replicated; each shard rebases the global rows onto its own and
 drops foreign lanes, so no collective is needed. `fold_commit_sharded` and
 `fold_usage_sharded` write that shard axis out (their plain versions loop
-over the shards' row views); on CUDA tensors one launch of
-`csrc/fold.cu`'s sharded kernels covers every shard (counted in their
-`.launches`).
+over the shards' row views); on CUDA tensors one launch covers every
+shard (counted in their `.launches`). On one card the shards are row
+ranges of one bank, so the sharded commit is the single fold's launch: a
+row in [0, N) lies in exactly one shard and adds at the same address, and
+any other row belongs to no shard and adds nothing.
 """
 
 from __future__ import annotations
@@ -69,7 +71,6 @@ from ..parallel.mesh import node_shards, shard_rows
 
 FOLD_ENTRY = "ktpu_fold_commit_banks"
 FOLD_USAGE_ENTRY = "ktpu_fold_usage"
-FOLD_SHARDED_ENTRY = "ktpu_fold_commit_sharded"
 FOLD_USAGE_SHARDED_ENTRY = "ktpu_fold_usage_sharded"
 
 
@@ -289,12 +290,12 @@ def fold_commit_packed(requested, nonzero_req, pod_count, sig_counts, pat_counts
         raise ValueError(f"no fold kernel for device {dev}")
     buf = torch.empty(ctl.buf.shape[0], dtype=torch.uint8, device=dev)
     buf.copy_(ctl.buf, non_blocking=True)
-    args = packed_args(banks, ctl, buf.data_ptr())
+    if shards is not None:
+        shard_rows(requested.shape[0], shards)  # raises unless N = S * Nl
+    build.launch(FOLD_ENTRY, packed_args(banks, ctl, buf.data_ptr()), dev)
     if shards is None:
-        build.launch(FOLD_ENTRY, args, dev)
         fold_commit_banks.launches += 1
     else:
-        build.launch(FOLD_SHARDED_ENTRY, ShardedFoldArgs(args, shards, shard_rows(requested.shape[0], shards)), dev)
         fold_commit_sharded.launches += 1
     return banks
 
@@ -382,26 +383,20 @@ def fold_commit_sharded_plain(shards: int, requested, nonzero_req, pod_count, si
     return requested, nonzero_req, pod_count, sig_counts, pat_counts
 
 
-class ShardedFoldArgs(ctypes.Structure):
-    """Mirror of `struct ShardedFoldArgs` in csrc/fold.cu."""
-
-    _fields_ = [("fold", FoldArgs), ("S", ctypes.c_int32), ("Nl", ctypes.c_int32)]
-
-
 def fold_commit_sharded(shards: int, requested, nonzero_req, pod_count, sig_counts, pat_counts,
                         rows, req, nz, cnt, sig, pat_row, pat_col, pat_cnt):
     """The commit fold over `shards` node shards, in place. CPU tensors run
-    the plain version; CUDA tensors launch csrc/fold.cu's sharded kernel,
-    every shard in one launch (counted in `fold_commit_sharded.launches`).
-    Returns the banks."""
+    the plain version; CUDA tensors check N = S * Nl and launch the single
+    fold's kernel, which on one card's row-range shards adds every element
+    where the shard owning its row would (counted in
+    `fold_commit_sharded.launches`). Returns the banks."""
     banks = (requested, nonzero_req, pod_count, sig_counts, pat_counts)
     dev = requested.device
     if dev.type == "cpu":
         return fold_commit_sharded_plain(shards, *banks, rows, req, nz, cnt, sig, pat_row, pat_col, pat_cnt)
     if dev.type == "cuda":
-        nl = shard_rows(requested.shape[0], shards)
-        args = ShardedFoldArgs(fold_args(*banks, rows, req, nz, cnt, sig, pat_row, pat_col, pat_cnt), shards, nl)
-        build.launch(FOLD_SHARDED_ENTRY, args, dev)
+        shard_rows(requested.shape[0], shards)  # raises unless N = S * Nl
+        build.launch(FOLD_ENTRY, fold_args(*banks, rows, req, nz, cnt, sig, pat_row, pat_col, pat_cnt), dev)
         fold_commit_sharded.launches += 1
         return banks
     raise ValueError(f"no fold kernel for device {dev}")

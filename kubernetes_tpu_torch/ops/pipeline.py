@@ -105,7 +105,7 @@ def _score_parts(cfg: SolveConfig, kinds: frozenset) -> tuple:
 
 def match_plan(
     pa: Arrays, cfg: SolveConfig, kinds: frozenset, *, ea: Optional[Arrays], ta: Optional[Arrays],
-    xa: Optional[Arrays], score: bool = True, track_inbatch: bool = False,
+    xa: Optional[Arrays], score: bool = True, track_inbatch: bool = False, ids=None,
 ) -> Dict[str, torch.Tensor]:
     """Every distinct raw term-match matrix a batch's consumers read, all
     from ONE match launch (`topology.match_terms_multi`; none where no
@@ -117,6 +117,10 @@ def match_plan(
                      filter's and score's "existing"
       m_bb  [TT, U]  batch terms x spec rows, with namespaces: the solve's
                      in-batch tracking and the arbiter's `m_raw`
+    and, with `track_inbatch` (which needs the interned `ids`), the
+    spec-pair host-port table of the same launch:
+      port_conflict [U, U]  the solve's in-batch tracking and the
+                     arbiter's `pconf`
     The spread programs match inside their own launches. Each consumer
     applies its own validity and kind masks to the raw matrix (on CPU
     tensors the plain versions read the same matrices)."""
@@ -128,11 +132,16 @@ def match_plan(
         want["m_sig"] = (ta, ea["label_vals"], ea["ns_id"])
     if "existing" in fparts | sparts:
         want["m_pt"] = (xa, pa["label_vals"], pa["ns_id"])
+    ports = None
     if track_inbatch:
+        if ids is None:
+            raise ValueError("the in-batch tracking's port table needs the interned ids")
         want["m_bb"] = (ta, pa["label_vals"], pa["ns_id"])
+        ports = (pa, ids)
     if not want:
         return {}
-    return dict(zip(want, T.match_terms_multi(list(want.values()))))
+    names = list(want) + (["port_conflict"] if ports is not None else [])
+    return dict(zip(names, T.match_terms_multi(list(want.values()), ports=ports)))
 
 
 def _mask(
@@ -278,23 +287,38 @@ def apply_carry(na: Arrays, carry: Optional[Tuple]) -> Arrays:
     }
 
 
+def inbatch_matches(pa: Arrays, ta: Arrays, ids, m_bb: Optional[torch.Tensor] = None,
+                    port_conflict: Optional[torch.Tensor] = None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(m_bb [TT, U], port_conflict [U, U]): the batch terms' raw matches
+    against the spec rows' labels and namespaces, and the spec-pair
+    host-port table — each taken as given (the batch's match plan's), the
+    missing ones from ONE match launch (`topology.match_terms_multi`; the
+    plain versions on CPU tensors)."""
+    if m_bb is not None and port_conflict is not None:
+        return m_bb, port_conflict
+    got = T.match_terms_multi([] if m_bb is not None else [(ta, pa["label_vals"], pa["ns_id"])],
+                              ports=None if port_conflict is not None else (pa, ids))
+    return (got[0] if m_bb is None else m_bb), (got[-1] if port_conflict is None else port_conflict)
+
+
 def _inbatch_tensors(na: Arrays, pa: Arrays, ta: Arrays, ids, n_buckets: Optional[int],
-                     m_bb: Optional[torch.Tensor] = None) -> Dict:
+                     m_bb: Optional[torch.Tensor] = None, port_conflict: Optional[torch.Tensor] = None) -> Dict:
     """solve_greedy's `inb` dict: what lets the solver serialize required
     anti-affinity and host-port conflicts WITHIN the batch. m_bb [TT, U]
-    (each term against the spec rows' labels and namespaces) is the batch's
-    match plan's, or comes from a match_terms launch when not given, and the
-    pairwise port-conflict table [U, U] from the
-    inbatch_port_conflict kernel; the solver reads each node's bucket at a
-    term's key from the node bank's dense labels (`label_dense`,
-    `topo_slot`), so no [TT, N] bucket table is built."""
+    (each term against the spec rows' labels and namespaces) and the
+    pairwise port-conflict table [U, U] are the batch's match plan's, or
+    come from one match launch when not given (`inbatch_matches`); the
+    solver reads each node's bucket at a term's key from the node bank's
+    dense labels (`label_dense`, `topo_slot`), so no [TT, N] bucket table
+    is built."""
+    m_bb, port_conflict = inbatch_matches(pa, ta, ids, m_bb, port_conflict)
     return {
         "anti": ta["valid"] & (ta["kind"] == ANTI_REQ),
         "owner": ta["owner"],
-        "m_bb": T.match_terms(ta, pa["label_vals"], pa["ns_id"]) if m_bb is None else m_bb,
+        "m_bb": m_bb,
         "topo_slot": ta["topo_slot"],
         "label_dense": na["label_dense"],
-        "port_conflict": F.inbatch_port_conflict(pa, ids),
+        "port_conflict": port_conflict,
         "n_buckets": int(n_buckets or na["valid"].shape[0]),
     }
 
@@ -314,7 +338,7 @@ def solve_inputs(
     na = apply_carry(na, carry)
     # the batch's term matches: every consumer's raw matrix from one launch
     matches = match_plan(pa, config or DEFAULT_SOLVE_CONFIG, kinds, ea=ea, ta=ta, xa=xa,
-                         track_inbatch=track_inbatch)
+                         track_inbatch=track_inbatch, ids=ids)
     mask, score = mask_and_score(
         na, pa, ids, config, term_kinds, ea=ea, ta=ta, au=au, xa=xa, n_buckets=n_buckets,
         arbiter_inputs=arbiter_inputs, matches=matches,
@@ -326,7 +350,8 @@ def solve_inputs(
         sig, pvalid, prio = pb["sig"], pb["valid"], pb["priority"]
     b = pvalid.shape[0]
     order = pop_order(prio, torch.arange(b, dtype=torch.int32, device=pvalid.device), pvalid)
-    inb = _inbatch_tensors(na, pa, ta, ids, n_buckets, matches.get("m_bb")) if track_inbatch else None
+    inb = (_inbatch_tensors(na, pa, ta, ids, n_buckets, matches.get("m_bb"), matches.get("port_conflict"))
+           if track_inbatch else None)
     if inb is not None and arbiter_inputs is not None:
         arbiter_inputs.update(m_raw=inb["m_bb"], pconf=inb["port_conflict"])
     kw = dict(

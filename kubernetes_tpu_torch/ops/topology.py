@@ -32,6 +32,14 @@ below 2^53 in the plain products), which give the same numbers there.
 spread_filter can also return its metadata (candidate nodes, merged
 per-(term, topology value) counts; `spread_hard_tables_plain`): the commit
 arbiter replays the skew predicate on it with the batch's commits added.
+
+The match launch also carries the batch's in-batch host-port table
+(`match_terms_multi(..., ports=(spec rows, ids))`, the [U, U] pairwise
+port_clash of the reference's `_inbatch_tensors`, whose plain version is
+`filters.inbatch_port_conflict_plain`): the solve's in-batch tracking and
+the commit arbiter read it beside the term x spec-row matches, so it rides
+in the launch that makes those (`filters.inbatch_port_conflict` is its
+port-only call).
 """
 
 from __future__ import annotations
@@ -44,6 +52,7 @@ import torch
 from ..kernels import build
 from ..state.terms import AFF_PREF, AFF_REQ, ANTI_PREF, ANTI_REQ, SEL_SPREAD, SPREAD_HARD, SPREAD_SOFT
 from ..state.tensors import OP_DOES_NOT_EXIST, OP_EXISTS, OP_IN, OP_NEVER, OP_NOT_IN
+from .filters import inbatch_port_conflict_plain
 
 Arrays = Dict[str, torch.Tensor]
 
@@ -477,11 +486,20 @@ _PART_BITS = {("filter", "existing"): 1, ("filter", "aff"): 2, ("filter", "anti"
 
 # csrc/topology.cu's match kernel: up to MATCH_PROBLEMS problems a launch,
 # tiles of MATCH_TERM_TILE terms x MATCH_XTILE subjects (fewer subjects
-# while their staged label rows would pass MATCH_LABEL_BYTES)
+# while their staged label rows would pass MATCH_LABEL_BYTES); its port
+# slice tiles of PORT_TILE spec rows x columns, a cell a thread (timed at
+# several tiles: PERF.md), widened beside term problems to at most
+# PORT_CELLS cells (4 a thread), whose staged lanes stay within PORT_SMEM
+# where fewer rows a tile can do it, else within PORT_SMEM_MAX (the card's
+# 227 KB a block less the kernel's static slots, with room to spare)
 MATCH_PROBLEMS = 4
 MATCH_TERM_TILE = 8
 MATCH_XTILE = 64
 MATCH_LABEL_BYTES = 48 * 1024
+PORT_TILE = (16, 16)
+PORT_CELLS = 4 * 256
+PORT_SMEM = 48 * 1024
+PORT_SMEM_MAX = 220 * 1024
 
 
 class MatchProblem(ctypes.Structure):
@@ -495,10 +513,20 @@ class MatchProblem(ctypes.Structure):
     )
 
 
+class PortProblem(ctypes.Structure):
+    """Mirror of `struct PortProblem` in csrc/topology.cu."""
+
+    _fields_ = (
+        [(k, ctypes.c_void_p) for k in ("num", "proto", "ip", "out")]
+        + [(d, ctypes.c_int32) for d in ("U", "PP", "wildcard_ip", "rows", "cols")]
+    )
+
+
 class MatchArgs(ctypes.Structure):
     """Mirror of `struct MatchArgs` in csrc/topology.cu."""
 
-    _fields_ = [("p", MatchProblem * MATCH_PROBLEMS), ("count", ctypes.c_int32), ("smem", ctypes.c_int32)]
+    _fields_ = [("p", MatchProblem * MATCH_PROBLEMS), ("port", PortProblem), ("count", ctypes.c_int32),
+                ("smem", ctypes.c_int32)]
 
 
 class SpreadArgs(ctypes.Structure):
@@ -570,15 +598,78 @@ def match_layout(k: int, ml: int, ex: int, vals: int, ns: int) -> Dict[str, int]
                                       + cap * (xt + 1) + xt)}
 
 
-def match_args(problems: Sequence[Tuple[Arrays, torch.Tensor, Optional[torch.Tensor]]]):
+def port_layout(u: int, pp: int, plane: Optional[int] = None,
+                tile: Optional[Tuple[int, int]] = None) -> Dict[str, int]:
+    """The match launch's port slice as csrc/topology.cu's `port_table`,
+    `port_tiles` and `port_smem_bytes` lay it out, for U spec rows of PP
+    port lanes: CTA tiles of `rows` spec rows x `cols` columns (rows at
+    most U, cols a multiple of 16 at most U rounded up to 16), `tiles`
+    CTAs, and `smem` bytes (16-byte (num, proto, ip, -) words for each lane
+    of the tile's rows and columns, then their live counts).
+
+    The tile is PORT_TILE, or `tile` (the CPU walk's). Long port lists
+    halve its rows, down to one, while its lanes pass PORT_SMEM, and may
+    then take up to PORT_SMEM_MAX. Beside term problems whose x-y plane
+    holds `plane` CTAs, its columns, then its rows, double while the slice
+    needs more CTAs than that plane holds and a CTA keeps within
+    PORT_CELLS cells and PORT_SMEM (the launch grows its x only where the
+    tiles still outnumber the plane). Raises where U or PP is 0 or one
+    spec row's lanes beside 16 columns' pass PORT_SMEM_MAX."""
+    rows, cols = tile or PORT_TILE
+    if u < 1 or pp < 1 or rows < 1 or cols < 16 or cols % 16:
+        raise ValueError(f"a port table needs spec rows, port lanes and a tile of whole 16-column groups, not U={u} "
+                         f"PP={pp} tile={rows}x{cols}")
+    width = -(-u // 16) * 16
+    rows, cols = min(rows, u), min(cols, width)
+
+    def smem(r, c):
+        return (16 * pp + 4) * (r + c)
+
+    def tiles(r, c):
+        return -(-u // r) * -(-u // c)
+
+    while rows > 1 and smem(rows, cols) > PORT_SMEM:
+        rows //= 2
+    if smem(rows, cols) > PORT_SMEM_MAX:
+        raise ValueError(f"a {rows}x{cols} port tile of {pp} lanes needs {smem(rows, cols)} bytes of shared memory, "
+                         f"past {PORT_SMEM_MAX}")
+    while plane is not None and tile is None and tiles(rows, cols) > plane:
+        wide, tall = min(2 * cols, width), min(2 * rows, u)
+        if cols < width and rows * wide <= PORT_CELLS and smem(rows, wide) <= PORT_SMEM:
+            cols = wide
+        elif rows < u and tall * cols <= PORT_CELLS and smem(tall, cols) <= PORT_SMEM:
+            rows = tall
+        else:
+            break
+    return {"rows": rows, "cols": cols, "tiles": tiles(rows, cols), "smem": smem(rows, cols)}
+
+
+def match_grid(terms: Sequence[Tuple[int, int, int]], port: Optional[Dict[str, int]] = None) -> Tuple[int, int, int]:
+    """The match launch's grid as `ktpu_match_terms` sizes it, for term
+    problems of (TT, X, xtile) and the port slice's layout (None: no port
+    table): x and y cover every problem's tiles, z holds one slice a
+    problem and the port slice last, whose CTAs are the first `tiles` of
+    its x-y plane (x grows where the problems' plane is smaller)."""
+    gx = max([1] + [-(-x // xt) for _, x, xt in terms])
+    gy = max([1] + [-(-tt // MATCH_TERM_TILE) for tt, _, _ in terms])
+    if port is not None and gx * gy < port["tiles"]:
+        gx = -(-port["tiles"] // gy)
+    return gx, gy, len(terms) + int(port is not None)
+
+
+def match_args(problems: Sequence[Tuple[Arrays, torch.Tensor, Optional[torch.Tensor]]], ports=None):
     """The match kernel's argument struct for up to MATCH_PROBLEMS (terms,
-    labels [X, K], namespaces [X] or None) problems on one CUDA device, and
-    each problem's [TT, X] bool output (an empty one is not launched).
-    Validates device, dtype, shape and contiguity (raises)."""
-    if not 1 <= len(problems) <= MATCH_PROBLEMS:
-        raise ValueError(f"{len(problems)} match problems: one launch takes 1 to {MATCH_PROBLEMS}")
+    labels [X, K], namespaces [X] or None) problems on one CUDA device and,
+    with `ports` = (spec-row arrays, ids), the batch's in-batch host-port
+    table in the same launch; and the outputs: each problem's [TT, X] bool
+    matrix (an empty one is not launched), then with `ports` the [U, U]
+    bool port table. Validates device, dtype, shape and contiguity
+    (raises)."""
+    if len(problems) > MATCH_PROBLEMS or not (problems or ports is not None):
+        raise ValueError(f"{len(problems)} match problems: one launch takes up to {MATCH_PROBLEMS}, and at least "
+                         f"one or a port table")
     a = MatchArgs()
-    outs, count, smem = [], 0, 0
+    outs, count, smem, plane = [], 0, 0, []
     for terms, labels, ns in problems:
         tt = terms["valid"].shape[0]
         x, k = labels.shape
@@ -602,27 +693,59 @@ def match_args(problems: Sequence[Tuple[Arrays, torch.Tensor, Optional[torch.Ten
         p.TT, p.X, p.K, p.ML, p.EX, p.VALS, p.NS, p.xtile = tt, x, k, ml, ex, vals, nsc, lay["xtile"]
         smem = max(smem, lay["smem"])
         count += 1
+        plane.append((tt, x, lay["xtile"]))
+    if ports is not None:
+        pods, ids = ports
+        u, pp = pods["port_num"].shape
+        table = torch.empty((u, u), dtype=torch.bool, device=pods["port_num"].device)
+        outs.append(table)
+        if u and pp:
+            gx, gy, _ = match_grid(plane)
+            lay = port_layout(u, pp, gx * gy if plane else None)
+            q = a.port
+            for key in ("num", "proto", "ip"):
+                setattr(q, key, build.ptr(pods["port_" + key], torch.int32, (u, pp)))
+            q.out = build.ptr(table, torch.bool, (u, u))
+            q.U, q.PP, q.wildcard_ip, q.rows, q.cols = u, pp, int(ids["wildcard_ip"]), lay["rows"], lay["cols"]
+            smem = max(smem, lay["smem"])
+        else:
+            table.zero_()
     a.count, a.smem = count, smem
     return a, outs
 
 
-def match_terms_multi(problems: Sequence[Tuple[Arrays, torch.Tensor, Optional[torch.Tensor]]]):
+def launch_match(problems: Sequence[Tuple[Arrays, torch.Tensor, Optional[torch.Tensor]]], ports=None):
+    """One launch of the match kernel on CUDA tensors (see match_args),
+    counted by the caller; nothing is launched where every output is empty.
+    Returns (the struct, the outputs)."""
+    args, outs = match_args(problems, ports)
+    if args.count or args.port.out:
+        dev = outs[0].device
+        build.launch(MATCH_ENTRY, args, dev)
+    return args, outs
+
+
+def match_terms_multi(problems: Sequence[Tuple[Arrays, torch.Tensor, Optional[torch.Tensor]]], ports=None):
     """match_terms for each (terms, labels, ns) problem, as a list of
-    [TT, X] bool matrices. CPU tensors run the plain version per problem;
-    CUDA tensors launch csrc/topology.cu's match kernel ONCE for up to
-    MATCH_PROBLEMS problems (counted in `match_terms.launches`, the
-    matrices in `match_terms.problems`, a launch of two or more in
-    `match_terms.multi_launches`)."""
-    dev = problems[0][1].device
+    [TT, X] bool matrices, followed, with `ports` = (spec-row arrays,
+    ids), by the batch's [U, U] in-batch host-port table
+    (filters.inbatch_port_conflict_plain's). CPU tensors run the plain
+    versions; CUDA tensors launch csrc/topology.cu's match kernel ONCE for
+    up to MATCH_PROBLEMS problems and the port table (counted in
+    `match_terms.launches`, the matrices in `match_terms.problems`, a
+    launch of two or more matrices in `match_terms.multi_launches`, the
+    port tables in `match_terms.port_tables`)."""
+    dev = problems[0][1].device if problems else ports[0]["port_num"].device
     if dev.type == "cpu":
-        return [match_terms_plain(*p) for p in problems]
+        outs = [match_terms_plain(*p) for p in problems]
+        return outs + ([inbatch_port_conflict_plain(*ports)] if ports is not None else [])
     if dev.type == "cuda":
-        args, outs = match_args(problems)
-        if args.count:
-            build.launch(MATCH_ENTRY, args, dev)
+        args, outs = launch_match(problems, ports)
+        if args.count or args.port.out:
             match_terms.launches += 1
             match_terms.problems += args.count
             match_terms.multi_launches += int(args.count > 1)
+            match_terms.port_tables += int(bool(args.port.out))
         return outs
     raise ValueError(f"no topology kernel for device {dev}")
 
@@ -637,6 +760,7 @@ def match_terms(terms: Arrays, labels: torch.Tensor, ns: Optional[torch.Tensor] 
 match_terms.launches = 0
 match_terms.problems = 0
 match_terms.multi_launches = 0
+match_terms.port_tables = 0
 
 
 def _term_ptrs(a, terms: Arrays, tt: int, keys) -> None:

@@ -1,8 +1,8 @@
 #!/usr/bin/env python3
 """Topology, slab and score-row kernels of two checkouts of the port, on one card.
 
-    python3 scripts/topology_ab.py --parent DIR [--mode spread|interpod|selector|slab|gather|scatter|fold|ipscore]
-                                   [--rounds 2]
+    python3 scripts/topology_ab.py --parent DIR
+        [--mode spread|interpod|selector|slab|gather|scatter|fold|ipscore|ports] [--rounds 2]
 
 DIR holds another checkout of the repository (for example the parent commit,
 unpacked with `git archive`). Each round measures the parent, then this
@@ -46,10 +46,20 @@ building its own kernels). Modes:
              cluster): the kernel alone (a checkout with
              ops/fold.fold_control launches over its packed live lanes, an
              older one over the padded program) and TensorMirror.fold_commit
-             through its wrapper (what a folded batch costs the driver)
+             through its wrapper (what a folded batch costs the driver);
+             and the node-sharded commit fold on 8 shards, the kernel
+             alone over the padded and the packed config-3 program
   ipscore    the inter-pod score entry (both parts, the match plan's
              matrices given) at the config-4 batch shapes, and through its
              wrapper
+  ports      the in-batch port table at the config-4 batch shapes: the
+             plan's match launch and the table (a checkout whose match
+             launch carries the table: one launch; an older one: the plan,
+             then the table's own kernel), relaunched and by device
+             duration; a tracked batch's match plan and `_inbatch_tensors`
+             through their wrappers; and the arbiter's `m_raw` and `pconf`
+             (`commit/arbiter._solve_inputs`) at the config-3-hard batch
+             shapes, an arbitrated batch the solve did not track
 
 For each: the relaunch mean (CUDA events over 200 calls) and the device
 duration from a torch.profiler (CUPTI) trace: the summed durations of the
@@ -78,6 +88,11 @@ KERNELS = {
     # the parent's gather a slab and this checkout's one for both
     "slab": ("gather_slab_kernel", "gather_batch_kernel"),
     "fold": ("fold_commit_kernel",),
+    # the parent's sharded kernel, and this checkout's single fold, which
+    # the sharded commit launches
+    "fold_sharded": ("fold_commit_sharded_kernel", "fold_commit_kernel"),
+    # the parent's match launch and port-table kernel, and this checkout's one
+    "ports": ("match_terms_kernel", "inbatch_port_conflict_kernel"),
     # the parent's two table kernels and score kernel, and this checkout's one
     "ipscore": ("pattern_table_kernel", "term_table_kernel", "interpod_score_kernel",
                 "interpod_score_cluster_kernel"),
@@ -590,6 +605,50 @@ def measure_fold(root: str) -> dict:
         for t, v in zip(resident, saved):
             t.copy_(v)
         out[f"{label}_lanes"] = [prog.pods, int(prog.rows.shape[0]), int((prog.pat_cnt != 0).sum()), prog.pat_bucket]
+        if label == "config3":
+            out.update(_sharded_fold(root, resident, ctl, prog, na["valid"].shape[0], packed_path))
+    return out
+
+
+def _sharded_fold(root, resident, ctl, prog, n, packed_path, shards=8):
+    """The node-sharded commit fold on `shards` shards, the kernel alone
+    over the padded program and (a checkout with the packed path) its
+    packed live lanes: relaunched and by device duration, each equal to
+    the plain version."""
+    import torch
+
+    import chip_smoke as CS
+    from kubernetes_tpu_torch.kernels import build
+    from kubernetes_tpu_torch.ops import fold as FO
+
+    dev = torch.device("cuda")
+    want = FO.fold_commit_sharded_plain(shards, *(t.clone() for t in resident), **ctl)
+    out = {}
+    kinds = [("padded", None)]
+    if packed_path:
+        packed = FO.fold_control(**{k: getattr(prog, k) for k in ctl}, n=n, pin=True)
+        kinds.append(("packed", packed))
+    for kind, pk in kinds:
+        kb = [t.clone() for t in resident]
+        if pk is None:
+            inner = FO.fold_args(*kb, **ctl)
+        else:
+            dbuf = pk.buf.to(dev)
+            inner = FO.packed_args(kb, pk, dbuf.data_ptr())
+        if hasattr(FO, "ShardedFoldArgs"):  # a checkout with a sharded commit kernel of its own
+            entry, args = FO.FOLD_SHARDED_ENTRY, FO.ShardedFoldArgs(inner, shards, n // shards)
+        else:
+            entry, args = FO.FOLD_ENTRY, inner
+
+        def launch():
+            build.launch(entry, args, dev)
+
+        launch()
+        torch.cuda.synchronize()
+        if any(not torch.equal(a, w) for a, w in zip(kb, want)):
+            raise SystemExit(f"{root}: the sharded fold differs from its plain version ({kind})")
+        out[f"sharded_{kind}_ms"] = CS.cuda_ms(launch, 200)
+        out[f"sharded_{kind}_device_ms"] = sum(device_ms(launch, KERNELS["fold_sharded"]).values())
     return out
 
 
@@ -626,9 +685,79 @@ def measure_ipscore(root: str) -> dict:
                                                                      m_pt=m_pt, m_sig=m_sig), 200)}
 
 
+def measure_ports(root: str) -> dict:
+    """The in-batch port table of the checkout at `root`: at the config-4
+    batch shapes the plan's three matrices and the table (one launch where
+    the match launch carries it, else the plan's launch and the table's
+    own kernel), relaunched from prebuilt structs and by device duration;
+    a tracked batch's match plan and `_inbatch_tensors` through their
+    wrappers; at the config-3-hard batch shapes the arbiter's `m_raw` and
+    `pconf` through `commit/arbiter._solve_inputs`. Every output equal to
+    its plain version."""
+    import inspect
+
+    import torch
+
+    import chip_smoke as CS
+    from kubernetes_tpu_torch.commit import arbiter as A
+    from kubernetes_tpu_torch.kernels import build
+    from kubernetes_tpu_torch.ops import filters as F
+    from kubernetes_tpu_torch.ops import pipeline as PP
+    from kubernetes_tpu_torch.ops import topology as TO
+
+    dev = torch.device("cuda")
+    fused = "ports" in inspect.signature(TO.match_args).parameters
+    nodes, existing, pods = CS.config4_batch(CS.CONFIG4_PODS // 2)
+    enc = CS.encode(nodes, existing, pods, dev)
+    na, ea, xa, ta, pa, ids, v = (enc[k] for k in ("na", "ea", "xa", "ta", "pa", "ids", "v"))
+    plan = [(ta, ea["label_vals"], ea["ns_id"]), (xa, pa["label_vals"], pa["ns_id"]),
+            (ta, pa["label_vals"], pa["ns_id"])]
+    want = F.inbatch_port_conflict_plain(pa, ids)
+    if fused:
+        margs, outs = TO.match_args(plan, (pa, ids))
+        launches = [margs]
+        table = outs[-1]
+    else:
+        margs, outs = TO.match_args(plan)
+        pargs, table = F.port_conflict_args(pa, ids)
+        launches = [margs, pargs]
+    entries = [TO.MATCH_ENTRY] + ([] if fused else [F.PORT_CONFLICT_ENTRY])
+
+    def plan_and_table():
+        for e, a in zip(entries, launches):
+            build.launch(e, a, dev)
+
+    plan_and_table()
+    torch.cuda.synchronize()
+    if not torch.equal(table, want) or any(not torch.equal(o, TO.match_terms_plain(*p)) for o, p in zip(outs, plan)):
+        raise SystemExit(f"{root}: the plan or the port table differs from its plain version")
+    kernels = device_ms(plan_and_table, KERNELS["ports"], per_call=1)
+    kinds = frozenset({"anti_req", "pref", "et_anti", "et_score"})
+    extra = {"ids": ids} if "ids" in inspect.signature(PP.match_plan).parameters else {}
+
+    def tracked():
+        got = PP.match_plan(pa, PP.DEFAULT_SOLVE_CONFIG, kinds, ea=ea, ta=ta, xa=xa, track_inbatch=True, **extra)
+        return PP._inbatch_tensors(na, pa, ta, ids, v, got["m_bb"], *([got["port_conflict"]] if extra else []))
+
+    if not torch.equal(tracked()["port_conflict"], want):
+        raise SystemExit(f"{root}: the tracked batch's port table differs from its plain version")
+    out = {"fused": fused, "plan_and_table_ms": CS.cuda_ms(plan_and_table, 200),
+           "plan_and_table_device_ms": sum(kernels.values()), "plan_and_table_kernels": kernels,
+           "tracked_wrapper_ms": CS.cuda_ms(tracked, 200)}
+    nodes, existing, pods, _ = CS.config3_batch(False, CS.CONFIG3_PODS // 2, hard=True)
+    h = CS.encode(nodes, existing, pods, dev)
+    args = (h["na"], h["pa"], h["ea"], h["ta"], h["ids"], {}, False, h["v"])
+    got = A._solve_inputs(*args, plain=False)
+    if not (torch.equal(got["pconf"], F.inbatch_port_conflict_plain(h["pa"], h["ids"]))
+            and torch.equal(got["m_raw"], TO.match_terms_plain(h["ta"], h["pa"]["label_vals"], h["pa"]["ns_id"]))):
+        raise SystemExit(f"{root}: the arbiter's m_raw or pconf differs from its plain version")
+    out["arbiter_inputs_ms"] = CS.cuda_ms(lambda: A._solve_inputs(*args, plain=False), 200)
+    return out
+
+
 MEASURES = {"spread": measure_spread, "interpod": measure_interpod, "selector": measure_selector,
             "slab": measure_slab, "gather": measure_gather, "scatter": measure_scatter, "fold": measure_fold,
-            "ipscore": measure_ipscore}
+            "ipscore": measure_ipscore, "ports": measure_ports}
 
 
 def measure(root: str, mode: str) -> dict:

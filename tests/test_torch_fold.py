@@ -219,16 +219,17 @@ def _carry_inputs(seed):
     return banks, ctl
 
 
-def fold_walk(banks, ctl, shards=1, rng=None):
-    """csrc/fold.cu's commit fold (`fold_commit_kernel`, and at shards > 1
-    `fold_commit_sharded_kernel`'s blockIdx.y) over the packed program
-    `ctl`: element by element as the kernel lays them out, reading only the
-    buffer's arrays (the live lanes; no padding is in it), each element's
-    add as the atomic the kernel issues. The atomics run in the kernel's
-    order, or with `rng` in a random interleaving in which each low-half
-    int16 add's carry correction is queued when its add returns and runs at
-    a random later point. Returns (banks, the (shard, element) keys read,
-    the carry corrections issued)."""
+def fold_walk(banks, ctl, rng=None):
+    """csrc/fold.cu's commit fold (`fold_commit_kernel`, which the sharded
+    commit launches too: on one card a row in [0, N) lies in exactly one
+    shard and adds at the same address) over the packed program `ctl`:
+    element by element as the kernel lays them out, reading only the buffer's arrays
+    (the live lanes; no padding is in it), each element's add as the atomic
+    the kernel issues. The atomics run in the kernel's order, or with `rng`
+    in a random interleaving in which each low-half int16 add's carry
+    correction is queued when its add returns and runs at a random later
+    point. Returns (banks, the elements read, the carry corrections
+    issued)."""
     a = {k: v.numpy() for k, v in ctl.arrays().items()}
     out = {k: v.copy() for k, v in banks.items()}
     n, r = out["requested"].shape
@@ -238,35 +239,32 @@ def fold_walk(banks, ctl, shards=1, rng=None):
     flat64 = {k: out[k].reshape(-1).view(np.uint64) for k in ("requested", "nonzero_req")}
     ops, seen, carries = [], [], 0
     b, t, w = ctl.b, ctl.t, r + 2
-    nl = n // shards
-    for shard in range(shards):
-        lo = shard * nl
-        for e in range(b * (r + 4) + t):
-            seen.append((shard, e))
-            if e < b * w:
-                i, c = divmod(e, w)
-                v = int(a["req"][i, c] if c < r else a["nz"][i, c - r])
-                row = int(a["rows"][i]) - lo
-                if 0 <= row < nl and v != 0:
-                    ops.append(("i64", "requested", (lo + row) * r + c, v) if c < r else
-                               ("i64", "nonzero_req", (lo + row) * 2 + c - r, v))
+    for e in range(b * (r + 4) + t):
+        seen.append(e)
+        if e < b * w:
+            i, c = divmod(e, w)
+            v = int(a["req"][i, c] if c < r else a["nz"][i, c - r])
+            row = int(a["rows"][i])
+            if 0 <= row < n and v != 0:
+                ops.append(("i64", "requested", row * r + c, v) if c < r else
+                           ("i64", "nonzero_req", row * 2 + c - r, v))
+            continue
+        e -= b * w
+        if e < 2 * b:
+            i = e if e < b else e - b
+            row, c = int(a["rows"][i]), int(a["cnt"][i])
+            if e < b:
+                if 0 <= row < n and c != 0:
+                    ops.append(("i32", "pod_count", row, c))
                 continue
-            e -= b * w
-            if e < 2 * b:
-                i = e if e < b else e - b
-                row, c = int(a["rows"][i]) - lo, int(a["cnt"][i])
-                if e < b:
-                    if 0 <= row < nl and c != 0:
-                        ops.append(("i32", "pod_count", lo + row, c))
-                    continue
-                sg = int(a["sig"][i])
-                if 0 <= row < nl and 0 <= sg < s_:
-                    ops.append(("i16", "sig_counts", (lo + row) * s_ + sg, c))
-                continue
-            j = e - 2 * b
-            row, col, c = int(a["pat_row"][j]) - lo, int(a["pat_col"][j]), int(a["pat_cnt"][j])
-            if 0 <= row < nl and 0 <= col < pt:
-                ops.append(("i16", "pat_counts", (lo + row) * pt + col, c))
+            sg = int(a["sig"][i])
+            if 0 <= row < n and 0 <= sg < s_:
+                ops.append(("i16", "sig_counts", row * s_ + sg, c))
+            continue
+        j = e - 2 * b
+        row, col, c = int(a["pat_row"][j]), int(a["pat_col"][j]), int(a["pat_cnt"][j])
+        if 0 <= row < n and 0 <= col < pt:
+            ops.append(("i16", "pat_counts", row * pt + col, c))
     pending = list(ops)
     while pending:
         kind, name, cell, v = pending.pop(int(rng.integers(len(pending))) if rng is not None else 0)
@@ -326,17 +324,18 @@ def test_packed_control_unpacks_to_the_program(seed):
 def test_element_walk_reads_each_element_once_and_equals_plain(seed, shards):
     """The kernel's element layout over the packed program: every (lane,
     column) element — R request columns, two non-zero columns, the pod
-    count, the signature cell — and every pattern triple taken once (once a
-    shard on S shards), nothing read past the live lanes (the buffer holds
-    no padding), the result equal to the plain version on the padded
-    program, the packed plain path and the JAX reference."""
+    count, the signature cell — and every pattern triple taken once (on S
+    shards too: the sharded commit launches the same grid), nothing
+    read past the live lanes (the buffer holds no padding), the result
+    equal to the plain version on the padded program, the packed plain
+    path and the JAX reference."""
     banks, ctl_np = _fold_inputs(seed)
     n = banks["requested"].shape[0]
     ctl = fold_control(**ctl_np, n=n)
     assert ctl.b < ctl_np["rows"].shape[0] or (ctl_np["rows"][-1] < n)
-    got, seen, _ = fold_walk(banks, ctl, shards=shards)
+    got, seen, _ = fold_walk(banks, ctl)
     r = banks["requested"].shape[1]
-    assert sorted(seen) == [(s, e) for s in range(shards) for e in range(ctl.b * (r + 4) + ctl.t)]
+    assert seen == list(range(ctl.b * (r + 4) + ctl.t))
     tb = {k: torch.from_numpy(v.copy()) for k, v in banks.items()}
     if shards == 1:
         want = fold_commit_banks_plain(*(tb[k] for k in BANKS), *(torch.from_numpy(ctl_np[k]) for k in PROGRAM))

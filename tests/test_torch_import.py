@@ -234,13 +234,14 @@ def test_ctypes_mirrors_cover_the_spread_filter_and_mask_structs():
 def test_ctypes_mirrors_cover_the_spread_score_and_match_structs():
     """The spread score's one-launch struct (the term fields its in-launch
     matching reads, its cluster layout, its device-memory tables) and the
-    multi-problem match struct are among the mirrors the check below holds
-    against the C structs."""
+    multi-problem match struct (with its port slice's problem) are among
+    the mirrors the check below holds against the C structs."""
     names = {cname: {f[0] for f in cls._fields_} for cls, cname, _ in _struct_mirrors()}
     assert {"t_has_selector", "t_ml_slot", "t_ex_vals", "e_labels", "merged_cnt", "merged_present", "R", "C",
             "slice", "vslice", "copies", "dense_cap", "smem"} <= names["SpreadArgs"]
     assert not {"m_sig", "member", "sig_list", "pair_cnt", "table_in_shared"} & names["SpreadArgs"]
-    assert names["MatchArgs"] == {"p", "count", "smem"} and "xtile" in names["MatchProblem"]
+    assert names["MatchArgs"] == {"p", "port", "count", "smem"} and "xtile" in names["MatchProblem"]
+    assert names["PortProblem"] == {"num", "proto", "ip", "out", "U", "PP", "wildcard_ip", "rows", "cols"}
 
 
 def test_ctypes_mirrors_cover_the_interpod_filter_and_selector_spread_structs():

@@ -168,7 +168,8 @@ PLAN_CASES = [
     ("config-3-services", frozenset({"spread_soft", "sel_spread"}), False, {"m_sig"}),
     ("config-3-hard", frozenset({"spread_hard"}), False, set()),
     ("existing-anti", frozenset({"et_anti"}), False, {"m_pt"}),
-    ("config-4", frozenset({"anti_req", "pref", "et_anti", "et_score"}), True, {"m_sig", "m_pt", "m_bb"}),
+    ("config-4", frozenset({"anti_req", "pref", "et_anti", "et_score"}), True,
+     {"m_sig", "m_pt", "m_bb", "port_conflict"}),
 ]
 
 
@@ -176,12 +177,19 @@ PLAN_CASES = [
 def test_match_plan_names_each_matrix_once(kinds, track, want):
     """ops/pipeline.match_plan computes exactly the distinct raw matrices a
     batch's consumers read (the spread programs match inside their own
-    launches), each equal to the JAX match_terms on the same inputs."""
+    launches), each equal to the JAX match_terms on the same inputs, and
+    with the in-batch tracking the port table of the same launch, equal to
+    the JAX _inbatch_tensors' port_conflict."""
     (rn, re, rx, rt, _, rp), (pn, pe, px, pt, _, pp) = both(2)
-    plan = PP.match_plan(pp, PP.DEFAULT_SOLVE_CONFIG, kinds, ea=pe, ta=pt, xa=px, track_inbatch=track)
+    ids = encoded("port", 2)[6]
+    plan = PP.match_plan(pp, PP.DEFAULT_SOLVE_CONFIG, kinds, ea=pe, ta=pt, xa=px, track_inbatch=track, ids=ids)
     assert set(plan) == want
     ref = {"m_sig": (rt, re), "m_pt": (rx, rp), "m_bb": (rt, rp)}
     for key, got in plan.items():
+        if key == "port_conflict":
+            rids = {k: jnp.asarray(v) for k, v in ids.items()}
+            same(RP._inbatch_tensors(rn, rp, rt, rids, 16)["port_conflict"], got)
+            continue
         terms, subj = ref[key]
         same(RTopo.match_terms(terms, subj["label_vals"], subj["ns_id"]), got)
 
@@ -194,8 +202,9 @@ def test_consumers_read_the_plan_matrices_exactly(seed, n_buckets):
     matrices return exactly what they return computing their own."""
     _, (pn, pe, px, pt, pa_, pp) = both(seed)
     ids = encoded("port", seed)[6]
-    plan = PP.match_plan(pp, PP.DEFAULT_SOLVE_CONFIG, PP.PORTED_TERM_KINDS, ea=pe, ta=pt, xa=px, track_inbatch=True)
-    assert set(plan) == {"m_sig", "m_pt", "m_bb"}
+    plan = PP.match_plan(pp, PP.DEFAULT_SOLVE_CONFIG, PP.PORTED_TERM_KINDS, ea=pe, ta=pt, xa=px, track_inbatch=True,
+                         ids=ids)
+    assert set(plan) == {"m_sig", "m_pt", "m_bb", "port_conflict"}
     for parts in FILTER_SUBSETS:
         assert torch.equal(PTopo.interpod_filter(pn, pe, pt, pa_, px, pp, parts, n_buckets, m_pt=plan["m_pt"],
                                                  m_sig=plan["m_sig"]),
@@ -204,8 +213,8 @@ def test_consumers_read_the_plan_matrices_exactly(seed, n_buckets):
         assert torch.equal(PTopo.interpod_score(pn, pe, pt, px, pp, parts, n_buckets, m_pt=plan["m_pt"],
                                                 m_sig=plan["m_sig"]),
                            PTopo.interpod_score(pn, pe, pt, px, pp, parts, n_buckets)), parts
-    got, alone = PP._inbatch_tensors(pn, pp, pt, ids, n_buckets, plan["m_bb"]), PP._inbatch_tensors(pn, pp, pt, ids,
-                                                                                                   n_buckets)
+    got = PP._inbatch_tensors(pn, pp, pt, ids, n_buckets, plan["m_bb"], plan["port_conflict"])
+    alone = PP._inbatch_tensors(pn, pp, pt, ids, n_buckets)
     assert got.keys() == alone.keys()
     for k, v in got.items():
         assert torch.equal(v, alone[k]) if isinstance(v, torch.Tensor) else v == alone[k], k

@@ -726,15 +726,117 @@ def test_interpod_score_kernel_equals_plain(cuda, seed, n_buckets):
             assert torch.equal(out, want), (parts, ctas)
 
 
-@pytest.mark.parametrize("seed", [0, 1])
-def test_inbatch_port_conflict_kernel_equals_plain(cuda, seed):
-    _, _, _, _, _, pa, ids = interpod_cluster(seed, cuda)
-    before = F.inbatch_port_conflict.launches
-    got = F.inbatch_port_conflict(pa, ids)
-    assert F.inbatch_port_conflict.launches == before + 1
-    want = F.inbatch_port_conflict_plain(pa, ids)
+def port_rows(seed, u, pp=8, device="cuda"):
+    """Spec-row port lists [U, PP] (tests/test_torch_port_table.py's
+    shape): about a third of the rows hold one to three live ports at
+    scattered lanes, from three numbers and two protocols, each IP the
+    wildcard (7) or one of two addresses; padding lanes carry stray
+    protocol and IP ids."""
+    g = torch.Generator().manual_seed(seed)
+    num = torch.zeros((u, pp), dtype=torch.int32)
+    proto = torch.randint(0, 6, (u, pp), generator=g, dtype=torch.int32)
+    ip = torch.randint(0, 14, (u, pp), generator=g, dtype=torch.int32)
+    for r in range(u):
+        if float(torch.rand(1, generator=g)) < 0.35:
+            lanes = torch.randperm(pp, generator=g)[:int(torch.randint(1, 4, (1,), generator=g))]
+            num[r, lanes] = torch.tensor([80, 443, 8080], dtype=torch.int32)[torch.randint(0, 3, (len(lanes),),
+                                                                                          generator=g)]
+            proto[r, lanes] = torch.randint(3, 5, (len(lanes),), generator=g, dtype=torch.int32)
+            ip[r, lanes] = torch.tensor([7, 11, 12], dtype=torch.int32)[torch.randint(0, 3, (len(lanes),),
+                                                                                     generator=g)]
+    return {"port_num": num.to(device), "port_proto": proto.to(device), "port_ip": ip.to(device)}, {"wildcard_ip": 7}
+
+
+PORT_US = [16, 32, 40, 128, 512]  # 40: byte stores
+
+
+@pytest.mark.parametrize("count", [0, 1, 2, 3])
+@pytest.mark.parametrize("u", PORT_US)
+def test_port_table_in_match_launch_equals_plain(cuda, u, count):
+    """The port table as a slice of a match launch holding 0 to 3 term
+    problems: each matrix and the table equal their plain versions; one
+    launch, counted as a match launch with a port table (count 0: a
+    port-only launch), none as a standalone port launch."""
+    na, ea, xa, ta, au, pa, ids = interpod_cluster(u % 3, cuda)
+    problems = [(ta, ea["label_vals"], ea["ns_id"]), (xa, pa["label_vals"], pa["ns_id"]),
+                (ta, pa["label_vals"], pa["ns_id"])][:count]
+    pods, pids = port_rows(u + count, u)
+    before = (TO.match_terms.launches, TO.match_terms.problems, TO.match_terms.port_tables,
+              F.inbatch_port_conflict.launches)
+    got = TO.match_terms_multi(problems, ports=(pods, pids))
+    assert (TO.match_terms.launches, TO.match_terms.problems, TO.match_terms.port_tables,
+            F.inbatch_port_conflict.launches) == (before[0] + 1, before[1] + count, before[2] + 1, before[3])
+    assert len(got) == count + 1
+    for g, pr in zip(got, problems):
+        assert torch.equal(g, TO.match_terms_plain(*pr))
+    want = F.inbatch_port_conflict_plain(pods, pids)
+    assert got[-1].dtype == torch.bool and torch.equal(got[-1], want)
+    assert bool(want.any()) and not bool(want.all())
+
+
+@pytest.mark.parametrize("tile", [(1, 16), (8, 16), (16, 16), (16, 32), (16, 64), (32, 32), (128, 128)],
+                         ids=lambda t: f"{t[0]}x{t[1]}")
+@pytest.mark.parametrize("u", PORT_US)
+def test_port_only_launch_equals_plain(cuda, u, tile):
+    """F.inbatch_port_conflict is a port-only match launch (counted as a
+    standalone port launch, not as a match launch); the slice at tiles of
+    1 to 128 spec rows and 16 to 128 columns (those port_layout picks for
+    long port lists and beside term problems among them) gives the same
+    table."""
+    pods, pids = port_rows(u, u)
+    want = F.inbatch_port_conflict_plain(pods, pids)
+    before = (F.inbatch_port_conflict.launches, TO.match_terms.launches, TO.match_terms.port_tables)
+    got = F.inbatch_port_conflict(pods, pids)
+    assert (F.inbatch_port_conflict.launches, TO.match_terms.launches, TO.match_terms.port_tables) == (
+        before[0] + 1, before[1], before[2])
     assert torch.equal(got, want)
-    assert bool(want.any())
+    args, (out,) = TO.match_args([], (pods, pids))
+    lay = TO.port_layout(u, 8, tile=tile)
+    args.port.rows, args.port.cols, args.smem = lay["rows"], lay["cols"], lay["smem"]
+    assert args.count == 0 and args.port.rows == min(tile[0], u) and args.port.cols % 16 == 0
+    out.fill_(True)
+    build.launch(TO.MATCH_ENTRY, args, cuda)
+    torch.cuda.synchronize()
+    assert torch.equal(out, want)
+
+
+@pytest.mark.parametrize("pp", [120, 400])
+@pytest.mark.parametrize("u", [32, 128])
+def test_port_table_with_long_port_lists_equals_plain(cuda, u, pp):
+    """Long port lists: fewer spec rows a tile, and at PP = 400 more than
+    48 KB of shared memory a CTA; the table alone and beside a term
+    problem equals the plain version."""
+    na, ea, xa, ta, au, pa, ids = interpod_cluster(1, cuda)
+    pods, pids = port_rows(u + pp, u, pp)
+    want = F.inbatch_port_conflict_plain(pods, pids)
+    assert torch.equal(F.inbatch_port_conflict(pods, pids), want)
+    got = TO.match_terms_multi([(ta, ea["label_vals"], ea["ns_id"])], ports=(pods, pids))
+    assert torch.equal(got[0], TO.match_terms_plain(ta, ea["label_vals"], ea["ns_id"]))
+    assert torch.equal(got[1], want) and bool(want.any())
+    assert (TO.port_layout(u, pp)["smem"] > 48 * 1024) == (pp == 400)
+
+
+def test_port_table_with_no_live_port_is_all_false(cuda):
+    """bench.py's batches hold no host port: every pair false without a
+    test, in one launch beside the plan's matrices."""
+    na, ea, xa, ta, au, pa, ids = interpod_cluster(0, cuda)
+    pods = {k: torch.zeros_like(pa[k]) for k in ("port_num", "port_proto", "port_ip")}
+    *_, table = TO.match_terms_multi([(ta, pa["label_vals"], pa["ns_id"])], ports=(pods, ids))
+    assert table.shape == (pa["valid"].shape[0],) * 2 and not bool(table.any())
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_encoded_port_table_equals_plain(cuda, seed):
+    """On the inter-pod cluster's encoded spec rows (host ports from the
+    generator) the port-only launch and the plan's slice equal the plain
+    version."""
+    na, ea, xa, ta, au, pa, ids = interpod_cluster(seed, cuda)
+    want = F.inbatch_port_conflict_plain(pa, ids)
+    assert torch.equal(F.inbatch_port_conflict(pa, ids), want) and bool(want.any())
+    plan = PP.match_plan(pa, PP.DEFAULT_SOLVE_CONFIG, PP.PORTED_TERM_KINDS, ea=ea, ta=ta, xa=xa,
+                         track_inbatch=True, ids=ids)
+    assert torch.equal(plan["port_conflict"], want)
+    assert torch.equal(plan["m_bb"], TO.match_terms_plain(ta, pa["label_vals"], pa["ns_id"]))
 
 
 @pytest.mark.parametrize("det", [True, False], ids=["deterministic", "noise"])
@@ -929,7 +1031,8 @@ def test_arbiter_reads_solve_inputs_without_relaunching(cuda, track):
     """Given the dict its batch's solve filled, the arbiter launches only
     its own kernel where the solve computed the inputs (match_terms and
     the port table with the tracking; spread_filter's tables always), and
-    its verdicts equal the plain version's."""
+    its verdicts equal the plain version's. A tracked solve takes the port
+    table from its one match launch: no standalone port launch."""
     from kubernetes_tpu_torch.commit import arbiter as A
 
     na, ea, xa, ta, au, pa, ids, v = hard_spread_cluster(1, cuda)
@@ -939,13 +1042,18 @@ def test_arbiter_reads_solve_inputs_without_relaunching(cuda, track):
           "priority": (torch.arange(b, device=cuda) % 3).to(torch.int32)}
     kinds = frozenset({"spread_hard", "spread_soft", "anti_req", "pref", "et_anti", "et_score"})
     solved = {}
+    solve_before = (TO.match_terms.launches, TO.match_terms.port_tables, F.inbatch_port_conflict.launches)
     assign, _ = PP.solve_pipeline(na, pa, ids, SO.prng_key_data(1), pb=pb, term_kinds=kinds, track_inbatch=track,
                                   ea=ea, ta=ta, au=au, xa=xa, n_buckets=v, arbiter_inputs=solved)
+    solve_added = [a - b_ for a, b_ in zip((TO.match_terms.launches, TO.match_terms.port_tables,
+                                             F.inbatch_port_conflict.launches), solve_before)]
+    assert solve_added == ([1, 1, 0] if track else [1, 0, 0])  # the plan's one launch
     counters = (TO.match_terms, F.inbatch_port_conflict, F.combined_mask, TO.spread_filter, A.arbitrate)
-    before = [c.launches for c in counters]
+    before = [c.launches for c in counters] + [TO.match_terms.port_tables]
     got = A.arbitrate(na, pa, ea, ta, ids, assign, pb, term_kinds=kinds, n_buckets=v, inputs=solved)
-    added = [c.launches - n for c, n in zip(counters, before)]
-    assert added == ([0, 0, 0, 0, 1] if track else [1, 1, 0, 0, 1])
+    added = [c.launches - n for c, n in zip(counters, before)] + [TO.match_terms.port_tables - before[-1]]
+    # untracked: m_raw and pconf from ONE match launch holding the port table
+    assert added == ([0, 0, 0, 0, 1, 0] if track else [1, 0, 0, 0, 1, 1])
     want = A.arbitrate_plain(na, pa, ea, ta, ids, assign, pb, term_kinds=kinds, n_buckets=v)
     assert torch.equal(got, want)
 
@@ -1679,15 +1787,19 @@ def test_config4_drain_launches_one_match_a_batch(cuda):
         for p in pods:
             queue.add(p)
         launches, problems = TO.match_terms.launches, TO.match_terms.problems
+        tables, ports = TO.match_terms.port_tables, F.inbatch_port_conflict.launches
         res = sched.run_until_empty()
         sched.wait_for_binds()
-        batches = sched.stats["batches"]
+        batches, tracked = sched.stats["batches"], sched.stats["tracked_batches"]
         sched.close()
-        out[dev] = (res.assignments, TO.match_terms.launches - launches, TO.match_terms.problems - problems, batches)
-    assignments, launches, problems, batches = out["cuda"]
+        out[dev] = (res.assignments, TO.match_terms.launches - launches, TO.match_terms.problems - problems, batches,
+                    TO.match_terms.port_tables - tables, F.inbatch_port_conflict.launches - ports, tracked)
+    assignments, launches, problems, batches, tables, ports, tracked = out["cuda"]
     assert assignments == out["cpu"][0] and len(assignments) == 2000
     # the first batch finds no existing pod's terms: its plan holds two matrices
     assert launches == batches and 2 * batches <= problems <= 3 * batches
+    # every tracked batch's port table rides in its plan's launch
+    assert tracked > 0 and tables == tracked and ports == 0
 
 
 # --- the node mesh's cluster kernels -------------------------------------------
@@ -1833,6 +1945,62 @@ def test_sharded_fold_kernels_equal_plain(cuda, shards, case):
     assert torch.equal(req.cpu(), w_req) and torch.equal(cnt.cpu(), w_cnt)
     FO.fold_usage_sharded(shards, req, cnt, ctl[0].to(cuda), -ctl[1].to(cuda), -ctl[3].to(cuda))
     assert torch.equal(req.cpu(), banks[0]) and torch.equal(cnt.cpu(), banks[2])
+
+
+def _kernel_grids(fn, name):
+    """The launch grids of kernel `name` in a profiler trace of fn()."""
+    import json
+    import os
+    import tempfile
+
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(TRACED_CALLS):
+            fn()
+        torch.cuda.synchronize()
+    with tempfile.TemporaryDirectory() as d:
+        path = os.path.join(d, "trace.json")
+        prof.export_chrome_trace(path)
+        with open(path) as f:
+            events = json.load(f)["traceEvents"]
+    return [tuple(e["args"]["grid"]) for e in events
+            if e.get("ph") == "X" and e.get("cat") == "kernel" and name in e.get("name", "")]
+
+
+@pytest.mark.parametrize("shards", SHARDS)
+def test_sharded_commit_fold_is_one_element_grid(cuda, shards):
+    """The sharded commit launches the single fold's kernel on its element
+    grid, no y dimension (each element read once), and rows on either side
+    of every shard boundary, the padding sentinel and negative rows fold as
+    the plain version and the single-device fold them; a capacity that S
+    does not divide is refused before any launch."""
+    from kubernetes_tpu_torch.ops import fold as FO
+
+    g = torch.Generator().manual_seed(10 + shards)
+    n, r, s, pt, b, t = 64, 6, 40, 12, 2048, 600
+    banks, ctl = fold_case("carries", g, n, r, s, pt, b, t)
+    nl = n // shards
+    edges = torch.tensor(sorted({x for lo in range(0, n, nl) for x in (lo - 1, lo, lo + nl - 1) if 0 <= x < n}
+                                | {n, -1}), dtype=torch.int32)
+    ctl[0] = edges[torch.randint(0, len(edges), (b,), generator=g)]
+    ctl[5] = edges[torch.randint(0, len(edges), (t,), generator=g)]
+    got = [x.to(cuda) for x in banks]
+    single = [x.to(cuda) for x in banks]
+    dctl = [x.to(cuda) for x in ctl]
+    FO.fold_commit_sharded(shards, *got, *dctl)
+    FO.fold_commit_banks(*single, *dctl)
+    want = FO.fold_commit_sharded_plain(shards, *(x.clone() for x in banks), *ctl)
+    for a, w, o in zip(got, want, single):
+        assert torch.equal(a.cpu(), w) and torch.equal(a, o)
+    blocks = -(-(b * (r + 4) + t) // 256)
+    grids = _kernel_grids(lambda: FO.fold_commit_sharded(shards, *got, *dctl), "fold_commit_kernel")
+    assert grids and all(gr == (blocks, 1, 1) for gr in grids), grids
+    before = FO.fold_commit_sharded.launches
+    with pytest.raises(ValueError, match="not divisible"):
+        FO.fold_commit_sharded(3, *got, *dctl)
+    assert FO.fold_commit_sharded.launches == before
 
 
 def test_sharded_cluster_of_16_runs_or_is_refused(cuda):
